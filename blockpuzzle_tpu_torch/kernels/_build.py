@@ -1,0 +1,101 @@
+"""Build ``kernels/csrc/*.cu`` with nvcc into one shared library, load it.
+
+The sources have a plain C interface (no PyTorch headers), so one nvcc
+call builds them in seconds.  The library lands in ``kernels/_build/``
+(git-ignored) under a name that carries the hash of the sources and flags:
+an edited source builds anew, an unchanged one loads the existing file.
+Nothing is built at import; the first kernel launch calls ``library()``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+import torch
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry point -> argument types; every pointer and the stream are
+# c_void_p (ctypes would otherwise pass a 32-bit int and cut them).
+SIGNATURES = {
+    "bp_mask": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "bp_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found on PATH or under CUDA_HOME")
+    return path
+
+
+def library_path() -> pathlib.Path:
+    """Where the library for the current sources lives (built or not)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libbp_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> pathlib.Path:
+    """Compile the sources unless a library for them exists; return it.
+
+    nvcc's stderr (``-Xptxas -v``: registers, shared memory, spills per
+    kernel) is kept beside the library as ``<name>.log``."""
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *map(str, sorted(CSRC.glob("*.cu")))]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    so.with_suffix(".log").write_text(res.stderr)
+    os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
+    return so
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device`` with an explicit index for CUDA ("cuda" ->
+    "cuda:<current>"), so it compares equal to a tensor's device."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def check(err: int, name: str) -> None:
+    """Raise on a nonzero ``cudaGetLastError()`` returned by a C entry."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")

@@ -1,0 +1,279 @@
+"""The port's engine on the CPU against the JAX engine.
+
+Both engines get the same actions and the same injected deals (numpy, from
+a seed).  The JAX side is ``make_env(cfg, backend="pallas")``, whose
+kernels run in interpret mode on the CPU (``big`` uses the u8 jnp engine,
+which the JAX package holds bit-equal to it).  Boards, queues, masks,
+flags, lines cleared, legality and streaks are integers or bools and must
+be bit-equal.  Rewards are float32 and must be bit-equal too: they are
+small integer sums, computed in the same order as the JAX step.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from blockpuzzle_tpu import config as jcfg
+from blockpuzzle_tpu.env import make_env as jax_make_env
+from blockpuzzle_tpu_torch import config as tcfg
+from blockpuzzle_tpu_torch.env import make_env
+from blockpuzzle_tpu_torch.interop import state_from_numpy
+
+N = 8
+FIELDS = ("board", "queue", "action_mask", "reward", "terminated", "truncated")
+INFO = ("lines_cleared", "legal", "episode_return", "episode_length")
+
+
+def pick_actions(mask, rng, num_actions, wild=0.15):
+    """Uniform-legal actions, with a share of arbitrary ones (illegal and
+    out of range) mixed in."""
+    n = mask.shape[0]
+    a = np.zeros(n, np.int32)
+    for e in range(n):
+        legal = np.flatnonzero(mask[e])
+        a[e] = rng.choice(legal) if legal.size else 0
+    wild_rows = rng.random(n) < wild
+    a[wild_rows] = rng.integers(-3, num_actions + 3, wild_rows.sum())
+    return a
+
+
+def assert_same(tj, tt, t, extra=("streak",)):
+    for f in FIELDS:
+        np.testing.assert_array_equal(
+            tt.__dict__[f].numpy(), np.asarray(getattr(tj, f)), f"{f} t={t}")
+    for k in INFO + extra:
+        np.testing.assert_array_equal(
+            tt.info[k].numpy(), np.asarray(tj.info[k]), f"{k} t={t}")
+
+
+def run_lockstep(cfg_j, cfg_t, env_j, steps, seed, auto_reset=False):
+    rng = np.random.default_rng(seed)
+    env_t = make_env(cfg_t, device="cpu")
+    num_pieces = env_t.num_pieces
+    init = rng.integers(0, num_pieces, (N, cfg_t.queue_size)).astype(np.int32)
+    sj, tj = env_j.init(jax.random.key(0), N, deal_override=jnp.asarray(init))
+    st, tt = env_t.init(0, N, deal_override=init)
+    assert_same(tj, tt, -1, extra=())
+    step_j = jax.jit(lambda s, a, d: env_j.step(s, a, deal_override=d,
+                                                auto_reset=auto_reset))
+    for t in range(steps):
+        a = pick_actions(np.asarray(tj.action_mask), rng, env_t.num_actions)
+        d = rng.integers(0, num_pieces, (N, cfg_t.queue_size)).astype(np.int32)
+        sj, tj = step_j(sj, jnp.asarray(a), jnp.asarray(d))
+        st, tt = env_t.step(st, a, deal_override=d, auto_reset=auto_reset)
+        yield t, sj, tj, st, tt
+
+
+@pytest.mark.parametrize("preset", ["default", "tenten", "woodoku"])
+def test_step_parity_with_pallas_engine(preset):
+    cj, ct = jcfg.PRESETS[preset](), tcfg.PRESETS[preset]()
+    env_j = jax_make_env(cj, backend="pallas")
+    cleared = 0
+    for t, sj, tj, st, tt in run_lockstep(cj, ct, env_j, 20, seed=1):
+        assert_same(tj, tt, t)
+        cleared += int(tt.info["lines_cleared"].sum())
+        np.testing.assert_array_equal(st.board.numpy(), np.asarray(sj.board))
+    assert cleared > 0
+
+
+def test_step_parity_big_with_u8_engine():
+    cj, ct = jcfg.big_config(), tcfg.big_config()
+    env_j = jax_make_env(cj, state_impl="u8")
+    for t, sj, tj, st, tt in run_lockstep(cj, ct, env_j, 20, seed=2):
+        assert_same(tj, tt, t)
+
+
+@pytest.mark.parametrize("knobs", [
+    {"streak_bonus": 5.0, "max_steps": 9, "illegal_penalty": -1.0,
+     "terminal_penalty": -5.0},
+    {"queue_size": 2, "refill_batch": True, "piece_set": "mini5",
+     "height": 5, "width": 5, "streak_bonus": 3.0, "max_steps": 14,
+     "illegal_penalty": -0.5, "terminal_penalty": -2.0},
+], ids=["default+knobs", "mini5-5x5+knobs"])
+def test_step_parity_reward_knobs(knobs):
+    """streak_bonus, max_steps, both penalties and out-of-range actions
+    (pick_actions mixes them in), against the u8 jnp engine."""
+    cj = dataclasses.replace(jcfg.default_config(), **knobs)
+    ct = dataclasses.replace(tcfg.default_config(), **knobs)
+    env_j = jax_make_env(cj, state_impl="u8")
+    seen = {"streak": 0, "trunc": 0, "illegal": 0}
+    for t, sj, tj, st, tt in run_lockstep(cj, ct, env_j, 20, seed=3):
+        assert_same(tj, tt, t)
+        seen["streak"] = max(seen["streak"], int(tt.info["streak"].max()))
+        seen["trunc"] += int(tt.truncated.sum())
+        seen["illegal"] += int((~tt.info["legal"]).sum())
+        np.testing.assert_array_equal(st.score.numpy(), np.asarray(sj.score))
+    assert seen["trunc"] and seen["illegal"]
+    # the 5x5 board clears often enough that the streak bonus pays
+    assert seen["streak"] >= (2 if "piece_set" in knobs else 1)
+
+
+def test_auto_reset_reinitializes_done_envs():
+    """Twin of test_env_core.py::test_auto_reset_reinitializes_done_envs,
+    on the port alone: the reset deals come from the port's own stream."""
+    cfg = tcfg.default_config()
+    env = make_env(cfg, device="cpu")
+    state, ts = env.init(0, 4)
+    board = np.zeros((4, cfg.num_cells), np.uint8)
+    board[0, :] = 1
+    board[0, 0] = 0
+    board[0, 11] = 0
+    queue = state.queue.clone()
+    queue[0] = 10  # 3x3 square cannot fit
+    state = state.replace(board=env.encode_board(board), queue=queue)
+    state2, ts2 = env.step(state, torch.zeros(4, dtype=torch.int32))
+    assert bool(ts2.terminated[0])
+    assert int(state2.board[0].sum()) == 0
+    assert int(state2.steps[0]) == 0
+    assert int(state2.queue[0, 0]) < env.num_pieces
+    assert bool(ts2.action_mask[0].any())
+    assert int(state2.steps[1]) == 1
+    # the final_* fields hold the pre-reset view of the finished env
+    np.testing.assert_array_equal(ts2.info["final_board"][0].reshape(-1).numpy(),
+                                  board[0])
+    assert int(ts2.info["final_queue"][0, 0]) == 10
+    assert not bool(ts2.info["final_action_mask"][0].any())
+    np.testing.assert_array_equal(
+        ts2.action_mask[0].numpy(),
+        env._empty_board_mask(state2.queue[:1])[0].numpy())
+
+
+def test_auto_reset_non_done_envs_match_jax():
+    """With auto-reset on, finished envs redeal from each engine's own
+    stream; every env that is not done must still equal JAX.  After each
+    step the port's redealt hands are overwritten with JAX's, so the two
+    stay in lockstep."""
+    cj, ct = jcfg.default_config(), tcfg.default_config()
+    env_j = jax_make_env(cj, backend="pallas")
+    env_t = make_env(ct, device="cpu")
+    rng = np.random.default_rng(4)
+    sj, tj = env_j.init(jax.random.key(0), N)
+    st, tt = env_t.init(0, N, deal_override=np.array(sj.queue))
+    step_j = jax.jit(lambda s, a, d: env_j.step(s, a, deal_override=d))
+    dones = 0
+    for t in range(40):
+        a = pick_actions(np.asarray(tj.action_mask), rng, env_t.num_actions)
+        d = rng.integers(0, env_t.num_pieces, (N, 1)).astype(np.int32)
+        sj, tj = step_j(sj, jnp.asarray(a), jnp.asarray(d))
+        st, tt = env_t.step(st, a, deal_override=d)
+        done = np.array(tj.terminated | tj.truncated)
+        live = ~done
+        dones += int(done.sum())
+        for f in ("board", "queue", "action_mask"):
+            np.testing.assert_array_equal(
+                tt.__dict__[f].numpy()[live], np.asarray(getattr(tj, f))[live],
+                f"{f} t={t}")
+        for f in ("reward", "terminated", "truncated"):
+            np.testing.assert_array_equal(
+                tt.__dict__[f].numpy(), np.asarray(getattr(tj, f)), f"{f} t={t}")
+        for k in INFO + ("final_board", "final_queue", "final_action_mask"):
+            np.testing.assert_array_equal(
+                tt.info[k].numpy(), np.asarray(tj.info[k]), f"{k} t={t}")
+        for f in ("board", "steps", "score", "streak", "rng_counter"):
+            np.testing.assert_array_equal(
+                getattr(st, f).numpy(), np.asarray(getattr(sj, f)), f"{f} t={t}")
+        # finished envs: empty board, a fresh hand of the port's own stream
+        assert int(st.board[torch.as_tensor(done)].sum()) == 0
+        np.testing.assert_array_equal(
+            tt.action_mask.numpy()[done],
+            env_t._empty_board_mask(st.queue).numpy()[done])
+        st = st.replace(queue=torch.tensor(np.array(sj.queue)))
+    assert dones > 0
+
+
+def test_state_from_numpy_carries_a_mid_game_state():
+    """A JAX mid-game state, exported with np.asarray per field, steps the
+    same in both engines."""
+    cj, ct = jcfg.woodoku_config(), tcfg.woodoku_config()
+    env_j = jax_make_env(cj, backend="pallas")
+    env_t = make_env(ct, device="cpu")
+    rng = np.random.default_rng(5)
+    sj, tj = env_j.init(jax.random.key(3), N)
+    for _ in range(6):
+        a = pick_actions(np.asarray(tj.action_mask), rng, env_t.num_actions, 0)
+        sj, tj = env_j.step(sj, jnp.asarray(a), auto_reset=False)
+    fields = {k: np.asarray(getattr(sj, k)) for k in
+              ("board", "queue", "rng_counter", "steps", "score", "streak")}
+    st = state_from_numpy(fields, ct, "cpu", seed=11)
+    for k, v in fields.items():
+        np.testing.assert_array_equal(getattr(st, k).numpy(), v)
+    np.testing.assert_array_equal(
+        env_t.action_mask(st.board, st.queue).numpy(), np.asarray(tj.action_mask))
+    for t in range(6):
+        a = pick_actions(np.asarray(tj.action_mask), rng, env_t.num_actions)
+        d = rng.integers(0, env_t.num_pieces, (N, 3)).astype(np.int32)
+        sj, tj = env_j.step(sj, jnp.asarray(a), deal_override=jnp.asarray(d),
+                            auto_reset=False)
+        st, tt = env_t.step(st, a, deal_override=d, auto_reset=False)
+        assert_same(tj, tt, t)
+    with pytest.raises(ValueError):
+        state_from_numpy({**fields, "board": fields["board"][:, :10]}, ct,
+                         "cpu", seed=0)
+
+
+def test_partial_reset_and_reset():
+    cfg = tcfg.tenten_config()
+    env = make_env(cfg, device="cpu")
+    state, ts = env.init(0, 6)
+    rng = np.random.default_rng(6)
+    for _ in range(4):
+        a = pick_actions(ts.action_mask.numpy(), rng, env.num_actions, 0)
+        state, ts = env.step(state, a)
+    m = torch.tensor([True, False, True, False, False, True])
+    new, ts2 = env.partial_reset(state, m)
+    assert int(new.board[m].sum()) == 0 and bool((new.steps[m] == 0).all())
+    for f in ("board", "queue", "steps", "score", "streak"):
+        assert torch.equal(getattr(new, f)[~m], getattr(state, f)[~m]), f
+    assert torch.equal(new.rng_counter, state.rng_counter + 1)
+    assert torch.equal(ts2.action_mask, env.action_mask(new.board, new.queue))
+    assert torch.equal(ts2.info["episode_length"], new.steps)
+    full, ts3 = env.reset(new)
+    assert int(full.board.sum()) == 0 and int(full.steps.sum()) == 0
+    assert torch.equal(full.rng_counter, new.rng_counter + 1)
+    assert torch.equal(ts3.action_mask, env._empty_board_mask(full.queue))
+    # the tag-1 substream differs from the fused step's draw at one counter
+    assert not torch.equal(full.queue, new.queue)
+
+
+def test_empty_board_mask_matches_jax_init():
+    for preset in ("default", "woodoku", "big"):
+        cj, ct = jcfg.PRESETS[preset](), tcfg.PRESETS[preset]()
+        env_j = jax_make_env(cj, state_impl="u8")
+        env_t = make_env(ct, device="cpu")
+        q = np.arange(N * ct.queue_size).reshape(N, -1) % (env_t.num_pieces + 1)
+        _, tj = env_j.init(jax.random.key(0), N,
+                           deal_override=jnp.asarray(q, jnp.int32))
+        _, tt = env_t.init(0, N, deal_override=q)
+        np.testing.assert_array_equal(tt.action_mask.numpy(),
+                                      np.asarray(tj.action_mask))
+        np.testing.assert_array_equal(
+            env_t.action_mask(tt.board.reshape(N, -1), tt.queue).numpy(),
+            np.asarray(tj.action_mask))
+
+
+def test_encode_board_and_board_obs():
+    cfg = tcfg.woodoku_config()
+    env = make_env(cfg, device="cpu")
+    cells = np.array([[0, 2, 1] + [0] * 78])
+    b = env.encode_board(cells)
+    assert b.dtype == torch.uint8 and b.tolist()[0][:3] == [0, 1, 1]
+    assert env.board_obs(b).shape == (1, 9, 9)
+    assert torch.equal(env.encode_board(env.board_obs(b)), b)
+
+
+def test_make_env_accepts_only_the_ported_engine():
+    for kw, item in (({"state_impl": "packed"}, "A2"),
+                     ({"backend": "jnp"}, "A8"), ({"backend": "hybrid"}, "A8")):
+        with pytest.raises(NotImplementedError, match=item):
+            make_env(device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        make_env(tcfg.EnvConfig(obs_planes=True), device="cpu")
+    with pytest.raises(ValueError):
+        make_env(device="cpu", backend="nope")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_env()

@@ -1,0 +1,61 @@
+"""Seeded oracle trajectories replayed through the port (twin of
+tests/test_parity.py, through blockpuzzle_tpu_torch.cli.parity).
+
+The oracle's deal stream is injected with ``auto_reset=False``; boards,
+queues, masks, rewards and termination must be bit-equal to the oracle's
+and episode returns equal, with zero mismatches.
+"""
+
+import dataclasses
+
+import pytest
+
+from blockpuzzle_tpu_torch import config as tcfg
+from blockpuzzle_tpu_torch.cli import parity
+from blockpuzzle_tpu_torch.env import make_env
+
+SEEDS = {"default": [0, 1, 17], "tenten": [0, 5], "woodoku": [0, 9], "big": [0]}
+
+
+def _cfg(preset, **knobs):
+    return dataclasses.replace(tcfg.PRESETS[preset](), **knobs)
+
+
+@pytest.mark.parametrize("preset", sorted(SEEDS))
+def test_check_seed_zero_mismatches(preset):
+    ct = _cfg(preset)
+    env = make_env(ct, device="cpu")
+    for seed in SEEDS[preset]:
+        r = parity.check_seed(ct, seed, 256, env=env)
+        assert r["mismatches"] == [], (seed, r["mismatches"])
+        assert r["oracle_return"] == r["device_return"]
+        assert r["steps"] > 0
+
+
+@pytest.mark.parametrize("preset", sorted(SEEDS))
+def test_batched_lockstep_zero_mismatches(preset):
+    ct = _cfg(preset)
+    r = parity.check_batched_lockstep(ct, make_env(ct, device="cpu"),
+                                      [0, 1, 2, 3], 256)
+    assert r["mismatches"] == [] and r["returns_equal"]
+    assert r["episodes"] == 4
+
+
+@pytest.mark.parametrize("knobs", [
+    {"max_steps": 12},
+    {"piece_set": "mini5", "queue_size": 2, "refill_batch": True},
+    {"height": 5, "width": 5, "piece_set": "mini5", "streak_bonus": 7.0},
+], ids=["truncation", "mini5-hand2", "streak"])
+def test_check_seed_config_knobs(knobs):
+    ct = _cfg("default", **knobs)
+    env = make_env(ct, device="cpu")
+    for seed in (0, 3):
+        r = parity.check_seed(ct, seed, 300, env=env)
+        assert r["mismatches"] == [] and r["oracle_return"] == r["device_return"]
+
+
+def test_parity_cli_exit_codes(capsys):
+    assert parity.main(["--preset", "tenten", "--seeds", "2"]) == 0
+    assert parity.main(["--seeds", "3", "--batch"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("PASS (bit-exact)") == 2

@@ -1,0 +1,224 @@
+"""The port's rollout path: CLI, random streams, sampler, and (on a card)
+each kernel against its plain version.
+
+This file imports no JAX at module level, so the ``gpu`` tests run on a
+machine without it: ``python -m pytest --noconftest -m gpu
+tests/test_torch_rollout.py``.  Everything compared is integer or bool
+and must be bit-equal.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from blockpuzzle_tpu_torch import PRESETS, make_env
+from blockpuzzle_tpu_torch.cli import rollout as rollout_cli
+from blockpuzzle_tpu_torch.env import rng
+from blockpuzzle_tpu_torch.sampler import UniformLegalSampler, uniform_legal
+
+M32 = (1 << 32) - 1
+
+
+def _mix32_ref(x: int) -> int:
+    """Pure-Python mix32 on unbounded ints, the reference for the int64
+    tensor version."""
+    x ^= x >> 16
+    x = (x * 0x21F0AAAD) & M32
+    x ^= x >> 15
+    x = (x * 0xD35A2D97) & M32
+    return x ^ (x >> 15)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the CPU has only the plain versions)")
+    return torch.device("cuda")
+
+
+# ---------------------------------------------------------------- CLI ----
+
+
+def test_rollout_cli_runs_and_is_deterministic(capsys):
+    argv = ["--device", "cpu", "--num-envs", "8", "--steps", "30",
+            "--preset", "tenten", "--seed", "3"]
+    assert rollout_cli.main(argv) == 0
+    assert rollout_cli.main(argv) == 0
+    first, second = capsys.readouterr().out.strip().splitlines()
+    drop_rate = lambda line: [f for f in line.split("|") if "steps/s" not in f]
+    assert drop_rate(first) == drop_rate(second)
+    assert first.startswith("240 env-steps (chunks of 30)")
+    assert first.endswith("device cpu")
+
+
+def test_rollout_function_same_seed_same_state():
+    env = make_env(PRESETS["woodoku"](), device="cpu")
+    a = rollout_cli.rollout(env, 6, 10, 2, seed=5)
+    b = rollout_cli.rollout(env, 6, 10, 2, seed=5)
+    c = rollout_cli.rollout(env, 6, 10, 2, seed=6)
+    for f in ("board", "queue", "rng_counter", "score"):
+        assert torch.equal(getattr(a["state"], f), getattr(b["state"], f))
+    assert a["reward"] == b["reward"] and len(a["rates"]) == 2
+    assert not torch.equal(a["state"].board, c["state"].board)
+    assert int(a["state"].rng_counter[0]) == 1 + 3 * 10
+
+
+def test_rollout_cli_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this checks the failure without a card")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        rollout_cli.main(["--num-envs", "2", "--steps", "1"])
+
+
+# ---------------------------------------------------------------- RNG ----
+
+
+def test_mix32_and_mul32_match_unbounded_ints():
+    vals = [0, 1, 2, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE, M32, 0x12345678,
+            0xDEADBEEF] + list(np.random.default_rng(0).integers(0, 1 << 32, 500))
+    x = torch.tensor([int(v) for v in vals], dtype=torch.int64)
+    got = rng.mix32(x).tolist()
+    assert got == [_mix32_ref(int(v)) for v in vals]
+    for c in (0x21F0AAAD, 0xD35A2D97, M32):
+        assert rng._mul32(x, c).tolist() == [(int(v) * c) & M32 for v in vals]
+
+
+def test_mix32_is_a_bijection_on_a_sample():
+    x = torch.arange(0, 1 << 20, dtype=torch.int64) * 4093
+    y = rng.mix32(x & M32)
+    assert y.unique().numel() == x.numel()
+    assert int(y.min()) >= 0 and int(y.max()) <= M32
+
+
+def test_stream_keys_distinct_and_deterministic():
+    k = rng.stream_keys(7, 50000, "cpu")
+    assert k.unique().numel() == 50000 and int(k.min()) >= 0
+    assert torch.equal(k, rng.stream_keys(7, 50000, "cpu"))
+    assert not torch.equal(k[:100], rng.stream_keys(8, 100, "cpu"))
+    assert torch.equal(k[:10], rng.stream_keys(7, 10, "cpu"))
+
+
+@pytest.mark.parametrize("num_pieces", [19, 5])
+def test_deal_ids_in_range_and_roughly_uniform(num_pieces):
+    key = rng.stream_keys(0, 4096, "cpu")
+    ids = torch.cat([rng.deal(key, c, rng.TAG_STEP, 6, num_pieces)
+                     for c in range(8)])
+    assert ids.dtype == torch.int32
+    assert int(ids.min()) == 0 and int(ids.max()) == num_pieces - 1
+    counts = torch.bincount(ids.reshape(-1).long(), minlength=num_pieces).double()
+    expect = ids.numel() / num_pieces
+    chi2 = float(((counts - expect) ** 2 / expect).sum())
+    # 99.9% quantile of chi-square with 18 (resp. 4) degrees of freedom
+    assert chi2 < {19: 42.31, 5: 18.47}[num_pieces], chi2
+
+
+def test_draws_depend_on_counter_tag_and_lane_only():
+    key = rng.stream_keys(1, 64, "cpu")
+    ctr = torch.full((64,), 9, dtype=torch.int32)
+    a = rng.bits(key, ctr, rng.TAG_STEP, 6)
+    assert torch.equal(a, rng.bits(key, 9, rng.TAG_STEP, 6))
+    assert torch.equal(a[:, :3], rng.bits(key, 9, rng.TAG_STEP, 3))
+    assert torch.equal(a[10:20], rng.bits(key[10:20], 9, rng.TAG_STEP, 6))
+    assert (a != rng.bits(key, 10, rng.TAG_STEP, 6)).float().mean() > 0.99
+    # the reset substream differs from the step draw at the same counter
+    assert (a[:, :3] != rng.bits(key, 9, rng.TAG_RESET, 3)).float().mean() > 0.99
+    assert (a != rng.bits(key, 9, rng.TAG_POLICY, 6)).float().mean() > 0.99
+    with pytest.raises(ValueError):
+        rng.bits(key, 0, 0, 1 << 17)
+
+
+def test_counter_grows_and_auto_reset_never_replays_a_stream():
+    env = make_env(PRESETS["default"](), device="cpu")
+    n, steps = 16, 300
+    state, ts = env.init(2, n)
+    sampler = UniformLegalSampler(3, n, "cpu")
+    episodes = [[[]] for _ in range(n)]
+    for t in range(steps):
+        before = state.rng_counter.clone()
+        state, ts = env.step(state, sampler(ts.action_mask))
+        assert torch.equal(state.rng_counter, before + 1)
+        for e in range(n):
+            if bool(ts.done[e]):
+                episodes[e].append([])
+            episodes[e][-1].append(int(state.queue[e, 0]))
+    assert int(state.rng_counter[0]) == 1 + steps
+    resets = 0
+    for eps in episodes:
+        heads = [tuple(ep[:8]) for ep in eps if len(ep) >= 8]
+        resets += len(eps) - 1
+        assert len(set(heads)) == len(heads), "an episode replayed a deal stream"
+    assert resets > n
+
+
+# ------------------------------------------------------------ sampler ----
+
+
+def test_uniform_legal_matches_the_jax_formula():
+    """Same mask and the same u32 draws into both frameworks: the same
+    actions, ties and all-illegal rows included."""
+    import jax.numpy as jnp
+
+    r = np.random.default_rng(0)
+    mask = r.random((64, 300)) < 0.1
+    mask[0] = False                                  # no legal action
+    bits = r.integers(0, 1 << 32, (64, 300), dtype=np.uint64).astype(np.uint32)
+    bits[1] = 7                                      # ties everywhere
+    bits[2, :] = 0                                   # all-zero draws
+    want = np.asarray(jnp.argmax(
+        jnp.where(jnp.asarray(mask), jnp.asarray(bits) | jnp.uint32(1),
+                  jnp.uint32(0)), axis=-1))
+    got = uniform_legal(torch.as_tensor(mask),
+                        torch.as_tensor(bits.astype(np.int64)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got[0] == 0 and got[1] == np.flatnonzero(mask[1])[0]
+
+
+def test_sampler_picks_legal_actions_uniformly():
+    n, a = 2000, 40
+    mask = torch.zeros(n, a, dtype=torch.bool)
+    mask[:, ::4] = True                              # 10 legal actions
+    s = UniformLegalSampler(0, n, "cpu")
+    picks = torch.cat([s(mask) for _ in range(5)])
+    assert bool(mask[0, picks].all())
+    counts = torch.bincount(picks, minlength=a)[::4].double()
+    chi2 = float(((counts - 1000) ** 2 / 1000).sum())
+    assert chi2 < 27.88                              # chi-square 9 dof, 99.9%
+    again = UniformLegalSampler(0, n, "cpu")
+    assert torch.equal(torch.cat([again(mask) for _ in range(5)]), picks)
+
+
+# ---------------------------------------------------------------- card ---
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("preset", ["default", "tenten", "woodoku"])
+def test_kernels_match_plain_versions_on_the_card(preset, cuda_device):
+    from blockpuzzle_tpu_torch import rules
+    from blockpuzzle_tpu_torch.kernels import ApplyKernel, MaskKernel
+
+    cfg = PRESETS[preset]()
+    t = rules.tables_for(cfg)
+    r = np.random.default_rng(0)
+    n = 4099                                         # ragged
+    board = (r.random((n, cfg.num_cells)) < 0.35).astype(np.uint8)
+    board.reshape(n, cfg.height, cfg.width)[::5, 2, :] = 1
+    queue = r.integers(0, t.num_pieces + 1, (n, cfg.queue_size)).astype(np.int32)
+    g = r.integers(0, t.cover.shape[0], n)
+    board, queue, cover, valid = (torch.as_tensor(x, device=cuda_device)
+                                  for x in (board, queue, t.cover[g], t.valid[g]))
+    mk, ak = MaskKernel(cfg, cuda_device), ApplyKernel(cfg, cuda_device)
+    assert torch.equal(mk(board, queue), mk.plain(board, queue))
+    for o, p in zip(ak(board, cover, valid), ak.plain(board, cover, valid)):
+        assert torch.equal(o, p)
+    torch.cuda.synchronize()
+    assert mk.launches == 1 and ak.launches == 1
+
+
+@pytest.mark.gpu
+def test_cuda_rollout_matches_cpu_rollout(cuda_device):
+    cfg = PRESETS["tenten"]()
+    a = rollout_cli.rollout(make_env(cfg, device=cuda_device), 256, 16, 1, seed=4)
+    b = rollout_cli.rollout(make_env(cfg, device="cpu"), 256, 16, 1, seed=4)
+    for f in ("board", "queue", "rng_counter", "steps", "score", "streak"):
+        assert torch.equal(getattr(a["state"], f).cpu(), getattr(b["state"], f))
+    assert a["reward"] == b["reward"]
