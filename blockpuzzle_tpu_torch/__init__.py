@@ -2,8 +2,9 @@
 
 A batched BlockPuzzle engine for NVIDIA Hopper: the same game, state layout
 and step semantics as the JAX package, with its Pallas kernels rewritten
-as hand CUDA kernels (``kernels/``).  It imports neither JAX nor the JAX
-package, and registers no Gymnasium ids.
+as hand CUDA kernels (``kernels/``), and the PPO learner on top of it
+(``learn/``).  It imports neither JAX nor the JAX package, and registers
+no Gymnasium ids.
 """
 
 from blockpuzzle_tpu_torch.config import PRESETS, EnvConfig

@@ -17,11 +17,14 @@ def make_env(
     backend: str = "pallas",
     state_impl: str = "u8",
 ) -> VecBlockPuzzle:
-    """The u8-board engine whose hand mask and action apply are the port's
-    kernels (the JAX engine's ``backend="pallas"`` configuration).
+    """The u8-board engine (``state_impl="u8"``) on ``device``.
 
-    The JAX engine's other configurations are not ported yet and raise
-    ``NotImplementedError`` naming the ROADMAP.md item that brings them.
+    ``backend`` is ``"pallas"`` (the chosen action goes through the apply
+    kernel), ``"jnp"`` or ``"hybrid"`` (torch collision test, then the
+    clear kernel); all three give the same bits (see ``VecBlockPuzzle``).
+    The packed layout and piece-plane observations are not ported yet and
+    raise ``NotImplementedError`` naming the ROADMAP.md item that brings
+    them.
     """
     if cfg is None:
         cfg = EnvConfig()
@@ -32,19 +35,12 @@ def make_env(
         )
     if state_impl != "u8":
         raise ValueError(f"unknown state_impl {state_impl!r}")
-    if backend in ("jnp", "hybrid"):
-        raise NotImplementedError(
-            f"backend={backend!r} is ROADMAP.md A8 (u8 jnp step and the "
-            "legality surfaces)"
-        )
-    if backend != "pallas":
-        raise ValueError(f"unknown backend {backend!r}")
     if cfg.obs_planes:
         raise NotImplementedError("obs_planes is ROADMAP.md A9")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but CUDA is not available")
-    return VecBlockPuzzle(cfg, device)
+    return VecBlockPuzzle(cfg, device, backend)
 
 
 __all__ = ["EnvState", "TimeStep", "VecBlockPuzzle", "make_env"]

@@ -1,12 +1,15 @@
 """Batched BlockPuzzle engine in PyTorch: init/reset/partial_reset/step.
 
 The port of ``blockpuzzle_tpu/env/core.py`` ``VecBlockPuzzle`` for
-``state_impl="u8"`` (boards as (N, H*W) uint8 cells) and
-``backend="pallas"``: the two hand kernels of that configuration carry the
-step here too, as CUDA kernels (``kernels/``): ``MaskKernel`` builds the
-hand mask, ``ApplyKernel`` tests, places and clears the chosen action.
-Everything around them is plain torch on the engine's device, and one step
-never waits for the device (no ``.item()``, no branch on tensor values).
+``state_impl="u8"`` (boards as (N, H*W) uint8 cells), with the four hand
+CUDA kernels of ``kernels/``: ``MaskKernel`` builds the hand mask on every
+backend; ``backend="pallas"`` tests, places and clears the chosen action
+in ``ApplyKernel``; ``backend="jnp"`` and ``"hybrid"`` do the collision
+test and the masked place in torch and the clear in ``ClearScanKernel``
+(``clear_scan``); ``legal_all_pieces`` is ``LegalityKernel``.  All
+backends give the same bits.  Everything around the kernels is plain torch
+on the engine's device, and one step never waits for the device (no
+``.item()``, no branch on tensor values).
 
 Deals come from the counter-based streams of ``env/rng.py``; comparisons
 with JAX inject the deal stream through ``deal_override``, as the JAX
@@ -24,19 +27,39 @@ from blockpuzzle_tpu_torch import rules
 from blockpuzzle_tpu_torch.config import EnvConfig
 from blockpuzzle_tpu_torch.env import rng
 from blockpuzzle_tpu_torch.env.state import EnvState, TimeStep
-from blockpuzzle_tpu_torch.kernels import ApplyKernel, MaskKernel, _build
+from blockpuzzle_tpu_torch.kernels import (
+    ApplyKernel,
+    ClearScanKernel,
+    LegalityKernel,
+    MaskKernel,
+    _build,
+)
+from blockpuzzle_tpu_torch.kernels.collision import place_and_clear
+
+BACKENDS = ("pallas", "jnp", "hybrid")
 
 
 class VecBlockPuzzle:
     """Vectorized BlockPuzzle over a batched (N, H*W) uint8 board tensor.
 
     The instance holds the configuration, its tables on ``device`` and the
-    two kernel wrappers (``mask_kernel``, ``apply_kernel``); the methods
-    are functions of the state they are given.
+    four kernel wrappers (``mask_kernel``, ``apply_kernel``,
+    ``clear_kernel``, ``legal_kernel``); the methods are functions of the
+    state they are given.
+
+    ``backend`` picks how ``step`` applies the chosen action: ``"pallas"``
+    through the apply kernel, as the JAX engine's ``backend="pallas"``
+    does; ``"jnp"`` and ``"hybrid"`` through the torch collision test and
+    the clear kernel, as the JAX u8 jnp step does.  The JAX engine's
+    ``"hybrid"`` differs from its ``"jnp"`` only in the mask, which is the
+    mask kernel on every backend here, so the two run the same code.
     """
 
-    def __init__(self, cfg: EnvConfig, device="cuda") -> None:
+    def __init__(self, cfg: EnvConfig, device="cuda", backend="pallas") -> None:
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}")
         self.cfg = cfg
+        self.backend = backend
         self.device = _build.resolve_device(device)
         t = rules.tables_for(cfg)
         self.num_pieces = t.num_pieces
@@ -64,6 +87,8 @@ class VecBlockPuzzle:
         )[None, :]                                                     # (1, S)
         self.mask_kernel = MaskKernel(cfg, self.device)
         self.apply_kernel = ApplyKernel(cfg, self.device)
+        self.clear_kernel = ClearScanKernel(cfg, self.device)
+        self.legal_kernel = LegalityKernel(cfg, self.device)
 
     # ------------------------------------------------------------------
     # tables and masks
@@ -78,6 +103,17 @@ class VecBlockPuzzle:
     def action_mask(self, board: torch.Tensor, queue: torch.Tensor) -> torch.Tensor:
         """(N, S*HW) bool legal-action mask for the current hand."""
         return self.mask_kernel(board, queue)
+
+    def legal_all_pieces(self, board: torch.Tensor) -> torch.Tensor:
+        """(N, P, HW) bool: legality of every piece at every anchor (the
+        legality kernel; an inspection surface, not on the step)."""
+        return self.legal_kernel(board)
+
+    def clear_scan(self, board: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Simultaneous full-line (and region) clear of (N, HW) u8 boards:
+        (cleared (N, HW) u8, k (N,) i32 lines and regions cleared).  Every
+        full line is found before any is cleared (the clear kernel)."""
+        return self.clear_kernel(board)
 
     def _empty_board_mask(self, queue: torch.Tensor) -> torch.Tensor:
         """Action mask for a fresh (empty) board: a table lookup."""
@@ -267,8 +303,13 @@ class VecBlockPuzzle:
 
         cover_row = (in_rect(0) | in_rect(1)).to(torch.uint8)
 
-        # -- collision check + masked place + clear (kernel) --------------
-        board_next, k, legal = self.apply_kernel(state.board, cover_row, valid_a)
+        # -- collision check + masked place + clear (kernels) -------------
+        if self.backend == "pallas":
+            board_next, k, legal = self.apply_kernel(state.board, cover_row, valid_a)
+        else:
+            board_next, k, legal = place_and_clear(
+                state.board, cover_row, valid_a, self.clear_scan
+            )
 
         # -- reward: same float32 operations in the same order as JAX -----
         kf = k.to(torch.float32)

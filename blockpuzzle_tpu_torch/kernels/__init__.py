@@ -6,7 +6,16 @@ from ``csrc/`` at first use) or raises, and counts each launch in its
 ``launches`` attribute, a plain int.
 """
 
-from blockpuzzle_tpu_torch.kernels.collision import ApplyKernel, apply_plain
+from blockpuzzle_tpu_torch.kernels.clear import ClearScanKernel, clear_plain
+from blockpuzzle_tpu_torch.kernels.collision import (
+    ApplyKernel,
+    LegalityKernel,
+    apply_plain,
+    legality_plain,
+)
 from blockpuzzle_tpu_torch.kernels.mask import MaskKernel, mask_plain
 
-__all__ = ["ApplyKernel", "MaskKernel", "apply_plain", "mask_plain"]
+__all__ = [
+    "ApplyKernel", "ClearScanKernel", "LegalityKernel", "MaskKernel",
+    "apply_plain", "clear_plain", "legality_plain", "mask_plain",
+]

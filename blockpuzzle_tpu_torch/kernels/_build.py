@@ -1,7 +1,8 @@
 """Build ``kernels/csrc/*.cu`` with nvcc into one shared library, load it.
 
-The sources have a plain C interface (no PyTorch headers), so one nvcc
-call builds them in seconds.  The library lands in ``kernels/_build/``
+The sources have a plain C interface (no PyTorch headers), so nvcc builds
+them in seconds: one compile per source, all started together, then one
+link.  The library lands in ``kernels/_build/``
 (git-ignored) under a name that carries the hash of the sources and flags:
 an edited source builds anew, an unchanged one loads the existing file.
 Nothing is built at import; the first kernel launch calls ``library()``.
@@ -21,9 +22,9 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -32,6 +33,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "bp_mask": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bp_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "bp_clear": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "bp_legality": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -58,19 +61,41 @@ def library_path() -> pathlib.Path:
 def build() -> pathlib.Path:
     """Compile the sources unless a library for them exists; return it.
 
-    nvcc's stderr (``-Xptxas -v``: registers, shared memory, spills per
-    kernel) is kept beside the library as ``<name>.log``."""
+    Each ``*.cu`` compiles to an object in its own nvcc process, all
+    started together; one more nvcc links them.  The compilers' stderr
+    (``-Xptxas -v``: registers, shared memory, spills per kernel) is kept
+    beside the library as ``<name>.log``."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
+    tmp = so.with_name(f"{tag}.tmp")
+    try:
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+            )
+            for src, obj in zip(srcs, objs)
+        ]
+        logs = [p.communicate()[1] for p in procs]
+        for p, log in zip(procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}):\n{log}")
+        res = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True,
+        )
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    so.with_suffix(".log").write_text(res.stderr)
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
+    so.with_suffix(".log").write_text("".join(logs) + res.stderr)
     os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
     return so
 

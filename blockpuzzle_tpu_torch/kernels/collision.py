@@ -1,17 +1,25 @@
-"""Chosen-action apply: CUDA kernel (``csrc/collision.cu``) and its plain
-version.
+"""Placement collision: CUDA kernels and their plain versions.
 
-The port of ``ApplyKernel`` (``blockpuzzle_tpu/kernels/collision.py``):
-overlap test of the chosen footprint, masked place, and the simultaneous
-clear of every full row, column and region, all found on the placed board.
-Outputs ``(new_board (N, HW) u8, k (N,) i32, legal (N,) bool)``; an illegal
-action is a strict no-op with k = 0, even on a board that already holds a
-full line.
+The port of ``blockpuzzle_tpu/kernels/collision.py``, whose two kernels
+sit here together as they do there:
+
+* ``LegalityKernel`` (``csrc/legality.cu``): legality of every (piece,
+  anchor) on each board, ``(N, P, HW)`` bool: the piece lies in bounds
+  there and covers no occupied cell.
+* ``ApplyKernel`` (``csrc/collision.cu``): overlap test of the chosen
+  footprint, masked place, and the simultaneous clear of every full row,
+  column and region, all found on the placed board.  Outputs
+  ``(new_board (N, HW) u8, k (N,) i32, legal (N,) bool)``; an illegal
+  action is a strict no-op with k = 0, even on a board that already holds
+  a full line.
+
+``piece_table`` is the per-piece footprint table of the legality and mask
+kernels.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Tuple
 
 import numpy as np
 import torch
@@ -19,30 +27,116 @@ import torch
 from blockpuzzle_tpu_torch import rules
 from blockpuzzle_tpu_torch.config import EnvConfig
 from blockpuzzle_tpu_torch.kernels import _build
-
-# (hw + L) bytes of shared memory per warp, four warps a block, must stay
-# under the 48 KB a launch gets without opting in to more
-_MAX_SMEM_PER_WARP = 48 * 1024 // 4
+from blockpuzzle_tpu_torch.kernels.clear import LineTables, clear_plain
 
 
-def line_masks(cfg: EnvConfig) -> np.ndarray:
-    """(L, HW) uint8 membership of every row, column (and region)."""
+def piece_table(cfg: EnvConfig) -> np.ndarray:
+    """(P, 3 + max_cells) int32 rows ``[h, w, ncells, dr*W + dc ...]``:
+    each piece's bounding box and the flat offsets of its cells from the
+    anchor."""
     t = rules.tables_for(cfg)
-    parts = [t.row_masks, t.col_masks]
-    if cfg.region_clear:
-        parts.append(t.region_masks)
-    return np.concatenate(parts, axis=0)
+    max_cells = int(t.piece_cells.max())
+    table = np.zeros((t.num_pieces, 3 + max_cells), np.int32)
+    for p in range(t.num_pieces):
+        offs = [dr * cfg.width + dc for dr, dc in np.argwhere(t.pieces[p])]
+        table[p, :3] = (t.piece_h[p], t.piece_w[p], len(offs))
+        table[p, 3 : 3 + len(offs)] = offs
+    return table
 
 
-def line_cell_table(masks: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """(L, max_len) int32 flat cell indices of each line (zero-padded) and
-    (L,) int32 line lengths: the kernel's form of ``masks``."""
-    lens = masks.sum(axis=1).astype(np.int32)
-    cells = np.zeros((masks.shape[0], int(lens.max())), np.int32)
-    for line, row in enumerate(masks):
-        idx = np.flatnonzero(row)
-        cells[line, : idx.size] = idx
-    return cells, lens
+# ---------------------------------------------------------------------------
+# all-anchors legality map
+# ---------------------------------------------------------------------------
+
+
+def legality_plain(
+    board: torch.Tensor, cover_t: torch.Tensor, valid: torch.Tensor
+) -> torch.Tensor:
+    """Plain torch version (``LegalityKernel.reference``): occupied-cell
+    counts under every (piece, anchor) footprint as one matmul, then
+    ``counts == 0 & valid``; returns (N, P, HW) bool.
+
+    ``cover_t``: (HW, P*HW) float32 footprints; ``valid``: (P*HW,) bool."""
+    n, hw = board.shape
+    counts = board.to(torch.float32) @ cover_t                  # (N, P*HW)
+    return ((counts == 0) & valid).view(n, -1, hw)
+
+
+class LegalityKernel:
+    """Config-bound all-(piece, anchor) legality on one device.
+
+    ``__call__(board (N, HW) u8) -> (N, P, HW) bool``.  For CPU tensors it
+    runs ``legality_plain``; for CUDA tensors it launches the kernel
+    (``launches`` counts those launches) or raises.
+    """
+
+    def __init__(self, cfg: EnvConfig, device="cpu"):
+        t = rules.tables_for(cfg)
+        self.cfg = cfg
+        self.device = _build.resolve_device(device)
+        self.num_pieces = t.num_pieces
+        self.launches = 0
+        self.piece_table = torch.as_tensor(piece_table(cfg), device=self.device)
+        self.cover_t = torch.as_tensor(
+            t.cover.T.astype(np.float32), device=self.device
+        )
+        self.valid = torch.as_tensor(t.valid, device=self.device)
+
+    def plain(self, board: torch.Tensor) -> torch.Tensor:
+        return legality_plain(board, self.cover_t, self.valid)
+
+    def __call__(self, board: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        n = board.shape[0]
+        if board.device != self.device:
+            raise ValueError(
+                f"tensor on {board.device}, kernel tables on {self.device}"
+            )
+        if board.shape != (n, cfg.num_cells) or board.dtype != torch.uint8:
+            raise ValueError(f"board must be (N, {cfg.num_cells}) uint8")
+        if self.device.type == "cpu":
+            return self.plain(board)
+        if self.device.type != "cuda":
+            raise ValueError(f"no legality kernel for device {self.device}")
+        if not board.is_contiguous():
+            raise ValueError("board must be contiguous")
+        out = torch.empty(
+            (n, self.num_pieces, cfg.num_cells), dtype=torch.bool,
+            device=self.device,
+        )
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        with torch.cuda.device(self.device):
+            err = _build.library().bp_legality(
+                board.data_ptr(), self.piece_table.data_ptr(), out.data_ptr(),
+                n, cfg.height, cfg.width, self.num_pieces,
+                self.piece_table.shape[1] - 3, stream,
+            )
+        _build.check(err, "bp_legality")
+        self.launches += 1
+        return out
+
+
+# ---------------------------------------------------------------------------
+# chosen-action apply (collision + place + clear)
+# ---------------------------------------------------------------------------
+
+
+def place_and_clear(
+    board: torch.Tensor,
+    cover: torch.Tensor,
+    valid: torch.Tensor,
+    clear: Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]],
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Overlap test, masked place, ``clear(placed) -> (cleared, k)``, and
+    the strict no-op of an illegal action: the operations of the JAX u8
+    jnp step (``core.py`` ``step``), in its order."""
+    overlap = (board & cover).to(torch.int32).sum(dim=1)
+    legal = valid & (overlap == 0)
+    placed = torch.where(legal[:, None], board | cover, board)
+    cleared, k = clear(placed)
+    new_board = torch.where(legal[:, None], cleared, board)
+    k = torch.where(legal, k, 0).to(torch.int32)
+    return new_board, k, legal
 
 
 def apply_plain(
@@ -51,18 +145,9 @@ def apply_plain(
     valid: torch.Tensor,
     masks: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain torch version (``ApplyKernel.reference``): line occupancy and
-    cleared cells as two products with the (L, HW) float32 line ``masks``."""
-    overlap = (board & cover).to(torch.int32).sum(dim=1)
-    legal = valid & (overlap == 0)
-    placed = torch.where(legal[:, None], board | cover, board)
-    occ = placed.to(torch.float32) @ masks.T                      # (N, L)
-    full = occ == masks.sum(dim=1)
-    clear_cells = full.to(torch.float32) @ masks                  # (N, HW)
-    cleared = torch.where(clear_cells > 0, 0, placed).to(torch.uint8)
-    new_board = torch.where(legal[:, None], cleared, board)
-    k = torch.where(legal, full.sum(dim=1).to(torch.int32), 0).to(torch.int32)
-    return new_board, k, legal
+    """Plain torch version (``ApplyKernel.reference``): ``place_and_clear``
+    with ``clear_plain`` over the (L, HW) float32 line ``masks``."""
+    return place_and_clear(board, cover, valid, lambda b: clear_plain(b, masks))
 
 
 class ApplyKernel:
@@ -77,16 +162,10 @@ class ApplyKernel:
         self.cfg = cfg
         self.device = _build.resolve_device(device)
         self.launches = 0
-        masks = line_masks(cfg)
-        cells, lens = line_cell_table(masks)
-        self.masks = torch.as_tensor(masks.astype(np.float32), device=self.device)
-        self.line_cells = torch.as_tensor(cells, device=self.device)
-        self.line_len = torch.as_tensor(lens, device=self.device)
-        if cfg.num_cells + masks.shape[0] > _MAX_SMEM_PER_WARP:
-            raise ValueError(f"board of {cfg.num_cells} cells is too large")
+        self.lines = LineTables(cfg, self.device)
 
     def plain(self, board, cover, valid):
-        return apply_plain(board, cover, valid, self.masks)
+        return apply_plain(board, cover, valid, self.lines.masks)
 
     def __call__(
         self, board: torch.Tensor, cover: torch.Tensor, valid: torch.Tensor
@@ -110,6 +189,7 @@ class ApplyKernel:
             raise ValueError(f"no apply kernel for device {self.device}")
         if not all(x.is_contiguous() for x in (board, cover, valid)):
             raise ValueError("board, cover and valid must be contiguous")
+        lines = self.lines
         new_board = torch.empty_like(board)
         k = torch.empty(n, dtype=torch.int32, device=self.device)
         legal = torch.empty(n, dtype=torch.bool, device=self.device)
@@ -117,9 +197,9 @@ class ApplyKernel:
         with torch.cuda.device(self.device):
             err = _build.library().bp_apply(
                 board.data_ptr(), cover.data_ptr(), valid.data_ptr(),
-                self.line_cells.data_ptr(), self.line_len.data_ptr(),
+                lines.line_cells.data_ptr(), lines.line_len.data_ptr(),
                 new_board.data_ptr(), k.data_ptr(), legal.data_ptr(),
-                n, hw, self.line_cells.shape[0], self.line_cells.shape[1],
+                n, hw, lines.line_cells.shape[0], lines.line_cells.shape[1],
                 stream,
             )
         _build.check(err, "bp_apply")

@@ -12,7 +12,8 @@
 // Design: one thread per (env, slot, anchor), flat over N*S*HW, so any N
 // works and the ragged edge is one bounds test.  Each thread reads its
 // piece's (h, w, cell offsets) row from a small table (P rows of 3+maxc
-// int32, L1-resident) and tests at most maxc (9 for classic19) board bytes.
+// int32, L1-resident) and tests at most maxc (9 for classic19) board bytes
+// (`piece_fits`, piece_fits.cuh, shared with the legality kernel).
 //
 // Bound on the H100: device memory.  Per env it reads the HW-byte board
 // and S int32 piece ids and writes S*HW bool bytes: 204 B per env on the
@@ -24,6 +25,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "piece_fits.cuh"
 
 namespace {
 
@@ -44,14 +47,8 @@ __global__ void mask_kernel(const uint8_t* __restrict__ board,
   const int pid = queue[env_slot];
   bool legal = false;
   if (pid >= 0 && pid < num_pieces) {
-    const int32_t* row = piece_table + pid * (3 + max_cells);
-    const int r = anchor / width;
-    const int c = anchor - r * width;
-    if (r + row[0] <= height && c + row[1] <= width) {
-      const uint8_t* cells = board + env * hw + anchor;
-      legal = true;
-      for (int j = 0; j < row[2]; ++j) legal &= cells[row[3 + j]] == 0;
-    }
+    legal = piece_fits(board + env * hw, piece_table + pid * (3 + max_cells),
+                       anchor, height, width);
   }
   out[i] = legal;
 }

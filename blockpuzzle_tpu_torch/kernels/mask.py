@@ -3,7 +3,8 @@
 The port of ``blockpuzzle_tpu/kernels/mask.py`` (``MaskKernel``).  Anchor
 (r, c) of slot s is legal iff the slot holds a piece, the piece lies in
 bounds there and covers no occupied cell; the result is the engine's
-``action_mask``: (N, S*HW) bool, slot-major then row-major anchor.
+``action_mask``: (N, S*HW) bool, slot-major then row-major anchor.  It is
+the legality map of ``collision.py`` read at each slot's piece.
 """
 
 from __future__ import annotations
@@ -14,20 +15,7 @@ import torch
 from blockpuzzle_tpu_torch import rules
 from blockpuzzle_tpu_torch.config import EnvConfig
 from blockpuzzle_tpu_torch.kernels import _build
-
-
-def piece_table(cfg: EnvConfig) -> np.ndarray:
-    """(P, 3 + max_cells) int32 rows ``[h, w, ncells, dr*W + dc ...]``:
-    each piece's bounding box and the flat offsets of its cells from the
-    anchor (the kernel's only table)."""
-    t = rules.tables_for(cfg)
-    max_cells = int(t.piece_cells.max())
-    table = np.zeros((t.num_pieces, 3 + max_cells), np.int32)
-    for p in range(t.num_pieces):
-        offs = [dr * cfg.width + dc for dr, dc in np.argwhere(t.pieces[p])]
-        table[p, :3] = (t.piece_h[p], t.piece_w[p], len(offs))
-        table[p, 3 : 3 + len(offs)] = offs
-    return table
+from blockpuzzle_tpu_torch.kernels.collision import legality_plain, piece_table
 
 
 def mask_plain(
@@ -36,16 +24,14 @@ def mask_plain(
     cover_t: torch.Tensor,
     valid: torch.Tensor,
 ) -> torch.Tensor:
-    """Plain torch version: occupied-cell counts under every (piece,
-    anchor) footprint as one matmul, ``counts == 0 & valid``, then each
-    slot's piece row (an all-False row for the empty sentinel).
+    """Plain torch version: ``legality_plain``, then each slot's piece row
+    (an all-False row for the empty sentinel).
 
     ``cover_t``: (HW, P*HW) float32 footprints; ``valid``: (P*HW,) bool."""
     n, hw = board.shape
     s = queue.shape[1]
-    num_pieces = valid.shape[0] // hw
-    counts = board.to(torch.float32) @ cover_t                  # (N, P*HW)
-    legal_all = ((counts == 0) & valid).view(n, num_pieces, hw)
+    legal_all = legality_plain(board, cover_t, valid)
+    num_pieces = legal_all.shape[1]
     legal_all = torch.cat([legal_all, legal_all.new_zeros(n, 1, hw)], dim=1)
     in_set = (queue >= 0) & (queue < num_pieces)
     pid = torch.where(in_set, queue, num_pieces).to(torch.int64)

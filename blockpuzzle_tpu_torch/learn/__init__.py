@@ -1,0 +1,6 @@
+"""On-device learners of the port: PPO with the mlp torso."""
+
+from blockpuzzle_tpu_torch.learn.networks import ActorCritic
+from blockpuzzle_tpu_torch.learn.ppo import PPO, PPOConfig, TrainState, default_hypers
+
+__all__ = ["ActorCritic", "PPO", "PPOConfig", "TrainState", "default_hypers"]

@@ -1,0 +1,154 @@
+#!/usr/bin/env python3
+"""Measurements of the PyTorch + CUDA port on one card, beyond the smoke run.
+
+    python3 chip_measure.py
+
+Needs one CUDA card and nvcc.  Prints the card's name and power limit,
+then, each line tagged with its part:
+
+  build     cold builds of ``kernels/csrc/*.cu`` in turns: one nvcc over
+            all sources, then one nvcc per source started together and a
+            link (``_build.build``), then the same two in reverse order;
+  train     one PPO update of the training path (``chip_smoke.TRAIN_ARGV``:
+            default preset, N = 4096, T = 64, mlp_width 512) on the host's
+            clock, twice: the update, a rollout alone and GAE alone; then
+            one update under ``torch.profiler``: device kernels, device
+            time, the device's busy share of an unprofiled update, and the
+            largest device items;
+  rollout   the rollout at N = 49152 on the default preset on the
+            apply-kernel step and the clear-kernel step, in turns pallas,
+            jnp, jnp, pallas (median of 3 windows of 200 steps each).
+
+Cold builds go to a temporary directory under the git-ignored
+``kernels/_build/``, removed at the end.
+"""
+
+from __future__ import annotations
+
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+
+import chip_smoke
+
+
+def build_times() -> None:
+    from blockpuzzle_tpu_torch.kernels import _build
+
+    root = _build.BUILD_DIR / "cold"
+    srcs = [str(s) for s in sorted(_build.CSRC.glob("*.cu"))]
+    default_dir = _build.BUILD_DIR
+    try:
+        for i, how in enumerate(("one nvcc", "per source", "per source", "one nvcc")):
+            out = root / str(i)
+            out.mkdir(parents=True)
+            t0 = time.perf_counter()
+            if how == "one nvcc":
+                subprocess.run(
+                    [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                     str(out / "lib.so"), *srcs],
+                    check=True, capture_output=True,
+                )
+            else:
+                _build.BUILD_DIR = out
+                _build.build()
+                _build.BUILD_DIR = default_dir
+            print(f"[build] {how}, {len(srcs)} sources, cold: "
+                  f"{time.perf_counter() - t0:.3f} s")
+    finally:
+        _build.BUILD_DIR = default_dir
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def device_busy_us(events) -> float:
+    """Length of the union of the events' time ranges, in µs."""
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted((ev.time_range.start, ev.time_range.end) for ev in events):
+        if s > end:
+            busy += e - s
+        elif e > end:
+            busy += e - end
+        end = max(end, e)
+    return busy
+
+
+def train_breakdown(card: str) -> None:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from blockpuzzle_tpu_torch.cli import train
+
+    args = train.build_parser().parse_args(chip_smoke.TRAIN_ARGV)
+    learner = train.build(args)
+    hypers = train.ppo_hypers(args, 0)
+    state = learner.init(args.seed)
+    state, _ = learner.update(state, hypers)             # warm-up
+    torch.cuda.synchronize()
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    update_ms = []
+    for _ in range(2):
+        (state, _), u_ms = timed(lambda: learner.update(state, hypers))
+        (_, batch, last, _), r_ms = timed(lambda: learner._rollout(state))
+        _, g_ms = timed(lambda: learner._gae(batch, last))
+        update_ms.append(u_ms)
+        print(f"[train] update {u_ms:.3f} ms, a rollout alone {r_ms:.3f} ms, "
+              f"GAE alone {g_ms:.3f} ms ({card})")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        learner.update(state, hypers)
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not device:
+        print("[train] the profiler saw no device events: device time not measured")
+        return
+    total = sum(e.time_range.elapsed_us() for e in device)
+    busy = device_busy_us(device)
+    print(f"[train] profiled update: {len(device)} device kernels, "
+          f"{total / 1e3:.3f} ms device time, busy {busy / 1e3:.3f} ms = "
+          f"{100 * busy / 1e3 / statistics.mean(update_ms):.1f}% of an "
+          "unprofiled update")
+    by_name = {}
+    for e in device:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
+        print(f"[train]   {us / 1e3:8.3f} ms  {n:6d}x  {name[:90]}")
+
+
+def rollout_turns(card: str) -> None:
+    from blockpuzzle_tpu_torch import PRESETS, make_env
+    from blockpuzzle_tpu_torch.cli.rollout import rollout
+
+    for backend in ("pallas", "jnp", "jnp", "pallas"):
+        env = make_env(PRESETS["default"](), device="cuda", backend=backend)
+        r = rollout(env, chip_smoke.N_MAIN, 200, 3, seed=0)
+        print(f"[rollout] {backend} step, N={chip_smoke.N_MAIN}: median "
+              f"{statistics.median(r['rates']):.1f} env-steps/s ({card})")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_measure: no CUDA device; nothing was run")
+    card = chip_smoke.card_line()
+    print(card)
+    print(f"[setup] python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}")
+    build_times()
+    train_breakdown(card)
+    rollout_turns(card)
+    print(f"[done] {card}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -9,19 +9,33 @@ which raises on failure (non-zero exit, no result line):
 
   0. card name and power limit, torch/CUDA versions, compute capability,
      kernel build time;
-  1. each kernel against its plain torch version on the card, bit-equal,
-     at N = 49152 and a ragged N = 49151 on the default, tenten and woodoku
-     presets, plus an illegal action on a board holding a full line; then
-     each kernel's time beside the plain version's (CUDA events);
+  1. each of the four kernels (mask, apply, clear, legality) against its
+     plain torch version on the card, bit-equal, at N = 49152 and a ragged
+     N = 49151 on the default, tenten and woodoku presets, plus an illegal
+     action on a board holding a full line; then each kernel's time beside
+     the plain version's (CUDA events);
   2. the whole rollout on CUDA and on CPU from one seed (N = 1024, 64
-     steps, live deals, auto-reset): final states and summed rewards
-     bit-equal, each kernel launched exactly once per step;
-  3. the main path: the rollout entry point at N = 49152 on the default
-     preset, one warm-up chunk then 5 timed windows of 400 steps, with the
-     launch counters set to 0 before it and read after it.
+     steps, live deals, auto-reset) on the apply-kernel step
+     (``backend="pallas"``) and on the clear-kernel step (``"jnp"``):
+     final states and summed rewards bit-equal across devices and across
+     the two steps, each kernel of a step launched exactly once per step;
+     then ``legal_all_pieces`` on the final boards against its plain
+     version and the hand mask;
+  3. the rollout path: the rollout entry point at N = 49152 on the default
+     preset, one warm-up chunk then 5 timed windows of 400 steps; then the
+     inspection entry point ``legal_all_pieces`` on its final boards.  The
+     launch counters are set to 0 before each and read after each;
+  4. the training path: ``cli/train.py`` (PPO, mlp torso, u8 boards, the
+     clear-kernel step) at full width on the default preset, N = 4096,
+     T = 64, 3 updates, with the launch counters set to 0 before it and
+     read after it; then one rollout alone, timed; then a fresh network
+     at the same widths on CUDA and its copy on the CPU over one
+     minibatch of a CUDA rollout.
 
 The last two lines are the per-kernel JSON record and
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is the count
+on the path named in its ``path`` (the training path for the kernels it
+runs); ``launches_by_path`` gives the count on every path read.
 """
 
 from __future__ import annotations
@@ -34,12 +48,36 @@ import time
 
 N_MAIN = 49152
 PRESETS_CHECKED = ("default", "tenten", "woodoku")
+# kernel -> (source, the TPU kernel it replaces, the path its launches
+# are read from)
 KERNEL_INFO = {
     "mask": ("blockpuzzle_tpu_torch/kernels/csrc/mask.cu",
-             "blockpuzzle_tpu/kernels/mask.py:84"),
+             "blockpuzzle_tpu/kernels/mask.py:85", "train"),
     "apply": ("blockpuzzle_tpu_torch/kernels/csrc/collision.cu",
-              "blockpuzzle_tpu/kernels/collision.py:163"),
+              "blockpuzzle_tpu/kernels/collision.py:164", "rollout"),
+    "clear": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
+              "blockpuzzle_tpu/kernels/clear.py:93", "train"),
+    "legality": ("blockpuzzle_tpu_torch/kernels/csrc/legality.cu",
+                 "blockpuzzle_tpu/kernels/collision.py:50", "legal_all_pieces"),
 }
+TRAIN_ARGV = ["--torso", "mlp", "--state-impl", "u8", "--preset", "default",
+              "--num-envs", "4096", "--rollout-len", "64", "--mlp-width", "512",
+              "--epochs", "2", "--minibatches", "4", "--updates", "3",
+              "--log-every", "1", "--seed", "0", "--device", "cuda"]
+
+
+def kernel_wrappers(env) -> dict:
+    return {"mask": env.mask_kernel, "apply": env.apply_kernel,
+            "clear": env.clear_kernel, "legality": env.legal_kernel}
+
+
+def zero_counts(env) -> None:
+    for k in kernel_wrappers(env).values():
+        k.launches = 0
+
+
+def read_counts(env) -> dict:
+    return {name: k.launches for name, k in kernel_wrappers(env).items()}
 
 
 def card_line() -> str:
@@ -68,9 +106,10 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 
 
 def kernel_inputs(cfg, n: int, seed: int):
-    """Boards with some full lines and near-full rows, hands with empty
-    slots, and chosen footprints that are legal, illegal, out of bounds,
-    or complete a row, as numpy arrays."""
+    """Boards with some full lines, full 3x3 regions (cleared on woodoku)
+    and near-full rows, hands with empty slots, and chosen footprints that
+    are legal, illegal, out of bounds, or complete a row, as numpy
+    arrays."""
     import numpy as np
 
     from blockpuzzle_tpu_torch import rules
@@ -84,6 +123,7 @@ def kernel_inputs(cfg, n: int, seed: int):
     grid[1::7, :, 5] = 1                              # full columns
     grid[2::7, 4, :] = 1                              # row 4 full but
     grid[2::7, 4, 0] = 0                              # its first cell
+    grid[3::7, 0:3, 0:3] = 1                          # full 3x3 regions
     queue = rs.integers(0, t.num_pieces + 1, (n, cfg.queue_size)).astype(np.int32)
     g = rs.integers(0, t.cover.shape[0], n)           # random (piece, anchor)
     g[2::7] = 4 * cfg.width                           # 1x1 at (4, 0): clears
@@ -111,39 +151,50 @@ def max_abs_err(got, want) -> int:
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
 
+def check_equal(outs, refs, what: str, errs: dict, name: str) -> None:
+    import torch
+
+    for o, r in zip(outs, refs):
+        errs[name] = max(errs[name], max_abs_err(o, r))
+        if not torch.equal(o, r):
+            raise AssertionError(f"{name} kernel != plain ({what})")
+
+
 def phase1(card: str) -> dict:
     import torch
 
     from blockpuzzle_tpu_torch.config import PRESETS
-    from blockpuzzle_tpu_torch.kernels import ApplyKernel, MaskKernel
+    from blockpuzzle_tpu_torch.kernels import (
+        ApplyKernel, ClearScanKernel, LegalityKernel, MaskKernel,
+    )
 
     dev = torch.device("cuda")
-    errs = {"mask": 0, "apply": 0}
+    errs = {name: 0 for name in KERNEL_INFO}
     times = {}
     for name in PRESETS_CHECKED:
         cfg = PRESETS[name]()
         mk, ak = MaskKernel(cfg, dev), ApplyKernel(cfg, dev)
+        ck, lk = ClearScanKernel(cfg, dev), LegalityKernel(cfg, dev)
         for n in (N_MAIN, N_MAIN - 1):
             board, queue, cover, valid = (
                 torch.as_tensor(x, device=dev)
                 for x in kernel_inputs(cfg, n, seed=n)
             )
-            got, want = mk(board, queue), mk.plain(board, queue)
-            errs["mask"] = max(errs["mask"], max_abs_err(got, want))
-            if not torch.equal(got, want):
-                raise AssertionError(f"mask kernel != plain ({name}, N={n})")
-            outs, refs = ak(board, cover, valid), ak.plain(board, cover, valid)
-            for o, r, what in zip(outs, refs, ("board", "k", "legal")):
-                errs["apply"] = max(errs["apply"], max_abs_err(o, r))
-                if not torch.equal(o, r):
-                    raise AssertionError(
-                        f"apply kernel {what} != plain ({name}, N={n})"
-                    )
-            legal = outs[2]
-            print(f"[phase1] {name} N={n}: mask legal share "
+            what = f"{name}, N={n}"
+            got = mk(board, queue)
+            check_equal([got], [mk.plain(board, queue)], what, errs, "mask")
+            outs = ak(board, cover, valid)
+            check_equal(outs, ak.plain(board, cover, valid), what, errs, "apply")
+            cleared = ck(board)
+            check_equal(cleared, ck.plain(board), what, errs, "clear")
+            legal_all = lk(board)
+            check_equal([legal_all], [lk.plain(board)], what, errs, "legality")
+            print(f"[phase1] {what}: mask legal share "
                   f"{float(got.float().mean()):.4f}, apply legal "
-                  f"{int(legal.sum())}, lines cleared {int(outs[1].sum())}: "
-                  "kernel == plain (bit-equal)")
+                  f"{int(outs[2].sum())}, lines cleared {int(outs[1].sum())}; "
+                  f"clear k {int(cleared[1].sum())}; legality share "
+                  f"{float(legal_all.float().mean()):.4f}: kernel == plain "
+                  "(bit-equal)")
             b2, c2, v2 = (
                 torch.as_tensor(x, device=dev) for x in illegal_on_full_line(cfg, n)
             )
@@ -159,6 +210,10 @@ def phase1(card: str) -> dict:
                              cuda_ms(lambda: mk.plain(board, queue)))
             times["apply"] = (cuda_ms(lambda: ak(board, cover, valid)),
                               cuda_ms(lambda: ak.plain(board, cover, valid)))
+            times["clear"] = (cuda_ms(lambda: ck(board)),
+                              cuda_ms(lambda: ck.plain(board)))
+            times["legality"] = (cuda_ms(lambda: lk(board)),
+                                 cuda_ms(lambda: lk.plain(board)))
     for k, (ms, plain_ms) in times.items():
         print(f"[phase1] {k} N={N_MAIN} default: kernel {ms:.6f} ms, plain "
               f"{plain_ms:.6f} ms ({card})")
@@ -167,59 +222,99 @@ def phase1(card: str) -> dict:
                 "plain_ms": times[k][1]} for k in errs}
 
 
-def phase2() -> None:
+def hand_rows(legal_all, queue):
+    """The (N, S*HW) hand mask read off the (N, P, HW) legality map (an
+    all-False row for the empty sentinel)."""
+    import torch
+
+    n, num_pieces, hw = legal_all.shape
+    padded = torch.cat([legal_all, legal_all.new_zeros(n, 1, hw)], dim=1)
+    pid = queue.clamp(0, num_pieces).to(torch.int64)
+    return padded.gather(1, pid[:, :, None].expand(-1, -1, hw)).reshape(n, -1)
+
+
+def phase2() -> int:
+    """Returns the maximum absolute error of ``legal_all_pieces`` against
+    its plain version."""
     import torch
 
     from blockpuzzle_tpu_torch import PRESETS, make_env
     from blockpuzzle_tpu_torch.sampler import UniformLegalSampler
 
     n, steps = 1024, 64
+    fields = ("board", "queue", "base_key", "rng_counter", "steps", "score",
+              "streak")
+    expect = {"pallas": {"mask": steps, "apply": steps, "clear": 0, "legality": 0},
+              "jnp": {"mask": steps, "apply": 0, "clear": steps, "legality": 0}}
+    err = 0
     for name in PRESETS_CHECKED:
-        finals, rewards = {}, {}
-        for dev in ("cuda", "cpu"):
-            env = make_env(PRESETS[name](), device=dev)
-            state, ts = env.init(7, n)
-            sampler = UniformLegalSampler(8, n, env.device)
-            total = torch.zeros((), dtype=torch.float64, device=env.device)
-            for _ in range(steps):
-                state, ts = env.step(state, sampler(ts.action_mask))
-                total = total + ts.reward.sum(dtype=torch.float64)
-            if dev == "cuda":
-                counts = (env.mask_kernel.launches, env.apply_kernel.launches)
-                if counts != (steps, steps):
-                    raise AssertionError(f"launch counts {counts} != {steps}")
-            finals[dev] = state.to("cpu")
-            rewards[dev] = float(total)
-        for field in ("board", "queue", "base_key", "rng_counter", "steps",
-                      "score", "streak"):
-            a, b = getattr(finals["cuda"], field), getattr(finals["cpu"], field)
-            if not torch.equal(a, b):
-                raise AssertionError(f"{name}: final {field} differs CUDA vs CPU")
-        if rewards["cuda"] != rewards["cpu"]:
-            raise AssertionError(f"{name}: summed rewards differ {rewards}")
-        print(f"[phase2] {name} N={n} {steps} steps: CUDA == CPU final state "
-              f"(bit-equal), summed reward {rewards['cuda']}, launches "
-              f"mask={steps} apply={steps}")
+        finals, rewards, envs = {}, {}, {}
+        for backend in ("pallas", "jnp"):
+            for dev in ("cuda", "cpu"):
+                env = make_env(PRESETS[name](), device=dev, backend=backend)
+                state, ts = env.init(7, n)
+                sampler = UniformLegalSampler(8, n, env.device)
+                total = torch.zeros((), dtype=torch.float64, device=env.device)
+                for _ in range(steps):
+                    state, ts = env.step(state, sampler(ts.action_mask))
+                    total = total + ts.reward.sum(dtype=torch.float64)
+                if dev == "cuda":
+                    counts = read_counts(env)
+                    if counts != expect[backend]:
+                        raise AssertionError(
+                            f"{backend} launch counts {counts} != {expect[backend]}")
+                    envs[backend] = (env, state)
+                finals[backend, dev] = state.to("cpu")
+                rewards[backend, dev] = float(total)
+        for a, b in ((("pallas", "cuda"), ("pallas", "cpu")),
+                     (("jnp", "cuda"), ("jnp", "cpu")),
+                     (("jnp", "cuda"), ("pallas", "cuda"))):
+            for field in fields:
+                if not torch.equal(getattr(finals[a], field), getattr(finals[b], field)):
+                    raise AssertionError(f"{name}: final {field} differs {a} vs {b}")
+            if rewards[a] != rewards[b]:
+                raise AssertionError(f"{name}: summed rewards differ {a} vs {b}")
+        print(f"[phase2] {name} N={n} {steps} steps: pallas CUDA == CPU, jnp "
+              f"CUDA == CPU, jnp CUDA == pallas CUDA (final states bit-equal), "
+              f"summed reward {rewards['jnp', 'cuda']}, launches per step "
+              "mask=1 apply=1 (pallas) / mask=1 clear=1 (jnp)")
+        env, state = envs["jnp"]
+        legal_all = env.legal_all_pieces(state.board)
+        err = max(err, max_abs_err(legal_all, env.legal_kernel.plain(state.board)))
+        if not torch.equal(legal_all, env.legal_kernel.plain(state.board)):
+            raise AssertionError(f"{name}: legal_all_pieces != plain")
+        if not torch.equal(hand_rows(legal_all, state.queue),
+                           env.action_mask(state.board, state.queue)):
+            raise AssertionError(f"{name}: legal_all_pieces hand rows != action_mask")
+        print(f"[phase2] {name}: legal_all_pieces on the final boards == plain, "
+              "hand rows == action_mask")
+    return err
 
 
-def phase3(card: str) -> dict:
+def phase3(card: str) -> tuple:
+    """Returns the launch counts of the rollout path and of the
+    ``legal_all_pieces`` entry point."""
     import torch
 
     from blockpuzzle_tpu_torch import PRESETS, make_env
     from blockpuzzle_tpu_torch.cli.rollout import rollout
 
     env = make_env(PRESETS["default"](), device="cuda")
-    kernels = {"mask": env.mask_kernel, "apply": env.apply_kernel}
-    for k in kernels.values():
-        k.launches = 0
     chunk, windows = 400, 5
+    zero_counts(env)
     r = rollout(env, N_MAIN, chunk, windows, seed=0)
-    launches = {name: k.launches for name, k in kernels.items()}
-    expect = (windows + 1) * chunk
-    for name, count in launches.items():
-        if count != expect:
-            raise AssertionError(f"{name} launched {count} times, expected {expect}")
+    launches = read_counts(env)
+    steps = (windows + 1) * chunk
+    expect = {"mask": steps, "apply": steps, "clear": 0, "legality": 0}
+    if launches != expect:
+        raise AssertionError(f"rollout path launches {launches} != {expect}")
     s = r["state"]
+    zero_counts(env)
+    legal_all = env.legal_all_pieces(s.board)
+    inspect = read_counts(env)
+    expect = {"mask": 0, "apply": 0, "clear": 0, "legality": 1}
+    if inspect != expect:
+        raise AssertionError(f"legal_all_pieces launches {inspect} != {expect}")
     num_pieces = env.num_pieces
     if s.board.shape != (N_MAIN, env.cfg.num_cells) or int(s.board.max()) > 1:
         raise AssertionError("final boards malformed")
@@ -227,6 +322,9 @@ def phase3(card: str) -> dict:
         raise AssertionError("final queues out of range")
     if not bool(torch.isfinite(s.score).all()):
         raise AssertionError("non-finite scores")
+    if not torch.equal(hand_rows(legal_all, s.queue),
+                       env.mask_kernel.plain(s.board, s.queue)):
+        raise AssertionError("legal_all_pieces hand rows != the hand mask")
     mean_return = r["episode_return"] / max(r["episodes"], 1)
     # uniform-legal play on the default preset returns ~78 per episode
     if r["episodes"] == 0 or not 60.0 < mean_return < 100.0:
@@ -237,7 +335,111 @@ def phase3(card: str) -> dict:
           f"{[round(x) for x in rates]}")
     print(f"[phase3] median {statistics.median(rates):.1f} env-steps/s "
           f"({card}); episodes {r['episodes']}, mean return {mean_return:.3f}; "
+          f"launches {launches}; legal_all_pieces on the final boards: "
+          f"launches {inspect}")
+    return launches, inspect
+
+
+def learner_cuda_vs_cpu(learner, state) -> None:
+    """A fresh network at the path's widths on CUDA and its copy on the
+    CPU, over one minibatch of a CUDA rollout, with the tolerances of
+    ``tests/test_torch_ppo.py``: logits and values within abs 2e-2
+    (masked logits exactly ``NEG_INF``), the loss and its metrics within
+    1e-2 relative, each gradient within 2e-2 relative L2."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from blockpuzzle_tpu_torch.learn.networks import NEG_INF
+
+    cfg = learner.cfg
+    net = learner.make_net(torch.Generator().manual_seed(1))
+    cpu_net = copy.deepcopy(net).cpu()
+    _, batch, last_value, _ = learner._rollout(state.replace(net=net))
+    adv, ret = (x.flatten() for x in learner._gae(batch, last_value))
+    rows = cfg.num_envs * cfg.rollout_len // cfg.num_minibatches
+    mb = batch.map(lambda x: x.flatten(0, 1)[:rows])
+    # old log-probs moved off the network's, so that the ratios are not 1
+    dev = learner.env.device
+    gen = torch.Generator(device=dev).manual_seed(2)
+    noise = torch.randn(rows, generator=gen, device=dev)
+    mb = dataclasses.replace(mb, log_prob=mb.log_prob + 0.1 * noise)
+    outs = []
+    for m, dev in ((net, dev), (cpu_net, "cpu")):
+        b = mb.map(lambda x: x.to(dev))
+        with torch.no_grad():
+            logits, value = m(b.board, b.queue, b.action_mask)
+        m.zero_grad(set_to_none=True)
+        loss, metrics = learner._loss(m, b, adv[:rows].to(dev), ret[:rows].to(dev))
+        loss.backward()
+        outs.append((logits.cpu(), value.cpu(),
+                     {k: float(v) for k, v in metrics.items()},
+                     {n: p.grad.cpu() for n, p in m.named_parameters()}))
+    (lg, vg, mg, gg), (lc, vc, mc, gc) = outs
+    legal = mb.action_mask.cpu()
+    if not bool((lg[~legal] == NEG_INF).all() and (lc[~legal] == NEG_INF).all()):
+        raise AssertionError("masked logits are not NEG_INF")
+    logit_err = float((lg[legal] - lc[legal]).abs().max())
+    value_err = float((vg - vc).abs().max())
+    metric_err = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in mc)
+    grad_err, worst = max(
+        (float((gg[n] - gc[n]).norm() / gc[n].norm().clamp_min(1e-12)), n)
+        for n in gc)
+    print(f"[phase4] fresh network, CUDA vs CPU, one minibatch of {rows} rows: "
+          f"logits max abs err {logit_err:.3e}, values {value_err:.3e}, loss "
+          f"metrics max rel err {metric_err:.3e}, gradients max rel L2 err "
+          f"{grad_err:.3e} ({worst}) (limits 2e-2, 2e-2, 1e-2, 2e-2)")
+    if logit_err > 2e-2 or value_err > 2e-2:
+        raise AssertionError("learner logits or values: CUDA != CPU")
+    for k in mc:
+        if abs(mg[k] - mc[k]) > 1e-6 + 1e-2 * abs(mc[k]):
+            raise AssertionError(f"learner {k}: CUDA {mg[k]} != CPU {mc[k]}")
+    if grad_err > 2e-2:
+        raise AssertionError("learner gradients: CUDA != CPU")
+
+
+def phase4(card: str) -> dict:
+    import math
+
+    import torch
+
+    from blockpuzzle_tpu_torch.cli import train
+
+    args = train.build_parser().parse_args(TRAIN_ARGV)
+    learner = train.build(args)
+    env = learner.env
+    zero_counts(env)
+    r = train.train(args, learner)
+    launches = read_counts(env)
+    t = args.rollout_len
+    expect = {"mask": args.updates * (t + 1), "apply": 0,
+              "clear": args.updates * t, "legality": 0}
+    if launches != expect:
+        raise AssertionError(f"training path launches {launches} != {expect}")
+    m = r["metrics"]
+    for k in ("loss", "policy_loss", "value_loss", "entropy", "episode_return"):
+        if not math.isfinite(m[k]):
+            raise AssertionError(f"training metric {k} = {m[k]}")
+    if m["illegal_action_rate"] != 0.0 or m["episodes_finished"] == 0:
+        raise AssertionError(f"implausible training rollout: {m}")
+    if r["state"].update_count != args.updates:
+        raise AssertionError("update count")
+    sps = r["env_steps_per_s"]
+    update_ms = 1e3 * args.num_envs * t / sps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    learner._rollout(r["state"])
+    torch.cuda.synchronize()
+    rollout_ms = 1e3 * (time.perf_counter() - t0)
+    print(f"[phase4] PPO default N={args.num_envs} T={t} mlp_width "
+          f"{args.mlp_width}: {args.updates} updates, last loss {m['loss']:.6f}, "
+          f"return {m['episode_return']:.3f}, entropy {m['entropy']:.4f}; "
           f"launches {launches}")
+    print(f"[phase4] {sps:.1f} env-steps/s of training over updates 2-"
+          f"{args.updates}, {update_ms:.3f} ms per update, of which a rollout "
+          f"alone takes {rollout_ms:.3f} ms ({card})")
+    learner_cuda_vs_cpu(learner, r["state"])
     return launches
 
 
@@ -264,13 +466,19 @@ def main() -> int:
             print(f"[phase0] ptxas: {line.strip()}")
 
     measured = phase1(card)
-    phase2()
-    launches = phase3(card)
+    legal_err = phase2()
+    measured["legality"]["max_abs_err"] = max(
+        measured["legality"]["max_abs_err"], legal_err)
+    paths = {}
+    paths["rollout"], paths["legal_all_pieces"] = phase3(card)
+    paths["train"] = phase4(card)
 
     kernels = []
-    for name, (source, replaces) in KERNEL_INFO.items():
+    for name, (source, replaces, path) in KERNEL_INFO.items():
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces, "path": path,
+                        "launches": paths[path][name],
+                        "launches_by_path": {p: c[name] for p, c in paths.items()},
                         **measured[name]})
     print(f"[done] {card}")
     print(json.dumps({"kernels": kernels}))

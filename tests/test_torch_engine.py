@@ -1,15 +1,18 @@
 """The port's engine on the CPU against the JAX engine.
 
 Both engines get the same actions and the same injected deals (numpy, from
-a seed).  The JAX side is ``make_env(cfg, backend="pallas")``, whose
-kernels run in interpret mode on the CPU (``big`` uses the u8 jnp engine,
-which the JAX package holds bit-equal to it).  Boards, queues, masks,
+a seed).  The port's ``backend="pallas"`` is held against JAX's
+``make_env(cfg, backend="pallas")``, whose kernels run in interpret mode
+on the CPU (``big`` against the u8 jnp engine, which the JAX package holds
+bit-equal to it); the port's ``"jnp"`` and ``"hybrid"`` against JAX's
+``make_env(cfg, state_impl="u8")``, the u8 jnp engine.  Boards, queues, masks,
 flags, lines cleared, legality and streaks are integers or bools and must
 be bit-equal.  Rewards are float32 and must be bit-equal too: they are
 small integer sums, computed in the same order as the JAX step.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +25,7 @@ from blockpuzzle_tpu.env import make_env as jax_make_env
 from blockpuzzle_tpu_torch import config as tcfg
 from blockpuzzle_tpu_torch.env import make_env
 from blockpuzzle_tpu_torch.interop import state_from_numpy
+from blockpuzzle_tpu_torch.sampler import UniformLegalSampler
 
 N = 8
 FIELDS = ("board", "queue", "action_mask", "reward", "terminated", "truncated")
@@ -50,16 +54,30 @@ def assert_same(tj, tt, t, extra=("streak",)):
             tt.info[k].numpy(), np.asarray(tj.info[k]), f"{k} t={t}")
 
 
-def run_lockstep(cfg_j, cfg_t, env_j, steps, seed, auto_reset=False):
+@functools.cache
+def jax_u8_engine(preset, knobs=()):
+    """JAX's ``make_env(cfg, state_impl="u8")`` (the u8 jnp engine) and its
+    jitted step without auto-reset, built once per config (the port's
+    backends reuse the compiled step)."""
+    cfg = dataclasses.replace(jcfg.PRESETS[preset](), **dict(knobs))
+    env_j = jax_make_env(cfg, state_impl="u8")
+    step_j = jax.jit(lambda s, a, d: env_j.step(s, a, deal_override=d,
+                                                auto_reset=False))
+    return env_j, step_j
+
+
+def run_lockstep(cfg_j, cfg_t, env_j, steps, seed, auto_reset=False,
+                 backend="pallas", step_j=None):
     rng = np.random.default_rng(seed)
-    env_t = make_env(cfg_t, device="cpu")
+    env_t = make_env(cfg_t, device="cpu", backend=backend)
     num_pieces = env_t.num_pieces
     init = rng.integers(0, num_pieces, (N, cfg_t.queue_size)).astype(np.int32)
     sj, tj = env_j.init(jax.random.key(0), N, deal_override=jnp.asarray(init))
     st, tt = env_t.init(0, N, deal_override=init)
     assert_same(tj, tt, -1, extra=())
-    step_j = jax.jit(lambda s, a, d: env_j.step(s, a, deal_override=d,
-                                                auto_reset=auto_reset))
+    if step_j is None:
+        step_j = jax.jit(lambda s, a, d: env_j.step(s, a, deal_override=d,
+                                                    auto_reset=auto_reset))
     for t in range(steps):
         a = pick_actions(np.asarray(tj.action_mask), rng, env_t.num_actions)
         d = rng.integers(0, num_pieces, (N, cfg_t.queue_size)).astype(np.int32)
@@ -80,6 +98,22 @@ def test_step_parity_with_pallas_engine(preset):
     assert cleared > 0
 
 
+@pytest.mark.parametrize("backend", ["jnp", "hybrid"])
+@pytest.mark.parametrize("preset", ["default", "tenten", "woodoku", "big"])
+def test_step_parity_with_u8_jnp_engine(preset, backend):
+    """The port's jnp/hybrid step (torch collision test + clear kernel)
+    against the JAX u8 jnp step, whose clear is ``clear_scan``."""
+    env_j, step_j = jax_u8_engine(preset)
+    ct = tcfg.PRESETS[preset]()
+    cleared = 0
+    for t, sj, tj, st, tt in run_lockstep(env_j.cfg, ct, env_j, 20, seed=1,
+                                          backend=backend, step_j=step_j):
+        assert_same(tj, tt, t)
+        cleared += int(tt.info["lines_cleared"].sum())
+        np.testing.assert_array_equal(st.board.numpy(), np.asarray(sj.board))
+    assert cleared > 0 or preset == "big"  # 20 steps fill no 16-cell line
+
+
 def test_step_parity_big_with_u8_engine():
     cj, ct = jcfg.big_config(), tcfg.big_config()
     env_j = jax_make_env(cj, state_impl="u8")
@@ -87,21 +121,31 @@ def test_step_parity_big_with_u8_engine():
         assert_same(tj, tt, t)
 
 
-@pytest.mark.parametrize("knobs", [
-    {"streak_bonus": 5.0, "max_steps": 9, "illegal_penalty": -1.0,
-     "terminal_penalty": -5.0},
-    {"queue_size": 2, "refill_batch": True, "piece_set": "mini5",
-     "height": 5, "width": 5, "streak_bonus": 3.0, "max_steps": 14,
-     "illegal_penalty": -0.5, "terminal_penalty": -2.0},
-], ids=["default+knobs", "mini5-5x5+knobs"])
-def test_step_parity_reward_knobs(knobs):
+KNOBS = {
+    "default+knobs": {"streak_bonus": 5.0, "max_steps": 9,
+                      "illegal_penalty": -1.0, "terminal_penalty": -5.0},
+    "mini5-5x5+knobs": {"queue_size": 2, "refill_batch": True,
+                        "piece_set": "mini5", "height": 5, "width": 5,
+                        "streak_bonus": 3.0, "max_steps": 14,
+                        "illegal_penalty": -0.5, "terminal_penalty": -2.0},
+}
+
+
+@pytest.mark.parametrize("knobs,backend", [
+    pytest.param(KNOBS[name], backend, id=name + suffix)
+    for backend, suffix in (("pallas", ""), ("jnp", "-jnp"))
+    for name in KNOBS
+])
+def test_step_parity_reward_knobs(knobs, backend):
     """streak_bonus, max_steps, both penalties and out-of-range actions
-    (pick_actions mixes them in), against the u8 jnp engine."""
-    cj = dataclasses.replace(jcfg.default_config(), **knobs)
+    (pick_actions mixes them in), against the u8 jnp engine.  ``hybrid``
+    runs the code of ``jnp`` and is left out here."""
+    env_j, step_j = jax_u8_engine("default", tuple(sorted(knobs.items())))
+    cj = env_j.cfg
     ct = dataclasses.replace(tcfg.default_config(), **knobs)
-    env_j = jax_make_env(cj, state_impl="u8")
     seen = {"streak": 0, "trunc": 0, "illegal": 0}
-    for t, sj, tj, st, tt in run_lockstep(cj, ct, env_j, 20, seed=3):
+    for t, sj, tj, st, tt in run_lockstep(cj, ct, env_j, 20, seed=3,
+                                          backend=backend, step_j=step_j):
         assert_same(tj, tt, t)
         seen["streak"] = max(seen["streak"], int(tt.info["streak"].max()))
         seen["trunc"] += int(tt.truncated.sum())
@@ -110,6 +154,28 @@ def test_step_parity_reward_knobs(knobs):
     assert seen["trunc"] and seen["illegal"]
     # the 5x5 board clears often enough that the streak bonus pays
     assert seen["streak"] >= (2 if "piece_set" in knobs else 1)
+
+
+@pytest.mark.parametrize("preset", ["default", "tenten", "woodoku", "big"])
+def test_jnp_and_pallas_backends_agree_on_live_deals(preset):
+    """The apply-kernel step and the clear-kernel step from one seed, with
+    the port's own deals and auto-reset: every output bit-equal."""
+    cfg = tcfg.PRESETS[preset]()
+    envs = [make_env(cfg, device="cpu", backend=b) for b in ("pallas", "jnp")]
+    runs = [list(e.init(3, 32)) + [UniformLegalSampler(4, 32, "cpu")] for e in envs]
+    cleared = 0
+    for t in range(60):
+        for run, env in zip(runs, envs):
+            run[0], run[1] = env.step(run[0], run[2](run[1].action_mask))
+        (sa, ta, _), (sb, tb, _) = runs
+        for f in ("board", "queue", "rng_counter", "steps", "score", "streak"):
+            assert torch.equal(getattr(sa, f), getattr(sb, f)), (f, t)
+        for f in FIELDS:
+            assert torch.equal(getattr(ta, f), getattr(tb, f)), (f, t)
+        for k in INFO + ("streak", "final_board", "final_queue", "final_action_mask"):
+            assert torch.equal(ta.info[k], tb.info[k]), (k, t)
+        cleared += int(ta.info["lines_cleared"].sum())
+    assert cleared > 0 and int(runs[0][0].rng_counter[0]) == 61
 
 
 def test_auto_reset_reinitializes_done_envs():
@@ -266,11 +332,11 @@ def test_encode_board_and_board_obs():
 
 
 def test_make_env_accepts_only_the_ported_engine():
-    for kw, item in (({"state_impl": "packed"}, "A2"),
-                     ({"backend": "jnp"}, "A8"), ({"backend": "hybrid"}, "A8")):
-        with pytest.raises(NotImplementedError, match=item):
-            make_env(device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="A2"):
+        make_env(device="cpu", state_impl="packed")
+    for backend in ("pallas", "jnp", "hybrid"):
+        assert make_env(device="cpu", backend=backend).backend == backend
+    with pytest.raises(NotImplementedError, match="A9"):
         make_env(tcfg.EnvConfig(obs_planes=True), device="cpu")
     with pytest.raises(ValueError):
         make_env(device="cpu", backend="nope")

@@ -1,9 +1,9 @@
 """The port's kernels on the CPU against the JAX package's Pallas kernels.
 
 Each case makes its inputs with numpy from a seed and runs them through
-``MaskKernel``/``ApplyKernel`` of the JAX package in interpret mode and
-through the port's wrappers, which run the plain torch versions for CPU
-tensors.  A numpy emulation of each CUDA kernel's per-thread/per-warp
+``MaskKernel``/``ApplyKernel``/``ClearScanKernel``/``LegalityKernel`` of
+the JAX package in interpret mode and through the port's wrappers, which
+run the plain torch versions for CPU tensors.  A numpy emulation of each CUDA kernel's per-thread/per-warp
 logic, fed the very tables the wrappers hand to the kernels, closes the
 loop on the CPU (the kernels themselves run only on the card:
 ``chip_smoke.py`` and the ``gpu``-marked test in test_torch_rollout.py).
@@ -17,11 +17,17 @@ import torch
 
 from blockpuzzle_tpu import config as jcfg
 from blockpuzzle_tpu import kernels as jk
+from blockpuzzle_tpu.env import make_env as jax_make_env
 from blockpuzzle_tpu_torch import config as tcfg
 from blockpuzzle_tpu_torch import rules
-from blockpuzzle_tpu_torch.kernels import ApplyKernel, MaskKernel
-from blockpuzzle_tpu_torch.kernels.collision import line_cell_table, line_masks
-from blockpuzzle_tpu_torch.kernels.mask import piece_table
+from blockpuzzle_tpu_torch.kernels import (
+    ApplyKernel,
+    ClearScanKernel,
+    LegalityKernel,
+    MaskKernel,
+)
+from blockpuzzle_tpu_torch.kernels.clear import line_cell_table, line_masks
+from blockpuzzle_tpu_torch.kernels.collision import piece_table
 
 PRESETS = ["default", "tenten", "woodoku"]
 
@@ -67,6 +73,36 @@ def emulate_mask_kernel(cfg, board, queue):
                 legal &= board[e, idx] == 0
             out[e, s] = legal
     return out.reshape(n, -1)
+
+
+def emulate_legality_kernel(cfg, board):
+    """csrc/legality.cu's per-thread test (piece_fits.cuh), vectorized
+    over anchors."""
+    table = piece_table(cfg)
+    n, hw = board.shape
+    anchors = np.arange(hw)
+    r, c = anchors // cfg.width, anchors % cfg.width
+    out = np.zeros((n, table.shape[0], hw), bool)
+    for e in range(n):
+        for p, (ph, pw, ncells) in enumerate(table[:, :3]):
+            legal = (r + ph <= cfg.height) & (c + pw <= cfg.width)
+            for off in table[p, 3 : 3 + ncells]:
+                legal &= board[e, np.where(legal, anchors + off, 0)] == 0
+            out[e, p] = legal
+    return out
+
+
+def emulate_clear_kernel(cfg, board):
+    """csrc/clear.cu: clear_lines.cuh's judge-then-clear on every board."""
+    cells_t, lens = line_cell_table(line_masks(cfg))
+    out, ks = board.copy(), np.zeros(len(board), np.int32)
+    for e in range(len(board)):
+        full = [out[e, cells_t[l, : lens[l]]].sum() == lens[l] for l in range(len(lens))]
+        for l, f in enumerate(full):
+            if f:
+                out[e, cells_t[l, : lens[l]]] = 0
+        ks[e] = sum(full)
+    return out, ks
 
 
 def emulate_apply_kernel(cfg, board, cover, valid):
@@ -122,6 +158,51 @@ def test_apply_matches_pallas_apply_kernel(preset, rng):
     assert int(np.asarray(want[1]).sum()) > 0  # the clear path ran
 
 
+@pytest.mark.parametrize("preset", ["default", "woodoku"])
+@pytest.mark.parametrize("n", [16, 11])
+def test_clear_matches_pallas_clear_kernel(preset, n, rng):
+    """Against the Pallas kernel (interpret mode; the ragged N runs as one
+    tile of n) and the JAX engine's ``clear_scan``.  Boards hold full rows
+    and columns and, on woodoku, a full 3x3 region crossing a full row."""
+    cj, ct = jcfg.PRESETS[preset](), tcfg.PRESETS[preset]()
+    board = random_boards(ct, n, rng, fill=0.6)
+    grid = board.reshape(n, ct.height, ct.width)
+    grid[5, 3:6, 3:6] = 1                   # a full 3x3 region ...
+    grid[5, 4, :] = 1                       # ... crossed by a full row
+    want = jk.ClearScanKernel(cj, tile_n=8 if n % 8 == 0 else n)(
+        jnp.asarray(board), interpret=True)
+    engine = jax_make_env(cj).clear_scan(jnp.asarray(board))
+    ck = ClearScanKernel(ct, "cpu")
+    got = ck(torch.as_tensor(board))
+    emu = emulate_clear_kernel(ct, board)
+    for w, e, g, m, name in zip(want, engine, got, emu, ("board", "k")):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), name)
+        np.testing.assert_array_equal(np.asarray(e), np.asarray(w), name)
+        np.testing.assert_array_equal(m, np.asarray(w), name)
+    k, cleared = np.asarray(want[1]), np.asarray(want[0]).reshape(grid.shape)
+    assert k.min() == 0 and not cleared[5, 4].any()
+    if ct.region_clear:  # the shared cell counts for both, cleared once
+        assert k[5] >= 2 and not cleared[5, 3:6, 3:6].any()
+    assert ck.launches == 0
+
+
+@pytest.mark.parametrize("preset", ["default", "tenten", "big"])
+def test_legality_matches_pallas_legality_kernel(preset, rng):
+    """Against the Pallas kernel (interpret mode, 128-lane action tiles)
+    and the JAX u8 engine's ``legal_all_pieces``."""
+    cj, ct = jcfg.PRESETS[preset](), tcfg.PRESETS[preset]()
+    board = random_boards(ct, 16, rng, fill=0.3)
+    want = np.asarray(jk.LegalityKernel(cj, tile_n=8, tile_a=128)(
+        jnp.asarray(board), interpret=True))
+    engine = jax_make_env(cj, state_impl="u8").legal_all_pieces(jnp.asarray(board))
+    lk = LegalityKernel(ct, "cpu")
+    got = lk(torch.as_tensor(board)).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(np.asarray(engine), want)
+    np.testing.assert_array_equal(emulate_legality_kernel(ct, board), want)
+    assert 0 < want.mean() < 1 and lk.launches == 0
+
+
 def test_apply_illegal_is_noop_even_with_full_line():
     """Twin of test_kernels.py: a board holding a full row and an action
     that overlaps it must come back untouched with k = 0."""
@@ -170,6 +251,7 @@ def test_kernel_tables_encode_rule_tables(case):
 def test_wrappers_validate_inputs():
     cfg = tcfg.tenten_config()
     mk, ak = MaskKernel(cfg, "cpu"), ApplyKernel(cfg, "cpu")
+    ck, lk = ClearScanKernel(cfg, "cpu"), LegalityKernel(cfg, "cpu")
     board = torch.zeros(4, cfg.num_cells, dtype=torch.uint8)
     queue = torch.zeros(4, cfg.queue_size, dtype=torch.int32)
     valid = torch.ones(4, dtype=torch.bool)
@@ -181,6 +263,11 @@ def test_wrappers_validate_inputs():
         ak(board, board, valid.to(torch.uint8))
     with pytest.raises(ValueError):
         ak(board[:, :10], board[:, :10], valid)
+    for k in (ck, lk):
+        with pytest.raises(ValueError):
+            k(board.to(torch.int32))
+        with pytest.raises(ValueError):
+            k(board[:, :10])
 
 
 def test_wrappers_never_fall_back_off_cpu():
@@ -194,5 +281,12 @@ def test_wrappers_never_fall_back_off_cpu():
         MaskKernel(cfg, meta)(board, queue)
     with pytest.raises(ValueError, match="no apply kernel"):
         ApplyKernel(cfg, meta)(board, board, torch.ones(4, dtype=torch.bool, device=meta))
+    with pytest.raises(ValueError, match="no clear kernel"):
+        ClearScanKernel(cfg, meta)(board)
+    with pytest.raises(ValueError, match="no legality kernel"):
+        LegalityKernel(cfg, meta)(board)
     with pytest.raises(ValueError, match="kernel tables on cpu"):
         MaskKernel(cfg, "cpu")(board, queue)
+    for k in (ClearScanKernel(cfg, "cpu"), LegalityKernel(cfg, "cpu")):
+        with pytest.raises(ValueError, match="kernel tables on cpu"):
+            k(board)

@@ -3,7 +3,9 @@ tests/test_parity.py, through blockpuzzle_tpu_torch.cli.parity).
 
 The oracle's deal stream is injected with ``auto_reset=False``; boards,
 queues, masks, rewards and termination must be bit-equal to the oracle's
-and episode returns equal, with zero mismatches.
+and episode returns equal, with zero mismatches.  The replays run on the
+apply-kernel step (``backend="pallas"``, the test ids without a suffix)
+and on the clear-kernel step (``backend="jnp"``, ids ending in ``-jnp``).
 """
 
 import dataclasses
@@ -15,16 +17,21 @@ from blockpuzzle_tpu_torch.cli import parity
 from blockpuzzle_tpu_torch.env import make_env
 
 SEEDS = {"default": [0, 1, 17], "tenten": [0, 5], "woodoku": [0, 9], "big": [0]}
+BY_BACKEND = [
+    pytest.param(preset, backend, id=preset + suffix)
+    for backend, suffix in (("pallas", ""), ("jnp", "-jnp"))
+    for preset in sorted(SEEDS)
+]
 
 
 def _cfg(preset, **knobs):
     return dataclasses.replace(tcfg.PRESETS[preset](), **knobs)
 
 
-@pytest.mark.parametrize("preset", sorted(SEEDS))
-def test_check_seed_zero_mismatches(preset):
+@pytest.mark.parametrize("preset,backend", BY_BACKEND)
+def test_check_seed_zero_mismatches(preset, backend):
     ct = _cfg(preset)
-    env = make_env(ct, device="cpu")
+    env = make_env(ct, device="cpu", backend=backend)
     for seed in SEEDS[preset]:
         r = parity.check_seed(ct, seed, 256, env=env)
         assert r["mismatches"] == [], (seed, r["mismatches"])
@@ -32,11 +39,11 @@ def test_check_seed_zero_mismatches(preset):
         assert r["steps"] > 0
 
 
-@pytest.mark.parametrize("preset", sorted(SEEDS))
-def test_batched_lockstep_zero_mismatches(preset):
+@pytest.mark.parametrize("preset,backend", BY_BACKEND)
+def test_batched_lockstep_zero_mismatches(preset, backend):
     ct = _cfg(preset)
-    r = parity.check_batched_lockstep(ct, make_env(ct, device="cpu"),
-                                      [0, 1, 2, 3], 256)
+    r = parity.check_batched_lockstep(
+        ct, make_env(ct, device="cpu", backend=backend), [0, 1, 2, 3], 256)
     assert r["mismatches"] == [] and r["returns_equal"]
     assert r["episodes"] == 4
 

@@ -1,5 +1,6 @@
 """The port's rollout path: CLI, random streams, sampler, and (on a card)
-each kernel against its plain version.
+each kernel against its plain version, both steps and a short training
+run.
 
 This file imports no JAX at module level, so the ``gpu`` tests run on a
 machine without it: ``python -m pytest --noconftest -m gpu
@@ -194,7 +195,9 @@ def test_sampler_picks_legal_actions_uniformly():
 @pytest.mark.parametrize("preset", ["default", "tenten", "woodoku"])
 def test_kernels_match_plain_versions_on_the_card(preset, cuda_device):
     from blockpuzzle_tpu_torch import rules
-    from blockpuzzle_tpu_torch.kernels import ApplyKernel, MaskKernel
+    from blockpuzzle_tpu_torch.kernels import (
+        ApplyKernel, ClearScanKernel, LegalityKernel, MaskKernel,
+    )
 
     cfg = PRESETS[preset]()
     t = rules.tables_for(cfg)
@@ -202,23 +205,52 @@ def test_kernels_match_plain_versions_on_the_card(preset, cuda_device):
     n = 4099                                         # ragged
     board = (r.random((n, cfg.num_cells)) < 0.35).astype(np.uint8)
     board.reshape(n, cfg.height, cfg.width)[::5, 2, :] = 1
+    board.reshape(n, cfg.height, cfg.width)[1::5, 3:6, 3:6] = 1
     queue = r.integers(0, t.num_pieces + 1, (n, cfg.queue_size)).astype(np.int32)
     g = r.integers(0, t.cover.shape[0], n)
     board, queue, cover, valid = (torch.as_tensor(x, device=cuda_device)
                                   for x in (board, queue, t.cover[g], t.valid[g]))
     mk, ak = MaskKernel(cfg, cuda_device), ApplyKernel(cfg, cuda_device)
+    ck, lk = ClearScanKernel(cfg, cuda_device), LegalityKernel(cfg, cuda_device)
     assert torch.equal(mk(board, queue), mk.plain(board, queue))
     for o, p in zip(ak(board, cover, valid), ak.plain(board, cover, valid)):
         assert torch.equal(o, p)
+    for o, p in zip(ck(board), ck.plain(board)):
+        assert torch.equal(o, p)
+    assert torch.equal(lk(board), lk.plain(board))
     torch.cuda.synchronize()
-    assert mk.launches == 1 and ak.launches == 1
+    assert (mk.launches, ak.launches, ck.launches, lk.launches) == (1, 1, 1, 1)
 
 
 @pytest.mark.gpu
-def test_cuda_rollout_matches_cpu_rollout(cuda_device):
+@pytest.mark.parametrize("backend", ["pallas", "jnp"])
+def test_cuda_rollout_matches_cpu_rollout(cuda_device, backend):
     cfg = PRESETS["tenten"]()
-    a = rollout_cli.rollout(make_env(cfg, device=cuda_device), 256, 16, 1, seed=4)
-    b = rollout_cli.rollout(make_env(cfg, device="cpu"), 256, 16, 1, seed=4)
+    env = make_env(cfg, device=cuda_device, backend=backend)
+    a = rollout_cli.rollout(env, 256, 16, 1, seed=4)
+    b = rollout_cli.rollout(make_env(cfg, device="cpu", backend=backend), 256,
+                            16, 1, seed=4)
     for f in ("board", "queue", "rng_counter", "steps", "score", "streak"):
         assert torch.equal(getattr(a["state"], f).cpu(), getattr(b["state"], f))
     assert a["reward"] == b["reward"]
+    step_kernel = env.apply_kernel if backend == "pallas" else env.clear_kernel
+    assert env.mask_kernel.launches == step_kernel.launches == 32
+
+
+@pytest.mark.gpu
+def test_ppo_updates_on_the_card(cuda_device):
+    """Two PPO updates at small widths on the card: finite metrics, only
+    legal actions, and the mask and clear kernels launched per step."""
+    from blockpuzzle_tpu_torch.cli import train
+
+    args = train.build_parser().parse_args([
+        "--torso", "mlp", "--state-impl", "u8", "--updates", "2",
+        "--num-envs", "256", "--rollout-len", "16", "--mlp-width", "64",
+        "--log-every", "1"])
+    learner = train.build(args)
+    r = train.train(args, learner)
+    m = r["metrics"]
+    assert np.isfinite(m["loss"]) and m["illegal_action_rate"] == 0.0
+    env = learner.env
+    assert env.mask_kernel.launches == 2 * 17 and env.clear_kernel.launches == 2 * 16
+    assert env.apply_kernel.launches == 0

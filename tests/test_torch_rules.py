@@ -79,10 +79,11 @@ def test_import_loads_no_jax():
     """In a fresh interpreter (conftest has already imported jax here)."""
     code = (
         "import sys, blockpuzzle_tpu_torch, blockpuzzle_tpu_torch.cli.rollout, "
-        "blockpuzzle_tpu_torch.cli.parity, blockpuzzle_tpu_torch.interop, "
+        "blockpuzzle_tpu_torch.cli.parity, blockpuzzle_tpu_torch.cli.train, "
+        "blockpuzzle_tpu_torch.interop, blockpuzzle_tpu_torch.learn, "
         "blockpuzzle_tpu_torch.sampler\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'blockpuzzle_tpu', 'gymnasium')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'blockpuzzle_tpu', 'gymnasium')]\n"
         "print(bad); sys.exit(1 if bad else 0)"
     )
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
