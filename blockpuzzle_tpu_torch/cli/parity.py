@@ -4,10 +4,12 @@ Records seeded random-policy episodes on the JAX package's CPU oracle and
 replays them through the port with the oracle's deal stream injected and
 ``auto_reset=False``.  Exit code 0 iff every compared quantity is
 bit-equal.  The oracle imports gymnasium, so this runs where the JAX
-package and gymnasium are installed; the CLI replays on the CPU, and
+package and gymnasium are installed; the CLI replays on the CPU through the
+default (packed) engine, as the JAX CLI does, and
 ``check_seed``/``check_batched_lockstep`` take an engine on any device.
 
-    python -m blockpuzzle_tpu_torch.cli.parity --preset P --seeds 8 [--batch]
+    python -m blockpuzzle_tpu_torch.cli.parity --preset P --seeds 8 [--batch] \
+        [--state-impl auto|packed|u8]
 """
 
 from __future__ import annotations
@@ -124,10 +126,14 @@ def main(argv=None) -> int:
     p.add_argument("--max-steps", type=int, default=512)
     p.add_argument("--batch", action="store_true",
                    help="replay all seeds in one lockstep batch")
+    p.add_argument("--state-impl", choices=["auto", "packed", "u8"],
+                   default="auto", help="EnvState board layout "
+                        "(auto = packed where supported)")
     args = p.parse_args(argv)
 
     cfg = cli_env_config(args.preset, args.env)
-    env = make_env(cfg, device="cpu")
+    env = make_env(cfg, device="cpu", state_impl=None
+                   if args.state_impl == "auto" else args.state_impl)
     if args.batch:
         r = check_batched_lockstep(cfg, env, list(range(args.seeds)), args.max_steps)
         ok = r["returns_equal"] and not r["mismatches"]

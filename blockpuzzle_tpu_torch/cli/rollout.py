@@ -1,7 +1,7 @@
 """Rollout CLI: batched uniform-legal rollout on the port's engine.
 
     python -m blockpuzzle_tpu_torch.cli.rollout --num-envs N --steps T \
-        --preset P --seed S [--device cuda|cpu]
+        --preset P --seed S [--state-impl auto|packed|u8] [--device cuda|cpu]
 
 Runs one warm-up chunk (which also builds the kernels on first use), then
 ``T`` measured env steps per env in chunks, each chunk ending in a device
@@ -31,6 +31,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "(repeatable), e.g. --env streak_bonus=5")
     p.add_argument("--num-envs", type=int, default=1024)
     p.add_argument("--steps", type=int, default=512)
+    p.add_argument("--state-impl", choices=["auto", "packed", "u8"],
+                   default="auto", help="EnvState board layout "
+                        "(auto = packed where supported)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain versions")
@@ -105,7 +108,8 @@ def device_name(device: torch.device) -> str:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     cfg = cli_env_config(args.preset, args.env)
-    env = make_env(cfg, device=args.device)
+    env = make_env(cfg, device=args.device, state_impl=None
+                   if args.state_impl == "auto" else args.state_impl)
     chunk = min(100, max(args.steps, 1))
     chunks = max(round(args.steps / chunk), 1)
     r = rollout(env, args.num_envs, chunk, chunks, args.seed)

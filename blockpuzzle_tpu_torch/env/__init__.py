@@ -14,33 +14,27 @@ from blockpuzzle_tpu_torch.env.state import EnvState, TimeStep
 def make_env(
     cfg: Optional[EnvConfig] = None,
     device="cuda",
-    backend: str = "pallas",
-    state_impl: str = "u8",
+    backend: str = "jnp",
+    state_impl: Optional[str] = None,
 ) -> VecBlockPuzzle:
-    """The u8-board engine (``state_impl="u8"``) on ``device``.
+    """The engine on ``device``, with the JAX ``make_env``'s defaults.
 
+    ``state_impl=None`` resolves to ``"packed"`` ((N, H) row words) when
+    rows fit a 32-bit word (``width <= 32``) and ``backend == "jnp"``, and
+    to ``"u8"`` ((N, H*W) cells) otherwise.  Packed boards need both;
+    asking for them otherwise raises ``ValueError``.  On u8 boards
     ``backend`` is ``"pallas"`` (the chosen action goes through the apply
     kernel), ``"jnp"`` or ``"hybrid"`` (torch collision test, then the
-    clear kernel); all three give the same bits (see ``VecBlockPuzzle``).
-    The packed layout and piece-plane observations are not ported yet and
-    raise ``NotImplementedError`` naming the ROADMAP.md item that brings
-    them.
+    clear kernel).  Every choice gives the same bits (see
+    ``VecBlockPuzzle``).  The JAX knobs ``mask_impl``, ``mask_dtype`` and
+    ``rng_impl`` change no output and are not ported.
     """
     if cfg is None:
         cfg = EnvConfig()
-    if state_impl == "packed":
-        raise NotImplementedError(
-            "state_impl='packed' is ROADMAP.md A2 (packed engine), with its "
-            "fused step kernel B1"
-        )
-    if state_impl != "u8":
-        raise ValueError(f"unknown state_impl {state_impl!r}")
-    if cfg.obs_planes:
-        raise NotImplementedError("obs_planes is ROADMAP.md A9")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but CUDA is not available")
-    return VecBlockPuzzle(cfg, device, backend)
+    return VecBlockPuzzle(cfg, device, backend, state_impl)
 
 
 __all__ = ["EnvState", "TimeStep", "VecBlockPuzzle", "make_env"]

@@ -1,15 +1,24 @@
 """Batched BlockPuzzle engine in PyTorch: init/reset/partial_reset/step.
 
-The port of ``blockpuzzle_tpu/env/core.py`` ``VecBlockPuzzle`` for
-``state_impl="u8"`` (boards as (N, H*W) uint8 cells), with the four hand
-CUDA kernels of ``kernels/``: ``MaskKernel`` builds the hand mask on every
-backend; ``backend="pallas"`` tests, places and clears the chosen action
-in ``ApplyKernel``; ``backend="jnp"`` and ``"hybrid"`` do the collision
-test and the masked place in torch and the clear in ``ClearScanKernel``
-(``clear_scan``); ``legal_all_pieces`` is ``LegalityKernel``.  All
-backends give the same bits.  Everything around the kernels is plain torch
-on the engine's device, and one step never waits for the device (no
-``.item()``, no branch on tensor values).
+The port of ``blockpuzzle_tpu/env/core.py`` ``VecBlockPuzzle``, on both
+board layouts, with the hand CUDA kernels of ``kernels/``:
+
+* ``state_impl="packed"`` (the default where rows fit a 32-bit word):
+  boards are (N, H) row words, held as int64 (``kernels/packed.py``).
+  ``PackedApplyKernel`` tests, places and clears the chosen action;
+  ``PackedMaskKernel`` builds the hand mask.
+* ``state_impl="u8"``: boards are (N, H*W) uint8 cells.  ``MaskKernel``
+  builds the hand mask; ``backend="pallas"`` tests, places and clears the
+  chosen action in ``ApplyKernel``; ``backend="jnp"`` and ``"hybrid"`` do
+  the collision test and the masked place in torch and the clear in
+  ``ClearScanKernel`` (``clear_scan``).
+
+``legal_all_pieces`` is ``LegalityKernel`` on u8 cells (packed boards are
+unpacked first).  The layouts and backends give the same bits, and one
+``step`` body serves them all: only the apply block and the mask differ.
+Everything around the kernels is plain torch on the engine's device, and
+one step never waits for the device (no ``.item()``, no branch on tensor
+values).
 
 Deals come from the counter-based streams of ``env/rng.py``; comparisons
 with JAX inject the deal stream through ``deal_override``, as the JAX
@@ -32,34 +41,55 @@ from blockpuzzle_tpu_torch.kernels import (
     ClearScanKernel,
     LegalityKernel,
     MaskKernel,
+    PackedApplyKernel,
+    PackedMaskKernel,
     _build,
 )
 from blockpuzzle_tpu_torch.kernels.collision import place_and_clear
+from blockpuzzle_tpu_torch.kernels.packed import pack_words, unpack_words
 
 BACKENDS = ("pallas", "jnp", "hybrid")
+STATE_IMPLS = ("packed", "u8")
 
 
 class VecBlockPuzzle:
-    """Vectorized BlockPuzzle over a batched (N, H*W) uint8 board tensor.
+    """Vectorized BlockPuzzle over a batched board tensor: (N, H) int64 row
+    words (``state_impl="packed"``) or (N, H*W) uint8 cells (``"u8"``).
 
     The instance holds the configuration, its tables on ``device`` and the
-    four kernel wrappers (``mask_kernel``, ``apply_kernel``,
-    ``clear_kernel``, ``legal_kernel``); the methods are functions of the
-    state they are given.
+    kernel wrappers (``mask_kernel``, ``apply_kernel``, ``clear_kernel``,
+    ``legal_kernel``, and, where rows fit a 32-bit word,
+    ``packed_apply_kernel`` and ``packed_mask_kernel``); the methods are
+    functions of the state they are given.
 
-    ``backend`` picks how ``step`` applies the chosen action: ``"pallas"``
-    through the apply kernel, as the JAX engine's ``backend="pallas"``
-    does; ``"jnp"`` and ``"hybrid"`` through the torch collision test and
-    the clear kernel, as the JAX u8 jnp step does.  The JAX engine's
-    ``"hybrid"`` differs from its ``"jnp"`` only in the mask, which is the
-    mask kernel on every backend here, so the two run the same code.
+    On u8 boards ``backend`` picks how ``step`` applies the chosen action:
+    ``"pallas"`` through the apply kernel, as the JAX engine's
+    ``backend="pallas"`` does; ``"jnp"`` and ``"hybrid"`` through the torch
+    collision test and the clear kernel, as the JAX u8 jnp step does.  The
+    JAX engine's ``"hybrid"`` differs from its ``"jnp"`` only in the mask,
+    which is the mask kernel on every backend here, so the two run the same
+    code.  Packed boards need ``backend="jnp"`` and ``width <= 32``;
+    ``state_impl=None`` picks them where both hold, as the JAX engine does.
     """
 
-    def __init__(self, cfg: EnvConfig, device="cuda", backend="pallas") -> None:
+    def __init__(
+        self, cfg: EnvConfig, device="cuda", backend="jnp", state_impl=None
+    ) -> None:
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}")
+        if state_impl is None:
+            state_impl = "packed" if cfg.width <= 32 and backend == "jnp" else "u8"
+        if state_impl not in STATE_IMPLS:
+            raise ValueError(f"unknown state_impl {state_impl!r}")
+        if state_impl == "packed":
+            if cfg.width > 32:
+                raise ValueError("state_impl='packed' needs width <= 32")
+            if backend != "jnp":
+                raise ValueError("state_impl='packed' supports backend='jnp'")
         self.cfg = cfg
         self.backend = backend
+        self.state_impl = state_impl
+        self._packed = state_impl == "packed"
         self.device = _build.resolve_device(device)
         t = rules.tables_for(cfg)
         self.num_pieces = t.num_pieces
@@ -85,10 +115,19 @@ class VecBlockPuzzle:
         self._slot_iota = torch.arange(
             cfg.queue_size, dtype=torch.int32, device=self.device
         )[None, :]                                                     # (1, S)
+        # piece planes: (P + 1, HW) with an all-zero row at the sentinel P
+        planes = np.concatenate(
+            [rules.piece_plane_table(cfg), np.zeros((1, hw), np.uint8)]
+        )
+        self._plane_table = torch.as_tensor(planes, device=self.device)
         self.mask_kernel = MaskKernel(cfg, self.device)
         self.apply_kernel = ApplyKernel(cfg, self.device)
         self.clear_kernel = ClearScanKernel(cfg, self.device)
         self.legal_kernel = LegalityKernel(cfg, self.device)
+        self.packed_apply_kernel = self.packed_mask_kernel = None
+        if cfg.width <= 32:
+            self.packed_apply_kernel = PackedApplyKernel(cfg, self.device)
+            self.packed_mask_kernel = PackedMaskKernel(cfg, self.device)
 
     # ------------------------------------------------------------------
     # tables and masks
@@ -101,12 +140,18 @@ class VecBlockPuzzle:
         return torch.where(in_set, pid, self.num_pieces).to(torch.int64)
 
     def action_mask(self, board: torch.Tensor, queue: torch.Tensor) -> torch.Tensor:
-        """(N, S*HW) bool legal-action mask for the current hand."""
+        """(N, S*HW) bool legal-action mask for the current hand, from the
+        engine's native board layout."""
+        if self._packed:
+            return self.packed_mask_kernel(board, queue)
         return self.mask_kernel(board, queue)
 
     def legal_all_pieces(self, board: torch.Tensor) -> torch.Tensor:
         """(N, P, HW) bool: legality of every piece at every anchor (the
-        legality kernel; an inspection surface, not on the step)."""
+        legality kernel on u8 cells; packed boards are unpacked first).  An
+        inspection surface, not on the step."""
+        if self._packed:
+            board = self._unpack_board(board).reshape(board.shape[0], -1)
         return self.legal_kernel(board)
 
     def clear_scan(self, board: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -120,15 +165,36 @@ class VecBlockPuzzle:
         n = queue.shape[0]
         return self._empty_legal[self._piece_index(queue)].reshape(n, -1)
 
+    def piece_planes(self, queue: torch.Tensor) -> torch.Tensor:
+        """(N, S, H, W) uint8: each slot's piece at the board's top-left
+        corner, all-zero for an empty slot (``EnvConfig.obs_planes``)."""
+        n = queue.shape[0]
+        return self._plane_table[self._piece_index(queue)].view(
+            n, self.cfg.queue_size, self.cfg.height, self.cfg.width)
+
+    def _maybe_planes(self, queue: torch.Tensor):
+        return self.piece_planes(queue) if self.cfg.obs_planes else None
+
+    def _pack_board(self, board: torch.Tensor) -> torch.Tensor:
+        """(N, HW) uint8 cells -> (N, H) int64 row words."""
+        return pack_words(board.view(-1, self.cfg.height, self.cfg.width))
+
+    def _unpack_board(self, words: torch.Tensor) -> torch.Tensor:
+        """(N, H) int64 row words -> (N, H, W) uint8 cells."""
+        return unpack_words(words, self.cfg.width)
+
     def board_obs(self, board: torch.Tensor) -> torch.Tensor:
-        """(N, H, W) uint8 board view (for policies)."""
+        """(N, H, W) uint8 board view (for policies) of either layout."""
+        if self._packed:
+            return self._unpack_board(board)
         return board.view(board.shape[0], self.cfg.height, self.cfg.width)
 
     def encode_board(self, cells) -> torch.Tensor:
-        """(N, H*W) or (N, H, W) cells -> the engine's (N, H*W) uint8 board
-        on its device; any nonzero cell reads as occupied."""
+        """(N, H*W) or (N, H, W) cells -> the engine's native board on its
+        device; any nonzero cell reads as occupied, in both layouts."""
         cells = torch.as_tensor(cells, device=self.device)
-        return (cells != 0).to(torch.uint8).reshape(-1, self.cfg.num_cells)
+        cells = (cells != 0).to(torch.uint8).reshape(-1, self.cfg.num_cells)
+        return self._pack_board(cells) if self._packed else cells
 
     def _as_queue(self, deals) -> torch.Tensor:
         return torch.as_tensor(deals, device=self.device).to(torch.int32)
@@ -152,11 +218,19 @@ class VecBlockPuzzle:
                 "episode_return": episode_return,
                 "episode_length": episode_length,
             },
+            piece_planes=self._maybe_planes(queue),
         )
 
     # ------------------------------------------------------------------
     # init / reset
     # ------------------------------------------------------------------
+
+    def _empty_boards(self, n: int) -> torch.Tensor:
+        if self._packed:
+            return torch.zeros((n, self.cfg.height), dtype=torch.int64,
+                               device=self.device)
+        return torch.zeros((n, self.cfg.num_cells), dtype=torch.uint8,
+                           device=self.device)
 
     def init(
         self, seed: int, num_envs: int, deal_override=None
@@ -178,9 +252,7 @@ class VecBlockPuzzle:
             queue = self._as_queue(deal_override)
         zeros_i = torch.zeros(num_envs, dtype=torch.int32, device=dev)
         state = EnvState(
-            board=torch.zeros(
-                (num_envs, self.cfg.num_cells), dtype=torch.uint8, device=dev
-            ),
+            board=self._empty_boards(num_envs),
             queue=queue,
             base_key=base_key,
             rng_counter=torch.ones(num_envs, dtype=torch.int32, device=dev),
@@ -232,7 +304,7 @@ class VecBlockPuzzle:
         )
         queue = torch.where(mcol, fresh, state.queue)
         new = state.replace(
-            board=torch.where(mcol, 0, state.board).to(torch.uint8),
+            board=torch.where(mcol, torch.zeros_like(state.board), state.board),
             queue=queue,
             rng_counter=state.rng_counter + 1,
             steps=torch.where(m, 0, state.steps),
@@ -250,6 +322,24 @@ class VecBlockPuzzle:
     # ------------------------------------------------------------------
     # step
     # ------------------------------------------------------------------
+
+    def _cover_cells(
+        self, attrs: torch.Tensor, r: torch.Tensor, c: torch.Tensor
+    ) -> torch.Tensor:
+        """(N, HW) uint8 footprint of the chosen action: the union of <= 2
+        rectangles, from broadcast index compares."""
+
+        def in_rect(j):
+            dr, dc = attrs[:, 3 + 4 * j, None], attrs[:, 4 + 4 * j, None]
+            rh, rw = attrs[:, 5 + 4 * j, None], attrs[:, 6 + 4 * j, None]
+            r0 = r[:, None] + dr
+            c0 = c[:, None] + dc
+            return (
+                (self._row_idx >= r0) & (self._row_idx < r0 + rh)
+                & (self._col_idx >= c0) & (self._col_idx < c0 + rw)
+            )
+
+        return (in_rect(0) | in_rect(1)).to(torch.uint8)
 
     def step(
         self,
@@ -290,26 +380,21 @@ class VecBlockPuzzle:
             c + pw <= cfg.width
         )
 
-        # footprint = union of <=2 rectangles, from broadcast index compares
-        def in_rect(j):
-            dr, dc = attrs[:, 3 + 4 * j, None], attrs[:, 4 + 4 * j, None]
-            rh, rw = attrs[:, 5 + 4 * j, None], attrs[:, 6 + 4 * j, None]
-            r0 = r[:, None] + dr
-            c0 = c[:, None] + dc
-            return (
-                (self._row_idx >= r0) & (self._row_idx < r0 + rh)
-                & (self._col_idx >= c0) & (self._col_idx < c0 + rw)
-            )
-
-        cover_row = (in_rect(0) | in_rect(1)).to(torch.uint8)
-
         # -- collision check + masked place + clear (kernels) -------------
-        if self.backend == "pallas":
-            board_next, k, legal = self.apply_kernel(state.board, cover_row, valid_a)
-        else:
-            board_next, k, legal = place_and_clear(
-                state.board, cover_row, valid_a, self.clear_scan
+        if self._packed:
+            board_next, k, legal = self.packed_apply_kernel(
+                state.board, attrs, r, c, valid_a
             )
+        else:
+            cover_row = self._cover_cells(attrs, r, c)
+            if self.backend == "pallas":
+                board_next, k, legal = self.apply_kernel(
+                    state.board, cover_row, valid_a
+                )
+            else:
+                board_next, k, legal = place_and_clear(
+                    state.board, cover_row, valid_a, self.clear_scan
+                )
 
         # -- reward: same float32 operations in the same order as JAX -----
         kf = k.to(torch.float32)
@@ -398,7 +483,7 @@ class VecBlockPuzzle:
                     self.num_pieces,
                 )
             dcol = done[:, None]
-            board_out = torch.where(dcol, 0, board_next).to(torch.uint8)
+            board_out = torch.where(dcol, torch.zeros_like(board_next), board_next)
             queue_out = torch.where(dcol, reset_deals, queue3)
             mask_out = torch.where(dcol, self._empty_board_mask(reset_deals), mask)
             steps_out = torch.where(done, 0, steps_next).to(torch.int32)
@@ -409,6 +494,8 @@ class VecBlockPuzzle:
             info["final_board"] = self.board_obs(board_next)
             info["final_queue"] = queue3
             info["final_action_mask"] = mask
+            if cfg.obs_planes:
+                info["final_piece_planes"] = self.piece_planes(queue3)
         else:
             board_out, queue_out, mask_out = board_next, queue3, mask
             steps_out, score_out = steps_next, score_next
@@ -431,5 +518,6 @@ class VecBlockPuzzle:
             terminated=terminated,
             truncated=truncated,
             info=info,
+            piece_planes=self._maybe_planes(queue_out),
         )
         return new_state, ts

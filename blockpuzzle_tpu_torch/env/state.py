@@ -2,7 +2,9 @@
 
 Same fields and dtypes as ``blockpuzzle_tpu/env/state.py``, except that
 ``base_key`` holds (N,) int64 stream seeds for the port's counter-based
-generator (``env/rng.py``) in place of JAX's typed PRNG keys.
+generator (``env/rng.py``) in place of JAX's typed PRNG keys, and that a
+packed board's row words are int64 in place of uint32 (torch's CPU uint32
+has no shifts), holding the same integers.
 """
 
 from __future__ import annotations
@@ -18,7 +20,10 @@ class EnvState:
     """Per-env game state, leading axis N.
 
     Attributes:
-      board: (N, H*W) uint8 flat occupancy grid.
+      board: the engine's native layout: (N, H) int64 row words on a
+        packed engine (bit w of word r is cell (r, w); each word < 2**32),
+        or (N, H*W) uint8 flat cells on a u8 engine.  ``board_obs`` gives
+        the (N, H, W) uint8 view of either.
       queue: (N, S) int32 piece ids; ``num_pieces`` is the empty-slot
         sentinel.
       base_key: (N,) int64 per-env stream seeds; never change.
@@ -58,8 +63,8 @@ class TimeStep:
       board: (N, H, W) uint8
       queue: (N, S) int32
       action_mask: (N, S*H*W) bool
-
-    ``piece_planes`` (``EnvConfig.obs_planes``) is not ported yet.
+      piece_planes: (N, S, H, W) uint8 rendering of the hand, present only
+        when ``EnvConfig.obs_planes`` is set (None otherwise).
     """
 
     board: torch.Tensor
@@ -69,6 +74,7 @@ class TimeStep:
     terminated: torch.Tensor   # (N,) bool — game over (no legal placement)
     truncated: torch.Tensor    # (N,) bool — max_steps horizon hit
     info: Dict[str, Any]       # lines_cleared, legal, episode_return, ...
+    piece_planes: Any = None
 
     @property
     def done(self) -> torch.Tensor:
@@ -76,8 +82,11 @@ class TimeStep:
 
     @property
     def obs(self) -> Dict[str, torch.Tensor]:
-        return {
+        out = {
             "board": self.board,
             "queue": self.queue,
             "action_mask": self.action_mask,
         }
+        if self.piece_planes is not None:
+            out["piece_planes"] = self.piece_planes
+        return out

@@ -14,8 +14,16 @@ from blockpuzzle_tpu_torch.kernels.collision import (
     legality_plain,
 )
 from blockpuzzle_tpu_torch.kernels.mask import MaskKernel, mask_plain
+from blockpuzzle_tpu_torch.kernels.packed import (
+    PackedApplyKernel,
+    PackedMaskKernel,
+    packed_apply_plain,
+    packed_mask_plain,
+)
 
 __all__ = [
     "ApplyKernel", "ClearScanKernel", "LegalityKernel", "MaskKernel",
+    "PackedApplyKernel", "PackedMaskKernel",
     "apply_plain", "clear_plain", "legality_plain", "mask_plain",
+    "packed_apply_plain", "packed_mask_plain",
 ]

@@ -32,8 +32,8 @@ SHUFFLES = ("roll", "perm", "none")
 @dataclasses.dataclass(frozen=True)
 class PPOConfig:
     """PPO hyperparameters: the JAX package's fields and defaults, less
-    ``channels`` (the conv torso, ROADMAP.md A9) and ``anneal_updates``
-    (the LR schedule is ``cli/train.py``'s, passed to ``PPO.update``)."""
+    ``anneal_updates`` (the LR schedule is ``cli/train.py``'s, passed to
+    ``PPO.update``) and ``sample_rng_impl`` (a TPU choice)."""
 
     num_envs: int = 4096
     rollout_len: int = 64
@@ -51,6 +51,7 @@ class PPOConfig:
     # keeps it.  Minibatches are consecutive slices of that order.
     shuffle: str = "roll"
     hidden: int = 256
+    channels: Tuple[int, ...] = (32, 64)  # conv-torso widths
     torso: str = "conv"  # "conv" | "mlp" (see networks.Torso)
     mlp_width: int = 512
     queue_mode: str = "embed"  # "embed" | "planes" (see networks.Torso)
@@ -144,7 +145,8 @@ class PPO:
         moved to the engine's device."""
         cfg = self.cfg
         return ActorCritic(
-            self.env.cfg, self.env.num_pieces, gen, hidden=cfg.hidden,
+            self.env.cfg, self.env.num_pieces, gen, channels=cfg.channels,
+            hidden=cfg.hidden,
             arch=cfg.torso, mlp_width=cfg.mlp_width, queue_mode=cfg.queue_mode,
         ).to(self.env.device)
 

@@ -1,8 +1,8 @@
 """Canonical game rules data: piece library and precomputed placement tables.
 
 A copy of ``blockpuzzle_tpu/rules.py`` (piece library, ``decompose_rects``,
-``build_tables``, ``tables_for``): the JAX package imports gymnasium when it
-is imported, so the port keeps its own copy, and
+``build_tables``, ``piece_plane_table``, ``tables_for``): the JAX package
+imports gymnasium when it is imported, so the port keeps its own copy, and
 ``tests/test_torch_rules.py`` holds every table equal to the JAX package's.
 Piece ordering is fixed and load-bearing — action ids and the oracle's deal
 stream both depend on it.
@@ -238,6 +238,19 @@ def build_tables(cfg: EnvConfig) -> RuleTables:
         col_masks=col_masks,
         region_masks=region_masks,
     )
+
+
+def piece_plane_table(cfg: EnvConfig) -> np.ndarray:
+    """(P, H*W) uint8: each piece rendered at the board's top-left corner,
+    the plane of a hand slot in the piece-plane observation
+    (``EnvConfig.obs_planes``) and the network's ``queue_mode="planes"``."""
+    grids = piece_grids(cfg.piece_set)
+    table = np.zeros((len(grids), cfg.num_cells), dtype=np.uint8)
+    for p, g in enumerate(grids):
+        plane = np.zeros((cfg.height, cfg.width), dtype=np.uint8)
+        plane[: g.shape[0], : g.shape[1]] = g
+        table[p] = plane.reshape(-1)
+    return table
 
 
 _TABLE_CACHE: Dict[EnvConfig, RuleTables] = {}

@@ -9,15 +9,20 @@ then, each line tagged with its part:
   build     cold builds of ``kernels/csrc/*.cu`` in turns: one nvcc over
             all sources, then one nvcc per source started together and a
             link (``_build.build``), then the same two in reverse order;
-  train     one PPO update of the training path (``chip_smoke.TRAIN_ARGV``:
-            default preset, N = 4096, T = 64, mlp_width 512) on the host's
-            clock, twice: the update, a rollout alone and GAE alone; then
-            one update under ``torch.profiler``: device kernels, device
-            time, the device's busy share of an unprofiled update, and the
-            largest device items;
-  rollout   the rollout at N = 49152 on the default preset on the
-            apply-kernel step and the clear-kernel step, in turns pallas,
-            jnp, jnp, pallas (median of 3 windows of 200 steps each).
+  train     for each training path of ``chip_smoke.py`` (the JAX CLI's
+            defaults: conv torso, packed engine; then mlp torso, u8
+            clear-kernel step; default preset, N = 4096, T = 64), one PPO
+            update on the host's clock, twice: the update, a rollout alone
+            and GAE alone; then one update under ``torch.profiler``:
+            device kernels, device time, the device's busy share of an
+            unprofiled update, and the largest device items;
+  rollout   for each engine (packed, u8 apply-kernel step, u8
+            clear-kernel step) at N = 49152 on the default preset: host
+            ms per step, then 20 steps under ``torch.profiler`` (kernels,
+            device time and busy share per step, the largest items); then
+            the rollout entry point on each engine, in turns packed,
+            u8-pallas, u8-jnp, u8-jnp, u8-pallas, packed (median of 3
+            windows of 200 steps each).
 
 Cold builds go to a temporary directory under the git-ignored
 ``kernels/_build/``, removed at the end.
@@ -74,15 +79,17 @@ def device_busy_us(events) -> float:
     return busy
 
 
-def train_breakdown(card: str) -> None:
+def train_breakdown(card: str, argv) -> None:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from blockpuzzle_tpu_torch.cli import train
 
-    args = train.build_parser().parse_args(chip_smoke.TRAIN_ARGV)
+    args = train.build_parser().parse_args(argv)
     learner = train.build(args)
+    print(f"[train] {args.torso} torso, {learner.env.state_impl} engine, "
+          f"N={args.num_envs}, T={args.rollout_len}")
     hypers = train.ppo_hypers(args, 0)
     state = learner.init(args.seed)
     state, _ = learner.update(state, hypers)             # warm-up
@@ -115,22 +122,73 @@ def train_breakdown(card: str) -> None:
           f"{total / 1e3:.3f} ms device time, busy {busy / 1e3:.3f} ms = "
           f"{100 * busy / 1e3 / statistics.mean(update_ms):.1f}% of an "
           "unprofiled update")
+    top_items(device, 1, "train", 12)
+
+
+ENGINES = {"packed": {}, "u8-pallas": {"backend": "pallas"},
+           "u8-jnp": {"backend": "jnp", "state_impl": "u8"}}
+
+
+def rollout_breakdown(card: str) -> None:
+    """Each engine's uniform-legal step at N = 49152, default preset: host
+    time per step over 100 steps, then 20 steps under ``torch.profiler``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from blockpuzzle_tpu_torch import PRESETS, make_env
+    from blockpuzzle_tpu_torch.sampler import UniformLegalSampler
+
+    n = chip_smoke.N_MAIN
+    for name, kwargs in ENGINES.items():
+        env = make_env(PRESETS["default"](), device="cuda", **kwargs)
+        state, ts = env.init(0, n)
+        sampler = UniformLegalSampler(1, n, env.device)
+
+        def steps(k):
+            nonlocal state, ts
+            for _ in range(k):
+                state, ts = env.step(state, sampler(ts.action_mask))
+            torch.cuda.synchronize()
+
+        steps(20)                                          # warm-up
+        t0 = time.perf_counter()
+        steps(100)
+        step_ms = 10 * (time.perf_counter() - t0)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            steps(20)
+        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        print(f"[rollout] {name} step, N={n}: {step_ms:.4f} ms per step ({card})")
+        if not device:
+            print("[rollout] the profiler saw no device events: not measured")
+            continue
+        busy = device_busy_us(device) / 20 / 1e3
+        print(f"[rollout] {name} profiled: {len(device) / 20:.1f} device kernels "
+              f"per step, {sum(e.time_range.elapsed_us() for e in device) / 20e3:.4f}"
+              f" ms device time, busy {busy:.4f} ms = {100 * busy / step_ms:.1f}% "
+              "of an unprofiled step")
+        top_items(device, 20, "rollout", 8)
+
+
+def top_items(device, per: int, tag: str, k: int) -> None:
+    """The ``k`` largest device items, in ms per step (or per update)."""
     by_name = {}
     for e in device:
         n, us = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
-        print(f"[train]   {us / 1e3:8.3f} ms  {n:6d}x  {name[:90]}")
+    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:k]:
+        print(f"[{tag}]   {us / per / 1e3:8.4f} ms  {n / per:6.1f}x  {name[:90]}")
 
 
 def rollout_turns(card: str) -> None:
     from blockpuzzle_tpu_torch import PRESETS, make_env
     from blockpuzzle_tpu_torch.cli.rollout import rollout
 
-    for backend in ("pallas", "jnp", "jnp", "pallas"):
-        env = make_env(PRESETS["default"](), device="cuda", backend=backend)
+    order = list(ENGINES) + list(ENGINES)[::-1]
+    for name in order:
+        env = make_env(PRESETS["default"](), device="cuda", **ENGINES[name])
         r = rollout(env, chip_smoke.N_MAIN, 200, 3, seed=0)
-        print(f"[rollout] {backend} step, N={chip_smoke.N_MAIN}: median "
+        print(f"[rollout] {name} step, N={chip_smoke.N_MAIN}: median "
               f"{statistics.median(r['rates']):.1f} env-steps/s ({card})")
 
 
@@ -144,7 +202,9 @@ def main() -> int:
     print(f"[setup] python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
     build_times()
-    train_breakdown(card)
+    for argv in (chip_smoke.TRAIN_ARGV, chip_smoke.TRAIN_U8_ARGV):
+        train_breakdown(card, argv)
+    rollout_breakdown(card)
     rollout_turns(card)
     print(f"[done] {card}")
     return 0

@@ -9,33 +9,41 @@ which raises on failure (non-zero exit, no result line):
 
   0. card name and power limit, torch/CUDA versions, compute capability,
      kernel build time;
-  1. each of the four kernels (mask, apply, clear, legality) against its
-     plain torch version on the card, bit-equal, at N = 49152 and a ragged
-     N = 49151 on the default, tenten and woodoku presets, plus an illegal
-     action on a board holding a full line; then each kernel's time beside
-     the plain version's (CUDA events);
+  1. each of the six kernels against its plain torch version on the card,
+     bit-equal, at N = 49152 and a ragged N = 49151: the u8 kernels (mask,
+     apply, clear, legality) on the default, tenten and woodoku presets,
+     the packed kernels (packed_apply, packed_mask) on those and ``big``,
+     on boards holding full rows, columns and 3x3 regions; the packed
+     kernels also against the u8 mask and apply kernels on the unpacked
+     boards; an illegal action on a board holding a full line through
+     both apply kernels; then each kernel's time beside the plain
+     version's (CUDA events);
   2. the whole rollout on CUDA and on CPU from one seed (N = 1024, 64
-     steps, live deals, auto-reset) on the apply-kernel step
-     (``backend="pallas"``) and on the clear-kernel step (``"jnp"``):
-     final states and summed rewards bit-equal across devices and across
-     the two steps, each kernel of a step launched exactly once per step;
-     then ``legal_all_pieces`` on the final boards against its plain
-     version and the hand mask;
-  3. the rollout path: the rollout entry point at N = 49152 on the default
-     preset, one warm-up chunk then 5 timed windows of 400 steps; then the
-     inspection entry point ``legal_all_pieces`` on its final boards.  The
-     launch counters are set to 0 before each and read after each;
-  4. the training path: ``cli/train.py`` (PPO, mlp torso, u8 boards, the
-     clear-kernel step) at full width on the default preset, N = 4096,
-     T = 64, 3 updates, with the launch counters set to 0 before it and
-     read after it; then one rollout alone, timed; then a fresh network
-     at the same widths on CUDA and its copy on the CPU over one
-     minibatch of a CUDA rollout.
+     steps, live deals, auto-reset) on the packed engine (every preset)
+     and on the u8 apply-kernel (``backend="pallas"``) and clear-kernel
+     (``backend="jnp"``) steps: final states and summed rewards bit-equal
+     across devices and across the three engines, each kernel of an
+     engine launched exactly once per step; then ``legal_all_pieces`` on
+     the final boards against its plain version and the hand mask;
+  3. the rollout paths: the rollout entry point at N = 49152 on the
+     default preset, one warm-up chunk then 5 timed windows of 400 steps,
+     on the default (packed) engine and on the apply-kernel step; then the
+     inspection entry point ``legal_all_pieces`` on the packed engine's
+     final boards.  The launch counters are set to 0 before each and read
+     after each;
+  4. the training paths: ``cli/train.py`` with the JAX CLI's default flags
+     (PPO, conv torso, packed engine) on the default preset, N = 4096,
+     T = 64, 3 updates, and with ``--torso mlp --state-impl u8`` (the u8
+     clear-kernel step), 2 updates, each with the launch counters set to
+     0 before it and read after it; then one rollout of each alone,
+     timed; then a fresh network of each at the same widths on CUDA and
+     its copy on the CPU over one minibatch of a CUDA rollout.
 
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is the count
-on the path named in its ``path`` (the training path for the kernels it
-runs); ``launches_by_path`` gives the count on every path read.
+on the path named in its ``path``; ``launches_by_path`` gives the count on
+every path read.  The packed kernels have no Pallas source: their
+``replaces`` names the JAX package's jnp code.
 """
 
 from __future__ import annotations
@@ -48,27 +56,38 @@ import time
 
 N_MAIN = 49152
 PRESETS_CHECKED = ("default", "tenten", "woodoku")
-# kernel -> (source, the TPU kernel it replaces, the path its launches
-# are read from)
+PACKED_PRESETS = PRESETS_CHECKED + ("big",)
+# kernel -> (source, the TPU kernel or jnp code it replaces, the path its
+# launches are read from)
 KERNEL_INFO = {
     "mask": ("blockpuzzle_tpu_torch/kernels/csrc/mask.cu",
-             "blockpuzzle_tpu/kernels/mask.py:85", "train"),
+             "blockpuzzle_tpu/kernels/mask.py:85", "rollout_pallas"),
     "apply": ("blockpuzzle_tpu_torch/kernels/csrc/collision.cu",
-              "blockpuzzle_tpu/kernels/collision.py:164", "rollout"),
+              "blockpuzzle_tpu/kernels/collision.py:164", "rollout_pallas"),
     "clear": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
-              "blockpuzzle_tpu/kernels/clear.py:93", "train"),
+              "blockpuzzle_tpu/kernels/clear.py:93", "train_u8"),
     "legality": ("blockpuzzle_tpu_torch/kernels/csrc/legality.cu",
                  "blockpuzzle_tpu/kernels/collision.py:50", "legal_all_pieces"),
+    "packed_apply": ("blockpuzzle_tpu_torch/kernels/csrc/packed_apply.cu",
+                     "blockpuzzle_tpu/env/core.py:962", "rollout"),
+    "packed_mask": ("blockpuzzle_tpu_torch/kernels/csrc/packed_mask.cu",
+                    "blockpuzzle_tpu/env/core.py:489", "rollout"),
 }
-TRAIN_ARGV = ["--torso", "mlp", "--state-impl", "u8", "--preset", "default",
-              "--num-envs", "4096", "--rollout-len", "64", "--mlp-width", "512",
-              "--epochs", "2", "--minibatches", "4", "--updates", "3",
+NO_PALLAS_SOURCE = ("packed_apply", "packed_mask")
+# the JAX CLI's defaults: conv torso, --state-impl auto (packed)
+TRAIN_ARGV = ["--preset", "default", "--num-envs", "4096", "--rollout-len",
+              "64", "--epochs", "2", "--minibatches", "4", "--updates", "3",
               "--log-every", "1", "--seed", "0", "--device", "cuda"]
+# the u8 clear-kernel step, with the mlp torso (later flags win)
+TRAIN_U8_ARGV = TRAIN_ARGV + ["--updates", "2", "--torso", "mlp",
+                              "--state-impl", "u8", "--mlp-width", "512"]
 
 
 def kernel_wrappers(env) -> dict:
     return {"mask": env.mask_kernel, "apply": env.apply_kernel,
-            "clear": env.clear_kernel, "legality": env.legal_kernel}
+            "clear": env.clear_kernel, "legality": env.legal_kernel,
+            "packed_apply": env.packed_apply_kernel,
+            "packed_mask": env.packed_mask_kernel}
 
 
 def zero_counts(env) -> None:
@@ -105,11 +124,29 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def chosen_action(cfg, g):
+    """The packed apply kernel's view of (piece, anchor) table rows ``g``:
+    attrs (n, 11) ``[h, w, cells, dr1, dc1, h1, w1, dr2, dc2, h2, w2]``,
+    anchor row r and column c, as the engine's step derives them."""
+    import numpy as np
+
+    from blockpuzzle_tpu_torch import rules
+
+    t = rules.tables_for(cfg)
+    table = np.concatenate(
+        [t.piece_h[:, None], t.piece_w[:, None], t.piece_cells[:, None],
+         t.piece_rects], axis=1).astype(np.int32)
+    pid, anchor = np.divmod(g, cfg.num_cells)
+    r, c = np.divmod(anchor, cfg.width)
+    return table[pid], r.astype(np.int32), c.astype(np.int32)
+
+
 def kernel_inputs(cfg, n: int, seed: int):
     """Boards with some full lines, full 3x3 regions (cleared on woodoku)
-    and near-full rows, hands with empty slots, and chosen footprints that
-    are legal, illegal, out of bounds, or complete a row, as numpy
-    arrays."""
+    and near-full rows, hands with empty slots, and chosen actions that
+    are legal, illegal, out of bounds, or complete a row, as numpy arrays:
+    (board, queue, cover, valid) for the u8 kernels and (attrs, r, c) of
+    the same actions for the packed apply kernel."""
     import numpy as np
 
     from blockpuzzle_tpu_torch import rules
@@ -124,17 +161,18 @@ def kernel_inputs(cfg, n: int, seed: int):
     grid[2::7, 4, :] = 1                              # row 4 full but
     grid[2::7, 4, 0] = 0                              # its first cell
     grid[3::7, 0:3, 0:3] = 1                          # full 3x3 regions
+    grid[4::7, 3:6, 3:6] = 1                          # a full region crossed
+    grid[4::7, 4, :] = 1                              # by a full row
     queue = rs.integers(0, t.num_pieces + 1, (n, cfg.queue_size)).astype(np.int32)
     g = rs.integers(0, t.cover.shape[0], n)           # random (piece, anchor)
     g[2::7] = 4 * cfg.width                           # 1x1 at (4, 0): clears
-    cover = t.cover[g]
-    valid = t.valid[g]
-    return board, queue, cover, valid
+    return (board, queue, t.cover[g], t.valid[g]) + chosen_action(cfg, g)
 
 
 def illegal_on_full_line(cfg, n: int):
     """Every board holds a full row 0; the action (1x1 at (0, 0)) overlaps
-    it, so it must leave the board untouched."""
+    it, so it must leave the board untouched.  (board, cover, valid, attrs,
+    r, c) as numpy arrays."""
     import numpy as np
 
     from blockpuzzle_tpu_torch import rules
@@ -142,7 +180,8 @@ def illegal_on_full_line(cfg, n: int):
     t = rules.tables_for(cfg)
     board = np.zeros((n, cfg.num_cells), np.uint8)
     board[:, : cfg.width] = 1
-    return board, t.cover[np.zeros(n, int)], t.valid[np.zeros(n, int)]
+    g = np.zeros(n, int)
+    return (board, t.cover[g], t.valid[g]) + chosen_action(cfg, g)
 
 
 def max_abs_err(got, want) -> int:
@@ -166,46 +205,70 @@ def phase1(card: str) -> dict:
     from blockpuzzle_tpu_torch.config import PRESETS
     from blockpuzzle_tpu_torch.kernels import (
         ApplyKernel, ClearScanKernel, LegalityKernel, MaskKernel,
+        PackedApplyKernel, PackedMaskKernel,
     )
+    from blockpuzzle_tpu_torch.kernels.packed import pack_words, unpack_words
 
     dev = torch.device("cuda")
     errs = {name: 0 for name in KERNEL_INFO}
     times = {}
-    for name in PRESETS_CHECKED:
+    for name in PACKED_PRESETS:
         cfg = PRESETS[name]()
+        u8 = name in PRESETS_CHECKED
         mk, ak = MaskKernel(cfg, dev), ApplyKernel(cfg, dev)
         ck, lk = ClearScanKernel(cfg, dev), LegalityKernel(cfg, dev)
+        pak, pmk = PackedApplyKernel(cfg, dev), PackedMaskKernel(cfg, dev)
         for n in (N_MAIN, N_MAIN - 1):
-            board, queue, cover, valid = (
+            board, queue, cover, valid, attrs, r, c = (
                 torch.as_tensor(x, device=dev)
                 for x in kernel_inputs(cfg, n, seed=n)
             )
+            words = pack_words(board.view(n, cfg.height, cfg.width))
             what = f"{name}, N={n}"
-            got = mk(board, queue)
-            check_equal([got], [mk.plain(board, queue)], what, errs, "mask")
+            pmask = pmk(words, queue)
+            check_equal([pmask], [pmk.plain(words, queue)], what, errs, "packed_mask")
+            pouts = pak(words, attrs, r, c, valid)
+            check_equal(pouts, pak.plain(words, attrs, r, c, valid), what, errs,
+                        "packed_apply")
+            # the packed kernels against the u8 ones on the unpacked boards
+            mask = mk(board, queue)
+            if not torch.equal(pmask, mask):
+                raise AssertionError(f"packed_mask != mask kernel ({what})")
             outs = ak(board, cover, valid)
-            check_equal(outs, ak.plain(board, cover, valid), what, errs, "apply")
-            cleared = ck(board)
-            check_equal(cleared, ck.plain(board), what, errs, "clear")
-            legal_all = lk(board)
-            check_equal([legal_all], [lk.plain(board)], what, errs, "legality")
-            print(f"[phase1] {what}: mask legal share "
-                  f"{float(got.float().mean()):.4f}, apply legal "
-                  f"{int(outs[2].sum())}, lines cleared {int(outs[1].sum())}; "
-                  f"clear k {int(cleared[1].sum())}; legality share "
-                  f"{float(legal_all.float().mean()):.4f}: kernel == plain "
-                  "(bit-equal)")
-            b2, c2, v2 = (
+            unpacked = unpack_words(pouts[0], cfg.width).view(n, -1)
+            if not all(torch.equal(a, b) for a, b in
+                       zip((unpacked,) + pouts[1:], outs)):
+                raise AssertionError(f"packed_apply != apply kernel ({what})")
+            line = (f"[phase1] {what}: packed mask legal share "
+                    f"{float(pmask.float().mean()):.4f}, packed apply legal "
+                    f"{int(pouts[2].sum())}, lines cleared "
+                    f"{int(pouts[1].sum())}: packed kernels == plain == u8 "
+                    "kernels on the unpacked boards (bit-equal)")
+            if u8:
+                check_equal([mask], [mk.plain(board, queue)], what, errs, "mask")
+                check_equal(outs, ak.plain(board, cover, valid), what, errs, "apply")
+                cleared = ck(board)
+                check_equal(cleared, ck.plain(board), what, errs, "clear")
+                legal_all = lk(board)
+                check_equal([legal_all], [lk.plain(board)], what, errs, "legality")
+                line += (f"; clear k {int(cleared[1].sum())}, legality share "
+                         f"{float(legal_all.float().mean()):.4f}: u8 kernels == "
+                         "plain (bit-equal)")
+            print(line)
+            b2, c2, v2, a2, r2, col2 = (
                 torch.as_tensor(x, device=dev) for x in illegal_on_full_line(cfg, n)
             )
-            nb, k2, l2 = ak(b2, c2, v2)
-            if bool(l2.any()) or int(k2.sum()) or not torch.equal(nb, b2):
-                raise AssertionError(f"illegal action changed a board ({name})")
+            w2 = pack_words(b2.view(n, cfg.height, cfg.width))
+            for nb, k2, l2, before in (ak(b2, c2, v2) + (b2,),
+                                       pak(w2, a2, r2, col2, v2) + (w2,)):
+                if bool(l2.any()) or int(k2.sum()) or not torch.equal(nb, before):
+                    raise AssertionError(f"illegal action changed a board ({name})")
         if name == "default":
-            board, queue, cover, valid = (
+            board, queue, cover, valid, attrs, r, c = (
                 torch.as_tensor(x, device=dev)
                 for x in kernel_inputs(cfg, N_MAIN, seed=0)
             )
+            words = pack_words(board.view(N_MAIN, cfg.height, cfg.width))
             times["mask"] = (cuda_ms(lambda: mk(board, queue)),
                              cuda_ms(lambda: mk.plain(board, queue)))
             times["apply"] = (cuda_ms(lambda: ak(board, cover, valid)),
@@ -214,10 +277,16 @@ def phase1(card: str) -> dict:
                               cuda_ms(lambda: ck.plain(board)))
             times["legality"] = (cuda_ms(lambda: lk(board)),
                                  cuda_ms(lambda: lk.plain(board)))
+            args = (words, attrs, r, c, valid)
+            times["packed_apply"] = (cuda_ms(lambda: pak(*args)),
+                                     cuda_ms(lambda: pak.plain(*args)))
+            times["packed_mask"] = (cuda_ms(lambda: pmk(words, queue)),
+                                    cuda_ms(lambda: pmk.plain(words, queue)))
     for k, (ms, plain_ms) in times.items():
         print(f"[phase1] {k} N={N_MAIN} default: kernel {ms:.6f} ms, plain "
               f"{plain_ms:.6f} ms ({card})")
-    print("[phase1] illegal action on a full-line board: strict no-op")
+    print("[phase1] illegal action on a full-line board: strict no-op (apply, "
+          "packed_apply)")
     return {k: {"max_abs_err": errs[k], "ms": times[k][0],
                 "plain_ms": times[k][1]} for k in errs}
 
@@ -242,16 +311,22 @@ def phase2() -> int:
     from blockpuzzle_tpu_torch.sampler import UniformLegalSampler
 
     n, steps = 1024, 64
-    fields = ("board", "queue", "base_key", "rng_counter", "steps", "score",
-              "streak")
-    expect = {"pallas": {"mask": steps, "apply": steps, "clear": 0, "legality": 0},
-              "jnp": {"mask": steps, "apply": 0, "clear": steps, "legality": 0}}
+    fields = ("queue", "base_key", "rng_counter", "steps", "score", "streak")
+    zero = dict.fromkeys(KERNEL_INFO, 0)
+    # engine -> (make_env arguments, kernels launched once per step)
+    engines = {"packed": (dict(backend="jnp", state_impl="packed"),
+                          ("packed_mask", "packed_apply")),
+               "pallas": (dict(backend="pallas", state_impl="u8"),
+                          ("mask", "apply")),
+               "jnp": (dict(backend="jnp", state_impl="u8"), ("mask", "clear"))}
     err = 0
-    for name in PRESETS_CHECKED:
-        finals, rewards, envs = {}, {}, {}
-        for backend in ("pallas", "jnp"):
+    for name in PACKED_PRESETS:
+        finals, boards, rewards, envs = {}, {}, {}, {}
+        run = ("packed", "pallas", "jnp") if name in PRESETS_CHECKED else ("packed",)
+        for engine in run:
+            kwargs, per_step = engines[engine]
             for dev in ("cuda", "cpu"):
-                env = make_env(PRESETS[name](), device=dev, backend=backend)
+                env = make_env(PRESETS[name](), device=dev, **kwargs)
                 state, ts = env.init(7, n)
                 sampler = UniformLegalSampler(8, n, env.device)
                 total = torch.zeros((), dtype=torch.float64, device=env.device)
@@ -259,85 +334,105 @@ def phase2() -> int:
                     state, ts = env.step(state, sampler(ts.action_mask))
                     total = total + ts.reward.sum(dtype=torch.float64)
                 if dev == "cuda":
-                    counts = read_counts(env)
-                    if counts != expect[backend]:
+                    counts, expect = read_counts(env), {**zero, **dict.fromkeys(per_step, steps)}
+                    if counts != expect:
                         raise AssertionError(
-                            f"{backend} launch counts {counts} != {expect[backend]}")
-                    envs[backend] = (env, state)
-                finals[backend, dev] = state.to("cpu")
-                rewards[backend, dev] = float(total)
-        for a, b in ((("pallas", "cuda"), ("pallas", "cpu")),
-                     (("jnp", "cuda"), ("jnp", "cpu")),
-                     (("jnp", "cuda"), ("pallas", "cuda"))):
-            for field in fields:
-                if not torch.equal(getattr(finals[a], field), getattr(finals[b], field)):
-                    raise AssertionError(f"{name}: final {field} differs {a} vs {b}")
+                            f"{engine} launch counts {counts} != {expect}")
+                    envs[engine] = (env, state)
+                finals[engine, dev] = state.to("cpu")
+                boards[engine, dev] = env.board_obs(state.board).cpu()
+                rewards[engine, dev] = float(total)
+        pairs = [((e, "cuda"), (e, "cpu")) for e in run]
+        pairs += [(("packed", "cuda"), (e, "cuda")) for e in run[1:]]
+        for a, b in pairs:
+            same = torch.equal(boards[a], boards[b]) and all(
+                torch.equal(getattr(finals[a], f), getattr(finals[b], f))
+                for f in fields)
+            if not same:
+                raise AssertionError(f"{name}: final states differ {a} vs {b}")
             if rewards[a] != rewards[b]:
                 raise AssertionError(f"{name}: summed rewards differ {a} vs {b}")
-        print(f"[phase2] {name} N={n} {steps} steps: pallas CUDA == CPU, jnp "
-              f"CUDA == CPU, jnp CUDA == pallas CUDA (final states bit-equal), "
-              f"summed reward {rewards['jnp', 'cuda']}, launches per step "
-              "mask=1 apply=1 (pallas) / mask=1 clear=1 (jnp)")
-        env, state = envs["jnp"]
-        legal_all = env.legal_all_pieces(state.board)
-        err = max(err, max_abs_err(legal_all, env.legal_kernel.plain(state.board)))
-        if not torch.equal(legal_all, env.legal_kernel.plain(state.board)):
-            raise AssertionError(f"{name}: legal_all_pieces != plain")
-        if not torch.equal(hand_rows(legal_all, state.queue),
-                           env.action_mask(state.board, state.queue)):
-            raise AssertionError(f"{name}: legal_all_pieces hand rows != action_mask")
+        print(f"[phase2] {name} N={n} {steps} steps: {', '.join(run)} engines, "
+              "each CUDA == CPU, and packed CUDA == every other engine on CUDA "
+              f"(final states bit-equal), summed reward "
+              f"{rewards['packed', 'cuda']}, launches per step "
+              + "; ".join(f"{e}: " + " ".join(f"{k}=1" for k in engines[e][1])
+                          for e in run))
+        for engine in run:
+            env, state = envs[engine]
+            legal_all = env.legal_all_pieces(state.board)
+            plain = env.legal_kernel.plain(
+                env.board_obs(state.board).reshape(n, -1).contiguous())
+            err = max(err, max_abs_err(legal_all, plain))
+            if not torch.equal(legal_all, plain):
+                raise AssertionError(f"{name}: legal_all_pieces != plain ({engine})")
+            if not torch.equal(hand_rows(legal_all, state.queue),
+                               env.action_mask(state.board, state.queue)):
+                raise AssertionError(
+                    f"{name}: legal_all_pieces hand rows != action_mask ({engine})")
         print(f"[phase2] {name}: legal_all_pieces on the final boards == plain, "
               "hand rows == action_mask")
     return err
 
 
-def phase3(card: str) -> tuple:
-    """Returns the launch counts of the rollout path and of the
-    ``legal_all_pieces`` entry point."""
+def phase3(card: str) -> dict:
+    """Returns the launch counts of the two rollout paths (``rollout``: the
+    default, packed engine; ``rollout_pallas``: the u8 apply-kernel step)
+    and of the ``legal_all_pieces`` entry point."""
     import torch
 
     from blockpuzzle_tpu_torch import PRESETS, make_env
     from blockpuzzle_tpu_torch.cli.rollout import rollout
 
-    env = make_env(PRESETS["default"](), device="cuda")
     chunk, windows = 400, 5
-    zero_counts(env)
-    r = rollout(env, N_MAIN, chunk, windows, seed=0)
-    launches = read_counts(env)
     steps = (windows + 1) * chunk
-    expect = {"mask": steps, "apply": steps, "clear": 0, "legality": 0}
-    if launches != expect:
-        raise AssertionError(f"rollout path launches {launches} != {expect}")
-    s = r["state"]
-    zero_counts(env)
-    legal_all = env.legal_all_pieces(s.board)
-    inspect = read_counts(env)
-    expect = {"mask": 0, "apply": 0, "clear": 0, "legality": 1}
-    if inspect != expect:
-        raise AssertionError(f"legal_all_pieces launches {inspect} != {expect}")
-    num_pieces = env.num_pieces
-    if s.board.shape != (N_MAIN, env.cfg.num_cells) or int(s.board.max()) > 1:
-        raise AssertionError("final boards malformed")
-    if int(s.queue.min()) < 0 or int(s.queue.max()) > num_pieces:
-        raise AssertionError("final queues out of range")
-    if not bool(torch.isfinite(s.score).all()):
-        raise AssertionError("non-finite scores")
-    if not torch.equal(hand_rows(legal_all, s.queue),
-                       env.mask_kernel.plain(s.board, s.queue)):
+    zero = dict.fromkeys(KERNEL_INFO, 0)
+    paths = {}
+    for path, kwargs, per_step in (
+            ("rollout", {}, ("packed_mask", "packed_apply")),
+            ("rollout_pallas", {"backend": "pallas"}, ("mask", "apply"))):
+        env = make_env(PRESETS["default"](), device="cuda", **kwargs)
+        zero_counts(env)
+        r = rollout(env, N_MAIN, chunk, windows, seed=0)
+        paths[path] = read_counts(env)
+        expect = {**zero, **dict.fromkeys(per_step, steps)}
+        if paths[path] != expect:
+            raise AssertionError(f"{path} path launches {paths[path]} != {expect}")
+        s = r["state"]
+        cells = env.board_obs(s.board)
+        if cells.shape != (N_MAIN, env.cfg.height, env.cfg.width) or int(cells.max()) > 1:
+            raise AssertionError("final boards malformed")
+        if int(s.queue.min()) < 0 or int(s.queue.max()) > env.num_pieces:
+            raise AssertionError("final queues out of range")
+        if not bool(torch.isfinite(s.score).all()):
+            raise AssertionError("non-finite scores")
+        mean_return = r["episode_return"] / max(r["episodes"], 1)
+        # uniform-legal play on the default preset returns ~78 per episode
+        if r["episodes"] == 0 or not 60.0 < mean_return < 100.0:
+            raise AssertionError(f"implausible episodes: {r['episodes']}, "
+                                 f"mean return {mean_return}")
+        rates = r["rates"]
+        print(f"[phase3] {path} ({env.state_impl}, backend {env.backend}) "
+              f"default N={N_MAIN}: windows of {chunk} steps (env-steps/s) "
+              f"{[round(x) for x in rates]}")
+        print(f"[phase3] {path} median {statistics.median(rates):.1f} "
+              f"env-steps/s ({card}); episodes {r['episodes']}, mean return "
+              f"{mean_return:.3f}; launches {paths[path]}")
+        if path == "rollout":
+            packed_env, final = env, s
+    zero_counts(packed_env)
+    legal_all = packed_env.legal_all_pieces(final.board)
+    paths["legal_all_pieces"] = read_counts(packed_env)
+    expect = {**zero, "legality": 1}
+    if paths["legal_all_pieces"] != expect:
+        raise AssertionError(
+            f"legal_all_pieces launches {paths['legal_all_pieces']} != {expect}")
+    if not torch.equal(hand_rows(legal_all, final.queue),
+                       packed_env.packed_mask_kernel.plain(final.board, final.queue)):
         raise AssertionError("legal_all_pieces hand rows != the hand mask")
-    mean_return = r["episode_return"] / max(r["episodes"], 1)
-    # uniform-legal play on the default preset returns ~78 per episode
-    if r["episodes"] == 0 or not 60.0 < mean_return < 100.0:
-        raise AssertionError(f"implausible episodes: {r['episodes']}, "
-                             f"mean return {mean_return}")
-    rates = r["rates"]
-    print(f"[phase3] default N={N_MAIN}: windows of {chunk} steps (env-steps/s) "
-          f"{[round(x) for x in rates]}")
-    print(f"[phase3] median {statistics.median(rates):.1f} env-steps/s "
-          f"({card}); episodes {r['episodes']}, mean return {mean_return:.3f}; "
-          f"launches {launches}; legal_all_pieces on the final boards: "
-          f"launches {inspect}")
-    return launches, inspect
+    print(f"[phase3] legal_all_pieces on the packed rollout's final boards: "
+          f"launches {paths['legal_all_pieces']}, hand rows == the hand mask")
+    return paths
 
 
 def learner_cuda_vs_cpu(learner, state) -> None:
@@ -386,7 +481,8 @@ def learner_cuda_vs_cpu(learner, state) -> None:
     grad_err, worst = max(
         (float((gg[n] - gc[n]).norm() / gc[n].norm().clamp_min(1e-12)), n)
         for n in gc)
-    print(f"[phase4] fresh network, CUDA vs CPU, one minibatch of {rows} rows: "
+    print(f"[phase4] fresh {cfg.torso}/{cfg.queue_mode} network, CUDA vs CPU, "
+          f"one minibatch of {rows} rows: "
           f"logits max abs err {logit_err:.3e}, values {value_err:.3e}, loss "
           f"metrics max rel err {metric_err:.3e}, gradients max rel L2 err "
           f"{grad_err:.3e} ({worst}) (limits 2e-2, 2e-2, 1e-2, 2e-2)")
@@ -400,21 +496,32 @@ def learner_cuda_vs_cpu(learner, state) -> None:
 
 
 def phase4(card: str) -> dict:
+    """Returns the launch counts of the two training paths (``train``: the
+    JAX CLI's defaults, conv torso on the packed engine; ``train_u8``: the
+    mlp torso on the u8 clear-kernel step)."""
+    return {"train": train_path(card, TRAIN_ARGV, ("packed_mask", "packed_apply")),
+            "train_u8": train_path(card, TRAIN_U8_ARGV, ("mask", "clear"))}
+
+
+def train_path(card: str, argv, kernels) -> dict:
+    """``cli/train.py`` with ``argv``; ``kernels`` are the engine's mask
+    and apply kernels, launched T + 1 and T times per update."""
     import math
 
     import torch
 
     from blockpuzzle_tpu_torch.cli import train
 
-    args = train.build_parser().parse_args(TRAIN_ARGV)
+    args = train.build_parser().parse_args(argv)
     learner = train.build(args)
     env = learner.env
     zero_counts(env)
     r = train.train(args, learner)
     launches = read_counts(env)
     t = args.rollout_len
-    expect = {"mask": args.updates * (t + 1), "apply": 0,
-              "clear": args.updates * t, "legality": 0}
+    mask_kernel, apply_kernel = kernels
+    expect = {**dict.fromkeys(KERNEL_INFO, 0), mask_kernel: args.updates * (t + 1),
+              apply_kernel: args.updates * t}
     if launches != expect:
         raise AssertionError(f"training path launches {launches} != {expect}")
     m = r["metrics"]
@@ -432,8 +539,11 @@ def phase4(card: str) -> dict:
     learner._rollout(r["state"])
     torch.cuda.synchronize()
     rollout_ms = 1e3 * (time.perf_counter() - t0)
-    print(f"[phase4] PPO default N={args.num_envs} T={t} mlp_width "
-          f"{args.mlp_width}: {args.updates} updates, last loss {m['loss']:.6f}, "
+    width = (f"channels {learner.cfg.channels}" if args.torso == "conv"
+             else f"mlp_width {args.mlp_width}")
+    print(f"[phase4] PPO default, {args.torso} torso ({width}, hidden "
+          f"{learner.cfg.hidden}), {env.state_impl} engine, N={args.num_envs} "
+          f"T={t}: {args.updates} updates, last loss {m['loss']:.6f}, "
           f"return {m['episode_return']:.3f}, entropy {m['entropy']:.4f}; "
           f"launches {launches}")
     print(f"[phase4] {sps:.1f} env-steps/s of training over updates 2-"
@@ -469,15 +579,14 @@ def main() -> int:
     legal_err = phase2()
     measured["legality"]["max_abs_err"] = max(
         measured["legality"]["max_abs_err"], legal_err)
-    paths = {}
-    paths["rollout"], paths["legal_all_pieces"] = phase3(card)
-    paths["train"] = phase4(card)
+    paths = {**phase3(card), **phase4(card)}
 
     kernels = []
     for name, (source, replaces, path) in KERNEL_INFO.items():
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "path": path,
-                        "launches": paths[path][name],
+                        "replaces": replaces,
+                        "pallas_source": name not in NO_PALLAS_SOURCE,
+                        "path": path, "launches": paths[path][name],
                         "launches_by_path": {p: c[name] for p, c in paths.items()},
                         **measured[name]})
     print(f"[done] {card}")

@@ -4,8 +4,10 @@ tests/test_parity.py, through blockpuzzle_tpu_torch.cli.parity).
 The oracle's deal stream is injected with ``auto_reset=False``; boards,
 queues, masks, rewards and termination must be bit-equal to the oracle's
 and episode returns equal, with zero mismatches.  The replays run on the
-apply-kernel step (``backend="pallas"``, the test ids without a suffix)
-and on the clear-kernel step (``backend="jnp"``, ids ending in ``-jnp``).
+u8 apply-kernel step (``backend="pallas"``, the test ids without a
+suffix), on the u8 clear-kernel step (``backend="jnp"``,
+``state_impl="u8"``, ids ending in ``-jnp``) and on the packed engine, the
+default (ids ending in ``-packed``).
 """
 
 import dataclasses
@@ -18,8 +20,9 @@ from blockpuzzle_tpu_torch.env import make_env
 
 SEEDS = {"default": [0, 1, 17], "tenten": [0, 5], "woodoku": [0, 9], "big": [0]}
 BY_BACKEND = [
-    pytest.param(preset, backend, id=preset + suffix)
-    for backend, suffix in (("pallas", ""), ("jnp", "-jnp"))
+    pytest.param(preset, backend, state_impl, id=preset + suffix)
+    for backend, state_impl, suffix in (
+        ("pallas", "u8", ""), ("jnp", "u8", "-jnp"), ("jnp", "packed", "-packed"))
     for preset in sorted(SEEDS)
 ]
 
@@ -28,10 +31,10 @@ def _cfg(preset, **knobs):
     return dataclasses.replace(tcfg.PRESETS[preset](), **knobs)
 
 
-@pytest.mark.parametrize("preset,backend", BY_BACKEND)
-def test_check_seed_zero_mismatches(preset, backend):
+@pytest.mark.parametrize("preset,backend,state_impl", BY_BACKEND)
+def test_check_seed_zero_mismatches(preset, backend, state_impl):
     ct = _cfg(preset)
-    env = make_env(ct, device="cpu", backend=backend)
+    env = make_env(ct, device="cpu", backend=backend, state_impl=state_impl)
     for seed in SEEDS[preset]:
         r = parity.check_seed(ct, seed, 256, env=env)
         assert r["mismatches"] == [], (seed, r["mismatches"])
@@ -39,11 +42,11 @@ def test_check_seed_zero_mismatches(preset, backend):
         assert r["steps"] > 0
 
 
-@pytest.mark.parametrize("preset,backend", BY_BACKEND)
-def test_batched_lockstep_zero_mismatches(preset, backend):
+@pytest.mark.parametrize("preset,backend,state_impl", BY_BACKEND)
+def test_batched_lockstep_zero_mismatches(preset, backend, state_impl):
     ct = _cfg(preset)
-    r = parity.check_batched_lockstep(
-        ct, make_env(ct, device="cpu", backend=backend), [0, 1, 2, 3], 256)
+    env = make_env(ct, device="cpu", backend=backend, state_impl=state_impl)
+    r = parity.check_batched_lockstep(ct, env, [0, 1, 2, 3], 256)
     assert r["mismatches"] == [] and r["returns_equal"]
     assert r["episodes"] == 4
 
@@ -54,8 +57,10 @@ def test_batched_lockstep_zero_mismatches(preset, backend):
     {"height": 5, "width": 5, "piece_set": "mini5", "streak_bonus": 7.0},
 ], ids=["truncation", "mini5-hand2", "streak"])
 def test_check_seed_config_knobs(knobs):
+    """On the default engine, packed."""
     ct = _cfg("default", **knobs)
     env = make_env(ct, device="cpu")
+    assert env.state_impl == "packed"
     for seed in (0, 3):
         r = parity.check_seed(ct, seed, 300, env=env)
         assert r["mismatches"] == [] and r["oracle_return"] == r["device_return"]
@@ -64,5 +69,6 @@ def test_check_seed_config_knobs(knobs):
 def test_parity_cli_exit_codes(capsys):
     assert parity.main(["--preset", "tenten", "--seeds", "2"]) == 0
     assert parity.main(["--seeds", "3", "--batch"]) == 0
+    assert parity.main(["--seeds", "2", "--state-impl", "u8"]) == 0
     out = capsys.readouterr().out
-    assert out.count("PASS (bit-exact)") == 2
+    assert out.count("PASS (bit-exact)") == 3

@@ -1,6 +1,8 @@
 """The port's PPO learner on the CPU against ``blockpuzzle_tpu.learn``.
 
-Small widths (mlp_width 64, hidden 32, N = 16, T = 8).  The JAX network's
+Small widths (mlp_width 64, channels (4, 8), hidden 32, N = 16, T = 8),
+for the mlp torso with the embedded hand and for the conv/embed,
+conv/planes and mlp/planes variants.  The JAX network's
 flax parameters are carried into the port with ``params_from_flax``; the
 inputs are numpy arrays from a seed, handed to both.  Tolerances, with the
 largest error measured on the CPU (torch 2.13, jax 0.9.0) beside each:
@@ -13,7 +15,11 @@ largest error measured on the CPU (torch 2.13, jax 0.9.0) beside each:
 * ``_gae`` within 1e-5 (measured 0, both batches);
 * ``_loss`` and its metrics within 1e-2 relative (measured 1.5e-7);
 * gradients within 2e-2 relative L2 per tensor (measured 4.5e-3: the bf16
-  layers' backward rounds differently);
+  layers' backward rounds differently), but the conv biases within 1e-1
+  (measured 5.7e-2): flax's bf16 conv sums a bias's B*H*W cotangents in
+  bf16 on the CPU, 5.0e-2 off their exact sum on a (64, 10, 10, 8)
+  output, while the port sums them in float32 (0.09% off, its bf16
+  rounding);
 * two optimizer steps against optax within 1e-6 (measured 6.0e-8);
 * each initialised tensor's std within 10% of flax's (measured 1.1%).
 
@@ -54,7 +60,7 @@ def pair():
     """A JAX and a torch learner holding the same flax parameters."""
     jppo = JPPO(jax_make_env(jcfg.default_config(), state_impl="u8"),
                 JPPOConfig(**KW))
-    tppo = PPO(make_env(tcfg.default_config(), device="cpu", backend="jnp"),
+    tppo = PPO(make_env(tcfg.default_config(), device="cpu", state_impl="u8"),
                PPOConfig(**KW))
     params = jax.jit(jppo.net.init)(
         jax.random.key(0), jnp.zeros((1, 10, 10), jnp.uint8),
@@ -169,7 +175,8 @@ def test_loss_metrics_and_grads_match(pair):
     for name, p in net.named_parameters():
         g, w = p.grad.numpy(), want[name].numpy()
         rel = np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-12)
-        assert rel <= 2e-2, (name, rel)
+        conv_bias = name.startswith("torso.convs.") and name.endswith(".bias")
+        assert rel <= (1e-1 if conv_bias else 2e-2), (name, rel)
 
 
 @pytest.mark.parametrize("scale", [10.0, 1e-3], ids=["clipped", "unclipped"])
@@ -254,7 +261,7 @@ def test_masked_categorical_is_legal_and_follows_softmax():
 
 @pytest.mark.parametrize("shuffle", ["roll", "perm", "none"])
 def test_epoch_order(shuffle):
-    env = make_env(tcfg.default_config(), device="cpu", backend="jnp")
+    env = make_env(tcfg.default_config(), device="cpu", state_impl="u8")
     ppo = PPO(env, PPOConfig(**{**KW, "shuffle": shuffle}))
     order = ppo._epoch_order(128, torch.Generator().manual_seed(3)).numpy()
     assert sorted(order) == list(range(128))
@@ -271,7 +278,7 @@ def test_update_runs_and_changes_params():
     """One update through the jnp-backend engine on the CPU, with a
     truncating config (so the rollout values the final observations)."""
     cfg = dataclasses.replace(tcfg.default_config(), max_steps=5)
-    ppo = PPO(make_env(cfg, device="cpu", backend="jnp"), PPOConfig(**KW))
+    ppo = PPO(make_env(cfg, device="cpu", state_impl="u8"), PPOConfig(**KW))
     state = ppo.init(0)
     before = [p.detach().clone() for p in state.net.parameters()]
     state, metrics = ppo.update(state)
@@ -301,19 +308,34 @@ def test_train_cli_two_updates_on_cpu(capsys):
     assert train_cli.ppo_hypers(args, 1)["entropy_coef"] == 0.0
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--algo", "dqn"], "A10"),
-    (["--torso", "conv"], "A9"),
-    (["--queue-mode", "planes"], "A9"),
-    (["--state-impl", "auto"], "A2"),
-    (["--state-impl", "packed"], "A2"),
-])
+@pytest.mark.parametrize("flags,item", [(["--algo", "dqn"], "A10")])
 def test_train_cli_names_what_is_not_ported(flags, item):
-    base = {"--torso": "mlp", "--state-impl": "u8"}
-    base.update(dict(zip(flags[::2], flags[1::2])))
-    argv = [x for kv in base.items() for x in kv] + ["--device", "cpu"]
+    argv = flags + ["--device", "cpu"]
     with pytest.raises(NotImplementedError, match=item):
         train_cli.build(train_cli.build_parser().parse_args(argv))
+
+
+@pytest.mark.parametrize("flags,state_impl,arch,queue_mode", [
+    ([], "packed", "conv", "embed"),                  # the JAX CLI's defaults
+    (["--queue-mode", "planes"], "packed", "conv", "planes"),
+    (["--torso", "mlp", "--state-impl", "auto"], "packed", "mlp", "embed"),
+    (["--torso", "mlp", "--state-impl", "packed"], "packed", "mlp", "embed"),
+    (["--torso", "conv", "--state-impl", "u8"], "u8", "conv", "embed"),
+], ids=["defaults", "planes", "auto", "packed", "conv-u8"])
+def test_train_cli_builds_what_the_flags_ask(flags, state_impl, arch, queue_mode):
+    """The engine and torso each flag set asks for, and one update of it on
+    the CPU."""
+    args = train_cli.build_parser().parse_args(flags + [
+        "--updates", "1", "--num-envs", "8", "--rollout-len", "4",
+        "--mlp-width", "32", "--device", "cpu"])
+    learner = train_cli.build(args)
+    assert (learner.env.state_impl, learner.env.backend) == (state_impl, "jnp")
+    torso = learner.make_net(torch.Generator().manual_seed(0)).torso
+    assert (torso.arch, torso.queue_mode) == (arch, queue_mode)
+    if arch == "conv":
+        assert [c.out_channels for c in torso.convs] == [32, 64]
+    r = train_cli.train(args, learner)
+    assert np.isfinite(r["metrics"]["loss"]) and r["state"].update_count == 1
 
 
 def test_params_from_flax_rejects_other_trees(pair):
@@ -321,3 +343,80 @@ def test_params_from_flax_rejects_other_trees(pair):
     inner = dict(params["params"])
     with pytest.raises(ValueError, match="mlp/embed"):
         params_from_flax({k: v for k, v in inner.items() if k != "MXUDense_1"})
+
+
+# ------------------------------------------------------------------------
+# the conv torso and the planes hand
+# ------------------------------------------------------------------------
+
+VARIANTS = {"conv-embed": ("conv", "embed"), "conv-planes": ("conv", "planes"),
+            "mlp-planes": ("mlp", "planes")}
+
+
+def _arch_kw(variant):
+    torso, queue_mode = VARIANTS[variant]
+    return {**KW, "torso": torso, "queue_mode": queue_mode, "channels": (4, 8)}
+
+
+@pytest.fixture(scope="module", params=list(VARIANTS))
+def arch_pair(request):
+    """A JAX and a torch learner with a conv torso or a planes hand on
+    their default (packed) engines, holding the same flax parameters."""
+    kw = _arch_kw(request.param)
+    jppo = JPPO(jax_make_env(jcfg.default_config()), JPPOConfig(**kw))
+    tppo = PPO(make_env(tcfg.default_config(), device="cpu"), PPOConfig(**kw))
+    assert tppo.env.state_impl == "packed"
+    params = jax.jit(jppo.net.init)(
+        jax.random.key(1), jnp.zeros((1, 10, 10), jnp.uint8),
+        jnp.zeros((1, 1), jnp.int32), jnp.ones((1, 100), bool))
+    net = tppo.make_net(torch.Generator().manual_seed(0))
+    net.load_state_dict(params_from_flax(params))
+    return jppo, tppo, params, net
+
+
+def test_arch_logits_and_values_match_flax(arch_pair):
+    """A wrong conv kernel layout or flatten order still gives finite
+    logits; only this comparison catches it."""
+    test_masked_logits_and_values_match_flax(arch_pair)
+
+
+def test_arch_loss_metrics_and_grads_match(arch_pair):
+    test_loss_metrics_and_grads_match(arch_pair)
+
+
+def test_arch_init_std_matches_flax(arch_pair):
+    test_init_std_matches_flax(arch_pair)
+
+
+def test_params_from_flax_checks_each_arch(arch_pair):
+    """Conv kernels (3, 3, in, out) become (out, in, 3, 3); a tree missing
+    one parameter of its architecture is refused, naming it."""
+    _, tppo, params, net = arch_pair
+    got = params_from_flax(params)
+    assert set(got) == set(net.state_dict())
+    for name, p in net.state_dict().items():
+        assert got[name].shape == p.shape, name
+    if tppo.cfg.torso == "conv":
+        kernel = np.asarray(params["params"]["Torso_0"]["Conv_1"]["kernel"])
+        np.testing.assert_array_equal(
+            got["torso.convs.1.weight"][5, 2].numpy(), kernel[:, :, 2, 5])
+    torso = dict(params["params"]["Torso_0"])
+    torso.pop("hidden_proj")
+    with pytest.raises(ValueError, match=f"{tppo.cfg.torso}/{tppo.cfg.queue_mode}"):
+        params_from_flax({**params["params"], "Torso_0": torso})
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_arch_update_on_the_packed_engine(variant):
+    """One update of each torso/hand variant through the packed engine on
+    the CPU, with a truncating config, as ``test_update_runs_and_changes_params``."""
+    cfg = dataclasses.replace(tcfg.default_config(), max_steps=5)
+    ppo = PPO(make_env(cfg, device="cpu"), PPOConfig(**_arch_kw(variant)))
+    assert ppo.env.state_impl == "packed"
+    state = ppo.init(0)
+    before = [p.detach().clone() for p in state.net.parameters()]
+    state, metrics = ppo.update(state)
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert float(metrics["illegal_action_rate"]) == 0.0
+    assert float(metrics["episodes_finished"]) >= N
+    assert all(not torch.equal(a, b) for a, b in zip(before, state.net.parameters()))

@@ -226,15 +226,103 @@ def test_kernels_match_plain_versions_on_the_card(preset, cuda_device):
 @pytest.mark.parametrize("backend", ["pallas", "jnp"])
 def test_cuda_rollout_matches_cpu_rollout(cuda_device, backend):
     cfg = PRESETS["tenten"]()
-    env = make_env(cfg, device=cuda_device, backend=backend)
+    env = make_env(cfg, device=cuda_device, backend=backend, state_impl="u8")
     a = rollout_cli.rollout(env, 256, 16, 1, seed=4)
-    b = rollout_cli.rollout(make_env(cfg, device="cpu", backend=backend), 256,
-                            16, 1, seed=4)
+    b = rollout_cli.rollout(
+        make_env(cfg, device="cpu", backend=backend, state_impl="u8"), 256, 16,
+        1, seed=4)
     for f in ("board", "queue", "rng_counter", "steps", "score", "streak"):
         assert torch.equal(getattr(a["state"], f).cpu(), getattr(b["state"], f))
     assert a["reward"] == b["reward"]
     step_kernel = env.apply_kernel if backend == "pallas" else env.clear_kernel
     assert env.mask_kernel.launches == step_kernel.launches == 32
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("preset", ["default", "tenten", "woodoku", "big"])
+def test_packed_kernels_match_plain_versions_on_the_card(preset, cuda_device):
+    """The packed apply and mask kernels against their plain versions and
+    against the u8 apply and mask kernels on the unpacked boards."""
+    from blockpuzzle_tpu_torch import rules
+    from blockpuzzle_tpu_torch.kernels import (
+        ApplyKernel, MaskKernel, PackedApplyKernel, PackedMaskKernel,
+    )
+    from blockpuzzle_tpu_torch.kernels.packed import pack_words, unpack_words
+
+    cfg = PRESETS[preset]()
+    env = make_env(cfg, device=cuda_device, state_impl="u8")
+    t = rules.tables_for(cfg)
+    r = np.random.default_rng(1)
+    n = 4099                                         # ragged
+    cells = (r.random((n, cfg.height, cfg.width)) < 0.35).astype(np.uint8)
+    cells[::5, 2, :] = 1
+    cells[1::5, :, 4] = 1
+    cells[2::5, 3:6, 3:6] = 1
+    queue = r.integers(0, t.num_pieces + 1, (n, cfg.queue_size)).astype(np.int32)
+    g = r.integers(0, t.cover.shape[0], n)
+    board, queue, cover, valid, pid, anchor = (
+        torch.as_tensor(x, device=cuda_device) for x in
+        (cells.reshape(n, -1), queue, t.cover[g], t.valid[g], g // cfg.num_cells,
+         g % cfg.num_cells))
+    words = pack_words(board.view(n, cfg.height, cfg.width))
+    attrs = env._attrs[pid]
+    rr = (anchor // cfg.width).to(torch.int32)
+    cc = (anchor % cfg.width).to(torch.int32)
+    pak, pmk = PackedApplyKernel(cfg, cuda_device), PackedMaskKernel(cfg, cuda_device)
+    mask = pmk(words, queue)
+    assert torch.equal(mask, pmk.plain(words, queue))
+    assert torch.equal(mask, MaskKernel(cfg, cuda_device)(board, queue))
+    out = pak(words, attrs, rr, cc, valid)
+    for o, p in zip(out, pak.plain(words, attrs, rr, cc, valid)):
+        assert torch.equal(o, p)
+    u8 = ApplyKernel(cfg, cuda_device)(board, cover, valid)
+    assert torch.equal(unpack_words(out[0], cfg.width).view(n, -1), u8[0])
+    assert torch.equal(out[1], u8[1]) and torch.equal(out[2], u8[2])
+    assert int(out[1].sum()) > 0 and bool(out[2].any()) and not bool(out[2].all())
+    torch.cuda.synchronize()
+    assert (pak.launches, pmk.launches) == (1, 1)
+
+
+@pytest.mark.gpu
+def test_cuda_packed_rollout_matches_cpu_rollout(cuda_device):
+    """The packed engine on the card against the CPU and against the u8
+    engine on the card, from one seed with live deals and auto-reset."""
+    cfg = PRESETS["woodoku"]()
+    env = make_env(cfg, device=cuda_device)
+    assert env.state_impl == "packed"
+    runs = [rollout_cli.rollout(e, 256, 16, 1, seed=4) for e in (
+        env, make_env(cfg, device="cpu"),
+        make_env(cfg, device=cuda_device, state_impl="u8"))]
+    words = runs[0]["state"].board
+    assert torch.equal(words.cpu(), runs[1]["state"].board)
+    assert torch.equal(env.board_obs(words).reshape(256, -1),
+                       runs[2]["state"].board)
+    for r in runs[1:]:
+        for f in ("queue", "rng_counter", "steps", "score", "streak"):
+            assert torch.equal(getattr(runs[0]["state"], f).cpu(),
+                               getattr(r["state"], f).cpu())
+        assert r["reward"] == runs[0]["reward"]
+    assert env.packed_mask_kernel.launches == env.packed_apply_kernel.launches == 32
+    assert env.mask_kernel.launches == env.apply_kernel.launches == 0
+
+
+@pytest.mark.gpu
+def test_conv_ppo_updates_on_the_card(cuda_device):
+    """Two PPO updates with the JAX CLI's default flags (conv torso, packed
+    engine) at small sizes on the card."""
+    from blockpuzzle_tpu_torch.cli import train
+
+    args = train.build_parser().parse_args([
+        "--updates", "2", "--num-envs", "256", "--rollout-len", "16",
+        "--log-every", "1"])
+    learner = train.build(args)
+    r = train.train(args, learner)
+    m = r["metrics"]
+    assert np.isfinite(m["loss"]) and m["illegal_action_rate"] == 0.0
+    env = learner.env
+    assert env.state_impl == "packed"
+    assert env.packed_mask_kernel.launches == 2 * 17
+    assert env.packed_apply_kernel.launches == 2 * 16
 
 
 @pytest.mark.gpu

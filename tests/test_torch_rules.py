@@ -55,6 +55,14 @@ def test_rule_tables_match(case):
             assert a == b, f.name
 
 
+@pytest.mark.parametrize("case", CASES)
+def test_piece_plane_table_matches(case):
+    cj, ct = _pair(case)
+    a, b = jax_rules.piece_plane_table(cj), torch_rules.piece_plane_table(ct)
+    assert a.dtype == b.dtype
+    np.testing.assert_array_equal(b, a)
+
+
 def test_decompose_rects_matches():
     for grids in jax_rules.PIECE_SETS.values():
         for g in grids:
