@@ -1,37 +1,32 @@
 """Parity CLI: replay seeded oracle episodes through the port's engine.
 
-Records seeded random-policy episodes on the JAX package's CPU oracle and
-replays them through the port with the oracle's deal stream injected and
-``auto_reset=False``.  Exit code 0 iff every compared quantity is
-bit-equal.  The oracle imports gymnasium, so this runs where the JAX
-package and gymnasium are installed; the CLI replays on the CPU through the
-default (packed) engine, as the JAX CLI does, and
-``check_seed``/``check_batched_lockstep`` take an engine on any device.
+Records seeded random-policy episodes on the port's CPU oracle
+(``blockpuzzle_tpu_torch.oracle``) and replays them through the port's
+engine with the oracle's deal stream injected and ``auto_reset=False``.
+Exit code 0 iff every compared quantity is bit-equal.  The CLI replays on
+``--device`` (default ``cuda``, as the other CLIs; ``cpu`` runs the plain
+versions) through the default (packed) engine, as the JAX CLI replays on
+its default device.
 
     python -m blockpuzzle_tpu_torch.cli.parity --preset P --seeds 8 [--batch] \
-        [--state-impl auto|packed|u8]
+        [--state-impl auto|packed|u8] [--device cuda|cpu]
 """
 
 from __future__ import annotations
 
 import argparse
-import dataclasses
 
 import numpy as np
 import torch
 
 from blockpuzzle_tpu_torch.config import PRESETS, cli_env_config
 from blockpuzzle_tpu_torch.env import make_env
+from blockpuzzle_tpu_torch.oracle import record_trajectory
 
 
 def _record(cfg, seed: int, max_steps: int):
-    """One oracle episode under the JAX package's twin of ``cfg``; the
-    oracle needs gymnasium, so the import is here."""
-    from blockpuzzle_tpu import config as oracle_config
-    from blockpuzzle_tpu.oracle import record_trajectory
-
-    twin = oracle_config.EnvConfig(**dataclasses.asdict(cfg))
-    return record_trajectory(twin, seed=seed, max_steps=max_steps)
+    """One oracle episode under ``cfg``."""
+    return record_trajectory(cfg, seed=seed, max_steps=max_steps)
 
 
 def replay(env, init_deals, actions, deals):
@@ -50,10 +45,12 @@ def replay(env, init_deals, actions, deals):
     return ts0, stacks
 
 
-def check_seed(cfg, seed: int, max_steps: int, env=None) -> dict:
+def check_seed(cfg, seed: int, max_steps: int, env=None, device="cuda") -> dict:
+    """One oracle episode replayed through ``env`` (default: the default
+    engine on ``device``)."""
     traj = _record(cfg, seed, max_steps)
     if env is None:
-        env = make_env(cfg, device="cpu")
+        env = make_env(cfg, device=device)
     T = len(traj.actions)
     ts0, (boards, queues, masks, rewards, terms) = replay(
         env, traj.init_deals[None], traj.actions[:, None], traj.deals[:, None]
@@ -117,7 +114,7 @@ def check_batched_lockstep(cfg, env, seeds, max_steps: int) -> dict:
     }
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="seeded oracle <-> port parity check")
     p.add_argument("--preset", choices=sorted(PRESETS), default="default")
     p.add_argument("--env", action="append", default=[], metavar="KEY=VALUE",
@@ -129,10 +126,16 @@ def main(argv=None) -> int:
     p.add_argument("--state-impl", choices=["auto", "packed", "u8"],
                    default="auto", help="EnvState board layout "
                         "(auto = packed where supported)")
-    args = p.parse_args(argv)
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the replay (cpu runs the plain "
+                        "versions of the kernels)")
+    return p
 
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
     cfg = cli_env_config(args.preset, args.env)
-    env = make_env(cfg, device="cpu", state_impl=None
+    env = make_env(cfg, device=args.device, state_impl=None
                    if args.state_impl == "auto" else args.state_impl)
     if args.batch:
         r = check_batched_lockstep(cfg, env, list(range(args.seeds)), args.max_steps)

@@ -1,7 +1,7 @@
 // Chosen-action apply on packed boards.  No Pallas source: the JAX package
 // runs this in jnp, in the packed branch of `VecBlockPuzzle.step`
-// (blockpuzzle_tpu/env/core.py), with `_cover_words` and
-// `_clear_scan_packed`.  The plain version is `packed_apply_plain`
+// (blockpuzzle_tpu/env/core.py:962), with `_cover_words` (:674) and
+// `_clear_scan_packed` (:696).  The plain version is `packed_apply_plain`
 // (kernels/packed.py).
 //
 // What it computes, per env, on the (H,) row words (bit w of word r is
@@ -12,19 +12,30 @@
 // counted with __popc) and full aligned region on the placed board, clears
 // them all in one AND-NOT, and reports k = their number.  An illegal
 // action is a strict no-op with k = 0, even on a board that already holds
-// a full line.  Shifts of 32 or more give 0, as XLA's uint32 shifts do.
-//
-// Design: one thread per env, any N (the tail is one bounds test).  The
-// H <= 32 words sit in a register array: every loop over rows runs to the
-// fixed bound MAX_ROWS, fully unrolled, and tests `i < height`, so no
-// index is dynamic.  Region masks are built on a pass down the rows (the
-// band AND closes at each band's last row) and spread on a pass back up.
+// a full line: it writes its input words back.  Shifts of 32 or more give
+// 0, as XLA's uint32 shifts do.
 //
 // Bound on the H100: device memory.  Per env it reads H int64 words, 11
 // int32 attrs, r, c and valid and writes H int64 words, k and legal:
-// 222 B on the default preset (H = 10), 10.9 MB at N = 49152, ~3.3 us at
-// 3.35 TB/s.  Each thread's words are contiguous, so a warp's loads cover
-// whole cache lines.
+// 218 B on the default preset (H = 10), 10.7 MB at N = 49152, 3.2 us at
+// 3.35 TB/s.  The integer work (~10 operations a word) is far below that.
+//
+// Design: one segment of H lanes per env, lane j holding row word j, and
+// P = 32 / H segments a warp (3 at H = 10; the wrapper passes P).  The row
+// loads and stores of a warp are then contiguous, 8 bytes a lane, and no
+// thread keeps a per-row register array; the 32 - P*H lanes left over
+// (2 at H = 10) run the same instructions on no env.  Each lane loads its
+// row word and, as broadcast loads within its segment, the env's r, c,
+// valid and the two rectangles of attrs, and builds its own footprint
+// word.  Overlap and full rows are `__ballot_sync` masked to the segment
+// (`__popc` counts the rows); columns are one `__reduce_and_sync` over the
+// segment's lanes; with regions (woodoku, region_size 3) each lane ANDs
+// its band's rows by region_size shuffles from explicit source lanes, and
+// a band's first lane counts the band's full tiles, summed by
+// `__reduce_add_sync`.  Each lane stores its word; the segment's first
+// lane writes k and legal.  Every lane of a warp runs every shuffle,
+// ballot and reduction (the reductions name the caller's segment, or the
+// left-over lanes), so the masks hold on the ragged tail too.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -32,101 +43,93 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxRows = 32;  // kernels/packed.py MAX_ROWS
+constexpr unsigned kAll = 0xffffffffu;
 
 __device__ __forceinline__ uint32_t shl32(uint32_t x, int s) {
   return s < 32 ? x << s : 0u;
 }
 
-__global__ void packed_apply_kernel(const long long* __restrict__ words,
-                                    const int32_t* __restrict__ attrs,
-                                    const int32_t* __restrict__ r_in,
-                                    const int32_t* __restrict__ c_in,
-                                    const uint8_t* __restrict__ valid,
-                                    long long* __restrict__ words_out,
-                                    int32_t* __restrict__ k_out,
-                                    uint8_t* __restrict__ legal_out, int n,
-                                    int height, int width, int region_size) {
+__global__ void __launch_bounds__(kThreads)
+    packed_apply_kernel(const long long* __restrict__ words,
+                        const int32_t* __restrict__ attrs,
+                        const int32_t* __restrict__ r_in,
+                        const int32_t* __restrict__ c_in,
+                        const uint8_t* __restrict__ valid,
+                        long long* __restrict__ words_out,
+                        int32_t* __restrict__ k_out,
+                        uint8_t* __restrict__ legal_out, int n, int height,
+                        int width, int region_size, int per_warp) {
+  const int l = threadIdx.x % 32;
+  // segment in the warp (per_warp: the left-over lanes): (l + 1/2) / H is
+  // at least 1/64 from an integer, far above the float rounding error
+  const int s = static_cast<int>((l + 0.5f) * __frcp_rn(static_cast<float>(height)));
+  const int lane = l - s * height;  // the row this lane holds
+  const int base = s * height;      // the segment's first warp lane
   const long long env =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (env >= n) return;
-  const long long* b = words + env * height;
-  const int32_t* a = attrs + env * 11;
-  const int r = r_in[env];
-  const int c = c_in[env];
-  int row0[2], row1[2];
-  uint32_t rowmask[2];
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    row0[j] = r + a[3 + 4 * j];
-    row1[j] = row0[j] + a[5 + 4 * j];
-    rowmask[j] = shl32(shl32(1u, a[6 + 4 * j]) - 1u, c + a[4 + 4 * j]);
-  }
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / 32 * per_warp + s;
+  const bool active = s < per_warp && env < n;
+  // the caller's segment in ballot bits (the left-over lanes form one too)
+  const unsigned seg = s < per_warp
+                           ? (height == 32 ? kAll : ((1u << height) - 1u) << base)
+                           : kAll << base;
 
-  uint32_t w[kMaxRows];
-  bool overlap = false;
+  long long x64 = 0;
+  uint32_t x = kAll;  // no env: the identity of the AND
+  uint32_t cover = 0;
+  bool ok = false;
+  if (active) {
+    x64 = words[env * height + lane];
+    x = static_cast<uint32_t>(x64);
+    const int32_t* a = attrs + env * 11;
+    const int r = r_in[env];
+    const int c = c_in[env];
+    ok = valid[env] != 0;
 #pragma unroll
-  for (int i = 0; i < kMaxRows; ++i) {
-    if (i < height) {
-      const uint32_t x = static_cast<uint32_t>(b[i]);
-      uint32_t cover = 0;
-      if (i >= row0[0] && i < row1[0]) cover |= rowmask[0];
-      if (i >= row0[1] && i < row1[1]) cover |= rowmask[1];
-      overlap |= (x & cover) != 0;
-      w[i] = x | cover;
-    }
-  }
-  const bool legal = valid[env] != 0 && !overlap;
-  long long* o = words_out + env * height;
-  int k = 0;
-  if (legal) {
-    const uint32_t full = shl32(1u, width) - 1u;
-    uint32_t cols = 0xffffffffu;
-#pragma unroll
-    for (int i = 0; i < kMaxRows; ++i) {
-      if (i < height) {
-        cols &= w[i];
-        k += w[i] == full;
+    for (int j = 0; j < 2; ++j) {
+      const int row0 = r + a[3 + 4 * j];
+      if (lane >= row0 && lane < row0 + a[5 + 4 * j]) {
+        cover |= shl32(shl32(1u, a[6 + 4 * j]) - 1u, c + a[4 + 4 * j]);
       }
     }
-    k += __popc(cols);
-    uint32_t band_end[kMaxRows];  // region bits of the band ending at row i
-    if (region_size > 0) {
+  }
+  const bool overlap = (__ballot_sync(kAll, (x & cover) != 0) & seg) != 0;
+  const bool legal = ok && !overlap;
+  const uint32_t w = x | cover;
+  const uint32_t full = shl32(1u, width) - 1u;
+  const unsigned rows_full = __ballot_sync(kAll, active && w == full) & seg;
+  const uint32_t cols = __reduce_and_sync(seg, w);
+  int k = __popc(rows_full) + __popc(cols);
+  uint32_t reg = 0;
+  if (region_size > 0) {
+    const int b0 = lane - lane % region_size;  // first row of this lane's band
+    const bool whole = b0 + region_size <= height;  // a whole band on the board
+    uint32_t band = kAll;
+    for (int t = 0; t < region_size; ++t) {
+      band &= __shfl_sync(kAll, w, whole ? base + b0 + t : l);
+    }
+    int tiles = 0;
+    if (whole) {
       const uint32_t tile0 = shl32(1u, region_size) - 1u;
-      uint32_t band = 0xffffffffu;
-#pragma unroll
-      for (int i = 0; i < kMaxRows; ++i) {
-        if (i < height) {
-          band &= w[i];
-          if ((i + 1) % region_size == 0) {
-            uint32_t reg = 0;
-            for (int s = 0; s + region_size <= width; s += region_size) {
-              const uint32_t tile = tile0 << s;
-              if ((band & tile) == tile) {
-                reg |= tile;
-                ++k;
-              }
-            }
-            band_end[i] = reg;
-            band = 0xffffffffu;
-          }
+      for (int t = 0; t + region_size <= width; t += region_size) {
+        const uint32_t tile = tile0 << t;
+        if ((band & tile) == tile) {
+          reg |= tile;
+          tiles += lane == b0;
         }
       }
     }
-    uint32_t reg = 0;
-#pragma unroll
-    for (int i = kMaxRows - 1; i >= 0; --i) {
-      if (i < height) {
-        if (region_size > 0 && (i + 1) % region_size == 0) reg = band_end[i];
-        const uint32_t clear = (w[i] == full ? full : 0u) | cols | reg;
-        o[i] = static_cast<long long>(w[i] & ~clear);
-      }
-    }
-  } else {
-    for (int i = 0; i < height; ++i) o[i] = b[i];
+    k += __reduce_add_sync(seg, tiles);
   }
-  k_out[env] = k;
-  legal_out[env] = legal;
+
+  if (active) {
+    const uint32_t clear = (w == full ? full : 0u) | cols | reg;
+    words_out[env * height + lane] =
+        legal ? static_cast<long long>(w & ~clear) : x64;
+    if (lane == 0) {
+      k_out[env] = legal ? k : 0;
+      legal_out[env] = legal;
+    }
+  }
 }
 
 }  // namespace
@@ -134,22 +137,27 @@ __global__ void packed_apply_kernel(const long long* __restrict__ words,
 // words (N, H) i64 holding u32 row words; attrs (N, 11) i32 rows [h, w,
 // cells, dr1, dc1, h1, w1, dr2, dc2, h2, w2]; r, c (N,) i32; valid (N,)
 // bool; outputs words_out (N, H) i64, k (N,) i32, legal (N,) bool.
-// region_size 0 means no region clear.  Needs H <= 32 and W <= 32.
+// region_size 0 means no region clear.  per_warp = 32 / H envs a warp;
+// H <= 32, W <= 32.
 extern "C" int bp_packed_apply(const void* words, const void* attrs,
                                const void* r, const void* c,
                                const void* valid, void* words_out,
                                void* k_out, void* legal_out, int n,
                                int height, int width, int region_size,
-                               void* stream) {
+                               int per_warp, void* stream) {
+  if (height < 1 || height > 32 || per_warp != 32 / height || width > 32) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (n > 0) {
-    const int blocks = (n + kThreads - 1) / kThreads;
-    packed_apply_kernel<<<blocks, kThreads, 0,
+    const int envs_per_block = kThreads / 32 * per_warp;
+    const long long blocks = (static_cast<long long>(n) + envs_per_block - 1) / envs_per_block;
+    packed_apply_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const long long*>(words),
-        static_cast<const int32_t*>(attrs), static_cast<const int32_t*>(r),
-        static_cast<const int32_t*>(c), static_cast<const uint8_t*>(valid),
-        static_cast<long long*>(words_out), static_cast<int32_t*>(k_out),
-        static_cast<uint8_t*>(legal_out), n, height, width, region_size);
+        static_cast<const long long*>(words), static_cast<const int32_t*>(attrs),
+        static_cast<const int32_t*>(r), static_cast<const int32_t*>(c),
+        static_cast<const uint8_t*>(valid), static_cast<long long*>(words_out),
+        static_cast<int32_t*>(k_out), static_cast<uint8_t*>(legal_out), n,
+        height, width, region_size, per_warp);
   }
   return static_cast<int>(cudaGetLastError());
 }

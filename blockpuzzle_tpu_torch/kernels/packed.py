@@ -40,10 +40,34 @@ from blockpuzzle_tpu_torch.config import EnvConfig
 from blockpuzzle_tpu_torch.kernels import _build
 
 U32 = 0xFFFFFFFF
-# the kernels' fixed register arrays: board rows of the apply kernel,
-# footprint words of the mask kernel
+# board rows the kernels take: one lane per row, a warp's 32 at most
 MAX_ROWS = 32
-MAX_WORDS = 8
+
+
+def segments_per_warp(height: int) -> int:
+    """Envs (apply) or env-slots (mask) per warp: each takes one segment of
+    H lanes, a lane per board row."""
+    if not 1 <= height <= MAX_ROWS:
+        raise ValueError(f"the packed kernels take 1 <= H <= {MAX_ROWS}")
+    return 32 // height
+
+
+def _launch_shape(cfg: EnvConfig):
+    """(envs a warp, mask warps a block) of ``cfg``'s kernel launches, or
+    None where H is out of the kernels' reach (the plain versions still
+    run on the CPU); computed once per wrapper, off the step's host path."""
+    if cfg.height > MAX_ROWS:
+        return None
+    return segments_per_warp(cfg.height), mask_block_warps(cfg.height, cfg.width)
+
+
+def mask_block_warps(height: int, width: int) -> int:
+    """Warps per block of the mask kernel: the fewest, and at least 4, for
+    which the block's output (warps * 32 // H env-slots of H*W bytes) is a
+    multiple of 16 bytes, so that every block's span starts on a 16-byte
+    boundary.  16 warps always are."""
+    per_warp = segments_per_warp(height)
+    return next(w for w in range(4, 17) if w * per_warp * height * width % 16 == 0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,6 +234,7 @@ class PackedApplyKernel:
         self.cfg = cfg
         self.device = _build.resolve_device(device)
         self.launches = 0
+        self.shape = _launch_shape(cfg)
 
     def plain(self, words, attrs, r, c, valid):
         return packed_apply_plain(words, attrs, r, c, valid, self.cfg)
@@ -242,8 +267,8 @@ class PackedApplyKernel:
             return self.plain(words, attrs, r, c, valid)
         if self.device.type != "cuda":
             raise ValueError(f"no packed apply kernel for device {self.device}")
-        if cfg.height > MAX_ROWS:
-            raise ValueError(f"the packed apply kernel takes H <= {MAX_ROWS}")
+        if self.shape is None:
+            raise ValueError(f"the packed kernels take H <= {MAX_ROWS}")
         if not all(x.is_contiguous() for x in (words, attrs, r, c, valid)):
             raise ValueError("words, attrs, r, c and valid must be contiguous")
         words_next = torch.empty_like(words)
@@ -255,7 +280,7 @@ class PackedApplyKernel:
                 words.data_ptr(), attrs.data_ptr(), r.data_ptr(), c.data_ptr(),
                 valid.data_ptr(), words_next.data_ptr(), k.data_ptr(),
                 legal.data_ptr(), n, cfg.height, cfg.width,
-                cfg.region_size if cfg.region_clear else 0, stream,
+                cfg.region_size if cfg.region_clear else 0, self.shape[0], stream,
             )
         _build.check(err, "bp_packed_apply")
         self.launches += 1
@@ -332,6 +357,7 @@ class PackedMaskKernel:
         self.max_h = t.max_h
         self.tables = bb
         self.launches = 0
+        self.shape = _launch_shape(cfg)
         dev = self.device
         zero = np.zeros((1, bb.nwords), np.int64)
         # plain version: int64 tables with a zero row at the sentinel P
@@ -340,10 +366,10 @@ class PackedMaskKernel:
         self.piece_w = torch.as_tensor(
             np.append(bb.piece_w, 0).astype(np.int64), device=dev)
         self.cmask = torch.as_tensor(bb.cmask.astype(np.int64), device=dev)
-        # kernel: the same bits as 32-bit words
+        # kernel: the same bits as 32-bit words (it needs no cmask: see
+        # csrc/packed_mask.cu)
         self.prow32 = torch.as_tensor(bb.prow.view(np.int32), device=dev)
         self.piece_w32 = torch.as_tensor(bb.piece_w, device=dev)
-        self.cmask32 = torch.as_tensor(bb.cmask.view(np.int32), device=dev)
 
     def plain(self, words: torch.Tensor, queue: torch.Tensor) -> torch.Tensor:
         return packed_mask_plain(words, queue, self.prow, self.piece_w,
@@ -365,22 +391,23 @@ class PackedMaskKernel:
             return self.plain(words, queue)
         if self.device.type != "cuda":
             raise ValueError(f"no packed mask kernel for device {self.device}")
-        if self.tables.nwords > MAX_WORDS:
-            raise ValueError(f"the packed mask kernel takes <= {MAX_WORDS} "
-                             "footprint words")
+        if self.shape is None:
+            raise ValueError(f"the packed kernels take H <= {MAX_ROWS}")
         if not (words.is_contiguous() and queue.is_contiguous()):
             raise ValueError("words and queue must be contiguous")
         out = torch.empty(
             (n, cfg.queue_size * cfg.num_cells), dtype=torch.bool,
             device=self.device,
         )
+        if out.data_ptr() % 16:  # the kernel stores 16-byte vectors
+            raise RuntimeError("mask output is not 16-byte aligned")
         stream = torch.cuda.current_stream(self.device).cuda_stream
         with torch.cuda.device(self.device):
             err = _build.library().bp_packed_mask(
                 words.data_ptr(), queue.data_ptr(), self.prow32.data_ptr(),
-                self.piece_w32.data_ptr(), self.cmask32.data_ptr(),
-                out.data_ptr(), n, cfg.height, cfg.width, cfg.queue_size,
-                self.num_pieces, self.tables.nwords, self.tables.fpw, stream,
+                self.piece_w32.data_ptr(), out.data_ptr(), n, cfg.height,
+                cfg.width, cfg.queue_size, self.num_pieces, self.tables.nwords,
+                self.tables.fpw, *self.shape, stream,
             )
         _build.check(err, "bp_packed_mask")
         self.launches += 1

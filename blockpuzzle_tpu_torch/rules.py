@@ -263,3 +263,15 @@ def tables_for(cfg: EnvConfig) -> RuleTables:
         t = build_tables(cfg)
         _TABLE_CACHE[cfg] = t
     return t
+
+
+def line_bonus(cfg: EnvConfig, k: int) -> float:
+    """Simultaneous-clear bonus for k full rows+cols(+regions): 10, 30, 60…"""
+    return cfg.line_base * k * (k + 1) / 2.0
+
+
+def decode_action(cfg: EnvConfig, action: int) -> Tuple[int, int, int]:
+    """Flat action id -> (slot, row, col); slot-major then row-major anchor."""
+    slot, cell = divmod(int(action), cfg.num_cells)
+    r, c = divmod(cell, cfg.width)
+    return slot, r, c

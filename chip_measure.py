@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Measurements of the PyTorch + CUDA port on one card, beyond the smoke run.
 
-    python3 chip_measure.py
+    python3 chip_measure.py [--parts build,train,rollout,kernels]
+                            [--parent-csrc DIR]
 
 Needs one CUDA card and nvcc.  Prints the card's name and power limit,
-then, each line tagged with its part:
+then, each line tagged with its part (all four by default):
 
   build     cold builds of ``kernels/csrc/*.cu`` in turns: one nvcc over
             all sources, then one nvcc per source started together and a
@@ -22,7 +23,18 @@ then, each line tagged with its part:
             device time and busy share per step, the largest items); then
             the rollout entry point on each engine, in turns packed,
             u8-pallas, u8-jnp, u8-jnp, u8-pallas, packed (median of 3
-            windows of 200 steps each).
+            windows of 200 steps each);
+  kernels   the packed apply and mask kernels at N = 49152 on every packed
+            preset: device times (``chip_smoke.cuda_ms``) and host-paced
+            times (events around calls issued as the host goes, as
+            ``chip_smoke.py`` timed them before).  With ``--parent-csrc
+            DIR`` (a directory holding an earlier ``packed_apply.cu`` and
+            ``packed_mask.cu`` with the one-thread-per-env / per-row C
+            interface of ``PARENT_SIGNATURES``, e.g. from ``git show
+            <commit>:blockpuzzle_tpu_torch/kernels/csrc/...``),
+            those are built into a library of their own, their ptxas lines
+            printed, their outputs held bit-equal to the current kernels',
+            and both timed in turns: earlier, current, current, earlier.
 
 Cold builds go to a temporary directory under the git-ignored
 ``kernels/_build/``, removed at the end.
@@ -30,6 +42,9 @@ Cold builds go to a temporary directory under the git-ignored
 
 from __future__ import annotations
 
+import argparse
+import ctypes
+import pathlib
 import shutil
 import statistics
 import subprocess
@@ -192,20 +207,156 @@ def rollout_turns(card: str) -> None:
               f"{statistics.median(r['rates']):.1f} env-steps/s ({card})")
 
 
-def main() -> int:
+# the earlier packed kernels' C interface: the apply without the envs-a-warp
+# argument, the mask with a cmask table and no launch shape
+PARENT_SIGNATURES = {
+    "bp_packed_apply": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    "bp_packed_mask": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+}
+
+
+def parent_library(csrc: pathlib.Path):
+    """The earlier packed kernels, built by one nvcc into their own library
+    under the git-ignored build directory; prints their ptxas lines."""
+    from blockpuzzle_tpu_torch.kernels import _build
+
+    out = _build.BUILD_DIR / "parent"
+    out.mkdir(parents=True, exist_ok=True)
+    so = out / "libbp_parent.so"
+    srcs = [str(csrc / "packed_apply.cu"), str(csrc / "packed_mask.cu")]
+    res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                          str(so), *srcs], capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the earlier sources:\n{res.stderr}")
+    for line in chip_smoke.ptxas_lines(res.stderr):
+        print(f"[kernels] earlier ptxas: {line}")
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in PARENT_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return lib
+
+
+def parent_calls(lib, cfg, pmk):
+    """Callables with the current wrappers' arguments that launch the
+    earlier kernels."""
+    import numpy as np
     import torch
 
+    from blockpuzzle_tpu_torch.kernels import _build
+
+    dev = pmk.device
+    cmask32 = torch.as_tensor(pmk.tables.cmask.view(np.int32), device=dev)
+    region = cfg.region_size if cfg.region_clear else 0
+
+    def apply(words, attrs, r, c, valid):
+        n = words.shape[0]
+        out = torch.empty_like(words)
+        k = torch.empty(n, dtype=torch.int32, device=dev)
+        legal = torch.empty(n, dtype=torch.bool, device=dev)
+        err = lib.bp_packed_apply(
+            words.data_ptr(), attrs.data_ptr(), r.data_ptr(), c.data_ptr(),
+            valid.data_ptr(), out.data_ptr(), k.data_ptr(), legal.data_ptr(), n,
+            cfg.height, cfg.width, region, torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "earlier bp_packed_apply")
+        return out, k, legal
+
+    def mask(words, queue):
+        n = words.shape[0]
+        out = torch.empty((n, cfg.queue_size * cfg.num_cells), dtype=torch.bool,
+                          device=dev)
+        err = lib.bp_packed_mask(
+            words.data_ptr(), queue.data_ptr(), pmk.prow32.data_ptr(),
+            pmk.piece_w32.data_ptr(), cmask32.data_ptr(), out.data_ptr(), n,
+            cfg.height, cfg.width, cfg.queue_size, pmk.num_pieces,
+            pmk.tables.nwords, pmk.tables.fpw,
+            torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "earlier bp_packed_mask")
+        return out
+
+    return apply, mask
+
+
+def kernel_turns(card: str, parent_csrc) -> None:
+    import torch
+
+    from blockpuzzle_tpu_torch.config import PRESETS
+    from blockpuzzle_tpu_torch.kernels import PackedApplyKernel, PackedMaskKernel, _build
+    from blockpuzzle_tpu_torch.kernels.packed import pack_words
+
+    _build.library()
+    for line in chip_smoke.ptxas_lines(_build.library_path().with_suffix(".log").read_text()):
+        if "packed" in line:
+            print(f"[kernels] current ptxas: {line}")
+    lib = parent_library(pathlib.Path(parent_csrc)) if parent_csrc else None
+    n, dev = chip_smoke.N_MAIN, torch.device("cuda")
+    for name in chip_smoke.PACKED_PRESETS:
+        cfg = PRESETS[name]()
+        pak, pmk = PackedApplyKernel(cfg, dev), PackedMaskKernel(cfg, dev)
+        board, queue, _, valid, attrs, r, c = (
+            torch.as_tensor(x, device=dev) for x in chip_smoke.kernel_inputs(cfg, n, seed=0))
+        words = pack_words(board.view(n, cfg.height, cfg.width))
+        args = (words, attrs, r, c, valid)
+        current = {"packed_apply": lambda: pak(*args),
+                   "packed_mask": lambda: pmk(words, queue)}
+        earlier = {}
+        if lib is not None:
+            apply, mask = parent_calls(lib, cfg, pmk)
+            earlier = {"packed_apply": lambda: apply(*args),
+                       "packed_mask": lambda: mask(words, queue)}
+            for k in current:
+                got, want = current[k](), earlier[k]()
+                got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(f"{k} ({name}): current != earlier kernel")
+        for k, fn in current.items():
+            if k in earlier:
+                old1, new1, new2, old2 = (chip_smoke.cuda_ms(f) for f in (
+                    earlier[k], fn, fn, earlier[k]))
+                print(f"[kernels] {k} {name} N={n} device ms in turns: earlier "
+                      f"{old1:.6f}, current {new1:.6f}, current {new2:.6f}, earlier "
+                      f"{old2:.6f} ({card})")
+                print(f"[kernels] {k} {name} host-paced ms: earlier "
+                      f"{chip_smoke.host_paced_ms(earlier[k]):.6f}, current "
+                      f"{chip_smoke.host_paced_ms(fn):.6f}")
+            else:
+                print(f"[kernels] {k} {name} N={n}: device {chip_smoke.cuda_ms(fn):.6f}"
+                      f" ms, host-paced {chip_smoke.host_paced_ms(fn):.6f} ms ({card})")
+        if lib is not None:
+            print(f"[kernels] {name}: current packed kernels == earlier ones (bit-equal)")
+
+
+PARTS = ("build", "train", "rollout", "kernels")
+
+
+def main(argv=None) -> int:
+    import torch
+
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--parts", default=",".join(PARTS),
+                   help="comma-separated subset of " + ", ".join(PARTS))
+    p.add_argument("--parent-csrc", default=None,
+                   help="directory of earlier packed_apply.cu and packed_mask.cu")
+    args = p.parse_args(argv)
+    parts = args.parts.split(",")
+    if set(parts) - set(PARTS):
+        p.error(f"unknown parts {sorted(set(parts) - set(PARTS))}")
     if not torch.cuda.is_available():
         raise SystemExit("chip_measure: no CUDA device; nothing was run")
     card = chip_smoke.card_line()
     print(card)
     print(f"[setup] python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
-    build_times()
-    for argv in (chip_smoke.TRAIN_ARGV, chip_smoke.TRAIN_U8_ARGV):
-        train_breakdown(card, argv)
-    rollout_breakdown(card)
-    rollout_turns(card)
+    if "build" in parts:
+        build_times()
+    if "kernels" in parts:
+        kernel_turns(card, args.parent_csrc)
+    if "train" in parts:
+        for argv_ in (chip_smoke.TRAIN_ARGV, chip_smoke.TRAIN_U8_ARGV):
+            train_breakdown(card, argv_)
+    if "rollout" in parts:
+        rollout_breakdown(card)
+        rollout_turns(card)
     print(f"[done] {card}")
     return 0
 

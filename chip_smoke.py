@@ -16,8 +16,10 @@ which raises on failure (non-zero exit, no result line):
      on boards holding full rows, columns and 3x3 regions; the packed
      kernels also against the u8 mask and apply kernels on the unpacked
      boards; an illegal action on a board holding a full line through
-     both apply kernels; then each kernel's time beside the plain
-     version's (CUDA events);
+     both apply kernels; then each kernel's device time (CUDA events over
+     50 launches queued behind a spin kernel, so the host's issue time
+     does not enter) beside its bound and the plain version's time (50
+     calls issued as the host goes);
   2. the whole rollout on CUDA and on CPU from one seed (N = 1024, 64
      steps, live deals, auto-reset) on the packed engine (every preset)
      and on the u8 apply-kernel (``backend="pallas"``) and clear-kernel
@@ -37,13 +39,22 @@ which raises on failure (non-zero exit, no result line):
      clear-kernel step), 2 updates, each with the launch counters set to
      0 before it and read after it; then one rollout of each alone,
      timed; then a fresh network of each at the same widths on CUDA and
-     its copy on the CPU over one minibatch of a CUDA rollout.
+     its copy on the CPU over one minibatch of a CUDA rollout;
+  5. the oracle parity harness (``cli/parity.py``) on the card: 8 seeded
+     oracle episodes (up to 512 steps) replayed one by one and as one
+     lockstep batch through the packed engine and the u8 engine on CUDA,
+     on every preset, each bit-exact.
 
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is the count
 on the path named in its ``path``; ``launches_by_path`` gives the count on
 every path read.  The packed kernels have no Pallas source: their
-``replaces`` names the JAX package's jnp code.
+``replaces`` names the JAX package's jnp code.  ``bound_ms`` is the larger
+of the bytes the kernel must move (each input read once, each output
+written once) over 3.35 TB/s and its integer operations on this run's
+inputs over 67 T/s (the H100's CUDA-core rate); ``library_ms`` is null:
+no single PyTorch call computes a legal mask, a place-and-clear or a
+clear-scan.
 """
 
 from __future__ import annotations
@@ -55,6 +66,9 @@ import sys
 import time
 
 N_MAIN = 49152
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
+CORE_OPS_PER_S = 67e12        # H100 SXM CUDA-core rate (float32 entry)
+PARITY_SEEDS = 8
 PRESETS_CHECKED = ("default", "tenten", "woodoku")
 PACKED_PRESETS = PRESETS_CHECKED + ("big",)
 # kernel -> (source, the TPU kernel or jnp code it replaces, the path its
@@ -107,8 +121,50 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_lines(log: str):
+    """``name: Used ... registers ...`` and spill lines of nvcc's ``-Xptxas
+    -v`` output, each under its kernel's (mangled) entry name."""
+    entry = "?"
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "Used" in line or "spill" in line:
+            yield f"{entry}: {line.strip()}"
+
+
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    """Mean device time of ``fn`` (one kernel launch) over ``iters``
+    back-to-back calls.
+
+    A spin kernel (``torch.cuda._sleep``, ~20 ms) holds the card while the
+    host queues the calls, so the launches run back to back and the host's
+    issue time (Python checks, allocation, ctypes) does not enter.  The
+    start event must still be pending once every call is queued, or this
+    raises."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1 << 25)
+    start.record()
+    for _ in range(iters):
+        fn()
+    queued = not start.query()
+    end.record()
+    torch.cuda.synchronize()
+    if not queued:
+        raise RuntimeError("the host could not queue the timed calls ahead of the card")
+    return start.elapsed_time(end) / iters
+
+
+def host_paced_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Mean time of ``fn`` over ``iters`` calls issued as the host goes:
+    events around the calls, no spin kernel ahead of them.  For the plain
+    versions, whose tens of launches a call overflow the launch queue
+    before 50 calls are queued."""
     import torch
 
     for _ in range(warmup):
@@ -122,6 +178,51 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(tensors, ops: float) -> dict:
+    """The least time for a kernel that reads and writes ``tensors`` once
+    each and does ``ops`` integer operations: the larger of the two."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * ops / CORE_OPS_PER_S
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
+def kernel_bounds(cfg, board, queue, cover, valid, words, attrs, r, c, outs) -> dict:
+    """Each kernel's bound on these inputs and its outputs ``outs``.
+    Operations counted per output, on this run's data: a piece's test at
+    one anchor is an AND and an OR per cell (K1, K4), a packed anchor row
+    tests W - piece_w + 1 anchors with 3 operations per footprint word and
+    builds its words with 2 per field (B7); the apply and clear kernels do
+    about 5 (K2), 3 (K3) operations a cell and 10 a row word (B1)."""
+    import numpy as np
+    import torch
+
+    from blockpuzzle_tpu_torch import rules
+    from blockpuzzle_tpu_torch.kernels.packed import bitboard_tables
+
+    t, bb = rules.tables_for(cfg), bitboard_tables(cfg)
+    n, hw, h, w = board.shape[0], cfg.num_cells, cfg.height, cfg.width
+    cells = torch.as_tensor(np.append(t.piece_cells, 0), device=queue.device)
+    pw = torch.as_tensor(np.append(t.piece_w, w + 1), device=queue.device)
+    pid = queue.clamp(0, t.num_pieces).long()
+    in_hand = float(cells[pid].sum())
+    anchors = float((w - pw[pid] + 1).clamp_min(0).sum())
+    return {
+        "mask": bound([board, queue, outs["mask"]], 2 * in_hand * hw),
+        "apply": bound([board, cover, valid, *outs["apply"]], 5 * n * hw),
+        "clear": bound([board, *outs["clear"]], 3 * n * hw),
+        "legality": bound([board, outs["legality"]],
+                          2 * n * float(t.piece_cells.sum()) * hw),
+        "packed_apply": bound([words, attrs, r, c, valid, *outs["packed_apply"]],
+                              10 * n * h),
+        "packed_mask": bound([words, queue, outs["packed_mask"]],
+                             h * (3 * bb.nwords * anchors
+                                  + 2 * bb.nwords * bb.fpw * n * cfg.queue_size)),
+    }
 
 
 def chosen_action(cfg, g):
@@ -269,26 +370,31 @@ def phase1(card: str) -> dict:
                 for x in kernel_inputs(cfg, N_MAIN, seed=0)
             )
             words = pack_words(board.view(N_MAIN, cfg.height, cfg.width))
-            times["mask"] = (cuda_ms(lambda: mk(board, queue)),
-                             cuda_ms(lambda: mk.plain(board, queue)))
-            times["apply"] = (cuda_ms(lambda: ak(board, cover, valid)),
-                              cuda_ms(lambda: ak.plain(board, cover, valid)))
-            times["clear"] = (cuda_ms(lambda: ck(board)),
-                              cuda_ms(lambda: ck.plain(board)))
-            times["legality"] = (cuda_ms(lambda: lk(board)),
-                                 cuda_ms(lambda: lk.plain(board)))
             args = (words, attrs, r, c, valid)
-            times["packed_apply"] = (cuda_ms(lambda: pak(*args)),
-                                     cuda_ms(lambda: pak.plain(*args)))
-            times["packed_mask"] = (cuda_ms(lambda: pmk(words, queue)),
-                                    cuda_ms(lambda: pmk.plain(words, queue)))
+            calls = {
+                "mask": (lambda: mk(board, queue), lambda: mk.plain(board, queue)),
+                "apply": (lambda: ak(board, cover, valid),
+                          lambda: ak.plain(board, cover, valid)),
+                "clear": (lambda: ck(board), lambda: ck.plain(board)),
+                "legality": (lambda: lk(board), lambda: lk.plain(board)),
+                "packed_apply": (lambda: pak(*args), lambda: pak.plain(*args)),
+                "packed_mask": (lambda: pmk(words, queue),
+                                lambda: pmk.plain(words, queue)),
+            }
+            bounds = kernel_bounds(cfg, board, queue, cover, valid, words, attrs,
+                                   r, c, {k: f() for k, (f, _) in calls.items()})
+            times = {k: (cuda_ms(f), host_paced_ms(g)) for k, (f, g) in calls.items()}
     for k, (ms, plain_ms) in times.items():
+        b = bounds[k]
         print(f"[phase1] {k} N={N_MAIN} default: kernel {ms:.6f} ms, plain "
-              f"{plain_ms:.6f} ms ({card})")
+              f"{plain_ms:.6f} ms, bound {b['bound_ms']:.6f} ms by {b['bound_by']} "
+              f"({b['bytes']} B, {b['ops']:.0f} ops), {100 * b['bound_ms'] / ms:.1f}% "
+              f"of it ({card})")
     print("[phase1] illegal action on a full-line board: strict no-op (apply, "
           "packed_apply)")
-    return {k: {"max_abs_err": errs[k], "ms": times[k][0],
-                "plain_ms": times[k][1]} for k in errs}
+    return {k: {"max_abs_err": errs[k], "ms": times[k][0], "plain_ms": times[k][1],
+                "bound_ms": bounds[k]["bound_ms"], "bound_by": bounds[k]["bound_by"],
+                "library_ms": None} for k in errs}
 
 
 def hand_rows(legal_all, queue):
@@ -553,6 +659,32 @@ def train_path(card: str, argv, kernels) -> dict:
     return launches
 
 
+def phase5() -> None:
+    """The oracle parity harness on the card: ``check_seed`` for each seed
+    and ``check_batched_lockstep`` over all of them, through the packed
+    and the u8 engine on CUDA, on every preset; any mismatch raises."""
+    from blockpuzzle_tpu_torch import PRESETS, make_env
+    from blockpuzzle_tpu_torch.cli import parity
+
+    seeds = list(range(PARITY_SEEDS))
+    for name in PACKED_PRESETS:
+        cfg = PRESETS[name]()
+        for state_impl in ("packed", "u8"):
+            env = make_env(cfg, device="cuda", state_impl=state_impl)
+            steps = 0
+            for seed in seeds:
+                r = parity.check_seed(cfg, seed, 512, env=env)
+                if r["mismatches"] or r["oracle_return"] != r["device_return"]:
+                    raise AssertionError(f"parity {name} {state_impl} seed {seed}: {r}")
+                steps += r["steps"]
+            b = parity.check_batched_lockstep(cfg, env, seeds, 512)
+            if b["mismatches"] or not b["returns_equal"]:
+                raise AssertionError(f"lockstep parity {name} {state_impl}: {b}")
+            print(f"[phase5] {name}, {state_impl} engine on {env.device}: "
+                  f"{len(seeds)} oracle episodes ({steps} steps) bit-exact one by "
+                  "one and as one lockstep batch")
+
+
 def main() -> int:
     import torch
 
@@ -571,15 +703,15 @@ def main() -> int:
     _build.library()
     print(f"[phase0] kernels built and loaded in {time.perf_counter() - t0:.2f} s "
           f"({_build.library_path().name})")
-    for line in _build.library_path().with_suffix(".log").read_text().splitlines():
-        if "Used" in line or "spill" in line:
-            print(f"[phase0] ptxas: {line.strip()}")
+    for line in ptxas_lines(_build.library_path().with_suffix(".log").read_text()):
+        print(f"[phase0] ptxas: {line}")
 
     measured = phase1(card)
     legal_err = phase2()
     measured["legality"]["max_abs_err"] = max(
         measured["legality"]["max_abs_err"], legal_err)
     paths = {**phase3(card), **phase4(card)}
+    phase5()
 
     kernels = []
     for name, (source, replaces, path) in KERNEL_INFO.items():

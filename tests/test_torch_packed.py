@@ -43,7 +43,9 @@ from blockpuzzle_tpu_torch.kernels.packed import (
     bitboard_tables,
     clear_packed_plain,
     cover_words_plain,
+    mask_block_warps,
     pack_words,
+    segments_per_warp,
     unpack_words,
 )
 
@@ -122,97 +124,186 @@ def jax_apply(env_j, words, attrs, r, c, valid):
 
 # --------------------------------------------------------------------------
 # numpy emulations of csrc/packed_apply.cu and csrc/packed_mask.cu
+#
+# Every lane of every warp at once: values are (warps, 32) int64 arrays
+# holding uint32 bits, a thread's global id is block * threads + threadIdx
+# (blocks are whole warps).  A warp holds P = 32 // H segments of H lanes
+# and 32 - P*H left-over lanes; __shfl_sync reads its (explicit) source
+# lane modulo 32, __ballot_sync gathers the whole warp's predicate bits,
+# __reduce_*_sync gives each lane the result over its segment (the
+# left-over lanes form one).
 # --------------------------------------------------------------------------
 
 
 def _shl32(x, s):
-    return (x << s) & U32 if s < 32 else 0
+    s = np.asarray(s)
+    return np.where(s < 32, (np.asarray(x, np.int64) << np.minimum(s, 31)) & U32, 0)
 
 
-def emulate_packed_apply(cfg, words, attrs, r, c, valid):
-    """csrc/packed_apply.cu, one env at a time, in uint32 arithmetic."""
+def _popc(x):
+    x = np.asarray(x, np.int64)
+    return np.array([int(v).bit_count() for v in x.ravel()]).reshape(x.shape)
+
+
+def _shfl(v, src):
+    return np.take_along_axis(v, np.broadcast_to(src, v.shape) % 32, axis=1)
+
+
+def _reduce(v, seg, op):
+    """__reduce_{and,add}_sync(seg, v): seg is each lane's segment id."""
+    out = np.empty_like(v)
+    for sid in np.unique(seg):
+        at = seg == sid
+        out[:, at] = op.reduce(v[:, at], axis=1, keepdims=True)
+    return out
+
+
+def _ballot(pred):
+    return (pred.astype(np.int64) << np.arange(32)).sum(axis=1, keepdims=True)
+
+
+def _small_div(q, d):
+    """The kernels' q / d for small q: (q + 1/2) times the float32
+    reciprocal of d, truncated; equal to the integer quotient."""
+    inv = np.float32(1) / np.float32(d)
+    got = ((np.asarray(q).astype(np.float32) + np.float32(0.5)) * inv).astype(np.int64)
+    assert (got == np.asarray(q) // d).all()
+    return got
+
+
+def _warp_layout(height):
+    """Per warp lane l: segment s = l // H (P for the left-over lanes), its
+    row, its first lane, and its lanes in ballot bits."""
+    per_warp = segments_per_warp(height)
+    l = np.arange(32)
+    s = _small_div(l, height)
+    base = s * height
+    seg = np.where(s < per_warp, ((1 << height) - 1) << base, (U32 << base) & U32)
+    return per_warp, l, s, l - base, base, seg & U32
+
+
+def emulate_packed_apply(cfg, words, attrs, r, c, valid, threads=256):
+    """csrc/packed_apply.cu: one segment of H lanes per env, lane = row."""
     h, w = cfg.height, cfg.width
     rs = cfg.region_size if cfg.region_clear else 0
-    out = np.zeros_like(words, dtype=np.int64)
-    ks = np.zeros(len(words), np.int32)
-    legals = np.zeros(len(words), bool)
-    for e in range(len(words)):
-        a = [int(x) for x in attrs[e]]
-        row0 = [int(r[e]) + a[3 + 4 * j] for j in range(2)]
-        row1 = [row0[j] + a[5 + 4 * j] for j in range(2)]
-        mask = [_shl32((_shl32(1, a[6 + 4 * j]) - 1) & U32, int(c[e]) + a[4 + 4 * j])
-                for j in range(2)]
-        b = [int(x) for x in words[e]]
-        placed, overlap = [], False
-        for i in range(h):
-            cover = (mask[0] if row0[0] <= i < row1[0] else 0) | (
-                mask[1] if row0[1] <= i < row1[1] else 0)
-            overlap |= (b[i] & cover) != 0
-            placed.append(b[i] | cover)
-        legal = bool(valid[e]) and not overlap
-        legals[e] = legal
-        if not legal:
-            out[e] = b
-            continue
-        full = (_shl32(1, w) - 1) & U32
-        cols, k = U32, 0
-        for x in placed:
-            cols &= x
-            k += x == full
-        k += bin(cols).count("1")
-        band_end = {}
-        if rs:
-            band = U32
-            for i in range(h):
-                band &= placed[i]
-                if (i + 1) % rs == 0:
-                    reg = 0
-                    for s in range(0, w - rs + 1, rs):
-                        tile = (((1 << rs) - 1) << s) & U32
-                        if band & tile == tile:
-                            reg |= tile
-                            k += 1
-                    band_end[i], band = reg, U32
-        reg = 0
-        for i in reversed(range(h)):
-            if rs and (i + 1) % rs == 0:
-                reg = band_end[i]
-            clear = (full if placed[i] == full else 0) | cols | reg
-            out[e, i] = placed[i] & ~clear & U32
-        ks[e] = k
+    n = len(words)
+    per_warp, l, s, lane, base, seg = _warp_layout(h)
+    per_block = threads // 32 * per_warp
+    tid = np.arange(-(-n // per_block) * threads).reshape(-1, 32)
+    env = tid // 32 * per_warp + s
+    lane = np.broadcast_to(lane, tid.shape)
+    active = (s < per_warp) & (env < n)
+    e = np.where(active, env, 0)                  # a safe index; masked below
+    x64 = np.where(active, words.astype(np.int64)[e, np.minimum(lane, h - 1)], 0)
+    x = np.where(active, x64 & U32, U32)
+    ok = active & valid[e]
+    cover = np.zeros_like(tid)
+    for j in range(2):
+        row0 = r[e] + attrs[e, 3 + 4 * j]
+        on = active & (lane >= row0) & (lane < row0 + attrs[e, 5 + 4 * j])
+        mask = _shl32((_shl32(1, attrs[e, 6 + 4 * j]) - 1) & U32, c[e] + attrs[e, 4 + 4 * j])
+        cover |= np.where(on, mask, 0)
+    overlap = (_ballot((x & cover) != 0) & seg) != 0
+    legal = ok & ~overlap
+    wv = x | cover
+    full = int(_shl32(1, w)) - 1 & U32
+    cols = _reduce(wv, s, np.bitwise_and)
+    k = _popc(_ballot(active & (wv == full)) & seg) + _popc(cols)
+    reg = np.zeros_like(tid)
+    if rs:
+        b0 = lane - lane % rs
+        whole = b0 + rs <= h
+        band = np.full_like(tid, U32)
+        for t in range(rs):
+            band &= _shfl(wv, np.where(whole, base + b0 + t, l))
+        tiles = np.zeros_like(tid)
+        for s0 in range(0, w - rs + 1, rs):
+            tile = (((1 << rs) - 1) << s0) & U32
+            hit = whole & ((band & tile) == tile)
+            reg |= np.where(hit, tile, 0)
+            tiles += hit & (lane == b0)
+        k = k + _reduce(tiles, s, np.add)
+    clear = np.where(wv == full, full, 0) | cols | reg
+    stored = np.where(legal, wv & ~clear & U32, x64)
+    out = np.full((n, h), -1, np.int64)
+    out[env[active], lane[active]] = stored[active]
+    ks, legals = np.full(n, -1, np.int32), np.zeros(n, bool)
+    head = active & (lane == 0)
+    ks[env[head]] = np.where(legal, k, 0)[head]
+    legals[env[head]] = legal[head]
+    assert (out >= 0).all() and (ks >= 0).all()   # every output written
     return out, ks, legals
 
 
+def _spread4(x):
+    return ((x & 0xF) * 0x00204081) & 0x01010101
+
+
 def emulate_packed_mask(cfg, words, queue, mk):
-    """csrc/packed_mask.cu, one (env, slot, row) thread at a time, on the
-    32-bit tables ``PackedMaskKernel`` hands to the kernel."""
+    """csrc/packed_mask.cu on the 32-bit tables ``PackedMaskKernel`` hands
+    the kernel: one segment of H lanes per (env, slot), lane = anchor row,
+    ``mask_block_warps`` warps a block; each row's legal bits staged in a
+    block buffer, then assembled 16 bits at a time, spread into 16 bytes
+    and stored as one 16-byte vector, plus a ragged tail."""
     h, w, s = cfg.height, cfg.width, cfg.queue_size
-    prow = mk.prow32.numpy().view(np.uint32)
+    prow = mk.prow32.numpy().view(np.uint32).astype(np.int64)
     piece_w = mk.piece_w32.numpy()
-    cmask = mk.cmask32.numpy().view(np.uint32)
     nwords, fpw = mk.tables.nwords, mk.tables.fpw
-    full = (_shl32(1, w) - 1) & U32
-    out = np.zeros((len(words), s, h, w), bool)
-    for e in range(len(words)):
-        for slot in range(s):
-            pid = int(queue[e, slot])
-            if not 0 <= pid < mk.num_pieces:
-                continue
-            for row in range(h):
-                wk = []
-                for k in range(nwords):
-                    acc = 0
-                    for j in range(fpw):
-                        rr = row + k * fpw + j
-                        acc |= _shl32(int(words[e, rr]) if rr < h else full, j * w)
-                    wk.append(acc)
-                for col in range(w):
-                    legal = col + int(piece_w[pid]) <= w
-                    for k in range(nwords):
-                        pk = _shl32(int(prow[pid, k]), col) & int(cmask[col])
-                        legal &= (wk[k] & pk) == 0
-                    out[e, slot, row, col] = legal
-    return out.reshape(len(words), -1)
+    n = len(words)
+    total = n * s
+    per_warp, l, sw, lane, base, _ = _warp_layout(h)
+    warps = mask_block_warps(h, w)
+    threads, per_block = 32 * warps, warps * per_warp
+    blocks = -(-total // per_block)
+    tid = np.arange(blocks * threads).reshape(-1, 32)
+    blk, tx = tid // threads, tid % threads
+    seg = tx // 32 * per_warp + sw
+    es = blk * per_block + seg
+    lane = np.broadcast_to(lane, tid.shape)
+    active = (sw < per_warp) & (es < total)
+    full = int(_shl32(1, w)) - 1 & U32
+    esc = np.where(active, es, 0)
+    pid = np.where(active, queue.reshape(-1)[esc], -1)
+    x = np.where(active, words.astype(np.int64)[esc // s, np.minimum(lane, h - 1)], full)
+    has = (pid >= 0) & (pid < mk.num_pieces)
+    p = np.where(has, pid, 0)
+    pw = np.where(has, piece_w[p], w + 1)
+    blocked = np.zeros_like(tid)
+    for k in range(nwords):
+        wk = np.zeros_like(tid)
+        for j in range(fpw):
+            t = lane + k * fpw + j
+            y = _shfl(x, np.where(t < h, l + k * fpw + j, l))
+            wk |= _shl32(np.where(t < h, y, full), j * w)
+        m = np.where(pw <= w, prow[p, k], 0)
+        for bit in range(32):                     # each set bit p of m
+            blocked |= np.where((m >> bit) & 1, wk >> bit, 0)
+    span = np.where(pw <= w, _shl32(1, w - pw + 1) - 1 & U32, 0)
+    rows = np.full((blocks, warps * 32), -1, np.int64)   # -1: never written
+    at = seg * h + lane
+    assert at[active].max() < rows.shape[1]
+    rows[blk[active], at[active]] = (~blocked & span)[active]
+    out = np.full(total * h * w, 2, np.uint8)    # 2: never written
+    for b in range(blocks):
+        start = b * per_block * h * w
+        nbytes = min(per_block, total - b * per_block) * h * w
+        assert start % 16 == 0                    # the uint4 stores' alignment
+        for i in range(nbytes // 16):
+            q = 16 * i
+            row = int(_small_div(q, w))
+            col, got, bits = q - row * w, 0, 0
+            while got < 16:
+                assert rows[b, row] >= 0
+                bits |= (int(rows[b, row]) >> col) << got
+                got, row, col = got + w - col, row + 1, 0
+            vec = [_spread4(bits >> (4 * v)) for v in range(4)]
+            out[start + q : start + q + 16] = np.array(vec, "<u4").view(np.uint8)
+        for q in range(nbytes // 16 * 16, nbytes):
+            row = int(_small_div(q, w))
+            assert rows[b, row] >= 0
+            out[start + q] = (int(rows[b, row]) >> (q - row * w)) & 1
+    assert (out < 2).all()
+    return out.reshape(n, s * h * w).astype(bool)
 
 
 # --------------------------------------------------------------------------
@@ -320,6 +411,50 @@ def test_packed_plain_versions_match_u8_ones(case):
     board_next, k8, legal8 = ApplyKernel(ct).plain(flat, cover, valid)
     assert torch.equal(unpack_words(words_next, ct.width).reshape(N, -1), board_next)
     assert torch.equal(k, k8) and torch.equal(legal, legal8)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_kernel_emulations_on_a_ragged_edge(case):
+    """N = 37 leaves the apply kernel's last warp part-full (37 = 12*3 + 1
+    envs at three a warp) and the mask kernel's last block short of its
+    env-slots (on the 10x10 and 9x9 boards with a store span that is no
+    multiple of 16)."""
+    _, ct = _pair(case)
+    n = 37
+    rng = np.random.default_rng(5)
+    cells = crafted_cells(ct, n, rng)
+    words = np_words(cells)
+    attrs, r, c, valid = chosen_actions(ct, n, rng)
+    num_pieces = rules.tables_for(ct).num_pieces
+    queue = rng.integers(0, num_pieces + 1, (n, ct.queue_size)).astype(np.int32)
+    tw = torch.as_tensor(words.astype(np.int64))
+    want = PackedApplyKernel(ct).plain(tw, *(torch.as_tensor(x) for x in (attrs, r, c, valid)))
+    for e, p in zip(emulate_packed_apply(ct, words, attrs, r, c, valid), want):
+        np.testing.assert_array_equal(e, p.numpy())
+    mk = PackedMaskKernel(ct)
+    np.testing.assert_array_equal(emulate_packed_mask(ct, words, queue, mk),
+                                  mk.plain(tw, torch.as_tensor(queue)).numpy())
+    per_block = segments_per_warp(ct.height) * mask_block_warps(ct.height, ct.width)
+    assert (n * ct.queue_size) % per_block
+
+
+def test_segment_and_block_sizes():
+    """Segments a warp and the mask kernel's warps a block, over every
+    H, W <= 32; the float quotients the kernels use are exact there."""
+    assert [segments_per_warp(h) for h in (1, 6, 9, 10, 16, 17, 32)] == [
+        32, 5, 3, 3, 2, 1, 1]
+    assert [mask_block_warps(h, w) for h, w in ((10, 10), (9, 9), (16, 16))] == [
+        4, 16, 4]
+    for h in range(1, 33):
+        for w in range(1, 33):
+            warps = mask_block_warps(h, w)
+            assert 4 <= warps <= 16
+            assert warps * segments_per_warp(h) * h * w % 16 == 0
+        _small_div(np.arange(32), h)
+        _small_div(np.arange(16 * 32 * 32), h)
+    for h in (0, 33):
+        with pytest.raises(ValueError, match="H <= 32"):
+            segments_per_warp(h)
 
 
 def test_illegal_action_on_a_full_line_is_a_strict_noop():

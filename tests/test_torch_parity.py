@@ -1,9 +1,11 @@
 """Seeded oracle trajectories replayed through the port (twin of
 tests/test_parity.py, through blockpuzzle_tpu_torch.cli.parity).
 
-The oracle's deal stream is injected with ``auto_reset=False``; boards,
-queues, masks, rewards and termination must be bit-equal to the oracle's
-and episode returns equal, with zero mismatches.  The replays run on the
+The port's own oracle (``blockpuzzle_tpu_torch.oracle``, held to the JAX
+package's in test_torch_oracle.py) records the episodes.  Its deal stream
+is injected with ``auto_reset=False``; boards, queues, masks, rewards and
+termination must be bit-equal to the oracle's and episode returns equal,
+with zero mismatches.  The replays run on the
 u8 apply-kernel step (``backend="pallas"``, the test ids without a
 suffix), on the u8 clear-kernel step (``backend="jnp"``,
 ``state_impl="u8"``, ids ending in ``-jnp``) and on the packed engine, the
@@ -13,6 +15,7 @@ default (ids ending in ``-packed``).
 import dataclasses
 
 import pytest
+import torch
 
 from blockpuzzle_tpu_torch import config as tcfg
 from blockpuzzle_tpu_torch.cli import parity
@@ -67,8 +70,25 @@ def test_check_seed_config_knobs(knobs):
 
 
 def test_parity_cli_exit_codes(capsys):
-    assert parity.main(["--preset", "tenten", "--seeds", "2"]) == 0
-    assert parity.main(["--seeds", "3", "--batch"]) == 0
-    assert parity.main(["--seeds", "2", "--state-impl", "u8"]) == 0
+    cpu = ["--device", "cpu"]
+    assert parity.main(["--preset", "tenten", "--seeds", "2"] + cpu) == 0
+    assert parity.main(["--seeds", "3", "--batch"] + cpu) == 0
+    assert parity.main(["--seeds", "2", "--state-impl", "u8"] + cpu) == 0
     out = capsys.readouterr().out
     assert out.count("PASS (bit-exact)") == 3
+
+
+def test_parity_cli_defaults_to_cuda():
+    """Read off the parser: this machine may have no card to build on."""
+    args = parity.build_parser().parse_args([])
+    assert args.device == "cuda" and args.state_impl == "auto"
+    assert parity.build_parser().parse_args(["--device", "cpu"]).device == "cpu"
+
+
+def test_parity_cli_asked_for_cuda_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this checks the failure without a card")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        parity.main(["--seeds", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        parity.check_seed(_cfg("default"), 0, 8)

@@ -239,10 +239,13 @@ def test_cuda_rollout_matches_cpu_rollout(cuda_device, backend):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", [49152, 49151])
 @pytest.mark.parametrize("preset", ["default", "tenten", "woodoku", "big"])
-def test_packed_kernels_match_plain_versions_on_the_card(preset, cuda_device):
+def test_packed_kernels_match_plain_versions_on_the_card(preset, n, cuda_device):
     """The packed apply and mask kernels against their plain versions and
-    against the u8 apply and mask kernels on the unpacked boards."""
+    against the u8 apply and mask kernels on the unpacked boards, at the
+    rollout's N and at N - 1 (a warp with one env segment of two, a mask
+    block short of its env-slots)."""
     from blockpuzzle_tpu_torch import rules
     from blockpuzzle_tpu_torch.kernels import (
         ApplyKernel, MaskKernel, PackedApplyKernel, PackedMaskKernel,
@@ -253,7 +256,6 @@ def test_packed_kernels_match_plain_versions_on_the_card(preset, cuda_device):
     env = make_env(cfg, device=cuda_device, state_impl="u8")
     t = rules.tables_for(cfg)
     r = np.random.default_rng(1)
-    n = 4099                                         # ragged
     cells = (r.random((n, cfg.height, cfg.width)) < 0.35).astype(np.uint8)
     cells[::5, 2, :] = 1
     cells[1::5, :, 4] = 1
