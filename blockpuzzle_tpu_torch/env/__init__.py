@@ -4,8 +4,6 @@ from __future__ import annotations
 
 from typing import Optional
 
-import torch
-
 from blockpuzzle_tpu_torch.config import EnvConfig
 from blockpuzzle_tpu_torch.env.core import VecBlockPuzzle
 from blockpuzzle_tpu_torch.env.state import EnvState, TimeStep
@@ -31,9 +29,6 @@ def make_env(
     """
     if cfg is None:
         cfg = EnvConfig()
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but CUDA is not available")
     return VecBlockPuzzle(cfg, device, backend, state_impl)
 
 

@@ -1,9 +1,12 @@
 """Hand-written CUDA kernels for Hopper, each with its plain torch version.
 
-Each wrapper binds one config's tables to one device.  For CPU tensors it
-runs the plain version; for CUDA tensors it launches its kernel (built
-from ``csrc/`` at first use) or raises, and counts each launch in its
-``launches`` attribute, a plain int.
+Each wrapper binds one config's tables to one device: the card unless
+the caller asks for another (built without a device on a machine with no
+card, it raises).  For CPU tensors it runs the plain version; for CUDA
+tensors it launches its kernel (built from ``csrc/`` at first use) or
+raises, and counts each launch in its ``launches`` attribute, a plain int
+(the u8 mask and clear wrappers count their general kernels in
+``general_launches``).
 """
 
 from blockpuzzle_tpu_torch.kernels.clear import ClearScanKernel, clear_plain

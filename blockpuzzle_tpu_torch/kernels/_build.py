@@ -32,8 +32,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # c_void_p (ctypes would otherwise pass a 32-bit int and cut them).
 SIGNATURES = {
     "bp_mask": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "bp_mask_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "bp_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "bp_clear": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "bp_clear_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bp_legality": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "bp_packed_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "bp_packed_mask": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -115,10 +117,16 @@ def library() -> ctypes.CDLL:
 
 def resolve_device(device) -> torch.device:
     """``torch.device`` with an explicit index for CUDA ("cuda" ->
-    "cuda:<current>"), so it compares equal to a tensor's device."""
+    "cuda:<current>"), so it compares equal to a tensor's device.  Asked
+    for CUDA on a machine without a card it raises: nothing falls back to
+    the CPU."""
     device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {str(device)!r} requested but CUDA is not available")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 

@@ -63,14 +63,15 @@ def legality_plain(
 
 
 class LegalityKernel:
-    """Config-bound all-(piece, anchor) legality on one device.
+    """Config-bound all-(piece, anchor) legality on one device, the card
+    unless asked for another.
 
     ``__call__(board (N, HW) u8) -> (N, P, HW) bool``.  For CPU tensors it
     runs ``legality_plain``; for CUDA tensors it launches the kernel
     (``launches`` counts those launches) or raises.
     """
 
-    def __init__(self, cfg: EnvConfig, device="cpu"):
+    def __init__(self, cfg: EnvConfig, device="cuda"):
         t = rules.tables_for(cfg)
         self.cfg = cfg
         self.device = _build.resolve_device(device)
@@ -151,14 +152,15 @@ def apply_plain(
 
 
 class ApplyKernel:
-    """Config-bound fused collision + place + clear on one device.
+    """Config-bound fused collision + place + clear on one device, the card
+    unless asked for another.
 
     ``__call__(board (N, HW) u8, cover (N, HW) u8, valid (N,) bool)``.  For
     CPU tensors it runs ``apply_plain``; for CUDA tensors it launches the
     kernel (``launches`` counts those launches) or raises.
     """
 
-    def __init__(self, cfg: EnvConfig, device="cpu"):
+    def __init__(self, cfg: EnvConfig, device="cuda"):
         self.cfg = cfg
         self.device = _build.resolve_device(device)
         self.launches = 0

@@ -1,6 +1,6 @@
 // Simultaneous clear of full rows, columns and regions, for one board held
 // in shared memory by one warp.  The clear epilogue of the apply kernel
-// (collision.cu) and the body of the clear kernel (clear.cu).
+// (collision.cu) and the body of the general clear kernel (clear.cu).
 //
 // Lines come as a table: line l owns line_len[l] flat cell indices at
 // line_cells[l * max_len ...].  A line is full iff the sum of its cells'

@@ -1,5 +1,5 @@
 // Whether one piece fits at one anchor of one board: the per-thread test of
-// the mask kernel (mask.cu) and the legality kernel (legality.cu).
+// the general mask kernel (mask.cu) and the legality kernel (legality.cu).
 //
 // `row` is the piece's row of the piece table (kernels/collision.py
 // `piece_table`): [h, w, ncells, flat cell offsets dr*W + dc ...].  The

@@ -1,10 +1,17 @@
-"""Hand action mask: CUDA kernel (``csrc/mask.cu``) and its plain version.
+"""Hand action mask: CUDA kernels (``csrc/mask.cu``) and their plain version.
 
 The port of ``blockpuzzle_tpu/kernels/mask.py`` (``MaskKernel``).  Anchor
 (r, c) of slot s is legal iff the slot holds a piece, the piece lies in
-bounds there and covers no occupied cell; the result is the engine's
-``action_mask``: (N, S*HW) bool, slot-major then row-major anchor.  It is
-the legality map of ``collision.py`` read at each slot's piece.
+bounds there and covers no occupied (nonzero) cell; the result is the
+engine's ``action_mask``: (N, S*HW) bool, slot-major then row-major anchor.
+It is the legality map of ``collision.py`` read at each slot's piece.
+
+Two kernels compute it: the bit-row kernel, for boards of at most 32 rows
+of at most 32 cells and pieces of at most 8 rows and 8 columns (every
+shipped preset and piece set), tests each anchor row's cells at once on a
+32-bit row word, from the piece table ``piece_rows_table``; the general
+kernel, a thread per anchor over ``collision.piece_table``, takes any other
+board.
 """
 
 from __future__ import annotations
@@ -16,6 +23,11 @@ from blockpuzzle_tpu_torch import rules
 from blockpuzzle_tpu_torch.config import EnvConfig
 from blockpuzzle_tpu_torch.kernels import _build
 from blockpuzzle_tpu_torch.kernels.collision import legality_plain, piece_table
+from blockpuzzle_tpu_torch.kernels.packed import row_launch_shape
+
+# rows and columns of the largest piece the bit-row kernel takes (its
+# unrolled loops; csrc/mask.cu kMaxPiece)
+MAX_PIECE = 8
 
 
 def mask_plain(
@@ -39,21 +51,43 @@ def mask_plain(
     return sel.reshape(n, s * hw)
 
 
+def piece_rows_table(cfg: EnvConfig) -> np.ndarray:
+    """(P, 4) int32 rows ``[h, w, rect 1, rect 2]`` of the bit-row kernel:
+    each piece's bounding box and its <= 2 rectangles (``piece_rects``),
+    each packed as ``dr | dc << 8 | rh << 16 | rw << 24`` (an absent
+    rectangle is 0)."""
+    t = rules.tables_for(cfg)
+    rects = t.piece_rects.reshape(-1, 2, 4).astype(np.int64)
+    packed = (rects << np.array([0, 8, 16, 24])).sum(axis=2)
+    table = np.stack([t.piece_h, t.piece_w, packed[:, 0], packed[:, 1]], axis=1)
+    return table.astype(np.uint32).view(np.int32)
+
+
 class MaskKernel:
-    """Config-bound hand mask on one device.
+    """Config-bound hand mask on one device, the card unless asked for
+    another.
 
     ``__call__(board (N, HW) u8, queue (N, S) i32) -> (N, S*HW) bool``.
-    For CPU tensors it runs ``mask_plain``; for CUDA tensors it launches
-    the kernel (``launches`` counts those launches) or raises.
+    For CPU tensors it runs ``mask_plain``; for CUDA tensors it launches a
+    kernel or raises.  The kernel is picked here, by shape: the bit-row
+    kernel where H <= 32, W <= 32 and no piece spans more than
+    ``MAX_PIECE`` rows or columns (``shape`` is its launch shape;
+    ``launches`` counts its launches), else the general kernel (``shape``
+    is None; ``general_launches`` counts them).
     """
 
-    def __init__(self, cfg: EnvConfig, device="cpu"):
+    def __init__(self, cfg: EnvConfig, device="cuda"):
         t = rules.tables_for(cfg)
         self.cfg = cfg
         self.device = _build.resolve_device(device)
         self.num_pieces = t.num_pieces
+        self.max_h, self.max_w = t.max_h, t.max_w
         self.launches = 0
-        self.piece_table = torch.as_tensor(piece_table(cfg), device=self.device)
+        self.general_launches = 0
+        fits = max(t.max_h, t.max_w) <= MAX_PIECE
+        self.shape = row_launch_shape(cfg) if fits else None
+        table = piece_table(cfg) if self.shape is None else piece_rows_table(cfg)
+        self.piece_table = torch.as_tensor(table, device=self.device)
         self.cover_t = torch.as_tensor(
             t.cover.T.astype(np.float32), device=self.device
         )
@@ -85,13 +119,29 @@ class MaskKernel:
             device=self.device,
         )
         stream = torch.cuda.current_stream(self.device).cuda_stream
+        lib = _build.library()
         with torch.cuda.device(self.device):
-            err = _build.library().bp_mask(
-                board.data_ptr(), queue.data_ptr(),
-                self.piece_table.data_ptr(), out.data_ptr(),
-                n, cfg.height, cfg.width, cfg.queue_size, self.num_pieces,
-                self.piece_table.shape[1] - 3, stream,
-            )
-        _build.check(err, "bp_mask")
-        self.launches += 1
+            if self.shape is None:
+                name = "bp_mask"
+                err = lib.bp_mask(
+                    board.data_ptr(), queue.data_ptr(),
+                    self.piece_table.data_ptr(), out.data_ptr(),
+                    n, cfg.height, cfg.width, cfg.queue_size, self.num_pieces,
+                    self.piece_table.shape[1] - 3, stream,
+                )
+            else:
+                if out.data_ptr() % 16:  # the kernel stores 16-byte vectors
+                    raise RuntimeError("mask output is not 16-byte aligned")
+                name = "bp_mask_rows"
+                err = lib.bp_mask_rows(
+                    board.data_ptr(), queue.data_ptr(),
+                    self.piece_table.data_ptr(), out.data_ptr(),
+                    n, cfg.height, cfg.width, cfg.queue_size, self.num_pieces,
+                    self.max_h, self.max_w, *self.shape, stream,
+                )
+        _build.check(err, name)
+        if self.shape is None:
+            self.general_launches += 1
+        else:
+            self.launches += 1
         return out

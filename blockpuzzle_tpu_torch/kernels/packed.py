@@ -45,27 +45,30 @@ MAX_ROWS = 32
 
 
 def segments_per_warp(height: int) -> int:
-    """Envs (apply) or env-slots (mask) per warp: each takes one segment of
-    H lanes, a lane per board row."""
+    """Envs (apply, clear) or env-slots (mask) per warp: each takes one
+    segment of H lanes, a lane per board row."""
     if not 1 <= height <= MAX_ROWS:
         raise ValueError(f"the packed kernels take 1 <= H <= {MAX_ROWS}")
     return 32 // height
 
 
-def _launch_shape(cfg: EnvConfig):
-    """(envs a warp, mask warps a block) of ``cfg``'s kernel launches, or
-    None where H is out of the kernels' reach (the plain versions still
-    run on the CPU); computed once per wrapper, off the step's host path."""
-    if cfg.height > MAX_ROWS:
+def row_launch_shape(cfg: EnvConfig):
+    """(segments a warp, warps a block) of ``cfg``'s row-word kernels (the
+    packed ones and the bit-row u8 mask and clear), or None where a row
+    does not fit a lane's 32-bit word or the board has more than 32 rows
+    (the packed plain versions still run on the CPU; the u8 wrappers pick
+    their general kernels); computed once per wrapper, off the step's host
+    path."""
+    if cfg.height > MAX_ROWS or cfg.width > 32:
         return None
     return segments_per_warp(cfg.height), mask_block_warps(cfg.height, cfg.width)
 
 
 def mask_block_warps(height: int, width: int) -> int:
-    """Warps per block of the mask kernel: the fewest, and at least 4, for
-    which the block's output (warps * 32 // H env-slots of H*W bytes) is a
-    multiple of 16 bytes, so that every block's span starts on a 16-byte
-    boundary.  16 warps always are."""
+    """Warps per block of the mask kernels (and the bit-row clear): the
+    fewest, and at least 4, for which the block's output (warps * 32 // H
+    env-slots of H*W bytes) is a multiple of 16 bytes, so that every
+    block's span starts on a 16-byte boundary.  16 warps always are."""
     per_warp = segments_per_warp(height)
     return next(w for w in range(4, 17) if w * per_warp * height * width % 16 == 0)
 
@@ -220,7 +223,8 @@ def packed_apply_plain(
 
 
 class PackedApplyKernel:
-    """Config-bound packed collision + place + clear on one device.
+    """Config-bound packed collision + place + clear on one device, the
+    card unless asked for another.
 
     ``__call__(words (N, H) int64, attrs (N, 11) int32, r (N,) int32,
     c (N,) int32, valid (N,) bool) -> (words_next, k, legal)``.  For CPU
@@ -228,13 +232,13 @@ class PackedApplyKernel:
     the kernel (``launches`` counts those launches) or raises.
     """
 
-    def __init__(self, cfg: EnvConfig, device="cpu"):
+    def __init__(self, cfg: EnvConfig, device="cuda"):
         if cfg.width > 32:
             raise ValueError("packed boards need width <= 32")
         self.cfg = cfg
         self.device = _build.resolve_device(device)
         self.launches = 0
-        self.shape = _launch_shape(cfg)
+        self.shape = row_launch_shape(cfg)
 
     def plain(self, words, attrs, r, c, valid):
         return packed_apply_plain(words, attrs, r, c, valid, self.cfg)
@@ -340,7 +344,8 @@ def packed_mask_plain(
 
 
 class PackedMaskKernel:
-    """Config-bound packed hand mask on one device.
+    """Config-bound packed hand mask on one device, the card unless asked
+    for another.
 
     ``__call__(words (N, H) int64, queue (N, S) int32) -> (N, S*HW) bool``,
     in the order of ``MaskKernel``'s output.  For CPU tensors it runs
@@ -348,7 +353,7 @@ class PackedMaskKernel:
     (``launches`` counts those launches) or raises.
     """
 
-    def __init__(self, cfg: EnvConfig, device="cpu"):
+    def __init__(self, cfg: EnvConfig, device="cuda"):
         t = rules.tables_for(cfg)
         bb = bitboard_tables(cfg)
         self.cfg = cfg
@@ -357,7 +362,7 @@ class PackedMaskKernel:
         self.max_h = t.max_h
         self.tables = bb
         self.launches = 0
-        self.shape = _launch_shape(cfg)
+        self.shape = row_launch_shape(cfg)
         dev = self.device
         zero = np.zeros((1, bb.nwords), np.int64)
         # plain version: int64 tables with a zero row at the sentinel P

@@ -24,17 +24,19 @@ then, each line tagged with its part (all four by default):
             the rollout entry point on each engine, in turns packed,
             u8-pallas, u8-jnp, u8-jnp, u8-pallas, packed (median of 3
             windows of 200 steps each);
-  kernels   the packed apply and mask kernels at N = 49152 on every packed
-            preset: device times (``chip_smoke.cuda_ms``) and host-paced
-            times (events around calls issued as the host goes, as
-            ``chip_smoke.py`` timed them before).  With ``--parent-csrc
-            DIR`` (a directory holding an earlier ``packed_apply.cu`` and
-            ``packed_mask.cu`` with the one-thread-per-env / per-row C
-            interface of ``PARENT_SIGNATURES``, e.g. from ``git show
-            <commit>:blockpuzzle_tpu_torch/kernels/csrc/...``),
-            those are built into a library of their own, their ptxas lines
-            printed, their outputs held bit-equal to the current kernels',
-            and both timed in turns: earlier, current, current, earlier.
+  kernels   at N = 49152 on every packed preset: the u8 mask and clear
+            (the bit-row kernels) and the packed apply and mask, device
+            times (``chip_smoke.cuda_ms``) and host-paced times (events
+            around calls issued as the host goes).  With ``--parent-csrc
+            DIR`` (a directory holding earlier ``*.cu`` and ``*.cuh``
+            sources, e.g. an earlier commit's
+            ``blockpuzzle_tpu_torch/kernels/csrc`` from ``git archive``, whose entry
+            points ``bp_mask``, ``bp_clear``, ``bp_packed_apply`` and
+            ``bp_packed_mask`` take the arguments ``_build.SIGNATURES``
+            gives them), those are built into a library of their own by one
+            nvcc, their ptxas lines printed, their outputs held bit-equal
+            to the current kernels', and both timed in turns: earlier,
+            current, current, earlier.
 
 Cold builds go to a temporary directory under the git-ignored
 ``kernels/_build/``, removed at the end.
@@ -207,23 +209,19 @@ def rollout_turns(card: str) -> None:
               f"{statistics.median(r['rates']):.1f} env-steps/s ({card})")
 
 
-# the earlier packed kernels' C interface: the apply without the envs-a-warp
-# argument, the mask with a cmask table and no launch shape
-PARENT_SIGNATURES = {
-    "bp_packed_apply": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-    "bp_packed_mask": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
-}
+# the earlier kernels' entry points, timed against the current ones
+PARENT_ENTRIES = ("bp_mask", "bp_clear", "bp_packed_apply", "bp_packed_mask")
 
 
 def parent_library(csrc: pathlib.Path):
-    """The earlier packed kernels, built by one nvcc into their own library
-    under the git-ignored build directory; prints their ptxas lines."""
+    """The earlier kernels, built by one nvcc into their own library under
+    the git-ignored build directory; prints their ptxas lines."""
     from blockpuzzle_tpu_torch.kernels import _build
 
     out = _build.BUILD_DIR / "parent"
     out.mkdir(parents=True, exist_ok=True)
     so = out / "libbp_parent.so"
-    srcs = [str(csrc / "packed_apply.cu"), str(csrc / "packed_mask.cu")]
+    srcs = [str(src) for src in sorted(csrc.glob("*.cu"))]
     res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
                           str(so), *srcs], capture_output=True, text=True)
     if res.returncode != 0:
@@ -231,79 +229,111 @@ def parent_library(csrc: pathlib.Path):
     for line in chip_smoke.ptxas_lines(res.stderr):
         print(f"[kernels] earlier ptxas: {line}")
     lib = ctypes.CDLL(str(so))
-    for name, argtypes in PARENT_SIGNATURES.items():
+    for name in PARENT_ENTRIES:
         fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fn.argtypes, fn.restype = _build.SIGNATURES[name], ctypes.c_int
     return lib
 
 
-def parent_calls(lib, cfg, pmk):
+def parent_calls(lib, cfg, ck, pak, pmk):
     """Callables with the current wrappers' arguments that launch the
-    earlier kernels."""
-    import numpy as np
+    earlier kernels: the u8 mask and clear as the general kernels are
+    called (with the per-cell piece table and the line tables), the packed
+    apply and mask as the current ones."""
     import torch
 
+    from blockpuzzle_tpu_torch import rules
     from blockpuzzle_tpu_torch.kernels import _build
+    from blockpuzzle_tpu_torch.kernels.collision import piece_table
 
     dev = pmk.device
-    cmask32 = torch.as_tensor(pmk.tables.cmask.view(np.int32), device=dev)
+    table = torch.as_tensor(piece_table(cfg), device=dev)
+    num_pieces = rules.tables_for(cfg).num_pieces
+    lines = ck.lines
     region = cfg.region_size if cfg.region_clear else 0
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def mask(board, queue):
+        n = board.shape[0]
+        out = torch.empty((n, cfg.queue_size * cfg.num_cells), dtype=torch.bool,
+                          device=dev)
+        _build.check(lib.bp_mask(
+            board.data_ptr(), queue.data_ptr(), table.data_ptr(), out.data_ptr(), n,
+            cfg.height, cfg.width, cfg.queue_size, num_pieces, table.shape[1] - 3,
+            stream()), "earlier bp_mask")
+        return out
+
+    def clear(board):
+        n = board.shape[0]
+        out = torch.empty_like(board)
+        k = torch.empty(n, dtype=torch.int32, device=dev)
+        _build.check(lib.bp_clear(
+            board.data_ptr(), lines.line_cells.data_ptr(), lines.line_len.data_ptr(),
+            out.data_ptr(), k.data_ptr(), n, cfg.num_cells, lines.line_cells.shape[0],
+            lines.line_cells.shape[1], stream()), "earlier bp_clear")
+        return out, k
 
     def apply(words, attrs, r, c, valid):
         n = words.shape[0]
         out = torch.empty_like(words)
         k = torch.empty(n, dtype=torch.int32, device=dev)
         legal = torch.empty(n, dtype=torch.bool, device=dev)
-        err = lib.bp_packed_apply(
+        _build.check(lib.bp_packed_apply(
             words.data_ptr(), attrs.data_ptr(), r.data_ptr(), c.data_ptr(),
             valid.data_ptr(), out.data_ptr(), k.data_ptr(), legal.data_ptr(), n,
-            cfg.height, cfg.width, region, torch.cuda.current_stream().cuda_stream)
-        _build.check(err, "earlier bp_packed_apply")
+            cfg.height, cfg.width, region, pak.shape[0], stream()),
+            "earlier bp_packed_apply")
         return out, k, legal
 
-    def mask(words, queue):
+    def packed_mask(words, queue):
         n = words.shape[0]
         out = torch.empty((n, cfg.queue_size * cfg.num_cells), dtype=torch.bool,
                           device=dev)
-        err = lib.bp_packed_mask(
+        _build.check(lib.bp_packed_mask(
             words.data_ptr(), queue.data_ptr(), pmk.prow32.data_ptr(),
-            pmk.piece_w32.data_ptr(), cmask32.data_ptr(), out.data_ptr(), n,
-            cfg.height, cfg.width, cfg.queue_size, pmk.num_pieces,
-            pmk.tables.nwords, pmk.tables.fpw,
-            torch.cuda.current_stream().cuda_stream)
-        _build.check(err, "earlier bp_packed_mask")
+            pmk.piece_w32.data_ptr(), out.data_ptr(), n, cfg.height, cfg.width,
+            cfg.queue_size, pmk.num_pieces, pmk.tables.nwords, pmk.tables.fpw,
+            *pmk.shape, stream()), "earlier bp_packed_mask")
         return out
 
-    return apply, mask
+    return {"mask": mask, "clear": clear, "packed_apply": apply,
+            "packed_mask": packed_mask}
 
 
 def kernel_turns(card: str, parent_csrc) -> None:
     import torch
 
     from blockpuzzle_tpu_torch.config import PRESETS
-    from blockpuzzle_tpu_torch.kernels import PackedApplyKernel, PackedMaskKernel, _build
+    from blockpuzzle_tpu_torch.kernels import (
+        ClearScanKernel, MaskKernel, PackedApplyKernel, PackedMaskKernel, _build,
+    )
     from blockpuzzle_tpu_torch.kernels.packed import pack_words
 
     _build.library()
     for line in chip_smoke.ptxas_lines(_build.library_path().with_suffix(".log").read_text()):
-        if "packed" in line:
-            print(f"[kernels] current ptxas: {line}")
+        print(f"[kernels] current ptxas: {line}")
     lib = parent_library(pathlib.Path(parent_csrc)) if parent_csrc else None
     n, dev = chip_smoke.N_MAIN, torch.device("cuda")
     for name in chip_smoke.PACKED_PRESETS:
         cfg = PRESETS[name]()
+        mk, ck = MaskKernel(cfg, dev), ClearScanKernel(cfg, dev)
         pak, pmk = PackedApplyKernel(cfg, dev), PackedMaskKernel(cfg, dev)
         board, queue, _, valid, attrs, r, c = (
             torch.as_tensor(x, device=dev) for x in chip_smoke.kernel_inputs(cfg, n, seed=0))
         words = pack_words(board.view(n, cfg.height, cfg.width))
         args = (words, attrs, r, c, valid)
-        current = {"packed_apply": lambda: pak(*args),
+        current = {"mask": lambda: mk(board, queue), "clear": lambda: ck(board),
+                   "packed_apply": lambda: pak(*args),
                    "packed_mask": lambda: pmk(words, queue)}
         earlier = {}
         if lib is not None:
-            apply, mask = parent_calls(lib, cfg, pmk)
-            earlier = {"packed_apply": lambda: apply(*args),
-                       "packed_mask": lambda: mask(words, queue)}
+            calls = parent_calls(lib, cfg, ck, pak, pmk)
+            earlier = {"mask": lambda: calls["mask"](board, queue),
+                       "clear": lambda: calls["clear"](board),
+                       "packed_apply": lambda: calls["packed_apply"](*args),
+                       "packed_mask": lambda: calls["packed_mask"](words, queue)}
             for k in current:
                 got, want = current[k](), earlier[k]()
                 got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
@@ -323,7 +353,7 @@ def kernel_turns(card: str, parent_csrc) -> None:
                 print(f"[kernels] {k} {name} N={n}: device {chip_smoke.cuda_ms(fn):.6f}"
                       f" ms, host-paced {chip_smoke.host_paced_ms(fn):.6f} ms ({card})")
         if lib is not None:
-            print(f"[kernels] {name}: current packed kernels == earlier ones (bit-equal)")
+            print(f"[kernels] {name}: current kernels == earlier ones (bit-equal)")
 
 
 PARTS = ("build", "train", "rollout", "kernels")
@@ -336,7 +366,7 @@ def main(argv=None) -> int:
     p.add_argument("--parts", default=",".join(PARTS),
                    help="comma-separated subset of " + ", ".join(PARTS))
     p.add_argument("--parent-csrc", default=None,
-                   help="directory of earlier packed_apply.cu and packed_mask.cu")
+                   help="directory of earlier kernel sources (*.cu, *.cuh)")
     args = p.parse_args(argv)
     parts = args.parts.split(",")
     if set(parts) - set(PARTS):

@@ -9,24 +9,30 @@ which raises on failure (non-zero exit, no result line):
 
   0. card name and power limit, torch/CUDA versions, compute capability,
      kernel build time;
-  1. each of the six kernels against its plain torch version on the card,
-     bit-equal, at N = 49152 and a ragged N = 49151: the u8 kernels (mask,
-     apply, clear, legality) on the default, tenten and woodoku presets,
-     the packed kernels (packed_apply, packed_mask) on those and ``big``,
-     on boards holding full rows, columns and 3x3 regions; the packed
-     kernels also against the u8 mask and apply kernels on the unpacked
-     boards; an illegal action on a board holding a full line through
-     both apply kernels; then each kernel's device time (CUDA events over
-     50 launches queued behind a spin kernel, so the host's issue time
-     does not enter) beside its bound and the plain version's time (50
-     calls issued as the host goes);
+  1. each of the eight kernels against its plain torch version on the
+     card, bit-equal, at N = 49152 and a ragged N = 49151: the u8 kernels
+     (the bit-row mask and clear, apply, legality) and the packed kernels
+     (packed_apply, packed_mask) on the default, tenten, woodoku and big
+     presets, on boards holding full rows, columns and 3x3 regions; the
+     packed kernels also against the u8 mask and apply kernels on the
+     unpacked boards; the u8 kernels, with the general mask and clear
+     (mask_general, clear_general), on a board of 8 rows of 40 cells,
+     too wide for a row word; an illegal action on a board holding a full
+     line through both apply kernels; then each kernel's device time (CUDA
+     events over 50 launches queued behind a spin kernel, so the host's
+     issue time does not enter) beside its bound and the plain version's
+     time (50 calls issued as the host goes), at N = 49152 on the default
+     preset (the general kernels on the wide board);
   2. the whole rollout on CUDA and on CPU from one seed (N = 1024, 64
      steps, live deals, auto-reset) on the packed engine (every preset)
      and on the u8 apply-kernel (``backend="pallas"``) and clear-kernel
-     (``backend="jnp"``) steps: final states and summed rewards bit-equal
-     across devices and across the three engines, each kernel of an
-     engine launched exactly once per step; then ``legal_all_pieces`` on
-     the final boards against its plain version and the hand mask;
+     (``backend="jnp"``) steps (every preset and the wide board, where
+     the general mask and clear run: the paths ``wide_u8_pallas`` and
+     ``wide_u8_jnp``, counters set to 0 before each and read after it):
+     final states and summed rewards bit-equal across devices and across
+     the engines, each kernel of an engine launched exactly once per step;
+     then ``legal_all_pieces`` on the final boards against its plain
+     version and the hand mask;
   3. the rollout paths: the rollout entry point at N = 49152 on the
      default preset, one warm-up chunk then 5 timed windows of 400 steps,
      on the default (packed) engine and on the apply-kernel step; then the
@@ -69,17 +75,22 @@ N_MAIN = 49152
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 CORE_OPS_PER_S = 67e12        # H100 SXM CUDA-core rate (float32 entry)
 PARITY_SEEDS = 8
-PRESETS_CHECKED = ("default", "tenten", "woodoku")
-PACKED_PRESETS = PRESETS_CHECKED + ("big",)
+PACKED_PRESETS = ("default", "tenten", "woodoku", "big")
+# a u8 board too wide for a row word: the general mask and clear kernels
+WIDE = dict(height=8, width=40)
 # kernel -> (source, the TPU kernel or jnp code it replaces, the path its
 # launches are read from)
 KERNEL_INFO = {
     "mask": ("blockpuzzle_tpu_torch/kernels/csrc/mask.cu",
              "blockpuzzle_tpu/kernels/mask.py:85", "rollout_pallas"),
+    "mask_general": ("blockpuzzle_tpu_torch/kernels/csrc/mask.cu",
+                     "blockpuzzle_tpu/kernels/mask.py:85", "wide_u8_pallas"),
     "apply": ("blockpuzzle_tpu_torch/kernels/csrc/collision.cu",
               "blockpuzzle_tpu/kernels/collision.py:164", "rollout_pallas"),
     "clear": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
               "blockpuzzle_tpu/kernels/clear.py:93", "train_u8"),
+    "clear_general": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
+                      "blockpuzzle_tpu/kernels/clear.py:93", "wide_u8_jnp"),
     "legality": ("blockpuzzle_tpu_torch/kernels/csrc/legality.cu",
                  "blockpuzzle_tpu/kernels/collision.py:50", "legal_all_pieces"),
     "packed_apply": ("blockpuzzle_tpu_torch/kernels/csrc/packed_apply.cu",
@@ -97,20 +108,28 @@ TRAIN_U8_ARGV = TRAIN_ARGV + ["--updates", "2", "--torso", "mlp",
                               "--state-impl", "u8", "--mlp-width", "512"]
 
 
-def kernel_wrappers(env) -> dict:
-    return {"mask": env.mask_kernel, "apply": env.apply_kernel,
-            "clear": env.clear_kernel, "legality": env.legal_kernel,
-            "packed_apply": env.packed_apply_kernel,
-            "packed_mask": env.packed_mask_kernel}
+def kernel_counters(env) -> dict:
+    """kernel -> (its wrapper on ``env``, the wrapper's counter of its
+    launches); the packed wrappers are None on a board too wide for them."""
+    return {"mask": (env.mask_kernel, "launches"),
+            "mask_general": (env.mask_kernel, "general_launches"),
+            "apply": (env.apply_kernel, "launches"),
+            "clear": (env.clear_kernel, "launches"),
+            "clear_general": (env.clear_kernel, "general_launches"),
+            "legality": (env.legal_kernel, "launches"),
+            "packed_apply": (env.packed_apply_kernel, "launches"),
+            "packed_mask": (env.packed_mask_kernel, "launches")}
 
 
 def zero_counts(env) -> None:
-    for k in kernel_wrappers(env).values():
-        k.launches = 0
+    for k, attr in kernel_counters(env).values():
+        if k is not None:
+            setattr(k, attr, 0)
 
 
 def read_counts(env) -> dict:
-    return {name: k.launches for name, k in kernel_wrappers(env).items()}
+    return {name: getattr(k, attr) if k is not None else 0
+            for name, (k, attr) in kernel_counters(env).items()}
 
 
 def card_line() -> str:
@@ -192,37 +211,58 @@ def bound(tensors, ops: float) -> dict:
 
 
 def kernel_bounds(cfg, board, queue, cover, valid, words, attrs, r, c, outs) -> dict:
-    """Each kernel's bound on these inputs and its outputs ``outs``.
-    Operations counted per output, on this run's data: a piece's test at
-    one anchor is an AND and an OR per cell (K1, K4), a packed anchor row
-    tests W - piece_w + 1 anchors with 3 operations per footprint word and
-    builds its words with 2 per field (B7); the apply and clear kernels do
-    about 5 (K2), 3 (K3) operations a cell and 10 a row word (B1)."""
+    """The bound of each kernel named in ``outs`` (its outputs) on these
+    inputs.  Operations counted on this run's data: the bit-row mask (K1)
+    packs each of an env-slot's H rows from (W + 6) // 4 32-bit words (7
+    operations a word), ORs in the max_h rows below by shuffles (5
+    operations a row), smears and shifts its two rectangles (10 each),
+    masks the legal row (3) and spends one operation per output byte on
+    the spread store; the bit-row clear (K3) packs its rows likewise, tests
+    and clears each row word (about 8 operations; a band row 2 per region
+    row and 3 per tile with regions) and spends one per output byte; the
+    general mask tests a piece at one anchor with an AND and an OR per cell
+    (K4 as well), the general clear and the apply kernel do about 3 and 5
+    operations a cell; a packed anchor row tests W - piece_w + 1 anchors
+    with 3 operations per footprint word and builds its words with 2 per
+    field (B7); B1 does about 10 a row word."""
     import numpy as np
     import torch
 
     from blockpuzzle_tpu_torch import rules
     from blockpuzzle_tpu_torch.kernels.packed import bitboard_tables
 
-    t, bb = rules.tables_for(cfg), bitboard_tables(cfg)
+    t = rules.tables_for(cfg)
     n, hw, h, w = board.shape[0], cfg.num_cells, cfg.height, cfg.width
-    cells = torch.as_tensor(np.append(t.piece_cells, 0), device=queue.device)
-    pw = torch.as_tensor(np.append(t.piece_w, w + 1), device=queue.device)
+    slots = cfg.queue_size
+
+    def per_piece(values, empty):
+        return torch.as_tensor(np.append(values, empty), device=queue.device)
+
     pid = queue.clamp(0, t.num_pieces).long()
-    in_hand = float(cells[pid].sum())
-    anchors = float((w - pw[pid] + 1).clamp_min(0).sum())
-    return {
-        "mask": bound([board, queue, outs["mask"]], 2 * in_hand * hw),
-        "apply": bound([board, cover, valid, *outs["apply"]], 5 * n * hw),
-        "clear": bound([board, *outs["clear"]], 3 * n * hw),
-        "legality": bound([board, outs["legality"]],
-                          2 * n * float(t.piece_cells.sum()) * hw),
-        "packed_apply": bound([words, attrs, r, c, valid, *outs["packed_apply"]],
-                              10 * n * h),
-        "packed_mask": bound([words, queue, outs["packed_mask"]],
-                             h * (3 * bb.nwords * anchors
-                                  + 2 * bb.nwords * bb.fpw * n * cfg.queue_size)),
+    in_hand = float(per_piece(t.piece_cells, 0)[pid].sum())
+    pack = 7 * ((w + 6) // 4)
+    anchors = float((w - per_piece(t.piece_w, w + 1)[pid] + 1).clamp_min(0).sum())
+    rs = cfg.region_size
+    regions = h * (2 * rs + 3 * (w // rs)) if cfg.region_clear else 0
+    bb = bitboard_tables(cfg) if w <= 32 else None
+    ops = {
+        "mask": lambda: n * slots * (h * (pack + 5 * t.max_h + 23) + hw),
+        "mask_general": lambda: 2 * in_hand * hw,
+        "apply": lambda: 5 * n * hw,
+        "clear": lambda: n * (h * (pack + 8) + regions + hw),
+        "clear_general": lambda: 3 * n * hw,
+        "legality": lambda: 2 * n * float(t.piece_cells.sum()) * hw,
+        "packed_apply": lambda: 10 * n * h,
+        "packed_mask": lambda: h * bb.nwords * (3 * anchors + 2 * bb.fpw * n * slots),
     }
+    inputs = {"mask": [board, queue], "mask_general": [board, queue],
+              "apply": [board, cover, valid], "clear": [board],
+              "clear_general": [board], "legality": [board],
+              "packed_apply": [words, attrs, r, c, valid],
+              "packed_mask": [words, queue]}
+    return {k: bound(inputs[k] + list(out if isinstance(out, tuple) else (out,)),
+                     float(ops[k]()))
+            for k, out in outs.items()}
 
 
 def chosen_action(cfg, g):
@@ -303,7 +343,7 @@ def check_equal(outs, refs, what: str, errs: dict, name: str) -> None:
 def phase1(card: str) -> dict:
     import torch
 
-    from blockpuzzle_tpu_torch.config import PRESETS
+    from blockpuzzle_tpu_torch.config import PRESETS, EnvConfig
     from blockpuzzle_tpu_torch.kernels import (
         ApplyKernel, ClearScanKernel, LegalityKernel, MaskKernel,
         PackedApplyKernel, PackedMaskKernel,
@@ -312,81 +352,96 @@ def phase1(card: str) -> dict:
 
     dev = torch.device("cuda")
     errs = {name: 0 for name in KERNEL_INFO}
-    times = {}
-    for name in PACKED_PRESETS:
-        cfg = PRESETS[name]()
-        u8 = name in PRESETS_CHECKED
+    times, bounds = {}, {}
+    configs = {name: PRESETS[name]() for name in PACKED_PRESETS}
+    configs["wide"] = EnvConfig(**WIDE)
+    for name, cfg in configs.items():
+        packed = name != "wide"
         mk, ak = MaskKernel(cfg, dev), ApplyKernel(cfg, dev)
         ck, lk = ClearScanKernel(cfg, dev), LegalityKernel(cfg, dev)
-        pak, pmk = PackedApplyKernel(cfg, dev), PackedMaskKernel(cfg, dev)
+        # the wide board takes the general mask and clear
+        mask_name, clear_name = ("mask", "clear") if packed else (
+            "mask_general", "clear_general")
+        if (mk.shape is None, ck.shape is None) != (not packed, not packed):
+            raise AssertionError(f"{name}: the wrappers picked the wrong kernels")
+        if packed:
+            pak, pmk = PackedApplyKernel(cfg, dev), PackedMaskKernel(cfg, dev)
         for n in (N_MAIN, N_MAIN - 1):
             board, queue, cover, valid, attrs, r, c = (
                 torch.as_tensor(x, device=dev)
                 for x in kernel_inputs(cfg, n, seed=n)
             )
-            words = pack_words(board.view(n, cfg.height, cfg.width))
             what = f"{name}, N={n}"
-            pmask = pmk(words, queue)
-            check_equal([pmask], [pmk.plain(words, queue)], what, errs, "packed_mask")
-            pouts = pak(words, attrs, r, c, valid)
-            check_equal(pouts, pak.plain(words, attrs, r, c, valid), what, errs,
-                        "packed_apply")
-            # the packed kernels against the u8 ones on the unpacked boards
             mask = mk(board, queue)
-            if not torch.equal(pmask, mask):
-                raise AssertionError(f"packed_mask != mask kernel ({what})")
+            check_equal([mask], [mk.plain(board, queue)], what, errs, mask_name)
             outs = ak(board, cover, valid)
-            unpacked = unpack_words(pouts[0], cfg.width).view(n, -1)
-            if not all(torch.equal(a, b) for a, b in
-                       zip((unpacked,) + pouts[1:], outs)):
-                raise AssertionError(f"packed_apply != apply kernel ({what})")
-            line = (f"[phase1] {what}: packed mask legal share "
-                    f"{float(pmask.float().mean()):.4f}, packed apply legal "
-                    f"{int(pouts[2].sum())}, lines cleared "
-                    f"{int(pouts[1].sum())}: packed kernels == plain == u8 "
-                    "kernels on the unpacked boards (bit-equal)")
-            if u8:
-                check_equal([mask], [mk.plain(board, queue)], what, errs, "mask")
-                check_equal(outs, ak.plain(board, cover, valid), what, errs, "apply")
-                cleared = ck(board)
-                check_equal(cleared, ck.plain(board), what, errs, "clear")
-                legal_all = lk(board)
-                check_equal([legal_all], [lk.plain(board)], what, errs, "legality")
-                line += (f"; clear k {int(cleared[1].sum())}, legality share "
-                         f"{float(legal_all.float().mean()):.4f}: u8 kernels == "
-                         "plain (bit-equal)")
+            check_equal(outs, ak.plain(board, cover, valid), what, errs, "apply")
+            cleared = ck(board)
+            check_equal(cleared, ck.plain(board), what, errs, clear_name)
+            legal_all = lk(board)
+            check_equal([legal_all], [lk.plain(board)], what, errs, "legality")
+            line = (f"[phase1] {what}: {mask_name} legal share "
+                    f"{float(mask.float().mean()):.4f}, {clear_name} k "
+                    f"{int(cleared[1].sum())}, apply legal {int(outs[2].sum())}, "
+                    f"legality share {float(legal_all.float().mean()):.4f}: "
+                    "u8 kernels == plain (bit-equal)")
+            if packed:
+                words = pack_words(board.view(n, cfg.height, cfg.width))
+                pmask = pmk(words, queue)
+                check_equal([pmask], [pmk.plain(words, queue)], what, errs,
+                            "packed_mask")
+                pouts = pak(words, attrs, r, c, valid)
+                check_equal(pouts, pak.plain(words, attrs, r, c, valid), what, errs,
+                            "packed_apply")
+                # the packed kernels against the u8 ones on the unpacked boards
+                if not torch.equal(pmask, mask):
+                    raise AssertionError(f"packed_mask != mask kernel ({what})")
+                unpacked = unpack_words(pouts[0], cfg.width).view(n, -1)
+                if not all(torch.equal(a, b) for a, b in
+                           zip((unpacked,) + pouts[1:], outs)):
+                    raise AssertionError(f"packed_apply != apply kernel ({what})")
+                line += (f"; packed mask legal share {float(pmask.float().mean()):.4f},"
+                         f" packed apply legal {int(pouts[2].sum())}, lines cleared "
+                         f"{int(pouts[1].sum())}: packed kernels == plain == u8 "
+                         "kernels on the unpacked boards (bit-equal)")
             print(line)
             b2, c2, v2, a2, r2, col2 = (
                 torch.as_tensor(x, device=dev) for x in illegal_on_full_line(cfg, n)
             )
-            w2 = pack_words(b2.view(n, cfg.height, cfg.width))
-            for nb, k2, l2, before in (ak(b2, c2, v2) + (b2,),
-                                       pak(w2, a2, r2, col2, v2) + (w2,)):
+            noops = [ak(b2, c2, v2) + (b2,)]
+            if packed:
+                w2 = pack_words(b2.view(n, cfg.height, cfg.width))
+                noops.append(pak(w2, a2, r2, col2, v2) + (w2,))
+            for nb, k2, l2, before in noops:
                 if bool(l2.any()) or int(k2.sum()) or not torch.equal(nb, before):
                     raise AssertionError(f"illegal action changed a board ({name})")
+        if name not in ("default", "wide"):
+            continue
+        board, queue, cover, valid, attrs, r, c = (
+            torch.as_tensor(x, device=dev)
+            for x in kernel_inputs(cfg, N_MAIN, seed=0)
+        )
+        calls = {mask_name: (lambda: mk(board, queue), lambda: mk.plain(board, queue)),
+                 clear_name: (lambda: ck(board), lambda: ck.plain(board))}
+        words = None
         if name == "default":
-            board, queue, cover, valid, attrs, r, c = (
-                torch.as_tensor(x, device=dev)
-                for x in kernel_inputs(cfg, N_MAIN, seed=0)
-            )
             words = pack_words(board.view(N_MAIN, cfg.height, cfg.width))
             args = (words, attrs, r, c, valid)
-            calls = {
-                "mask": (lambda: mk(board, queue), lambda: mk.plain(board, queue)),
+            calls.update({
                 "apply": (lambda: ak(board, cover, valid),
                           lambda: ak.plain(board, cover, valid)),
-                "clear": (lambda: ck(board), lambda: ck.plain(board)),
                 "legality": (lambda: lk(board), lambda: lk.plain(board)),
                 "packed_apply": (lambda: pak(*args), lambda: pak.plain(*args)),
                 "packed_mask": (lambda: pmk(words, queue),
                                 lambda: pmk.plain(words, queue)),
-            }
-            bounds = kernel_bounds(cfg, board, queue, cover, valid, words, attrs,
-                                   r, c, {k: f() for k, (f, _) in calls.items()})
-            times = {k: (cuda_ms(f), host_paced_ms(g)) for k, (f, g) in calls.items()}
+            })
+        bounds.update(kernel_bounds(cfg, board, queue, cover, valid, words, attrs,
+                                    r, c, {k: f() for k, (f, _) in calls.items()}))
+        times.update({k: (cuda_ms(f), host_paced_ms(g)) for k, (f, g) in calls.items()})
     for k, (ms, plain_ms) in times.items():
         b = bounds[k]
-        print(f"[phase1] {k} N={N_MAIN} default: kernel {ms:.6f} ms, plain "
+        where = "wide 8x40" if k.endswith("_general") else "default"
+        print(f"[phase1] {k} N={N_MAIN} {where}: kernel {ms:.6f} ms, plain "
               f"{plain_ms:.6f} ms, bound {b['bound_ms']:.6f} ms by {b['bound_by']} "
               f"({b['bytes']} B, {b['ops']:.0f} ops), {100 * b['bound_ms'] / ms:.1f}% "
               f"of it ({card})")
@@ -408,31 +463,39 @@ def hand_rows(legal_all, queue):
     return padded.gather(1, pid[:, :, None].expand(-1, -1, hw)).reshape(n, -1)
 
 
-def phase2() -> int:
+def phase2():
     """Returns the maximum absolute error of ``legal_all_pieces`` against
-    its plain version."""
+    its plain version, and the launch counts of the wide board's two u8
+    rollouts (the paths ``wide_u8_pallas`` and ``wide_u8_jnp``)."""
     import torch
 
     from blockpuzzle_tpu_torch import PRESETS, make_env
+    from blockpuzzle_tpu_torch.config import EnvConfig
     from blockpuzzle_tpu_torch.sampler import UniformLegalSampler
 
     n, steps = 1024, 64
     fields = ("queue", "base_key", "rng_counter", "steps", "score", "streak")
     zero = dict.fromkeys(KERNEL_INFO, 0)
-    # engine -> (make_env arguments, kernels launched once per step)
+    # engine -> (make_env arguments, kernels launched once per step: on the
+    # presets, on the wide board)
     engines = {"packed": (dict(backend="jnp", state_impl="packed"),
-                          ("packed_mask", "packed_apply")),
+                          ("packed_mask", "packed_apply"), None),
                "pallas": (dict(backend="pallas", state_impl="u8"),
-                          ("mask", "apply")),
-               "jnp": (dict(backend="jnp", state_impl="u8"), ("mask", "clear"))}
-    err = 0
-    for name in PACKED_PRESETS:
+                          ("mask", "apply"), ("mask_general", "apply")),
+               "jnp": (dict(backend="jnp", state_impl="u8"), ("mask", "clear"),
+                       ("mask_general", "clear_general"))}
+    configs = {name: PRESETS[name]() for name in PACKED_PRESETS}
+    configs["wide"] = EnvConfig(**WIDE)
+    err, paths = 0, {}
+    for name, cfg in configs.items():
+        wide = name == "wide"
         finals, boards, rewards, envs = {}, {}, {}, {}
-        run = ("packed", "pallas", "jnp") if name in PRESETS_CHECKED else ("packed",)
+        run = ("pallas", "jnp") if wide else ("packed", "pallas", "jnp")
         for engine in run:
-            kwargs, per_step = engines[engine]
+            kwargs, per_step = engines[engine][0], engines[engine][1 + wide]
             for dev in ("cuda", "cpu"):
-                env = make_env(PRESETS[name](), device=dev, **kwargs)
+                env = make_env(cfg, device=dev, **kwargs)
+                zero_counts(env)
                 state, ts = env.init(7, n)
                 sampler = UniformLegalSampler(8, n, env.device)
                 total = torch.zeros((), dtype=torch.float64, device=env.device)
@@ -443,13 +506,15 @@ def phase2() -> int:
                     counts, expect = read_counts(env), {**zero, **dict.fromkeys(per_step, steps)}
                     if counts != expect:
                         raise AssertionError(
-                            f"{engine} launch counts {counts} != {expect}")
+                            f"{name} {engine} launch counts {counts} != {expect}")
+                    if wide:
+                        paths[f"wide_u8_{engine}"] = counts
                     envs[engine] = (env, state)
                 finals[engine, dev] = state.to("cpu")
                 boards[engine, dev] = env.board_obs(state.board).cpu()
                 rewards[engine, dev] = float(total)
         pairs = [((e, "cuda"), (e, "cpu")) for e in run]
-        pairs += [(("packed", "cuda"), (e, "cuda")) for e in run[1:]]
+        pairs += [((run[0], "cuda"), (e, "cuda")) for e in run[1:]]
         for a, b in pairs:
             same = torch.equal(boards[a], boards[b]) and all(
                 torch.equal(getattr(finals[a], f), getattr(finals[b], f))
@@ -458,11 +523,11 @@ def phase2() -> int:
                 raise AssertionError(f"{name}: final states differ {a} vs {b}")
             if rewards[a] != rewards[b]:
                 raise AssertionError(f"{name}: summed rewards differ {a} vs {b}")
-        print(f"[phase2] {name} N={n} {steps} steps: {', '.join(run)} engines, "
-              "each CUDA == CPU, and packed CUDA == every other engine on CUDA "
-              f"(final states bit-equal), summed reward "
-              f"{rewards['packed', 'cuda']}, launches per step "
-              + "; ".join(f"{e}: " + " ".join(f"{k}=1" for k in engines[e][1])
+        print(f"[phase2] {name} {cfg.height}x{cfg.width} N={n} {steps} steps: "
+              f"{', '.join(run)} engines, each CUDA == CPU, and {run[0]} CUDA == "
+              f"every other engine on CUDA (final states bit-equal), summed reward "
+              f"{rewards[run[0], 'cuda']}, launches per step "
+              + "; ".join(f"{e}: " + " ".join(f"{k}=1" for k in engines[e][1 + wide])
                           for e in run))
         for engine in run:
             env, state = envs[engine]
@@ -478,7 +543,7 @@ def phase2() -> int:
                     f"{name}: legal_all_pieces hand rows != action_mask ({engine})")
         print(f"[phase2] {name}: legal_all_pieces on the final boards == plain, "
               "hand rows == action_mask")
-    return err
+    return err, paths
 
 
 def phase3(card: str) -> dict:
@@ -707,10 +772,10 @@ def main() -> int:
         print(f"[phase0] ptxas: {line}")
 
     measured = phase1(card)
-    legal_err = phase2()
+    legal_err, wide_paths = phase2()
     measured["legality"]["max_abs_err"] = max(
         measured["legality"]["max_abs_err"], legal_err)
-    paths = {**phase3(card), **phase4(card)}
+    paths = {**phase3(card), **phase4(card), **wide_paths}
     phase5()
 
     kernels = []

@@ -403,12 +403,12 @@ def test_packed_plain_versions_match_u8_ones(case):
     num_pieces = rules.tables_for(ct).num_pieces
     queue = torch.as_tensor(
         rng.integers(0, num_pieces + 1, (N, ct.queue_size)).astype(np.int32))
-    assert torch.equal(PackedMaskKernel(ct).plain(tw, queue),
-                       MaskKernel(ct).plain(flat, queue))
+    assert torch.equal(PackedMaskKernel(ct, "cpu").plain(tw, queue),
+                       MaskKernel(ct, "cpu").plain(flat, queue))
     attrs, r, c, valid = (torch.as_tensor(x) for x in chosen_actions(ct, N, rng))
     cover = make_env(ct, device="cpu", state_impl="u8")._cover_cells(attrs, r, c)
-    words_next, k, legal = PackedApplyKernel(ct).plain(tw, attrs, r, c, valid)
-    board_next, k8, legal8 = ApplyKernel(ct).plain(flat, cover, valid)
+    words_next, k, legal = PackedApplyKernel(ct, "cpu").plain(tw, attrs, r, c, valid)
+    board_next, k8, legal8 = ApplyKernel(ct, "cpu").plain(flat, cover, valid)
     assert torch.equal(unpack_words(words_next, ct.width).reshape(N, -1), board_next)
     assert torch.equal(k, k8) and torch.equal(legal, legal8)
 
@@ -428,10 +428,11 @@ def test_kernel_emulations_on_a_ragged_edge(case):
     num_pieces = rules.tables_for(ct).num_pieces
     queue = rng.integers(0, num_pieces + 1, (n, ct.queue_size)).astype(np.int32)
     tw = torch.as_tensor(words.astype(np.int64))
-    want = PackedApplyKernel(ct).plain(tw, *(torch.as_tensor(x) for x in (attrs, r, c, valid)))
+    want = PackedApplyKernel(ct, "cpu").plain(
+        tw, *(torch.as_tensor(x) for x in (attrs, r, c, valid)))
     for e, p in zip(emulate_packed_apply(ct, words, attrs, r, c, valid), want):
         np.testing.assert_array_equal(e, p.numpy())
-    mk = PackedMaskKernel(ct)
+    mk = PackedMaskKernel(ct, "cpu")
     np.testing.assert_array_equal(emulate_packed_mask(ct, words, queue, mk),
                                   mk.plain(tw, torch.as_tensor(queue)).numpy())
     per_block = segments_per_warp(ct.height) * mask_block_warps(ct.height, ct.width)
@@ -470,7 +471,8 @@ def test_illegal_action_on_a_full_line_is_a_strict_noop():
         valid[:] = True
         words = np_words(cells)
         tw = torch.as_tensor(words.astype(np.int64))
-        out = PackedApplyKernel(ct)(tw, *(torch.as_tensor(x) for x in (attrs, r, c, valid)))
+        out = PackedApplyKernel(ct, "cpu")(
+            tw, *(torch.as_tensor(x) for x in (attrs, r, c, valid)))
         emu = emulate_packed_apply(ct, words, attrs, r, c, valid)
         for got in (out, emu):
             assert not np.asarray(got[2]).any() and not np.asarray(got[1]).any()
@@ -479,7 +481,7 @@ def test_illegal_action_on_a_full_line_is_a_strict_noop():
 
 def test_packed_wrappers_validate_inputs():
     cfg = tcfg.tenten_config()
-    ak, mk = PackedApplyKernel(cfg), PackedMaskKernel(cfg)
+    ak, mk = PackedApplyKernel(cfg, "cpu"), PackedMaskKernel(cfg, "cpu")
     words = torch.zeros(4, cfg.height, dtype=torch.int64)
     queue = torch.zeros(4, cfg.queue_size, dtype=torch.int32)
     attrs = torch.zeros(4, 11, dtype=torch.int32)
@@ -498,7 +500,7 @@ def test_packed_wrappers_validate_inputs():
     with pytest.raises(ValueError):
         ak(words, attrs, rc, rc, valid.to(torch.uint8))
     with pytest.raises(ValueError, match="width <= 32"):
-        PackedMaskKernel(dataclasses.replace(cfg, width=33))
+        PackedMaskKernel(dataclasses.replace(cfg, width=33), "cpu")
     meta = torch.device("meta")
     with pytest.raises(ValueError, match="no packed mask kernel"):
         PackedMaskKernel(cfg, meta)(words.to(meta), queue.to(meta))

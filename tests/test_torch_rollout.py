@@ -192,14 +192,18 @@ def test_sampler_picks_legal_actions_uniformly():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("preset", ["default", "tenten", "woodoku"])
+@pytest.mark.parametrize("preset", ["default", "tenten", "woodoku", "big", "wide40"])
 def test_kernels_match_plain_versions_on_the_card(preset, cuda_device):
+    """The u8 kernels against their plain versions: the bit-row mask and
+    clear on the presets, the general ones on a board of 8 rows of 40
+    cells (too wide for a row word)."""
     from blockpuzzle_tpu_torch import rules
+    from blockpuzzle_tpu_torch.config import EnvConfig
     from blockpuzzle_tpu_torch.kernels import (
         ApplyKernel, ClearScanKernel, LegalityKernel, MaskKernel,
     )
 
-    cfg = PRESETS[preset]()
+    cfg = EnvConfig(height=8, width=40) if preset == "wide40" else PRESETS[preset]()
     t = rules.tables_for(cfg)
     r = np.random.default_rng(0)
     n = 4099                                         # ragged
@@ -219,7 +223,40 @@ def test_kernels_match_plain_versions_on_the_card(preset, cuda_device):
         assert torch.equal(o, p)
     assert torch.equal(lk(board), lk.plain(board))
     torch.cuda.synchronize()
-    assert (mk.launches, ak.launches, ck.launches, lk.launches) == (1, 1, 1, 1)
+    rows = preset != "wide40"
+    assert (mk.launches, mk.general_launches) == (rows, not rows)
+    assert (ck.launches, ck.general_launches) == (rows, not rows)
+    assert (ak.launches, lk.launches) == (1, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 3, 8])
+def test_bit_row_kernels_take_an_unaligned_board_on_the_card(offset, cuda_device):
+    """Boards that start ``offset`` bytes past a 16-byte boundary: the
+    bit-row mask and clear stage an unaligned head and tail byte by byte
+    and still equal their plain versions."""
+    from blockpuzzle_tpu_torch import rules
+    from blockpuzzle_tpu_torch.kernels import ClearScanKernel, MaskKernel
+
+    cfg = PRESETS["tenten"]()
+    n, hw = 4099, cfg.num_cells
+    r = np.random.default_rng(offset)
+    cells = (r.random((n, cfg.height, cfg.width)) < 0.5).astype(np.uint8)
+    cells[::3, 4, :] = 1
+    num_pieces = rules.tables_for(cfg).num_pieces
+    queue = torch.as_tensor(
+        r.integers(0, num_pieces + 1, (n, cfg.queue_size)).astype(np.int32),
+        device=cuda_device)
+    store = torch.zeros(n * hw + 16, dtype=torch.uint8, device=cuda_device)
+    board = store[offset : offset + n * hw].view(n, hw)
+    board.copy_(torch.as_tensor(cells.reshape(n, hw), device=cuda_device))
+    assert board.data_ptr() % 16 == offset
+    mk, ck = MaskKernel(cfg, cuda_device), ClearScanKernel(cfg, cuda_device)
+    assert torch.equal(mk(board, queue), mk.plain(board, queue))
+    for o, p in zip(ck(board), ck.plain(board)):
+        assert torch.equal(o, p)
+    torch.cuda.synchronize()
+    assert (mk.launches, ck.launches) == (1, 1)
 
 
 @pytest.mark.gpu
