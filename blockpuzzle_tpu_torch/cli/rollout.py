@@ -4,15 +4,16 @@
         --preset P --seed S [--state-impl auto|packed|u8] [--device cuda|cpu]
 
 Runs one warm-up chunk (which also builds the kernels on first use), then
-``T`` measured env steps per env in chunks, each chunk ending in a device
-synchronize, and prints episode statistics and the median chunk rate.
+``max(round(T / 100), 1)`` measured chunks of 100 env steps per env, each
+chunk ending in a device synchronize, and prints episode statistics and the
+cumulative rate: the env-steps of all measured chunks over their summed wall
+time, as the JAX CLI does.
 ``--device cpu`` runs the kernels' plain versions.
 """
 
 from __future__ import annotations
 
 import argparse
-import statistics
 import time
 from typing import Dict
 
@@ -51,15 +52,16 @@ def rollout(
     """Uniform-legal rollout: one warm-up chunk, then ``chunks`` timed
     chunks of ``chunk`` steps, each ending in a device synchronize.
 
-    Returns the final state, the per-chunk env-steps/s of the timed chunks
-    and totals over them (reward, finished episodes and their returns)."""
+    Returns the final state, the per-chunk env-steps/s of the timed chunks,
+    their summed wall time and totals over them (reward, finished episodes
+    and their returns)."""
     dev = env.device
     state, ts = env.init(seed, num_envs)
     sampler = UniformLegalSampler(seed + 1, num_envs, dev)
     mask = ts.action_mask
     zero = torch.zeros((), dtype=torch.float64, device=dev)
     totals = [zero, zero, zero]        # reward, episode returns, episodes
-    rates = []
+    rates, seconds = [], 0.0
     for i in range(chunks + 1):
         _sync(dev)
         t0 = time.perf_counter()
@@ -75,11 +77,15 @@ def rollout(
                 totals[2] = totals[2] + done.sum(dtype=torch.float64)
         _sync(dev)
         if i:
-            rates.append(chunk * num_envs / (time.perf_counter() - t0))
+            # two reads within the timer's resolution must not divide by 0
+            dt = max(time.perf_counter() - t0, 1e-9)
+            rates.append(chunk * num_envs / dt)
+            seconds += dt
     reward, ep_return, episodes = (float(x) for x in totals)
     return {
         "state": state,
         "rates": rates,
+        "seconds": seconds,
         "env_steps": chunks * chunk * num_envs,
         "reward": reward,
         "episode_return": ep_return,
@@ -88,8 +94,10 @@ def rollout(
 
 
 def summary_line(r: Dict, chunk: int, device_name: str) -> str:
+    """Episode statistics and the cumulative rate: the env-steps of all
+    timed chunks over their summed wall time."""
     steps = r["env_steps"]
-    sps = statistics.median(r["rates"])
+    sps = steps / r["seconds"]
     return (
         f"{steps} env-steps (chunks of {chunk}) | {sps / 1e6:.2f}M steps/s "
         f"steady | reward/step {r['reward'] / steps:.3f} | "
@@ -110,7 +118,7 @@ def main(argv=None) -> int:
     cfg = cli_env_config(args.preset, args.env)
     env = make_env(cfg, device=args.device, state_impl=None
                    if args.state_impl == "auto" else args.state_impl)
-    chunk = min(100, max(args.steps, 1))
+    chunk = 100
     chunks = max(round(args.steps / chunk), 1)
     r = rollout(env, args.num_envs, chunk, chunks, args.seed)
     print(summary_line(r, chunk, device_name(env.device)))

@@ -35,7 +35,10 @@ def state_from_numpy(
     ``state_impl`` names the board layout (an engine's ``state_impl``):
     ``"u8"`` takes (N, H*W) cells and gives uint8; ``"packed"`` takes
     JAX's (N, H) uint32 row words and gives the port's int64 words, the
-    same integers.
+    same integers.  A u8 cell must be 0 or 1, the engine's invariant
+    (``env/state.py``), or this raises ``ValueError``: the bit-row kernels
+    read a cell as "nonzero" and write 0/1 cells, which equals the JAX
+    kernels' byte sums only on such boards.
 
     JAX's typed ``base_key`` has no counterpart in the port: the stream
     keys come from ``seed`` (``rng.stream_keys``), so the two engines deal
@@ -55,6 +58,8 @@ def state_from_numpy(
         want = shapes.get(name, (n,))
         if arr.shape != want:
             raise ValueError(f"{name}: shape {arr.shape}, expected {want}")
+        if name == "board" and state_impl == "u8" and ((arr != 0) & (arr != 1)).any():
+            raise ValueError("board: a u8 cell is neither 0 nor 1")
         out[name] = torch.tensor(arr, device=device).to(dtype)  # a copy
     return EnvState(base_key=rng.stream_keys(seed, n, device), **out)
 

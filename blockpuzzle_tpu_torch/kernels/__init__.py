@@ -5,7 +5,7 @@ the caller asks for another (built without a device on a machine with no
 card, it raises).  For CPU tensors it runs the plain version; for CUDA
 tensors it launches its kernel (built from ``csrc/`` at first use) or
 raises, and counts each launch in its ``launches`` attribute, a plain int
-(the u8 mask and clear wrappers count their general kernels in
+(the four u8 wrappers count their general kernels in
 ``general_launches``).
 """
 

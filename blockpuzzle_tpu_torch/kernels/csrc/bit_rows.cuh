@@ -1,14 +1,19 @@
 // Device code shared by the bit-row u8 kernels: the hand mask of mask.cu
-// (`mask_rows_kernel`) and the clear scan of clear.cu (`clear_rows_kernel`).
+// (`mask_rows_kernel`), the clear scan of clear.cu (`clear_rows_kernel`),
+// the apply of collision.cu (`apply_rows_kernel`) and the all-pieces
+// legality of legality.cu (`legality_rows_kernel`).
 //
-// Both take boards as (N, H*W) u8 cells, H <= 32 and W <= 32, and work on
+// All take boards as (N, H*W) u8 cells, H <= 32 and W <= 32, and work on
 // them as row words: lane r of a segment of H lanes holds board row r as a
-// W-bit word (bit c set iff cell (r, c) is nonzero).  A block first copies
-// its span of boards into shared memory (`stage_bytes`, 16-byte loads), each
-// lane packs its row from there (`pack_row`, four cells a 32-bit load), and
-// at the end the block writes its output rows, staged in shared memory as
-// bit words, as 16-byte vectors of 0/1 bytes (`store_rows`).  `small_div`
-// and `spread4` are copies of packed_mask.cu's, which stays as it is.
+// W-bit word (bit c set iff cell (r, c) is nonzero; `seat` gives a thread
+// its place).  A block first copies its span of boards into shared memory
+// (`stage_bytes`, 16-byte loads), each lane packs its row from there
+// (`pack_row`, four cells a 32-bit load), and at the end the block writes
+// its output rows, staged in shared memory as bit words, as 16-byte vectors
+// of 0/1 bytes (`store_rows` for an aligned span under 2^14 bytes,
+// `store_span` for any other).  `clear_segment` is the simultaneous clear
+// on row words, shared by the clear and the apply.  `small_div` and
+// `spread4` are copies of packed_mask.cu's, which stays as it is.
 #pragma once
 
 #include <cstdint>
@@ -24,6 +29,18 @@ constexpr unsigned kAll = 0xffffffffu;
 // rounding error is below 2^-9.
 __device__ __forceinline__ int small_div(int q, float inv) {
   return static_cast<int>((static_cast<float>(q) + 0.5f) * inv);
+}
+
+// q / d for q * d < 2^32 and 1 <= d <= 32, given magic = wide_magic(d).
+// With m = floor(2^32 / d) + 1, m * d = 2^32 + e and 1 <= e <= d, so
+// q * m / 2^32 = q / d + q * e / (d * 2^32): the last term is below 1 / d,
+// the least distance from q / d up to the next integer, when q * e < 2^32.
+// (d = 1 would need m = 2^32 + 1.)
+__device__ __forceinline__ uint32_t wide_magic(int d) {
+  return 0xffffffffu / static_cast<uint32_t>(d) + 1u;
+}
+__device__ __forceinline__ int wide_div(int q, int d, uint32_t magic) {
+  return d > 1 ? static_cast<int>(__umulhi(static_cast<uint32_t>(q), magic)) : q;
 }
 
 // bits 0..3 of x -> bytes 0..3 of the result, each 0 or 1
@@ -106,16 +123,117 @@ __device__ __forceinline__ void store_rows(const uint32_t* rows, uint8_t* o,
   }
 }
 
+// `store_rows` for any span: `bytes` 0/1 bytes to out[at ...], `out` 16-byte
+// aligned, `at` any byte offset (64 bits: N * P * HW may pass 2^31), and
+// bytes * W < 2^32 (`wide_div`).  The bytes up to the first 16-byte boundary
+// and the ragged tail go byte by byte, the vectors between as in
+// `store_rows`.  Every thread of the block calls it, after a __syncthreads
+// that follows the last write to `rows`.
+__device__ __forceinline__ void store_span(const uint32_t* rows, uint8_t* out,
+                                           long long at, int bytes, int width) {
+  uint8_t* o = out + at;
+  const int head = min(static_cast<int>((16 - (at & 15)) & 15), bytes);
+  const int nvec = (bytes - head) / 16;
+  const uint32_t magic = wide_magic(width);
+  for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
+    const int q = head + 16 * i;
+    int row = wide_div(q, width, magic);
+    int c = q - row * width;
+    uint32_t bits = 0;
+    for (int got = 0; got < 16; got += width - c, ++row, c = 0) {
+      bits |= (rows[row] >> c) << got;
+    }
+    *reinterpret_cast<uint4*>(o + q) = make_uint4(spread4(bits), spread4(bits >> 4),
+                                                  spread4(bits >> 8), spread4(bits >> 12));
+  }
+  // the head's bytes, then the tail's
+  for (int j = threadIdx.x; j < bytes - 16 * nvec; j += blockDim.x) {
+    const int q = j < head ? j : j + 16 * nvec;
+    const int row = wide_div(q, width, magic);
+    o[q] = (rows[row] >> (q - row * width)) & 1u;
+  }
+}
+
 // Shared memory of a bit-row kernel: `nrows` staged row words, rounded up
-// to 16 bytes, then the staged span of `span` board bytes, which starts up
-// to 15 bytes after a 16-byte boundary (`stage_bytes`) and is read up to 6
-// bytes past its end (`pack_row`).
-__host__ __device__ constexpr int smem_bytes(int nrows, long long span) {
-  return static_cast<int>((4 * nrows + 15) / 16 * 16 + span + 32);
+// to 16 bytes, then `nspans` staged spans of `span` board bytes each.  A
+// span starts up to 15 bytes after a 16-byte boundary (`stage_bytes`) and is
+// read up to 6 bytes past its end (`pack_row`); the next one begins
+// `span_stride` bytes after it, on a 16-byte boundary again.
+__host__ __device__ constexpr int span_stride(long long span) {
+  return static_cast<int>((span + 32 + 15) / 16 * 16);
+}
+
+__host__ __device__ constexpr int smem_bytes(int nrows, long long span, int nspans = 1) {
+  return static_cast<int>((4 * nrows + 15) / 16 * 16 + (nspans - 1) * span_stride(span) +
+                          span + 32);
 }
 
 __device__ __forceinline__ uint8_t* staged_span(uint8_t* smem, int nrows) {
   return smem + (4 * nrows + 15) / 16 * 16;
+}
+
+// A thread's place among its warp's segments of `height` lanes, `per_warp`
+// = 32 / height of them; the 32 - per_warp * height left-over lanes form a
+// segment of their own (s == per_warp), which holds no board.
+struct Seat {
+  int l;          // lane of the warp
+  int s;          // segment of the warp
+  int lane;       // lane of the segment: the board row this thread holds
+  int base;       // the segment's first warp lane
+  int seg;        // segment of the block
+  unsigned mask;  // the segment's lanes in ballot bits
+};
+
+__device__ __forceinline__ Seat seat(int height, int per_warp) {
+  Seat t;
+  t.l = threadIdx.x % 32;
+  t.s = small_div(t.l, __frcp_rn(static_cast<float>(height)));
+  t.lane = t.l - t.s * height;
+  t.base = t.s * height;
+  t.seg = threadIdx.x / 32 * per_warp + t.s;
+  t.mask = t.s < per_warp ? (height == 32 ? kAll : ((1u << height) - 1u) << t.base)
+                          : kAll << t.base;
+  return t;
+}
+
+// The simultaneous clear of the board whose row word `x` the caller's
+// segment holds (a lane of no board passes the AND's identity, all ones):
+// full rows by `x == 2^W - 1` (a ballot), full columns by one
+// `__reduce_and_sync` over the segment, regions (region_size > 0) by ANDing
+// each band's rows by shuffles from explicit source lanes and testing its
+// region_size-bit fields.  Returns the cleared word and sets `k` to the
+// number of full lines, by popcounts and `__reduce_add_sync`.  Every lane
+// of the warp calls it: the ballot and the shuffles name the whole warp,
+// the reductions the caller's segment.
+__device__ __forceinline__ uint32_t clear_segment(uint32_t x, bool active, const Seat& t,
+                                                  int height, int width, int region_size,
+                                                  int& k) {
+  const uint32_t full = width < 32 ? (1u << width) - 1u : kAll;
+  const unsigned rows_full = __ballot_sync(kAll, active && x == full) & t.mask;
+  const uint32_t cols = __reduce_and_sync(t.mask, x);
+  k = __popc(rows_full) + __popc(cols);
+  uint32_t reg = 0;
+  if (region_size > 0) {
+    const int b0 = t.lane - t.lane % region_size;   // first row of this lane's band
+    const bool whole = b0 + region_size <= height;  // a whole band on the board
+    uint32_t band = kAll;
+    for (int i = 0; i < region_size; ++i) {
+      band &= __shfl_sync(kAll, x, whole ? t.base + b0 + i : t.l);
+    }
+    int tiles = 0;
+    if (whole) {
+      const uint32_t tile0 = region_size < 32 ? (1u << region_size) - 1u : kAll;
+      for (int i = 0; i + region_size <= width; i += region_size) {
+        const uint32_t tile = tile0 << i;
+        if ((band & tile) == tile) {
+          reg |= tile;
+          tiles += t.lane == b0;
+        }
+      }
+    }
+    k += __reduce_add_sync(t.mask, tiles);
+  }
+  return x & ~((x == full ? full : 0u) | cols | reg);
 }
 
 }  // namespace bit_rows

@@ -32,7 +32,8 @@
 //   - full rows by `word == 2^W - 1` (a ballot), full columns by one
 //     `__reduce_and_sync` over the segment, regions (woodoku) by ANDing each
 //     band's rows by shuffles from explicit source lanes and testing its
-//     region_size-bit fields; k by popcounts and `__reduce_add_sync`;
+//     region_size-bit fields; k by popcounts and `__reduce_add_sync`
+//     (`clear_segment`, bit_rows.cuh, shared with the apply kernel);
 //   - a block of `warps` warps covers E = warps * P envs, the fewest warps
 //     (at least 4) for which E*H*W is a multiple of 16 (`mask_block_warps`):
 //     its input and output are 16-byte-aligned spans, loaded into shared
@@ -77,47 +78,16 @@ __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
   const long long lo = static_cast<long long>(first) * hw;
   const int d = bit_rows::stage_bytes(board, lo, lo + static_cast<long long>(count) * hw, span);
 
-  const int l = threadIdx.x % 32;
-  const int s = bit_rows::small_div(l, __frcp_rn(static_cast<float>(height)));  // per_warp: left over
-  const int lane = l - s * height;                   // the row this lane holds
-  const int base = s * height;                       // the segment's first warp lane
-  const int seg = threadIdx.x / 32 * per_warp + s;   // env in the block
-  const bool active = s < per_warp && seg < count;
-  // the caller's segment in ballot bits (the left-over lanes form one too)
-  const unsigned segmask = s < per_warp
-                               ? (height == 32 ? kAll : ((1u << height) - 1u) << base)
-                               : kAll << base;
+  const bit_rows::Seat t = bit_rows::seat(height, per_warp);
+  const bool active = t.s < per_warp && t.seg < count;
   __syncthreads();
   uint32_t x = kAll;  // no env: the identity of the AND
-  if (active) x = bit_rows::pack_row(span, d + seg * hw + lane * width, width);
-  const uint32_t full = width < 32 ? (1u << width) - 1u : kAll;
-  const unsigned rows_full = __ballot_sync(kAll, active && x == full) & segmask;
-  const uint32_t cols = __reduce_and_sync(segmask, x);
-  int k = __popc(rows_full) + __popc(cols);
-  uint32_t reg = 0;
-  if (region_size > 0) {
-    const int b0 = lane - lane % region_size;  // first row of this lane's band
-    const bool whole = b0 + region_size <= height;  // a whole band on the board
-    uint32_t band = kAll;
-    for (int t = 0; t < region_size; ++t) {
-      band &= __shfl_sync(kAll, x, whole ? base + b0 + t : l);
-    }
-    int tiles = 0;
-    if (whole) {
-      const uint32_t tile0 = region_size < 32 ? (1u << region_size) - 1u : kAll;
-      for (int t = 0; t + region_size <= width; t += region_size) {
-        const uint32_t tile = tile0 << t;
-        if ((band & tile) == tile) {
-          reg |= tile;
-          tiles += lane == b0;
-        }
-      }
-    }
-    k += __reduce_add_sync(segmask, tiles);
-  }
+  if (active) x = bit_rows::pack_row(span, d + t.seg * hw + t.lane * width, width);
+  int k;
+  const uint32_t cleared = bit_rows::clear_segment(x, active, t, height, width, region_size, k);
   if (active) {
-    rows[seg * height + lane] = x & ~((x == full ? full : 0u) | cols | reg);
-    if (lane == 0) k_out[first + seg] = k;
+    rows[t.seg * height + t.lane] = cleared;
+    if (t.lane == 0) k_out[first + t.seg] = k;
   }
   __syncthreads();
   bit_rows::store_rows(rows, board_out + lo, count * hw, width);

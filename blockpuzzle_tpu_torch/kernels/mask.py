@@ -23,11 +23,7 @@ from blockpuzzle_tpu_torch import rules
 from blockpuzzle_tpu_torch.config import EnvConfig
 from blockpuzzle_tpu_torch.kernels import _build
 from blockpuzzle_tpu_torch.kernels.collision import legality_plain, piece_table
-from blockpuzzle_tpu_torch.kernels.packed import row_launch_shape
-
-# rows and columns of the largest piece the bit-row kernel takes (its
-# unrolled loops; csrc/mask.cu kMaxPiece)
-MAX_PIECE = 8
+from blockpuzzle_tpu_torch.kernels.packed import MAX_PIECE, row_launch_shape
 
 
 def mask_plain(

@@ -42,6 +42,9 @@ from blockpuzzle_tpu_torch.kernels import _build
 U32 = 0xFFFFFFFF
 # board rows the kernels take: one lane per row, a warp's 32 at most
 MAX_ROWS = 32
+# rows and columns of the largest piece the bit-row u8 mask and legality
+# take (their unrolled loops; csrc/mask.cu, csrc/legality.cu kMaxPiece)
+MAX_PIECE = 8
 
 
 def segments_per_warp(height: int) -> int:
@@ -54,7 +57,7 @@ def segments_per_warp(height: int) -> int:
 
 def row_launch_shape(cfg: EnvConfig):
     """(segments a warp, warps a block) of ``cfg``'s row-word kernels (the
-    packed ones and the bit-row u8 mask and clear), or None where a row
+    packed ones and the bit-row u8 mask, clear and apply), or None where a row
     does not fit a lane's 32-bit word or the board has more than 32 rows
     (the packed plain versions still run on the CPU; the u8 wrappers pick
     their general kernels); computed once per wrapper, off the step's host
@@ -65,7 +68,8 @@ def row_launch_shape(cfg: EnvConfig):
 
 
 def mask_block_warps(height: int, width: int) -> int:
-    """Warps per block of the mask kernels (and the bit-row clear): the
+    """Warps per block of the mask kernels (and the bit-row clear and
+    apply): the
     fewest, and at least 4, for which the block's output (warps * 32 // H
     env-slots of H*W bytes) is a multiple of 16 bytes, so that every
     block's span starts on a 16-byte boundary.  16 warps always are."""

@@ -20,23 +20,26 @@ then, each line tagged with its part (all four by default):
   rollout   for each engine (packed, u8 apply-kernel step, u8
             clear-kernel step) at N = 49152 on the default preset: host
             ms per step, then 20 steps under ``torch.profiler`` (kernels,
-            device time and busy share per step, the largest items); then
+            device time and busy share per step, the largest items and
+            each hand kernel's time inside the step); then
             the rollout entry point on each engine, in turns packed,
             u8-pallas, u8-jnp, u8-jnp, u8-pallas, packed (median of 3
             windows of 200 steps each);
-  kernels   at N = 49152 on every packed preset: the u8 mask and clear
-            (the bit-row kernels) and the packed apply and mask, device
-            times (``chip_smoke.cuda_ms``) and host-paced times (events
-            around calls issued as the host goes).  With ``--parent-csrc
-            DIR`` (a directory holding earlier ``*.cu`` and ``*.cuh``
-            sources, e.g. an earlier commit's
-            ``blockpuzzle_tpu_torch/kernels/csrc`` from ``git archive``, whose entry
-            points ``bp_mask``, ``bp_clear``, ``bp_packed_apply`` and
-            ``bp_packed_mask`` take the arguments ``_build.SIGNATURES``
-            gives them), those are built into a library of their own by one
-            nvcc, their ptxas lines printed, their outputs held bit-equal
-            to the current kernels', and both timed in turns: earlier,
-            current, current, earlier.
+  kernels   at N = 49152 on every packed preset: the u8 mask, clear, apply
+            and legality (the bit-row kernels) and the packed apply and
+            mask, device times (``chip_smoke.cuda_ms``) and host-paced
+            times (events around calls made as the host goes).  With
+            ``--parent-csrc DIR`` (a directory holding earlier ``*.cu`` and
+            ``*.cuh`` sources, e.g. an earlier commit's
+            ``blockpuzzle_tpu_torch/kernels/csrc`` from ``git archive``,
+            whose entry points ``bp_mask``, ``bp_clear``, ``bp_apply``,
+            ``bp_legality``, ``bp_packed_apply`` and ``bp_packed_mask``
+            take the arguments ``_build.SIGNATURES`` gives them; where it
+            also has ``bp_mask_rows`` and ``bp_clear_rows``, the u8 mask
+            and clear go through those), those are built into a library of
+            their own by one nvcc, their ptxas lines printed, their outputs
+            held bit-equal to the current kernels', and both timed in
+            turns: earlier, current, current, earlier.
 
 Cold builds go to a temporary directory under the git-ignored
 ``kernels/_build/``, removed at the end.
@@ -142,6 +145,10 @@ def train_breakdown(card: str, argv) -> None:
     top_items(device, 1, "train", 12)
 
 
+# the `__global__` functions of kernels/csrc, as the profiler names them
+HAND_KERNELS = ("mask_rows_kernel", "mask_kernel", "apply_rows_kernel", "apply_kernel",
+                "clear_rows_kernel", "clear_kernel", "legality_rows_kernel",
+                "legality_kernel", "packed_apply_kernel", "packed_mask_kernel")
 ENGINES = {"packed": {}, "u8-pallas": {"backend": "pallas"},
            "u8-jnp": {"backend": "jnp", "state_impl": "u8"}}
 
@@ -185,6 +192,8 @@ def rollout_breakdown(card: str) -> None:
               f" ms device time, busy {busy:.4f} ms = {100 * busy / step_ms:.1f}% "
               "of an unprofiled step")
         top_items(device, 20, "rollout", 8)
+        hand = [e for e in device if any(f"{k}(" in e.name for k in HAND_KERNELS)]
+        top_items(hand, 20, "rollout hand kernel", len(HAND_KERNELS))
 
 
 def top_items(device, per: int, tag: str, k: int) -> None:
@@ -209,8 +218,11 @@ def rollout_turns(card: str) -> None:
               f"{statistics.median(r['rates']):.1f} env-steps/s ({card})")
 
 
-# the earlier kernels' entry points, timed against the current ones
-PARENT_ENTRIES = ("bp_mask", "bp_clear", "bp_packed_apply", "bp_packed_mask")
+# the earlier kernels' entry points, timed against the current ones; the
+# bit-row mask and clear where the earlier sources have them
+PARENT_ENTRIES = ("bp_mask", "bp_clear", "bp_apply", "bp_legality",
+                  "bp_packed_apply", "bp_packed_mask")
+PARENT_ROW_ENTRIES = ("bp_mask_rows", "bp_clear_rows")
 
 
 def parent_library(csrc: pathlib.Path):
@@ -229,17 +241,20 @@ def parent_library(csrc: pathlib.Path):
     for line in chip_smoke.ptxas_lines(res.stderr):
         print(f"[kernels] earlier ptxas: {line}")
     lib = ctypes.CDLL(str(so))
-    for name in PARENT_ENTRIES:
+    rows = all(hasattr(lib, name) for name in PARENT_ROW_ENTRIES)
+    for name in PARENT_ENTRIES + (PARENT_ROW_ENTRIES if rows else ()):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = _build.SIGNATURES[name], ctypes.c_int
     return lib
 
 
-def parent_calls(lib, cfg, ck, pak, pmk):
+def parent_calls(lib, cfg, mk, ck, pak, pmk):
     """Callables with the current wrappers' arguments that launch the
-    earlier kernels: the u8 mask and clear as the general kernels are
-    called (with the per-cell piece table and the line tables), the packed
-    apply and mask as the current ones."""
+    earlier kernels: the u8 apply and legality as the general kernels are
+    called (with the line tables and the per-cell piece table), the u8 mask
+    and clear through the earlier bit-row entries where the earlier sources
+    have them (else as the general kernels), the packed apply and mask as
+    the current ones."""
     import torch
 
     from blockpuzzle_tpu_torch import rules
@@ -251,6 +266,7 @@ def parent_calls(lib, cfg, ck, pak, pmk):
     num_pieces = rules.tables_for(cfg).num_pieces
     lines = ck.lines
     region = cfg.region_size if cfg.region_clear else 0
+    rows = hasattr(lib, "bp_mask_rows")
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
@@ -259,21 +275,57 @@ def parent_calls(lib, cfg, ck, pak, pmk):
         n = board.shape[0]
         out = torch.empty((n, cfg.queue_size * cfg.num_cells), dtype=torch.bool,
                           device=dev)
-        _build.check(lib.bp_mask(
-            board.data_ptr(), queue.data_ptr(), table.data_ptr(), out.data_ptr(), n,
-            cfg.height, cfg.width, cfg.queue_size, num_pieces, table.shape[1] - 3,
-            stream()), "earlier bp_mask")
+        if rows:
+            err = lib.bp_mask_rows(
+                board.data_ptr(), queue.data_ptr(), mk.piece_table.data_ptr(),
+                out.data_ptr(), n, cfg.height, cfg.width, cfg.queue_size, num_pieces,
+                mk.max_h, mk.max_w, *mk.shape, stream())
+        else:
+            err = lib.bp_mask(
+                board.data_ptr(), queue.data_ptr(), table.data_ptr(), out.data_ptr(),
+                n, cfg.height, cfg.width, cfg.queue_size, num_pieces,
+                table.shape[1] - 3, stream())
+        _build.check(err, "earlier mask")
         return out
 
     def clear(board):
         n = board.shape[0]
         out = torch.empty_like(board)
         k = torch.empty(n, dtype=torch.int32, device=dev)
-        _build.check(lib.bp_clear(
-            board.data_ptr(), lines.line_cells.data_ptr(), lines.line_len.data_ptr(),
-            out.data_ptr(), k.data_ptr(), n, cfg.num_cells, lines.line_cells.shape[0],
-            lines.line_cells.shape[1], stream()), "earlier bp_clear")
+        if rows:
+            err = lib.bp_clear_rows(
+                board.data_ptr(), out.data_ptr(), k.data_ptr(), n, cfg.height,
+                cfg.width, region, *ck.shape, stream())
+        else:
+            err = lib.bp_clear(
+                board.data_ptr(), lines.line_cells.data_ptr(),
+                lines.line_len.data_ptr(), out.data_ptr(), k.data_ptr(), n,
+                cfg.num_cells, lines.line_cells.shape[0], lines.line_cells.shape[1],
+                stream())
+        _build.check(err, "earlier clear")
         return out, k
+
+    def u8_apply(board, cover, valid):
+        n = board.shape[0]
+        out = torch.empty_like(board)
+        k = torch.empty(n, dtype=torch.int32, device=dev)
+        legal = torch.empty(n, dtype=torch.bool, device=dev)
+        _build.check(lib.bp_apply(
+            board.data_ptr(), cover.data_ptr(), valid.data_ptr(),
+            lines.line_cells.data_ptr(), lines.line_len.data_ptr(), out.data_ptr(),
+            k.data_ptr(), legal.data_ptr(), n, cfg.num_cells,
+            lines.line_cells.shape[0], lines.line_cells.shape[1], stream()),
+            "earlier bp_apply")
+        return out, k, legal
+
+    def legality(board):
+        n = board.shape[0]
+        out = torch.empty((n, num_pieces, cfg.num_cells), dtype=torch.bool, device=dev)
+        _build.check(lib.bp_legality(
+            board.data_ptr(), table.data_ptr(), out.data_ptr(), n, cfg.height,
+            cfg.width, num_pieces, table.shape[1] - 3, stream()),
+            "earlier bp_legality")
+        return out
 
     def apply(words, attrs, r, c, valid):
         n = words.shape[0]
@@ -298,8 +350,8 @@ def parent_calls(lib, cfg, ck, pak, pmk):
             *pmk.shape, stream()), "earlier bp_packed_mask")
         return out
 
-    return {"mask": mask, "clear": clear, "packed_apply": apply,
-            "packed_mask": packed_mask}
+    return {"mask": mask, "clear": clear, "apply": u8_apply, "legality": legality,
+            "packed_apply": apply, "packed_mask": packed_mask}
 
 
 def kernel_turns(card: str, parent_csrc) -> None:
@@ -307,7 +359,8 @@ def kernel_turns(card: str, parent_csrc) -> None:
 
     from blockpuzzle_tpu_torch.config import PRESETS
     from blockpuzzle_tpu_torch.kernels import (
-        ClearScanKernel, MaskKernel, PackedApplyKernel, PackedMaskKernel, _build,
+        ApplyKernel, ClearScanKernel, LegalityKernel, MaskKernel, PackedApplyKernel,
+        PackedMaskKernel, _build,
     )
     from blockpuzzle_tpu_torch.kernels.packed import pack_words
 
@@ -319,19 +372,24 @@ def kernel_turns(card: str, parent_csrc) -> None:
     for name in chip_smoke.PACKED_PRESETS:
         cfg = PRESETS[name]()
         mk, ck = MaskKernel(cfg, dev), ClearScanKernel(cfg, dev)
+        ak, lk = ApplyKernel(cfg, dev), LegalityKernel(cfg, dev)
         pak, pmk = PackedApplyKernel(cfg, dev), PackedMaskKernel(cfg, dev)
-        board, queue, _, valid, attrs, r, c = (
+        board, queue, cover, valid, attrs, r, c = (
             torch.as_tensor(x, device=dev) for x in chip_smoke.kernel_inputs(cfg, n, seed=0))
         words = pack_words(board.view(n, cfg.height, cfg.width))
         args = (words, attrs, r, c, valid)
         current = {"mask": lambda: mk(board, queue), "clear": lambda: ck(board),
+                   "apply": lambda: ak(board, cover, valid),
+                   "legality": lambda: lk(board),
                    "packed_apply": lambda: pak(*args),
                    "packed_mask": lambda: pmk(words, queue)}
         earlier = {}
         if lib is not None:
-            calls = parent_calls(lib, cfg, ck, pak, pmk)
+            calls = parent_calls(lib, cfg, mk, ck, pak, pmk)
             earlier = {"mask": lambda: calls["mask"](board, queue),
                        "clear": lambda: calls["clear"](board),
+                       "apply": lambda: calls["apply"](board, cover, valid),
+                       "legality": lambda: calls["legality"](board),
                        "packed_apply": lambda: calls["packed_apply"](*args),
                        "packed_mask": lambda: calls["packed_mask"](words, queue)}
             for k in current:

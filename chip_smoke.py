@@ -9,30 +9,32 @@ which raises on failure (non-zero exit, no result line):
 
   0. card name and power limit, torch/CUDA versions, compute capability,
      kernel build time;
-  1. each of the eight kernels against its plain torch version on the
-     card, bit-equal, at N = 49152 and a ragged N = 49151: the u8 kernels
-     (the bit-row mask and clear, apply, legality) and the packed kernels
+  1. each of the ten kernels against its plain torch version on the
+     card, bit-equal, at N = 49152 and a ragged N = 49151: the bit-row u8
+     kernels (mask, clear, apply, legality) and the packed kernels
      (packed_apply, packed_mask) on the default, tenten, woodoku and big
      presets, on boards holding full rows, columns and 3x3 regions; the
      packed kernels also against the u8 mask and apply kernels on the
-     unpacked boards; the u8 kernels, with the general mask and clear
-     (mask_general, clear_general), on a board of 8 rows of 40 cells,
-     too wide for a row word; an illegal action on a board holding a full
-     line through both apply kernels; then each kernel's device time (CUDA
-     events over 50 launches queued behind a spin kernel, so the host's
-     issue time does not enter) beside its bound and the plain version's
-     time (50 calls issued as the host goes), at N = 49152 on the default
-     preset (the general kernels on the wide board);
+     unpacked boards; the general u8 kernels (mask_general,
+     clear_general, apply_general, legality_general) on a board of 8 rows
+     of 40 cells, too wide for a row word; an illegal action on a board
+     holding a full line through the u8 apply kernel of each board and the
+     packed one; then each kernel's device time (CUDA events over 50
+     launches queued behind a spin kernel, so the host's launch time does
+     not enter) beside its bound and the plain version's time (50 calls
+     made as the host goes), at N = 49152 on the default preset (the
+     general kernels on the wide board);
   2. the whole rollout on CUDA and on CPU from one seed (N = 1024, 64
      steps, live deals, auto-reset) on the packed engine (every preset)
      and on the u8 apply-kernel (``backend="pallas"``) and clear-kernel
      (``backend="jnp"``) steps (every preset and the wide board, where
-     the general mask and clear run: the paths ``wide_u8_pallas`` and
-     ``wide_u8_jnp``, counters set to 0 before each and read after it):
-     final states and summed rewards bit-equal across devices and across
-     the engines, each kernel of an engine launched exactly once per step;
-     then ``legal_all_pieces`` on the final boards against its plain
-     version and the hand mask;
+     the general mask, apply and clear run: the paths ``wide_u8_pallas``
+     and ``wide_u8_jnp``, counters set to 0 before each and read after
+     it): final states and summed rewards bit-equal across devices and
+     across the engines, each kernel of an engine launched exactly once
+     per step and its other kernel never; then ``legal_all_pieces`` on the
+     final boards against its plain version and the hand mask (on the wide
+     board the general legality: the path ``wide_legal_all_pieces``);
   3. the rollout paths: the rollout entry point at N = 49152 on the
      default preset, one warm-up chunk then 5 timed windows of 400 steps,
      on the default (packed) engine and on the apply-kernel step; then the
@@ -76,7 +78,7 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 CORE_OPS_PER_S = 67e12        # H100 SXM CUDA-core rate (float32 entry)
 PARITY_SEEDS = 8
 PACKED_PRESETS = ("default", "tenten", "woodoku", "big")
-# a u8 board too wide for a row word: the general mask and clear kernels
+# a u8 board too wide for a row word: the general u8 kernels
 WIDE = dict(height=8, width=40)
 # kernel -> (source, the TPU kernel or jnp code it replaces, the path its
 # launches are read from)
@@ -87,12 +89,17 @@ KERNEL_INFO = {
                      "blockpuzzle_tpu/kernels/mask.py:85", "wide_u8_pallas"),
     "apply": ("blockpuzzle_tpu_torch/kernels/csrc/collision.cu",
               "blockpuzzle_tpu/kernels/collision.py:164", "rollout_pallas"),
+    "apply_general": ("blockpuzzle_tpu_torch/kernels/csrc/collision.cu",
+                      "blockpuzzle_tpu/kernels/collision.py:164", "wide_u8_pallas"),
     "clear": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
               "blockpuzzle_tpu/kernels/clear.py:93", "train_u8"),
     "clear_general": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
                       "blockpuzzle_tpu/kernels/clear.py:93", "wide_u8_jnp"),
     "legality": ("blockpuzzle_tpu_torch/kernels/csrc/legality.cu",
                  "blockpuzzle_tpu/kernels/collision.py:50", "legal_all_pieces"),
+    "legality_general": ("blockpuzzle_tpu_torch/kernels/csrc/legality.cu",
+                         "blockpuzzle_tpu/kernels/collision.py:50",
+                         "wide_legal_all_pieces"),
     "packed_apply": ("blockpuzzle_tpu_torch/kernels/csrc/packed_apply.cu",
                      "blockpuzzle_tpu/env/core.py:962", "rollout"),
     "packed_mask": ("blockpuzzle_tpu_torch/kernels/csrc/packed_mask.cu",
@@ -114,9 +121,11 @@ def kernel_counters(env) -> dict:
     return {"mask": (env.mask_kernel, "launches"),
             "mask_general": (env.mask_kernel, "general_launches"),
             "apply": (env.apply_kernel, "launches"),
+            "apply_general": (env.apply_kernel, "general_launches"),
             "clear": (env.clear_kernel, "launches"),
             "clear_general": (env.clear_kernel, "general_launches"),
             "legality": (env.legal_kernel, "launches"),
+            "legality_general": (env.legal_kernel, "general_launches"),
             "packed_apply": (env.packed_apply_kernel, "launches"),
             "packed_mask": (env.packed_mask_kernel, "launches")}
 
@@ -220,11 +229,15 @@ def kernel_bounds(cfg, board, queue, cover, valid, words, attrs, r, c, outs) -> 
     the spread store; the bit-row clear (K3) packs its rows likewise, tests
     and clears each row word (about 8 operations; a band row 2 per region
     row and 3 per tile with regions) and spends one per output byte; the
-    general mask tests a piece at one anchor with an AND and an OR per cell
-    (K4 as well), the general clear and the apply kernel do about 3 and 5
-    operations a cell; a packed anchor row tests W - piece_w + 1 anchors
-    with 3 operations per footprint word and builds its words with 2 per
-    field (B7); B1 does about 10 a row word."""
+    bit-row apply (K2) packs two words a row, tests, places and clears
+    (about 12) and stores likewise; the bit-row legality (K4) packs each
+    row once, builds its smears (3 operations for each of max_h * max_w
+    shapes), spends about 15 a piece and one per output byte; the general
+    mask and legality test a piece at one anchor with an AND and an OR per
+    cell, the general clear and apply do about 3 and 5 operations a cell; a
+    packed anchor row tests W - piece_w + 1 anchors with 3 operations per
+    footprint word and builds its words with 2 per field (B7); B1 does
+    about 10 a row word."""
     import numpy as np
     import torch
 
@@ -248,16 +261,21 @@ def kernel_bounds(cfg, board, queue, cover, valid, words, attrs, r, c, outs) -> 
     ops = {
         "mask": lambda: n * slots * (h * (pack + 5 * t.max_h + 23) + hw),
         "mask_general": lambda: 2 * in_hand * hw,
-        "apply": lambda: 5 * n * hw,
+        "apply": lambda: n * (h * (2 * pack + 12) + regions + hw),
+        "apply_general": lambda: 5 * n * hw,
         "clear": lambda: n * (h * (pack + 8) + regions + hw),
         "clear_general": lambda: 3 * n * hw,
-        "legality": lambda: 2 * n * float(t.piece_cells.sum()) * hw,
+        "legality": lambda: n * (h * (pack + 3 * t.max_h * t.max_w + 15 * t.num_pieces)
+                                 + t.num_pieces * hw),
+        "legality_general": lambda: 2 * n * float(t.piece_cells.sum()) * hw,
         "packed_apply": lambda: 10 * n * h,
         "packed_mask": lambda: h * bb.nwords * (3 * anchors + 2 * bb.fpw * n * slots),
     }
     inputs = {"mask": [board, queue], "mask_general": [board, queue],
-              "apply": [board, cover, valid], "clear": [board],
+              "apply": [board, cover, valid],
+              "apply_general": [board, cover, valid], "clear": [board],
               "clear_general": [board], "legality": [board],
+              "legality_general": [board],
               "packed_apply": [words, attrs, r, c, valid],
               "packed_mask": [words, queue]}
     return {k: bound(inputs[k] + list(out if isinstance(out, tuple) else (out,)),
@@ -359,10 +377,11 @@ def phase1(card: str) -> dict:
         packed = name != "wide"
         mk, ak = MaskKernel(cfg, dev), ApplyKernel(cfg, dev)
         ck, lk = ClearScanKernel(cfg, dev), LegalityKernel(cfg, dev)
-        # the wide board takes the general mask and clear
-        mask_name, clear_name = ("mask", "clear") if packed else (
-            "mask_general", "clear_general")
-        if (mk.shape is None, ck.shape is None) != (not packed, not packed):
+        # the wide board takes the general kernels
+        mask_name, clear_name, apply_name, legal_name = (
+            k if packed else f"{k}_general"
+            for k in ("mask", "clear", "apply", "legality"))
+        if [k.shape is None for k in (mk, ck, ak, lk)] != [not packed] * 4:
             raise AssertionError(f"{name}: the wrappers picked the wrong kernels")
         if packed:
             pak, pmk = PackedApplyKernel(cfg, dev), PackedMaskKernel(cfg, dev)
@@ -375,15 +394,15 @@ def phase1(card: str) -> dict:
             mask = mk(board, queue)
             check_equal([mask], [mk.plain(board, queue)], what, errs, mask_name)
             outs = ak(board, cover, valid)
-            check_equal(outs, ak.plain(board, cover, valid), what, errs, "apply")
+            check_equal(outs, ak.plain(board, cover, valid), what, errs, apply_name)
             cleared = ck(board)
             check_equal(cleared, ck.plain(board), what, errs, clear_name)
             legal_all = lk(board)
-            check_equal([legal_all], [lk.plain(board)], what, errs, "legality")
+            check_equal([legal_all], [lk.plain(board)], what, errs, legal_name)
             line = (f"[phase1] {what}: {mask_name} legal share "
                     f"{float(mask.float().mean()):.4f}, {clear_name} k "
-                    f"{int(cleared[1].sum())}, apply legal {int(outs[2].sum())}, "
-                    f"legality share {float(legal_all.float().mean()):.4f}: "
+                    f"{int(cleared[1].sum())}, {apply_name} legal {int(outs[2].sum())}, "
+                    f"{legal_name} share {float(legal_all.float().mean()):.4f}: "
                     "u8 kernels == plain (bit-equal)")
             if packed:
                 words = pack_words(board.view(n, cfg.height, cfg.width))
@@ -422,15 +441,15 @@ def phase1(card: str) -> dict:
             for x in kernel_inputs(cfg, N_MAIN, seed=0)
         )
         calls = {mask_name: (lambda: mk(board, queue), lambda: mk.plain(board, queue)),
-                 clear_name: (lambda: ck(board), lambda: ck.plain(board))}
+                 clear_name: (lambda: ck(board), lambda: ck.plain(board)),
+                 apply_name: (lambda: ak(board, cover, valid),
+                              lambda: ak.plain(board, cover, valid)),
+                 legal_name: (lambda: lk(board), lambda: lk.plain(board))}
         words = None
         if name == "default":
             words = pack_words(board.view(N_MAIN, cfg.height, cfg.width))
             args = (words, attrs, r, c, valid)
             calls.update({
-                "apply": (lambda: ak(board, cover, valid),
-                          lambda: ak.plain(board, cover, valid)),
-                "legality": (lambda: lk(board), lambda: lk.plain(board)),
                 "packed_apply": (lambda: pak(*args), lambda: pak.plain(*args)),
                 "packed_mask": (lambda: pmk(words, queue),
                                 lambda: pmk.plain(words, queue)),
@@ -446,7 +465,7 @@ def phase1(card: str) -> dict:
               f"({b['bytes']} B, {b['ops']:.0f} ops), {100 * b['bound_ms'] / ms:.1f}% "
               f"of it ({card})")
     print("[phase1] illegal action on a full-line board: strict no-op (apply, "
-          "packed_apply)")
+          "apply_general, packed_apply)")
     return {k: {"max_abs_err": errs[k], "ms": times[k][0], "plain_ms": times[k][1],
                 "bound_ms": bounds[k]["bound_ms"], "bound_by": bounds[k]["bound_by"],
                 "library_ms": None} for k in errs}
@@ -465,8 +484,10 @@ def hand_rows(legal_all, queue):
 
 def phase2():
     """Returns the maximum absolute error of ``legal_all_pieces`` against
-    its plain version, and the launch counts of the wide board's two u8
-    rollouts (the paths ``wide_u8_pallas`` and ``wide_u8_jnp``)."""
+    its plain version on the presets and on the wide board, and the launch
+    counts of the wide board's two u8 rollouts and of ``legal_all_pieces``
+    there (the paths ``wide_u8_pallas``, ``wide_u8_jnp`` and
+    ``wide_legal_all_pieces``)."""
     import torch
 
     from blockpuzzle_tpu_torch import PRESETS, make_env
@@ -481,12 +502,12 @@ def phase2():
     engines = {"packed": (dict(backend="jnp", state_impl="packed"),
                           ("packed_mask", "packed_apply"), None),
                "pallas": (dict(backend="pallas", state_impl="u8"),
-                          ("mask", "apply"), ("mask_general", "apply")),
+                          ("mask", "apply"), ("mask_general", "apply_general")),
                "jnp": (dict(backend="jnp", state_impl="u8"), ("mask", "clear"),
                        ("mask_general", "clear_general"))}
     configs = {name: PRESETS[name]() for name in PACKED_PRESETS}
     configs["wide"] = EnvConfig(**WIDE)
-    err, paths = 0, {}
+    errs, paths = {"legality": 0, "legality_general": 0}, {}
     for name, cfg in configs.items():
         wide = name == "wide"
         finals, boards, rewards, envs = {}, {}, {}, {}
@@ -529,12 +550,19 @@ def phase2():
               f"{rewards[run[0], 'cuda']}, launches per step "
               + "; ".join(f"{e}: " + " ".join(f"{k}=1" for k in engines[e][1 + wide])
                           for e in run))
+        legal_name = "legality_general" if wide else "legality"
         for engine in run:
             env, state = envs[engine]
+            zero_counts(env)
             legal_all = env.legal_all_pieces(state.board)
+            counts = read_counts(env)
+            if counts != {**zero, legal_name: 1}:
+                raise AssertionError(f"{name} legal_all_pieces launches {counts}")
+            if wide:
+                paths["wide_legal_all_pieces"] = counts
             plain = env.legal_kernel.plain(
                 env.board_obs(state.board).reshape(n, -1).contiguous())
-            err = max(err, max_abs_err(legal_all, plain))
+            errs[legal_name] = max(errs[legal_name], max_abs_err(legal_all, plain))
             if not torch.equal(legal_all, plain):
                 raise AssertionError(f"{name}: legal_all_pieces != plain ({engine})")
             if not torch.equal(hand_rows(legal_all, state.queue),
@@ -542,8 +570,8 @@ def phase2():
                 raise AssertionError(
                     f"{name}: legal_all_pieces hand rows != action_mask ({engine})")
         print(f"[phase2] {name}: legal_all_pieces on the final boards == plain, "
-              "hand rows == action_mask")
-    return err, paths
+              f"hand rows == action_mask ({legal_name} launched once a call)")
+    return errs, paths
 
 
 def phase3(card: str) -> dict:
@@ -772,9 +800,9 @@ def main() -> int:
         print(f"[phase0] ptxas: {line}")
 
     measured = phase1(card)
-    legal_err, wide_paths = phase2()
-    measured["legality"]["max_abs_err"] = max(
-        measured["legality"]["max_abs_err"], legal_err)
+    legal_errs, wide_paths = phase2()
+    for k, err in legal_errs.items():
+        measured[k]["max_abs_err"] = max(measured[k]["max_abs_err"], err)
     paths = {**phase3(card), **phase4(card), **wide_paths}
     phase5()
 

@@ -561,3 +561,40 @@ def test_state_from_numpy_carries_a_packed_state():
         state_from_numpy(fields, ct, "cpu", seed=0)       # u8 by default
     with pytest.raises(ValueError, match="state_impl"):
         state_from_numpy(fields, ct, "cpu", seed=0, state_impl="bits")
+
+
+def _jax_u8_fields(cj, steps=8):
+    """The fields of a mid-game u8 state that the JAX engine made itself."""
+    env_j = jax_make_env(cj, state_impl="u8")
+    rng = np.random.default_rng(1)
+    sj, tj = env_j.init(jax.random.key(2), N)
+    for _ in range(steps):
+        a = pick_actions(np.asarray(tj.action_mask), rng, env_j.num_actions, 0)
+        sj, tj = env_j.step(sj, jnp.asarray(a), auto_reset=False)
+    return {k: np.asarray(getattr(sj, k)) for k in
+            ("board", "queue", "rng_counter", "steps", "score", "streak")}
+
+
+@pytest.mark.parametrize("bad", [2, 255])
+def test_state_from_numpy_refuses_a_u8_cell_outside_0_and_1(bad):
+    """The bit-row kernels read a cell as "nonzero" and write 0/1 cells; the
+    JAX kernels sum bytes.  On a row of eight 1s, one 2 and one 0 they
+    differ, so such a board does not enter the engine."""
+    cj, ct = jcfg.default_config(), tcfg.default_config()
+    fields = _jax_u8_fields(cj)
+    board = fields["board"].copy()
+    board[3, : ct.width] = [1] * 8 + [bad, 0]
+    with pytest.raises(ValueError, match="neither 0 nor 1"):
+        state_from_numpy({**fields, "board": board}, ct, "cpu", seed=0, state_impl="u8")
+    # the packed layout's words are not cells: any uint32 passes
+    words = np.full((N, ct.height), bad, np.uint32)
+    state_from_numpy({**fields, "board": words}, ct, "cpu", seed=0, state_impl="packed")
+
+
+@pytest.mark.parametrize("preset", ["default", "woodoku"])
+def test_state_from_numpy_accepts_the_jax_engines_own_u8_state(preset):
+    cj, ct = jcfg.PRESETS[preset](), tcfg.PRESETS[preset]()
+    fields = _jax_u8_fields(cj)
+    assert fields["board"].dtype == np.uint8 and fields["board"].max() == 1
+    st = state_from_numpy(fields, ct, "cpu", seed=0, state_impl="u8")
+    np.testing.assert_array_equal(st.board.numpy(), fields["board"])

@@ -7,11 +7,11 @@ run the plain torch versions for CPU tensors.  A numpy emulation of each
 CUDA kernel's per-thread/per-warp logic, fed the very tables the wrappers
 hand to the kernels, closes the loop on the CPU (the kernels themselves
 run only on the card: ``chip_smoke.py`` and the ``gpu``-marked tests in
-test_torch_rollout.py).  The u8 mask and clear have two kernels each: the
-bit-row kernel on boards of at most 32 rows of at most 32 cells (every
-preset) and the general kernel, which the wrappers pick for any other
-board; ``wide40`` (8 rows of 40 cells) is such a board.  All outputs are
-integers or bools and must be bit-equal.
+test_torch_rollout.py).  Each u8 wrapper has two kernels: the bit-row
+kernel on boards of at most 32 rows of at most 32 cells (every preset) and
+the general kernel, which the wrappers pick for any other board;
+``wide40`` (8 rows of 40 cells) is such a board.  All outputs are integers
+or bools and must be bit-equal.
 """
 
 import inspect
@@ -36,7 +36,10 @@ from blockpuzzle_tpu_torch.kernels import (
     _build,
 )
 from blockpuzzle_tpu_torch.kernels.clear import line_cell_table, line_masks
-from blockpuzzle_tpu_torch.kernels.collision import piece_table
+from blockpuzzle_tpu_torch.kernels.collision import (
+    LEGALITY_WARPS, SHAPE_STRIDE, legality_launch_shape, legality_rows_table,
+    legality_smem_bytes, piece_table, rect_shapes,
+)
 from blockpuzzle_tpu_torch.kernels.mask import piece_rows_table
 from test_torch_packed import (
     U32, _ballot, _popc, _reduce, _shfl, _shl32, _small_div, _spread4, _warp_layout,
@@ -147,9 +150,10 @@ def emulate_apply_kernel(cfg, board, cover, valid):
 
 # --------------------------------------------------------------------------
 # numpy emulations of the bit-row kernels (csrc/mask.cu mask_rows_kernel,
-# csrc/clear.cu clear_rows_kernel, csrc/bit_rows.cuh), block by block; in a
-# block every lane of every warp at once, as (warps, 32) arrays, with the
-# warp helpers of test_torch_packed.py.  ``addr`` is the board's start
+# csrc/clear.cu clear_rows_kernel, csrc/collision.cu apply_rows_kernel,
+# csrc/legality.cu legality_rows_kernel, csrc/bit_rows.cuh), block by block;
+# in a block every lane of every warp at once, as (warps, 32) arrays, with
+# the warp helpers of test_torch_packed.py.  ``addr`` is an input's start
 # address mod 16: the staged loads take any start.
 # --------------------------------------------------------------------------
 
@@ -277,42 +281,86 @@ def emulate_mask_rows_kernel(cfg, board, queue, mk, addr=0):
     return out.reshape(n, s * hw).astype(bool)
 
 
+def _wide_div(q, d):
+    """bit_rows.cuh wide_div: the high word of q times floor(2^32 / d) + 1
+    (q itself for d = 1); equal to the integer quotient while q * d < 2^32."""
+    assert 0 <= q and q * d < 1 << 32 and 1 <= d <= 32
+    got = (q * (U32 // d + 1)) >> 32 if d > 1 else q
+    assert got == q // d
+    return got
+
+
+def emulate_store_span(rows, out, at, nbytes, width):
+    """bit_rows.cuh store_span: store_rows from any byte offset ``at`` of
+    the (16-byte aligned) output: the bytes up to the first boundary and the
+    ragged tail one by one, the vectors between from the staged words."""
+    head = min((16 - at % 16) % 16, nbytes)
+    nvec = (nbytes - head) // 16
+    for i in range(nvec):
+        q = head + 16 * i
+        assert (at + q) % 16 == 0                   # the uint4 stores' alignment
+        row = _wide_div(q, width)
+        col, got, bits = q - row * width, 0, 0
+        while got < 16:
+            assert rows[row] >= 0
+            bits |= (int(rows[row]) >> col) << got
+            got, row, col = got + width - col, row + 1, 0
+        vec = [_spread4(bits >> (4 * v)) for v in range(4)]
+        out[at + q : at + q + 16] = np.array(vec, "<u4").view(np.uint8)
+    for j in range(nbytes - 16 * nvec):
+        q = j if j < head else j + 16 * nvec
+        row = _wide_div(q, width)
+        assert rows[row] >= 0 and out[at + q] == 2  # written once
+        out[at + q] = (int(rows[row]) >> (q - row * width)) & 1
+
+
+def _block_layout(height, shape):
+    """bit_rows.cuh seat for every thread of a block of ``shape``'s warps:
+    (per_block, l, s, lane, base, segmask, seg), each (warps, 32) or (32,)."""
+    per_warp, warps = shape
+    _, l, sw, lane, base, segmask = _warp_layout(height)
+    seg = np.arange(warps)[:, None] * per_warp + sw
+    return warps * per_warp, l, sw, lane, base, segmask, seg
+
+
+def emulate_clear_segment(x, active, l, sw, lane, base, segmask, h, w, rs):
+    """bit_rows.cuh clear_segment: full rows by ballot, columns by an AND
+    over the segment, regions by band shuffles; k by popcounts.  Returns
+    the cleared words and k."""
+    full = (_shl32(1, w) - 1) & U32
+    rows_full = _ballot(active & (x == full)) & segmask
+    cols = _reduce(x, sw, np.bitwise_and)
+    k = _popc(rows_full) + _popc(cols)
+    reg = np.zeros_like(x)
+    if rs:
+        b0 = lane - lane % rs
+        whole = b0 + rs <= h
+        band = np.full_like(x, U32)
+        for t in range(rs):
+            band &= _shfl(x, np.where(whole, base + b0 + t, l))
+        tiles = np.zeros_like(x)
+        for t in range(0, w - rs + 1, rs):
+            tile = (((1 << rs) - 1) << t) & U32
+            hit = whole & ((band & tile) == tile)
+            reg |= np.where(hit, tile, 0)
+            tiles += hit & (lane == b0)
+        k = k + _reduce(tiles, sw, np.add)
+    return x & ~(np.where(x == full, full, 0) | cols | reg) & U32, k
+
+
 def emulate_clear_rows_kernel(cfg, board, ck, addr=0):
     """csrc/clear.cu clear_rows_kernel on ``ck``'s launch shape: a segment
-    of H lanes per env, lane = row word; full rows by ballot, columns by an
-    AND over the segment, regions by band shuffles; k by popcounts."""
+    of H lanes per env, lane = row word, through ``clear_segment``."""
     h, w, hw, n = cfg.height, cfg.width, cfg.num_cells, len(board)
     rs = cfg.region_size if cfg.region_clear else 0
-    per_warp, warps = ck.shape
-    per_block = warps * per_warp
-    _, l, sw, lane, base, segmask = _warp_layout(h)
-    tx = np.arange(warps * 32).reshape(warps, 32)
-    seg = tx // 32 * per_warp + sw
-    full = (_shl32(1, w) - 1) & U32
+    per_block, l, sw, lane, base, segmask, seg = _block_layout(h, ck.shape)
     out, ks = np.full(n * hw, 2, np.uint8), np.full(n, -1, np.int64)
     for first in range(0, n, per_block):
         count = min(per_block, n - first)
         buf, d = emulate_stage_bytes(board.reshape(-1), first * hw, (first + count) * hw, addr)
-        active = (sw < per_warp) & (seg < count)
+        active = (sw < ck.shape[0]) & (seg < count)
         x = np.where(active, emulate_pack_row(buf, d + seg * hw + lane * w, w, active), U32)
-        rows_full = _ballot(active & (x == full)) & segmask
-        cols = _reduce(x, sw, np.bitwise_and)
-        k = _popc(rows_full) + _popc(cols)
-        reg = np.zeros_like(x)
-        if rs:
-            b0 = lane - lane % rs
-            whole = b0 + rs <= h
-            band = np.full_like(x, U32)
-            for t in range(rs):
-                band &= _shfl(x, np.where(whole, base + b0 + t, l))
-            tiles = np.zeros_like(x)
-            for t in range(0, w - rs + 1, rs):
-                tile = (((1 << rs) - 1) << t) & U32
-                hit = whole & ((band & tile) == tile)
-                reg |= np.where(hit, tile, 0)
-                tiles += hit & (lane == b0)
-            k = k + _reduce(tiles, sw, np.add)
-        cleared = x & ~(np.where(x == full, full, 0) | cols | reg) & U32
+        cleared, k = emulate_clear_segment(x, active, l, sw, lane, base, segmask, h, w, rs)
         rows = np.full(per_block * h, -1, np.int64)
         rows[(seg * h + lane)[active]] = cleared[active]
         head = active & (lane == 0)
@@ -320,6 +368,90 @@ def emulate_clear_rows_kernel(cfg, board, ck, addr=0):
         emulate_store_rows(rows, out, first * hw, count * hw, w)
     assert (out < 2).all() and (ks >= 0).all()
     return out.reshape(n, hw), ks.astype(np.int32)
+
+
+def emulate_apply_rows_kernel(cfg, board, cover, valid, ak, addr=0, cover_addr=0):
+    """csrc/collision.cu apply_rows_kernel on ``ak``'s launch shape: both
+    spans staged (each at its own offset from a 16-byte boundary), a board
+    word and a cover word per lane, overlap by a ballot over the segment,
+    the placed word through ``clear_segment``; an illegal env keeps its
+    input word and k = 0."""
+    h, w, hw, n = cfg.height, cfg.width, cfg.num_cells, len(board)
+    rs = cfg.region_size if cfg.region_clear else 0
+    per_block, l, sw, lane, base, segmask, seg = _block_layout(h, ak.shape)
+    out = np.full(n * hw, 2, np.uint8)
+    ks, legals = np.full(n, -1, np.int64), np.full(n, -1, np.int64)
+    for first in range(0, n, per_block):
+        count = min(per_block, n - first)
+        lo, hi = first * hw, (first + count) * hw
+        boards, db = emulate_stage_bytes(board.reshape(-1), lo, hi, addr)
+        covers, dc = emulate_stage_bytes(cover.reshape(-1), lo, hi, cover_addr)
+        active = (sw < ak.shape[0]) & (seg < count)
+        ok = active & valid[first + np.where(active, seg, 0)]
+        at = seg * hw + lane * w
+        x = emulate_pack_row(boards, db + at, w, active)
+        y = emulate_pack_row(covers, dc + at, w, active)
+        overlap = _ballot((x & y) != 0) & segmask
+        legal = ok & (overlap == 0)
+        cleared, k = emulate_clear_segment(
+            np.where(active, x | y, U32), active, l, sw, lane, base, segmask, h, w, rs)
+        rows = np.full(per_block * h, -1, np.int64)
+        rows[(seg * h + lane)[active]] = np.where(legal, cleared, x)[active]
+        head = active & (lane == 0)
+        ks[first + seg[head]] = np.where(legal, k, 0)[head]
+        legals[first + seg[head]] = legal[head]
+        emulate_store_rows(rows, out, lo, count * hw, w)
+    assert (out < 2).all() and (ks >= 0).all() and (legals >= 0).all()
+    return out.reshape(n, hw), ks.astype(np.int32), legals.astype(bool)
+
+
+def emulate_legality_rows_kernel(cfg, board, lk, addr=0):
+    """csrc/legality.cu legality_rows_kernel on ``lk``'s piece table, shape
+    set and launch shape: a segment of H lanes per env, lane = anchor row;
+    each lane's smears S(rh, rw) for every shape in use into a table row of
+    blockDim + 8 words, then the piece loop: two table reads dr lanes below,
+    two shifts, the anchor column mask and the row test.  Table words that
+    the reading lane's warp did not write hold junk, as shared memory
+    would."""
+    h, w, hw, n = cfg.height, cfg.width, cfg.num_cells, len(board)
+    num_pieces, shapes = lk.num_pieces, lk.shapes
+    pieces = lk.piece_table.numpy().astype(np.int64) & U32
+    per_block, l, sw, lane, base, _, seg = _block_layout(h, lk.shape)
+    warps = lk.shape[1]
+    stride = 32 * warps + 8                         # blockDim + kPad
+    assert stride == SHAPE_STRIDE                   # what the piece table was built on
+    tx = np.arange(32 * warps).reshape(warps, 32)
+    nshapes = int(shapes).bit_count()
+    out = np.full(n * num_pieces * hw, 2, np.uint8)
+    for first in range(0, n, per_block):
+        count = min(per_block, n - first)
+        buf, d = emulate_stage_bytes(board.reshape(-1), first * hw, (first + count) * hw, addr)
+        active = (sw < lk.shape[0]) & (seg < count)
+        x = emulate_pack_row(buf, d + seg * hw + lane * w, w, active)
+        junk = np.random.default_rng(first).integers(0, 1 << 32, (warps, nshapes * stride))
+        stab = junk.copy()                          # warp i's view of the table: row i
+        below = np.zeros_like(x)
+        for rh in range(1, lk.max_h + 1):
+            below |= _shfl(x, l + rh - 1)
+            s = np.zeros_like(x)
+            for rw in range(1, lk.max_w + 1):
+                s |= below >> (rw - 1)
+                bit = 8 * (rh - 1) + rw - 1
+                if shapes >> bit & 1:
+                    row = int(shapes & ((1 << bit) - 1)).bit_count()
+                    for i in range(warps):
+                        stab[i, row * stride + tx[i]] = s[i]
+        rows = np.full(per_block * num_pieces * h, -1, np.int64)
+        for p in range(num_pieces):
+            ph, amask, r1, r2 = pieces[p]
+            blocked = np.stack([
+                stab[i, tx[i] + (r1 & 0xFFFF)] >> (r1 >> 16)
+                | stab[i, tx[i] + (r2 & 0xFFFF)] >> (r2 >> 16) for i in range(warps)])
+            legal = np.where(lane + ph <= h, ~blocked & amask, 0)
+            rows[((seg * num_pieces + p) * h + lane)[active]] = legal[active]
+        emulate_store_span(rows, out, first * num_pieces * hw, count * num_pieces * hw, w)
+    assert (out < 2).all()
+    return out.reshape(n, num_pieces, hw).astype(bool)
 
 
 @pytest.mark.parametrize("preset", U8_CASES)
@@ -363,13 +495,58 @@ def test_apply_matches_pallas_apply_kernel(preset, rng):
     want = jk.ApplyKernel(cj, tile_n=8)(
         jnp.asarray(board), jnp.asarray(cover), jnp.asarray(valid),
         interpret=True)
-    got = ApplyKernel(ct, "cpu")(
-        torch.as_tensor(board), torch.as_tensor(cover), torch.as_tensor(valid))
+    ak = ApplyKernel(ct, "cpu")
+    got = ak(torch.as_tensor(board), torch.as_tensor(cover), torch.as_tensor(valid))
     emu = emulate_apply_kernel(ct, board, cover, valid)
-    for w, g, e, name in zip(want, got, emu, ("board", "k", "legal")):
+    rows = emulate_apply_rows_kernel(ct, board, cover, valid, ak)
+    for w, g, e, r, name in zip(want, got, emu, rows, ("board", "k", "legal")):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), name)
         np.testing.assert_array_equal(e, np.asarray(w), name)
+        np.testing.assert_array_equal(r, np.asarray(w), name)
     assert int(np.asarray(want[1]).sum()) > 0  # the clear path ran
+
+
+@pytest.mark.parametrize("preset", U8_CASES)
+@pytest.mark.parametrize("n", [16, 11])
+def test_apply_kernels_match_pallas_apply_kernel(preset, n, rng):
+    """Against the Pallas kernel (interpret mode; the ragged N runs as one
+    tile of n).  Legal and illegal actions, invalid anchors, an action that
+    completes a row, a full and an empty board, a board holding a full 3x3
+    region crossed by a full row under a 1x1 placed beside them, and an
+    action that overlaps a board's full row (a strict no-op).  Both
+    kernels' emulations where the wrapper picks the bit-row kernel, the
+    general one's elsewhere."""
+    cj, ct = _pair(preset)
+    t = rules.tables_for(ct)
+    board, cover, valid = apply_inputs(ct, n, rng)
+    grid = board.reshape(n, ct.height, ct.width)
+    one = lambda r, c: (t.cover[r * ct.width + c], t.valid[r * ct.width + c])
+    grid[5] = 0
+    grid[5, 3:6, 3:6] = 1                    # a full 3x3 region ...
+    grid[5, 4, :] = 1                        # ... crossed by a full row;
+    cover[5], valid[5] = one(0, 0)           # the 1x1 lands clear of both
+    grid[6, 0, :] = 1                        # a full row 0 under the action
+    cover[6], valid[6] = one(0, 0)
+    board[n - 1], board[n - 2] = 1, 0        # full, empty
+    cover[n - 2], valid[n - 2] = one(2, 2)
+    want = [np.asarray(x) for x in jk.ApplyKernel(cj, tile_n=8 if n % 8 == 0 else n)(
+        jnp.asarray(board), jnp.asarray(cover), jnp.asarray(valid), interpret=True)]
+    ak = ApplyKernel(ct, "cpu")
+    got = ak(torch.as_tensor(board), torch.as_tensor(cover), torch.as_tensor(valid))
+    emus = [emulate_apply_kernel(ct, board, cover, valid)]
+    if ak.shape is not None:
+        emus.append(emulate_apply_rows_kernel(ct, board, cover, valid, ak))
+    for i, name in enumerate(("board", "k", "legal")):
+        np.testing.assert_array_equal(got[i].numpy(), want[i], name)
+        for emu in emus:
+            np.testing.assert_array_equal(emu[i], want[i], name)
+    new_board, k, legal = want
+    assert legal[5] and k[5] == 1 + bool(ct.region_clear)
+    assert not legal[6] and k[6] == 0 and (new_board[6] == board[6]).all()
+    assert not legal[n - 1] and k[n - 1] == 0 and new_board[n - 1].all()
+    assert legal[n - 2] and new_board[n - 2].sum() == 1
+    assert legal[3] and k[3] >= 1 and not new_board[3].reshape(grid.shape[1:])[4].any()
+    assert (ak.launches, ak.general_launches) == (0, 0)
 
 
 @pytest.mark.parametrize("preset", U8_CASES)
@@ -423,7 +600,36 @@ def test_legality_matches_pallas_legality_kernel(preset, rng):
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(np.asarray(engine), want)
     np.testing.assert_array_equal(emulate_legality_kernel(ct, board), want)
+    np.testing.assert_array_equal(emulate_legality_rows_kernel(ct, board, lk), want)
     assert 0 < want.mean() < 1 and lk.launches == 0
+
+
+@pytest.mark.parametrize("preset", U8_CASES + ["mini5"])
+@pytest.mark.parametrize("n", [16, 11])
+def test_legality_kernels_match_pallas_legality_kernel(preset, n, rng):
+    """Against the Pallas kernel (interpret mode, 128-lane action tiles; a
+    ragged N takes the JAX wrapper's reference) with a full and an empty
+    board, whose rows are the pieces' in-bounds anchors; ``mini5`` is
+    another piece set (P = 5, pieces of at most 2 rows and columns).  Both
+    kernels' emulations where the wrapper picks the bit-row kernel, the
+    general one's elsewhere."""
+    if preset == "mini5":
+        cj, ct = jcfg.EnvConfig(piece_set="mini5"), tcfg.EnvConfig(piece_set="mini5")
+    else:
+        cj, ct = _pair(preset)
+    board = random_boards(ct, n, rng, fill=0.3)
+    board[n - 1], board[n - 2] = 1, 0                       # full, empty
+    want = np.asarray(jk.LegalityKernel(cj, tile_n=8, tile_a=128)(
+        jnp.asarray(board), interpret=True))
+    lk = LegalityKernel(ct, "cpu")
+    np.testing.assert_array_equal(lk(torch.as_tensor(board)).numpy(), want)
+    np.testing.assert_array_equal(emulate_legality_kernel(ct, board), want)
+    if lk.shape is not None:
+        np.testing.assert_array_equal(emulate_legality_rows_kernel(ct, board, lk), want)
+    t = rules.tables_for(ct)
+    assert not want[n - 1].any()
+    np.testing.assert_array_equal(want[n - 2].reshape(-1), t.valid)
+    assert 0 < want.mean() < 1 and (lk.launches, lk.general_launches) == (0, 0)
 
 
 def test_apply_illegal_is_noop_even_with_full_line():
@@ -437,12 +643,15 @@ def test_apply_illegal_is_noop_even_with_full_line():
     want = jk.ApplyKernel(cj, tile_n=8)(
         jnp.asarray(board), jnp.asarray(cover), jnp.asarray(valid),
         interpret=True)
-    nb, k, legal = ApplyKernel(ct, "cpu")(
+    ak = ApplyKernel(ct, "cpu")
+    nb, k, legal = ak(
         torch.as_tensor(board), torch.as_tensor(cover), torch.as_tensor(valid))
     assert not legal.any() and int(k.sum()) == 0
     np.testing.assert_array_equal(nb.numpy(), board)
-    for w, g in zip(want, (nb, k, legal)):
+    rows = emulate_apply_rows_kernel(ct, board, cover, valid, ak)
+    for w, g, r in zip(want, (nb, k, legal), rows):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        np.testing.assert_array_equal(r, np.asarray(w))
 
 
 @pytest.mark.parametrize("case", ["default", "big", "mini5"])
@@ -513,6 +722,16 @@ def test_wrappers_never_fall_back_off_cpu():
     for k in (ClearScanKernel(cfg, "cpu"), LegalityKernel(cfg, "cpu")):
         with pytest.raises(ValueError, match="kernel tables on cpu"):
             k(board)
+    with pytest.raises(ValueError, match="kernel tables on cpu"):
+        ApplyKernel(cfg, "cpu")(board, board, torch.ones(4, dtype=torch.bool, device=meta))
+    # the same on a board that takes the general apply and legality
+    wide = tcfg.EnvConfig(**WIDE40)
+    board = torch.zeros(4, wide.num_cells, dtype=torch.uint8, device=meta)
+    assert ApplyKernel(wide, meta).shape is None and LegalityKernel(wide, meta).shape is None
+    with pytest.raises(ValueError, match="no apply kernel"):
+        ApplyKernel(wide, meta)(board, board, torch.ones(4, dtype=torch.bool, device=meta))
+    with pytest.raises(ValueError, match="no legality kernel"):
+        LegalityKernel(wide, meta)(board)
 
 
 @pytest.mark.parametrize("wrapper", [
@@ -538,28 +757,41 @@ def test_wrappers_default_to_the_card(wrapper, monkeypatch):
 
 @pytest.mark.parametrize("case", ["default", "tenten", "woodoku", "big", "wide40", "tall33"])
 def test_u8_wrappers_pick_their_kernel_by_shape(case):
-    """The bit-row mask and clear where H <= 32 and W <= 32, with B7's
-    launch shape and the rectangle piece table; the general kernels, with
-    the per-cell piece table, on a board wider or taller than that."""
+    """The bit-row mask, clear, apply and legality where H <= 32 and
+    W <= 32: the first three with B7's launch shape, the mask with the
+    rectangle piece table, the legality with four warps a block, its own
+    table and a block that fits a plain launch's shared memory; the general
+    kernels, with the per-cell piece table, on a board wider or taller than
+    that."""
     cfg = (tcfg.EnvConfig(height=33, width=9) if case == "tall33"
            else _pair(case)[1])
     mk, ck = MaskKernel(cfg, "cpu"), ClearScanKernel(cfg, "cpu")
+    ak, lk = ApplyKernel(cfg, "cpu"), LegalityKernel(cfg, "cpu")
     rows = cfg.height <= 32 and cfg.width <= 32
-    assert (mk.shape is not None, ck.shape is not None) == (rows, rows)
+    assert [k.shape is not None for k in (mk, ck, ak, lk)] == [rows] * 4
+    assert lk.shape == legality_launch_shape(cfg)
     if rows:
-        assert mk.shape == ck.shape == PackedMaskKernel(cfg, "cpu").shape
+        assert mk.shape == ck.shape == ak.shape == PackedMaskKernel(cfg, "cpu").shape
         np.testing.assert_array_equal(mk.piece_table.numpy(), piece_rows_table(cfg))
+        assert lk.shape == (32 // cfg.height, LEGALITY_WARPS)
+        np.testing.assert_array_equal(lk.piece_table.numpy(), legality_rows_table(cfg))
+        per_block = lk.shape[0] * lk.shape[1]
+        assert legality_smem_bytes(cfg, per_block) <= 48 * 1024
+        # a block's byte offsets times W stay under 2^32 (store_span's division)
+        assert per_block * lk.num_pieces * cfg.num_cells * cfg.width < 1 << 32
     else:
         np.testing.assert_array_equal(mk.piece_table.numpy(), piece_table(cfg))
+        np.testing.assert_array_equal(lk.piece_table.numpy(), piece_table(cfg))
 
 
 @pytest.mark.parametrize("preset", ["tenten", "woodoku", "big"])
 @pytest.mark.parametrize("addr", [3, 8, 13])
 def test_bit_row_emulations_take_any_board_address(preset, addr):
     """Boards that start off a 16-byte boundary: every block stages an
-    unaligned head and tail byte by byte, and both bit-row kernels'
+    unaligned head and tail byte by byte, and the four bit-row kernels'
     emulations still equal the plain versions (the last block short of
-    its env-slots at N = 13)."""
+    its env-slots at N = 13).  The apply's cover starts at another offset
+    than its board."""
     _, ct = _pair(preset)
     n, r = 13, np.random.default_rng(addr)
     board = random_boards(ct, n, r, fill=0.5)
@@ -572,6 +804,16 @@ def test_bit_row_emulations_take_any_board_address(preset, addr):
                                   mk(tb, tq).numpy())
     for e, p in zip(emulate_clear_rows_kernel(ct, board, ck, addr), ck(tb)):
         np.testing.assert_array_equal(e, p.numpy())
+    ak, lk = ApplyKernel(ct, "cpu"), LegalityKernel(ct, "cpu")
+    _, cover, valid = apply_inputs(ct, n, r)
+    want = ak(tb, torch.as_tensor(cover), torch.as_tensor(valid))
+    assert want[2].any() and not want[2].all()
+    for cover_addr in (addr, (addr + 7) % 16):
+        emu = emulate_apply_rows_kernel(ct, board, cover, valid, ak, addr, cover_addr)
+        for e, p in zip(emu, want):
+            np.testing.assert_array_equal(e, p.numpy())
+    np.testing.assert_array_equal(emulate_legality_rows_kernel(ct, board, lk, addr),
+                                  lk(tb).numpy())
 
 
 def test_bit_row_piece_table_rebuilds_every_footprint():
@@ -589,3 +831,30 @@ def test_bit_row_piece_table_rebuilds_every_footprint():
                 assert dr + rh <= h and dc + rw <= w
                 grid[dr : dr + rh, dc : dc + rw] = 1
             np.testing.assert_array_equal(grid, t.pieces[p])
+
+
+@pytest.mark.parametrize("case", ["default", "big", "mini5"])
+def test_legality_rows_table_rebuilds_every_footprint(case):
+    """``legality_rows_table``'s rectangles, read back through
+    ``rect_shapes``' rows, cover exactly each piece's cells; its column mask
+    keeps the anchors whose bounding box fits the row."""
+    cfg = (tcfg.EnvConfig(piece_set="mini5") if case == "mini5"
+           else tcfg.PRESETS[case]())
+    t = rules.tables_for(cfg)
+    shapes = rect_shapes(cfg)
+    by_row = [divmod(b, 8) for b in range(64) if shapes >> b & 1]
+    stride = SHAPE_STRIDE
+    table = legality_rows_table(cfg).view(np.uint32)
+    assert table.shape == (t.num_pieces, 4) and len(by_row) <= t.max_h * t.max_w
+    for p in range(t.num_pieces):
+        h, amask = int(table[p, 0]), int(table[p, 1])
+        assert h == t.piece_h[p]
+        assert amask == (1 << max(cfg.width - t.piece_w[p] + 1, 0)) - 1
+        grid = np.zeros((t.max_h, t.max_w), np.uint8)
+        for rect in table[p, 2:]:
+            row, dr = divmod(int(rect) & 0xFFFF, stride)
+            dc = int(rect) >> 16
+            rh, rw = by_row[row][0] + 1, by_row[row][1] + 1
+            assert dr + rh <= h and dc + rw <= t.piece_w[p] and dr < 8
+            grid[dr : dr + rh, dc : dc + rw] = 1
+        np.testing.assert_array_equal(grid, t.pieces[p])

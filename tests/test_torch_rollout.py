@@ -8,6 +8,8 @@ tests/test_torch_rollout.py``.  Everything compared is integer or bool
 and must be bit-equal.
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -48,8 +50,47 @@ def test_rollout_cli_runs_and_is_deterministic(capsys):
     first, second = capsys.readouterr().out.strip().splitlines()
     drop_rate = lambda line: [f for f in line.split("|") if "steps/s" not in f]
     assert drop_rate(first) == drop_rate(second)
-    assert first.startswith("240 env-steps (chunks of 30)")
+    # --steps 30 runs one measured chunk of 100 steps, as the JAX CLI does
+    assert first.startswith("800 env-steps (chunks of 100)")
     assert first.endswith("device cpu")
+
+
+@pytest.mark.parametrize("steps, chunks", [(50, 1), (1, 1), (149, 1), (260, 3)])
+def test_rollout_cli_runs_the_jax_clis_chunks(steps, chunks, monkeypatch, capsys):
+    """Chunks of 100 steps always, ``max(round(steps / 100), 1)`` of them."""
+    asked = []
+
+    def fake(env, num_envs, chunk, n_chunks, seed):
+        asked.append((num_envs, chunk, n_chunks, seed))
+        return {"rates": [1.0] * n_chunks, "seconds": 2.0, "reward": 0.0,
+                "env_steps": n_chunks * chunk * num_envs, "episodes": 0,
+                "episode_return": 0.0}
+
+    monkeypatch.setattr(rollout_cli, "rollout", fake)
+    argv = ["--device", "cpu", "--num-envs", "4", "--steps", str(steps), "--seed", "9"]
+    assert rollout_cli.main(argv) == 0
+    assert asked == [(4, 100, chunks, 9)]
+    out = capsys.readouterr().out
+    assert out.startswith(f"{chunks * 400} env-steps (chunks of 100) | ")
+
+
+def test_rollout_cli_prints_the_cumulative_rate(monkeypatch, capsys):
+    """The printed rate is the env-steps of all timed chunks over their
+    summed wall time (the JAX CLI's ``Throughput``), not the median of the
+    chunk rates: with chunk times 1 s, 1 s and 8 s the two differ."""
+    times = iter([0.0,                           # the warm-up chunk's start
+                  10.0, 11.0, 20.0, 21.0, 30.0, 38.0])
+    env = make_env(PRESETS["default"](), device="cpu")
+    clock = types.SimpleNamespace(perf_counter=lambda: next(times))
+    monkeypatch.setattr(rollout_cli, "time", clock)  # the CLI's clock only
+    r = rollout_cli.rollout(env, 4, 2, 3, seed=0)
+    assert r["rates"] == [8.0, 8.0, 1.0] and r["seconds"] == 10.0
+    assert r["env_steps"] == 24
+    line = rollout_cli.summary_line({**r, "env_steps": 24_000_000}, 2, "cpu")
+    assert "| 2.40M steps/s steady |" in line    # the median would print 8.00M
+    monkeypatch.undo()
+    assert rollout_cli.main(["--device", "cpu", "--num-envs", "4", "--steps", "50"]) == 0
+    assert capsys.readouterr().out.startswith("400 env-steps (chunks of 100) | ")
 
 
 def test_rollout_function_same_seed_same_state():
@@ -194,8 +235,9 @@ def test_sampler_picks_legal_actions_uniformly():
 @pytest.mark.gpu
 @pytest.mark.parametrize("preset", ["default", "tenten", "woodoku", "big", "wide40"])
 def test_kernels_match_plain_versions_on_the_card(preset, cuda_device):
-    """The u8 kernels against their plain versions: the bit-row mask and
-    clear on the presets, the general ones on a board of 8 rows of 40
+    """The u8 kernels against their plain versions at the rollout's N and
+    at N - 1 (a ragged last block): the bit-row mask, clear, apply and
+    legality on the presets, the general ones on a board of 8 rows of 40
     cells (too wide for a row word)."""
     from blockpuzzle_tpu_torch import rules
     from blockpuzzle_tpu_torch.config import EnvConfig
@@ -205,58 +247,86 @@ def test_kernels_match_plain_versions_on_the_card(preset, cuda_device):
 
     cfg = EnvConfig(height=8, width=40) if preset == "wide40" else PRESETS[preset]()
     t = rules.tables_for(cfg)
-    r = np.random.default_rng(0)
-    n = 4099                                         # ragged
-    board = (r.random((n, cfg.num_cells)) < 0.35).astype(np.uint8)
-    board.reshape(n, cfg.height, cfg.width)[::5, 2, :] = 1
-    board.reshape(n, cfg.height, cfg.width)[1::5, 3:6, 3:6] = 1
-    queue = r.integers(0, t.num_pieces + 1, (n, cfg.queue_size)).astype(np.int32)
-    g = r.integers(0, t.cover.shape[0], n)
-    board, queue, cover, valid = (torch.as_tensor(x, device=cuda_device)
-                                  for x in (board, queue, t.cover[g], t.valid[g]))
     mk, ak = MaskKernel(cfg, cuda_device), ApplyKernel(cfg, cuda_device)
     ck, lk = ClearScanKernel(cfg, cuda_device), LegalityKernel(cfg, cuda_device)
-    assert torch.equal(mk(board, queue), mk.plain(board, queue))
-    for o, p in zip(ak(board, cover, valid), ak.plain(board, cover, valid)):
-        assert torch.equal(o, p)
-    for o, p in zip(ck(board), ck.plain(board)):
-        assert torch.equal(o, p)
-    assert torch.equal(lk(board), lk.plain(board))
+    sizes = (49152, 49151)
+    for n in sizes:
+        r = np.random.default_rng(n)
+        board = (r.random((n, cfg.num_cells)) < 0.35).astype(np.uint8)
+        grid = board.reshape(n, cfg.height, cfg.width)
+        grid[::5, 2, :] = 1
+        grid[1::5, 3:6, 3:6] = 1
+        grid[2::5, 4, :] = 1                         # row 4 full but its
+        grid[2::5, 4, 0] = 0                         # first cell
+        queue = r.integers(0, t.num_pieces + 1, (n, cfg.queue_size)).astype(np.int32)
+        g = r.integers(0, t.cover.shape[0], n)
+        g[2::5] = 4 * cfg.width                      # 1x1 at (4, 0): clears
+        board, queue, cover, valid = (torch.as_tensor(x, device=cuda_device)
+                                      for x in (board, queue, t.cover[g], t.valid[g]))
+        assert torch.equal(mk(board, queue), mk.plain(board, queue))
+        outs = ak(board, cover, valid)
+        for o, p in zip(outs, ak.plain(board, cover, valid)):
+            assert torch.equal(o, p)
+        assert int(outs[1].sum()) > 0 and bool(outs[2].any()) and not bool(outs[2].all())
+        for o, p in zip(ck(board), ck.plain(board)):
+            assert torch.equal(o, p)
+        legal_all = lk(board)
+        assert torch.equal(legal_all, lk.plain(board))
+        assert 0 < float(legal_all.float().mean()) < 1
     torch.cuda.synchronize()
     rows = preset != "wide40"
-    assert (mk.launches, mk.general_launches) == (rows, not rows)
-    assert (ck.launches, ck.general_launches) == (rows, not rows)
-    assert (ak.launches, lk.launches) == (1, 1)
+    want = (len(sizes) * rows, len(sizes) * (not rows))
+    for k in (mk, ak, ck, lk):
+        assert (k.launches, k.general_launches) == want
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("offset", [0, 3, 8])
+@pytest.mark.parametrize("offset", [0, 3, 8, 13])
 def test_bit_row_kernels_take_an_unaligned_board_on_the_card(offset, cuda_device):
     """Boards that start ``offset`` bytes past a 16-byte boundary: the
-    bit-row mask and clear stage an unaligned head and tail byte by byte
-    and still equal their plain versions."""
+    bit-row mask, clear, apply and legality stage an unaligned head and
+    tail byte by byte and still equal their plain versions.  The apply's
+    cover starts at another offset than its board.  Woodoku's legality
+    blocks also start their output spans off a boundary (P*H*W = 1539)."""
     from blockpuzzle_tpu_torch import rules
-    from blockpuzzle_tpu_torch.kernels import ClearScanKernel, MaskKernel
+    from blockpuzzle_tpu_torch.kernels import (
+        ApplyKernel, ClearScanKernel, LegalityKernel, MaskKernel,
+    )
 
-    cfg = PRESETS["tenten"]()
-    n, hw = 4099, cfg.num_cells
-    r = np.random.default_rng(offset)
-    cells = (r.random((n, cfg.height, cfg.width)) < 0.5).astype(np.uint8)
-    cells[::3, 4, :] = 1
-    num_pieces = rules.tables_for(cfg).num_pieces
-    queue = torch.as_tensor(
-        r.integers(0, num_pieces + 1, (n, cfg.queue_size)).astype(np.int32),
-        device=cuda_device)
-    store = torch.zeros(n * hw + 16, dtype=torch.uint8, device=cuda_device)
-    board = store[offset : offset + n * hw].view(n, hw)
-    board.copy_(torch.as_tensor(cells.reshape(n, hw), device=cuda_device))
-    assert board.data_ptr() % 16 == offset
-    mk, ck = MaskKernel(cfg, cuda_device), ClearScanKernel(cfg, cuda_device)
-    assert torch.equal(mk(board, queue), mk.plain(board, queue))
-    for o, p in zip(ck(board), ck.plain(board)):
-        assert torch.equal(o, p)
-    torch.cuda.synchronize()
-    assert (mk.launches, ck.launches) == (1, 1)
+    def placed(cells, at):
+        """``cells`` (n, hw) on the card, starting ``at`` bytes past a
+        16-byte boundary."""
+        store = torch.zeros(cells.size + 16, dtype=torch.uint8, device=cuda_device)
+        out = store[at : at + cells.size].view(cells.shape)
+        out.copy_(torch.as_tensor(cells, device=cuda_device))
+        assert out.data_ptr() % 16 == at
+        return out
+
+    for preset in ("tenten", "woodoku"):
+        cfg = PRESETS[preset]()
+        t = rules.tables_for(cfg)
+        n, hw = 4099, cfg.num_cells
+        r = np.random.default_rng(offset)
+        cells = (r.random((n, cfg.height, cfg.width)) < 0.5).astype(np.uint8)
+        cells[::3, 4, :] = 1
+        queue = torch.as_tensor(
+            r.integers(0, t.num_pieces + 1, (n, cfg.queue_size)).astype(np.int32),
+            device=cuda_device)
+        g = r.integers(0, t.cover.shape[0], n)
+        board = placed(cells.reshape(n, hw), offset)
+        cover = placed(t.cover[g], (offset + 7) % 16)
+        valid = torch.as_tensor(t.valid[g], device=cuda_device)
+        mk, ck = MaskKernel(cfg, cuda_device), ClearScanKernel(cfg, cuda_device)
+        ak, lk = ApplyKernel(cfg, cuda_device), LegalityKernel(cfg, cuda_device)
+        assert torch.equal(mk(board, queue), mk.plain(board, queue))
+        for o, p in zip(ck(board), ck.plain(board)):
+            assert torch.equal(o, p)
+        for o, p in zip(ak(board, cover, valid), ak.plain(board, cover, valid)):
+            assert torch.equal(o, p)
+        assert torch.equal(lk(board), lk.plain(board))
+        torch.cuda.synchronize()
+        assert [k.launches for k in (mk, ck, ak, lk)] == [1] * 4
+        assert [k.general_launches for k in (mk, ck, ak, lk)] == [0] * 4
 
 
 @pytest.mark.gpu
