@@ -25,7 +25,7 @@ import torch
 
 from blockpuzzle_tpu_torch.config import PRESETS, cli_env_config
 from blockpuzzle_tpu_torch.env import VecBlockPuzzle, make_env
-from blockpuzzle_tpu_torch.sampler import UniformLegalSampler
+from blockpuzzle_tpu_torch.sampler import UniformLegalSampler, WordsSampler
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -82,17 +82,28 @@ def _sync(device: torch.device) -> None:
 
 
 def rollout(
-    env: VecBlockPuzzle, num_envs: int, chunk: int, chunks: int, seed: int
+    env: VecBlockPuzzle, num_envs: int, chunk: int, chunks: int, seed: int,
+    sampler: str = "argmax",
 ) -> Dict:
     """Uniform-legal rollout: one warm-up chunk, then ``chunks`` timed
     chunks of ``chunk`` steps, each ending in a device synchronize.
 
+    ``sampler`` is the JAX bench's ``BP_BENCH_SAMPLER``: ``"argmax"``
+    (``UniformLegalSampler`` on the step's bool mask) or ``"words"``
+    (``WordsSampler`` on the state's legal words; packed engines only).
     Returns the final state, the per-chunk env-steps/s of the timed chunks,
     their summed wall time and totals over them (reward, finished episodes
     and their returns)."""
     dev = env.device
     state, ts = env.init(seed, num_envs)
-    sampler = UniformLegalSampler(seed + 1, num_envs, dev)
+    if sampler == "argmax":
+        draw = UniformLegalSampler(seed + 1, num_envs, dev)
+        policy = lambda state, mask: draw(mask)
+    elif sampler == "words":
+        draw = WordsSampler(seed + 1, num_envs, dev)
+        policy = lambda state, mask: draw(env, state.board, state.queue)
+    else:
+        raise ValueError(f"unknown sampler {sampler!r}")
     mask = ts.action_mask
     zero = torch.zeros((), dtype=torch.float64, device=dev)
     totals = [zero, zero, zero]        # reward, episode returns, episodes
@@ -101,7 +112,7 @@ def rollout(
         _sync(dev)
         t0 = time.perf_counter()
         for _ in range(chunk):
-            state, ts = env.step(state, sampler(mask))
+            state, ts = env.step(state, policy(state, mask))
             mask = ts.action_mask
             if i:
                 done = ts.done

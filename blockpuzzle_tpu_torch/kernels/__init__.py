@@ -6,7 +6,8 @@ card, it raises).  For CPU tensors it runs the plain version; for CUDA
 tensors it launches its kernel (built from ``csrc/`` at first use) or
 raises, and counts each launch in its ``launches`` attribute, a plain int
 (the four u8 wrappers count their general kernels in
-``general_launches``).
+``general_launches``, the packed mask its words entry in
+``words_launches``).
 """
 
 from blockpuzzle_tpu_torch.kernels.clear import ClearScanKernel, clear_plain
@@ -21,6 +22,7 @@ from blockpuzzle_tpu_torch.kernels.packed import (
     PackedApplyKernel,
     PackedMaskKernel,
     packed_apply_plain,
+    packed_legal_words_plain,
     packed_mask_plain,
 )
 
@@ -28,5 +30,5 @@ __all__ = [
     "ApplyKernel", "ClearScanKernel", "LegalityKernel", "MaskKernel",
     "PackedApplyKernel", "PackedMaskKernel",
     "apply_plain", "clear_plain", "legality_plain", "mask_plain",
-    "packed_apply_plain", "packed_mask_plain",
+    "packed_apply_plain", "packed_legal_words_plain", "packed_mask_plain",
 ]

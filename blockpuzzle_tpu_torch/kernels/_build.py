@@ -41,6 +41,7 @@ SIGNATURES = {
     "bp_legality_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _U64, _I, _I, _P],
     "bp_packed_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "bp_packed_mask": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "bp_packed_words": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

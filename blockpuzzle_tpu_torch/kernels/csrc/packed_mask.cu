@@ -1,7 +1,10 @@
-// Hand action mask from packed board words.  No Pallas source: the JAX
-// package runs this in jnp, as `_bitboard_legal_slots` and
+// Hand action mask from packed board words, with a second entry that gives
+// the same legality as row words.  No Pallas source: the JAX package runs
+// the mask in jnp, as `_bitboard_legal_slots` and
 // `_bitboard_mask_from_words` (blockpuzzle_tpu/env/core.py:489,541), the
-// mask of its packed engine.  The plain version is `packed_mask_plain`
+// mask of its packed engine, and the words as `legal_words`
+// (blockpuzzle_tpu/env/words.py:78), the serving sampler's input.  The
+// plain versions are `packed_mask_plain` and `packed_legal_words_plain`
 // (kernels/packed.py).
 //
 // What it computes: anchor (r, c) of hand slot s is legal iff the slot
@@ -49,10 +52,18 @@
 // assembles 16 consecutive output bits from the (at most three) rows they
 // fall in, spreads each 4 bits into 4 bytes with one multiply, and stores
 // the 16 bytes with one `uint4` store; the ragged tail goes byte by byte.
-// Every lane runs every shuffle and barrier.  The small quotients (lane /
-// H, byte / W, both below 2^14) are a float multiply by the reciprocal:
-// (q + 1/2) / d lies at least 1/(2d) >= 1/64 from an integer, and the
-// rounding error is below 2^-9.
+// Every lane runs every shuffle and barrier.
+//
+// The words entry (`packed_words_kernel`) shares the per-lane legality
+// (`legal_row_bits`) and stores each lane's row word as it is, one int64 at
+// out[es * H + lane]: a warp's stores are one contiguous span, and there is
+// no shared memory and no barrier.  Its bound is device memory too: per env
+// H int64 words and S int32 ids in, S*H int64 words out, 164 B on the
+// default preset, 8.06 MB at N = 49152, 2.41 us at 3.35 TB/s.
+//
+// The small quotients (lane / H, byte / W, both below 2^14) are a float
+// multiply by the reciprocal: (q + 1/2) / d lies at least 1/(2d) >= 1/64
+// from an integer, and the rounding error is below 2^-9.
 
 #include <climits>
 #include <cstdint>
@@ -61,6 +72,7 @@
 namespace {
 
 constexpr int kMaxWarps = 16;  // kernels/packed.py mask_block_warps
+constexpr int kWordsWarps = 4;  // warps a block of the words kernel
 constexpr unsigned kAll = 0xffffffffu;
 
 // q / d for 0 <= q < 2^14, 1 <= d <= 32, given inv = __frcp_rn(d)
@@ -73,24 +85,16 @@ __device__ __forceinline__ uint32_t spread4(uint32_t x) {
   return ((x & 0xfu) * 0x00204081u) & 0x01010101u;
 }
 
-__global__ void __launch_bounds__(kMaxWarps * 32)
-    packed_mask_kernel(const long long* __restrict__ words,
-                       const int32_t* __restrict__ queue,
-                       const uint32_t* __restrict__ prow,
-                       const int32_t* __restrict__ piece_w,
-                       uint8_t* __restrict__ out, int total, int height,
-                       int width, int slots, int num_pieces, int nwords,
-                       int fpw, int per_warp) {
-  // legal bits of the block's rows: E*H <= kMaxWarps*32 rows
-  __shared__ uint32_t rows[kMaxWarps * 32];
-  const int l = threadIdx.x % 32;
-  const int s = small_div(l, __frcp_rn(static_cast<float>(height)));  // per_warp: left over
-  const int lane = l - s * height;  // anchor row
-  const int seg = threadIdx.x / 32 * per_warp + s;  // env-slot in the block
-  const int per_block = blockDim.x / 32 * per_warp;
-  const int first = blockIdx.x * per_block;
-  const int es = first + seg;  // env * slots + slot
-  const bool active = s < per_warp && es < total;
+// Legal bits of anchor row `lane` of env-slot `es` (bit c: anchor (lane, c)
+// is legal), 0 where the lane is not `active`.  Lane `l` of the warp holds
+// row `lane` of its segment; every lane of the warp must call it (it
+// shuffles).  The mask and the words kernels both call it, so the two
+// entries cannot drift apart.
+__device__ __forceinline__ uint32_t legal_row_bits(
+    const long long* __restrict__ words, const int32_t* __restrict__ queue,
+    const uint32_t* __restrict__ prow, const int32_t* __restrict__ piece_w,
+    int es, bool active, int l, int lane, int height, int width, int slots,
+    int num_pieces, int nwords, int fpw) {
   const uint32_t full = width < 32 ? (1u << width) - 1u : kAll;
   uint32_t x = full;
   int pid = -1;
@@ -116,11 +120,33 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
       }
     }
   }
-  if (active) {  // bit c: anchor (lane, c) is legal
-    rows[seg * height + lane] =
-        pw <= width
-            ? ~blocked & ((width - pw + 1 < 32 ? 1u << (width - pw + 1) : 0u) - 1u)
-            : 0u;
+  return pw <= width
+             ? ~blocked & ((width - pw + 1 < 32 ? 1u << (width - pw + 1) : 0u) - 1u)
+             : 0u;
+}
+
+__global__ void __launch_bounds__(kMaxWarps * 32)
+    packed_mask_kernel(const long long* __restrict__ words,
+                       const int32_t* __restrict__ queue,
+                       const uint32_t* __restrict__ prow,
+                       const int32_t* __restrict__ piece_w,
+                       uint8_t* __restrict__ out, int total, int height,
+                       int width, int slots, int num_pieces, int nwords,
+                       int fpw, int per_warp) {
+  // legal bits of the block's rows: E*H <= kMaxWarps*32 rows
+  __shared__ uint32_t rows[kMaxWarps * 32];
+  const int l = threadIdx.x % 32;
+  const int s = small_div(l, __frcp_rn(static_cast<float>(height)));  // per_warp: left over
+  const int lane = l - s * height;  // anchor row
+  const int seg = threadIdx.x / 32 * per_warp + s;  // env-slot in the block
+  const int per_block = blockDim.x / 32 * per_warp;
+  const int first = blockIdx.x * per_block;
+  const int es = first + seg;  // env * slots + slot
+  const bool active = s < per_warp && es < total;
+  const uint32_t bits = legal_row_bits(words, queue, prow, piece_w, es, active, l, lane,
+                                       height, width, slots, num_pieces, nwords, fpw);
+  if (active) {
+    rows[seg * height + lane] = bits;
   }
   __syncthreads();
   const int left = total - first;
@@ -143,6 +169,30 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   for (int q = nvec * 16 + threadIdx.x; q < bytes; q += blockDim.x) {
     const int row = small_div(q, inv_w);
     o[q] = (rows[row] >> (q - row * width)) & 1u;
+  }
+}
+
+// The words entry: the same legal bits, stored as they are, one int64 word
+// per (env-slot, row) at out[es * H + lane].  A warp's segments are
+// consecutive env-slots, so its stores are one contiguous span; there is
+// no shared memory and no barrier.
+__global__ void __launch_bounds__(kWordsWarps * 32)
+    packed_words_kernel(const long long* __restrict__ words,
+                        const int32_t* __restrict__ queue,
+                        const uint32_t* __restrict__ prow,
+                        const int32_t* __restrict__ piece_w,
+                        long long* __restrict__ out, int total, int height,
+                        int width, int slots, int num_pieces, int nwords, int fpw,
+                        int per_warp) {
+  const int l = threadIdx.x % 32;
+  const int s = small_div(l, __frcp_rn(static_cast<float>(height)));  // per_warp: left over
+  const int lane = l - s * height;  // anchor row
+  const int es = (blockIdx.x * kWordsWarps + threadIdx.x / 32) * per_warp + s;
+  const bool active = s < per_warp && es < total;
+  const uint32_t bits = legal_row_bits(words, queue, prow, piece_w, es, active, l, lane,
+                                       height, width, slots, num_pieces, nwords, fpw);
+  if (active) {
+    out[static_cast<long long>(es) * height + lane] = bits;
   }
 }
 
@@ -171,6 +221,31 @@ extern "C" int bp_packed_mask(const void* words, const void* queue,
         static_cast<const long long*>(words), static_cast<const int32_t*>(queue),
         static_cast<const uint32_t*>(prow), static_cast<const int32_t*>(piece_w),
         static_cast<uint8_t*>(out), static_cast<int>(total), height, width, slots,
+        num_pieces, nwords, fpw, per_warp);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The words entry: out (N, S*H) i64, word es*H + r holding the legal bits
+// of anchor row r of env-slot es; the other arguments as bp_packed_mask's,
+// with N*S < 2^31 - 2^9 (so that no thread's env-slot index overflows).
+extern "C" int bp_packed_words(const void* words, const void* queue,
+                               const void* prow, const void* piece_w,
+                               void* out, int n, int height, int width,
+                               int slots, int num_pieces, int nwords, int fpw,
+                               int per_warp, void* stream) {
+  const long long total = static_cast<long long>(n) * slots;
+  if (height < 1 || height > 32 || per_warp != 32 / height || width > 32 ||
+      total > INT_MAX - kWordsWarps * 32 * 4) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (total > 0) {
+    const int per_block = kWordsWarps * per_warp;
+    const int blocks = static_cast<int>((total + per_block - 1) / per_block);
+    packed_words_kernel<<<blocks, kWordsWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const long long*>(words), static_cast<const int32_t*>(queue),
+        static_cast<const uint32_t*>(prow), static_cast<const int32_t*>(piece_w),
+        static_cast<long long*>(out), static_cast<int>(total), height, width, slots,
         num_pieces, nwords, fpw, per_warp);
   }
   return static_cast<int>(cudaGetLastError());

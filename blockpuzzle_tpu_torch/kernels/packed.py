@@ -9,7 +9,8 @@ left shift of the plain versions is masked to 32 bits wherever JAX's uint32
 would wrap.
 
 These kernels have no Pallas source: the JAX package runs its packed step
-in jnp (``blockpuzzle_tpu/env/core.py``).
+in jnp (``blockpuzzle_tpu/env/core.py``) and its legal words in jnp
+(``blockpuzzle_tpu/env/words.py``).
 
 * ``PackedApplyKernel``: the chosen action's footprint words
   (``_cover_words``), the overlap test, the masked place and the
@@ -21,7 +22,8 @@ in jnp (``blockpuzzle_tpu/env/core.py``).
   slot holds a piece, ``c + piece_w <= W`` and, for every footprint word k,
   ``wks_k(r) & ((prow[pid][k] << c) & cmask[c]) == 0``, where ``wks_k(r)``
   ORs board rows ``r + k*fpw + j`` into field j and rows past the bottom
-  read as full.
+  read as full.  Its second entry, ``words``, gives the same legality as
+  (N, S*H) row words (``blockpuzzle_tpu/env/words.py`` ``legal_words``).
 
 ``bitboard_tables`` builds the footprint tables of both, as the JAX engine
 builds them.
@@ -141,9 +143,14 @@ def unpack_words(words: torch.Tensor, width: int) -> torch.Tensor:
     return ((words[:, :, None] >> shift) & 1).to(torch.uint8)
 
 
-def _popcount32(x: torch.Tensor) -> torch.Tensor:
-    shift = torch.arange(32, dtype=torch.int64, device=x.device)
-    return ((x[:, None] >> shift) & 1).sum(dim=1)
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int64 value in ``[0, 2**32)``, any shape: the SWAR
+    count (pairs, nibbles, bytes, then one multiply sums the four bytes
+    into the top one; the product stays below 2**57)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) >> 24) & 0xFF
 
 
 # ---------------------------------------------------------------------------
@@ -187,7 +194,7 @@ def clear_packed_plain(
     colbits = words[:, 0]
     for i in range(1, h):
         colbits = colbits & words[:, i]
-    k = full_row.sum(dim=1) + _popcount32(colbits)
+    k = full_row.sum(dim=1) + popcount32(colbits)
     clearbits = torch.where(full_row, full, 0) | colbits[:, None]
     if cfg.region_clear:
         rs = cfg.region_size
@@ -300,7 +307,7 @@ class PackedApplyKernel:
 # ---------------------------------------------------------------------------
 
 
-def packed_mask_plain(
+def _legal_slots_plain(
     words: torch.Tensor,
     queue: torch.Tensor,
     prow: torch.Tensor,
@@ -308,9 +315,10 @@ def packed_mask_plain(
     cmask: torch.Tensor,
     cfg: EnvConfig,
     max_h: int,
-) -> torch.Tensor:
-    """Plain torch version (``_bitboard_legal_slots`` with its mask);
-    returns (N, S*HW) bool, slot-major then row-major anchor.
+):
+    """Each hand slot's (N, H, W) bool anchor legality
+    (``_bitboard_legal_slots``), in slot order: the plain versions of the
+    bool mask and of the legal words both read it.
 
     ``prow``: (P + 1, nwords) int64 footprint words and ``piece_w``:
     (P + 1,) int64 widths, each with a zero row for the empty sentinel P;
@@ -331,7 +339,6 @@ def packed_mask_plain(
             wk = wk | ((padded[:, i : i + h] << (j * w)) & U32)
         wks.append(wk)
     cols = torch.arange(w, dtype=torch.int64, device=words.device)
-    masks = []
     for s in range(queue.shape[1]):
         pid = queue[:, s]
         idx = torch.where((pid >= 0) & (pid < num_pieces), pid, num_pieces).to(
@@ -342,19 +349,43 @@ def packed_mask_plain(
             shifted = ((pr[:, k : k + 1] << cols) & U32) & cmask       # (N, W)
             acc = acc | (wk[:, :, None] & shifted[:, None, :])
         ok_col = cols + pw[:, None] <= w                              # (N, W)
-        legal = (acc == 0) & ok_col[:, None, :] & (idx < num_pieces)[:, None, None]
-        masks.append(legal.reshape(n, h * w))
-    return torch.cat(masks, dim=1)
+        yield (acc == 0) & ok_col[:, None, :] & (idx < num_pieces)[:, None, None]
+
+
+def packed_mask_plain(words, queue, prow, piece_w, cmask, cfg: EnvConfig,
+                      max_h: int) -> torch.Tensor:
+    """Plain torch version (``_bitboard_legal_slots`` with its mask);
+    returns (N, S*HW) bool, slot-major then row-major anchor.  Arguments as
+    ``_legal_slots_plain``'s."""
+    n = words.shape[0]
+    return torch.cat(
+        [legal.reshape(n, -1) for legal in _legal_slots_plain(
+            words, queue, prow, piece_w, cmask, cfg, max_h)], dim=1)
+
+
+def packed_legal_words_plain(words, queue, prow, piece_w, cmask,
+                             cfg: EnvConfig, max_h: int) -> torch.Tensor:
+    """Plain torch version of the words entry (``env/words.py``
+    ``legal_words``): (N, S*H) int64 row words, bit c of word ``s*H + r``
+    set iff anchor (r, c) of slot s is legal, i.e. the bool mask packed a
+    row to a word.  Arguments as ``_legal_slots_plain``'s."""
+    return torch.cat(
+        [pack_words(legal) for legal in _legal_slots_plain(
+            words, queue, prow, piece_w, cmask, cfg, max_h)], dim=1)
 
 
 class PackedMaskKernel:
     """Config-bound packed hand mask on one device, the card unless asked
-    for another.
+    for another, with two entries over the same legality
+    (``csrc/packed_mask.cu``):
 
     ``__call__(words (N, H) int64, queue (N, S) int32) -> (N, S*HW) bool``,
-    in the order of ``MaskKernel``'s output.  For CPU tensors it runs
-    ``packed_mask_plain``; for CUDA tensors it launches the kernel
-    (``launches`` counts those launches) or raises.
+    in the order of ``MaskKernel``'s output, and ``words(words, queue) ->
+    (N, S*H) int64`` legal row words (``env/words.py`` ``legal_words``).
+    For CPU tensors each runs its plain version (``packed_mask_plain``,
+    ``packed_legal_words_plain``); for CUDA tensors it launches its kernel
+    or raises.  ``launches`` counts the mask kernel's launches,
+    ``words_launches`` the words kernel's.
     """
 
     def __init__(self, cfg: EnvConfig, device="cuda"):
@@ -366,6 +397,7 @@ class PackedMaskKernel:
         self.max_h = t.max_h
         self.tables = bb
         self.launches = 0
+        self.words_launches = 0
         self.shape = row_launch_shape(cfg)
         dev = self.device
         zero = np.zeros((1, bb.nwords), np.int64)
@@ -384,7 +416,13 @@ class PackedMaskKernel:
         return packed_mask_plain(words, queue, self.prow, self.piece_w,
                                  self.cmask, self.cfg, self.max_h)
 
-    def __call__(self, words: torch.Tensor, queue: torch.Tensor) -> torch.Tensor:
+    def plain_words(self, words: torch.Tensor, queue: torch.Tensor) -> torch.Tensor:
+        return packed_legal_words_plain(words, queue, self.prow, self.piece_w,
+                                        self.cmask, self.cfg, self.max_h)
+
+    def _check(self, words: torch.Tensor, queue: torch.Tensor) -> None:
+        """Raise unless the inputs suit this wrapper; on a CUDA device also
+        unless the kernels take them."""
         cfg = self.cfg
         n = words.shape[0]
         if words.device != self.device or queue.device != self.device:
@@ -397,13 +435,25 @@ class PackedMaskKernel:
         if queue.shape != (n, cfg.queue_size) or queue.dtype != torch.int32:
             raise ValueError(f"queue must be (N, {cfg.queue_size}) int32")
         if self.device.type == "cpu":
-            return self.plain(words, queue)
+            return
         if self.device.type != "cuda":
             raise ValueError(f"no packed mask kernel for device {self.device}")
         if self.shape is None:
             raise ValueError(f"the packed kernels take H <= {MAX_ROWS}")
         if not (words.is_contiguous() and queue.is_contiguous()):
             raise ValueError("words and queue must be contiguous")
+
+    def _args(self, words: torch.Tensor, queue: torch.Tensor):
+        """The kernels' leading arguments: inputs and tables."""
+        return (words.data_ptr(), queue.data_ptr(), self.prow32.data_ptr(),
+                self.piece_w32.data_ptr())
+
+    def __call__(self, words: torch.Tensor, queue: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        self._check(words, queue)
+        if self.device.type == "cpu":
+            return self.plain(words, queue)
+        n = words.shape[0]
         out = torch.empty(
             (n, cfg.queue_size * cfg.num_cells), dtype=torch.bool,
             device=self.device,
@@ -413,11 +463,29 @@ class PackedMaskKernel:
         stream = torch.cuda.current_stream(self.device).cuda_stream
         with torch.cuda.device(self.device):
             err = _build.library().bp_packed_mask(
-                words.data_ptr(), queue.data_ptr(), self.prow32.data_ptr(),
-                self.piece_w32.data_ptr(), out.data_ptr(), n, cfg.height,
+                *self._args(words, queue), out.data_ptr(), n, cfg.height,
                 cfg.width, cfg.queue_size, self.num_pieces, self.tables.nwords,
                 self.tables.fpw, *self.shape, stream,
             )
         _build.check(err, "bp_packed_mask")
         self.launches += 1
+        return out
+
+    def words(self, words: torch.Tensor, queue: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        self._check(words, queue)
+        if self.device.type == "cpu":
+            return self.plain_words(words, queue)
+        n = words.shape[0]
+        out = torch.empty((n, cfg.queue_size * cfg.height), dtype=torch.int64,
+                          device=self.device)
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        with torch.cuda.device(self.device):
+            err = _build.library().bp_packed_words(
+                *self._args(words, queue), out.data_ptr(), n, cfg.height,
+                cfg.width, cfg.queue_size, self.num_pieces, self.tables.nwords,
+                self.tables.fpw, self.shape[0], stream,
+            )
+        _build.check(err, "bp_packed_words")
+        self.words_launches += 1
         return out

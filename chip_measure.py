@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Measurements of the PyTorch + CUDA port on one card, beyond the smoke run.
 
-    python3 chip_measure.py [--parts build,train,rollout,kernels]
+    python3 chip_measure.py [--parts build,train,rollout,kernels,words]
                             [--parent-csrc DIR]
 
 Needs one CUDA card and nvcc.  Prints the card's name and power limit,
-then, each line tagged with its part (all four by default):
+then, each line tagged with its part (all five by default):
 
   build     cold builds of ``kernels/csrc/*.cu`` in turns: one nvcc over
             all sources, then one nvcc per source started together and a
@@ -21,17 +21,17 @@ then, each line tagged with its part (all four by default):
             buffer is warm, ms per iteration on the host's clock (3
             iterations) and one iteration under the profiler (device
             kernels, device time, busy share, largest items);
-  rollout   for each engine (packed, u8 apply-kernel step, u8
-            clear-kernel step) at N = 49152 on the default preset: host
-            ms per step, then 20 steps under ``torch.profiler`` (kernels,
-            device time and busy share per step, the largest items and
-            each hand kernel's time inside the step); then
-            the rollout entry point on each engine, in turns packed,
-            u8-pallas, u8-jnp, u8-jnp, u8-pallas, packed (median of 3
-            windows of 200 steps each);
+  rollout   for each engine (packed with the argmax sampler and with the
+            words sampler, u8 apply-kernel step, u8 clear-kernel step) at
+            N = 49152 on the default preset: host ms per step, then 20
+            steps under ``torch.profiler`` (kernels, device time and busy
+            share per step, the largest items and each hand kernel's time
+            inside the step); then the rollout entry point on each, in
+            turns packed, packed-words, u8-pallas, u8-jnp, then back
+            (median of 3 windows of 200 steps each);
   kernels   at N = 49152 on every packed preset: the u8 mask, clear, apply
-            and legality (the bit-row kernels) and the packed apply and
-            mask, device times (``chip_smoke.cuda_ms``) and host-paced
+            and legality (the bit-row kernels) and the packed apply, mask
+            and legal words (the mask's words entry), device times (``chip_smoke.cuda_ms``) and host-paced
             times (events around calls made as the host goes).  With
             ``--parent-csrc DIR`` (a directory holding earlier ``*.cu`` and
             ``*.cuh`` sources, e.g. an earlier commit's
@@ -43,7 +43,14 @@ then, each line tagged with its part (all four by default):
             and clear go through those), those are built into a library of
             their own by one nvcc, their ptxas lines printed, their outputs
             held bit-equal to the current kernels', and both timed in
-            turns: earlier, current, current, earlier.
+            turns: earlier, current, current, earlier;
+  words     the words sampler's pieces at N = 49152 on mid-game boards of
+            the default and tenten presets (``words_breakdown``): the
+            prefix counts of ``sample_uniform_legal`` as the port's static
+            loop and as ``torch.cumsum``, ``sample_uniform_legal``, a
+            ``WordsSampler`` and an ``UniformLegalSampler`` call, each with
+            its device kernels and device time under the profiler and its
+            time on the host's clock.
 
 Cold builds go to a temporary directory under the git-ignored
 ``kernels/_build/``, removed at the end.
@@ -202,31 +209,40 @@ def dqn_breakdown(card: str, argv) -> None:
 # the `__global__` functions of kernels/csrc, as the profiler names them
 HAND_KERNELS = ("mask_rows_kernel", "mask_kernel", "apply_rows_kernel", "apply_kernel",
                 "clear_rows_kernel", "clear_kernel", "legality_rows_kernel",
-                "legality_kernel", "packed_apply_kernel", "packed_mask_kernel")
-ENGINES = {"packed": {}, "u8-pallas": {"backend": "pallas"},
-           "u8-jnp": {"backend": "jnp", "state_impl": "u8"}}
+                "legality_kernel", "packed_apply_kernel", "packed_mask_kernel",
+                "packed_words_kernel")
+# rollout -> (make_env arguments, the rollout's sampler)
+ENGINES = {"packed": ({}, "argmax"), "packed-words": ({}, "words"),
+           "u8-pallas": ({"backend": "pallas"}, "argmax"),
+           "u8-jnp": ({"backend": "jnp", "state_impl": "u8"}, "argmax")}
 
 
 def rollout_breakdown(card: str) -> None:
-    """Each engine's uniform-legal step at N = 49152, default preset: host
-    time per step over 100 steps, then 20 steps under ``torch.profiler``."""
+    """Each engine's uniform-legal step at N = 49152, default preset (the
+    packed engine also with the words sampler): host time per step over 100
+    steps, then 20 steps under ``torch.profiler``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from blockpuzzle_tpu_torch import PRESETS, make_env
-    from blockpuzzle_tpu_torch.sampler import UniformLegalSampler
+    from blockpuzzle_tpu_torch.sampler import UniformLegalSampler, WordsSampler
 
     n = chip_smoke.N_MAIN
-    for name, kwargs in ENGINES.items():
+    for name, (kwargs, sampler_name) in ENGINES.items():
         env = make_env(PRESETS["default"](), device="cuda", **kwargs)
         state, ts = env.init(0, n)
-        sampler = UniformLegalSampler(1, n, env.device)
+        if sampler_name == "words":
+            draw = WordsSampler(1, n, env.device)
+            policy = lambda: draw(env, state.board, state.queue)
+        else:
+            draw = UniformLegalSampler(1, n, env.device)
+            policy = lambda: draw(ts.action_mask)
 
         def steps(k):
             nonlocal state, ts
             for _ in range(k):
-                state, ts = env.step(state, sampler(ts.action_mask))
+                state, ts = env.step(state, policy())
             torch.cuda.synchronize()
 
         steps(20)                                          # warm-up
@@ -266,10 +282,80 @@ def rollout_turns(card: str) -> None:
 
     order = list(ENGINES) + list(ENGINES)[::-1]
     for name in order:
-        env = make_env(PRESETS["default"](), device="cuda", **ENGINES[name])
-        r = rollout(env, chip_smoke.N_MAIN, 200, 3, seed=0)
+        kwargs, sampler_name = ENGINES[name]
+        env = make_env(PRESETS["default"](), device="cuda", **kwargs)
+        r = rollout(env, chip_smoke.N_MAIN, 200, 3, seed=0, sampler=sampler_name)
         print(f"[rollout] {name} step, N={chip_smoke.N_MAIN}: median "
               f"{statistics.median(r['rates']):.1f} env-steps/s ({card})")
+
+
+def profiled(fn, reps: int = 20):
+    """(device kernels, device ms) per call of ``fn`` under
+    ``torch.profiler``: the summed time of its device events, so the
+    host's pace does not enter."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return len(device) / reps, sum(e.time_range.elapsed_us() for e in device) / reps / 1e3
+
+
+def words_breakdown(card: str) -> None:
+    """The words sampler's pieces at N = 49152 on mid-game boards (20 steps
+    of the argmax rollout) of the default and tenten presets: the prefix
+    counts of ``sample_uniform_legal`` as its static loop of running sums
+    and as ``torch.cumsum``, the whole ``sample_uniform_legal``, a
+    ``WordsSampler`` call (draw, legal words, sample) and an
+    ``UniformLegalSampler`` call; device kernels and device time per call
+    under the profiler, and ms per call on the host's clock."""
+    import torch
+
+    from blockpuzzle_tpu_torch import PRESETS, make_env
+    from blockpuzzle_tpu_torch.env.words import legal_words, sample_uniform_legal
+    from blockpuzzle_tpu_torch.kernels.packed import popcount32
+    from blockpuzzle_tpu_torch.sampler import UniformLegalSampler, WordsSampler
+
+    n = chip_smoke.N_MAIN
+    for preset in ("default", "tenten"):
+        env = make_env(PRESETS[preset](), device="cuda")
+        state, ts = env.init(0, n)
+        argmax = UniformLegalSampler(1, n, env.device)
+        for _ in range(20):
+            state, ts = env.step(state, argmax(ts.action_mask))
+        words = legal_words(env, state.board, state.queue)
+        cnt = popcount32(words)
+        u = torch.rand(n, device=env.device)
+        sampler = WordsSampler(2, n, env.device)
+
+        def running_sums():
+            csum = [cnt[:, 0]]
+            for k in range(1, cnt.shape[1]):
+                csum.append(csum[-1] + cnt[:, k])
+            return torch.stack(csum, dim=1)
+
+        if not torch.equal(running_sums(), torch.cumsum(cnt, dim=1)):
+            raise AssertionError("running sums != torch.cumsum")
+        calls = {
+            "prefix counts, static loop (the port's)": running_sums,
+            "prefix counts, torch.cumsum": lambda: torch.cumsum(cnt, dim=1),
+            "sample_uniform_legal": lambda: sample_uniform_legal(words, u, env.cfg.width),
+            "WordsSampler call": lambda: sampler(env, state.board, state.queue),
+            "UniformLegalSampler call": lambda: argmax(ts.action_mask),
+        }
+        for name, fn in calls.items():
+            kernels, ms = profiled(fn)
+            host = chip_smoke.host_paced_ms(fn)
+            print(f"[words] {preset} N={n}, S*H={cnt.shape[1]}: {name}: {kernels:.1f} "
+                  f"device kernels, {ms:.6f} ms device time per call, {host:.6f} ms "
+                  f"per call on the host's clock ({card})")
 
 
 # the earlier kernels' entry points, timed against the current ones; the
@@ -436,7 +522,8 @@ def kernel_turns(card: str, parent_csrc) -> None:
                    "apply": lambda: ak(board, cover, valid),
                    "legality": lambda: lk(board),
                    "packed_apply": lambda: pak(*args),
-                   "packed_mask": lambda: pmk(words, queue)}
+                   "packed_mask": lambda: pmk(words, queue),
+                   "packed_legal_words": lambda: pmk.words(words, queue)}
         earlier = {}
         if lib is not None:
             calls = parent_calls(lib, cfg, mk, ck, pak, pmk)
@@ -468,7 +555,7 @@ def kernel_turns(card: str, parent_csrc) -> None:
             print(f"[kernels] {name}: current kernels == earlier ones (bit-equal)")
 
 
-PARTS = ("build", "train", "rollout", "kernels")
+PARTS = ("build", "train", "rollout", "kernels", "words")
 
 
 def main(argv=None) -> int:
@@ -501,6 +588,8 @@ def main(argv=None) -> int:
     if "rollout" in parts:
         rollout_breakdown(card)
         rollout_turns(card)
+    if "words" in parts:
+        words_breakdown(card)
     print(f"[done] {card}")
     return 0
 

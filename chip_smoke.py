@@ -9,13 +9,14 @@ which raises on failure (non-zero exit, no result line):
 
   0. card name and power limit, torch/CUDA versions, compute capability,
      kernel build time;
-  1. each of the ten kernels against its plain torch version on the
+  1. each of the eleven kernels against its plain torch version on the
      card, bit-equal, at N = 49152 and a ragged N = 49151: the bit-row u8
      kernels (mask, clear, apply, legality) and the packed kernels
-     (packed_apply, packed_mask) on the default, tenten, woodoku and big
-     presets, on boards holding full rows, columns and 3x3 regions; the
-     packed kernels also against the u8 mask and apply kernels on the
-     unpacked boards; the general u8 kernels (mask_general,
+     (packed_apply, packed_mask and its words entry packed_legal_words) on
+     the default, tenten, woodoku and big presets, on boards holding full
+     rows, columns and 3x3 regions; the packed kernels also against the u8
+     mask and apply kernels on the unpacked boards, the words against the
+     packed mask packed to words; the general u8 kernels (mask_general,
      clear_general, apply_general, legality_general) on a board of 8 rows
      of 40 cells, too wide for a row word; an illegal action on a board
      holding a full line through the u8 apply kernel of each board and the
@@ -66,7 +67,21 @@ which raises on failure (non-zero exit, no result line):
      configuration after 3 iterations restored on the card bit-equal
      (every tensor, host counter and the generator state) and one more
      iteration from it; ``cli/evaluate.py --steps 64`` on the first path's
-     checkpoint.
+     checkpoint;
+  7. serving: the words rollout (``WordsSampler`` on the legal words of the
+     packed mask kernel's words entry, then the packed step) on CUDA and on
+     the CPU from one seed (N = 1024, 64 steps, every preset): every
+     action, the final states and the summed rewards bit-equal, every
+     action legal in its step's bool mask, one launch each of packed_apply,
+     packed_mask and packed_legal_words a step; the same rollout timed as
+     phase 3 times the argmax one (the path ``rollout_words``), its rate
+     beside phase 3's; the autoreset env (``env/autoreset.py``, the
+     Gymnasium surface without gymnasium) in each mode, N = 4096, 128
+     steps, actions from ``WordsSampler``, a ``reset_mask`` of the dead
+     envs every 8 steps under ``disabled``: every presented field and the
+     carried state bit-equal on CUDA and the CPU, episodes ending in each
+     mode; then each mode's env-steps/s at N = 49152 with the presented
+     fields copied to the host in the timed window.
 
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is the count
@@ -76,8 +91,8 @@ every path read.  The packed kernels have no Pallas source: their
 of the bytes the kernel must move (each input read once, each output
 written once) over 3.35 TB/s and its integer operations on this run's
 inputs over 67 T/s (the H100's CUDA-core rate); ``library_ms`` is null:
-no single PyTorch call computes a legal mask, a place-and-clear or a
-clear-scan.
+no single PyTorch call computes a legal mask (as bools or as row words), a
+place-and-clear or a clear-scan.
 """
 
 from __future__ import annotations
@@ -119,8 +134,10 @@ KERNEL_INFO = {
                      "blockpuzzle_tpu/env/core.py:962", "rollout"),
     "packed_mask": ("blockpuzzle_tpu_torch/kernels/csrc/packed_mask.cu",
                     "blockpuzzle_tpu/env/core.py:489", "rollout"),
+    "packed_legal_words": ("blockpuzzle_tpu_torch/kernels/csrc/packed_mask.cu",
+                           "blockpuzzle_tpu/env/words.py:78", "rollout_words"),
 }
-NO_PALLAS_SOURCE = ("packed_apply", "packed_mask")
+NO_PALLAS_SOURCE = ("packed_apply", "packed_mask", "packed_legal_words")
 # the JAX CLI's defaults: conv torso, --state-impl auto (packed)
 TRAIN_ARGV = ["--preset", "default", "--num-envs", "4096", "--rollout-len",
               "64", "--epochs", "2", "--minibatches", "4", "--updates", "3",
@@ -151,7 +168,8 @@ def kernel_counters(env) -> dict:
             "legality": (env.legal_kernel, "launches"),
             "legality_general": (env.legal_kernel, "general_launches"),
             "packed_apply": (env.packed_apply_kernel, "launches"),
-            "packed_mask": (env.packed_mask_kernel, "launches")}
+            "packed_mask": (env.packed_mask_kernel, "launches"),
+            "packed_legal_words": (env.packed_mask_kernel, "words_launches")}
 
 
 def zero_counts(env) -> None:
@@ -260,8 +278,9 @@ def kernel_bounds(cfg, board, queue, cover, valid, words, attrs, r, c, outs) -> 
     mask and legality test a piece at one anchor with an AND and an OR per
     cell, the general clear and apply do about 3 and 5 operations a cell; a
     packed anchor row tests W - piece_w + 1 anchors with 3 operations per
-    footprint word and builds its words with 2 per field (B7); B1 does
-    about 10 a row word."""
+    footprint word and builds its words with 2 per field (B7, and its words
+    entry B7w, which stores the row word as it is); B1 does about 10 a row
+    word."""
     import numpy as np
     import torch
 
@@ -294,6 +313,8 @@ def kernel_bounds(cfg, board, queue, cover, valid, words, attrs, r, c, outs) -> 
         "legality_general": lambda: 2 * n * float(t.piece_cells.sum()) * hw,
         "packed_apply": lambda: 10 * n * h,
         "packed_mask": lambda: h * bb.nwords * (3 * anchors + 2 * bb.fpw * n * slots),
+        "packed_legal_words": lambda: h * bb.nwords * (3 * anchors
+                                                      + 2 * bb.fpw * n * slots),
     }
     inputs = {"mask": [board, queue], "mask_general": [board, queue],
               "apply": [board, cover, valid],
@@ -301,7 +322,7 @@ def kernel_bounds(cfg, board, queue, cover, valid, words, attrs, r, c, outs) -> 
               "clear_general": [board], "legality": [board],
               "legality_general": [board],
               "packed_apply": [words, attrs, r, c, valid],
-              "packed_mask": [words, queue]}
+              "packed_mask": [words, queue], "packed_legal_words": [words, queue]}
     return {k: bound(inputs[k] + list(out if isinstance(out, tuple) else (out,)),
                      float(ops[k]()))
             for k, out in outs.items()}
@@ -390,6 +411,7 @@ def phase1(card: str) -> dict:
         ApplyKernel, ClearScanKernel, LegalityKernel, MaskKernel,
         PackedApplyKernel, PackedMaskKernel,
     )
+    from blockpuzzle_tpu_torch.env.words import pack_bool_mask
     from blockpuzzle_tpu_torch.kernels.packed import pack_words, unpack_words
 
     dev = torch.device("cuda")
@@ -436,6 +458,13 @@ def phase1(card: str) -> dict:
                 pouts = pak(words, attrs, r, c, valid)
                 check_equal(pouts, pak.plain(words, attrs, r, c, valid), what, errs,
                             "packed_apply")
+                pwords = pmk.words(words, queue)
+                check_equal([pwords], [pmk.plain_words(words, queue)], what, errs,
+                            "packed_legal_words")
+                if not torch.equal(pwords, pack_bool_mask(pmask, cfg.height, cfg.width,
+                                                          cfg.queue_size)):
+                    raise AssertionError(
+                        f"packed_legal_words != the packed mask's words ({what})")
                 # the packed kernels against the u8 ones on the unpacked boards
                 if not torch.equal(pmask, mask):
                     raise AssertionError(f"packed_mask != mask kernel ({what})")
@@ -446,7 +475,8 @@ def phase1(card: str) -> dict:
                 line += (f"; packed mask legal share {float(pmask.float().mean()):.4f},"
                          f" packed apply legal {int(pouts[2].sum())}, lines cleared "
                          f"{int(pouts[1].sum())}: packed kernels == plain == u8 "
-                         "kernels on the unpacked boards (bit-equal)")
+                         "kernels on the unpacked boards (bit-equal); packed legal "
+                         "words == plain == the packed mask packed to words")
             print(line)
             b2, c2, v2, a2, r2, col2 = (
                 torch.as_tensor(x, device=dev) for x in illegal_on_full_line(cfg, n)
@@ -477,6 +507,8 @@ def phase1(card: str) -> dict:
                 "packed_apply": (lambda: pak(*args), lambda: pak.plain(*args)),
                 "packed_mask": (lambda: pmk(words, queue),
                                 lambda: pmk.plain(words, queue)),
+                "packed_legal_words": (lambda: pmk.words(words, queue),
+                                       lambda: pmk.plain_words(words, queue)),
             })
         bounds.update(kernel_bounds(cfg, board, queue, cover, valid, words, attrs,
                                     r, c, {k: f() for k, (f, _) in calls.items()}))
@@ -598,10 +630,11 @@ def phase2():
     return errs, paths
 
 
-def phase3(card: str) -> dict:
+def phase3(card: str):
     """Returns the launch counts of the two rollout paths (``rollout``: the
     default, packed engine; ``rollout_pallas``: the u8 apply-kernel step)
-    and of the ``legal_all_pieces`` entry point."""
+    and of the ``legal_all_pieces`` entry point, and the packed rollout's
+    median rate."""
     import torch
 
     from blockpuzzle_tpu_torch import PRESETS, make_env
@@ -642,7 +675,7 @@ def phase3(card: str) -> dict:
               f"env-steps/s ({card}); episodes {r['episodes']}, mean return "
               f"{mean_return:.3f}; launches {paths[path]}")
         if path == "rollout":
-            packed_env, final = env, s
+            packed_env, final, packed_rate = env, s, statistics.median(rates)
     zero_counts(packed_env)
     legal_all = packed_env.legal_all_pieces(final.board)
     paths["legal_all_pieces"] = read_counts(packed_env)
@@ -655,7 +688,7 @@ def phase3(card: str) -> dict:
         raise AssertionError("legal_all_pieces hand rows != the hand mask")
     print(f"[phase3] legal_all_pieces on the packed rollout's final boards: "
           f"launches {paths['legal_all_pieces']}, hand rows == the hand mask")
-    return paths
+    return paths, packed_rate
 
 
 def learner_cuda_vs_cpu(learner, state) -> None:
@@ -1001,6 +1034,163 @@ def phase6(card: str) -> dict:
     return paths
 
 
+def words_rollout(cfg, dev: str, n: int, steps: int):
+    """The words rollout from one seed on ``dev``: each step's actions from
+    ``WordsSampler`` on the state's legal words, then the packed step.
+    Returns the final state, the summed reward, every step's actions (on
+    the CPU), whether every action was legal in its step's bool mask, and
+    the engine."""
+    import torch
+
+    from blockpuzzle_tpu_torch import make_env
+    from blockpuzzle_tpu_torch.sampler import WordsSampler
+
+    env = make_env(cfg, device=dev)
+    zero_counts(env)
+    state, ts = env.init(7, n)
+    sampler = WordsSampler(8, n, env.device)
+    total = torch.zeros((), dtype=torch.float64, device=env.device)
+    legal = torch.ones((), dtype=torch.bool, device=env.device)
+    actions = []
+    for _ in range(steps):
+        a = sampler(env, state.board, state.queue)
+        legal = legal & ts.action_mask.gather(1, a[:, None]).all()
+        actions.append(a.cpu())
+        state, ts = env.step(state, a)
+        total = total + ts.reward.sum(dtype=torch.float64)
+    return state.to("cpu"), float(total), torch.stack(actions), bool(legal), env
+
+
+def autoreset_run(cfg, dev: str, mode: str, n: int, steps: int):
+    """The autoreset env (``env/autoreset.py``) in ``mode`` from one seed
+    on ``dev``, actions from ``WordsSampler``; under ``"disabled"`` a
+    ``reset_mask`` of the dead envs every 8 steps.  Returns every step's
+    presented fields and carried state on the host, and the episodes
+    ended."""
+    from blockpuzzle_tpu_torch import make_env
+    from blockpuzzle_tpu_torch.env.autoreset import AutoresetEnv, to_host
+    from blockpuzzle_tpu_torch.sampler import WordsSampler
+
+    env = make_env(cfg, device=dev)
+    auto = AutoresetEnv(env, n, mode)
+    sampler = WordsSampler(9, n, env.device)
+    trace = [to_host(auto.reset(seed=11))]
+    ended = 0
+    for t in range(steps):
+        out = to_host(auto.step(sampler(env, auto.state.board, auto.state.queue)))
+        done = out["terminated"] | out["truncated"]
+        if mode != "disabled":
+            ended += int(done.sum())
+        elif t % 8 == 7:  # a dead env shows its done flags until reset
+            ended += int(done.sum())
+            trace.append(to_host(auto.reset(options={"reset_mask": done})))
+        trace.append(out)
+        trace.append(to_host(auto.carried()))
+    return trace, ended
+
+
+def autoreset_rate(cfg, mode: str, chunk: int = 100, windows: int = 3) -> float:
+    """The autoreset env's env-steps/s in ``mode`` at N = 49152: one warm-up chunk,
+    then the median of ``windows`` chunks, each step's presented fields
+    copied to the host inside the window (the Gymnasium boundary); under
+    ``"disabled"`` a ``reset_mask`` of the dead envs every 8 steps."""
+    import torch
+
+    from blockpuzzle_tpu_torch import make_env
+    from blockpuzzle_tpu_torch.env.autoreset import AutoresetEnv, to_host
+    from blockpuzzle_tpu_torch.sampler import WordsSampler
+
+    env = make_env(cfg, device="cuda")
+    auto = AutoresetEnv(env, N_MAIN, mode)
+    sampler = WordsSampler(9, N_MAIN, env.device)
+    to_host(auto.reset(seed=11))
+    rates = []
+    for w in range(windows + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(chunk):
+            out = to_host(auto.step(sampler(env, auto.state.board,
+                                              auto.state.queue)))
+            if mode == "disabled" and t % 8 == 7:
+                to_host(auto.reset(
+                    options={"reset_mask": out["terminated"] | out["truncated"]}))
+        torch.cuda.synchronize()
+        if w:
+            rates.append(chunk * N_MAIN / (time.perf_counter() - t0))
+    return statistics.median(rates)
+
+
+def phase7(card: str, argmax_rate: float) -> dict:
+    """Serving: the words rollout on CUDA against the CPU on every preset,
+    timed at N = 49152 beside the argmax rollout's rate; the autoreset
+    env in each mode on CUDA against the CPU, then timed.  Returns the
+    launch counts of the timed words rollout (the path ``rollout_words``)."""
+    import numpy as np
+    import torch
+
+    from blockpuzzle_tpu_torch import PRESETS, make_env
+    from blockpuzzle_tpu_torch.cli.rollout import rollout
+    from blockpuzzle_tpu_torch.env.autoreset import MODES
+
+    n, steps = 1024, 64
+    zero = dict.fromkeys(KERNEL_INFO, 0)
+    per_step = ("packed_apply", "packed_mask", "packed_legal_words")
+    fields = ("board", "queue", "rng_counter", "steps", "score", "streak")
+    for name in PACKED_PRESETS:
+        cfg = PRESETS[name]()
+        (sg, rg, ag, lg, env), (sc, rc, ac, lc, _) = (
+            words_rollout(cfg, dev, n, steps) for dev in ("cuda", "cpu"))
+        counts, expect = read_counts(env), {**zero, **dict.fromkeys(per_step, steps)}
+        if counts != expect:
+            raise AssertionError(f"{name} words rollout launches {counts} != {expect}")
+        if not (lg and lc):
+            raise AssertionError(f"{name}: the words sampler drew an illegal action")
+        if not torch.equal(ag, ac):
+            raise AssertionError(f"{name}: words rollout actions differ CUDA vs CPU")
+        if rg != rc or not all(torch.equal(getattr(sg, f), getattr(sc, f))
+                               for f in fields):
+            raise AssertionError(f"{name}: words rollout final states differ")
+        print(f"[phase7] {name} words rollout N={n} {steps} steps: actions, final "
+              f"states and summed reward ({rg}) CUDA == CPU, every action legal, "
+              f"launches per step " + " ".join(f"{k}=1" for k in per_step))
+
+    env = make_env(PRESETS["default"](), device="cuda")
+    zero_counts(env)
+    chunk, windows = 400, 5
+    r = rollout(env, N_MAIN, chunk, windows, seed=0, sampler="words")
+    counts = read_counts(env)
+    expect = {**zero, **dict.fromkeys(per_step, (windows + 1) * chunk)}
+    if counts != expect:
+        raise AssertionError(f"rollout_words launches {counts} != {expect}")
+    mean_return = r["episode_return"] / max(r["episodes"], 1)
+    if r["episodes"] == 0 or not 60.0 < mean_return < 100.0:
+        raise AssertionError(f"implausible words episodes: {r['episodes']}, {mean_return}")
+    rate = statistics.median(r["rates"])
+    print(f"[phase7] rollout_words default N={N_MAIN}: windows of {chunk} steps "
+          f"(env-steps/s) {[round(x) for x in r['rates']]}")
+    print(f"[phase7] rollout_words median {rate:.1f} env-steps/s against the argmax "
+          f"rollout's {argmax_rate:.1f} (phase 3) ({card}); episodes {r['episodes']}, "
+          f"mean return {mean_return:.3f}; launches {counts}")
+
+    n, steps = 4096, 128
+    cfg = PRESETS["default"]()
+    for mode in MODES:
+        (tg, eg), (tc, ec) = (autoreset_run(cfg, dev, mode, n, steps)
+                              for dev in ("cuda", "cpu"))
+        for i, (a, b) in enumerate(zip(tg, tc)):
+            if a.keys() != b.keys() or not all(np.array_equal(a[k], b[k]) for k in a):
+                raise AssertionError(f"autoreset {mode}: CUDA != CPU at record {i}")
+        if eg == 0:
+            raise AssertionError(f"autoreset {mode}: no episode ended in {steps} steps")
+        print(f"[phase7] autoreset env {mode} N={n} {steps} steps: every presented "
+              f"field and the carried state CUDA == CPU ({len(tg)} records), "
+              f"{eg} episodes ended")
+    for mode in MODES:
+        print(f"[phase7] autoreset env {mode} N={N_MAIN}, presented fields "
+              f"copied to the host: {autoreset_rate(cfg, mode):.1f} env-steps/s ({card})")
+    return {"rollout_words": counts}
+
+
 def main() -> int:
     import torch
 
@@ -1026,9 +1216,11 @@ def main() -> int:
     legal_errs, wide_paths = phase2()
     for k, err in legal_errs.items():
         measured[k]["max_abs_err"] = max(measured[k]["max_abs_err"], err)
-    paths = {**phase3(card), **phase4(card), **wide_paths}
+    rollout_paths, argmax_rate = phase3(card)
+    paths = {**rollout_paths, **phase4(card), **wide_paths}
     phase5()
     paths.update(phase6(card))
+    paths.update(phase7(card, argmax_rate))
 
     kernels = []
     for name, (source, replaces, path) in KERNEL_INFO.items():

@@ -1,7 +1,9 @@
 """The port stands alone: no module of ``blockpuzzle_tpu_torch`` and not
 ``chip_smoke.py`` imports the JAX package, JAX, flax or gymnasium, at any
-level (module top, function body, ``__import__`` of a literal name).
-The card machine has none of them.  Parsed with ``ast``, not imported.
+level (module top, function body, ``__import__`` of a literal name), but
+the Gymnasium surface, ``blockpuzzle_tpu_torch/vector_env.py``, imports
+gymnasium, and nothing else imports that module.  The card machine has
+none of the four.  Parsed with ``ast``, not imported.
 """
 
 import ast
@@ -13,6 +15,9 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("blockpuzzle_tpu", "jax", "flax", "gymnasium")
 FILES = sorted((ROOT / "blockpuzzle_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
+# the one module that may import gymnasium
+GYM_SURFACE = ROOT / "blockpuzzle_tpu_torch" / "vector_env.py"
+GYM_MODULE = "blockpuzzle_tpu_torch.vector_env"
 
 
 def imported_modules(tree: ast.AST):
@@ -29,16 +34,44 @@ def imported_modules(tree: ast.AST):
             yield node.lineno, str(node.args[0].value)
 
 
-def forbidden(name: str) -> bool:
+def forbidden(name: str, allowed=()) -> bool:
     top = name.split(".")[0]
-    return top in FORBIDDEN
+    return top in FORBIDDEN and top not in allowed
+
+
+def imports_gym_surface(tree: ast.AST):
+    """Lines that import ``blockpuzzle_tpu_torch.vector_env``, in any form:
+    ``import``, ``from ... import``, ``from blockpuzzle_tpu_torch import
+    vector_env``, a relative import of it, ``__import__``/``import_module``
+    of its name."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom):
+            module = node.module or ""
+            names = [a.name for a in node.names]
+            if (module == GYM_MODULE or module.startswith(GYM_MODULE + ".")
+                    or (node.level and module.split(".")[-1] == "vector_env")
+                    or (module in ("blockpuzzle_tpu_torch", "") and "vector_env" in names)):
+                yield node.lineno
+    for line, name in imported_modules(tree):
+        if name == GYM_MODULE or name.startswith(GYM_MODULE + "."):
+            yield line
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_flax_gymnasium_or_jax_package_import(path):
     tree = ast.parse(path.read_text(), filename=str(path))
-    bad = [(line, name) for line, name in imported_modules(tree) if forbidden(name)]
+    allowed = ("gymnasium",) if path == GYM_SURFACE else ()
+    bad = [(line, name) for line, name in imported_modules(tree)
+           if forbidden(name, allowed)]
     assert not bad, f"{path.name} imports {bad}"
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_nothing_imports_the_gymnasium_surface(path):
+    """Only the tests import ``vector_env.py``: the package ``__init__``,
+    the engine, the CLIs and ``chip_smoke.py`` run without gymnasium."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    assert not list(imports_gym_surface(tree)), f"{path.name} imports {GYM_MODULE}"
 
 
 def test_the_check_catches_each_forbidden_form():
@@ -50,3 +83,21 @@ def test_the_check_catches_each_forbidden_form():
     assert names == ["jax.numpy", "blockpuzzle_tpu.oracle", "gymnasium", "flax",
                      "jax", "jax.random"]
     assert len(FILES) > 20
+    assert GYM_SURFACE in FILES
+    tree = ast.parse(GYM_SURFACE.read_text())
+    assert any(n == "gymnasium" for _, n in imported_modules(tree))
+    assert not any(forbidden(n, ("gymnasium",)) for _, n in imported_modules(tree))
+
+
+def test_the_surface_check_catches_each_form():
+    forms = ["import blockpuzzle_tpu_torch.vector_env",
+             "from blockpuzzle_tpu_torch.vector_env import BlockPuzzleVectorEnv",
+             "from blockpuzzle_tpu_torch import rules, vector_env",
+             "from . import vector_env", "from ..vector_env import x",
+             "def f():\n    __import__('blockpuzzle_tpu_torch.vector_env')",
+             "importlib.import_module('blockpuzzle_tpu_torch.vector_env')"]
+    for src in forms:
+        assert list(imports_gym_surface(ast.parse(src))), src
+    clean = ("import blockpuzzle_tpu_torch\nfrom blockpuzzle_tpu_torch import rules\n"
+             "from blockpuzzle_tpu_torch.env import autoreset\n")
+    assert not list(imports_gym_surface(ast.parse(clean)))

@@ -239,20 +239,18 @@ def _spread4(x):
     return ((x & 0xF) * 0x00204081) & 0x01010101
 
 
-def emulate_packed_mask(cfg, words, queue, mk):
-    """csrc/packed_mask.cu on the 32-bit tables ``PackedMaskKernel`` hands
-    the kernel: one segment of H lanes per (env, slot), lane = anchor row,
-    ``mask_block_warps`` warps a block; each row's legal bits staged in a
-    block buffer, then assembled 16 bits at a time, spread into 16 bytes
-    and stored as one 16-byte vector, plus a ragged tail."""
+def emulate_legal_rows(cfg, words, queue, mk, warps):
+    """``legal_row_bits`` of csrc/packed_mask.cu on the 32-bit tables
+    ``PackedMaskKernel`` hands the kernels, over blocks of ``warps`` warps:
+    one segment of H lanes per (env, slot), lane = anchor row.  Returns
+    the lanes' (blocks * warps, 32) legal bits, env-slot index, anchor row,
+    segment in the block and whether they are active, and the blocks."""
     h, w, s = cfg.height, cfg.width, cfg.queue_size
     prow = mk.prow32.numpy().view(np.uint32).astype(np.int64)
     piece_w = mk.piece_w32.numpy()
     nwords, fpw = mk.tables.nwords, mk.tables.fpw
-    n = len(words)
-    total = n * s
+    total = len(words) * s
     per_warp, l, sw, lane, base, _ = _warp_layout(h)
-    warps = mask_block_warps(h, w)
     threads, per_block = 32 * warps, warps * per_warp
     blocks = -(-total // per_block)
     tid = np.arange(blocks * threads).reshape(-1, 32)
@@ -279,10 +277,39 @@ def emulate_packed_mask(cfg, words, queue, mk):
         for bit in range(32):                     # each set bit p of m
             blocked |= np.where((m >> bit) & 1, wk >> bit, 0)
     span = np.where(pw <= w, _shl32(1, w - pw + 1) - 1 & U32, 0)
+    return ~blocked & span, es, lane, seg, active, blocks
+
+
+def emulate_packed_words(cfg, words, queue, mk):
+    """The words kernel of csrc/packed_mask.cu: ``legal_row_bits`` over
+    blocks of 4 warps (``kWordsWarps``), each active lane storing its row's
+    bits as one int64 at ``out[es * H + lane]``."""
+    h, s = cfg.height, cfg.queue_size
+    bits, es, lane, _, active, _ = emulate_legal_rows(cfg, words, queue, mk, warps=4)
+    out = np.full(len(words) * s * h, -1, np.int64)      # -1: never written
+    at = es * h + lane
+    assert len(np.unique(at[active])) == active.sum()   # one store a word
+    out[at[active]] = bits[active]
+    assert (out >= 0).all()
+    return out.reshape(len(words), s * h)
+
+
+def emulate_packed_mask(cfg, words, queue, mk):
+    """csrc/packed_mask.cu's mask kernel: ``legal_row_bits`` over blocks of
+    ``mask_block_warps`` warps; each row's legal bits staged in a block
+    buffer, then assembled 16 bits at a time, spread into 16 bytes and
+    stored as one 16-byte vector, plus a ragged tail."""
+    h, w, s = cfg.height, cfg.width, cfg.queue_size
+    n = len(words)
+    total = n * s
+    warps = mask_block_warps(h, w)
+    per_block = warps * segments_per_warp(h)
+    legal, es, lane, seg, active, blocks = emulate_legal_rows(cfg, words, queue, mk, warps)
+    blk = es // per_block
     rows = np.full((blocks, warps * 32), -1, np.int64)   # -1: never written
     at = seg * h + lane
     assert at[active].max() < rows.shape[1]
-    rows[blk[active], at[active]] = (~blocked & span)[active]
+    rows[blk[active], at[active]] = legal[active]
     out = np.full(total * h * w, 2, np.uint8)    # 2: never written
     for b in range(blocks):
         start = b * per_block * h * w
