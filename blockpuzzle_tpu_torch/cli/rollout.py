@@ -76,7 +76,8 @@ def run_render(args: argparse.Namespace) -> int:
     return 0
 
 
-def _sync(device: torch.device) -> None:
+def sync(device: torch.device) -> None:
+    """Wait for ``device``'s queued work (nothing to wait for on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -109,7 +110,7 @@ def rollout(
     totals = [zero, zero, zero]        # reward, episode returns, episodes
     rates, seconds = [], 0.0
     for i in range(chunks + 1):
-        _sync(dev)
+        sync(dev)
         t0 = time.perf_counter()
         for _ in range(chunk):
             state, ts = env.step(state, policy(state, mask))
@@ -121,7 +122,7 @@ def rollout(
                     ts.info["episode_return"] * done
                 ).sum(dtype=torch.float64)
                 totals[2] = totals[2] + done.sum(dtype=torch.float64)
-        _sync(dev)
+        sync(dev)
         if i:
             # two reads within the timer's resolution must not divide by 0
             dt = max(time.perf_counter() - t0, 1e-9)

@@ -432,12 +432,23 @@ class PPO:
         schedules them); when omitted they are the config's.  Metrics are
         0-d tensors on the device.
         """
-        cfg = self.cfg
-        hypers = hypers or default_hypers(cfg)
+        hypers = hypers or default_hypers(self.cfg)
         state, batch, last_value, ep_stats = self._rollout(state)
         advantages, returns = self._gae(
             batch, last_value, hypers["gamma"], hypers["gae_lambda"]
         )
+        metrics = self._epochs(state, batch, advantages, returns, hypers)
+        metrics.update(ep_stats)
+        return state.replace(update_count=state.update_count + 1), metrics
+
+    def _epochs(
+        self, state: TrainState, batch: Batch, advantages: torch.Tensor,
+        returns: torch.Tensor, hypers: Dict[str, Any],
+    ) -> Dict[str, torch.Tensor]:
+        """The minibatch epochs of an update on one rollout's batch, stepping
+        ``state``'s network and optimizer in place; returns the mean of the
+        minibatches' loss metrics."""
+        cfg = self.cfg
         flat = batch.map(lambda x: x.flatten(0, 1))
         adv_flat, ret_flat = advantages.flatten(), returns.flatten()
         total = cfg.rollout_len * cfg.num_envs   # global rows
@@ -461,6 +472,4 @@ class PPO:
                 apply_gradients_(net, opt, cfg.max_grad_norm, hypers["lr"], self.mesh)
                 history.append(torch.stack(list(metrics.values())))
         means = self._dp_sum(torch.stack(history)).mean(dim=0)
-        metrics = dict(zip(metrics, means))
-        metrics.update(ep_stats)
-        return state.replace(update_count=state.update_count + 1), metrics
+        return dict(zip(metrics, means))

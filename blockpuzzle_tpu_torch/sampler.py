@@ -58,8 +58,12 @@ class WordsSampler:
         self.key = rng.stream_keys(seed, num_envs, device, env_offset)
         self.counter = 0
 
-    def __call__(self, env, board: torch.Tensor, queue: torch.Tensor) -> torch.Tensor:
+    def uniform(self) -> torch.Tensor:
+        """The call's (N,) float32 uniforms (one counter value)."""
         bits = rng.bits(self.key, self.counter, rng.TAG_POLICY, 1)[:, 0]
         self.counter += 1
+        return uniform_from_bits(bits)
+
+    def __call__(self, env, board: torch.Tensor, queue: torch.Tensor) -> torch.Tensor:
         return sample_uniform_legal(
-            legal_words(env, board, queue), uniform_from_bits(bits), env.cfg.width)
+            legal_words(env, board, queue), self.uniform(), env.cfg.width)

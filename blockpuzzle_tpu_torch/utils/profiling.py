@@ -4,7 +4,8 @@ The port of ``blockpuzzle_tpu/utils/profiling.py``: ``device_trace`` is
 ``torch.profiler`` (CPU activity, plus CUDA activity where a card is
 present) writing a Chrome trace, in place of ``jax.profiler``; ``ScopeTimer``
 marks its scopes as NVTX ranges, in place of ``jax.named_scope``, where
-CUDA is present.
+CUDA is present.  ``device_events``, ``busy_us`` and ``by_name`` read a
+profile's device kernels (``scripts/profile_step.py``, ``chip_measure.py``).
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -55,3 +56,33 @@ class ScopeTimer:
 
     def summary(self) -> Dict[str, float]:
         return dict(sorted(self.totals.items(), key=lambda kv: -kv[1]))
+
+
+def device_events(prof) -> list:
+    """The device (CUDA) events of a finished ``torch.profiler.profile``."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def busy_us(events) -> float:
+    """Length of the union of the events' time ranges, in µs: the time the
+    device was busy."""
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted((ev.time_range.start, ev.time_range.end) for ev in events):
+        if s > end:
+            busy += e - s
+        elif e > end:
+            busy += e - end
+        end = max(end, e)
+    return busy
+
+
+def by_name(events) -> List[Tuple[str, int, float]]:
+    """(name, count, total µs) of each kernel name, the largest total
+    first."""
+    out: Dict[str, Tuple[int, float]] = {}
+    for e in events:
+        n, us = out.get(e.name, (0, 0.0))
+        out[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    return sorted(((k, n, us) for k, (n, us) in out.items()), key=lambda r: -r[2])

@@ -68,6 +68,7 @@ import sys
 import time
 
 import chip_smoke
+from blockpuzzle_tpu_torch.utils.profiling import busy_us, by_name, device_events
 
 
 def build_times() -> None:
@@ -98,21 +99,8 @@ def build_times() -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def device_busy_us(events) -> float:
-    """Length of the union of the events' time ranges, in µs."""
-    busy, end = 0.0, float("-inf")
-    for s, e in sorted((ev.time_range.start, ev.time_range.end) for ev in events):
-        if s > end:
-            busy += e - s
-        elif e > end:
-            busy += e - end
-        end = max(end, e)
-    return busy
-
-
 def train_breakdown(card: str, argv) -> None:
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from blockpuzzle_tpu_torch.cli import train
@@ -143,12 +131,12 @@ def train_breakdown(card: str, argv) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         learner.update(state, hypers)
         torch.cuda.synchronize()
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    device = device_events(prof)
     if not device:
         print("[train] the profiler saw no device events: device time not measured")
         return
     total = sum(e.time_range.elapsed_us() for e in device)
-    busy = device_busy_us(device)
+    busy = busy_us(device)
     print(f"[train] profiled update: {len(device)} device kernels, "
           f"{total / 1e3:.3f} ms device time, busy {busy / 1e3:.3f} ms = "
           f"{100 * busy / 1e3 / statistics.mean(update_ms):.1f}% of an "
@@ -161,7 +149,6 @@ def dqn_breakdown(card: str, argv) -> None:
     the buffer is warm (every iteration takes its TD step): host time over
     3 iterations, then one under ``torch.profiler``."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from blockpuzzle_tpu_torch.cli import train
@@ -194,12 +181,12 @@ def dqn_breakdown(card: str, argv) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         step()
         torch.cuda.synchronize()
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    device = device_events(prof)
     if not device:
         print("[train] the profiler saw no device events: device time not measured")
         return
     total = sum(e.time_range.elapsed_us() for e in device)
-    busy = device_busy_us(device)
+    busy = busy_us(device)
     print(f"[train] {tag} profiled iteration: {len(device)} device kernels, "
           f"{total / 1e3:.3f} ms device time, busy {busy / 1e3:.3f} ms = "
           f"{100 * busy / 1e3 / it_ms:.1f}% of an unprofiled iteration")
@@ -222,7 +209,6 @@ def rollout_breakdown(card: str) -> None:
     packed engine also with the words sampler): host time per step over 100
     steps, then 20 steps under ``torch.profiler``."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from blockpuzzle_tpu_torch import PRESETS, make_env
@@ -251,12 +237,12 @@ def rollout_breakdown(card: str) -> None:
         step_ms = 10 * (time.perf_counter() - t0)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             steps(20)
-        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        device = device_events(prof)
         print(f"[rollout] {name} step, N={n}: {step_ms:.4f} ms per step ({card})")
         if not device:
             print("[rollout] the profiler saw no device events: not measured")
             continue
-        busy = device_busy_us(device) / 20 / 1e3
+        busy = busy_us(device) / 20 / 1e3
         print(f"[rollout] {name} profiled: {len(device) / 20:.1f} device kernels "
               f"per step, {sum(e.time_range.elapsed_us() for e in device) / 20e3:.4f}"
               f" ms device time, busy {busy:.4f} ms = {100 * busy / step_ms:.1f}% "
@@ -268,11 +254,7 @@ def rollout_breakdown(card: str) -> None:
 
 def top_items(device, per: int, tag: str, k: int) -> None:
     """The ``k`` largest device items, in ms per step (or per update)."""
-    by_name = {}
-    for e in device:
-        n, us = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:k]:
+    for name, n, us in by_name(device)[:k]:
         print(f"[{tag}]   {us / per / 1e3:8.4f} ms  {n / per:6.1f}x  {name[:90]}")
 
 
@@ -294,7 +276,6 @@ def profiled(fn, reps: int = 20):
     ``torch.profiler``: the summed time of its device events, so the
     host's pace does not enter."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -304,7 +285,7 @@ def profiled(fn, reps: int = 20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    device = device_events(prof)
     return len(device) / reps, sum(e.time_range.elapsed_us() for e in device) / reps / 1e3
 
 

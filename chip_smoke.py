@@ -100,7 +100,20 @@ which raises on failure (non-zero exit, no result line):
      replay bit-equal to the unsharded one's, and the world-2 DQN
      checkpoint restored in one process bit-equal.  Each run's backend
      and global env-steps/s are printed: two processes on one card are a
-     correctness run, not a scaling figure.
+     correctness run, not a scaling figure;
+  9. the measuring entry points (``blockpuzzle_tpu_torch/bench.py``,
+     ``scripts/``, ``examples/``): ``bench.bench_device`` at N = 49152 on
+     the default, ``pallas``, ``u8`` (clear kernel) and ``words``
+     configurations (the paths ``bench``, ``bench_pallas``, ``bench_u8``,
+     ``bench_words``; a warm-up chunk and 3 windows of 2 chunks of 400
+     steps), each kernel of a path's step launched once a step, the three
+     argmax engines' final states bit-equal, the rates beside phase 3's;
+     the actor at N = 49152, both torsos (``actor_conv``, ``actor_mlp``)
+     and both policies; the learner's ``base`` and ``mlp`` (2 timed
+     updates); one sweep config (conv, N = 4096, T = 64, 3 updates and a
+     greedy evaluation, the path ``sweep``) twice, the two metrics streams
+     compared bit for bit by ``scripts/compare_metrics.py`` in a
+     subprocess; the quickstart's engine and train sections.
 
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is the count
@@ -1493,6 +1506,147 @@ def phase8(card: str) -> dict:
     return paths
 
 
+# the bench paths of phase 9: (BP_BENCH_STATE_IMPL, _BACKEND, _SAMPLER, the
+# kernels launched once a step)
+BENCH_PATHS = {
+    "bench": ("auto", "jnp", "argmax", ("packed_mask", "packed_apply")),
+    "bench_pallas": ("u8", "pallas", "argmax", ("mask", "apply")),
+    "bench_u8": ("u8", "jnp", "argmax", ("mask", "clear")),
+    "bench_words": ("auto", "jnp", "words",
+                    ("packed_mask", "packed_apply", "packed_legal_words")),
+}
+# one sweep config at the JAX defaults' widths (conv, packed, N = 4096, T = 64)
+SWEEP_ARGV = ["--configs", "base", "--updates", "3", "--log-every", "1",
+              "--num-envs", "4096", "--rollout-len", "64", "--eval-envs", "4096",
+              "--eval-steps", "64", "--seed", "0", "--device", "cuda"]
+
+
+def check_final_state(env, state, what: str) -> None:
+    """0/1 boards of the engine's shape, queue ids in range, finite scores."""
+    import torch
+
+    cells = env.board_obs(state.board)
+    if cells.shape[1:] != (env.cfg.height, env.cfg.width) or int(cells.max()) > 1:
+        raise AssertionError(f"{what}: final boards malformed")
+    if int(state.queue.min()) < 0 or int(state.queue.max()) > env.num_pieces:
+        raise AssertionError(f"{what}: final queues out of range")
+    if not bool(torch.isfinite(state.score).all()):
+        raise AssertionError(f"{what}: non-finite scores")
+
+
+def phase9(card: str, argmax_rate: float) -> dict:
+    """The measuring entry points: ``bench.bench_device`` at N = 49152 on
+    the default, ``pallas``, ``u8`` (clear kernel) and ``words``
+    configurations (2 chunks of 400 steps a window, 3 windows, after the
+    warm-up chunk), the three argmax engines' final states bit-equal; the
+    actor (both torsos, both policies; chunks of 100, 3 windows of one);
+    the learner (``base``, ``mlp``: 2 timed updates); one sweep config
+    twice, its metrics streams compared by ``scripts/compare_metrics.py``
+    in a subprocess; the quickstart's engine and train sections.  Returns
+    the launch counts of the paths ``bench``, ``bench_pallas``,
+    ``bench_u8``, ``bench_words``, ``actor_conv``, ``actor_mlp`` and
+    ``sweep``, each held to one launch a step of each kernel of its step
+    (the sweep's mask one more an update: ``PPO.observe``)."""
+    import os
+    import pathlib
+    import tempfile
+
+    import torch
+
+    from blockpuzzle_tpu_torch import bench
+    from blockpuzzle_tpu_torch.examples import quickstart
+    from blockpuzzle_tpu_torch.learn import PPO, PPOConfig
+    from blockpuzzle_tpu_torch.scripts import bench_actor, bench_learner, sweep_ppo
+
+    zero = dict.fromkeys(KERNEL_INFO, 0)
+    fields = ("queue", "rng_counter", "steps", "score", "streak")
+    paths, finals = {}, {}
+    chunk, iters, windows = 400, 2, 3
+    steps = (1 + iters * windows) * chunk
+    for path, (state_impl, backend, sampler, per_step) in BENCH_PATHS.items():
+        env = bench.make_bench_env("default", state_impl, backend, "cuda")
+        zero_counts(env)
+        r = bench.bench_device(env, N_MAIN, sampler, chunk, iters, windows)
+        paths[path] = read_counts(env)
+        expect = {**zero, **dict.fromkeys(per_step, steps)}
+        if paths[path] != expect:
+            raise AssertionError(f"{path} launches {paths[path]} != {expect}")
+        check_final_state(env, r["state"], path)
+        if sampler == "argmax":
+            finals[path] = (env.board_obs(r["state"].board), r["state"])
+        print(f"[phase9] {path} ({env.state_impl}, backend {env.backend}, sampler "
+              f"{sampler}) N={N_MAIN}: windows of {iters}x{chunk} steps (env-steps/s) "
+              f"{[round(x) for x in r['rates']]}, value {r['value']:.1f} against "
+              f"phase 3's rollout median {argmax_rate:.1f} ({card}); launches "
+              f"{paths[path]}")
+    (board0, s0), *_ = finals.values()
+    for path, (board, s) in list(finals.items())[1:]:
+        if not torch.equal(board, board0) or not all(
+                torch.equal(getattr(s, f), getattr(s0, f)) for f in fields):
+            raise AssertionError(f"{path} final state != bench's")
+    print(f"[phase9] {', '.join(finals)}: final states bit-equal after {steps} steps "
+          "from one seed")
+
+    env = bench.make_bench_env(device="cuda")
+    chunk, iters, windows = 100, 1, 3
+    for torso in ("conv", "mlp"):
+        ppo = PPO(env, PPOConfig(num_envs=N_MAIN, rollout_len=8, torso=torso))
+        net = ppo.init(0).net
+        zero_counts(env)
+        rates = {policy: bench_actor.bench_one(ppo, net, policy, chunk, iters, windows)
+                 for policy in bench_actor.POLICIES}
+        path = f"actor_{torso}"
+        paths[path] = read_counts(env)
+        taken = len(rates) * (1 + iters * windows) * chunk
+        expect = {**zero, "packed_mask": taken, "packed_apply": taken}
+        if paths[path] != expect:
+            raise AssertionError(f"{path} launches {paths[path]} != {expect}")
+        for policy, rate in rates.items():
+            if not rate > 0:
+                raise AssertionError(f"{path} {policy}: rate {rate}")
+            print(f"[phase9] {path} {policy} N={N_MAIN}: {rate:.1f} actor steps/s "
+                  f"({card})")
+        print(f"[phase9] {path}: launches {paths[path]}")
+
+    for variant in bench_learner.VARIANTS:
+        rec = bench_learner.bench_variant(variant, 4096, 64, 2, 1, "cuda")
+        print(f"[phase9] learner {json.dumps(rec)} ({card})")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        streams = []
+        for run in range(2):
+            streams.append(os.path.join(tmp, f"sweep{run}.jsonl"))
+            args = sweep_ppo.parse_args(SWEEP_ARGV + ["--metrics-jsonl", streams[-1]])
+            ppo = sweep_ppo.build(args)
+            zero_counts(ppo.env)
+            t0 = time.perf_counter()
+            sweep_ppo.sweep(args, ppo)
+            seconds = time.perf_counter() - t0
+            counts = read_counts(ppo.env)
+            rollout = args.updates * args.rollout_len
+            per = sweep_ppo.EVAL_CHUNK
+            evaluated = max(1, args.eval_steps // per) * per
+            expect = {**zero, "packed_apply": rollout + evaluated,
+                      "packed_mask": rollout + args.updates + evaluated}
+            if counts != expect:
+                raise AssertionError(f"sweep launches {counts} != {expect}")
+            paths["sweep"] = counts
+            print(f"[phase9] sweep run {run}: {args.updates} updates and a greedy "
+                  f"evaluation in {seconds:.3f} s ({card}); launches {counts}")
+        compare = pathlib.Path(__file__).resolve().parent / "scripts"
+        compare = compare / "compare_metrics.py"
+        out = subprocess.run([sys.executable, str(compare)] + streams,
+                             capture_output=True, text=True, timeout=120)
+        print(f"[phase9] scripts/compare_metrics.py: {out.stdout.strip()}")
+        if out.returncode != 0:
+            raise AssertionError("two same-seed sweep streams differ on the card")
+
+    quickstart.engine("cuda")
+    quickstart.train("cuda")
+    print("[phase9] quickstart engine and train sections ran on the card")
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -1524,6 +1678,7 @@ def main() -> int:
     paths.update(phase6(card))
     paths.update(phase7(card, argmax_rate))
     paths.update(phase8(card))
+    paths.update(phase9(card, argmax_rate))
 
     kernels = []
     for name, (source, replaces, path) in KERNEL_INFO.items():

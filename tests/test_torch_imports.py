@@ -2,8 +2,11 @@
 ``chip_smoke.py`` imports the JAX package, JAX, flax or gymnasium, at any
 level (module top, function body, ``__import__`` of a literal name), but
 the Gymnasium surface, ``blockpuzzle_tpu_torch/vector_env.py``, imports
-gymnasium, and nothing else imports that module.  The card machine has
-none of the four.  Parsed with ``ast``, not imported.
+gymnasium, and nothing else imports that module, except the two Gymnasium
+sections of the quickstart (``GYM_SECTIONS``: functions that import
+gymnasium and the surface in their bodies, so that the module and its
+other sections run without gymnasium).  The card machine has none of the
+four.  Parsed with ``ast``, not imported.
 """
 
 import ast
@@ -18,6 +21,18 @@ FILES = sorted((ROOT / "blockpuzzle_tpu_torch").rglob("*.py")) + [
 # the one module that may import gymnasium
 GYM_SURFACE = ROOT / "blockpuzzle_tpu_torch" / "vector_env.py"
 GYM_MODULE = "blockpuzzle_tpu_torch.vector_env"
+# module -> its top-level functions that may import gymnasium and the surface
+GYM_SECTIONS = {ROOT / "blockpuzzle_tpu_torch" / "examples" / "quickstart.py":
+                ("single_env", "vector_env")}
+
+
+def parse_outside_sections(path: pathlib.Path) -> ast.Module:
+    """``path``'s syntax tree without the bodies of its ``GYM_SECTIONS``."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    sections = GYM_SECTIONS.get(path, ())
+    tree.body = [node for node in tree.body
+                 if not (isinstance(node, ast.FunctionDef) and node.name in sections)]
+    return tree
 
 
 def imported_modules(tree: ast.AST):
@@ -59,7 +74,7 @@ def imports_gym_surface(tree: ast.AST):
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_flax_gymnasium_or_jax_package_import(path):
-    tree = ast.parse(path.read_text(), filename=str(path))
+    tree = parse_outside_sections(path)
     allowed = ("gymnasium",) if path == GYM_SURFACE else ()
     bad = [(line, name) for line, name in imported_modules(tree)
            if forbidden(name, allowed)]
@@ -70,7 +85,7 @@ def test_no_jax_flax_gymnasium_or_jax_package_import(path):
 def test_nothing_imports_the_gymnasium_surface(path):
     """Only the tests import ``vector_env.py``: the package ``__init__``,
     the engine, the CLIs and ``chip_smoke.py`` run without gymnasium."""
-    tree = ast.parse(path.read_text(), filename=str(path))
+    tree = parse_outside_sections(path)
     assert not list(imports_gym_surface(tree)), f"{path.name} imports {GYM_MODULE}"
 
 
@@ -101,3 +116,19 @@ def test_the_surface_check_catches_each_form():
     clean = ("import blockpuzzle_tpu_torch\nfrom blockpuzzle_tpu_torch import rules\n"
              "from blockpuzzle_tpu_torch.env import autoreset\n")
     assert not list(imports_gym_surface(ast.parse(clean)))
+
+
+def test_the_gymnasium_sections_are_functions_importing_only_the_surface():
+    """Each ``GYM_SECTIONS`` entry is a top-level function of its module,
+    and imports gymnasium and the Gymnasium surface and nothing else that
+    is forbidden: the allowance covers those two imports in those bodies
+    only."""
+    for path, names in GYM_SECTIONS.items():
+        assert path in FILES
+        tree = ast.parse(path.read_text(), filename=str(path))
+        funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+        for name in names:
+            body = ast.Module(body=funcs[name].body, type_ignores=[])
+            imported = {n for _, n in imported_modules(body) if forbidden(n)}
+            assert imported == {"gymnasium"}, (name, imported)
+            assert list(imports_gym_surface(body)), name
