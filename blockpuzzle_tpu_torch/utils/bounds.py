@@ -1,0 +1,177 @@
+"""The least time an H100 could take for each hand kernel's call.
+
+A call's bound is the larger of two times: the bytes it must move (each
+input read once, each output written once) over the card's memory rate,
+and the integer operations it does on these inputs over the card's
+CUDA-core rate.  Each kernel has one function here, ``COSTS[name](cfg,
+inputs, outputs) -> (bytes, ops)``, which a caller hands the tensors of
+one actual call; the operations are counted on the call's own data where
+they depend on it (the hand's pieces).  ``chip_smoke.py`` phase 1 and the
+roofline (``scripts/roofline.py``) read these counts.
+
+Operations: the bit-row mask (K1) packs each of an env-slot's H rows from
+(W + 6) // 4 32-bit words (7 operations a word), ORs in the max_h rows
+below by shuffles (5 operations a row), smears and shifts its two
+rectangles (10 each), masks the legal row (3) and spends one operation per
+output byte on the spread store; the bit-row clear (K3) packs its rows
+likewise, tests and clears each row word (about 8 operations; a band row 2
+per region row and 3 per tile with regions) and spends one per output
+byte; the bit-row apply (K2) packs two words a row, tests, places and
+clears (about 12) and stores likewise; the bit-row legality (K4) packs
+each row once, builds its smears (3 operations for each of max_h * max_w
+shapes), spends about 15 a piece and one per output byte; the general mask
+and legality test a piece at one anchor with an AND and an OR per cell,
+the general clear and apply do about 3 and 5 operations a cell; a packed
+anchor row tests W - piece_w + 1 anchors with 3 operations per footprint
+word and builds its words with 2 per field (B7, and its words entry B7w,
+which stores the row word as it is); B1 does about 10 a row word.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from blockpuzzle_tpu_torch import rules
+from blockpuzzle_tpu_torch.config import EnvConfig
+from blockpuzzle_tpu_torch.kernels.packed import bitboard_tables
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
+CORE_OPS_PER_S = 67e12        # H100 SXM CUDA-core rate (float32 entry)
+
+Tensors = Sequence[torch.Tensor]
+Cost = Callable[[EnvConfig, Tensors, Tensors], Tuple[int, float]]
+
+
+def nbytes(tensors: Tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(tensors: Tensors, ops: float) -> dict:
+    """The least time for a kernel that reads and writes ``tensors`` once
+    each and does ``ops`` integer operations: the larger of the two."""
+    moved = nbytes(tensors)
+    by_bytes = 1e3 * moved / HBM_BYTES_PER_S
+    by_ops = 1e3 * ops / CORE_OPS_PER_S
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": moved, "ops": ops}
+
+
+def _pack(cfg: EnvConfig) -> int:
+    """Operations to pack one board row from its bytes."""
+    return 7 * ((cfg.width + 6) // 4)
+
+
+def _regions(cfg: EnvConfig) -> int:
+    rs = cfg.region_size
+    return cfg.height * (2 * rs + 3 * (cfg.width // rs)) if cfg.region_clear else 0
+
+
+def _hand_sum(values, empty, queue: torch.Tensor) -> float:
+    """``values`` of each hand slot's piece (``empty`` for an empty slot),
+    summed over the batch."""
+    table = torch.as_tensor(np.append(values, empty), device=queue.device)
+    return float(table[queue.clamp(0, len(values)).long()].sum())
+
+
+def _cost(ops: Callable[[EnvConfig, Tensors], float]) -> Cost:
+    """A kernel's cost function from its operation count on the inputs."""
+    def cost(cfg: EnvConfig, inputs: Tensors, outputs: Tensors) -> Tuple[int, float]:
+        return nbytes(list(inputs) + list(outputs)), float(ops(cfg, inputs))
+    cost.__doc__ = ops.__doc__
+    return cost
+
+
+def _mask(cfg, inputs):
+    """K1, bit-row: inputs (board (N, HW) u8, queue (N, S) i32)."""
+    t = rules.tables_for(cfg)
+    n, h = inputs[0].shape[0], cfg.height
+    return n * cfg.queue_size * (h * (_pack(cfg) + 5 * t.max_h + 23) + cfg.num_cells)
+
+
+def _mask_general(cfg, inputs):
+    """K1, general: inputs (board, queue)."""
+    t = rules.tables_for(cfg)
+    return 2 * _hand_sum(t.piece_cells, 0, inputs[1]) * cfg.num_cells
+
+
+def _apply(cfg, inputs):
+    """K2, bit-row: inputs (board, footprint cells, valid)."""
+    n, h = inputs[0].shape[0], cfg.height
+    return n * (h * (2 * _pack(cfg) + 12) + _regions(cfg) + cfg.num_cells)
+
+
+def _apply_general(cfg, inputs):
+    """K2, general: inputs (board, footprint cells, valid)."""
+    return 5 * inputs[0].shape[0] * cfg.num_cells
+
+
+def _clear(cfg, inputs):
+    """K3, bit-row: inputs (board,)."""
+    n, h = inputs[0].shape[0], cfg.height
+    return n * (h * (_pack(cfg) + 8) + _regions(cfg) + cfg.num_cells)
+
+
+def _clear_general(cfg, inputs):
+    """K3, general: inputs (board,)."""
+    return 3 * inputs[0].shape[0] * cfg.num_cells
+
+
+def _legality(cfg, inputs):
+    """K4, bit-row: inputs (board,)."""
+    t = rules.tables_for(cfg)
+    n, h = inputs[0].shape[0], cfg.height
+    return n * (h * (_pack(cfg) + 3 * t.max_h * t.max_w + 15 * t.num_pieces)
+                + t.num_pieces * cfg.num_cells)
+
+
+def _legality_general(cfg, inputs):
+    """K4, general: inputs (board,)."""
+    t = rules.tables_for(cfg)
+    return 2 * inputs[0].shape[0] * float(t.piece_cells.sum()) * cfg.num_cells
+
+
+def _packed_apply(cfg, inputs):
+    """B1: inputs (words (N, H) i64, attrs, r, c, valid)."""
+    return 10 * inputs[0].shape[0] * cfg.height
+
+
+def _packed_mask(cfg, inputs):
+    """B7 and its words entry B7w: inputs (words (N, H) i64, queue)."""
+    t = rules.tables_for(cfg)
+    bb = bitboard_tables(cfg)
+    w, queue = cfg.width, inputs[1]
+    anchors = _hand_sum(np.maximum(w - t.piece_w + 1, 0), 0, queue)
+    return cfg.height * bb.nwords * (3 * anchors
+                                     + 2 * bb.fpw * queue.shape[0] * cfg.queue_size)
+
+
+COSTS: Dict[str, Cost] = {
+    "mask": _cost(_mask), "mask_general": _cost(_mask_general),
+    "apply": _cost(_apply), "apply_general": _cost(_apply_general),
+    "clear": _cost(_clear), "clear_general": _cost(_clear_general),
+    "legality": _cost(_legality), "legality_general": _cost(_legality_general),
+    "packed_apply": _cost(_packed_apply), "packed_mask": _cost(_packed_mask),
+    "packed_legal_words": _cost(_packed_mask),
+}
+
+
+def kernel_bounds(cfg, board, queue, cover, valid, words, attrs, r, c, outs) -> dict:
+    """The bound of each kernel named in ``outs`` (kernel -> its outputs:
+    a tensor or a tuple) on these inputs."""
+    inputs = {"mask": [board, queue], "mask_general": [board, queue],
+              "apply": [board, cover, valid],
+              "apply_general": [board, cover, valid], "clear": [board],
+              "clear_general": [board], "legality": [board],
+              "legality_general": [board],
+              "packed_apply": [words, attrs, r, c, valid],
+              "packed_mask": [words, queue], "packed_legal_words": [words, queue]}
+    bounds = {}
+    for k, out in outs.items():
+        out = list(out if isinstance(out, tuple) else (out,))
+        _, ops = COSTS[k](cfg, inputs[k], out)
+        bounds[k] = bound(inputs[k] + out, ops)
+    return bounds

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Measurements of the PyTorch + CUDA port on one card, beyond the smoke run.
 
-    python3 chip_measure.py [--parts build,train,rollout,kernels,words]
+    python3 chip_measure.py [--parts build,train,rollout,kernels,words,general]
                             [--parent-csrc DIR]
 
 Needs one CUDA card and nvcc.  Prints the card's name and power limit,
-then, each line tagged with its part (all five by default):
+then, each line tagged with its part (all six by default):
 
   build     cold builds of ``kernels/csrc/*.cu`` in turns: one nvcc over
             all sources, then one nvcc per source started together and a
@@ -50,7 +50,12 @@ then, each line tagged with its part (all five by default):
             loop and as ``torch.cumsum``, ``sample_uniform_legal``, a
             ``WordsSampler`` and an ``UniformLegalSampler`` call, each with
             its device kernels and device time under the profiler and its
-            time on the host's clock.
+            time on the host's clock;
+  general   the four general u8 kernels (boards wider or taller than 32)
+            at N = 49152 on an 8x40 board, timed in turns for 5 rounds
+            (``chip_smoke.general_turns``, the rounds ``chip_smoke.py``
+            phase 1 also takes), here in a process whose library is freshly
+            loaded.
 
 Cold builds go to a temporary directory under the git-ignored
 ``kernels/_build/``, removed at the end.
@@ -536,7 +541,7 @@ def kernel_turns(card: str, parent_csrc) -> None:
             print(f"[kernels] {name}: current kernels == earlier ones (bit-equal)")
 
 
-PARTS = ("build", "train", "rollout", "kernels", "words")
+PARTS = ("build", "train", "rollout", "kernels", "words", "general")
 
 
 def main(argv=None) -> int:
@@ -571,6 +576,8 @@ def main(argv=None) -> int:
         rollout_turns(card)
     if "words" in parts:
         words_breakdown(card)
+    if "general" in parts:
+        chip_smoke.general_turns(card, "general")
     print(f"[done] {card}")
     return 0
 

@@ -22,9 +22,10 @@ which raises on failure (non-zero exit, no result line):
      holding a full line through the u8 apply kernel of each board and the
      packed one; then each kernel's device time (CUDA events over 50
      launches queued behind a spin kernel, so the host's launch time does
-     not enter) beside its bound and the plain version's time (50 calls
-     made as the host goes), at N = 49152 on the default preset (the
-     general kernels on the wide board);
+     not enter) beside its bound (``utils/bounds.py``) and the plain
+     version's time (50 calls made as the host goes), at N = 49152 on the
+     default preset (the general kernels on the wide board); then the four
+     general kernels timed in turns for 5 rounds (``general_turns``);
   2. the whole rollout on CUDA and on CPU from one seed (N = 1024, 64
      steps, live deals, auto-reset) on the packed engine (every preset)
      and on the u8 apply-kernel (``backend="pallas"``) and clear-kernel
@@ -113,7 +114,23 @@ which raises on failure (non-zero exit, no result line):
      updates); one sweep config (conv, N = 4096, T = 64, 3 updates and a
      greedy evaluation, the path ``sweep``) twice, the two metrics streams
      compared bit for bit by ``scripts/compare_metrics.py`` in a
-     subprocess; the quickstart's engine and train sections.
+     subprocess; the quickstart's engine and train sections;
+ 10. the last ported pieces: the roofline (``scripts/roofline.py``) of the
+     bench's step at N = 49152 (a count pass of 400 steps, then a warm-up
+     chunk and 3 windows of 2 chunks of 400; the path ``roofline``), its
+     count pass's launches at one B1 and one B7 a step, its shares of the
+     HBM, CUDA-core and state floors in (0, 100], and its count on CUDA
+     equal to the CPU's at N = 1024 (8 steps); the scaling harness
+     (``scripts/bench_scaling.py``: one rank on the card over nccl, two
+     ranks sharing it over gloo, 4096 envs a rank, chunks of 50, 3 timed),
+     both sizes' gathered final states bit-equal to one process's, and
+     ``--cpu-sim``'s 8 CPU ranks at 256 envs a rank; the
+     properties of ``tests/test_properties.py`` at batch: 4096 seeded
+     (board, piece, cell) triples through the packed, u8 ``jnp`` and u8
+     ``pallas`` engines on CUDA (the paths ``properties_packed``,
+     ``properties_u8_jnp``, ``properties_u8_pallas``), the mask against
+     the oracle's, no full line after a step, the reward zero iff the
+     oracle's ``can_place`` refuses the cell.
 
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is the count
@@ -136,8 +153,6 @@ import sys
 import time
 
 N_MAIN = 49152
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
-CORE_OPS_PER_S = 67e12        # H100 SXM CUDA-core rate (float32 entry)
 PARITY_SEEDS = 8
 PACKED_PRESETS = ("default", "tenten", "woodoku", "big")
 # a u8 board too wide for a row word: the general u8 kernels
@@ -282,84 +297,6 @@ def host_paced_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(tensors, ops: float) -> dict:
-    """The least time for a kernel that reads and writes ``tensors`` once
-    each and does ``ops`` integer operations: the larger of the two."""
-    nbytes = sum(t.numel() * t.element_size() for t in tensors)
-    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    by_ops = 1e3 * ops / CORE_OPS_PER_S
-    return {"bound_ms": max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "bytes": nbytes, "ops": ops}
-
-
-def kernel_bounds(cfg, board, queue, cover, valid, words, attrs, r, c, outs) -> dict:
-    """The bound of each kernel named in ``outs`` (its outputs) on these
-    inputs.  Operations counted on this run's data: the bit-row mask (K1)
-    packs each of an env-slot's H rows from (W + 6) // 4 32-bit words (7
-    operations a word), ORs in the max_h rows below by shuffles (5
-    operations a row), smears and shifts its two rectangles (10 each),
-    masks the legal row (3) and spends one operation per output byte on
-    the spread store; the bit-row clear (K3) packs its rows likewise, tests
-    and clears each row word (about 8 operations; a band row 2 per region
-    row and 3 per tile with regions) and spends one per output byte; the
-    bit-row apply (K2) packs two words a row, tests, places and clears
-    (about 12) and stores likewise; the bit-row legality (K4) packs each
-    row once, builds its smears (3 operations for each of max_h * max_w
-    shapes), spends about 15 a piece and one per output byte; the general
-    mask and legality test a piece at one anchor with an AND and an OR per
-    cell, the general clear and apply do about 3 and 5 operations a cell; a
-    packed anchor row tests W - piece_w + 1 anchors with 3 operations per
-    footprint word and builds its words with 2 per field (B7, and its words
-    entry B7w, which stores the row word as it is); B1 does about 10 a row
-    word."""
-    import numpy as np
-    import torch
-
-    from blockpuzzle_tpu_torch import rules
-    from blockpuzzle_tpu_torch.kernels.packed import bitboard_tables
-
-    t = rules.tables_for(cfg)
-    n, hw, h, w = board.shape[0], cfg.num_cells, cfg.height, cfg.width
-    slots = cfg.queue_size
-
-    def per_piece(values, empty):
-        return torch.as_tensor(np.append(values, empty), device=queue.device)
-
-    pid = queue.clamp(0, t.num_pieces).long()
-    in_hand = float(per_piece(t.piece_cells, 0)[pid].sum())
-    pack = 7 * ((w + 6) // 4)
-    anchors = float((w - per_piece(t.piece_w, w + 1)[pid] + 1).clamp_min(0).sum())
-    rs = cfg.region_size
-    regions = h * (2 * rs + 3 * (w // rs)) if cfg.region_clear else 0
-    bb = bitboard_tables(cfg) if w <= 32 else None
-    ops = {
-        "mask": lambda: n * slots * (h * (pack + 5 * t.max_h + 23) + hw),
-        "mask_general": lambda: 2 * in_hand * hw,
-        "apply": lambda: n * (h * (2 * pack + 12) + regions + hw),
-        "apply_general": lambda: 5 * n * hw,
-        "clear": lambda: n * (h * (pack + 8) + regions + hw),
-        "clear_general": lambda: 3 * n * hw,
-        "legality": lambda: n * (h * (pack + 3 * t.max_h * t.max_w + 15 * t.num_pieces)
-                                 + t.num_pieces * hw),
-        "legality_general": lambda: 2 * n * float(t.piece_cells.sum()) * hw,
-        "packed_apply": lambda: 10 * n * h,
-        "packed_mask": lambda: h * bb.nwords * (3 * anchors + 2 * bb.fpw * n * slots),
-        "packed_legal_words": lambda: h * bb.nwords * (3 * anchors
-                                                      + 2 * bb.fpw * n * slots),
-    }
-    inputs = {"mask": [board, queue], "mask_general": [board, queue],
-              "apply": [board, cover, valid],
-              "apply_general": [board, cover, valid], "clear": [board],
-              "clear_general": [board], "legality": [board],
-              "legality_general": [board],
-              "packed_apply": [words, attrs, r, c, valid],
-              "packed_mask": [words, queue], "packed_legal_words": [words, queue]}
-    return {k: bound(inputs[k] + list(out if isinstance(out, tuple) else (out,)),
-                     float(ops[k]()))
-            for k, out in outs.items()}
-
-
 def chosen_action(cfg, g):
     """The packed apply kernel's view of (piece, anchor) table rows ``g``:
     attrs (n, 11) ``[h, w, cells, dr1, dc1, h1, w1, dr2, dc2, h2, w2]``,
@@ -445,6 +382,7 @@ def phase1(card: str) -> dict:
     )
     from blockpuzzle_tpu_torch.env.words import pack_bool_mask
     from blockpuzzle_tpu_torch.kernels.packed import pack_words, unpack_words
+    from blockpuzzle_tpu_torch.utils.bounds import kernel_bounds
 
     dev = torch.device("cuda")
     errs = {name: 0 for name in KERNEL_INFO}
@@ -554,9 +492,41 @@ def phase1(card: str) -> dict:
               f"of it ({card})")
     print("[phase1] illegal action on a full-line board: strict no-op (apply, "
           "apply_general, packed_apply)")
+    general_turns(card, "phase1")
     return {k: {"max_abs_err": errs[k], "ms": times[k][0], "plain_ms": times[k][1],
                 "bound_ms": bounds[k]["bound_ms"], "bound_by": bounds[k]["bound_by"],
                 "library_ms": None} for k in errs}
+
+
+def general_turns(card: str, tag: str, rounds: int = 5) -> None:
+    """The four general u8 kernels at N = 49152 on the wide board, each
+    timed by ``cuda_ms`` in turns with the others for ``rounds`` rounds
+    (mask, clear, apply, legality, then again), each kernel's times
+    printed in order."""
+    import torch
+
+    from blockpuzzle_tpu_torch.config import EnvConfig
+    from blockpuzzle_tpu_torch.kernels import (
+        ApplyKernel, ClearScanKernel, LegalityKernel, MaskKernel,
+    )
+
+    dev = torch.device("cuda")
+    cfg = EnvConfig(**WIDE)
+    mk, ck = MaskKernel(cfg, dev), ClearScanKernel(cfg, dev)
+    ak, lk = ApplyKernel(cfg, dev), LegalityKernel(cfg, dev)
+    board, queue, cover, valid = (torch.as_tensor(x, device=dev)
+                                  for x in kernel_inputs(cfg, N_MAIN, seed=0)[:4])
+    calls = {"mask_general": lambda: mk(board, queue), "clear_general": lambda: ck(board),
+             "apply_general": lambda: ak(board, cover, valid),
+             "legality_general": lambda: lk(board)}
+    times = {k: [] for k in calls}
+    for _ in range(rounds):
+        for k, f in calls.items():
+            times[k].append(cuda_ms(f))
+    for k, ts in times.items():
+        print(f"[{tag}] {k} N={N_MAIN} wide 8x40, {rounds} rounds in turns with the "
+              f"other general kernels, device ms: {', '.join(f'{t:.6f}' for t in ts)}; "
+              f"median {statistics.median(ts):.6f} ({card})")
 
 
 def hand_rows(legal_all, queue):
@@ -1647,6 +1617,175 @@ def phase9(card: str, argmax_rate: float) -> dict:
     return paths
 
 
+# the engines of phase 10's property sweep: path -> (make_env arguments,
+# the kernels of its mask and its step)
+PROPERTY_ENGINES = {
+    "properties_packed": (dict(state_impl="packed"), ("packed_mask", "packed_apply")),
+    "properties_u8_jnp": (dict(backend="jnp", state_impl="u8"), ("mask", "clear")),
+    "properties_u8_pallas": (dict(backend="pallas", state_impl="u8"), ("mask", "apply")),
+}
+PROPERTY_PAIRS = 4096
+ROOFLINE_COUNT_KEYS = ("bytes_per_step_env", "flops_per_step_env",
+                       "kernel_bytes_per_step_env", "state_bytes_per_step_env",
+                       "kernel_launches_per_step")
+
+
+def first_bad(ok, what: str) -> None:
+    """Raise on the first False of the (M,) bool array ``ok``, printing its
+    index."""
+    import numpy as np
+
+    bad = np.flatnonzero(~np.asarray(ok))
+    if bad.size:
+        print(f"[phase10] {what}: first mismatch at index {bad[0]} "
+              f"({bad.size} of {len(ok)})")
+        raise AssertionError(f"{what} fails at index {bad[0]}")
+
+
+def property_sweep() -> dict:
+    """The properties of ``tests/test_properties.py`` at batch on the card:
+    ``PROPERTY_PAIRS`` seeded (board, piece, cell) triples, each engine of
+    ``PROPERTY_ENGINES`` on CUDA in one call each: the hand mask against
+    the oracle's on the raw boards; on the boards with their full lines
+    emptied, one step (no auto-reset) leaves no full line, and the reward
+    is the illegal penalty iff the oracle's ``can_place`` refuses the cell,
+    else at least the piece's cells.  Returns each engine's launch
+    counts (mask, step: 2 and 1)."""
+    import numpy as np
+    import torch
+
+    from blockpuzzle_tpu_torch import make_env, rules
+    from blockpuzzle_tpu_torch.config import default_config
+    from blockpuzzle_tpu_torch.oracle import BlockPuzzleOracleEnv
+
+    cfg = default_config()
+    m, hw, w = PROPERTY_PAIRS, cfg.num_cells, cfg.width
+    gen = np.random.default_rng(10)
+    boards = gen.integers(0, 2, (m, cfg.height, w)).astype(np.uint8)
+    pids = gen.integers(0, rules.tables_for(cfg).num_pieces, m)
+    cells = gen.integers(0, hw, m)
+    # full rows emptied, then the columns full after that, as the JAX test does
+    reach = boards.copy()
+    reach[reach.all(axis=2)] = 0
+    reach.transpose(0, 2, 1)[reach.all(axis=1)] = 0
+    oracle = BlockPuzzleOracleEnv(cfg)
+    oracle.reset(seed=0)
+    want_mask, want_legal = np.zeros((m, hw), bool), np.zeros(m, bool)
+    for i in range(m):
+        oracle.board[:] = boards[i]
+        oracle.queue[:] = [pids[i]]
+        want_mask[i] = oracle.legal_action_mask()
+        oracle.board[:] = reach[i]
+        want_legal[i] = oracle.can_place(int(pids[i]), *divmod(int(cells[i]), w))
+    min_reward = rules.tables_for(cfg).piece_cells[pids]
+    zero = dict.fromkeys(KERNEL_INFO, 0)
+    paths = {}
+    for path, (kwargs, (mask_k, step_k)) in PROPERTY_ENGINES.items():
+        env = make_env(cfg, device="cuda", **kwargs)
+        zero_counts(env)
+        queue = torch.as_tensor(pids[:, None], dtype=torch.int32, device=env.device)
+        mask = env.action_mask(env.encode_board(boards), queue).cpu().numpy()
+        first_bad((mask == want_mask).all(axis=1), f"{path}: mask != the oracle's")
+        state, _ = env.init(0, m, deal_override=pids[:, None])
+        state = state.replace(board=env.encode_board(reach))
+        state, ts = env.step(state, torch.as_tensor(cells, device=env.device),
+                             auto_reset=False)
+        out = env.board_obs(state.board).cpu().numpy()
+        first_bad(~(out.all(axis=2).any(axis=1) | out.all(axis=1).any(axis=1)),
+                  f"{path}: a full line left after the step")
+        legal = ts.info["legal"].cpu().numpy()
+        reward = ts.reward.cpu().numpy()
+        first_bad(legal == want_legal, f"{path}: legal != the oracle's can_place")
+        first_bad(np.where(legal, reward >= min_reward, reward == cfg.illegal_penalty),
+                  f"{path}: reward not zero iff illegal")
+        paths[path] = read_counts(env)
+        expect = {**zero, mask_k: 2, step_k: 1}
+        if paths[path] != expect:
+            raise AssertionError(f"{path} launches {paths[path]} != {expect}")
+        print(f"[phase10] {path}: {m} seeded (board, piece, cell) triples on CUDA: "
+              f"mask == the oracle's ({float(want_mask.mean()):.4f} legal), no full "
+              f"line after the step, legal == can_place ({int(legal.sum())} legal), "
+              f"reward zero iff illegal; launches {mask_k} 2, {step_k} 1")
+    return paths
+
+
+def phase10(card: str) -> dict:
+    """The last ported pieces on the card: the roofline of the bench's step
+    at N = 49152 (its count pass's launches held to one B1 and one B7 a
+    step, its count on CUDA equal to the CPU's at N = 1024); the scaling
+    harness (one rank on the card, two ranks sharing it over gloo with
+    their final states bit-equal to one process's, ``--cpu-sim``'s 8 CPU
+    ranks at a small size); the properties at batch on the three engines.
+    Returns the launch counts of the paths ``roofline`` and
+    ``properties_*``."""
+    import math
+
+    import torch
+
+    from blockpuzzle_tpu_torch import bench
+    from blockpuzzle_tpu_torch.scripts import bench_scaling, roofline
+
+    t0 = time.perf_counter()
+    chunk, iters, windows = 400, 2, 3
+    env = bench.make_bench_env(device="cuda")
+    zero_counts(env)
+    rec = roofline.roofline(env, N_MAIN, chunk, True, iters, windows)
+    paths = {"roofline": read_counts(env)}
+    print(f"[phase10] roofline ({card}): {json.dumps(rec)}")
+    # the count pass's chunk, then the bench's warm-up chunk and windows
+    steps = chunk + (1 + iters * windows) * chunk
+    expect = {**dict.fromkeys(KERNEL_INFO, 0), "packed_mask": steps,
+              "packed_apply": steps}
+    if paths["roofline"] != expect:
+        raise AssertionError(f"roofline launches {paths['roofline']} != {expect}")
+    if rec["kernel_launches_per_step"] != {"packed_apply": 1.0, "packed_mask": 1.0}:
+        raise AssertionError(f"count pass launches {rec['kernel_launches_per_step']}")
+    for k in ("pct_of_hbm_bound", "pct_of_core_bound", "pct_of_state_bound"):
+        if not 0.0 < rec[k] <= 100.0:
+            raise AssertionError(f"roofline {k} = {rec[k]}")
+    counts = {dev: roofline.roofline(bench.make_bench_env(device=dev), 1024, 8, False)
+              for dev in ("cuda", "cpu")}
+    differ = [k for k in ROOFLINE_COUNT_KEYS if counts["cuda"][k] != counts["cpu"][k]]
+    if differ:
+        raise AssertionError(f"the roofline's count differs CUDA vs CPU in {differ}: "
+                             f"{[(counts['cuda'][k], counts['cpu'][k]) for k in differ]}")
+    print(f"[phase10] roofline count at N=1024, 8 steps: CUDA == CPU ("
+          + ", ".join(f"{k} {counts['cpu'][k]}" for k in ROOFLINE_COUNT_KEYS)
+          + f"); the roofline part took {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    n, sc_chunk, sc_iters = 4096, 50, 3
+    r = bench_scaling.run([1, 2], "cuda", n, sc_chunk, sc_iters, gather=True)
+    for line in bench_scaling.report(r):
+        print(f"[phase10] bench_scaling ({card}; size 2 is two ranks sharing the card: "
+              f"correctness, not scaling): {line}")
+    for d in (1, 2):
+        want = bench_scaling.unsharded_state("cuda", d * n, sc_chunk, sc_iters)
+        got = r["states"][d]
+        bad = [f for f in vars(want) if not torch.equal(getattr(got, f), getattr(want, f))]
+        if bad:
+            raise AssertionError(f"bench_scaling world {d}: final states differ in {bad}")
+    backends = [x["backend"] for x in r["ranks"][1] + r["ranks"][2]]
+    if backends != ["nccl", "gloo", "gloo"]:
+        raise AssertionError(f"bench_scaling backends {backends}")
+    print(f"[phase10] bench_scaling: world 1 (nccl) and world 2 (gloo, two ranks on "
+          f"the card) final states of {n} envs a rank bit-equal to one process's, "
+          f"after {(1 + sc_iters) * sc_chunk} steps")
+    # --cpu-sim's 8 ranks only: its smaller sizes would add a spawn each
+    sim = bench_scaling.run([bench_scaling.CPU_SIM_RANKS], "cpu", 256, 8, 1)
+    rate = sim["steps_per_s"][bench_scaling.CPU_SIM_RANKS]
+    print(f"[phase10] bench_scaling --cpu-sim's {bench_scaling.CPU_SIM_RANKS} CPU ranks "
+          f"over gloo (the harness, not the card): {rate:.1f} env-steps/s")
+    if not (math.isfinite(rate) and rate > 0):
+        raise AssertionError(f"--cpu-sim rate {rate}")
+    print(f"[phase10] the scaling part took {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    paths.update(property_sweep())
+    print(f"[phase10] the property part took {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -1679,6 +1818,7 @@ def main() -> int:
     paths.update(phase7(card, argmax_rate))
     paths.update(phase8(card))
     paths.update(phase9(card, argmax_rate))
+    paths.update(phase10(card))
 
     kernels = []
     for name, (source, replaces, path) in KERNEL_INFO.items():

@@ -6,7 +6,8 @@ gymnasium, and nothing else imports that module, except the two Gymnasium
 sections of the quickstart (``GYM_SECTIONS``: functions that import
 gymnasium and the surface in their bodies, so that the module and its
 other sections run without gymnasium).  The card machine has none of the
-four.  Parsed with ``ast``, not imported.
+four.  Test files that the card machine runs whole (``CARD_TESTS``)
+import none of the four either.  Parsed with ``ast``, not imported.
 """
 
 import ast
@@ -18,6 +19,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("blockpuzzle_tpu", "jax", "flax", "gymnasium")
 FILES = sorted((ROOT / "blockpuzzle_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
+# test files the card machine runs whole (``--noconftest``)
+CARD_TESTS = [ROOT / "tests" / "test_torch_properties.py"]
 # the one module that may import gymnasium
 GYM_SURFACE = ROOT / "blockpuzzle_tpu_torch" / "vector_env.py"
 GYM_MODULE = "blockpuzzle_tpu_torch.vector_env"
@@ -79,6 +82,14 @@ def test_no_jax_flax_gymnasium_or_jax_package_import(path):
     bad = [(line, name) for line, name in imported_modules(tree)
            if forbidden(name, allowed)]
     assert not bad, f"{path.name} imports {bad}"
+
+
+@pytest.mark.parametrize("path", CARD_TESTS, ids=lambda p: str(p.relative_to(ROOT)))
+def test_card_test_file_imports_no_jax_flax_gymnasium_or_jax_package(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [(line, name) for line, name in imported_modules(tree) if forbidden(name)]
+    assert not bad, f"{path.name} imports {bad}"
+    assert not list(imports_gym_surface(tree)), f"{path.name} imports {GYM_MODULE}"
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -17,6 +17,14 @@ the CPU, each run in process through ``main(argv)`` at a tiny size.
   streams and 1 on two seeds.
 * The quickstart's four sections, and its two Gymnasium sections raising
   ``ImportError`` where gymnasium is missing.
+* ``roofline``: its JSON contract, timed and not; the state floor equal to
+  the hand sum of the ``EnvState`` fields' bytes; the count the same a
+  step an env at two batches; the counted kernels hiding their plain
+  versions' ops from the count and adding ``utils/bounds.py``'s bytes;
+  each step kernel of each engine counted once a step.
+* ``bench_scaling``: a world-2 run's final states, gathered in rank order,
+  bit-equal to one process on both ranks' envs; ``--cpu-sim``'s 8 ranks
+  and JSON contract.
 """
 
 import json
@@ -46,12 +54,15 @@ from blockpuzzle_tpu_torch.scripts import (
     bench_actor,
     bench_backends,
     bench_learner,
+    bench_scaling,
     bench_words,
     profile_ppo,
     profile_step,
+    roofline,
     sweep_ppo,
 )
 from blockpuzzle_tpu_torch.utils import CheckpointManager
+from blockpuzzle_tpu_torch.utils.bounds import COSTS
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -193,6 +204,8 @@ REFUSED = [
     (profile_step, ["--unroll", "4"], "--unroll"),
     (sweep_ppo, ["--platform", "cpu"], "--platform"),
     (bench_actor, ["--platform", "cpu"], "--platform"),
+    (roofline, ["--mask-impl", "shift"], "--mask-impl 'shift' is not ported"),
+    (roofline, ["--mask-dtype", "bool"], "--mask-dtype 'bool' is not ported"),
 ]
 
 
@@ -498,3 +511,162 @@ def test_quickstart_gymnasium_sections_raise_without_gymnasium(section, monkeypa
     args = () if section == "single_env" else ("cpu",)
     with pytest.raises(ImportError):
         getattr(quickstart, section)(*args)
+
+
+# ------------------------------------------------------------- roofline ----
+
+ROOFLINE_COUNT_KEYS = {
+    "flops_per_step_env", "bytes_per_step_env", "kernel_bytes_per_step_env",
+    "state_bytes_per_step_env", "hbm_floor_us_per_batched_step",
+    "hbm_bound_steps_per_s", "core_ops_floor_us_per_batched_step",
+    "core_bound_steps_per_s", "state_floor_us_per_batched_step"}
+ROOFLINE_TIMED_KEYS = {
+    "measured_steps_per_s", "measured_us_per_batched_step", "pct_of_hbm_bound",
+    "pct_of_core_bound", "pct_of_state_bound"}
+ROOFLINE_ARGV = ["--device", "cpu", "--num-envs", "32", "--chunk", "8"]
+
+
+def test_roofline_contract_untimed(capsys):
+    (rec,), _ = run(roofline, ROOFLINE_ARGV + ["--no-time"], capsys)
+    assert set(rec) == {"metric", "num_envs", "chunk", "mask_impl", "device",
+                        "kernel_launches_per_step"} | ROOFLINE_COUNT_KEYS
+    assert (rec["metric"], rec["num_envs"], rec["chunk"], rec["mask_impl"],
+            rec["device"]) == ("roofline", 32, 8, "bitboard", "cpu")
+    assert all(rec[k] > 0 for k in ROOFLINE_COUNT_KEYS)
+    # the packed step: B1 and B7 once a step
+    assert rec["kernel_launches_per_step"] == {"packed_apply": 1.0, "packed_mask": 1.0}
+    assert rec["bytes_per_step_env"] > rec["kernel_bytes_per_step_env"]
+    # floor = bytes of one batched step of N envs over 3.35 TB/s
+    assert rec["hbm_floor_us_per_batched_step"] == pytest.approx(
+        1e6 * rec["bytes_per_step_env"] * 32 / 3.35e12)
+    assert rec["hbm_bound_steps_per_s"] == pytest.approx(
+        32 / (1e-6 * rec["hbm_floor_us_per_batched_step"]))
+
+
+def test_roofline_contract_timed(capsys):
+    (rec,), err = run(roofline, ROOFLINE_ARGV + ["--iters", "1", "--windows", "2"],
+                      capsys)
+    assert ROOFLINE_COUNT_KEYS | ROOFLINE_TIMED_KEYS <= set(rec)
+    assert all(rec[k] > 0 for k in ROOFLINE_COUNT_KEYS | ROOFLINE_TIMED_KEYS)
+    assert all(0 < rec[k] <= 100 for k in ROOFLINE_TIMED_KEYS if k.startswith("pct"))
+    assert rec["measured_us_per_batched_step"] == pytest.approx(
+        1e6 * 32 / rec["measured_steps_per_s"])
+    assert "says nothing of the card" in err
+
+
+def test_roofline_state_floor_is_the_state_fields_bytes():
+    """Default preset: a state of (10,) int64 row words, (1,) int32 queue,
+    int64 key, int32 counter, steps and streak, float32 score, read and
+    written; an int64 action in; 100 mask bools, a float32 reward and two
+    done bools out."""
+    env = bench.make_bench_env(device="cpu")
+    state, _ = env.init(0, 4)
+    fields = sum(getattr(state, f).element_size() * getattr(state, f)[0].numel()
+                 for f in ("board", "queue", "base_key", "rng_counter", "steps",
+                           "score", "streak"))
+    assert fields == 80 + 4 + 8 + 4 + 4 + 4 + 4
+    c = roofline.count_chunk(env, 4, 2)
+    assert c.state_bytes / 4 == 2 * fields + 8 + 100 + 4 + 1 + 1 == 330
+
+
+def test_roofline_count_is_independent_of_the_batch():
+    env = bench.make_bench_env(device="cpu")
+    small, large = (roofline.roofline(env, n, 8, timed=False) for n in (32, 64))
+    for k in ("bytes_per_step_env", "flops_per_step_env"):
+        assert large[k] == pytest.approx(small[k], rel=1e-2), k
+    assert small["kernel_bytes_per_step_env"] == large["kernel_bytes_per_step_env"]
+
+
+def test_counted_kernel_hides_its_plain_ops_and_adds_its_bytes():
+    """On the CPU a kernel wrapper runs its plain version as torch ops:
+    unwrapped, the mode counts them; wrapped, it counts none of them and
+    adds the call's bytes and operations from ``utils/bounds.py``.  The
+    roofline's kernel bytes are B1's plus B7's."""
+    env = bench.make_bench_env(device="cpu")
+    cfg, n = env.cfg, 32
+    words = torch.randint(0, 1 << 10, (n, cfg.height), dtype=torch.int64)
+    queue = torch.randint(0, 20, (n, cfg.queue_size), dtype=torch.int32)
+    bare = roofline.OpCounter()
+    with bare:
+        want = env.packed_mask_kernel(words, queue)
+    assert bare.torch_calls > 0 and bare.torch_bytes > 0
+    counter = roofline.OpCounter()
+    kernel = env.packed_mask_kernel
+    with roofline.counted_kernels(env, counter), counter:
+        got = env.packed_mask_kernel(words, queue)
+        assert env.packed_mask_kernel.cfg is cfg      # other attributes pass through
+    assert env.packed_mask_kernel is kernel           # restored
+    assert torch.equal(got, want)
+    assert (counter.torch_calls, counter.torch_bytes, counter.torch_ops) == (0, 0, 0)
+    assert (counter.kernel_bytes, counter.kernel_ops) == COSTS["packed_mask"](
+        cfg, (words, queue), (want,))
+    assert counter.launches == {"packed_mask": 1}
+
+    rec = roofline.roofline(env, n, 4, timed=False)
+    attrs = torch.zeros((n, 11), dtype=torch.int32)
+    rc = torch.zeros(n, dtype=torch.int32)
+    valid = torch.zeros(n, dtype=torch.bool)
+    b1, _ = COSTS["packed_apply"](cfg, (words, attrs, rc, rc, valid),
+                                  env.packed_apply_kernel(words, attrs, rc, rc, valid))
+    b7, _ = COSTS["packed_mask"](cfg, (words, queue), (want,))
+    assert rec["kernel_bytes_per_step_env"] == (b1 + b7) / n == 218 + 184
+
+
+COUNTED_ENGINES = {
+    "packed": (dict(), "default", ("packed_apply", "packed_mask")),
+    "u8_pallas": (dict(backend="pallas", state_impl="u8"), "default", ("mask", "apply")),
+    "u8_jnp": (dict(backend="jnp", state_impl="u8"), "tenten", ("mask", "clear")),
+    "wide_u8_pallas": (dict(backend="pallas"), "wide",
+                       ("mask_general", "apply_general")),
+}
+
+
+@pytest.mark.parametrize("engine", COUNTED_ENGINES)
+def test_count_chunk_counts_each_step_kernel_once_a_step(engine):
+    from blockpuzzle_tpu_torch import PRESETS, make_env
+    from blockpuzzle_tpu_torch.config import EnvConfig
+
+    kwargs, preset, kernels = COUNTED_ENGINES[engine]
+    cfg = EnvConfig(height=8, width=40) if preset == "wide" else PRESETS[preset]()
+    env = make_env(cfg, device="cpu", **kwargs)
+    c = roofline.count_chunk(env, 16, 3)
+    assert c.launches == dict.fromkeys(kernels, 3)
+    assert c.torch_ops > 0 and c.kernel_bytes > 0 and c.kernel_ops > 0
+    assert sum(c.op_bytes.values()) == c.torch_bytes
+
+
+# -------------------------------------------------------- bench_scaling ----
+
+
+def test_bench_scaling_world2_equals_one_process():
+    """Two gloo ranks of 16 envs each: their final states, gathered in rank
+    order, bit-equal to one process stepping all 32; one rank of 16 to one
+    process of 16."""
+    r = bench_scaling.run([1, 2], "cpu", 16, 4, 1, gather=True)
+    assert list(r["steps_per_s"]) == [1, 2]
+    assert all(v > 0 for v in r["steps_per_s"].values())
+    assert [[(x["backend"], x["device"]) for x in r["ranks"][d]] for d in (1, 2)] == [
+        [("gloo", "cpu")], [("gloo", "cpu")] * 2]
+    for d in (1, 2):
+        want = bench_scaling.unsharded_state("cpu", 16 * d, 4, 1)
+        got = r["states"][d]
+        for f in vars(want):
+            assert torch.equal(getattr(got, f), getattr(want, f)), (d, f)
+    assert int(want.steps.max()) > 0 and int(want.score.sum()) > 0
+    lines = bench_scaling.report(r)
+    assert lines[0].startswith("devices=1:") and "efficiency vs linear: 100.0%" in lines[0]
+    rec = json.loads(lines[-1])
+    assert rec["metric"] == "scaling_efficiency" and rec["devices"] == [1, 2]
+    assert set(rec["steps_per_s"]) == {"1", "2"}
+
+
+def test_bench_scaling_cpu_sim_runs_eight_ranks(capsys):
+    assert bench_scaling.main(["--cpu-sim", "--envs-per-device", "16", "--chunk", "4",
+                               "--iters", "1"]) == 0
+    out = capsys.readouterr().out
+    (rec,) = json_lines(out)
+    assert rec["metric"] == "scaling_efficiency" and rec["devices"] == [1, 2, 4, 8]
+    assert set(rec["steps_per_s"]) == {"1", "2", "4", "8"}
+    assert all(v > 0 for v in rec["steps_per_s"].values())
+    assert [line.split(":")[0] for line in out.splitlines()
+            if line.startswith("devices=")] == [f"devices={d}" for d in (1, 2, 4, 8)]

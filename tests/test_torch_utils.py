@@ -263,3 +263,57 @@ def test_validate_env_state_catches_broken_states(state_impl):
         validate_env_state(env, state.replace(queue=queue))
     with pytest.raises(AssertionError):
         validate_env_state(env, state.replace(board=state.board[:, :-1]))
+
+
+# ------------------------------------------------------------- bounds ----
+
+# the bytes of each kernel's call at N = 49152 on the default preset, in MB,
+# as PERF.md's table of bounds records them (the general kernels' on their
+# 8x40 board)
+RECORDED_MB = {"mask": 10.03, "apply": 15.04, "clear": 10.03, "legality": 98.3,
+               "packed_apply": 10.72, "packed_mask": 9.04, "packed_legal_words": 8.06,
+               "mask_general": 31.65, "apply_general": 47.48, "clear_general": 31.65,
+               "legality_general": 314.6}
+
+
+def kernel_call(name, n):
+    """(cfg, inputs, outputs): CPU tensors of the shapes and dtypes of one
+    call of kernel ``name`` on ``n`` envs (default preset; the general
+    kernels on an 8x40 board)."""
+    from blockpuzzle_tpu_torch import rules
+    from blockpuzzle_tpu_torch.config import EnvConfig
+
+    cfg = (EnvConfig(height=8, width=40) if name.endswith("_general")
+           else PRESETS["default"]())
+    hw, s, h = cfg.num_cells, cfg.queue_size, cfg.height
+    p = rules.tables_for(cfg).num_pieces
+    u8 = lambda *shape: torch.zeros(shape, dtype=torch.uint8)
+    i32 = lambda *shape: torch.zeros(shape, dtype=torch.int32)
+    i64 = lambda *shape: torch.zeros(shape, dtype=torch.int64)
+    b = lambda *shape: torch.zeros(shape, dtype=torch.bool)
+    calls = {
+        "mask": ((u8(n, hw), i32(n, s)), (b(n, s * hw),)),
+        "apply": ((u8(n, hw), u8(n, hw), b(n)), (u8(n, hw), i32(n), b(n))),
+        "clear": ((u8(n, hw),), (u8(n, hw), i32(n))),
+        "legality": ((u8(n, hw),), (b(n, p, hw),)),
+        "packed_apply": ((i64(n, h), i32(n, 11), i32(n), i32(n), b(n)),
+                         (i64(n, h), i32(n), b(n))),
+        "packed_mask": ((i64(n, h), i32(n, s)), (b(n, s * hw),)),
+        "packed_legal_words": ((i64(n, h), i32(n, s)), (i64(n, s * h),)),
+    }
+    return (cfg,) + calls[name.removesuffix("_general")]
+
+
+@pytest.mark.parametrize("name", RECORDED_MB)
+def test_bounds_reproduce_the_recorded_bytes(name):
+    from blockpuzzle_tpu_torch.utils.bounds import COSTS, bound
+
+    cfg, inputs, outputs = kernel_call(name, 49152)
+    nbytes, ops = COSTS[name](cfg, inputs, outputs)
+    digits = 1 if RECORDED_MB[name] > 90 else 2
+    assert round(nbytes / 1e6, digits) == RECORDED_MB[name]
+    b = bound(list(inputs) + list(outputs), ops)
+    assert b["bytes"] == nbytes and b["ops"] == ops and ops > 0
+    by_bytes, by_ops = 1e3 * nbytes / 3.35e12, 1e3 * ops / 67e12
+    assert b["bound_ms"] == max(by_bytes, by_ops)
+    assert b["bound_by"] == ("bytes" if by_bytes >= by_ops else "operations")
