@@ -48,7 +48,7 @@ import torch
 from blockpuzzle_tpu_torch.cli.rollout import device_name, sync
 from blockpuzzle_tpu_torch.config import PRESETS, default_config
 from blockpuzzle_tpu_torch.env import VecBlockPuzzle, make_env
-from blockpuzzle_tpu_torch.env.words import pack_bool_mask, sample_uniform_legal
+from blockpuzzle_tpu_torch.env.words import pack_bool_mask
 from blockpuzzle_tpu_torch.sampler import UniformLegalSampler, WordsSampler
 
 BASELINE_STEPS_PER_S = 10_000_000  # BASELINE.json north-star target
@@ -95,23 +95,26 @@ Policy = Callable[[object, torch.Tensor], torch.Tensor]
 def make_policy(env: VecBlockPuzzle, sampler: str, num_envs: int,
                 seed: int = 1) -> Policy:
     """``policy(state, mask) -> (N,) actions`` of a bench sampler, drawing
-    from ``seed``'s ``rng.TAG_POLICY`` streams.  ``words`` and ``packsel``
-    need a packed engine."""
+    from ``seed``'s ``rng.TAG_POLICY`` streams; ``policy.sampler`` is the
+    sampler.  ``words`` and ``packsel`` need a packed engine."""
     if sampler not in SAMPLERS:
         raise ValueError(f"unknown sampler {sampler!r}; valid: {SAMPLERS}")
     if sampler != "argmax" and env.state_impl != "packed":
         raise ValueError(f"sampler {sampler!r} needs the packed engine")
+    cfg = env.cfg
     if sampler == "argmax":
         draw = UniformLegalSampler(seed, num_envs, env.device)
-        return lambda state, mask: draw(mask)
-    if sampler == "words":
-        words = WordsSampler(seed, num_envs, env.device)
-        return lambda state, mask: words(env, state.board, state.queue)
-    # packsel: WordsSampler's uniform, rank-selected in the packed bool mask
-    draw, cfg = WordsSampler(seed, num_envs, env.device), env.cfg
-    return lambda state, mask: sample_uniform_legal(
-        pack_bool_mask(mask, cfg.height, cfg.width, cfg.queue_size), draw.uniform(),
-        cfg.width)
+        policy = lambda state, mask: draw(mask)
+    elif sampler == "words":
+        draw = WordsSampler(seed, num_envs, env.device)
+        policy = lambda state, mask: draw(env, state.board, state.queue)
+    else:
+        # packsel: WordsSampler's draw, rank-selected in the packed bool mask
+        draw = WordsSampler(seed, num_envs, env.device)
+        policy = lambda state, mask: draw.select(
+            pack_bool_mask(mask, cfg.height, cfg.width, cfg.queue_size), cfg.width)
+    policy.sampler = draw
+    return policy
 
 
 def run_chunk(env: VecBlockPuzzle, state, mask: torch.Tensor, policy: Policy,

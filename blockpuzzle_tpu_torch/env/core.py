@@ -13,6 +13,9 @@ board layouts, with the hand CUDA kernels of ``kernels/``:
   the collision test and the masked place in torch and the clear in
   ``ClearScanKernel`` (``clear_scan``).
 
+On both, every deal (the step's refill and auto-reset draw, ``init``,
+``reset`` and ``partial_reset``) is one launch of ``DealKernel``.
+
 ``legal_all_pieces`` is ``LegalityKernel`` on u8 cells (packed boards are
 unpacked first).  The layouts and backends give the same bits, and one
 ``step`` body serves them all: only the apply block and the mask differ.
@@ -20,9 +23,10 @@ Everything around the kernels is plain torch on the engine's device, and
 one step never waits for the device (no ``.item()``, no branch on tensor
 values).
 
-Deals come from the counter-based streams of ``env/rng.py``; comparisons
-with JAX inject the deal stream through ``deal_override``, as the JAX
-engine's parity mode does.
+Deals come from the counter-based streams of ``env/rng.py`` (``DealKernel``
+on the card, ``rng.deal`` on the CPU); comparisons with JAX inject the
+deal stream through ``deal_override``, as the JAX engine's parity mode
+does.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from blockpuzzle_tpu_torch.env.state import EnvState, TimeStep
 from blockpuzzle_tpu_torch.kernels import (
     ApplyKernel,
     ClearScanKernel,
+    DealKernel,
     LegalityKernel,
     MaskKernel,
     PackedApplyKernel,
@@ -57,8 +62,8 @@ class VecBlockPuzzle:
     words (``state_impl="packed"``) or (N, H*W) uint8 cells (``"u8"``).
 
     The instance holds the configuration, its tables on ``device`` and the
-    kernel wrappers (``mask_kernel``, ``apply_kernel``, ``clear_kernel``,
-    ``legal_kernel``, and, where rows fit a 32-bit word,
+    kernel wrappers (``deal_kernel``, ``mask_kernel``, ``apply_kernel``,
+    ``clear_kernel``, ``legal_kernel``, and, where rows fit a 32-bit word,
     ``packed_apply_kernel`` and ``packed_mask_kernel``); the methods are
     functions of the state they are given.
 
@@ -120,6 +125,7 @@ class VecBlockPuzzle:
             [rules.piece_plane_table(cfg), np.zeros((1, hw), np.uint8)]
         )
         self._plane_table = torch.as_tensor(planes, device=self.device)
+        self.deal_kernel = DealKernel(self.num_pieces, self.device)
         self.mask_kernel = MaskKernel(cfg, self.device)
         self.apply_kernel = ApplyKernel(cfg, self.device)
         self.clear_kernel = ClearScanKernel(cfg, self.device)
@@ -248,9 +254,7 @@ class VecBlockPuzzle:
         dev = self.device
         base_key = rng.stream_keys(seed, num_envs, dev, env_offset)
         if deal_override is None:
-            queue = rng.deal(
-                base_key, 0, rng.TAG_RESET, self.cfg.queue_size, self.num_pieces
-            )
+            queue = self.deal_kernel(base_key, 0, rng.TAG_RESET, self.cfg.queue_size)
         else:
             queue = self._as_queue(deal_override)
         zeros_i = torch.zeros(num_envs, dtype=torch.int32, device=dev)
@@ -271,10 +275,8 @@ class VecBlockPuzzle:
 
     def reset(self, state: EnvState) -> Tuple[EnvState, TimeStep]:
         """Manual full reset of every env (auto-reset usually suffices)."""
-        queue = rng.deal(
-            state.base_key, state.rng_counter, rng.TAG_RESET,
-            self.cfg.queue_size, self.num_pieces,
-        )
+        queue = self.deal_kernel(
+            state.base_key, state.rng_counter, rng.TAG_RESET, self.cfg.queue_size)
         new = state.replace(
             board=torch.zeros_like(state.board),
             queue=queue,
@@ -301,10 +303,8 @@ class VecBlockPuzzle:
         """
         m = torch.as_tensor(reset_mask, device=self.device).to(torch.bool)
         mcol = m[:, None]
-        fresh = rng.deal(
-            state.base_key, state.rng_counter, rng.TAG_RESET,
-            self.cfg.queue_size, self.num_pieces,
-        )
+        fresh = self.deal_kernel(
+            state.base_key, state.rng_counter, rng.TAG_RESET, self.cfg.queue_size)
         queue = torch.where(mcol, fresh, state.queue)
         new = state.replace(
             board=torch.where(mcol, torch.zeros_like(state.board), state.board),
@@ -435,10 +435,8 @@ class VecBlockPuzzle:
             refill_slots = empty
         reset_deals = None
         if deal_override is None:
-            both = rng.deal(
-                state.base_key, state.rng_counter, rng.TAG_STEP, 2 * s,
-                self.num_pieces,
-            )
+            both = self.deal_kernel(state.base_key, state.rng_counter, rng.TAG_STEP,
+                                    2 * s)
             deals, reset_deals = both[:, :s], both[:, s:]
         else:
             deals = self._as_queue(deal_override)
@@ -481,10 +479,8 @@ class VecBlockPuzzle:
         # -- auto-reset ---------------------------------------------------
         if auto_reset:
             if reset_deals is None:  # parity mode with auto-reset
-                reset_deals = rng.deal(
-                    state.base_key, state.rng_counter, rng.TAG_RESET, s,
-                    self.num_pieces,
-                )
+                reset_deals = self.deal_kernel(
+                    state.base_key, state.rng_counter, rng.TAG_RESET, s)
             dcol = done[:, None]
             board_out = torch.where(dcol, torch.zeros_like(board_next), board_next)
             queue_out = torch.where(dcol, reset_deals, queue3)

@@ -20,6 +20,9 @@ The contract follows the JAX engine (``blockpuzzle_tpu/env/core.py``
   * the per-env counter only grows, so no draw is ever replayed.
 JAX's ``rbg`` bits cannot be reproduced; comparisons with JAX inject deals
 (``deal_override``).
+
+On the card the same bits come from the draw kernels (``kernels/draws.py``,
+``csrc/hash32.cuh``): ``deal`` and ``bits`` are their plain versions.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ MASK32 = 0xFFFFFFFF
 TAG_STEP = 0
 TAG_RESET = 1
 TAG_POLICY = 2
-_MAX_LANES = 1 << 16
+MAX_LANES = 1 << 16
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -70,7 +73,7 @@ def bits(key: torch.Tensor, counter, tag: int, width: int) -> torch.Tensor:
 
     ``counter`` is an (N,) integer tensor or a Python int shared by all
     envs."""
-    if not 0 < width <= _MAX_LANES or not 0 <= tag < _MAX_LANES:
+    if not 0 < width <= MAX_LANES or not 0 <= tag < MAX_LANES:
         raise ValueError(f"width {width} / tag {tag} out of range")
     if isinstance(counter, torch.Tensor):
         counter = counter.to(torch.int64) & MASK32

@@ -7,7 +7,8 @@ tensors it launches its kernel (built from ``csrc/`` at first use) or
 raises, and counts each launch in its ``launches`` attribute, a plain int
 (the four u8 wrappers count their general kernels in
 ``general_launches``, the packed mask its words entry in
-``words_launches``).
+``words_launches``).  The draw wrappers (``draws.py``) compute the port's
+counter-based random draws: the deal and the two uniform-legal policies.
 """
 
 from blockpuzzle_tpu_torch.kernels.clear import ClearScanKernel, clear_plain
@@ -16,6 +17,11 @@ from blockpuzzle_tpu_torch.kernels.collision import (
     LegalityKernel,
     apply_plain,
     legality_plain,
+)
+from blockpuzzle_tpu_torch.kernels.draws import (
+    DealKernel,
+    UniformLegalKernel,
+    WordsSelectKernel,
 )
 from blockpuzzle_tpu_torch.kernels.mask import MaskKernel, mask_plain
 from blockpuzzle_tpu_torch.kernels.packed import (
@@ -27,8 +33,8 @@ from blockpuzzle_tpu_torch.kernels.packed import (
 )
 
 __all__ = [
-    "ApplyKernel", "ClearScanKernel", "LegalityKernel", "MaskKernel",
-    "PackedApplyKernel", "PackedMaskKernel",
+    "ApplyKernel", "ClearScanKernel", "DealKernel", "LegalityKernel", "MaskKernel",
+    "PackedApplyKernel", "PackedMaskKernel", "UniformLegalKernel", "WordsSelectKernel",
     "apply_plain", "clear_plain", "legality_plain", "mask_plain",
     "packed_apply_plain", "packed_legal_words_plain", "packed_mask_plain",
 ]

@@ -27,7 +27,7 @@ NVCC_FLAGS = [
     *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_P, _I, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
+_P, _I, _U32, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint64
 # C entry point -> argument types; every pointer and the stream are
 # c_void_p (ctypes would otherwise pass a 32-bit int and cut them).
 SIGNATURES = {
@@ -42,6 +42,9 @@ SIGNATURES = {
     "bp_packed_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "bp_packed_mask": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "bp_packed_words": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "bp_deal": [_P, _P, _U32, _I, _I, _I, _P, _I, _P],
+    "bp_uniform_legal": [_P, _U32, _I, _P, _P, _I, _I, _P],
+    "bp_words_select": [_P, _U32, _I, _P, _P, _I, _I, _I, _P],
 }
 
 

@@ -1,33 +1,38 @@
 """Uniform-legal random policies: the samplers of the JAX bench's rollout.
 
-``UniformLegalSampler`` is the bench's default: an iid u32 draw per action;
-``where(mask, bits | 1, 0)`` keeps every legal draw above the illegal
-zeros, and the argmax picks a legal action uniformly (ties, at odds of
-~2**-32, go to the first index, in torch as in JAX).  ``WordsSampler`` is
-its ``BP_BENCH_SAMPLER=words`` mode: one uniform per env and a rank-select
-over the packed legal words (``env/words.py``).  Plain torch; their hand
-kernel is ROADMAP.md B2.
+``UniformLegalSampler`` is the bench's default: an iid u32 draw per action
+and an argmax over the legal ones (``kernels/draws.py`` ``uniform_legal``).
+``WordsSampler`` is its ``BP_BENCH_SAMPLER=words`` mode: one uniform per
+env and a rank-select over the packed legal words (``env/words.py``).  Each
+call is one launch of its draw kernel (``UniformLegalKernel``,
+``WordsSelectKernel``) on the card, its plain version on the CPU.
 """
 
 from __future__ import annotations
 
+import functools
+from typing import Tuple
+
 import torch
 
 from blockpuzzle_tpu_torch.env import rng
-from blockpuzzle_tpu_torch.env.words import legal_words, sample_uniform_legal
+from blockpuzzle_tpu_torch.env.words import legal_words
+from blockpuzzle_tpu_torch.kernels.draws import (
+    UniformLegalKernel,
+    WordsSelectKernel,
+    uniform_from_bits,
+    uniform_legal,
+)
+
+__all__ = ["UniformLegalSampler", "WordsSampler", "policy_kernels",
+           "uniform_from_bits", "uniform_legal"]
 
 
-def uniform_legal(mask: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
-    """(N,) int64 actions from an (N, A) bool mask and (N, A) u32 draws
-    (held in int64).  A row with no legal action gives action 0."""
-    return torch.where(mask, bits | 1, 0).argmax(dim=1)
-
-
-def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
-    """float32 uniforms in [0, 1) from u32 draws (held in int64): the top
-    23 bits as the mantissa, ``float32(bits >> 9) * 2**-23``, bit for bit
-    what ``jax.random.uniform`` makes of the same u32 bits."""
-    return (bits >> 9).to(torch.float32) * 2.0 ** -23
+@functools.cache
+def policy_kernels(device: torch.device) -> Tuple[UniformLegalKernel, WordsSelectKernel]:
+    """The draw kernels' wrappers that every sampler on ``device`` shares,
+    so that a run's policy draws are one launch count a device."""
+    return UniformLegalKernel(device), WordsSelectKernel(device)
 
 
 class UniformLegalSampler:
@@ -39,11 +44,12 @@ class UniformLegalSampler:
     def __init__(self, seed: int, num_envs: int, device, env_offset: int = 0) -> None:
         self.key = rng.stream_keys(seed, num_envs, device, env_offset)
         self.counter = 0
+        self.kernel = policy_kernels(self.key.device)[0]
 
     def __call__(self, mask: torch.Tensor) -> torch.Tensor:
-        bits = rng.bits(self.key, self.counter, rng.TAG_POLICY, mask.shape[1])
+        actions = self.kernel(self.key, self.counter, mask)
         self.counter += 1
-        return uniform_legal(mask, bits)
+        return actions
 
 
 class WordsSampler:
@@ -57,13 +63,15 @@ class WordsSampler:
     def __init__(self, seed: int, num_envs: int, device, env_offset: int = 0) -> None:
         self.key = rng.stream_keys(seed, num_envs, device, env_offset)
         self.counter = 0
+        self.kernel = policy_kernels(self.key.device)[1]
 
-    def uniform(self) -> torch.Tensor:
-        """The call's (N,) float32 uniforms (one counter value)."""
-        bits = rng.bits(self.key, self.counter, rng.TAG_POLICY, 1)[:, 0]
+    def select(self, words: torch.Tensor, width: int) -> torch.Tensor:
+        """(N,) actions from (N, S*H) legal row words of a board ``width``
+        cells wide: the call's draw (one counter value) and the
+        rank-select."""
+        actions = self.kernel(self.key, self.counter, words, width)
         self.counter += 1
-        return uniform_from_bits(bits)
+        return actions
 
     def __call__(self, env, board: torch.Tensor, queue: torch.Tensor) -> torch.Tensor:
-        return sample_uniform_legal(
-            legal_words(env, board, queue), self.uniform(), env.cfg.width)
+        return self.select(legal_words(env, board, queue), env.cfg.width)

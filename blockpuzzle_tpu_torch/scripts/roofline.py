@@ -22,10 +22,11 @@ one chunk itself, in a pass of its own that is never timed:
 * hand kernels: they launch through ctypes, which the mode never sees on
   the card, while on the CPU the same call runs its plain version as torch
   ops, which the mode does see.  For the count pass only, the engine's
-  kernel wrappers are wrapped (``counted_kernels``): each call runs with
-  the count paused and adds the bytes and operations that
-  ``utils/bounds.py`` gives for the call's own tensors, so both devices
-  count the same work.  The engine itself is unchanged.
+  kernel wrappers (the deal's among them) and the policy's draw kernel are
+  wrapped (``counted_kernels``): each call runs with the count paused and
+  adds the bytes and operations that ``utils/bounds.py`` gives for the
+  call's own tensors, so both devices count the same work.  The engine and
+  the sampler are otherwise unchanged.
 * the state floor: the least any implementation of the step must move,
   each ``EnvState`` field read and written once, the action in and the
   mask, reward and done flags out (``state_floor_bytes``).
@@ -88,9 +89,15 @@ REDUCTIONS = frozenset({"sum", "any", "all", "argmax", "argmin", "amax", "amin",
 FREE = frozenset({"empty", "empty_like", "empty_strided", "new_empty",
                   "new_empty_strided", "_unsafe_view"})
 # the engine's step kernels: attribute -> kernel name in ``COSTS``
-STEP_KERNELS = {"mask_kernel": "mask", "apply_kernel": "apply",
+STEP_KERNELS = {"deal_kernel": "deal", "mask_kernel": "mask", "apply_kernel": "apply",
                 "clear_kernel": "clear", "packed_apply_kernel": "packed_apply",
                 "packed_mask_kernel": "packed_mask"}
+# the u8 wrappers, which pick their general kernels where a row word is too
+# narrow (no launch shape)
+U8_KERNELS = ("mask_kernel", "apply_kernel", "clear_kernel")
+# a sampler's draw kernel: sampler class name -> kernel name in ``COSTS``
+POLICY_KERNELS = {"UniformLegalSampler": "uniform_legal",
+                  "WordsSampler": "words_select"}
 
 
 def read_bytes(t: torch.Tensor) -> int:
@@ -157,30 +164,37 @@ class CountedKernel:
         self._kernel, self._name, self._counter = kernel, name, counter
 
     def __call__(self, *args):
-        return self._counter.kernel(self._name, self._kernel.cfg, self._kernel, args)
+        cfg = getattr(self._kernel, "cfg", None)  # the draws are bound to no config
+        return self._counter.kernel(self._name, cfg, self._kernel, args)
 
     def __getattr__(self, attr):
         return getattr(self._kernel, attr)
 
 
 @contextlib.contextmanager
-def counted_kernels(env: VecBlockPuzzle, counter: OpCounter):
-    """The engine's step kernels replaced by ``CountedKernel``s inside the
-    block (a u8 wrapper's general kernel where it has no launch shape);
-    restored after it."""
+def counted_kernels(env: VecBlockPuzzle, counter: OpCounter, sampler=None):
+    """The engine's step kernels (a u8 wrapper's general kernel where it
+    has no launch shape) and ``sampler``'s draw kernel replaced by
+    ``CountedKernel``s inside the block; restored after it."""
     saved = {attr: getattr(env, attr) for attr in STEP_KERNELS}
+    draw = None if sampler is None else sampler.kernel
     try:
         for attr, name in STEP_KERNELS.items():
             k = saved[attr]
             if k is None:
                 continue
-            general = k.shape is None and not attr.startswith("packed")
+            general = attr in U8_KERNELS and k.shape is None
             setattr(env, attr, CountedKernel(k, f"{name}_general" if general else name,
                                              counter))
+        if sampler is not None:
+            sampler.kernel = CountedKernel(draw, POLICY_KERNELS[type(sampler).__name__],
+                                           counter)
         yield
     finally:
         for attr, k in saved.items():
             setattr(env, attr, k)
+        if sampler is not None:
+            sampler.kernel = draw
 
 
 def state_floor_bytes(state, action: torch.Tensor, ts) -> int:
@@ -223,7 +237,7 @@ def count_chunk(env: VecBlockPuzzle, num_envs: int, chunk: int, seed: int = 0) -
         floor = state_floor_bytes(state, first, ts)
         policy = bench.make_policy(env, "argmax", num_envs, seed + 1)
         counter = OpCounter()
-        with counted_kernels(env, counter), counter:
+        with counted_kernels(env, counter, policy.sampler), counter:
             bench.run_chunk(env, state, ts.action_mask, policy, chunk)
     return Count(num_envs, chunk, counter.torch_bytes, counter.torch_ops,
                  counter.kernel_bytes, counter.kernel_ops, dict(counter.launches),

@@ -24,7 +24,13 @@ and legality test a piece at one anchor with an AND and an OR per cell,
 the general clear and apply do about 3 and 5 operations a cell; a packed
 anchor row tests W - piece_w + 1 anchors with 3 operations per footprint
 word and builds its words with 2 per field (B7, and its words entry B7w,
-which stores the row word as it is); B1 does about 10 a row word.
+which stores the row word as it is); B1 does about 10 a row word.  The
+draws (B9, B2, B2w) fold an env's key and counter in three 8-operation
+mixes and 3 XORs (27 operations) and hash a lane in one more mix and 3
+operations (11); B2 spends 3 more a lane on the select and the running
+maximum, B2w 2 a word on the popcount total, 2 a word up to the chosen one
+on the search, about 10 on the uniform and the rank and 20 on the 5-step
+rank-select.
 """
 
 from __future__ import annotations
@@ -46,7 +52,10 @@ Cost = Callable[[EnvConfig, Tensors, Tensors], Tuple[int, float]]
 
 
 def nbytes(tensors: Tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
+    """Bytes of the tensors among ``tensors`` (a call's Python ints, such
+    as a deal's shared counter, move none)."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if isinstance(t, torch.Tensor))
 
 
 def bound(tensors: Tensors, ops: float) -> dict:
@@ -149,6 +158,31 @@ def _packed_mask(cfg, inputs):
                                      + 2 * bb.fpw * queue.shape[0] * cfg.queue_size)
 
 
+# operations of the draws: the per-env fold of key and counter, one lane
+FOLD_OPS, LANE_OPS = 27, 11
+
+
+def _deal(cfg, inputs):
+    """B9: inputs (key (N,) i64, counter, tag, width)."""
+    return inputs[0].shape[0] * (FOLD_OPS + LANE_OPS * inputs[3])
+
+
+def _uniform_legal(cfg, inputs):
+    """B2: inputs (key (N,) i64, counter, mask (N, A) bool)."""
+    n, a = inputs[2].shape
+    return n * (FOLD_OPS + (LANE_OPS + 3) * a)
+
+
+def _words_select(cfg: EnvConfig, inputs: Tensors, outputs: Tensors) -> Tuple[int, float]:
+    """B2w: inputs (key (N,) i64, counter, words (N, S*H) i64, width), output
+    the (N,) actions; the search's words are counted on the call's data,
+    up to each env's chosen word (``action // width``)."""
+    key, _, words, width = inputs
+    searched = float((outputs[0] // width + 1).sum())
+    ops = key.shape[0] * (FOLD_OPS + LANE_OPS + 2 * words.shape[1] + 30) + 2 * searched
+    return nbytes(list(inputs) + list(outputs)), float(ops)
+
+
 COSTS: Dict[str, Cost] = {
     "mask": _cost(_mask), "mask_general": _cost(_mask_general),
     "apply": _cost(_apply), "apply_general": _cost(_apply_general),
@@ -156,6 +190,8 @@ COSTS: Dict[str, Cost] = {
     "legality": _cost(_legality), "legality_general": _cost(_legality_general),
     "packed_apply": _cost(_packed_apply), "packed_mask": _cost(_packed_mask),
     "packed_legal_words": _cost(_packed_mask),
+    "deal": _cost(_deal), "uniform_legal": _cost(_uniform_legal),
+    "words_select": _words_select,
 }
 
 

@@ -9,8 +9,12 @@ which raises on failure (non-zero exit, no result line):
 
   0. card name and power limit, torch/CUDA versions, compute capability,
      kernel build time;
-  1. each of the eleven kernels against its plain torch version on the
-     card, bit-equal, at N = 49152 and a ragged N = 49151: the bit-row u8
+  1. each of the fourteen kernels against its plain torch version on the
+     card, bit-equal, at N = 49152 and a ragged N = 49151: the three draws
+     (deal, uniform_legal, words_select: ``kernels/draws.py``) on the four
+     presets, at per-env counters that wrap negative and at shared ones
+     up to 2**32 - 1, on the masks and legal words of the boards below
+     (empty rows among them), every action drawn legal; the bit-row u8
      kernels (mask, clear, apply, legality) and the packed kernels
      (packed_apply, packed_mask and its words entry packed_legal_words) on
      the default, tenten, woodoku and big presets, on boards holding full
@@ -26,6 +30,11 @@ which raises on failure (non-zero exit, no result line):
      version's time (50 calls made as the host goes), at N = 49152 on the
      default preset (the general kernels on the wide board); then the four
      general kernels timed in turns for 5 rounds (``general_turns``);
+     then the default packed rollout (N = 49152, 64 steps) through the
+     draw kernels and with their plain versions swapped in, with the
+     argmax and the words sampler (the paths ``draws_argmax`` and
+     ``draws_words``): actions, rewards, done flags and final states
+     bit-equal;
   2. the whole rollout on CUDA and on CPU from one seed (N = 1024, 64
      steps, live deals, auto-reset) on the packed engine (every preset)
      and on the u8 apply-kernel (``backend="pallas"``) and clear-kernel
@@ -132,16 +141,21 @@ which raises on failure (non-zero exit, no result line):
      the oracle's, no full line after a step, the reward zero iff the
      oracle's ``can_place`` refuses the cell.
 
+Every path's counts include the draws: ``deal`` once a step and once an
+``init`` (not where ``init`` is given the hand), and the sampler's kernel
+(``uniform_legal`` or ``words_select``) once a call.
+
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is the count
 on the path named in its ``path``; ``launches_by_path`` gives the count on
-every path read.  The packed kernels have no Pallas source: their
-``replaces`` names the JAX package's jnp code.  ``bound_ms`` is the larger
+every path read.  The packed kernels and the draws have no Pallas source:
+their ``replaces`` names the JAX package's jnp code (the argmax draw's the
+root ``bench.py``'s).  ``bound_ms`` is the larger
 of the bytes the kernel must move (each input read once, each output
 written once) over 3.35 TB/s and its integer operations on this run's
 inputs over 67 T/s (the H100's CUDA-core rate); ``library_ms`` is null:
 no single PyTorch call computes a legal mask (as bools or as row words), a
-place-and-clear or a clear-scan.
+place-and-clear, a clear-scan or a counter-based draw.
 """
 
 from __future__ import annotations
@@ -183,8 +197,18 @@ KERNEL_INFO = {
                     "blockpuzzle_tpu/env/core.py:489", "rollout"),
     "packed_legal_words": ("blockpuzzle_tpu_torch/kernels/csrc/packed_mask.cu",
                            "blockpuzzle_tpu/env/words.py:78", "rollout_words"),
+    "deal": ("blockpuzzle_tpu_torch/kernels/csrc/draws.cu",
+             "blockpuzzle_tpu/env/core.py:317", "rollout"),
+    "uniform_legal": ("blockpuzzle_tpu_torch/kernels/csrc/draws.cu", "bench.py:161",
+                      "rollout"),
+    "words_select": ("blockpuzzle_tpu_torch/kernels/csrc/draws.cu",
+                     "blockpuzzle_tpu/env/words.py:43", "rollout_words"),
 }
-NO_PALLAS_SOURCE = ("packed_apply", "packed_mask", "packed_legal_words")
+NO_PALLAS_SOURCE = ("packed_apply", "packed_mask", "packed_legal_words", "deal",
+                    "uniform_legal", "words_select")
+# the draws: the deal once a step and once an ``init`` on every engine path,
+# a sampler's kernel once a call
+DRAWS = ("deal", "uniform_legal", "words_select")
 # the JAX CLI's defaults: conv torso, --state-impl auto (packed)
 TRAIN_ARGV = ["--preset", "default", "--num-envs", "4096", "--rollout-len",
               "64", "--epochs", "2", "--minibatches", "4", "--updates", "3",
@@ -204,9 +228,16 @@ TRAIN_DQN_U8_ARGV = TRAIN_DQN_ARGV + ["--updates", "3", "--torso", "mlp",
 
 
 def kernel_counters(env) -> dict:
-    """kernel -> (its wrapper on ``env``, the wrapper's counter of its
-    launches); the packed wrappers are None on a board too wide for them."""
-    return {"mask": (env.mask_kernel, "launches"),
+    """kernel -> (its wrapper on ``env``, or the samplers' shared one on
+    ``env``'s device, and the wrapper's counter of its launches); the packed
+    wrappers are None on a board too wide for them."""
+    from blockpuzzle_tpu_torch.sampler import policy_kernels
+
+    uniform, words = policy_kernels(env.device)
+    return {"deal": (env.deal_kernel, "launches"),
+            "uniform_legal": (uniform, "launches"),
+            "words_select": (words, "launches"),
+            "mask": (env.mask_kernel, "launches"),
             "mask_general": (env.mask_kernel, "general_launches"),
             "apply": (env.apply_kernel, "launches"),
             "apply_general": (env.apply_kernel, "general_launches"),
@@ -228,6 +259,12 @@ def zero_counts(env) -> None:
 def read_counts(env) -> dict:
     return {name: getattr(k, attr) if k is not None else 0
             for name, (k, attr) in kernel_counters(env).items()}
+
+
+def expected(**counts) -> dict:
+    """Every kernel's expected launches on a path: ``counts``, 0 for the
+    rest."""
+    return {**dict.fromkeys(KERNEL_INFO, 0), **counts}
 
 
 def card_line() -> str:
@@ -483,6 +520,7 @@ def phase1(card: str) -> dict:
         bounds.update(kernel_bounds(cfg, board, queue, cover, valid, words, attrs,
                                     r, c, {k: f() for k, (f, _) in calls.items()}))
         times.update({k: (cuda_ms(f), host_paced_ms(g)) for k, (f, g) in calls.items()})
+    phase1_draws(errs, times, bounds)
     for k, (ms, plain_ms) in times.items():
         b = bounds[k]
         where = "wide 8x40" if k.endswith("_general") else "default"
@@ -496,6 +534,153 @@ def phase1(card: str) -> dict:
     return {k: {"max_abs_err": errs[k], "ms": times[k][0], "plain_ms": times[k][1],
                 "bound_ms": bounds[k]["bound_ms"], "bound_by": bounds[k]["bound_by"],
                 "library_ms": None} for k in errs}
+
+
+def draw_inputs(cfg, n: int, seed: int):
+    """Inputs of the draw kernels: stream keys from a seed above 2**32,
+    per-env int32 counters that wrap negative, and the legal mask and legal
+    row words of ``kernel_inputs``'s boards and hands (empty hand slots
+    give empty rows)."""
+    import torch
+
+    from blockpuzzle_tpu_torch.env import rng
+    from blockpuzzle_tpu_torch.kernels import PackedMaskKernel
+    from blockpuzzle_tpu_torch.kernels.packed import pack_words
+
+    dev = torch.device("cuda")
+    key = rng.stream_keys(2**32 + seed, n, dev)
+    c = (torch.arange(n, dtype=torch.int64, device=dev) * 40503 + 2**31 - 7) & 0xFFFFFFFF
+    counter = torch.where(c >= 2**31, c - 2**32, c).to(torch.int32)
+    board, queue = (torch.as_tensor(x, device=dev) for x in kernel_inputs(cfg, n, seed)[:2])
+    pmk = PackedMaskKernel(cfg, dev)
+    words = pack_words(board.view(n, cfg.height, cfg.width))
+    return key, counter, pmk(words, queue), pmk.words(words, queue)
+
+
+def phase1_draws(errs: dict, times: dict, bounds: dict) -> None:
+    """The draw kernels (B9, B2, B2w) against their plain versions on the
+    four presets at N = 49152 and 49151, bit-equal: the step's 2S-wide
+    deal at per-env counters, the reset deal at one counter (0 and 2**32 -
+    1), each policy draw at counters 0, 2**31 and 2**32 - 1; every drawn
+    action legal where its row has one, action 0 where not.  Then each
+    one's device time, plain time and bound at N = 49152 on the default
+    preset, into ``times`` and ``bounds``."""
+    import torch
+
+    from blockpuzzle_tpu_torch import rules
+    from blockpuzzle_tpu_torch.config import PRESETS
+    from blockpuzzle_tpu_torch.env import rng
+    from blockpuzzle_tpu_torch.kernels import DealKernel, UniformLegalKernel, WordsSelectKernel
+    from blockpuzzle_tpu_torch.utils.bounds import COSTS, bound
+
+    dev = torch.device("cuda")
+    ul, ws = UniformLegalKernel(dev), WordsSelectKernel(dev)
+    for name in PACKED_PRESETS:
+        cfg = PRESETS[name]()
+        s, w = cfg.queue_size, cfg.width
+        dk = DealKernel(rules.tables_for(cfg).num_pieces, dev)
+        for n in (N_MAIN, N_MAIN - 1):
+            key, counter, mask, words = draw_inputs(cfg, n, n)
+            what = f"{name}, N={n}"
+            for c, tag, width in ((counter, rng.TAG_STEP, 2 * s), (0, rng.TAG_RESET, s),
+                                  (2**32 - 1, rng.TAG_RESET, s)):
+                check_equal([dk(key, c, tag, width)], [dk.plain(key, c, tag, width)],
+                            what, errs, "deal")
+            rows = torch.arange(n, device=dev)
+            legal = mask.any(dim=1)
+            for c in (0, 2**31, 2**32 - 1):
+                for k, got, want in (
+                        ("uniform_legal", ul(key, c, mask), ul.plain(key, c, mask)),
+                        ("words_select", ws(key, c, words, w),
+                         ws.plain(key, c, words, w))):
+                    check_equal([got], [want], what, errs, k)
+                    if not (bool(mask[rows, got][legal].all())
+                            and not bool(got[~legal].any())):
+                        raise AssertionError(f"{k} drew an illegal action ({what})")
+            print(f"[phase1] {what}: deal (2S-wide at per-env counters, S-wide at "
+                  f"0 and 2**32 - 1), uniform_legal and words_select (counters 0, "
+                  f"2**31, 2**32 - 1; {int((~legal).sum())} empty rows) == plain "
+                  "(bit-equal), every action legal")
+    cfg = PRESETS["default"]()
+    dk = DealKernel(rules.tables_for(cfg).num_pieces, dev)
+    key, counter, mask, words = draw_inputs(cfg, N_MAIN, 0)
+    args = {"deal": (dk, (key, counter, rng.TAG_STEP, 2 * cfg.queue_size)),
+            "uniform_legal": (ul, (key, 7, mask)),
+            "words_select": (ws, (key, 7, words, cfg.width))}
+    for k, (kernel, a) in args.items():
+        out = kernel(*a)
+        bounds[k] = bound(list(a) + [out], COSTS[k](cfg, a, (out,))[1])
+        times[k] = (cuda_ms(lambda: kernel(*a)), host_paced_ms(lambda: kernel.plain(*a)))
+
+
+def draws_rollout(sampler: str, plain: bool, n: int, steps: int):
+    """The default packed rollout on the card from one seed, actions from
+    ``sampler`` (``"argmax"`` or ``"words"``), through the draw kernels or,
+    with ``plain``, with their plain versions swapped in (the engine's
+    deal and the sampler's draw).  Returns every step's actions, rewards
+    and done flags, the final state (on the CPU) and the launch counts."""
+    import torch
+
+    from blockpuzzle_tpu_torch import PRESETS, make_env
+    from blockpuzzle_tpu_torch.sampler import UniformLegalSampler, WordsSampler
+
+    class Plain:
+        """A draw wrapper's plain version in its place."""
+
+        def __init__(self, kernel):
+            self.plain = kernel.plain
+
+        def __call__(self, *args):
+            return self.plain(*args)
+
+    env = make_env(PRESETS["default"](), device="cuda")
+    draw = (UniformLegalSampler if sampler == "argmax" else WordsSampler)(8, n, env.device)
+    if plain:
+        env.deal_kernel, draw.kernel = Plain(env.deal_kernel), Plain(draw.kernel)
+    zero_counts(env)
+    state, ts = env.init(7, n)
+    trace = []
+    for _ in range(steps):
+        a = draw(ts.action_mask) if sampler == "argmax" else draw(env, state.board,
+                                                                   state.queue)
+        state, ts = env.step(state, a)
+        trace.append(torch.stack([a, ts.reward.view(torch.int32).long(),
+                                  ts.terminated.long(), ts.truncated.long()]))
+    return torch.stack(trace).cpu(), state.to("cpu"), read_counts(env)
+
+
+def draws_check() -> dict:
+    """The default packed rollout (N = 49152, 64 steps, live deals,
+    auto-reset) through the draw kernels and with their plain versions
+    swapped in, for the argmax and the words sampler: actions, rewards,
+    done flags and final states bit-equal; the kernel run's launches at
+    one deal a step (and one at init) and one draw a step, the plain run's
+    at none of the draws.  Returns the kernel runs' launch counts (the
+    paths ``draws_argmax``, ``draws_words``)."""
+    import torch
+
+    steps, paths = 64, {}
+    fields = ("board", "queue", "base_key", "rng_counter", "steps", "score", "streak")
+    for sampler, draw, per_step in (
+            ("argmax", "uniform_legal", ("packed_mask", "packed_apply")),
+            ("words", "words_select",
+             ("packed_mask", "packed_apply", "packed_legal_words"))):
+        (tk, sk, ck), (tp, sp, cp) = (draws_rollout(sampler, plain, N_MAIN, steps)
+                                      for plain in (False, True))
+        common = dict.fromkeys(per_step, steps)
+        if ck != expected(**common, deal=steps + 1, **{draw: steps}) or cp != expected(
+                **common):
+            raise AssertionError(f"draws rollout {sampler}: launches {ck}, plain {cp}")
+        if not torch.equal(tk, tp) or not all(
+                torch.equal(getattr(sk, f), getattr(sp, f)) for f in fields):
+            raise AssertionError(f"draws rollout {sampler}: kernels != plain versions")
+        paths[f"draws_{sampler}"] = ck
+        print(f"[phase1] draws, default packed rollout N={N_MAIN} {steps} steps, "
+              f"{sampler} sampler: actions, rewards, done flags "
+              f"({int(tk[:, 2].sum())} terminated) and final states bit-equal through "
+              f"the kernels and through their plain versions; launches deal "
+              f"{ck['deal']}, {draw} {ck[draw]} (plain run: 0)")
+    return paths
 
 
 def general_turns(card: str, tag: str, rounds: int = 5) -> None:
@@ -554,7 +739,6 @@ def phase2():
 
     n, steps = 1024, 64
     fields = ("queue", "base_key", "rng_counter", "steps", "score", "streak")
-    zero = dict.fromkeys(KERNEL_INFO, 0)
     # engine -> (make_env arguments, kernels launched once per step: on the
     # presets, on the wide board)
     engines = {"packed": (dict(backend="jnp", state_impl="packed"),
@@ -582,7 +766,9 @@ def phase2():
                     state, ts = env.step(state, sampler(ts.action_mask))
                     total = total + ts.reward.sum(dtype=torch.float64)
                 if dev == "cuda":
-                    counts, expect = read_counts(env), {**zero, **dict.fromkeys(per_step, steps)}
+                    counts = read_counts(env)
+                    expect = expected(**dict.fromkeys(per_step, steps), deal=steps + 1,
+                                      uniform_legal=steps)
                     if counts != expect:
                         raise AssertionError(
                             f"{name} {engine} launch counts {counts} != {expect}")
@@ -607,14 +793,15 @@ def phase2():
               f"every other engine on CUDA (final states bit-equal), summed reward "
               f"{rewards[run[0], 'cuda']}, launches per step "
               + "; ".join(f"{e}: " + " ".join(f"{k}=1" for k in engines[e][1 + wide])
-                          for e in run))
+                          for e in run) + ", deal=1 and uniform_legal=1 on each (deal "
+              "once more at init)")
         legal_name = "legality_general" if wide else "legality"
         for engine in run:
             env, state = envs[engine]
             zero_counts(env)
             legal_all = env.legal_all_pieces(state.board)
             counts = read_counts(env)
-            if counts != {**zero, legal_name: 1}:
+            if counts != expected(**{legal_name: 1}):
                 raise AssertionError(f"{name} legal_all_pieces launches {counts}")
             if wide:
                 paths["wide_legal_all_pieces"] = counts
@@ -644,7 +831,6 @@ def phase3(card: str):
 
     chunk, windows = 400, 5
     steps = (windows + 1) * chunk
-    zero = dict.fromkeys(KERNEL_INFO, 0)
     paths = {}
     for path, kwargs, per_step in (
             ("rollout", {}, ("packed_mask", "packed_apply")),
@@ -653,7 +839,8 @@ def phase3(card: str):
         zero_counts(env)
         r = rollout(env, N_MAIN, chunk, windows, seed=0)
         paths[path] = read_counts(env)
-        expect = {**zero, **dict.fromkeys(per_step, steps)}
+        expect = expected(**dict.fromkeys(per_step, steps), deal=steps + 1,
+                          uniform_legal=steps)
         if paths[path] != expect:
             raise AssertionError(f"{path} path launches {paths[path]} != {expect}")
         s = r["state"]
@@ -681,7 +868,7 @@ def phase3(card: str):
     zero_counts(packed_env)
     legal_all = packed_env.legal_all_pieces(final.board)
     paths["legal_all_pieces"] = read_counts(packed_env)
-    expect = {**zero, "legality": 1}
+    expect = expected(legality=1)
     if paths["legal_all_pieces"] != expect:
         raise AssertionError(
             f"legal_all_pieces launches {paths['legal_all_pieces']} != {expect}")
@@ -778,8 +965,9 @@ def train_path(card: str, argv, kernels) -> dict:
     launches = read_counts(env)
     t = args.rollout_len
     mask_kernel, apply_kernel = kernels
-    expect = {**dict.fromkeys(KERNEL_INFO, 0), mask_kernel: args.updates * (t + 1),
-              apply_kernel: args.updates * t}
+    # the deal: once a step and once at init
+    expect = expected(**{mask_kernel: args.updates * (t + 1),
+                         apply_kernel: args.updates * t}, deal=args.updates * t + 1)
     if launches != expect:
         raise AssertionError(f"training path launches {launches} != {expect}")
     m = r["metrics"]
@@ -912,8 +1100,8 @@ def dqn_path(card: str, argv, kernels, ckpt_dir: str) -> dict:
     launches = read_counts(env)
     k = cfg.collect_steps
     mask_kernel, apply_kernel = kernels
-    expect = {**dict.fromkeys(KERNEL_INFO, 0), mask_kernel: args.updates * (k + 1),
-              apply_kernel: args.updates * k}
+    expect = expected(**{mask_kernel: args.updates * (k + 1),
+                         apply_kernel: args.updates * k}, deal=args.updates * k + 1)
     if launches != expect:
         raise AssertionError(f"DQN path launches {launches} != {expect}")
     state, m = r["state"], r["metrics"]
@@ -1135,14 +1323,15 @@ def phase7(card: str, argmax_rate: float) -> dict:
     from blockpuzzle_tpu_torch.env.autoreset import MODES
 
     n, steps = 1024, 64
-    zero = dict.fromkeys(KERNEL_INFO, 0)
     per_step = ("packed_apply", "packed_mask", "packed_legal_words")
     fields = ("board", "queue", "rng_counter", "steps", "score", "streak")
     for name in PACKED_PRESETS:
         cfg = PRESETS[name]()
         (sg, rg, ag, lg, env), (sc, rc, ac, lc, _) = (
             words_rollout(cfg, dev, n, steps) for dev in ("cuda", "cpu"))
-        counts, expect = read_counts(env), {**zero, **dict.fromkeys(per_step, steps)}
+        counts = read_counts(env)
+        expect = expected(**dict.fromkeys(per_step, steps), deal=steps + 1,
+                          words_select=steps)
         if counts != expect:
             raise AssertionError(f"{name} words rollout launches {counts} != {expect}")
         if not (lg and lc):
@@ -1154,14 +1343,17 @@ def phase7(card: str, argmax_rate: float) -> dict:
             raise AssertionError(f"{name}: words rollout final states differ")
         print(f"[phase7] {name} words rollout N={n} {steps} steps: actions, final "
               f"states and summed reward ({rg}) CUDA == CPU, every action legal, "
-              f"launches per step " + " ".join(f"{k}=1" for k in per_step))
+              f"launches per step " + " ".join(f"{k}=1" for k in per_step)
+              + " deal=1 words_select=1 (deal once more at init)")
 
     env = make_env(PRESETS["default"](), device="cuda")
     zero_counts(env)
     chunk, windows = 400, 5
     r = rollout(env, N_MAIN, chunk, windows, seed=0, sampler="words")
     counts = read_counts(env)
-    expect = {**zero, **dict.fromkeys(per_step, (windows + 1) * chunk)}
+    steps = (windows + 1) * chunk
+    expect = expected(**dict.fromkeys(per_step, steps), deal=steps + 1,
+                      words_select=steps)
     if counts != expect:
         raise AssertionError(f"rollout_words launches {counts} != {expect}")
     mean_return = r["episode_return"] / max(r["episodes"], 1)
@@ -1377,9 +1569,9 @@ def dist_path(card: str, name: str, argv, runs, kernels, per_update, tmp: str) -
     print(f"[phase8] {name} unsharded (one process, {args.num_envs} envs): "
           f"{r['env_steps_per_s']:.1f} env-steps/s ({card})")
     mask_kernel, apply_kernel = kernels
-    expect = {**dict.fromkeys(KERNEL_INFO, 0),
-              mask_kernel: args.updates * per_update[0],
-              apply_kernel: args.updates * per_update[1]}
+    expect = expected(**{mask_kernel: args.updates * per_update[0],
+                         apply_kernel: args.updates * per_update[1]},
+                      deal=args.updates * per_update[1] + 1)
     metric_keys = (("loss", "q_mean", "td_abs") if algo == "dqn" else
                    ("loss", "policy_loss", "value_loss", "entropy"))
     first = None
@@ -1397,8 +1589,8 @@ def dist_path(card: str, name: str, argv, runs, kernels, per_update, tmp: str) -
         rec = records[0]
         print(f"[phase8] {name} {label}: world {world}, backend {rec['backend']} on "
               f"{rec['device']}, {rec['local_envs']} envs a rank; every rank launched "
-              f"{mask_kernel} {per_update[0]} and {apply_kernel} {per_update[1]} times "
-              f"an update; {line}")
+              f"{mask_kernel} {per_update[0]} and {apply_kernel} and deal {per_update[1]} "
+              f"times an update (deal once more at init); {line}")
         print(f"[phase8] {name} {label}: {rec['env_steps_per_s']:.1f} global "
               f"env-steps/s ({card}); a correctness run, not a scaling figure"
               + (": two processes share one card over a host-staged gloo transport"
@@ -1528,7 +1720,6 @@ def phase9(card: str, argmax_rate: float) -> dict:
     from blockpuzzle_tpu_torch.learn import PPO, PPOConfig
     from blockpuzzle_tpu_torch.scripts import bench_actor, bench_learner, sweep_ppo
 
-    zero = dict.fromkeys(KERNEL_INFO, 0)
     fields = ("queue", "rng_counter", "steps", "score", "streak")
     paths, finals = {}, {}
     chunk, iters, windows = 400, 2, 3
@@ -1538,7 +1729,9 @@ def phase9(card: str, argmax_rate: float) -> dict:
         zero_counts(env)
         r = bench.bench_device(env, N_MAIN, sampler, chunk, iters, windows)
         paths[path] = read_counts(env)
-        expect = {**zero, **dict.fromkeys(per_step, steps)}
+        draw = "uniform_legal" if sampler == "argmax" else "words_select"
+        expect = expected(**dict.fromkeys(per_step, steps), deal=steps + 1,
+                          **{draw: steps})
         if paths[path] != expect:
             raise AssertionError(f"{path} launches {paths[path]} != {expect}")
         check_final_state(env, r["state"], path)
@@ -1568,7 +1761,8 @@ def phase9(card: str, argmax_rate: float) -> dict:
         path = f"actor_{torso}"
         paths[path] = read_counts(env)
         taken = len(rates) * (1 + iters * windows) * chunk
-        expect = {**zero, "packed_mask": taken, "packed_apply": taken}
+        # the deal once a step and once an ``init``, one a policy
+        expect = expected(packed_mask=taken, packed_apply=taken, deal=taken + len(rates))
         if paths[path] != expect:
             raise AssertionError(f"{path} launches {paths[path]} != {expect}")
         for policy, rate in rates.items():
@@ -1596,8 +1790,10 @@ def phase9(card: str, argmax_rate: float) -> dict:
             rollout = args.updates * args.rollout_len
             per = sweep_ppo.EVAL_CHUNK
             evaluated = max(1, args.eval_steps // per) * per
-            expect = {**zero, "packed_apply": rollout + evaluated,
-                      "packed_mask": rollout + args.updates + evaluated}
+            # the deal once a step, at ``PPO.init`` and at the evaluation's
+            expect = expected(packed_apply=rollout + evaluated,
+                              packed_mask=rollout + args.updates + evaluated,
+                              deal=rollout + evaluated + 2)
             if counts != expect:
                 raise AssertionError(f"sweep launches {counts} != {expect}")
             paths["sweep"] = counts
@@ -1678,7 +1874,6 @@ def property_sweep() -> dict:
         oracle.board[:] = reach[i]
         want_legal[i] = oracle.can_place(int(pids[i]), *divmod(int(cells[i]), w))
     min_reward = rules.tables_for(cfg).piece_cells[pids]
-    zero = dict.fromkeys(KERNEL_INFO, 0)
     paths = {}
     for path, (kwargs, (mask_k, step_k)) in PROPERTY_ENGINES.items():
         env = make_env(cfg, device="cuda", **kwargs)
@@ -1699,13 +1894,14 @@ def property_sweep() -> dict:
         first_bad(np.where(legal, reward >= min_reward, reward == cfg.illegal_penalty),
                   f"{path}: reward not zero iff illegal")
         paths[path] = read_counts(env)
-        expect = {**zero, mask_k: 2, step_k: 1}
+        # the step draws one deal (``init`` is given the hand)
+        expect = expected(**{mask_k: 2, step_k: 1}, deal=1)
         if paths[path] != expect:
             raise AssertionError(f"{path} launches {paths[path]} != {expect}")
         print(f"[phase10] {path}: {m} seeded (board, piece, cell) triples on CUDA: "
               f"mask == the oracle's ({float(want_mask.mean()):.4f} legal), no full "
               f"line after the step, legal == can_place ({int(legal.sum())} legal), "
-              f"reward zero iff illegal; launches {mask_k} 2, {step_k} 1")
+              f"reward zero iff illegal; launches {mask_k} 2, {step_k} 1, deal 1")
     return paths
 
 
@@ -1732,13 +1928,16 @@ def phase10(card: str) -> dict:
     rec = roofline.roofline(env, N_MAIN, chunk, True, iters, windows)
     paths = {"roofline": read_counts(env)}
     print(f"[phase10] roofline ({card}): {json.dumps(rec)}")
-    # the count pass's chunk, then the bench's warm-up chunk and windows
+    # the count pass's chunk, then the bench's warm-up chunk and windows; a
+    # deal at each of the two inits, one more draw for the count pass's
+    # first action (the state floor's)
     steps = chunk + (1 + iters * windows) * chunk
-    expect = {**dict.fromkeys(KERNEL_INFO, 0), "packed_mask": steps,
-              "packed_apply": steps}
+    expect = expected(packed_mask=steps, packed_apply=steps, deal=steps + 2,
+                      uniform_legal=steps + 1)
     if paths["roofline"] != expect:
         raise AssertionError(f"roofline launches {paths['roofline']} != {expect}")
-    if rec["kernel_launches_per_step"] != {"packed_apply": 1.0, "packed_mask": 1.0}:
+    if rec["kernel_launches_per_step"] != {"packed_apply": 1.0, "packed_mask": 1.0,
+                                           "deal": 1.0, "uniform_legal": 1.0}:
         raise AssertionError(f"count pass launches {rec['kernel_launches_per_step']}")
     for k in ("pct_of_hbm_bound", "pct_of_core_bound", "pct_of_state_bound"):
         if not 0.0 < rec[k] <= 100.0:
@@ -1808,11 +2007,12 @@ def main() -> int:
         print(f"[phase0] ptxas: {line}")
 
     measured = phase1(card)
+    draw_paths = draws_check()
     legal_errs, wide_paths = phase2()
     for k, err in legal_errs.items():
         measured[k]["max_abs_err"] = max(measured[k]["max_abs_err"], err)
     rollout_paths, argmax_rate = phase3(card)
-    paths = {**rollout_paths, **phase4(card), **wide_paths}
+    paths = {**rollout_paths, **phase4(card), **wide_paths, **draw_paths}
     phase5()
     paths.update(phase6(card))
     paths.update(phase7(card, argmax_rate))

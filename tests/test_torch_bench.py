@@ -16,7 +16,8 @@ the repo's ``bench.py``, on the CPU.
   words) and reward sums bit-equal, on the packed engine, u8 with the
   apply kernel (``pallas``, JAX's Pallas kernels in interpret mode) and u8
   with the clear kernel (``jnp``), and with the words sampler.  The draws
-  are injected in the test only, by replacing the samplers' ``rng.bits``;
+  are injected in the test only, by replacing the ``rng.bits`` of the
+  policy draw kernels' plain versions (``kernels/draws.py``);
   the deals by a test-side engine wrapper.
 """
 
@@ -32,8 +33,9 @@ import torch
 from blockpuzzle_tpu import config as jcfg
 from blockpuzzle_tpu.env import make_env as jax_make_env
 from blockpuzzle_tpu.env import words as jwords
-from blockpuzzle_tpu_torch import bench, sampler
+from blockpuzzle_tpu_torch import bench
 from blockpuzzle_tpu_torch.env import rng
+from blockpuzzle_tpu_torch.kernels import draws as kernel_draws
 from blockpuzzle_tpu_torch.env.words import legal_words
 
 # ------------------------------------------------------------------ knobs ----
@@ -247,14 +249,15 @@ def key_chain_bits(key, steps, shape):
 
 
 def inject_policy_bits(monkeypatch, draws):
-    """The samplers' ``rng.bits`` replaced by ``draws[counter]``."""
+    """The policy draw kernels' ``rng.bits`` (their plain versions' on the
+    CPU) replaced by ``draws[counter]``."""
     def bits(key, counter, tag, width):
         assert tag == rng.TAG_POLICY
         d = torch.as_tensor(draws[counter])
         return d.reshape(d.shape[0], -1)[:, :width]
 
-    monkeypatch.setattr(sampler, "rng", types.SimpleNamespace(
-        stream_keys=rng.stream_keys, TAG_POLICY=rng.TAG_POLICY, bits=bits))
+    monkeypatch.setattr(kernel_draws, "rng", types.SimpleNamespace(
+        **{**vars(rng), "bits": bits}))
 
 
 CASES = {"packed": ("packed", "jnp", "argmax"), "u8-pallas": ("u8", "pallas", "argmax"),

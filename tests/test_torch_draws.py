@@ -1,0 +1,522 @@
+"""The draw kernels of the port (``blockpuzzle_tpu_torch/kernels/draws.py``,
+``csrc/draws.cu`` on ``csrc/hash32.cuh``): the deal (B9), the argmax
+uniform-legal draw (B2) and the words rank-select (B2w).
+
+The CUDA kernels cannot run here, so numpy ``uint32`` emulations of their
+arithmetic as the sources write it (wrapping 32-bit multiplies, ``__umulhi``,
+B2's lane-strided maxima and xor-shuffle reduction, B2w's float32 product
+and word search) are held bit-equal to the wrappers' plain versions on
+every preset, at N in {1, 33, 1000}, at counters 0, 1, 2**31 - 1, 2**31
+and 2**32 - 1 (ints and int32 tensors, wrapped negative where they pass
+2**31 - 1), with keys from seeds at and above 2**32, tags 0, 1 and 2 and
+widths 1, 2S and A; B2 also on forced ties and empty rows, B2w on empty
+masks.  Against JAX: B2's select, given injected bits, equals the root
+``bench.py``'s ``jnp.argmax(jnp.where(mask, bits | 1, 0))``; B2w, given the
+uniform ``jax.random.uniform`` draws, equals
+``blockpuzzle_tpu.env.words.sample_uniform_legal``.  Everything compared is
+an integer and must be bit-equal.
+
+JAX is imported inside the tests that use it, so the ``gpu`` tests run on
+a machine without it: ``python -m pytest --noconftest -m gpu
+tests/test_torch_draws.py``.
+"""
+
+import inspect
+
+import numpy as np
+import pytest
+import torch
+
+from blockpuzzle_tpu_torch import PRESETS, make_env, rules
+from blockpuzzle_tpu_torch.env import rng
+from blockpuzzle_tpu_torch.kernels import (
+    DealKernel,
+    UniformLegalKernel,
+    WordsSelectKernel,
+    _build,
+)
+from blockpuzzle_tpu_torch.kernels.draws import uniform_from_bits, uniform_legal
+from blockpuzzle_tpu_torch.sampler import UniformLegalSampler, WordsSampler, policy_kernels
+
+ALL_PRESETS = ["default", "tenten", "woodoku", "big"]
+SIZES = [1, 33, 1000]
+COUNTERS = [0, 1, 2**31 - 1, 2**31, 2**32 - 1]
+SEEDS = [2**32, 2**32 + 12345, 2**63 + 5]
+U32 = np.uint32
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the CPU has only the plain versions)")
+    return torch.device("cuda")
+
+
+# ------------------------------------------------- the kernels, in numpy ----
+
+
+def mix32(x: np.ndarray) -> np.ndarray:
+    """``hash32.cuh`` ``mix32`` on uint32 arrays (multiplies wrap)."""
+    x = np.array(x, dtype=np.uint32, ndmin=1)
+    x ^= x >> U32(16)
+    x *= U32(0x21F0AAAD)
+    x ^= x >> U32(15)
+    x *= U32(0xD35A2D97)
+    return x ^ (x >> U32(15))
+
+
+def stream_hash(key: np.ndarray, counter: np.ndarray) -> np.ndarray:
+    """``stream_hash``: the int64 key's low word, its high word and the
+    counter, each XORed in before a mix."""
+    k = np.asarray(key, dtype=np.int64).view(np.uint64)
+    lo = (k & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    hi = (k >> np.uint64(32)).astype(np.uint32)
+    h = mix32(lo ^ U32(0x243F6A88))
+    h = mix32(h ^ hi)
+    return mix32(h ^ counter)
+
+
+def lane_bits(h: np.ndarray, tag: int, lane: np.ndarray) -> np.ndarray:
+    return mix32(h ^ ((U32(tag) << U32(16)) | lane.astype(np.uint32)))
+
+
+def counters_u32(counter, n: int) -> np.ndarray:
+    """The kernels' ``uint32_t`` counter of each env: an int32 tensor's
+    bits, or one Python int mod 2**32."""
+    if isinstance(counter, torch.Tensor):
+        return counter.numpy().view(np.uint32)
+    return np.full(n, counter % 2**32, dtype=np.uint32)
+
+
+def emulate_deal(key, counter, tag: int, width: int, num_pieces: int) -> np.ndarray:
+    """``deal_kernel``: thread i of N * width takes env i / width, lane
+    i % width, and stores ``__umulhi(bits, P)``."""
+    n = key.shape[0]
+    i = np.arange(n * width)
+    env, lane = i // width, i % width
+    c = counters_u32(counter, n)[env]
+    bits = lane_bits(stream_hash(key.numpy()[env], c), tag, lane)
+    hi = (bits.astype(np.uint64) * np.uint64(num_pieces)) >> np.uint64(32)
+    return hi.astype(np.int32).reshape(n, width)
+
+
+def emulate_warp_argmax(mask: np.ndarray, bits: np.ndarray) -> np.ndarray:
+    """``uniform_legal_kernel``'s select on (N, A) bools and u32 draws:
+    lane l keeps the strict maximum of actions l, l + 32, ... (starting
+    from (0, l)), then five xor shuffles keep the larger value, on a tie
+    the lower index."""
+    n, a = mask.shape
+    v = np.where(mask, bits.astype(np.uint32) | U32(1), U32(0)).astype(np.uint32)
+    lanes = np.arange(32)
+    best = np.zeros((n, 32), np.uint32)
+    idx = np.broadcast_to(lanes, (n, 32)).copy()
+    for start in range(0, a, 32):
+        act = start + lanes
+        ok = act < a
+        cand = np.zeros((n, 32), np.uint32)
+        cand[:, ok] = v[:, act[ok]]
+        take = ok & (cand > best)
+        best, idx = np.where(take, cand, best), np.where(take, act, idx)
+    for off in (16, 8, 4, 2, 1):
+        ov, oi = best[:, lanes ^ off], idx[:, lanes ^ off]
+        take = (ov > best) | ((ov == best) & (oi < idx))
+        best, idx = np.where(take, ov, best), np.where(take, oi, idx)
+    assert (idx == idx[:, :1]).all()  # every lane ends on the same action
+    return idx[:, 0].astype(np.int64)
+
+
+def emulate_uniform_legal(key, counter: int, mask: torch.Tensor) -> np.ndarray:
+    n, a = mask.shape
+    h = stream_hash(key.numpy(), counters_u32(counter, n))
+    bits = lane_bits(h[:, None], rng.TAG_POLICY, np.arange(a)[None, :])
+    return emulate_warp_argmax(mask.numpy(), bits)
+
+
+def emulate_select(words: np.ndarray, u: np.ndarray, width: int) -> np.ndarray:
+    """``words_select_kernel``'s thread per env, given its float32 uniform:
+    the popcount total, r = min(trunc(u * float(total)), total - 1), the
+    first word whose running count passes r and the 5-step rank-select;
+    action 0 where total is 0."""
+    out = np.zeros(words.shape[0], np.int64)
+    for e, row in enumerate(words.astype(np.uint64) & np.uint64(0xFFFFFFFF)):
+        w = [int(x) for x in row]
+        total = sum(bin(x).count("1") for x in w)
+        if total == 0:
+            continue
+        r = min(int(np.float32(u[e]) * np.float32(total)), total - 1)
+        k, prev = 0, 0
+        while prev + bin(w[k]).count("1") <= r:
+            prev += bin(w[k]).count("1")
+            k += 1
+        rem, pos = r - prev, 0
+        for span in (16, 8, 4, 2, 1):
+            c = bin(w[k] & (((1 << span) - 1) << pos)).count("1")
+            if rem >= c:
+                rem, pos = rem - c, pos + span
+        out[e] = k * width + pos
+    return out
+
+
+def emulate_words_select(key, counter: int, words: torch.Tensor, width: int) -> np.ndarray:
+    n = key.shape[0]
+    bits = lane_bits(stream_hash(key.numpy(), counters_u32(counter, n)), rng.TAG_POLICY,
+                     np.zeros(n, np.int64))
+    u = (bits >> U32(9)).astype(np.float32) * np.float32(2.0 ** -23)
+    return emulate_select(words.numpy(), u, width)
+
+
+# ------------------------------------------------------------ inputs ----
+
+
+def keys(n: int, seed: int) -> torch.Tensor:
+    return rng.stream_keys(seed, n, "cpu")
+
+
+def counter_forms(n: int):
+    """Each of ``COUNTERS`` as an int and as an (N,) int32 tensor (its
+    uint32 bits: 2**31 and up wrap negative), and a tensor of mixed
+    counters."""
+    for c in COUNTERS:
+        yield c
+        yield torch.full((n,), c, dtype=torch.int64).to(torch.int32)
+    mixed = np.random.default_rng(n).integers(0, 2**32, n, dtype=np.uint64)
+    yield torch.as_tensor(mixed.astype(np.uint32).view(np.int32))
+
+
+def legal_masks(n: int, a: int, seed: int) -> torch.Tensor:
+    """(N, A) masks of mixed density, every 7th row empty."""
+    g = np.random.default_rng(seed)
+    mask = g.random((n, a)) < g.random((n, 1))
+    mask[::7] = False
+    return torch.as_tensor(mask)
+
+
+def legal_row_words(cfg, n: int, seed: int) -> torch.Tensor:
+    """(N, S*H) int64 row words of W bits each, of mixed density, every
+    5th row empty."""
+    g = np.random.default_rng(seed)
+    sh = cfg.queue_size * cfg.height
+    words = g.integers(0, 1 << cfg.width, (n, sh))
+    words &= -(g.random((n, sh)) < g.random((n, 1))).astype(np.int64)
+    words[::5] = 0
+    return torch.as_tensor(words, dtype=torch.int64)
+
+
+def test_counter_forms_wrap_negative():
+    forms = list(counter_forms(3))
+    wrapped = forms[COUNTERS.index(2**31) * 2 + 1]
+    assert wrapped.dtype == torch.int32 and int(wrapped[0]) == -(2**31)
+    assert int(forms[COUNTERS.index(2**32 - 1) * 2 + 1][0]) == -1
+
+
+# ------------------------------------------- emulations == plain versions ----
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("preset", ALL_PRESETS)
+def test_deal_emulation_matches_plain(preset, n):
+    cfg = PRESETS[preset]()
+    num_pieces = rules.tables_for(cfg).num_pieces
+    kernel = DealKernel(num_pieces, "cpu")
+    s, a = cfg.queue_size, cfg.num_actions()
+    for seed in SEEDS:
+        key = keys(n, seed)
+        assert bool(((key >> 32) != 0).all())  # the high word takes part
+        for counter in counter_forms(n):
+            for tag in (rng.TAG_STEP, rng.TAG_RESET, rng.TAG_POLICY):
+                for width in (1, 2 * s) + ((a,) if tag == rng.TAG_POLICY else ()):
+                    got = kernel(key, counter, tag, width)
+                    assert got.dtype == torch.int32 and got.shape == (n, width)
+                    assert got.is_contiguous()
+                    want = emulate_deal(key, counter, tag, width, num_pieces)
+                    np.testing.assert_array_equal(got.numpy(), want, (seed, tag, width))
+    assert kernel.launches == 0
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("preset", ALL_PRESETS)
+def test_uniform_legal_emulation_matches_plain(preset, n):
+    cfg = PRESETS[preset]()
+    kernel = UniformLegalKernel("cpu")
+    mask = legal_masks(n, cfg.num_actions(), n)
+    for seed in SEEDS:
+        key = keys(n, seed)
+        for counter in COUNTERS:
+            got = kernel(key, counter, mask)
+            np.testing.assert_array_equal(got.numpy(),
+                                          emulate_uniform_legal(key, counter, mask))
+            assert bool(mask[torch.arange(n), got][mask.any(dim=1)].all())
+            assert not bool(got[~mask.any(dim=1)].any())
+    assert kernel.launches == 0
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("preset", ALL_PRESETS)
+def test_words_select_emulation_matches_plain(preset, n):
+    cfg = PRESETS[preset]()
+    kernel = WordsSelectKernel("cpu")
+    words = legal_row_words(cfg, n, n)
+    for seed in SEEDS:
+        key = keys(n, seed)
+        for counter in COUNTERS:
+            got = kernel(key, counter, words, cfg.width)
+            np.testing.assert_array_equal(
+                got.numpy(), emulate_words_select(key, counter, words, cfg.width))
+    assert kernel.launches == 0
+
+
+@pytest.mark.parametrize("actions", [1, 31, 100, 243, 300, 768])
+def test_warp_argmax_breaks_ties_to_the_lowest_index(actions):
+    """Draws from {0, ..., 3} (so ``bits | 1`` is 1 or 3: ties in every
+    row, across lanes and strides), all-equal draws, and empty rows: the
+    emulated warp select equals the plain ``uniform_legal``."""
+    g = np.random.default_rng(actions)
+    n = 500
+    mask = g.random((n, actions)) < g.random((n, 1))
+    mask[::9] = False
+    for bits in (g.integers(0, 4, (n, actions)), np.full((n, actions), 7),
+                 g.integers(0, 2**32, (n, actions))):
+        want = uniform_legal(torch.as_tensor(mask), torch.as_tensor(bits, dtype=torch.int64))
+        np.testing.assert_array_equal(emulate_warp_argmax(mask, bits), want.numpy())
+    same = np.full((n, actions), 7)
+    first = np.where(mask.any(axis=1), mask.argmax(axis=1), 0)
+    np.testing.assert_array_equal(emulate_warp_argmax(mask, same), first)
+
+
+def test_uniform_legal_empty_rows_give_action_zero():
+    key = keys(40, 2**32)
+    mask = torch.zeros((40, 100), dtype=torch.bool)
+    assert not UniformLegalKernel("cpu")(key, 3, mask).any()
+    assert not emulate_uniform_legal(key, 3, mask).any()
+
+
+def test_words_select_empty_masks_give_action_zero():
+    key = keys(40, 2**32)
+    words = torch.zeros((40, 30), dtype=torch.int64)
+    assert not WordsSelectKernel("cpu")(key, 3, words, 10).any()
+    assert not emulate_words_select(key, 3, words, 10).any()
+    # a single legal bit anywhere is always the action
+    words[torch.arange(40), torch.arange(40) % 30] = 1 << 9
+    want = (torch.arange(40) % 30) * 10 + 9
+    assert torch.equal(WordsSelectKernel("cpu")(key, 5, words, 10), want)
+    np.testing.assert_array_equal(emulate_words_select(key, 5, words, 10), want.numpy())
+
+
+# -------------------------------------------------------- against JAX ----
+
+
+@pytest.mark.parametrize("actions", [100, 243, 300, 768])
+def test_warp_argmax_matches_jax_bench_select(actions):
+    """Given the same u32 bits (with forced ties), the emulated B2 select
+    equals the root ``bench.py``'s ``jnp.argmax(jnp.where(mask, bits | 1,
+    0), axis=1)``."""
+    import jax.numpy as jnp
+
+    g = np.random.default_rng(actions + 1)
+    n = 300
+    mask = g.random((n, actions)) < g.random((n, 1))
+    mask[::11] = False
+    for bits in (g.integers(0, 2**32, (n, actions)), g.integers(0, 4, (n, actions))):
+        bits = bits.astype(np.uint32)
+        want = jnp.argmax(jnp.where(jnp.asarray(mask), jnp.asarray(bits) | 1, 0), axis=1)
+        np.testing.assert_array_equal(emulate_warp_argmax(mask, bits), np.asarray(want))
+
+
+@pytest.mark.parametrize("preset", ALL_PRESETS)
+def test_words_select_matches_jax_sample_uniform_legal(preset):
+    """Given the uniform ``jax.random.uniform(key, (n,))`` draws, the
+    emulated B2w select equals JAX's ``sample_uniform_legal`` with that
+    key, and so does the plain version fed the same uniform."""
+    import jax
+    import jax.numpy as jnp
+
+    from blockpuzzle_tpu.env import words as jwords
+
+    from blockpuzzle_tpu_torch.env.words import sample_uniform_legal
+
+    cfg = PRESETS[preset]()
+    n = 257
+    words = legal_row_words(cfg, n, 3)
+    words_j = jnp.asarray(words.numpy().astype(np.uint32))
+    for k in range(4):
+        key = jax.random.key(100 + k)
+        u = np.asarray(jax.random.uniform(key, (n,)))
+        want = np.asarray(jwords.sample_uniform_legal(words_j, key, cfg.width))
+        np.testing.assert_array_equal(emulate_select(words.numpy(), u, cfg.width), want)
+        np.testing.assert_array_equal(
+            sample_uniform_legal(words, torch.as_tensor(u.copy()), cfg.width).numpy(), want)
+
+
+def test_uniform_from_bits_matches_the_kernel_uniform():
+    bits = np.array([0, 1, 511, 512, 2**31, 2**32 - 1, 0xDEADBEEF], np.uint32)
+    want = (bits >> U32(9)).astype(np.float32) * np.float32(2.0 ** -23)
+    got = uniform_from_bits(torch.as_tensor(bits.astype(np.int64)))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want.view(np.uint32))
+
+
+# ----------------------------------------------------------- wrappers ----
+
+
+WRAPPERS = {DealKernel: (20,), UniformLegalKernel: (), WordsSelectKernel: ()}
+
+
+@pytest.mark.parametrize("wrapper", list(WRAPPERS), ids=lambda w: w.__name__)
+def test_draw_wrappers_default_to_the_card(wrapper, monkeypatch):
+    """Built without a device, a wrapper asks ``_build.resolve_device`` for
+    CUDA: where there is no card it raises, and never runs the plain
+    version on the CPU."""
+    args = WRAPPERS[wrapper]
+    assert inspect.signature(wrapper).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        assert wrapper(*args).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            wrapper(*args)
+    asked = []
+    monkeypatch.setattr(_build, "resolve_device",
+                        lambda device: asked.append(device) or torch.device("cpu"))
+    wrapper(*args)
+    assert asked == ["cuda"]
+
+
+def test_draw_wrappers_route_cpu_tensors_to_their_plain_versions(monkeypatch):
+    """On the CPU each wrapper returns its plain version's result and
+    launches nothing; the library is never loaded."""
+    monkeypatch.setattr(_build, "library", lambda: pytest.fail("library loaded"))
+    n, key = 17, keys(17, 2**32)
+    counter = torch.arange(n, dtype=torch.int32) - 5
+    deal = DealKernel(19, "cpu")
+    assert torch.equal(deal(key, counter, rng.TAG_STEP, 2),
+                       rng.deal(key, counter, rng.TAG_STEP, 2, 19))
+    assert torch.equal(deal(key, 0, rng.TAG_RESET, 3), rng.deal(key, 0, rng.TAG_RESET, 3, 19))
+    mask = legal_masks(n, 100, 1)
+    ul = UniformLegalKernel("cpu")
+    assert torch.equal(ul(key, 4, mask),
+                       uniform_legal(mask, rng.bits(key, 4, rng.TAG_POLICY, 100)))
+    cfg = PRESETS["tenten"]()
+    words = legal_row_words(cfg, n, 2)
+    ws = WordsSelectKernel("cpu")
+    assert torch.equal(ws(key, 4, words, cfg.width), ws.plain(key, 4, words, cfg.width))
+    assert (deal.launches, ul.launches, ws.launches) == (0, 0, 0)
+
+
+def test_draw_wrappers_refuse_what_the_kernels_do_not_take():
+    key = keys(4, 1)
+    deal, ul, ws = DealKernel(19, "cpu"), UniformLegalKernel("cpu"), WordsSelectKernel("cpu")
+    with pytest.raises(ValueError, match="int32"):
+        deal(key, torch.zeros(4, dtype=torch.int64), 0, 2)
+    with pytest.raises(ValueError, match="int32"):
+        deal(key, torch.zeros(3, dtype=torch.int32), 0, 2)
+    with pytest.raises(ValueError, match="out of range"):
+        deal(key, 0, 1 << 16, 2)
+    with pytest.raises(ValueError, match="key"):
+        deal(key.to(torch.int32), 0, 0, 2)
+    with pytest.raises(ValueError, match="Python int"):
+        ul(key, torch.zeros(4, dtype=torch.int32), torch.ones((4, 9), dtype=torch.bool))
+    with pytest.raises(ValueError, match="bool"):
+        ul(key, 0, torch.ones((4, 9), dtype=torch.uint8))
+    with pytest.raises(ValueError, match="int64"):
+        ws(key, 0, torch.ones((4, 9), dtype=torch.int32), 10)
+    with pytest.raises(ValueError, match="width"):
+        ws(key, 0, torch.ones((4, 9), dtype=torch.int64), 33)
+
+
+class Recorder:
+    """A kernel wrapper that records each call's arguments and result."""
+
+    def __init__(self, kernel):
+        self.kernel, self.calls = kernel, []
+
+    def __call__(self, *args):
+        out = self.kernel(*args)
+        self.calls.append((args, out))
+        return out
+
+
+@pytest.mark.parametrize("state_impl", ["packed", "u8"])
+def test_every_engine_deal_goes_through_the_deal_kernel(state_impl):
+    """``init``, the step (live deals, and the parity mode's auto-reset
+    deal), ``reset`` and ``partial_reset`` each deal once through the
+    engine's ``deal_kernel``, with ``rng.deal``'s arguments."""
+    env = make_env(PRESETS["tenten"](), device="cpu", state_impl=state_impl)
+    assert isinstance(env.deal_kernel, DealKernel) and env.deal_kernel.device == env.device
+    rec = env.deal_kernel = Recorder(env.deal_kernel)
+    state, ts = env.init(2**32 + 3, 8)
+    sampler = UniformLegalSampler(1, 8, "cpu")
+    state, ts = env.step(state, sampler(ts.action_mask))
+    state, ts = env.step(state, sampler(ts.action_mask),
+                         deal_override=np.zeros((8, 3), np.int32))
+    state, ts = env.reset(state)
+    state, ts = env.partial_reset(state, torch.arange(8) % 2 == 0)
+    tags = [(args[2], args[3]) for args, _ in rec.calls]
+    assert tags == [(rng.TAG_RESET, 3), (rng.TAG_STEP, 6), (rng.TAG_RESET, 3),
+                    (rng.TAG_RESET, 3), (rng.TAG_RESET, 3)]
+    for (key, counter, tag, width), out in rec.calls:
+        assert torch.equal(out, rng.deal(key, counter, tag, width, env.num_pieces))
+    assert rec.calls[0][0][1] == 0  # init deals at one counter for all
+
+
+def test_samplers_draw_through_their_shared_kernels():
+    """Both samplers on a device share that device's draw wrappers; each
+    call is one call of its kernel at the sampler's counter, which then
+    advances by one (``WordsSampler.select`` as its ``__call__``)."""
+    env = make_env(PRESETS["default"](), device="cpu")
+    ul, ws = UniformLegalSampler(3, 16, "cpu"), WordsSampler(3, 16, "cpu")
+    assert (ul.kernel, ws.kernel) == policy_kernels(torch.device("cpu"))
+    assert UniformLegalSampler(4, 2, "cpu").kernel is ul.kernel
+    ul.kernel, ws.kernel = Recorder(ul.kernel), Recorder(ws.kernel)
+    state, ts = env.init(0, 16)
+    a = ul(ts.action_mask)
+    b = ws(env, state.board, state.queue)
+    c = ws.select(env.packed_mask_kernel.words(state.board, state.queue), env.cfg.width)
+    assert [args[1] for args, _ in ul.kernel.calls] == [0]
+    assert [args[1] for args, _ in ws.kernel.calls] == [0, 1]
+    assert (ul.counter, ws.counter) == (1, 2)
+    assert torch.equal(a, ul.kernel.calls[0][1]) and torch.equal(b, ws.kernel.calls[0][1])
+    assert torch.equal(c, ws.kernel.calls[1][1])
+    for acts in (a, b, c):
+        assert bool(ts.action_mask[torch.arange(16), acts].all())
+
+
+# ------------------------------------------------------------------- card ----
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("preset", ALL_PRESETS)
+def test_draw_kernels_on_the_card(cuda_device, preset):
+    """Each draw kernel against its plain version at a ragged N, one
+    launch a call."""
+    cfg = PRESETS[preset]()
+    n, s = 4099, cfg.queue_size
+    key = rng.stream_keys(2**32 + 1, n, cuda_device)
+    counter = torch.arange(n, dtype=torch.int32, device=cuda_device) * 977 - 2**20
+    deal = DealKernel(rules.tables_for(cfg).num_pieces, cuda_device)
+    for c, tag, width in ((counter, rng.TAG_STEP, 2 * s), (0, rng.TAG_RESET, s),
+                          (2**32 - 1, rng.TAG_POLICY, cfg.num_actions())):
+        assert torch.equal(deal(key, c, tag, width), deal.plain(key, c, tag, width))
+    ul, ws = UniformLegalKernel(cuda_device), WordsSelectKernel(cuda_device)
+    mask = legal_masks(n, cfg.num_actions(), 5).to(cuda_device)
+    words = legal_row_words(cfg, n, 5).to(cuda_device)
+    for c in COUNTERS:
+        assert torch.equal(ul(key, c, mask), ul.plain(key, c, mask))
+        assert torch.equal(ws(key, c, words, cfg.width), ws.plain(key, c, words, cfg.width))
+    torch.cuda.synchronize()
+    assert (deal.launches, ul.launches, ws.launches) == (3, len(COUNTERS), len(COUNTERS))
+
+
+@pytest.mark.gpu
+def test_main_path_draws_make_no_call_into_the_torch_hash(cuda_device, monkeypatch):
+    """On the card the step, both samplers and ``packsel`` draw only
+    through their kernels: ``rng.mix32`` is never called once the streams'
+    keys exist."""
+    from blockpuzzle_tpu_torch import bench
+
+    env = make_env(PRESETS["default"](), device=cuda_device)
+    state, ts = env.init(0, 64)
+    policies = [bench.make_policy(env, name, 64) for name in bench.SAMPLERS]
+    monkeypatch.setattr(rng, "mix32", lambda x: pytest.fail("torch hash called"))
+    for policy in policies:
+        state, ts = env.step(state, policy(state, ts.action_mask))
+    state, ts = env.reset(state)
+    env.partial_reset(state, torch.ones(64, dtype=torch.bool, device=cuda_device))
+    torch.cuda.synchronize()

@@ -21,7 +21,8 @@ the CPU, each run in process through ``main(argv)`` at a tiny size.
   the hand sum of the ``EnvState`` fields' bytes; the count the same a
   step an env at two batches; the counted kernels hiding their plain
   versions' ops from the count and adding ``utils/bounds.py``'s bytes;
-  each step kernel of each engine counted once a step.
+  each step kernel of each engine, the deal and the argmax draw counted
+  once a step.
 * ``bench_scaling``: a world-2 run's final states, gathered in rank order,
   bit-equal to one process on both ranks' envs; ``--cpu-sim``'s 8 ranks
   and JSON contract.
@@ -48,6 +49,7 @@ from blockpuzzle_tpu.learn.ppo import default_hypers as jax_hypers
 from blockpuzzle_tpu_torch import bench, sampler
 from blockpuzzle_tpu_torch.env import rng
 from blockpuzzle_tpu_torch.examples import quickstart
+from blockpuzzle_tpu_torch.kernels import draws as kernel_draws
 from blockpuzzle_tpu_torch.interop import params_from_flax
 from blockpuzzle_tpu_torch.learn import PPO, PPOConfig
 from blockpuzzle_tpu_torch.scripts import (
@@ -263,13 +265,14 @@ def test_greedy_actor_step_matches_flax(torso):
 
 
 def inject_policy_bits(monkeypatch, draws):
-    """The samplers' ``rng.bits`` replaced by ``draws[counter]``."""
+    """The policy draw kernels' ``rng.bits`` (their plain versions' on the
+    CPU) replaced by ``draws[counter]``."""
     def bits(key, counter, tag, width):
         assert tag == rng.TAG_POLICY
         return torch.as_tensor(draws[counter]).reshape(-1, 1)[:, :width]
 
-    monkeypatch.setattr(sampler, "rng", types.SimpleNamespace(
-        stream_keys=rng.stream_keys, TAG_POLICY=rng.TAG_POLICY, bits=bits))
+    monkeypatch.setattr(kernel_draws, "rng", types.SimpleNamespace(
+        **{**vars(rng), "bits": bits}))
 
 
 @pytest.mark.parametrize("mode", ["packsel", "words"])
@@ -533,8 +536,9 @@ def test_roofline_contract_untimed(capsys):
     assert (rec["metric"], rec["num_envs"], rec["chunk"], rec["mask_impl"],
             rec["device"]) == ("roofline", 32, 8, "bitboard", "cpu")
     assert all(rec[k] > 0 for k in ROOFLINE_COUNT_KEYS)
-    # the packed step: B1 and B7 once a step
-    assert rec["kernel_launches_per_step"] == {"packed_apply": 1.0, "packed_mask": 1.0}
+    # the packed step: B1, B7, the deal (B9) and the argmax draw (B2) once a step
+    assert rec["kernel_launches_per_step"] == {"packed_apply": 1.0, "packed_mask": 1.0,
+                                               "deal": 1.0, "uniform_legal": 1.0}
     assert rec["bytes_per_step_env"] > rec["kernel_bytes_per_step_env"]
     # floor = bytes of one batched step of N envs over 3.35 TB/s
     assert rec["hbm_floor_us_per_batched_step"] == pytest.approx(
@@ -581,7 +585,8 @@ def test_counted_kernel_hides_its_plain_ops_and_adds_its_bytes():
     """On the CPU a kernel wrapper runs its plain version as torch ops:
     unwrapped, the mode counts them; wrapped, it counts none of them and
     adds the call's bytes and operations from ``utils/bounds.py``.  The
-    roofline's kernel bytes are B1's plus B7's."""
+    roofline's kernel bytes are B1's plus B7's plus the deal's (B9) plus
+    the argmax draw's (B2)."""
     env = bench.make_bench_env(device="cpu")
     cfg, n = env.cfg, 32
     words = torch.randint(0, 1 << 10, (n, cfg.height), dtype=torch.int64)
@@ -609,7 +614,12 @@ def test_counted_kernel_hides_its_plain_ops_and_adds_its_bytes():
     b1, _ = COSTS["packed_apply"](cfg, (words, attrs, rc, rc, valid),
                                   env.packed_apply_kernel(words, attrs, rc, rc, valid))
     b7, _ = COSTS["packed_mask"](cfg, (words, queue), (want,))
-    assert rec["kernel_bytes_per_step_env"] == (b1 + b7) / n == 218 + 184
+    key, counter = torch.zeros(n, dtype=torch.int64), torch.zeros(n, dtype=torch.int32)
+    b9, _ = COSTS["deal"](cfg, (key, counter, 0, 2), (env.deal_kernel(key, counter, 0, 2),))
+    mask = torch.ones((n, env.num_actions), dtype=torch.bool)
+    b2, _ = COSTS["uniform_legal"](cfg, (key, 0, mask), (torch.zeros(n, dtype=torch.int64),))
+    assert rec["kernel_bytes_per_step_env"] == (b1 + b7 + b9 + b2) / n == (
+        218 + 184 + 20 + 116)
 
 
 COUNTED_ENGINES = {
@@ -619,6 +629,8 @@ COUNTED_ENGINES = {
     "wide_u8_pallas": (dict(backend="pallas"), "wide",
                        ("mask_general", "apply_general")),
 }
+# every engine's step deals once (B9) and its argmax policy draws once (B2)
+DRAW_KERNELS = ("deal", "uniform_legal")
 
 
 @pytest.mark.parametrize("engine", COUNTED_ENGINES)
@@ -630,7 +642,7 @@ def test_count_chunk_counts_each_step_kernel_once_a_step(engine):
     cfg = EnvConfig(height=8, width=40) if preset == "wide" else PRESETS[preset]()
     env = make_env(cfg, device="cpu", **kwargs)
     c = roofline.count_chunk(env, 16, 3)
-    assert c.launches == dict.fromkeys(kernels, 3)
+    assert c.launches == dict.fromkeys(kernels + DRAW_KERNELS, 3)
     assert c.torch_ops > 0 and c.kernel_bytes > 0 and c.kernel_ops > 0
     assert sum(c.op_bytes.values()) == c.torch_bytes
 

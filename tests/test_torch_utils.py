@@ -273,7 +273,8 @@ def test_validate_env_state_catches_broken_states(state_impl):
 RECORDED_MB = {"mask": 10.03, "apply": 15.04, "clear": 10.03, "legality": 98.3,
                "packed_apply": 10.72, "packed_mask": 9.04, "packed_legal_words": 8.06,
                "mask_general": 31.65, "apply_general": 47.48, "clear_general": 31.65,
-               "legality_general": 314.6}
+               "legality_general": 314.6, "deal": 0.98, "uniform_legal": 5.70,
+               "words_select": 4.72}
 
 
 def kernel_call(name, n):
@@ -300,6 +301,11 @@ def kernel_call(name, n):
                          (i64(n, h), i32(n), b(n))),
         "packed_mask": ((i64(n, h), i32(n, s)), (b(n, s * hw),)),
         "packed_legal_words": ((i64(n, h), i32(n, s)), (i64(n, s * h),)),
+        # the draws: the step's 2S-wide deal at per-env counters, the
+        # policy draws at one counter (an int moves no bytes)
+        "deal": ((i64(n), i32(n), 0, 2 * s), (i32(n, 2 * s),)),
+        "uniform_legal": ((i64(n), 7, b(n, s * hw)), (i64(n),)),
+        "words_select": ((i64(n), 7, i64(n, s * h), cfg.width), (i64(n),)),
     }
     return (cfg,) + calls[name.removesuffix("_general")]
 
