@@ -20,82 +20,218 @@
 //   the S*H row words, the word holding the r-th legal bit, and the 5-step
 //   rank-select inside it (env/words.py); action 0 where total is 0.
 //
-// Bound on the H100: device memory for all three; the integer work (about
-// 27 operations for the per-env fold of key and counter, 11 a lane) stays
-// below it.  At N = 49152 on the default preset (S = 1, H = W = 10): B9
-// reads an int64 key and an int32 counter and writes 2S int32 deals, 20 B
-// an env, 0.98 MB, 0.29 us at 3.35 TB/s; B2 reads the key and A = 100 mask
-// bytes and writes an int64 action, 116 B an env, 5.7 MB, 1.70 us; B2w
-// reads the key and S*H = 10 int64 words and writes an int64 action, 96 B
-// an env, 4.7 MB, 1.41 us.
+// Bound on the H100, at the card's 32-bit integer rate (utils/bounds.py),
+// counted on the busier of the two pipes that take integer work: the
+// multiplies go to the FMA pipe, the rest to the ALU pipe, 64 results a
+// clock an SM each.  A draw folds an env's key and counter (21 ALU
+// operations and 6 multiplies) and the stream's tag (4 ALU, `lane_seed`),
+// then hashes each lane in 5 ALU operations and 2 multiplies
+// (`seeded_bits`).  At N = 49152 on the default preset (S = 1, H = W =
+// 10): B9 reads an int64 key and an int32 counter and writes 2S int32
+// deals, 20 B an env, 0.98 MB, 0.29 us at 3.35 TB/s, its 1.7 M ALU
+// operations below that: bound by bytes, and by the launch, which costs
+// more than either; B2 reads the key and A = 100 mask bytes and writes an
+// int64 action, 116 B an env, 5.7 MB, 1.70 us, but hashes 100 lanes and
+// keeps their running maximum, 8 ALU operations a lane, 40.6 M, 2.42 us at
+// 16.7 T/s: bound by operations; B2w reads the key and S*H = 10 int64 words
+// and writes an int64 action, 96 B an env, 4.7 MB, 1.41 us, bound by bytes.
 //
-// Design.  B9: one thread per output element, so that a warp's stores are
-// one contiguous span whatever the width; each thread folds its env's key
-// and counter again (three mix32s), which costs less than a shuffle scheme
-// at widths of 1 to 6.  B2: one warp per env; lane l hashes actions
-// l, l + 32, ... (a warp's mask loads are 32 consecutive bytes: rows of
-// A = 100 bytes are not 16-byte aligned, so no vector loads), keeps its
-// strict maximum, which is its lowest index among equals, and five
-// `__shfl_xor_sync` steps reduce (value, index) pairs, larger value first,
-// then lower index, a total order, so every lane ends on the row's first
-// maximum.  B2w: one thread per env walks its S*H words twice (the
-// popcount total, then the word search), the second time from L1; the
-// float product is `__fmul_rn`, so it is neither contracted nor rounded
-// otherwise, and the cast truncates toward zero as JAX's int32 cast does.
+// Design.  B9: one thread an env folds its key and counter once and hashes
+// its `width` lanes as independent chains.  At widths 1 and 2 (a reset
+// deal and the step's draw at S = 1) a thread stores its lanes at once, an
+// int or an 8-byte int2, a warp's stores contiguous; widths 3 to
+// kStagedLanes (the step's 6 at S = 3, resets at 3) go into shared memory
+// and the block stores its span of outputs (contiguous, 16-byte aligned:
+// blocks of kDealEnvs envs) as int4 vectors; wider draws, which no step
+// makes, go straight to device memory.  Timed in turns on an H100 at N =
+// 49152, staging took 2.9 us at width 6 against 3.5 us stored straight, 2.6
+// us either way at 3, and lost at 1 (2.57 against 2.46 us).  Its time is
+// the launch's and one thread's chain of dependent loads and mixes: the
+// card does not start and end a kernel in less than about 1.7 us (an empty
+// one, back to back).
+//
+// B2: a few threads an env, each folding the key and counter once.  Lane
+// q of an env takes a contiguous span of the row's 32-bit words and hashes
+// each word's four actions as independent chains; it keeps the strict
+// maximum of the words' largest values, so the first word holding its
+// maximum, and finds the action inside that word once at the end; the
+// lanes' (value, action) pairs meet in xor shuffles, larger value first,
+// then lower action.  Where every row starts on a 4-byte boundary (A % 4
+// == 0 and an aligned mask: the engine's masks) each thread reads its
+// words straight from device memory.  Any other mask (A = 243, or a view
+// such as big[1:] that starts off a word) is staged: a block of E envs
+// (64, fewer where E * A bytes pass 48 KB) copies its span of rows, E * A
+// contiguous bytes, into shared memory with 16-byte loads
+// (`bit_rows::stage_bytes`: any start address), folding while the loads
+// fly, and the bytes of a row's first and last words that belong to its
+// neighbours are masked.  Threads an env: one at A <= 128, else two where
+// rows are staged by their width (A % 4 != 0), else four.  Timed in turns
+// on an H100 at N = 49152, reading straight beat staging on every
+// word-row preset (5.9 us against 6.8 us at A = 100).
+//
+// B2w: one thread per env walks its S*H words twice (the popcount total,
+// then the word search), the second time from L1; the float product is
+// `__fmul_rn`, so it is neither contracted nor rounded otherwise, and the
+// cast truncates toward zero as JAX's int32 cast does.
 
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bit_rows.cuh"
 #include "hash32.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr unsigned kAll = 0xffffffffu;
+constexpr int kThreads = 256;        // B2w's block
+constexpr int kDealEnvs = 128;       // B9's block: one thread an env
+constexpr int kStagedLanes = 16;     // B9 widths staged in shared memory
+constexpr int kArgmaxEnvs = 64;      // envs a block of B2 at most
+constexpr int kStaticSmem = 48 * 1024;
 
-__global__ void __launch_bounds__(kThreads)
-    deal_kernel(const unsigned long long* __restrict__ key,
-                const int32_t* __restrict__ counter, uint32_t counter0, uint32_t tag,
-                int width, uint32_t num_pieces, int32_t* __restrict__ out, int total) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= total) return;
-  const int env = i / width;
-  const int lane = i - env * width;
-  const uint32_t c = counter != nullptr ? static_cast<uint32_t>(counter[env]) : counter0;
-  const uint32_t bits = lane_bits(stream_hash(key[env], c), tag, lane);
-  out[i] = static_cast<int32_t>(__umulhi(bits, num_pieces));
+// lane j of a deal: the high word of bits * P, uniform in [0, P)
+__device__ __forceinline__ int32_t deal_lane(uint32_t seed, int j, uint32_t num_pieces) {
+  return static_cast<int32_t>(__umulhi(seeded_bits(seed, static_cast<uint32_t>(j)), num_pieces));
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kDealEnvs)
+    deal_kernel(const unsigned long long* __restrict__ key,
+                const int32_t* __restrict__ counter, uint32_t counter0, uint32_t tag,
+                int width, uint32_t num_pieces, int32_t* __restrict__ out, int n) {
+  __shared__ __align__(16) int32_t staged[kDealEnvs * kStagedLanes];
+  const int env0 = blockIdx.x * kDealEnvs;
+  const int e = env0 + threadIdx.x;
+  // the same in every thread: one store a thread (widths 1 and 2) keeps a
+  // warp's stores contiguous; widths 3 .. kStagedLanes go through shared
+  // memory
+  const bool staging = width > 2 && width <= kStagedLanes;
+  if (e < n) {
+    const uint32_t c = counter != nullptr ? static_cast<uint32_t>(counter[e]) : counter0;
+    const uint32_t seed = lane_seed(stream_hash(key[e], c), tag);
+    if (width == 2) {
+      reinterpret_cast<int2*>(out)[e] =
+          make_int2(deal_lane(seed, 0, num_pieces), deal_lane(seed, 1, num_pieces));
+    } else if (staging) {
+      int32_t* o = staged + threadIdx.x * width;
+#pragma unroll 4
+      for (int j = 0; j < width; ++j) o[j] = deal_lane(seed, j, num_pieces);
+    } else {
+      int32_t* o = out + static_cast<long long>(e) * width;
+#pragma unroll 4
+      for (int j = 0; j < width; ++j) o[j] = deal_lane(seed, j, num_pieces);
+    }
+  }
+  if (!staging) return;
+  __syncthreads();
+  // the block's outputs: ints [env0 * width, (env0 + envs) * width) of out
+  const int total = min(kDealEnvs, n - env0) * width;
+  int32_t* o = out + static_cast<long long>(env0) * width;  // 16-byte aligned
+  const int nvec = total / 4;
+  for (int i = threadIdx.x; i < nvec; i += kDealEnvs) {
+    reinterpret_cast<int4*>(o)[i] = reinterpret_cast<const int4*>(staged)[i];
+  }
+  for (int i = 4 * nvec + threadIdx.x; i < total; i += kDealEnvs) o[i] = staged[i];
+}
+
+// The values `legal ? bits | 1 : 0` of the four actions a, ..., a + 3 of
+// mask word w (byte j nonzero: action a + j legal), hashed as independent
+// chains.  Where a is a multiple of 4 (kWordRows) lane a + j is a ^ j.
+template <bool kWordRows>
+__device__ __forceinline__ void word_values(uint32_t w, int a, uint32_t seed, uint32_t v[4]) {
+  const uint32_t sa = seed ^ static_cast<uint32_t>(a);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t x = kWordRows ? sa ^ static_cast<uint32_t>(j)
+                                 : seed ^ static_cast<uint32_t>(a + j);
+    const uint32_t bits = mix32_tail(x) | 1u;
+    v[j] = (w >> (8 * j)) & 0xffu ? bits : 0u;
+  }
+}
+
+// Word k of a row that starts at byte `start` and ends before byte `end`
+// of the word-aligned `words`' base, its bytes outside the row cleared.
+template <bool kWordRows>
+__device__ __forceinline__ uint32_t row_word(const uint32_t* words, int k, int nw, int start,
+                                             int end) {
+  uint32_t w = words[k];
+  if (!kWordRows) {
+    if (k == 0) w &= 0xffffffffu << (8 * (start & 3));
+    if (k == nw - 1 && (end & 3) != 0) w &= (1u << (8 * (end & 3))) - 1u;
+  }
+  return w;
+}
+
+// kStaged: the block's rows are copied into shared memory first, and a
+// row may start and end inside a word (its neighbours' bytes masked);
+// else every row starts and ends on a 4-byte boundary (A % 4 == 0 and a
+// 4-byte aligned mask) and each thread reads its words of the row straight
+// from device memory.  kLanes threads an env (1, 2 or 4: lane q takes
+// words [q * nw / kLanes, (q + 1) * nw / kLanes) of the row), their maxima
+// merged by xor shuffles, larger value first, then lower index.
+template <bool kStaged, int kLanes>
+__global__ void __launch_bounds__(kArgmaxEnvs * 4)
     uniform_legal_kernel(const unsigned long long* __restrict__ key, uint32_t counter,
                          uint32_t tag, const uint8_t* __restrict__ mask,
                          long long* __restrict__ out, int n, int actions) {
-  const int env = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;  // warp-uniform
-  const int l = threadIdx.x % 32;
-  if (env >= n) return;
-  const uint32_t h = stream_hash(key[env], counter);
-  const uint8_t* row = mask + static_cast<long long>(env) * actions;
-  // the lane's first maximum: an illegal action counts 0, so a lane whose
-  // actions are all illegal keeps (0, its first index)
+  constexpr bool kWordRows = !kStaged;
+  extern __shared__ __align__(16) uint8_t span[];
+  const int per = blockDim.x / kLanes;  // envs a block
+  const int env0 = blockIdx.x * per;
+  const int t = threadIdx.x / kLanes;  // env of the block
+  const int q = threadIdx.x % kLanes;  // lane of the env
+  const int e = env0 + t;
+  const unsigned long long stream = e < n ? key[e] : 0ull;
+  int start = 0;  // the row's first byte in `base`
+  const uint8_t* base = mask + static_cast<long long>(e) * actions;
+  if (kStaged) {
+    const int envs = min(per, n - env0);
+    start = bit_rows::stage_bytes(mask, static_cast<long long>(env0) * actions,
+                                  static_cast<long long>(env0 + envs) * actions, span) +
+            t * actions;
+    base = span;
+  }
+  const uint32_t seed = lane_seed(stream_hash(stream, counter), tag);
+  if (kStaged) __syncthreads();
+  if (e >= n) return;  // with the env's other lanes
+  const int end = start + actions;
+  const uint32_t* words = reinterpret_cast<const uint32_t*>(base) + (start >> 2);
+  const int nw = ((end + 3) >> 2) - (start >> 2);  // words holding the row
+  const int a0 = -(start & 3);                    // action of word 0's byte 0
+  // this lane's words into the strict maximum of each word's largest
+  // value, so the first word holding the lane's maximum
   uint32_t best = 0;
-  int idx = l;
-  for (int a = l; a < actions; a += 32) {
-    const uint32_t v = row[a] ? lane_bits(h, tag, a) | 1u : 0u;
-    if (v > best) {
-      best = v;
-      idx = a;
+  int word = 0;
+  uint32_t v[4];
+#pragma unroll 2
+  for (int k = q * nw / kLanes; k < (q + 1) * nw / kLanes; ++k) {
+    word_values<kWordRows>(row_word<kWordRows>(words, k, nw, start, end), a0 + 4 * k, seed, v);
+    const uint32_t m = max(max(v[0], v[1]), max(v[2], v[3]));
+    if (m > best) {
+      best = m;
+      word = k;
     }
   }
-  for (int off = 16; off > 0; off >>= 1) {
-    const uint32_t ov = __shfl_xor_sync(kAll, best, off);
-    const int oi = __shfl_xor_sync(kAll, idx, off);
-    if (ov > best || (ov == best && oi < idx)) {
-      best = ov;
-      idx = oi;
+  // the lane's first maximum: the first action of its word that holds it;
+  // a lane with no legal action gives (0, 0)
+  int idx = 0;
+  if (best != 0) {
+    word_values<kWordRows>(row_word<kWordRows>(words, word, nw, start, end), a0 + 4 * word,
+                           seed, v);
+    idx = a0 + 4 * word + (v[0] == best ? 0 : v[1] == best ? 1 : v[2] == best ? 2 : 3);
+  }
+  if (kLanes > 1) {
+    const unsigned group = ((1u << kLanes) - 1u) << (threadIdx.x % 32 / kLanes * kLanes);
+#pragma unroll
+    for (int off = kLanes / 2; off > 0; off /= 2) {
+      const uint32_t ov = __shfl_xor_sync(group, best, off, kLanes);
+      const int oi = __shfl_xor_sync(group, idx, off, kLanes);
+      if (ov > best || (ov == best && oi < idx)) {
+        best = ov;
+        idx = oi;
+      }
     }
   }
-  if (l == 0) out[env] = idx;
+  if (q == 0) out[e] = idx;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -140,27 +276,48 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // key (N,) i64; counter (N,) i32 or null, then counter0 is every env's
-// counter; tag < 2^16; 1 <= width <= 2^16; out (N, width) i32, contiguous;
-// N * width < 2^31 - 2^8.
+// counter; tag < 2^16; 1 <= width <= 2^16; out (N, width) i32, contiguous,
+// 16-byte aligned; N * width < 2^31 - 2^8.
 extern "C" int bp_deal(const void* key, const void* counter, uint32_t counter0, int tag,
                        int width, int num_pieces, void* out, int n, void* stream) {
   const long long total = static_cast<long long>(n) * width;
   if (tag < 0 || tag >= (1 << 16) || width < 1 || width > (1 << 16) || num_pieces < 1 ||
-      total > INT_MAX - kThreads) {
+      n < 0 || total > INT_MAX - kThreads || reinterpret_cast<uintptr_t>(out) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (total > 0) {
-    const int blocks = static_cast<int>((total + kThreads - 1) / kThreads);
-    deal_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (n > 0) {
+    const int blocks = (n + kDealEnvs - 1) / kDealEnvs;
+    deal_kernel<<<blocks, kDealEnvs, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const unsigned long long*>(key), static_cast<const int32_t*>(counter),
         counter0, static_cast<uint32_t>(tag), width, static_cast<uint32_t>(num_pieces),
-        static_cast<int32_t*>(out), static_cast<int>(total));
+        static_cast<int32_t*>(out), n);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// key (N,) i64; mask (N, A) bool, contiguous; out (N,) i64; tag < 2^16;
-// 1 <= A <= 2^16.
+// Envs a block of the argmax draw: 64, halved while their rows pass 48 KB
+// of shared memory (one env's row of 2^16 bytes takes more, by opt-in).
+static int argmax_envs(int actions) {
+  int envs = kArgmaxEnvs;
+  while (envs > 1 && bit_rows::smem_bytes(0, static_cast<long long>(envs) * actions) >
+                         kStaticSmem) {
+    envs /= 2;
+  }
+  return envs;
+}
+
+// Threads an env of the argmax draw, from A: timed at 1, 2 and 4 in turns
+// on an H100 on the four presets at N = 49152, one was fastest at A = 100,
+// four at A = 300 and 768 (word rows), two at A = 243 (rows staged).
+static int argmax_lanes(int actions) {
+  return actions <= 128 ? 1 : actions % 4 != 0 ? 2 : 4;
+}
+
+using ArgmaxKernel = void (*)(const unsigned long long*, uint32_t, uint32_t, const uint8_t*,
+                              long long*, int, int);
+
+// key (N,) i64; mask (N, A) bool, contiguous, at any address; out (N,) i64;
+// tag < 2^16; 1 <= A <= 2^16.
 extern "C" int bp_uniform_legal(const void* key, uint32_t counter, int tag,
                                 const void* mask, void* out, int n, int actions,
                                 void* stream) {
@@ -168,9 +325,23 @@ extern "C" int bp_uniform_legal(const void* key, uint32_t counter, int tag,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n > 0) {
-    const int per_block = kThreads / 32;
-    const int blocks = (n + per_block - 1) / per_block;
-    uniform_legal_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    const bool word_rows = actions % 4 == 0 && reinterpret_cast<uintptr_t>(mask) % 4 == 0;
+    const int lanes = argmax_lanes(actions);
+    const int envs = word_rows ? kArgmaxEnvs : argmax_envs(actions);
+    const int smem =
+        word_rows ? 0 : bit_rows::smem_bytes(0, static_cast<long long>(envs) * actions);
+    // word rows take 1 or 4 threads an env, staged rows any of 1, 2 and 4
+    const ArgmaxKernel kernel =
+        word_rows ? (lanes == 4 ? uniform_legal_kernel<false, 4> : uniform_legal_kernel<false, 1>)
+                  : (lanes == 4   ? uniform_legal_kernel<true, 4>
+                     : lanes == 2 ? uniform_legal_kernel<true, 2>
+                                  : uniform_legal_kernel<true, 1>);
+    if (smem > kStaticSmem) {
+      const cudaError_t err =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    kernel<<<(n + envs - 1) / envs, envs * lanes, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const unsigned long long*>(key), counter, static_cast<uint32_t>(tag),
         static_cast<const uint8_t*>(mask), static_cast<long long*>(out), n, actions);
   }

@@ -123,8 +123,10 @@ class UniformLegalKernel:
 
     ``__call__(key (N,) int64, counter: int, mask (N, A) bool) -> (N,)
     int64``: the ``TAG_POLICY`` draws at ``counter`` and ``uniform_legal``.
-    For CPU tensors it runs that plain version; for CUDA tensors it
-    launches the kernel (``launches`` counts those launches) or raises.
+    The mask may start at any address (a contiguous view of a larger
+    mask, such as ``big[1:]``, too).  For CPU tensors it runs that plain
+    version; for CUDA tensors it launches the kernel (``launches`` counts
+    those launches) or raises.
     """
 
     def __init__(self, device="cuda"):

@@ -33,7 +33,7 @@ one chunk itself, in a pass of its own that is never timed:
 
 The floors are those of one H100 SXM (``utils/bounds.py``): bytes over
 3.35 TB/s, operations (integer and float alike, as XLA counts
-elementwise work) over the 67 T/s CUDA-core rate.  The step has no matrix
+elementwise work) over the 16.7 T/s 32-bit integer rate.  The step has no matrix
 product, so JAX's ``mxu_bf16_*`` keys have no counterpart.  Timed windows
 follow the JAX protocol through ``bench.bench_device``: a warm-up chunk,
 then ``--windows`` windows of ``--iters`` chunks, each ending in a sync and
@@ -75,8 +75,8 @@ from blockpuzzle_tpu_torch.config import PRESETS
 from blockpuzzle_tpu_torch.env import VecBlockPuzzle
 from blockpuzzle_tpu_torch.utils.bounds import (
     COSTS,
-    CORE_OPS_PER_S,
     HBM_BYTES_PER_S,
+    INT_OPS_PER_S,
     nbytes,
 )
 
@@ -251,7 +251,7 @@ def roofline(env: VecBlockPuzzle, num_envs: int, chunk: int, timed: bool = True,
     nb = c.per_step_env(c.torch_bytes + c.kernel_bytes)
     ops = c.per_step_env(c.torch_ops + c.kernel_ops)
     hbm_s = nb * num_envs / HBM_BYTES_PER_S
-    core_s = ops * num_envs / CORE_OPS_PER_S
+    core_s = ops * num_envs / INT_OPS_PER_S
     state_s = c.state_bytes / HBM_BYTES_PER_S
     out = {
         "metric": "roofline",

@@ -3,7 +3,8 @@
 A call's bound is the larger of two times: the bytes it must move (each
 input read once, each output written once) over the card's memory rate,
 and the integer operations it does on these inputs over the card's
-CUDA-core rate.  Each kernel has one function here, ``COSTS[name](cfg,
+32-bit integer rate, counted on the busier of the two pipes that take
+integer work.  Each kernel has one function here, ``COSTS[name](cfg,
 inputs, outputs) -> (bytes, ops)``, which a caller hands the tensors of
 one actual call; the operations are counted on the call's own data where
 they depend on it (the hand's pieces).  ``chip_smoke.py`` phase 1 and the
@@ -25,12 +26,17 @@ the general clear and apply do about 3 and 5 operations a cell; a packed
 anchor row tests W - piece_w + 1 anchors with 3 operations per footprint
 word and builds its words with 2 per field (B7, and its words entry B7w,
 which stores the row word as it is); B1 does about 10 a row word.  The
-draws (B9, B2, B2w) fold an env's key and counter in three 8-operation
-mixes and 3 XORs (27 operations) and hash a lane in one more mix and 3
-operations (11); B2 spends 3 more a lane on the select and the running
-maximum, B2w 2 a word on the popcount total, 2 a word up to the chosen one
-on the search, about 10 on the uniform and the rank and 20 on the 5-step
-rank-select.
+draws' (B9, B2, B2w) hash is a quarter multiplies, so theirs are counted
+by pipe: they fold an env's key and counter in three mixes (6 ALU
+operations and 2 multiplies each) and 3 XORs (21 and 6), the stream's tag
+into that in 4 (the lanes' common first xorshift, ``hash32.cuh``
+``lane_seed``), and hash a lane in 5 and 2 (an XOR, two shifts, two XORs;
+two multiplies); B9 multiplies once more a lane (``__umulhi``), B2 spends
+3 more a lane on the select and the running maximum, B2w 2 a word on the
+popcount total, 2 a word up to the chosen one on the search, about 10 on
+the uniform and the rank and 20 on the 5-step rank-select.  In each the
+ALU pipe is the busier.  The other kernels multiply little (one multiply
+a packed row word) and count it with the rest.
 """
 
 from __future__ import annotations
@@ -45,7 +51,17 @@ from blockpuzzle_tpu_torch.config import EnvConfig
 from blockpuzzle_tpu_torch.kernels.packed import bitboard_tables
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
-CORE_OPS_PER_S = 67e12        # H100 SXM CUDA-core rate (float32 entry)
+# H100 SXM 32-bit integer rate of one pipe: 132 SMs x 64 results a clock
+# (add, multiply, shift, logical and compare at compute capability 9.0,
+# the CUDA C++ Programming Guide's throughput table) x 1.98 GHz, the
+# greatest SM clock: 16.7e12 operations/s.  Hopper issues integer
+# multiplies (IMAD) to the FMA pipe and the rest of the integer work
+# (logic, shifts, adds, compares, selects, min and max) to the ALU pipe,
+# 64 a clock an SM each, the two side by side, so a call's operations
+# bound is its busier pipe's count over this rate.  (The 67e12 float32
+# figure counts 128 FMA lanes an SM, two operations each; the hand
+# kernels' work is integer work, but for B2w's two float products.)
+INT_OPS_PER_S = 132 * 64 * 1.98e9
 
 Tensors = Sequence[torch.Tensor]
 Cost = Callable[[EnvConfig, Tensors, Tensors], Tuple[int, float]]
@@ -63,7 +79,7 @@ def bound(tensors: Tensors, ops: float) -> dict:
     each and does ``ops`` integer operations: the larger of the two."""
     moved = nbytes(tensors)
     by_bytes = 1e3 * moved / HBM_BYTES_PER_S
-    by_ops = 1e3 * ops / CORE_OPS_PER_S
+    by_ops = 1e3 * ops / INT_OPS_PER_S
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "bytes": moved, "ops": ops}
@@ -158,19 +174,25 @@ def _packed_mask(cfg, inputs):
                                      + 2 * bb.fpw * queue.shape[0] * cfg.queue_size)
 
 
-# operations of the draws: the per-env fold of key and counter, one lane
-FOLD_OPS, LANE_OPS = 27, 11
+# the draws' operations on the ALU pipe and multiplies on the FMA pipe:
+# the per-env fold of key and counter, the stream's seed, one lane
+FOLD_OPS, FOLD_MULS = 21, 6
+SEED_OPS = 4
+LANE_OPS, LANE_MULS = 5, 2
 
 
 def _deal(cfg, inputs):
-    """B9: inputs (key (N,) i64, counter, tag, width)."""
-    return inputs[0].shape[0] * (FOLD_OPS + LANE_OPS * inputs[3])
+    """B9: inputs (key (N,) i64, counter, tag, width); a lane's deal
+    multiplies once more (``__umulhi``)."""
+    width = inputs[3]
+    return inputs[0].shape[0] * max(FOLD_OPS + SEED_OPS + LANE_OPS * width,
+                                    FOLD_MULS + (LANE_MULS + 1) * width)
 
 
 def _uniform_legal(cfg, inputs):
     """B2: inputs (key (N,) i64, counter, mask (N, A) bool)."""
     n, a = inputs[2].shape
-    return n * (FOLD_OPS + (LANE_OPS + 3) * a)
+    return n * max(FOLD_OPS + SEED_OPS + (LANE_OPS + 3) * a, FOLD_MULS + LANE_MULS * a)
 
 
 def _words_select(cfg: EnvConfig, inputs: Tensors, outputs: Tensors) -> Tuple[int, float]:
@@ -178,9 +200,10 @@ def _words_select(cfg: EnvConfig, inputs: Tensors, outputs: Tensors) -> Tuple[in
     the (N,) actions; the search's words are counted on the call's data,
     up to each env's chosen word (``action // width``)."""
     key, _, words, width = inputs
+    n = key.shape[0]
     searched = float((outputs[0] // width + 1).sum())
-    ops = key.shape[0] * (FOLD_OPS + LANE_OPS + 2 * words.shape[1] + 30) + 2 * searched
-    return nbytes(list(inputs) + list(outputs)), float(ops)
+    alu = n * (FOLD_OPS + SEED_OPS + LANE_OPS + 2 * words.shape[1] + 30) + 2 * searched
+    return nbytes(list(inputs) + list(outputs)), float(max(alu, n * (FOLD_MULS + LANE_MULS)))
 
 
 COSTS: Dict[str, Cost] = {

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Measurements of the PyTorch + CUDA port on one card, beyond the smoke run.
 
-    python3 chip_measure.py [--parts build,train,rollout,kernels,words,general]
+    python3 chip_measure.py [--parts build,train,rollout,kernels,words,general,draws]
                             [--parent-csrc DIR]
 
 Needs one CUDA card and nvcc.  Prints the card's name and power limit,
-then, each line tagged with its part (all six by default):
+then, each line tagged with its part (all seven by default):
 
   build     cold builds of ``kernels/csrc/*.cu`` in turns: one nvcc over
             all sources, then one nvcc per source started together and a
@@ -55,7 +55,15 @@ then, each line tagged with its part (all six by default):
             at N = 49152 on an 8x40 board, timed in turns for 5 rounds
             (``chip_smoke.general_turns``, the rounds ``chip_smoke.py``
             phase 1 also takes), here in a process whose library is freshly
-            loaded.
+            loaded;
+  draws     the three draw kernels (deal, as the step's 2S-wide draw and
+            the S-wide reset deal, uniform_legal, words_select) at N =
+            49152 on every packed preset, device times; with
+            ``--parent-csrc DIR``, the earlier sources' draws
+            (``bp_deal``, ``bp_uniform_legal``, ``bp_words_select``, with
+            the arguments ``_build.SIGNATURES`` gives them) held bit-equal
+            and timed in turns, earlier, current, current, earlier; then
+            the launch floor, ``torch.cuda._sleep(0)`` back to back.
 
 Cold builds go to a temporary directory under the git-ignored
 ``kernels/_build/``, removed at the end.
@@ -349,6 +357,8 @@ def words_breakdown(card: str) -> None:
 PARENT_ENTRIES = ("bp_mask", "bp_clear", "bp_apply", "bp_legality",
                   "bp_packed_apply", "bp_packed_mask")
 PARENT_ROW_ENTRIES = ("bp_mask_rows", "bp_clear_rows")
+# the draws' entry points, where the earlier sources have them
+PARENT_DRAW_ENTRIES = ("bp_deal", "bp_uniform_legal", "bp_words_select")
 
 
 def parent_library(csrc: pathlib.Path):
@@ -368,7 +378,9 @@ def parent_library(csrc: pathlib.Path):
         print(f"[kernels] earlier ptxas: {line}")
     lib = ctypes.CDLL(str(so))
     rows = all(hasattr(lib, name) for name in PARENT_ROW_ENTRIES)
-    for name in PARENT_ENTRIES + (PARENT_ROW_ENTRIES if rows else ()):
+    draws = all(hasattr(lib, name) for name in PARENT_DRAW_ENTRIES)
+    for name in (PARENT_ENTRIES + (PARENT_ROW_ENTRIES if rows else ())
+                 + (PARENT_DRAW_ENTRIES if draws else ())):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = _build.SIGNATURES[name], ctypes.c_int
     return lib
@@ -541,7 +553,106 @@ def kernel_turns(card: str, parent_csrc) -> None:
             print(f"[kernels] {name}: current kernels == earlier ones (bit-equal)")
 
 
-PARTS = ("build", "train", "rollout", "kernels", "words", "general")
+def draw_calls(lib, key, counter, mask, words, width, num_pieces, board_width) -> dict:
+    """Callables that launch the draws of the library ``lib`` (its entry
+    points taking the current ones' arguments) on these inputs: the
+    ``width``-wide step deal (2S) at per-env counters, the S-wide reset
+    deal at counter 0 for all, the argmax and the words draw at counter
+    7."""
+    import torch
+
+    from blockpuzzle_tpu_torch.env import rng
+    from blockpuzzle_tpu_torch.kernels import _build
+
+    n, dev = key.shape[0], key.device
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def deal(per_env=True, tag=rng.TAG_STEP, lanes=width):
+        out = torch.empty((n, lanes), dtype=torch.int32, device=dev)
+        _build.check(lib.bp_deal(key.data_ptr(), counter.data_ptr() if per_env else None, 0,
+                                 tag, lanes, num_pieces, out.data_ptr(), n, stream()),
+                     "bp_deal")
+        return out
+
+    def uniform_legal():
+        out = torch.empty(n, dtype=torch.int64, device=dev)
+        _build.check(lib.bp_uniform_legal(key.data_ptr(), 7, rng.TAG_POLICY, mask.data_ptr(),
+                                          out.data_ptr(), n, mask.shape[1], stream()),
+                     "bp_uniform_legal")
+        return out
+
+    def words_select():
+        out = torch.empty(n, dtype=torch.int64, device=dev)
+        _build.check(lib.bp_words_select(key.data_ptr(), 7, rng.TAG_POLICY, words.data_ptr(),
+                                         out.data_ptr(), n, words.shape[1], board_width,
+                                         stream()), "bp_words_select")
+        return out
+
+    return {"deal": deal,
+            "reset_deal": lambda: deal(False, rng.TAG_RESET, width // 2),
+            "uniform_legal": uniform_legal, "words_select": words_select}
+
+
+def draw_turns(card: str, parent_csrc) -> None:
+    """The draw kernels (B9 deal, the step's 2S-wide and the S-wide reset
+    deal; B2 uniform_legal, B2w words_select) at N = 49152 on every packed
+    preset, on ``chip_smoke.draw_inputs``: device times, and with
+    ``parent_csrc`` the earlier sources' draws held bit-equal to the
+    current ones and timed in turns (earlier, current, current, earlier);
+    then the launch floor, an empty launch's device time
+    (``torch.cuda._sleep(0)``) back to back."""
+    import torch
+
+    from blockpuzzle_tpu_torch import rules
+    from blockpuzzle_tpu_torch.config import PRESETS
+    from blockpuzzle_tpu_torch.env import rng
+    from blockpuzzle_tpu_torch.kernels import (
+        DealKernel, UniformLegalKernel, WordsSelectKernel, _build,
+    )
+
+    _build.library()
+    for line in chip_smoke.ptxas_lines(_build.library_path().with_suffix(".log").read_text()):
+        if "deal" in line or "uniform_legal" in line or "words_select" in line:
+            print(f"[draws] current ptxas: {line}")
+    lib = parent_library(pathlib.Path(parent_csrc)) if parent_csrc else None
+    if lib is not None and not hasattr(lib, "bp_deal"):
+        raise SystemExit("chip_measure: the earlier sources have no draw kernels")
+    n, dev = chip_smoke.N_MAIN, torch.device("cuda")
+    ul, ws = UniformLegalKernel(dev), WordsSelectKernel(dev)
+    for name in chip_smoke.PACKED_PRESETS:
+        cfg = PRESETS[name]()
+        dk = DealKernel(rules.tables_for(cfg).num_pieces, dev)
+        key, counter, mask, words = chip_smoke.draw_inputs(cfg, n, 0)
+        width = 2 * cfg.queue_size
+        inputs = (key, counter, mask, words, width, dk.num_pieces, cfg.width)
+        current = {"deal": lambda: dk(key, counter, rng.TAG_STEP, width),
+                   "reset_deal": lambda: dk(key, 0, rng.TAG_RESET, cfg.queue_size),
+                   "uniform_legal": lambda: ul(key, 7, mask),
+                   "words_select": lambda: ws(key, 7, words, cfg.width)}
+        earlier = draw_calls(lib, *inputs) if lib is not None else {}
+        for k in earlier:
+            if not torch.equal(current[k](), earlier[k]()):
+                raise AssertionError(f"{k} ({name}): current != earlier kernel")
+        for k, fn in current.items():
+            if k in earlier:
+                old1, new1, new2, old2 = (chip_smoke.cuda_ms(f) for f in (
+                    earlier[k], fn, fn, earlier[k]))
+                print(f"[draws] {k} {name} N={n} device ms in turns: earlier "
+                      f"{old1:.6f}, current {new1:.6f}, current {new2:.6f}, earlier "
+                      f"{old2:.6f} ({card})")
+            else:
+                print(f"[draws] {k} {name} N={n}: device {chip_smoke.cuda_ms(fn):.6f} ms "
+                      f"({card})")
+        if lib is not None:
+            print(f"[draws] {name}: current draws == earlier ones (bit-equal)")
+    floors = [chip_smoke.cuda_ms(lambda: torch.cuda._sleep(0)) for _ in range(3)]
+    print(f"[draws] launch floor, torch.cuda._sleep(0) back to back, device ms: "
+          f"{', '.join(f'{f:.6f}' for f in floors)} ({card})")
+
+
+PARTS = ("build", "train", "rollout", "kernels", "words", "general", "draws")
 
 
 def main(argv=None) -> int:
@@ -578,6 +689,8 @@ def main(argv=None) -> int:
         words_breakdown(card)
     if "general" in parts:
         chip_smoke.general_turns(card, "general")
+    if "draws" in parts:
+        draw_turns(card, args.parent_csrc)
     print(f"[done] {card}")
     return 0
 

@@ -14,7 +14,8 @@ which raises on failure (non-zero exit, no result line):
      (deal, uniform_legal, words_select: ``kernels/draws.py``) on the four
      presets, at per-env counters that wrap negative and at shared ones
      up to 2**32 - 1, on the masks and legal words of the boards below
-     (empty rows among them), every action drawn legal; the bit-row u8
+     (empty rows among them; uniform_legal also on mask views that start
+     off a 16-byte boundary), every action drawn legal; the bit-row u8
      kernels (mask, clear, apply, legality) and the packed kernels
      (packed_apply, packed_mask and its words entry packed_legal_words) on
      the default, tenten, woodoku and big presets, on boards holding full
@@ -28,8 +29,10 @@ which raises on failure (non-zero exit, no result line):
      launches queued behind a spin kernel, so the host's launch time does
      not enter) beside its bound (``utils/bounds.py``) and the plain
      version's time (50 calls made as the host goes), at N = 49152 on the
-     default preset (the general kernels on the wide board); then the four
-     general kernels timed in turns for 5 rounds (``general_turns``);
+     default preset (the general kernels on the wide board), and the
+     launch floor (an empty launch's device time) beside the deal's; then
+     the four general kernels timed in turns for 5 rounds
+     (``general_turns``);
      then the default packed rollout (N = 49152, 64 steps) through the
      draw kernels and with their plain versions swapped in, with the
      argmax and the words sampler (the paths ``draws_argmax`` and
@@ -153,7 +156,7 @@ their ``replaces`` names the JAX package's jnp code (the argmax draw's the
 root ``bench.py``'s).  ``bound_ms`` is the larger
 of the bytes the kernel must move (each input read once, each output
 written once) over 3.35 TB/s and its integer operations on this run's
-inputs over 67 T/s (the H100's CUDA-core rate); ``library_ms`` is null:
+inputs over 16.7 T/s (the H100's 32-bit integer rate); ``library_ms`` is null:
 no single PyTorch call computes a legal mask (as bools or as row words), a
 place-and-clear, a clear-scan or a counter-based draw.
 """
@@ -520,7 +523,7 @@ def phase1(card: str) -> dict:
         bounds.update(kernel_bounds(cfg, board, queue, cover, valid, words, attrs,
                                     r, c, {k: f() for k, (f, _) in calls.items()}))
         times.update({k: (cuda_ms(f), host_paced_ms(g)) for k, (f, g) in calls.items()})
-    phase1_draws(errs, times, bounds)
+    phase1_draws(errs, times, bounds, card)
     for k, (ms, plain_ms) in times.items():
         b = bounds[k]
         where = "wide 8x40" if k.endswith("_general") else "default"
@@ -557,14 +560,31 @@ def draw_inputs(cfg, n: int, seed: int):
     return key, counter, pmk(words, queue), pmk.words(words, queue)
 
 
-def phase1_draws(errs: dict, times: dict, bounds: dict) -> None:
+def off_alignment(mask):
+    """Copies of the (N, A) mask as contiguous views that start off a
+    16-byte boundary: rows 1 .. N of an (N + 1, A) mask (A bytes in) and
+    an (N, A) view one byte into a flat buffer."""
+    import torch
+
+    n, a = mask.shape
+    big = torch.zeros((n + 1, a), dtype=torch.bool, device=mask.device)
+    big[1:] = mask
+    flat = torch.zeros(n * a + 1, dtype=torch.bool, device=mask.device)
+    flat[1:] = mask.view(-1)
+    return [big[1:], flat[1:].view(n, a)]
+
+
+def phase1_draws(errs: dict, times: dict, bounds: dict, card: str) -> None:
     """The draw kernels (B9, B2, B2w) against their plain versions on the
     four presets at N = 49152 and 49151, bit-equal: the step's 2S-wide
     deal at per-env counters, the reset deal at one counter (0 and 2**32 -
-    1), each policy draw at counters 0, 2**31 and 2**32 - 1; every drawn
-    action legal where its row has one, action 0 where not.  Then each
-    one's device time, plain time and bound at N = 49152 on the default
-    preset, into ``times`` and ``bounds``."""
+    1), each policy draw at counters 0, 2**31 and 2**32 - 1, the argmax
+    draw also on mask views off a 16-byte boundary (``off_alignment``);
+    every drawn action legal where its row has one, action 0 where not.
+    Then each one's device time, plain time and bound at N = 49152 on the
+    default preset, into ``times`` and ``bounds``; the launch floor (the
+    device time of an empty launch, ``torch.cuda._sleep(0)``, back to back)
+    and the deal's time as multiples of its bound and of that floor."""
     import torch
 
     from blockpuzzle_tpu_torch import rules
@@ -588,6 +608,7 @@ def phase1_draws(errs: dict, times: dict, bounds: dict) -> None:
                             what, errs, "deal")
             rows = torch.arange(n, device=dev)
             legal = mask.any(dim=1)
+            views = off_alignment(mask)
             for c in (0, 2**31, 2**32 - 1):
                 for k, got, want in (
                         ("uniform_legal", ul(key, c, mask), ul.plain(key, c, mask)),
@@ -597,10 +618,17 @@ def phase1_draws(errs: dict, times: dict, bounds: dict) -> None:
                     if not (bool(mask[rows, got][legal].all())
                             and not bool(got[~legal].any())):
                         raise AssertionError(f"{k} drew an illegal action ({what})")
+                want = ul.plain(key, c, mask)
+                for view in views:
+                    check_equal([ul(key, c, view)], [want],
+                                f"{what}, mask at {view.data_ptr() % 16} past 16 B",
+                                errs, "uniform_legal")
             print(f"[phase1] {what}: deal (2S-wide at per-env counters, S-wide at "
                   f"0 and 2**32 - 1), uniform_legal and words_select (counters 0, "
                   f"2**31, 2**32 - 1; {int((~legal).sum())} empty rows) == plain "
-                  "(bit-equal), every action legal")
+                  "(bit-equal), every action legal; uniform_legal also on mask views "
+                  f"{sorted(v.data_ptr() % 16 for v in views)} bytes past a 16-byte "
+                  "boundary == plain")
     cfg = PRESETS["default"]()
     dk = DealKernel(rules.tables_for(cfg).num_pieces, dev)
     key, counter, mask, words = draw_inputs(cfg, N_MAIN, 0)
@@ -611,6 +639,12 @@ def phase1_draws(errs: dict, times: dict, bounds: dict) -> None:
         out = kernel(*a)
         bounds[k] = bound(list(a) + [out], COSTS[k](cfg, a, (out,))[1])
         times[k] = (cuda_ms(lambda: kernel(*a)), host_paced_ms(lambda: kernel.plain(*a)))
+    floor = cuda_ms(lambda: torch.cuda._sleep(0))
+    deal_ms = times["deal"][0]
+    print(f"[phase1] launch floor: torch.cuda._sleep(0) {floor:.6f} ms of device time a "
+          f"launch, back to back ({card}); deal N={N_MAIN} default {deal_ms:.6f} ms = "
+          f"{deal_ms / bounds['deal']['bound_ms']:.2f} x its bound "
+          f"({bounds['deal']['bound_by']}), {deal_ms / floor:.2f} x the launch floor")
 
 
 def draws_rollout(sampler: str, plain: bool, n: int, steps: int):

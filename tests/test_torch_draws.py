@@ -4,15 +4,18 @@ uniform-legal draw (B2) and the words rank-select (B2w).
 
 The CUDA kernels cannot run here, so numpy ``uint32`` emulations of their
 arithmetic as the sources write it (wrapping 32-bit multiplies, ``__umulhi``,
-B2's lane-strided maxima and xor-shuffle reduction, B2w's float32 product
-and word search) are held bit-equal to the wrappers' plain versions on
-every preset, at N in {1, 33, 1000}, at counters 0, 1, 2**31 - 1, 2**31
-and 2**32 - 1 (ints and int32 tensors, wrapped negative where they pass
-2**31 - 1), with keys from seeds at and above 2**32, tags 0, 1 and 2 and
-widths 1, 2S and A; B2 also on forced ties and empty rows, B2w on empty
-masks.  Against JAX: B2's select, given injected bits, equals the root
-``bench.py``'s ``jnp.argmax(jnp.where(mask, bits | 1, 0))``; B2w, given the
-uniform ``jax.random.uniform`` draws, equals
+the lanes hashed from the stream's seed, B2's rows read a 32-bit word at a
+time, straight or staged in shared memory with their edge words masked,
+B2w's float32 product and word search) are held bit-equal to the wrappers'
+plain versions on every preset, at N in {1, 33, 1000}, at counters 0, 1,
+2**31 - 1, 2**31 and 2**32 - 1 (ints and int32 tensors, wrapped negative
+where they pass 2**31 - 1), with keys from seeds at and above 2**32, tags
+0, 1 and 2 and widths 1, 2S and A; B2 also on masks that start off a
+16-byte boundary, on forced ties (across its words, its lanes' spans and
+its rows' shared edge words) and empty rows, B2w on empty masks.  Against
+JAX: B2's select, given injected bits, equals the root ``bench.py``'s
+``jnp.argmax(jnp.where(mask, bits | 1, 0))``; B2w, given the uniform
+``jax.random.uniform`` draws, equals
 ``blockpuzzle_tpu.env.words.sample_uniform_legal``.  Everything compared is
 an integer and must be bit-equal.
 
@@ -80,6 +83,27 @@ def lane_bits(h: np.ndarray, tag: int, lane: np.ndarray) -> np.ndarray:
     return mix32(h ^ ((U32(tag) << U32(16)) | lane.astype(np.uint32)))
 
 
+def mix32_tail(x: np.ndarray) -> np.ndarray:
+    """``mix32_tail``: ``mix32`` after its first xorshift."""
+    x = np.array(x, dtype=np.uint32, ndmin=1)
+    x *= U32(0x21F0AAAD)
+    x ^= x >> U32(15)
+    x *= U32(0xD35A2D97)
+    return x ^ (x >> U32(15))
+
+
+def lane_seed(h: np.ndarray, tag: int) -> np.ndarray:
+    """``lane_seed``: the first xorshift of ``h ^ (tag << 16)``, which every
+    lane < 2**16 shares."""
+    x = np.asarray(h, dtype=np.uint32) ^ (U32(tag) << U32(16))
+    return x ^ (x >> U32(16))
+
+
+def seeded_bits(seed: np.ndarray, lane: np.ndarray) -> np.ndarray:
+    """``seeded_bits``: the kernels' form of ``lane_bits``."""
+    return mix32_tail(seed ^ np.asarray(lane).astype(np.uint32))
+
+
 def counters_u32(counter, n: int) -> np.ndarray:
     """The kernels' ``uint32_t`` counter of each env: an int32 tensor's
     bits, or one Python int mod 2**32."""
@@ -89,47 +113,117 @@ def counters_u32(counter, n: int) -> np.ndarray:
 
 
 def emulate_deal(key, counter, tag: int, width: int, num_pieces: int) -> np.ndarray:
-    """``deal_kernel``: thread i of N * width takes env i / width, lane
-    i % width, and stores ``__umulhi(bits, P)``."""
+    """``deal_kernel``: thread e folds env e's key and counter once, takes
+    the stream's seed, and stores ``__umulhi(bits, P)`` of its lanes 0 ..
+    width - 1 at out[e, :] (through shared memory at widths 3 to 16: the
+    same places)."""
     n = key.shape[0]
-    i = np.arange(n * width)
-    env, lane = i // width, i % width
-    c = counters_u32(counter, n)[env]
-    bits = lane_bits(stream_hash(key.numpy()[env], c), tag, lane)
+    seed = lane_seed(stream_hash(key.numpy(), counters_u32(counter, n)), tag)
+    bits = seeded_bits(seed[:, None], np.arange(width)[None, :])
     hi = (bits.astype(np.uint64) * np.uint64(num_pieces)) >> np.uint64(32)
     return hi.astype(np.int32).reshape(n, width)
 
 
-def emulate_warp_argmax(mask: np.ndarray, bits: np.ndarray) -> np.ndarray:
-    """``uniform_legal_kernel``'s select on (N, A) bools and u32 draws:
-    lane l keeps the strict maximum of actions l, l + 32, ... (starting
-    from (0, l)), then five xor shuffles keep the larger value, on a tie
-    the lower index."""
+# draws.cu: envs a block of the argmax draw at most, static shared memory
+ARGMAX_ENVS, STATIC_SMEM = 64, 48 * 1024
+
+
+def argmax_envs(actions: int) -> int:
+    """``argmax_envs``: 64, halved while the block's rows and 32 bytes of
+    slack pass 48 KB."""
+    envs = ARGMAX_ENVS
+    while envs > 1 and envs * actions + 32 > STATIC_SMEM:
+        envs //= 2
+    return envs
+
+
+def argmax_lanes(actions: int) -> int:
+    """``argmax_lanes``: the threads an env of the argmax draw, one at A <=
+    128, else two where rows are staged by their width, else four."""
+    return 1 if actions <= 128 else 2 if actions % 4 else 4
+
+
+def emulate_row_argmax(mask: np.ndarray, bits: np.ndarray, offset: int = 0,
+                       lanes=None) -> np.ndarray:
+    """``uniform_legal_kernel``'s select on (N, A) bools and u32 draws, the
+    mask ``offset`` bytes past a 16-byte boundary, ``lanes`` threads an env
+    (``argmax_lanes`` unless given).  Word rows (A % 4 == 0, offset % 4 ==
+    0) are read straight from device memory, whole words of the row each;
+    other rows are staged: blocks of ``argmax_envs(A)`` envs stage their
+    rows' bytes at byte d = (offset + env0 * A) % 16 of a buffer of junk
+    (shared memory is not cleared); env t of a block has its row at byte d
+    + t * A, in words w0 .. w0 + nw - 1 of the buffer, and the bytes of its
+    first and last words outside the row are masked.  Lane q of an env
+    takes words s0 = q * nw // lanes .. s1 - 1 of its row.  Each word's
+    largest value of ``legal ? bits | 1 : 0`` goes into a strict maximum,
+    which keeps the first word holding it; the lane's action is that
+    word's first byte with that value (0 where the lane has no legal
+    action).  The lanes' (value, action) pairs then meet in xor rounds,
+    larger value first, then lower action."""
     n, a = mask.shape
+    word_rows = a % 4 == 0 and offset % 4 == 0
+    lanes = argmax_lanes(a) if lanes is None else lanes
+    per = argmax_envs(a)
+    junk = np.random.default_rng(a + offset)
+    e = np.arange(n)
+    t = e % per
+    d = (offset + (e - t) * a) % 16
+    start = d + t * a
+    end = start + a
+    w0, nw = start >> 2, ((end + 3) >> 2) - (start >> 2)
+    # each block's staged span, in a region of its own
+    region = -(-(per * a + 48) // 16) * 16
+    buf = junk.integers(0, 256, (-(-n // per)) * region, dtype=np.uint8)
+    for b, env0 in enumerate(range(0, n, per)):
+        rows = mask[env0:env0 + per].astype(np.uint8).reshape(-1)
+        buf[b * region + d[env0]:b * region + d[env0] + rows.size] = rows
+    words = buf.view("<u4")
+    base = (e // per) * (region // 4) + w0
     v = np.where(mask, bits.astype(np.uint32) | U32(1), U32(0)).astype(np.uint32)
-    lanes = np.arange(32)
-    best = np.zeros((n, 32), np.uint32)
-    idx = np.broadcast_to(lanes, (n, 32)).copy()
-    for start in range(0, a, 32):
-        act = start + lanes
-        ok = act < a
-        cand = np.zeros((n, 32), np.uint32)
-        cand[:, ok] = v[:, act[ok]]
-        take = ok & (cand > best)
-        best, idx = np.where(take, cand, best), np.where(take, act, idx)
-    for off in (16, 8, 4, 2, 1):
-        ov, oi = best[:, lanes ^ off], idx[:, lanes ^ off]
+    head = (np.uint64(0xFFFFFFFF) << (8 * (start & 3)).astype(np.uint64)).astype(np.uint32)
+    tail = np.where(end & 3, (1 << (8 * (end & 3))) - 1, 0xFFFFFFFF).astype(np.uint32)
+
+    def word_values(k, live=True):
+        """Row word k's four values (bytes outside the row cleared)."""
+        w = words[base + k]
+        if not word_rows:
+            w = np.where(k == 0, w & head, w)
+            w = np.where(k == nw - 1, w & tail, w)
+        act = 4 * k[:, None] + np.arange(4) - (start & 3)[:, None]
+        legal = np.asarray(live)[..., None] & (
+            ((w[:, None] >> (U32(8) * np.arange(4, dtype=np.uint32))) & U32(0xFF)) != 0)
+        return np.where(legal, v[e[:, None], np.clip(act, 0, a - 1)], U32(0))
+
+    best = np.zeros((n, lanes), np.uint32)
+    idx = np.zeros((n, lanes), np.int64)
+    for q in range(lanes):
+        s0, s1 = q * nw // lanes, (q + 1) * nw // lanes
+        size = s1 - s0
+        word = np.zeros(n, np.int64)
+        for step in range(int(size.max(initial=0))):
+            live = step < size
+            k = np.where(live, s0 + step, s0)
+            m = word_values(k, live).max(axis=1)   # the word's largest value
+            take = m > best[:, q]
+            best[:, q] = np.where(take, m, best[:, q])
+            word = np.where(take, k, word)
+        # the first action of that word holding the maximum; 0 where none
+        first = (word_values(word) == best[:, q:q + 1]).argmax(axis=1)
+        idx[:, q] = np.where(best[:, q] > 0, 4 * word + first - (start & 3), 0)
+    off = lanes // 2
+    while off:
+        ov, oi = best[:, np.arange(lanes) ^ off], idx[:, np.arange(lanes) ^ off]
         take = (ov > best) | ((ov == best) & (oi < idx))
         best, idx = np.where(take, ov, best), np.where(take, oi, idx)
-    assert (idx == idx[:, :1]).all()  # every lane ends on the same action
-    return idx[:, 0].astype(np.int64)
+        off //= 2
+    return idx[:, 0]
 
 
-def emulate_uniform_legal(key, counter: int, mask: torch.Tensor) -> np.ndarray:
+def emulate_uniform_legal(key, counter: int, mask: torch.Tensor, offset: int = 0) -> np.ndarray:
     n, a = mask.shape
-    h = stream_hash(key.numpy(), counters_u32(counter, n))
-    bits = lane_bits(h[:, None], rng.TAG_POLICY, np.arange(a)[None, :])
-    return emulate_warp_argmax(mask.numpy(), bits)
+    seed = lane_seed(stream_hash(key.numpy(), counters_u32(counter, n)), rng.TAG_POLICY)
+    bits = seeded_bits(seed[:, None], np.arange(a)[None, :])
+    return emulate_row_argmax(mask.numpy(), bits, offset)
 
 
 def emulate_select(words: np.ndarray, u: np.ndarray, width: int) -> np.ndarray:
@@ -266,21 +360,90 @@ def test_words_select_emulation_matches_plain(preset, n):
 
 
 @pytest.mark.parametrize("actions", [1, 31, 100, 243, 300, 768])
-def test_warp_argmax_breaks_ties_to_the_lowest_index(actions):
+def test_row_argmax_breaks_ties_to_the_lowest_index(actions):
     """Draws from {0, ..., 3} (so ``bits | 1`` is 1 or 3: ties in every
-    row, across lanes and strides), all-equal draws, and empty rows: the
-    emulated warp select equals the plain ``uniform_legal``."""
+    row, within and across words and lanes), all-equal draws, and empty
+    rows, on masks at offsets 0, 1 and 6 from a 16-byte boundary (and at 2
+    and 4 threads an env): the emulated row select equals the plain
+    ``uniform_legal``."""
     g = np.random.default_rng(actions)
     n = 500
     mask = g.random((n, actions)) < g.random((n, 1))
     mask[::9] = False
-    for bits in (g.integers(0, 4, (n, actions)), np.full((n, actions), 7),
-                 g.integers(0, 2**32, (n, actions))):
+    for offset, lanes in ((0, None), (1, None), (6, None), (0, 2), (1, 4)):
+        for bits in (g.integers(0, 4, (n, actions)), np.full((n, actions), 7),
+                     g.integers(0, 2**32, (n, actions))):
+            want = uniform_legal(torch.as_tensor(mask),
+                                 torch.as_tensor(bits, dtype=torch.int64))
+            np.testing.assert_array_equal(
+                emulate_row_argmax(mask, bits, offset, lanes=lanes), want.numpy())
+        same = np.full((n, actions), 7)
+        first = np.where(mask.any(axis=1), mask.argmax(axis=1), 0)
+        np.testing.assert_array_equal(emulate_row_argmax(mask, same, offset, lanes=lanes),
+                                      first)
+
+
+@pytest.mark.parametrize("actions", [8, 64, 100, 243, 768, 1536])
+@pytest.mark.parametrize("offset", [0, 1, 3, 4])
+def test_row_argmax_ties_across_its_spans(actions, offset):
+    """Two legal actions share the row's largest draw, one on each side of
+    a boundary of the kernel's spans: the words of two lanes of one env, a
+    word edge inside a lane's words, and the row's first and last word
+    (shared with its neighbours where rows do not start on a word).  The
+    lower action wins, as in the plain ``uniform_legal``, at 1, 2 and 4
+    threads an env."""
+    n = 128                       # every lane of a warp, at least twice
+    g = np.random.default_rng(actions * 16 + offset)
+    nw = -(-actions // 4)
+    for lanes in (1, 2, 4):
+        pairs = []
+        for e in range(n):
+            q = e % lanes
+            cut = 4 * (1 + e % max(nw - 1, 1))      # a word edge inside the row
+            split = 4 * ((q + 1) * nw // lanes)     # lane q's last word, then lane q + 1's
+            lo, hi = min(cut - 1, actions - 1), min(cut, actions - 1)
+            edge = (min(max(split - 1, 0), actions - 1), min(split, actions - 1))
+            pairs.append([(0, actions - 1), (lo, hi), (0, hi), (lo, actions - 1), edge,
+                          (min(3, actions - 1), min(4, actions - 1))][e % 6])
+        bits = g.integers(0, 2**31, (n, actions))
+        mask = g.random((n, actions)) < 0.5
+        for e, (i, j) in enumerate(pairs):
+            bits[e, [i, j]] = 2**32 - 1
+            mask[e, [i, j]] = True
         want = uniform_legal(torch.as_tensor(mask), torch.as_tensor(bits, dtype=torch.int64))
-        np.testing.assert_array_equal(emulate_warp_argmax(mask, bits), want.numpy())
-    same = np.full((n, actions), 7)
-    first = np.where(mask.any(axis=1), mask.argmax(axis=1), 0)
-    np.testing.assert_array_equal(emulate_warp_argmax(mask, same), first)
+        assert [int(x) for x in want] == [i for i, _ in pairs]
+        np.testing.assert_array_equal(emulate_row_argmax(mask, bits, offset, lanes=lanes),
+                                      want.numpy())
+
+
+def test_seeded_bits_are_lane_bits():
+    """``hash32.cuh``'s seeded form, the stream's first xorshift done once,
+    gives ``lane_bits`` for every lane below 2**16."""
+    g = np.random.default_rng(9)
+    h = np.concatenate([g.integers(0, 2**32, 200), [0, 2**32 - 1, 0xFFFF0000, 0xFFFF]])
+    h = h.astype(np.uint32)[:, None]
+    lanes = np.concatenate([np.arange(64), g.integers(0, 2**16, 64), [2**16 - 1]])[None, :]
+    for tag in (rng.TAG_STEP, rng.TAG_RESET, rng.TAG_POLICY, 2**16 - 1):
+        np.testing.assert_array_equal(seeded_bits(lane_seed(h, tag), lanes),
+                                      lane_bits(h, tag, lanes))
+
+
+@pytest.mark.parametrize("preset", ALL_PRESETS)
+def test_uniform_legal_emulation_off_alignment(preset):
+    """The emulated kernel on masks that start 1, 2, 4 and 13 bytes past a
+    16-byte boundary (a view such as ``big[1:]`` of a larger mask) equals
+    the plain version: rows then share words with their neighbours, or sit
+    at another offset in the staged span."""
+    cfg = PRESETS[preset]()
+    kernel = UniformLegalKernel("cpu")
+    n = 131
+    mask = legal_masks(n, cfg.num_actions(), 3)
+    key = keys(n, 2**32 + 7)
+    for offset in (1, 2, 4, 13):
+        for counter in (0, 2**32 - 1):
+            np.testing.assert_array_equal(
+                emulate_uniform_legal(key, counter, mask, offset),
+                kernel(key, counter, mask).numpy())
 
 
 def test_uniform_legal_empty_rows_give_action_zero():
@@ -306,10 +469,10 @@ def test_words_select_empty_masks_give_action_zero():
 
 
 @pytest.mark.parametrize("actions", [100, 243, 300, 768])
-def test_warp_argmax_matches_jax_bench_select(actions):
+def test_row_argmax_matches_jax_bench_select(actions):
     """Given the same u32 bits (with forced ties), the emulated B2 select
     equals the root ``bench.py``'s ``jnp.argmax(jnp.where(mask, bits | 1,
-    0), axis=1)``."""
+    0), axis=1)``, at an aligned mask and one a byte past the boundary."""
     import jax.numpy as jnp
 
     g = np.random.default_rng(actions + 1)
@@ -319,7 +482,9 @@ def test_warp_argmax_matches_jax_bench_select(actions):
     for bits in (g.integers(0, 2**32, (n, actions)), g.integers(0, 4, (n, actions))):
         bits = bits.astype(np.uint32)
         want = jnp.argmax(jnp.where(jnp.asarray(mask), jnp.asarray(bits) | 1, 0), axis=1)
-        np.testing.assert_array_equal(emulate_warp_argmax(mask, bits), np.asarray(want))
+        for offset in (0, 1):
+            np.testing.assert_array_equal(emulate_row_argmax(mask, bits, offset),
+                                          np.asarray(want))
 
 
 @pytest.mark.parametrize("preset", ALL_PRESETS)
@@ -491,8 +656,12 @@ def test_draw_kernels_on_the_card(cuda_device, preset):
     key = rng.stream_keys(2**32 + 1, n, cuda_device)
     counter = torch.arange(n, dtype=torch.int32, device=cuda_device) * 977 - 2**20
     deal = DealKernel(rules.tables_for(cfg).num_pieces, cuda_device)
-    for c, tag, width in ((counter, rng.TAG_STEP, 2 * s), (0, rng.TAG_RESET, s),
-                          (2**32 - 1, rng.TAG_POLICY, cfg.num_actions())):
+    # widths 2S and S, 6 (the step's at S = 3), 16 and 17 (the widest
+    # staged in shared memory and the narrowest stored directly) and A
+    draws = ((counter, rng.TAG_STEP, 2 * s), (0, rng.TAG_RESET, s),
+             (counter, rng.TAG_STEP, 6), (7, rng.TAG_RESET, 16), (7, rng.TAG_RESET, 17),
+             (2**32 - 1, rng.TAG_POLICY, cfg.num_actions()))
+    for c, tag, width in draws:
         assert torch.equal(deal(key, c, tag, width), deal.plain(key, c, tag, width))
     ul, ws = UniformLegalKernel(cuda_device), WordsSelectKernel(cuda_device)
     mask = legal_masks(n, cfg.num_actions(), 5).to(cuda_device)
@@ -501,7 +670,33 @@ def test_draw_kernels_on_the_card(cuda_device, preset):
         assert torch.equal(ul(key, c, mask), ul.plain(key, c, mask))
         assert torch.equal(ws(key, c, words, cfg.width), ws.plain(key, c, words, cfg.width))
     torch.cuda.synchronize()
-    assert (deal.launches, ul.launches, ws.launches) == (3, len(COUNTERS), len(COUNTERS))
+    assert (deal.launches, ul.launches, ws.launches) == (len(draws), len(COUNTERS),
+                                                          len(COUNTERS))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("preset", ALL_PRESETS)
+def test_uniform_legal_on_masks_off_alignment_on_the_card(cuda_device, preset):
+    """B2 on mask views that do not start on a 16-byte boundary: rows 1 ..
+    N of an (N + 1, A) mask (A bytes in: off the boundary but for A = 768),
+    and an (N, A) view one byte into a flat buffer, each equal to the plain
+    version at N = 4099."""
+    cfg = PRESETS[preset]()
+    n, a = 4099, cfg.num_actions()
+    key = rng.stream_keys(2**32 + 3, n, cuda_device)
+    mask = legal_masks(n, a, 9).to(cuda_device)
+    big = torch.zeros((n + 1, a), dtype=torch.bool, device=cuda_device)
+    big[1:] = mask
+    flat = torch.zeros(n * a + 1, dtype=torch.bool, device=cuda_device)
+    flat[1:] = mask.view(-1)
+    ul = UniformLegalKernel(cuda_device)
+    assert flat[1:].data_ptr() % 16 != 0
+    for view in (big[1:], flat[1:].view(n, a)):
+        assert view.is_contiguous()
+        for c in (0, 2**31, 2**32 - 1):
+            assert torch.equal(ul(key, c, view), ul.plain(key, c, mask))
+    torch.cuda.synchronize()
+    assert ul.launches == 6
 
 
 @pytest.mark.gpu

@@ -312,7 +312,9 @@ def kernel_call(name, n):
 
 @pytest.mark.parametrize("name", RECORDED_MB)
 def test_bounds_reproduce_the_recorded_bytes(name):
-    from blockpuzzle_tpu_torch.utils.bounds import COSTS, bound
+    from blockpuzzle_tpu_torch.utils.bounds import (
+        COSTS, HBM_BYTES_PER_S, INT_OPS_PER_S, bound,
+    )
 
     cfg, inputs, outputs = kernel_call(name, 49152)
     nbytes, ops = COSTS[name](cfg, inputs, outputs)
@@ -320,6 +322,59 @@ def test_bounds_reproduce_the_recorded_bytes(name):
     assert round(nbytes / 1e6, digits) == RECORDED_MB[name]
     b = bound(list(inputs) + list(outputs), ops)
     assert b["bytes"] == nbytes and b["ops"] == ops and ops > 0
-    by_bytes, by_ops = 1e3 * nbytes / 3.35e12, 1e3 * ops / 67e12
+    by_bytes, by_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / INT_OPS_PER_S
     assert b["bound_ms"] == max(by_bytes, by_ops)
     assert b["bound_by"] == ("bytes" if by_bytes >= by_ops else "operations")
+
+
+def test_operations_bound_at_the_cards_32_bit_integer_rate():
+    """Every hand kernel does 32-bit integer work, so an operations bound
+    is at the H100's integer rate (132 SMs, 64 results a clock, 1.98 GHz),
+    a quarter of its float32 FMA rate."""
+    from blockpuzzle_tpu_torch.utils import bounds
+
+    assert bounds.INT_OPS_PER_S == 132 * 64 * 1.98e9
+    b = bounds.bound([torch.zeros(1, dtype=torch.uint8)], 1e9)
+    assert b["bound_by"] == "operations"
+    assert b["bound_ms"] == 1e3 * 1e9 / bounds.INT_OPS_PER_S
+
+
+def test_uniform_legal_is_operations_bound_on_the_main_path():
+    """B2 at N = 49152 on the default preset (A = 100): the fold, the
+    stream's seed and 100 lanes of hash, select and running maximum an env
+    take longer on the ALU pipe at the integer rate than its 5.70 MB take
+    at 3.35 TB/s; its multiplies, on the FMA pipe beside it, are fewer; the
+    deal and the words select stay bound by their bytes."""
+    from blockpuzzle_tpu_torch.utils.bounds import (
+        COSTS, FOLD_MULS, FOLD_OPS, HBM_BYTES_PER_S, INT_OPS_PER_S, LANE_MULS, LANE_OPS,
+        SEED_OPS, bound,
+    )
+
+    cfg, inputs, outputs = kernel_call("uniform_legal", 49152)
+    nbytes, ops = COSTS["uniform_legal"](cfg, inputs, outputs)
+    alu, muls = FOLD_OPS + SEED_OPS + (LANE_OPS + 3) * 100, FOLD_MULS + LANE_MULS * 100
+    assert alu > muls and ops == 49152 * alu
+    b = bound(list(inputs) + list(outputs), ops)
+    assert b["bound_by"] == "operations"
+    assert b["bound_ms"] == 1e3 * ops / INT_OPS_PER_S > 1e3 * nbytes / HBM_BYTES_PER_S
+    assert 0.0024 < b["bound_ms"] < 0.0025
+    for name in ("deal", "words_select"):
+        cfg, inputs, outputs = kernel_call(name, 49152)
+        _, ops = COSTS[name](cfg, inputs, outputs)
+        assert bound(list(inputs) + list(outputs), ops)["bound_by"] == "bytes"
+
+
+def test_draw_operations_count_the_busier_pipe():
+    """A deal's operations are its ALU pipe's, which outnumber its
+    multiplies (the fold's, two a lane and the lane's ``__umulhi``, on the
+    FMA pipe) at every width."""
+    from blockpuzzle_tpu_torch.utils.bounds import (
+        COSTS, FOLD_MULS, FOLD_OPS, LANE_MULS, LANE_OPS, SEED_OPS,
+    )
+
+    cfg, inputs, outputs = kernel_call("deal", 64)
+    key, counter, tag, _ = inputs
+    for width in (1, 2, 6, 100):
+        _, ops = COSTS["deal"](cfg, (key, counter, tag, width), outputs)
+        alu = FOLD_OPS + SEED_OPS + LANE_OPS * width
+        assert alu > FOLD_MULS + (LANE_MULS + 1) * width and ops == 64 * alu
