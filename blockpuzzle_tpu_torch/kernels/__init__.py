@@ -6,7 +6,8 @@ card, it raises).  For CPU tensors it runs the plain version; for CUDA
 tensors it launches its kernel (built from ``csrc/`` at first use) or
 raises, and counts each launch in its ``launches`` attribute, a plain int
 (the four u8 wrappers count their general kernels in
-``general_launches``, the packed mask its words entry in
+``general_launches``, the u8 mask and clear their wide kernels in
+``wide_launches``, the packed mask its words entry in
 ``words_launches``).  The draw wrappers (``draws.py``) compute the port's
 counter-based random draws: the deal and the two uniform-legal policies.
 """

@@ -33,10 +33,12 @@ _P, _I, _U32, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_ui
 SIGNATURES = {
     "bp_mask": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bp_mask_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "bp_mask_wide": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "bp_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "bp_apply_rows": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bp_clear": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "bp_clear_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "bp_clear_wide": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bp_legality": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "bp_legality_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _U64, _I, _I, _P],
     "bp_packed_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

@@ -1,19 +1,24 @@
 // Device code shared by the bit-row u8 kernels: the hand mask of mask.cu
-// (`mask_rows_kernel`), the clear scan of clear.cu (`clear_rows_kernel`),
-// the apply of collision.cu (`apply_rows_kernel`) and the all-pieces
-// legality of legality.cu (`legality_rows_kernel`).
+// (`mask_rows_kernel`, and `mask_wide_kernel` on multi-word rows), the
+// clear scan of clear.cu (`clear_rows_kernel`, `clear_wide_kernel`), the
+// apply of collision.cu (`apply_rows_kernel`) and the all-pieces legality
+// of legality.cu (`legality_rows_kernel`).
 //
-// All take boards as (N, H*W) u8 cells, H <= 32 and W <= 32, and work on
-// them as row words: lane r of a segment of H lanes holds board row r as a
-// W-bit word (bit c set iff cell (r, c) is nonzero; `seat` gives a thread
+// All take boards as (N, H*W) u8 cells, H <= 32, and work on them as row
+// words: lane r of a segment of H lanes holds board row r as a W-bit word
+// where W <= 32, or as NW = ceil(W / 32) words, word i holding columns
+// 32 i .. 32 i + 31, where 32 < W <= 128 (the wide kernels); bit c is set
+// iff cell (r, c) is nonzero, and no bit >= W is set (`seat` gives a thread
 // its place).  A block first copies its span of boards into shared memory
 // (`stage_bytes`, 16-byte loads), each lane packs its row from there
-// (`pack_row`, four cells a 32-bit load), and at the end the block writes
-// its output rows, staged in shared memory as bit words, as 16-byte vectors
-// of 0/1 bytes (`store_rows` for an aligned span under 2^14 bytes,
-// `store_span` for any other).  `clear_segment` is the simultaneous clear
-// on row words, shared by the clear and the apply.  `small_div` and
-// `spread4` are copies of packed_mask.cu's, which stays as it is.
+// (`pack_row`, four cells a 32-bit load, one call a word), and at the end
+// the block writes its output rows, staged in shared memory as bit words,
+// as 16-byte vectors of 0/1 bytes (`store_rows` for an aligned span under
+// 2^21 bytes, `store_words` for rows of NW words, `store_span` for any
+// other).  `clear_segment` is the simultaneous clear on row words, shared by
+// the clear and the apply, `clear_words` the same on NW words a row.
+// `small_div` and `spread4` are copies of packed_mask.cu's, which stays as
+// it is.
 #pragma once
 
 #include <cstdint>
@@ -24,9 +29,14 @@ namespace bit_rows {
 constexpr int kMaxWarps = 16;  // kernels/packed.py mask_block_warps
 constexpr unsigned kAll = 0xffffffffu;
 
-// q / d for 0 <= q < 2^14, 1 <= d <= 32, given inv = __frcp_rn(d):
-// (q + 1/2) / d lies at least 1/(2d) >= 1/64 from an integer, and the
-// rounding error is below 2^-9.
+// q / d for 0 <= q < 2^21 and any d >= 1, given inv = __frcp_rn(d).  x =
+// q + 1/2 is exact in float; inv = (1 + e1) / d and the product rounds to
+// x * inv * (1 + e2), |e1|, |e2| <= 2^-24, so it lies within x / d * 2^-22
+// of x / d = (2q + 1) / (2d), which is at least 1/(2d) from every integer
+// (an odd numerator over an even denominator).  x / d * 2^-22 < 1/(2d)
+// while x < 2^21, so the truncation is the integer quotient.  The kernels
+// divide lanes (q < 32), staged envs (q < 2^10), and a block's output bytes
+// by the row width (q < 16 warps * 32 rows * 128 cells = 2^16, W <= 128).
 __device__ __forceinline__ int small_div(int q, float inv) {
   return static_cast<int>((static_cast<float>(q) + 0.5f) * inv);
 }
@@ -101,7 +111,7 @@ __device__ __forceinline__ uint32_t pack_row(const uint8_t* span, int start, int
 // consecutive bits from the (at most three) rows they fall in, spreads each
 // 4 bits into 4 bytes with one multiply, and stores one uint4; the ragged
 // tail goes byte by byte.  Every thread of the block calls it, after a
-// __syncthreads that follows the last write to `rows`; bytes < 2^14.
+// __syncthreads that follows the last write to `rows`; bytes < 2^21.
 __device__ __forceinline__ void store_rows(const uint32_t* rows, uint8_t* o,
                                            int bytes, int width) {
   const int nvec = bytes / 16;
@@ -120,6 +130,40 @@ __device__ __forceinline__ void store_rows(const uint32_t* rows, uint8_t* o,
   for (int q = nvec * 16 + threadIdx.x; q < bytes; q += blockDim.x) {
     const int row = small_div(q, inv_w);
     o[q] = (rows[row] >> (q - row * width)) & 1u;
+  }
+}
+
+// `store_rows` for rows of NW words, 32 (NW - 1) < W <= 32 NW: byte q of
+// `o` (16-byte aligned) is column c = q % W of row q / W, bit c % 32 of
+// rows[(q / W) * NW + c / 32], and no word holds a bit >= W.  As W > 16, 16
+// consecutive bytes fall in at most two rows; inside a row they may
+// straddle a word boundary, so a thread funnel-shifts the pair of words
+// holding column c (the top word's pair is zeros) into the 32 columns from
+// c, and where the row has fewer than 16 left (W - c < 16) the next row's
+// first word supplies the rest, shifted up past them.  Then as `store_rows`:
+// one uint4 a thread, the ragged tail byte by byte.  Every thread of the
+// block calls it, after a __syncthreads that follows the last write to
+// `rows`; bytes < 2^21.
+template <int NW>
+__device__ __forceinline__ void store_words(const uint32_t* rows, uint8_t* o, int bytes,
+                                            int width) {
+  const int nvec = bytes / 16;
+  const float inv_w = __frcp_rn(static_cast<float>(width));
+  for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
+    const int q = 16 * i;
+    const int row = small_div(q, inv_w);
+    const int c = q - row * width;
+    const uint32_t* r = rows + row * NW;
+    const int w = c >> 5;
+    uint32_t bits = __funnelshift_r(r[w], w + 1 < NW ? r[w + 1] : 0u, c & 31);
+    if (width - c < 16) bits |= r[NW] << (width - c);
+    reinterpret_cast<uint4*>(o)[i] = make_uint4(spread4(bits), spread4(bits >> 4),
+                                                spread4(bits >> 8), spread4(bits >> 12));
+  }
+  for (int q = nvec * 16 + threadIdx.x; q < bytes; q += blockDim.x) {
+    const int row = small_div(q, inv_w);
+    const int c = q - row * width;
+    o[q] = (rows[row * NW + (c >> 5)] >> (c & 31)) & 1u;
   }
 }
 
@@ -234,6 +278,71 @@ __device__ __forceinline__ uint32_t clear_segment(uint32_t x, bool active, const
     k += __reduce_add_sync(t.mask, tiles);
   }
   return x & ~((x == full ? full : 0u) | cols | reg);
+}
+
+// `clear_segment` on rows of NW words (32 (NW - 1) < W <= 32 NW), cleared
+// in place: a row is full when every word equals its column mask (all ones
+// but the top word's, 2^(W - 32 (NW - 1)) - 1, or all ones when 32 divides
+// W), one ballot; full columns by one `__reduce_and_sync` a word; regions
+// by ANDing each band's rows, word by word, by shuffles from explicit
+// source lanes, then testing its region_size-bit fields in column order.
+// Where 32 is not a multiple of region_size a field may straddle two words
+// (W = 36, region 3: columns 30..32): each field is read from the
+// funnel-shifted pair of words holding its first column, and a full one is
+// marked in both.  Sets `k` as `clear_segment` does; region_size <= 32.
+template <int NW>
+__device__ __forceinline__ void clear_words(uint32_t (&x)[NW], bool active, const Seat& t,
+                                            int height, int width, int region_size,
+                                            int& k) {
+  const int tail = width - 32 * (NW - 1);  // columns of the top word: 1..32
+  const uint32_t top = tail < 32 ? (1u << tail) - 1u : kAll;
+  bool full = true;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) full &= x[i] == (i + 1 < NW ? kAll : top);
+  const unsigned rows_full = __ballot_sync(kAll, active && full) & t.mask;
+  k = __popc(rows_full);
+  uint32_t cols[NW], reg[NW];
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    cols[i] = __reduce_and_sync(t.mask, x[i]);
+    k += __popc(cols[i]);
+    reg[i] = 0;
+  }
+  if (region_size > 0) {
+    const int b0 = t.lane - t.lane % region_size;   // first row of this lane's band
+    const bool whole = b0 + region_size <= height;  // a whole band on the board
+    uint32_t band[NW];
+#pragma unroll
+    for (int i = 0; i < NW; ++i) band[i] = kAll;
+    for (int r = 0; r < region_size; ++r) {
+      const int src = whole ? t.base + b0 + r : t.l;
+#pragma unroll
+      for (int i = 0; i < NW; ++i) band[i] &= __shfl_sync(kAll, x[i], src);
+    }
+    int tiles = 0;
+    if (whole) {
+      const uint32_t tile0 = region_size < 32 ? (1u << region_size) - 1u : kAll;
+      int c0 = 0;  // the next field's first column
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {  // the fields whose first column is in word w
+        for (; c0 < 32 * (w + 1) && c0 + region_size <= width; c0 += region_size) {
+          const int b = c0 - 32 * w;
+          const uint32_t field =
+              __funnelshift_r(band[w], w + 1 < NW ? band[w + 1] : 0u, b) & tile0;
+          if (field == tile0) {
+            reg[w] |= tile0 << b;
+            if (w + 1 < NW && b + region_size > 32) reg[w + 1] |= tile0 >> (32 - b);
+            tiles += t.lane == b0;
+          }
+        }
+      }
+    }
+    k += __reduce_add_sync(t.mask, tiles);
+  }
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    x[i] &= ~((full ? (i + 1 < NW ? kAll : top) : 0u) | cols[i] | reg[i]);
+  }
 }
 
 }  // namespace bit_rows

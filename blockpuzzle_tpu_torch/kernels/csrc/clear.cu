@@ -1,8 +1,10 @@
 // Simultaneous line clear: the CUDA port of the TPU kernel `_clear_kernel`
 // (blockpuzzle_tpu/kernels/clear.py:79, launched by `_clear_pallas_call`,
-// clear.py:93, from `ClearScanKernel.__call__`).  Two kernels: the bit-row
-// kernel (`clear_rows_kernel`, entry `bp_clear_rows`) for boards with
-// H <= 32 and W <= 32, every shipped preset, and the general kernel
+// clear.py:93, from `ClearScanKernel.__call__`).  Three kernels: the
+// bit-row kernel (`clear_rows_kernel`, entry `bp_clear_rows`) for boards
+// with H <= 32 and W <= 32, every shipped preset; the wide kernel
+// (`clear_wide_kernel`, entry `bp_clear_wide`), the bit-row kernel on rows
+// of NW = 2..4 words, for H <= 32 and 32 < W <= 128; and the general kernel
 // (`clear_kernel`, entry `bp_clear`) for any other board.  The wrapper
 // (kernels/clear.py) picks one by shape.
 //
@@ -43,6 +45,20 @@
 // Every lane runs every ballot, shuffle, reduction and barrier; the
 // reductions name the caller's segment (the 32 - P*H left-over lanes form
 // one), so the masks hold on the ragged tail too.
+//
+// The wide kernel takes the same 0/1 boards and is the same on a row held
+// as NW 32-bit words, NW a template parameter: NW packs a row
+// (`pack_row`), a row full when every word equals its column mask (one
+// ballot), columns by one `__reduce_and_sync` a word, regions by band
+// shuffles a word and fields read from funnel-shifted word pairs, where a
+// field may straddle two words (`clear_words`, bit_rows.cuh); cleared rows
+// staged as NW words and stored as 16-byte vectors (`store_words`).  It
+// answers what bounded the general kernel on such boards: a warp an env
+// loading its bytes one a lane, one lane a line walking the line's cells
+// through the global table, two dependent loads a cell (48 lines of up to
+// 40 cells in two rounds on 8x40, 16 lanes idle in the second), and a
+// byte-by-byte clear and store.  A block that needs more than 48 KB of
+// shared memory opts in to it.
 //
 // The general kernel: one warp per env, four envs per block, any N (a warp
 // past the last env exits as a whole, before any warp collective).  Lanes
@@ -93,6 +109,64 @@ __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
   bit_rows::store_rows(rows, board_out + lo, count * hw, width);
 }
 
+template <int NW>
+__global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
+    clear_wide_kernel(const uint8_t* __restrict__ board,
+                      uint8_t* __restrict__ board_out,
+                      int32_t* __restrict__ k_out, int n, int height,
+                      int width, int region_size, int per_warp) {
+  extern __shared__ __align__(16) uint8_t rows_smem[];
+  const int per_block = blockDim.x / 32 * per_warp;
+  uint32_t* rows = reinterpret_cast<uint32_t*>(rows_smem);  // E*H cleared rows of NW words
+  uint8_t* span = bit_rows::staged_span(rows_smem, per_block * height * NW);
+  const int hw = height * width;
+  const int first = blockIdx.x * per_block;          // first env
+  const int count = min(per_block, n - first);       // envs here
+  const long long lo = static_cast<long long>(first) * hw;
+  const int d = bit_rows::stage_bytes(board, lo, lo + static_cast<long long>(count) * hw, span);
+
+  const bit_rows::Seat t = bit_rows::seat(height, per_warp);
+  const bool active = t.s < per_warp && t.seg < count;
+  __syncthreads();
+  uint32_t x[NW];  // no env: the identity of the AND
+#pragma unroll
+  for (int i = 0; i < NW; ++i) x[i] = kAll;
+  if (active) {
+    const int at = d + t.seg * hw + t.lane * width;
+#pragma unroll
+    for (int i = 0; i + 1 < NW; ++i) x[i] = bit_rows::pack_row(span, at + 32 * i, 32);
+    x[NW - 1] = bit_rows::pack_row(span, at + 32 * (NW - 1), width - 32 * (NW - 1));
+  }
+  int k;
+  bit_rows::clear_words<NW>(x, active, t, height, width, region_size, k);
+  if (active) {
+#pragma unroll
+    for (int i = 0; i < NW; ++i) rows[(t.seg * height + t.lane) * NW + i] = x[i];
+    if (t.lane == 0) k_out[first + t.seg] = k;
+  }
+  __syncthreads();
+  bit_rows::store_words<NW>(rows, board_out + lo, count * hw, width);
+}
+
+template <int NW>
+int launch_clear_wide(const void* board, void* board_out, void* k_out, int n, int height,
+                      int width, int region_size, int per_warp, int warps,
+                      cudaStream_t stream) {
+  const int per_block = warps * per_warp;
+  const int blocks = (n + per_block - 1) / per_block;
+  const int smem = bit_rows::smem_bytes(per_block * height * NW,
+                                        static_cast<long long>(per_block) * height * width);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        clear_wide_kernel<NW>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  clear_wide_kernel<NW><<<blocks, warps * 32, smem, stream>>>(
+      static_cast<const uint8_t*>(board), static_cast<uint8_t*>(board_out),
+      static_cast<int32_t*>(k_out), n, height, width, region_size, per_warp);
+  return static_cast<int>(cudaGetLastError());
+}
+
 __global__ void clear_kernel(const uint8_t* __restrict__ board,
                              const int32_t* __restrict__ line_cells,
                              const int32_t* __restrict__ line_len,
@@ -141,6 +215,31 @@ extern "C" int bp_clear_rows(const void* board, void* board_out, void* k_out,
         static_cast<int32_t*>(k_out), n, height, width, region_size, per_warp);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// As bp_clear_rows, for 32 < W <= 128: rows of NW = ceil(W / 32) words.
+extern "C" int bp_clear_wide(const void* board, void* board_out, void* k_out,
+                             int n, int height, int width, int region_size,
+                             int per_warp, int warps, void* stream) {
+  if (height < 1 || height > 32 || per_warp != 32 / height || width <= 32 ||
+      width > 128 || region_size < 0 || region_size > 32 || warps < 1 ||
+      warps > bit_rows::kMaxWarps || (warps * per_warp * height * width) % 16 != 0 ||
+      (reinterpret_cast<uintptr_t>(board_out) & 15) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch ((width + 31) / 32) {
+    case 2:
+      return launch_clear_wide<2>(board, board_out, k_out, n, height, width, region_size,
+                                  per_warp, warps, st);
+    case 3:
+      return launch_clear_wide<3>(board, board_out, k_out, n, height, width, region_size,
+                                  per_warp, warps, st);
+    default:
+      return launch_clear_wide<4>(board, board_out, k_out, n, height, width, region_size,
+                                  per_warp, warps, st);
+  }
 }
 
 // board (N, HW) u8; line_cells (L, max_len) i32 and line_len (L,) i32;

@@ -1,11 +1,13 @@
 // Hand action mask: the CUDA port of the TPU kernel `_mask_kernel`
 // (blockpuzzle_tpu/kernels/mask.py:57, launched by `_mask_pallas_call`,
-// mask.py:85, from `MaskKernel.__call__`).  Two kernels: the bit-row kernel
-// (`mask_rows_kernel`, entry `bp_mask_rows`) for boards with H <= 32 and
-// W <= 32 and pieces of at most 8 rows and 8 columns, every shipped preset
-// and piece set, and the general kernel (`mask_kernel`, entry `bp_mask`)
-// for any other board.  The wrapper (kernels/mask.py)
-// picks one by shape.
+// mask.py:85, from `MaskKernel.__call__`).  Three kernels: the bit-row
+// kernel (`mask_rows_kernel`, entry `bp_mask_rows`) for boards with H <= 32
+// and W <= 32 and pieces of at most 8 rows and 8 columns, every shipped
+// preset and piece set; the wide kernel (`mask_wide_kernel`, entry
+// `bp_mask_wide`), the bit-row kernel on rows of NW = 2..4 words, for
+// H <= 32 and 32 < W <= 128 and the same pieces; and the general kernel
+// (`mask_kernel`, entry `bp_mask`) for any other board.  The wrapper
+// (kernels/mask.py) picks one by shape.
 //
 // What both compute (not how the TPU did it): anchor (r, c) of hand slot s
 // is legal iff the slot holds a piece (0 <= pid < P), the piece's bounding
@@ -56,6 +58,21 @@
 //     leave as 16-byte vectors of 0/1 bytes (`store_rows`).
 // Every lane runs every shuffle and barrier; lanes past the last env-slot
 // and the 32 - P*H left-over lanes compute on no env-slot and store nothing.
+//
+// The wide kernel is the same on a row held as NW 32-bit words, NW a
+// template parameter: NW packs a row (`pack_row` from 32 i bytes into it,
+// min(32, W - 32 i) cells), NW * max_h shuffles, and each shift of the
+// smear and by dc a shift of the NW-word number (`shr_words`: word i takes
+// the low bits of word i + 1 by a funnel shift, the top word zeros; a
+// rectangle of width <= 8 never moves a bit across more than one word
+// boundary); the legal row's mask is built a word at a time with no shift
+// by 32 (W = 64, 128, or W - w + 1 >= 32 (i + 1)).  Legal rows are staged
+// as NW words a row and stored as 16-byte vectors (`store_words`).  It
+// answers what bounded the general kernel on such boards: 15.7 M threads
+// of 64-bit index arithmetic and chains of up to 9 dependent byte loads at
+// N = 49152 on 8x40, every board byte read again by each anchor whose
+// footprint covers it.  A block that needs more than 48 KB of shared
+// memory (16 warps, odd H and W near 128) opts in to it.
 //
 // The general kernel: one thread per (env, slot, anchor), flat over
 // N*S*HW.  Each thread reads its piece's (h, w, cell offsets) row from a
@@ -155,6 +172,118 @@ __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
   bit_rows::store_rows(rows, out + static_cast<long long>(first) * hw, count * hw, width);
 }
 
+// v >> k for the NW-word number v (word 0 lowest), 0 <= k < 32: word i
+// takes the low k bits of word i + 1, the top word zeros.
+template <int NW>
+__device__ __forceinline__ void shr_words(uint32_t (&v)[NW], int k) {
+#pragma unroll
+  for (int i = 0; i < NW; ++i) v[i] = __funnelshift_r(v[i], i + 1 < NW ? v[i + 1] : 0u, k);
+}
+
+// `smear` on the NW-word number v, in place: every shift a `shr_words`.
+template <int NW>
+__device__ __forceinline__ void smear_words(uint32_t (&v)[NW], int rw) {
+  uint32_t s2[NW], s4[NW], s[NW];
+#pragma unroll
+  for (int i = 0; i < NW; ++i) s2[i] = v[i];
+  shr_words(s2, 1);
+#pragma unroll
+  for (int i = 0; i < NW; ++i) s2[i] |= v[i], s4[i] = s2[i];
+  shr_words(s4, 2);
+#pragma unroll
+  for (int i = 0; i < NW; ++i) s4[i] |= s2[i], s[i] = rw >= 4 ? s4[i] : rw >= 2 ? s2[i] : v[i];
+  const int k = rw >= 4 ? 4 : rw >= 2 ? 2 : 1;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) v[i] = s[i];
+  shr_words(v, rw > 0 ? rw - k : 0);
+#pragma unroll
+  for (int i = 0; i < NW; ++i) v[i] = rw > 0 ? v[i] | s[i] : 0u;
+}
+
+template <int NW>
+__global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
+    mask_wide_kernel(const uint8_t* __restrict__ board,
+                     const int32_t* __restrict__ queue,
+                     const int4* __restrict__ pieces,
+                     uint8_t* __restrict__ out, int total, int height,
+                     int width, int slots, int num_pieces, int max_h,
+                     int per_warp) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int per_block = blockDim.x / 32 * per_warp;
+  uint32_t* rows = reinterpret_cast<uint32_t*>(smem);  // E*H legal rows of NW words
+  uint8_t* span = bit_rows::staged_span(smem, per_block * height * NW);
+  const int hw = height * width;
+  const int first = blockIdx.x * per_block;            // first env-slot
+  const int count = min(per_block, total - first);     // env-slots here
+  const int env0 = first / slots;                      // first env read
+  const long long lo = static_cast<long long>(env0) * hw;
+  const long long hi = static_cast<long long>((first + count - 1) / slots + 1) * hw;
+  const int d = bit_rows::stage_bytes(board, lo, hi, span);
+
+  const int l = threadIdx.x % 32;
+  const int s = bit_rows::small_div(l, __frcp_rn(static_cast<float>(height)));  // per_warp: left over
+  const int lane = l - s * height;                     // anchor row
+  const int seg = threadIdx.x / 32 * per_warp + s;     // env-slot in the block
+  const bool active = s < per_warp && seg < count;
+  const int pid = active ? queue[first + seg] : -1;
+  // piece row [h, w, rect 1, rect 2] as in mask_rows_kernel; no piece: no anchor
+  const int4 pc = pid >= 0 && pid < num_pieces ? pieces[pid]
+                                                : make_int4(height + 1, width + 1, 0, 0);
+  __syncthreads();
+  uint32_t x[NW];
+#pragma unroll
+  for (int i = 0; i < NW; ++i) x[i] = 0;
+  if (active) {
+    const int q = first - env0 * slots + seg;  // env in the span: q / slots
+    const int env = slots <= 32 ? bit_rows::small_div(q, __frcp_rn(static_cast<float>(slots)))
+                                : q / slots;
+    const int at = d + env * hw + lane * width;
+#pragma unroll
+    for (int i = 0; i + 1 < NW; ++i) x[i] = bit_rows::pack_row(span, at + 32 * i, 32);
+    x[NW - 1] = bit_rows::pack_row(span, at + 32 * (NW - 1), width - 32 * (NW - 1));
+  }
+  const unsigned r1 = static_cast<unsigned>(pc.z), r2 = static_cast<unsigned>(pc.w);
+  const int dr1 = r1 & 0xff, rh1 = (r1 >> 16) & 0xff;
+  const int dr2 = r2 & 0xff, rh2 = (r2 >> 16) & 0xff;
+  // vertical OR over each rectangle's rows, word by word; a row past the
+  // bottom reads another segment's words, and such an anchor fails
+  // r + h <= H below
+  uint32_t v1[NW], v2[NW];
+#pragma unroll
+  for (int i = 0; i < NW; ++i) v1[i] = v2[i] = 0;
+#pragma unroll
+  for (int t = 0; t < kMaxPiece; ++t) {
+    if (t < max_h) {
+      const bool in1 = static_cast<unsigned>(t - dr1) < static_cast<unsigned>(rh1);
+      const bool in2 = static_cast<unsigned>(t - dr2) < static_cast<unsigned>(rh2);
+#pragma unroll
+      for (int i = 0; i < NW; ++i) {
+        const uint32_t y = __shfl_sync(kAll, x[i], l + t);
+        v1[i] |= in1 ? y : 0u;
+        v2[i] |= in2 ? y : 0u;
+      }
+    }
+  }
+  // horizontal smear and shift by dc: bit c blocked iff a rectangle cell of
+  // anchor c meets the board
+  smear_words(v1, r1 >> 24);
+  shr_words(v1, (r1 >> 8) & 0xff);
+  smear_words(v2, r2 >> 24);
+  shr_words(v2, (r2 >> 8) & 0xff);
+  const int anchors = width - pc.y + 1;  // columns c with c + w <= W
+  const bool fits = lane + pc.x <= height && anchors > 0;
+  if (active) {  // bit c of the row: anchor (lane, c) is legal
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+      const int a = anchors - 32 * i;    // anchors in word i: min(max(a, 0), 32)
+      const uint32_t span_mask = a >= 32 ? kAll : a > 0 ? (1u << a) - 1u : 0u;
+      rows[(seg * height + lane) * NW + i] = fits ? ~(v1[i] | v2[i]) & span_mask : 0u;
+    }
+  }
+  __syncthreads();
+  bit_rows::store_words<NW>(rows, out + static_cast<long long>(first) * hw, count * hw, width);
+}
+
 __global__ void mask_kernel(const uint8_t* __restrict__ board,
                             const int32_t* __restrict__ queue,
                             const int32_t* __restrict__ piece_table,
@@ -174,6 +303,27 @@ __global__ void mask_kernel(const uint8_t* __restrict__ board,
                        anchor, height, width);
   }
   out[i] = legal;
+}
+
+template <int NW>
+int launch_mask_wide(const void* board, const void* queue, const void* pieces, void* out,
+                     int total, int height, int width, int slots, int num_pieces,
+                     int max_h, int per_warp, int warps, cudaStream_t stream) {
+  const int per_block = warps * per_warp;
+  const int blocks = (total + per_block - 1) / per_block;
+  const long long span = static_cast<long long>((per_block + slots - 1) / slots + 1) *
+                         height * width;
+  const int smem = bit_rows::smem_bytes(per_block * height * NW, span);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        mask_wide_kernel<NW>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  mask_wide_kernel<NW><<<blocks, warps * 32, smem, stream>>>(
+      static_cast<const uint8_t*>(board), static_cast<const int32_t*>(queue),
+      static_cast<const int4*>(pieces), static_cast<uint8_t*>(out), total, height, width,
+      slots, num_pieces, max_h, per_warp);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -209,6 +359,35 @@ extern "C" int bp_mask_rows(const void* board, const void* queue,
         per_warp);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// As bp_mask_rows, for 32 < W <= 128: rows of NW = ceil(W / 32) words.
+extern "C" int bp_mask_wide(const void* board, const void* queue,
+                            const void* pieces, void* out, int n, int height,
+                            int width, int slots, int num_pieces, int max_h,
+                            int max_w, int per_warp, int warps, void* stream) {
+  const long long total = static_cast<long long>(n) * slots;
+  if (height < 1 || height > 32 || per_warp != 32 / height || width <= 32 ||
+      width > 128 || slots < 1 || max_h > kMaxPiece || max_w > kMaxPiece ||
+      warps < 1 || warps > bit_rows::kMaxWarps ||
+      (warps * per_warp * height * width) % 16 != 0 || total > INT_MAX ||
+      ((reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(pieces)) & 15) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (total == 0) return static_cast<int>(cudaGetLastError());
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int t = static_cast<int>(total);
+  switch ((width + 31) / 32) {
+    case 2:
+      return launch_mask_wide<2>(board, queue, pieces, out, t, height, width, slots,
+                                 num_pieces, max_h, per_warp, warps, st);
+    case 3:
+      return launch_mask_wide<3>(board, queue, pieces, out, t, height, width, slots,
+                                 num_pieces, max_h, per_warp, warps, st);
+    default:
+      return launch_mask_wide<4>(board, queue, pieces, out, t, height, width, slots,
+                                 num_pieces, max_h, per_warp, warps, st);
+  }
 }
 
 // board (N, HW) u8, queue (N, S) i32, piece_table (P, 3 + max_cells) i32

@@ -47,6 +47,9 @@ MAX_ROWS = 32
 # rows and columns of the largest piece the bit-row u8 mask and legality
 # take (their unrolled loops; csrc/mask.cu, csrc/legality.cu kMaxPiece)
 MAX_PIECE = 8
+# cells of the widest row the wide u8 mask and clear take: four 32-bit
+# words a lane
+MAX_WIDE = 128
 
 
 def segments_per_warp(height: int) -> int:
@@ -62,9 +65,19 @@ def row_launch_shape(cfg: EnvConfig):
     packed ones and the bit-row u8 mask, clear and apply), or None where a row
     does not fit a lane's 32-bit word or the board has more than 32 rows
     (the packed plain versions still run on the CPU; the u8 wrappers pick
-    their general kernels); computed once per wrapper, off the step's host
-    path."""
+    their wide or general kernels); computed once per wrapper, off the
+    step's host path."""
     if cfg.height > MAX_ROWS or cfg.width > 32:
+        return None
+    return segments_per_warp(cfg.height), mask_block_warps(cfg.height, cfg.width)
+
+
+def wide_launch_shape(cfg: EnvConfig):
+    """(segments a warp, warps a block) of the wide u8 mask and clear,
+    which hold a row as ceil(W / 32) words, for boards of at most 32 rows
+    of 32 < W <= ``MAX_WIDE`` cells; None for any other board.  Computed
+    once per wrapper, as ``row_launch_shape``."""
+    if cfg.height > MAX_ROWS or not 32 < cfg.width <= MAX_WIDE:
         return None
     return segments_per_warp(cfg.height), mask_block_warps(cfg.height, cfg.width)
 

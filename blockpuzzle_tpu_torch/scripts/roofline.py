@@ -92,8 +92,9 @@ FREE = frozenset({"empty", "empty_like", "empty_strided", "new_empty",
 STEP_KERNELS = {"deal_kernel": "deal", "mask_kernel": "mask", "apply_kernel": "apply",
                 "clear_kernel": "clear", "packed_apply_kernel": "packed_apply",
                 "packed_mask_kernel": "packed_mask"}
-# the u8 wrappers, which pick their general kernels where a row word is too
-# narrow (no launch shape)
+# the u8 wrappers, which pick their general kernels where a board has no
+# launch shape (more than 32 rows, or rows too wide), and the mask and clear
+# their wide kernels on rows of 33 to 128 cells (``wide``)
 U8_KERNELS = ("mask_kernel", "apply_kernel", "clear_kernel")
 # a sampler's draw kernel: sampler class name -> kernel name in ``COSTS``
 POLICY_KERNELS = {"UniformLegalSampler": "uniform_legal",
@@ -174,7 +175,8 @@ class CountedKernel:
 @contextlib.contextmanager
 def counted_kernels(env: VecBlockPuzzle, counter: OpCounter, sampler=None):
     """The engine's step kernels (a u8 wrapper's general kernel where it
-    has no launch shape) and ``sampler``'s draw kernel replaced by
+    has no launch shape, its wide kernel where it says so) and
+    ``sampler``'s draw kernel replaced by
     ``CountedKernel``s inside the block; restored after it."""
     saved = {attr: getattr(env, attr) for attr in STEP_KERNELS}
     draw = None if sampler is None else sampler.kernel
@@ -183,9 +185,11 @@ def counted_kernels(env: VecBlockPuzzle, counter: OpCounter, sampler=None):
             k = saved[attr]
             if k is None:
                 continue
-            general = attr in U8_KERNELS and k.shape is None
-            setattr(env, attr, CountedKernel(k, f"{name}_general" if general else name,
-                                             counter))
+            if attr in U8_KERNELS and k.shape is None:
+                name = f"{name}_general"
+            elif getattr(k, "wide", False):
+                name = f"{name}_wide"
+            setattr(env, attr, CountedKernel(k, name, counter))
         if sampler is not None:
             sampler.kernel = CountedKernel(draw, POLICY_KERNELS[type(sampler).__name__],
                                            counter)

@@ -17,7 +17,11 @@ rectangles (10 each), masks the legal row (3) and spends one operation per
 output byte on the spread store; the bit-row clear (K3) packs its rows
 likewise, tests and clears each row word (about 8 operations; a band row 2
 per region row and 3 per tile with regions) and spends one per output
-byte; the bit-row apply (K2) packs two words a row, tests, places and
+byte; the wide mask and clear count the same a word where a row is NW =
+ceil(W / 32) words (each word packed from min(32, W - 32 i) cells, NW
+shuffles a row below, 10 operations a word for each rectangle's smear and
+shift, whose steps are funnel shifts, and 4 for its legal mask; the clear
+tests and clears about 8 a word); the bit-row apply (K2) packs two words a row, tests, places and
 clears (about 12) and stores likewise; the bit-row legality (K4) packs
 each row once, builds its smears (3 operations for each of max_h * max_w
 shapes), spends about 15 a piece and one per output byte; the general mask
@@ -117,6 +121,26 @@ def _mask(cfg, inputs):
     return n * cfg.queue_size * (h * (_pack(cfg) + 5 * t.max_h + 23) + cfg.num_cells)
 
 
+def _words(cfg: EnvConfig) -> int:
+    """Words a row of the wide kernels: ceil(W / 32)."""
+    return -(-cfg.width // 32)
+
+
+def _pack_words(cfg: EnvConfig) -> int:
+    """Operations to pack one board row as ``_words`` words, each from its
+    own cells (``pack_row`` a word)."""
+    widths = [min(32, cfg.width - 32 * i) for i in range(_words(cfg))]
+    return sum(7 * ((w + 6) // 4) for w in widths)
+
+
+def _mask_wide(cfg, inputs):
+    """K1, wide: inputs (board (N, HW) u8, queue (N, S) i32)."""
+    t = rules.tables_for(cfg)
+    n, h, nw = inputs[0].shape[0], cfg.height, _words(cfg)
+    return n * cfg.queue_size * (h * (_pack_words(cfg) + nw * (5 * t.max_h + 24))
+                                 + cfg.num_cells)
+
+
 def _mask_general(cfg, inputs):
     """K1, general: inputs (board, queue)."""
     t = rules.tables_for(cfg)
@@ -138,6 +162,12 @@ def _clear(cfg, inputs):
     """K3, bit-row: inputs (board,)."""
     n, h = inputs[0].shape[0], cfg.height
     return n * (h * (_pack(cfg) + 8) + _regions(cfg) + cfg.num_cells)
+
+
+def _clear_wide(cfg, inputs):
+    """K3, wide: inputs (board,)."""
+    n, h = inputs[0].shape[0], cfg.height
+    return n * (h * (_pack_words(cfg) + 8 * _words(cfg)) + _regions(cfg) + cfg.num_cells)
 
 
 def _clear_general(cfg, inputs):
@@ -207,9 +237,11 @@ def _words_select(cfg: EnvConfig, inputs: Tensors, outputs: Tensors) -> Tuple[in
 
 
 COSTS: Dict[str, Cost] = {
-    "mask": _cost(_mask), "mask_general": _cost(_mask_general),
+    "mask": _cost(_mask), "mask_wide": _cost(_mask_wide),
+    "mask_general": _cost(_mask_general),
     "apply": _cost(_apply), "apply_general": _cost(_apply_general),
-    "clear": _cost(_clear), "clear_general": _cost(_clear_general),
+    "clear": _cost(_clear), "clear_wide": _cost(_clear_wide),
+    "clear_general": _cost(_clear_general),
     "legality": _cost(_legality), "legality_general": _cost(_legality_general),
     "packed_apply": _cost(_packed_apply), "packed_mask": _cost(_packed_mask),
     "packed_legal_words": _cost(_packed_mask),
@@ -221,10 +253,11 @@ COSTS: Dict[str, Cost] = {
 def kernel_bounds(cfg, board, queue, cover, valid, words, attrs, r, c, outs) -> dict:
     """The bound of each kernel named in ``outs`` (kernel -> its outputs:
     a tensor or a tuple) on these inputs."""
-    inputs = {"mask": [board, queue], "mask_general": [board, queue],
+    inputs = {"mask": [board, queue], "mask_wide": [board, queue],
+              "mask_general": [board, queue],
               "apply": [board, cover, valid],
               "apply_general": [board, cover, valid], "clear": [board],
-              "clear_general": [board], "legality": [board],
+              "clear_wide": [board], "clear_general": [board], "legality": [board],
               "legality_general": [board],
               "packed_apply": [words, attrs, r, c, valid],
               "packed_mask": [words, queue], "packed_legal_words": [words, queue]}

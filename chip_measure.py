@@ -51,11 +51,16 @@ then, each line tagged with its part (all seven by default):
             ``WordsSampler`` and an ``UniformLegalSampler`` call, each with
             its device kernels and device time under the profiler and its
             time on the host's clock;
-  general   the four general u8 kernels (boards wider or taller than 32)
-            at N = 49152 on an 8x40 board, timed in turns for 5 rounds
-            (``chip_smoke.general_turns``, the rounds ``chip_smoke.py``
-            phase 1 also takes), here in a process whose library is freshly
-            loaded;
+  general   the u8 kernels of an 8x40 board (rows of 40 cells: the wide
+            mask and clear, the general apply and legality) at N = 49152,
+            with the general mask and clear launched directly on the same
+            inputs and held bit-equal to the wide ones, all six timed in
+            turns for 5 rounds and each wide kernel's median printed beside
+            the general one's (``chip_smoke.wide_turns``, the rounds
+            ``chip_smoke.py`` phase 1 also takes), here in a process whose
+            library is freshly loaded; then the u8 clear-kernel step on that
+            board with the wide kernels and with the general ones swapped
+            in, in turns (``wide_step_turns``);
   draws     the three draw kernels (deal, as the step's 2S-wide draw and
             the S-wide reset deal, uniform_legal, words_select) at N =
             49152 on every packed preset, device times; with
@@ -263,6 +268,60 @@ def rollout_breakdown(card: str) -> None:
         top_items(device, 20, "rollout", 8)
         hand = [e for e in device if any(f"{k}(" in e.name for k in HAND_KERNELS)]
         top_items(hand, 20, "rollout hand kernel", len(HAND_KERNELS))
+
+
+def wide_step_turns(card: str, steps: int = 20) -> None:
+    """The u8 clear-kernel step (``backend="jnp"``) on the 8x40 board at
+    N = 49152, uniform-legal draws, with the wide mask and clear the
+    wrappers pick and with the general mask and clear launched in their
+    place on the same inputs (``chip_smoke.general_calls``), in turns
+    general, wide, wide, general, one engine carrying its state through
+    all four: host ms a step over ``steps`` unprofiled steps, then
+    ``steps`` steps under ``torch.profiler``: device kernels and device ms
+    a step, and the mask's and the clear's device ms a step inside it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from blockpuzzle_tpu_torch import make_env
+    from blockpuzzle_tpu_torch.config import EnvConfig
+    from blockpuzzle_tpu_torch.sampler import UniformLegalSampler
+
+    n, cfg = chip_smoke.N_MAIN, EnvConfig(**chip_smoke.WIDE)
+    env = make_env(cfg, device="cuda", backend="jnp", state_impl="u8")
+    kernels = {"wide": (env.mask_kernel, env.clear_kernel),
+               "general": chip_smoke.general_calls(cfg, env.mask_kernel, env.clear_kernel)}
+    # device kernel names: the mask's and the clear's, by kernel
+    names = {"wide": ("mask_wide_kernel<", "clear_wide_kernel<"),
+             "general": ("::mask_kernel(", "::clear_kernel(")}
+    state, ts = env.init(0, n)
+    draw = UniformLegalSampler(1, n, env.device)
+
+    def run(k):
+        nonlocal state, ts
+        for _ in range(k):
+            state, ts = env.step(state, draw(ts.action_mask))
+        torch.cuda.synchronize()
+
+    for which in ("general", "wide", "wide", "general"):
+        env.mask_kernel, env.clear_kernel = kernels[which]
+        run(5)                                             # warm-up
+        t0 = time.perf_counter()
+        run(steps)
+        step_ms = 1e3 * (time.perf_counter() - t0) / steps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run(steps)
+        device = device_events(prof)
+        if not device:
+            print("[general] the profiler saw no device events: not measured")
+            continue
+        parts = [sum(e.time_range.elapsed_us() for e in device if key in e.name)
+                 / steps / 1e3 for key in names[which]]
+        print(f"[general] u8 jnp step, wide 8x40, N={n}, {which} mask and clear: "
+              f"{step_ms:.4f} ms per step, {len(device) / steps:.2f} device kernels and "
+              f"{sum(e.time_range.elapsed_us() for e in device) / steps / 1e3:.6f} ms "
+              f"device time a step, mask {parts[0]:.6f} ms, clear {parts[1]:.6f} ms "
+              f"({card})")
+    env.mask_kernel, env.clear_kernel = kernels["wide"]
 
 
 def top_items(device, per: int, tag: str, k: int) -> None:
@@ -531,7 +590,7 @@ def kernel_turns(card: str, parent_csrc) -> None:
                        "legality": lambda: calls["legality"](board),
                        "packed_apply": lambda: calls["packed_apply"](*args),
                        "packed_mask": lambda: calls["packed_mask"](words, queue)}
-            for k in current:
+            for k in earlier:  # the words entry has no earlier counterpart here
                 got, want = current[k](), earlier[k]()
                 got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
                 if not all(torch.equal(a, b) for a, b in zip(got, want)):
@@ -688,7 +747,8 @@ def main(argv=None) -> int:
     if "words" in parts:
         words_breakdown(card)
     if "general" in parts:
-        chip_smoke.general_turns(card, "general")
+        chip_smoke.wide_turns(card, "general")
+        wide_step_turns(card)
     if "draws" in parts:
         draw_turns(card, args.parent_csrc)
     print(f"[done] {card}")

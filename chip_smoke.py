@@ -9,7 +9,7 @@ which raises on failure (non-zero exit, no result line):
 
   0. card name and power limit, torch/CUDA versions, compute capability,
      kernel build time;
-  1. each of the fourteen kernels against its plain torch version on the
+  1. each of the sixteen kernels against its plain torch version on the
      card, bit-equal, at N = 49152 and a ragged N = 49151: the three draws
      (deal, uniform_legal, words_select: ``kernels/draws.py``) on the four
      presets, at per-env counters that wrap negative and at shared ones
@@ -21,18 +21,24 @@ which raises on failure (non-zero exit, no result line):
      the default, tenten, woodoku and big presets, on boards holding full
      rows, columns and 3x3 regions; the packed kernels also against the u8
      mask and apply kernels on the unpacked boards, the words against the
-     packed mask packed to words; the general u8 kernels (mask_general,
-     clear_general, apply_general, legality_general) on a board of 8 rows
-     of 40 cells, too wide for a row word; an illegal action on a board
-     holding a full line through the u8 apply kernel of each board and the
-     packed one; then each kernel's device time (CUDA events over 50
-     launches queued behind a spin kernel, so the host's launch time does
-     not enter) beside its bound (``utils/bounds.py``) and the plain
-     version's time (50 calls made as the host goes), at N = 49152 on the
-     default preset (the general kernels on the wide board), and the
-     launch floor (an empty launch's device time) beside the deal's; then
-     the four general kernels timed in turns for 5 rounds
-     (``general_turns``);
+     packed mask packed to words; on a board of 8 rows of 40 cells, too
+     wide for a row word, the wide mask and clear (mask_wide, clear_wide:
+     rows of two words) and the general apply and legality
+     (apply_general, legality_general); the wide mask and clear also on
+     8x33, 6x64, 4x128, 8x100 and 9x36 with 3x3 regions (``WIDE_CASES``);
+     the general mask, clear, apply and legality on a board of 33 rows of
+     9 cells (``TALL``); an illegal action on a board holding a full line
+     through the u8 apply kernel of the presets and of the wide and tall
+     boards and the packed one; then each kernel's device time (CUDA
+     events over 50 launches queued behind a spin kernel, so the host's
+     launch time does not enter) beside its bound (``utils/bounds.py``)
+     and the plain version's time (50 calls made as the host goes), at N
+     = 49152 on the default preset (the wide kernels, apply_general and
+     legality_general on the wide board, mask_general and clear_general
+     on the tall one), and the launch floor (an empty launch's device
+     time) beside the deal's; then the wide board's kernels timed in turns
+     for 5 rounds, with the general mask and clear launched directly on
+     the same inputs and held bit-equal to the wide ones (``wide_turns``);
      then the default packed rollout (N = 49152, 64 steps) through the
      draw kernels and with their plain versions swapped in, with the
      argmax and the words sampler (the paths ``draws_argmax`` and
@@ -41,14 +47,17 @@ which raises on failure (non-zero exit, no result line):
   2. the whole rollout on CUDA and on CPU from one seed (N = 1024, 64
      steps, live deals, auto-reset) on the packed engine (every preset)
      and on the u8 apply-kernel (``backend="pallas"``) and clear-kernel
-     (``backend="jnp"``) steps (every preset and the wide board, where
-     the general mask, apply and clear run: the paths ``wide_u8_pallas``
-     and ``wide_u8_jnp``, counters set to 0 before each and read after
-     it): final states and summed rewards bit-equal across devices and
-     across the engines, each kernel of an engine launched exactly once
-     per step and its other kernel never; then ``legal_all_pieces`` on the
-     final boards against its plain version and the hand mask (on the wide
-     board the general legality: the path ``wide_legal_all_pieces``);
+     (``backend="jnp"``) steps (every preset, the wide board, where the
+     wide mask and clear and the general apply run: the paths
+     ``wide_u8_pallas`` and ``wide_u8_jnp``, and the tall board, where the
+     general mask, apply and clear run: ``tall_u8_pallas`` and
+     ``tall_u8_jnp``; counters set to 0 before each and read after it):
+     final states and summed rewards bit-equal across devices and across
+     the engines, each kernel of an engine launched exactly once per step
+     and every other kernel never; then ``legal_all_pieces`` on the final
+     boards against its plain version and the hand mask (on the wide and
+     tall boards the general legality: the paths
+     ``wide_legal_all_pieces`` and ``tall_legal_all_pieces``);
   3. the rollout paths: the rollout entry point at N = 49152 on the
      default preset, one warm-up chunk then 5 timed windows of 400 steps,
      on the default (packed) engine and on the apply-kernel step; then the
@@ -172,23 +181,40 @@ import time
 N_MAIN = 49152
 PARITY_SEEDS = 8
 PACKED_PRESETS = ("default", "tenten", "woodoku", "big")
-# a u8 board too wide for a row word: the general u8 kernels
+# a u8 board too wide for a row word: the wide u8 mask and clear (rows of
+# two words), the general apply and legality
 WIDE = dict(height=8, width=40)
+# the other boards of more than 32 cells a row that phase 1 holds the wide
+# mask and clear on (tests/test_torch_kernels.py WIDE_CASES): one cell in
+# the second word, 32 dividing W, four whole words (pieces of at most 2x2,
+# which fit its 4 rows), four words with 4 cells in the top one, and 3x3
+# regions whose fields straddle the first two words
+WIDE_CASES = {"8x33": dict(height=8, width=33), "6x64": dict(height=6, width=64),
+              "4x128": dict(height=4, width=128, piece_set="mini5"),
+              "8x100": dict(height=8, width=100),
+              "9x36r3": dict(height=9, width=36, region_clear=True, region_size=3,
+                             queue_size=3)}
+# a u8 board of more than 32 rows: the general u8 kernels
+TALL = dict(height=33, width=9)
 # kernel -> (source, the TPU kernel or jnp code it replaces, the path its
 # launches are read from)
 KERNEL_INFO = {
     "mask": ("blockpuzzle_tpu_torch/kernels/csrc/mask.cu",
              "blockpuzzle_tpu/kernels/mask.py:85", "rollout_pallas"),
+    "mask_wide": ("blockpuzzle_tpu_torch/kernels/csrc/mask.cu",
+                  "blockpuzzle_tpu/kernels/mask.py:85", "wide_u8_pallas"),
     "mask_general": ("blockpuzzle_tpu_torch/kernels/csrc/mask.cu",
-                     "blockpuzzle_tpu/kernels/mask.py:85", "wide_u8_pallas"),
+                     "blockpuzzle_tpu/kernels/mask.py:85", "tall_u8_pallas"),
     "apply": ("blockpuzzle_tpu_torch/kernels/csrc/collision.cu",
               "blockpuzzle_tpu/kernels/collision.py:164", "rollout_pallas"),
     "apply_general": ("blockpuzzle_tpu_torch/kernels/csrc/collision.cu",
                       "blockpuzzle_tpu/kernels/collision.py:164", "wide_u8_pallas"),
     "clear": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
               "blockpuzzle_tpu/kernels/clear.py:93", "train_u8"),
+    "clear_wide": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
+                   "blockpuzzle_tpu/kernels/clear.py:93", "wide_u8_jnp"),
     "clear_general": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
-                      "blockpuzzle_tpu/kernels/clear.py:93", "wide_u8_jnp"),
+                      "blockpuzzle_tpu/kernels/clear.py:93", "tall_u8_jnp"),
     "legality": ("blockpuzzle_tpu_torch/kernels/csrc/legality.cu",
                  "blockpuzzle_tpu/kernels/collision.py:50", "legal_all_pieces"),
     "legality_general": ("blockpuzzle_tpu_torch/kernels/csrc/legality.cu",
@@ -241,10 +267,12 @@ def kernel_counters(env) -> dict:
             "uniform_legal": (uniform, "launches"),
             "words_select": (words, "launches"),
             "mask": (env.mask_kernel, "launches"),
+            "mask_wide": (env.mask_kernel, "wide_launches"),
             "mask_general": (env.mask_kernel, "general_launches"),
             "apply": (env.apply_kernel, "launches"),
             "apply_general": (env.apply_kernel, "general_launches"),
             "clear": (env.clear_kernel, "launches"),
+            "clear_wide": (env.clear_kernel, "wide_launches"),
             "clear_general": (env.clear_kernel, "general_launches"),
             "legality": (env.legal_kernel, "launches"),
             "legality_general": (env.legal_kernel, "general_launches"),
@@ -369,16 +397,21 @@ def kernel_inputs(cfg, n: int, seed: int):
     hw = cfg.num_cells
     board = (rs.random((n, hw)) < 0.35).astype(np.uint8)
     grid = board.reshape(n, cfg.height, cfg.width)
+    r4 = min(4, cfg.height - 1)                       # row 4, or the last
     grid[0::7, 3, :] = 1                              # full rows
     grid[1::7, :, 5] = 1                              # full columns
-    grid[2::7, 4, :] = 1                              # row 4 full but
-    grid[2::7, 4, 0] = 0                              # its first cell
+    grid[2::7, r4, :] = 1                             # row 4 full but
+    grid[2::7, r4, 0] = 0                             # its first cell
     grid[3::7, 0:3, 0:3] = 1                          # full 3x3 regions
     grid[4::7, 3:6, 3:6] = 1                          # a full region crossed
-    grid[4::7, 4, :] = 1                              # by a full row
+    grid[4::7, r4, :] = 1                             # by a full row
+    size = cfg.region_size
+    if cfg.region_clear and cfg.width > 32 and 32 % size:
+        c0 = 32 // size * size                        # a full region across
+        grid[5::7, :size, c0 : c0 + size] = 1         # two row words
     queue = rs.integers(0, t.num_pieces + 1, (n, cfg.queue_size)).astype(np.int32)
     g = rs.integers(0, t.cover.shape[0], n)           # random (piece, anchor)
-    g[2::7] = 4 * cfg.width                           # 1x1 at (4, 0): clears
+    g[2::7] = r4 * cfg.width                          # 1x1 at (4, 0): clears
     return (board, queue, t.cover[g], t.valid[g]) + chosen_action(cfg, g)
 
 
@@ -412,6 +445,24 @@ def check_equal(outs, refs, what: str, errs: dict, name: str) -> None:
             raise AssertionError(f"{name} kernel != plain ({what})")
 
 
+def u8_kernel_names(cfg) -> tuple:
+    """The u8 mask, clear, apply and legality kernels the wrappers pick on
+    ``cfg``: the bit-row kernels where H <= 32 and W <= 32, the wide mask
+    and clear with the general apply and legality where H <= 32 and
+    32 < W <= 128, the general kernels elsewhere."""
+    if cfg.height <= 32 and cfg.width <= 32:
+        return "mask", "clear", "apply", "legality"
+    if cfg.height <= 32 and cfg.width <= 128:
+        return "mask_wide", "clear_wide", "apply_general", "legality_general"
+    return "mask_general", "clear_general", "apply_general", "legality_general"
+
+
+def picked(k) -> str:
+    """The suffix of the kernel a u8 wrapper picked: "", "_wide" or
+    "_general"."""
+    return "_general" if k.shape is None else "_wide" if getattr(k, "wide", False) else ""
+
+
 def phase1(card: str) -> dict:
     import torch
 
@@ -429,16 +480,24 @@ def phase1(card: str) -> dict:
     times, bounds = {}, {}
     configs = {name: PRESETS[name]() for name in PACKED_PRESETS}
     configs["wide"] = EnvConfig(**WIDE)
+    configs.update({name: EnvConfig(**shape) for name, shape in WIDE_CASES.items()})
+    configs["tall"] = EnvConfig(**TALL)
+    # the boards whose kernels are timed at N_MAIN (the apply and legality
+    # on the wide board only), and the board each kernel's line names
+    timed = {"default": ("mask", "clear", "apply", "legality"),
+             "wide": ("mask_wide", "clear_wide", "apply_general", "legality_general"),
+             "tall": ("mask_general", "clear_general")}
+    where = {"default": "default", "wide": "wide 8x40", "tall": "tall 33x9"}
     for name, cfg in configs.items():
-        packed = name != "wide"
-        mk, ak = MaskKernel(cfg, dev), ApplyKernel(cfg, dev)
-        ck, lk = ClearScanKernel(cfg, dev), LegalityKernel(cfg, dev)
-        # the wide board takes the general kernels
-        mask_name, clear_name, apply_name, legal_name = (
-            k if packed else f"{k}_general"
-            for k in ("mask", "clear", "apply", "legality"))
-        if [k.shape is None for k in (mk, ck, ak, lk)] != [not packed] * 4:
-            raise AssertionError(f"{name}: the wrappers picked the wrong kernels")
+        packed = name in PACKED_PRESETS
+        full = packed or name in timed   # the apply and legality held too
+        mask_name, clear_name, apply_name, legal_name = u8_kernel_names(cfg)
+        mk, ck = MaskKernel(cfg, dev), ClearScanKernel(cfg, dev)
+        ak, lk = (ApplyKernel(cfg, dev), LegalityKernel(cfg, dev)) if full else (None, None)
+        got = [k + picked(w) for k, w in zip(("mask", "clear", "apply", "legality"),
+                                             (mk, ck, ak, lk)) if w is not None]
+        if got != [mask_name, clear_name, apply_name, legal_name][: len(got)]:
+            raise AssertionError(f"{name}: the wrappers picked {got}")
         if packed:
             pak, pmk = PackedApplyKernel(cfg, dev), PackedMaskKernel(cfg, dev)
         for n in (N_MAIN, N_MAIN - 1):
@@ -446,20 +505,22 @@ def phase1(card: str) -> dict:
                 torch.as_tensor(x, device=dev)
                 for x in kernel_inputs(cfg, n, seed=n)
             )
-            what = f"{name}, N={n}"
+            what = f"{name} {cfg.height}x{cfg.width}, N={n}"
             mask = mk(board, queue)
             check_equal([mask], [mk.plain(board, queue)], what, errs, mask_name)
-            outs = ak(board, cover, valid)
-            check_equal(outs, ak.plain(board, cover, valid), what, errs, apply_name)
             cleared = ck(board)
             check_equal(cleared, ck.plain(board), what, errs, clear_name)
-            legal_all = lk(board)
-            check_equal([legal_all], [lk.plain(board)], what, errs, legal_name)
             line = (f"[phase1] {what}: {mask_name} legal share "
                     f"{float(mask.float().mean()):.4f}, {clear_name} k "
-                    f"{int(cleared[1].sum())}, {apply_name} legal {int(outs[2].sum())}, "
-                    f"{legal_name} share {float(legal_all.float().mean()):.4f}: "
-                    "u8 kernels == plain (bit-equal)")
+                    f"{int(cleared[1].sum())}")
+            if full:
+                outs = ak(board, cover, valid)
+                check_equal(outs, ak.plain(board, cover, valid), what, errs, apply_name)
+                legal_all = lk(board)
+                check_equal([legal_all], [lk.plain(board)], what, errs, legal_name)
+                line += (f", {apply_name} legal {int(outs[2].sum())}, {legal_name} share "
+                         f"{float(legal_all.float().mean()):.4f}")
+            line += ": u8 kernels == plain (bit-equal)"
             if packed:
                 words = pack_words(board.view(n, cfg.height, cfg.width))
                 pmask = pmk(words, queue)
@@ -488,6 +549,8 @@ def phase1(card: str) -> dict:
                          "kernels on the unpacked boards (bit-equal); packed legal "
                          "words == plain == the packed mask packed to words")
             print(line)
+            if not full:
+                continue
             b2, c2, v2, a2, r2, col2 = (
                 torch.as_tensor(x, device=dev) for x in illegal_on_full_line(cfg, n)
             )
@@ -498,7 +561,7 @@ def phase1(card: str) -> dict:
             for nb, k2, l2, before in noops:
                 if bool(l2.any()) or int(k2.sum()) or not torch.equal(nb, before):
                     raise AssertionError(f"illegal action changed a board ({name})")
-        if name not in ("default", "wide"):
+        if name not in timed:
             continue
         board, queue, cover, valid, attrs, r, c = (
             torch.as_tensor(x, device=dev)
@@ -509,6 +572,7 @@ def phase1(card: str) -> dict:
                  apply_name: (lambda: ak(board, cover, valid),
                               lambda: ak.plain(board, cover, valid)),
                  legal_name: (lambda: lk(board), lambda: lk.plain(board))}
+        calls = {k: calls[k] for k in timed[name]}
         words = None
         if name == "default":
             words = pack_words(board.view(N_MAIN, cfg.height, cfg.width))
@@ -520,20 +584,20 @@ def phase1(card: str) -> dict:
                 "packed_legal_words": (lambda: pmk.words(words, queue),
                                        lambda: pmk.plain_words(words, queue)),
             })
-        bounds.update(kernel_bounds(cfg, board, queue, cover, valid, words, attrs,
-                                    r, c, {k: f() for k, (f, _) in calls.items()}))
+        here = kernel_bounds(cfg, board, queue, cover, valid, words, attrs, r, c,
+                             {k: f() for k, (f, _) in calls.items()})
+        bounds.update({k: dict(b, where=where[name]) for k, b in here.items()})
         times.update({k: (cuda_ms(f), host_paced_ms(g)) for k, (f, g) in calls.items()})
     phase1_draws(errs, times, bounds, card)
     for k, (ms, plain_ms) in times.items():
         b = bounds[k]
-        where = "wide 8x40" if k.endswith("_general") else "default"
-        print(f"[phase1] {k} N={N_MAIN} {where}: kernel {ms:.6f} ms, plain "
-              f"{plain_ms:.6f} ms, bound {b['bound_ms']:.6f} ms by {b['bound_by']} "
+        print(f"[phase1] {k} N={N_MAIN} {b.get('where', 'default')}: kernel {ms:.6f} ms, "
+              f"plain {plain_ms:.6f} ms, bound {b['bound_ms']:.6f} ms by {b['bound_by']} "
               f"({b['bytes']} B, {b['ops']:.0f} ops), {100 * b['bound_ms'] / ms:.1f}% "
               f"of it ({card})")
     print("[phase1] illegal action on a full-line board: strict no-op (apply, "
-          "apply_general, packed_apply)")
-    general_turns(card, "phase1")
+          "apply_general on the wide and tall boards, packed_apply)")
+    wide_turns(card, "phase1")
     return {k: {"max_abs_err": errs[k], "ms": times[k][0], "plain_ms": times[k][1],
                 "bound_ms": bounds[k]["bound_ms"], "bound_by": bounds[k]["bound_by"],
                 "library_ms": None} for k in errs}
@@ -717,11 +781,54 @@ def draws_check() -> dict:
     return paths
 
 
-def general_turns(card: str, tag: str, rounds: int = 5) -> None:
-    """The four general u8 kernels at N = 49152 on the wide board, each
-    timed by ``cuda_ms`` in turns with the others for ``rounds`` rounds
-    (mask, clear, apply, legality, then again), each kernel's times
-    printed in order."""
+def general_calls(cfg, mk, ck):
+    """Callables that launch the general mask and clear kernels (``bp_mask``,
+    ``bp_clear``) on ``cfg``'s boards, whatever kernel the wrappers ``mk``
+    and ``ck`` pick there: the per-cell piece table and the line tables, as
+    the wrappers call them on a board they take no other kernel for."""
+    import torch
+
+    from blockpuzzle_tpu_torch.kernels import _build
+    from blockpuzzle_tpu_torch.kernels.collision import piece_table
+
+    lib, dev = _build.library(), mk.device
+    table = torch.as_tensor(piece_table(cfg), device=dev)
+    lines = ck.lines
+
+    def stream():
+        return torch.cuda.current_stream(dev).cuda_stream
+
+    def mask(board, queue):
+        n = board.shape[0]
+        out = torch.empty((n, cfg.queue_size * cfg.num_cells), dtype=torch.bool,
+                          device=dev)
+        _build.check(lib.bp_mask(
+            board.data_ptr(), queue.data_ptr(), table.data_ptr(), out.data_ptr(), n,
+            cfg.height, cfg.width, cfg.queue_size, mk.num_pieces, table.shape[1] - 3,
+            stream()), "bp_mask")
+        return out
+
+    def clear(board):
+        n = board.shape[0]
+        out, k = torch.empty_like(board), torch.empty(n, dtype=torch.int32, device=dev)
+        _build.check(lib.bp_clear(
+            board.data_ptr(), lines.line_cells.data_ptr(), lines.line_len.data_ptr(),
+            out.data_ptr(), k.data_ptr(), n, cfg.num_cells, lines.line_cells.shape[0],
+            lines.line_cells.shape[1], stream()), "bp_clear")
+        return out, k
+
+    return mask, clear
+
+
+def wide_turns(card: str, tag: str, rounds: int = 5) -> None:
+    """The u8 kernels of the wide board at N = 49152 on the same inputs,
+    each timed by ``cuda_ms`` in turns with the others for ``rounds``
+    rounds: the wide mask, the general mask launched directly on the same
+    board, the wide clear, the general clear likewise, the general apply
+    and the general legality, then again.  The wide mask and clear are
+    first held bit-equal to the general ones; each kernel's times are
+    printed in order with their median, and each wide kernel's median
+    beside the general one's."""
     import torch
 
     from blockpuzzle_tpu_torch.config import EnvConfig
@@ -733,19 +840,34 @@ def general_turns(card: str, tag: str, rounds: int = 5) -> None:
     cfg = EnvConfig(**WIDE)
     mk, ck = MaskKernel(cfg, dev), ClearScanKernel(cfg, dev)
     ak, lk = ApplyKernel(cfg, dev), LegalityKernel(cfg, dev)
+    if not (mk.wide and ck.wide):
+        raise AssertionError("the wrappers did not pick the wide kernels on 8x40")
+    general_mask, general_clear = general_calls(cfg, mk, ck)
     board, queue, cover, valid = (torch.as_tensor(x, device=dev)
                                   for x in kernel_inputs(cfg, N_MAIN, seed=0)[:4])
-    calls = {"mask_general": lambda: mk(board, queue), "clear_general": lambda: ck(board),
+    if not torch.equal(mk(board, queue), general_mask(board, queue)):
+        raise AssertionError("mask_wide != mask_general on 8x40")
+    if not all(torch.equal(a, b) for a, b in zip(ck(board), general_clear(board))):
+        raise AssertionError("clear_wide != clear_general on 8x40")
+    calls = {"mask_wide": lambda: mk(board, queue),
+             "mask_general": lambda: general_mask(board, queue),
+             "clear_wide": lambda: ck(board), "clear_general": lambda: general_clear(board),
              "apply_general": lambda: ak(board, cover, valid),
              "legality_general": lambda: lk(board)}
     times = {k: [] for k in calls}
     for _ in range(rounds):
         for k, f in calls.items():
             times[k].append(cuda_ms(f))
+    print(f"[{tag}] wide 8x40 N={N_MAIN}: mask_wide == mask_general and clear_wide == "
+          "clear_general, launched directly on the same inputs (bit-equal)")
     for k, ts in times.items():
         print(f"[{tag}] {k} N={N_MAIN} wide 8x40, {rounds} rounds in turns with the "
-              f"other general kernels, device ms: {', '.join(f'{t:.6f}' for t in ts)}; "
+              f"other kernels of the board, device ms: {', '.join(f'{t:.6f}' for t in ts)}; "
               f"median {statistics.median(ts):.6f} ({card})")
+    for k in ("mask", "clear"):
+        wide, general = (statistics.median(times[f"{k}_{v}"]) for v in ("wide", "general"))
+        print(f"[{tag}] {k} 8x40 medians: general {general:.6f} ms, wide {wide:.6f} ms, "
+              f"{general / wide:.2f}x ({card})")
 
 
 def hand_rows(legal_all, queue):
@@ -761,10 +883,11 @@ def hand_rows(legal_all, queue):
 
 def phase2():
     """Returns the maximum absolute error of ``legal_all_pieces`` against
-    its plain version on the presets and on the wide board, and the launch
-    counts of the wide board's two u8 rollouts and of ``legal_all_pieces``
-    there (the paths ``wide_u8_pallas``, ``wide_u8_jnp`` and
-    ``wide_legal_all_pieces``)."""
+    its plain version on the presets and on the wide and tall boards, and
+    the launch counts of those two boards' u8 rollouts and of
+    ``legal_all_pieces`` there (the paths ``wide_u8_pallas``,
+    ``wide_u8_jnp``, ``wide_legal_all_pieces`` and their ``tall_``
+    twins)."""
     import torch
 
     from blockpuzzle_tpu_torch import PRESETS, make_env
@@ -773,23 +896,25 @@ def phase2():
 
     n, steps = 1024, 64
     fields = ("queue", "base_key", "rng_counter", "steps", "score", "streak")
-    # engine -> (make_env arguments, kernels launched once per step: on the
-    # presets, on the wide board)
-    engines = {"packed": (dict(backend="jnp", state_impl="packed"),
-                          ("packed_mask", "packed_apply"), None),
-               "pallas": (dict(backend="pallas", state_impl="u8"),
-                          ("mask", "apply"), ("mask_general", "apply_general")),
-               "jnp": (dict(backend="jnp", state_impl="u8"), ("mask", "clear"),
-                       ("mask_general", "clear_general"))}
+    # engine -> make_env arguments; the kernels each launches once per step
+    # are the mask with the apply (pallas) or the clear (jnp) that the
+    # board takes (``u8_kernel_names``), the packed engine's on the presets
+    engines = {"packed": dict(backend="jnp", state_impl="packed"),
+               "pallas": dict(backend="pallas", state_impl="u8"),
+               "jnp": dict(backend="jnp", state_impl="u8")}
     configs = {name: PRESETS[name]() for name in PACKED_PRESETS}
     configs["wide"] = EnvConfig(**WIDE)
+    configs["tall"] = EnvConfig(**TALL)
     errs, paths = {"legality": 0, "legality_general": 0}, {}
     for name, cfg in configs.items():
-        wide = name == "wide"
+        board_path = name in ("wide", "tall")   # their launches are paths
+        mask_name, clear_name, apply_name, legal_name = u8_kernel_names(cfg)
+        steps_of = {"packed": ("packed_mask", "packed_apply"),
+                    "pallas": (mask_name, apply_name), "jnp": (mask_name, clear_name)}
         finals, boards, rewards, envs = {}, {}, {}, {}
-        run = ("pallas", "jnp") if wide else ("packed", "pallas", "jnp")
+        run = ("pallas", "jnp") if board_path else ("packed", "pallas", "jnp")
         for engine in run:
-            kwargs, per_step = engines[engine][0], engines[engine][1 + wide]
+            kwargs, per_step = engines[engine], steps_of[engine]
             for dev in ("cuda", "cpu"):
                 env = make_env(cfg, device=dev, **kwargs)
                 zero_counts(env)
@@ -806,8 +931,8 @@ def phase2():
                     if counts != expect:
                         raise AssertionError(
                             f"{name} {engine} launch counts {counts} != {expect}")
-                    if wide:
-                        paths[f"wide_u8_{engine}"] = counts
+                    if board_path:
+                        paths[f"{name}_u8_{engine}"] = counts
                     envs[engine] = (env, state)
                 finals[engine, dev] = state.to("cpu")
                 boards[engine, dev] = env.board_obs(state.board).cpu()
@@ -826,10 +951,9 @@ def phase2():
               f"{', '.join(run)} engines, each CUDA == CPU, and {run[0]} CUDA == "
               f"every other engine on CUDA (final states bit-equal), summed reward "
               f"{rewards[run[0], 'cuda']}, launches per step "
-              + "; ".join(f"{e}: " + " ".join(f"{k}=1" for k in engines[e][1 + wide])
+              + "; ".join(f"{e}: " + " ".join(f"{k}=1" for k in steps_of[e])
                           for e in run) + ", deal=1 and uniform_legal=1 on each (deal "
               "once more at init)")
-        legal_name = "legality_general" if wide else "legality"
         for engine in run:
             env, state = envs[engine]
             zero_counts(env)
@@ -837,8 +961,8 @@ def phase2():
             counts = read_counts(env)
             if counts != expected(**{legal_name: 1}):
                 raise AssertionError(f"{name} legal_all_pieces launches {counts}")
-            if wide:
-                paths["wide_legal_all_pieces"] = counts
+            if board_path:
+                paths[f"{name}_legal_all_pieces"] = counts
             plain = env.legal_kernel.plain(
                 env.board_obs(state.board).reshape(n, -1).contiguous())
             errs[legal_name] = max(errs[legal_name], max_abs_err(legal_all, plain))

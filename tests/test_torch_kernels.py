@@ -7,11 +7,13 @@ run the plain torch versions for CPU tensors.  A numpy emulation of each
 CUDA kernel's per-thread/per-warp logic, fed the very tables the wrappers
 hand to the kernels, closes the loop on the CPU (the kernels themselves
 run only on the card: ``chip_smoke.py`` and the ``gpu``-marked tests in
-test_torch_rollout.py).  Each u8 wrapper has two kernels: the bit-row
-kernel on boards of at most 32 rows of at most 32 cells (every preset) and
-the general kernel, which the wrappers pick for any other board;
-``wide40`` (8 rows of 40 cells) is such a board.  All outputs are integers
-or bools and must be bit-equal.
+test_torch_rollout.py).  Each u8 wrapper has a bit-row kernel, for boards
+of at most 32 rows of at most 32 cells (every preset), and a general
+kernel; the mask and clear also have a wide kernel, for at most 32 rows of
+33 to 128 cells (``WIDE_CASES``: ``wide40`` is 8 rows of 40 cells), where
+the apply and legality take their general kernels; ``tall33`` (33 rows)
+takes the general kernels of all four.  All outputs are integers or bools
+and must be bit-equal.
 """
 
 import inspect
@@ -41,33 +43,51 @@ from blockpuzzle_tpu_torch.kernels.collision import (
     legality_smem_bytes, piece_table, rect_shapes,
 )
 from blockpuzzle_tpu_torch.kernels.mask import piece_rows_table
+from blockpuzzle_tpu_torch.kernels.packed import mask_block_warps, wide_launch_shape
 from test_torch_packed import (
     U32, _ballot, _popc, _reduce, _shfl, _shl32, _small_div, _spread4, _warp_layout,
 )
 
 PRESETS = ["default", "tenten", "woodoku"]
-# every preset, and a board too wide for a row word (the general kernels)
+# every preset, and a board too wide for a row word (the wide mask and
+# clear, the general apply and legality)
 U8_CASES = PRESETS + ["big", "wide40"]
 WIDE40 = dict(height=8, width=40)
+# boards of 33 to 128 cells a row: the wide mask and clear kernels on two,
+# three and four words a row (8x33: one cell in the second word; 6x64: 32
+# divides W; 4x128: four whole words, with the piece set of at most 2x2
+# pieces, since the JAX engine's piece tables need pieces that fit the
+# board; 8x100: four words, the top one of 4 cells; 9x36 with 3x3 regions
+# and a hand of three: region fields straddling the first two words)
+WIDE_CASES = {"wide40": WIDE40, "wide33": dict(height=8, width=33),
+              "wide64": dict(height=6, width=64),
+              "wide128": dict(height=4, width=128, piece_set="mini5"),
+              "wide100": dict(height=8, width=100),
+              "wide36r3": dict(height=9, width=36, region_clear=True, region_size=3,
+                               queue_size=3)}
+# the mask and clear tests: every preset and every wide board
+MASK_CASES = PRESETS + ["big"] + list(WIDE_CASES)
 
 
 def _pair(case):
-    if case == "wide40":
-        return jcfg.EnvConfig(**WIDE40), tcfg.EnvConfig(**WIDE40)
+    if case in WIDE_CASES:
+        return jcfg.EnvConfig(**WIDE_CASES[case]), tcfg.EnvConfig(**WIDE_CASES[case])
     return jcfg.PRESETS[case](), tcfg.PRESETS[case]()
 
 
 def random_boards(cfg, n, rng, fill=0.5):
     """Random boards with forced full rows/cols, and a row that is full but
-    for its first cell (so a 1x1 at (4, 0) clears it)."""
+    for its first cell (so a 1x1 at (4, 0) clears it; the last row on a
+    board of fewer than 5 rows)."""
     b = (rng.random((n, cfg.num_cells)) < fill).astype(np.uint8)
     grid = b.reshape(n, cfg.height, cfg.width)
+    r4 = min(4, cfg.height - 1)
     grid[0, 3, :] = 1
     grid[1, :, 7] = 1
     grid[2, 0, :] = 1
     grid[2, :, 0] = 1
-    grid[3::4, 4, :] = 1
-    grid[3::4, 4, 0] = 0
+    grid[3::4, r4, :] = 1
+    grid[3::4, r4, 0] = 0
     return b
 
 
@@ -454,15 +474,213 @@ def emulate_legality_rows_kernel(cfg, board, lk, addr=0):
     return out.reshape(n, num_pieces, hw).astype(bool)
 
 
-@pytest.mark.parametrize("preset", U8_CASES)
+# --------------------------------------------------------------------------
+# numpy emulations of the wide kernels (csrc/mask.cu mask_wide_kernel,
+# csrc/clear.cu clear_wide_kernel, bit_rows.cuh clear_words and
+# store_words): the bit-row kernels on rows held as NW = ceil(W / 32) words,
+# each a list of NW (warps, 32) arrays, word 0 lowest.
+# --------------------------------------------------------------------------
+
+
+def _fshr(lo, hi, k):
+    """__funnelshift_r(lo, hi, k): the low 32 bits of (hi:lo) >> (k & 31)."""
+    k = np.asarray(k) & 31
+    return ((np.asarray(lo, np.int64) >> k) | (np.asarray(hi, np.int64) << (32 - k))) & U32
+
+
+def _shr_words(v, k):
+    """mask.cu shr_words: the NW-word number ``v`` >> k (0 <= k < 32), word i
+    funnel-shifted with word i + 1, the top word with zeros; checked
+    against the shift of the whole number."""
+    nw = len(v)
+    out = [_fshr(v[i], v[i + 1] if i + 1 < nw else 0, k) for i in range(nw)]
+    whole = sum(np.asarray(v[i]).astype(object) << (32 * i) for i in range(nw))
+    whole = whole >> np.broadcast_to(k, whole.shape).astype(object)
+    assert all(((whole >> (32 * i)) & U32 == out[i]).all() for i in range(nw))
+    return out
+
+
+def emulate_smear_words(v, rw):
+    """mask.cu smear_words: ``emulate_smear``'s doubling steps, every shift
+    a ``_shr_words``; checked against OR_{u < rw} v >> u."""
+    assert (rw <= 8).all()
+    s2 = [a | b for a, b in zip(v, _shr_words(v, 1))]
+    s4 = [a | b for a, b in zip(s2, _shr_words(s2, 2))]
+    s = [np.where(rw >= 4, c, np.where(rw >= 2, b, a)) for a, b, c in zip(v, s2, s4)]
+    k = np.where(rw >= 4, 4, np.where(rw >= 2, 2, 1))
+    out = [np.where(rw > 0, a | b, 0)
+           for a, b in zip(s, _shr_words(s, np.where(rw > 0, rw - k, 0)))]
+    want = [np.zeros_like(a) for a in v]
+    for u in range(8):
+        for i, a in enumerate(_shr_words(v, u)):
+            want[i] |= np.where(u < rw, a, 0)
+    assert all((a == b).all() for a, b in zip(out, want))
+    return out
+
+
+def emulate_pack_words(buf, start, width, active):
+    """The wide kernels' pack: one ``pack_row`` a word, word i from 32 i
+    bytes into the row, min(32, W - 32 i) cells."""
+    return [emulate_pack_row(buf, start + 32 * i, min(32, width - 32 * i), active)
+            for i in range(-(-width // 32))]
+
+
+def emulate_store_words(rows, out, start, nbytes, width, nw):
+    """bit_rows.cuh store_words: 16 output bits a vector from row q / W,
+    column c = q % W: the funnel-shifted pair of words holding column c (the
+    top word's pair zeros) and, where fewer than 16 columns are left in the
+    row, the next row's first word shifted up past them; the tail byte by
+    byte.  Rows are ``nw`` staged words each."""
+    assert start % 16 == 0                        # the uint4 stores' alignment
+    for i in range(nbytes // 16):
+        q = 16 * i
+        row = int(_small_div(q, width))
+        c = q - row * width
+        w = c >> 5
+        lo = rows[row * nw + w]
+        hi = rows[row * nw + w + 1] if w + 1 < nw else 0
+        assert lo >= 0 and hi >= 0
+        bits = int(_fshr(lo, hi, c & 31))
+        if width - c < 16:
+            assert rows[(row + 1) * nw] >= 0
+            bits |= (int(rows[(row + 1) * nw]) << (width - c)) & U32
+        vec = [_spread4(bits >> (4 * v)) for v in range(4)]
+        out[start + q : start + q + 16] = np.array(vec, "<u4").view(np.uint8)
+    for q in range(nbytes // 16 * 16, nbytes):
+        row = int(_small_div(q, width))
+        c = q - row * width
+        assert rows[row * nw + (c >> 5)] >= 0
+        out[start + q] = (int(rows[row * nw + (c >> 5)]) >> (c & 31)) & 1
+
+
+def emulate_mask_wide_kernel(cfg, board, queue, mk, addr=0):
+    """csrc/mask.cu mask_wide_kernel on ``mk``'s piece table and launch
+    shape: ``emulate_mask_rows_kernel`` on rows of NW words, each
+    rectangle's vertical OR a word at a time, its smear and shift by dc on
+    the NW-word number, the legal row masked a word at a time."""
+    h, w, s = cfg.height, cfg.width, cfg.queue_size
+    hw, n, nw = cfg.num_cells, len(board), -(-cfg.width // 32)
+    pieces = mk.piece_table.numpy().astype(np.int64) & U32
+    per_warp, warps = mk.shape
+    per_block, total = warps * per_warp, n * s
+    _, l, sw, lane, _, _ = _warp_layout(h)
+    tx = np.arange(warps * 32).reshape(warps, 32)
+    seg = tx // 32 * per_warp + sw
+    out = np.full(total * hw, 2, np.uint8)          # 2: never written
+    for first in range(0, total, per_block):
+        count = min(per_block, total - first)
+        env0 = first // s
+        buf, d = emulate_stage_bytes(
+            board.reshape(-1), env0 * hw, ((first + count - 1) // s + 1) * hw, addr)
+        active = (sw < per_warp) & (seg < count)
+        pid = np.where(active, queue.reshape(-1)[first + np.where(active, seg, 0)], -1)
+        has = (pid >= 0) & (pid < mk.num_pieces)
+        pc = np.where(has[..., None], pieces[np.where(has, pid, 0)],
+                      np.array([h + 1, w + 1, 0, 0]))
+        env = _small_div(first - env0 * s + seg, s)
+        x = emulate_pack_words(buf, d + env * hw + lane * w, w, active)
+        r1, r2 = pc[..., 2], pc[..., 3]
+        v1, v2 = [np.zeros_like(x[0]) for _ in x], [np.zeros_like(x[0]) for _ in x]
+        for t in range(mk.max_h):
+            in1 = (t >= r1 & 0xFF) & (t - (r1 & 0xFF) < (r1 >> 16) & 0xFF)
+            in2 = (t >= r2 & 0xFF) & (t - (r2 & 0xFF) < (r2 >> 16) & 0xFF)
+            for i in range(nw):
+                y = _shfl(x[i], l + t)
+                v1[i] |= np.where(in1, y, 0)
+                v2[i] |= np.where(in2, y, 0)
+        b1 = _shr_words(emulate_smear_words(v1, r1 >> 24), (r1 >> 8) & 0xFF)
+        b2 = _shr_words(emulate_smear_words(v2, r2 >> 24), (r2 >> 8) & 0xFF)
+        anchors = w - pc[..., 1] + 1
+        fits = (lane + pc[..., 0] <= h) & (anchors > 0)
+        rows = np.full(per_block * h * nw, -1, np.int64)
+        for i in range(nw):
+            a = anchors - 32 * i
+            span = np.where(a >= 32, U32, np.where(a > 0, (1 << np.clip(a, 0, 31)) - 1, 0))
+            legal = np.where(fits, ~(b1[i] | b2[i]) & span, 0)
+            rows[((seg * h + lane) * nw + i)[active]] = legal[active]
+        emulate_store_words(rows, out, first * hw, count * hw, w, nw)
+    assert (out < 2).all()
+    return out.reshape(n, s * hw).astype(bool)
+
+
+def emulate_clear_words(x, active, l, sw, lane, base, segmask, h, w, rs):
+    """bit_rows.cuh clear_words: a row full when every word equals its
+    column mask (a ballot), columns by an AND a word over the segment,
+    regions by band shuffles a word and each field read from the
+    funnel-shifted pair holding its first column, marked in both words
+    where it straddles them; k by popcounts.  Returns the cleared words
+    and k."""
+    nw = len(x)
+    tail = w - 32 * (nw - 1)
+    colmask = [U32] * (nw - 1) + [(1 << tail) - 1 if tail < 32 else U32]
+    full = np.logical_and.reduce([x[i] == colmask[i] for i in range(nw)])
+    k = _popc(_ballot(active & full) & segmask)
+    cols = [_reduce(a, sw, np.bitwise_and) for a in x]
+    k = k + sum(_popc(c) for c in cols)
+    reg = [np.zeros_like(a) for a in x]
+    if rs:
+        b0 = lane - lane % rs
+        whole = b0 + rs <= h
+        band = [np.full_like(a, U32) for a in x]
+        for t in range(rs):
+            src = np.where(whole, base + b0 + t, l)
+            band = [b & _shfl(a, src) for a, b in zip(x, band)]
+        tiles = np.zeros_like(x[0])
+        tile0 = (1 << rs) - 1
+        c0 = 0
+        for i in range(nw):
+            while c0 < 32 * (i + 1) and c0 + rs <= w:
+                b = c0 - 32 * i
+                field = _fshr(band[i], band[i + 1] if i + 1 < nw else 0, b) & tile0
+                hit = whole & (field == tile0)
+                reg[i] |= np.where(hit, (tile0 << b) & U32, 0)
+                if i + 1 < nw and b + rs > 32:
+                    reg[i + 1] |= np.where(hit, tile0 >> (32 - b), 0)
+                tiles += hit & (lane == b0)
+                c0 += rs
+        k = k + _reduce(tiles, sw, np.add)
+    cleared = [x[i] & ~(np.where(full, colmask[i], 0) | cols[i] | reg[i]) & U32
+               for i in range(nw)]
+    return cleared, k
+
+
+def emulate_clear_wide_kernel(cfg, board, ck, addr=0):
+    """csrc/clear.cu clear_wide_kernel on ``ck``'s launch shape: a segment
+    of H lanes per env, lane = a row of NW words, through
+    ``clear_words``, stored by ``store_words``."""
+    h, w, hw, n = cfg.height, cfg.width, cfg.num_cells, len(board)
+    nw = -(-w // 32)
+    rs = cfg.region_size if cfg.region_clear else 0
+    per_block, l, sw, lane, base, segmask, seg = _block_layout(h, ck.shape)
+    out, ks = np.full(n * hw, 2, np.uint8), np.full(n, -1, np.int64)
+    for first in range(0, n, per_block):
+        count = min(per_block, n - first)
+        buf, d = emulate_stage_bytes(board.reshape(-1), first * hw, (first + count) * hw, addr)
+        active = (sw < ck.shape[0]) & (seg < count)
+        x = [np.where(active, a, U32)
+             for a in emulate_pack_words(buf, d + seg * hw + lane * w, w, active)]
+        cleared, k = emulate_clear_words(x, active, l, sw, lane, base, segmask, h, w, rs)
+        rows = np.full(per_block * h * nw, -1, np.int64)
+        for i in range(nw):
+            rows[((seg * h + lane) * nw + i)[active]] = cleared[i][active]
+        head = active & (lane == 0)
+        ks[first + seg[head]] = k[head]
+        emulate_store_words(rows, out, first * hw, count * hw, w, nw)
+    assert (out < 2).all() and (ks >= 0).all()
+    return out.reshape(n, hw), ks.astype(np.int32)
+
+
+@pytest.mark.parametrize("preset", MASK_CASES)
 @pytest.mark.parametrize("n", [16, 11])
 def test_mask_matches_pallas_mask_kernel(preset, n, rng):
     """Includes empty-slot sentinels (and an id below 0), invalid anchors,
     full and empty boards and a ragged N (the JAX kernel runs it as one
     tile of n; the port takes any N).  The empty board's rows are the
     pieces' in-bounds anchors: a piece overhanging the right or bottom
-    edge is illegal there.  Both kernels' emulations where the wrapper
-    picks the bit-row kernel, the general one's elsewhere."""
+    edge is illegal there.  Against the Pallas kernel (interpret mode) and
+    the JAX u8 engine's shift mask; the general kernel's emulation on
+    every board, and the bit-row or wide kernel's where the wrapper picks
+    it."""
     cj, ct = _pair(preset)
     board = random_boards(ct, n, rng, fill=0.4)
     t = rules.tables_for(ct)
@@ -474,18 +692,28 @@ def test_mask_matches_pallas_mask_kernel(preset, n, rng):
     queue[n - 2] = (7 * np.arange(ct.queue_size) + 5) % num_pieces
     want = np.asarray(jk.MaskKernel(cj, tile_n=min(8, n) if n % 8 == 0 else n)(
         jnp.asarray(board), jnp.asarray(queue), interpret=True))
+    # the engine's own hands hold ids 0..P (P: the empty slot); its shift
+    # mask reads an id below 0 as an index from the end, so the env with
+    # one is left out there
+    engine = jax_make_env(cj, state_impl="u8", mask_impl="shift").action_mask(
+        jnp.asarray(board), jnp.asarray(queue))
+    dealt = (queue >= 0).all(axis=1)
+    np.testing.assert_array_equal(np.asarray(engine)[dealt], want[dealt])
     mk = MaskKernel(ct, "cpu")
     got = mk(torch.as_tensor(board), torch.as_tensor(queue)).numpy()
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(emulate_mask_kernel(ct, board, queue), want)
-    if mk.shape is not None:
+    if mk.wide:
+        np.testing.assert_array_equal(emulate_mask_wide_kernel(ct, board, queue, mk), want)
+    elif mk.shape is not None:
         np.testing.assert_array_equal(emulate_mask_rows_kernel(ct, board, queue, mk), want)
     hw = ct.num_cells
     assert not want[[0, n - 1]].any() and not want[1, :hw].any()
     for s, p in enumerate(queue[n - 2]):
         np.testing.assert_array_equal(want[n - 2, s * hw : (s + 1) * hw],
                                       t.valid[p * hw : (p + 1) * hw])
-    assert (mk.launches, mk.general_launches) == (0, 0)  # the plain version is no launch
+    # the plain version is no launch
+    assert (mk.launches, mk.wide_launches, mk.general_launches) == (0, 0, 0)
 
 
 @pytest.mark.parametrize("preset", PRESETS)
@@ -549,19 +777,27 @@ def test_apply_kernels_match_pallas_apply_kernel(preset, n, rng):
     assert (ak.launches, ak.general_launches) == (0, 0)
 
 
-@pytest.mark.parametrize("preset", U8_CASES)
+@pytest.mark.parametrize("preset", MASK_CASES)
 @pytest.mark.parametrize("n", [16, 11])
 def test_clear_matches_pallas_clear_kernel(preset, n, rng):
     """Against the Pallas kernel (interpret mode; the ragged N runs as one
     tile of n) and the JAX engine's ``clear_scan``.  Boards hold full rows
-    and columns, a full and an empty board and, on woodoku, a full 3x3
-    region crossing a full row.  Both kernels' emulations where the wrapper
-    picks the bit-row kernel, the general one's elsewhere."""
+    and columns, a full and an empty board and, with regions, a full 3x3
+    region crossing a full row (the last row on a board of fewer than 5
+    rows) and, where a row is wider than 32, a full region whose columns
+    straddle the first two words.  The general kernel's emulation on every
+    board, and the bit-row or wide kernel's where the wrapper picks it."""
     cj, ct = _pair(preset)
     board = random_boards(ct, n, rng, fill=0.6)
     grid = board.reshape(n, ct.height, ct.width)
+    r4 = min(4, ct.height - 1)
     grid[5, 3:6, 3:6] = 1                   # a full 3x3 region ...
-    grid[5, 4, :] = 1                       # ... crossed by a full row
+    grid[5, r4, :] = 1                      # ... crossed by a full row
+    rs = ct.region_size
+    straddle = ct.region_clear and ct.width > 32 and 32 % rs
+    if straddle:                            # a region on columns 30..32 (rs = 3)
+        c0 = 32 // rs * rs
+        grid[6, :rs, c0 : c0 + rs] = 1
     board[n - 1], board[n - 2] = 1, 0       # full, empty
     want = jk.ClearScanKernel(cj, tile_n=8 if n % 8 == 0 else n)(
         jnp.asarray(board), interpret=True)
@@ -569,7 +805,9 @@ def test_clear_matches_pallas_clear_kernel(preset, n, rng):
     ck = ClearScanKernel(ct, "cpu")
     got = ck(torch.as_tensor(board))
     emus = [emulate_clear_kernel(ct, board)]
-    if ck.shape is not None:
+    if ck.wide:
+        emus.append(emulate_clear_wide_kernel(ct, board, ck))
+    elif ck.shape is not None:
         emus.append(emulate_clear_rows_kernel(ct, board, ck))
     for i, name in enumerate(("board", "k")):
         w = np.asarray(want[i])
@@ -578,12 +816,14 @@ def test_clear_matches_pallas_clear_kernel(preset, n, rng):
         for emu in emus:
             np.testing.assert_array_equal(emu[i], w, name)
     k, cleared = np.asarray(want[1]), np.asarray(want[0]).reshape(grid.shape)
-    assert k.min() == 0 and not cleared[5, 4].any() and not cleared[n - 1].any()
+    assert k.min() == 0 and not cleared[5, r4].any() and not cleared[n - 1].any()
     assert k[n - 1] == ct.height + ct.width + (
         (ct.height // ct.region_size) * (ct.width // ct.region_size) if ct.region_clear else 0)
     if ct.region_clear:  # the shared cell counts for both, cleared once
         assert k[5] >= 2 and not cleared[5, 3:6, 3:6].any()
-    assert (ck.launches, ck.general_launches) == (0, 0)
+    if straddle:
+        assert k[6] >= 1 and not cleared[6, :rs, c0 : c0 + rs].any()
+    assert (ck.launches, ck.wide_launches, ck.general_launches) == (0, 0, 0)
 
 
 @pytest.mark.parametrize("preset", ["default", "tenten", "big"])
@@ -724,14 +964,24 @@ def test_wrappers_never_fall_back_off_cpu():
             k(board)
     with pytest.raises(ValueError, match="kernel tables on cpu"):
         ApplyKernel(cfg, "cpu")(board, board, torch.ones(4, dtype=torch.bool, device=meta))
-    # the same on a board that takes the general apply and legality
-    wide = tcfg.EnvConfig(**WIDE40)
-    board = torch.zeros(4, wide.num_cells, dtype=torch.uint8, device=meta)
-    assert ApplyKernel(wide, meta).shape is None and LegalityKernel(wide, meta).shape is None
-    with pytest.raises(ValueError, match="no apply kernel"):
-        ApplyKernel(wide, meta)(board, board, torch.ones(4, dtype=torch.bool, device=meta))
-    with pytest.raises(ValueError, match="no legality kernel"):
-        LegalityKernel(wide, meta)(board)
+    # the same on a board that takes the wide mask and clear and the general
+    # apply and legality, and on one that takes every general kernel
+    for shape in (WIDE40, dict(height=33, width=9)):
+        cfg = tcfg.EnvConfig(**shape)
+        wide = cfg.height <= 32
+        board = torch.zeros(4, cfg.num_cells, dtype=torch.uint8, device=meta)
+        mk, ck = MaskKernel(cfg, meta), ClearScanKernel(cfg, meta)
+        assert mk.wide == ck.wide == wide
+        assert (mk.shape is not None) == (ck.shape is not None) == wide
+        assert ApplyKernel(cfg, meta).shape is None and LegalityKernel(cfg, meta).shape is None
+        with pytest.raises(ValueError, match="no mask kernel"):
+            mk(board, queue)
+        with pytest.raises(ValueError, match="no clear kernel"):
+            ck(board)
+        with pytest.raises(ValueError, match="no apply kernel"):
+            ApplyKernel(cfg, meta)(board, board, torch.ones(4, dtype=torch.bool, device=meta))
+        with pytest.raises(ValueError, match="no legality kernel"):
+            LegalityKernel(cfg, meta)(board)
 
 
 @pytest.mark.parametrize("wrapper", [
@@ -755,22 +1005,32 @@ def test_wrappers_default_to_the_card(wrapper, monkeypatch):
     assert asked == ["cuda"]
 
 
-@pytest.mark.parametrize("case", ["default", "tenten", "woodoku", "big", "wide40", "tall33"])
+@pytest.mark.parametrize("case", ["default", "tenten", "woodoku", "big", "tall33",
+                                  *WIDE_CASES])
 def test_u8_wrappers_pick_their_kernel_by_shape(case):
     """The bit-row mask, clear, apply and legality where H <= 32 and
     W <= 32: the first three with B7's launch shape, the mask with the
     rectangle piece table, the legality with four warps a block, its own
-    table and a block that fits a plain launch's shared memory; the general
-    kernels, with the per-cell piece table, on a board wider or taller than
-    that."""
+    table and a block that fits a plain launch's shared memory; the wide
+    mask and clear where H <= 32 and 32 < W <= 128, with the same launch
+    shape rule and the rectangle piece table, beside the general apply and
+    legality; the general kernels, with the per-cell piece table, on a
+    board taller than that."""
     cfg = (tcfg.EnvConfig(height=33, width=9) if case == "tall33"
            else _pair(case)[1])
     mk, ck = MaskKernel(cfg, "cpu"), ClearScanKernel(cfg, "cpu")
     ak, lk = ApplyKernel(cfg, "cpu"), LegalityKernel(cfg, "cpu")
     rows = cfg.height <= 32 and cfg.width <= 32
-    assert [k.shape is not None for k in (mk, ck, ak, lk)] == [rows] * 4
+    wide = cfg.height <= 32 and 32 < cfg.width <= 128
+    assert [k.shape is not None for k in (mk, ck, ak, lk)] == [rows or wide] * 2 + [rows] * 2
+    assert mk.wide == ck.wide == wide
     assert lk.shape == legality_launch_shape(cfg)
-    if rows:
+    if wide:
+        shape = (32 // cfg.height, mask_block_warps(cfg.height, cfg.width))
+        assert mk.shape == ck.shape == wide_launch_shape(cfg) == shape
+        np.testing.assert_array_equal(mk.piece_table.numpy(), piece_rows_table(cfg))
+        np.testing.assert_array_equal(lk.piece_table.numpy(), piece_table(cfg))
+    elif rows:
         assert mk.shape == ck.shape == ak.shape == PackedMaskKernel(cfg, "cpu").shape
         np.testing.assert_array_equal(mk.piece_table.numpy(), piece_rows_table(cfg))
         assert lk.shape == (32 // cfg.height, LEGALITY_WARPS)
@@ -814,6 +1074,54 @@ def test_bit_row_emulations_take_any_board_address(preset, addr):
             np.testing.assert_array_equal(e, p.numpy())
     np.testing.assert_array_equal(emulate_legality_rows_kernel(ct, board, lk, addr),
                                   lk(tb).numpy())
+
+
+@pytest.mark.parametrize("case", ["wide40", "wide36r3", "wide100"])
+@pytest.mark.parametrize("addr", [3, 13])
+def test_wide_emulations_take_any_board_address(case, addr):
+    """Boards that start off a 16-byte boundary: the wide mask and clear's
+    emulations stage an unaligned head and tail byte by byte and still
+    equal the plain versions (N = 13: the last block short of its
+    env-slots)."""
+    _, ct = _pair(case)
+    n, r = 13, np.random.default_rng(addr)
+    board = random_boards(ct, n, r, fill=0.5)
+    board[n - 1] = 1
+    num_pieces = rules.tables_for(ct).num_pieces
+    queue = r.integers(-1, num_pieces + 2, (n, ct.queue_size)).astype(np.int32)
+    mk, ck = MaskKernel(ct, "cpu"), ClearScanKernel(ct, "cpu")
+    tb, tq = torch.as_tensor(board), torch.as_tensor(queue)
+    assert mk.wide and ck.wide
+    np.testing.assert_array_equal(emulate_mask_wide_kernel(ct, board, queue, mk, addr),
+                                  mk(tb, tq).numpy())
+    for e, p in zip(emulate_clear_wide_kernel(ct, board, ck, addr), ck(tb)):
+        np.testing.assert_array_equal(e, p.numpy())
+
+
+def test_wide_block_division_is_exact_for_every_byte():
+    """``store_words`` divides a block's output byte q by W with
+    ``small_div`` (float32 reciprocal): for every board the wide kernels
+    take (H <= 32, 32 < W <= 128) and every q below the block's bytes, the
+    float32 arithmetic the card does gives q // W; a block's bytes stay
+    under the 2^21 the proof needs and its shared memory under the 227 KB
+    a block may opt in to (the mask's span holding E + 1 envs, S = 1, the
+    most any hand needs)."""
+    most = {}
+    for h in range(1, 33):
+        for w in range(33, 129):
+            per_warp, warps = wide_launch_shape(tcfg.EnvConfig(height=h, width=w))
+            e = per_warp * warps
+            nbytes = e * h * w
+            assert nbytes <= 1 << 16
+            nrows = e * h * -(-w // 32)
+            smem = (4 * nrows + 15) // 16 * 16 + (e + 1) * h * w + 32  # smem_bytes
+            assert smem <= 227 * 1024
+            most[w] = max(most.get(w, 0), nbytes)
+    for w, nbytes in most.items():
+        q = np.arange(nbytes)
+        inv = np.float32(1) / np.float32(w)
+        got = ((q.astype(np.float32) + np.float32(0.5)) * inv).astype(np.int64)
+        np.testing.assert_array_equal(got, q // w)
 
 
 def test_bit_row_piece_table_rebuilds_every_footprint():

@@ -232,20 +232,26 @@ def test_sampler_picks_legal_actions_uniformly():
 # ---------------------------------------------------------------- card ---
 
 
+# boards beyond the presets: 40 cells a row (the wide mask and clear, the
+# general apply and legality), 33 rows (the general kernels of all four)
+BOARDS = {"wide40": dict(height=8, width=40), "tall33": dict(height=33, width=9)}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("preset", ["default", "tenten", "woodoku", "big", "wide40"])
+@pytest.mark.parametrize("preset", ["default", "tenten", "woodoku", "big", *BOARDS])
 def test_kernels_match_plain_versions_on_the_card(preset, cuda_device):
     """The u8 kernels against their plain versions at the rollout's N and
     at N - 1 (a ragged last block): the bit-row mask, clear, apply and
-    legality on the presets, the general ones on a board of 8 rows of 40
-    cells (too wide for a row word)."""
+    legality on the presets; on a board of 8 rows of 40 cells (too wide for
+    a row word) the wide mask and clear and the general apply and
+    legality; on a board of 33 rows the general ones."""
     from blockpuzzle_tpu_torch import rules
     from blockpuzzle_tpu_torch.config import EnvConfig
     from blockpuzzle_tpu_torch.kernels import (
         ApplyKernel, ClearScanKernel, LegalityKernel, MaskKernel,
     )
 
-    cfg = EnvConfig(height=8, width=40) if preset == "wide40" else PRESETS[preset]()
+    cfg = EnvConfig(**BOARDS[preset]) if preset in BOARDS else PRESETS[preset]()
     t = rules.tables_for(cfg)
     mk, ak = MaskKernel(cfg, cuda_device), ApplyKernel(cfg, cuda_device)
     ck, lk = ClearScanKernel(cfg, cuda_device), LegalityKernel(cfg, cuda_device)
@@ -274,10 +280,50 @@ def test_kernels_match_plain_versions_on_the_card(preset, cuda_device):
         assert torch.equal(legal_all, lk.plain(board))
         assert 0 < float(legal_all.float().mean()) < 1
     torch.cuda.synchronize()
-    rows = preset != "wide40"
-    want = (len(sizes) * rows, len(sizes) * (not rows))
-    for k in (mk, ak, ck, lk):
-        assert (k.launches, k.general_launches) == want
+    calls = len(sizes)
+    rows = cfg.height <= 32 and cfg.width <= 32
+    wide = cfg.height <= 32 and 32 < cfg.width <= 128
+    for k in (mk, ck):
+        assert (k.launches, k.wide_launches, k.general_launches) == (
+            calls * rows, calls * wide, calls * (not rows and not wide))
+    for k in (ak, lk):
+        assert (k.launches, k.general_launches) == (calls * rows, calls * (not rows))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 3, 8, 13])
+def test_wide_kernels_take_an_unaligned_board_on_the_card(offset, cuda_device):
+    """Boards of 40 and of 36 cells a row (3x3 regions, a hand of three)
+    that start ``offset`` bytes past a 16-byte boundary: the wide mask and
+    clear stage an unaligned head and tail byte by byte and still equal
+    their plain versions."""
+    from blockpuzzle_tpu_torch import rules
+    from blockpuzzle_tpu_torch.config import EnvConfig
+    from blockpuzzle_tpu_torch.kernels import ClearScanKernel, MaskKernel
+
+    for shape in (dict(height=8, width=40), dict(height=9, width=36, region_clear=True,
+                                                 region_size=3, queue_size=3)):
+        cfg = EnvConfig(**shape)
+        t = rules.tables_for(cfg)
+        n, hw = 4099, cfg.num_cells
+        r = np.random.default_rng(offset)
+        cells = (r.random((n, cfg.height, cfg.width)) < 0.6).astype(np.uint8)
+        cells[::3, 4, :] = 1
+        cells[1::3, :3, 30:33] = 1                   # a full 3x3 region across words
+        store = torch.zeros(n * hw + 16, dtype=torch.uint8, device=cuda_device)
+        board = store[offset : offset + n * hw].view(n, hw)
+        board.copy_(torch.as_tensor(cells.reshape(n, hw), device=cuda_device))
+        assert board.data_ptr() % 16 == offset
+        queue = torch.as_tensor(
+            r.integers(0, t.num_pieces + 1, (n, cfg.queue_size)).astype(np.int32),
+            device=cuda_device)
+        mk, ck = MaskKernel(cfg, cuda_device), ClearScanKernel(cfg, cuda_device)
+        assert torch.equal(mk(board, queue), mk.plain(board, queue))
+        for o, p in zip(ck(board), ck.plain(board)):
+            assert torch.equal(o, p)
+        torch.cuda.synchronize()
+        assert [k.wide_launches for k in (mk, ck)] == [1, 1]
+        assert [k.launches + k.general_launches for k in (mk, ck)] == [0, 0]
 
 
 @pytest.mark.gpu

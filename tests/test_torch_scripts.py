@@ -626,9 +626,14 @@ COUNTED_ENGINES = {
     "packed": (dict(), "default", ("packed_apply", "packed_mask")),
     "u8_pallas": (dict(backend="pallas", state_impl="u8"), "default", ("mask", "apply")),
     "u8_jnp": (dict(backend="jnp", state_impl="u8"), "tenten", ("mask", "clear")),
-    "wide_u8_pallas": (dict(backend="pallas"), "wide",
-                       ("mask_general", "apply_general")),
+    # a board of 40 cells a row: the wide mask and clear, the general apply
+    "wide_u8_pallas": (dict(backend="pallas"), "wide", ("mask_wide", "apply_general")),
+    "wide_u8_jnp": (dict(backend="jnp"), "wide", ("mask_wide", "clear_wide")),
+    # a board of 33 rows: the general mask and clear
+    "tall_u8_jnp": (dict(backend="jnp", state_impl="u8"), "tall",
+                    ("mask_general", "clear_general")),
 }
+BOARDS = {"wide": dict(height=8, width=40), "tall": dict(height=33, width=9)}
 # every engine's step deals once (B9) and its argmax policy draws once (B2)
 DRAW_KERNELS = ("deal", "uniform_legal")
 
@@ -639,7 +644,7 @@ def test_count_chunk_counts_each_step_kernel_once_a_step(engine):
     from blockpuzzle_tpu_torch.config import EnvConfig
 
     kwargs, preset, kernels = COUNTED_ENGINES[engine]
-    cfg = EnvConfig(height=8, width=40) if preset == "wide" else PRESETS[preset]()
+    cfg = EnvConfig(**BOARDS[preset]) if preset in BOARDS else PRESETS[preset]()
     env = make_env(cfg, device="cpu", **kwargs)
     c = roofline.count_chunk(env, 16, 3)
     assert c.launches == dict.fromkeys(kernels + DRAW_KERNELS, 3)

@@ -268,10 +268,11 @@ def test_validate_env_state_catches_broken_states(state_impl):
 # ------------------------------------------------------------- bounds ----
 
 # the bytes of each kernel's call at N = 49152 on the default preset, in MB,
-# as PERF.md's table of bounds records them (the general kernels' on their
-# 8x40 board)
+# as PERF.md's table of bounds records them (the wide and general kernels'
+# on their 8x40 board)
 RECORDED_MB = {"mask": 10.03, "apply": 15.04, "clear": 10.03, "legality": 98.3,
                "packed_apply": 10.72, "packed_mask": 9.04, "packed_legal_words": 8.06,
+               "mask_wide": 31.65, "clear_wide": 31.65,
                "mask_general": 31.65, "apply_general": 47.48, "clear_general": 31.65,
                "legality_general": 314.6, "deal": 0.98, "uniform_legal": 5.70,
                "words_select": 4.72}
@@ -279,12 +280,12 @@ RECORDED_MB = {"mask": 10.03, "apply": 15.04, "clear": 10.03, "legality": 98.3,
 
 def kernel_call(name, n):
     """(cfg, inputs, outputs): CPU tensors of the shapes and dtypes of one
-    call of kernel ``name`` on ``n`` envs (default preset; the general
-    kernels on an 8x40 board)."""
+    call of kernel ``name`` on ``n`` envs (default preset; the wide and
+    general kernels on an 8x40 board)."""
     from blockpuzzle_tpu_torch import rules
     from blockpuzzle_tpu_torch.config import EnvConfig
 
-    cfg = (EnvConfig(height=8, width=40) if name.endswith("_general")
+    cfg = (EnvConfig(height=8, width=40) if name.endswith(("_wide", "_general"))
            else PRESETS["default"]())
     hw, s, h = cfg.num_cells, cfg.queue_size, cfg.height
     p = rules.tables_for(cfg).num_pieces
@@ -307,7 +308,7 @@ def kernel_call(name, n):
         "uniform_legal": ((i64(n), 7, b(n, s * hw)), (i64(n),)),
         "words_select": ((i64(n), 7, i64(n, s * h), cfg.width), (i64(n),)),
     }
-    return (cfg,) + calls[name.removesuffix("_general")]
+    return (cfg,) + calls[name.removesuffix("_general").removesuffix("_wide")]
 
 
 @pytest.mark.parametrize("name", RECORDED_MB)
@@ -362,6 +363,24 @@ def test_uniform_legal_is_operations_bound_on_the_main_path():
         cfg, inputs, outputs = kernel_call(name, 49152)
         _, ops = COSTS[name](cfg, inputs, outputs)
         assert bound(list(inputs) + list(outputs), ops)["bound_by"] == "bytes"
+
+
+def test_wide_kernels_are_bytes_bound_on_the_wide_board():
+    """The wide mask and clear at N = 49152 on 8x40: each moves the general
+    kernel's bytes (644 an env) and does 1776 and 1120 operations an env
+    (two words a row: packs of 32 and 8 cells, 5 max_h shuffles and 24 smear
+    and mask operations a word for the mask, 8 a word for the clear, one an
+    output byte), 5.2 and 3.3 us at the integer rate, under the 9.449 us
+    its bytes take."""
+    from blockpuzzle_tpu_torch.utils.bounds import COSTS, bound
+
+    for name, per_env in (("mask_wide", 1776), ("clear_wide", 1120)):
+        cfg, inputs, outputs = kernel_call(name, 49152)
+        nbytes, ops = COSTS[name](cfg, inputs, outputs)
+        general, _ = COSTS[name.replace("_wide", "_general")](cfg, inputs, outputs)
+        assert nbytes == general == 644 * 49152 and ops == per_env * 49152
+        b = bound(list(inputs) + list(outputs), ops)
+        assert b["bound_by"] == "bytes" and 0.00944 < b["bound_ms"] < 0.00945
 
 
 def test_draw_operations_count_the_busier_pipe():
