@@ -7,8 +7,11 @@ tensors it launches its kernel (built from ``csrc/`` at first use) or
 raises, and counts each launch in its ``launches`` attribute, a plain int
 (the four u8 wrappers count their general kernels in
 ``general_launches``, the u8 mask and clear their wide kernels in
-``wide_launches``, the packed mask its words entry in
-``words_launches``).  The draw wrappers (``draws.py``) compute the port's
+``wide_launches`` and their tall kernels, for boards of 33 to 128 rows, in
+``tall_launches``; the packed wrappers their tall and general kernels in
+``tall_launches`` and ``general_launches``, the packed mask its words entry
+in ``words_launches``, ``words_tall_launches`` and
+``words_general_launches``); ``name`` is the kernel a wrapper picked.  The draw wrappers (``draws.py``) compute the port's
 counter-based random draws: the deal and the two uniform-legal policies.
 """
 

@@ -34,16 +34,24 @@ SIGNATURES = {
     "bp_mask": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bp_mask_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "bp_mask_wide": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "bp_mask_tall": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "bp_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "bp_apply_rows": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bp_clear": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "bp_clear_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bp_clear_wide": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "bp_clear_tall": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bp_legality": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "bp_legality_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _U64, _I, _I, _P],
     "bp_packed_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "bp_packed_mask": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "bp_packed_words": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "bp_packed_apply_tall": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "bp_packed_apply_general": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "bp_packed_mask_tall": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "bp_packed_mask_general": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "bp_packed_words_tall": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "bp_packed_words_general": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "bp_deal": [_P, _P, _U32, _I, _I, _I, _P, _I, _P],
     "bp_uniform_legal": [_P, _U32, _I, _P, _P, _I, _I, _P],
     "bp_words_select": [_P, _U32, _I, _P, _P, _I, _I, _I, _P],

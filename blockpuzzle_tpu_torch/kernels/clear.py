@@ -8,11 +8,12 @@ gate: a line that was full on the input is cleared too.  The line tables
 live here, as ``_line_table`` does in the JAX package, and the apply
 kernel (``collision.py``) shares them.
 
-Three kernels compute it: the bit-row kernel, for boards of at most 32
+Four kernels compute it: the bit-row kernel, for boards of at most 32
 rows of at most 32 cells (every shipped preset), tests lines on 32-bit row
 words; the wide kernel does the same on rows of 33 to 128 cells held as
-two to four words; the general kernel walks ``line_cell_table`` and takes
-any other board.
+two to four words; the tall kernel on boards of 33 to 128 rows of at most
+128 cells, a warp an env and up to four rows a lane; the general kernel
+walks ``line_cell_table`` and takes any other board.
 """
 
 from __future__ import annotations
@@ -25,7 +26,9 @@ import torch
 from blockpuzzle_tpu_torch import rules
 from blockpuzzle_tpu_torch.config import EnvConfig
 from blockpuzzle_tpu_torch.kernels import _build
-from blockpuzzle_tpu_torch.kernels.packed import row_launch_shape, wide_launch_shape
+from blockpuzzle_tpu_torch.kernels.packed import (
+    SUFFIX, count_launch, row_launch_shape, tall_launch_shape, u8_kind, wide_launch_shape,
+)
 
 # (hw + L) bytes of shared memory per warp, four warps a block, must stay
 # under the 48 KB a launch gets without opting in to more
@@ -85,13 +88,15 @@ class ClearScanKernel:
 
     ``__call__(board (N, HW) u8) -> (cleared (N, HW) u8, k (N,) i32)``.
     For CPU tensors it runs ``clear_plain``; for CUDA tensors it launches a
-    kernel or raises.  The kernel is picked here, by shape: the bit-row
-    kernel where H <= 32 and W <= 32 (``launches`` counts its launches),
-    the wide kernel where H <= 32 and 32 < W <= 128 (``wide`` is True;
-    ``wide_launches``); ``shape`` is the launch shape of either.  Else the
-    general kernel (``shape`` is None; ``general_launches``).
+    kernel or raises.  The kernel is picked here, by shape (``kind``): the
+    bit-row kernel where H <= 32 and W <= 32 (``launches`` counts its
+    launches), the wide kernel where H <= 32 and 32 < W <= 128 (``wide`` is
+    True; ``wide_launches``), the tall kernel where 32 < H <= 128 and
+    W <= 128 (``tall_launches``); ``shape`` is the launch shape of any of
+    them.  Else the general kernel (``shape`` is None;
+    ``general_launches``).  ``name`` is the picked kernel's.
 
-    The bit-row and wide kernels take the engine's boards, whose cells are
+    The bit-row, wide and tall kernels take the engine's boards, whose cells are
     0 or 1 (``env/state.py``): they find a line full when every cell is
     nonzero and write the cleared board as 0/1 cells.  On such boards that
     is ``clear_plain``'s test (the line's cells sum to its length) and
@@ -101,9 +106,12 @@ class ClearScanKernel:
     def __init__(self, cfg: EnvConfig, device="cuda"):
         self.cfg = cfg
         self.device = _build.resolve_device(device)
-        self.launches = self.wide_launches = self.general_launches = 0
-        self.shape = row_launch_shape(cfg) or wide_launch_shape(cfg)
-        self.wide = self.shape is not None and cfg.width > 32
+        self.launches = self.wide_launches = self.tall_launches = 0
+        self.general_launches = 0
+        self.shape = row_launch_shape(cfg) or wide_launch_shape(cfg) or tall_launch_shape(cfg)
+        self.kind = u8_kind(cfg, self.shape)
+        self.wide = self.kind == "wide"
+        self.name = "clear" + SUFFIX[self.kind]
         self.lines = LineTables(cfg, self.device)
 
     def plain(self, board: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -142,7 +150,7 @@ class ClearScanKernel:
             else:
                 if cleared.data_ptr() % 16:  # the kernel stores 16-byte vectors
                     raise RuntimeError("clear output is not 16-byte aligned")
-                name = "bp_clear_wide" if self.wide else "bp_clear_rows"
+                name = "bp_clear_rows" if self.kind == "rows" else "bp_" + self.name
                 err = getattr(lib, name)(
                     board.data_ptr(), cleared.data_ptr(), k.data_ptr(), n,
                     cfg.height, cfg.width,
@@ -150,10 +158,5 @@ class ClearScanKernel:
                     stream,
                 )
         _build.check(err, name)
-        if self.shape is None:
-            self.general_launches += 1
-        elif self.wide:
-            self.wide_launches += 1
-        else:
-            self.launches += 1
+        count_launch(self)
         return cleared, k

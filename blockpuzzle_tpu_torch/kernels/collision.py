@@ -149,6 +149,7 @@ class LegalityKernel:
     and no piece spans more than ``MAX_PIECE`` rows or columns (``shape``
     is its launch shape; ``launches`` counts its launches), else the
     general kernel (``shape`` is None; ``general_launches`` counts them).
+    ``name`` is the picked kernel's.
 
     Both read a cell as occupied when it is nonzero, as ``legality_plain``
     does (a sum of non-negative bytes is 0 iff every byte is).
@@ -163,6 +164,7 @@ class LegalityKernel:
         self.launches = 0
         self.general_launches = 0
         self.shape = legality_launch_shape(cfg)
+        self.name = "legality" if self.shape is not None else "legality_general"
         self.shapes = rect_shapes(cfg)
         table = piece_table(cfg) if self.shape is None else legality_rows_table(cfg)
         self.piece_table = torch.as_tensor(table, device=self.device)
@@ -263,7 +265,8 @@ class ApplyKernel:
     kernel or raises.  The kernel is picked here, by shape: the bit-row
     kernel where H <= 32 and W <= 32 (``shape`` is its launch shape;
     ``launches`` counts its launches), else the general kernel (``shape``
-    is None; ``general_launches`` counts them).
+    is None; ``general_launches`` counts them).  ``name`` is the picked
+    kernel's.
 
     The bit-row kernel takes boards and covers whose cells are 0 or 1: the
     engine's boards (``env/state.py``) and its footprints
@@ -281,6 +284,7 @@ class ApplyKernel:
         self.launches = 0
         self.general_launches = 0
         self.shape = row_launch_shape(cfg)
+        self.name = "apply" if self.shape is not None else "apply_general"
         self.lines = LineTables(cfg, self.device)
 
     def plain(self, board, cover, valid):

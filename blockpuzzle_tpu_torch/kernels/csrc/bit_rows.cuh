@@ -2,9 +2,12 @@
 // (`mask_rows_kernel`, and `mask_wide_kernel` on multi-word rows), the
 // clear scan of clear.cu (`clear_rows_kernel`, `clear_wide_kernel`), the
 // apply of collision.cu (`apply_rows_kernel`) and the all-pieces legality
-// of legality.cu (`legality_rows_kernel`).
+// of legality.cu (`legality_rows_kernel`); and by the kernels of boards of
+// more than 32 rows (`mask_tall_kernel`, `clear_tall_kernel` and the tall
+// packed kernels of packed_tall.cu), which hold a board in one warp, rows
+// l + 32 j in lane l (`rows_below`, `clear_tall`, `store_tall` below).
 //
-// All take boards as (N, H*W) u8 cells, H <= 32, and work on them as row
+// All but those take boards as (N, H*W) u8 cells, H <= 32, and work on them as row
 // words: lane r of a segment of H lanes holds board row r as a W-bit word
 // where W <= 32, or as NW = ceil(W / 32) words, word i holding columns
 // 32 i .. 32 i + 31, where 32 < W <= 128 (the wide kernels); bit c is set
@@ -342,6 +345,187 @@ __device__ __forceinline__ void clear_words(uint32_t (&x)[NW], bool active, cons
 #pragma unroll
   for (int i = 0; i < NW; ++i) {
     x[i] &= ~((full ? (i + 1 < NW ? kAll : top) : 0u) | cols[i] | reg[i]);
+  }
+}
+
+// Tall boards (32 < H <= 32 NR): one warp holds one board, lane l rows
+// l + 32 j in slot j < NR, each as NW words (one where W <= 32).  A row
+// below row r, r + d for 0 <= d < 32, lies in lane (l + d) mod 32, in slot
+// j, or in slot j + 1 where l + d >= 32 (the seam): `rows_below` shuffles
+// every slot from that lane once and picks, rows past slot NR - 1 reading
+// `past`.  Every lane of the warp calls it.
+template <int NR>
+__device__ __forceinline__ void rows_below(const uint32_t (&v)[NR], int d, uint32_t past,
+                                           uint32_t (&out)[NR]) {
+  const int l = threadIdx.x % 32;
+  const int src = (l + d) & 31;
+  const bool seam = l + d >= 32;
+  uint32_t s[NR];
+#pragma unroll
+  for (int j = 0; j < NR; ++j) s[j] = __shfl_sync(kAll, v[j], src);
+#pragma unroll
+  for (int j = 0; j < NR; ++j) out[j] = seam ? (j + 1 < NR ? s[j + 1] : past) : s[j];
+}
+
+// The simultaneous clear of a tall board (`clear_words` on the slots above),
+// in place: rows r >= H hold all ones (the AND's identity) and count for
+// nothing, and `active` is false on a warp that holds no board.  Full rows
+// by one ballot a slot; full columns by ANDing a lane's slots, then one
+// `__reduce_and_sync` over the warp a word; regions (region_size 1..32):
+// each row ANDs itself with the region_size - 1 rows below it
+// (`rows_below`), a band's first row r (r % rs == 0, r + rs <= H) tests the
+// fields of that AND as `clear_words` does and counts them, and every row
+// takes its band's cleared fields from its first row, e = r % rs rows
+// above: lane (l - e) mod 32, slot j - 1 where l < e.  A band may cross the
+// seam (H = 36, rs = 3: rows 30, 31 in slot 0, row 32 in lane 0 of slot 1).
+// Sets `k` to the number of full lines, the same in every lane.
+template <int NR, int NW>
+__device__ __forceinline__ void clear_tall(uint32_t (&x)[NR][NW], bool active, int height,
+                                           int width, int region_size, int& k) {
+  const int l = threadIdx.x % 32;
+  const int tail = width - 32 * (NW - 1);  // columns of the top word: 1..32
+  const uint32_t top = tail < 32 ? (1u << tail) - 1u : kAll;
+  bool full[NR];
+  k = 0;
+#pragma unroll
+  for (int j = 0; j < NR; ++j) {
+    bool f = true;
+#pragma unroll
+    for (int i = 0; i < NW; ++i) f &= x[j][i] == (i + 1 < NW ? kAll : top);
+    full[j] = f;
+    k += __popc(__ballot_sync(kAll, active && l + 32 * j < height && f));
+  }
+  uint32_t cols[NW];
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    uint32_t c = kAll;
+#pragma unroll
+    for (int j = 0; j < NR; ++j) c &= x[j][i];
+    cols[i] = __reduce_and_sync(kAll, c);
+    k += __popc(cols[i]);
+  }
+  uint32_t reg[NR][NW];
+#pragma unroll
+  for (int j = 0; j < NR; ++j) {
+#pragma unroll
+    for (int i = 0; i < NW; ++i) reg[j][i] = 0;
+  }
+  if (region_size > 0) {
+    uint32_t band[NR][NW];  // row r: the AND of rows r .. r + rs - 1
+#pragma unroll
+    for (int j = 0; j < NR; ++j) {
+#pragma unroll
+      for (int i = 0; i < NW; ++i) band[j][i] = x[j][i];
+    }
+    for (int d = 1; d < region_size; ++d) {
+#pragma unroll
+      for (int i = 0; i < NW; ++i) {
+        uint32_t v[NR], y[NR];
+#pragma unroll
+        for (int j = 0; j < NR; ++j) v[j] = x[j][i];
+        rows_below<NR>(v, d, kAll, y);
+#pragma unroll
+        for (int j = 0; j < NR; ++j) band[j][i] &= y[j];
+      }
+    }
+    const uint32_t tile0 = region_size < 32 ? (1u << region_size) - 1u : kAll;
+    const int step = 32 % region_size;  // r % rs from one slot to the next
+    int e[NR];                          // r % rs
+    e[0] = l % region_size;
+#pragma unroll
+    for (int j = 1; j < NR; ++j) {
+      e[j] = e[j - 1] + step;
+      if (e[j] >= region_size) e[j] -= region_size;
+    }
+    int tiles = 0;
+#pragma unroll
+    for (int j = 0; j < NR; ++j) {
+      const int r = l + 32 * j;
+      if (e[j] == 0 && r + region_size <= height) {  // a whole band's first row
+        int c0 = 0;  // the next field's first column
+#pragma unroll
+        for (int w = 0; w < NW; ++w) {  // the fields whose first column is in word w
+          for (; c0 < 32 * (w + 1) && c0 + region_size <= width; c0 += region_size) {
+            const int b = c0 - 32 * w;
+            const uint32_t field =
+                __funnelshift_r(band[j][w], w + 1 < NW ? band[j][w + 1] : 0u, b) & tile0;
+            if (field == tile0) {
+              reg[j][w] |= tile0 << b;
+              if (w + 1 < NW && b + region_size > 32) reg[j][w + 1] |= tile0 >> (32 - b);
+              ++tiles;
+            }
+          }
+        }
+      }
+    }
+    k += __reduce_add_sync(kAll, tiles);
+    // each row takes its band's fields from the band's first row, e rows up
+    uint32_t got[NR][NW];
+#pragma unroll
+    for (int j = 0; j < NR; ++j) {
+      const int src = (l - e[j]) & 31;
+      const bool seam = l < e[j];
+#pragma unroll
+      for (int i = 0; i < NW; ++i) {  // slot 0 never crosses the seam (e <= l)
+        const uint32_t up = __shfl_sync(kAll, reg[j > 0 ? j - 1 : 0][i], src);
+        const uint32_t here = __shfl_sync(kAll, reg[j][i], src);
+        got[j][i] = seam ? up : here;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NR; ++j) {
+#pragma unroll
+      for (int i = 0; i < NW; ++i) reg[j][i] = got[j][i];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NR; ++j) {
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+      x[j][i] &= ~((full[j] ? (i + 1 < NW ? kAll : top) : 0u) | cols[i] | reg[j][i]);
+    }
+  }
+}
+
+// The store of the tall kernels: `bytes` 0/1 bytes to out[at ...] (`out`
+// 16-byte aligned, `at` any offset): byte q is column c = q % W of row
+// q / W, bit c % 32 of rows[(q / W) * NW + c / 32], and no word holds a bit
+// >= W.  The bytes up to the first 16-byte boundary and the ragged tail go
+// byte by byte; each vector between gathers its 16 bits as `store_rows`
+// does where a row is one word (W <= 32: up to 16 rows), as `store_words`
+// where it is NW > 1 words (W > 32: at most two rows), spreads them and
+// stores one uint4.  Every thread of the block calls it, after a
+// __syncthreads that follows the last write to `rows`; bytes < 2^21.
+template <int NW>
+__device__ __forceinline__ void store_tall(const uint32_t* rows, uint8_t* out, long long at,
+                                           int bytes, int width) {
+  uint8_t* o = out + at;
+  const int head = min(static_cast<int>((16 - (at & 15)) & 15), bytes);
+  const int nvec = (bytes - head) / 16;
+  const float inv_w = __frcp_rn(static_cast<float>(width));
+  for (int v = threadIdx.x; v < nvec; v += blockDim.x) {
+    const int q = head + 16 * v;
+    int row = small_div(q, inv_w);
+    int c = q - row * width;
+    uint32_t bits = 0;
+    if constexpr (NW == 1) {
+      for (int got = 0; got < 16; got += width - c, ++row, c = 0) {
+        bits |= (rows[row] >> c) << got;
+      }
+    } else {
+      const uint32_t* r = rows + row * NW;
+      const int w = c >> 5;
+      bits = __funnelshift_r(r[w], w + 1 < NW ? r[w + 1] : 0u, c & 31);
+      if (width - c < 16) bits |= r[NW] << (width - c);
+    }
+    *reinterpret_cast<uint4*>(o + q) = make_uint4(spread4(bits), spread4(bits >> 4),
+                                                  spread4(bits >> 8), spread4(bits >> 12));
+  }
+  for (int j = threadIdx.x; j < bytes - 16 * nvec; j += blockDim.x) {
+    const int q = j < head ? j : j + 16 * nvec;
+    const int row = small_div(q, inv_w);
+    const int c = q - row * width;
+    o[q] = (rows[row * NW + (c >> 5)] >> (c & 31)) & 1u;
   }
 }
 

@@ -1,12 +1,14 @@
 // Simultaneous line clear: the CUDA port of the TPU kernel `_clear_kernel`
 // (blockpuzzle_tpu/kernels/clear.py:79, launched by `_clear_pallas_call`,
-// clear.py:93, from `ClearScanKernel.__call__`).  Three kernels: the
+// clear.py:93, from `ClearScanKernel.__call__`).  Four kernels: the
 // bit-row kernel (`clear_rows_kernel`, entry `bp_clear_rows`) for boards
 // with H <= 32 and W <= 32, every shipped preset; the wide kernel
 // (`clear_wide_kernel`, entry `bp_clear_wide`), the bit-row kernel on rows
-// of NW = 2..4 words, for H <= 32 and 32 < W <= 128; and the general kernel
-// (`clear_kernel`, entry `bp_clear`) for any other board.  The wrapper
-// (kernels/clear.py) picks one by shape.
+// of NW = 2..4 words, for H <= 32 and 32 < W <= 128; the tall kernel
+// (`clear_tall_kernel`, entry `bp_clear_tall`), a warp an env, for
+// 32 < H <= 128 and W <= 128; and the general kernel (`clear_kernel`, entry
+// `bp_clear`) for any other board.  The wrapper (kernels/clear.py) picks
+// one by shape.
 //
 // What both compute, per env: every full row, column and region of the
 // board is found, then all of them are cleared at once, and k is their
@@ -59,6 +61,19 @@
 // 40 cells in two rounds on 8x40, 16 lanes idle in the second), and a
 // byte-by-byte clear and store.  A block that needs more than 48 KB of
 // shared memory opts in to it.
+//
+// The tall kernel takes the same 0/1 boards of 33 to 128 rows: one warp an
+// env, lane l holding rows l + 32 j in slot j < NR = ceil(H / 32) as NW
+// words each (NR, NW template parameters), rows past the bottom all ones
+// (`bit_rows::clear_tall`): full rows by a ballot a slot, columns by
+// ANDing a lane's slots and one `__reduce_and_sync` a word, regions by
+// ANDing each row with the rs - 1 rows below it (`rows_below`, across the
+// seam from slot j + 1), a band's first row testing its fields and every
+// row taking them back from its first row, r % rs rows up; cleared rows
+// staged and stored from the block's byte offset (`store_tall`).  It
+// answers what bounded the general kernel there: a lane a line walking the
+// line's cells through the global table (75 lines of up to 33 cells on
+// 33x9), byte loads and stores.
 //
 // The general kernel: one warp per env, four envs per block, any N (a warp
 // past the last env exits as a whole, before any warp collective).  Lanes
@@ -167,6 +182,98 @@ int launch_clear_wide(const void* board, void* board_out, void* k_out, int n, in
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int NR, int NW>
+__global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
+    clear_tall_kernel(const uint8_t* __restrict__ board,
+                      uint8_t* __restrict__ board_out,
+                      int32_t* __restrict__ k_out, int n, int height,
+                      int width, int region_size, int per_warp) {
+  extern __shared__ __align__(16) uint8_t rows_smem[];
+  const int warps = blockDim.x / 32;
+  const int per_block = warps * per_warp;            // envs: per_warp a warp
+  uint32_t* rows = reinterpret_cast<uint32_t*>(rows_smem);  // E*H cleared rows of NW words
+  uint8_t* span = bit_rows::staged_span(rows_smem, per_block * height * NW);
+  const int hw = height * width;
+  const int first = blockIdx.x * per_block;          // first env
+  const int count = min(per_block, n - first);       // envs here
+  const long long lo = static_cast<long long>(first) * hw;
+  const int d = bit_rows::stage_bytes(board, lo, lo + static_cast<long long>(count) * hw, span);
+
+  const int l = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  __syncthreads();
+  for (int it = 0; it < per_warp; ++it) {
+    const int seg = it * warps + warp;               // env in the block
+    const bool active = seg < count;
+    uint32_t x[NR][NW];  // slot j: row l + 32 j; no row: the identity of the AND
+#pragma unroll
+    for (int j = 0; j < NR; ++j) {
+      const int r = l + 32 * j;
+#pragma unroll
+      for (int i = 0; i < NW; ++i) {
+        x[j][i] = active && r < height
+                      ? bit_rows::pack_row(span, d + seg * hw + r * width + 32 * i,
+                                           min(32, width - 32 * i))
+                      : kAll;
+      }
+    }
+    int k;
+    bit_rows::clear_tall<NR, NW>(x, active, height, width, region_size, k);
+    if (active) {
+#pragma unroll
+      for (int j = 0; j < NR; ++j) {
+        const int r = l + 32 * j;
+        if (r < height) {
+#pragma unroll
+          for (int i = 0; i < NW; ++i) rows[(seg * height + r) * NW + i] = x[j][i];
+        }
+      }
+      if (l == 0) k_out[first + seg] = k;
+    }
+  }
+  __syncthreads();
+  bit_rows::store_tall<NW>(rows, board_out, lo, count * hw, width);
+}
+
+template <int NR, int NW>
+int launch_clear_tall(const void* board, void* board_out, void* k_out, int n, int height,
+                      int width, int region_size, int per_warp, int warps,
+                      cudaStream_t stream) {
+  const int per_block = warps * per_warp;
+  const int blocks = (n + per_block - 1) / per_block;
+  const int smem = bit_rows::smem_bytes(per_block * height * NW,
+                                        static_cast<long long>(per_block) * height * width);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        clear_tall_kernel<NR, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  clear_tall_kernel<NR, NW><<<blocks, warps * 32, smem, stream>>>(
+      static_cast<const uint8_t*>(board), static_cast<uint8_t*>(board_out),
+      static_cast<int32_t*>(k_out), n, height, width, region_size, per_warp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NR>
+int launch_clear_tall_rows(const void* board, void* board_out, void* k_out, int n,
+                           int height, int width, int region_size, int per_warp,
+                           int warps, cudaStream_t stream) {
+  switch ((width + 31) / 32) {
+    case 1:
+      return launch_clear_tall<NR, 1>(board, board_out, k_out, n, height, width, region_size,
+                                      per_warp, warps, stream);
+    case 2:
+      return launch_clear_tall<NR, 2>(board, board_out, k_out, n, height, width, region_size,
+                                      per_warp, warps, stream);
+    case 3:
+      return launch_clear_tall<NR, 3>(board, board_out, k_out, n, height, width, region_size,
+                                      per_warp, warps, stream);
+    default:
+      return launch_clear_tall<NR, 4>(board, board_out, k_out, n, height, width, region_size,
+                                      per_warp, warps, stream);
+  }
+}
+
 __global__ void clear_kernel(const uint8_t* __restrict__ board,
                              const int32_t* __restrict__ line_cells,
                              const int32_t* __restrict__ line_len,
@@ -239,6 +346,35 @@ extern "C" int bp_clear_wide(const void* board, void* board_out, void* k_out,
     default:
       return launch_clear_wide<4>(board, board_out, k_out, n, height, width, region_size,
                                   per_warp, warps, st);
+  }
+}
+
+// As bp_clear_rows, for 32 < H <= 128 and W <= 128: one env a warp at a
+// time, lane l holding rows l + 32 j (j < NR = ceil(H / 32)) of NW =
+// ceil(W / 32) words; per_warp (1 to 4) envs a warp in turn, from the one
+// staged span of the block's warps * per_warp envs; any count of warps from
+// 1 to 16.
+extern "C" int bp_clear_tall(const void* board, void* board_out, void* k_out,
+                             int n, int height, int width, int region_size,
+                             int per_warp, int warps, void* stream) {
+  if (height <= 32 || height > 128 || width < 1 || width > 128 || region_size < 0 ||
+      region_size > 32 || warps < 1 || warps > bit_rows::kMaxWarps || per_warp < 1 ||
+      per_warp > 4 ||
+      (reinterpret_cast<uintptr_t>(board_out) & 15) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch ((height + 31) / 32) {
+    case 2:
+      return launch_clear_tall_rows<2>(board, board_out, k_out, n, height, width,
+                                       region_size, per_warp, warps, st);
+    case 3:
+      return launch_clear_tall_rows<3>(board, board_out, k_out, n, height, width,
+                                       region_size, per_warp, warps, st);
+    default:
+      return launch_clear_tall_rows<4>(board, board_out, k_out, n, height, width,
+                                       region_size, per_warp, warps, st);
   }
 }
 

@@ -1,11 +1,13 @@
 // Hand action mask: the CUDA port of the TPU kernel `_mask_kernel`
 // (blockpuzzle_tpu/kernels/mask.py:57, launched by `_mask_pallas_call`,
-// mask.py:85, from `MaskKernel.__call__`).  Three kernels: the bit-row
+// mask.py:85, from `MaskKernel.__call__`).  Four kernels: the bit-row
 // kernel (`mask_rows_kernel`, entry `bp_mask_rows`) for boards with H <= 32
 // and W <= 32 and pieces of at most 8 rows and 8 columns, every shipped
 // preset and piece set; the wide kernel (`mask_wide_kernel`, entry
 // `bp_mask_wide`), the bit-row kernel on rows of NW = 2..4 words, for
-// H <= 32 and 32 < W <= 128 and the same pieces; and the general kernel
+// H <= 32 and 32 < W <= 128 and the same pieces; the tall kernel
+// (`mask_tall_kernel`, entry `bp_mask_tall`), a warp an env-slot, for
+// 32 < H <= 128, W <= 128 and the same pieces; and the general kernel
 // (`mask_kernel`, entry `bp_mask`) for any other board.  The wrapper
 // (kernels/mask.py) picks one by shape.
 //
@@ -73,6 +75,20 @@
 // N = 49152 on 8x40, every board byte read again by each anchor whose
 // footprint covers it.  A block that needs more than 48 KB of shared
 // memory (16 warps, odd H and W near 128) opts in to it.
+//
+// The tall kernel carries the same test to boards of 33 to 128 rows, where
+// a segment of H lanes no longer fits a warp: one warp an env-slot, lane l
+// holding rows l + 32 j in slot j < NR = ceil(H / 32) (NR, NW template
+// parameters, 2..4 and 1..4), each as NW words.  Row r + t of the vertical
+// OR comes from lane (l + t) mod 32, from slot j + 1 where l + t >= 32 (the
+// seam; `bit_rows::rows_below`, one shuffle a slot and word for every t).
+// The smear and dc shift are the wide kernel's, a slot at a time; legal
+// rows are staged as NW words a row and stored as 16-byte vectors from the
+// block's byte offset (`bit_rows::store_tall`: the block's span may start
+// off a 16-byte boundary, so any number of warps a block fits).  It answers
+// what bounded the general kernel on tall boards: a thread an anchor (14.6
+// M threads on 33x9 at N = 49152), 64-bit index arithmetic and a chain of
+// dependent byte loads each.
 //
 // The general kernel: one thread per (env, slot, anchor), flat over
 // N*S*HW.  Each thread reads its piece's (h, w, cell offsets) row from a
@@ -284,6 +300,118 @@ __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
   bit_rows::store_words<NW>(rows, out + static_cast<long long>(first) * hw, count * hw, width);
 }
 
+template <int NR, int NW>
+__global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
+    mask_tall_kernel(const uint8_t* __restrict__ board,
+                     const int32_t* __restrict__ queue,
+                     const int4* __restrict__ pieces,
+                     uint8_t* __restrict__ out, int total, int height,
+                     int width, int slots, int num_pieces, int max_h,
+                     int per_warp) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int warps = blockDim.x / 32;
+  const int per_block = warps * per_warp;              // env-slots: per_warp a warp
+  uint32_t* rows = reinterpret_cast<uint32_t*>(smem);  // E*H legal rows of NW words
+  uint8_t* span = bit_rows::staged_span(smem, per_block * height * NW);
+  const int hw = height * width;
+  const int first = blockIdx.x * per_block;            // first env-slot
+  const int count = min(per_block, total - first);     // env-slots here
+  const int env0 = first / slots;                      // first env read
+  const long long lo = static_cast<long long>(env0) * hw;
+  const long long hi = static_cast<long long>((first + count - 1) / slots + 1) * hw;
+  const int d = bit_rows::stage_bytes(board, lo, hi, span);
+
+  const int l = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  // lane it loads the piece of the warp's env-slot of round it, it * warps + warp
+  const int pids = l < per_warp && l * warps + warp < count ? queue[first + l * warps + warp] : -1;
+  __syncthreads();
+  for (int it = 0; it < per_warp; ++it) {
+    const int seg = it * warps + warp;                 // env-slot in the block
+    const bool active = seg < count;
+    const int pid = __shfl_sync(kAll, pids, it);
+    // piece row [h, w, rect 1, rect 2] as in mask_rows_kernel; no piece: no anchor
+    const int4 pc = pid >= 0 && pid < num_pieces ? pieces[pid]
+                                                  : make_int4(height + 1, width + 1, 0, 0);
+    // slot j: board row l + 32 j; rows past the bottom read 0, and such an
+    // anchor fails r + h <= H below
+    uint32_t x[NR][NW];
+#pragma unroll
+    for (int j = 0; j < NR; ++j) {
+#pragma unroll
+      for (int i = 0; i < NW; ++i) x[j][i] = 0;
+    }
+    if (active) {
+      const int q = first - env0 * slots + seg;  // env in the span: q / slots
+      const int env = slots <= 32 ? bit_rows::small_div(q, __frcp_rn(static_cast<float>(slots)))
+                                  : q / slots;
+#pragma unroll
+      for (int j = 0; j < NR; ++j) {
+        const int r = l + 32 * j;
+        if (r < height) {
+          const int at = d + env * hw + r * width;
+#pragma unroll
+          for (int i = 0; i < NW; ++i) {
+            x[j][i] = bit_rows::pack_row(span, at + 32 * i, min(32, width - 32 * i));
+          }
+        }
+      }
+    }
+    const unsigned r1 = static_cast<unsigned>(pc.z), r2 = static_cast<unsigned>(pc.w);
+    const int dr1 = r1 & 0xff, rh1 = (r1 >> 16) & 0xff;
+    const int dr2 = r2 & 0xff, rh2 = (r2 >> 16) & 0xff;
+    // vertical OR over each rectangle's rows, word by word: row r + t across
+    // the seam (`rows_below`)
+    uint32_t v1[NR][NW], v2[NR][NW];
+#pragma unroll
+    for (int j = 0; j < NR; ++j) {
+#pragma unroll
+      for (int i = 0; i < NW; ++i) v1[j][i] = v2[j][i] = 0;
+    }
+#pragma unroll
+    for (int t = 0; t < kMaxPiece; ++t) {
+      if (t < max_h) {
+        const bool in1 = static_cast<unsigned>(t - dr1) < static_cast<unsigned>(rh1);
+        const bool in2 = static_cast<unsigned>(t - dr2) < static_cast<unsigned>(rh2);
+#pragma unroll
+        for (int i = 0; i < NW; ++i) {
+          uint32_t v[NR], y[NR];
+#pragma unroll
+          for (int j = 0; j < NR; ++j) v[j] = x[j][i];
+          bit_rows::rows_below<NR>(v, t, 0u, y);
+#pragma unroll
+          for (int j = 0; j < NR; ++j) {
+            v1[j][i] |= in1 ? y[j] : 0u;
+            v2[j][i] |= in2 ? y[j] : 0u;
+          }
+        }
+      }
+    }
+    const int anchors = width - pc.y + 1;  // columns c with c + w <= W
+#pragma unroll
+    for (int j = 0; j < NR; ++j) {
+      // horizontal smear and shift by dc: bit c blocked iff a rectangle cell
+      // of anchor c meets the board
+      smear_words<NW>(v1[j], r1 >> 24);
+      shr_words<NW>(v1[j], (r1 >> 8) & 0xff);
+      smear_words<NW>(v2[j], r2 >> 24);
+      shr_words<NW>(v2[j], (r2 >> 8) & 0xff);
+      const int r = l + 32 * j;
+      const bool fits = r + pc.x <= height && anchors > 0;
+      if (active && r < height) {  // bit c of the row: anchor (r, c) is legal
+#pragma unroll
+        for (int i = 0; i < NW; ++i) {
+          const int a = anchors - 32 * i;  // anchors in word i: min(max(a, 0), 32)
+          const uint32_t span_mask = a >= 32 ? kAll : a > 0 ? (1u << a) - 1u : 0u;
+          rows[(seg * height + r) * NW + i] = fits ? ~(v1[j][i] | v2[j][i]) & span_mask : 0u;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  bit_rows::store_tall<NW>(rows, out, static_cast<long long>(first) * hw, count * hw, width);
+}
+
 __global__ void mask_kernel(const uint8_t* __restrict__ board,
                             const int32_t* __restrict__ queue,
                             const int32_t* __restrict__ piece_table,
@@ -324,6 +452,48 @@ int launch_mask_wide(const void* board, const void* queue, const void* pieces, v
       static_cast<const int4*>(pieces), static_cast<uint8_t*>(out), total, height, width,
       slots, num_pieces, max_h, per_warp);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int NR, int NW>
+int launch_mask_tall(const void* board, const void* queue, const void* pieces, void* out,
+                     int total, int height, int width, int slots, int num_pieces,
+                     int max_h, int per_warp, int warps, cudaStream_t stream) {
+  const int per_block = warps * per_warp;
+  const int blocks = (total + per_block - 1) / per_block;
+  const long long span = static_cast<long long>((per_block + slots - 1) / slots + 1) *
+                         height * width;
+  const int smem = bit_rows::smem_bytes(per_block * height * NW, span);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        mask_tall_kernel<NR, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  mask_tall_kernel<NR, NW><<<blocks, warps * 32, smem, stream>>>(
+      static_cast<const uint8_t*>(board), static_cast<const int32_t*>(queue),
+      static_cast<const int4*>(pieces), static_cast<uint8_t*>(out), total, height, width,
+      slots, num_pieces, max_h, per_warp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NR>
+int launch_mask_tall_rows(const void* board, const void* queue, const void* pieces,
+                          void* out, int total, int height, int width, int slots,
+                          int num_pieces, int max_h, int per_warp, int warps,
+                          cudaStream_t stream) {
+  switch ((width + 31) / 32) {
+    case 1:
+      return launch_mask_tall<NR, 1>(board, queue, pieces, out, total, height, width, slots,
+                                     num_pieces, max_h, per_warp, warps, stream);
+    case 2:
+      return launch_mask_tall<NR, 2>(board, queue, pieces, out, total, height, width, slots,
+                                     num_pieces, max_h, per_warp, warps, stream);
+    case 3:
+      return launch_mask_tall<NR, 3>(board, queue, pieces, out, total, height, width, slots,
+                                     num_pieces, max_h, per_warp, warps, stream);
+    default:
+      return launch_mask_tall<NR, 4>(board, queue, pieces, out, total, height, width, slots,
+                                     num_pieces, max_h, per_warp, warps, stream);
+  }
 }
 
 }  // namespace
@@ -387,6 +557,39 @@ extern "C" int bp_mask_wide(const void* board, const void* queue,
     default:
       return launch_mask_wide<4>(board, queue, pieces, out, t, height, width, slots,
                                  num_pieces, max_h, per_warp, warps, st);
+  }
+}
+
+// As bp_mask_rows, for 32 < H <= 128 and W <= 128: one env-slot a warp at a
+// time, lane l holding rows l + 32 j (j < NR = ceil(H / 32)) of NW =
+// ceil(W / 32) words; per_warp (1 to 4) env-slots a warp in turn, from the
+// one staged span of the block's warps * per_warp env-slots; any count of
+// warps from 1 to 16 (the block's output span may start off a 16-byte
+// boundary).
+extern "C" int bp_mask_tall(const void* board, const void* queue,
+                            const void* pieces, void* out, int n, int height,
+                            int width, int slots, int num_pieces, int max_h,
+                            int max_w, int per_warp, int warps, void* stream) {
+  const long long total = static_cast<long long>(n) * slots;
+  if (height <= 32 || height > 128 || width < 1 || width > 128 || slots < 1 ||
+      max_h > kMaxPiece || max_w > kMaxPiece || warps < 1 || warps > bit_rows::kMaxWarps ||
+      per_warp < 1 || per_warp > 4 || total > INT_MAX ||
+      ((reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(pieces)) & 15) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (total == 0) return static_cast<int>(cudaGetLastError());
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int t = static_cast<int>(total);
+  switch ((height + 31) / 32) {
+    case 2:
+      return launch_mask_tall_rows<2>(board, queue, pieces, out, t, height, width, slots,
+                                      num_pieces, max_h, per_warp, warps, st);
+    case 3:
+      return launch_mask_tall_rows<3>(board, queue, pieces, out, t, height, width, slots,
+                                      num_pieces, max_h, per_warp, warps, st);
+    default:
+      return launch_mask_tall_rows<4>(board, queue, pieces, out, t, height, width, slots,
+                                      num_pieces, max_h, per_warp, warps, st);
   }
 }
 

@@ -1,0 +1,489 @@
+// The packed kernels for boards of more than 32 rows: the chosen-action
+// apply (B1, packed_apply.cu), the hand mask (B7) and its words entry (B7w,
+// packed_mask.cu), which take one row a lane and so at most 32 rows.  No
+// Pallas source: the JAX package runs all three in jnp, as the packed block
+// of `VecBlockPuzzle.step` with `_cover_words` and `_clear_scan_packed`
+// (blockpuzzle_tpu/env/core.py:962,674,696), as `_bitboard_legal_slots` with
+// `_bitboard_mask_from_words` (:489,541) and as `legal_words`
+// (blockpuzzle_tpu/env/words.py:78), on any number of rows: the JAX
+// engine's default state is packed on every board of at most 32 columns.
+// The plain versions are `packed_apply_plain`, `packed_mask_plain` and
+// `packed_legal_words_plain` (kernels/packed.py).  What each computes is
+// written there and in packed_apply.cu and packed_mask.cu.
+//
+// Bound on the H100: device memory, as the H <= 32 kernels.  Per env the
+// apply reads H int64 words, 11 int32 attrs, r, c and valid and writes H
+// int64 words, k and legal: 586 B on 33x9, 28.8 MB at N = 49152, 8.6 us at
+// 3.35 TB/s.  The mask reads H words and S ids and writes S*H*W bools (565
+// B on 33x9, S = 1); the words entry writes S*H int64 words (532 B).
+//
+// The tall kernels (33 <= H <= 128) carry the H <= 32 kernels' lane-a-row
+// design to one warp an env (apply) or env-slot (mask, words): lane l holds
+// rows l + 32 j in slot j < NR = ceil(H / 32), NR a template parameter.  A
+// row below row r, r + d (d < 32: below a piece's height in the mask, below
+// the region size in the clear), comes by `__shfl_sync` from lane
+// (l + d) mod 32, in slot j or, across the seam (l + d >= 32), slot j + 1
+// (`bit_rows::rows_below`: one shuffle a slot for all of them).  Overlap by
+// one `__any_sync`; the clear is `bit_rows::clear_tall` on one-word rows:
+// full rows by a ballot a slot, columns by ANDing a lane's slots and one
+// `__reduce_and_sync`, regions by band ANDs that may cross the seam.  A
+// warp's loads and stores of a slot are contiguous, 8 bytes a lane.  The
+// mask stages its rows' legal bits in shared memory and stores the block's
+// bytes as 16-byte vectors (`bit_rows::store_tall`); the words entry
+// stores each row's bits as one int64 straight.  The lanes of the last slot
+// past row H - 1 (31 of 64 at H = 33) run the same instructions on no row.
+//
+// The general kernels (H > 128): one thread an env (apply) or an
+// (env-slot, anchor row) (mask, words), the rows read from device memory:
+// a simple design that keeps every height the JAX engine takes running on
+// the card.
+
+#include <climits>
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "bit_rows.cuh"
+
+namespace {
+
+constexpr int kWarps = 8;        // warps a block of the apply and the words kernels
+constexpr int kThreads = 256;    // threads a block of the general kernels
+constexpr int kMaxRows = 128;    // rows of the tallest board the tall kernels take
+using bit_rows::kAll;
+
+__device__ __forceinline__ uint32_t shl32(uint32_t x, int s) {
+  return s < 32 ? x << s : 0u;
+}
+
+// Footprint word of board row `row` for the chosen action: the union of the
+// attrs row's <= 2 rectangles, each a shifted 2^rw - 1 row mask on its rows.
+__device__ __forceinline__ uint32_t cover_row(const int32_t* a, int r, int c, int row) {
+  uint32_t cover = 0;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int row0 = r + a[3 + 4 * j];
+    if (row >= row0 && row < row0 + a[5 + 4 * j]) {
+      cover |= shl32(shl32(1u, a[6 + 4 * j]) - 1u, c + a[4 + 4 * j]);
+    }
+  }
+  return cover;
+}
+
+template <int NR>
+__global__ void __launch_bounds__(kWarps * 32)
+    packed_apply_tall_kernel(const long long* __restrict__ words,
+                             const int32_t* __restrict__ attrs,
+                             const int32_t* __restrict__ r_in,
+                             const int32_t* __restrict__ c_in,
+                             const uint8_t* __restrict__ valid,
+                             long long* __restrict__ words_out,
+                             int32_t* __restrict__ k_out,
+                             uint8_t* __restrict__ legal_out, int n, int height,
+                             int width, int region_size) {
+  const int l = threadIdx.x % 32;
+  const long long env = static_cast<long long>(blockIdx.x) * kWarps + threadIdx.x / 32;
+  if (env >= n) return;  // the whole warp: no collective is left behind
+  const int32_t* a = attrs + env * 11;
+  const int r = r_in[env];
+  const int c = c_in[env];
+  const bool ok = valid[env] != 0;
+  const long long* x64 = words + env * height;
+  uint32_t w[NR][1];  // the placed rows; no row: the identity of the AND
+  bool overlap = false;
+#pragma unroll
+  for (int j = 0; j < NR; ++j) {
+    const int row = l + 32 * j;
+    w[j][0] = kAll;
+    if (row < height) {
+      const uint32_t x = static_cast<uint32_t>(x64[row]);
+      const uint32_t cover = cover_row(a, r, c, row);
+      overlap |= (x & cover) != 0;
+      w[j][0] = x | cover;
+    }
+  }
+  const bool legal = ok && !__any_sync(kAll, overlap);
+  int k;
+  bit_rows::clear_tall<NR, 1>(w, true, height, width, region_size, k);
+  // an illegal action writes its input back, read again (a cache hit)
+#pragma unroll
+  for (int j = 0; j < NR; ++j) {
+    const int row = l + 32 * j;
+    if (row < height) {
+      words_out[env * height + row] = legal ? static_cast<long long>(w[j][0]) : x64[row];
+    }
+  }
+  if (l == 0) {
+    k_out[env] = legal ? k : 0;
+    legal_out[env] = legal;
+  }
+}
+
+// Legal bits of anchor rows l + 32 j of env-slot `es` (bit c: anchor
+// (row, c) is legal), 0 where the warp is not `active`: as packed_mask.cu's
+// `legal_row_bits`, each footprint word's board words built a field at a
+// time from the rows below (`rows_below`), rows past the bottom full.  The
+// whole warp holds one env-slot, so the loop over the piece's footprint
+// cells is the same in every lane.  Every lane of the warp calls it.
+template <int NR>
+__device__ __forceinline__ void legal_tall_bits(
+    const long long* __restrict__ words, const int32_t* __restrict__ queue,
+    const uint32_t* __restrict__ prow, const int32_t* __restrict__ piece_w, long long es,
+    bool active, int height, int width, int slots, int num_pieces, int nwords, int fpw,
+    uint32_t (&bits)[NR]) {
+  const int l = threadIdx.x % 32;
+  const uint32_t full = width < 32 ? (1u << width) - 1u : kAll;
+  uint32_t x[NR];
+  int pid = -1;
+  if (active) pid = queue[es];
+#pragma unroll
+  for (int j = 0; j < NR; ++j) {
+    const int row = l + 32 * j;
+    x[j] = active && row < height
+               ? static_cast<uint32_t>(words[(es / slots) * height + row])
+               : full;
+  }
+  const bool has = pid >= 0 && pid < num_pieces;
+  const int pw = has ? piece_w[pid] : width + 1;  // no piece: no anchor
+  uint32_t blocked[NR];
+#pragma unroll
+  for (int j = 0; j < NR; ++j) blocked[j] = 0;
+  for (int k = 0; k < nwords; ++k) {
+    // board rows r + k*fpw + f in field f, rows past H full
+    uint32_t wk[NR];
+#pragma unroll
+    for (int j = 0; j < NR; ++j) wk[j] = 0;
+    for (int f = 0; f < fpw; ++f) {
+      uint32_t y[NR];
+      bit_rows::rows_below<NR>(x, k * fpw + f, full, y);
+#pragma unroll
+      for (int j = 0; j < NR; ++j) wk[j] |= y[j] << (f * width);
+    }
+    if (pw <= width) {
+      for (uint32_t m = prow[pid * nwords + k]; m != 0; m &= m - 1) {
+        const int p = __ffs(m) - 1;
+#pragma unroll
+        for (int j = 0; j < NR; ++j) blocked[j] |= wk[j] >> p;
+      }
+    }
+  }
+  const uint32_t anchors =
+      pw <= width ? (width - pw + 1 < 32 ? 1u << (width - pw + 1) : 0u) - 1u : 0u;
+#pragma unroll
+  for (int j = 0; j < NR; ++j) bits[j] = ~blocked[j] & anchors;
+}
+
+template <int NR>
+__global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
+    packed_mask_tall_kernel(const long long* __restrict__ words,
+                            const int32_t* __restrict__ queue,
+                            const uint32_t* __restrict__ prow,
+                            const int32_t* __restrict__ piece_w,
+                            uint8_t* __restrict__ out, int total, int height, int width,
+                            int slots, int num_pieces, int nwords, int fpw) {
+  // legal bits of the block's rows: E*H <= 16 * 128 rows
+  __shared__ uint32_t rows[bit_rows::kMaxWarps * kMaxRows];
+  const int l = threadIdx.x % 32;
+  const int seg = threadIdx.x / 32;          // env-slot in the block
+  const int per_block = blockDim.x / 32;
+  const int first = blockIdx.x * per_block;
+  const int count = min(per_block, total - first);
+  const bool active = seg < count;
+  uint32_t bits[NR];
+  legal_tall_bits<NR>(words, queue, prow, piece_w, first + seg, active, height, width,
+                      slots, num_pieces, nwords, fpw, bits);
+#pragma unroll
+  for (int j = 0; j < NR; ++j) {
+    const int row = l + 32 * j;
+    if (active && row < height) rows[seg * height + row] = bits[j];
+  }
+  __syncthreads();
+  bit_rows::store_tall<1>(rows, out, static_cast<long long>(first) * height * width,
+                          count * height * width, width);
+}
+
+template <int NR>
+__global__ void __launch_bounds__(kWarps * 32)
+    packed_words_tall_kernel(const long long* __restrict__ words,
+                             const int32_t* __restrict__ queue,
+                             const uint32_t* __restrict__ prow,
+                             const int32_t* __restrict__ piece_w,
+                             long long* __restrict__ out, int total, int height, int width,
+                             int slots, int num_pieces, int nwords, int fpw) {
+  const int l = threadIdx.x % 32;
+  const long long es = static_cast<long long>(blockIdx.x) * kWarps + threadIdx.x / 32;
+  if (es >= total) return;  // the whole warp
+  uint32_t bits[NR];
+  legal_tall_bits<NR>(words, queue, prow, piece_w, es, true, height, width, slots,
+                      num_pieces, nwords, fpw, bits);
+#pragma unroll
+  for (int j = 0; j < NR; ++j) {
+    const int row = l + 32 * j;
+    if (row < height) out[es * height + row] = bits[j];
+  }
+}
+
+__global__ void packed_apply_general_kernel(const long long* __restrict__ words,
+                                            const int32_t* __restrict__ attrs,
+                                            const int32_t* __restrict__ r_in,
+                                            const int32_t* __restrict__ c_in,
+                                            const uint8_t* __restrict__ valid,
+                                            long long* __restrict__ words_out,
+                                            int32_t* __restrict__ k_out,
+                                            uint8_t* __restrict__ legal_out, int n,
+                                            int height, int width, int region_size) {
+  const long long env = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (env >= n) return;
+  const long long* x = words + env * height;
+  long long* o = words_out + env * height;
+  const int32_t* a = attrs + env * 11;
+  const int r = r_in[env];
+  const int c = c_in[env];
+  // the placed rows' column AND, and the overlap
+  bool overlap = false;
+  uint32_t cols = kAll;
+  for (int row = 0; row < height; ++row) {
+    const uint32_t w = static_cast<uint32_t>(x[row]);
+    const uint32_t cover = cover_row(a, r, c, row);
+    overlap |= (w & cover) != 0;
+    cols &= w | cover;
+  }
+  const bool legal = valid[env] != 0 && !overlap;
+  int k = 0;
+  if (legal) {
+    const uint32_t full = shl32(1u, width) - 1u;
+    k = __popc(cols);
+    uint32_t reg = 0;  // the cleared fields of the current band
+    for (int row = 0; row < height; ++row) {
+      const uint32_t w = static_cast<uint32_t>(x[row]) | cover_row(a, r, c, row);
+      if (region_size > 0 && row % region_size == 0) {
+        reg = 0;
+        if (row + region_size <= height) {  // a whole band
+          uint32_t band = kAll;
+          for (int t = 0; t < region_size; ++t) {
+            band &= static_cast<uint32_t>(x[row + t]) | cover_row(a, r, c, row + t);
+          }
+          const uint32_t tile0 = shl32(1u, region_size) - 1u;
+          for (int t = 0; t + region_size <= width; t += region_size) {
+            const uint32_t tile = tile0 << t;
+            if ((band & tile) == tile) {
+              reg |= tile;
+              ++k;
+            }
+          }
+        }
+      }
+      k += w == full;
+      o[row] = w & ~((w == full ? full : 0u) | cols | reg);
+    }
+  } else {
+    for (int row = 0; row < height; ++row) o[row] = x[row];
+  }
+  k_out[env] = k;
+  legal_out[env] = legal;
+}
+
+// The legal bits of anchor row `row` of env-slot `es`, read straight from
+// device memory: `legal_row_bits` of packed_mask.cu for one thread.
+__device__ __forceinline__ uint32_t legal_row_general(
+    const long long* __restrict__ words, const int32_t* __restrict__ queue,
+    const uint32_t* __restrict__ prow, const int32_t* __restrict__ piece_w, long long es,
+    int row, int height, int width, int slots, int num_pieces, int nwords, int fpw) {
+  const int pid = queue[es];
+  if (pid < 0 || pid >= num_pieces || piece_w[pid] > width) return 0u;
+  const int pw = piece_w[pid];
+  const uint32_t full = shl32(1u, width) - 1u;
+  const long long* x = words + (es / slots) * height;
+  uint32_t blocked = 0;
+  for (int k = 0; k < nwords; ++k) {
+    uint32_t wk = 0;
+    for (int f = 0; f < fpw; ++f) {
+      const int t = row + k * fpw + f;
+      wk |= (t < height ? static_cast<uint32_t>(x[t]) : full) << (f * width);
+    }
+    for (uint32_t m = prow[pid * nwords + k]; m != 0; m &= m - 1) {
+      blocked |= wk >> (__ffs(m) - 1);
+    }
+  }
+  return ~blocked & (shl32(1u, width - pw + 1) - 1u);
+}
+
+__global__ void packed_mask_general_kernel(const long long* __restrict__ words,
+                                           const int32_t* __restrict__ queue,
+                                           const uint32_t* __restrict__ prow,
+                                           const int32_t* __restrict__ piece_w,
+                                           uint8_t* __restrict__ out, long long total_rows,
+                                           int height, int width, int slots,
+                                           int num_pieces, int nwords, int fpw) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= total_rows) return;
+  const long long es = i / height;
+  const int row = static_cast<int>(i - es * height);
+  const uint32_t bits = legal_row_general(words, queue, prow, piece_w, es, row, height,
+                                          width, slots, num_pieces, nwords, fpw);
+  uint8_t* o = out + i * width;
+  for (int c = 0; c < width; ++c) o[c] = (bits >> c) & 1u;
+}
+
+__global__ void packed_words_general_kernel(const long long* __restrict__ words,
+                                            const int32_t* __restrict__ queue,
+                                            const uint32_t* __restrict__ prow,
+                                            const int32_t* __restrict__ piece_w,
+                                            long long* __restrict__ out,
+                                            long long total_rows, int height, int width,
+                                            int slots, int num_pieces, int nwords, int fpw) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= total_rows) return;
+  const long long es = i / height;
+  out[i] = legal_row_general(words, queue, prow, piece_w, es,
+                             static_cast<int>(i - es * height), height, width, slots,
+                             num_pieces, nwords, fpw);
+}
+
+bool tall_args_ok(int height, int width) {
+  return height > 32 && height <= kMaxRows && width >= 1 && width <= 32;
+}
+
+}  // namespace
+
+// The tall apply: bp_packed_apply's arguments without per_warp; 32 < H <=
+// 128, W <= 32.  One env a warp, eight a block.
+extern "C" int bp_packed_apply_tall(const void* words, const void* attrs, const void* r,
+                                    const void* c, const void* valid, void* words_out,
+                                    void* k_out, void* legal_out, int n, int height,
+                                    int width, int region_size, void* stream) {
+  if (!tall_args_ok(height, width) || region_size < 0 || region_size > 32) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const int blocks = (n + kWarps - 1) / kWarps;
+  const auto st = static_cast<cudaStream_t>(stream);
+#define BP_APPLY_TALL(NR)                                                                 \
+  packed_apply_tall_kernel<NR><<<blocks, kWarps * 32, 0, st>>>(                           \
+      static_cast<const long long*>(words), static_cast<const int32_t*>(attrs),          \
+      static_cast<const int32_t*>(r), static_cast<const int32_t*>(c),                    \
+      static_cast<const uint8_t*>(valid), static_cast<long long*>(words_out),            \
+      static_cast<int32_t*>(k_out), static_cast<uint8_t*>(legal_out), n, height, width,  \
+      region_size)
+  switch ((height + 31) / 32) {
+    case 2: BP_APPLY_TALL(2); break;
+    case 3: BP_APPLY_TALL(3); break;
+    default: BP_APPLY_TALL(4); break;
+  }
+#undef BP_APPLY_TALL
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tall mask: bp_packed_mask's arguments, `warps` env-slots a block (1 to
+// 16, any: the block's span may start off a 16-byte boundary) in place of
+// per_warp and warps; out 16-byte aligned; 32 < H <= 128, W <= 32, N*S <
+// 2^31 and the footprint words' fields nwords * fpw <= 32 (rows below a
+// row stay within one seam).
+extern "C" int bp_packed_mask_tall(const void* words, const void* queue, const void* prow,
+                                   const void* piece_w, void* out, int n, int height,
+                                   int width, int slots, int num_pieces, int nwords,
+                                   int fpw, int warps, void* stream) {
+  const long long total = static_cast<long long>(n) * slots;
+  if (!tall_args_ok(height, width) || warps < 1 || warps > bit_rows::kMaxWarps ||
+      total > INT_MAX || nwords * fpw > 32 ||
+      (reinterpret_cast<uintptr_t>(out) & 15) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (total == 0) return static_cast<int>(cudaGetLastError());
+  const int blocks = static_cast<int>((total + warps - 1) / warps);
+  const auto st = static_cast<cudaStream_t>(stream);
+#define BP_MASK_TALL(NR)                                                                  \
+  packed_mask_tall_kernel<NR><<<blocks, warps * 32, 0, st>>>(                             \
+      static_cast<const long long*>(words), static_cast<const int32_t*>(queue),          \
+      static_cast<const uint32_t*>(prow), static_cast<const int32_t*>(piece_w),          \
+      static_cast<uint8_t*>(out), static_cast<int>(total), height, width, slots,         \
+      num_pieces, nwords, fpw)
+  switch ((height + 31) / 32) {
+    case 2: BP_MASK_TALL(2); break;
+    case 3: BP_MASK_TALL(3); break;
+    default: BP_MASK_TALL(4); break;
+  }
+#undef BP_MASK_TALL
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tall words entry: bp_packed_words's arguments without per_warp; eight
+// env-slots a block.
+extern "C" int bp_packed_words_tall(const void* words, const void* queue, const void* prow,
+                                    const void* piece_w, void* out, int n, int height,
+                                    int width, int slots, int num_pieces, int nwords,
+                                    int fpw, void* stream) {
+  const long long total = static_cast<long long>(n) * slots;
+  if (!tall_args_ok(height, width) || total > INT_MAX || nwords * fpw > 32) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (total == 0) return static_cast<int>(cudaGetLastError());
+  const long long blocks = (total + kWarps - 1) / kWarps;
+  const auto st = static_cast<cudaStream_t>(stream);
+#define BP_WORDS_TALL(NR)                                                                 \
+  packed_words_tall_kernel<NR><<<static_cast<unsigned>(blocks), kWarps * 32, 0, st>>>(    \
+      static_cast<const long long*>(words), static_cast<const int32_t*>(queue),          \
+      static_cast<const uint32_t*>(prow), static_cast<const int32_t*>(piece_w),          \
+      static_cast<long long*>(out), static_cast<int>(total), height, width, slots,       \
+      num_pieces, nwords, fpw)
+  switch ((height + 31) / 32) {
+    case 2: BP_WORDS_TALL(2); break;
+    case 3: BP_WORDS_TALL(3); break;
+    default: BP_WORDS_TALL(4); break;
+  }
+#undef BP_WORDS_TALL
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The general apply, any H >= 1: bp_packed_apply_tall's arguments.
+extern "C" int bp_packed_apply_general(const void* words, const void* attrs, const void* r,
+                                       const void* c, const void* valid, void* words_out,
+                                       void* k_out, void* legal_out, int n, int height,
+                                       int width, int region_size, void* stream) {
+  if (height < 1 || width < 1 || width > 32 || region_size < 0 || region_size > 32) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n > 0) {
+    const int blocks = (n + kThreads - 1) / kThreads;
+    packed_apply_general_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const long long*>(words), static_cast<const int32_t*>(attrs),
+        static_cast<const int32_t*>(r), static_cast<const int32_t*>(c),
+        static_cast<const uint8_t*>(valid), static_cast<long long*>(words_out),
+        static_cast<int32_t*>(k_out), static_cast<uint8_t*>(legal_out), n, height, width,
+        region_size);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The general mask and words entries, any H >= 1: bp_packed_words_tall's
+// arguments (no alignment asked of `out`).
+extern "C" int bp_packed_mask_general(const void* words, const void* queue,
+                                      const void* prow, const void* piece_w, void* out,
+                                      int n, int height, int width, int slots,
+                                      int num_pieces, int nwords, int fpw, void* stream) {
+  if (height < 1 || width < 1 || width > 32) return static_cast<int>(cudaErrorInvalidValue);
+  const long long rows = static_cast<long long>(n) * slots * height;
+  if (rows > 0) {
+    packed_mask_general_kernel<<<static_cast<unsigned>((rows + kThreads - 1) / kThreads),
+                                 kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const long long*>(words), static_cast<const int32_t*>(queue),
+        static_cast<const uint32_t*>(prow), static_cast<const int32_t*>(piece_w),
+        static_cast<uint8_t*>(out), rows, height, width, slots, num_pieces, nwords, fpw);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bp_packed_words_general(const void* words, const void* queue,
+                                       const void* prow, const void* piece_w, void* out,
+                                       int n, int height, int width, int slots,
+                                       int num_pieces, int nwords, int fpw, void* stream) {
+  if (height < 1 || width < 1 || width > 32) return static_cast<int>(cudaErrorInvalidValue);
+  const long long rows = static_cast<long long>(n) * slots * height;
+  if (rows > 0) {
+    packed_words_general_kernel<<<static_cast<unsigned>((rows + kThreads - 1) / kThreads),
+                                  kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const long long*>(words), static_cast<const int32_t*>(queue),
+        static_cast<const uint32_t*>(prow), static_cast<const int32_t*>(piece_w),
+        static_cast<long long*>(out), rows, height, width, slots, num_pieces, nwords, fpw);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -6,13 +6,14 @@ bounds there and covers no occupied (nonzero) cell; the result is the
 engine's ``action_mask``: (N, S*HW) bool, slot-major then row-major anchor.
 It is the legality map of ``collision.py`` read at each slot's piece.
 
-Three kernels compute it: the bit-row kernel, for boards of at most 32
+Four kernels compute it: the bit-row kernel, for boards of at most 32
 rows of at most 32 cells and pieces of at most 8 rows and 8 columns (every
 shipped preset and piece set), tests each anchor row's cells at once on a
 32-bit row word, from the piece table ``piece_rows_table``; the wide
 kernel does the same on rows of 33 to 128 cells held as two to four words;
-the general kernel, a thread per anchor over ``collision.piece_table``,
-takes any other board.
+the tall kernel on boards of 33 to 128 rows of at most 128 cells, a warp
+an env-slot and up to four rows a lane; the general kernel, a thread per
+anchor over ``collision.piece_table``, takes any other board.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ from blockpuzzle_tpu_torch.config import EnvConfig
 from blockpuzzle_tpu_torch.kernels import _build
 from blockpuzzle_tpu_torch.kernels.collision import legality_plain, piece_table
 from blockpuzzle_tpu_torch.kernels.packed import (
-    MAX_PIECE, row_launch_shape, wide_launch_shape,
+    MAX_PIECE, SUFFIX, count_launch, row_launch_shape, tall_launch_shape, u8_kind,
+    wide_launch_shape,
 )
 
 
@@ -68,12 +70,14 @@ class MaskKernel:
 
     ``__call__(board (N, HW) u8, queue (N, S) i32) -> (N, S*HW) bool``.
     For CPU tensors it runs ``mask_plain``; for CUDA tensors it launches a
-    kernel or raises.  The kernel is picked here, by shape, where no piece
-    spans more than ``MAX_PIECE`` rows or columns: the bit-row kernel where
-    H <= 32 and W <= 32 (``launches`` counts its launches), the wide kernel
-    where H <= 32 and 32 < W <= 128 (``wide`` is True; ``wide_launches``);
-    ``shape`` is the launch shape of either.  Else the general kernel
-    (``shape`` is None; ``general_launches``).
+    kernel or raises.  The kernel is picked here, by shape (``kind``), where
+    no piece spans more than ``MAX_PIECE`` rows or columns: the bit-row
+    kernel where H <= 32 and W <= 32 (``launches`` counts its launches), the
+    wide kernel where H <= 32 and 32 < W <= 128 (``wide`` is True;
+    ``wide_launches``), the tall kernel where 32 < H <= 128 and W <= 128
+    (``tall_launches``); ``shape`` is the launch shape of any of them.  Else
+    the general kernel (``shape`` is None; ``general_launches``).  ``name``
+    is the picked kernel's.
     """
 
     def __init__(self, cfg: EnvConfig, device="cuda"):
@@ -82,10 +86,14 @@ class MaskKernel:
         self.device = _build.resolve_device(device)
         self.num_pieces = t.num_pieces
         self.max_h, self.max_w = t.max_h, t.max_w
-        self.launches = self.wide_launches = self.general_launches = 0
+        self.launches = self.wide_launches = self.tall_launches = 0
+        self.general_launches = 0
         fits = max(t.max_h, t.max_w) <= MAX_PIECE
-        self.shape = (row_launch_shape(cfg) or wide_launch_shape(cfg)) if fits else None
-        self.wide = self.shape is not None and cfg.width > 32
+        self.shape = (row_launch_shape(cfg) or wide_launch_shape(cfg)
+                      or tall_launch_shape(cfg)) if fits else None
+        self.kind = u8_kind(cfg, self.shape)
+        self.wide = self.kind == "wide"
+        self.name = "mask" + SUFFIX[self.kind]
         table = piece_table(cfg) if self.shape is None else piece_rows_table(cfg)
         self.piece_table = torch.as_tensor(table, device=self.device)
         self.cover_t = torch.as_tensor(
@@ -132,7 +140,7 @@ class MaskKernel:
             else:
                 if out.data_ptr() % 16:  # the kernel stores 16-byte vectors
                     raise RuntimeError("mask output is not 16-byte aligned")
-                name = "bp_mask_wide" if self.wide else "bp_mask_rows"
+                name = "bp_mask_rows" if self.kind == "rows" else "bp_" + self.name
                 err = getattr(lib, name)(
                     board.data_ptr(), queue.data_ptr(),
                     self.piece_table.data_ptr(), out.data_ptr(),
@@ -140,10 +148,5 @@ class MaskKernel:
                     self.max_h, self.max_w, *self.shape, stream,
                 )
         _build.check(err, name)
-        if self.shape is None:
-            self.general_launches += 1
-        elif self.wide:
-            self.wide_launches += 1
-        else:
-            self.launches += 1
+        count_launch(self)
         return out

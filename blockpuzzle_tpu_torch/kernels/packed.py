@@ -1,5 +1,5 @@
 """Packed-board kernels: CUDA kernels (``csrc/packed_apply.cu``,
-``csrc/packed_mask.cu``) and their plain versions.
+``csrc/packed_mask.cu``, ``csrc/packed_tall.cu``) and their plain versions.
 
 The packed engine holds each board as (N, H) row words: bit w of word r is
 cell (r, w).  The JAX package keeps them as uint32; the port keeps the same
@@ -11,6 +11,12 @@ would wrap.
 These kernels have no Pallas source: the JAX package runs its packed step
 in jnp (``blockpuzzle_tpu/env/core.py``) and its legal words in jnp
 (``blockpuzzle_tpu/env/words.py``).
+
+Each wrapper picks its kernel by height: one row a lane where H <= 32
+(``csrc/packed_apply.cu``, ``csrc/packed_mask.cu``), a warp a board where
+H <= 128 (the tall kernels, ``csrc/packed_tall.cu``), a thread an env or an
+anchor row above (the general kernels, the same file): the JAX engine takes
+packed state on any board of at most 32 columns, whatever its height.
 
 * ``PackedApplyKernel``: the chosen action's footprint words
   (``_cover_words``), the overlap test, the masked place and the
@@ -50,6 +56,12 @@ MAX_PIECE = 8
 # cells of the widest row the wide u8 mask and clear take: four 32-bit
 # words a lane
 MAX_WIDE = 128
+# rows of the tallest board the tall kernels take (the packed apply, mask
+# and words, the u8 mask and clear): four rows a lane, one warp a board;
+# taller boards take the general kernels
+MAX_TALL = 128
+# shared memory a block may opt in to on the H100
+SMEM_OPT_IN = 227 * 1024
 
 
 def segments_per_warp(height: int) -> int:
@@ -80,6 +92,48 @@ def wide_launch_shape(cfg: EnvConfig):
     if cfg.height > MAX_ROWS or not 32 < cfg.width <= MAX_WIDE:
         return None
     return segments_per_warp(cfg.height), mask_block_warps(cfg.height, cfg.width)
+
+
+def tall_launch_shape(cfg: EnvConfig):
+    """(boards a warp, warps a block) of the tall kernels, for boards of
+    32 < H <= ``MAX_TALL`` rows of at most ``MAX_WIDE`` cells; None for any
+    other board.  A warp holds one board (or env-slot) at a time and takes
+    its turns through ``per_warp`` of them, all staged at once: 16 warps and
+    the most turns, 4, 2 or 1, whose shared memory fits a block that does
+    not opt in to more (48 KB: 33x9 takes 4, so that 64 boards a block and
+    256 an SM are in flight, not 64); a board too large for that takes one
+    turn and ``tall_block_warps``.  The packed tall mask reads the warps
+    alone (one env-slot a warp).  Computed once per wrapper, as
+    ``row_launch_shape``."""
+    if not MAX_ROWS < cfg.height <= MAX_TALL or cfg.width > MAX_WIDE:
+        return None
+    for per_warp in (4, 2, 1):
+        if tall_smem_bytes(cfg, 16 * per_warp) <= 48 * 1024:
+            return per_warp, 16
+    return 1, tall_block_warps(cfg)
+
+
+def tall_smem_bytes(cfg: EnvConfig, per_block: int) -> int:
+    """Shared memory of a block of the tall u8 mask (the larger of the two
+    that share the launch shape): ``per_block`` env-slots' legal rows of
+    ceil(W / 32) words, then the span of the envs they read, as
+    ``csrc/bit_rows.cuh`` ``smem_bytes`` lays them out."""
+    hw, s = cfg.num_cells, cfg.queue_size
+    nrows = per_block * cfg.height * -(-cfg.width // 32)
+    span = ((per_block + s - 1) // s + 1) * hw
+    return (4 * nrows + 15) // 16 * 16 + span + 32
+
+
+def tall_block_warps(cfg: EnvConfig) -> int:
+    """Warps a block of the tall kernels where a block of 16 does not fit
+    48 KB, one board (or env-slot) each: the fewest, at least 4, for which
+    the block's output (warps * H * W bytes) is a multiple of 16 bytes, so
+    that every block's span starts on a 16-byte boundary, and whose shared
+    memory fits what a block may opt in to; 4 where none does (the store
+    takes a span at any offset)."""
+    hw = cfg.num_cells
+    return next((w for w in range(4, 17)
+                 if w * hw % 16 == 0 and tall_smem_bytes(cfg, w) <= SMEM_OPT_IN), 4)
 
 
 def mask_block_warps(height: int, width: int) -> int:
@@ -246,14 +300,48 @@ def packed_apply_plain(
     return torch.where(legal[:, None], cleared, words), k, legal
 
 
+def packed_kind(cfg: EnvConfig) -> str:
+    """The packed kernels a board takes: ``"rows"`` (a lane a row, H <= 32),
+    ``"tall"`` (a warp a board, H <= ``MAX_TALL``) or ``"general"``."""
+    return ("rows" if cfg.height <= MAX_ROWS else
+            "tall" if cfg.height <= MAX_TALL else "general")
+
+
+# kernel kind -> the suffix of its name (``mask_tall``, ``packed_apply``)
+SUFFIX = {"rows": "", "wide": "_wide", "tall": "_tall", "general": "_general"}
+
+
+def u8_kind(cfg: EnvConfig, shape) -> str:
+    """The kind of the u8 kernel a wrapper with launch shape ``shape`` (None:
+    the general kernel) picks on ``cfg``: ``"rows"``, ``"wide"``, ``"tall"``
+    or ``"general"``."""
+    if shape is None:
+        return "general"
+    if cfg.height > MAX_ROWS:
+        return "tall"
+    return "wide" if cfg.width > 32 else "rows"
+
+
+def count_launch(kernel, prefix: str = "") -> None:
+    """One more launch on the counter of the kernel the wrapper ``kernel``
+    picked (its ``kind``): ``<prefix>launches`` for the bit-row kernel, else
+    ``<prefix><kind>_launches``."""
+    attr = prefix + ("launches" if kernel.kind == "rows" else f"{kernel.kind}_launches")
+    setattr(kernel, attr, getattr(kernel, attr) + 1)
+
+
 class PackedApplyKernel:
     """Config-bound packed collision + place + clear on one device, the
     card unless asked for another.
 
     ``__call__(words (N, H) int64, attrs (N, 11) int32, r (N,) int32,
     c (N,) int32, valid (N,) bool) -> (words_next, k, legal)``.  For CPU
-    tensors it runs ``packed_apply_plain``; for CUDA tensors it launches
-    the kernel (``launches`` counts those launches) or raises.
+    tensors it runs ``packed_apply_plain``; for CUDA tensors it launches a
+    kernel or raises.  The kernel is picked here, by height (``kind``,
+    ``packed_kind``): the bit-row kernel where H <= 32 (``launches`` counts
+    its launches; ``shape`` is its launch shape), the tall kernel where
+    H <= 128 (``tall_launches``), the general kernel above
+    (``general_launches``).  ``name`` is the picked kernel's.
     """
 
     def __init__(self, cfg: EnvConfig, device="cuda"):
@@ -261,8 +349,10 @@ class PackedApplyKernel:
             raise ValueError("packed boards need width <= 32")
         self.cfg = cfg
         self.device = _build.resolve_device(device)
-        self.launches = 0
+        self.launches = self.tall_launches = self.general_launches = 0
         self.shape = row_launch_shape(cfg)
+        self.kind = packed_kind(cfg)
+        self.name = "packed_apply" + SUFFIX[self.kind]
 
     def plain(self, words, attrs, r, c, valid):
         return packed_apply_plain(words, attrs, r, c, valid, self.cfg)
@@ -295,23 +385,22 @@ class PackedApplyKernel:
             return self.plain(words, attrs, r, c, valid)
         if self.device.type != "cuda":
             raise ValueError(f"no packed apply kernel for device {self.device}")
-        if self.shape is None:
-            raise ValueError(f"the packed kernels take H <= {MAX_ROWS}")
         if not all(x.is_contiguous() for x in (words, attrs, r, c, valid)):
             raise ValueError("words, attrs, r, c and valid must be contiguous")
         words_next = torch.empty_like(words)
         k = torch.empty(n, dtype=torch.int32, device=self.device)
         legal = torch.empty(n, dtype=torch.bool, device=self.device)
         stream = torch.cuda.current_stream(self.device).cuda_stream
-        with torch.cuda.device(self.device):
-            err = _build.library().bp_packed_apply(
-                words.data_ptr(), attrs.data_ptr(), r.data_ptr(), c.data_ptr(),
+        region = cfg.region_size if cfg.region_clear else 0
+        args = (words.data_ptr(), attrs.data_ptr(), r.data_ptr(), c.data_ptr(),
                 valid.data_ptr(), words_next.data_ptr(), k.data_ptr(),
-                legal.data_ptr(), n, cfg.height, cfg.width,
-                cfg.region_size if cfg.region_clear else 0, self.shape[0], stream,
-            )
-        _build.check(err, "bp_packed_apply")
-        self.launches += 1
+                legal.data_ptr(), n, cfg.height, cfg.width, region)
+        shape = self.shape[:1] if self.kind == "rows" else ()  # per_warp
+        entry = "bp_" + self.name
+        with torch.cuda.device(self.device):
+            err = getattr(_build.library(), entry)(*args, *shape, stream)
+        _build.check(err, entry)
+        count_launch(self)
         return words_next, k, legal
 
 
@@ -397,8 +486,16 @@ class PackedMaskKernel:
     (N, S*H) int64`` legal row words (``env/words.py`` ``legal_words``).
     For CPU tensors each runs its plain version (``packed_mask_plain``,
     ``packed_legal_words_plain``); for CUDA tensors it launches its kernel
-    or raises.  ``launches`` counts the mask kernel's launches,
-    ``words_launches`` the words kernel's.
+    or raises.  Each entry's kernel is picked here, by height (``kind``, as
+    ``PackedApplyKernel``'s; the tall kernels also need the footprint words'
+    fields, ``nwords * fpw``, to span at most 32 rows, and every shipped
+    piece set's do): the bit-row kernels where H <= 32 (``launches``
+    counts the mask kernel's launches, ``words_launches`` the words
+    kernel's), the tall ones where H <= 128 (``tall_launches``,
+    ``words_tall_launches``), the general ones elsewhere
+    (``general_launches``, ``words_general_launches``).  ``shape`` is the
+    picked kernels' launch shape (None for the general ones); ``name`` and
+    ``words_name`` are their names.
     """
 
     def __init__(self, cfg: EnvConfig, device="cuda"):
@@ -409,9 +506,15 @@ class PackedMaskKernel:
         self.num_pieces = t.num_pieces
         self.max_h = t.max_h
         self.tables = bb
-        self.launches = 0
-        self.words_launches = 0
-        self.shape = row_launch_shape(cfg)
+        self.launches = self.tall_launches = self.general_launches = 0
+        self.words_launches = self.words_tall_launches = self.words_general_launches = 0
+        self.kind = packed_kind(cfg)
+        if self.kind == "tall" and bb.nwords * bb.fpw > 32:
+            self.kind = "general"
+        self.shape = {"rows": row_launch_shape(cfg), "tall": tall_launch_shape(cfg),
+                      "general": None}[self.kind]
+        self.name = "packed_mask" + SUFFIX[self.kind]
+        self.words_name = "packed_legal_words" + SUFFIX[self.kind]
         dev = self.device
         zero = np.zeros((1, bb.nwords), np.int64)
         # plain version: int64 tables with a zero row at the sentinel P
@@ -451,15 +554,17 @@ class PackedMaskKernel:
             return
         if self.device.type != "cuda":
             raise ValueError(f"no packed mask kernel for device {self.device}")
-        if self.shape is None:
-            raise ValueError(f"the packed kernels take H <= {MAX_ROWS}")
         if not (words.is_contiguous() and queue.is_contiguous()):
             raise ValueError("words and queue must be contiguous")
 
-    def _args(self, words: torch.Tensor, queue: torch.Tensor):
-        """The kernels' leading arguments: inputs and tables."""
+    def _args(self, words: torch.Tensor, queue: torch.Tensor, out: torch.Tensor):
+        """The kernels' arguments up to their launch shape: inputs, tables,
+        output and sizes."""
+        cfg = self.cfg
         return (words.data_ptr(), queue.data_ptr(), self.prow32.data_ptr(),
-                self.piece_w32.data_ptr())
+                self.piece_w32.data_ptr(), out.data_ptr(), words.shape[0], cfg.height,
+                cfg.width, cfg.queue_size, self.num_pieces, self.tables.nwords,
+                self.tables.fpw)
 
     def __call__(self, words: torch.Tensor, queue: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -471,17 +576,17 @@ class PackedMaskKernel:
             (n, cfg.queue_size * cfg.num_cells), dtype=torch.bool,
             device=self.device,
         )
-        if out.data_ptr() % 16:  # the kernel stores 16-byte vectors
+        if out.data_ptr() % 16:  # the kernels store 16-byte vectors
             raise RuntimeError("mask output is not 16-byte aligned")
         stream = torch.cuda.current_stream(self.device).cuda_stream
+        # the launch shape: (per_warp, warps), (warps,) or nothing
+        shape = self.shape if self.kind == "rows" else (self.shape or ())[1:]
+        entry = "bp_" + self.name
         with torch.cuda.device(self.device):
-            err = _build.library().bp_packed_mask(
-                *self._args(words, queue), out.data_ptr(), n, cfg.height,
-                cfg.width, cfg.queue_size, self.num_pieces, self.tables.nwords,
-                self.tables.fpw, *self.shape, stream,
-            )
-        _build.check(err, "bp_packed_mask")
-        self.launches += 1
+            err = getattr(_build.library(), entry)(
+                *self._args(words, queue, out), *shape, stream)
+        _build.check(err, entry)
+        count_launch(self)
         return out
 
     def words(self, words: torch.Tensor, queue: torch.Tensor) -> torch.Tensor:
@@ -493,12 +598,11 @@ class PackedMaskKernel:
         out = torch.empty((n, cfg.queue_size * cfg.height), dtype=torch.int64,
                           device=self.device)
         stream = torch.cuda.current_stream(self.device).cuda_stream
+        shape = self.shape[:1] if self.kind == "rows" else ()  # per_warp
+        entry = "bp_packed_words" + SUFFIX[self.kind]
         with torch.cuda.device(self.device):
-            err = _build.library().bp_packed_words(
-                *self._args(words, queue), out.data_ptr(), n, cfg.height,
-                cfg.width, cfg.queue_size, self.num_pieces, self.tables.nwords,
-                self.tables.fpw, self.shape[0], stream,
-            )
-        _build.check(err, "bp_packed_words")
-        self.words_launches += 1
+            err = getattr(_build.library(), entry)(
+                *self._args(words, queue, out), *shape, stream)
+        _build.check(err, entry)
+        count_launch(self, "words_")
         return out

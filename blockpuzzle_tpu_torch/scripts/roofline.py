@@ -88,14 +88,12 @@ REDUCTIONS = frozenset({"sum", "any", "all", "argmax", "argmin", "amax", "amin",
 # aten ops that move no data: allocations and reshapes of fresh results
 FREE = frozenset({"empty", "empty_like", "empty_strided", "new_empty",
                   "new_empty_strided", "_unsafe_view"})
-# the engine's step kernels: attribute -> kernel name in ``COSTS``
-STEP_KERNELS = {"deal_kernel": "deal", "mask_kernel": "mask", "apply_kernel": "apply",
-                "clear_kernel": "clear", "packed_apply_kernel": "packed_apply",
-                "packed_mask_kernel": "packed_mask"}
-# the u8 wrappers, which pick their general kernels where a board has no
-# launch shape (more than 32 rows, or rows too wide), and the mask and clear
-# their wide kernels on rows of 33 to 128 cells (``wide``)
-U8_KERNELS = ("mask_kernel", "apply_kernel", "clear_kernel")
+# the engine's step kernels: attribute -> kernel name in ``COSTS``, or None
+# for the wrappers that pick their kernel by shape and name it (``name``:
+# ``mask_wide``, ``clear_tall``, ``packed_apply_general``, ...)
+STEP_KERNELS = {"deal_kernel": "deal", "mask_kernel": None, "apply_kernel": None,
+                "clear_kernel": None, "packed_apply_kernel": None,
+                "packed_mask_kernel": None}
 # a sampler's draw kernel: sampler class name -> kernel name in ``COSTS``
 POLICY_KERNELS = {"UniformLegalSampler": "uniform_legal",
                   "WordsSampler": "words_select"}
@@ -174,9 +172,8 @@ class CountedKernel:
 
 @contextlib.contextmanager
 def counted_kernels(env: VecBlockPuzzle, counter: OpCounter, sampler=None):
-    """The engine's step kernels (a u8 wrapper's general kernel where it
-    has no launch shape, its wide kernel where it says so) and
-    ``sampler``'s draw kernel replaced by
+    """The engine's step kernels (each under the name of the kernel its
+    wrapper picks on the board) and ``sampler``'s draw kernel replaced by
     ``CountedKernel``s inside the block; restored after it."""
     saved = {attr: getattr(env, attr) for attr in STEP_KERNELS}
     draw = None if sampler is None else sampler.kernel
@@ -185,11 +182,7 @@ def counted_kernels(env: VecBlockPuzzle, counter: OpCounter, sampler=None):
             k = saved[attr]
             if k is None:
                 continue
-            if attr in U8_KERNELS and k.shape is None:
-                name = f"{name}_general"
-            elif getattr(k, "wide", False):
-                name = f"{name}_wide"
-            setattr(env, attr, CountedKernel(k, name, counter))
+            setattr(env, attr, CountedKernel(k, name or k.name, counter))
         if sampler is not None:
             sampler.kernel = CountedKernel(draw, POLICY_KERNELS[type(sampler).__name__],
                                            counter)

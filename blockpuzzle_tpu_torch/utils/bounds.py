@@ -21,7 +21,9 @@ byte; the wide mask and clear count the same a word where a row is NW =
 ceil(W / 32) words (each word packed from min(32, W - 32 i) cells, NW
 shuffles a row below, 10 operations a word for each rectangle's smear and
 shift, whose steps are funnel shifts, and 4 for its legal mask; the clear
-tests and clears about 8 a word); the bit-row apply (K2) packs two words a row, tests, places and
+tests and clears about 8 a word); the tall mask and clear (boards of 33 to
+128 rows, a warp a board) count as the wide ones, a row's words being one
+where W <= 32; the bit-row apply (K2) packs two words a row, tests, places and
 clears (about 12) and stores likewise; the bit-row legality (K4) packs
 each row once, builds its smears (3 operations for each of max_h * max_w
 shapes), spends about 15 a piece and one per output byte; the general mask
@@ -29,7 +31,9 @@ and legality test a piece at one anchor with an AND and an OR per cell,
 the general clear and apply do about 3 and 5 operations a cell; a packed
 anchor row tests W - piece_w + 1 anchors with 3 operations per footprint
 word and builds its words with 2 per field (B7, and its words entry B7w,
-which stores the row word as it is); B1 does about 10 a row word.  The
+which stores the row word as it is); B1 does about 10 a row word.  Their
+tall kernels (33 to 128 rows, a warp a board) and general kernels (more
+rows, a thread an env or an anchor row) are counted as they are.  The
 draws' (B9, B2, B2w) hash is a quarter multiplies, so theirs are counted
 by pipe: they fold an env's key and counter in three mixes (6 ALU
 operations and 2 multiplies each) and 3 XORs (21 and 6), the stream's tag
@@ -238,13 +242,14 @@ def _words_select(cfg: EnvConfig, inputs: Tensors, outputs: Tensors) -> Tuple[in
 
 COSTS: Dict[str, Cost] = {
     "mask": _cost(_mask), "mask_wide": _cost(_mask_wide),
-    "mask_general": _cost(_mask_general),
+    "mask_tall": _cost(_mask_wide), "mask_general": _cost(_mask_general),
     "apply": _cost(_apply), "apply_general": _cost(_apply_general),
     "clear": _cost(_clear), "clear_wide": _cost(_clear_wide),
-    "clear_general": _cost(_clear_general),
+    "clear_tall": _cost(_clear_wide), "clear_general": _cost(_clear_general),
     "legality": _cost(_legality), "legality_general": _cost(_legality_general),
-    "packed_apply": _cost(_packed_apply), "packed_mask": _cost(_packed_mask),
-    "packed_legal_words": _cost(_packed_mask),
+    **{f"packed_apply{s}": _cost(_packed_apply) for s in ("", "_tall", "_general")},
+    **{f"packed_{e}{s}": _cost(_packed_mask) for e in ("mask", "legal_words")
+       for s in ("", "_tall", "_general")},
     "deal": _cost(_deal), "uniform_legal": _cost(_uniform_legal),
     "words_select": _words_select,
 }
@@ -253,17 +258,14 @@ COSTS: Dict[str, Cost] = {
 def kernel_bounds(cfg, board, queue, cover, valid, words, attrs, r, c, outs) -> dict:
     """The bound of each kernel named in ``outs`` (kernel -> its outputs:
     a tensor or a tuple) on these inputs."""
-    inputs = {"mask": [board, queue], "mask_wide": [board, queue],
-              "mask_general": [board, queue],
-              "apply": [board, cover, valid],
-              "apply_general": [board, cover, valid], "clear": [board],
-              "clear_wide": [board], "clear_general": [board], "legality": [board],
-              "legality_general": [board],
+    inputs = {"mask": [board, queue], "apply": [board, cover, valid],
+              "clear": [board], "legality": [board],
               "packed_apply": [words, attrs, r, c, valid],
               "packed_mask": [words, queue], "packed_legal_words": [words, queue]}
     bounds = {}
     for k, out in outs.items():
+        args = inputs[k.removesuffix("_wide").removesuffix("_tall").removesuffix("_general")]
         out = list(out if isinstance(out, tuple) else (out,))
-        _, ops = COSTS[k](cfg, inputs[k], out)
-        bounds[k] = bound(inputs[k] + out, ops)
+        _, ops = COSTS[k](cfg, args, out)
+        bounds[k] = bound(args + out, ops)
     return bounds

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Measurements of the PyTorch + CUDA port on one card, beyond the smoke run.
 
-    python3 chip_measure.py [--parts build,train,rollout,kernels,words,general,draws]
+    python3 chip_measure.py [--parts build,train,rollout,kernels,words,general,draws,tall]
                             [--parent-csrc DIR]
 
 Needs one CUDA card and nvcc.  Prints the card's name and power limit,
-then, each line tagged with its part (all seven by default):
+then, each line tagged with its part (all eight by default):
 
   build     cold builds of ``kernels/csrc/*.cu`` in turns: one nvcc over
             all sources, then one nvcc per source started together and a
@@ -61,6 +61,22 @@ then, each line tagged with its part (all seven by default):
             library is freshly loaded; then the u8 clear-kernel step on that
             board with the wide kernels and with the general ones swapped
             in, in turns (``wide_step_turns``);
+  tall      the tall u8 mask and clear at N = 49152 on 33x9 and 40x40, each
+            in turns with the general kernel launched on the same inputs and
+            held bit-equal to it (``chip_smoke.tall_turns``); the u8
+            clear-kernel step on 33x9 with the tall and the general pair in
+            turns (``tall_step_turns``); the tall mask and clear at other
+            launch shapes than the wrapper's (one board a warp against its
+            turns; ``tall_turn_shapes``), in turns; the tall packed apply, mask and
+            words kernels on 33x9 and 36x9 with regions and the general
+            ones on 130x8, device and host-paced times; the default
+            (packed) step on 33x9 with each sampler as the ``rollout`` part
+            profiles the default preset's; with
+            ``--parent-csrc DIR``, the default preset's bit-row mask, clear,
+            packed apply and packed mask in turns with the earlier build's,
+            as the ``kernels`` part times them; then ``cli.rollout --env
+            height=33 --env width=9 --num-envs 49152 --steps 2000`` in this
+            process (the default engine: the tall packed kernels);
   draws     the three draw kernels (deal, as the step's 2S-wide draw and
             the S-wide reset deal, uniform_legal, words_select) at N =
             49152 on every packed preset, device times; with
@@ -215,17 +231,18 @@ def dqn_breakdown(card: str, argv) -> None:
 HAND_KERNELS = ("mask_rows_kernel", "mask_kernel", "apply_rows_kernel", "apply_kernel",
                 "clear_rows_kernel", "clear_kernel", "legality_rows_kernel",
                 "legality_kernel", "packed_apply_kernel", "packed_mask_kernel",
-                "packed_words_kernel")
+                "packed_words_kernel", "packed_apply_tall_kernel", "packed_mask_tall_kernel",
+                "packed_words_tall_kernel")
 # rollout -> (make_env arguments, the rollout's sampler)
 ENGINES = {"packed": ({}, "argmax"), "packed-words": ({}, "words"),
            "u8-pallas": ({"backend": "pallas"}, "argmax"),
            "u8-jnp": ({"backend": "jnp", "state_impl": "u8"}, "argmax")}
 
 
-def rollout_breakdown(card: str) -> None:
-    """Each engine's uniform-legal step at N = 49152, default preset (the
-    packed engine also with the words sampler): host time per step over 100
-    steps, then 20 steps under ``torch.profiler``."""
+def rollout_breakdown(card: str, cfg=None, engines=ENGINES, tag: str = "rollout") -> None:
+    """Each engine's uniform-legal step at N = 49152, default preset or
+    ``cfg`` (the packed engine also with the words sampler): host time per
+    step over 100 steps, then 20 steps under ``torch.profiler``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -233,8 +250,10 @@ def rollout_breakdown(card: str) -> None:
     from blockpuzzle_tpu_torch.sampler import UniformLegalSampler, WordsSampler
 
     n = chip_smoke.N_MAIN
-    for name, (kwargs, sampler_name) in ENGINES.items():
-        env = make_env(PRESETS["default"](), device="cuda", **kwargs)
+    cfg = cfg or PRESETS["default"]()
+    board = f"{cfg.height}x{cfg.width}"
+    for name, (kwargs, sampler_name) in engines.items():
+        env = make_env(cfg, device="cuda", **kwargs)
         state, ts = env.init(0, n)
         if sampler_name == "words":
             draw = WordsSampler(1, n, env.device)
@@ -256,26 +275,33 @@ def rollout_breakdown(card: str) -> None:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             steps(20)
         device = device_events(prof)
-        print(f"[rollout] {name} step, N={n}: {step_ms:.4f} ms per step ({card})")
+        print(f"[{tag}] {name} step, {board}, N={n}: {step_ms:.4f} ms per step ({card})")
         if not device:
-            print("[rollout] the profiler saw no device events: not measured")
+            print(f"[{tag}] the profiler saw no device events: not measured")
             continue
         busy = busy_us(device) / 20 / 1e3
-        print(f"[rollout] {name} profiled: {len(device) / 20:.1f} device kernels "
+        print(f"[{tag}] {name} profiled: {len(device) / 20:.1f} device kernels "
               f"per step, {sum(e.time_range.elapsed_us() for e in device) / 20e3:.4f}"
               f" ms device time, busy {busy:.4f} ms = {100 * busy / step_ms:.1f}% "
               "of an unprofiled step")
-        top_items(device, 20, "rollout", 8)
-        hand = [e for e in device if any(f"{k}(" in e.name for k in HAND_KERNELS)]
-        top_items(hand, 20, "rollout hand kernel", len(HAND_KERNELS))
+        top_items(device, 20, tag, 8)
+        hand = [e for e in device
+                if any(f"{k}(" in e.name or f"{k}<" in e.name for k in HAND_KERNELS)]
+        top_items(hand, 20, f"{tag} hand kernel", len(HAND_KERNELS))
 
 
-def wide_step_turns(card: str, steps: int = 20) -> None:
-    """The u8 clear-kernel step (``backend="jnp"``) on the 8x40 board at
-    N = 49152, uniform-legal draws, with the wide mask and clear the
-    wrappers pick and with the general mask and clear launched in their
-    place on the same inputs (``chip_smoke.general_calls``), in turns
-    general, wide, wide, general, one engine carrying its state through
+# the device kernel names of the u8 mask and clear, by kernel kind
+STEP_KERNEL_NAMES = {"wide": ("mask_wide_kernel<", "clear_wide_kernel<"),
+                     "tall": ("mask_tall_kernel<", "clear_tall_kernel<"),
+                     "general": ("::mask_kernel(", "::clear_kernel(")}
+
+
+def u8_step_turns(card: str, shape: dict, tag: str, steps: int = 20) -> None:
+    """The u8 clear-kernel step (``backend="jnp"``) on the board ``shape``
+    at N = 49152, uniform-legal draws, with the mask and clear the wrappers
+    pick (wide or tall) and with the general mask and clear launched in
+    their place on the same inputs (``chip_smoke.general_calls``), in turns
+    general, picked, picked, general, one engine carrying its state through
     all four: host ms a step over ``steps`` unprofiled steps, then
     ``steps`` steps under ``torch.profiler``: device kernels and device ms
     a step, and the mask's and the clear's device ms a step inside it."""
@@ -286,13 +312,12 @@ def wide_step_turns(card: str, steps: int = 20) -> None:
     from blockpuzzle_tpu_torch.config import EnvConfig
     from blockpuzzle_tpu_torch.sampler import UniformLegalSampler
 
-    n, cfg = chip_smoke.N_MAIN, EnvConfig(**chip_smoke.WIDE)
+    n, cfg = chip_smoke.N_MAIN, EnvConfig(**shape)
     env = make_env(cfg, device="cuda", backend="jnp", state_impl="u8")
-    kernels = {"wide": (env.mask_kernel, env.clear_kernel),
+    kind = env.mask_kernel.kind
+    kernels = {kind: (env.mask_kernel, env.clear_kernel),
                "general": chip_smoke.general_calls(cfg, env.mask_kernel, env.clear_kernel)}
-    # device kernel names: the mask's and the clear's, by kernel
-    names = {"wide": ("mask_wide_kernel<", "clear_wide_kernel<"),
-             "general": ("::mask_kernel(", "::clear_kernel(")}
+    board = f"{cfg.height}x{cfg.width}"
     state, ts = env.init(0, n)
     draw = UniformLegalSampler(1, n, env.device)
 
@@ -302,7 +327,7 @@ def wide_step_turns(card: str, steps: int = 20) -> None:
             state, ts = env.step(state, draw(ts.action_mask))
         torch.cuda.synchronize()
 
-    for which in ("general", "wide", "wide", "general"):
+    for which in ("general", kind, kind, "general"):
         env.mask_kernel, env.clear_kernel = kernels[which]
         run(5)                                             # warm-up
         t0 = time.perf_counter()
@@ -312,16 +337,122 @@ def wide_step_turns(card: str, steps: int = 20) -> None:
             run(steps)
         device = device_events(prof)
         if not device:
-            print("[general] the profiler saw no device events: not measured")
+            print(f"[{tag}] the profiler saw no device events: not measured")
             continue
         parts = [sum(e.time_range.elapsed_us() for e in device if key in e.name)
-                 / steps / 1e3 for key in names[which]]
-        print(f"[general] u8 jnp step, wide 8x40, N={n}, {which} mask and clear: "
+                 / steps / 1e3 for key in STEP_KERNEL_NAMES[which]]
+        print(f"[{tag}] u8 jnp step, {kind} {board}, N={n}, {which} mask and clear: "
               f"{step_ms:.4f} ms per step, {len(device) / steps:.2f} device kernels and "
               f"{sum(e.time_range.elapsed_us() for e in device) / steps / 1e3:.6f} ms "
               f"device time a step, mask {parts[0]:.6f} ms, clear {parts[1]:.6f} ms "
               f"({card})")
-    env.mask_kernel, env.clear_kernel = kernels["wide"]
+    env.mask_kernel, env.clear_kernel = kernels[kind]
+
+
+def wide_step_turns(card: str, steps: int = 20) -> None:
+    """``u8_step_turns`` on the 8x40 board: the wide mask and clear against
+    the general ones."""
+    u8_step_turns(card, chip_smoke.WIDE, "general", steps)
+
+
+def tall_step_turns(card: str, steps: int = 20) -> None:
+    """``u8_step_turns`` on 33x9: the tall mask and clear against the
+    general ones."""
+    u8_step_turns(card, chip_smoke.TALL, "tall", steps)
+
+
+def packed_tall_times(card: str) -> None:
+    """The packed kernels of boards of more than 32 rows at N = 49152 on
+    ``chip_smoke.kernel_inputs``' boards: the tall apply, mask and words
+    kernels on 33x9 and 36x9 with regions (a hand of three), the general
+    ones on 130x8; device times (``chip_smoke.cuda_ms``) and host-paced
+    times."""
+    import torch
+
+    from blockpuzzle_tpu_torch.config import EnvConfig
+    from blockpuzzle_tpu_torch.kernels import PackedApplyKernel, PackedMaskKernel
+    from blockpuzzle_tpu_torch.kernels.packed import pack_words
+
+    n, dev = chip_smoke.N_MAIN, torch.device("cuda")
+    for name, shape in (("33x9", chip_smoke.TALL), ("36x9r3", chip_smoke.TALL36R3),
+                        ("130x8", chip_smoke.HUGE)):
+        cfg = EnvConfig(**shape)
+        pak, pmk = PackedApplyKernel(cfg, dev), PackedMaskKernel(cfg, dev)
+        board, queue, _, valid, attrs, r, c = (
+            torch.as_tensor(x, device=dev) for x in chip_smoke.kernel_inputs(cfg, n, seed=0))
+        words = pack_words(board.view(n, cfg.height, cfg.width))
+        calls = {pak.name: lambda: pak(words, attrs, r, c, valid),
+                 pmk.name: lambda: pmk(words, queue),
+                 pmk.words_name: lambda: pmk.words(words, queue)}
+        for k, fn in calls.items():
+            print(f"[tall] {k} {name} N={n}: device {chip_smoke.cuda_ms(fn):.6f} ms, "
+                  f"host-paced {chip_smoke.host_paced_ms(fn):.6f} ms ({card})")
+
+
+def tall_turn_shapes(card: str, rounds: int = 3) -> None:
+    """The tall mask and clear on 33x9 and on 36x9 with regions (a hand of
+    three) at N = 49152, launched through their C entries at launch shapes
+    (boards a warp, warps a block) other than the wrapper's: one board a
+    warp against the turns ``kernels/packed.py`` ``tall_launch_shape``
+    picks, held bit-equal to the wrapper's output and timed in turns for
+    ``rounds`` rounds."""
+    import torch
+
+    from blockpuzzle_tpu_torch.config import EnvConfig
+    from blockpuzzle_tpu_torch.kernels import ClearScanKernel, MaskKernel, _build
+
+    n, dev, lib = chip_smoke.N_MAIN, torch.device("cuda"), _build.library()
+    for shape in (chip_smoke.TALL, chip_smoke.TALL36R3):
+        cfg = EnvConfig(**shape)
+        mk, ck = MaskKernel(cfg, dev), ClearScanKernel(cfg, dev)
+        board, queue = (torch.as_tensor(x, device=dev)
+                        for x in chip_smoke.kernel_inputs(cfg, n, seed=0)[:2])
+        want_mask, want_clear = mk(board, queue), ck(board)
+        region = cfg.region_size if cfg.region_clear else 0
+
+        def mask(launch):
+            out = torch.empty_like(want_mask)
+            _build.check(lib.bp_mask_tall(
+                board.data_ptr(), queue.data_ptr(), mk.piece_table.data_ptr(),
+                out.data_ptr(), n, cfg.height, cfg.width, cfg.queue_size, mk.num_pieces,
+                mk.max_h, mk.max_w, *launch, torch.cuda.current_stream().cuda_stream),
+                "bp_mask_tall")
+            return out
+
+        def clear(launch):
+            out = torch.empty_like(board)
+            k = torch.empty(n, dtype=torch.int32, device=dev)
+            _build.check(lib.bp_clear_tall(
+                board.data_ptr(), out.data_ptr(), k.data_ptr(), n, cfg.height, cfg.width,
+                region, *launch, torch.cuda.current_stream().cuda_stream), "bp_clear_tall")
+            return out, k
+
+        launches = ((1, 16), mk.shape, (2, 16), (4, 8))
+        for launch in launches:
+            if not torch.equal(mask(launch), want_mask) or not all(
+                    torch.equal(a, b) for a, b in zip(clear(launch), want_clear)):
+                raise AssertionError(f"tall kernels at {launch} != the wrapper's")
+        times = {}
+        for _ in range(rounds):
+            for launch in launches:
+                for k, fn in (("mask_tall", mask), ("clear_tall", clear)):
+                    times.setdefault((k, launch), []).append(
+                        chip_smoke.cuda_ms(lambda: fn(launch)))
+        for (k, launch), ts in times.items():
+            print(f"[tall] {k} {cfg.height}x{cfg.width} N={n}, {launch[0]} boards a warp, "
+                  f"{launch[1]} warps a block{' (the wrapper' + chr(39) + 's)' if launch == mk.shape else ''}"
+                  f", in turns, device ms: {', '.join(f'{t:.6f}' for t in ts)} ({card})")
+
+
+def tall_rollout_rate(card: str) -> None:
+    """``cli.rollout --env height=33 --env width=9 --num-envs 49152`` (the
+    default, packed engine through the tall kernels), in this process."""
+    from blockpuzzle_tpu_torch.cli import rollout
+
+    print(f"[tall] cli.rollout --env height=33 --env width=9 --num-envs {chip_smoke.N_MAIN} "
+          f"({card}):", flush=True)
+    rollout.main(["--env", "height=33", "--env", "width=9", "--num-envs",
+                  str(chip_smoke.N_MAIN), "--steps", "2000"])
 
 
 def top_items(device, per: int, tag: str, k: int) -> None:
@@ -551,7 +682,11 @@ def parent_calls(lib, cfg, mk, ck, pak, pmk):
             "packed_apply": apply, "packed_mask": packed_mask}
 
 
-def kernel_turns(card: str, parent_csrc) -> None:
+def kernel_turns(card: str, parent_csrc, presets=chip_smoke.PACKED_PRESETS,
+                 only=None) -> None:
+    """The kernels of ``presets`` (all, or the names in ``only``) timed as
+    the ``kernels`` part says, in turns with ``parent_csrc``'s where it is
+    given."""
     import torch
 
     from blockpuzzle_tpu_torch.config import PRESETS
@@ -566,7 +701,7 @@ def kernel_turns(card: str, parent_csrc) -> None:
         print(f"[kernels] current ptxas: {line}")
     lib = parent_library(pathlib.Path(parent_csrc)) if parent_csrc else None
     n, dev = chip_smoke.N_MAIN, torch.device("cuda")
-    for name in chip_smoke.PACKED_PRESETS:
+    for name in presets:
         cfg = PRESETS[name]()
         mk, ck = MaskKernel(cfg, dev), ClearScanKernel(cfg, dev)
         ak, lk = ApplyKernel(cfg, dev), LegalityKernel(cfg, dev)
@@ -581,6 +716,8 @@ def kernel_turns(card: str, parent_csrc) -> None:
                    "packed_apply": lambda: pak(*args),
                    "packed_mask": lambda: pmk(words, queue),
                    "packed_legal_words": lambda: pmk.words(words, queue)}
+        if only is not None:
+            current = {k: f for k, f in current.items() if k in only}
         earlier = {}
         if lib is not None:
             calls = parent_calls(lib, cfg, mk, ck, pak, pmk)
@@ -590,6 +727,7 @@ def kernel_turns(card: str, parent_csrc) -> None:
                        "legality": lambda: calls["legality"](board),
                        "packed_apply": lambda: calls["packed_apply"](*args),
                        "packed_mask": lambda: calls["packed_mask"](words, queue)}
+            earlier = {k: f for k, f in earlier.items() if k in current}
             for k in earlier:  # the words entry has no earlier counterpart here
                 got, want = current[k](), earlier[k]()
                 got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
@@ -680,7 +818,7 @@ def draw_turns(card: str, parent_csrc) -> None:
         raise SystemExit("chip_measure: the earlier sources have no draw kernels")
     n, dev = chip_smoke.N_MAIN, torch.device("cuda")
     ul, ws = UniformLegalKernel(dev), WordsSelectKernel(dev)
-    for name in chip_smoke.PACKED_PRESETS:
+    for name in presets:
         cfg = PRESETS[name]()
         dk = DealKernel(rules.tables_for(cfg).num_pieces, dev)
         key, counter, mask, words = chip_smoke.draw_inputs(cfg, n, 0)
@@ -711,7 +849,7 @@ def draw_turns(card: str, parent_csrc) -> None:
           f"{', '.join(f'{f:.6f}' for f in floors)} ({card})")
 
 
-PARTS = ("build", "train", "rollout", "kernels", "words", "general", "draws")
+PARTS = ("build", "train", "rollout", "kernels", "words", "general", "draws", "tall")
 
 
 def main(argv=None) -> int:
@@ -751,6 +889,19 @@ def main(argv=None) -> int:
         wide_step_turns(card)
     if "draws" in parts:
         draw_turns(card, args.parent_csrc)
+    if "tall" in parts:
+        chip_smoke.tall_turns(card, "tall")
+        tall_turn_shapes(card)
+        tall_step_turns(card)
+        packed_tall_times(card)
+        from blockpuzzle_tpu_torch.config import EnvConfig
+
+        rollout_breakdown(card, EnvConfig(**chip_smoke.TALL),
+                          {k: ENGINES[k] for k in ("packed", "packed-words")}, "tall")
+        if args.parent_csrc:
+            kernel_turns(card, args.parent_csrc, presets=("default",),
+                         only=("mask", "clear", "packed_apply", "packed_mask"))
+        tall_rollout_rate(card)
     print(f"[done] {card}")
     return 0
 

@@ -9,8 +9,8 @@ which raises on failure (non-zero exit, no result line):
 
   0. card name and power limit, torch/CUDA versions, compute capability,
      kernel build time;
-  1. each of the sixteen kernels against its plain torch version on the
-     card, bit-equal, at N = 49152 and a ragged N = 49151: the three draws
+  1. each of the twenty-four kernels against its plain torch version on
+     the card, bit-equal, at N = 49152 and a ragged N = 49151: the three draws
      (deal, uniform_legal, words_select: ``kernels/draws.py``) on the four
      presets, at per-env counters that wrap negative and at shared ones
      up to 2**32 - 1, on the masks and legal words of the boards below
@@ -26,38 +26,56 @@ which raises on failure (non-zero exit, no result line):
      rows of two words) and the general apply and legality
      (apply_general, legality_general); the wide mask and clear also on
      8x33, 6x64, 4x128, 8x100 and 9x36 with 3x3 regions (``WIDE_CASES``);
-     the general mask, clear, apply and legality on a board of 33 rows of
-     9 cells (``TALL``); an illegal action on a board holding a full line
-     through the u8 apply kernel of the presets and of the wide and tall
-     boards and the packed one; then each kernel's device time (CUDA
+     on boards of more than 32 rows (``phase1_tall``), the tall packed
+     kernels (packed_apply_tall, packed_mask_tall, packed_legal_words_tall:
+     a warp a board) on 33x9, 36x9 with 3x3 regions across the lane seam
+     and a hand of three, 64x8 and 128x10 (``TALL_PACKED_CASES``), the
+     tall u8 mask and clear (mask_tall, clear_tall) on 33x9, 36x9 with
+     regions, 40x40 and 33x128 (``TALL_U8_CASES``; the plain u8 mask in
+     chunks of envs there), the packed mask also against the u8 one on
+     the unpacked boards, and the general kernels of both engines
+     (mask_general, clear_general, apply_general, legality_general,
+     packed_apply_general, packed_mask_general, packed_legal_words_general)
+     on 130x8 (``HUGE``); an illegal action on a board holding a full line
+     through the u8 apply kernel of the presets and of the wide board and
+     through every packed apply; then each kernel's device time (CUDA
      events over 50 launches queued behind a spin kernel, so the host's
      launch time does not enter) beside its bound (``utils/bounds.py``)
      and the plain version's time (50 calls made as the host goes), at N
      = 49152 on the default preset (the wide kernels, apply_general and
-     legality_general on the wide board, mask_general and clear_general
-     on the tall one), and the launch floor (an empty launch's device
-     time) beside the deal's; then the wide board's kernels timed in turns
-     for 5 rounds, with the general mask and clear launched directly on
-     the same inputs and held bit-equal to the wide ones (``wide_turns``);
+     legality_general on the wide board, the tall ones on 33x9, the other
+     general ones on 130x8), and the launch floor (an empty launch's
+     device time) beside the deal's; then the wide board's kernels timed
+     in turns for 5 rounds, with the general mask and clear launched
+     directly on the same inputs and held bit-equal to the wide ones
+     (``wide_turns``), and the tall mask and clear likewise on 33x9 and
+     40x40 (``tall_turns``);
      then the default packed rollout (N = 49152, 64 steps) through the
      draw kernels and with their plain versions swapped in, with the
      argmax and the words sampler (the paths ``draws_argmax`` and
      ``draws_words``): actions, rewards, done flags and final states
      bit-equal;
   2. the whole rollout on CUDA and on CPU from one seed (N = 1024, 64
-     steps, live deals, auto-reset) on the packed engine (every preset)
-     and on the u8 apply-kernel (``backend="pallas"``) and clear-kernel
-     (``backend="jnp"``) steps (every preset, the wide board, where the
+     steps, live deals, auto-reset) on the default engine, packed wherever
+     W <= 32 (every preset; 33x9 and 36x9 with regions through the tall
+     packed kernels, the paths ``tall_packed`` and ``tall36r3_packed``;
+     64x8 and 128x10, ``tall64_packed`` and ``tall128_packed``; 130x8
+     through the general ones, ``huge_packed``, N = 256, 32 steps) and on
+     the u8 apply-kernel (``backend="pallas"``) and clear-kernel
+     (``backend="jnp"``) steps (every preset; the wide board, where the
      wide mask and clear and the general apply run: the paths
-     ``wide_u8_pallas`` and ``wide_u8_jnp``, and the tall board, where the
-     general mask, apply and clear run: ``tall_u8_pallas`` and
-     ``tall_u8_jnp``; counters set to 0 before each and read after it):
-     final states and summed rewards bit-equal across devices and across
-     the engines, each kernel of an engine launched exactly once per step
-     and every other kernel never; then ``legal_all_pieces`` on the final
-     boards against its plain version and the hand mask (on the wide and
-     tall boards the general legality: the paths
-     ``wide_legal_all_pieces`` and ``tall_legal_all_pieces``);
+     ``wide_u8_pallas`` and ``wide_u8_jnp``; 33x9, where the tall mask and
+     clear and the general apply run: ``tall_u8_pallas``, ``tall_u8_jnp``;
+     36x9 with regions, ``tall36r3_u8_jnp``; 130x8, the general mask,
+     apply and clear: ``huge_u8_pallas``, ``huge_u8_jnp``), counters set to
+     0 before each and read after it: final states and summed rewards
+     bit-equal across devices and across the engines, each kernel of an
+     engine launched exactly once per step and every other kernel never;
+     then ``legal_all_pieces`` on the final boards against its plain
+     version and the hand mask (the general legality beyond the presets:
+     the paths ``<board>_legal_all_pieces``); then the words rollout on
+     33x9, 36x9 with regions and 130x8 on CUDA against the CPU (the paths
+     ``tall_words``, ``tall36r3_words``, ``huge_words``);
   3. the rollout paths: the rollout entry point at N = 49152 on the
      default preset, one warm-up chunk then 5 timed windows of 400 steps,
      on the default (packed) engine and on the apply-kernel step; then the
@@ -194,8 +212,21 @@ WIDE_CASES = {"8x33": dict(height=8, width=33), "6x64": dict(height=6, width=64)
               "8x100": dict(height=8, width=100),
               "9x36r3": dict(height=9, width=36, region_clear=True, region_size=3,
                              queue_size=3)}
-# a u8 board of more than 32 rows: the general u8 kernels
+# boards of more than 32 rows: the tall kernels (a warp a board, rows
+# l + 32 j in lane l), the packed engine's by default (W <= 32) and the u8
+# mask and clear; the general apply and legality
 TALL = dict(height=33, width=9)
+TALL36R3 = dict(height=36, width=9, region_clear=True, region_size=3, queue_size=3)
+# the boards phase 1 holds the tall kernels on (tests/test_torch_tall.py):
+# packed on two, three and four slots a lane, with 3x3 regions across the
+# lane seam (rows 30..32) and a hand of three; u8 on one, two and four words
+# a row (40x40: the JAX engine's u8 default there)
+TALL_PACKED_CASES = {"33x9": TALL, "36x9r3": TALL36R3, "64x8": dict(height=64, width=8),
+                     "128x10": dict(height=128, width=10)}
+TALL_U8_CASES = {"33x9": TALL, "36x9r3": TALL36R3, "40x40": dict(height=40, width=40),
+                 "33x128": dict(height=33, width=128)}
+# a board of more than 128 rows: the general kernels of both engines
+HUGE = dict(height=130, width=8)
 # kernel -> (source, the TPU kernel or jnp code it replaces, the path its
 # launches are read from)
 KERNEL_INFO = {
@@ -203,8 +234,10 @@ KERNEL_INFO = {
              "blockpuzzle_tpu/kernels/mask.py:85", "rollout_pallas"),
     "mask_wide": ("blockpuzzle_tpu_torch/kernels/csrc/mask.cu",
                   "blockpuzzle_tpu/kernels/mask.py:85", "wide_u8_pallas"),
+    "mask_tall": ("blockpuzzle_tpu_torch/kernels/csrc/mask.cu",
+                  "blockpuzzle_tpu/kernels/mask.py:85", "tall_u8_pallas"),
     "mask_general": ("blockpuzzle_tpu_torch/kernels/csrc/mask.cu",
-                     "blockpuzzle_tpu/kernels/mask.py:85", "tall_u8_pallas"),
+                     "blockpuzzle_tpu/kernels/mask.py:85", "huge_u8_pallas"),
     "apply": ("blockpuzzle_tpu_torch/kernels/csrc/collision.cu",
               "blockpuzzle_tpu/kernels/collision.py:164", "rollout_pallas"),
     "apply_general": ("blockpuzzle_tpu_torch/kernels/csrc/collision.cu",
@@ -213,8 +246,10 @@ KERNEL_INFO = {
               "blockpuzzle_tpu/kernels/clear.py:93", "train_u8"),
     "clear_wide": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
                    "blockpuzzle_tpu/kernels/clear.py:93", "wide_u8_jnp"),
+    "clear_tall": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
+                   "blockpuzzle_tpu/kernels/clear.py:93", "tall_u8_jnp"),
     "clear_general": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
-                      "blockpuzzle_tpu/kernels/clear.py:93", "tall_u8_jnp"),
+                      "blockpuzzle_tpu/kernels/clear.py:93", "huge_u8_jnp"),
     "legality": ("blockpuzzle_tpu_torch/kernels/csrc/legality.cu",
                  "blockpuzzle_tpu/kernels/collision.py:50", "legal_all_pieces"),
     "legality_general": ("blockpuzzle_tpu_torch/kernels/csrc/legality.cu",
@@ -226,6 +261,18 @@ KERNEL_INFO = {
                     "blockpuzzle_tpu/env/core.py:489", "rollout"),
     "packed_legal_words": ("blockpuzzle_tpu_torch/kernels/csrc/packed_mask.cu",
                            "blockpuzzle_tpu/env/words.py:78", "rollout_words"),
+    "packed_apply_tall": ("blockpuzzle_tpu_torch/kernels/csrc/packed_tall.cu",
+                          "blockpuzzle_tpu/env/core.py:962", "tall_packed"),
+    "packed_mask_tall": ("blockpuzzle_tpu_torch/kernels/csrc/packed_tall.cu",
+                         "blockpuzzle_tpu/env/core.py:489", "tall_packed"),
+    "packed_legal_words_tall": ("blockpuzzle_tpu_torch/kernels/csrc/packed_tall.cu",
+                                "blockpuzzle_tpu/env/words.py:78", "tall_words"),
+    "packed_apply_general": ("blockpuzzle_tpu_torch/kernels/csrc/packed_tall.cu",
+                             "blockpuzzle_tpu/env/core.py:962", "huge_packed"),
+    "packed_mask_general": ("blockpuzzle_tpu_torch/kernels/csrc/packed_tall.cu",
+                            "blockpuzzle_tpu/env/core.py:489", "huge_packed"),
+    "packed_legal_words_general": ("blockpuzzle_tpu_torch/kernels/csrc/packed_tall.cu",
+                                   "blockpuzzle_tpu/env/words.py:78", "huge_words"),
     "deal": ("blockpuzzle_tpu_torch/kernels/csrc/draws.cu",
              "blockpuzzle_tpu/env/core.py:317", "rollout"),
     "uniform_legal": ("blockpuzzle_tpu_torch/kernels/csrc/draws.cu", "bench.py:161",
@@ -233,8 +280,8 @@ KERNEL_INFO = {
     "words_select": ("blockpuzzle_tpu_torch/kernels/csrc/draws.cu",
                      "blockpuzzle_tpu/env/words.py:43", "rollout_words"),
 }
-NO_PALLAS_SOURCE = ("packed_apply", "packed_mask", "packed_legal_words", "deal",
-                    "uniform_legal", "words_select")
+NO_PALLAS_SOURCE = ("deal", "uniform_legal", "words_select") + tuple(
+    k for k in KERNEL_INFO if k.startswith("packed_"))
 # the draws: the deal once a step and once an ``init`` on every engine path,
 # a sampler's kernel once a call
 DRAWS = ("deal", "uniform_legal", "words_select")
@@ -268,17 +315,21 @@ def kernel_counters(env) -> dict:
             "words_select": (words, "launches"),
             "mask": (env.mask_kernel, "launches"),
             "mask_wide": (env.mask_kernel, "wide_launches"),
+            "mask_tall": (env.mask_kernel, "tall_launches"),
             "mask_general": (env.mask_kernel, "general_launches"),
             "apply": (env.apply_kernel, "launches"),
             "apply_general": (env.apply_kernel, "general_launches"),
             "clear": (env.clear_kernel, "launches"),
             "clear_wide": (env.clear_kernel, "wide_launches"),
+            "clear_tall": (env.clear_kernel, "tall_launches"),
             "clear_general": (env.clear_kernel, "general_launches"),
             "legality": (env.legal_kernel, "launches"),
             "legality_general": (env.legal_kernel, "general_launches"),
-            "packed_apply": (env.packed_apply_kernel, "launches"),
-            "packed_mask": (env.packed_mask_kernel, "launches"),
-            "packed_legal_words": (env.packed_mask_kernel, "words_launches")}
+            **{f"packed_{k}{s}": (getattr(env, f"packed_{k}_kernel"), f"{s[1:]}_launches"
+                                   if s else "launches")
+               for k in ("apply", "mask") for s in ("", "_tall", "_general")},
+            **{f"packed_legal_words{s}": (env.packed_mask_kernel, f"words{s}_launches")
+               for s in ("", "_tall", "_general")}}
 
 
 def zero_counts(env) -> None:
@@ -409,6 +460,10 @@ def kernel_inputs(cfg, n: int, seed: int):
     if cfg.region_clear and cfg.width > 32 and 32 % size:
         c0 = 32 // size * size                        # a full region across
         grid[5::7, :size, c0 : c0 + size] = 1         # two row words
+    if cfg.height > 32:                               # at the lane seam: full
+        grid[5::7, 31, :] = 1                         # rows 31 and 32, a full
+        grid[6::7, 32, :] = 1                         # region on rows 30..32
+        grid[3::7, 30:33, 0:3] = 1
     queue = rs.integers(0, t.num_pieces + 1, (n, cfg.queue_size)).astype(np.int32)
     g = rs.integers(0, t.cover.shape[0], n)           # random (piece, anchor)
     g[2::7] = r4 * cfg.width                          # 1x1 at (4, 0): clears
@@ -449,18 +504,46 @@ def u8_kernel_names(cfg) -> tuple:
     """The u8 mask, clear, apply and legality kernels the wrappers pick on
     ``cfg``: the bit-row kernels where H <= 32 and W <= 32, the wide mask
     and clear with the general apply and legality where H <= 32 and
-    32 < W <= 128, the general kernels elsewhere."""
+    32 < W <= 128, the tall mask and clear with the general apply and
+    legality where 32 < H <= 128 and W <= 128, the general kernels
+    elsewhere."""
     if cfg.height <= 32 and cfg.width <= 32:
         return "mask", "clear", "apply", "legality"
     if cfg.height <= 32 and cfg.width <= 128:
         return "mask_wide", "clear_wide", "apply_general", "legality_general"
+    if cfg.height <= 128 and cfg.width <= 128:
+        return "mask_tall", "clear_tall", "apply_general", "legality_general"
     return "mask_general", "clear_general", "apply_general", "legality_general"
 
 
-def picked(k) -> str:
-    """The suffix of the kernel a u8 wrapper picked: "", "_wide" or
-    "_general"."""
-    return "_general" if k.shape is None else "_wide" if getattr(k, "wide", False) else ""
+def packed_kernel_names(cfg) -> tuple:
+    """The packed mask, apply and words kernels the wrappers pick on
+    ``cfg`` (W <= 32): the bit-row kernels where H <= 32, the tall ones
+    where H <= 128, the general ones above."""
+    s = "" if cfg.height <= 32 else "_tall" if cfg.height <= 128 else "_general"
+    return f"packed_mask{s}", f"packed_apply{s}", f"packed_legal_words{s}"
+
+
+def chunked(fn, *args, rows: int):
+    """``fn`` (a plain version) on ``rows`` envs of ``args`` at a time, the
+    results joined: the u8 mask's plain version multiplies by a (HW,
+    P*HW) table, whose product takes gigabytes at N = 49152 on the larger
+    boards."""
+    import torch
+
+    n = args[0].shape[0]
+    parts = [fn(*(a[i : i + rows] for a in args)) for i in range(0, n, rows)]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(p) for p in zip(*parts))
+    return torch.cat(parts)
+
+
+def plain_rows(cfg) -> int:
+    """Envs a chunk of the plain u8 mask (``chunked``): about 1e8 float32
+    products a chunk."""
+    from blockpuzzle_tpu_torch import rules
+
+    return max(256, int(1e8 // (rules.tables_for(cfg).num_pieces * cfg.num_cells)))
 
 
 def phase1(card: str) -> dict:
@@ -481,21 +564,19 @@ def phase1(card: str) -> dict:
     configs = {name: PRESETS[name]() for name in PACKED_PRESETS}
     configs["wide"] = EnvConfig(**WIDE)
     configs.update({name: EnvConfig(**shape) for name, shape in WIDE_CASES.items()})
-    configs["tall"] = EnvConfig(**TALL)
     # the boards whose kernels are timed at N_MAIN (the apply and legality
-    # on the wide board only), and the board each kernel's line names
+    # on the wide board only), and the board each kernel's line names; the
+    # boards of more than 32 rows in ``phase1_tall``
     timed = {"default": ("mask", "clear", "apply", "legality"),
-             "wide": ("mask_wide", "clear_wide", "apply_general", "legality_general"),
-             "tall": ("mask_general", "clear_general")}
-    where = {"default": "default", "wide": "wide 8x40", "tall": "tall 33x9"}
+             "wide": ("mask_wide", "clear_wide", "apply_general", "legality_general")}
+    where = {"default": "default", "wide": "wide 8x40"}
     for name, cfg in configs.items():
         packed = name in PACKED_PRESETS
         full = packed or name in timed   # the apply and legality held too
         mask_name, clear_name, apply_name, legal_name = u8_kernel_names(cfg)
         mk, ck = MaskKernel(cfg, dev), ClearScanKernel(cfg, dev)
         ak, lk = (ApplyKernel(cfg, dev), LegalityKernel(cfg, dev)) if full else (None, None)
-        got = [k + picked(w) for k, w in zip(("mask", "clear", "apply", "legality"),
-                                             (mk, ck, ak, lk)) if w is not None]
+        got = [w.name for w in (mk, ck, ak, lk) if w is not None]
         if got != [mask_name, clear_name, apply_name, legal_name][: len(got)]:
             raise AssertionError(f"{name}: the wrappers picked {got}")
         if packed:
@@ -588,6 +669,7 @@ def phase1(card: str) -> dict:
                              {k: f() for k, (f, _) in calls.items()})
         bounds.update({k: dict(b, where=where[name]) for k, b in here.items()})
         times.update({k: (cuda_ms(f), host_paced_ms(g)) for k, (f, g) in calls.items()})
+    phase1_tall(errs, times, bounds)
     phase1_draws(errs, times, bounds, card)
     for k, (ms, plain_ms) in times.items():
         b = bounds[k]
@@ -596,11 +678,129 @@ def phase1(card: str) -> dict:
               f"({b['bytes']} B, {b['ops']:.0f} ops), {100 * b['bound_ms'] / ms:.1f}% "
               f"of it ({card})")
     print("[phase1] illegal action on a full-line board: strict no-op (apply, "
-          "apply_general on the wide and tall boards, packed_apply)")
+          "apply_general on the wide board, packed_apply, packed_apply_tall, "
+          "packed_apply_general)")
     wide_turns(card, "phase1")
+    tall_turns(card, "phase1")
     return {k: {"max_abs_err": errs[k], "ms": times[k][0], "plain_ms": times[k][1],
                 "bound_ms": bounds[k]["bound_ms"], "bound_by": bounds[k]["bound_by"],
                 "library_ms": None} for k in errs}
+
+
+def phase1_tall(errs: dict, times: dict, bounds: dict) -> None:
+    """Phase 1 on boards of more than 32 rows: the tall packed kernels
+    (``TALL_PACKED_CASES``) and the tall u8 mask and clear
+    (``TALL_U8_CASES``) against their plain versions at N = 49152 and
+    49151, the packed mask also against the u8 mask on the unpacked boards
+    and its words against itself packed to words, and an illegal action on
+    a full line through the tall packed apply; then the general kernels of
+    both engines likewise on ``HUGE`` (130 rows), with the general apply
+    and legality.  Times the tall kernels on 33x9 and the general ones on
+    130x8 at N = 49152 into ``times`` and ``bounds``."""
+    import torch
+
+    from blockpuzzle_tpu_torch.config import EnvConfig
+    from blockpuzzle_tpu_torch.env.words import pack_bool_mask
+    from blockpuzzle_tpu_torch.kernels import (
+        ApplyKernel, ClearScanKernel, LegalityKernel, MaskKernel,
+        PackedApplyKernel, PackedMaskKernel,
+    )
+    from blockpuzzle_tpu_torch.kernels.packed import pack_words
+    from blockpuzzle_tpu_torch.utils.bounds import kernel_bounds
+
+    dev = torch.device("cuda")
+    boards = {name: EnvConfig(**shape)
+              for name, shape in {**TALL_PACKED_CASES, **TALL_U8_CASES}.items()}
+    boards["130x8"] = EnvConfig(**HUGE)
+    for name, cfg in boards.items():
+        u8 = name in TALL_U8_CASES or name == "130x8"
+        packed = cfg.width <= 32
+        huge = name == "130x8"
+        mask_name, clear_name, apply_name, legal_name = u8_kernel_names(cfg)
+        pmask_name, papply_name, pwords_name = packed_kernel_names(cfg)
+        if u8:
+            mk, ck = MaskKernel(cfg, dev), ClearScanKernel(cfg, dev)
+            if (mk.name, ck.name) != (mask_name, clear_name):
+                raise AssertionError(f"{name}: the u8 wrappers picked {mk.name}, {ck.name}")
+            rows = plain_rows(cfg)
+        if huge:
+            ak, lk = ApplyKernel(cfg, dev), LegalityKernel(cfg, dev)
+        if packed:
+            pak, pmk = PackedApplyKernel(cfg, dev), PackedMaskKernel(cfg, dev)
+            if (pmk.name, pak.name, pmk.words_name) != (pmask_name, papply_name,
+                                                        pwords_name):
+                raise AssertionError(f"{name}: the packed wrappers picked {pmk.name}, "
+                                     f"{pak.name}, {pmk.words_name}")
+        for n in (N_MAIN, N_MAIN - 1):
+            board, queue, cover, valid, attrs, r, c = (
+                torch.as_tensor(x, device=dev) for x in kernel_inputs(cfg, n, seed=n))
+            what = f"{name}, N={n}"
+            line = f"[phase1] {what}:"
+            if u8:
+                mask = mk(board, queue)
+                check_equal([mask], [chunked(mk.plain, board, queue, rows=rows)], what,
+                            errs, mask_name)
+                cleared = ck(board)
+                check_equal(cleared, chunked(ck.plain, board, rows=rows), what, errs,
+                            clear_name)
+                line += (f" {mask_name} legal share {float(mask.float().mean()):.4f}, "
+                         f"{clear_name} k {int(cleared[1].sum())}")
+            if huge:
+                outs = ak(board, cover, valid)
+                check_equal(outs, ak.plain(board, cover, valid), what, errs, apply_name)
+                legal_all = lk(board)
+                check_equal([legal_all], [chunked(lk.plain, board, rows=rows)], what,
+                            errs, legal_name)
+                line += f", {apply_name} legal {int(outs[2].sum())}, {legal_name} == plain"
+            if u8:
+                line += ": u8 kernels == plain (bit-equal)"
+            if packed:
+                words = pack_words(board.view(n, cfg.height, cfg.width))
+                pmask = pmk(words, queue)
+                check_equal([pmask], [pmk.plain(words, queue)], what, errs, pmask_name)
+                pouts = pak(words, attrs, r, c, valid)
+                check_equal(pouts, pak.plain(words, attrs, r, c, valid), what, errs,
+                            papply_name)
+                pwords = pmk.words(words, queue)
+                check_equal([pwords], [pmk.plain_words(words, queue)], what, errs,
+                            pwords_name)
+                if not torch.equal(pwords, pack_bool_mask(pmask, cfg.height, cfg.width,
+                                                          cfg.queue_size)):
+                    raise AssertionError(f"{pwords_name} != the packed mask's words ({what})")
+                if u8 and not torch.equal(pmask, mask):
+                    raise AssertionError(f"{pmask_name} != {mask_name} ({what})")
+                if int(pouts[1].sum()) == 0 or not bool(pouts[2].any()):
+                    raise AssertionError(f"{papply_name} cleared nothing ({what})")
+                line += (f"{';' if u8 else ''} {pmask_name} legal share "
+                         f"{float(pmask.float().mean()):.4f}, "
+                         f"{papply_name} legal {int(pouts[2].sum())}, lines cleared "
+                         f"{int(pouts[1].sum())}: packed kernels == plain (bit-equal), "
+                         f"{pwords_name} == the packed mask packed to words"
+                         + (", the packed mask == the u8 mask" if u8 else ""))
+                b2, _, v2, a2, r2, col2 = (
+                    torch.as_tensor(x, device=dev) for x in illegal_on_full_line(cfg, n))
+                w2 = pack_words(b2.view(n, cfg.height, cfg.width))
+                nb, k2, l2 = pak(w2, a2, r2, col2, v2)
+                if bool(l2.any()) or int(k2.sum()) or not torch.equal(nb, w2):
+                    raise AssertionError(f"illegal action changed a board ({what})")
+            print(line)
+        if name not in ("33x9", "130x8"):
+            continue
+        board, queue, cover, valid, attrs, r, c = (
+            torch.as_tensor(x, device=dev) for x in kernel_inputs(cfg, N_MAIN, seed=0))
+        words = pack_words(board.view(N_MAIN, cfg.height, cfg.width))
+        args = (words, attrs, r, c, valid)
+        calls = {mask_name: (lambda: mk(board, queue), lambda: mk.plain(board, queue)),
+                 clear_name: (lambda: ck(board), lambda: ck.plain(board)),
+                 papply_name: (lambda: pak(*args), lambda: pak.plain(*args)),
+                 pmask_name: (lambda: pmk(words, queue), lambda: pmk.plain(words, queue)),
+                 pwords_name: (lambda: pmk.words(words, queue),
+                               lambda: pmk.plain_words(words, queue))}
+        here = kernel_bounds(cfg, board, queue, cover, valid, words, attrs, r, c,
+                             {k: f() for k, (f, _) in calls.items()})
+        label = f"{'tall' if name == '33x9' else 'huge'} {name}"
+        bounds.update({k: dict(b, where=label) for k, b in here.items()})
+        times.update({k: (cuda_ms(f), host_paced_ms(g)) for k, (f, g) in calls.items()})
 
 
 def draw_inputs(cfg, n: int, seed: int):
@@ -870,6 +1070,55 @@ def wide_turns(card: str, tag: str, rounds: int = 5) -> None:
               f"{general / wide:.2f}x ({card})")
 
 
+def tall_turns(card: str, tag: str, rounds: int = 5) -> dict:
+    """The tall mask and clear at N = 49152 on 33x9 and on 40x40 (the JAX
+    engine's u8 default there), each beside the general kernel it replaces
+    launched directly on the same inputs (``general_calls``), held
+    bit-equal to it, then all four timed by ``cuda_ms`` in turns for
+    ``rounds`` rounds; prints each kernel's times with their median and
+    each tall kernel's median beside the general one's.  Returns board ->
+    kernel -> median device ms."""
+    import torch
+
+    from blockpuzzle_tpu_torch.config import EnvConfig
+    from blockpuzzle_tpu_torch.kernels import ClearScanKernel, MaskKernel
+
+    dev = torch.device("cuda")
+    medians = {}
+    for name in ("33x9", "40x40"):
+        cfg = EnvConfig(**TALL_U8_CASES[name])
+        mk, ck = MaskKernel(cfg, dev), ClearScanKernel(cfg, dev)
+        if (mk.name, ck.name) != ("mask_tall", "clear_tall"):
+            raise AssertionError(f"the wrappers did not pick the tall kernels on {name}")
+        general_mask, general_clear = general_calls(cfg, mk, ck)
+        board, queue = (torch.as_tensor(x, device=dev)
+                        for x in kernel_inputs(cfg, N_MAIN, seed=0)[:2])
+        if not torch.equal(mk(board, queue), general_mask(board, queue)):
+            raise AssertionError(f"mask_tall != mask_general on {name}")
+        if not all(torch.equal(a, b) for a, b in zip(ck(board), general_clear(board))):
+            raise AssertionError(f"clear_tall != clear_general on {name}")
+        calls = {"mask_tall": lambda: mk(board, queue),
+                 "mask_general": lambda: general_mask(board, queue),
+                 "clear_tall": lambda: ck(board), "clear_general": lambda: general_clear(board)}
+        times = {k: [] for k in calls}
+        for _ in range(rounds):
+            for k, f in calls.items():
+                times[k].append(cuda_ms(f))
+        print(f"[{tag}] tall {name} N={N_MAIN}: mask_tall == mask_general and clear_tall "
+              "== clear_general, launched directly on the same inputs (bit-equal)")
+        for k, ts in times.items():
+            print(f"[{tag}] {k} N={N_MAIN} tall {name}, {rounds} rounds in turns with the "
+                  f"other kernels of the board, device ms: "
+                  f"{', '.join(f'{t:.6f}' for t in ts)}; median "
+                  f"{statistics.median(ts):.6f} ({card})")
+        medians[name] = {k: statistics.median(ts) for k, ts in times.items()}
+        for k in ("mask", "clear"):
+            tall, general = (medians[name][f"{k}_{v}"] for v in ("tall", "general"))
+            print(f"[{tag}] {k} {name} medians: general {general:.6f} ms, tall "
+                  f"{tall:.6f} ms, {general / tall:.2f}x ({card})")
+    return medians
+
+
 def hand_rows(legal_all, queue):
     """The (N, S*HW) hand mask read off the (N, P, HW) legality map (an
     all-False row for the empty sentinel)."""
@@ -883,40 +1132,51 @@ def hand_rows(legal_all, queue):
 
 def phase2():
     """Returns the maximum absolute error of ``legal_all_pieces`` against
-    its plain version on the presets and on the wide and tall boards, and
-    the launch counts of those two boards' u8 rollouts and of
+    its plain version on the presets and on the wide, tall and huge boards,
+    and the launch counts of those boards' rollouts and of
     ``legal_all_pieces`` there (the paths ``wide_u8_pallas``,
-    ``wide_u8_jnp``, ``wide_legal_all_pieces`` and their ``tall_``
-    twins)."""
+    ``wide_u8_jnp``, ``wide_legal_all_pieces``, their ``tall_`` and
+    ``huge_`` twins, ``tall_packed``, ``huge_packed``, ``tall_words`` and
+    ``huge_words``, and those of the other tall boards)."""
     import torch
 
     from blockpuzzle_tpu_torch import PRESETS, make_env
     from blockpuzzle_tpu_torch.config import EnvConfig
     from blockpuzzle_tpu_torch.sampler import UniformLegalSampler
 
-    n, steps = 1024, 64
     fields = ("queue", "base_key", "rng_counter", "steps", "score", "streak")
     # engine -> make_env arguments; the kernels each launches once per step
     # are the mask with the apply (pallas) or the clear (jnp) that the
-    # board takes (``u8_kernel_names``), the packed engine's on the presets
-    engines = {"packed": dict(backend="jnp", state_impl="packed"),
-               "pallas": dict(backend="pallas", state_impl="u8"),
+    # board takes (``u8_kernel_names``), the packed engine's on boards of at
+    # most 32 columns (``packed_kernel_names``): the default engine there
+    engines = {"packed": dict(), "pallas": dict(backend="pallas", state_impl="u8"),
                "jnp": dict(backend="jnp", state_impl="u8")}
-    configs = {name: PRESETS[name]() for name in PACKED_PRESETS}
-    configs["wide"] = EnvConfig(**WIDE)
-    configs["tall"] = EnvConfig(**TALL)
+    # board -> (config, engines run, N, steps); the presets run all three
+    boards = {name: (PRESETS[name](), ("packed", "pallas", "jnp"), 1024, 64)
+              for name in PACKED_PRESETS}
+    boards.update({
+        "wide": (EnvConfig(**WIDE), ("pallas", "jnp"), 1024, 64),
+        "tall": (EnvConfig(**TALL), ("packed", "pallas", "jnp"), 1024, 64),
+        "tall36r3": (EnvConfig(**TALL36R3), ("packed", "jnp"), 1024, 64),
+        "tall64": (EnvConfig(**TALL_PACKED_CASES["64x8"]), ("packed",), 1024, 64),
+        "tall128": (EnvConfig(**TALL_PACKED_CASES["128x10"]), ("packed",), 1024, 64),
+        # the plain u8 mask's product grows with the square of the cells
+        "huge": (EnvConfig(**HUGE), ("packed", "pallas", "jnp"), 256, 32),
+    })
     errs, paths = {"legality": 0, "legality_general": 0}, {}
-    for name, cfg in configs.items():
-        board_path = name in ("wide", "tall")   # their launches are paths
+    for name, (cfg, run, n, steps) in boards.items():
+        board_path = name not in PACKED_PRESETS   # their launches are paths
         mask_name, clear_name, apply_name, legal_name = u8_kernel_names(cfg)
-        steps_of = {"packed": ("packed_mask", "packed_apply"),
-                    "pallas": (mask_name, apply_name), "jnp": (mask_name, clear_name)}
-        finals, boards, rewards, envs = {}, {}, {}, {}
-        run = ("pallas", "jnp") if board_path else ("packed", "pallas", "jnp")
+        steps_of = {"pallas": (mask_name, apply_name), "jnp": (mask_name, clear_name)}
+        if cfg.width <= 32:
+            steps_of["packed"] = packed_kernel_names(cfg)[:2]
+        finals, boards_out, rewards, envs = {}, {}, {}, {}
         for engine in run:
             kwargs, per_step = engines[engine], steps_of[engine]
             for dev in ("cuda", "cpu"):
                 env = make_env(cfg, device=dev, **kwargs)
+                if env.state_impl != ("packed" if engine == "packed" else "u8"):
+                    raise AssertionError(f"{name}: the default engine is {env.state_impl}")
                 zero_counts(env)
                 state, ts = env.init(7, n)
                 sampler = UniformLegalSampler(8, n, env.device)
@@ -932,15 +1192,16 @@ def phase2():
                         raise AssertionError(
                             f"{name} {engine} launch counts {counts} != {expect}")
                     if board_path:
-                        paths[f"{name}_u8_{engine}"] = counts
+                        label = "packed" if engine == "packed" else f"u8_{engine}"
+                        paths[f"{name}_{label}"] = counts
                     envs[engine] = (env, state)
                 finals[engine, dev] = state.to("cpu")
-                boards[engine, dev] = env.board_obs(state.board).cpu()
+                boards_out[engine, dev] = env.board_obs(state.board).cpu()
                 rewards[engine, dev] = float(total)
         pairs = [((e, "cuda"), (e, "cpu")) for e in run]
         pairs += [((run[0], "cuda"), (e, "cuda")) for e in run[1:]]
         for a, b in pairs:
-            same = torch.equal(boards[a], boards[b]) and all(
+            same = torch.equal(boards_out[a], boards_out[b]) and all(
                 torch.equal(getattr(finals[a], f), getattr(finals[b], f))
                 for f in fields)
             if not same:
@@ -974,7 +1235,36 @@ def phase2():
                     f"{name}: legal_all_pieces hand rows != action_mask ({engine})")
         print(f"[phase2] {name}: legal_all_pieces on the final boards == plain, "
               f"hand rows == action_mask ({legal_name} launched once a call)")
+        if name in ("tall", "tall36r3", "huge"):
+            paths[f"{name}_words"] = words_check(name, cfg, n, steps)
     return errs, paths
+
+
+def words_check(name: str, cfg, n: int, steps: int) -> dict:
+    """The words rollout (``WordsSampler`` on the packed mask kernel's
+    words entry) on ``cfg`` on CUDA against the CPU: actions, final states
+    and summed rewards bit-equal, every action legal, one launch of the
+    board's packed mask, apply and words kernels a step.  Returns the CUDA
+    run's launch counts."""
+    import torch
+
+    per_step = packed_kernel_names(cfg)
+    (sg, rg, ag, lg, env), (sc, rc, ac, lc, _) = (
+        words_rollout(cfg, dev, n, steps) for dev in ("cuda", "cpu"))
+    counts = read_counts(env)
+    expect = expected(**dict.fromkeys(per_step, steps), deal=steps + 1, words_select=steps)
+    if counts != expect:
+        raise AssertionError(f"{name} words rollout launches {counts} != {expect}")
+    if not (lg and lc):
+        raise AssertionError(f"{name}: the words sampler drew an illegal action")
+    fields = ("board", "queue", "rng_counter", "steps", "score", "streak")
+    if not torch.equal(ag, ac) or rg != rc or not all(
+            torch.equal(getattr(sg, f), getattr(sc, f)) for f in fields):
+        raise AssertionError(f"{name}: words rollout differs CUDA vs CPU")
+    print(f"[phase2] {name} words rollout N={n} {steps} steps: actions, final states "
+          f"and summed reward ({rg}) CUDA == CPU, every action legal, launches per "
+          "step " + " ".join(f"{k}=1" for k in per_step) + " deal=1 words_select=1")
+    return counts
 
 
 def phase3(card: str):

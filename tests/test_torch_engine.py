@@ -363,18 +363,35 @@ PACKED_KNOBS = {"streak_bonus": 5.0, "max_steps": 9, "illegal_penalty": -1.0,
                 "terminal_penalty": -5.0, "obs_planes": True}
 
 
+# boards of more than 32 rows, packed by default in both packages: the tall
+# packed kernels (33 rows; 36 rows with 3x3 regions across the lane seam and
+# a hand of three), the general ones (130 rows)
+TALL_BOARDS = {"tall33": dict(height=33, width=9),
+               "tall36r3": dict(height=36, width=9, region_clear=True, region_size=3,
+                                queue_size=3),
+               "tall130": dict(height=130, width=8)}
+
+
+def _preset_config(config, preset):
+    """``config``'s (the JAX or the port's config module) preset or tall
+    board."""
+    if preset in TALL_BOARDS:
+        return config.EnvConfig(**TALL_BOARDS[preset])
+    return config.PRESETS[preset]()
+
+
 @functools.cache
 def jax_packed_engine(preset, knobs=()):
     """JAX's ``make_env(cfg, state_impl="packed")`` and its jitted step in
     parity mode with auto-reset."""
-    cfg = dataclasses.replace(jcfg.PRESETS[preset](), **dict(knobs))
+    cfg = dataclasses.replace(_preset_config(jcfg, preset), **dict(knobs))
     env_j = jax_make_env(cfg, state_impl="packed")
     step_j = jax.jit(lambda s, a, d: env_j.step(s, a, deal_override=d))
     return env_j, step_j
 
 
 @pytest.mark.parametrize("knobs", [False, True], ids=["plain", "knobs"])
-@pytest.mark.parametrize("preset", ["default", "tenten", "woodoku", "big"])
+@pytest.mark.parametrize("preset", ["default", "tenten", "woodoku", "big", *TALL_BOARDS])
 def test_packed_engine_matches_jax_packed_engine(preset, knobs):
     """60 steps with injected deals and auto-reset, mixing uniform-legal,
     arbitrary (illegal, out-of-range) and raw-argmax actions, then a
@@ -382,10 +399,12 @@ def test_packed_engine_matches_jax_packed_engine(preset, knobs):
     after each step the port's redealt hands are overwritten with JAX's;
     every field of an env that is not done, and every pre-reset field of
     one that is, must be equal.  ``knobs`` adds streak_bonus, max_steps,
-    both penalties and piece planes."""
+    both penalties and piece planes.  The tall boards run the tall and
+    general packed kernels' plain versions (no episode need end there)."""
     env_j, step_j = jax_packed_engine(
         preset, tuple(sorted(PACKED_KNOBS.items())) if knobs else ())
-    ct = dataclasses.replace(tcfg.PRESETS[preset](), **(PACKED_KNOBS if knobs else {}))
+    ct = dataclasses.replace(_preset_config(tcfg, preset),
+                             **(PACKED_KNOBS if knobs else {}))
     env_t = make_env(ct, device="cpu")
     assert env_t.state_impl == env_j.state_impl == "packed"
     rng = np.random.default_rng(8)
@@ -431,9 +450,10 @@ def test_packed_engine_matches_jax_packed_engine(preset, knobs):
         seen["illegal"] += int((~tt.info["legal"]).sum())
         seen["done"] += int(done.sum())
         seen["trunc"] += int(tt.truncated.sum())
-    assert seen["illegal"] and seen["done"]
-    # max_steps = 9 ends every episode before a line fills on most presets
-    assert seen["trunc"] if knobs else seen["cleared"] > 0 or preset == "big"
+    assert seen["illegal"] and (seen["done"] or preset in TALL_BOARDS)
+    # max_steps = 9 ends every episode before a line fills on most presets;
+    # 60 steps spread over 130 rows fill none (test_torch_tall.py clears them)
+    assert seen["trunc"] if knobs else seen["cleared"] > 0 or preset in ("big", "tall130")
     m = np.arange(N) % 3 == 0
     pj, qj = jax.jit(env_j.partial_reset)(sj, jnp.asarray(m))
     pt, qt = env_t.partial_reset(st, torch.as_tensor(m))

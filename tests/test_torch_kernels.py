@@ -43,7 +43,9 @@ from blockpuzzle_tpu_torch.kernels.collision import (
     legality_smem_bytes, piece_table, rect_shapes,
 )
 from blockpuzzle_tpu_torch.kernels.mask import piece_rows_table
-from blockpuzzle_tpu_torch.kernels.packed import mask_block_warps, wide_launch_shape
+from blockpuzzle_tpu_torch.kernels.packed import (
+    mask_block_warps, tall_launch_shape, wide_launch_shape,
+)
 from test_torch_packed import (
     U32, _ballot, _popc, _reduce, _shfl, _shl32, _small_div, _spread4, _warp_layout,
 )
@@ -965,14 +967,15 @@ def test_wrappers_never_fall_back_off_cpu():
     with pytest.raises(ValueError, match="kernel tables on cpu"):
         ApplyKernel(cfg, "cpu")(board, board, torch.ones(4, dtype=torch.bool, device=meta))
     # the same on a board that takes the wide mask and clear and the general
-    # apply and legality, and on one that takes every general kernel
-    for shape in (WIDE40, dict(height=33, width=9)):
+    # apply and legality, on one that takes the tall mask and clear and the
+    # general apply and legality, and on one that takes every general kernel
+    for shape, kind in ((WIDE40, "wide"), (dict(height=33, width=9), "tall"),
+                        (dict(height=130, width=9), "general")):
         cfg = tcfg.EnvConfig(**shape)
-        wide = cfg.height <= 32
         board = torch.zeros(4, cfg.num_cells, dtype=torch.uint8, device=meta)
         mk, ck = MaskKernel(cfg, meta), ClearScanKernel(cfg, meta)
-        assert mk.wide == ck.wide == wide
-        assert (mk.shape is not None) == (ck.shape is not None) == wide
+        assert mk.kind == ck.kind == kind and mk.wide == ck.wide == (kind == "wide")
+        assert (mk.shape is not None) == (ck.shape is not None) == (kind != "general")
         assert ApplyKernel(cfg, meta).shape is None and LegalityKernel(cfg, meta).shape is None
         with pytest.raises(ValueError, match="no mask kernel"):
             mk(board, queue)
@@ -1006,7 +1009,7 @@ def test_wrappers_default_to_the_card(wrapper, monkeypatch):
 
 
 @pytest.mark.parametrize("case", ["default", "tenten", "woodoku", "big", "tall33",
-                                  *WIDE_CASES])
+                                  "tall130", *WIDE_CASES])
 def test_u8_wrappers_pick_their_kernel_by_shape(case):
     """The bit-row mask, clear, apply and legality where H <= 32 and
     W <= 32: the first three with B7's launch shape, the mask with the
@@ -1014,18 +1017,31 @@ def test_u8_wrappers_pick_their_kernel_by_shape(case):
     table and a block that fits a plain launch's shared memory; the wide
     mask and clear where H <= 32 and 32 < W <= 128, with the same launch
     shape rule and the rectangle piece table, beside the general apply and
-    legality; the general kernels, with the per-cell piece table, on a
-    board taller than that."""
+    legality; the tall mask and clear where 32 < H <= 128 (one board a
+    warp, ``tall_launch_shape``, the rectangle piece table) beside the
+    general apply and legality; the general kernels, with the per-cell
+    piece table, on a board taller than that."""
     cfg = (tcfg.EnvConfig(height=33, width=9) if case == "tall33"
+           else tcfg.EnvConfig(height=130, width=9) if case == "tall130"
            else _pair(case)[1])
     mk, ck = MaskKernel(cfg, "cpu"), ClearScanKernel(cfg, "cpu")
     ak, lk = ApplyKernel(cfg, "cpu"), LegalityKernel(cfg, "cpu")
     rows = cfg.height <= 32 and cfg.width <= 32
     wide = cfg.height <= 32 and 32 < cfg.width <= 128
-    assert [k.shape is not None for k in (mk, ck, ak, lk)] == [rows or wide] * 2 + [rows] * 2
+    tall = 32 < cfg.height <= 128 and cfg.width <= 128
+    assert [k.shape is not None for k in (mk, ck, ak, lk)] == (
+        [rows or wide or tall] * 2 + [rows] * 2)
     assert mk.wide == ck.wide == wide
     assert lk.shape == legality_launch_shape(cfg)
-    if wide:
+    kind = "rows" if rows else "wide" if wide else "tall" if tall else "general"
+    assert mk.kind == ck.kind == kind
+    assert (mk.name, ck.name) == tuple(k + {"rows": ""}.get(kind, "_" + kind)
+                                       for k in ("mask", "clear"))
+    if tall:
+        assert mk.shape == ck.shape == tall_launch_shape(cfg) == (4, 16)
+        np.testing.assert_array_equal(mk.piece_table.numpy(), piece_rows_table(cfg))
+        np.testing.assert_array_equal(lk.piece_table.numpy(), piece_table(cfg))
+    elif wide:
         shape = (32 // cfg.height, mask_block_warps(cfg.height, cfg.width))
         assert mk.shape == ck.shape == wide_launch_shape(cfg) == shape
         np.testing.assert_array_equal(mk.piece_table.numpy(), piece_rows_table(cfg))

@@ -233,8 +233,13 @@ def test_sampler_picks_legal_actions_uniformly():
 
 
 # boards beyond the presets: 40 cells a row (the wide mask and clear, the
-# general apply and legality), 33 rows (the general kernels of all four)
-BOARDS = {"wide40": dict(height=8, width=40), "tall33": dict(height=33, width=9)}
+# general apply and legality), 33 and 36 rows (the tall mask and clear, the
+# general apply and legality; 3x3 regions across the lane seam and a hand of
+# three on 36x9), 130 rows (the general kernels of all four)
+BOARDS = {"wide40": dict(height=8, width=40), "tall33": dict(height=33, width=9),
+          "tall36r3": dict(height=36, width=9, region_clear=True, region_size=3,
+                           queue_size=3),
+          "huge130": dict(height=130, width=9)}
 
 
 @pytest.mark.gpu
@@ -244,7 +249,9 @@ def test_kernels_match_plain_versions_on_the_card(preset, cuda_device):
     at N - 1 (a ragged last block): the bit-row mask, clear, apply and
     legality on the presets; on a board of 8 rows of 40 cells (too wide for
     a row word) the wide mask and clear and the general apply and
-    legality; on a board of 33 rows the general ones."""
+    legality; on boards of 33 and 36 rows the tall mask and clear and the
+    general apply and legality; on 130 rows the general ones (at N = 4096:
+    the plain versions' products grow with the square of the cells)."""
     from blockpuzzle_tpu_torch import rules
     from blockpuzzle_tpu_torch.config import EnvConfig
     from blockpuzzle_tpu_torch.kernels import (
@@ -255,7 +262,7 @@ def test_kernels_match_plain_versions_on_the_card(preset, cuda_device):
     t = rules.tables_for(cfg)
     mk, ak = MaskKernel(cfg, cuda_device), ApplyKernel(cfg, cuda_device)
     ck, lk = ClearScanKernel(cfg, cuda_device), LegalityKernel(cfg, cuda_device)
-    sizes = (49152, 49151)
+    sizes = (49152, 49151) if cfg.num_cells <= 400 else (4096, 4095)
     for n in sizes:
         r = np.random.default_rng(n)
         board = (r.random((n, cfg.num_cells)) < 0.35).astype(np.uint8)
@@ -282,10 +289,12 @@ def test_kernels_match_plain_versions_on_the_card(preset, cuda_device):
     torch.cuda.synchronize()
     calls = len(sizes)
     rows = cfg.height <= 32 and cfg.width <= 32
-    wide = cfg.height <= 32 and 32 < cfg.width <= 128
+    kind = mk.kind
+    assert ck.kind == kind == {"wide40": "wide", "huge130": "general"}.get(
+        preset, "rows" if preset in PRESETS else "tall")
     for k in (mk, ck):
-        assert (k.launches, k.wide_launches, k.general_launches) == (
-            calls * rows, calls * wide, calls * (not rows and not wide))
+        assert (k.launches, k.wide_launches, k.tall_launches, k.general_launches) == tuple(
+            calls * (kind == v) for v in ("rows", "wide", "tall", "general"))
     for k in (ak, lk):
         assert (k.launches, k.general_launches) == (calls * rows, calls * (not rows))
 
@@ -436,6 +445,80 @@ def test_packed_kernels_match_plain_versions_on_the_card(preset, n, cuda_device)
     assert int(out[1].sum()) > 0 and bool(out[2].any()) and not bool(out[2].all())
     torch.cuda.synchronize()
     assert (pak.launches, pmk.launches) == (1, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("board", ["tall33", "tall36r3", "huge130"])
+def test_tall_packed_kernels_match_plain_versions_on_the_card(board, cuda_device):
+    """The packed apply, mask and words kernels of boards of more than 32
+    rows (the tall kernels: a warp a board; 130 rows: the general ones)
+    against their plain versions and, on the unpacked boards, against the
+    u8 mask, at two sizes (a ragged last block), with full rows at the lane
+    seam (rows 31 and 32) and 3x3 regions across it."""
+    from blockpuzzle_tpu_torch import rules
+    from blockpuzzle_tpu_torch.config import EnvConfig
+    from blockpuzzle_tpu_torch.kernels import MaskKernel, PackedApplyKernel, PackedMaskKernel
+    from blockpuzzle_tpu_torch.kernels.packed import pack_words
+
+    cfg = EnvConfig(**BOARDS[board])
+    env = make_env(cfg, device=cuda_device)
+    assert env.state_impl == "packed"
+    t = rules.tables_for(cfg)
+    pak, pmk = PackedApplyKernel(cfg, cuda_device), PackedMaskKernel(cfg, cuda_device)
+    kind = "general" if cfg.height > 128 else "tall"
+    assert pak.kind == pmk.kind == kind
+    sizes = (49152, 49151) if kind == "tall" else (4096, 4095)
+    for n in sizes:
+        r = np.random.default_rng(n)
+        cells = (r.random((n, cfg.height, cfg.width)) < 0.4).astype(np.uint8)
+        cells[::5, 31, :] = 1
+        cells[1::5, 32, :] = 1
+        cells[2::5, 30:33, 0:3] = 1
+        cells[3::5, :, 4] = 1
+        queue = r.integers(0, t.num_pieces + 1, (n, cfg.queue_size)).astype(np.int32)
+        g = r.integers(0, t.cover.shape[0], n)
+        board, queue, valid, pid, anchor = (
+            torch.as_tensor(x, device=cuda_device) for x in
+            (cells.reshape(n, -1), queue, t.valid[g], g // cfg.num_cells,
+             g % cfg.num_cells))
+        words = pack_words(board.view(n, cfg.height, cfg.width))
+        attrs = env._attrs[pid]
+        rr = (anchor // cfg.width).to(torch.int32)
+        cc = (anchor % cfg.width).to(torch.int32)
+        mask = pmk(words, queue)
+        assert torch.equal(mask, pmk.plain(words, queue))
+        if n > 4096:
+            assert torch.equal(mask, MaskKernel(cfg, cuda_device)(board, queue))
+        assert torch.equal(pmk.words(words, queue), pmk.plain_words(words, queue))
+        out = pak(words, attrs, rr, cc, valid)
+        for o, p in zip(out, pak.plain(words, attrs, rr, cc, valid)):
+            assert torch.equal(o, p)
+        assert int(out[1].sum()) > 0 and bool(out[2].any()) and not bool(out[2].all())
+    torch.cuda.synchronize()
+    counts = {"tall": (pak.tall_launches, pmk.tall_launches, pmk.words_tall_launches),
+              "general": (pak.general_launches, pmk.general_launches,
+                          pmk.words_general_launches)}
+    assert counts[kind] == (2, 2, 2)
+    assert (pak.launches, pmk.launches, pmk.words_launches) == (0, 0, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("board", ["tall33", "tall36r3"])
+def test_cuda_default_engine_on_a_tall_board_matches_cpu(board, cuda_device):
+    """The default engine (packed, as JAX's on any board of at most 32
+    columns) steps a board of more than 32 rows on the card through the
+    tall packed kernels, bit-equal to the CPU, from one seed with live deals
+    and auto-reset."""
+    from blockpuzzle_tpu_torch.config import EnvConfig
+
+    cfg = EnvConfig(**BOARDS[board])
+    env = make_env(cfg, device=cuda_device)
+    a = rollout_cli.rollout(env, 256, 16, 1, seed=4)
+    b = rollout_cli.rollout(make_env(cfg, device="cpu"), 256, 16, 1, seed=4)
+    for f in ("board", "queue", "rng_counter", "steps", "score", "streak"):
+        assert torch.equal(getattr(a["state"], f).cpu(), getattr(b["state"], f))
+    assert a["reward"] == b["reward"]
+    assert env.packed_mask_kernel.tall_launches == env.packed_apply_kernel.tall_launches == 32
 
 
 @pytest.mark.gpu

@@ -629,11 +629,18 @@ COUNTED_ENGINES = {
     # a board of 40 cells a row: the wide mask and clear, the general apply
     "wide_u8_pallas": (dict(backend="pallas"), "wide", ("mask_wide", "apply_general")),
     "wide_u8_jnp": (dict(backend="jnp"), "wide", ("mask_wide", "clear_wide")),
-    # a board of 33 rows: the general mask and clear
+    # a board of 33 rows: the tall mask and clear on u8 boards, the tall
+    # packed apply and mask on the default (packed) engine
     "tall_u8_jnp": (dict(backend="jnp", state_impl="u8"), "tall",
+                    ("mask_tall", "clear_tall")),
+    "tall_packed": (dict(), "tall", ("packed_apply_tall", "packed_mask_tall")),
+    # a board of 130 rows: the general kernels of both engines
+    "huge_u8_jnp": (dict(backend="jnp", state_impl="u8"), "huge",
                     ("mask_general", "clear_general")),
+    "huge_packed": (dict(), "huge", ("packed_apply_general", "packed_mask_general")),
 }
-BOARDS = {"wide": dict(height=8, width=40), "tall": dict(height=33, width=9)}
+BOARDS = {"wide": dict(height=8, width=40), "tall": dict(height=33, width=9),
+          "huge": dict(height=130, width=9)}
 # every engine's step deals once (B9) and its argmax policy draws once (B2)
 DRAW_KERNELS = ("deal", "uniform_legal")
 

@@ -1,0 +1,750 @@
+"""The kernels of boards taller than 32 rows on the CPU, against the JAX
+package.
+
+The JAX engine's default state is packed on every board of at most 32
+columns, whatever its height; the port's packed kernels take one row a
+lane, so boards of 33 to 128 rows take its tall kernels (one warp a board,
+lane l holding rows l + 32 j in slot j) and taller boards its general
+ones (a thread an env or an anchor row).  The u8 mask (K1) and clear (K3)
+have tall kernels of the same layout, on rows of up to four words.
+
+Numpy emulations of each new CUDA kernel's lane and slot logic (every
+lane of a warp at once, as (warps, NR, 32) arrays; a row below row r comes
+from lane (l + d) mod 32, from slot j + 1 across the seam), fed the tables
+and launch shapes the wrappers hand the kernels, are held bit-equal to the
+plain versions and to the JAX package: the packed engine's
+``_cover_words``/``_clear_scan_packed`` block, ``_bitboard_mask_from_words``
+and ``legal_words`` for B1, B7 and B7w; the Pallas mask and clear kernels
+in interpret mode (or, where the mask's one-hot tables would take
+hundreds of MB, the JAX u8 engine's shift mask) and the JAX u8 engine's
+``clear_scan`` for K1 and K3.  The kernels themselves run only on the
+card (``chip_smoke.py``, the ``gpu`` tests of test_torch_rollout.py).
+Everything is integer or bool and must be bit-equal.
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from blockpuzzle_tpu import config as jcfg
+from blockpuzzle_tpu import kernels as jk
+from blockpuzzle_tpu.env import make_env as jax_make_env
+from blockpuzzle_tpu.env import words as jwords
+from blockpuzzle_tpu_torch import config as tcfg
+from blockpuzzle_tpu_torch import rules
+from blockpuzzle_tpu_torch.kernels import (
+    ApplyKernel,
+    ClearScanKernel,
+    LegalityKernel,
+    MaskKernel,
+    PackedApplyKernel,
+    PackedMaskKernel,
+    _build,
+)
+from blockpuzzle_tpu_torch.kernels.packed import (
+    SMEM_OPT_IN, U32, tall_block_warps, tall_launch_shape, tall_smem_bytes,
+)
+from test_torch_kernels import (
+    _fshr, _shr_words, emulate_pack_row, emulate_smear_words, emulate_stage_bytes,
+)
+from test_torch_packed import (
+    _popc, _shl32, _small_div, _spread4, chosen_actions, crafted_cells, jax_apply,
+    np_words,
+)
+
+# packed boards (W <= 32) of more than 32 rows: two, three and four slots a
+# lane; 3x3 regions whose band 30..32 crosses the seam (lanes 30, 31 of slot
+# 0, lane 0 of slot 1) and a hand of three; 130 rows take the general kernels
+PACKED_TALL = {"tall33": dict(height=33, width=9),
+               "tall36r3": dict(height=36, width=9, region_clear=True, region_size=3,
+                                queue_size=3),
+               "tall64": dict(height=64, width=8),
+               "tall128": dict(height=128, width=10)}
+PACKED_GENERAL = {"tall130": dict(height=130, width=8)}
+# u8 boards of more than 32 rows: one word a row (33x9, 36x9 with regions),
+# two (40x40, JAX's u8 default there) and four (33x128)
+U8_TALL = {"tall33": dict(height=33, width=9),
+           "tall36r3": PACKED_TALL["tall36r3"],
+           "tall40x40": dict(height=40, width=40),
+           "tall33x128": dict(height=33, width=128)}
+N = 13
+
+
+def _pair(shape):
+    return jcfg.EnvConfig(**shape), tcfg.EnvConfig(**shape)
+
+
+@functools.cache
+def jax_packed(case):
+    shape = {**PACKED_TALL, **PACKED_GENERAL}[case]
+    return jax_make_env(jcfg.EnvConfig(**shape), state_impl="packed")
+
+
+def tall_cells(cfg, n, rng, fill=0.45):
+    """``crafted_cells`` plus rows and regions at the seams: a full row 31
+    and a full row 32 (slot 0's last lane, slot 1's first), rows 30..32 of
+    columns 0..2 full (a region across the seam where regions are 3x3), a
+    full column 8, and a row 32 full but for its first cell."""
+    cells = crafted_cells(cfg, n, rng, fill)
+    cells[1::5, 31, :] = 1
+    cells[2::5, 32, :] = 1
+    cells[3::5, 30:33, 0:3] = 1
+    cells[4::5, :, 8 % cfg.width] = 1
+    cells[5::7, 32, 1:] = 1
+    cells[5::7, 32, 0] = 0
+    return cells
+
+
+# --------------------------------------------------------------------------
+# the lane and slot layout of the tall kernels: one warp a board, values
+# as (warps, NR, 32) int64 arrays holding uint32 bits, lane l of slot j
+# holding row l + 32 j
+# --------------------------------------------------------------------------
+
+LANE = np.arange(32)
+
+
+def _slot_rows(nr):
+    return LANE[None, :] + 32 * np.arange(nr)[:, None]        # (NR, 32)
+
+
+def _rows_below(v, d, past):
+    """bit_rows.cuh rows_below: row r + d (0 <= d < 32) of every lane and
+    slot: one shuffle a slot from lane (l + d) mod 32, slot j + 1 across the
+    seam (l + d >= 32), ``past`` beyond the last slot."""
+    assert 0 <= d < 32
+    s = v[:, :, (LANE + d) % 32]
+    nxt = np.concatenate([s[:, 1:], np.full_like(s[:, :1], past)], axis=1)
+    return np.where(LANE + d >= 32, nxt, s)
+
+
+def _rows_above(v, e):
+    """The row e = r % rs above (0 <= e < 32, per lane and slot): lane
+    (l - e) mod 32, slot j - 1 across the seam (l < e), by two shuffles a
+    slot (slot 0's first reads zeros, and never wraps)."""
+    src = (LANE - e) % 32
+    here = np.take_along_axis(v, np.broadcast_to(src, v.shape), axis=2)
+    prev = np.concatenate([np.zeros_like(v[:, :1]), v[:, :-1]], axis=1)
+    up = np.take_along_axis(prev, np.broadcast_to(src, v.shape), axis=2)
+    assert not (LANE[None, :] < e)[0].any()                  # slot 0 never wraps
+    return np.where(LANE < e, up, here)
+
+
+def emulate_clear_tall(x, active, h, w, rs):
+    """bit_rows.cuh clear_tall on ``x``, a list of NW (warps, NR, 32) words
+    a row (rows >= H all ones), ``active`` (warps,): full rows by a ballot a
+    slot, columns by ANDing a lane's slots and the warp, each row's band
+    AND from the rs - 1 rows below it, a band's first row testing its
+    fields (read from funnel-shifted word pairs) and every row taking them
+    from its first row, e = r % rs rows above.  Returns the cleared words
+    and k (warps,)."""
+    nw, nr = len(x), x[0].shape[1]
+    rows = _slot_rows(nr)
+    tail = w - 32 * (nw - 1)
+    colmask = [U32] * (nw - 1) + [(1 << tail) - 1 if tail < 32 else U32]
+    full = np.logical_and.reduce([x[i] == colmask[i] for i in range(nw)])
+    k = (full & (rows < h) & active[:, None, None]).sum(axis=(1, 2))   # popc(ballot)
+    cols = [np.bitwise_and.reduce(a.reshape(len(a), -1), axis=1) for a in x]
+    k = k + sum(_popc(c) for c in cols)
+    reg = [np.zeros_like(a) for a in x]
+    if rs:
+        band = [a.copy() for a in x]
+        for d in range(1, rs):
+            band = [b & _rows_below(a, d, U32) for a, b in zip(x, band)]
+        # r % rs stepped slot to slot as the kernel does
+        e = np.empty((nr, 32), np.int64)
+        e[0] = LANE % rs
+        for j in range(1, nr):
+            e[j] = e[j - 1] + 32 % rs
+            e[j] -= np.where(e[j] >= rs, rs, 0)
+        assert (e == rows % rs).all()
+        head = (e == 0) & (rows + rs <= h)
+        tile0, tiles, c0 = (1 << rs) - 1, np.zeros_like(x[0]), 0
+        for i in range(nw):
+            while c0 < 32 * (i + 1) and c0 + rs <= w:
+                b = c0 - 32 * i
+                field = _fshr(band[i], band[i + 1] if i + 1 < nw else 0, b) & tile0
+                hit = head & (field == tile0)
+                reg[i] |= np.where(hit, (tile0 << b) & U32, 0)
+                if i + 1 < nw and b + rs > 32:
+                    reg[i + 1] |= np.where(hit, tile0 >> (32 - b), 0)
+                tiles += hit
+                c0 += rs
+        k = k + tiles.sum(axis=(1, 2))
+        reg = [_rows_above(a, e) for a in reg]
+    cleared = [x[i] & ~(np.where(full, colmask[i], 0) | cols[i][:, None, None] | reg[i]) & U32
+               for i in range(nw)]
+    return cleared, k
+
+
+def emulate_store_tall(rows, out, at, nbytes, width, nw):
+    """bit_rows.cuh store_tall: bytes to out[at ...] from any offset, the
+    head up to the first 16-byte boundary and the tail byte by byte, each
+    vector between from the staged rows of ``nw`` words: up to 16 rows where
+    a row is one word, the funnel-shifted word pair and the next row's first
+    word where it is more."""
+    head = min((16 - at % 16) % 16, nbytes)
+    nvec = (nbytes - head) // 16
+    for v in range(nvec):
+        q = head + 16 * v
+        assert (at + q) % 16 == 0                   # the uint4 stores' alignment
+        row = int(_small_div(q, width))
+        c = q - row * width
+        if nw == 1:
+            got, bits = 0, 0
+            while got < 16:
+                assert rows[row] >= 0
+                bits |= (int(rows[row]) >> c) << got
+                got, row, c = got + width - c, row + 1, 0
+        else:
+            wd = c >> 5
+            lo, hi = rows[row * nw + wd], rows[row * nw + wd + 1] if wd + 1 < nw else 0
+            assert lo >= 0 and hi >= 0
+            bits = int(_fshr(lo, hi, c & 31))
+            if width - c < 16:
+                assert rows[(row + 1) * nw] >= 0
+                bits |= (int(rows[(row + 1) * nw]) << (width - c)) & U32
+        vec = [_spread4(bits >> (4 * i)) for i in range(4)]
+        assert (out[at + q : at + q + 16] == 2).all()  # written once
+        out[at + q : at + q + 16] = np.array(vec, "<u4").view(np.uint8)
+    for j in range(nbytes - 16 * nvec):
+        q = j if j < head else j + 16 * nvec
+        row = int(_small_div(q, width))
+        c = q - row * width
+        assert rows[row * nw + (c >> 5)] >= 0 and out[at + q] == 2
+        out[at + q] = (int(rows[row * nw + (c >> 5)]) >> (c & 31)) & 1
+
+
+# ----------------------------------------------------- packed, tall ----
+
+
+def emulate_packed_apply_tall(cfg, words, attrs, r, c, valid):
+    """csrc/packed_tall.cu packed_apply_tall_kernel: a warp an env, each lane
+    its rows' words and footprint words, overlap by ``__any_sync``, the
+    placed board through ``clear_tall``, the input written back where the
+    action is illegal."""
+    h, n, nr = cfg.height, len(words), -(-cfg.height // 32)
+    rs = cfg.region_size if cfg.region_clear else 0
+    rows = _slot_rows(nr)[None]                               # (1, NR, 32)
+    inb = rows < h
+    e = np.arange(n)[:, None, None]
+    x64 = np.where(inb, words.astype(np.int64)[e, np.minimum(rows, h - 1)], 0)
+    cover = np.zeros_like(x64)
+    for j in range(2):
+        row0 = (r + attrs[:, 3 + 4 * j])[:, None, None]
+        on = inb & (rows >= row0) & (rows < row0 + attrs[:, 5 + 4 * j, None, None])
+        mask = _shl32((_shl32(1, attrs[:, 6 + 4 * j]) - 1) & U32, c + attrs[:, 4 + 4 * j])
+        cover |= np.where(on, mask[:, None, None], 0)
+    overlap = ((x64 & cover) != 0).any(axis=(1, 2))          # __any_sync
+    legal = valid & ~overlap
+    w = np.where(inb, x64 | cover, U32)
+    (cleared,), k = emulate_clear_tall([w], np.ones(n, bool), h, cfg.width, rs)
+    stored = np.where(legal[:, None, None], cleared, x64)
+    out = np.full((n, h), -1, np.int64)
+    ee, jj, ll = np.nonzero(np.broadcast_to(inb, stored.shape))
+    out[ee, rows[0, jj, ll]] = stored[ee, jj, ll]
+    assert (out >= 0).all()
+    return out, np.where(legal, k, 0).astype(np.int32), legal
+
+
+def emulate_legal_tall(cfg, words, queue, mk, es):
+    """csrc/packed_tall.cu legal_tall_bits for the env-slots ``es`` (one a
+    warp), on the 32-bit tables ``PackedMaskKernel`` hands the kernels:
+    each footprint word's board words a field at a time from the rows below
+    (rows past the bottom full), a bit of blocked anchors for each
+    footprint cell.  Returns (len(es), NR, 32) legal bits."""
+    h, w, s = cfg.height, cfg.width, cfg.queue_size
+    nr = -(-h // 32)
+    prow = mk.prow32.numpy().view(np.uint32).astype(np.int64)
+    piece_w = mk.piece_w32.numpy()
+    nwords, fpw = mk.tables.nwords, mk.tables.fpw
+    full = (1 << w) - 1 & U32
+    rows = _slot_rows(nr)[None]
+    x = np.where(rows < h, words.astype(np.int64)[(es // s)[:, None, None],
+                                                   np.minimum(rows, h - 1)], full)
+    pid = queue.reshape(-1)[es]
+    has = (pid >= 0) & (pid < mk.num_pieces)
+    p = np.where(has, pid, 0)
+    pw = np.where(has, piece_w[p], w + 1)[:, None, None]
+    blocked = np.zeros_like(x)
+    assert nwords * fpw <= 32
+    for k in range(nwords):
+        wk = np.zeros_like(x)
+        for f in range(fpw):
+            wk |= _shl32(_rows_below(x, k * fpw + f, full), f * w)
+        m = np.where(pw <= w, prow[p, k][:, None, None], 0)
+        for bit in range(32):                                 # each footprint cell
+            blocked |= np.where((m >> bit) & 1, wk >> bit, 0)
+    anchors = np.where(pw <= w, _shl32(1, np.maximum(w - pw + 1, 0)) - 1 & U32, 0)
+    return ~blocked & anchors
+
+
+def emulate_packed_mask_tall(cfg, words, queue, mk):
+    """csrc/packed_tall.cu packed_mask_tall_kernel on ``mk``'s launch shape:
+    blocks of ``warps`` env-slots, their rows' legal bits staged, then
+    stored by ``store_tall`` from the block's byte offset."""
+    h, w, s = cfg.height, cfg.width, cfg.queue_size
+    n, hw, total = len(words), cfg.num_cells, len(words) * cfg.queue_size
+    nr = -(-h // 32)
+    _, warps = mk.shape
+    out = np.full(total * hw, 2, np.uint8)                    # 2: never written
+    for first in range(0, total, warps):
+        count = min(warps, total - first)
+        bits = emulate_legal_tall(cfg, words, queue, mk, first + np.arange(count))
+        staged = np.full(warps * h, -1, np.int64)
+        for seg in range(count):
+            for j in range(nr):
+                for l in range(32):
+                    if l + 32 * j < h:
+                        staged[seg * h + l + 32 * j] = bits[seg, j, l]
+        emulate_store_tall(staged, out, first * hw, count * hw, w, 1)
+    assert (out < 2).all()
+    return out.reshape(n, s * hw).astype(bool)
+
+
+def emulate_packed_words_tall(cfg, words, queue, mk):
+    """The tall words kernel: each lane's rows' bits as int64 at
+    out[es * H + r]."""
+    h, total = cfg.height, len(words) * cfg.queue_size
+    bits = emulate_legal_tall(cfg, words, queue, mk, np.arange(total))
+    rows = _slot_rows(bits.shape[1])
+    out = np.full(total * h, -1, np.int64)
+    for j, l in zip(*np.nonzero(rows < h)):
+        out[np.arange(total) * h + rows[j, l]] = bits[:, j, l]
+    assert (out >= 0).all()
+    return out.reshape(len(words), -1)
+
+
+# -------------------------------------------------- packed, general ----
+
+
+def emulate_packed_apply_general(cfg, words, attrs, r, c, valid):
+    """csrc/packed_tall.cu packed_apply_general_kernel, every thread (env) at
+    once: a pass for the overlap and the placed rows' column AND, then, on
+    a legal action, a pass that opens each whole band at its first row,
+    counts its full tiles and clears each row; else the rows written back."""
+    h, w, n = cfg.height, cfg.width, len(words)
+    rs = cfg.region_size if cfg.region_clear else 0
+    x = words.astype(np.int64)
+    full = (1 << w) - 1
+
+    def cover_row(row):
+        cv = np.zeros(n, np.int64)
+        for j in range(2):
+            row0 = r + attrs[:, 3 + 4 * j]
+            on = (row >= row0) & (row < row0 + attrs[:, 5 + 4 * j])
+            mask = _shl32((_shl32(1, attrs[:, 6 + 4 * j]) - 1) & U32, c + attrs[:, 4 + 4 * j])
+            cv |= np.where(on, mask, 0)
+        return cv
+
+    overlap, cols = np.zeros(n, bool), np.full(n, U32)
+    for row in range(h):
+        cv = cover_row(row)
+        overlap |= (x[:, row] & cv) != 0
+        cols &= x[:, row] | cv
+    legal = valid & ~overlap
+    k, reg, out = _popc(cols), np.zeros(n, np.int64), x.copy()
+    for row in range(h):
+        wv = x[:, row] | cover_row(row)
+        if rs and row % rs == 0:
+            reg = np.zeros(n, np.int64)
+            if row + rs <= h:
+                band = np.full(n, U32)
+                for t in range(rs):
+                    band &= x[:, row + t] | cover_row(row + t)
+                for t in range(0, w - rs + 1, rs):
+                    tile = ((1 << rs) - 1) << t
+                    hit = (band & tile) == tile
+                    reg |= np.where(hit, tile, 0)
+                    k = k + hit
+        k = k + (wv == full)
+        cleared = wv & ~(np.where(wv == full, full, 0) | cols | reg)
+        out[:, row] = np.where(legal, cleared, x[:, row])
+    return out, np.where(legal, k, 0).astype(np.int32), legal
+
+
+def emulate_legal_general(cfg, words, queue, mk):
+    """csrc/packed_tall.cu legal_row_general for every (env-slot, anchor
+    row) thread: (N*S, H) legal bits, the rows read straight."""
+    h, w, s = cfg.height, cfg.width, cfg.queue_size
+    prow = mk.prow32.numpy().view(np.uint32).astype(np.int64)
+    piece_w = mk.piece_w32.numpy()
+    full = (1 << w) - 1
+    es = np.arange(len(words) * s)[:, None]
+    row = np.arange(h)[None, :]
+    pid = queue.reshape(-1)[es]
+    has = (pid >= 0) & (pid < mk.num_pieces)
+    p = np.where(has, pid, 0)
+    ok = has & (piece_w[p] <= w)
+    blocked = np.zeros((len(es), h), np.int64)
+    x = words.astype(np.int64)[es[:, 0] // s]
+    for k in range(mk.tables.nwords):
+        wk = np.zeros_like(blocked)
+        for f in range(mk.tables.fpw):
+            t = row + k * mk.tables.fpw + f
+            y = np.where(t < h, np.take_along_axis(x, np.minimum(t, h - 1).repeat(
+                len(es), axis=0), axis=1), full)
+            wk |= _shl32(y, f * w)
+        m = prow[p, k]
+        for bit in range(32):
+            blocked |= np.where((m >> bit) & 1, wk >> bit, 0)
+    anchors = _shl32(1, np.maximum(w - piece_w[p] + 1, 0)) - 1
+    return np.where(ok, ~blocked & anchors & U32, 0)
+
+
+# ------------------------------------------------------------ u8, tall ----
+
+
+def _turns(per_warp, warps):
+    """The env-slot (or env) of the block each warp holds in each of its
+    ``per_warp`` turns, turn-major: it * warps + warp, as (E, 1, 1)."""
+    return (np.arange(per_warp)[:, None] * warps + np.arange(warps)[None, :]).reshape(
+        -1, 1, 1)
+
+
+def emulate_mask_tall_kernel(cfg, board, queue, mk, addr=0):
+    """csrc/mask.cu mask_tall_kernel on ``mk``'s piece table and launch
+    shape: a warp an env-slot at a time, ``per_warp`` turns each from one
+    staged span of the block's env-slots (every turn of every warp at once
+    here), each lane packing its rows (NW words a row), each rectangle's
+    vertical OR from the rows below (``rows_below``), its smear and dc shift
+    on the NW-word rows, the legal rows staged and stored by
+    ``store_tall``.  A turn's piece id comes from lane ``it`` of its warp,
+    which loaded it before the block's barrier."""
+    h, w, s = cfg.height, cfg.width, cfg.queue_size
+    hw, n, nw, nr = cfg.num_cells, len(board), -(-w // 32), -(-h // 32)
+    pieces = mk.piece_table.numpy().astype(np.int64) & U32
+    per_warp, warps = mk.shape
+    per_block, total = per_warp * warps, n * s
+    rows = _slot_rows(nr)[None]
+    seg = _turns(per_warp, warps)
+    out = np.full(total * hw, 2, np.uint8)                    # 2: never written
+    for first in range(0, total, per_block):
+        count = min(per_block, total - first)
+        env0 = first // s
+        buf, d = emulate_stage_bytes(
+            board.reshape(-1), env0 * hw, ((first + count - 1) // s + 1) * hw, addr)
+        active = seg < count
+        # lane l of warp v: the id of the env-slot l * warps + v (turn l)
+        lane_seg = LANE[None, :] * warps + np.arange(warps)[:, None]      # (warps, 32)
+        pids = np.where((LANE < per_warp) & (lane_seg < count),
+                        queue.reshape(-1)[first + np.minimum(lane_seg, count - 1)], -1)
+        it, v = np.divmod(seg[:, 0, 0], warps)
+        pid = pids[v, it][:, None, None]                      # __shfl_sync(pids, it)
+        has = (pid >= 0) & (pid < mk.num_pieces)
+        pc = np.where(has[..., None], pieces[np.where(has, pid, 0)],
+                      np.array([h + 1, w + 1, 0, 0]))        # (warps, 1, 1, 4)
+        env = _small_div(first - env0 * s + seg, s)
+        live = np.broadcast_to(active & (rows < h), (per_block, nr, 32))
+        at = np.broadcast_to(d + env * hw + np.minimum(rows, h - 1) * w, live.shape)
+        x = [emulate_pack_row(buf, at + 32 * i, min(32, w - 32 * i), live)
+             for i in range(nw)]
+        r1, r2 = pc[..., 2], pc[..., 3]
+        v1 = [np.zeros_like(a) for a in x]
+        v2 = [np.zeros_like(a) for a in x]
+        for t in range(mk.max_h):
+            in1 = (t >= r1 & 0xFF) & (t - (r1 & 0xFF) < (r1 >> 16) & 0xFF)
+            in2 = (t >= r2 & 0xFF) & (t - (r2 & 0xFF) < (r2 >> 16) & 0xFF)
+            for i in range(nw):
+                y = _rows_below(x[i], t, 0)
+                v1[i] |= np.where(in1, y, 0)
+                v2[i] |= np.where(in2, y, 0)
+        b1 = _shr_words(emulate_smear_words(v1, r1 >> 24), (r1 >> 8) & 0xFF)
+        b2 = _shr_words(emulate_smear_words(v2, r2 >> 24), (r2 >> 8) & 0xFF)
+        anchors = w - pc[..., 1] + 1
+        fits = (rows + pc[..., 0] <= h) & (anchors > 0)
+        staged = np.full(per_block * h * nw, -1, np.int64)
+        for i in range(nw):
+            a = anchors - 32 * i
+            span = np.where(a >= 32, U32, np.where(a > 0, (1 << np.clip(a, 0, 31)) - 1, 0))
+            legal = np.where(fits, ~(b1[i] | b2[i]) & span, 0)
+            at_row = np.broadcast_to((seg * h + rows) * nw + i, live.shape)
+            staged[at_row[live]] = legal[live]
+        emulate_store_tall(staged, out, first * hw, count * hw, w, nw)
+    assert (out < 2).all()
+    return out.reshape(n, s * hw).astype(bool)
+
+
+def emulate_clear_tall_kernel(cfg, board, ck, addr=0):
+    """csrc/clear.cu clear_tall_kernel on ``ck``'s launch shape: a warp an
+    env at a time, ``per_warp`` turns each from one staged span of the
+    block's envs (every turn at once here), its rows packed from the span
+    (rows past the bottom all ones), through ``clear_tall``, stored by
+    ``store_tall``."""
+    h, w, hw, n = cfg.height, cfg.width, cfg.num_cells, len(board)
+    nw, nr = -(-w // 32), -(-h // 32)
+    rs = cfg.region_size if cfg.region_clear else 0
+    per_warp, warps = ck.shape
+    per_block = per_warp * warps
+    rows = _slot_rows(nr)[None]
+    seg = _turns(per_warp, warps)
+    out, ks = np.full(n * hw, 2, np.uint8), np.full(n, -1, np.int64)
+    for first in range(0, n, per_block):
+        count = min(per_block, n - first)
+        buf, d = emulate_stage_bytes(board.reshape(-1), first * hw, (first + count) * hw, addr)
+        active = seg[:, 0, 0] < count
+        live = np.broadcast_to(active[:, None, None] & (rows < h), (per_block, nr, 32))
+        at = np.broadcast_to(d + seg * hw + np.minimum(rows, h - 1) * w, live.shape)
+        x = [np.where(live, emulate_pack_row(buf, at + 32 * i, min(32, w - 32 * i), live), U32)
+             for i in range(nw)]
+        cleared, k = emulate_clear_tall(x, active, h, w, rs)
+        staged = np.full(per_block * h * nw, -1, np.int64)
+        for i in range(nw):
+            at_row = np.broadcast_to((seg * h + rows) * nw + i, live.shape)
+            staged[at_row[live]] = cleared[i][live]
+        for e, kk in zip(seg[:, 0, 0][active], k[active]):
+            assert ks[first + e] == -1                        # one lane 0 writes k
+            ks[first + e] = kk
+        emulate_store_tall(staged, out, first * hw, count * hw, w, nw)
+    assert (out < 2).all() and (ks >= 0).all()
+    return out.reshape(n, hw), ks.astype(np.int32)
+
+
+# ------------------------------------------------------------------ tests ----
+
+
+@pytest.mark.parametrize("height", [33, 40, 64, 128, 130])
+def test_packed_wrappers_name_a_kernel_for_every_height_jax_takes(height):
+    """JAX's ``make_env`` takes packed state on a board of at most 32
+    columns whatever its height, and so does the port's; the packed
+    wrappers name a kernel with a C entry point for each such height: the
+    tall kernels up to 128 rows, the general ones above.  (Before them the
+    wrappers had no kernel above 32 rows and raised at the first step on
+    the card.)"""
+    cj, ct = _pair(dict(height=height, width=9))
+    assert jax_make_env(cj).state_impl == "packed"
+    from blockpuzzle_tpu_torch.env import make_env
+
+    env = make_env(ct, device="cpu")
+    assert env.state_impl == "packed"
+    kind = "tall" if height <= 128 else "general"
+    ak, mk = env.packed_apply_kernel, env.packed_mask_kernel
+    assert ak.kind == mk.kind == kind
+    names = (ak.name, mk.name, mk.words_name)
+    assert names == tuple(f"{k}_{kind}" for k in ("packed_apply", "packed_mask",
+                                                  "packed_legal_words"))
+    entries = ("bp_" + ak.name, "bp_" + mk.name, "bp_packed_words_" + kind)
+    assert all(e in _build.SIGNATURES for e in entries)
+    assert (mk.shape is not None) == (kind == "tall")
+    if kind == "tall":
+        assert mk.shape == tall_launch_shape(ct) and 4 <= mk.shape[1] <= 16
+    # a board of at most 32 rows keeps its bit-row kernels
+    short = tcfg.EnvConfig(height=32, width=9)
+    assert PackedApplyKernel(short, "cpu").name == "packed_apply"
+    assert PackedMaskKernel(short, "cpu").name == "packed_mask"
+
+
+@pytest.mark.parametrize("case", [*PACKED_TALL, *PACKED_GENERAL])
+def test_tall_packed_apply_matches_jax_packed_step(case):
+    """The cover words, the clear and the whole apply block against JAX's
+    packed engine, then the wrapper (plain version on the CPU) and the
+    kernel's emulation: the tall kernel's up to 128 rows, the general
+    one's above."""
+    env_j = jax_packed(case)
+    _, ct = _pair({**PACKED_TALL, **PACKED_GENERAL}[case])
+    rng = np.random.default_rng(1)
+    cells = tall_cells(ct, N, rng)
+    words = np_words(cells)
+    attrs, r, c, valid = chosen_actions(ct, N, rng)
+    attrs[5], r[5], c[5], valid[5] = attrs[2], 32, 0, True   # completes row 32
+    want_next, want_k, want_legal, _ = (
+        np.asarray(x) for x in jax_apply(env_j, words, attrs, r, c, valid))
+    tw = torch.as_tensor(words.astype(np.int64))
+    ak = PackedApplyKernel(ct, "cpu")
+    got = ak(tw, *(torch.as_tensor(x) for x in (attrs, r, c, valid)))
+    emulate = (emulate_packed_apply_tall if ak.kind == "tall"
+               else emulate_packed_apply_general)
+    emu = emulate(ct, words, attrs, r, c, valid)
+    for g, e, wnt, name in zip(got, emu, (want_next.astype(np.int64), want_k, want_legal),
+                               ("words", "k", "legal")):
+        np.testing.assert_array_equal(g.numpy(), wnt, name)
+        np.testing.assert_array_equal(e, wnt, name)
+    assert want_legal[5] and want_k[5] >= 1 and want_next[5, 32] == 0
+    assert want_legal.any() and (~want_legal).any()
+    if ct.region_clear:  # the band across the seam (rows 30..32) cleared
+        cl_j, k_j = env_j._clear_scan_packed(jnp.asarray(words))
+        assert (np.asarray(cl_j)[3::5, 30:33] & 7 == 0).all() and np.asarray(k_j)[3] >= 1
+    assert (ak.launches, ak.tall_launches, ak.general_launches) == (0, 0, 0)
+
+
+@pytest.mark.parametrize("case", [*PACKED_TALL, *PACKED_GENERAL])
+def test_tall_packed_mask_and_words_match_jax(case):
+    """The bool mask against JAX's ``_bitboard_mask_from_words`` and the
+    words entry against its ``legal_words``: the plain versions and the
+    tall (or general) kernels' emulations, with empty slots and ids past
+    the sentinel, the words also equal to the mask packed to words."""
+    env_j = jax_packed(case)
+    _, ct = _pair({**PACKED_TALL, **PACKED_GENERAL}[case])
+    rng = np.random.default_rng(2)
+    words = np_words(tall_cells(ct, N, rng, fill=0.3))
+    num_pieces = rules.tables_for(ct).num_pieces
+    queue = rng.integers(-1, num_pieces + 2, (N, ct.queue_size)).astype(np.int32)
+    queue[0] = num_pieces
+    queue[1] = 4                                           # a 1x5 bar: 5 rows
+    jw, jq = jnp.asarray(words), jnp.asarray(np.clip(queue, 0, num_pieces))
+    dealt = (queue >= 0).all(axis=1) & (queue <= num_pieces).all(axis=1)
+    want = np.asarray(env_j._bitboard_mask_from_words(jw, jq))
+    want_words = np.asarray(jwords.legal_words(env_j, jw, jq)).astype(np.int64)
+    mk = PackedMaskKernel(ct, "cpu")
+    tw, tq = torch.as_tensor(words.astype(np.int64)), torch.as_tensor(queue)
+    got, got_words = mk(tw, tq).numpy(), mk.words(tw, tq).numpy()
+    np.testing.assert_array_equal(got[dealt], want[dealt])
+    np.testing.assert_array_equal(got_words[dealt], want_words[dealt])
+    np.testing.assert_array_equal(   # ids out of [0, P] read as empty slots
+        got[~dealt], mk.plain(tw, torch.as_tensor(np.where(
+            (queue >= 0) & (queue < num_pieces), queue, num_pieces))).numpy()[~dealt])
+    if mk.kind == "tall":
+        np.testing.assert_array_equal(emulate_packed_mask_tall(ct, words, queue, mk), got)
+        np.testing.assert_array_equal(emulate_packed_words_tall(ct, words, queue, mk),
+                                      got_words)
+    else:
+        bits = emulate_legal_general(ct, words, queue, mk)
+        np.testing.assert_array_equal(bits.reshape(N, -1), got_words)
+        cells = (bits[..., None] >> np.arange(ct.width)) & 1
+        np.testing.assert_array_equal(cells.reshape(N, -1).astype(bool), got)
+    packed = (got.reshape(N, -1, ct.width).astype(np.int64)
+              << np.arange(ct.width)).sum(axis=2)
+    np.testing.assert_array_equal(packed, got_words)
+    assert 0 < want.mean() < 1 and not got[0].any()
+    assert (mk.launches, mk.tall_launches, mk.general_launches) == (0, 0, 0)
+    assert (mk.words_launches, mk.words_tall_launches, mk.words_general_launches) == (0, 0, 0)
+
+
+def _u8_inputs(cfg, n, rng, fill):
+    """Boards of 0/1 cells with full lines at the seams (``tall_cells``), a
+    full board and an empty one, and hands with empty slots and an id below
+    0."""
+    board = tall_cells(cfg, n, rng, fill).reshape(n, -1)
+    board[n - 1], board[n - 2] = 1, 0
+    num_pieces = rules.tables_for(cfg).num_pieces
+    queue = rng.integers(0, num_pieces + 1, (n, cfg.queue_size)).astype(np.int32)
+    queue[0] = num_pieces
+    queue[1, 0] = -1
+    return board, queue
+
+
+@pytest.mark.parametrize("case", U8_TALL)
+def test_mask_tall_matches_jax_mask(case):
+    """The u8 mask on tall boards against JAX's: the Pallas kernel in
+    interpret mode where its one-hot tables are small (33x9, 36x9), the
+    JAX u8 engine's shift mask on every board (on the envs whose hand ids
+    are >= 0); then the wrapper (plain version) and the tall kernel's
+    emulation."""
+    shape = U8_TALL[case]
+    cj, ct = _pair(shape)
+    board, queue = _u8_inputs(ct, N, np.random.default_rng(3), fill=0.4)
+    dealt = (queue >= 0).all(axis=1)
+    engine = np.asarray(jax_make_env(cj, state_impl="u8", mask_impl="shift").action_mask(
+        jnp.asarray(board), jnp.asarray(queue)))
+    mk = MaskKernel(ct, "cpu")
+    assert mk.kind == "tall" and mk.name == "mask_tall" and not mk.wide
+    got = mk(torch.as_tensor(board), torch.as_tensor(queue)).numpy()
+    np.testing.assert_array_equal(got[dealt], engine[dealt])
+    if ct.num_cells <= 400:
+        want = np.asarray(jk.MaskKernel(cj, tile_n=N)(
+            jnp.asarray(board), jnp.asarray(queue), interpret=True))
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(emulate_mask_tall_kernel(ct, board, queue, mk), got)
+    assert 0 < got.mean() < 1 and not got[[0, N - 1]].any()
+    assert (mk.launches, mk.wide_launches, mk.tall_launches, mk.general_launches) == (
+        0, 0, 0, 0)
+
+
+@pytest.mark.parametrize("case", U8_TALL)
+def test_clear_tall_matches_jax_clear_kernel(case):
+    """The u8 clear on tall boards against the Pallas kernel (interpret
+    mode) and the JAX u8 engine's ``clear_scan``: full rows at the seam,
+    full columns, a full 3x3 region across the seam, a full and an empty
+    board; then the wrapper (plain version) and the tall kernel's
+    emulation."""
+    cj, ct = _pair(U8_TALL[case])
+    board, _ = _u8_inputs(ct, N, np.random.default_rng(4), fill=0.6)
+    want = [np.asarray(x) for x in jk.ClearScanKernel(cj, tile_n=N)(
+        jnp.asarray(board), interpret=True)]
+    engine = jax_make_env(cj, state_impl="u8").clear_scan(jnp.asarray(board))
+    ck = ClearScanKernel(ct, "cpu")
+    assert ck.kind == "tall" and ck.name == "clear_tall" and ck.shape is not None
+    got = ck(torch.as_tensor(board))
+    emu = emulate_clear_tall_kernel(ct, board, ck)
+    for i, name in enumerate(("board", "k")):
+        np.testing.assert_array_equal(got[i].numpy(), want[i], name)
+        np.testing.assert_array_equal(np.asarray(engine[i]), want[i], name)
+        np.testing.assert_array_equal(emu[i], want[i], name)
+    k, cleared = want[1], want[0].reshape(N, ct.height, ct.width)
+    assert k[N - 1] == ct.height + ct.width + (
+        (ct.height // ct.region_size) * (ct.width // ct.region_size) if ct.region_clear else 0)
+    assert not cleared[2, 32].any() and k[2] >= 1          # row 32, slot 1's first
+    if ct.region_clear:                                      # the band across the seam
+        assert not cleared[3, 30:33, 0:3].any()
+    assert (ck.launches, ck.wide_launches, ck.tall_launches, ck.general_launches) == (
+        0, 0, 0, 0)
+
+
+@pytest.mark.parametrize("case", ["tall33", "tall36r3", "tall40x40"])
+@pytest.mark.parametrize("addr", [3, 13])
+def test_tall_emulations_take_any_board_address(case, addr):
+    """Boards that start off a 16-byte boundary: the tall mask and clear's
+    emulations stage an unaligned head and tail byte by byte and still
+    equal the plain versions (N = 13: the last block short of its
+    env-slots)."""
+    _, ct = _pair(U8_TALL[case])
+    board, queue = _u8_inputs(ct, N, np.random.default_rng(addr), fill=0.5)
+    mk, ck = MaskKernel(ct, "cpu"), ClearScanKernel(ct, "cpu")
+    tb, tq = torch.as_tensor(board), torch.as_tensor(queue)
+    np.testing.assert_array_equal(emulate_mask_tall_kernel(ct, board, queue, mk, addr),
+                                  mk(tb, tq).numpy())
+    for e, p in zip(emulate_clear_tall_kernel(ct, board, ck, addr), ck(tb)):
+        np.testing.assert_array_equal(e, p.numpy())
+
+
+def test_tall_block_shapes_fit_and_divide_exactly():
+    """For every board the tall kernels take (32 < H <= 128, W <= 128): 16
+    warps taking the most turns (4, 2 or 1) whose block fits 48 KB, or one
+    turn and 4 to 16 warps whose shared memory fits what a block may opt in
+    to; an output span that starts on a 16-byte boundary wherever such a
+    block fits, and bytes under the 2^21 that ``small_div``'s proof needs;
+    the float32 division the store does gives q // W for every byte q of
+    the largest block of each W."""
+    most = {}
+    for h in range(33, 129):
+        for w in range(1, 129):
+            cfg = tcfg.EnvConfig(height=h, width=w)
+            per_warp, warps = tall_launch_shape(cfg)
+            assert 4 <= warps <= 16 and per_warp in (1, 2, 4)
+            per_block = per_warp * warps
+            smem = tall_smem_bytes(cfg, per_block)
+            assert smem <= SMEM_OPT_IN
+            if tall_smem_bytes(cfg, 16) <= 48 * 1024:   # no opt-in needed
+                assert warps == 16 and smem <= 48 * 1024
+                assert per_warp == 4 or tall_smem_bytes(cfg, 2 * per_block) > 48 * 1024
+            else:
+                assert per_warp == 1 and warps == tall_block_warps(cfg)
+            nbytes = per_block * cfg.num_cells
+            assert nbytes < 1 << 21
+            if tall_smem_bytes(cfg, 16) <= SMEM_OPT_IN:
+                assert nbytes % 16 == 0
+            most[w] = max(most.get(w, 0), nbytes)
+    assert tall_launch_shape(tcfg.EnvConfig(height=33, width=9)) == (4, 16)
+    for w, nbytes in most.items():
+        q = np.arange(nbytes)
+        inv = np.float32(1) / np.float32(w)
+        got = ((q.astype(np.float32) + np.float32(0.5)) * inv).astype(np.int64)
+        np.testing.assert_array_equal(got, q // w)
+    for h, w in ((32, 9), (129, 9), (40, 129)):
+        assert tall_launch_shape(tcfg.EnvConfig(height=h, width=w)) is None
+
+
+def test_u8_wrappers_take_the_general_kernels_above_128_rows():
+    """Boards of more than 128 rows take the general u8 kernels; the tall
+    ones stop at 128 (rows of more than 128 cells: no launch shape, above)."""
+    for shape, kind in ((dict(height=130, width=9), "general"),
+                        (dict(height=128, width=10), "tall")):
+        cfg = tcfg.EnvConfig(**shape)
+        mk, ck = MaskKernel(cfg, "cpu"), ClearScanKernel(cfg, "cpu")
+        assert mk.kind == ck.kind == kind
+        assert (mk.shape is None) == (ck.shape is None) == (kind == "general")
+        ak, lk = ApplyKernel(cfg, "cpu"), LegalityKernel(cfg, "cpu")
+        assert (ak.name, lk.name) == ("apply_general", "legality_general")

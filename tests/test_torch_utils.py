@@ -268,24 +268,32 @@ def test_validate_env_state_catches_broken_states(state_impl):
 # ------------------------------------------------------------- bounds ----
 
 # the bytes of each kernel's call at N = 49152 on the default preset, in MB,
-# as PERF.md's table of bounds records them (the wide and general kernels'
-# on their 8x40 board)
+# as PERF.md's table of bounds records them (the wide and general u8
+# kernels' on their 8x40 board, the tall kernels' on 33x9, the general
+# packed kernels' on 130x8)
 RECORDED_MB = {"mask": 10.03, "apply": 15.04, "clear": 10.03, "legality": 98.3,
                "packed_apply": 10.72, "packed_mask": 9.04, "packed_legal_words": 8.06,
                "mask_wide": 31.65, "clear_wide": 31.65,
                "mask_general": 31.65, "apply_general": 47.48, "clear_general": 31.65,
                "legality_general": 314.6, "deal": 0.98, "uniform_legal": 5.70,
-               "words_select": 4.72}
+               "words_select": 4.72, "mask_tall": 29.39, "clear_tall": 29.39,
+               "packed_apply_tall": 28.80, "packed_mask_tall": 27.77,
+               "packed_legal_words_tall": 26.15, "packed_apply_general": 105.1,
+               "packed_mask_general": 102.4, "packed_legal_words_general": 102.4}
 
 
 def kernel_call(name, n):
     """(cfg, inputs, outputs): CPU tensors of the shapes and dtypes of one
     call of kernel ``name`` on ``n`` envs (default preset; the wide and
-    general kernels on an 8x40 board)."""
+    general u8 kernels on an 8x40 board, the tall ones on 33x9, the general
+    packed ones on 130x8)."""
     from blockpuzzle_tpu_torch import rules
     from blockpuzzle_tpu_torch.config import EnvConfig
 
-    cfg = (EnvConfig(height=8, width=40) if name.endswith(("_wide", "_general"))
+    cfg = (EnvConfig(height=33, width=9) if name.endswith("_tall")
+           else EnvConfig(height=130, width=8) if name.startswith("packed")
+           and name.endswith("_general")
+           else EnvConfig(height=8, width=40) if name.endswith(("_wide", "_general"))
            else PRESETS["default"]())
     hw, s, h = cfg.num_cells, cfg.queue_size, cfg.height
     p = rules.tables_for(cfg).num_pieces
@@ -308,7 +316,8 @@ def kernel_call(name, n):
         "uniform_legal": ((i64(n), 7, b(n, s * hw)), (i64(n),)),
         "words_select": ((i64(n), 7, i64(n, s * h), cfg.width), (i64(n),)),
     }
-    return (cfg,) + calls[name.removesuffix("_general").removesuffix("_wide")]
+    base = name.removesuffix("_general").removesuffix("_wide").removesuffix("_tall")
+    return (cfg,) + calls[base]
 
 
 @pytest.mark.parametrize("name", RECORDED_MB)
