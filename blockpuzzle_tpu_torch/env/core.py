@@ -6,19 +6,23 @@ board layouts, with the hand CUDA kernels of ``kernels/``:
 * ``state_impl="packed"`` (the default where rows fit a 32-bit word):
   boards are (N, H) row words, held as int64 (``kernels/packed.py``).
   ``PackedApplyKernel`` tests, places and clears the chosen action;
-  ``PackedMaskKernel`` builds the hand mask.
+  ``PackedMaskKernel`` builds the hand mask; ``PackedTailKernel`` does the
+  rest of the step in one launch (game over, truncation, auto-reset and
+  both board views) and unpacks boards for ``board_obs``.
 * ``state_impl="u8"``: boards are (N, H*W) uint8 cells.  ``MaskKernel``
   builds the hand mask; ``backend="pallas"`` tests, places and clears the
   chosen action in ``ApplyKernel``; ``backend="jnp"`` and ``"hybrid"`` do
   the collision test and the masked place in torch and the clear in
-  ``ClearScanKernel`` (``clear_scan``).
+  ``ClearScanKernel`` (``clear_scan``); the rest of the step is the
+  torch code of ``kernels/tail.py`` ``tail_plain``.
 
 On both, every deal (the step's refill and auto-reset draw, ``init``,
 ``reset`` and ``partial_reset``) is one launch of ``DealKernel``.
 
 ``legal_all_pieces`` is ``LegalityKernel`` on u8 cells (packed boards are
 unpacked first).  The layouts and backends give the same bits, and one
-``step`` body serves them all: only the apply block and the mask differ.
+``step`` body serves them all: only the apply block, the mask and the tail
+differ.
 Everything around the kernels is plain torch on the engine's device, and
 one step never waits for the device (no ``.item()``, no branch on tensor
 values).
@@ -48,10 +52,13 @@ from blockpuzzle_tpu_torch.kernels import (
     MaskKernel,
     PackedApplyKernel,
     PackedMaskKernel,
+    PackedTailKernel,
     _build,
+    tail_plain,
 )
 from blockpuzzle_tpu_torch.kernels.collision import place_and_clear
-from blockpuzzle_tpu_torch.kernels.packed import pack_words, unpack_words
+from blockpuzzle_tpu_torch.kernels.packed import pack_words
+from blockpuzzle_tpu_torch.kernels.tail import empty_legal_table
 
 BACKENDS = ("pallas", "jnp", "hybrid")
 STATE_IMPLS = ("packed", "u8")
@@ -64,8 +71,9 @@ class VecBlockPuzzle:
     The instance holds the configuration, its tables on ``device`` and the
     kernel wrappers (``deal_kernel``, ``mask_kernel``, ``apply_kernel``,
     ``clear_kernel``, ``legal_kernel``, and, where rows fit a 32-bit word,
-    ``packed_apply_kernel`` and ``packed_mask_kernel``); the methods are
-    functions of the state they are given.
+    ``packed_apply_kernel``, ``packed_mask_kernel`` and
+    ``packed_tail_kernel``); the methods are functions of the state they
+    are given.
 
     On u8 boards ``backend`` picks how ``step`` applies the chosen action:
     ``"pallas"`` through the apply kernel, as the JAX engine's
@@ -110,10 +118,7 @@ class VecBlockPuzzle:
         attrs = np.concatenate([attrs, np.zeros((1, 11), attrs.dtype)])
         self._attrs = torch.as_tensor(attrs, dtype=torch.int32, device=self.device)
         # legal anchors on an EMPTY board per piece, zero row at P
-        empty_legal = np.concatenate(
-            [t.valid.reshape(t.num_pieces, hw), np.zeros((1, hw), bool)]
-        )
-        self._empty_legal = torch.as_tensor(empty_legal, device=self.device)
+        self._empty_legal = torch.as_tensor(empty_legal_table(cfg), device=self.device)
         cells = torch.arange(hw, dtype=torch.int32, device=self.device)
         self._row_idx = (cells // cfg.width)[None, :]                  # (1, HW)
         self._col_idx = (cells % cfg.width)[None, :]                   # (1, HW)
@@ -131,9 +136,11 @@ class VecBlockPuzzle:
         self.clear_kernel = ClearScanKernel(cfg, self.device)
         self.legal_kernel = LegalityKernel(cfg, self.device)
         self.packed_apply_kernel = self.packed_mask_kernel = None
+        self.packed_tail_kernel = None
         if cfg.width <= 32:
             self.packed_apply_kernel = PackedApplyKernel(cfg, self.device)
             self.packed_mask_kernel = PackedMaskKernel(cfg, self.device)
+            self.packed_tail_kernel = PackedTailKernel(cfg, self.device)
 
     # ------------------------------------------------------------------
     # tables and masks
@@ -157,7 +164,7 @@ class VecBlockPuzzle:
         legality kernel on u8 cells; packed boards are unpacked first).  An
         inspection surface, not on the step."""
         if self._packed:
-            board = self._unpack_board(board).reshape(board.shape[0], -1)
+            board = self.board_obs(board).reshape(board.shape[0], -1)
         return self.legal_kernel(board)
 
     def clear_scan(self, board: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -185,14 +192,11 @@ class VecBlockPuzzle:
         """(N, HW) uint8 cells -> (N, H) int64 row words."""
         return pack_words(board.view(-1, self.cfg.height, self.cfg.width))
 
-    def _unpack_board(self, words: torch.Tensor) -> torch.Tensor:
-        """(N, H) int64 row words -> (N, H, W) uint8 cells."""
-        return unpack_words(words, self.cfg.width)
-
     def board_obs(self, board: torch.Tensor) -> torch.Tensor:
-        """(N, H, W) uint8 board view (for policies) of either layout."""
+        """(N, H, W) uint8 board view (for policies) of either layout: packed
+        row words through the tail kernel's ``unpack``."""
         if self._packed:
-            return self._unpack_board(board)
+            return self.packed_tail_kernel.unpack(board)
         return board.view(board.shape[0], self.cfg.height, self.cfg.width)
 
     def encode_board(self, cells) -> torch.Tensor:
@@ -454,69 +458,53 @@ class VecBlockPuzzle:
             deal_vals = deals.gather(1, pos.clamp(min=0))
         queue3 = torch.where(refill_slots, deal_vals, queue2)
 
-        # -- mask + termination (kernel) ---------------------------------
+        # -- mask (kernel), then the tail: termination, truncation, score,
+        # auto-reset and both board views (one kernel on packed boards) --
         mask = self.action_mask(board_next, queue3)
-        terminated = ~mask.any(dim=1)
-        reward = torch.where(terminated, reward + cfg.terminal_penalty, reward)
-        steps_next = state.steps + 1
-        if cfg.max_steps > 0:
-            # independent of `terminated`: both flags are set when the game
-            # ends exactly at the horizon
-            truncated = steps_next >= cfg.max_steps
-        else:
-            truncated = torch.zeros_like(terminated)
-        done = terminated | truncated
-        score_next = state.score + reward
+        if auto_reset and reset_deals is None:  # parity mode with auto-reset
+            reset_deals = self.deal_kernel(
+                state.base_key, state.rng_counter, rng.TAG_RESET, s)
+        tail = self.packed_tail_kernel if self._packed else self._u8_tail
+        out = tail(board_next, mask, reward, queue3, reset_deals, state.steps,
+                   state.score, streak_next, state.rng_counter, auto_reset)
 
         info = {
             "lines_cleared": k,
             "legal": legal,
-            "episode_return": score_next,
-            "episode_length": steps_next,
+            "episode_return": out.score_next,
+            "episode_length": out.steps_next,
             "streak": streak_next,
         }
-
-        # -- auto-reset ---------------------------------------------------
         if auto_reset:
-            if reset_deals is None:  # parity mode with auto-reset
-                reset_deals = self.deal_kernel(
-                    state.base_key, state.rng_counter, rng.TAG_RESET, s)
-            dcol = done[:, None]
-            board_out = torch.where(dcol, torch.zeros_like(board_next), board_next)
-            queue_out = torch.where(dcol, reset_deals, queue3)
-            mask_out = torch.where(dcol, self._empty_board_mask(reset_deals), mask)
-            steps_out = torch.where(done, 0, steps_next).to(torch.int32)
-            score_out = torch.where(done, 0.0, score_next)
-            streak_out = torch.where(done, 0, streak_next).to(torch.int32)
             # pre-reset ("final") observation, identical to the live obs
             # for envs that are not done
-            info["final_board"] = self.board_obs(board_next)
+            info["final_board"] = out.final_board
             info["final_queue"] = queue3
             info["final_action_mask"] = mask
             if cfg.obs_planes:
                 info["final_piece_planes"] = self.piece_planes(queue3)
-        else:
-            board_out, queue_out, mask_out = board_next, queue3, mask
-            steps_out, score_out = steps_next, score_next
-            streak_out = streak_next
 
         new_state = EnvState(
-            board=board_out,
-            queue=queue_out,
+            board=out.board_out,
+            queue=out.queue_out,
             base_key=state.base_key,
-            rng_counter=state.rng_counter + 1,
-            steps=steps_out,
-            score=score_out,
-            streak=streak_out,
+            rng_counter=out.rng_counter,
+            steps=out.steps_out,
+            score=out.score_out,
+            streak=out.streak_out,
         )
         ts = TimeStep(
-            board=self.board_obs(board_out),
-            queue=queue_out,
-            action_mask=mask_out,
-            reward=reward,
-            terminated=terminated,
-            truncated=truncated,
+            board=out.board,
+            queue=out.queue_out,
+            action_mask=out.mask_out,
+            reward=out.reward,
+            terminated=out.terminated,
+            truncated=out.truncated,
             info=info,
-            piece_planes=self._maybe_planes(queue_out),
+            piece_planes=self._maybe_planes(out.queue_out),
         )
         return new_state, ts
+
+    def _u8_tail(self, *args):
+        """The u8 step's tail: ``tail_plain`` on its cells."""
+        return tail_plain(*args, self.cfg, self._empty_legal, self.board_obs)

@@ -11,8 +11,11 @@ raises, and counts each launch in its ``launches`` attribute, a plain int
 ``tall_launches``; the packed wrappers their tall and general kernels in
 ``tall_launches`` and ``general_launches``, the packed mask its words entry
 in ``words_launches``, ``words_tall_launches`` and
-``words_general_launches``); ``name`` is the kernel a wrapper picked.  The draw wrappers (``draws.py``) compute the port's
-counter-based random draws: the deal and the two uniform-legal policies.
+``words_general_launches``, the packed tail its unpack entry in
+``unpack_launches``); ``name`` is the kernel a wrapper picked.  The draw
+wrappers (``draws.py``) compute the port's counter-based random draws: the
+deal and the two uniform-legal policies; the packed tail (``tail.py``) the
+step from the mask onward and the board unpack.
 """
 
 from blockpuzzle_tpu_torch.kernels.clear import ClearScanKernel, clear_plain
@@ -35,10 +38,11 @@ from blockpuzzle_tpu_torch.kernels.packed import (
     packed_legal_words_plain,
     packed_mask_plain,
 )
+from blockpuzzle_tpu_torch.kernels.tail import PackedTailKernel, tail_plain
 
 __all__ = [
     "ApplyKernel", "ClearScanKernel", "DealKernel", "LegalityKernel", "MaskKernel",
-    "PackedApplyKernel", "PackedMaskKernel", "UniformLegalKernel", "WordsSelectKernel",
-    "apply_plain", "clear_plain", "legality_plain", "mask_plain",
-    "packed_apply_plain", "packed_legal_words_plain", "packed_mask_plain",
+    "PackedApplyKernel", "PackedMaskKernel", "PackedTailKernel", "UniformLegalKernel",
+    "WordsSelectKernel", "apply_plain", "clear_plain", "legality_plain", "mask_plain",
+    "packed_apply_plain", "packed_legal_words_plain", "packed_mask_plain", "tail_plain",
 ]

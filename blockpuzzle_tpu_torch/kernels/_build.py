@@ -28,8 +28,10 @@ NVCC_FLAGS = [
 ]
 
 _P, _I, _U32, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint64
+_F = ctypes.c_float
 # C entry point -> argument types; every pointer and the stream are
-# c_void_p (ctypes would otherwise pass a 32-bit int and cut them).
+# c_void_p (ctypes would otherwise pass a 32-bit int and cut them), and a
+# float is c_float (ctypes would otherwise pass a Python float as a double).
 SIGNATURES = {
     "bp_mask": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bp_mask_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -52,6 +54,8 @@ SIGNATURES = {
     "bp_packed_mask_general": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "bp_packed_words_tall": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "bp_packed_words_general": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "bp_packed_tail": [*[_P] * 24, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+    "bp_packed_unpack": [_P, _P, _I, _I, _I, _I, _P],
     "bp_deal": [_P, _P, _U32, _I, _I, _I, _P, _I, _P],
     "bp_uniform_legal": [_P, _U32, _I, _P, _P, _I, _I, _P],
     "bp_words_select": [_P, _U32, _I, _P, _P, _I, _I, _I, _P],

@@ -22,7 +22,8 @@ one chunk itself, in a pass of its own that is never timed:
 * hand kernels: they launch through ctypes, which the mode never sees on
   the card, while on the CPU the same call runs its plain version as torch
   ops, which the mode does see.  For the count pass only, the engine's
-  kernel wrappers (the deal's among them) and the policy's draw kernel are
+  kernel wrappers (the deal's and, on packed boards, the step tail's among
+  them) and the policy's draw kernel are
   wrapped (``counted_kernels``): each call runs with the count paused and
   adds the bytes and operations that ``utils/bounds.py`` gives for the
   call's own tensors, so both devices count the same work.  The engine and
@@ -93,7 +94,7 @@ FREE = frozenset({"empty", "empty_like", "empty_strided", "new_empty",
 # ``mask_wide``, ``clear_tall``, ``packed_apply_general``, ...)
 STEP_KERNELS = {"deal_kernel": "deal", "mask_kernel": None, "apply_kernel": None,
                 "clear_kernel": None, "packed_apply_kernel": None,
-                "packed_mask_kernel": None}
+                "packed_mask_kernel": None, "packed_tail_kernel": None}
 # a sampler's draw kernel: sampler class name -> kernel name in ``COSTS``
 POLICY_KERNELS = {"UniformLegalSampler": "uniform_legal",
                   "WordsSampler": "words_select"}

@@ -45,6 +45,14 @@ popcount total, 2 a word up to the chosen one on the search, about 10 on
 the uniform and the rank and 20 on the 5-step rank-select.  In each the
 ALU pipe is the busier.  The other kernels multiply little (one multiply
 a packed row word) and count it with the rest.
+
+The packed tail (B10) moves its bytes with little work: it ORs the mask
+a 32-bit word at a time (S*HW / 4 an env, again for the mask it writes
+with auto-reset), stages and writes its row words (2 a row), spends one
+operation per byte of each board view it writes (one, or two with
+auto-reset) and about 30 on an env's flags and scalars; the (P + 1, HW)
+empty-board table it reads counts once a call.  Its unpack entry stages
+the row words (one a row) and spends one per output byte.
 """
 
 from __future__ import annotations
@@ -85,7 +93,19 @@ def nbytes(tensors: Tensors) -> int:
 def bound(tensors: Tensors, ops: float) -> dict:
     """The least time for a kernel that reads and writes ``tensors`` once
     each and does ``ops`` integer operations: the larger of the two."""
-    moved = nbytes(tensors)
+    return bytes_bound(nbytes(tensors), ops)
+
+
+def call_bound(name: str, cfg: EnvConfig, inputs: Tensors, outputs: Tensors) -> dict:
+    """``bound`` of one call of kernel ``name`` from its ``COSTS`` entry's
+    bytes and operations (for a kernel that reads a table of its own, or
+    hands back some of its inputs as outputs)."""
+    return bytes_bound(*COSTS[name](cfg, inputs, outputs))
+
+
+def bytes_bound(moved: int, ops: float) -> dict:
+    """``bound`` of a call that moves ``moved`` bytes and does ``ops``
+    integer operations."""
     by_bytes = 1e3 * moved / HBM_BYTES_PER_S
     by_ops = 1e3 * ops / INT_OPS_PER_S
     return {"bound_ms": max(by_bytes, by_ops),
@@ -240,6 +260,32 @@ def _words_select(cfg: EnvConfig, inputs: Tensors, outputs: Tensors) -> Tuple[in
     return nbytes(list(inputs) + list(outputs)), float(max(alu, n * (FOLD_MULS + LANE_MULS)))
 
 
+def _packed_tail(cfg: EnvConfig, inputs: Tensors, outputs: Tensors) -> Tuple[int, float]:
+    """B10: inputs (words_next (N, H) i64, mask (N, S*HW) bool, reward,
+    queue3, reset_deals, steps, score, streak_next, rng_counter, auto_reset),
+    outputs ``kernels/tail.py`` ``Tail``.  With auto-reset it reads every
+    input tensor and writes every output; without, it reads neither the
+    reset deals nor the streak and writes the flags, the scalars and one
+    board view (the rest of ``Tail`` is its inputs)."""
+    (words, mask, reward, queue3, reset, steps, score, streak, counter,
+     auto_reset) = inputs
+    ins = [words, mask, reward, queue3, steps, score, counter]
+    outs = list(outputs[:7])
+    if auto_reset:
+        ins += [reset, streak]
+        outs += list(outputs[7:])
+    n, hw = words.shape[0], cfg.num_cells
+    table = (rules.tables_for(cfg).num_pieces + 1) * hw
+    views = 2 if auto_reset else 1  # the mask ORed and copied; the board views
+    ops = n * (views * cfg.queue_size * hw // 4 + 2 * cfg.height + views * hw + 30)
+    return nbytes(ins + outs) + table, float(ops)
+
+
+def _packed_unpack(cfg, inputs):
+    """B10's unpack entry: inputs (words (N, H) i64,)."""
+    return inputs[0].shape[0] * (cfg.height + cfg.num_cells)
+
+
 COSTS: Dict[str, Cost] = {
     "mask": _cost(_mask), "mask_wide": _cost(_mask_wide),
     "mask_tall": _cost(_mask_wide), "mask_general": _cost(_mask_general),
@@ -252,6 +298,7 @@ COSTS: Dict[str, Cost] = {
        for s in ("", "_tall", "_general")},
     "deal": _cost(_deal), "uniform_legal": _cost(_uniform_legal),
     "words_select": _words_select,
+    "packed_tail": _packed_tail, "packed_unpack": _cost(_packed_unpack),
 }
 
 

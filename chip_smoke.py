@@ -9,7 +9,7 @@ which raises on failure (non-zero exit, no result line):
 
   0. card name and power limit, torch/CUDA versions, compute capability,
      kernel build time;
-  1. each of the twenty-four kernels against its plain torch version on
+  1. each of the twenty-six kernels against its plain torch version on
      the card, bit-equal, at N = 49152 and a ragged N = 49151: the three draws
      (deal, uniform_legal, words_select: ``kernels/draws.py``) on the four
      presets, at per-env counters that wrap negative and at shared ones
@@ -36,7 +36,13 @@ which raises on failure (non-zero exit, no result line):
      the unpacked boards, and the general kernels of both engines
      (mask_general, clear_general, apply_general, legality_general,
      packed_apply_general, packed_mask_general, packed_legal_words_general)
-     on 130x8 (``HUGE``); an illegal action on a board holding a full line
+     on 130x8 (``HUGE``); the step's tail (packed_tail: game over,
+     truncation, score, auto-reset and both board views in one launch) and
+     its unpack entry (packed_unpack) on the default, tenten, 33x9 and 130x8
+     boards (``TAIL_BOARDS``: dense boards, ``max_steps`` 9, a terminal
+     penalty of -0.3), with and without auto-reset, at the wrapper's tile
+     and at a tile of 7 envs, floats bit for bit, the share of done envs
+     printed; an illegal action on a board holding a full line
      through the u8 apply kernel of the presets and of the wide board and
      through every packed apply; then each kernel's device time (CUDA
      events over 50 launches queued behind a spin kernel, so the host's
@@ -173,7 +179,10 @@ which raises on failure (non-zero exit, no result line):
 
 Every path's counts include the draws: ``deal`` once a step and once an
 ``init`` (not where ``init`` is given the hand), and the sampler's kernel
-(``uniform_legal`` or ``words_select``) once a call.
+(``uniform_legal`` or ``words_select``) once a call; a packed engine's the
+tail (``packed_tail``) once a step and the unpack (``packed_unpack``) once
+a ``board_obs``: each ``init``, each learner's ``observe``, each
+``legal_all_pieces`` call.
 
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is the count
@@ -185,7 +194,8 @@ of the bytes the kernel must move (each input read once, each output
 written once) over 3.35 TB/s and its integer operations on this run's
 inputs over 16.7 T/s (the H100's 32-bit integer rate); ``library_ms`` is null:
 no single PyTorch call computes a legal mask (as bools or as row words), a
-place-and-clear, a clear-scan or a counter-based draw.
+place-and-clear, a clear-scan, a counter-based draw or a step's
+select-reset-unpack tail.
 """
 
 from __future__ import annotations
@@ -273,6 +283,10 @@ KERNEL_INFO = {
                             "blockpuzzle_tpu/env/core.py:489", "huge_packed"),
     "packed_legal_words_general": ("blockpuzzle_tpu_torch/kernels/csrc/packed_tall.cu",
                                    "blockpuzzle_tpu/env/words.py:78", "huge_words"),
+    "packed_tail": ("blockpuzzle_tpu_torch/kernels/csrc/packed_tail.cu",
+                    "blockpuzzle_tpu/env/core.py:1056", "rollout"),
+    "packed_unpack": ("blockpuzzle_tpu_torch/kernels/csrc/packed_tail.cu",
+                      "blockpuzzle_tpu/env/core.py:482", "rollout"),
     "deal": ("blockpuzzle_tpu_torch/kernels/csrc/draws.cu",
              "blockpuzzle_tpu/env/core.py:317", "rollout"),
     "uniform_legal": ("blockpuzzle_tpu_torch/kernels/csrc/draws.cu", "bench.py:161",
@@ -329,7 +343,9 @@ def kernel_counters(env) -> dict:
                                    if s else "launches")
                for k in ("apply", "mask") for s in ("", "_tall", "_general")},
             **{f"packed_legal_words{s}": (env.packed_mask_kernel, f"words{s}_launches")
-               for s in ("", "_tall", "_general")}}
+               for s in ("", "_tall", "_general")},
+            "packed_tail": (env.packed_tail_kernel, "launches"),
+            "packed_unpack": (env.packed_tail_kernel, "unpack_launches")}
 
 
 def zero_counts(env) -> None:
@@ -347,6 +363,13 @@ def expected(**counts) -> dict:
     """Every kernel's expected launches on a path: ``counts``, 0 for the
     rest."""
     return {**dict.fromkeys(KERNEL_INFO, 0), **counts}
+
+
+def tail_counts(steps: int, unpacks: int) -> dict:
+    """The tail's launches on a packed engine's path: one a step, and an
+    unpack a ``board_obs`` (each ``init`` and reset's timestep, each
+    learner's ``observe``, each ``legal_all_pieces`` call)."""
+    return {"packed_tail": steps, "packed_unpack": unpacks}
 
 
 def card_line() -> str:
@@ -670,6 +693,7 @@ def phase1(card: str) -> dict:
         bounds.update({k: dict(b, where=where[name]) for k, b in here.items()})
         times.update({k: (cuda_ms(f), host_paced_ms(g)) for k, (f, g) in calls.items()})
     phase1_tall(errs, times, bounds)
+    phase1_tail(errs, times, bounds)
     phase1_draws(errs, times, bounds, card)
     for k, (ms, plain_ms) in times.items():
         b = bounds[k]
@@ -801,6 +825,127 @@ def phase1_tall(errs: dict, times: dict, bounds: dict) -> None:
         label = f"{'tall' if name == '33x9' else 'huge'} {name}"
         bounds.update({k: dict(b, where=label) for k, b in here.items()})
         times.update({k: (cuda_ms(f), host_paced_ms(g)) for k, (f, g) in calls.items()})
+
+
+# the boards phase 1 holds the step's tail (B10) and the unpack on, with a
+# horizon and a terminal penalty that float32 rounds; the tile of 7 envs
+# starts each block's spans off a 16-byte boundary
+TAIL_BOARDS = {"default": None, "tenten": None, "33x9": TALL, "130x8": HUGE}
+TAIL_KNOBS = dict(max_steps=9, terminal_penalty=-0.3)
+
+
+def dense_cells(cfg, n: int, gen):
+    """(n, H, W) 0/1 boards on which games end within a few steps: every
+    row full but for one hole, the top 0 to 3 rows empty
+    (tests/test_torch_tail.py ``dense_cells``)."""
+    import numpy as np
+
+    cells = np.ones((n, cfg.height, cfg.width), np.uint8)
+    holes = gen.integers(0, cfg.width, (n, cfg.height))
+    np.put_along_axis(cells, holes[:, :, None], 0, axis=2)
+    top = gen.integers(0, 4, n)
+    cells[np.arange(cfg.height)[None, :] < top[:, None]] = 0
+    return cells
+
+
+def tail_inputs(cfg, n: int, seed: int):
+    """The tail's inputs on the card as the step hands them
+    (tests/test_torch_tail.py ``tail_inputs``): dense boards (every fifth
+    empty) as row words, the packed mask kernel's mask of a hand holding
+    ids of every kind (the sentinel and ids outside [0, P] too, as the
+    reset deals, which are the second half of a 2S-wide deal), rewards, steps up to past ``max_steps``, scores, streaks
+    and counters that wrap at 2**31."""
+    import numpy as np
+    import torch
+
+    from blockpuzzle_tpu_torch import rules
+    from blockpuzzle_tpu_torch.kernels import PackedMaskKernel
+    from blockpuzzle_tpu_torch.kernels.packed import pack_words
+
+    dev = torch.device("cuda")
+    gen = np.random.default_rng(seed)
+    p, s = rules.tables_for(cfg).num_pieces, cfg.queue_size
+
+    def t(x, dtype):
+        return torch.as_tensor(x, dtype=dtype, device=dev)
+
+    words = pack_words(t(dense_cells(cfg, n, gen), torch.uint8))
+    words[::5] = 0
+    queue3 = t(gen.integers(-1, p + 3, (n, s)), torch.int32)
+    reset = t(gen.integers(-2, p + 3, (n, 2 * s)), torch.int32)[:, s:]  # the step's half
+    mask = PackedMaskKernel(cfg, dev)(words, queue3)
+    counter = t(gen.integers(-2**31, 2**31, n), torch.int32)
+    counter[::7] = 2**31 - 1
+    return (words, mask, t(gen.integers(-4, 40, n) * 0.5, torch.float32), queue3, reset,
+            t(gen.integers(0, 12, n), torch.int32),
+            t(gen.standard_normal(n) * 50, torch.float32),
+            t(gen.integers(0, 4, n), torch.int32), counter)
+
+
+def tail_fields(tail) -> list:
+    """A ``Tail``'s tensors, floats as their int32 bits (so +0.0 is not
+    -0.0)."""
+    import torch
+
+    return [x.view(torch.int32) if x.dtype == torch.float32 else x
+            for x in tail if x is not None]
+
+
+def phase1_tail(errs: dict, times: dict, bounds: dict) -> None:
+    """The step's tail (B10, ``packed_tail``) and its unpack entry
+    (``packed_unpack``) against their plain versions on ``TAIL_BOARDS`` at
+    N = 49152 and 49151, bit-equal (floats bit for bit), with and without
+    auto-reset, at the wrapper's tile and at a tile of 7 envs; the share of
+    done envs printed (and required in (0, 1)).  Then both kernels' device
+    times, plain times and bounds at N = 49152 on the default preset with
+    auto-reset, the step's own call, into ``times`` and ``bounds``."""
+    import dataclasses
+
+    import torch
+
+    from blockpuzzle_tpu_torch.config import PRESETS, EnvConfig
+    from blockpuzzle_tpu_torch.kernels import PackedTailKernel
+    from blockpuzzle_tpu_torch.utils.bounds import call_bound
+
+    dev = torch.device("cuda")
+    for name, shape in TAIL_BOARDS.items():
+        cfg = PRESETS[name]() if shape is None else EnvConfig(**shape)
+        cfg = dataclasses.replace(cfg, **TAIL_KNOBS)
+        k = PackedTailKernel(cfg, dev)
+        tile = k.envs
+        for n in (N_MAIN, N_MAIN - 1):
+            inputs = tail_inputs(cfg, n, seed=n)
+            what = f"{name}, N={n}"
+            for envs in (tile, 7):
+                k.envs = envs
+                for auto_reset in (True, False):
+                    got = k(*inputs, auto_reset)
+                    check_equal(tail_fields(got), tail_fields(k.plain(*inputs, auto_reset)),
+                                f"{what}, tile {envs}, auto_reset {auto_reset}", errs,
+                                "packed_tail")
+                check_equal([k.unpack(inputs[0])], [k.plain_unpack(inputs[0])],
+                            f"{what}, tile {envs}", errs, "packed_unpack")
+            k.envs = tile
+            done = float((got.terminated | got.truncated).float().mean())
+            term = float(got.terminated.float().mean())
+            if not 0.0 < term <= done < 1.0:
+                raise AssertionError(f"packed_tail {what}: done share {done}, "
+                                     f"terminated {term}")
+            print(f"[phase1] {what}: packed_tail (tile {tile} and 7 envs, with and "
+                  f"without auto-reset) and packed_unpack == plain (bit-equal); done "
+                  f"share {done:.4f} (terminated {term:.4f})")
+    cfg = PRESETS["default"]()
+    k = PackedTailKernel(cfg, dev)
+    inputs = tail_inputs(dataclasses.replace(cfg, **TAIL_KNOBS), N_MAIN, seed=0)
+    calls = {"packed_tail": (lambda: k(*inputs, True), lambda: k.plain(*inputs, True),
+                             inputs + (True,)),
+             "packed_unpack": (lambda: k.unpack(inputs[0]),
+                               lambda: k.plain_unpack(inputs[0]), inputs[:1])}
+    for name, (kernel, plain, args) in calls.items():
+        out = kernel()
+        bounds[name] = dict(call_bound(name, cfg, args, out if isinstance(out, tuple)
+                                       else (out,)), where="default")
+        times[name] = (cuda_ms(kernel), host_paced_ms(plain))
 
 
 def draw_inputs(cfg, n: int, seed: int):
@@ -965,7 +1110,7 @@ def draws_check() -> dict:
              ("packed_mask", "packed_apply", "packed_legal_words"))):
         (tk, sk, ck), (tp, sp, cp) = (draws_rollout(sampler, plain, N_MAIN, steps)
                                       for plain in (False, True))
-        common = dict.fromkeys(per_step, steps)
+        common = {**dict.fromkeys(per_step, steps), **tail_counts(steps, 1)}
         if ck != expected(**common, deal=steps + 1, **{draw: steps}) or cp != expected(
                 **common):
             raise AssertionError(f"draws rollout {sampler}: launches {ck}, plain {cp}")
@@ -1187,7 +1332,8 @@ def phase2():
                 if dev == "cuda":
                     counts = read_counts(env)
                     expect = expected(**dict.fromkeys(per_step, steps), deal=steps + 1,
-                                      uniform_legal=steps)
+                                      uniform_legal=steps,
+                                      **(tail_counts(steps, 1) if engine == "packed" else {}))
                     if counts != expect:
                         raise AssertionError(
                             f"{name} {engine} launch counts {counts} != {expect}")
@@ -1220,7 +1366,9 @@ def phase2():
             zero_counts(env)
             legal_all = env.legal_all_pieces(state.board)
             counts = read_counts(env)
-            if counts != expected(**{legal_name: 1}):
+            # a packed board is unpacked first
+            unpack = {"packed_unpack": 1} if engine == "packed" else {}
+            if counts != expected(**{legal_name: 1}, **unpack):
                 raise AssertionError(f"{name} legal_all_pieces launches {counts}")
             if board_path:
                 paths[f"{name}_legal_all_pieces"] = counts
@@ -1252,7 +1400,8 @@ def words_check(name: str, cfg, n: int, steps: int) -> dict:
     (sg, rg, ag, lg, env), (sc, rc, ac, lc, _) = (
         words_rollout(cfg, dev, n, steps) for dev in ("cuda", "cpu"))
     counts = read_counts(env)
-    expect = expected(**dict.fromkeys(per_step, steps), deal=steps + 1, words_select=steps)
+    expect = expected(**dict.fromkeys(per_step, steps), deal=steps + 1, words_select=steps,
+                      **tail_counts(steps, 1))
     if counts != expect:
         raise AssertionError(f"{name} words rollout launches {counts} != {expect}")
     if not (lg and lc):
@@ -1288,7 +1437,8 @@ def phase3(card: str):
         r = rollout(env, N_MAIN, chunk, windows, seed=0)
         paths[path] = read_counts(env)
         expect = expected(**dict.fromkeys(per_step, steps), deal=steps + 1,
-                          uniform_legal=steps)
+                          uniform_legal=steps,
+                          **(tail_counts(steps, 1) if path == "rollout" else {}))
         if paths[path] != expect:
             raise AssertionError(f"{path} path launches {paths[path]} != {expect}")
         s = r["state"]
@@ -1316,7 +1466,7 @@ def phase3(card: str):
     zero_counts(packed_env)
     legal_all = packed_env.legal_all_pieces(final.board)
     paths["legal_all_pieces"] = read_counts(packed_env)
-    expect = expected(legality=1)
+    expect = expected(legality=1, packed_unpack=1)
     if paths["legal_all_pieces"] != expect:
         raise AssertionError(
             f"legal_all_pieces launches {paths['legal_all_pieces']} != {expect}")
@@ -1413,9 +1563,12 @@ def train_path(card: str, argv, kernels) -> dict:
     launches = read_counts(env)
     t = args.rollout_len
     mask_kernel, apply_kernel = kernels
-    # the deal: once a step and once at init
+    # the deal: once a step and once at init; on packed boards the tail once
+    # a step and the unpack at init and at each update's ``observe``
+    packed = mask_kernel.startswith("packed")
     expect = expected(**{mask_kernel: args.updates * (t + 1),
-                         apply_kernel: args.updates * t}, deal=args.updates * t + 1)
+                         apply_kernel: args.updates * t}, deal=args.updates * t + 1,
+                      **(tail_counts(args.updates * t, args.updates + 1) if packed else {}))
     if launches != expect:
         raise AssertionError(f"training path launches {launches} != {expect}")
     m = r["metrics"]
@@ -1548,8 +1701,10 @@ def dqn_path(card: str, argv, kernels, ckpt_dir: str) -> dict:
     launches = read_counts(env)
     k = cfg.collect_steps
     mask_kernel, apply_kernel = kernels
+    packed = mask_kernel.startswith("packed")
     expect = expected(**{mask_kernel: args.updates * (k + 1),
-                         apply_kernel: args.updates * k}, deal=args.updates * k + 1)
+                         apply_kernel: args.updates * k}, deal=args.updates * k + 1,
+                      **(tail_counts(args.updates * k, args.updates + 1) if packed else {}))
     if launches != expect:
         raise AssertionError(f"DQN path launches {launches} != {expect}")
     state, m = r["state"], r["metrics"]
@@ -1779,7 +1934,7 @@ def phase7(card: str, argmax_rate: float) -> dict:
             words_rollout(cfg, dev, n, steps) for dev in ("cuda", "cpu"))
         counts = read_counts(env)
         expect = expected(**dict.fromkeys(per_step, steps), deal=steps + 1,
-                          words_select=steps)
+                          words_select=steps, **tail_counts(steps, 1))
         if counts != expect:
             raise AssertionError(f"{name} words rollout launches {counts} != {expect}")
         if not (lg and lc):
@@ -1801,7 +1956,7 @@ def phase7(card: str, argmax_rate: float) -> dict:
     counts = read_counts(env)
     steps = (windows + 1) * chunk
     expect = expected(**dict.fromkeys(per_step, steps), deal=steps + 1,
-                      words_select=steps)
+                      words_select=steps, **tail_counts(steps, 1))
     if counts != expect:
         raise AssertionError(f"rollout_words launches {counts} != {expect}")
     mean_return = r["episode_return"] / max(r["episodes"], 1)
@@ -2017,9 +2172,12 @@ def dist_path(card: str, name: str, argv, runs, kernels, per_update, tmp: str) -
     print(f"[phase8] {name} unsharded (one process, {args.num_envs} envs): "
           f"{r['env_steps_per_s']:.1f} env-steps/s ({card})")
     mask_kernel, apply_kernel = kernels
+    packed = mask_kernel.startswith("packed")
     expect = expected(**{mask_kernel: args.updates * per_update[0],
                          apply_kernel: args.updates * per_update[1]},
-                      deal=args.updates * per_update[1] + 1)
+                      deal=args.updates * per_update[1] + 1,
+                      **(tail_counts(args.updates * per_update[1], args.updates + 1)
+                         if packed else {}))
     metric_keys = (("loss", "q_mean", "td_abs") if algo == "dqn" else
                    ("loss", "policy_loss", "value_loss", "entropy"))
     first = None
@@ -2179,7 +2337,8 @@ def phase9(card: str, argmax_rate: float) -> dict:
         paths[path] = read_counts(env)
         draw = "uniform_legal" if sampler == "argmax" else "words_select"
         expect = expected(**dict.fromkeys(per_step, steps), deal=steps + 1,
-                          **{draw: steps})
+                          **{draw: steps},
+                          **(tail_counts(steps, 1) if state_impl == "auto" else {}))
         if paths[path] != expect:
             raise AssertionError(f"{path} launches {paths[path]} != {expect}")
         check_final_state(env, r["state"], path)
@@ -2209,8 +2368,10 @@ def phase9(card: str, argmax_rate: float) -> dict:
         path = f"actor_{torso}"
         paths[path] = read_counts(env)
         taken = len(rates) * (1 + iters * windows) * chunk
-        # the deal once a step and once an ``init``, one a policy
-        expect = expected(packed_mask=taken, packed_apply=taken, deal=taken + len(rates))
+        # the deal once a step and once an ``init``, one a policy; the unpack
+        # at each ``init``
+        expect = expected(packed_mask=taken, packed_apply=taken, deal=taken + len(rates),
+                          **tail_counts(taken, len(rates)))
         if paths[path] != expect:
             raise AssertionError(f"{path} launches {paths[path]} != {expect}")
         for policy, rate in rates.items():
@@ -2238,10 +2399,12 @@ def phase9(card: str, argmax_rate: float) -> dict:
             rollout = args.updates * args.rollout_len
             per = sweep_ppo.EVAL_CHUNK
             evaluated = max(1, args.eval_steps // per) * per
-            # the deal once a step, at ``PPO.init`` and at the evaluation's
+            # the deal once a step, at ``PPO.init`` and at the evaluation's;
+            # the unpack at both and at each update's ``observe``
             expect = expected(packed_apply=rollout + evaluated,
                               packed_mask=rollout + args.updates + evaluated,
-                              deal=rollout + evaluated + 2)
+                              deal=rollout + evaluated + 2,
+                              **tail_counts(rollout + evaluated, args.updates + 2))
             if counts != expect:
                 raise AssertionError(f"sweep launches {counts} != {expect}")
             paths["sweep"] = counts
@@ -2342,8 +2505,11 @@ def property_sweep() -> dict:
         first_bad(np.where(legal, reward >= min_reward, reward == cfg.illegal_penalty),
                   f"{path}: reward not zero iff illegal")
         paths[path] = read_counts(env)
-        # the step draws one deal (``init`` is given the hand)
-        expect = expected(**{mask_k: 2, step_k: 1}, deal=1)
+        # the step draws one deal (``init`` is given the hand); on packed
+        # boards the tail once and the unpack at ``init`` and for ``out``
+        packed = mask_k.startswith("packed")
+        expect = expected(**{mask_k: 2, step_k: 1}, deal=1,
+                          **(tail_counts(1, 2) if packed else {}))
         if paths[path] != expect:
             raise AssertionError(f"{path} launches {paths[path]} != {expect}")
         print(f"[phase10] {path}: {m} seeded (board, piece, cell) triples on CUDA: "
@@ -2381,11 +2547,12 @@ def phase10(card: str) -> dict:
     # first action (the state floor's)
     steps = chunk + (1 + iters * windows) * chunk
     expect = expected(packed_mask=steps, packed_apply=steps, deal=steps + 2,
-                      uniform_legal=steps + 1)
+                      uniform_legal=steps + 1, **tail_counts(steps, 2))
     if paths["roofline"] != expect:
         raise AssertionError(f"roofline launches {paths['roofline']} != {expect}")
     if rec["kernel_launches_per_step"] != {"packed_apply": 1.0, "packed_mask": 1.0,
-                                           "deal": 1.0, "uniform_legal": 1.0}:
+                                           "packed_tail": 1.0, "deal": 1.0,
+                                           "uniform_legal": 1.0}:
         raise AssertionError(f"count pass launches {rec['kernel_launches_per_step']}")
     for k in ("pct_of_hbm_bound", "pct_of_core_bound", "pct_of_state_bound"):
         if not 0.0 < rec[k] <= 100.0:

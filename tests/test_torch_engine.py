@@ -30,6 +30,7 @@ from blockpuzzle_tpu_torch import config as tcfg
 from blockpuzzle_tpu_torch.env import make_env
 from blockpuzzle_tpu_torch.interop import state_from_numpy
 from blockpuzzle_tpu_torch.sampler import UniformLegalSampler
+from test_torch_tail import dense_cells
 
 N = 8
 FIELDS = ("board", "queue", "action_mask", "reward", "terminated", "truncated")
@@ -400,7 +401,8 @@ def test_packed_engine_matches_jax_packed_engine(preset, knobs):
     every field of an env that is not done, and every pre-reset field of
     one that is, must be equal.  ``knobs`` adds streak_bonus, max_steps,
     both penalties and piece planes.  The tall boards run the tall and
-    general packed kernels' plain versions (no episode need end there)."""
+    general packed kernels' plain versions from dense boards (every row one
+    hole, up to three empty rows on top), so that games end there too."""
     env_j, step_j = jax_packed_engine(
         preset, tuple(sorted(PACKED_KNOBS.items())) if knobs else ())
     ct = dataclasses.replace(_preset_config(tcfg, preset),
@@ -414,7 +416,11 @@ def test_packed_engine_matches_jax_packed_engine(preset, knobs):
     st, tt = env_t.init(0, N, deal_override=init)
     assert st.board.dtype == torch.int64 and st.board.shape == (N, ct.height)
     assert_same(tj, tt, -1, extra=())
-    seen = {"cleared": 0, "illegal": 0, "done": 0, "trunc": 0}
+    if preset in TALL_BOARDS:
+        cells = dense_cells(ct, N, rng)
+        sj = sj.replace(board=env_j.encode_board(jnp.asarray(cells)))
+        st = st.replace(board=env_t.encode_board(cells))
+    seen = {"cleared": 0, "illegal": 0, "done": 0, "trunc": 0, "term": 0}
     planes = ("piece_planes",) if knobs else ()
     for t in range(60):
         if t % 7 == 3:  # raw argmax ignores the mask: sometimes illegal
@@ -450,10 +456,12 @@ def test_packed_engine_matches_jax_packed_engine(preset, knobs):
         seen["illegal"] += int((~tt.info["legal"]).sum())
         seen["done"] += int(done.sum())
         seen["trunc"] += int(tt.truncated.sum())
-    assert seen["illegal"] and (seen["done"] or preset in TALL_BOARDS)
-    # max_steps = 9 ends every episode before a line fills on most presets;
-    # 60 steps spread over 130 rows fill none (test_torch_tall.py clears them)
-    assert seen["trunc"] if knobs else seen["cleared"] > 0 or preset in ("big", "tall130")
+        seen["term"] += int(tt.terminated.sum())
+    assert seen["illegal"] and seen["done"]
+    # the dense tall boards end games by game over
+    assert seen["term"] or preset not in TALL_BOARDS
+    # max_steps = 9 ends every episode before a line fills on most presets
+    assert seen["trunc"] if knobs else seen["cleared"] > 0 or preset == "big"
     m = np.arange(N) % 3 == 0
     pj, qj = jax.jit(env_j.partial_reset)(sj, jnp.asarray(m))
     pt, qt = env_t.partial_reset(st, torch.as_tensor(m))

@@ -35,6 +35,7 @@ from blockpuzzle_tpu_torch.kernels import (
     MaskKernel,
     PackedApplyKernel,
     PackedMaskKernel,
+    PackedTailKernel,
     _build,
 )
 from blockpuzzle_tpu_torch.kernels.clear import line_cell_table, line_masks
@@ -989,7 +990,7 @@ def test_wrappers_never_fall_back_off_cpu():
 
 @pytest.mark.parametrize("wrapper", [
     MaskKernel, ApplyKernel, ClearScanKernel, LegalityKernel, PackedApplyKernel,
-    PackedMaskKernel], ids=lambda w: w.__name__)
+    PackedMaskKernel, PackedTailKernel], ids=lambda w: w.__name__)
 def test_wrappers_default_to_the_card(wrapper, monkeypatch):
     """Built without a device, a wrapper asks ``_build.resolve_device`` for
     CUDA: where there is no card it raises, and never runs the plain

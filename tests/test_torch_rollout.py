@@ -507,18 +507,40 @@ def test_tall_packed_kernels_match_plain_versions_on_the_card(board, cuda_device
 def test_cuda_default_engine_on_a_tall_board_matches_cpu(board, cuda_device):
     """The default engine (packed, as JAX's on any board of at most 32
     columns) steps a board of more than 32 rows on the card through the
-    tall packed kernels, bit-equal to the CPU, from one seed with live deals
-    and auto-reset."""
+    tall packed kernels and the tail, bit-equal to the CPU, from one seed
+    with live deals and auto-reset, from dense boards (every row one hole,
+    up to three empty rows on top): every step's flags, rewards and
+    ``final_board`` equal, and games end."""
     from blockpuzzle_tpu_torch.config import EnvConfig
+    from test_torch_tail import dense_cells
 
     cfg = EnvConfig(**BOARDS[board])
-    env = make_env(cfg, device=cuda_device)
-    a = rollout_cli.rollout(env, 256, 16, 1, seed=4)
-    b = rollout_cli.rollout(make_env(cfg, device="cpu"), 256, 16, 1, seed=4)
+    n, steps = 256, 32
+    cells = dense_cells(cfg, n, np.random.default_rng(4))
+    runs = []
+    for dev in (cuda_device, "cpu"):
+        env = make_env(cfg, device=dev)
+        state, _ = env.init(4, n)
+        state = state.replace(board=env.encode_board(cells))
+        mask = env.action_mask(state.board, state.queue)
+        draw = UniformLegalSampler(5, n, env.device)
+        trace = []
+        for _ in range(steps):
+            state, ts = env.step(state, draw(mask))
+            mask = ts.action_mask
+            trace.append(torch.cat([ts.reward.view(torch.int32).long()[:, None],
+                                    ts.terminated.long()[:, None],
+                                    ts.truncated.long()[:, None],
+                                    ts.info["final_board"].reshape(n, -1).long()], 1).cpu())
+        runs.append((env, state, torch.stack(trace)))
+    (env, a, ta), (_, b, tb) = runs
     for f in ("board", "queue", "rng_counter", "steps", "score", "streak"):
-        assert torch.equal(getattr(a["state"], f).cpu(), getattr(b["state"], f))
-    assert a["reward"] == b["reward"]
-    assert env.packed_mask_kernel.tall_launches == env.packed_apply_kernel.tall_launches == 32
+        assert torch.equal(getattr(a, f).cpu(), getattr(b, f))
+    assert torch.equal(ta, tb)
+    assert int(tb[:, :, 1].sum()) > 0                  # games ended
+    # the mask once more: the dense boards' first hand
+    assert env.packed_mask_kernel.tall_launches == steps + 1
+    assert env.packed_apply_kernel.tall_launches == env.packed_tail_kernel.launches == steps
 
 
 @pytest.mark.gpu

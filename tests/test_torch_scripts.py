@@ -536,9 +536,11 @@ def test_roofline_contract_untimed(capsys):
     assert (rec["metric"], rec["num_envs"], rec["chunk"], rec["mask_impl"],
             rec["device"]) == ("roofline", 32, 8, "bitboard", "cpu")
     assert all(rec[k] > 0 for k in ROOFLINE_COUNT_KEYS)
-    # the packed step: B1, B7, the deal (B9) and the argmax draw (B2) once a step
+    # the packed step: B1, B7, the tail (B10), the deal (B9) and the argmax
+    # draw (B2) once a step
     assert rec["kernel_launches_per_step"] == {"packed_apply": 1.0, "packed_mask": 1.0,
-                                               "deal": 1.0, "uniform_legal": 1.0}
+                                               "packed_tail": 1.0, "deal": 1.0,
+                                               "uniform_legal": 1.0}
     assert rec["bytes_per_step_env"] > rec["kernel_bytes_per_step_env"]
     # floor = bytes of one batched step of N envs over 3.35 TB/s
     assert rec["hbm_floor_us_per_batched_step"] == pytest.approx(
@@ -574,19 +576,24 @@ def test_roofline_state_floor_is_the_state_fields_bytes():
 
 
 def test_roofline_count_is_independent_of_the_batch():
+    """... but for the tail's (P + 1, HW) empty-board table, read once a
+    call whatever the batch (20 x 100 bytes on the default preset)."""
     env = bench.make_bench_env(device="cpu")
     small, large = (roofline.roofline(env, n, 8, timed=False) for n in (32, 64))
-    for k in ("bytes_per_step_env", "flops_per_step_env"):
-        assert large[k] == pytest.approx(small[k], rel=1e-2), k
-    assert small["kernel_bytes_per_step_env"] == large["kernel_bytes_per_step_env"]
+    table = env.packed_tail_kernel.empty_legal.numel()
+    assert table == 2000
+    for k, share in (("bytes_per_step_env", table), ("flops_per_step_env", 0)):
+        assert large[k] - share / 64 == pytest.approx(small[k] - share / 32, rel=1e-2), k
+    assert (small["kernel_bytes_per_step_env"] - table / 32
+            == large["kernel_bytes_per_step_env"] - table / 64)
 
 
 def test_counted_kernel_hides_its_plain_ops_and_adds_its_bytes():
     """On the CPU a kernel wrapper runs its plain version as torch ops:
     unwrapped, the mode counts them; wrapped, it counts none of them and
     adds the call's bytes and operations from ``utils/bounds.py``.  The
-    roofline's kernel bytes are B1's plus B7's plus the deal's (B9) plus
-    the argmax draw's (B2)."""
+    roofline's kernel bytes are B1's plus B7's plus the tail's (B10) plus
+    the deal's (B9) plus the argmax draw's (B2)."""
     env = bench.make_bench_env(device="cpu")
     cfg, n = env.cfg, 32
     words = torch.randint(0, 1 << 10, (n, cfg.height), dtype=torch.int64)
@@ -618,12 +625,17 @@ def test_counted_kernel_hides_its_plain_ops_and_adds_its_bytes():
     b9, _ = COSTS["deal"](cfg, (key, counter, 0, 2), (env.deal_kernel(key, counter, 0, 2),))
     mask = torch.ones((n, env.num_actions), dtype=torch.bool)
     b2, _ = COSTS["uniform_legal"](cfg, (key, 0, mask), (torch.zeros(n, dtype=torch.int64),))
-    assert rec["kernel_bytes_per_step_env"] == (b1 + b7 + b9 + b2) / n == (
-        218 + 184 + 20 + 116)
+    f32, i32 = torch.zeros(n), torch.zeros(n, dtype=torch.int32)
+    q = torch.zeros((n, 1), dtype=torch.int32)
+    tail_in = (words, want, f32, q, q, i32, f32, i32, i32, True)
+    b10, _ = COSTS["packed_tail"](cfg, tail_in, env.packed_tail_kernel(*tail_in))
+    # the tail: 622 B an env and its 2000-byte table once a call
+    assert rec["kernel_bytes_per_step_env"] == (b1 + b7 + b10 + b9 + b2) / n == (
+        218 + 184 + 622 + 2000 / n + 20 + 116)
 
 
 COUNTED_ENGINES = {
-    "packed": (dict(), "default", ("packed_apply", "packed_mask")),
+    "packed": (dict(), "default", ("packed_apply", "packed_mask", "packed_tail")),
     "u8_pallas": (dict(backend="pallas", state_impl="u8"), "default", ("mask", "apply")),
     "u8_jnp": (dict(backend="jnp", state_impl="u8"), "tenten", ("mask", "clear")),
     # a board of 40 cells a row: the wide mask and clear, the general apply
@@ -633,11 +645,13 @@ COUNTED_ENGINES = {
     # packed apply and mask on the default (packed) engine
     "tall_u8_jnp": (dict(backend="jnp", state_impl="u8"), "tall",
                     ("mask_tall", "clear_tall")),
-    "tall_packed": (dict(), "tall", ("packed_apply_tall", "packed_mask_tall")),
+    "tall_packed": (dict(), "tall", ("packed_apply_tall", "packed_mask_tall",
+                                     "packed_tail")),
     # a board of 130 rows: the general kernels of both engines
     "huge_u8_jnp": (dict(backend="jnp", state_impl="u8"), "huge",
                     ("mask_general", "clear_general")),
-    "huge_packed": (dict(), "huge", ("packed_apply_general", "packed_mask_general")),
+    "huge_packed": (dict(), "huge", ("packed_apply_general", "packed_mask_general",
+                                     "packed_tail")),
 }
 BOARDS = {"wide": dict(height=8, width=40), "tall": dict(height=33, width=9),
           "huge": dict(height=130, width=9)}

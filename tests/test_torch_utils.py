@@ -279,7 +279,8 @@ RECORDED_MB = {"mask": 10.03, "apply": 15.04, "clear": 10.03, "legality": 98.3,
                "words_select": 4.72, "mask_tall": 29.39, "clear_tall": 29.39,
                "packed_apply_tall": 28.80, "packed_mask_tall": 27.77,
                "packed_legal_words_tall": 26.15, "packed_apply_general": 105.1,
-               "packed_mask_general": 102.4, "packed_legal_words_general": 102.4}
+               "packed_mask_general": 102.4, "packed_legal_words_general": 102.4,
+               "packed_unpack": 8.85}
 
 
 def kernel_call(name, n):
@@ -315,6 +316,7 @@ def kernel_call(name, n):
         "deal": ((i64(n), i32(n), 0, 2 * s), (i32(n, 2 * s),)),
         "uniform_legal": ((i64(n), 7, b(n, s * hw)), (i64(n),)),
         "words_select": ((i64(n), 7, i64(n, s * h), cfg.width), (i64(n),)),
+        "packed_unpack": ((i64(n, h),), (u8(n, h, cfg.width),)),
     }
     base = name.removesuffix("_general").removesuffix("_wide").removesuffix("_tall")
     return (cfg,) + calls[base]
@@ -335,6 +337,32 @@ def test_bounds_reproduce_the_recorded_bytes(name):
     by_bytes, by_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / INT_OPS_PER_S
     assert b["bound_ms"] == max(by_bytes, by_ops)
     assert b["bound_by"] == ("bytes" if by_bytes >= by_ops else "operations")
+
+
+def test_packed_tail_bytes_pin_the_recorded_count():
+    """B10, the packed step's tail, at N = 49152 on 10x10, S = 1 with
+    auto-reset: 30,572,544 bytes of its tensors (PERF.md's 30.57 MB: 208 B
+    an env in, 414 B out) plus its (P + 1) * HW = 2000-byte table, 0.009127
+    ms by bytes; without auto-reset it reads neither the reset deals nor
+    the streak and writes only the flags, the scalars and one board view
+    (318 B an env)."""
+    from blockpuzzle_tpu_torch.kernels import PackedTailKernel
+    from blockpuzzle_tpu_torch.utils.bounds import COSTS, call_bound
+
+    cfg, n = PRESETS["default"](), 49152
+    k = PackedTailKernel(cfg, "cpu")
+    i32 = lambda *shape: torch.zeros(shape, dtype=torch.int32)
+    f32 = lambda *shape: torch.zeros(shape, dtype=torch.float32)
+    inputs = (torch.zeros((n, 10), dtype=torch.int64), torch.zeros((n, 100), dtype=torch.bool),
+              f32(n), i32(n, 1), i32(n, 1), i32(n), f32(n), i32(n), i32(n))
+    full = inputs + (True,)
+    nbytes, ops = COSTS["packed_tail"](cfg, full, k(*full))
+    assert nbytes == 30_572_544 + 2000 == n * 622 + 2000
+    b = call_bound("packed_tail", cfg, full, k(*full))
+    assert (b["bytes"], b["ops"], b["bound_by"]) == (nbytes, ops, "bytes")
+    assert round(b["bound_ms"], 6) == 0.009127
+    bare = inputs + (False,)
+    assert COSTS["packed_tail"](cfg, bare, k(*bare))[0] == n * 318 + 2000
 
 
 def test_operations_bound_at_the_cards_32_bit_integer_rate():
