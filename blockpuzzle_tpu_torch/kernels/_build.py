@@ -55,6 +55,9 @@ SIGNATURES = {
     "bp_packed_words_tall": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "bp_packed_words_general": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "bp_packed_tail": [*[_P] * 24, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+    "bp_packed_tail_ring": [*[_P] * 24, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
+    "bp_packed_tail_parts": [*[_P] * 24, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I,
+                             _P],
     "bp_packed_unpack": [_P, _P, _I, _I, _I, _I, _P],
     "bp_deal": [_P, _P, _U32, _I, _I, _I, _P, _I, _P],
     "bp_uniform_legal": [_P, _U32, _I, _P, _P, _I, _I, _P],

@@ -17,7 +17,7 @@ learners' ``observe``, ``legal_all_pieces``).
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,25 +27,138 @@ from blockpuzzle_tpu_torch.config import EnvConfig
 from blockpuzzle_tpu_torch.kernels import _build
 from blockpuzzle_tpu_torch.kernels.packed import unpack_words
 
-# envs a block of the tail and unpack kernels, and the shared memory their
-# row words, reset rows and flags may take (csrc/packed_tail.cu)
+# the tail kernel's tiles and ring (csrc/packed_tail.cu): envs a tile at
+# most, threads a block, the largest tile a ring aims at, the mask bytes a
+# lane reads at most in the tile a ring aims at, stages a ring, the shared
+# memory a block aims at (so that four fit an H100's SM) and the most a
+# block may opt in to there
 MAX_TILE = 128
-TILE_SMEM = 16 * 1024
-SMEM_LIMIT = 48 * 1024
+THREADS = 256
+TILE = 64
+LANE_BYTES = 32
+STAGES = 3
+RING_SMEM = 56 * 1024
+SMEM_LIMIT = 232448
+# the unpack kernel's tile in 16 KB (``unpack_block_envs``), under a plain
+# launch's 48 KB
+UNPACK_SMEM = 16 * 1024
+UNPACK_LIMIT = 48 * 1024
+# the inputs a tile stages, in the order of their slots in a stage; the
+# last three only with auto-reset
+INPUTS = ("mask", "words", "reward", "steps", "score", "counter", "queue3", "streak",
+          "reset")
 
 
-def tail_block_envs(cfg: EnvConfig) -> int:
-    """Envs a block (a tile) of the tail and unpack kernels: as many as fit
-    ``TILE_SMEM`` of shared memory (``tail_smem_bytes``), at most
-    ``MAX_TILE`` and at least one.  Computed once per wrapper."""
-    per_env = tail_smem_bytes(cfg, 1)
-    return max(1, min(MAX_TILE, TILE_SMEM // per_env))
+class Layout(NamedTuple):
+    """A tail block's shared memory (csrc/packed_tail.cu ``Layout``), bytes
+    from its start: the ring's mbarriers, then the tile's flag bytes, rows
+    and view rows, then ``stages`` stages of ``stage`` bytes from ``ring``,
+    input ``k``'s slot at ``slots[k]`` of a stage; ``bytes`` in all."""
+
+    flags: int
+    rows: int
+    view: int
+    ring: int
+    stage: int
+    slots: dict
+    bytes: int
 
 
-def tail_smem_bytes(cfg: EnvConfig, envs: int) -> int:
-    """Shared memory of a tile of ``envs`` envs: H row words, S reset-row
-    indices and two flags an env."""
-    return envs * (4 * cfg.height + 4 * cfg.queue_size + 2)
+def pad16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def span_stride(span: int) -> int:
+    """bit_rows.cuh ``span_stride``: a slot for ``span`` staged bytes that
+    start up to 15 bytes past a 16-byte boundary, padded to the next one."""
+    return (span + 32 + 15) // 16 * 16
+
+
+def tail_sources(cfg: EnvConfig, reset_stride: Optional[int]) -> dict:
+    """input -> (stride, len): env e's bytes of it are ``[e * stride, e *
+    stride + len)``; the reset deals' rows lie ``reset_stride`` ids apart.
+    Without auto-reset (``reset_stride`` None) the last three are not read."""
+    s, span = cfg.queue_size, cfg.queue_size * cfg.num_cells
+    src = {"mask": (span, span), "words": (8 * cfg.height, 8 * cfg.height),
+           "reward": (4, 4), "steps": (4, 4), "score": (4, 4), "counter": (4, 4)}
+    if reset_stride is not None:
+        src.update(queue3=(4 * s, 4 * s), streak=(4, 4), reset=(4 * reset_stride, 4 * s))
+    return src
+
+
+def tail_layout(cfg: EnvConfig, envs: int, stages: int,
+                reset_stride: Optional[int] = None) -> Layout:
+    """csrc/packed_tail.cu ``tail_layout``: a block's shared memory at a tile
+    of ``envs`` envs and a ring of ``stages``, with auto-reset where
+    ``reset_stride`` is given."""
+    at = pad16(8 * stages)
+    offsets = []
+    for size in (envs, 4 * envs * cfg.height, 4 * envs * cfg.height):
+        offsets.append(at)
+        at += pad16(size)
+    slots, stage = {}, 0
+    for name, (stride, length) in tail_sources(cfg, reset_stride).items():
+        slots[name] = stage
+        stage += span_stride((envs - 1) * stride + length)
+    return Layout(*offsets, at, stage, slots, at + stages * stage)
+
+
+def tail_smem_bytes(cfg: EnvConfig, envs: int, stages: int,
+                    reset_stride: Optional[int] = None) -> int:
+    """Shared memory of a tail block (``tail_layout``)."""
+    return tail_layout(cfg, envs, stages, reset_stride).bytes
+
+
+def tail_tile(cfg: EnvConfig) -> int:
+    """The tile the tail kernel aims at on ``cfg``'s boards: the largest
+    power of two up to ``TILE`` envs that leaves an env enough lanes
+    (``tail_segment``) for each to read at most ``LANE_BYTES`` of its S*HW
+    mask bytes, or a warp an env where none does."""
+    span = cfg.queue_size * cfg.num_cells
+    envs = TILE
+    while tail_segment(envs) < 32 and span > LANE_BYTES * tail_segment(envs):
+        envs //= 2
+    return envs
+
+
+def tail_ring(cfg: EnvConfig) -> Optional[Tuple[int, int]]:
+    """(envs a tile, stages a ring) of the tail kernel on ``cfg``'s boards,
+    for the step's call (auto-reset, reset deals 2S ids apart): tiles of
+    ``tail_tile`` envs in the deepest ring of up to ``STAGES`` that fits
+    ``RING_SMEM``; where none does, the deepest ring whose tile of one env
+    fits ``RING_SMEM``, else ``SMEM_LIMIT``, with as many envs as fit it;
+    None where one env in one stage does not fit the limit (the kernel
+    refuses the board).  Computed once per wrapper."""
+    stride, tile = 2 * cfg.queue_size, tail_tile(cfg)
+    for stages in range(STAGES, 0, -1):
+        if tail_smem_bytes(cfg, tile, stages, stride) <= RING_SMEM:
+            return tile, stages
+    for budget in (RING_SMEM, SMEM_LIMIT):
+        for stages in range(STAGES, 0, -1):
+            fits = [e for e in range(1, tile + 1)
+                    if tail_smem_bytes(cfg, e, stages, stride) <= budget]
+            if fits:
+                return max(fits), stages
+    return None
+
+
+def tail_segment(envs: int) -> int:
+    """Lanes an env in the tail kernel's phase B (csrc/packed_tail.cu
+    ``tail_segment``): as many as a block's 256 threads give each of
+    ``envs`` envs, a power of two up to a warp."""
+    seg = 32
+    while seg > 1 and seg * envs > THREADS:
+        seg //= 2
+    return seg
+
+
+def unpack_block_envs(cfg: EnvConfig) -> int:
+    """Envs a block of the unpack kernel: the tile both kernels took before
+    the tail's ring, kept so that the unpack runs as it did -- as many envs
+    as fit ``UNPACK_SMEM`` with H row words, S reset-row indices and two
+    flag bytes each, at most ``MAX_TILE`` and at least one."""
+    per_env = 4 * cfg.height + 4 * cfg.queue_size + 2
+    return max(1, min(MAX_TILE, UNPACK_SMEM // per_env))
 
 
 class Tail(NamedTuple):
@@ -148,9 +261,12 @@ class PackedTailKernel:
     (N, H, W) uint8``.  For CPU tensors each runs its plain version (``tail_plain``
     with ``unpack_words``; ``unpack_words``); for CUDA tensors it launches
     its kernel or raises.  ``launches`` counts the tail's launches,
-    ``unpack_launches`` the unpack's.  ``envs`` is the kernels' tile
-    (``tail_block_envs``).  Every output is a fresh tensor but for those a
-    step without auto-reset hands back (``Tail``).
+    ``unpack_launches`` the unpack's.  The tail runs tiles of ``envs`` envs
+    through a ring of ``stages`` (``tail_ring``; both 0 where no tile fits,
+    and a launch raises) on ``blocks_per_sm`` persistent blocks an SM (0:
+    the kernel's choice from the card's occupancy); the unpack takes tiles
+    of ``unpack_envs`` (``unpack_block_envs``).  Every output is a fresh
+    tensor but for those a step without auto-reset hands back (``Tail``).
     """
 
     name = "packed_tail"
@@ -162,7 +278,9 @@ class PackedTailKernel:
         self.device = _build.resolve_device(device)
         self.num_pieces = rules.tables_for(cfg).num_pieces
         self.empty_legal = torch.as_tensor(empty_legal_table(cfg), device=self.device)
-        self.envs = tail_block_envs(cfg)
+        self.envs, self.stages = tail_ring(cfg) or (0, 0)
+        self.blocks_per_sm = 0
+        self.unpack_envs = unpack_block_envs(cfg)
         self.launches = self.unpack_launches = 0
 
     def plain(self, words_next, mask, reward, queue3, reset_deals, steps, score,
@@ -174,16 +292,16 @@ class PackedTailKernel:
     def plain_unpack(self, words: torch.Tensor) -> torch.Tensor:
         return unpack_words(words, self.cfg.width)
 
-    def _check_launch(self, tensors, rows=()) -> None:
+    def _check_launch(self, tensors, rows=(), smem=0, limit=SMEM_LIMIT) -> None:
         """Raise unless the card takes these inputs: a CUDA device,
-        ``tensors`` contiguous, ``rows`` with contiguous rows, a tile that
-        fits a plain launch's shared memory."""
+        ``tensors`` contiguous, ``rows`` with contiguous rows, ``smem``
+        bytes of shared memory a block within ``limit``."""
         if self.device.type != "cuda":
             raise ValueError(f"no packed tail kernel for device {self.device}")
         if not all(t.is_contiguous() for t in tensors) or any(
                 t.stride(1) != 1 for t in rows):
             raise ValueError("the packed tail's inputs must be contiguous")
-        if tail_smem_bytes(self.cfg, self.envs) > SMEM_LIMIT:
+        if not 0 < smem <= limit:
             raise ValueError(f"a {self.cfg.height}-row board's tile does not fit "
                              "the packed tail kernel's shared memory")
 
@@ -218,7 +336,9 @@ class PackedTailKernel:
             return self.plain(words_next, mask, reward, queue3, reset_deals, steps, score,
                               streak_next, rng_counter, auto_reset)
         ins = [words_next] + [t for k, (t, _, _) in specs.items() if k != "reset_deals"]
-        self._check_launch(ins, [reset_deals] if auto_reset else [])
+        stride = reset_deals.stride(0) if auto_reset else None
+        smem = tail_smem_bytes(cfg, self.envs, self.stages, stride) if self.envs else 0
+        self._check_launch(ins, [reset_deals] if auto_reset else [], smem)
         if mask.data_ptr() % 16:  # read as 16-byte vectors
             raise ValueError("the mask must start on a 16-byte boundary")
         dev = self.device
@@ -243,7 +363,7 @@ class PackedTailKernel:
         reset_ptr, streak_ptr, reset_stride = reset
         stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
-            err = _build.library().bp_packed_tail(
+            err = _build.library().bp_packed_tail_ring(
                 words_next.data_ptr(), mask.data_ptr(), reward.data_ptr(),
                 queue3.data_ptr(), reset_ptr, steps.data_ptr(), score.data_ptr(),
                 streak_ptr, rng_counter.data_ptr(), self.empty_legal.data_ptr(),
@@ -251,8 +371,8 @@ class PackedTailKernel:
                 *(t.data_ptr() if auto_reset else None for t in rest),
                 n, cfg.height, cfg.width, s, self.num_pieces, cfg.max_steps,
                 ctypes.c_float(cfg.terminal_penalty), int(auto_reset), reset_stride,
-                self.envs, stream)
-        _build.check(err, "bp_packed_tail")
+                self.envs, self.stages, self.blocks_per_sm, stream)
+        _build.check(err, "bp_packed_tail_ring")
         self.launches += 1
         return Tail(*first, *rest)
 
@@ -261,13 +381,14 @@ class PackedTailKernel:
         n = self._check_words(words)
         if self.device.type == "cpu":
             return self.plain_unpack(words)
-        self._check_launch([words])
+        self._check_launch([words], smem=4 * self.unpack_envs * cfg.height,
+                           limit=UNPACK_LIMIT)
         out = torch.empty((n, cfg.height, cfg.width), dtype=torch.uint8, device=self.device)
         stream = torch.cuda.current_stream(self.device).cuda_stream
         with torch.cuda.device(self.device):
             err = _build.library().bp_packed_unpack(
-                words.data_ptr(), out.data_ptr(), n, cfg.height, cfg.width, self.envs,
-                stream)
+                words.data_ptr(), out.data_ptr(), n, cfg.height, cfg.width,
+                self.unpack_envs, stream)
         _build.check(err, "bp_packed_unpack")
         self.unpack_launches += 1
         return out

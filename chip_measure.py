@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Measurements of the PyTorch + CUDA port on one card, beyond the smoke run.
 
-    python3 chip_measure.py [--parts build,train,rollout,kernels,words,general,draws,tall]
+    python3 chip_measure.py [--parts build,train,rollout,kernels,words,general,draws,tall,tail]
                             [--parent-csrc DIR]
 
 Needs one CUDA card and nvcc.  Prints the card's name and power limit,
@@ -84,7 +84,18 @@ then, each line tagged with its part (all eight by default):
             (``bp_deal``, ``bp_uniform_legal``, ``bp_words_select``, with
             the arguments ``_build.SIGNATURES`` gives them) held bit-equal
             and timed in turns, earlier, current, current, earlier; then
-            the launch floor, ``torch.cuda._sleep(0)`` back to back.
+            the launch floor, ``torch.cuda._sleep(0)`` back to back;
+  tail      the step's tail (B10) and its unpack at N = 49152 on the
+            default, tenten, 33x9 and 130x8 boards (dense boards, the step's
+            call with auto-reset): device times beside their bounds; with
+            ``--parent-csrc DIR``, the earlier sources' ``bp_packed_tail``
+            and ``bp_packed_unpack`` at their own tiles held bit-equal to
+            the current kernels (floats as their int32 bits) and timed in
+            turns, earlier, current, current, earlier, five rounds, medians
+            and shares of the bound; then the tail at other tiles, rings and
+            grids (``TAIL_SHAPES``), in turns, and on the default preset
+            built with only some of its parts (``TAIL_PARTS``); then the
+            default (packed) step on 33x9 profiled as ``rollout`` does.
 
 Cold builds go to a temporary directory under the git-ignored
 ``kernels/_build/``, removed at the end.
@@ -232,7 +243,7 @@ HAND_KERNELS = ("mask_rows_kernel", "mask_kernel", "apply_rows_kernel", "apply_k
                 "clear_rows_kernel", "clear_kernel", "legality_rows_kernel",
                 "legality_kernel", "packed_apply_kernel", "packed_mask_kernel",
                 "packed_words_kernel", "packed_apply_tall_kernel", "packed_mask_tall_kernel",
-                "packed_words_tall_kernel")
+                "packed_words_tall_kernel", "packed_tail_kernel", "packed_unpack_kernel")
 # rollout -> (make_env arguments, the rollout's sampler)
 ENGINES = {"packed": ({}, "argmax"), "packed-words": ({}, "words"),
            "u8-pallas": ({"backend": "pallas"}, "argmax"),
@@ -549,6 +560,8 @@ PARENT_ENTRIES = ("bp_mask", "bp_clear", "bp_apply", "bp_legality",
 PARENT_ROW_ENTRIES = ("bp_mask_rows", "bp_clear_rows")
 # the draws' entry points, where the earlier sources have them
 PARENT_DRAW_ENTRIES = ("bp_deal", "bp_uniform_legal", "bp_words_select")
+# the step tail's entry points, where the earlier sources have them
+PARENT_TAIL_ENTRIES = ("bp_packed_tail", "bp_packed_unpack")
 
 
 def parent_library(csrc: pathlib.Path):
@@ -569,8 +582,10 @@ def parent_library(csrc: pathlib.Path):
     lib = ctypes.CDLL(str(so))
     rows = all(hasattr(lib, name) for name in PARENT_ROW_ENTRIES)
     draws = all(hasattr(lib, name) for name in PARENT_DRAW_ENTRIES)
+    tail = all(hasattr(lib, name) for name in PARENT_TAIL_ENTRIES)
     for name in (PARENT_ENTRIES + (PARENT_ROW_ENTRIES if rows else ())
-                 + (PARENT_DRAW_ENTRIES if draws else ())):
+                 + (PARENT_DRAW_ENTRIES if draws else ())
+                 + (PARENT_TAIL_ENTRIES if tail else ())):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = _build.SIGNATURES[name], ctypes.c_int
     return lib
@@ -849,7 +864,237 @@ def draw_turns(card: str, parent_csrc) -> None:
           f"{', '.join(f'{f:.6f}' for f in floors)} ({card})")
 
 
-PARTS = ("build", "train", "rollout", "kernels", "words", "general", "draws", "tall")
+class EarlierTail:
+    """Stands in for the kernel library inside ``PackedTailKernel``'s calls
+    (``tail_library``), routing them to an earlier library's
+    ``bp_packed_tail`` and ``bp_packed_unpack`` (the arguments
+    ``_build.SIGNATURES`` gives them) at the tile the two took before the
+    tail's ring, which the unpack keeps (``unpack_block_envs``)."""
+
+    def __init__(self, lib, cfg):
+        from blockpuzzle_tpu_torch.kernels.tail import unpack_block_envs
+
+        self.lib, self.envs = lib, unpack_block_envs(cfg)
+
+    def bp_packed_tail_ring(self, *args):
+        *head, _envs, _stages, _blocks, stream = args
+        return self.lib.bp_packed_tail(*head, self.envs, stream)
+
+    def bp_packed_unpack(self, words, out, n, height, width, _envs, stream):
+        return self.lib.bp_packed_unpack(words, out, n, height, width, self.envs, stream)
+
+
+class TailParts:
+    """Stands in for the kernel library inside ``PackedTailKernel``'s calls
+    (``tail_library``), routing the tail to ``bp_packed_tail_parts`` with
+    ``parts``: a build with only some of the kernel's parts."""
+
+    def __init__(self, lib, parts: int):
+        self.lib, self.parts = lib, parts
+
+    def bp_packed_tail_ring(self, *args):
+        return self.lib.bp_packed_tail_parts(*args[:-1], self.parts, args[-1])
+
+
+def tail_library(lib):
+    """A callable that runs ``fn`` with ``kernels/_build.library()``
+    answering ``lib`` (an ``EarlierTail``)."""
+    from blockpuzzle_tpu_torch.kernels import _build
+
+    def run(fn):
+        saved = _build.library
+        _build.library = lambda: lib
+        try:
+            return fn()
+        finally:
+            _build.library = saved
+
+    return run
+
+
+def turns_ms(fns: dict, rounds: int) -> dict:
+    """name -> median device ms (``chip_smoke.cuda_ms``) over ``rounds``
+    rounds, each timing the callables in order and back (a, b, b, a)."""
+    got = {k: [] for k in fns}
+    order = list(fns) + list(fns)[::-1]
+    for _ in range(rounds):
+        for k in order:
+            got[k].append(chip_smoke.cuda_ms(fns[k]))
+    return {k: statistics.median(v) for k, v in got.items()}
+
+
+def tail_turns(card: str, parent_csrc, rounds: int = 5) -> None:
+    """B10 at N = 49152 on ``chip_smoke.TAIL_BOARDS`` (dense boards, and
+    mid-game ones on the default preset; the step's call with auto-reset):
+    the tail and its unpack, device times and shares of their bounds
+    (``utils/bounds.py``); with ``parent_csrc`` the earlier sources'
+    ``bp_packed_tail`` and ``bp_packed_unpack`` at their own tiles on the
+    same inputs, every output held bit-equal to the current kernels'
+    (floats as their int32 bits), the two timed in turns (earlier, current,
+    current, earlier) ``rounds`` times, medians printed (``tail_turn``).
+    Then the tail at other tiles, rings and grids than the wrapper's
+    (``tail_shapes``), on the default preset built with only some of its
+    parts (``tail_parts``), and the default engine's step on 33x9 profiled
+    as the ``rollout`` part does."""
+    import dataclasses
+
+    import torch
+
+    from blockpuzzle_tpu_torch.config import PRESETS, EnvConfig
+    from blockpuzzle_tpu_torch.kernels import PackedTailKernel, _build
+
+    _build.library()
+    for line in chip_smoke.ptxas_lines(_build.library_path().with_suffix(".log").read_text()):
+        if "packed_tail" in line or "packed_unpack" in line:
+            print(f"[tail] current ptxas: {line}")
+    lib = parent_library(pathlib.Path(parent_csrc)) if parent_csrc else None
+    if lib is not None and not hasattr(lib, "bp_packed_tail"):
+        raise SystemExit("chip_measure: the earlier sources have no tail kernel")
+    n, dev = chip_smoke.N_MAIN, torch.device("cuda")
+    for name, shape in chip_smoke.TAIL_BOARDS.items():
+        # the wrapper as the step binds it, on phase 1's dense inputs and, on
+        # the default preset, on mid-game boards, where few games end
+        cfg = PRESETS[name]() if shape is None else EnvConfig(**shape)
+        k = PackedTailKernel(cfg, dev)
+        knobs = dataclasses.replace(cfg, **chip_smoke.TAIL_KNOBS)
+        print(f"[tail] {name}: tile {k.envs}, {k.stages} stages, unpack tile "
+              f"{k.unpack_envs}")
+        for density in (None, MID_GAME) if name == "default" else (None,):
+            inputs = chip_smoke.tail_inputs(knobs, n, seed=0, density=density)
+            tail_turn(card, f"{name} {'dense' if density is None else 'mid-game'}", k,
+                      inputs, lib, rounds)
+    tail_shapes(card)
+    tail_parts(card, rounds)
+    rollout_breakdown(card, EnvConfig(**chip_smoke.TALL), {"packed": ENGINES["packed"]},
+                      "tail")
+
+
+# the chance that a cell of a mid-game board is full
+MID_GAME = 0.3
+
+
+def tail_turn(card: str, what: str, k, inputs, lib, rounds: int) -> None:
+    """``tail_turns`` on one board and input set: the tail (auto-reset) and
+    the unpack of ``k``, beside the earlier library's where ``lib`` is
+    given."""
+    import torch
+
+    from blockpuzzle_tpu_torch.utils.bounds import call_bound
+
+    n = inputs[0].shape[0]
+    current = {"packed_tail": lambda: k(*inputs, True),
+               "packed_unpack": lambda: k.unpack(inputs[0])}
+    outs = {key: fn() for key, fn in current.items()}
+    bound = {"packed_tail": call_bound("packed_tail", k.cfg, inputs + (True,),
+                                       outs["packed_tail"]),
+             "packed_unpack": call_bound("packed_unpack", k.cfg, inputs[:1],
+                                         (outs["packed_unpack"],))}
+    tail = outs["packed_tail"]
+    done = float((tail.terminated | tail.truncated).float().mean())
+    if lib is None:
+        for key, fn in current.items():
+            ms = chip_smoke.cuda_ms(fn)
+            print(f"[tail] {key} {what} N={n} (done share {done:.4f}): device {ms:.6f} ms, "
+                  f"{100 * bound[key]['bound_ms'] / ms:.1f}% of its "
+                  f"{bound[key]['bound_ms']:.6f} ms bound ({card})")
+        return
+    run = tail_library(EarlierTail(lib, k.cfg))
+    earlier = {key: (lambda fn=fn: run(fn)) for key, fn in current.items()}
+    for key in current:
+        got, want = current[key](), earlier[key]()
+        got, want = ((chip_smoke.tail_fields(got), chip_smoke.tail_fields(want))
+                     if key == "packed_tail" else ([got], [want]))
+        if len(got) != len(want) or not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{key} ({what}): current != earlier kernel")
+    for key in current:
+        med = turns_ms({"earlier": earlier[key], "current": current[key]}, rounds)
+        b = bound[key]["bound_ms"]
+        print(f"[tail] {key} {what} N={n} (done share {done:.4f}) device ms, medians of "
+              f"{rounds} rounds in turns: earlier {med['earlier']:.6f} "
+              f"({100 * b / med['earlier']:.1f}% of the bound), current "
+              f"{med['current']:.6f} ({100 * b / med['current']:.1f}%), bound {b:.6f} ms, "
+              f"earlier / current {med['earlier'] / med['current']:.3f} ({card})")
+    print(f"[tail] {what}: current tail and unpack == earlier ones (bit-equal)")
+
+
+# builds of the tail with only some of its parts (csrc/packed_tail.cu
+# ``Part``): none (the ring's loads alone), termination (the mask OR), with
+# the flags and scalars, with the mask output, with the board views and
+# words, all
+TAIL_PARTS = {"loads": 0, "done": 1, "done+scalars": 9, "done+mask": 3, "done+boards": 5,
+              "all": 15}
+
+
+def tail_parts(card: str, rounds: int) -> None:
+    """The tail on the default preset at N = 49152, dense and mid-game
+    inputs, built with only some of its parts (``TAIL_PARTS``), all on the
+    wrapper's tile, ring and grid, timed in turns: what each part adds to
+    the ring's loads."""
+    import dataclasses
+
+    import torch
+
+    from blockpuzzle_tpu_torch.config import PRESETS
+    from blockpuzzle_tpu_torch.kernels import PackedTailKernel, _build
+
+    cfg = PRESETS["default"]()
+    k = PackedTailKernel(cfg, torch.device("cuda"))
+    knobs = dataclasses.replace(cfg, **chip_smoke.TAIL_KNOBS)
+    for density in (None, MID_GAME):
+        inputs = chip_smoke.tail_inputs(knobs, chip_smoke.N_MAIN, seed=0, density=density)
+        fns = {}
+        for name, parts in TAIL_PARTS.items():
+            run = tail_library(TailParts(_build.library(), parts))
+            fns[name] = lambda run=run: run(lambda: k(*inputs, True))
+        med = turns_ms(fns, rounds)
+        print(f"[tail] parts, default {'dense' if density is None else 'mid-game'} "
+              f"N={chip_smoke.N_MAIN}, device ms (medians of {rounds} rounds in turns): "
+              + ", ".join(f"{name} {ms:.6f}" for name, ms in med.items()) + f" ({card})")
+
+
+# board -> (envs a tile, stages a ring, blocks an SM; 0: the kernel's choice)
+# timed beside one another
+TAIL_SHAPES = {"default": ((32, 3, 0), (64, 1, 0), (64, 2, 0), (64, 3, 0), (64, 3, 2),
+                           (128, 2, 0)),
+               "tenten": ((16, 2, 0), (16, 3, 0), (32, 3, 0)),
+               "33x9": ((8, 3, 0), (16, 3, 0), (31, 3, 0)),
+               "130x8": ((4, 3, 0), (8, 1, 0), (8, 2, 0))}
+
+
+def tail_shapes(card: str, rounds: int = 3) -> None:
+    """The tail at N = 49152 on each board of ``TAIL_SHAPES`` at each of its
+    tiles, rings and grids, held bit-equal to the wrapper's own, timed in
+    turns (the shapes in order and back) ``rounds`` times: medians."""
+    import dataclasses
+
+    import torch
+
+    from blockpuzzle_tpu_torch.config import PRESETS, EnvConfig
+    from blockpuzzle_tpu_torch.kernels import PackedTailKernel
+
+    dev = torch.device("cuda")
+    for name, shapes in TAIL_SHAPES.items():
+        shape = chip_smoke.TAIL_BOARDS[name]
+        cfg = PRESETS[name]() if shape is None else EnvConfig(**shape)
+        inputs = chip_smoke.tail_inputs(dataclasses.replace(cfg, **chip_smoke.TAIL_KNOBS),
+                                        chip_smoke.N_MAIN, seed=0)
+        want = chip_smoke.tail_fields(PackedTailKernel(cfg, dev)(*inputs, True))
+        fns = {}
+        for envs, stages, per_sm in shapes:
+            k = PackedTailKernel(cfg, dev)
+            k.envs, k.stages, k.blocks_per_sm = envs, stages, per_sm
+            got = chip_smoke.tail_fields(k(*inputs, True))
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"packed_tail {name} at {envs, stages, per_sm} != the "
+                                     "wrapper's")
+            fns[envs, stages, per_sm] = lambda k=k: k(*inputs, True)
+        for (envs, stages, per_sm), ms in turns_ms(fns, rounds).items():
+            print(f"[tail] packed_tail {name} N={chip_smoke.N_MAIN}, tile {envs}, {stages} "
+                  f"stages, blocks an SM {per_sm or 'auto'}: device {ms:.6f} ms, median of "
+                  f"{rounds} rounds in turns ({card})")
+
+
+PARTS = ("build", "train", "rollout", "kernels", "words", "general", "draws", "tall", "tail")
 
 
 def main(argv=None) -> int:
@@ -902,6 +1147,8 @@ def main(argv=None) -> int:
             kernel_turns(card, args.parent_csrc, presets=("default",),
                          only=("mask", "clear", "packed_apply", "packed_mask"))
         tall_rollout_rate(card)
+    if "tail" in parts:
+        tail_turns(card, args.parent_csrc)
     print(f"[done] {card}")
     return 0
 

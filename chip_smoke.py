@@ -41,8 +41,9 @@ which raises on failure (non-zero exit, no result line):
      its unpack entry (packed_unpack) on the default, tenten, 33x9 and 130x8
      boards (``TAIL_BOARDS``: dense boards, ``max_steps`` 9, a terminal
      penalty of -0.3), with and without auto-reset, at the wrapper's tile
-     and at a tile of 7 envs, floats bit for bit, the share of done envs
-     printed; an illegal action on a board holding a full line
+     and ring and at a tile of 7 envs, then at the wrapper's tile in a ring
+     of one stage and on a grid of one block an SM, floats bit for bit,
+     the share of done envs printed; an illegal action on a board holding a full line
      through the u8 apply kernel of the presets and of the wide board and
      through every packed apply; then each kernel's device time (CUDA
      events over 50 launches queued behind a spin kernel, so the host's
@@ -848,10 +849,11 @@ def dense_cells(cfg, n: int, gen):
     return cells
 
 
-def tail_inputs(cfg, n: int, seed: int):
+def tail_inputs(cfg, n: int, seed: int, density=None):
     """The tail's inputs on the card as the step hands them
     (tests/test_torch_tail.py ``tail_inputs``): dense boards (every fifth
-    empty) as row words, the packed mask kernel's mask of a hand holding
+    empty; or, given ``density``, boards whose cells are full with that
+    chance, on which few games end) as row words, the packed mask kernel's mask of a hand holding
     ids of every kind (the sentinel and ids outside [0, P] too, as the
     reset deals, which are the second half of a 2S-wide deal), rewards, steps up to past ``max_steps``, scores, streaks
     and counters that wrap at 2**31."""
@@ -869,7 +871,9 @@ def tail_inputs(cfg, n: int, seed: int):
     def t(x, dtype):
         return torch.as_tensor(x, dtype=dtype, device=dev)
 
-    words = pack_words(t(dense_cells(cfg, n, gen), torch.uint8))
+    cells = (dense_cells(cfg, n, gen) if density is None
+             else gen.random((n, cfg.height, cfg.width)) < density)
+    words = pack_words(t(cells, torch.uint8))
     words[::5] = 0
     queue3 = t(gen.integers(-1, p + 3, (n, s)), torch.int32)
     reset = t(gen.integers(-2, p + 3, (n, 2 * s)), torch.int32)[:, s:]  # the step's half
@@ -895,10 +899,12 @@ def phase1_tail(errs: dict, times: dict, bounds: dict) -> None:
     """The step's tail (B10, ``packed_tail``) and its unpack entry
     (``packed_unpack``) against their plain versions on ``TAIL_BOARDS`` at
     N = 49152 and 49151, bit-equal (floats bit for bit), with and without
-    auto-reset, at the wrapper's tile and at a tile of 7 envs; the share of
-    done envs printed (and required in (0, 1)).  Then both kernels' device
-    times, plain times and bounds at N = 49152 on the default preset with
-    auto-reset, the step's own call, into ``times`` and ``bounds``."""
+    auto-reset, at the wrapper's tile and at a tile of 7 envs (the unpack
+    too), then at the wrapper's tile with the smallest ring (one stage) and
+    with a grid of one block an SM; the share of done envs printed (and
+    required in (0, 1)).  Then both kernels' device times, plain times and
+    bounds at N = 49152 on the default preset with auto-reset, the step's
+    own call, into ``times`` and ``bounds``."""
     import dataclasses
 
     import torch
@@ -912,28 +918,33 @@ def phase1_tail(errs: dict, times: dict, bounds: dict) -> None:
         cfg = PRESETS[name]() if shape is None else EnvConfig(**shape)
         cfg = dataclasses.replace(cfg, **TAIL_KNOBS)
         k = PackedTailKernel(cfg, dev)
-        tile = k.envs
+        tile, stages, unpack_tile = k.envs, k.stages, k.unpack_envs
+        # (envs a tile, stages a ring, blocks an SM; 0: the kernel's choice)
+        rings = ((tile, stages, 0), (7, stages, 0), (tile, 1, 0), (tile, stages, 1))
         for n in (N_MAIN, N_MAIN - 1):
             inputs = tail_inputs(cfg, n, seed=n)
             what = f"{name}, N={n}"
-            for envs in (tile, 7):
-                k.envs = envs
+            for k.envs, k.stages, k.blocks_per_sm in rings:
+                ring = f"tile {k.envs}, {k.stages} stages, blocks an SM {k.blocks_per_sm}"
                 for auto_reset in (True, False):
                     got = k(*inputs, auto_reset)
                     check_equal(tail_fields(got), tail_fields(k.plain(*inputs, auto_reset)),
-                                f"{what}, tile {envs}, auto_reset {auto_reset}", errs,
+                                f"{what}, {ring}, auto_reset {auto_reset}", errs,
                                 "packed_tail")
+            for k.unpack_envs in (unpack_tile, 7):
                 check_equal([k.unpack(inputs[0])], [k.plain_unpack(inputs[0])],
-                            f"{what}, tile {envs}", errs, "packed_unpack")
-            k.envs = tile
+                            f"{what}, tile {k.unpack_envs}", errs, "packed_unpack")
+            k.envs, k.stages, k.blocks_per_sm, k.unpack_envs = tile, stages, 0, unpack_tile
             done = float((got.terminated | got.truncated).float().mean())
             term = float(got.terminated.float().mean())
             if not 0.0 < term <= done < 1.0:
                 raise AssertionError(f"packed_tail {what}: done share {done}, "
                                      f"terminated {term}")
-            print(f"[phase1] {what}: packed_tail (tile {tile} and 7 envs, with and "
-                  f"without auto-reset) and packed_unpack == plain (bit-equal); done "
-                  f"share {done:.4f} (terminated {term:.4f})")
+            print(f"[phase1] {what}: packed_tail (tiles of {tile} and 7 envs in rings of "
+                  f"{stages} stages, tiles of {tile} in one stage and on a grid of one "
+                  f"block an SM, with and without auto-reset) and packed_unpack (tiles of "
+                  f"{unpack_tile} and 7) == plain (bit-equal); done share {done:.4f} "
+                  f"(terminated {term:.4f})")
     cfg = PRESETS["default"]()
     k = PackedTailKernel(cfg, dev)
     inputs = tail_inputs(dataclasses.replace(cfg, **TAIL_KNOBS), N_MAIN, seed=0)

@@ -13,13 +13,18 @@ that float32 rounds (-0.3), from dense boards (every row one hole, up to
 three empty rows on top) so that games end within a few steps: both engines
 get the same actions, the same refill deals and, for the reset of a
 finished env, JAX's own reset deals.  A numpy emulation of the kernel's
-block logic (tiles of envs, the legal and done flags in shared memory, the
-mask read as 16-byte vectors with its unaligned head and tail byte by byte,
-the flat spans of the outputs) is held bit-equal to the plain version on
-those boards, at the wrapper's tile and at a tile of 7 envs (tiles' spans
-off a 16-byte boundary), on batches that are no multiple of the tile;
-the unpack likewise, and ``board_obs`` of a CPU engine equals JAX's
-``_unpack_board`` on every packed shape.  Floats are compared bit for bit.
+block logic (persistent blocks walking tiles of envs through a ring of
+shared-memory stages, each input's tile bytes brought by a bulk copy of
+the whole 16-byte chunks inside its tensor and its ragged ends by plain
+loads, a segment of lanes an env, the flat spans of the outputs) is held
+bit-equal to the plain version on those boards, at the wrapper's tile and
+ring and at a tile of 7 envs (tiles' spans off a 16-byte boundary), on
+batches that are no multiple of the tile, in rings of 1 to 3 stages, on
+grids smaller than the tile count and on inputs that start off a 16-byte
+boundary; the unpack likewise, and ``board_obs`` of a CPU engine equals
+JAX's ``_unpack_board`` on every packed shape; the wrapper's tile and ring
+fit the kernel's shared memory on every packed height up to 160 rows.
+Floats are compared bit for bit.
 
 JAX is imported inside the tests that use it, so the ``gpu`` tests run on
 a machine without it: ``python -m pytest --noconftest -m gpu
@@ -38,15 +43,9 @@ from blockpuzzle_tpu_torch import config as tcfg
 from blockpuzzle_tpu_torch import make_env, rules
 from blockpuzzle_tpu_torch.env import rng as trng
 from blockpuzzle_tpu_torch.kernels import PackedMaskKernel, PackedTailKernel, _build
+from blockpuzzle_tpu_torch.kernels import tail as ktail
 from blockpuzzle_tpu_torch.kernels.packed import U32, pack_words, unpack_words
-from blockpuzzle_tpu_torch.kernels.tail import (
-    MAX_TILE,
-    SMEM_LIMIT,
-    Tail,
-    tail_block_envs,
-    tail_plain,
-    tail_smem_bytes,
-)
+from blockpuzzle_tpu_torch.kernels.tail import Tail, tail_plain
 from blockpuzzle_tpu_torch.sampler import UniformLegalSampler
 
 # the boards the tail is held to JAX on: the default preset, a hand of three
@@ -222,6 +221,7 @@ def test_packed_step_tail_matches_jax_packed_step(board, knobs, auto_reset):
 
 
 UNSET = 1 << 40  # above every int32 and row word
+GARBAGE = 0xAB   # shared memory's bytes before anything is staged there
 
 
 def _div(q, d):
@@ -232,29 +232,80 @@ def _div(q, d):
     return int(_small_div(q, d))
 
 
-def emulate_packed_tail(cfg, inputs, auto_reset, envs, table):
-    """csrc/packed_tail.cu ``packed_tail_kernel``, block by block: a tile of
-    ``envs`` envs, its rows staged as 32-bit words cut to W columns; the
-    tile's mask span read as 16-byte vectors from the first boundary at or
-    past its start (the mask starts on one), the bytes before and after one
-    by one, every nonzero byte setting its env's legal flag; one thread an
-    env for the flags, scalars and the done flag; then the mask output
-    vector by vector (a done env's bytes from its reset slots' table rows),
-    the final board and the board view by ``store_span`` (the done envs'
-    rows zeroed for the latter) and the int64 words.  Every output byte is
-    written once.  Returns a ``Tail`` of numpy arrays (None where the
-    kernel writes nothing)."""
+class Memory:
+    """The tail's inputs as the card holds them: each a run of bytes from
+    an address (``bases``: each input's address mod 16 when it is not 0;
+    the mask's must be 0), read back at absolute addresses, never outside
+    its tensor.  The reset deals are a view of rows ``stride`` ids apart,
+    so their bytes are those of the view's extent in its storage."""
+
+    def __init__(self, cfg, inputs, auto_reset, bases=None):
+        words, mask, reward, queue3, reset, steps, score, streak, counter = inputs
+        tensors = {"mask": mask, "words": words, "reward": reward, "steps": steps,
+                   "score": score, "counter": counter}
+        self.reset_stride = None
+        if auto_reset:
+            self.reset_stride = reset.stride(0)
+            n, s = reset.shape
+            extent = reset.as_strided(((n - 1) * self.reset_stride + s,), (1,))
+            tensors.update(queue3=queue3, streak=streak, reset=extent)
+        bases = {"reset": 4 * cfg.queue_size, **(bases or {})}
+        assert bases.get("mask", 0) == 0                # the kernel refuses others
+        self.src = ktail.tail_sources(cfg, self.reset_stride)
+        self.at, self.bytes = {}, {}
+        for i, (k, t) in enumerate(tensors.items()):
+            self.bytes[k] = np.ascontiguousarray(t.numpy()).view(np.uint8).reshape(-1)
+            self.at[k] = (1 << 20) * (i + 1) + bases.get(k, 0)
+
+    def read(self, k, x0, x1):
+        g, b = self.at[k], self.bytes[k]
+        assert g <= x0 <= x1 <= g + b.size, f"{k}: [{x0}, {x1}) outside its tensor"
+        return b[x0 - g : x1 - g]
+
+    def span(self, k, first, count):
+        """csrc/packed_tail.cu ``tile_span``: (x0, x1, from, a0, a1)."""
+        stride, length = self.src[k]
+        g, b = self.at[k], self.bytes[k]
+        x0, x1 = g + first * stride, g + (first + count - 1) * stride + length
+        return x0, x1, x0 & ~15, (g + 15) & ~15, (g + b.size) & ~15
+
+
+def emulate_packed_tail(cfg, inputs, auto_reset, envs, table, stages=3, blocks=2, bases=None):
+    """csrc/packed_tail.cu ``packed_tail_kernel``, block by block: ``blocks``
+    persistent blocks, block b walking tiles b, b + blocks, ... of ``envs``
+    envs through a ring of ``stages`` stages of its shared memory (laid out
+    by ``tail_layout``, every byte ``GARBAGE`` until written).  Thread
+    0 issues a tile's bulk copies ``stages - 1`` tiles ahead, into the stage
+    freed last: for each input, the 16-byte chunks covering the tile's
+    bytes that lie inside its tensor (16-byte aligned addresses and sizes,
+    inside the slot), a byte at address x landing at x minus the tile's
+    first address rounded down to 16; at the wait, the stage must hold that
+    tile, filled once more than it was used (the mbarrier's parity), and, on
+    tiles within 15 envs of either end, the tensors' first and last bytes off
+    a boundary come by plain loads.  Then phase B, a segment of
+    ``tail_segment(envs)`` lanes an env: the env's staged mask as 32-bit
+    words, masked at the span's ends, OR'ed lane by lane and across the
+    segment; done from it and the staged steps; rows, view rows and the new
+    int64 words; for a done env, its reset slots' table rows written over
+    its staged mask.  Phase C, a thread an env: the flags and scalars from
+    the flag bytes and the staged ones.  Phase D: the mask output as aligned
+    vectors of the staged mask, both board views by ``store_span``.  Every
+    output byte is written once.  Returns a ``Tail`` of numpy arrays (None
+    where the kernel writes nothing)."""
     from test_torch_kernels import emulate_store_span
 
-    words, mask, reward, queue3, reset, steps, score, streak, counter = (
-        x.numpy() for x in inputs)
-    n, h = words.shape
+    mem = Memory(cfg, inputs, auto_reset, bases)
+    n, h = inputs[0].shape
     w, s = cfg.width, cfg.queue_size
     hw, span = h * w, s * h * w
     num_pieces = table.shape[0] - 1
     keep = (1 << w) - 1
-    flat_mask = mask.reshape(-1).astype(np.uint8)
     table = table.reshape(-1).astype(np.uint8)
+    lay = ktail.tail_layout(cfg, envs, stages, mem.reset_stride)
+    seg = ktail.tail_segment(envs)
+    ends = {k: (list(lay.slots.values()) + [lay.stage])[i + 1]
+            for i, k in enumerate(lay.slots)}                # a slot's end in a stage
+    max_steps = cfg.max_steps
     # not yet written: 2 in a byte output, NaN in a float, UNSET in an integer
     out = {"terminated": np.full(n, 2, np.uint8), "truncated": np.full(n, 2, np.uint8),
            "reward": np.full(n, np.nan, np.float32), "score_next": np.full(n, np.nan, np.float32),
@@ -265,82 +316,140 @@ def emulate_packed_tail(cfg, inputs, auto_reset, envs, table):
                    queue_out=np.full(n * s, UNSET), mask_out=np.full(n * span, 2, np.uint8),
                    steps_out=np.full(n, UNSET), score_out=np.full(n, np.nan, np.float32),
                    streak_out=np.full(n, UNSET))
-    for first in range(0, n, envs):
-        count = min(envs, n - first)
-        rows = (words[first : first + count].reshape(-1) & U32) & keep
-        legal = np.zeros(count, bool)
-        lo, nbytes = first * span, count * span
-        head = min((16 - lo % 16) % 16, nbytes)
-        nvec = (nbytes - head) // 16
-        for v in range(nvec):
-            q = head + 16 * v
-            assert (lo + q) % 16 == 0                 # the uint4 load's alignment
-            x = flat_mask[lo + q : lo + q + 16]
-            if not x.any():
-                continue
-            e0 = _div(q, span)
-            if e0 == _div(q + 15, span):
-                legal[e0] = True
-                continue
-            for j in np.flatnonzero(x):
-                legal[_div(q + int(j), span)] = True
-        for j in range(nbytes - 16 * nvec):
-            q = j if j < head else j + 16 * nvec
-            if flat_mask[lo + q]:
-                legal[_div(q, span)] = True
-        done = np.zeros(count, bool)
-        pidx = np.zeros((count, s), np.int64)
-        for e in range(count):
-            env = first + e
-            term = not legal[e]
-            r = np.float32(reward[env] + np.float32(cfg.terminal_penalty)) if term \
-                else reward[env]
-            st = (int(steps[env]) + 1 + 2**31) % 2**32 - 2**31
-            trunc = cfg.max_steps > 0 and st >= cfg.max_steps
-            d = term or trunc
-            sc = np.float32(score[env] + r)
-            out["terminated"][env], out["truncated"][env] = term, trunc
-            out["reward"][env], out["score_next"][env] = r, sc
-            out["steps_next"][env] = st
-            out["rng_counter"][env] = (int(counter[env]) + 1 + 2**31) % 2**32 - 2**31
-            done[e] = d
+    ntiles = -(-n // envs)
+    seen = []
+
+    def tile_of(tile):
+        first = tile * envs
+        return first, min(envs, n - first)
+
+    for b in range(blocks):
+        smem = np.full(lay.bytes, GARBAGE, np.uint8)
+        fills, holds = [0] * stages, [None] * stages
+
+        def issue(tile, r):
+            first, count = tile_of(tile)
+            stage = lay.ring + r * lay.stage
+            for k in lay.slots:
+                x0, x1, frm, a0, a1 = mem.span(k, first, count)
+                b0, b1 = max(frm, a0), min((x1 + 15) & ~15, a1)
+                if b0 < b1:
+                    dst = stage + lay.slots[k] + b0 - frm
+                    assert b0 % 16 == 0 and (b1 - b0) % 16 == 0 and dst % 16 == 0
+                    assert dst + b1 - b0 <= stage + ends[k], f"{k} past its slot"
+                    smem[dst : dst + b1 - b0] = mem.read(k, b0, b1)
+            fills[r] += 1
+            holds[r] = tile
+
+        for k in range(stages - 1):
+            if b + k * blocks < ntiles:
+                issue(b + k * blocks, k)
+        for i, tile in enumerate(range(b, ntiles, blocks)):
+            if tile + (stages - 1) * blocks < ntiles:
+                issue(tile + (stages - 1) * blocks, (i + stages - 1) % stages)
+            r = i % stages
+            assert holds[r] == tile and fills[r] == i // stages + 1, "the ring's order"
+            seen.append(tile)
+            stage = lay.ring + r * lay.stage
+            first, count = tile_of(tile)
+            at = {}
+            near_end = first < 15 or n - first - count < 15
+            for k in lay.slots:                          # the ragged bytes, then where each is
+                x0, x1, frm, a0, a1 = mem.span(k, first, count)
+                slot = stage + lay.slots[k]
+                for lo, hi in ((x0, min(x1, a0)), (max(x0, a1), x1)):
+                    if lo < hi:                      # only on tiles near either end
+                        assert near_end and hi - lo < 16
+                        smem[slot + lo - frm : slot + hi - frm] = mem.read(k, lo, hi)
+                at[k] = slot + (x0 & 15)
+
+            def staged(k, dtype, nelem=count):
+                size = np.dtype(dtype).itemsize
+                assert at[k] % size == 0
+                return smem[at[k] : at[k] + size * nelem].view(dtype)
+
+            words64 = staged("words", np.int64, count * h)
+            steps = staged("steps", np.int32)
             if auto_reset:
-                out["steps_out"][env] = 0 if d else st
-                out["score_out"][env] = np.float32(0.0) if d else sc
-                out["streak_out"][env] = 0 if d else streak[env]
-                for k in range(s):
-                    fresh = int(reset[env, k])
-                    out["queue_out"][env * s + k] = fresh if d else queue3[env, k]
-                    pidx[e, k] = fresh if 0 <= fresh < num_pieces else num_pieces
+                reset = staged("reset", np.int32, (count - 1) * mem.reset_stride + s)
+            # -- phase B: a segment of ``seg`` lanes an env
+            mw = smem[stage + lay.slots["mask"] : stage + ends["mask"]].view("<u4")
+            m_at = at["mask"] - stage - lay.slots["mask"]
+            flags = np.full(count, GARBAGE)
+            rows, view = np.full(count * h, -1), np.full(count * h, -1)
+            reward, score = staged("reward", np.float32), staged("score", np.float32)
+            counter = staged("counter", np.int32)
+            for e in range(count):
+                assert (e + 1) * seg <= ktail.THREADS
+                start, end = m_at + e * span, m_at + (e + 1) * span
+                ws = np.arange(start // 4, (end + 3) // 4)
+                v = mw[ws].astype(np.uint64)
+                before, inside = start - 4 * ws, end - 4 * ws
+                v &= np.where(before > 0, (0xFFFFFFFF << (8 * np.maximum(before, 0))) & 0xFFFFFFFF,
+                              0xFFFFFFFF).astype(np.uint64)
+                v &= np.where(inside < 4, 0xFFFFFFFF >> (8 * np.clip(4 - inside, 0, 3)),
+                              0xFFFFFFFF).astype(np.uint64)
+                lanes = np.zeros(seg, np.uint64)
+                np.bitwise_or.at(lanes, (ws - start // 4) % seg, v)
+                term = np.bitwise_or.reduce(lanes) == 0         # __reduce_or_sync
+                st = (int(steps[e]) + 1 + 2**31) % 2**32 - 2**31
+                trunc = max_steps > 0 and st >= max_steps
+                done = term or trunc
+                x = (words64[e * h : (e + 1) * h] & U32) & keep
+                rows[e * h : (e + 1) * h] = x
+                if auto_reset:
+                    view[e * h : (e + 1) * h] = 0 if done else x
+                    board_out = out["board_out"][(first + e) * h : (first + e + 1) * h]
+                    assert (board_out == UNSET).all()
+                    board_out[:] = 0 if done else words64[e * h : (e + 1) * h]
+                    fresh = reset[e * mem.reset_stride : e * mem.reset_stride + s]
+                flags[e] = int(term) | int(done) << 1
+                if auto_reset and done:        # the table rows over the staged mask
+                    for j in range(span):
+                        k = _div(j, hw)
+                        p = fresh[k] if 0 <= fresh[k] < num_pieces else num_pieces
+                        smem[at["mask"] + e * span + j] = table[p * hw + j - k * hw]
+            # -- phase C: a thread an env, the flags and scalars
+            for e in range(count):
+                term, done = bool(flags[e] & 1), bool(flags[e] >> 1)
+                st = (int(steps[e]) + 1 + 2**31) % 2**32 - 2**31
+                trunc = max_steps > 0 and st >= max_steps
+                env = first + e
+                rw = np.float32(reward[e] + np.float32(cfg.terminal_penalty)) if term else reward[e]
+                sc = np.float32(score[e] + rw)
+                out["terminated"][env], out["truncated"][env] = term, trunc
+                out["reward"][env], out["score_next"][env] = rw, sc
+                out["steps_next"][env] = st
+                out["rng_counter"][env] = (int(counter[e]) + 1 + 2**31) % 2**32 - 2**31
+                if auto_reset:
+                    out["steps_out"][env] = 0 if done else st
+                    out["score_out"][env] = np.float32(0.0) if done else sc
+                    out["streak_out"][env] = 0 if done else staged("streak", np.int32)[e]
+                    queue3 = staged("queue3", np.int32, count * s)
+                    fresh = reset[e * mem.reset_stride : e * mem.reset_stride + s]
+                    for k in range(s):
+                        out["queue_out"][env * s + k] = fresh[k] if done else queue3[e * s + k]
 
-        def table_byte(e, at):
-            k = _div(at, hw)
-            return table[pidx[e, k] * hw + at - k * hw]
-
-        if auto_reset:
-            o = out["mask_out"]
-            for v in range(nvec):
-                q = head + 16 * v
-                x = flat_mask[lo + q : lo + q + 16].copy()
-                e0 = _div(q, span)
-                if e0 != _div(q + 15, span) or done[e0]:
-                    for j in range(16):
-                        e = _div(q + j, span)
-                        if done[e]:
-                            x[j] = table_byte(e, q + j - e * span)
-                assert (o[lo + q : lo + q + 16] == 2).all()
-                o[lo + q : lo + q + 16] = x
-            for j in range(nbytes - 16 * nvec):
-                q = j if j < head else j + 16 * nvec
-                e = _div(q, span)
-                assert o[lo + q] == 2
-                o[lo + q] = table_byte(e, q - e * span) if done[e] else flat_mask[lo + q]
-            emulate_store_span(rows, out["final_board"], first * hw, count * hw, w)
-            for i in range(count * h):
-                out["board_out"][first * h + i] = 0 if done[_div(i, h)] else words.reshape(
-                    -1)[first * h + i]
-            rows = np.where(np.repeat(done, h), 0, rows)
-        emulate_store_span(rows, out["board"], first * hw, count * hw, w)
+            # -- phase D: the flat spans
+            if auto_reset:
+                lo, nbytes = first * span, count * span
+                head = min((16 - lo % 16) % 16, nbytes)
+                nvec = (nbytes - head) // 16
+                o, m = out["mask_out"], smem[at["mask"] :]
+                for v in range(nvec):
+                    q = head + 16 * v
+                    assert (lo + q) % 16 == 0 and (at["mask"] + q) % 16 == 0  # the uint4s
+                    assert (o[lo + q : lo + q + 16] == 2).all()
+                    o[lo + q : lo + q + 16] = m[q : q + 16]
+                for j in range(nbytes - 16 * nvec):
+                    q = j if j < head else j + 16 * nvec
+                    assert o[lo + q] == 2
+                    o[lo + q] = m[q]
+                emulate_store_span(rows, out["final_board"], first * hw, count * hw, w)
+                emulate_store_span(view, out["board"], first * hw, count * hw, w)
+            else:
+                emulate_store_span(rows, out["board"], first * hw, count * hw, w)
+    assert sorted(seen) == list(range(ntiles))               # every tile once
     for k, v in out.items():                                  # every byte written
         unset = np.isnan(v) if v.dtype.kind == "f" else v == (2 if v.dtype == np.uint8 else UNSET)
         assert not unset.any(), k
@@ -371,35 +480,76 @@ def emulate_packed_unpack(cfg, words, envs):
     return out.reshape(n, h, cfg.width)
 
 
+def check_emulated_tail(cfg, n, auto_reset, envs, seed, **ring):
+    """The emulated kernel bit-equal to the plain tail on ``tail_inputs``,
+    some envs done and some not; the plain tail for further checks."""
+    k = PackedTailKernel(cfg, "cpu")
+    inputs = tail_inputs(cfg, n, np.random.default_rng(seed))
+    want = k(*inputs, auto_reset)
+    got = emulate_packed_tail(cfg, inputs, auto_reset, envs, k.empty_legal.numpy(), **ring)
+    for i, (field, g, w) in enumerate(zip(Tail._fields, got, want)):
+        if g is None:  # without auto-reset the kernel writes the first seven
+            assert not auto_reset and i >= 7, field
+        else:
+            assert_same_bits(g, w.numpy(), f"{field}, tile {envs}, {ring}")
+    done = want.terminated | want.truncated
+    assert 0 < int(want.terminated.sum()) < n and 0 < int(done.sum()) < n
+    return want
+
+
 @pytest.mark.parametrize("tile", ["wrapper", 7])
 @pytest.mark.parametrize("auto_reset", [True, False], ids=["auto_reset", "no_reset"])
 @pytest.mark.parametrize("board", BOARDS)
 def test_emulated_tail_kernel_matches_plain(board, auto_reset, tile):
     """The kernel's block logic, in numpy, bit-equal to the plain tail on
     dense boards with ``max_steps`` and a terminal penalty that rounds, on
-    two tiles and a bit more: at the wrapper's tile (128 envs on 10x10 and
-    tenten, 118 on 33x9, 31 on 130x8) and at 7 envs, whose spans start off
-    a 16-byte boundary (on 130x8 an env's 1040 mask bytes are 65 vectors);
-    ids outside [0, P] in the hand and the reset deals, counters at
-    2**31 - 1."""
+    two tiles and a bit more, two persistent blocks walking them through the
+    wrapper's ring: at the wrapper's tile (64 envs on 10x10, fewer on
+    tenten, 33x9 and 130x8) and at 7 envs, whose spans start off a 16-byte
+    boundary (on 130x8 an env's 1040 mask bytes are 65 vectors); ids outside
+    [0, P] in the hand and the reset deals, counters at 2**31 - 1."""
     cfg = board_config(tcfg, board, (("max_steps", 9), ("terminal_penalty", -0.3)))
     k = PackedTailKernel(cfg, "cpu")
     envs = k.envs if tile == "wrapper" else tile
     n = 2 * envs + 37
-    rng = np.random.default_rng(envs)
-    inputs = tail_inputs(cfg, n, rng)
-    want = k(*inputs, auto_reset)
-    got = emulate_packed_tail(cfg, inputs, auto_reset, envs, k.empty_legal.numpy())
-    for i, (field, g, w) in enumerate(zip(Tail._fields, got, want)):
-        if g is None:  # without auto-reset the kernel writes the first seven
-            assert not auto_reset and i >= 7, field
-        else:
-            assert_same_bits(g, w.numpy(), f"{field}, {board}, tile {envs}")
-    done = want.terminated | want.truncated
-    assert 0 < int(want.terminated.sum()) < n and 0 < int(done.sum()) < n
+    check_emulated_tail(cfg, n, auto_reset, envs, envs, stages=k.stages)
     span = cfg.queue_size * cfg.num_cells
     if tile == 7:  # spans off a boundary but where an env's span is 16-byte whole
         assert any(first * span % 16 for first in range(0, n, envs)) == bool(span % 16)
+
+
+@pytest.mark.parametrize("n_off", [-1, 1], ids=["tiles_less_one", "tiles_and_one"])
+@pytest.mark.parametrize("stages", [1, 2, 3])
+@pytest.mark.parametrize("board", BOARDS)
+def test_emulated_tail_ring_matches_plain(board, stages, n_off):
+    """The emulated kernel through rings of 1, 2 and 3 stages, three blocks
+    walking 6 or 7 tiles of 7 envs (a grid smaller than the tile count,
+    blocks taking 2 or 3 tiles), N one less and one more than a multiple of
+    the tile: bit-equal to the plain tail."""
+    cfg = board_config(tcfg, board, (("max_steps", 9), ("terminal_penalty", -0.3)))
+    check_emulated_tail(cfg, 6 * 7 + n_off, True, 7, 11, stages=stages, blocks=3)
+
+
+# inputs at addresses off a 16-byte boundary (the mask must start on one):
+# each tensor's first and last bytes come by plain loads
+OFF_BOUNDARY = {"words": 8, "reward": 4, "steps": 12, "score": 8, "counter": 4,
+                "queue3": 12, "streak": 4}
+
+
+@pytest.mark.parametrize("grid", ["one", "a_tile_each"])
+@pytest.mark.parametrize("board", BOARDS)
+def test_emulated_tail_on_inputs_off_a_boundary(board, grid):
+    """The emulated kernel on inputs that start off a 16-byte boundary
+    (views: int64 words 8 bytes past one, scalars 4 to 12, the reset deals 4
+    past the step's half of its deal), the grid one block or a block a tile,
+    at the wrapper's tile and ring: bit-equal to the plain tail, every read
+    inside its tensor."""
+    cfg = board_config(tcfg, board, (("max_steps", 9), ("terminal_penalty", -0.3)))
+    k = PackedTailKernel(cfg, "cpu")
+    n = 3 * k.envs + 5
+    blocks = 1 if grid == "one" else 4
+    bases = dict(OFF_BOUNDARY, reset=4 + 4 * cfg.queue_size)
+    check_emulated_tail(cfg, n, True, k.envs, 13, stages=k.stages, blocks=blocks, bases=bases)
 
 
 @pytest.mark.parametrize("board", PACKED_SHAPES)
@@ -417,13 +567,13 @@ def test_board_obs_and_unpack_match_jax_unpack_board(board):
     env_t = make_env(cfg, device="cpu")
     env_j = jax_make_env(board_config(jcfg, board), state_impl="packed")
     rng = np.random.default_rng(3)
-    n = 2 * env_t.packed_tail_kernel.envs + 5
+    n = 2 * env_t.packed_tail_kernel.unpack_envs + 5
     words = torch.as_tensor(rng.integers(0, 1 << cfg.width, (n, cfg.height)))
     want = np.asarray(env_j._unpack_board(jnp.asarray(words.numpy().astype(np.uint32))))
     got = env_t.board_obs(words)
     assert got.dtype == torch.uint8 and got.shape == (n, cfg.height, cfg.width)
     np.testing.assert_array_equal(got.numpy(), want)
-    for envs in (env_t.packed_tail_kernel.envs, 7):
+    for envs in (env_t.packed_tail_kernel.unpack_envs, 7):
         np.testing.assert_array_equal(emulate_packed_unpack(cfg, words, envs), want)
     high = words | (torch.as_tensor(rng.integers(0, 2, (n, cfg.height))) << cfg.width)
     np.testing.assert_array_equal(emulate_packed_unpack(cfg, high, 7), want)
@@ -491,22 +641,104 @@ def test_tail_wrapper_refuses_bad_inputs():
         PackedTailKernel(tcfg.EnvConfig(height=8, width=40), "cpu")
 
 
+def check_ring(cfg):
+    """``tail_ring``'s choice for ``cfg``, held to its rule.  The tile it
+    aims at (``tail_tile``) is a power of two up to ``TILE`` envs, the
+    largest whose segments (``tail_segment``) leave a lane at most
+    ``LANE_BYTES`` of an env's mask bytes, or a warp an env.  The ring is
+    the deepest of up to ``STAGES`` that holds that tile in ``RING_SMEM``;
+    where none does, the deepest whose tile of one env fits ``RING_SMEM``,
+    else the opted-in ``SMEM_LIMIT``, with as many envs as fit it; None
+    where one env in one stage does not fit the limit.  The choice fits the
+    limit with the step's reset deals (2S ids apart) and with contiguous
+    ones, and keeps the kernel's divisions in range (csrc/packed_tail.cu
+    ``tile_fits``: the tile's mask span and row words under 2^21, its board
+    bytes times W under 2^32)."""
+    stride, s = 2 * cfg.queue_size, cfg.queue_size
+    span = s * cfg.num_cells
+    ring, tile = ktail.tail_ring(cfg), ktail.tail_tile(cfg)
+    seg = ktail.tail_segment(tile)
+    assert tile & (tile - 1) == 0 and tile <= ktail.TILE and tile * seg <= ktail.THREADS
+    assert span <= ktail.LANE_BYTES * seg or seg == 32
+    assert tile == ktail.TILE or span > ktail.LANE_BYTES * ktail.tail_segment(2 * tile)
+
+    def smem(envs, stages):
+        return ktail.tail_smem_bytes(cfg, envs, stages, stride)
+
+    if smem(1, 1) > ktail.SMEM_LIMIT:
+        assert ring is None
+        return None
+    envs, stages = ring
+    deep = [r for r in range(1, ktail.STAGES + 1) if smem(tile, r) <= ktail.RING_SMEM]
+    if deep:
+        assert (envs, stages) == (tile, max(deep))
+    else:
+        budget = ktail.RING_SMEM if smem(1, 1) <= ktail.RING_SMEM else ktail.SMEM_LIMIT
+        assert stages == max(r for r in range(1, ktail.STAGES + 1) if smem(1, r) <= budget)
+        assert smem(envs, stages) <= budget and (envs == tile or smem(envs + 1, stages) > budget)
+    for reset_stride in (stride, s, None):
+        assert ktail.tail_smem_bytes(cfg, envs, stages, reset_stride) <= ktail.SMEM_LIMIT
+    hw = cfg.height * cfg.width
+    assert envs * s * hw < 1 << 21 and envs * cfg.height < 1 << 21
+    assert envs * hw * cfg.width < 1 << 32
+    return ring
+
+
 @pytest.mark.parametrize("height", [10, 33, 130, 1000, 3000])
 def test_tail_tile_fits_the_kernel(height):
-    """The wrapper's tile fits the shared memory of a plain launch and keeps
-    the kernel's divisions in range (csrc/packed_tail.cu ``tile_fits``):
-    the tile's mask span and row words under 2^21, its board bytes times W
-    under 2^32; 128 envs on the presets."""
+    """The wrapper's tile and ring keep ``check_ring``'s rule, on boards of
+    32 and 9 columns; where one env in one stage does not fit the opted-in
+    shared memory there is no ring and a launch raises (two stages on 1000x32
+    with a hand of three, none on 3000x32); the unpack's tile fits a plain
+    launch.  Rings of 3 stages within
+    56 KB on the presets, tiles of ``TILE`` envs on 10x10."""
     for width, s in ((32, 3), (9, 1)):
         cfg = tcfg.EnvConfig(height=height, width=width, queue_size=s)
-        envs = tail_block_envs(cfg)
-        assert 1 <= envs <= MAX_TILE
-        assert tail_smem_bytes(cfg, envs) <= SMEM_LIMIT
-        hw = height * width
-        assert envs * s * hw < 1 << 21 and envs * height < 1 << 21
-        assert envs * hw * width < 1 << 32
+        check_ring(cfg)
+        unpack = ktail.unpack_block_envs(cfg)
+        assert 1 <= unpack <= ktail.MAX_TILE and 4 * unpack * height <= ktail.UNPACK_LIMIT
+    assert ktail.tail_ring(tcfg.EnvConfig(height=1000, width=32, queue_size=3)) == (1, 2)
+    assert ktail.tail_ring(tcfg.EnvConfig(height=3000, width=32, queue_size=3)) is None
+    # the wrapper's check on the card (boards that large have no rule tables
+    # here): no ring, or a tile too large for the shared memory, raises
+    k = PackedTailKernel(tcfg.EnvConfig(height=130, width=8), "cpu")
+    k.device = torch.device("cuda")
+    too_big = ktail.tail_smem_bytes(k.cfg, ktail.MAX_TILE, ktail.STAGES, 2)
+    for smem in (0, too_big):
+        with pytest.raises(ValueError, match="does not fit"):
+            k._check_launch([], smem=smem)
     for name in ("default", "tenten", "woodoku", "big"):
-        assert tail_block_envs(tcfg.PRESETS[name]()) == MAX_TILE
+        cfg = tcfg.PRESETS[name]()
+        envs, stages = check_ring(cfg)
+        assert stages == ktail.STAGES
+        assert ktail.tail_smem_bytes(cfg, envs, stages, 2 * cfg.queue_size) <= ktail.RING_SMEM
+        assert ktail.unpack_block_envs(cfg) == ktail.MAX_TILE
+    assert ktail.tail_ring(tcfg.PRESETS["default"]()) == (ktail.TILE, ktail.STAGES)
+
+
+@pytest.mark.parametrize("queue_size", [1, 3])
+def test_tail_ring_fits_every_packed_height(queue_size):
+    """For every board JAX's ``make_env`` runs packed (W <= 32) from 1 to
+    160 rows, on widths 1 to 32: a ring by ``check_ring``'s rule, of tiles of
+    at least one env, within the opted-in shared memory; the layout's slots
+    in order, 16-byte aligned, each holding the tile's bytes of its input
+    with up to 15 bytes either side."""
+    from blockpuzzle_tpu import config as jcfg
+    from blockpuzzle_tpu.env import make_env as jax_make_env
+
+    assert jax_make_env(jcfg.EnvConfig(height=160, width=32)).state_impl == "packed"
+    for height in range(1, 161):
+        for width in (1, 8, 9, 10, 16, 31, 32):
+            cfg = tcfg.EnvConfig(height=height, width=width, queue_size=queue_size)
+            envs, stages = check_ring(cfg)
+            stride = 2 * queue_size
+            lay = ktail.tail_layout(cfg, envs, stages, stride)
+            assert envs >= 1 and lay.bytes <= ktail.SMEM_LIMIT, (height, width)
+            assert lay.ring % 16 == 0 and lay.stage % 16 == 0
+            ends = list(lay.slots.values())[1:] + [lay.stage]
+            for (k, at), end in zip(lay.slots.items(), ends):
+                step, length = ktail.tail_sources(cfg, stride)[k]
+                assert at % 16 == 0 and end - at >= (envs - 1) * step + length + 30, k
 
 
 def test_engine_uses_the_tail_on_packed_boards_only():
