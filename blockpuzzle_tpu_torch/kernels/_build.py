@@ -37,6 +37,7 @@ SIGNATURES = {
     "bp_mask_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "bp_mask_wide": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "bp_mask_tall": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "bp_mask_deep": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "bp_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "bp_apply_rows": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bp_clear": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -50,6 +51,8 @@ SIGNATURES = {
     "bp_packed_words": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "bp_packed_apply_tall": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "bp_packed_apply_general": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "bp_packed_apply_general_pass": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _P],
     "bp_packed_mask_tall": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "bp_packed_mask_general": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "bp_packed_words_tall": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],

@@ -1,17 +1,23 @@
 // Hand action mask: the CUDA port of the TPU kernel `_mask_kernel`
 // (blockpuzzle_tpu/kernels/mask.py:57, launched by `_mask_pallas_call`,
-// mask.py:85, from `MaskKernel.__call__`).  Four kernels: the bit-row
+// mask.py:85, from `MaskKernel.__call__`).  Five kernels: the bit-row
 // kernel (`mask_rows_kernel`, entry `bp_mask_rows`) for boards with H <= 32
 // and W <= 32 and pieces of at most 8 rows and 8 columns, every shipped
 // preset and piece set; the wide kernel (`mask_wide_kernel`, entry
 // `bp_mask_wide`), the bit-row kernel on rows of NW = 2..4 words, for
 // H <= 32 and 32 < W <= 128 and the same pieces; the tall kernel
 // (`mask_tall_kernel`, entry `bp_mask_tall`), a warp an env-slot, for
-// 32 < H <= 128, W <= 128 and the same pieces; and the general kernel
-// (`mask_kernel`, entry `bp_mask`) for any other board.  The wrapper
-// (kernels/mask.py) picks one by shape.
+// 32 < H <= 128, W <= 128 and the same pieces; the deep kernel
+// (`mask_deep_kernel`, entry `bp_mask_deep`), a warp an env-slot walking
+// the board in windows of 32 rows, for H > 128, W <= 128 and the same
+// pieces wherever a block of one warp or more fits the shared memory a
+// block may opt in to with its boards staged whole; and the general kernel
+// (`mask_kernel`, entry `bp_mask`) for what is left: rows of more than 128
+// cells, pieces of more than 8 rows or columns, or a deep board too large
+// for one warp's shared memory.  The wrapper (kernels/mask.py) picks one by
+// shape.
 //
-// What both compute (not how the TPU did it): anchor (r, c) of hand slot s
+// What all compute (not how the TPU did it): anchor (r, c) of hand slot s
 // is legal iff the slot holds a piece (0 <= pid < P), the piece's bounding
 // box lies on the board (r + h <= H, c + w <= W), and every cell of its
 // footprint is empty (byte 0; the TPU kernel's occupied count is a sum of
@@ -90,12 +96,29 @@
 // M threads on 33x9 at N = 49152), 64-bit index arithmetic and a chain of
 // dependent byte loads each.
 //
+// The deep kernel is the tall kernel with its NR register slots turned
+// into a loop over windows of 32 anchor rows, from the top down, so that
+// registers do not grow with H: the warp holds two slots, rows 32 j + l
+// and 32 (j + 1) + l, enough because a piece spans at most 8 rows, so
+// row r + t (t < 8) of window j lies in slot j or j + 1 (`rows_below` on
+// the pair).  After a window's legal rows are staged the second slot moves
+// into the first and the next window is packed into the second; rows past
+// the bottom pack as 0 and no anchor reaches them (r + h <= H).  The
+// block's boards are staged whole, as in the tall kernel, and the block's
+// warps and turns are the tall kernel's choice (`kernels/packed.py`
+// `deep_launch_shape`), down to one warp where four do not fit; a block
+// above 48 KB opts in.  It answers what bounded the general kernel on such
+// boards: 51 M threads of 64-bit `%` and `/` on 130x8 at N = 49152, each a
+// chain of up to 9 dependent byte loads.
+//
 // The general kernel: one thread per (env, slot, anchor), flat over
 // N*S*HW.  Each thread reads its piece's (h, w, cell offsets) row from a
 // small table (P rows of 3+maxc int32, L1-resident) and tests at most maxc
 // (9 for classic19) board bytes (`piece_fits`, piece_fits.cuh, shared with
 // the legality kernel).  Per-thread work (64-bit index arithmetic, a
-// data-dependent chain of byte loads) bounds it, not bytes.
+// data-dependent chain of byte loads) bounds it, not bytes.  It is left to
+// the shapes no other kernel takes: W > 128, pieces larger than 8, or a
+// deep board whose one-warp block does not fit shared memory.
 
 #include <climits>
 #include <cstdint>
@@ -108,6 +131,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxPiece = 8;  // rows and columns of a piece the bit-row kernel takes
+constexpr long long kSmemOptIn = 227 * 1024;  // shared memory a block may opt in to
 using bit_rows::kAll;
 
 // OR_{u < rw} v >> u for 0 <= rw <= 8 (0 for rw = 0): doubling steps cover
@@ -412,6 +436,113 @@ __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
   bit_rows::store_tall<NW>(rows, out, static_cast<long long>(first) * hw, count * hw, width);
 }
 
+// Window `w` of the staged board that starts at span[at]: lane l's row
+// 32 w + l as NW words, 0 past the bottom.
+template <int NW>
+__device__ __forceinline__ void pack_window(const uint8_t* span, int at, int w, int height,
+                                            int width, uint32_t (&x)[NW]) {
+  const int r = 32 * w + threadIdx.x % 32;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    x[i] = r < height ? bit_rows::pack_row(span, at + r * width + 32 * i,
+                                           min(32, width - 32 * i))
+                      : 0u;
+  }
+}
+
+template <int NW>
+__global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
+    mask_deep_kernel(const uint8_t* __restrict__ board,
+                     const int32_t* __restrict__ queue,
+                     const int4* __restrict__ pieces,
+                     uint8_t* __restrict__ out, int total, int height,
+                     int width, int slots, int num_pieces, int max_h,
+                     int per_warp) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int warps = blockDim.x / 32;
+  const int per_block = warps * per_warp;              // env-slots: per_warp a warp
+  uint32_t* rows = reinterpret_cast<uint32_t*>(smem);  // E*H legal rows of NW words
+  uint8_t* span = bit_rows::staged_span(smem, per_block * height * NW);
+  const int hw = height * width;
+  const int first = blockIdx.x * per_block;            // first env-slot
+  const int count = min(per_block, total - first);     // env-slots here
+  const int env0 = first / slots;                      // first env read
+  const long long lo = static_cast<long long>(env0) * hw;
+  const long long hi = static_cast<long long>((first + count - 1) / slots + 1) * hw;
+  const int d = bit_rows::stage_bytes(board, lo, hi, span);
+
+  const int l = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  // lane it loads the piece of the warp's env-slot of round it, it * warps + warp
+  const int pids = l < per_warp && l * warps + warp < count ? queue[first + l * warps + warp] : -1;
+  __syncthreads();
+  const int windows = (height + 31) / 32;
+  for (int it = 0; it < per_warp; ++it) {
+    const int seg = it * warps + warp;                 // env-slot in the block
+    if (seg >= count) break;                           // the whole warp
+    const int pid = __shfl_sync(kAll, pids, it);
+    // piece row [h, w, rect 1, rect 2] as in mask_rows_kernel; no piece: no anchor
+    const int4 pc = pid >= 0 && pid < num_pieces ? pieces[pid]
+                                                  : make_int4(height + 1, width + 1, 0, 0);
+    const int q = first - env0 * slots + seg;  // env in the span: q / slots
+    const int env = slots <= 32 ? bit_rows::small_div(q, __frcp_rn(static_cast<float>(slots)))
+                                : q / slots;
+    const int at = d + env * hw;               // the board's first byte in the span
+    const unsigned r1 = static_cast<unsigned>(pc.z), r2 = static_cast<unsigned>(pc.w);
+    const int dr1 = r1 & 0xff, rh1 = (r1 >> 16) & 0xff;
+    const int dr2 = r2 & 0xff, rh2 = (r2 >> 16) & 0xff;
+    const int anchors = width - pc.y + 1;      // columns c with c + w <= W
+    // the two slots: rows 32 j + l (x[0]) and 32 (j + 1) + l (x[1])
+    uint32_t x[2][NW];
+    pack_window<NW>(span, at, 0, height, width, x[0]);
+    pack_window<NW>(span, at, 1, height, width, x[1]);
+    for (int j = 0; j < windows; ++j) {
+      // vertical OR over each rectangle's rows, word by word: row r + t
+      // across the seam from the second slot (`rows_below`)
+      uint32_t v1[NW], v2[NW];
+#pragma unroll
+      for (int i = 0; i < NW; ++i) v1[i] = v2[i] = 0;
+#pragma unroll
+      for (int t = 0; t < kMaxPiece; ++t) {
+        if (t < max_h) {
+          const bool in1 = static_cast<unsigned>(t - dr1) < static_cast<unsigned>(rh1);
+          const bool in2 = static_cast<unsigned>(t - dr2) < static_cast<unsigned>(rh2);
+#pragma unroll
+          for (int i = 0; i < NW; ++i) {
+            const uint32_t v[2] = {x[0][i], x[1][i]};
+            uint32_t y[2];
+            bit_rows::rows_below<2>(v, t, 0u, y);
+            v1[i] |= in1 ? y[0] : 0u;
+            v2[i] |= in2 ? y[0] : 0u;
+          }
+        }
+      }
+      // horizontal smear and shift by dc: bit c blocked iff a rectangle cell
+      // of anchor c meets the board
+      smear_words<NW>(v1, r1 >> 24);
+      shr_words<NW>(v1, (r1 >> 8) & 0xff);
+      smear_words<NW>(v2, r2 >> 24);
+      shr_words<NW>(v2, (r2 >> 8) & 0xff);
+      const int r = 32 * j + l;
+      const bool fits = r + pc.x <= height && anchors > 0;
+      if (r < height) {  // bit c of the row: anchor (r, c) is legal
+#pragma unroll
+        for (int i = 0; i < NW; ++i) {
+          const int a = anchors - 32 * i;  // anchors in word i: min(max(a, 0), 32)
+          const uint32_t span_mask = a >= 32 ? kAll : a > 0 ? (1u << a) - 1u : 0u;
+          rows[(seg * height + r) * NW + i] = fits ? ~(v1[i] | v2[i]) & span_mask : 0u;
+        }
+      }
+      // the next window: the second slot moves up, the one after it comes in
+#pragma unroll
+      for (int i = 0; i < NW; ++i) x[0][i] = x[1][i];
+      pack_window<NW>(span, at, j + 2, height, width, x[1]);
+    }
+  }
+  __syncthreads();
+  bit_rows::store_tall<NW>(rows, out, static_cast<long long>(first) * hw, count * hw, width);
+}
+
 __global__ void mask_kernel(const uint8_t* __restrict__ board,
                             const int32_t* __restrict__ queue,
                             const int32_t* __restrict__ piece_table,
@@ -494,6 +625,31 @@ int launch_mask_tall_rows(const void* board, const void* queue, const void* piec
       return launch_mask_tall<NR, 4>(board, queue, pieces, out, total, height, width, slots,
                                      num_pieces, max_h, per_warp, warps, stream);
   }
+}
+
+// The deep kernel's launch: the same shape as the tall one's; a block whose
+// shared memory passes what a block may opt in to is refused.
+template <int NW>
+int launch_mask_deep(const void* board, const void* queue, const void* pieces, void* out,
+                     int total, int height, int width, int slots, int num_pieces,
+                     int max_h, int per_warp, int warps, cudaStream_t stream) {
+  const int per_block = warps * per_warp;
+  const int blocks = (total + per_block - 1) / per_block;
+  const long long span = static_cast<long long>((per_block + slots - 1) / slots + 1) *
+                         height * width;
+  const long long smem = (4LL * per_block * height * NW + 15) / 16 * 16 + span + 32;
+  if (smem > kSmemOptIn) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        mask_deep_kernel<NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  mask_deep_kernel<NW><<<blocks, warps * 32, static_cast<int>(smem), stream>>>(
+      static_cast<const uint8_t*>(board), static_cast<const int32_t*>(queue),
+      static_cast<const int4*>(pieces), static_cast<uint8_t*>(out), total, height, width,
+      slots, num_pieces, max_h, per_warp);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -590,6 +746,41 @@ extern "C" int bp_mask_tall(const void* board, const void* queue,
     default:
       return launch_mask_tall_rows<4>(board, queue, pieces, out, t, height, width, slots,
                                       num_pieces, max_h, per_warp, warps, st);
+  }
+}
+
+// As bp_mask_tall, for H > 128 and W <= 128: one env-slot a warp at a
+// time, walking its board in windows of 32 rows (lane l: rows 32 j + l and
+// 32 (j + 1) + l); per_warp (1 to 4) env-slots a warp in turn, warps 1 to
+// 16; refused where the block's shared memory (its legal rows and its
+// staged boards) passes what a block may opt in to.
+extern "C" int bp_mask_deep(const void* board, const void* queue,
+                            const void* pieces, void* out, int n, int height,
+                            int width, int slots, int num_pieces, int max_h,
+                            int max_w, int per_warp, int warps, void* stream) {
+  const long long total = static_cast<long long>(n) * slots;
+  if (height <= 128 || width < 1 || width > 128 || slots < 1 || max_h > kMaxPiece ||
+      max_w > kMaxPiece || warps < 1 || warps > bit_rows::kMaxWarps || per_warp < 1 ||
+      per_warp > 4 || total > INT_MAX ||
+      ((reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(pieces)) & 15) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (total == 0) return static_cast<int>(cudaGetLastError());
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int t = static_cast<int>(total);
+  switch ((width + 31) / 32) {
+    case 1:
+      return launch_mask_deep<1>(board, queue, pieces, out, t, height, width, slots,
+                                 num_pieces, max_h, per_warp, warps, st);
+    case 2:
+      return launch_mask_deep<2>(board, queue, pieces, out, t, height, width, slots,
+                                 num_pieces, max_h, per_warp, warps, st);
+    case 3:
+      return launch_mask_deep<3>(board, queue, pieces, out, t, height, width, slots,
+                                 num_pieces, max_h, per_warp, warps, st);
+    default:
+      return launch_mask_deep<4>(board, queue, pieces, out, t, height, width, slots,
+                                 num_pieces, max_h, per_warp, warps, st);
   }
 }
 

@@ -33,10 +33,36 @@
 // stores each row's bits as one int64 straight.  The lanes of the last slot
 // past row H - 1 (31 of 64 at H = 33) run the same instructions on no row.
 //
-// The general kernels (H > 128): one thread an env (apply) or an
-// (env-slot, anchor row) (mask, words), the rows read from device memory:
-// a simple design that keeps every height the JAX engine takes running on
-// the card.
+// The general apply (H > 128, and any H >= 1 it is given): one warp an env
+// walking the board in windows of `cr` rows, one row a lane, so that
+// registers do not grow with H.  Without regions cr = 32; with regions of
+// size rs, cr = 32 - 32 mod rs, so that every window starts on a multiple
+// of rs and no region band crosses a window (JAX's bands start at
+// multiples of rs; only whole ones, a < H // rs, count).  Pass 1 reads
+// each window coalesced, 8 bytes a lane, ORs in the footprint (`Cover`,
+// the attrs row read once), gathers the overlap by `__any_sync` and ANDs
+// the placed rows' columns into a lane value, reduced once at the end by
+// `__reduce_and_sync`; it keeps the placed rows in shared memory, H words
+// a warp (`kStaged`), or pass 2 reads the input rows again (an L2 hit) and
+// ORs the footprint in again.  The entry stages them wherever a warp's
+// 4 H bytes fit a block (on the H100 the staged pass 2 is as fast on 130
+// rows and 9% faster on 512, `chip_measure.py --parts deep`), else reads
+// again; `bp_packed_apply_general_pass` takes either.  Pass 2 clears each
+// window: full rows by a
+// ballot, the region bands inside the window by rs shuffles from the
+// band's lanes, each full tile counted by the band's first row only, and
+// stores 8 bytes a lane, coalesced; k = the full rows' popcounts + the
+// columns' popcount + the tiles, summed over the windows.  Lanes past the
+// last row of the last window (31 of 32 on 129 rows) run every shuffle and
+// ballot and store nothing; rows past the bottom count as the column AND's
+// identity.  An illegal action writes its input back.  It answers what
+// bounded the thread-an-env kernel it replaced: 12 warps an SM whose
+// neighbouring lanes read rows H * 8 bytes apart, 32 sectors a warp-wide
+// load, and three serial passes of dependent loads, few bytes in flight.
+//
+// The general mask and words (H > 128): one thread an (env-slot, anchor
+// row), the rows read from device memory: a simple design that keeps every
+// height the JAX engine takes running on the card.
 
 #include <climits>
 #include <cstdint>
@@ -49,6 +75,7 @@ namespace {
 constexpr int kWarps = 8;        // warps a block of the apply and the words kernels
 constexpr int kThreads = 256;    // threads a block of the general kernels
 constexpr int kMaxRows = 128;    // rows of the tallest board the tall kernels take
+constexpr long long kSmemOptIn = 227 * 1024;  // shared memory a block may opt in to
 using bit_rows::kAll;
 
 __device__ __forceinline__ uint32_t shl32(uint32_t x, int s) {
@@ -222,64 +249,104 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-__global__ void packed_apply_general_kernel(const long long* __restrict__ words,
-                                            const int32_t* __restrict__ attrs,
-                                            const int32_t* __restrict__ r_in,
-                                            const int32_t* __restrict__ c_in,
-                                            const uint8_t* __restrict__ valid,
-                                            long long* __restrict__ words_out,
-                                            int32_t* __restrict__ k_out,
-                                            uint8_t* __restrict__ legal_out, int n,
-                                            int height, int width, int region_size) {
-  const long long env = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (env >= n) return;
-  const long long* x = words + env * height;
-  long long* o = words_out + env * height;
-  const int32_t* a = attrs + env * 11;
-  const int r = r_in[env];
-  const int c = c_in[env];
-  // the placed rows' column AND, and the overlap
-  bool overlap = false;
-  uint32_t cols = kAll;
-  for (int row = 0; row < height; ++row) {
-    const uint32_t w = static_cast<uint32_t>(x[row]);
-    const uint32_t cover = cover_row(a, r, c, row);
-    overlap |= (w & cover) != 0;
-    cols &= w | cover;
+// The chosen action's footprint a row at a time, as `cover_row`, with the
+// attrs row's two rectangles read once: rows [row0, end) of each take its
+// shifted 2^rw - 1 row mask.
+struct Cover {
+  int row0[2], end[2];
+  uint32_t mask[2];
+  __device__ __forceinline__ Cover(const int32_t* a, int r, int c) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      row0[j] = r + a[3 + 4 * j];
+      end[j] = row0[j] + a[5 + 4 * j];
+      mask[j] = shl32(shl32(1u, a[6 + 4 * j]) - 1u, c + a[4 + 4 * j]);
+    }
   }
-  const bool legal = valid[env] != 0 && !overlap;
-  int k = 0;
-  if (legal) {
-    const uint32_t full = shl32(1u, width) - 1u;
-    k = __popc(cols);
-    uint32_t reg = 0;  // the cleared fields of the current band
-    for (int row = 0; row < height; ++row) {
-      const uint32_t w = static_cast<uint32_t>(x[row]) | cover_row(a, r, c, row);
-      if (region_size > 0 && row % region_size == 0) {
-        reg = 0;
-        if (row + region_size <= height) {  // a whole band
-          uint32_t band = kAll;
-          for (int t = 0; t < region_size; ++t) {
-            band &= static_cast<uint32_t>(x[row + t]) | cover_row(a, r, c, row + t);
-          }
-          const uint32_t tile0 = shl32(1u, region_size) - 1u;
-          for (int t = 0; t + region_size <= width; t += region_size) {
-            const uint32_t tile = tile0 << t;
-            if ((band & tile) == tile) {
-              reg |= tile;
-              ++k;
-            }
+  __device__ __forceinline__ uint32_t operator()(int row) const {
+    return (row >= row0[0] && row < end[0] ? mask[0] : 0u) |
+           (row >= row0[1] && row < end[1] ? mask[1] : 0u);
+  }
+};
+
+template <bool kStaged>
+__global__ void __launch_bounds__(kWarps * 32)
+    packed_apply_general_kernel(const long long* __restrict__ words,
+                                const int32_t* __restrict__ attrs,
+                                const int32_t* __restrict__ r_in,
+                                const int32_t* __restrict__ c_in,
+                                const uint8_t* __restrict__ valid,
+                                long long* __restrict__ words_out,
+                                int32_t* __restrict__ k_out,
+                                uint8_t* __restrict__ legal_out, int n, int height,
+                                int width, int region_size) {
+  extern __shared__ uint32_t staged[];  // kStaged: H placed rows a warp
+  const int l = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const long long env = static_cast<long long>(blockIdx.x) * (blockDim.x / 32) + warp;
+  if (env >= n) return;  // the whole warp: no collective is left behind
+  const Cover cover(attrs + env * 11, r_in[env], c_in[env]);
+  const long long* x64 = words + env * height;
+  long long* o = words_out + env * height;
+  uint32_t* placed = staged + warp * height;
+  // rows a window: a whole number of region bands; lanes from cr on hold none
+  const int cr = region_size > 0 ? 32 - 32 % region_size : 32;
+  const bool lane = l < cr;
+  bool overlap = false;
+  uint32_t cols = kAll;  // the placed rows' column AND, this lane's rows
+#pragma unroll 4
+  for (int w0 = 0; w0 < height; w0 += cr) {
+    const int row = w0 + l;
+    if (lane && row < height) {
+      const uint32_t x = static_cast<uint32_t>(x64[row]);
+      const uint32_t cv = cover(row);
+      overlap |= (x & cv) != 0;
+      cols &= x | cv;
+      if (kStaged) placed[row] = x | cv;
+    }
+  }
+  const bool legal = valid[env] != 0 && !__any_sync(kAll, overlap);
+  if (!legal) {  // the input written back, read again (a cache hit)
+    for (int row = l; row < height; row += 32) o[row] = x64[row];
+    if (l == 0) {
+      k_out[env] = 0;
+      legal_out[env] = false;
+    }
+    return;
+  }
+  cols = __reduce_and_sync(kAll, cols);
+  const uint32_t full = shl32(1u, width) - 1u;
+  const uint32_t tile0 = shl32(1u, region_size) - 1u;
+  const int e = region_size > 0 ? l % region_size : 0;  // row - the band's first row
+  int k = __popc(cols);
+  int tiles = 0;  // full tiles of the bands whose first row is this lane's
+  for (int w0 = 0; w0 < height; w0 += cr) {
+    const int row = w0 + l;
+    const bool in = lane && row < height;
+    uint32_t p = kAll;  // the placed row; no row: the identity of the AND
+    if (in) p = kStaged ? placed[row] : static_cast<uint32_t>(x64[row]) | cover(row);
+    k += __popc(__ballot_sync(kAll, in && p == full));
+    uint32_t reg = 0;  // the band's full tiles
+    if (region_size > 0) {
+      uint32_t band = kAll;  // rows row - e .. row - e + rs - 1, all in this window
+      for (int t = 0; t < region_size; ++t) band &= __shfl_sync(kAll, p, l - e + t);
+      if (in && row - e + region_size <= height) {  // a whole band on the board
+        for (int i = 0; i + region_size <= width; i += region_size) {
+          const uint32_t tile = tile0 << i;
+          if ((band & tile) == tile) {
+            reg |= tile;
+            tiles += e == 0;
           }
         }
       }
-      k += w == full;
-      o[row] = w & ~((w == full ? full : 0u) | cols | reg);
     }
-  } else {
-    for (int row = 0; row < height; ++row) o[row] = x[row];
+    if (in) o[row] = p & ~((p == full ? full : 0u) | cols | reg);
   }
-  k_out[env] = k;
-  legal_out[env] = legal;
+  k += __reduce_add_sync(kAll, tiles);
+  if (l == 0) {
+    k_out[env] = k;
+    legal_out[env] = true;
+  }
 }
 
 // The legal bits of anchor row `row` of env-slot `es`, read straight from
@@ -342,6 +409,39 @@ __global__ void packed_words_general_kernel(const long long* __restrict__ words,
 bool tall_args_ok(int height, int width) {
   return height > 32 && height <= kMaxRows && width >= 1 && width <= 32;
 }
+
+// The general apply's launch: eight warps a block, an env each; staged,
+// as many as the shared memory a block may opt in to holds (H words a warp),
+// refused where one warp's rows pass it.
+int launch_apply_general(bool staged, const void* words, const void* attrs, const void* r,
+                         const void* c, const void* valid, void* words_out, void* k_out,
+                         void* legal_out, int n, int height, int width, int region_size,
+                         cudaStream_t stream) {
+  if (height < 1 || width < 1 || width > 32 || region_size < 0 || region_size > 32) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const long long row_bytes = 4LL * height;
+  const long long fit = kSmemOptIn / row_bytes;  // staged warps that fit
+  const int warps = !staged ? kWarps : fit < kWarps ? static_cast<int>(fit) : kWarps;
+  if (warps < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = staged ? static_cast<int>(warps * row_bytes) : 0;
+  const auto kernel = staged ? packed_apply_general_kernel<true>
+                             : packed_apply_general_kernel<false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<(n + warps - 1) / warps, warps * 32, smem, stream>>>(
+      static_cast<const long long*>(words), static_cast<const int32_t*>(attrs),
+      static_cast<const int32_t*>(r), static_cast<const int32_t*>(c),
+      static_cast<const uint8_t*>(valid), static_cast<long long*>(words_out),
+      static_cast<int32_t*>(k_out), static_cast<uint8_t*>(legal_out), n, height, width,
+      region_size);
+  return static_cast<int>(cudaGetLastError());
+}
+
 
 }  // namespace
 
@@ -434,24 +534,28 @@ extern "C" int bp_packed_words_tall(const void* words, const void* queue, const 
   return static_cast<int>(cudaGetLastError());
 }
 
-// The general apply, any H >= 1: bp_packed_apply_tall's arguments.
+// The general apply, any H >= 1: bp_packed_apply_tall's arguments; the
+// placed rows staged in shared memory (`kStaged`) wherever a warp's fit.
 extern "C" int bp_packed_apply_general(const void* words, const void* attrs, const void* r,
                                        const void* c, const void* valid, void* words_out,
                                        void* k_out, void* legal_out, int n, int height,
                                        int width, int region_size, void* stream) {
-  if (height < 1 || width < 1 || width > 32 || region_size < 0 || region_size > 32) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (n > 0) {
-    const int blocks = (n + kThreads - 1) / kThreads;
-    packed_apply_general_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const long long*>(words), static_cast<const int32_t*>(attrs),
-        static_cast<const int32_t*>(r), static_cast<const int32_t*>(c),
-        static_cast<const uint8_t*>(valid), static_cast<long long*>(words_out),
-        static_cast<int32_t*>(k_out), static_cast<uint8_t*>(legal_out), n, height, width,
-        region_size);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_apply_general(4LL * height <= kSmemOptIn, words, attrs, r, c, valid,
+                              words_out, k_out, legal_out, n, height, width, region_size,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// The general apply with its pass 2 chosen: `staged` nonzero keeps the
+// placed rows in shared memory, zero reads the input rows again.  The
+// measurements hold the two bit-equal and time them in turns.
+extern "C" int bp_packed_apply_general_pass(const void* words, const void* attrs,
+                                            const void* r, const void* c, const void* valid,
+                                            void* words_out, void* k_out, void* legal_out,
+                                            int n, int height, int width, int region_size,
+                                            int staged, void* stream) {
+  return launch_apply_general(staged != 0, words, attrs, r, c, valid, words_out, k_out,
+                              legal_out, n, height, width, region_size,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // The general mask and words entries, any H >= 1: bp_packed_words_tall's

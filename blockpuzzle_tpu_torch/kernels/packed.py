@@ -14,9 +14,11 @@ in jnp (``blockpuzzle_tpu/env/core.py``) and its legal words in jnp
 
 Each wrapper picks its kernel by height: one row a lane where H <= 32
 (``csrc/packed_apply.cu``, ``csrc/packed_mask.cu``), a warp a board where
-H <= 128 (the tall kernels, ``csrc/packed_tall.cu``), a thread an env or an
-anchor row above (the general kernels, the same file): the JAX engine takes
-packed state on any board of at most 32 columns, whatever its height.
+H <= 128 (the tall kernels, ``csrc/packed_tall.cu``), the general kernels
+above (the same file: the apply a warp an env walking the board in
+windows of rows, the mask and words a thread an anchor row): the JAX
+engine takes packed state on any board of at most 32 columns, whatever
+its height.
 
 * ``PackedApplyKernel``: the chosen action's footprint words
   (``_cover_words``), the overlap test, the masked place and the
@@ -107,17 +109,41 @@ def tall_launch_shape(cfg: EnvConfig):
     ``row_launch_shape``."""
     if not MAX_ROWS < cfg.height <= MAX_TALL or cfg.width > MAX_WIDE:
         return None
+    return _turns_shape(cfg)
+
+
+def deep_launch_shape(cfg: EnvConfig):
+    """(env-slots a warp, warps a block) of the deep u8 mask, which walks a
+    board of more than ``MAX_TALL`` rows of at most ``MAX_WIDE`` cells in
+    windows of 32 rows, a warp an env-slot: ``tall_launch_shape``'s choice,
+    down to fewer than 4 warps (the most that fit) where a block of 4 does
+    not fit what a block may opt in to; None for any other board and where
+    not even one warp's board fits (the general kernel takes those).
+    Computed once per wrapper, as ``row_launch_shape``."""
+    if cfg.height <= MAX_TALL or cfg.width > MAX_WIDE:
+        return None
+    return _turns_shape(cfg)
+
+
+def _turns_shape(cfg: EnvConfig):
+    """The tall and deep masks' (turns a warp, warps a block): 16 warps and
+    the most turns, 4, 2 or 1, whose shared memory fits 48 KB, else one
+    turn and ``tall_block_warps``, or the most warps below 4 that fit
+    ``SMEM_OPT_IN``; None where one warp does not."""
     for per_warp in (4, 2, 1):
         if tall_smem_bytes(cfg, 16 * per_warp) <= 48 * 1024:
             return per_warp, 16
-    return 1, tall_block_warps(cfg)
+    warps = tall_block_warps(cfg)
+    while warps > 0 and tall_smem_bytes(cfg, warps) > SMEM_OPT_IN:
+        warps -= 1
+    return (1, warps) if warps else None
 
 
 def tall_smem_bytes(cfg: EnvConfig, per_block: int) -> int:
     """Shared memory of a block of the tall u8 mask (the larger of the two
-    that share the launch shape): ``per_block`` env-slots' legal rows of
-    ceil(W / 32) words, then the span of the envs they read, as
-    ``csrc/bit_rows.cuh`` ``smem_bytes`` lays them out."""
+    that share the launch shape; the deep mask's alike): ``per_block``
+    env-slots' legal rows of ceil(W / 32) words, then the span of the envs
+    they read, as ``csrc/bit_rows.cuh`` ``smem_bytes`` lays them out."""
     hw, s = cfg.num_cells, cfg.queue_size
     nrows = per_block * cfg.height * -(-cfg.width // 32)
     span = ((per_block + s - 1) // s + 1) * hw
@@ -308,15 +334,19 @@ def packed_kind(cfg: EnvConfig) -> str:
 
 
 # kernel kind -> the suffix of its name (``mask_tall``, ``packed_apply``)
-SUFFIX = {"rows": "", "wide": "_wide", "tall": "_tall", "general": "_general"}
+SUFFIX = {"rows": "", "wide": "_wide", "tall": "_tall", "deep": "_deep",
+          "general": "_general"}
 
 
 def u8_kind(cfg: EnvConfig, shape) -> str:
     """The kind of the u8 kernel a wrapper with launch shape ``shape`` (None:
-    the general kernel) picks on ``cfg``: ``"rows"``, ``"wide"``, ``"tall"``
-    or ``"general"``."""
+    the general kernel) picks on ``cfg``: ``"rows"``, ``"wide"``, ``"tall"``,
+    ``"deep"`` (only the mask has a deep kernel: the clear's shape above
+    ``MAX_TALL`` rows is None) or ``"general"``."""
     if shape is None:
         return "general"
+    if cfg.height > MAX_TALL:
+        return "deep"
     if cfg.height > MAX_ROWS:
         return "tall"
     return "wide" if cfg.width > 32 else "rows"
@@ -341,7 +371,10 @@ class PackedApplyKernel:
     ``packed_kind``): the bit-row kernel where H <= 32 (``launches`` counts
     its launches; ``shape`` is its launch shape), the tall kernel where
     H <= 128 (``tall_launches``), the general kernel above
-    (``general_launches``).  ``name`` is the picked kernel's.
+    (``general_launches``: a warp an env over windows of 32 rows, or of
+    32 - 32 mod rs with regions of size rs, its placed rows kept in shared
+    memory where a warp's 4 H bytes fit, else read again).  ``name`` is the
+    picked kernel's.
     """
 
     def __init__(self, cfg: EnvConfig, device="cuda"):

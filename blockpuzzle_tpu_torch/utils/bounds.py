@@ -22,8 +22,9 @@ ceil(W / 32) words (each word packed from min(32, W - 32 i) cells, NW
 shuffles a row below, 10 operations a word for each rectangle's smear and
 shift, whose steps are funnel shifts, and 4 for its legal mask; the clear
 tests and clears about 8 a word); the tall mask and clear (boards of 33 to
-128 rows, a warp a board) count as the wide ones, a row's words being one
-where W <= 32; the bit-row apply (K2) packs two words a row, tests, places and
+128 rows, a warp a board) and the deep mask (more rows, windows of 32)
+count as the wide ones, a row's words being one where W <= 32; the bit-row
+apply (K2) packs two words a row, tests, places and
 clears (about 12) and stores likewise; the bit-row legality (K4) packs
 each row once, builds its smears (3 operations for each of max_h * max_w
 shapes), spends about 15 a piece and one per output byte; the general mask
@@ -288,7 +289,8 @@ def _packed_unpack(cfg, inputs):
 
 COSTS: Dict[str, Cost] = {
     "mask": _cost(_mask), "mask_wide": _cost(_mask_wide),
-    "mask_tall": _cost(_mask_wide), "mask_general": _cost(_mask_general),
+    "mask_tall": _cost(_mask_wide), "mask_deep": _cost(_mask_wide),
+    "mask_general": _cost(_mask_general),
     "apply": _cost(_apply), "apply_general": _cost(_apply_general),
     "clear": _cost(_clear), "clear_wide": _cost(_clear_wide),
     "clear_tall": _cost(_clear_wide), "clear_general": _cost(_clear_general),
@@ -311,7 +313,8 @@ def kernel_bounds(cfg, board, queue, cover, valid, words, attrs, r, c, outs) -> 
               "packed_mask": [words, queue], "packed_legal_words": [words, queue]}
     bounds = {}
     for k, out in outs.items():
-        args = inputs[k.removesuffix("_wide").removesuffix("_tall").removesuffix("_general")]
+        args = inputs[k.removesuffix("_wide").removesuffix("_tall").removesuffix("_deep")
+                      .removesuffix("_general")]
         out = list(out if isinstance(out, tuple) else (out,))
         _, ops = COSTS[k](cfg, args, out)
         bounds[k] = bound(args + out, ops)

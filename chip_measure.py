@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Measurements of the PyTorch + CUDA port on one card, beyond the smoke run.
 
-    python3 chip_measure.py [--parts build,train,rollout,kernels,words,general,draws,tall,tail]
+    python3 chip_measure.py [--parts build,train,rollout,kernels,words,general,draws,tall,tail,deep]
                             [--parent-csrc DIR]
 
 Needs one CUDA card and nvcc.  Prints the card's name and power limit,
-then, each line tagged with its part (all eight by default):
+then, each line tagged with its part (all ten by default):
 
   build     cold builds of ``kernels/csrc/*.cu`` in turns: one nvcc over
             all sources, then one nvcc per source started together and a
@@ -95,7 +95,24 @@ then, each line tagged with its part (all eight by default):
             and shares of the bound; then the tail at other tiles, rings and
             grids (``TAIL_SHAPES``), in turns, and on the default preset
             built with only some of its parts (``TAIL_PARTS``); then the
-            default (packed) step on 33x9 profiled as ``rollout`` does.
+            default (packed) step on 33x9 profiled as ``rollout`` does;
+  deep      the two kernels that walk boards of more than 128 rows in
+            windows, at N = 49152 on 130x8 and 512x8 (``DEEP_BOARDS``): the
+            deep u8 mask against the general mask launched directly on the
+            same inputs (``chip_smoke.general_calls``), and the general
+            packed apply with each pass 2 (the placed rows staged in shared
+            memory, or the input read again:
+            ``chip_smoke.general_apply_pass``); with ``--parent-csrc DIR``
+            also the earlier sources' ``bp_mask`` and
+            ``bp_packed_apply_general``; every output held bit-equal, each
+            kernel timed in turns (in order and back) for 5 rounds, medians
+            and shares of the bound (``deep_turns``); then the default
+            (packed) step and the u8 clear-kernel step on 130x8, with the
+            earlier mask and apply swapped in and with the current ones, in
+            turns earlier, current, current, earlier: host ms a step,
+            device kernels, device ms and busy share a step, the largest
+            items (``deep_step_turns``; without ``--parent-csrc`` the
+            current ones alone).
 
 Cold builds go to a temporary directory under the git-ignored
 ``kernels/_build/``, removed at the end.
@@ -562,6 +579,8 @@ PARENT_ROW_ENTRIES = ("bp_mask_rows", "bp_clear_rows")
 PARENT_DRAW_ENTRIES = ("bp_deal", "bp_uniform_legal", "bp_words_select")
 # the step tail's entry points, where the earlier sources have them
 PARENT_TAIL_ENTRIES = ("bp_packed_tail", "bp_packed_unpack")
+# the general packed apply's entry point, where the earlier sources have it
+PARENT_DEEP_ENTRIES = ("bp_packed_apply_general",)
 
 
 def parent_library(csrc: pathlib.Path):
@@ -583,9 +602,11 @@ def parent_library(csrc: pathlib.Path):
     rows = all(hasattr(lib, name) for name in PARENT_ROW_ENTRIES)
     draws = all(hasattr(lib, name) for name in PARENT_DRAW_ENTRIES)
     tail = all(hasattr(lib, name) for name in PARENT_TAIL_ENTRIES)
+    deep = all(hasattr(lib, name) for name in PARENT_DEEP_ENTRIES)
     for name in (PARENT_ENTRIES + (PARENT_ROW_ENTRIES if rows else ())
                  + (PARENT_DRAW_ENTRIES if draws else ())
-                 + (PARENT_TAIL_ENTRIES if tail else ())):
+                 + (PARENT_TAIL_ENTRIES if tail else ())
+                 + (PARENT_DEEP_ENTRIES if deep else ())):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = _build.SIGNATURES[name], ctypes.c_int
     return lib
@@ -1094,7 +1115,173 @@ def tail_shapes(card: str, rounds: int = 3) -> None:
                   f"{rounds} rounds in turns ({card})")
 
 
-PARTS = ("build", "train", "rollout", "kernels", "words", "general", "draws", "tall", "tail")
+# boards of more than 128 rows the ``deep`` part times K1 and B1 on
+DEEP_BOARDS = {"130x8": chip_smoke.HUGE, "512x8": chip_smoke.DEEP_CASES["512x8"]}
+
+
+def earlier_deep_calls(lib, cfg, mk):
+    """Callables with the current wrappers' arguments that launch the
+    earlier library ``lib``'s general u8 mask (``bp_mask``, what the mask
+    took on boards of more than 128 rows before its deep kernel) and
+    general packed apply (``bp_packed_apply_general``)."""
+    import torch
+
+    from blockpuzzle_tpu_torch.kernels import _build
+    from blockpuzzle_tpu_torch.kernels.collision import piece_table
+
+    dev = mk.device
+    table = torch.as_tensor(piece_table(cfg), device=dev)
+    region = cfg.region_size if cfg.region_clear else 0
+
+    def stream():
+        return torch.cuda.current_stream(dev).cuda_stream
+
+    def mask(board, queue):
+        n = board.shape[0]
+        out = torch.empty((n, cfg.queue_size * cfg.num_cells), dtype=torch.bool,
+                          device=dev)
+        _build.check(lib.bp_mask(
+            board.data_ptr(), queue.data_ptr(), table.data_ptr(), out.data_ptr(), n,
+            cfg.height, cfg.width, cfg.queue_size, mk.num_pieces, table.shape[1] - 3,
+            stream()), "earlier bp_mask")
+        return out
+
+    def apply(words, attrs, r, c, valid):
+        n = words.shape[0]
+        out = torch.empty_like(words)
+        k = torch.empty(n, dtype=torch.int32, device=dev)
+        legal = torch.empty(n, dtype=torch.bool, device=dev)
+        _build.check(lib.bp_packed_apply_general(
+            words.data_ptr(), attrs.data_ptr(), r.data_ptr(), c.data_ptr(),
+            valid.data_ptr(), out.data_ptr(), k.data_ptr(), legal.data_ptr(), n,
+            cfg.height, cfg.width, region, stream()), "earlier bp_packed_apply_general")
+        return out, k, legal
+
+    return mask, apply
+
+
+def deep_turns(card: str, lib, rounds: int = 5) -> None:
+    """K1 and B1 on ``DEEP_BOARDS`` at N = 49152 (``chip_smoke.kernel_inputs``,
+    seed 0): the deep mask beside the general one launched directly (and the
+    earlier library's ``bp_mask`` where ``lib`` is given), the general
+    packed apply's entry beside each of its two pass 2s (and the earlier
+    ``bp_packed_apply_general``); each group held bit-equal, then timed in
+    turns, in order and back, ``rounds`` times (``turns_ms``): medians, the
+    share of the bound (``utils/bounds.py``), and each median over the
+    first one's."""
+    import torch
+
+    from blockpuzzle_tpu_torch.config import EnvConfig
+    from blockpuzzle_tpu_torch.kernels import ClearScanKernel, MaskKernel, PackedApplyKernel
+    from blockpuzzle_tpu_torch.kernels.packed import pack_words
+    from blockpuzzle_tpu_torch.utils.bounds import kernel_bounds
+
+    n, dev = chip_smoke.N_MAIN, torch.device("cuda")
+    for name, shape in DEEP_BOARDS.items():
+        cfg = EnvConfig(**shape)
+        mk, ck, pak = (MaskKernel(cfg, dev), ClearScanKernel(cfg, dev),
+                       PackedApplyKernel(cfg, dev))
+        if (mk.name, pak.name) != ("mask_deep", "packed_apply_general"):
+            raise AssertionError(f"{name}: the wrappers picked {mk.name}, {pak.name}")
+        board, queue, cover, valid, attrs, r, c = (
+            torch.as_tensor(x, device=dev) for x in chip_smoke.kernel_inputs(cfg, n, seed=0))
+        args = (pack_words(board.view(n, cfg.height, cfg.width)), attrs, r, c, valid)
+        general_mask = chip_smoke.general_calls(cfg, mk, ck)[0]
+        staged, reread = (chip_smoke.general_apply_pass(cfg, v) for v in (True, False))
+        groups = {
+            "mask_deep": {"mask_deep": lambda: mk(board, queue),
+                          "mask_general": lambda: general_mask(board, queue)},
+            "packed_apply_general": {"packed_apply_general": lambda: pak(*args),
+                                     "staged pass 2": lambda: staged(*args),
+                                     "reread pass 2": lambda: reread(*args)}}
+        if lib is not None:
+            earlier_mask, earlier_apply = earlier_deep_calls(lib, cfg, mk)
+            groups["mask_deep"]["earlier bp_mask"] = lambda: earlier_mask(board, queue)
+            groups["packed_apply_general"]["earlier bp_packed_apply_general"] = (
+                lambda: earlier_apply(*args))
+        outs = {}
+        for key, fns in groups.items():
+            got = [fn() for fn in fns.values()]
+            got = [g if isinstance(g, tuple) else (g,) for g in got]
+            if not all(torch.equal(a, b) for g in got[1:] for a, b in zip(g, got[0])):
+                raise AssertionError(f"{key} {name}: the kernels disagree")
+            outs[key] = got[0]
+        bound = kernel_bounds(cfg, board, queue, cover, valid, args[0], attrs, r, c, outs)
+        print(f"[deep] {name} N={n}: " + "; ".join(
+            f"{' == '.join(fns)} (bit-equal)" for fns in groups.values()))
+        for key, fns in groups.items():
+            med = turns_ms(fns, rounds)
+            b = bound[key]["bound_ms"]
+            first = next(iter(med.values()))
+            for k, ms in med.items():
+                print(f"[deep] {k} {name} N={n}: median {ms:.6f} ms of {rounds} rounds in "
+                      f"turns, {100 * b / ms:.1f}% of the {b:.6f} ms bound "
+                      f"({bound[key]['bytes']} B), {ms / first:.3f}x the first ({card})")
+
+
+def deep_step_turns(card: str, lib, steps: int = 20) -> None:
+    """The default (packed) step and the u8 clear-kernel step on 130x8 at
+    N = 49152, uniform-legal draws, one engine each carrying its state:
+    with the earlier library's mask and apply (``earlier_deep_calls``)
+    swapped in and with the current wrappers, in turns earlier, current,
+    current, earlier (the current alone where ``lib`` is None): host ms a
+    step over ``steps`` unprofiled steps, then ``steps`` steps under
+    ``torch.profiler``: device kernels, device ms and busy share a step,
+    the changed kernel's device ms a step and the largest items."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from blockpuzzle_tpu_torch import make_env
+    from blockpuzzle_tpu_torch.config import EnvConfig
+    from blockpuzzle_tpu_torch.sampler import UniformLegalSampler
+
+    n, cfg = chip_smoke.N_MAIN, EnvConfig(**chip_smoke.HUGE)
+    # engine -> (make_env arguments, the device names of its changed kernel)
+    engines = {"packed": ({}, ("packed_apply_general_kernel",)),
+               "u8-jnp": ({"backend": "jnp", "state_impl": "u8"},
+                          ("mask_deep_kernel", "::mask_kernel("))}
+    for engine, (kwargs, keys) in engines.items():
+        env = make_env(cfg, device="cuda", **kwargs)
+        kernels = {"current": (env.mask_kernel, env.packed_apply_kernel)}
+        if lib is not None:
+            kernels["earlier"] = earlier_deep_calls(lib, cfg, env.mask_kernel)
+        state, ts = env.init(0, n)
+        draw = UniformLegalSampler(1, n, env.device)
+
+        def run(k):
+            nonlocal state, ts
+            for _ in range(k):
+                state, ts = env.step(state, draw(ts.action_mask))
+            torch.cuda.synchronize()
+
+        order = ("earlier", "current", "current", "earlier") if lib is not None else (
+            "current",)
+        for which in order:
+            env.mask_kernel, env.packed_apply_kernel = kernels[which]
+            run(5)                                         # warm-up
+            t0 = time.perf_counter()
+            run(steps)
+            step_ms = 1e3 * (time.perf_counter() - t0) / steps
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                run(steps)
+            device = device_events(prof)
+            if not device:
+                print("[deep] the profiler saw no device events: not measured")
+                continue
+            busy = busy_us(device) / steps / 1e3
+            part = sum(e.time_range.elapsed_us() for e in device
+                       if any(k in e.name for k in keys)) / steps / 1e3
+            print(f"[deep] {engine} step, 130x8, N={n}, {which} mask and apply: "
+                  f"{step_ms:.4f} ms per step, {len(device) / steps:.2f} device kernels, "
+                  f"{sum(e.time_range.elapsed_us() for e in device) / steps / 1e3:.6f} ms "
+                  f"device time a step, busy {busy:.4f} ms = {100 * busy / step_ms:.1f}%, "
+                  f"the changed kernel {part:.6f} ms a step ({card})")
+            top_items(device, steps, f"deep {engine} {which}", 8)
+        env.mask_kernel, env.packed_apply_kernel = kernels["current"]
+
+
+PARTS = ("build", "train", "rollout", "kernels", "words", "general", "draws", "tall", "tail",
+         "deep")
 
 
 def main(argv=None) -> int:
@@ -1149,6 +1336,10 @@ def main(argv=None) -> int:
         tall_rollout_rate(card)
     if "tail" in parts:
         tail_turns(card, args.parent_csrc)
+    if "deep" in parts:
+        lib = parent_library(pathlib.Path(args.parent_csrc)) if args.parent_csrc else None
+        deep_turns(card, lib)
+        deep_step_turns(card, lib)
     print(f"[done] {card}")
     return 0
 

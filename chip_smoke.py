@@ -9,7 +9,7 @@ which raises on failure (non-zero exit, no result line):
 
   0. card name and power limit, torch/CUDA versions, compute capability,
      kernel build time;
-  1. each of the twenty-six kernels against its plain torch version on
+  1. each of the twenty-seven kernels against its plain torch version on
      the card, bit-equal, at N = 49152 and a ragged N = 49151: the three draws
      (deal, uniform_legal, words_select: ``kernels/draws.py``) on the four
      presets, at per-env counters that wrap negative and at shared ones
@@ -33,10 +33,16 @@ which raises on failure (non-zero exit, no result line):
      tall u8 mask and clear (mask_tall, clear_tall) on 33x9, 36x9 with
      regions, 40x40 and 33x128 (``TALL_U8_CASES``; the plain u8 mask in
      chunks of envs there), the packed mask also against the u8 one on
-     the unpacked boards, and the general kernels of both engines
-     (mask_general, clear_general, apply_general, legality_general,
-     packed_apply_general, packed_mask_general, packed_legal_words_general)
-     on 130x8 (``HUGE``); the step's tail (packed_tail: game over,
+     the unpacked boards, and on boards of more than 128 rows the deep u8
+     mask (mask_deep: a warp an env-slot over windows of 32 rows) and the
+     general kernels of both engines (clear_general, apply_general,
+     legality_general, packed_apply_general: a warp an env over windows of
+     rows, also with each pass 2, packed_mask_general,
+     packed_legal_words_general) on 130x8 (``HUGE``; the general mask,
+     mask_general, launched directly there beside the deep one), and the
+     deep mask, the general clear and the general packed kernels on 512x8
+     and 135x9 with 3x3 regions and a hand of three (``DEEP_CASES``); the
+     step's tail (packed_tail: game over,
      truncation, score, auto-reset and both board views in one launch) and
      its unpack entry (packed_unpack) on the default, tenten, 33x9 and 130x8
      boards (``TAIL_BOARDS``: dense boards, ``max_steps`` 9, a terminal
@@ -50,8 +56,8 @@ which raises on failure (non-zero exit, no result line):
      launch time does not enter) beside its bound (``utils/bounds.py``)
      and the plain version's time (50 calls made as the host goes), at N
      = 49152 on the default preset (the wide kernels, apply_general and
-     legality_general on the wide board, the tall ones on 33x9, the other
-     general ones on 130x8), and the launch floor (an empty launch's
+     legality_general on the wide board, the tall ones on 33x9, the deep
+     mask and the other general ones on 130x8), and the launch floor (an empty launch's
      device time) beside the deal's; then the wide board's kernels timed
      in turns for 5 rounds, with the general mask and clear launched
      directly on the same inputs and held bit-equal to the wide ones
@@ -73,8 +79,10 @@ which raises on failure (non-zero exit, no result line):
      wide mask and clear and the general apply run: the paths
      ``wide_u8_pallas`` and ``wide_u8_jnp``; 33x9, where the tall mask and
      clear and the general apply run: ``tall_u8_pallas``, ``tall_u8_jnp``;
-     36x9 with regions, ``tall36r3_u8_jnp``; 130x8, the general mask,
-     apply and clear: ``huge_u8_pallas``, ``huge_u8_jnp``), counters set to
+     36x9 with regions, ``tall36r3_u8_jnp``; 130x8, the deep mask and the
+     general apply and clear: ``huge_u8_pallas``, ``huge_u8_jnp``; 8x136,
+     rows of more than 128 cells, the general mask and apply:
+     ``xwide_u8_pallas``, N = 256, 32 steps), counters set to
      0 before each and read after it: final states and summed rewards
      bit-equal across devices and across the engines, each kernel of an
      engine launched exactly once per step and every other kernel never;
@@ -236,8 +244,19 @@ TALL_PACKED_CASES = {"33x9": TALL, "36x9r3": TALL36R3, "64x8": dict(height=64, w
                      "128x10": dict(height=128, width=10)}
 TALL_U8_CASES = {"33x9": TALL, "36x9r3": TALL36R3, "40x40": dict(height=40, width=40),
                  "33x128": dict(height=33, width=128)}
-# a board of more than 128 rows: the general kernels of both engines
+# a board of more than 128 rows: the deep u8 mask (a warp an env-slot over
+# windows of 32 rows), the windowed general packed apply, the general
+# kernels of the rest
 HUGE = dict(height=130, width=8)
+# the other boards of more than 128 rows phase 1 holds the deep mask and the
+# general packed apply on (tests/test_torch_deep.py): four times as many
+# rows, and 3x3 regions in windows of 30 rows with a hand of three (135x9:
+# a block's output span off a 16-byte boundary)
+DEEP_CASES = {"512x8": dict(height=512, width=8),
+              "135x9r3": dict(height=135, width=9, region_clear=True, region_size=3,
+                              queue_size=3)}
+# rows of more than 128 cells: the general u8 mask, clear, apply and legality
+XWIDE = dict(height=8, width=136)
 # kernel -> (source, the TPU kernel or jnp code it replaces, the path its
 # launches are read from)
 KERNEL_INFO = {
@@ -247,8 +266,10 @@ KERNEL_INFO = {
                   "blockpuzzle_tpu/kernels/mask.py:85", "wide_u8_pallas"),
     "mask_tall": ("blockpuzzle_tpu_torch/kernels/csrc/mask.cu",
                   "blockpuzzle_tpu/kernels/mask.py:85", "tall_u8_pallas"),
+    "mask_deep": ("blockpuzzle_tpu_torch/kernels/csrc/mask.cu",
+                  "blockpuzzle_tpu/kernels/mask.py:85", "huge_u8_pallas"),
     "mask_general": ("blockpuzzle_tpu_torch/kernels/csrc/mask.cu",
-                     "blockpuzzle_tpu/kernels/mask.py:85", "huge_u8_pallas"),
+                     "blockpuzzle_tpu/kernels/mask.py:85", "xwide_u8_pallas"),
     "apply": ("blockpuzzle_tpu_torch/kernels/csrc/collision.cu",
               "blockpuzzle_tpu/kernels/collision.py:164", "rollout_pallas"),
     "apply_general": ("blockpuzzle_tpu_torch/kernels/csrc/collision.cu",
@@ -331,6 +352,7 @@ def kernel_counters(env) -> dict:
             "mask": (env.mask_kernel, "launches"),
             "mask_wide": (env.mask_kernel, "wide_launches"),
             "mask_tall": (env.mask_kernel, "tall_launches"),
+            "mask_deep": (env.mask_kernel, "deep_launches"),
             "mask_general": (env.mask_kernel, "general_launches"),
             "apply": (env.apply_kernel, "launches"),
             "apply_general": (env.apply_kernel, "general_launches"),
@@ -529,14 +551,18 @@ def u8_kernel_names(cfg) -> tuple:
     ``cfg``: the bit-row kernels where H <= 32 and W <= 32, the wide mask
     and clear with the general apply and legality where H <= 32 and
     32 < W <= 128, the tall mask and clear with the general apply and
-    legality where 32 < H <= 128 and W <= 128, the general kernels
-    elsewhere."""
+    legality where 32 < H <= 128 and W <= 128, the deep mask with the
+    general clear, apply and legality where H > 128 and W <= 128 (the
+    boards phase 1 and 2 run: each fits a block of the deep mask), the
+    general kernels elsewhere."""
     if cfg.height <= 32 and cfg.width <= 32:
         return "mask", "clear", "apply", "legality"
     if cfg.height <= 32 and cfg.width <= 128:
         return "mask_wide", "clear_wide", "apply_general", "legality_general"
     if cfg.height <= 128 and cfg.width <= 128:
         return "mask_tall", "clear_tall", "apply_general", "legality_general"
+    if cfg.width <= 128:
+        return "mask_deep", "clear_general", "apply_general", "legality_general"
     return "mask_general", "clear_general", "apply_general", "legality_general"
 
 
@@ -718,10 +744,14 @@ def phase1_tall(errs: dict, times: dict, bounds: dict) -> None:
     (``TALL_U8_CASES``) against their plain versions at N = 49152 and
     49151, the packed mask also against the u8 mask on the unpacked boards
     and its words against itself packed to words, and an illegal action on
-    a full line through the tall packed apply; then the general kernels of
-    both engines likewise on ``HUGE`` (130 rows), with the general apply
-    and legality.  Times the tall kernels on 33x9 and the general ones on
-    130x8 at N = 49152 into ``times`` and ``bounds``."""
+    a full line through the tall packed apply; then the kernels of boards
+    of more than 128 rows likewise on ``HUGE`` (130 rows, with the general
+    u8 apply and legality) and ``DEEP_CASES`` (512x8, 135x9 with regions):
+    the deep mask, the general clear and the general packed kernels, the
+    packed apply also with each pass 2 (``general_apply_pass``) against the
+    plain version.  Times the tall kernels on 33x9 and the
+    others on 130x8 at N = 49152 into ``times`` and ``bounds``, the general
+    mask launched directly there (``general_calls``) beside the deep one."""
     import torch
 
     from blockpuzzle_tpu_torch.config import EnvConfig
@@ -734,11 +764,11 @@ def phase1_tall(errs: dict, times: dict, bounds: dict) -> None:
     from blockpuzzle_tpu_torch.utils.bounds import kernel_bounds
 
     dev = torch.device("cuda")
-    boards = {name: EnvConfig(**shape)
-              for name, shape in {**TALL_PACKED_CASES, **TALL_U8_CASES}.items()}
-    boards["130x8"] = EnvConfig(**HUGE)
+    boards = {name: EnvConfig(**shape) for name, shape in
+              {**TALL_PACKED_CASES, **TALL_U8_CASES, "130x8": HUGE, **DEEP_CASES}.items()}
     for name, cfg in boards.items():
-        u8 = name in TALL_U8_CASES or name == "130x8"
+        deep = cfg.height > 128
+        u8 = name in TALL_U8_CASES or deep
         packed = cfg.width <= 32
         huge = name == "130x8"
         mask_name, clear_name, apply_name, legal_name = u8_kernel_names(cfg)
@@ -796,6 +826,11 @@ def phase1_tall(errs: dict, times: dict, bounds: dict) -> None:
                     raise AssertionError(f"{pmask_name} != {mask_name} ({what})")
                 if int(pouts[1].sum()) == 0 or not bool(pouts[2].any()):
                     raise AssertionError(f"{papply_name} cleared nothing ({what})")
+                if deep:  # each pass 2 of the general apply through its own entry
+                    for staged in (True, False):
+                        check_equal(general_apply_pass(cfg, staged)(words, attrs, r, c, valid),
+                                    pouts, f"{what}, staged={staged}", errs, papply_name)
+                    line += f", {papply_name} with each pass 2 == plain"
                 line += (f"{';' if u8 else ''} {pmask_name} legal share "
                          f"{float(pmask.float().mean()):.4f}, "
                          f"{papply_name} legal {int(pouts[2].sum())}, lines cleared "
@@ -821,6 +856,12 @@ def phase1_tall(errs: dict, times: dict, bounds: dict) -> None:
                  pmask_name: (lambda: pmk(words, queue), lambda: pmk.plain(words, queue)),
                  pwords_name: (lambda: pmk.words(words, queue),
                                lambda: pmk.plain_words(words, queue))}
+        if huge:  # the general mask beside the deep one, launched directly
+            general_mask = general_calls(cfg, mk, ck)[0]
+            check_equal([general_mask(board, queue)], [mk(board, queue)],
+                        f"{name}, N={N_MAIN}, launched directly", errs, "mask_general")
+            calls["mask_general"] = (lambda: general_mask(board, queue),
+                                     lambda: mk.plain(board, queue))
         here = kernel_bounds(cfg, board, queue, cover, valid, words, attrs, r, c,
                              {k: f() for k, (f, _) in calls.items()})
         label = f"{'tall' if name == '33x9' else 'huge'} {name}"
@@ -1176,6 +1217,33 @@ def general_calls(cfg, mk, ck):
     return mask, clear
 
 
+def general_apply_pass(cfg, staged: bool):
+    """A callable with ``PackedApplyKernel``'s arguments that launches the
+    general packed apply with the pass 2 ``staged`` picks (the placed rows
+    kept in shared memory, or the input read again) through
+    ``bp_packed_apply_general_pass``."""
+    import torch
+
+    from blockpuzzle_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    region = cfg.region_size if cfg.region_clear else 0
+
+    def apply(words, attrs, r, c, valid):
+        n = words.shape[0]
+        out = torch.empty_like(words)
+        k = torch.empty(n, dtype=torch.int32, device=words.device)
+        legal = torch.empty(n, dtype=torch.bool, device=words.device)
+        _build.check(lib.bp_packed_apply_general_pass(
+            words.data_ptr(), attrs.data_ptr(), r.data_ptr(), c.data_ptr(), valid.data_ptr(),
+            out.data_ptr(), k.data_ptr(), legal.data_ptr(), n, cfg.height, cfg.width, region,
+            int(staged), torch.cuda.current_stream(words.device).cuda_stream),
+            "bp_packed_apply_general_pass")
+        return out, k, legal
+
+    return apply
+
+
 def wide_turns(card: str, tag: str, rounds: int = 5) -> None:
     """The u8 kernels of the wide board at N = 49152 on the same inputs,
     each timed by ``cuda_ms`` in turns with the others for ``rounds``
@@ -1292,8 +1360,9 @@ def phase2():
     and the launch counts of those boards' rollouts and of
     ``legal_all_pieces`` there (the paths ``wide_u8_pallas``,
     ``wide_u8_jnp``, ``wide_legal_all_pieces``, their ``tall_`` and
-    ``huge_`` twins, ``tall_packed``, ``huge_packed``, ``tall_words`` and
-    ``huge_words``, and those of the other tall boards)."""
+    ``huge_`` twins, ``xwide_u8_pallas`` and ``xwide_legal_all_pieces``,
+    ``tall_packed``, ``huge_packed``, ``tall_words`` and ``huge_words``, and
+    those of the other tall boards)."""
     import torch
 
     from blockpuzzle_tpu_torch import PRESETS, make_env
@@ -1318,6 +1387,8 @@ def phase2():
         "tall128": (EnvConfig(**TALL_PACKED_CASES["128x10"]), ("packed",), 1024, 64),
         # the plain u8 mask's product grows with the square of the cells
         "huge": (EnvConfig(**HUGE), ("packed", "pallas", "jnp"), 256, 32),
+        # rows of more than 128 cells: the general u8 mask's path
+        "xwide": (EnvConfig(**XWIDE), ("pallas",), 256, 32),
     })
     errs, paths = {"legality": 0, "legality_general": 0}, {}
     for name, (cfg, run, n, steps) in boards.items():

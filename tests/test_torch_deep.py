@@ -1,0 +1,210 @@
+"""The kernels of boards taller than 128 rows on the CPU, against the JAX
+package.
+
+Above 128 rows the tall kernels' register slots run out, so two kernels
+walk a board in windows: the u8 mask's deep kernel (K1, ``mask_deep``:
+a warp an env-slot, two slots of 32 rows a lane, the second moved up after
+each window) and the packed apply's general kernel (B1, a warp an env,
+windows of 32 rows, or of 32 - 32 mod rs with regions so that no band
+crosses a window).  Their numpy emulations (``test_torch_tall.py``
+``emulate_mask_deep_kernel``, ``emulate_packed_apply_deep``), fed the
+tables and launch shapes the wrappers hand the kernels, are held bit-equal
+to the wrappers' plain versions and to the JAX package: the u8 engine's
+shift mask for K1, the packed engine's ``_cover_words``/``_clear_scan_packed``
+block for B1.  The boards cover a window seam inside a piece (rows 31/32,
+63/64, 127/128), last windows of 1, 2 and 1 live rows (129, 130, 257
+rows), 160 rows of 9 cells, and 3x3 regions on 135 rows (windows of 30
+rows); the kernels themselves run only on the card (``chip_smoke.py``).
+Everything is integer or bool and must be bit-equal.
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from blockpuzzle_tpu import config as jcfg
+from blockpuzzle_tpu.env import make_env as jax_make_env
+from blockpuzzle_tpu_torch import config as tcfg
+from blockpuzzle_tpu_torch import rules
+from blockpuzzle_tpu_torch.kernels import MaskKernel, PackedApplyKernel
+from blockpuzzle_tpu_torch.kernels.packed import (
+    MAX_TALL, SMEM_OPT_IN, deep_launch_shape, tall_block_warps, tall_smem_bytes,
+)
+from test_torch_packed import chosen_actions, jax_apply, np_words
+from test_torch_tall import (
+    emulate_mask_deep_kernel, emulate_packed_apply_deep, tall_cells,
+)
+
+DEEP = {"deep129": dict(height=129, width=8), "deep130": dict(height=130, width=8),
+        "deep160x9": dict(height=160, width=9), "deep257": dict(height=257, width=8),
+        "deep135r3": dict(height=135, width=9, region_clear=True, region_size=3,
+                          queue_size=3)}
+N = 16
+
+
+def _pair(case):
+    return jcfg.EnvConfig(**DEEP[case]), tcfg.EnvConfig(**DEEP[case])
+
+
+def deep_cells(cfg, n, rng, fill):
+    """``tall_cells`` plus full rows on the later window seams (63, 64, 127,
+    128) and the last row, a row 128 full but for its first cell, and a 3x3
+    region across rows 119..121 (the seam of windows of 30 rows at 120)."""
+    h = cfg.height
+    cells = tall_cells(cfg, n, rng, fill)
+    cells[6::9, 63, :] = 1
+    cells[7::9, 64, :] = 1
+    cells[8::9, 127:129, :] = 1
+    cells[9::11, h - 1, :] = 1
+    cells[10::11, 128, 1:] = 1
+    cells[10::11, 128, 0] = 0
+    cells[11::13, 119:122, 3:6] = 1
+    return cells
+
+
+def _hands(cfg, n, rng):
+    """Hands with the empty sentinel, an id below 0 and ids past it."""
+    num_pieces = rules.tables_for(cfg).num_pieces
+    queue = rng.integers(0, num_pieces + 1, (n, cfg.queue_size)).astype(np.int32)
+    queue[0] = num_pieces
+    queue[1, 0] = -1
+    queue[2, 0] = num_pieces + 3
+    queue[3, 0] = 4                                       # a 1x5 bar: 5 rows
+    return queue
+
+
+@functools.cache
+def jax_mask_engine(case):
+    return jax_make_env(_pair(case)[0], state_impl="u8", mask_impl="shift")
+
+
+@functools.cache
+def jax_packed_engine(case):
+    return jax_make_env(_pair(case)[0], state_impl="packed")
+
+
+@pytest.mark.parametrize("case", DEEP)
+def test_deep_mask_matches_jax_mask(case):
+    """K1 on boards of more than 128 rows: the wrapper (plain version on the
+    CPU) against the JAX u8 engine's shift mask on the envs whose hand ids
+    lie in [0, P], and the deep kernel's emulation against the wrapper on
+    every env (ids outside [0, P) read as empty slots)."""
+    _, ct = _pair(case)
+    rng = np.random.default_rng(5)
+    board = deep_cells(ct, N, rng, fill=0.3).reshape(N, -1)
+    board[N - 1], board[N - 2] = 1, 0
+    queue = _hands(ct, N, rng)
+    num_pieces = rules.tables_for(ct).num_pieces
+    dealt = ((queue >= 0) & (queue <= num_pieces)).all(axis=1)
+    want = np.asarray(jax_mask_engine(case).action_mask(
+        jnp.asarray(board), jnp.asarray(queue)))
+    mk = MaskKernel(ct, "cpu")
+    assert (mk.kind, mk.name, mk.shape) == ("deep", "mask_deep", deep_launch_shape(ct))
+    got = mk(torch.as_tensor(board), torch.as_tensor(queue)).numpy()
+    np.testing.assert_array_equal(got[dealt], want[dealt])
+    np.testing.assert_array_equal(emulate_mask_deep_kernel(ct, board, queue, mk), got)
+    assert 0 < got.mean() < 1 and not got[[0, N - 1]].any() and not got[2, : ct.num_cells].any()
+    # on the empty board the last legal anchor row is H - h, in the last window
+    t = rules.tables_for(ct)
+    queue[N - 2, 0] = 4                                   # a 1x5 bar: 5 rows
+    empty = mk(torch.as_tensor(board), torch.as_tensor(queue)).numpy()[N - 2]
+    anchors = empty[: ct.num_cells].reshape(ct.height, ct.width)
+    last = ct.height - t.piece_h[4]
+    assert anchors[: last + 1, 0].all() and not anchors[last + 1 :].any()
+    np.testing.assert_array_equal(
+        emulate_mask_deep_kernel(ct, board, queue, mk)[N - 2], empty)
+    assert mk.deep_launches == mk.general_launches == 0
+
+
+@pytest.mark.parametrize("case", ["deep130", "deep135r3"])
+@pytest.mark.parametrize("addr", [3, 13])
+def test_deep_mask_emulation_takes_any_board_address(case, addr):
+    """Boards that start off a 16-byte boundary: the deep mask's emulation
+    stages an unaligned head and tail byte by byte (the block's output span
+    may also start off a boundary: 135x9 has H*W = 1215) and still equals
+    the plain version."""
+    _, ct = _pair(case)
+    rng = np.random.default_rng(addr)
+    board = deep_cells(ct, N, rng, fill=0.4).reshape(N, -1)
+    queue = _hands(ct, N, rng)
+    mk = MaskKernel(ct, "cpu")
+    np.testing.assert_array_equal(
+        emulate_mask_deep_kernel(ct, board, queue, mk, addr),
+        mk(torch.as_tensor(board), torch.as_tensor(queue)).numpy())
+
+
+@pytest.mark.parametrize("staged", [True, False], ids=["staged", "reread"])
+@pytest.mark.parametrize("case", DEEP)
+def test_deep_packed_apply_matches_jax_packed_step(case, staged):
+    """B1 on boards of more than 128 rows: JAX's packed apply block (cover
+    words, overlap, place, clear), the wrapper (plain version) and the
+    general kernel's emulation with its placed rows kept in shared memory
+    and read again from the input, on legal, illegal and out-of-bounds
+    actions, actions that complete a row at a window seam or the last row,
+    and 3x3 regions across a window seam."""
+    _, ct = _pair(case)
+    rng = np.random.default_rng(6)
+    cells = deep_cells(ct, N, rng, fill=0.35)
+    h = ct.height
+    cells[12, 128, :] = 1                                  # row 128 full but
+    cells[12, 128, 0] = 0                                  # its first cell
+    cells[13, h - 1, 1:] = 1                               # the last row likewise
+    cells[13, h - 1, 0] = 0
+    words = np_words(cells)
+    attrs, r, c, valid = chosen_actions(ct, N, rng)
+    for env, row in ((12, 128), (13, h - 1)):              # a 1x1 that completes it
+        attrs[env], r[env], c[env], valid[env] = attrs[2], row, 0, True
+    want = [np.asarray(x) for x in jax_apply(jax_packed_engine(case), words, attrs, r, c,
+                                             valid)[:3]]
+    want[0] = want[0].astype(np.int64)
+    ak = PackedApplyKernel(ct, "cpu")
+    assert (ak.kind, ak.name) == ("general", "packed_apply_general")
+    got = ak(torch.as_tensor(words.astype(np.int64)),
+             *(torch.as_tensor(x) for x in (attrs, r, c, valid)))
+    emu = emulate_packed_apply_deep(ct, words, attrs, r, c, valid, staged)
+    for g, e, w, name in zip(got, emu, want, ("words", "k", "legal")):
+        np.testing.assert_array_equal(g.numpy(), w, name)
+        np.testing.assert_array_equal(e, w, name)
+    legal, k = want[2], want[1]
+    assert legal[[12, 13]].all() and (k[[12, 13]] >= 1).all()
+    assert (want[0][12, 128] == 0) and (want[0][13, h - 1] == 0)
+    assert legal.any() and (~legal).any()
+    np.testing.assert_array_equal(want[0][~legal], words[~legal])
+    assert ak.general_launches == 0
+
+
+def test_deep_launch_shapes_fit():
+    """The deep mask's launch shape on boards of 129 to 4096 rows of 1 to
+    128 cells: the tall kernels' choice (16 warps and 4, 2 or 1 turns in 48
+    KB, else one turn and ``tall_block_warps``), down to 1 to 3 warps where 4
+    do not fit what a block may opt in to, and None (the general kernel)
+    where one warp does not; a block's output bytes under the 2^21 that
+    ``small_div``'s proof needs."""
+    seen = set()
+    for h in (129, 130, 135, 160, 257, 512, 1000, 1500, 3000, 4096):
+        for w in (1, 8, 9, 31, 32, 33, 64, 100, 128):
+            cfg = tcfg.EnvConfig(height=h, width=w)
+            shape = deep_launch_shape(cfg)
+            if shape is None:
+                assert tall_smem_bytes(cfg, 1) > SMEM_OPT_IN
+                seen.add("none")
+                continue
+            per_warp, warps = shape
+            smem = tall_smem_bytes(cfg, per_warp * warps)
+            assert smem <= SMEM_OPT_IN and per_warp * warps * cfg.num_cells < 1 << 21
+            if tall_smem_bytes(cfg, 16) <= 48 * 1024:     # no opt-in needed
+                assert warps == 16 and smem <= 48 * 1024
+                assert per_warp == 4 or tall_smem_bytes(cfg, 32 * per_warp) > 48 * 1024
+                seen.add("16")
+            elif warps >= 4:
+                assert per_warp == 1 and warps == tall_block_warps(cfg)
+                seen.add("4+")
+            else:
+                assert per_warp == 1 and tall_smem_bytes(cfg, warps + 1) > SMEM_OPT_IN
+                seen.add("<4")
+    assert seen == {"16", "4+", "<4", "none"}
+    assert deep_launch_shape(tcfg.EnvConfig(height=MAX_TALL, width=9)) is None
+    assert deep_launch_shape(tcfg.EnvConfig(height=130, width=129)) is None

@@ -45,7 +45,7 @@ from blockpuzzle_tpu_torch.kernels.collision import (
 )
 from blockpuzzle_tpu_torch.kernels.mask import piece_rows_table
 from blockpuzzle_tpu_torch.kernels.packed import (
-    mask_block_warps, tall_launch_shape, wide_launch_shape,
+    deep_launch_shape, mask_block_warps, tall_launch_shape, wide_launch_shape,
 )
 from test_torch_packed import (
     U32, _ballot, _popc, _reduce, _shfl, _shl32, _small_div, _spread4, _warp_layout,
@@ -969,14 +969,16 @@ def test_wrappers_never_fall_back_off_cpu():
         ApplyKernel(cfg, "cpu")(board, board, torch.ones(4, dtype=torch.bool, device=meta))
     # the same on a board that takes the wide mask and clear and the general
     # apply and legality, on one that takes the tall mask and clear and the
-    # general apply and legality, and on one that takes every general kernel
-    for shape, kind in ((WIDE40, "wide"), (dict(height=33, width=9), "tall"),
-                        (dict(height=130, width=9), "general")):
+    # general apply and legality, and on one that takes the deep mask and
+    # the general clear, apply and legality
+    for shape, kinds in ((WIDE40, ("wide", "wide")), (dict(height=33, width=9), ("tall",) * 2),
+                         (dict(height=130, width=9), ("deep", "general"))):
         cfg = tcfg.EnvConfig(**shape)
         board = torch.zeros(4, cfg.num_cells, dtype=torch.uint8, device=meta)
         mk, ck = MaskKernel(cfg, meta), ClearScanKernel(cfg, meta)
-        assert mk.kind == ck.kind == kind and mk.wide == ck.wide == (kind == "wide")
-        assert (mk.shape is not None) == (ck.shape is not None) == (kind != "general")
+        assert (mk.kind, ck.kind) == kinds and mk.wide == ck.wide == (kinds[0] == "wide")
+        assert (mk.shape is not None, ck.shape is not None) == tuple(
+            k != "general" for k in kinds)
         assert ApplyKernel(cfg, meta).shape is None and LegalityKernel(cfg, meta).shape is None
         with pytest.raises(ValueError, match="no mask kernel"):
             mk(board, queue)
@@ -1020,8 +1022,9 @@ def test_u8_wrappers_pick_their_kernel_by_shape(case):
     shape rule and the rectangle piece table, beside the general apply and
     legality; the tall mask and clear where 32 < H <= 128 (one board a
     warp, ``tall_launch_shape``, the rectangle piece table) beside the
-    general apply and legality; the general kernels, with the per-cell
-    piece table, on a board taller than that."""
+    general apply and legality; on a board taller than that the deep mask
+    (``deep_launch_shape``, the rectangle piece table) and the general
+    clear, apply and legality, with the per-cell piece table."""
     cfg = (tcfg.EnvConfig(height=33, width=9) if case == "tall33"
            else tcfg.EnvConfig(height=130, width=9) if case == "tall130"
            else _pair(case)[1])
@@ -1030,14 +1033,15 @@ def test_u8_wrappers_pick_their_kernel_by_shape(case):
     rows = cfg.height <= 32 and cfg.width <= 32
     wide = cfg.height <= 32 and 32 < cfg.width <= 128
     tall = 32 < cfg.height <= 128 and cfg.width <= 128
+    deep = cfg.height > 128 and cfg.width <= 128
     assert [k.shape is not None for k in (mk, ck, ak, lk)] == (
-        [rows or wide or tall] * 2 + [rows] * 2)
+        [rows or wide or tall or deep, rows or wide or tall] + [rows] * 2)
     assert mk.wide == ck.wide == wide
     assert lk.shape == legality_launch_shape(cfg)
     kind = "rows" if rows else "wide" if wide else "tall" if tall else "general"
-    assert mk.kind == ck.kind == kind
-    assert (mk.name, ck.name) == tuple(k + {"rows": ""}.get(kind, "_" + kind)
-                                       for k in ("mask", "clear"))
+    assert (mk.kind, ck.kind) == ("deep" if deep else kind, kind)
+    assert (mk.name, ck.name) == tuple(k + {"rows": ""}.get(kd, "_" + kd)
+                                       for k, kd in (("mask", mk.kind), ("clear", kind)))
     if tall:
         assert mk.shape == ck.shape == tall_launch_shape(cfg) == (4, 16)
         np.testing.assert_array_equal(mk.piece_table.numpy(), piece_rows_table(cfg))
@@ -1057,7 +1061,8 @@ def test_u8_wrappers_pick_their_kernel_by_shape(case):
         # a block's byte offsets times W stay under 2^32 (store_span's division)
         assert per_block * lk.num_pieces * cfg.num_cells * cfg.width < 1 << 32
     else:
-        np.testing.assert_array_equal(mk.piece_table.numpy(), piece_table(cfg))
+        assert deep and mk.shape == deep_launch_shape(cfg) == (1, 16)
+        np.testing.assert_array_equal(mk.piece_table.numpy(), piece_rows_table(cfg))
         np.testing.assert_array_equal(lk.piece_table.numpy(), piece_table(cfg))
 
 

@@ -235,11 +235,15 @@ def test_sampler_picks_legal_actions_uniformly():
 # boards beyond the presets: 40 cells a row (the wide mask and clear, the
 # general apply and legality), 33 and 36 rows (the tall mask and clear, the
 # general apply and legality; 3x3 regions across the lane seam and a hand of
-# three on 36x9), 130 rows (the general kernels of all four)
+# three on 36x9), 130 and 135 rows (the deep mask, the general clear, apply
+# and legality; 3x3 regions in windows of 30 rows and a hand of three on
+# 135x9)
 BOARDS = {"wide40": dict(height=8, width=40), "tall33": dict(height=33, width=9),
           "tall36r3": dict(height=36, width=9, region_clear=True, region_size=3,
                            queue_size=3),
-          "huge130": dict(height=130, width=9)}
+          "huge130": dict(height=130, width=9),
+          "deep135r3": dict(height=135, width=9, region_clear=True, region_size=3,
+                            queue_size=3)}
 
 
 @pytest.mark.gpu
@@ -250,8 +254,10 @@ def test_kernels_match_plain_versions_on_the_card(preset, cuda_device):
     legality on the presets; on a board of 8 rows of 40 cells (too wide for
     a row word) the wide mask and clear and the general apply and
     legality; on boards of 33 and 36 rows the tall mask and clear and the
-    general apply and legality; on 130 rows the general ones (at N = 4096:
-    the plain versions' products grow with the square of the cells)."""
+    general apply and legality; on 130 and 135 rows the deep mask (a warp
+    an env-slot over windows of 32 rows) and the general clear, apply and
+    legality (at N = 4096: the plain versions' products grow with the
+    square of the cells)."""
     from blockpuzzle_tpu_torch import rules
     from blockpuzzle_tpu_torch.config import EnvConfig
     from blockpuzzle_tpu_torch.kernels import (
@@ -289,12 +295,14 @@ def test_kernels_match_plain_versions_on_the_card(preset, cuda_device):
     torch.cuda.synchronize()
     calls = len(sizes)
     rows = cfg.height <= 32 and cfg.width <= 32
-    kind = mk.kind
-    assert ck.kind == kind == {"wide40": "wide", "huge130": "general"}.get(
-        preset, "rows" if preset in PRESETS else "tall")
-    for k in (mk, ck):
-        assert (k.launches, k.wide_launches, k.tall_launches, k.general_launches) == tuple(
-            calls * (kind == v) for v in ("rows", "wide", "tall", "general"))
+    kinds = {"wide40": ("wide", "wide"), "huge130": ("deep", "general"),
+             "deep135r3": ("deep", "general")}.get(
+        preset, ("rows", "rows") if preset in PRESETS else ("tall", "tall"))
+    assert (mk.kind, ck.kind) == kinds                 # no deep clear: the mask's alone
+    for k, kind in zip((mk, ck), kinds):
+        assert (k.launches, k.wide_launches, k.tall_launches, getattr(k, "deep_launches", 0),
+                k.general_launches) == tuple(
+            calls * (kind == v) for v in ("rows", "wide", "tall", "deep", "general"))
     for k in (ak, lk):
         assert (k.launches, k.general_launches) == (calls * rows, calls * (not rows))
 
@@ -448,10 +456,11 @@ def test_packed_kernels_match_plain_versions_on_the_card(preset, n, cuda_device)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("board", ["tall33", "tall36r3", "huge130"])
+@pytest.mark.parametrize("board", ["tall33", "tall36r3", "huge130", "deep135r3"])
 def test_tall_packed_kernels_match_plain_versions_on_the_card(board, cuda_device):
     """The packed apply, mask and words kernels of boards of more than 32
-    rows (the tall kernels: a warp a board; 130 rows: the general ones)
+    rows (the tall kernels: a warp a board; 130 and 135 rows: the general
+    ones, the apply a warp an env over windows of rows)
     against their plain versions and, on the unpacked boards, against the
     u8 mask, at two sizes (a ragged last block), with full rows at the lane
     seam (rows 31 and 32) and 3x3 regions across it."""

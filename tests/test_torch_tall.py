@@ -321,49 +321,74 @@ def emulate_packed_words_tall(cfg, words, queue, mk):
 # -------------------------------------------------- packed, general ----
 
 
-def emulate_packed_apply_general(cfg, words, attrs, r, c, valid):
-    """csrc/packed_tall.cu packed_apply_general_kernel, every thread (env) at
-    once: a pass for the overlap and the placed rows' column AND, then, on
-    a legal action, a pass that opens each whole band at its first row,
-    counts its full tiles and clears each row; else the rows written back."""
+def emulate_packed_apply_deep(cfg, words, attrs, r, c, valid, staged=True):
+    """csrc/packed_tall.cu packed_apply_general_kernel, every warp (env) at
+    once: windows of cr rows (32, or 32 - 32 mod rs with regions), lane l
+    row w0 + l for l < cr.  Pass 1 ORs in the footprint (the attrs row read
+    once), gathers the overlap, ANDs the columns a lane and keeps the placed
+    rows (``staged``: H words a warp, each read back by the lane that wrote
+    it) or leaves pass 2 to read the input again; the warp's AND at the end.
+    Pass 2, on a legal action: full rows by a ballot a window, each band's
+    AND by rs shuffles from its lanes (all inside the window), its full
+    tiles counted by its first row; else the input written back."""
     h, w, n = cfg.height, cfg.width, len(words)
     rs = cfg.region_size if cfg.region_clear else 0
+    cr = 32 - 32 % rs if rs else 32
     x = words.astype(np.int64)
-    full = (1 << w) - 1
+    row0 = [(r + attrs[:, 3 + 4 * j])[:, None] for j in range(2)]
+    end = [row0[j] + attrs[:, 5 + 4 * j, None] for j in range(2)]
+    mask = [_shl32((_shl32(1, attrs[:, 6 + 4 * j]) - 1) & U32,
+                   c + attrs[:, 4 + 4 * j])[:, None] for j in range(2)]
 
-    def cover_row(row):
-        cv = np.zeros(n, np.int64)
-        for j in range(2):
-            row0 = r + attrs[:, 3 + 4 * j]
-            on = (row >= row0) & (row < row0 + attrs[:, 5 + 4 * j])
-            mask = _shl32((_shl32(1, attrs[:, 6 + 4 * j]) - 1) & U32, c + attrs[:, 4 + 4 * j])
-            cv |= np.where(on, mask, 0)
-        return cv
+    def cover(row):
+        return np.bitwise_or.reduce(
+            [np.where((row >= row0[j]) & (row < end[j]), mask[j], 0) for j in range(2)])
 
-    overlap, cols = np.zeros(n, bool), np.full(n, U32)
-    for row in range(h):
-        cv = cover_row(row)
-        overlap |= (x[:, row] & cv) != 0
-        cols &= x[:, row] | cv
+    lane = LANE < cr
+    overlap, cols = np.zeros(n, bool), np.full((n, 32), U32)
+    placed = np.full((n, h), -1, np.int64)                    # the warp's shared rows
+    owner = np.full(h, -1)
+    for w0 in range(0, h, cr):
+        row = w0 + LANE
+        live = lane & (row < h)
+        xr = np.where(live, x[:, np.minimum(row, h - 1)], 0)
+        pr = xr | cover(row)
+        overlap |= ((xr & cover(row)) != 0)[:, live].any(axis=1)   # __any_sync
+        cols = np.where(live, cols & pr, cols)
+        if staged:
+            placed[:, row[live]], owner[row[live]] = pr[:, live], LANE[live]
     legal = valid & ~overlap
-    k, reg, out = _popc(cols), np.zeros(n, np.int64), x.copy()
-    for row in range(h):
-        wv = x[:, row] | cover_row(row)
-        if rs and row % rs == 0:
-            reg = np.zeros(n, np.int64)
-            if row + rs <= h:
-                band = np.full(n, U32)
-                for t in range(rs):
-                    band &= x[:, row + t] | cover_row(row + t)
-                for t in range(0, w - rs + 1, rs):
-                    tile = ((1 << rs) - 1) << t
-                    hit = (band & tile) == tile
-                    reg |= np.where(hit, tile, 0)
-                    k = k + hit
-        k = k + (wv == full)
-        cleared = wv & ~(np.where(wv == full, full, 0) | cols | reg)
-        out[:, row] = np.where(legal, cleared, x[:, row])
-    return out, np.where(legal, k, 0).astype(np.int32), legal
+    cols = np.bitwise_and.reduce(cols, axis=1)[:, None]       # __reduce_and_sync
+    full = (1 << w) - 1
+    e = LANE % rs if rs else np.zeros(32, np.int64)
+    k, tiles = _popc(cols[:, 0]), np.zeros((n, 32), np.int64)
+    out = np.full((n, h), -1, np.int64)
+    for w0 in range(0, h, cr):
+        row = w0 + LANE
+        live = lane & (row < h)
+        if staged:                                             # each lane its own rows
+            assert (owner[row[live]] == LANE[live]).all()
+            p = np.where(live, placed[:, np.minimum(row, h - 1)], U32)
+        else:
+            p = np.where(live, x[:, np.minimum(row, h - 1)] | cover(row), U32)
+        assert (p >= 0).all()
+        k = k + (live & (p == full)).sum(axis=1)              # popc(ballot)
+        reg = np.zeros_like(p)
+        if rs:
+            src = LANE - e + np.arange(rs)[:, None]           # (rs, 32) source lanes
+            assert (src[:, live] < cr).all()                  # a band inside its window
+            band = np.bitwise_and.reduce(p[:, src % 32], axis=1)
+            whole = live & (row - e + rs <= h)
+            for i in range(0, w - rs + 1, rs):
+                tile = ((1 << rs) - 1) << i
+                hit = whole & ((band & tile) == tile)
+                reg |= np.where(hit, tile, 0)
+                tiles += hit & (e == 0)
+        cleared = p & ~(np.where(p == full, full, 0) | cols | reg) & U32
+        out[:, row[live]] = cleared[:, live]
+    k = k + tiles.sum(axis=1)                                  # __reduce_add_sync
+    assert (out >= 0).all()
+    return (np.where(legal[:, None], out, x), np.where(legal, k, 0).astype(np.int32), legal)
 
 
 def emulate_legal_general(cfg, words, queue, mk):
@@ -468,6 +493,79 @@ def emulate_mask_tall_kernel(cfg, board, queue, mk, addr=0):
     return out.reshape(n, s * hw).astype(bool)
 
 
+def emulate_mask_deep_kernel(cfg, board, queue, mk, addr=0):
+    """csrc/mask.cu mask_deep_kernel on ``mk``'s piece table and launch
+    shape: ``emulate_mask_tall_kernel``'s blocks, turns and staging, each
+    warp walking its env-slot's board in windows of 32 rows with two slots,
+    rows 32 j + l and 32 (j + 1) + l (rows past the bottom packed as 0): the
+    vertical OR from the rows below across the pair (``rows_below``), the
+    smear and dc shift, the window's legal rows staged; then the second slot
+    moves up and window j + 2 is packed into it.  A warp whose turn has no
+    env-slot left stops."""
+    h, w, s = cfg.height, cfg.width, cfg.queue_size
+    hw, n, nw = cfg.num_cells, len(board), -(-w // 32)
+    assert mk.max_h <= 8                                      # r + t within two slots
+    pieces = mk.piece_table.numpy().astype(np.int64) & U32
+    per_warp, warps = mk.shape
+    per_block, total = per_warp * warps, n * s
+    out = np.full(total * hw, 2, np.uint8)                    # 2: never written
+    for first in range(0, total, per_block):
+        count = min(per_block, total - first)
+        env0 = first // s
+        buf, d = emulate_stage_bytes(
+            board.reshape(-1), env0 * hw, ((first + count - 1) // s + 1) * hw, addr)
+        seg = _turns(per_warp, warps)[:, 0]                    # (E, 1)
+        seg = seg[seg[:, 0] < count]                           # the turns that run
+        lane_seg = LANE[None, :] * warps + np.arange(warps)[:, None]      # (warps, 32)
+        pids = np.where((LANE < per_warp) & (lane_seg < count),
+                        queue.reshape(-1)[first + np.minimum(lane_seg, count - 1)], -1)
+        it, v = np.divmod(seg[:, 0], warps)
+        pid = pids[v, it][:, None]                             # __shfl_sync(pids, it)
+        has = (pid >= 0) & (pid < mk.num_pieces)
+        pc = np.where(has[..., None], pieces[np.where(has, pid, 0)],
+                      np.array([h + 1, w + 1, 0, 0]))         # (E, 1, 4)
+        at = d + _small_div(first - env0 * s + seg, s) * hw    # the board's first byte
+
+        def window(j):
+            rows = 32 * j + LANE
+            live = np.broadcast_to(rows < h, (len(seg), 32))
+            start = np.broadcast_to(at + np.minimum(rows, h - 1) * w, live.shape)
+            return [emulate_pack_row(buf, start + 32 * i, min(32, w - 32 * i), live)
+                    for i in range(nw)]
+
+        r1, r2 = pc[..., 2], pc[..., 3]
+        anchors = w - pc[..., 1] + 1
+        slots = [window(0), window(1)]
+        staged = np.full(per_block * h * nw, -1, np.int64)
+        for j in range(-(-h // 32)):
+            v1 = [np.zeros((len(seg), 32), np.int64) for _ in range(nw)]
+            v2 = [np.zeros((len(seg), 32), np.int64) for _ in range(nw)]
+            for t in range(mk.max_h):
+                in1 = (t >= r1 & 0xFF) & (t - (r1 & 0xFF) < (r1 >> 16) & 0xFF)
+                in2 = (t >= r2 & 0xFF) & (t - (r2 & 0xFF) < (r2 >> 16) & 0xFF)
+                for i in range(nw):
+                    pair = np.stack([slots[0][i], slots[1][i]], axis=1)   # (E, 2, 32)
+                    y = _rows_below(pair, t, 0)[:, 0]
+                    v1[i] |= np.where(in1, y, 0)
+                    v2[i] |= np.where(in2, y, 0)
+            b1 = _shr_words(emulate_smear_words(v1, r1 >> 24), (r1 >> 8) & 0xFF)
+            b2 = _shr_words(emulate_smear_words(v2, r2 >> 24), (r2 >> 8) & 0xFF)
+            rows = 32 * j + LANE
+            live = np.broadcast_to(rows < h, (len(seg), 32))
+            fits = (rows + pc[..., 0] <= h) & (anchors > 0)
+            for i in range(nw):
+                a = anchors - 32 * i
+                span = np.where(a >= 32, U32, np.where(a > 0, (1 << np.clip(a, 0, 31)) - 1, 0))
+                legal = np.where(fits, ~(b1[i] | b2[i]) & span, 0)
+                at_row = np.broadcast_to((seg * h + rows) * nw + i, live.shape)
+                assert (staged[at_row[live]] == -1).all()     # each row staged once
+                staged[at_row[live]] = legal[live]
+            slots = [slots[1], window(j + 2)]
+        emulate_store_tall(staged, out, first * hw, count * hw, w, nw)
+    assert (out < 2).all()
+    return out.reshape(n, s * hw).astype(bool)
+
+
 def emulate_clear_tall_kernel(cfg, board, ck, addr=0):
     """csrc/clear.cu clear_tall_kernel on ``ck``'s launch shape: a warp an
     env at a time, ``per_warp`` turns each from one staged span of the
@@ -556,7 +654,7 @@ def test_tall_packed_apply_matches_jax_packed_step(case):
     ak = PackedApplyKernel(ct, "cpu")
     got = ak(tw, *(torch.as_tensor(x) for x in (attrs, r, c, valid)))
     emulate = (emulate_packed_apply_tall if ak.kind == "tall"
-               else emulate_packed_apply_general)
+               else emulate_packed_apply_deep)
     emu = emulate(ct, words, attrs, r, c, valid)
     for g, e, wnt, name in zip(got, emu, (want_next.astype(np.int64), want_k, want_legal),
                                ("words", "k", "legal")):
@@ -738,13 +836,21 @@ def test_tall_block_shapes_fit_and_divide_exactly():
 
 
 def test_u8_wrappers_take_the_general_kernels_above_128_rows():
-    """Boards of more than 128 rows take the general u8 kernels; the tall
-    ones stop at 128 (rows of more than 128 cells: no launch shape, above)."""
-    for shape, kind in ((dict(height=130, width=9), "general"),
-                        (dict(height=128, width=10), "tall")):
+    """Boards of more than 128 rows take the general u8 clear, apply and
+    legality, and the deep mask (a warp an env-slot over windows of 32
+    rows) where rows hold at most 128 cells; the mask keeps the general
+    kernel on rows of more than 128 cells, and the tall kernels stop at 128
+    rows (rows of more than 128 cells: no launch shape, above).  So the
+    mask's kind is not the clear's there."""
+    for shape, kinds in ((dict(height=130, width=9), ("deep", "general")),
+                         (dict(height=128, width=10), ("tall", "tall"))):
         cfg = tcfg.EnvConfig(**shape)
         mk, ck = MaskKernel(cfg, "cpu"), ClearScanKernel(cfg, "cpu")
-        assert mk.kind == ck.kind == kind
-        assert (mk.shape is None) == (ck.shape is None) == (kind == "general")
+        assert (mk.kind, ck.kind) == kinds
+        assert (mk.name, ck.name) == (f"mask_{kinds[0]}", f"clear_{kinds[1]}")
+        assert (mk.shape is None, ck.shape is None) == (False, kinds[1] == "general")
         ak, lk = ApplyKernel(cfg, "cpu"), LegalityKernel(cfg, "cpu")
         assert (ak.name, lk.name) == ("apply_general", "legality_general")
+    # rows of more than 128 cells (the u8 clear takes no board this large)
+    mk = MaskKernel(tcfg.EnvConfig(height=130, width=129), "cpu")
+    assert (mk.kind, mk.name, mk.shape) == ("general", "mask_general", None)

@@ -270,7 +270,7 @@ def test_validate_env_state_catches_broken_states(state_impl):
 # the bytes of each kernel's call at N = 49152 on the default preset, in MB,
 # as PERF.md's table of bounds records them (the wide and general u8
 # kernels' on their 8x40 board, the tall kernels' on 33x9, the general
-# packed kernels' on 130x8)
+# packed kernels' and the deep mask's on 130x8)
 RECORDED_MB = {"mask": 10.03, "apply": 15.04, "clear": 10.03, "legality": 98.3,
                "packed_apply": 10.72, "packed_mask": 9.04, "packed_legal_words": 8.06,
                "mask_wide": 31.65, "clear_wide": 31.65,
@@ -280,20 +280,20 @@ RECORDED_MB = {"mask": 10.03, "apply": 15.04, "clear": 10.03, "legality": 98.3,
                "packed_apply_tall": 28.80, "packed_mask_tall": 27.77,
                "packed_legal_words_tall": 26.15, "packed_apply_general": 105.1,
                "packed_mask_general": 102.4, "packed_legal_words_general": 102.4,
-               "packed_unpack": 8.85}
+               "packed_unpack": 8.85, "mask_deep": 102.4}
 
 
 def kernel_call(name, n):
     """(cfg, inputs, outputs): CPU tensors of the shapes and dtypes of one
     call of kernel ``name`` on ``n`` envs (default preset; the wide and
     general u8 kernels on an 8x40 board, the tall ones on 33x9, the general
-    packed ones on 130x8)."""
+    packed ones and the deep mask on 130x8)."""
     from blockpuzzle_tpu_torch import rules
     from blockpuzzle_tpu_torch.config import EnvConfig
 
     cfg = (EnvConfig(height=33, width=9) if name.endswith("_tall")
            else EnvConfig(height=130, width=8) if name.startswith("packed")
-           and name.endswith("_general")
+           and name.endswith("_general") or name.endswith("_deep")
            else EnvConfig(height=8, width=40) if name.endswith(("_wide", "_general"))
            else PRESETS["default"]())
     hw, s, h = cfg.num_cells, cfg.queue_size, cfg.height
@@ -318,7 +318,8 @@ def kernel_call(name, n):
         "words_select": ((i64(n), 7, i64(n, s * h), cfg.width), (i64(n),)),
         "packed_unpack": ((i64(n, h),), (u8(n, h, cfg.width),)),
     }
-    base = name.removesuffix("_general").removesuffix("_wide").removesuffix("_tall")
+    base = (name.removesuffix("_general").removesuffix("_wide").removesuffix("_tall")
+            .removesuffix("_deep"))
     return (cfg,) + calls[base]
 
 
