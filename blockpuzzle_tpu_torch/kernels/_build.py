@@ -44,6 +44,7 @@ SIGNATURES = {
     "bp_clear_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bp_clear_wide": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bp_clear_tall": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "bp_clear_deep": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bp_legality": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "bp_legality_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _U64, _I, _I, _P],
     "bp_packed_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -55,6 +56,7 @@ SIGNATURES = {
                                      _P],
     "bp_packed_mask_tall": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "bp_packed_mask_general": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "bp_packed_mask_general_pick": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "bp_packed_words_tall": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "bp_packed_words_general": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "bp_packed_tail": [*[_P] * 24, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],

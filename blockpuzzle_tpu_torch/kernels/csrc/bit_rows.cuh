@@ -5,7 +5,9 @@
 // of legality.cu (`legality_rows_kernel`); and by the kernels of boards of
 // more than 32 rows (`mask_tall_kernel`, `clear_tall_kernel` and the tall
 // packed kernels of packed_tall.cu), which hold a board in one warp, rows
-// l + 32 j in lane l (`rows_below`, `clear_tall`, `store_tall` below).
+// l + 32 j in lane l (`rows_below`, `clear_tall`, `store_tall` below), and
+// of more than 128 rows (`mask_deep_kernel`, `clear_deep_kernel`, the
+// general packed mask), which walk a board in windows of 32 rows.
 //
 // All but those take boards as (N, H*W) u8 cells, H <= 32, and work on them as row
 // words: lane r of a segment of H lanes holds board row r as a W-bit word
@@ -283,16 +285,42 @@ __device__ __forceinline__ uint32_t clear_segment(uint32_t x, bool active, const
   return x & ~((x == full ? full : 0u) | cols | reg);
 }
 
+// The full region_size-bit fields of `band`, a row of NW words (32 (NW -
+// 1) < W <= 32 NW): the fields start at columns c0 = 0, rs, 2 rs, ... with
+// c0 + rs <= W, in column order.  Where 32 is not a multiple of rs a field
+// may straddle two words (W = 36, rs = 3: columns 30..32), so each is read
+// from the funnel-shifted pair of words holding its first column, and a
+// full one is marked in `reg` in both.  Returns how many are full;
+// region_size 1..32.
+template <int NW>
+__device__ __forceinline__ int full_fields(const uint32_t (&band)[NW], int width,
+                                           int region_size, uint32_t (&reg)[NW]) {
+  const uint32_t tile0 = region_size < 32 ? (1u << region_size) - 1u : kAll;
+  int tiles = 0;
+  int c0 = 0;  // the next field's first column
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {  // the fields whose first column is in word w
+    for (; c0 < 32 * (w + 1) && c0 + region_size <= width; c0 += region_size) {
+      const int b = c0 - 32 * w;
+      const uint32_t field =
+          __funnelshift_r(band[w], w + 1 < NW ? band[w + 1] : 0u, b) & tile0;
+      if (field == tile0) {
+        reg[w] |= tile0 << b;
+        if (w + 1 < NW && b + region_size > 32) reg[w + 1] |= tile0 >> (32 - b);
+        ++tiles;
+      }
+    }
+  }
+  return tiles;
+}
+
 // `clear_segment` on rows of NW words (32 (NW - 1) < W <= 32 NW), cleared
 // in place: a row is full when every word equals its column mask (all ones
 // but the top word's, 2^(W - 32 (NW - 1)) - 1, or all ones when 32 divides
 // W), one ballot; full columns by one `__reduce_and_sync` a word; regions
 // by ANDing each band's rows, word by word, by shuffles from explicit
-// source lanes, then testing its region_size-bit fields in column order.
-// Where 32 is not a multiple of region_size a field may straddle two words
-// (W = 36, region 3: columns 30..32): each field is read from the
-// funnel-shifted pair of words holding its first column, and a full one is
-// marked in both.  Sets `k` as `clear_segment` does; region_size <= 32.
+// source lanes, then testing its region_size-bit fields (`full_fields`).
+// Sets `k` as `clear_segment` does; region_size <= 32.
 template <int NW>
 __device__ __forceinline__ void clear_words(uint32_t (&x)[NW], bool active, const Seat& t,
                                             int height, int width, int region_size,
@@ -324,21 +352,8 @@ __device__ __forceinline__ void clear_words(uint32_t (&x)[NW], bool active, cons
     }
     int tiles = 0;
     if (whole) {
-      const uint32_t tile0 = region_size < 32 ? (1u << region_size) - 1u : kAll;
-      int c0 = 0;  // the next field's first column
-#pragma unroll
-      for (int w = 0; w < NW; ++w) {  // the fields whose first column is in word w
-        for (; c0 < 32 * (w + 1) && c0 + region_size <= width; c0 += region_size) {
-          const int b = c0 - 32 * w;
-          const uint32_t field =
-              __funnelshift_r(band[w], w + 1 < NW ? band[w + 1] : 0u, b) & tile0;
-          if (field == tile0) {
-            reg[w] |= tile0 << b;
-            if (w + 1 < NW && b + region_size > 32) reg[w + 1] |= tile0 >> (32 - b);
-            tiles += t.lane == b0;
-          }
-        }
-      }
+      const int got = full_fields<NW>(band, width, region_size, reg);
+      tiles = t.lane == b0 ? got : 0;
     }
     k += __reduce_add_sync(t.mask, tiles);
   }
@@ -374,7 +389,7 @@ __device__ __forceinline__ void rows_below(const uint32_t (&v)[NR], int d, uint3
 // `__reduce_and_sync` over the warp a word; regions (region_size 1..32):
 // each row ANDs itself with the region_size - 1 rows below it
 // (`rows_below`), a band's first row r (r % rs == 0, r + rs <= H) tests the
-// fields of that AND as `clear_words` does and counts them, and every row
+// fields of that AND (`full_fields`) and counts them, and every row
 // takes its band's cleared fields from its first row, e = r % rs rows
 // above: lane (l - e) mod 32, slot j - 1 where l < e.  A band may cross the
 // seam (H = 36, rs = 3: rows 30, 31 in slot 0, row 32 in lane 0 of slot 1).
@@ -428,7 +443,6 @@ __device__ __forceinline__ void clear_tall(uint32_t (&x)[NR][NW], bool active, i
         for (int j = 0; j < NR; ++j) band[j][i] &= y[j];
       }
     }
-    const uint32_t tile0 = region_size < 32 ? (1u << region_size) - 1u : kAll;
     const int step = 32 % region_size;  // r % rs from one slot to the next
     int e[NR];                          // r % rs
     e[0] = l % region_size;
@@ -442,20 +456,7 @@ __device__ __forceinline__ void clear_tall(uint32_t (&x)[NR][NW], bool active, i
     for (int j = 0; j < NR; ++j) {
       const int r = l + 32 * j;
       if (e[j] == 0 && r + region_size <= height) {  // a whole band's first row
-        int c0 = 0;  // the next field's first column
-#pragma unroll
-        for (int w = 0; w < NW; ++w) {  // the fields whose first column is in word w
-          for (; c0 < 32 * (w + 1) && c0 + region_size <= width; c0 += region_size) {
-            const int b = c0 - 32 * w;
-            const uint32_t field =
-                __funnelshift_r(band[j][w], w + 1 < NW ? band[j][w + 1] : 0u, b) & tile0;
-            if (field == tile0) {
-              reg[j][w] |= tile0 << b;
-              if (w + 1 < NW && b + region_size > 32) reg[j][w + 1] |= tile0 >> (32 - b);
-              ++tiles;
-            }
-          }
-        }
+        tiles += full_fields<NW>(band[j], width, region_size, reg[j]);
       }
     }
     k += __reduce_add_sync(kAll, tiles);
@@ -494,16 +495,17 @@ __device__ __forceinline__ void clear_tall(uint32_t (&x)[NR][NW], bool active, i
 // byte by byte; each vector between gathers its 16 bits as `store_rows`
 // does where a row is one word (W <= 32: up to 16 rows), as `store_words`
 // where it is NW > 1 words (W > 32: at most two rows), spreads them and
-// stores one uint4.  Every thread of the block calls it, after a
-// __syncthreads that follows the last write to `rows`; bytes < 2^21.
+// stores one uint4.  Threads t = 0 .. nt - 1 of the block (or of a warp)
+// share the work: each calls it, after the barrier that follows the last
+// write to `rows`; bytes < 2^21.
 template <int NW>
 __device__ __forceinline__ void store_tall(const uint32_t* rows, uint8_t* out, long long at,
-                                           int bytes, int width) {
+                                           int bytes, int width, int t, int nt) {
   uint8_t* o = out + at;
   const int head = min(static_cast<int>((16 - (at & 15)) & 15), bytes);
   const int nvec = (bytes - head) / 16;
   const float inv_w = __frcp_rn(static_cast<float>(width));
-  for (int v = threadIdx.x; v < nvec; v += blockDim.x) {
+  for (int v = t; v < nvec; v += nt) {
     const int q = head + 16 * v;
     int row = small_div(q, inv_w);
     int c = q - row * width;
@@ -521,12 +523,19 @@ __device__ __forceinline__ void store_tall(const uint32_t* rows, uint8_t* out, l
     *reinterpret_cast<uint4*>(o + q) = make_uint4(spread4(bits), spread4(bits >> 4),
                                                   spread4(bits >> 8), spread4(bits >> 12));
   }
-  for (int j = threadIdx.x; j < bytes - 16 * nvec; j += blockDim.x) {
+  for (int j = t; j < bytes - 16 * nvec; j += nt) {
     const int q = j < head ? j : j + 16 * nvec;
     const int row = small_div(q, inv_w);
     const int c = q - row * width;
     o[q] = (rows[row * NW + (c >> 5)] >> (c & 31)) & 1u;
   }
+}
+
+// `store_tall` by every thread of the block, after a __syncthreads.
+template <int NW>
+__device__ __forceinline__ void store_tall(const uint32_t* rows, uint8_t* out, long long at,
+                                           int bytes, int width) {
+  store_tall<NW>(rows, out, at, bytes, width, threadIdx.x, blockDim.x);
 }
 
 }  // namespace bit_rows

@@ -1,13 +1,17 @@
 // Simultaneous line clear: the CUDA port of the TPU kernel `_clear_kernel`
 // (blockpuzzle_tpu/kernels/clear.py:79, launched by `_clear_pallas_call`,
-// clear.py:93, from `ClearScanKernel.__call__`).  Four kernels: the
+// clear.py:93, from `ClearScanKernel.__call__`).  Five kernels: the
 // bit-row kernel (`clear_rows_kernel`, entry `bp_clear_rows`) for boards
 // with H <= 32 and W <= 32, every shipped preset; the wide kernel
 // (`clear_wide_kernel`, entry `bp_clear_wide`), the bit-row kernel on rows
 // of NW = 2..4 words, for H <= 32 and 32 < W <= 128; the tall kernel
 // (`clear_tall_kernel`, entry `bp_clear_tall`), a warp an env, for
-// 32 < H <= 128 and W <= 128; and the general kernel (`clear_kernel`, entry
-// `bp_clear`) for any other board.  The wrapper (kernels/clear.py) picks
+// 32 < H <= 128 and W <= 128; the deep kernel (`clear_deep_kernel`, entry
+// `bp_clear_deep`), a warp an env walking the board in windows of 32 rows,
+// for H > 128 and W <= 128 wherever a block of one warp fits the shared
+// memory a block may opt in to; and the general kernel (`clear_kernel`,
+// entry `bp_clear`) for what is left: rows of more than 128 cells, or a
+// deep board too large for one warp.  The wrapper (kernels/clear.py) picks
 // one by shape.
 //
 // What both compute, per env: every full row, column and region of the
@@ -75,6 +79,28 @@
 // line's cells through the global table (75 lines of up to 33 cells on
 // 33x9), byte loads and stores.
 //
+// The deep kernel carries the tall kernel to boards of more than 128 rows,
+// where its register slots run out: one warp an env walks the board in
+// windows of 32 rows, or of 32 - 32 mod rs with regions of size rs, so that
+// every window starts on a multiple of rs and no region band crosses a
+// window (the bands start at multiples of rs; only whole ones count), lane
+// l holding row w0 + l of the window as NW words (NW a template parameter)
+// and lanes from the window's size on holding none.  Pass 1, per window:
+// full rows by one ballot, each band's AND by rs shuffles from its lanes
+// and its fields tested by every row of it (`bit_rows::full_fields`), the
+// full tiles counted by the band's first row, every row staged in shared
+// memory with its full row and tiles cleared, and the row ANDed into a
+// lane's column words; after the last window one `__reduce_and_sync` a word
+// gives the full columns (rows past the bottom are the AND's identity) and
+// k.  Pass 2 clears the full columns from the staged rows, and the block
+// stores them from its byte offset (`store_tall`).  The block's boards are
+// staged whole, as in the tall kernel, and its warps and turns are the deep
+// mask's (`kernels/packed.py` `deep_launch_shape`, whose shared memory is
+// at least this kernel's); a block above 48 KB opts in.  It answers what
+// bounded the general kernel on such boards: a lane a line walking the
+// line's cells through the global table (138 lines, the 8 columns of 130
+// cells, on 130x8), two dependent loads a cell, byte loads and stores.
+//
 // The general kernel: one warp per env, four envs per block, any N (a warp
 // past the last env exits as a whole, before any warp collective).  Lanes
 // stride the HW cells, so the load and the store are coalesced; the board
@@ -92,6 +118,7 @@
 namespace {
 
 constexpr int kWarps = 4;
+constexpr long long kSmemOptIn = 227 * 1024;  // shared memory a block may opt in to
 using bit_rows::kAll;
 
 __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
@@ -274,6 +301,121 @@ int launch_clear_tall_rows(const void* board, void* board_out, void* k_out, int 
   }
 }
 
+template <int NW>
+__global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
+    clear_deep_kernel(const uint8_t* __restrict__ board,
+                      uint8_t* __restrict__ board_out,
+                      int32_t* __restrict__ k_out, int n, int height,
+                      int width, int region_size, int per_warp) {
+  extern __shared__ __align__(16) uint8_t rows_smem[];
+  const int warps = blockDim.x / 32;
+  const int per_block = warps * per_warp;            // envs: per_warp a warp
+  uint32_t* rows = reinterpret_cast<uint32_t*>(rows_smem);  // E*H cleared rows of NW words
+  uint8_t* span = bit_rows::staged_span(rows_smem, per_block * height * NW);
+  const int hw = height * width;
+  const int first = blockIdx.x * per_block;          // first env
+  const int count = min(per_block, n - first);       // envs here
+  const long long lo = static_cast<long long>(first) * hw;
+  const int d = bit_rows::stage_bytes(board, lo, lo + static_cast<long long>(count) * hw, span);
+
+  const int l = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int tail = width - 32 * (NW - 1);            // columns of the top word: 1..32
+  const uint32_t top = tail < 32 ? (1u << tail) - 1u : kAll;
+  // rows a window: a whole number of region bands; lanes from win on hold none
+  const int win = region_size > 0 ? 32 - 32 % region_size : 32;
+  const int e = region_size > 0 ? l % region_size : 0;  // row - its band's first row
+  __syncthreads();
+  for (int it = 0; it < per_warp; ++it) {
+    const int seg = it * warps + warp;               // env in the block
+    if (seg >= count) break;                         // the whole warp
+    const int at = d + seg * hw;                     // the board's first byte in the span
+    uint32_t* cleared = rows + seg * height * NW;
+    // pass 1: full rows, bands and their tiles a window, each row staged
+    // with them cleared; the column AND a lane
+    uint32_t cols[NW];
+#pragma unroll
+    for (int i = 0; i < NW; ++i) cols[i] = kAll;
+    int k = 0, tiles = 0;
+    for (int w0 = 0; w0 < height; w0 += win) {
+      const int r = w0 + l;
+      const bool in = l < win && r < height;
+      uint32_t x[NW];  // no row: the identity of the AND
+      bool full = true;
+#pragma unroll
+      for (int i = 0; i < NW; ++i) {
+        x[i] = in ? bit_rows::pack_row(span, at + r * width + 32 * i, min(32, width - 32 * i))
+                  : kAll;
+        full &= x[i] == (i + 1 < NW ? kAll : top);
+        cols[i] &= x[i];
+      }
+      k += __popc(__ballot_sync(kAll, in && full));
+      uint32_t reg[NW];
+#pragma unroll
+      for (int i = 0; i < NW; ++i) reg[i] = 0;
+      if (region_size > 0) {
+        uint32_t band[NW];  // rows r - e .. r - e + rs - 1, all in this window
+#pragma unroll
+        for (int i = 0; i < NW; ++i) band[i] = kAll;
+        for (int t = 0; t < region_size; ++t) {
+          const int src = in ? l - e + t : l;
+#pragma unroll
+          for (int i = 0; i < NW; ++i) band[i] &= __shfl_sync(kAll, x[i], src);
+        }
+        if (in && r - e + region_size <= height) {  // a whole band on the board
+          const int got = bit_rows::full_fields<NW>(band, width, region_size, reg);
+          tiles += e == 0 ? got : 0;
+        }
+      }
+      if (in) {
+#pragma unroll
+        for (int i = 0; i < NW; ++i) {
+          cleared[r * NW + i] = x[i] & ~((full ? (i + 1 < NW ? kAll : top) : 0u) | reg[i]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+      cols[i] = __reduce_and_sync(kAll, cols[i]);
+      k += __popc(cols[i]);
+    }
+    k += __reduce_add_sync(kAll, tiles);
+    if (l == 0) k_out[first + seg] = k;
+    // pass 2: the full columns, cleared from the staged rows
+    __syncwarp();
+    for (int r = l; r < height; r += 32) {
+#pragma unroll
+      for (int i = 0; i < NW; ++i) cleared[r * NW + i] &= ~cols[i];
+    }
+  }
+  __syncthreads();
+  bit_rows::store_tall<NW>(rows, board_out, lo, count * hw, width);
+}
+
+// The deep kernel's launch: a block of `warps` warps taking `per_warp`
+// envs each, its boards staged whole; refused where its shared memory
+// passes what a block may opt in to.
+template <int NW>
+int launch_clear_deep(const void* board, void* board_out, void* k_out, int n, int height,
+                      int width, int region_size, int per_warp, int warps,
+                      cudaStream_t stream) {
+  const int per_block = warps * per_warp;
+  const int blocks = (n + per_block - 1) / per_block;
+  const long long smem = (4LL * per_block * height * NW + 15) / 16 * 16 +
+                         static_cast<long long>(per_block) * height * width + 32;
+  if (smem > kSmemOptIn) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        clear_deep_kernel<NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  clear_deep_kernel<NW><<<blocks, warps * 32, static_cast<int>(smem), stream>>>(
+      static_cast<const uint8_t*>(board), static_cast<uint8_t*>(board_out),
+      static_cast<int32_t*>(k_out), n, height, width, region_size, per_warp);
+  return static_cast<int>(cudaGetLastError());
+}
+
 __global__ void clear_kernel(const uint8_t* __restrict__ board,
                              const int32_t* __restrict__ line_cells,
                              const int32_t* __restrict__ line_len,
@@ -375,6 +517,38 @@ extern "C" int bp_clear_tall(const void* board, void* board_out, void* k_out,
     default:
       return launch_clear_tall_rows<4>(board, board_out, k_out, n, height, width,
                                        region_size, per_warp, warps, st);
+  }
+}
+
+// As bp_clear_tall, for H > 128 and W <= 128: one env a warp at a time,
+// walking its board in windows of 32 rows (32 - 32 mod rs with regions of
+// size rs), lane l holding row w0 + l of the window as NW = ceil(W / 32)
+// words; per_warp (1 to 4) envs a warp in turn, warps 1 to 16; refused
+// where the block's shared memory (its cleared rows and its staged boards)
+// passes what a block may opt in to.
+extern "C" int bp_clear_deep(const void* board, void* board_out, void* k_out,
+                             int n, int height, int width, int region_size,
+                             int per_warp, int warps, void* stream) {
+  if (height <= 128 || width < 1 || width > 128 || region_size < 0 || region_size > 32 ||
+      warps < 1 || warps > bit_rows::kMaxWarps || per_warp < 1 || per_warp > 4 ||
+      (reinterpret_cast<uintptr_t>(board_out) & 15) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch ((width + 31) / 32) {
+    case 1:
+      return launch_clear_deep<1>(board, board_out, k_out, n, height, width, region_size,
+                                  per_warp, warps, st);
+    case 2:
+      return launch_clear_deep<2>(board, board_out, k_out, n, height, width, region_size,
+                                  per_warp, warps, st);
+    case 3:
+      return launch_clear_deep<3>(board, board_out, k_out, n, height, width, region_size,
+                                  per_warp, warps, st);
+    default:
+      return launch_clear_deep<4>(board, board_out, k_out, n, height, width, region_size,
+                                  per_warp, warps, st);
   }
 }
 

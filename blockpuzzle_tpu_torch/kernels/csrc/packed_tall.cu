@@ -60,9 +60,32 @@
 // neighbouring lanes read rows H * 8 bytes apart, 32 sectors a warp-wide
 // load, and three serial passes of dependent loads, few bytes in flight.
 //
-// The general mask and words (H > 128): one thread an (env-slot, anchor
-// row), the rows read from device memory: a simple design that keeps every
-// height the JAX engine takes running on the card.
+// The general mask (H > 128, and any H >= 1 it is given): one warp an
+// env-slot walking the board in windows of 32 anchor rows, two board rows a
+// lane as the deep u8 mask holds them (mask.cu `mask_deep_kernel`): rows
+// 32 j + l and 32 (j + 1) + l, each read as the lane's int64, so that a
+// warp-wide load is one coalesced 256-byte read, rows past the bottom full.
+// A footprint reaches nwords * fpw - 1 <= 31 rows below an anchor row, all
+// in the pair.  Lane t first takes the columns of piece row t from the
+// footprint words (field t % fpw of word t / fpw); per window the pair goes
+// to shared memory and each lane ORs, for every piece row t and each of
+// its cells' columns dc (one shuffle of row t's columns), row l + t
+// shifted right by dc into its blocked bits: the same test as
+// `legal_tall_bits`, without rebuilding the footprint words every window.
+// Then the second row moves up and the row of the window after next,
+// loaded at the window's start, comes in.  Each window's 32 legal rows are
+// staged in shared memory, and every two windows the warp stores their 64 W
+// output bytes as 16-byte vectors from their byte offset, any offset, the
+// ragged edges byte by byte (`store_tall`), so the shared memory a warp
+// needs does not grow with H.  It answers what bounded the
+// thread-an-anchor-row kernel it replaced (`packed_mask_rows_general_kernel`:
+// 6.4 M threads on 130x8 at N = 49152, each with two 64-bit divisions, its
+// table loads, and W byte stores 8 bytes apart between neighbouring lanes),
+// which the entry keeps only for footprints of more than 32 rows
+// (nwords * fpw > 32: no shipped piece set), picked by shape as
+// `bp_packed_apply_general` picks its pass 2; `bp_packed_mask_general_pick`
+// takes either.  The words entry (`packed_words_general_kernel`) is still a
+// thread an anchor row (`legal_row_general`), read from device memory.
 
 #include <climits>
 #include <cstdint>
@@ -374,13 +397,14 @@ __device__ __forceinline__ uint32_t legal_row_general(
   return ~blocked & (shl32(1u, width - pw + 1) - 1u);
 }
 
-__global__ void packed_mask_general_kernel(const long long* __restrict__ words,
-                                           const int32_t* __restrict__ queue,
-                                           const uint32_t* __restrict__ prow,
-                                           const int32_t* __restrict__ piece_w,
-                                           uint8_t* __restrict__ out, long long total_rows,
-                                           int height, int width, int slots,
-                                           int num_pieces, int nwords, int fpw) {
+__global__ void packed_mask_rows_general_kernel(const long long* __restrict__ words,
+                                                const int32_t* __restrict__ queue,
+                                                const uint32_t* __restrict__ prow,
+                                                const int32_t* __restrict__ piece_w,
+                                                uint8_t* __restrict__ out,
+                                                long long total_rows, int height, int width,
+                                                int slots, int num_pieces, int nwords,
+                                                int fpw) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= total_rows) return;
   const long long es = i / height;
@@ -389,6 +413,75 @@ __global__ void packed_mask_general_kernel(const long long* __restrict__ words,
                                           width, slots, num_pieces, nwords, fpw);
   uint8_t* o = out + i * width;
   for (int c = 0; c < width; ++c) o[c] = (bits >> c) & 1u;
+}
+
+// The general mask: a warp an env-slot walking its board in windows of 32
+// anchor rows.  Lane t first takes the columns of piece row t (field
+// t % fpw of footprint word t / fpw: the bits of the footprint words,
+// nwords * fpw <= 32 rows), so that every window tests each piece row's
+// cells by one shuffle of that mask, not by rebuilding footprint words.  A
+// window's board rows and the next window's (rows w0 .. w0 + 63, full past
+// the bottom, two a lane in registers, the row after next loaded at the
+// window's start) are put in shared memory, where lane l reads row l + t
+// for piece row t; the window's legal rows are staged beside the previous
+// window's and every second window (or the last) the warp stores the 64
+// rows' bytes as 16-byte vectors from their byte offset `out_at` + es * HW
+// + w * W of `out` (16-byte aligned), the ragged edges byte by byte
+// (`store_tall<1>`).  Two __syncwarp a window order the shared rows.
+__global__ void __launch_bounds__(kWarps * 32)
+    packed_mask_general_kernel(const long long* __restrict__ words,
+                               const int32_t* __restrict__ queue,
+                               const uint32_t* __restrict__ prow,
+                               const int32_t* __restrict__ piece_w,
+                               uint8_t* __restrict__ out, long long out_at, int total,
+                               int height, int width, int slots, int num_pieces,
+                               int nwords, int fpw) {
+  __shared__ uint32_t board[kWarps][64];  // the window's rows and the next window's
+  __shared__ uint32_t legal[kWarps][64];  // two windows' legal rows
+  const int l = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int es = blockIdx.x * kWarps + warp;
+  if (es >= total) return;  // the whole warp
+  const int pid = queue[es];
+  const int pw = pid >= 0 && pid < num_pieces ? piece_w[pid] : width + 1;  // none: no anchor
+  const uint32_t full = shl32(1u, width) - 1u;
+  uint32_t cells = 0;  // lane t: the columns of piece row t
+  if (pw <= width && l < nwords * fpw) {
+    const int k = bit_rows::small_div(l, __frcp_rn(static_cast<float>(fpw)));
+    cells = (prow[pid * nwords + k] >> ((l - k * fpw) * width)) & full;
+  }
+  const int rows_of_piece = 32 - __clz(__ballot_sync(kAll, cells != 0));
+  const uint32_t anchors = pw <= width ? shl32(1u, width - pw + 1) - 1u : 0u;
+  const long long* x64 = words + static_cast<long long>(es / slots) * height;
+  const long long at = out_at + static_cast<long long>(es) * height * width;
+  uint32_t* rows = board[warp];
+  uint32_t* staged = legal[warp];
+  uint32_t x0 = l < height ? static_cast<uint32_t>(x64[l]) : full;
+  uint32_t x1 = 32 + l < height ? static_cast<uint32_t>(x64[32 + l]) : full;
+  for (int w0 = 0; w0 < height; w0 += 32) {
+    const int r = w0 + 64 + l;  // the row after next, loaded before it is needed
+    const uint32_t next = r < height ? static_cast<uint32_t>(x64[r]) : full;
+    rows[l] = x0;
+    rows[32 + l] = x1;
+    __syncwarp();
+    uint32_t blocked = 0;  // bit c: a cell of anchor (w0 + l, c) meets the board
+    for (int t = 0; t < rows_of_piece; ++t) {
+      const uint32_t y = rows[l + t];
+      for (uint32_t m = __shfl_sync(kAll, cells, t); m != 0; m &= m - 1) {
+        blocked |= y >> (__ffs(m) - 1);
+      }
+    }
+    const int half = (w0 >> 5) & 1;
+    staged[32 * half + l] = ~blocked & anchors;
+    __syncwarp();
+    if (half == 1 || w0 + 32 >= height) {  // the pair's rows from w0 & ~63
+      const int first = w0 & ~63;
+      bit_rows::store_tall<1>(staged, out, at + static_cast<long long>(first) * width,
+                              min(64, height - first) * width, width, l, 32);
+    }
+    x0 = x1;
+    x1 = next;
+  }
 }
 
 __global__ void packed_words_general_kernel(const long long* __restrict__ words,
@@ -442,6 +535,40 @@ int launch_apply_general(bool staged, const void* words, const void* attrs, cons
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// The general mask's launch: the windowed kernel eight warps a block, an
+// env-slot each, or the thread-an-anchor-row kernel.  `out` may have any
+// address: the windowed kernel's stores take the 16-byte aligned address
+// at or below it and the byte offset from there.
+int launch_mask_general(bool windowed, const void* words, const void* queue, const void* prow,
+                        const void* piece_w, void* out, int n, int height, int width,
+                        int slots, int num_pieces, int nwords, int fpw, cudaStream_t stream) {
+  if (height < 1 || width < 1 || width > 32 || (windowed && nwords * fpw > 32)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long total = static_cast<long long>(n) * slots;
+  if (windowed && total > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (total <= 0) return static_cast<int>(cudaGetLastError());
+  const auto* w = static_cast<const long long*>(words);
+  const auto* q = static_cast<const int32_t*>(queue);
+  const auto* p = static_cast<const uint32_t*>(prow);
+  const auto* pw = static_cast<const int32_t*>(piece_w);
+  if (windowed) {
+    const uintptr_t addr = reinterpret_cast<uintptr_t>(out);
+    packed_mask_general_kernel<<<static_cast<unsigned>((total + kWarps - 1) / kWarps),
+                                 kWarps * 32, 0, stream>>>(
+        w, q, p, pw, reinterpret_cast<uint8_t*>(addr & ~static_cast<uintptr_t>(15)),
+        static_cast<long long>(addr & 15), static_cast<int>(total), height, width, slots,
+        num_pieces, nwords, fpw);
+  } else {
+    const long long rows = total * height;
+    packed_mask_rows_general_kernel<<<static_cast<unsigned>((rows + kThreads - 1) / kThreads),
+                                      kThreads, 0, stream>>>(
+        w, q, p, pw, static_cast<uint8_t*>(out), rows, height, width, slots, num_pieces,
+        nwords, fpw);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -558,23 +685,34 @@ extern "C" int bp_packed_apply_general_pass(const void* words, const void* attrs
                               static_cast<cudaStream_t>(stream));
 }
 
-// The general mask and words entries, any H >= 1: bp_packed_words_tall's
-// arguments (no alignment asked of `out`).
+// The general mask, any H >= 1: bp_packed_words_tall's arguments (no
+// alignment asked of `out`); the windowed kernel where a footprint spans at
+// most 32 rows (nwords * fpw <= 32, every shipped piece set), else the
+// thread-an-anchor-row one.
 extern "C" int bp_packed_mask_general(const void* words, const void* queue,
                                       const void* prow, const void* piece_w, void* out,
                                       int n, int height, int width, int slots,
                                       int num_pieces, int nwords, int fpw, void* stream) {
-  if (height < 1 || width < 1 || width > 32) return static_cast<int>(cudaErrorInvalidValue);
-  const long long rows = static_cast<long long>(n) * slots * height;
-  if (rows > 0) {
-    packed_mask_general_kernel<<<static_cast<unsigned>((rows + kThreads - 1) / kThreads),
-                                 kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const long long*>(words), static_cast<const int32_t*>(queue),
-        static_cast<const uint32_t*>(prow), static_cast<const int32_t*>(piece_w),
-        static_cast<uint8_t*>(out), rows, height, width, slots, num_pieces, nwords, fpw);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_mask_general(nwords * fpw <= 32, words, queue, prow, piece_w, out, n, height,
+                             width, slots, num_pieces, nwords, fpw,
+                             static_cast<cudaStream_t>(stream));
 }
+
+// The general mask with its kernel chosen: `windowed` nonzero takes the
+// warp over windows (refused where nwords * fpw > 32), zero the thread an
+// anchor row.  The measurements hold the two bit-equal and time them in
+// turns.
+extern "C" int bp_packed_mask_general_pick(const void* words, const void* queue,
+                                           const void* prow, const void* piece_w, void* out,
+                                           int n, int height, int width, int slots,
+                                           int num_pieces, int nwords, int fpw,
+                                           int windowed, void* stream) {
+  return launch_mask_general(windowed != 0, words, queue, prow, piece_w, out, n, height,
+                             width, slots, num_pieces, nwords, fpw,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// The general words entry, any H >= 1: bp_packed_words_tall's arguments.
 
 extern "C" int bp_packed_words_general(const void* words, const void* queue,
                                        const void* prow, const void* piece_w, void* out,

@@ -85,8 +85,9 @@ class MaskKernel:
     shape of any of them.  Else the general kernel (``shape`` is None;
     ``general_launches``): rows of more than 128 cells, larger pieces, or a
     deep board whose one-warp block does not fit.  ``name`` is the picked
-    kernel's.  The clear (``ClearScanKernel``) has no deep kernel, so on
-    boards of more than 128 rows this wrapper's kind is not the clear's.
+    kernel's.  The clear (``ClearScanKernel``) picks its own kernel by
+    the same board shapes, so the two kinds differ only where pieces are
+    larger than 8.
     """
 
     def __init__(self, cfg: EnvConfig, device="cuda"):

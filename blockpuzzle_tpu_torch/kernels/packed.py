@@ -15,8 +15,9 @@ in jnp (``blockpuzzle_tpu/env/core.py``) and its legal words in jnp
 Each wrapper picks its kernel by height: one row a lane where H <= 32
 (``csrc/packed_apply.cu``, ``csrc/packed_mask.cu``), a warp a board where
 H <= 128 (the tall kernels, ``csrc/packed_tall.cu``), the general kernels
-above (the same file: the apply a warp an env walking the board in
-windows of rows, the mask and words a thread an anchor row): the JAX
+above (the same file: the apply a warp an env and the mask a warp an
+env-slot, each walking the board in windows of rows; the words a thread
+an anchor row): the JAX
 engine takes packed state on any board of at most 32 columns, whatever
 its height.
 
@@ -113,9 +114,11 @@ def tall_launch_shape(cfg: EnvConfig):
 
 
 def deep_launch_shape(cfg: EnvConfig):
-    """(env-slots a warp, warps a block) of the deep u8 mask, which walks a
-    board of more than ``MAX_TALL`` rows of at most ``MAX_WIDE`` cells in
-    windows of 32 rows, a warp an env-slot: ``tall_launch_shape``'s choice,
+    """(env-slots or envs a warp, warps a block) of the deep u8 mask and
+    clear, which walk a board of more than ``MAX_TALL`` rows of at most
+    ``MAX_WIDE`` cells in windows of 32 rows, a warp an env-slot (mask) or
+    env (clear; its block's shared memory, the cleared rows and the envs'
+    boards, is at most the mask's): ``tall_launch_shape``'s choice,
     down to fewer than 4 warps (the most that fit) where a block of 4 does
     not fit what a block may opt in to; None for any other board and where
     not even one warp's board fits (the general kernel takes those).
@@ -341,8 +344,8 @@ SUFFIX = {"rows": "", "wide": "_wide", "tall": "_tall", "deep": "_deep",
 def u8_kind(cfg: EnvConfig, shape) -> str:
     """The kind of the u8 kernel a wrapper with launch shape ``shape`` (None:
     the general kernel) picks on ``cfg``: ``"rows"``, ``"wide"``, ``"tall"``,
-    ``"deep"`` (only the mask has a deep kernel: the clear's shape above
-    ``MAX_TALL`` rows is None) or ``"general"``."""
+    ``"deep"`` (the mask and the clear above ``MAX_TALL`` rows) or
+    ``"general"``."""
     if shape is None:
         return "general"
     if cfg.height > MAX_TALL:
@@ -526,7 +529,10 @@ class PackedMaskKernel:
     counts the mask kernel's launches, ``words_launches`` the words
     kernel's), the tall ones where H <= 128 (``tall_launches``,
     ``words_tall_launches``), the general ones elsewhere
-    (``general_launches``, ``words_general_launches``).  ``shape`` is the
+    (``general_launches``, ``words_general_launches``; the general mask a
+    warp an env-slot over windows of 32 rows, or a thread an anchor row
+    where the footprint words' fields span more than 32 rows, which the
+    C entry picks).  ``shape`` is the
     picked kernels' launch shape (None for the general ones); ``name`` and
     ``words_name`` are their names.
     """

@@ -23,7 +23,8 @@ shuffles a row below, 10 operations a word for each rectangle's smear and
 shift, whose steps are funnel shifts, and 4 for its legal mask; the clear
 tests and clears about 8 a word); the tall mask and clear (boards of 33 to
 128 rows, a warp a board) and the deep mask (more rows, windows of 32)
-count as the wide ones, a row's words being one where W <= 32; the bit-row
+count as the wide ones, a row's words being one where W <= 32, the deep
+clear 3 more a word (staged, then its full columns cleared); the bit-row
 apply (K2) packs two words a row, tests, places and
 clears (about 12) and stores likewise; the bit-row legality (K4) packs
 each row once, builds its smears (3 operations for each of max_h * max_w
@@ -34,7 +35,8 @@ anchor row tests W - piece_w + 1 anchors with 3 operations per footprint
 word and builds its words with 2 per field (B7, and its words entry B7w,
 which stores the row word as it is); B1 does about 10 a row word.  Their
 tall kernels (33 to 128 rows, a warp a board) and general kernels (more
-rows, a thread an env or an anchor row) are counted as they are.  The
+rows: B1 and B7 a warp over windows of 32 rows, B7w a thread an anchor
+row) are counted as they are.  The
 draws' (B9, B2, B2w) hash is a quarter multiplies, so theirs are counted
 by pipe: they fold an env's key and counter in three mixes (6 ALU
 operations and 2 multiplies each) and 3 XORs (21 and 6), the stream's tag
@@ -195,6 +197,13 @@ def _clear_wide(cfg, inputs):
     return n * (h * (_pack_words(cfg) + 8 * _words(cfg)) + _regions(cfg) + cfg.num_cells)
 
 
+def _clear_deep(cfg, inputs):
+    """K3, deep: inputs (board,); a word's 8 operations of pass 1, then 3
+    to stage it and clear the full columns from it in pass 2."""
+    n, h = inputs[0].shape[0], cfg.height
+    return n * (h * (_pack_words(cfg) + 11 * _words(cfg)) + _regions(cfg) + cfg.num_cells)
+
+
 def _clear_general(cfg, inputs):
     """K3, general: inputs (board,)."""
     return 3 * inputs[0].shape[0] * cfg.num_cells
@@ -293,7 +302,8 @@ COSTS: Dict[str, Cost] = {
     "mask_general": _cost(_mask_general),
     "apply": _cost(_apply), "apply_general": _cost(_apply_general),
     "clear": _cost(_clear), "clear_wide": _cost(_clear_wide),
-    "clear_tall": _cost(_clear_wide), "clear_general": _cost(_clear_general),
+    "clear_tall": _cost(_clear_wide), "clear_deep": _cost(_clear_deep),
+    "clear_general": _cost(_clear_general),
     "legality": _cost(_legality), "legality_general": _cost(_legality_general),
     **{f"packed_apply{s}": _cost(_packed_apply) for s in ("", "_tall", "_general")},
     **{f"packed_{e}{s}": _cost(_packed_mask) for e in ("mask", "legal_words")

@@ -96,23 +96,23 @@ then, each line tagged with its part (all ten by default):
             grids (``TAIL_SHAPES``), in turns, and on the default preset
             built with only some of its parts (``TAIL_PARTS``); then the
             default (packed) step on 33x9 profiled as ``rollout`` does;
-  deep      the two kernels that walk boards of more than 128 rows in
-            windows, at N = 49152 on 130x8 and 512x8 (``DEEP_BOARDS``): the
-            deep u8 mask against the general mask launched directly on the
-            same inputs (``chip_smoke.general_calls``), and the general
-            packed apply with each pass 2 (the placed rows staged in shared
-            memory, or the input read again:
-            ``chip_smoke.general_apply_pass``); with ``--parent-csrc DIR``
-            also the earlier sources' ``bp_mask`` and
-            ``bp_packed_apply_general``; every output held bit-equal, each
-            kernel timed in turns (in order and back) for 5 rounds, medians
-            and shares of the bound (``deep_turns``); then the default
-            (packed) step and the u8 clear-kernel step on 130x8, with the
-            earlier mask and apply swapped in and with the current ones, in
-            turns earlier, current, current, earlier: host ms a step,
-            device kernels, device ms and busy share a step, the largest
-            items (``deep_step_turns``; without ``--parent-csrc`` the
-            current ones alone).
+  deep      the u8 clear and the packed mask on boards of more than 128
+            rows, each a warp walking the board in windows of 32 rows, at
+            N = 49152 on 130x8 and 512x8 (``DEEP_BOARDS``): the deep clear
+            against the general clear launched directly on the same inputs
+            (``chip_smoke.general_calls``), and the windowed general packed
+            mask against its thread-an-anchor-row kernel
+            (``chip_smoke.general_mask_pick``); with ``--parent-csrc DIR``
+            first the earlier sources' ``bp_clear`` and
+            ``bp_packed_mask_general``; every output held bit-equal, each
+            kernel timed in turns (earlier, current, current, earlier) for 5
+            rounds, medians and shares of the bound (``deep_turns``); then
+            the default (packed) step and the u8 clear-kernel step on 130x8,
+            with the replaced clear and packed mask swapped in (the earlier
+            sources', else the current library's) and with the current
+            ones, in turns earlier, current, current, earlier: host ms a
+            step, device kernels, device ms and busy share a step, the
+            largest items (``deep_step_turns``).
 
 Cold builds go to a temporary directory under the git-ignored
 ``kernels/_build/``, removed at the end.
@@ -579,8 +579,9 @@ PARENT_ROW_ENTRIES = ("bp_mask_rows", "bp_clear_rows")
 PARENT_DRAW_ENTRIES = ("bp_deal", "bp_uniform_legal", "bp_words_select")
 # the step tail's entry points, where the earlier sources have them
 PARENT_TAIL_ENTRIES = ("bp_packed_tail", "bp_packed_unpack")
-# the general packed apply's entry point, where the earlier sources have it
-PARENT_DEEP_ENTRIES = ("bp_packed_apply_general",)
+# the general packed kernels' entry points, where the earlier sources have
+# them
+PARENT_DEEP_ENTRIES = ("bp_packed_apply_general", "bp_packed_mask_general")
 
 
 def parent_library(csrc: pathlib.Path):
@@ -1115,90 +1116,88 @@ def tail_shapes(card: str, rounds: int = 3) -> None:
                   f"{rounds} rounds in turns ({card})")
 
 
-# boards of more than 128 rows the ``deep`` part times K1 and B1 on
+# boards of more than 128 rows the ``deep`` part times K3 and B7 on
 DEEP_BOARDS = {"130x8": chip_smoke.HUGE, "512x8": chip_smoke.DEEP_CASES["512x8"]}
 
 
-def earlier_deep_calls(lib, cfg, mk):
+def earlier_deep_calls(lib, cfg, ck, pmk):
     """Callables with the current wrappers' arguments that launch the
-    earlier library ``lib``'s general u8 mask (``bp_mask``, what the mask
-    took on boards of more than 128 rows before its deep kernel) and
-    general packed apply (``bp_packed_apply_general``)."""
+    kernels the deep clear and the windowed packed mask replace: from the
+    earlier library ``lib`` its general u8 clear (``bp_clear``, what the
+    clear took on boards of more than 128 rows before its deep kernel) and
+    its general packed mask (``bp_packed_mask_general``, a thread an anchor
+    row); without ``lib`` the same kernels of the current library
+    (``bp_clear``, ``bp_packed_mask_general_pick`` with its thread-an-anchor-
+    row kernel).  Returns (clear, mask)."""
     import torch
 
     from blockpuzzle_tpu_torch.kernels import _build
-    from blockpuzzle_tpu_torch.kernels.collision import piece_table
 
-    dev = mk.device
-    table = torch.as_tensor(piece_table(cfg), device=dev)
-    region = cfg.region_size if cfg.region_clear else 0
+    if lib is None:
+        return (chip_smoke.general_calls(cfg, None, ck)[1],
+                chip_smoke.general_mask_pick(cfg, pmk, windowed=False))
+    dev, lines = ck.device, ck.lines
 
     def stream():
         return torch.cuda.current_stream(dev).cuda_stream
 
-    def mask(board, queue):
+    def clear(board):
         n = board.shape[0]
-        out = torch.empty((n, cfg.queue_size * cfg.num_cells), dtype=torch.bool,
-                          device=dev)
-        _build.check(lib.bp_mask(
-            board.data_ptr(), queue.data_ptr(), table.data_ptr(), out.data_ptr(), n,
-            cfg.height, cfg.width, cfg.queue_size, mk.num_pieces, table.shape[1] - 3,
-            stream()), "earlier bp_mask")
+        out, k = torch.empty_like(board), torch.empty(n, dtype=torch.int32, device=dev)
+        _build.check(lib.bp_clear(
+            board.data_ptr(), lines.line_cells.data_ptr(), lines.line_len.data_ptr(),
+            out.data_ptr(), k.data_ptr(), n, cfg.num_cells, lines.line_cells.shape[0],
+            lines.line_cells.shape[1], stream()), "earlier bp_clear")
+        return out, k
+
+    def mask(words, queue):
+        n = words.shape[0]
+        out = torch.empty((n, cfg.queue_size * cfg.num_cells), dtype=torch.bool, device=dev)
+        _build.check(lib.bp_packed_mask_general(*pmk._args(words, queue, out), stream()),
+                     "earlier bp_packed_mask_general")
         return out
 
-    def apply(words, attrs, r, c, valid):
-        n = words.shape[0]
-        out = torch.empty_like(words)
-        k = torch.empty(n, dtype=torch.int32, device=dev)
-        legal = torch.empty(n, dtype=torch.bool, device=dev)
-        _build.check(lib.bp_packed_apply_general(
-            words.data_ptr(), attrs.data_ptr(), r.data_ptr(), c.data_ptr(),
-            valid.data_ptr(), out.data_ptr(), k.data_ptr(), legal.data_ptr(), n,
-            cfg.height, cfg.width, region, stream()), "earlier bp_packed_apply_general")
-        return out, k, legal
-
-    return mask, apply
+    return clear, mask
 
 
 def deep_turns(card: str, lib, rounds: int = 5) -> None:
-    """K1 and B1 on ``DEEP_BOARDS`` at N = 49152 (``chip_smoke.kernel_inputs``,
-    seed 0): the deep mask beside the general one launched directly (and the
-    earlier library's ``bp_mask`` where ``lib`` is given), the general
-    packed apply's entry beside each of its two pass 2s (and the earlier
-    ``bp_packed_apply_general``); each group held bit-equal, then timed in
-    turns, in order and back, ``rounds`` times (``turns_ms``): medians, the
-    share of the bound (``utils/bounds.py``), and each median over the
-    first one's."""
+    """K3 and B7 on ``DEEP_BOARDS`` at N = 49152 (``chip_smoke.kernel_inputs``,
+    seed 0): the deep clear beside the general clear launched directly
+    (``bp_clear``), the windowed general packed mask's entry beside its
+    thread-an-anchor-row kernel (``bp_packed_mask_general_pick``), and,
+    where ``lib`` is given, first the earlier library's ``bp_clear`` and
+    ``bp_packed_mask_general``; each group held bit-equal, then timed in
+    turns, in order and back (earlier, current, current, earlier),
+    ``rounds`` times (``turns_ms``): medians, the share of the bound
+    (``utils/bounds.py``), and each median over the first one's."""
     import torch
 
     from blockpuzzle_tpu_torch.config import EnvConfig
-    from blockpuzzle_tpu_torch.kernels import ClearScanKernel, MaskKernel, PackedApplyKernel
+    from blockpuzzle_tpu_torch.kernels import ClearScanKernel, PackedMaskKernel
     from blockpuzzle_tpu_torch.kernels.packed import pack_words
     from blockpuzzle_tpu_torch.utils.bounds import kernel_bounds
 
     n, dev = chip_smoke.N_MAIN, torch.device("cuda")
     for name, shape in DEEP_BOARDS.items():
         cfg = EnvConfig(**shape)
-        mk, ck, pak = (MaskKernel(cfg, dev), ClearScanKernel(cfg, dev),
-                       PackedApplyKernel(cfg, dev))
-        if (mk.name, pak.name) != ("mask_deep", "packed_apply_general"):
-            raise AssertionError(f"{name}: the wrappers picked {mk.name}, {pak.name}")
+        ck, pmk = ClearScanKernel(cfg, dev), PackedMaskKernel(cfg, dev)
+        if (ck.name, pmk.name) != ("clear_deep", "packed_mask_general"):
+            raise AssertionError(f"{name}: the wrappers picked {ck.name}, {pmk.name}")
         board, queue, cover, valid, attrs, r, c = (
             torch.as_tensor(x, device=dev) for x in chip_smoke.kernel_inputs(cfg, n, seed=0))
-        args = (pack_words(board.view(n, cfg.height, cfg.width)), attrs, r, c, valid)
-        general_mask = chip_smoke.general_calls(cfg, mk, ck)[0]
-        staged, reread = (chip_smoke.general_apply_pass(cfg, v) for v in (True, False))
-        groups = {
-            "mask_deep": {"mask_deep": lambda: mk(board, queue),
-                          "mask_general": lambda: general_mask(board, queue)},
-            "packed_apply_general": {"packed_apply_general": lambda: pak(*args),
-                                     "staged pass 2": lambda: staged(*args),
-                                     "reread pass 2": lambda: reread(*args)}}
+        words = pack_words(board.view(n, cfg.height, cfg.width))
+        general_clear, mask_rows = earlier_deep_calls(None, cfg, ck, pmk)
+        groups = {"clear_deep": {}, "packed_mask_general": {}}
         if lib is not None:
-            earlier_mask, earlier_apply = earlier_deep_calls(lib, cfg, mk)
-            groups["mask_deep"]["earlier bp_mask"] = lambda: earlier_mask(board, queue)
-            groups["packed_apply_general"]["earlier bp_packed_apply_general"] = (
-                lambda: earlier_apply(*args))
+            earlier_clear, earlier_mask = earlier_deep_calls(lib, cfg, ck, pmk)
+            groups["clear_deep"]["earlier bp_clear"] = lambda: earlier_clear(board)
+            groups["packed_mask_general"]["earlier bp_packed_mask_general"] = (
+                lambda: earlier_mask(words, queue))
+        groups["clear_deep"].update({"clear_deep": lambda: ck(board),
+                                     "clear_general": lambda: general_clear(board)})
+        groups["packed_mask_general"].update({
+            "packed_mask_general": lambda: pmk(words, queue),
+            "thread-an-anchor-row kernel": lambda: mask_rows(words, queue)})
         outs = {}
         for key, fns in groups.items():
             got = [fn() for fn in fns.values()]
@@ -1206,7 +1205,7 @@ def deep_turns(card: str, lib, rounds: int = 5) -> None:
             if not all(torch.equal(a, b) for g in got[1:] for a, b in zip(g, got[0])):
                 raise AssertionError(f"{key} {name}: the kernels disagree")
             outs[key] = got[0]
-        bound = kernel_bounds(cfg, board, queue, cover, valid, args[0], attrs, r, c, outs)
+        bound = kernel_bounds(cfg, board, queue, cover, valid, words, attrs, r, c, outs)
         print(f"[deep] {name} N={n}: " + "; ".join(
             f"{' == '.join(fns)} (bit-equal)" for fns in groups.values()))
         for key, fns in groups.items():
@@ -1222,12 +1221,13 @@ def deep_turns(card: str, lib, rounds: int = 5) -> None:
 def deep_step_turns(card: str, lib, steps: int = 20) -> None:
     """The default (packed) step and the u8 clear-kernel step on 130x8 at
     N = 49152, uniform-legal draws, one engine each carrying its state:
-    with the earlier library's mask and apply (``earlier_deep_calls``)
-    swapped in and with the current wrappers, in turns earlier, current,
-    current, earlier (the current alone where ``lib`` is None): host ms a
-    step over ``steps`` unprofiled steps, then ``steps`` steps under
-    ``torch.profiler``: device kernels, device ms and busy share a step,
-    the changed kernel's device ms a step and the largest items."""
+    with the kernels the deep clear and the windowed packed mask replace
+    swapped in (``earlier_deep_calls``: the earlier library's where ``lib``
+    is given, else the current library's) and with the current wrappers, in
+    turns earlier, current, current, earlier: host ms a step over ``steps``
+    unprofiled steps, then ``steps`` steps under ``torch.profiler``: device
+    kernels, device ms and busy share a step, the changed kernel's device
+    ms a step and the largest items."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1237,14 +1237,14 @@ def deep_step_turns(card: str, lib, steps: int = 20) -> None:
 
     n, cfg = chip_smoke.N_MAIN, EnvConfig(**chip_smoke.HUGE)
     # engine -> (make_env arguments, the device names of its changed kernel)
-    engines = {"packed": ({}, ("packed_apply_general_kernel",)),
+    engines = {"packed": ({}, ("packed_mask_general_kernel", "packed_mask_rows_general")),
                "u8-jnp": ({"backend": "jnp", "state_impl": "u8"},
-                          ("mask_deep_kernel", "::mask_kernel("))}
+                          ("clear_deep_kernel", "::clear_kernel("))}
     for engine, (kwargs, keys) in engines.items():
         env = make_env(cfg, device="cuda", **kwargs)
-        kernels = {"current": (env.mask_kernel, env.packed_apply_kernel)}
-        if lib is not None:
-            kernels["earlier"] = earlier_deep_calls(lib, cfg, env.mask_kernel)
+        kernels = {"current": (env.clear_kernel, env.packed_mask_kernel),
+                   "earlier": earlier_deep_calls(lib, cfg, env.clear_kernel,
+                                                 env.packed_mask_kernel)}
         state, ts = env.init(0, n)
         draw = UniformLegalSampler(1, n, env.device)
 
@@ -1254,10 +1254,8 @@ def deep_step_turns(card: str, lib, steps: int = 20) -> None:
                 state, ts = env.step(state, draw(ts.action_mask))
             torch.cuda.synchronize()
 
-        order = ("earlier", "current", "current", "earlier") if lib is not None else (
-            "current",)
-        for which in order:
-            env.mask_kernel, env.packed_apply_kernel = kernels[which]
+        for which in ("earlier", "current", "current", "earlier"):
+            env.clear_kernel, env.packed_mask_kernel = kernels[which]
             run(5)                                         # warm-up
             t0 = time.perf_counter()
             run(steps)
@@ -1271,13 +1269,13 @@ def deep_step_turns(card: str, lib, steps: int = 20) -> None:
             busy = busy_us(device) / steps / 1e3
             part = sum(e.time_range.elapsed_us() for e in device
                        if any(k in e.name for k in keys)) / steps / 1e3
-            print(f"[deep] {engine} step, 130x8, N={n}, {which} mask and apply: "
+            print(f"[deep] {engine} step, 130x8, N={n}, {which} clear and packed mask: "
                   f"{step_ms:.4f} ms per step, {len(device) / steps:.2f} device kernels, "
                   f"{sum(e.time_range.elapsed_us() for e in device) / steps / 1e3:.6f} ms "
                   f"device time a step, busy {busy:.4f} ms = {100 * busy / step_ms:.1f}%, "
                   f"the changed kernel {part:.6f} ms a step ({card})")
             top_items(device, steps, f"deep {engine} {which}", 8)
-        env.mask_kernel, env.packed_apply_kernel = kernels["current"]
+        env.clear_kernel, env.packed_mask_kernel = kernels["current"]
 
 
 PARTS = ("build", "train", "rollout", "kernels", "words", "general", "draws", "tall", "tail",

@@ -9,7 +9,7 @@ which raises on failure (non-zero exit, no result line):
 
   0. card name and power limit, torch/CUDA versions, compute capability,
      kernel build time;
-  1. each of the twenty-seven kernels against its plain torch version on
+  1. each of the twenty-eight kernels against its plain torch version on
      the card, bit-equal, at N = 49152 and a ragged N = 49151: the three draws
      (deal, uniform_legal, words_select: ``kernels/draws.py``) on the four
      presets, at per-env counters that wrap negative and at shared ones
@@ -34,14 +34,18 @@ which raises on failure (non-zero exit, no result line):
      regions, 40x40 and 33x128 (``TALL_U8_CASES``; the plain u8 mask in
      chunks of envs there), the packed mask also against the u8 one on
      the unpacked boards, and on boards of more than 128 rows the deep u8
-     mask (mask_deep: a warp an env-slot over windows of 32 rows) and the
-     general kernels of both engines (clear_general, apply_general,
-     legality_general, packed_apply_general: a warp an env over windows of
-     rows, also with each pass 2, packed_mask_general,
-     packed_legal_words_general) on 130x8 (``HUGE``; the general mask,
-     mask_general, launched directly there beside the deep one), and the
-     deep mask, the general clear and the general packed kernels on 512x8
-     and 135x9 with 3x3 regions and a hand of three (``DEEP_CASES``); the
+     mask and clear (mask_deep, clear_deep: a warp an env-slot or env over
+     windows of 32 rows) and the general kernels of both engines
+     (apply_general, legality_general, packed_apply_general: a warp an env
+     over windows of rows, also with each pass 2, packed_mask_general: a
+     warp an env-slot over windows of 32 rows, packed_legal_words_general)
+     on 130x8 (``HUGE``; the general mask and clear, mask_general and
+     clear_general, launched directly there beside the deep ones, and the
+     packed mask's thread-an-anchor-row kernel beside its windowed one),
+     and the deep mask and clear and the general packed kernels on 512x8
+     and 135x9 with 3x3 regions and a hand of three (``DEEP_CASES``), the
+     deep clear and the windowed packed mask also held to the kernels they
+     replace launched directly on every one of these boards; the
      step's tail (packed_tail: game over,
      truncation, score, auto-reset and both board views in one launch) and
      its unpack entry (packed_unpack) on the default, tenten, 33x9 and 130x8
@@ -57,7 +61,7 @@ which raises on failure (non-zero exit, no result line):
      and the plain version's time (50 calls made as the host goes), at N
      = 49152 on the default preset (the wide kernels, apply_general and
      legality_general on the wide board, the tall ones on 33x9, the deep
-     mask and the other general ones on 130x8), and the launch floor (an empty launch's
+     ones and the other general ones on 130x8), and the launch floor (an empty launch's
      device time) beside the deal's; then the wide board's kernels timed
      in turns for 5 rounds, with the general mask and clear launched
      directly on the same inputs and held bit-equal to the wide ones
@@ -79,10 +83,10 @@ which raises on failure (non-zero exit, no result line):
      wide mask and clear and the general apply run: the paths
      ``wide_u8_pallas`` and ``wide_u8_jnp``; 33x9, where the tall mask and
      clear and the general apply run: ``tall_u8_pallas``, ``tall_u8_jnp``;
-     36x9 with regions, ``tall36r3_u8_jnp``; 130x8, the deep mask and the
-     general apply and clear: ``huge_u8_pallas``, ``huge_u8_jnp``; 8x136,
-     rows of more than 128 cells, the general mask and apply:
-     ``xwide_u8_pallas``, N = 256, 32 steps), counters set to
+     36x9 with regions, ``tall36r3_u8_jnp``; 130x8, the deep mask and
+     clear and the general apply: ``huge_u8_pallas``, ``huge_u8_jnp``;
+     8x136, rows of more than 128 cells, the general mask, apply and clear:
+     ``xwide_u8_pallas``, ``xwide_u8_jnp``, N = 256, 32 steps), counters set to
      0 before each and read after it: final states and summed rewards
      bit-equal across devices and across the engines, each kernel of an
      engine launched exactly once per step and every other kernel never;
@@ -244,18 +248,19 @@ TALL_PACKED_CASES = {"33x9": TALL, "36x9r3": TALL36R3, "64x8": dict(height=64, w
                      "128x10": dict(height=128, width=10)}
 TALL_U8_CASES = {"33x9": TALL, "36x9r3": TALL36R3, "40x40": dict(height=40, width=40),
                  "33x128": dict(height=33, width=128)}
-# a board of more than 128 rows: the deep u8 mask (a warp an env-slot over
-# windows of 32 rows), the windowed general packed apply, the general
-# kernels of the rest
+# a board of more than 128 rows: the deep u8 mask and clear (a warp an
+# env-slot or env over windows of 32 rows), the windowed general packed
+# apply and mask, the general kernels of the rest
 HUGE = dict(height=130, width=8)
-# the other boards of more than 128 rows phase 1 holds the deep mask and the
-# general packed apply on (tests/test_torch_deep.py): four times as many
+# the other boards of more than 128 rows phase 1 holds the deep mask and
+# clear and the general packed kernels on (tests/test_torch_deep.py): four times as many
 # rows, and 3x3 regions in windows of 30 rows with a hand of three (135x9:
 # a block's output span off a 16-byte boundary)
 DEEP_CASES = {"512x8": dict(height=512, width=8),
               "135x9r3": dict(height=135, width=9, region_clear=True, region_size=3,
                               queue_size=3)}
-# rows of more than 128 cells: the general u8 mask, clear, apply and legality
+# rows of more than 128 cells: the general u8 mask, clear, apply and
+# legality (the paths ``xwide_u8_pallas`` and ``xwide_u8_jnp``)
 XWIDE = dict(height=8, width=136)
 # kernel -> (source, the TPU kernel or jnp code it replaces, the path its
 # launches are read from)
@@ -280,8 +285,10 @@ KERNEL_INFO = {
                    "blockpuzzle_tpu/kernels/clear.py:93", "wide_u8_jnp"),
     "clear_tall": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
                    "blockpuzzle_tpu/kernels/clear.py:93", "tall_u8_jnp"),
+    "clear_deep": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
+                   "blockpuzzle_tpu/kernels/clear.py:93", "huge_u8_jnp"),
     "clear_general": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
-                      "blockpuzzle_tpu/kernels/clear.py:93", "huge_u8_jnp"),
+                      "blockpuzzle_tpu/kernels/clear.py:93", "xwide_u8_jnp"),
     "legality": ("blockpuzzle_tpu_torch/kernels/csrc/legality.cu",
                  "blockpuzzle_tpu/kernels/collision.py:50", "legal_all_pieces"),
     "legality_general": ("blockpuzzle_tpu_torch/kernels/csrc/legality.cu",
@@ -359,6 +366,7 @@ def kernel_counters(env) -> dict:
             "clear": (env.clear_kernel, "launches"),
             "clear_wide": (env.clear_kernel, "wide_launches"),
             "clear_tall": (env.clear_kernel, "tall_launches"),
+            "clear_deep": (env.clear_kernel, "deep_launches"),
             "clear_general": (env.clear_kernel, "general_launches"),
             "legality": (env.legal_kernel, "launches"),
             "legality_general": (env.legal_kernel, "general_launches"),
@@ -551,8 +559,8 @@ def u8_kernel_names(cfg) -> tuple:
     ``cfg``: the bit-row kernels where H <= 32 and W <= 32, the wide mask
     and clear with the general apply and legality where H <= 32 and
     32 < W <= 128, the tall mask and clear with the general apply and
-    legality where 32 < H <= 128 and W <= 128, the deep mask with the
-    general clear, apply and legality where H > 128 and W <= 128 (the
+    legality where 32 < H <= 128 and W <= 128, the deep mask and clear
+    with the general apply and legality where H > 128 and W <= 128 (the
     boards phase 1 and 2 run: each fits a block of the deep mask), the
     general kernels elsewhere."""
     if cfg.height <= 32 and cfg.width <= 32:
@@ -562,7 +570,7 @@ def u8_kernel_names(cfg) -> tuple:
     if cfg.height <= 128 and cfg.width <= 128:
         return "mask_tall", "clear_tall", "apply_general", "legality_general"
     if cfg.width <= 128:
-        return "mask_deep", "clear_general", "apply_general", "legality_general"
+        return "mask_deep", "clear_deep", "apply_general", "legality_general"
     return "mask_general", "clear_general", "apply_general", "legality_general"
 
 
@@ -747,11 +755,15 @@ def phase1_tall(errs: dict, times: dict, bounds: dict) -> None:
     a full line through the tall packed apply; then the kernels of boards
     of more than 128 rows likewise on ``HUGE`` (130 rows, with the general
     u8 apply and legality) and ``DEEP_CASES`` (512x8, 135x9 with regions):
-    the deep mask, the general clear and the general packed kernels, the
-    packed apply also with each pass 2 (``general_apply_pass``) against the
-    plain version.  Times the tall kernels on 33x9 and the
-    others on 130x8 at N = 49152 into ``times`` and ``bounds``, the general
-    mask launched directly there (``general_calls``) beside the deep one."""
+    the deep mask and clear and the general packed kernels, the packed
+    apply also with each pass 2 (``general_apply_pass``) against the plain
+    version, the deep clear and the windowed packed mask also against the
+    kernels they replace launched directly on the same inputs (``bp_clear``,
+    ``general_calls``; the thread-an-anchor-row packed mask,
+    ``general_mask_pick``).  Times the tall kernels on 33x9 and the others
+    on 130x8 at N = 49152 into ``times`` and ``bounds``, the general mask
+    and clear launched directly there beside the deep ones, and prints the
+    two packed mask kernels' times side by side."""
     import torch
 
     from blockpuzzle_tpu_torch.config import EnvConfig
@@ -786,6 +798,9 @@ def phase1_tall(errs: dict, times: dict, bounds: dict) -> None:
                                                         pwords_name):
                 raise AssertionError(f"{name}: the packed wrappers picked {pmk.name}, "
                                      f"{pak.name}, {pmk.words_name}")
+        if deep:  # the kernels the deep clear and the windowed packed mask replace
+            general_mask, general_clear = general_calls(cfg, mk, ck)
+            mask_rows = general_mask_pick(cfg, pmk, windowed=False)
         for n in (N_MAIN, N_MAIN - 1):
             board, queue, cover, valid, attrs, r, c = (
                 torch.as_tensor(x, device=dev) for x in kernel_inputs(cfg, n, seed=n))
@@ -798,6 +813,10 @@ def phase1_tall(errs: dict, times: dict, bounds: dict) -> None:
                 cleared = ck(board)
                 check_equal(cleared, chunked(ck.plain, board, rows=rows), what, errs,
                             clear_name)
+                if deep and not all(torch.equal(a, b)
+                                    for a, b in zip(general_clear(board), cleared)):
+                    raise AssertionError(f"{clear_name} != clear_general launched directly "
+                                         f"({what})")
                 line += (f" {mask_name} legal share {float(mask.float().mean()):.4f}, "
                          f"{clear_name} k {int(cleared[1].sum())}")
             if huge:
@@ -824,13 +843,18 @@ def phase1_tall(errs: dict, times: dict, bounds: dict) -> None:
                     raise AssertionError(f"{pwords_name} != the packed mask's words ({what})")
                 if u8 and not torch.equal(pmask, mask):
                     raise AssertionError(f"{pmask_name} != {mask_name} ({what})")
+                if deep and not torch.equal(mask_rows(words, queue), pmask):
+                    raise AssertionError(f"{pmask_name} != its thread-an-anchor-row kernel "
+                                         f"({what})")
                 if int(pouts[1].sum()) == 0 or not bool(pouts[2].any()):
                     raise AssertionError(f"{papply_name} cleared nothing ({what})")
                 if deep:  # each pass 2 of the general apply through its own entry
                     for staged in (True, False):
                         check_equal(general_apply_pass(cfg, staged)(words, attrs, r, c, valid),
                                     pouts, f"{what}, staged={staged}", errs, papply_name)
-                    line += f", {papply_name} with each pass 2 == plain"
+                    line += (f", {papply_name} with each pass 2 == plain, {clear_name} == "
+                             f"clear_general and {pmask_name} == its thread-an-anchor-row "
+                             "kernel, launched directly")
                 line += (f"{';' if u8 else ''} {pmask_name} legal share "
                          f"{float(pmask.float().mean()):.4f}, "
                          f"{papply_name} legal {int(pouts[2].sum())}, lines cleared "
@@ -856,17 +880,25 @@ def phase1_tall(errs: dict, times: dict, bounds: dict) -> None:
                  pmask_name: (lambda: pmk(words, queue), lambda: pmk.plain(words, queue)),
                  pwords_name: (lambda: pmk.words(words, queue),
                                lambda: pmk.plain_words(words, queue))}
-        if huge:  # the general mask beside the deep one, launched directly
-            general_mask = general_calls(cfg, mk, ck)[0]
+        if huge:  # the general mask and clear beside the deep ones, launched directly
             check_equal([general_mask(board, queue)], [mk(board, queue)],
                         f"{name}, N={N_MAIN}, launched directly", errs, "mask_general")
+            check_equal(general_clear(board), ck(board), f"{name}, N={N_MAIN}, launched "
+                        "directly", errs, "clear_general")
             calls["mask_general"] = (lambda: general_mask(board, queue),
                                      lambda: mk.plain(board, queue))
+            calls["clear_general"] = (lambda: general_clear(board), lambda: ck.plain(board))
         here = kernel_bounds(cfg, board, queue, cover, valid, words, attrs, r, c,
                              {k: f() for k, (f, _) in calls.items()})
         label = f"{'tall' if name == '33x9' else 'huge'} {name}"
         bounds.update({k: dict(b, where=label) for k, b in here.items()})
         times.update({k: (cuda_ms(f), host_paced_ms(g)) for k, (f, g) in calls.items()})
+        if huge:
+            rows_ms = cuda_ms(lambda: mask_rows(words, queue))
+            print(f"[phase1] {pmask_name} {name} N={N_MAIN}: windowed kernel "
+                  f"{times[pmask_name][0]:.6f} ms, the thread-an-anchor-row kernel it "
+                  f"replaces {rows_ms:.6f} ms, launched directly on the same inputs "
+                  f"(bit-equal); bound {here[pmask_name]['bound_ms']:.6f} ms")
 
 
 # the boards phase 1 holds the step's tail (B10) and the unpack on, with a
@@ -1188,7 +1220,7 @@ def general_calls(cfg, mk, ck):
     from blockpuzzle_tpu_torch.kernels import _build
     from blockpuzzle_tpu_torch.kernels.collision import piece_table
 
-    lib, dev = _build.library(), mk.device
+    lib, dev = _build.library(), ck.device
     table = torch.as_tensor(piece_table(cfg), device=dev)
     lines = ck.lines
 
@@ -1242,6 +1274,30 @@ def general_apply_pass(cfg, staged: bool):
         return out, k, legal
 
     return apply
+
+
+def general_mask_pick(cfg, pmk, windowed: bool):
+    """A callable with ``PackedMaskKernel``'s arguments that launches the
+    general packed mask's kernel ``windowed`` picks (the warp over windows
+    of 32 rows, or the thread an anchor row) through
+    ``bp_packed_mask_general_pick``."""
+    import torch
+
+    from blockpuzzle_tpu_torch.kernels import _build
+
+    lib = _build.library()
+
+    def mask(words, queue):
+        n = words.shape[0]
+        out = torch.empty((n, cfg.queue_size * cfg.num_cells), dtype=torch.bool,
+                          device=words.device)
+        _build.check(lib.bp_packed_mask_general_pick(
+            *pmk._args(words, queue, out), int(windowed),
+            torch.cuda.current_stream(words.device).cuda_stream),
+            "bp_packed_mask_general_pick")
+        return out
+
+    return mask
 
 
 def wide_turns(card: str, tag: str, rounds: int = 5) -> None:
@@ -1360,7 +1416,8 @@ def phase2():
     and the launch counts of those boards' rollouts and of
     ``legal_all_pieces`` there (the paths ``wide_u8_pallas``,
     ``wide_u8_jnp``, ``wide_legal_all_pieces``, their ``tall_`` and
-    ``huge_`` twins, ``xwide_u8_pallas`` and ``xwide_legal_all_pieces``,
+    ``huge_`` twins, ``xwide_u8_pallas``, ``xwide_u8_jnp`` and
+    ``xwide_legal_all_pieces``,
     ``tall_packed``, ``huge_packed``, ``tall_words`` and ``huge_words``, and
     those of the other tall boards)."""
     import torch
@@ -1387,8 +1444,9 @@ def phase2():
         "tall128": (EnvConfig(**TALL_PACKED_CASES["128x10"]), ("packed",), 1024, 64),
         # the plain u8 mask's product grows with the square of the cells
         "huge": (EnvConfig(**HUGE), ("packed", "pallas", "jnp"), 256, 32),
-        # rows of more than 128 cells: the general u8 mask's path
-        "xwide": (EnvConfig(**XWIDE), ("pallas",), 256, 32),
+        # rows of more than 128 cells: the general u8 mask's and clear's
+        # paths
+        "xwide": (EnvConfig(**XWIDE), ("pallas", "jnp"), 256, 32),
     })
     errs, paths = {"legality": 0, "legality_general": 0}, {}
     for name, (cfg, run, n, steps) in boards.items():

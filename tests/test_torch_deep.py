@@ -1,21 +1,27 @@
 """The kernels of boards taller than 128 rows on the CPU, against the JAX
 package.
 
-Above 128 rows the tall kernels' register slots run out, so two kernels
+Above 128 rows the tall kernels' register slots run out, so four kernels
 walk a board in windows: the u8 mask's deep kernel (K1, ``mask_deep``:
 a warp an env-slot, two slots of 32 rows a lane, the second moved up after
-each window) and the packed apply's general kernel (B1, a warp an env,
-windows of 32 rows, or of 32 - 32 mod rs with regions so that no band
-crosses a window).  Their numpy emulations (``test_torch_tall.py``
-``emulate_mask_deep_kernel``, ``emulate_packed_apply_deep``), fed the
-tables and launch shapes the wrappers hand the kernels, are held bit-equal
-to the wrappers' plain versions and to the JAX package: the u8 engine's
-shift mask for K1, the packed engine's ``_cover_words``/``_clear_scan_packed``
-block for B1.  The boards cover a window seam inside a piece (rows 31/32,
-63/64, 127/128), last windows of 1, 2 and 1 live rows (129, 130, 257
-rows), 160 rows of 9 cells, and 3x3 regions on 135 rows (windows of 30
-rows); the kernels themselves run only on the card (``chip_smoke.py``).
-Everything is integer or bool and must be bit-equal.
+each window), the u8 clear's (K3, ``clear_deep``: a warp an env, windows
+of 32 rows, or of 32 - 32 mod rs with regions so that no band crosses a
+window; the full columns after the last window), the packed apply's
+general kernel (B1, a warp an env, windows as the clear's) and the packed
+mask's (B7, a warp an env-slot, two rows a lane as K1's).  Their numpy
+emulations (``test_torch_tall.py`` ``emulate_mask_deep_kernel``,
+``emulate_clear_deep_kernel``, ``emulate_packed_apply_deep``,
+``emulate_packed_mask_deep``), fed the tables and launch shapes the
+wrappers hand the kernels, are held bit-equal to the wrappers' plain
+versions and to the JAX package: the u8 engine's shift mask for K1, the
+Pallas clear kernel in interpret mode and the u8 engine's ``clear_scan``
+for K3, the packed engine's ``_cover_words``/``_clear_scan_packed`` block
+for B1 and its ``_bitboard_mask_from_words`` for B7.  The boards cover a
+window seam inside a piece (rows 31/32, 63/64, 127/128), last windows of
+1, 2 and 1 live rows (129, 130, 257 rows), 160 rows of 9 cells, and 3x3
+regions on 135 rows (windows of 30 rows); the kernels themselves run only
+on the card (``chip_smoke.py``).  Everything is integer or bool and must
+be bit-equal.
 """
 
 import functools
@@ -26,27 +32,35 @@ import pytest
 import torch
 
 from blockpuzzle_tpu import config as jcfg
+from blockpuzzle_tpu import kernels as jk
 from blockpuzzle_tpu.env import make_env as jax_make_env
 from blockpuzzle_tpu_torch import config as tcfg
 from blockpuzzle_tpu_torch import rules
-from blockpuzzle_tpu_torch.kernels import MaskKernel, PackedApplyKernel
+from blockpuzzle_tpu_torch.kernels import (
+    ClearScanKernel, MaskKernel, PackedApplyKernel, PackedMaskKernel,
+)
 from blockpuzzle_tpu_torch.kernels.packed import (
     MAX_TALL, SMEM_OPT_IN, deep_launch_shape, tall_block_warps, tall_smem_bytes,
 )
 from test_torch_packed import chosen_actions, jax_apply, np_words
 from test_torch_tall import (
-    emulate_mask_deep_kernel, emulate_packed_apply_deep, tall_cells,
+    emulate_clear_deep_kernel, emulate_legal_general, emulate_mask_deep_kernel,
+    emulate_packed_apply_deep, emulate_packed_mask_deep, tall_cells,
 )
 
 DEEP = {"deep129": dict(height=129, width=8), "deep130": dict(height=130, width=8),
         "deep160x9": dict(height=160, width=9), "deep257": dict(height=257, width=8),
         "deep135r3": dict(height=135, width=9, region_clear=True, region_size=3,
                           queue_size=3)}
+# the deep clear also on rows of two words, 3x3 regions whose fields
+# straddle them (columns 30..32) in windows of 30 rows
+DEEP_WORDS = {"deep132x36r3": dict(height=132, width=36, region_clear=True, region_size=3)}
 N = 16
 
 
 def _pair(case):
-    return jcfg.EnvConfig(**DEEP[case]), tcfg.EnvConfig(**DEEP[case])
+    shape = {**DEEP, **DEEP_WORDS}[case]
+    return jcfg.EnvConfig(**shape), tcfg.EnvConfig(**shape)
 
 
 def deep_cells(cfg, n, rng, fill):
@@ -208,3 +222,156 @@ def test_deep_launch_shapes_fit():
     assert seen == {"16", "4+", "<4", "none"}
     assert deep_launch_shape(tcfg.EnvConfig(height=MAX_TALL, width=9)) is None
     assert deep_launch_shape(tcfg.EnvConfig(height=130, width=129)) is None
+
+
+def _clear_boards(cfg, n, rng, fill):
+    """``deep_cells`` with a full board (the last) and an empty one, a
+    column full in every row (env 12: only the AND across the windows finds
+    it) and one full but for the last row (env 13, whose column 0 is empty,
+    so that no row or region of it is full), and 3x3 blocks of rows
+    117..122 (env 12), two aligned regions on either side of the seam of
+    windows of 30 rows at 120."""
+    cells = deep_cells(cfg, n, rng, fill)
+    cells[12, :, 1] = 1
+    cells[12, 117:123, 3:6] = 1
+    cells[13, :, 2] = 1
+    cells[13, cfg.height - 1, 2] = 0
+    cells[13, :, 0] = 0
+    if cfg.width > 32:
+        cells[12, 120:123, 30:33] = 1                   # a field across two words
+    board = cells.reshape(n, -1)
+    board[n - 1], board[n - 2] = 1, 0
+    return board
+
+
+@pytest.mark.parametrize("case", [*DEEP, *DEEP_WORDS])
+def test_deep_clear_matches_jax_clear_kernel(case):
+    """K3 on boards of more than 128 rows: the Pallas clear kernel in
+    interpret mode, the JAX u8 engine's ``clear_scan``, the wrapper (plain
+    version on the CPU) and the deep kernel's emulation, bit-equal: full
+    rows on the window seams, columns full across every window or all but
+    the last row, 3x3 regions on either side of a seam of windows of 30
+    rows (on 132x36 also fields across the two words of a row), a full
+    board (k = H + W + regions) and an empty one."""
+    cj, ct = _pair(case)
+    board = _clear_boards(ct, N, np.random.default_rng(7), fill=0.6)
+    want = [np.asarray(x) for x in jk.ClearScanKernel(cj, tile_n=N)(
+        jnp.asarray(board), interpret=True)]
+    engine = jax_make_env(cj, state_impl="u8").clear_scan(jnp.asarray(board))
+    ck = ClearScanKernel(ct, "cpu")
+    assert (ck.kind, ck.name, ck.shape) == ("deep", "clear_deep", deep_launch_shape(ct))
+    got = ck(torch.as_tensor(board))
+    emu = emulate_clear_deep_kernel(ct, board, ck)
+    for i, name in enumerate(("board", "k")):
+        np.testing.assert_array_equal(np.asarray(engine[i]), want[i], name)
+        np.testing.assert_array_equal(got[i].numpy(), want[i], name)
+        np.testing.assert_array_equal(emu[i], want[i], name)
+    h, w = ct.height, ct.width
+    k, cleared = want[1], want[0].reshape(N, h, w)
+    regions = (h // ct.region_size) * (w // ct.region_size) if ct.region_clear else 0
+    assert k[N - 1] == h + w + regions and not cleared[N - 1].any()
+    assert k[N - 2] == 0 and not board[N - 2].any()
+    for env, row in ((1, 31), (2, 32), (6, 63), (7, 64), (8, 127), (8, 128)):
+        assert not cleared[env, row].any() and k[env] >= 1, (env, row)
+    assert not cleared[12, :, 1].any()                       # the column across windows
+    assert cleared[13, : h - 1, 2].all()                     # not full: kept
+    if ct.region_clear:
+        assert not cleared[12, 117:123, 3:6].any() and k[12] >= 3
+    if ct.width > 32:
+        assert not cleared[12, 120:123, 30:33].any() and k[12] >= 4
+    assert ck.deep_launches == ck.general_launches == 0
+
+
+@pytest.mark.parametrize("case", ["deep130", "deep135r3"])
+@pytest.mark.parametrize("addr", [3, 13])
+def test_deep_clear_emulation_takes_any_board_address(case, addr):
+    """Boards that start off a 16-byte boundary: the deep clear's emulation
+    stages an unaligned head and tail byte by byte (on 135x9 a block's
+    output span also starts off a boundary, H*W = 1215) and still equals
+    the plain version."""
+    _, ct = _pair(case)
+    board = _clear_boards(ct, N, np.random.default_rng(addr), fill=0.55)
+    ck = ClearScanKernel(ct, "cpu")
+    for e, p in zip(emulate_clear_deep_kernel(ct, board, ck, addr),
+                    ck(torch.as_tensor(board))):
+        np.testing.assert_array_equal(e, p.numpy())
+
+
+def _packed_mask_inputs(ct, rng):
+    """Packed boards (``deep_cells`` with a full board, the last, and an
+    empty one holding a 1x5 bar) and ``_hands``."""
+    cells = deep_cells(ct, N, rng, fill=0.3)
+    cells[N - 1], cells[N - 2] = 1, 0
+    queue = _hands(ct, N, rng)
+    queue[N - 2, 0] = 4                                   # a 1x5 bar: 5 rows
+    return np_words(cells), queue
+
+
+@pytest.mark.parametrize("case", DEEP)
+def test_deep_packed_mask_matches_jax(case):
+    """B7 on boards of more than 128 rows: JAX's ``_bitboard_mask_from_words``
+    on the envs whose hand ids lie in [0, P], the wrapper (plain version)
+    and the windowed kernel's emulation on every env (ids outside [0, P)
+    read as empty slots), also against the thread-an-anchor-row kernel's
+    (``legal_row_general``) it replaces: a 1x5 bar whose anchor rows 28..31
+    reach across the first window seam, on an empty board down to its last
+    legal row H - 5, and a full board."""
+    _, ct = _pair(case)
+    words, queue = _packed_mask_inputs(ct, np.random.default_rng(8))
+    num_pieces = rules.tables_for(ct).num_pieces
+    dealt = ((queue >= 0) & (queue <= num_pieces)).all(axis=1)
+    want = np.asarray(jax_packed_engine(case)._bitboard_mask_from_words(
+        jnp.asarray(words), jnp.asarray(np.clip(queue, 0, num_pieces))))
+    mk = PackedMaskKernel(ct, "cpu")
+    assert (mk.kind, mk.name, mk.shape) == ("general", "packed_mask_general", None)
+    got = mk(torch.as_tensor(words.astype(np.int64)), torch.as_tensor(queue)).numpy()
+    np.testing.assert_array_equal(got[dealt], want[dealt])
+    np.testing.assert_array_equal(emulate_packed_mask_deep(ct, words, queue, mk), got)
+    rows = emulate_legal_general(ct, words, queue, mk)
+    cells = (rows[..., None] >> np.arange(ct.width)) & 1
+    np.testing.assert_array_equal(cells.reshape(N, -1).astype(bool), got)
+    assert 0 < got.mean() < 1 and not got[[0, N - 1]].any() and not got[2, : ct.num_cells].any()
+    bar = got[N - 2, : ct.num_cells].reshape(ct.height, ct.width)
+    last = ct.height - rules.tables_for(ct).piece_h[4]
+    assert bar[: last + 1, 0].all() and not bar[last + 1 :].any()
+    assert mk.general_launches == mk.words_general_launches == 0
+
+
+@pytest.mark.parametrize("case", ["deep130", "deep135r3"])
+@pytest.mark.parametrize("addr", [3, 13])
+def test_deep_packed_mask_emulation_takes_any_output_address(case, addr):
+    """An output ``addr`` bytes past a 16-byte boundary: the windowed
+    kernel stores from the boundary below it with every window's head and
+    tail byte by byte, and still equals the plain version."""
+    _, ct = _pair(case)
+    words, queue = _packed_mask_inputs(ct, np.random.default_rng(addr))
+    mk = PackedMaskKernel(ct, "cpu")
+    np.testing.assert_array_equal(
+        emulate_packed_mask_deep(ct, words, queue, mk, addr),
+        mk(torch.as_tensor(words.astype(np.int64)), torch.as_tensor(queue)).numpy())
+
+
+def test_deep_clear_launch_shapes_fit():
+    """The deep clear takes the deep mask's launch shape: on boards of 129
+    to 4096 rows of 1 to 128 cells its block's shared memory (its envs'
+    cleared rows of ceil(W / 32) words, then their staged boards, as
+    ``csrc/clear.cu`` ``launch_clear_deep`` lays them out) is at most the
+    mask's, so it fits what a block may opt in to, and its output bytes stay
+    under the 2^21 that ``small_div``'s proof needs; where the shape is
+    None the clear takes no board (its line tables pass 12288 cells and
+    lines)."""
+    seen = 0
+    for h in (129, 130, 135, 160, 257, 512, 1000, 1500, 3000, 4096):
+        for w in (1, 8, 9, 31, 32, 33, 64, 100, 128):
+            cfg = tcfg.EnvConfig(height=h, width=w)
+            shape = deep_launch_shape(cfg)
+            lines = h + w
+            if shape is None:
+                assert cfg.num_cells + lines > 12288
+                continue
+            per_block = shape[0] * shape[1]
+            clear = (4 * per_block * h * -(-w // 32) + 15) // 16 * 16 + per_block * h * w + 32
+            assert clear <= tall_smem_bytes(cfg, per_block) <= SMEM_OPT_IN
+            assert per_block * cfg.num_cells < 1 << 21
+            seen += 1
+    assert seen > 40

@@ -969,10 +969,12 @@ def test_wrappers_never_fall_back_off_cpu():
         ApplyKernel(cfg, "cpu")(board, board, torch.ones(4, dtype=torch.bool, device=meta))
     # the same on a board that takes the wide mask and clear and the general
     # apply and legality, on one that takes the tall mask and clear and the
-    # general apply and legality, and on one that takes the deep mask and
-    # the general clear, apply and legality
+    # general apply and legality, on one that takes the deep mask and clear
+    # and the general apply and legality, and on one that takes the general
+    # kernels of all four
     for shape, kinds in ((WIDE40, ("wide", "wide")), (dict(height=33, width=9), ("tall",) * 2),
-                         (dict(height=130, width=9), ("deep", "general"))):
+                         (dict(height=130, width=9), ("deep", "deep")),
+                         (dict(height=8, width=136), ("general", "general"))):
         cfg = tcfg.EnvConfig(**shape)
         board = torch.zeros(4, cfg.num_cells, dtype=torch.uint8, device=meta)
         mk, ck = MaskKernel(cfg, meta), ClearScanKernel(cfg, meta)
@@ -1023,8 +1025,9 @@ def test_u8_wrappers_pick_their_kernel_by_shape(case):
     legality; the tall mask and clear where 32 < H <= 128 (one board a
     warp, ``tall_launch_shape``, the rectangle piece table) beside the
     general apply and legality; on a board taller than that the deep mask
-    (``deep_launch_shape``, the rectangle piece table) and the general
-    clear, apply and legality, with the per-cell piece table."""
+    and clear (``deep_launch_shape``, the mask with the rectangle piece
+    table) and the general apply and legality, with the per-cell piece
+    table."""
     cfg = (tcfg.EnvConfig(height=33, width=9) if case == "tall33"
            else tcfg.EnvConfig(height=130, width=9) if case == "tall130"
            else _pair(case)[1])
@@ -1035,13 +1038,13 @@ def test_u8_wrappers_pick_their_kernel_by_shape(case):
     tall = 32 < cfg.height <= 128 and cfg.width <= 128
     deep = cfg.height > 128 and cfg.width <= 128
     assert [k.shape is not None for k in (mk, ck, ak, lk)] == (
-        [rows or wide or tall or deep, rows or wide or tall] + [rows] * 2)
+        [rows or wide or tall or deep] * 2 + [rows] * 2)
     assert mk.wide == ck.wide == wide
     assert lk.shape == legality_launch_shape(cfg)
-    kind = "rows" if rows else "wide" if wide else "tall" if tall else "general"
-    assert (mk.kind, ck.kind) == ("deep" if deep else kind, kind)
-    assert (mk.name, ck.name) == tuple(k + {"rows": ""}.get(kd, "_" + kd)
-                                       for k, kd in (("mask", mk.kind), ("clear", kind)))
+    kind = "rows" if rows else "wide" if wide else "tall" if tall else "deep"
+    assert (mk.kind, ck.kind) == (kind, kind)
+    assert (mk.name, ck.name) == tuple(k + {"rows": ""}.get(kind, "_" + kind)
+                                       for k in ("mask", "clear"))
     if tall:
         assert mk.shape == ck.shape == tall_launch_shape(cfg) == (4, 16)
         np.testing.assert_array_equal(mk.piece_table.numpy(), piece_rows_table(cfg))
@@ -1061,7 +1064,7 @@ def test_u8_wrappers_pick_their_kernel_by_shape(case):
         # a block's byte offsets times W stay under 2^32 (store_span's division)
         assert per_block * lk.num_pieces * cfg.num_cells * cfg.width < 1 << 32
     else:
-        assert deep and mk.shape == deep_launch_shape(cfg) == (1, 16)
+        assert deep and mk.shape == ck.shape == deep_launch_shape(cfg) == (1, 16)
         np.testing.assert_array_equal(mk.piece_table.numpy(), piece_rows_table(cfg))
         np.testing.assert_array_equal(lk.piece_table.numpy(), piece_table(cfg))
 

@@ -235,9 +235,9 @@ def test_sampler_picks_legal_actions_uniformly():
 # boards beyond the presets: 40 cells a row (the wide mask and clear, the
 # general apply and legality), 33 and 36 rows (the tall mask and clear, the
 # general apply and legality; 3x3 regions across the lane seam and a hand of
-# three on 36x9), 130 and 135 rows (the deep mask, the general clear, apply
-# and legality; 3x3 regions in windows of 30 rows and a hand of three on
-# 135x9)
+# three on 36x9), 130 and 135 rows (the deep mask and clear, the general
+# apply and legality; 3x3 regions in windows of 30 rows and a hand of three
+# on 135x9)
 BOARDS = {"wide40": dict(height=8, width=40), "tall33": dict(height=33, width=9),
           "tall36r3": dict(height=36, width=9, region_clear=True, region_size=3,
                            queue_size=3),
@@ -254,10 +254,10 @@ def test_kernels_match_plain_versions_on_the_card(preset, cuda_device):
     legality on the presets; on a board of 8 rows of 40 cells (too wide for
     a row word) the wide mask and clear and the general apply and
     legality; on boards of 33 and 36 rows the tall mask and clear and the
-    general apply and legality; on 130 and 135 rows the deep mask (a warp
-    an env-slot over windows of 32 rows) and the general clear, apply and
-    legality (at N = 4096: the plain versions' products grow with the
-    square of the cells)."""
+    general apply and legality; on 130 and 135 rows the deep mask and
+    clear (a warp an env-slot or env over windows of 32 rows, 30 with 3x3
+    regions) and the general apply and legality (at N = 4096: the plain
+    versions' products grow with the square of the cells)."""
     from blockpuzzle_tpu_torch import rules
     from blockpuzzle_tpu_torch.config import EnvConfig
     from blockpuzzle_tpu_torch.kernels import (
@@ -295,12 +295,12 @@ def test_kernels_match_plain_versions_on_the_card(preset, cuda_device):
     torch.cuda.synchronize()
     calls = len(sizes)
     rows = cfg.height <= 32 and cfg.width <= 32
-    kinds = {"wide40": ("wide", "wide"), "huge130": ("deep", "general"),
-             "deep135r3": ("deep", "general")}.get(
+    kinds = {"wide40": ("wide", "wide"), "huge130": ("deep", "deep"),
+             "deep135r3": ("deep", "deep")}.get(
         preset, ("rows", "rows") if preset in PRESETS else ("tall", "tall"))
-    assert (mk.kind, ck.kind) == kinds                 # no deep clear: the mask's alone
+    assert (mk.kind, ck.kind) == kinds
     for k, kind in zip((mk, ck), kinds):
-        assert (k.launches, k.wide_launches, k.tall_launches, getattr(k, "deep_launches", 0),
+        assert (k.launches, k.wide_launches, k.tall_launches, k.deep_launches,
                 k.general_launches) == tuple(
             calls * (kind == v) for v in ("rows", "wide", "tall", "deep", "general"))
     for k in (ak, lk):

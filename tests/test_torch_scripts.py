@@ -647,10 +647,10 @@ COUNTED_ENGINES = {
                     ("mask_tall", "clear_tall")),
     "tall_packed": (dict(), "tall", ("packed_apply_tall", "packed_mask_tall",
                                      "packed_tail")),
-    # a board of 130 rows: the deep u8 mask with the general clear, the
-    # general packed kernels
+    # a board of 130 rows: the deep u8 mask and clear, the general packed
+    # kernels
     "huge_u8_jnp": (dict(backend="jnp", state_impl="u8"), "huge",
-                    ("mask_deep", "clear_general")),
+                    ("mask_deep", "clear_deep")),
     "huge_packed": (dict(), "huge", ("packed_apply_general", "packed_mask_general",
                                      "packed_tail")),
 }

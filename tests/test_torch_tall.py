@@ -45,7 +45,7 @@ from blockpuzzle_tpu_torch.kernels import (
     _build,
 )
 from blockpuzzle_tpu_torch.kernels.packed import (
-    SMEM_OPT_IN, U32, tall_block_warps, tall_launch_shape, tall_smem_bytes,
+    SMEM_OPT_IN, U32, deep_launch_shape, tall_block_warps, tall_launch_shape, tall_smem_bytes,
 )
 from test_torch_kernels import (
     _fshr, _shr_words, emulate_pack_row, emulate_smear_words, emulate_stage_bytes,
@@ -133,6 +133,27 @@ def _rows_above(v, e):
     return np.where(LANE < e, up, here)
 
 
+def _full_fields(band, w, rs):
+    """bit_rows.cuh full_fields on ``band``, a list of NW words a row (any
+    shape): each rs-bit field from column 0 up, read from the funnel-shifted
+    pair of words holding its first column and marked in both where it
+    straddles them.  Returns the marked words and the count of full fields,
+    for every row."""
+    nw = len(band)
+    tile0, c0 = (1 << rs) - 1, 0
+    reg, tiles = [np.zeros_like(a) for a in band], np.zeros_like(band[0])
+    for i in range(nw):
+        while c0 < 32 * (i + 1) and c0 + rs <= w:
+            b = c0 - 32 * i
+            hit = (_fshr(band[i], band[i + 1] if i + 1 < nw else 0, b) & tile0) == tile0
+            reg[i] |= np.where(hit, (tile0 << b) & U32, 0)
+            if i + 1 < nw and b + rs > 32:
+                reg[i + 1] |= np.where(hit, tile0 >> (32 - b), 0)
+            tiles += hit
+            c0 += rs
+    return reg, tiles
+
+
 def emulate_clear_tall(x, active, h, w, rs):
     """bit_rows.cuh clear_tall on ``x``, a list of NW (warps, NR, 32) words
     a row (rows >= H all ones), ``active`` (warps,): full rows by a ballot a
@@ -162,19 +183,9 @@ def emulate_clear_tall(x, active, h, w, rs):
             e[j] -= np.where(e[j] >= rs, rs, 0)
         assert (e == rows % rs).all()
         head = (e == 0) & (rows + rs <= h)
-        tile0, tiles, c0 = (1 << rs) - 1, np.zeros_like(x[0]), 0
-        for i in range(nw):
-            while c0 < 32 * (i + 1) and c0 + rs <= w:
-                b = c0 - 32 * i
-                field = _fshr(band[i], band[i + 1] if i + 1 < nw else 0, b) & tile0
-                hit = head & (field == tile0)
-                reg[i] |= np.where(hit, (tile0 << b) & U32, 0)
-                if i + 1 < nw and b + rs > 32:
-                    reg[i + 1] |= np.where(hit, tile0 >> (32 - b), 0)
-                tiles += hit
-                c0 += rs
-        k = k + tiles.sum(axis=(1, 2))
-        reg = [_rows_above(a, e) for a in reg]
+        fields, tiles = _full_fields(band, w, rs)
+        k = k + np.where(head, tiles, 0).sum(axis=(1, 2))
+        reg = [_rows_above(np.where(head, a, 0), e) for a in fields]
     cleared = [x[i] & ~(np.where(full, colmask[i], 0) | cols[i][:, None, None] | reg[i]) & U32
                for i in range(nw)]
     return cleared, k
@@ -601,6 +612,135 @@ def emulate_clear_tall_kernel(cfg, board, ck, addr=0):
     return out.reshape(n, hw), ks.astype(np.int32)
 
 
+def emulate_clear_deep_kernel(cfg, board, ck, addr=0):
+    """csrc/clear.cu clear_deep_kernel on ``ck``'s launch shape:
+    ``emulate_clear_tall_kernel``'s blocks, turns and staging, each warp
+    walking its env's board in windows of 32 rows (32 - 32 mod rs with
+    regions), lane l packing row w0 + l (lanes from the window's size on and
+    rows past the bottom: the AND's identity).  Pass 1 a window: full rows
+    by a ballot, each band's AND by rs shuffles from its lanes, its fields
+    tested by every row of it (``full_fields``) and its tiles counted by its
+    first row, each row staged with its full row and tiles cleared, the
+    column AND a lane; the warp's AND and k at the end.  Pass 2 clears the
+    full columns from the staged rows, and the block stores them by
+    ``store_tall``.  A warp whose turn has no env left stops."""
+    h, w, hw, n = cfg.height, cfg.width, cfg.num_cells, len(board)
+    nw = -(-w // 32)
+    rs = cfg.region_size if cfg.region_clear else 0
+    win = 32 - 32 % rs if rs else 32
+    tail = w - 32 * (nw - 1)
+    colmask = [U32] * (nw - 1) + [(1 << tail) - 1 if tail < 32 else U32]
+    e = LANE % rs if rs else np.zeros(32, np.int64)
+    per_warp, warps = ck.shape
+    per_block = per_warp * warps
+    out, ks = np.full(n * hw, 2, np.uint8), np.full(n, -1, np.int64)
+    for first in range(0, n, per_block):
+        count = min(per_block, n - first)
+        buf, d = emulate_stage_bytes(board.reshape(-1), first * hw, (first + count) * hw, addr)
+        seg = _turns(per_warp, warps)[:, 0]                     # (E, 1)
+        seg = seg[seg[:, 0] < count]                            # the turns that run
+        staged = np.full(per_block * h * nw, -1, np.int64)
+        cols = [np.full((len(seg), 32), U32) for _ in range(nw)]
+        k, tiles = np.zeros(len(seg), np.int64), np.zeros((len(seg), 32), np.int64)
+        for w0 in range(0, h, win):
+            r = w0 + LANE
+            live = (LANE < win) & (r < h)                       # the lanes holding a row
+            lv = np.broadcast_to(live, (len(seg), 32))
+            start = np.broadcast_to(d + seg * hw + np.minimum(r, h - 1) * w, lv.shape)
+            x = [np.where(lv, emulate_pack_row(buf, start + 32 * i, min(32, w - 32 * i), lv),
+                          U32) for i in range(nw)]
+            full = np.logical_and.reduce([x[i] == colmask[i] for i in range(nw)])
+            k += (lv & full).sum(axis=1)                        # popc(ballot)
+            cols = [c & a for c, a in zip(cols, x)]
+            reg = [np.zeros_like(a) for a in x]
+            if rs:
+                band = [np.full_like(a, U32) for a in x]
+                for t in range(rs):
+                    src = np.where(live, LANE - e + t, LANE)
+                    assert (src[live] < win).all()             # a band inside its window
+                    band = [b & a[:, src] for b, a in zip(band, x)]
+                whole = lv & (r - e + rs <= h)
+                fields, got = _full_fields(band, w, rs)
+                reg = [np.where(whole, a, 0) for a in fields]
+                tiles += np.where(whole & (e == 0), got, 0)
+            for i in range(nw):
+                at_row = np.broadcast_to((seg * h + r) * nw + i, lv.shape)
+                assert (staged[at_row[lv]] == -1).all()         # each row staged once
+                staged[at_row[lv]] = (x[i] & ~(np.where(full, colmask[i], 0) | reg[i])
+                                      & U32)[lv]
+        cols = [np.bitwise_and.reduce(c, axis=1) for c in cols]   # __reduce_and_sync
+        k += sum(_popc(c) for c in cols) + tiles.sum(axis=1)
+        assert (ks[first + seg[:, 0]] == -1).all()               # one lane 0 writes k
+        ks[first + seg[:, 0]] = k
+        for i in range(nw):                                     # pass 2: the columns
+            at_row = (seg * h + np.arange(h)) * nw + i
+            assert (staged[at_row] >= 0).all()
+            staged[at_row] &= ~cols[i][:, None]
+        emulate_store_tall(staged, out, first * hw, count * hw, w, nw)
+    assert (out < 2).all() and (ks >= 0).all()
+    return out.reshape(n, hw), ks.astype(np.int32)
+
+
+def emulate_packed_mask_deep(cfg, words, queue, mk, addr=0):
+    """csrc/packed_tall.cu packed_mask_general_kernel on the 32-bit tables
+    ``PackedMaskKernel`` hands it, a warp an env-slot (every one at once
+    here): lane t holds the columns of piece row t (field t % fpw of
+    footprint word t / fpw) and a ballot gives the piece's rows; per window
+    of 32 anchor rows the warp's 64 board rows (the window's and the next,
+    two a lane, full past the bottom) are in shared memory, and lane l ORs
+    row l + t shifted right by each cell column of piece row t (one shuffle
+    of its columns) into its blocked bits; the window's legal rows are
+    staged beside the previous window's, and every second window (or the
+    last) the warp stores the pair's rows (``store_tall``, 32 threads) from
+    addr + es * HW + (w0 & ~63) * W past the 16-byte boundary at or below
+    the output's address."""
+    h, w, s = cfg.height, cfg.width, cfg.queue_size
+    hw, total = cfg.num_cells, len(words) * cfg.queue_size
+    prow = mk.prow32.numpy().view(np.uint32).astype(np.int64)
+    piece_w = mk.piece_w32.numpy()
+    nwords, fpw = mk.tables.nwords, mk.tables.fpw
+    assert nwords * fpw <= 32                                 # l + t within the 64 rows
+    full = ((1 << w) - 1) & U32
+    pid = queue.reshape(-1)
+    has = (pid >= 0) & (pid < mk.num_pieces)
+    p = np.where(has, pid, 0)
+    pw = np.where(has, piece_w[p], w + 1)[:, None]              # none: no anchor
+    k = _small_div(LANE, fpw)
+    field = (prow[p][:, np.minimum(k, nwords - 1)] >> ((LANE - k * fpw) * w)) & full
+    cells = np.where((pw <= w) & (LANE < nwords * fpw), field, 0)       # lane t: row t
+    ballot = ((cells != 0) << LANE).sum(axis=1)
+    piece_rows = np.array([int(b).bit_length() for b in ballot])[:, None]  # 32 - clz
+    anchors = np.where(pw <= w, _shl32(1, np.maximum(w - pw + 1, 0)) - 1, 0)
+    x64 = words.astype(np.int64)[np.arange(total) // s]        # (N*S, H)
+
+    def rows(r):
+        return np.where(r < h, x64[:, np.minimum(r, h - 1)], full)
+
+    out = np.full(addr + total * hw, 2, np.uint8)              # 2: never written
+    x0, x1 = rows(LANE), rows(32 + LANE)
+    staged = np.full((total, 64), -1, np.int64)
+    for w0 in range(0, h, 32):
+        nxt = rows(w0 + 64 + LANE)
+        board = np.concatenate([x0, x1], axis=1)               # the warp's 64 rows
+        blocked = np.zeros_like(x0)
+        for t in range(int(piece_rows.max())):
+            y = board[:, LANE + t]
+            m = np.where(t < piece_rows, cells[:, t : t + 1], 0)   # __shfl_sync(cells, t)
+            for bit in range(w):                                # each cell column
+                blocked |= np.where((m >> bit) & 1, y >> bit, 0)
+        half = (w0 >> 5) & 1
+        staged[:, 32 * half + LANE] = ~blocked & anchors & U32
+        if half == 1 or w0 + 32 >= h:
+            first = w0 & ~63
+            for es in range(total):
+                emulate_store_tall(staged[es], out, addr + es * hw + first * w,
+                                   min(64, h - first) * w, w, 1)
+            staged[:] = -1
+        x0, x1 = x1, nxt
+    assert (out[addr:] < 2).all() and (out[:addr] == 2).all()
+    return out[addr:].reshape(len(words), s * hw).astype(bool)
+
+
 # ------------------------------------------------------------------ tests ----
 
 
@@ -836,21 +976,28 @@ def test_tall_block_shapes_fit_and_divide_exactly():
 
 
 def test_u8_wrappers_take_the_general_kernels_above_128_rows():
-    """Boards of more than 128 rows take the general u8 clear, apply and
-    legality, and the deep mask (a warp an env-slot over windows of 32
-    rows) where rows hold at most 128 cells; the mask keeps the general
-    kernel on rows of more than 128 cells, and the tall kernels stop at 128
-    rows (rows of more than 128 cells: no launch shape, above).  So the
-    mask's kind is not the clear's there."""
-    for shape, kinds in ((dict(height=130, width=9), ("deep", "general")),
-                         (dict(height=128, width=10), ("tall", "tall"))):
+    """Boards of more than 128 rows take the general u8 apply and
+    legality, and the deep mask and clear (a warp an env-slot or env over
+    windows of 32 rows, on one launch shape) where rows hold at most 128
+    cells; the tall kernels stop at 128 rows.  The mask keeps the general
+    kernel on rows of more than 128 cells, and so does the clear (8x136:
+    rows too wide for any other clear kernel; a deep board one warp cannot
+    stage passes the line tables' 12288 cells and lines, so the clear
+    takes none)."""
+    for shape, kind in ((dict(height=130, width=9), "deep"),
+                        (dict(height=128, width=10), "tall")):
         cfg = tcfg.EnvConfig(**shape)
         mk, ck = MaskKernel(cfg, "cpu"), ClearScanKernel(cfg, "cpu")
-        assert (mk.kind, ck.kind) == kinds
-        assert (mk.name, ck.name) == (f"mask_{kinds[0]}", f"clear_{kinds[1]}")
-        assert (mk.shape is None, ck.shape is None) == (False, kinds[1] == "general")
+        assert (mk.kind, ck.kind) == (kind, kind)
+        assert (mk.name, ck.name) == (f"mask_{kind}", f"clear_{kind}")
+        assert mk.shape is not None and ck.shape == mk.shape
         ak, lk = ApplyKernel(cfg, "cpu"), LegalityKernel(cfg, "cpu")
         assert (ak.name, lk.name) == ("apply_general", "legality_general")
-    # rows of more than 128 cells (the u8 clear takes no board this large)
+    assert all(e in _build.SIGNATURES for e in ("bp_clear_deep", "bp_mask_deep", "bp_clear"))
+    # rows of more than 128 cells: the general kernels
     mk = MaskKernel(tcfg.EnvConfig(height=130, width=129), "cpu")
     assert (mk.kind, mk.name, mk.shape) == ("general", "mask_general", None)
+    ck = ClearScanKernel(tcfg.EnvConfig(height=8, width=136), "cpu")
+    assert (ck.kind, ck.name, ck.shape) == ("general", "clear_general", None)
+    # no deep launch shape where one warp's board does not fit shared memory
+    assert deep_launch_shape(tcfg.EnvConfig(height=1000, width=128)) is None

@@ -270,7 +270,7 @@ def test_validate_env_state_catches_broken_states(state_impl):
 # the bytes of each kernel's call at N = 49152 on the default preset, in MB,
 # as PERF.md's table of bounds records them (the wide and general u8
 # kernels' on their 8x40 board, the tall kernels' on 33x9, the general
-# packed kernels' and the deep mask's on 130x8)
+# packed kernels' and the deep mask's and clear's on 130x8)
 RECORDED_MB = {"mask": 10.03, "apply": 15.04, "clear": 10.03, "legality": 98.3,
                "packed_apply": 10.72, "packed_mask": 9.04, "packed_legal_words": 8.06,
                "mask_wide": 31.65, "clear_wide": 31.65,
@@ -280,14 +280,14 @@ RECORDED_MB = {"mask": 10.03, "apply": 15.04, "clear": 10.03, "legality": 98.3,
                "packed_apply_tall": 28.80, "packed_mask_tall": 27.77,
                "packed_legal_words_tall": 26.15, "packed_apply_general": 105.1,
                "packed_mask_general": 102.4, "packed_legal_words_general": 102.4,
-               "packed_unpack": 8.85, "mask_deep": 102.4}
+               "packed_unpack": 8.85, "mask_deep": 102.4, "clear_deep": 102.4}
 
 
 def kernel_call(name, n):
     """(cfg, inputs, outputs): CPU tensors of the shapes and dtypes of one
     call of kernel ``name`` on ``n`` envs (default preset; the wide and
     general u8 kernels on an 8x40 board, the tall ones on 33x9, the general
-    packed ones and the deep mask on 130x8)."""
+    packed ones and the deep mask and clear on 130x8)."""
     from blockpuzzle_tpu_torch import rules
     from blockpuzzle_tpu_torch.config import EnvConfig
 
