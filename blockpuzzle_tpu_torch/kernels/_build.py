@@ -40,6 +40,9 @@ SIGNATURES = {
     "bp_mask_deep": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "bp_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "bp_apply_rows": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "bp_apply_wide": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "bp_apply_tall": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "bp_apply_deep": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bp_clear": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "bp_clear_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bp_clear_wide": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -59,6 +62,8 @@ SIGNATURES = {
     "bp_packed_mask_general_pick": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "bp_packed_words_tall": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "bp_packed_words_general": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "bp_packed_words_general_pick": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                     _P],
     "bp_packed_tail": [*[_P] * 24, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     "bp_packed_tail_ring": [*[_P] * 24, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
     "bp_packed_tail_parts": [*[_P] * 24, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I,

@@ -13,11 +13,15 @@ sit here together as they do there:
   action is a strict no-op with k = 0, even on a board that already holds
   a full line.
 
-Each has two kernels: a bit-row kernel, for boards of at most 32 rows of at
-most 32 cells (every shipped preset; the legality also wants pieces of at
-most 8 rows and columns), which works on 32-bit row words, and the general
-kernel, which takes any other board.  ``piece_table`` is the per-piece
-footprint table of the general legality and mask kernels,
+Each has a bit-row kernel, for boards of at most 32 rows of at most 32
+cells (every shipped preset; the legality also wants pieces of at most 8
+rows and columns), which works on 32-bit row words, and a general kernel.
+The legality's general kernel takes every other board; the apply's takes
+rows of more than 128 cells, and between those the apply runs on the
+clear's wide, tall and deep kernels (``csrc/clear.cu``, their apply
+instances: rows of up to four words, a warp a board of up to 128 rows, a
+warp walking a taller board in windows of 32 rows).  ``piece_table`` is the
+per-piece footprint table of the general legality and mask kernels,
 ``legality_rows_table`` the bit-row legality's.
 """
 
@@ -33,7 +37,7 @@ from blockpuzzle_tpu_torch.config import EnvConfig
 from blockpuzzle_tpu_torch.kernels import _build
 from blockpuzzle_tpu_torch.kernels.clear import LineTables, clear_plain
 from blockpuzzle_tpu_torch.kernels.packed import (
-    MAX_PIECE, MAX_ROWS, row_launch_shape, segments_per_warp,
+    MAX_PIECE, MAX_ROWS, SUFFIX, apply_launch_shape, count_launch, segments_per_warp, u8_kind,
 )
 
 # the bit-row legality's block and the words of one row of its shape table,
@@ -262,29 +266,37 @@ class ApplyKernel:
 
     ``__call__(board (N, HW) u8, cover (N, HW) u8, valid (N,) bool)``.  For
     CPU tensors it runs ``apply_plain``; for CUDA tensors it launches a
-    kernel or raises.  The kernel is picked here, by shape: the bit-row
-    kernel where H <= 32 and W <= 32 (``shape`` is its launch shape;
-    ``launches`` counts its launches), else the general kernel (``shape``
-    is None; ``general_launches`` counts them).  ``name`` is the picked
-    kernel's.
+    kernel or raises.  The kernel is picked here, by shape (``kind``, as
+    ``ClearScanKernel``'s): the bit-row kernel where H <= 32 and W <= 32
+    (``launches`` counts its launches), the wide kernel where H <= 32 and
+    32 < W <= 128 (``wide_launches``), the tall kernel where 32 < H <= 128
+    and W <= 128 (``tall_launches``), the deep kernel where H > 128 and
+    W <= 128 (``deep_launches``); ``shape`` is the launch shape of any of
+    them (``apply_launch_shape``: the clear's, with fewer turns or warps
+    where a block's two staged spans would not fit).  Else the general
+    kernel (``shape`` is None; ``general_launches``): rows of more than 128
+    cells, or a deep board one warp cannot stage (``LineTables`` takes no
+    such board).  ``name`` is the picked kernel's.
 
-    The bit-row kernel takes boards and covers whose cells are 0 or 1: the
-    engine's boards (``env/state.py``) and its footprints
-    (``rules.tables_for(cfg).cover``, ``VecBlockPuzzle._cover_cells``).  It
-    finds an overlap where a board cell and a cover cell are both nonzero,
-    a line full when every placed cell is nonzero, and writes 0/1 cells.
-    On such inputs that is ``apply_plain``'s ``board & cover``, byte sums
-    and output.  (With a cover byte of 2 over a board byte of 1, ``board &
-    cover`` is 0 and the bit-row test an overlap.)
+    The bit-row, wide, tall and deep kernels take boards and covers whose
+    cells are 0 or 1: the engine's boards (``env/state.py``) and its
+    footprints (``rules.tables_for(cfg).cover``,
+    ``VecBlockPuzzle._cover_cells``).  They find an overlap where a board
+    cell and a cover cell are both nonzero, a line full when every placed
+    cell is nonzero, and write 0/1 cells.  On such inputs that is
+    ``apply_plain``'s ``board & cover``, byte sums and output.  (With a
+    cover byte of 2 over a board byte of 1, ``board & cover`` is 0 and their
+    test an overlap.)
     """
 
     def __init__(self, cfg: EnvConfig, device="cuda"):
         self.cfg = cfg
         self.device = _build.resolve_device(device)
-        self.launches = 0
-        self.general_launches = 0
-        self.shape = row_launch_shape(cfg)
-        self.name = "apply" if self.shape is not None else "apply_general"
+        self.launches = self.wide_launches = self.tall_launches = 0
+        self.deep_launches = self.general_launches = 0
+        self.shape = apply_launch_shape(cfg)
+        self.kind = u8_kind(cfg, self.shape)
+        self.name = "apply" + SUFFIX[self.kind]
         self.lines = LineTables(cfg, self.device)
 
     def plain(self, board, cover, valid):
@@ -330,10 +342,10 @@ class ApplyKernel:
                     stream,
                 )
             else:
-                if new_board.data_ptr() % 16:  # the kernel stores 16-byte vectors
+                if new_board.data_ptr() % 16:  # the kernels store 16-byte vectors
                     raise RuntimeError("apply output is not 16-byte aligned")
-                name = "bp_apply_rows"
-                err = lib.bp_apply_rows(
+                name = "bp_apply_rows" if self.kind == "rows" else "bp_" + self.name
+                err = getattr(lib, name)(
                     board.data_ptr(), cover.data_ptr(), valid.data_ptr(),
                     new_board.data_ptr(), k.data_ptr(), legal.data_ptr(), n,
                     cfg.height, cfg.width,
@@ -341,8 +353,5 @@ class ApplyKernel:
                     stream,
                 )
         _build.check(err, name)
-        if self.shape is None:
-            self.general_launches += 1
-        else:
-            self.launches += 1
+        count_launch(self)
         return new_board, k, legal

@@ -111,6 +111,15 @@ __device__ __forceinline__ uint32_t pack_row(const uint8_t* span, int start, int
   return width < 32 ? x & ((1u << width) - 1u) : x;
 }
 
+// The row at byte `start` of `span` as NW words, 32 (NW - 1) < W <= 32 NW
+// (NW = 1: W <= 32): word i packs the min(32, W - 32 i) cells from 32 i on.
+template <int NW>
+__device__ __forceinline__ void pack_words(const uint8_t* span, int start, int width,
+                                           uint32_t (&x)[NW]) {
+#pragma unroll
+  for (int i = 0; i < NW; ++i) x[i] = pack_row(span, start + 32 * i, min(32, width - 32 * i));
+}
+
 // Writes `bytes` 0/1 bytes to `o` (16-byte aligned): byte q is bit q % W of
 // rows[q / W], and no row word holds a bit >= W.  Each thread assembles 16
 // consecutive bits from the (at most three) rows they fall in, spreads each

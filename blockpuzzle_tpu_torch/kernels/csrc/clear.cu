@@ -12,7 +12,11 @@
 // memory a block may opt in to; and the general kernel (`clear_kernel`,
 // entry `bp_clear`) for what is left: rows of more than 128 cells, or a
 // deep board too large for one warp.  The wrapper (kernels/clear.py) picks
-// one by shape.
+// one by shape.  The wide, tall and deep kernels are also the apply (K2,
+// the TPU kernel `_apply_kernel`, blockpuzzle_tpu/kernels/collision.py:120)
+// on those boards: a second instance of each (`kApply`, entries
+// `bp_apply_wide`, `bp_apply_tall`, `bp_apply_deep`; the wrapper
+// kernels/collision.py `ApplyKernel`), described above the kernels.
 //
 // What both compute, per env: every full row, column and region of the
 // board is found, then all of them are cleared at once, and k is their
@@ -101,6 +105,20 @@
 // line's cells through the global table (138 lines, the 8 columns of 130
 // cells, on 130x8), two dependent loads a cell, byte loads and stores.
 //
+// The apply instances take the same 0/1 boards and 0/1 covers.  Bound on
+// the H100: device memory; per env they read HW board bytes, HW cover
+// bytes and a valid byte and write HW board bytes, a 4-byte k and a legal
+// byte, 3 HW + 6 bytes: 47.5 MB on 8x40, 44.1 MB on 33x9 and 153.6 MB on
+// 130x8 at N = 49152 (14.2, 13.2 and 45.9 us at 3.35 TB/s).  Their block
+// holds its output rows and two staged spans, so its launch shape is its
+// own (kernels/packed.py `apply_launch_shape`: the clear's where both spans
+// fit, fewer turns or warps where not).  Each lane packs a cover word beside
+// each board word; the deep instance's first pass stages the placed rows
+// and its pass 1 reads them back instead of packing.  They answer what
+// bounded the general apply on such boards: the clear's line walk through
+// the global table (a lane a line, two dependent loads a cell) after byte
+// loads of both boards and before a byte store.
+//
 // The general kernel: one warp per env, four envs per block, any N (a warp
 // past the last env exits as a whole, before any warp collective).  Lanes
 // stride the HW cells, so the load and the store are coalesced; the board
@@ -151,80 +169,103 @@ __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
   bit_rows::store_rows(rows, board_out + lo, count * hw, width);
 }
 
-template <int NW>
+// The wide, tall and deep kernels have two instances each: the clear
+// (kApply false: `cover`, `valid` and `legal_out` unused) and the apply
+// (kApply true), whose block stages its envs' cover span beside their
+// board span, each at its own offset from a 16-byte boundary, places each
+// row's cover word on its board word and runs the same clear on the placed
+// rows.  The apply's env is legal when `valid` is set and no word of it
+// overlaps: one ballot over its lanes (wide: the segment; tall: every
+// slot; deep: a first pass over its rows that stages the placed rows, so
+// that legality is known before pass 1).  A legal env keeps the cleared
+// rows and k, an illegal one its input rows and k = 0: a strict no-op, even
+// over a board holding a full line.  The wide instance keeps each lane's
+// input words beside the placed ones (the segments of a warp differ in
+// legality, and every lane runs the clear); in the tall and deep instances,
+// whose warp holds one env at a time, an illegal env's warp skips the clear
+// (the deep one packs its input rows again: its first pass staged the
+// placed ones).
+template <int NW, bool kApply>
 __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
-    clear_wide_kernel(const uint8_t* __restrict__ board,
-                      uint8_t* __restrict__ board_out,
-                      int32_t* __restrict__ k_out, int n, int height,
-                      int width, int region_size, int per_warp) {
+    clear_wide_kernel(const uint8_t* __restrict__ board, const uint8_t* __restrict__ cover,
+                      const uint8_t* __restrict__ valid, uint8_t* __restrict__ board_out,
+                      int32_t* __restrict__ k_out, uint8_t* __restrict__ legal_out, int n,
+                      int height, int width, int region_size, int per_warp) {
   extern __shared__ __align__(16) uint8_t rows_smem[];
   const int per_block = blockDim.x / 32 * per_warp;
-  uint32_t* rows = reinterpret_cast<uint32_t*>(rows_smem);  // E*H cleared rows of NW words
-  uint8_t* span = bit_rows::staged_span(rows_smem, per_block * height * NW);
   const int hw = height * width;
+  uint32_t* rows = reinterpret_cast<uint32_t*>(rows_smem);  // E*H output rows of NW words
+  uint8_t* span = bit_rows::staged_span(rows_smem, per_block * height * NW);
+  uint8_t* covers = span + bit_rows::span_stride(static_cast<long long>(per_block) * hw);
   const int first = blockIdx.x * per_block;          // first env
   const int count = min(per_block, n - first);       // envs here
   const long long lo = static_cast<long long>(first) * hw;
-  const int d = bit_rows::stage_bytes(board, lo, lo + static_cast<long long>(count) * hw, span);
+  const long long hi = lo + static_cast<long long>(count) * hw;
+  const int d = bit_rows::stage_bytes(board, lo, hi, span);
+  const int dc = kApply ? bit_rows::stage_bytes(cover, lo, hi, covers) : 0;
 
   const bit_rows::Seat t = bit_rows::seat(height, per_warp);
   const bool active = t.s < per_warp && t.seg < count;
+  const bool ok = !kApply || (active && valid[first + t.seg] != 0);
+  const int at = t.seg * hw + t.lane * width;        // the row's first byte in a span
   __syncthreads();
-  uint32_t x[NW];  // no env: the identity of the AND
+  uint32_t x[NW];  // the input row; no env: the identity of the AND
 #pragma unroll
   for (int i = 0; i < NW; ++i) x[i] = kAll;
-  if (active) {
-    const int at = d + t.seg * hw + t.lane * width;
+  if (active) bit_rows::pack_words<NW>(span, d + at, width, x);
+  uint32_t p[NW];  // the row the clear takes: the input, or the apply's placed row
 #pragma unroll
-    for (int i = 0; i + 1 < NW; ++i) x[i] = bit_rows::pack_row(span, at + 32 * i, 32);
-    x[NW - 1] = bit_rows::pack_row(span, at + 32 * (NW - 1), width - 32 * (NW - 1));
+  for (int i = 0; i < NW; ++i) p[i] = x[i];
+  bool legal = true;
+  if constexpr (kApply) {  // the placed row x | y
+    uint32_t y[NW];
+#pragma unroll
+    for (int i = 0; i < NW; ++i) y[i] = 0;
+    if (active) bit_rows::pack_words<NW>(covers, dc + at, width, y);
+    bool hit = false;
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+      hit |= (x[i] & y[i]) != 0;
+      p[i] |= y[i];
+    }
+    const unsigned overlap = __ballot_sync(kAll, hit) & t.mask;  // every lane votes
+    legal = ok && overlap == 0;                      // uniform over the segment
   }
   int k;
-  bit_rows::clear_words<NW>(x, active, t, height, width, region_size, k);
+  bit_rows::clear_words<NW>(p, active, t, height, width, region_size, k);
   if (active) {
 #pragma unroll
-    for (int i = 0; i < NW; ++i) rows[(t.seg * height + t.lane) * NW + i] = x[i];
-    if (t.lane == 0) k_out[first + t.seg] = k;
+    for (int i = 0; i < NW; ++i) {  // an illegal env keeps its input
+      rows[(t.seg * height + t.lane) * NW + i] = legal ? p[i] : x[i];
+    }
+    if (t.lane == 0) {
+      k_out[first + t.seg] = legal ? k : 0;
+      if constexpr (kApply) legal_out[first + t.seg] = legal;
+    }
   }
   __syncthreads();
   bit_rows::store_words<NW>(rows, board_out + lo, count * hw, width);
 }
 
-template <int NW>
-int launch_clear_wide(const void* board, void* board_out, void* k_out, int n, int height,
-                      int width, int region_size, int per_warp, int warps,
-                      cudaStream_t stream) {
-  const int per_block = warps * per_warp;
-  const int blocks = (n + per_block - 1) / per_block;
-  const int smem = bit_rows::smem_bytes(per_block * height * NW,
-                                        static_cast<long long>(per_block) * height * width);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        clear_wide_kernel<NW>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  clear_wide_kernel<NW><<<blocks, warps * 32, smem, stream>>>(
-      static_cast<const uint8_t*>(board), static_cast<uint8_t*>(board_out),
-      static_cast<int32_t*>(k_out), n, height, width, region_size, per_warp);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int NR, int NW>
+template <int NR, int NW, bool kApply>
 __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
-    clear_tall_kernel(const uint8_t* __restrict__ board,
-                      uint8_t* __restrict__ board_out,
-                      int32_t* __restrict__ k_out, int n, int height,
-                      int width, int region_size, int per_warp) {
+    clear_tall_kernel(const uint8_t* __restrict__ board, const uint8_t* __restrict__ cover,
+                      const uint8_t* __restrict__ valid, uint8_t* __restrict__ board_out,
+                      int32_t* __restrict__ k_out, uint8_t* __restrict__ legal_out, int n,
+                      int height, int width, int region_size, int per_warp) {
   extern __shared__ __align__(16) uint8_t rows_smem[];
   const int warps = blockDim.x / 32;
   const int per_block = warps * per_warp;            // envs: per_warp a warp
-  uint32_t* rows = reinterpret_cast<uint32_t*>(rows_smem);  // E*H cleared rows of NW words
-  uint8_t* span = bit_rows::staged_span(rows_smem, per_block * height * NW);
   const int hw = height * width;
+  uint32_t* rows = reinterpret_cast<uint32_t*>(rows_smem);  // E*H output rows of NW words
+  uint8_t* span = bit_rows::staged_span(rows_smem, per_block * height * NW);
+  uint8_t* covers = span + bit_rows::span_stride(static_cast<long long>(per_block) * hw);
   const int first = blockIdx.x * per_block;          // first env
   const int count = min(per_block, n - first);       // envs here
   const long long lo = static_cast<long long>(first) * hw;
-  const int d = bit_rows::stage_bytes(board, lo, lo + static_cast<long long>(count) * hw, span);
+  const long long hi = lo + static_cast<long long>(count) * hw;
+  const int d = bit_rows::stage_bytes(board, lo, hi, span);
+  const int dc = kApply ? bit_rows::stage_bytes(cover, lo, hi, covers) : 0;
 
   const int l = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
@@ -233,19 +274,39 @@ __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
     const int seg = it * warps + warp;               // env in the block
     const bool active = seg < count;
     uint32_t x[NR][NW];  // slot j: row l + 32 j; no row: the identity of the AND
+    uint32_t y[NR][NW];  // the apply's cover words
+    bool hit = false;    // a cover word meets a board word
 #pragma unroll
     for (int j = 0; j < NR; ++j) {
       const int r = l + 32 * j;
+      const bool in = active && r < height;
 #pragma unroll
       for (int i = 0; i < NW; ++i) {
-        x[j][i] = active && r < height
-                      ? bit_rows::pack_row(span, d + seg * hw + r * width + 32 * i,
-                                           min(32, width - 32 * i))
-                      : kAll;
+        const int at = seg * hw + r * width + 32 * i;
+        const int cells = min(32, width - 32 * i);
+        x[j][i] = in ? bit_rows::pack_row(span, d + at, cells) : kAll;
+        if constexpr (kApply) {
+          y[j][i] = in ? bit_rows::pack_row(covers, dc + at, cells) : 0u;
+          hit |= (x[j][i] & y[j][i]) != 0;
+        }
       }
     }
-    int k;
-    bit_rows::clear_tall<NR, NW>(x, active, height, width, region_size, k);
+    bool legal = true;
+    if constexpr (kApply) {  // uniform over the warp
+      const bool overlap = __any_sync(kAll, hit);
+      legal = active && !overlap && valid[first + seg] != 0;
+    }
+    int k = 0;
+    if (legal) {  // the whole warp; an illegal env keeps its input rows, k = 0
+      if constexpr (kApply) {
+#pragma unroll
+        for (int j = 0; j < NR; ++j) {
+#pragma unroll
+          for (int i = 0; i < NW; ++i) x[j][i] |= y[j][i];
+        }
+      }
+      bit_rows::clear_tall<NR, NW>(x, active, height, width, region_size, k);
+    }
     if (active) {
 #pragma unroll
       for (int j = 0; j < NR; ++j) {
@@ -255,68 +316,35 @@ __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
           for (int i = 0; i < NW; ++i) rows[(seg * height + r) * NW + i] = x[j][i];
         }
       }
-      if (l == 0) k_out[first + seg] = k;
+      if (l == 0) {
+        k_out[first + seg] = k;
+        if constexpr (kApply) legal_out[first + seg] = legal;
+      }
     }
   }
   __syncthreads();
   bit_rows::store_tall<NW>(rows, board_out, lo, count * hw, width);
 }
 
-template <int NR, int NW>
-int launch_clear_tall(const void* board, void* board_out, void* k_out, int n, int height,
-                      int width, int region_size, int per_warp, int warps,
-                      cudaStream_t stream) {
-  const int per_block = warps * per_warp;
-  const int blocks = (n + per_block - 1) / per_block;
-  const int smem = bit_rows::smem_bytes(per_block * height * NW,
-                                        static_cast<long long>(per_block) * height * width);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        clear_tall_kernel<NR, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  clear_tall_kernel<NR, NW><<<blocks, warps * 32, smem, stream>>>(
-      static_cast<const uint8_t*>(board), static_cast<uint8_t*>(board_out),
-      static_cast<int32_t*>(k_out), n, height, width, region_size, per_warp);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int NR>
-int launch_clear_tall_rows(const void* board, void* board_out, void* k_out, int n,
-                           int height, int width, int region_size, int per_warp,
-                           int warps, cudaStream_t stream) {
-  switch ((width + 31) / 32) {
-    case 1:
-      return launch_clear_tall<NR, 1>(board, board_out, k_out, n, height, width, region_size,
-                                      per_warp, warps, stream);
-    case 2:
-      return launch_clear_tall<NR, 2>(board, board_out, k_out, n, height, width, region_size,
-                                      per_warp, warps, stream);
-    case 3:
-      return launch_clear_tall<NR, 3>(board, board_out, k_out, n, height, width, region_size,
-                                      per_warp, warps, stream);
-    default:
-      return launch_clear_tall<NR, 4>(board, board_out, k_out, n, height, width, region_size,
-                                      per_warp, warps, stream);
-  }
-}
-
-template <int NW>
+template <int NW, bool kApply>
 __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
-    clear_deep_kernel(const uint8_t* __restrict__ board,
-                      uint8_t* __restrict__ board_out,
-                      int32_t* __restrict__ k_out, int n, int height,
-                      int width, int region_size, int per_warp) {
+    clear_deep_kernel(const uint8_t* __restrict__ board, const uint8_t* __restrict__ cover,
+                      const uint8_t* __restrict__ valid, uint8_t* __restrict__ board_out,
+                      int32_t* __restrict__ k_out, uint8_t* __restrict__ legal_out, int n,
+                      int height, int width, int region_size, int per_warp) {
   extern __shared__ __align__(16) uint8_t rows_smem[];
   const int warps = blockDim.x / 32;
   const int per_block = warps * per_warp;            // envs: per_warp a warp
-  uint32_t* rows = reinterpret_cast<uint32_t*>(rows_smem);  // E*H cleared rows of NW words
-  uint8_t* span = bit_rows::staged_span(rows_smem, per_block * height * NW);
   const int hw = height * width;
+  uint32_t* rows = reinterpret_cast<uint32_t*>(rows_smem);  // E*H output rows of NW words
+  uint8_t* span = bit_rows::staged_span(rows_smem, per_block * height * NW);
+  uint8_t* covers = span + bit_rows::span_stride(static_cast<long long>(per_block) * hw);
   const int first = blockIdx.x * per_block;          // first env
   const int count = min(per_block, n - first);       // envs here
   const long long lo = static_cast<long long>(first) * hw;
-  const int d = bit_rows::stage_bytes(board, lo, lo + static_cast<long long>(count) * hw, span);
+  const long long hi = lo + static_cast<long long>(count) * hw;
+  const int d = bit_rows::stage_bytes(board, lo, hi, span);
+  const int dc = kApply ? bit_rows::stage_bytes(cover, lo, hi, covers) : 0;
 
   const int l = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
@@ -331,6 +359,35 @@ __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
     if (seg >= count) break;                         // the whole warp
     const int at = d + seg * hw;                     // the board's first byte in the span
     uint32_t* cleared = rows + seg * height * NW;
+    if constexpr (kApply) {
+      // pass 0: the placed rows x | y staged, a row a lane; the overlap
+      bool hit = false;
+      for (int r = l; r < height; r += 32) {
+        uint32_t x[NW], y[NW];
+        bit_rows::pack_words<NW>(span, at + r * width, width, x);
+        bit_rows::pack_words<NW>(covers, dc + seg * hw + r * width, width, y);
+#pragma unroll
+        for (int i = 0; i < NW; ++i) {
+          hit |= (x[i] & y[i]) != 0;
+          cleared[r * NW + i] = x[i] | y[i];
+        }
+      }
+      const bool overlap = __any_sync(kAll, hit);   // uniform over the warp
+      if (overlap || valid[first + seg] == 0) {     // a strict no-op: the input again
+        for (int r = l; r < height; r += 32) {
+          uint32_t x[NW];
+          bit_rows::pack_words<NW>(span, at + r * width, width, x);
+#pragma unroll
+          for (int i = 0; i < NW; ++i) cleared[r * NW + i] = x[i];
+        }
+        if (l == 0) {
+          k_out[first + seg] = 0;
+          legal_out[first + seg] = false;
+        }
+        continue;
+      }
+      __syncwarp();  // pass 1 reads rows that other lanes staged
+    }
     // pass 1: full rows, bands and their tiles a window, each row staged
     // with them cleared; the column AND a lane
     uint32_t cols[NW];
@@ -344,8 +401,10 @@ __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
       bool full = true;
 #pragma unroll
       for (int i = 0; i < NW; ++i) {
-        x[i] = in ? bit_rows::pack_row(span, at + r * width + 32 * i, min(32, width - 32 * i))
-                  : kAll;
+        x[i] = !in     ? kAll
+               : kApply ? cleared[r * NW + i]
+                        : bit_rows::pack_row(span, at + r * width + 32 * i,
+                                             min(32, width - 32 * i));
         full &= x[i] == (i + 1 < NW ? kAll : top);
         cols[i] &= x[i];
       }
@@ -380,7 +439,10 @@ __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
       k += __popc(cols[i]);
     }
     k += __reduce_add_sync(kAll, tiles);
-    if (l == 0) k_out[first + seg] = k;
+    if (l == 0) {
+      k_out[first + seg] = k;
+      if constexpr (kApply) legal_out[first + seg] = true;
+    }
     // pass 2: the full columns, cleared from the staged rows
     __syncwarp();
     for (int r = l; r < height; r += 32) {
@@ -392,28 +454,113 @@ __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
   bit_rows::store_tall<NW>(rows, board_out, lo, count * hw, width);
 }
 
-// The deep kernel's launch: a block of `warps` warps taking `per_warp`
-// envs each, its boards staged whole; refused where its shared memory
-// passes what a block may opt in to.
-template <int NW>
-int launch_clear_deep(const void* board, void* board_out, void* k_out, int n, int height,
-                      int width, int region_size, int per_warp, int warps,
-                      cudaStream_t stream) {
-  const int per_block = warps * per_warp;
-  const int blocks = (n + per_block - 1) / per_block;
-  const long long smem = (4LL * per_block * height * NW + 15) / 16 * 16 +
-                         static_cast<long long>(per_block) * height * width + 32;
+// A launch of the wide, tall and deep kernels: the clear's arguments and
+// the apply's cover, valid and legal_out (null for the clear), a block of
+// `warps` warps taking `per_warp` envs each.
+struct Io {
+  const void* board;
+  const void* cover;
+  const void* valid;
+  void* board_out;
+  void* k_out;
+  void* legal_out;
+  int n, height, width, region_size, per_warp, warps;
+  cudaStream_t stream;
+};
+
+using Kernel = void (*)(const uint8_t*, const uint8_t*, const uint8_t*, uint8_t*, int32_t*,
+                        uint8_t*, int, int, int, int, int);
+
+// `kernel`'s launch on `io`, its rows of NW words: the block's shared
+// memory holds its output rows, then its staged board span and, for the
+// apply, its cover span (`bit_rows::smem_bytes`); refused where that passes
+// what a block may opt in to, opted in to above 48 KB.
+template <int NW, bool kApply>
+int launch(Kernel kernel, const Io& io) {
+  const int per_block = io.warps * io.per_warp;
+  const long long span = static_cast<long long>(per_block) * io.height * io.width;
+  const long long smem = (4LL * per_block * io.height * NW + 15) / 16 * 16 +
+                         (kApply ? (span + 32 + 15) / 16 * 16 : 0) + span + 32;
   if (smem > kSmemOptIn) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        clear_deep_kernel<NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  clear_deep_kernel<NW><<<blocks, warps * 32, static_cast<int>(smem), stream>>>(
-      static_cast<const uint8_t*>(board), static_cast<uint8_t*>(board_out),
-      static_cast<int32_t*>(k_out), n, height, width, region_size, per_warp);
+  kernel<<<(io.n + per_block - 1) / per_block, io.warps * 32, static_cast<int>(smem),
+           io.stream>>>(
+      static_cast<const uint8_t*>(io.board), static_cast<const uint8_t*>(io.cover),
+      static_cast<const uint8_t*>(io.valid), static_cast<uint8_t*>(io.board_out),
+      static_cast<int32_t*>(io.k_out), static_cast<uint8_t*>(io.legal_out), io.n, io.height,
+      io.width, io.region_size, io.per_warp);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kApply>
+int run_wide(const Io& io) {
+  switch ((io.width + 31) / 32) {
+    case 2: return launch<2, kApply>(clear_wide_kernel<2, kApply>, io);
+    case 3: return launch<3, kApply>(clear_wide_kernel<3, kApply>, io);
+    default: return launch<4, kApply>(clear_wide_kernel<4, kApply>, io);
+  }
+}
+
+template <int NR, bool kApply>
+int run_tall_rows(const Io& io) {
+  switch ((io.width + 31) / 32) {
+    case 1: return launch<1, kApply>(clear_tall_kernel<NR, 1, kApply>, io);
+    case 2: return launch<2, kApply>(clear_tall_kernel<NR, 2, kApply>, io);
+    case 3: return launch<3, kApply>(clear_tall_kernel<NR, 3, kApply>, io);
+    default: return launch<4, kApply>(clear_tall_kernel<NR, 4, kApply>, io);
+  }
+}
+
+template <bool kApply>
+int run_tall(const Io& io) {
+  switch ((io.height + 31) / 32) {
+    case 2: return run_tall_rows<2, kApply>(io);
+    case 3: return run_tall_rows<3, kApply>(io);
+    default: return run_tall_rows<4, kApply>(io);
+  }
+}
+
+template <bool kApply>
+int run_deep(const Io& io) {
+  switch ((io.width + 31) / 32) {
+    case 1: return launch<1, kApply>(clear_deep_kernel<1, kApply>, io);
+    case 2: return launch<2, kApply>(clear_deep_kernel<2, kApply>, io);
+    case 3: return launch<3, kApply>(clear_deep_kernel<3, kApply>, io);
+    default: return launch<4, kApply>(clear_deep_kernel<4, kApply>, io);
+  }
+}
+
+bool region_ok(const Io& io) { return io.region_size >= 0 && io.region_size <= 32; }
+
+bool aligned(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// H <= 32 and 32 < W <= 128: per_warp = 32 / H, warps such that the block's
+// output, warps * per_warp * H * W bytes, is a multiple of 16
+int wide(const Io& io, bool apply) {
+  if (io.height < 1 || io.height > 32 || io.per_warp != 32 / io.height || io.width <= 32 ||
+      io.width > 128 || !region_ok(io) || io.warps < 1 || io.warps > bit_rows::kMaxWarps ||
+      (io.warps * io.per_warp * io.height * io.width) % 16 != 0 || !aligned(io.board_out)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (io.n <= 0) return static_cast<int>(cudaGetLastError());
+  return apply ? run_wide<true>(io) : run_wide<false>(io);
+}
+
+// 32 < H <= 128 (tall) or H > 128 (deep), W <= 128: per_warp 1 to 4,
+// warps 1 to 16
+int tall(const Io& io, bool apply, bool deep) {
+  if (io.height <= 32 || (io.height > 128) != deep || io.width < 1 || io.width > 128 ||
+      !region_ok(io) || io.warps < 1 || io.warps > bit_rows::kMaxWarps || io.per_warp < 1 ||
+      io.per_warp > 4 || !aligned(io.board_out)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (io.n <= 0) return static_cast<int>(cudaGetLastError());
+  if (deep) return apply ? run_deep<true>(io) : run_deep<false>(io);
+  return apply ? run_tall<true>(io) : run_tall<false>(io);
 }
 
 __global__ void clear_kernel(const uint8_t* __restrict__ board,
@@ -470,25 +617,8 @@ extern "C" int bp_clear_rows(const void* board, void* board_out, void* k_out,
 extern "C" int bp_clear_wide(const void* board, void* board_out, void* k_out,
                              int n, int height, int width, int region_size,
                              int per_warp, int warps, void* stream) {
-  if (height < 1 || height > 32 || per_warp != 32 / height || width <= 32 ||
-      width > 128 || region_size < 0 || region_size > 32 || warps < 1 ||
-      warps > bit_rows::kMaxWarps || (warps * per_warp * height * width) % 16 != 0 ||
-      (reinterpret_cast<uintptr_t>(board_out) & 15) != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  const auto st = static_cast<cudaStream_t>(stream);
-  switch ((width + 31) / 32) {
-    case 2:
-      return launch_clear_wide<2>(board, board_out, k_out, n, height, width, region_size,
-                                  per_warp, warps, st);
-    case 3:
-      return launch_clear_wide<3>(board, board_out, k_out, n, height, width, region_size,
-                                  per_warp, warps, st);
-    default:
-      return launch_clear_wide<4>(board, board_out, k_out, n, height, width, region_size,
-                                  per_warp, warps, st);
-  }
+  return wide({board, nullptr, nullptr, board_out, k_out, nullptr, n, height, width,
+               region_size, per_warp, warps, static_cast<cudaStream_t>(stream)}, false);
 }
 
 // As bp_clear_rows, for 32 < H <= 128 and W <= 128: one env a warp at a
@@ -499,25 +629,9 @@ extern "C" int bp_clear_wide(const void* board, void* board_out, void* k_out,
 extern "C" int bp_clear_tall(const void* board, void* board_out, void* k_out,
                              int n, int height, int width, int region_size,
                              int per_warp, int warps, void* stream) {
-  if (height <= 32 || height > 128 || width < 1 || width > 128 || region_size < 0 ||
-      region_size > 32 || warps < 1 || warps > bit_rows::kMaxWarps || per_warp < 1 ||
-      per_warp > 4 ||
-      (reinterpret_cast<uintptr_t>(board_out) & 15) != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  const auto st = static_cast<cudaStream_t>(stream);
-  switch ((height + 31) / 32) {
-    case 2:
-      return launch_clear_tall_rows<2>(board, board_out, k_out, n, height, width,
-                                       region_size, per_warp, warps, st);
-    case 3:
-      return launch_clear_tall_rows<3>(board, board_out, k_out, n, height, width,
-                                       region_size, per_warp, warps, st);
-    default:
-      return launch_clear_tall_rows<4>(board, board_out, k_out, n, height, width,
-                                       region_size, per_warp, warps, st);
-  }
+  return tall({board, nullptr, nullptr, board_out, k_out, nullptr, n, height, width,
+               region_size, per_warp, warps, static_cast<cudaStream_t>(stream)}, false,
+              false);
 }
 
 // As bp_clear_tall, for H > 128 and W <= 128: one env a warp at a time,
@@ -529,27 +643,42 @@ extern "C" int bp_clear_tall(const void* board, void* board_out, void* k_out,
 extern "C" int bp_clear_deep(const void* board, void* board_out, void* k_out,
                              int n, int height, int width, int region_size,
                              int per_warp, int warps, void* stream) {
-  if (height <= 128 || width < 1 || width > 128 || region_size < 0 || region_size > 32 ||
-      warps < 1 || warps > bit_rows::kMaxWarps || per_warp < 1 || per_warp > 4 ||
-      (reinterpret_cast<uintptr_t>(board_out) & 15) != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  const auto st = static_cast<cudaStream_t>(stream);
-  switch ((width + 31) / 32) {
-    case 1:
-      return launch_clear_deep<1>(board, board_out, k_out, n, height, width, region_size,
-                                  per_warp, warps, st);
-    case 2:
-      return launch_clear_deep<2>(board, board_out, k_out, n, height, width, region_size,
-                                  per_warp, warps, st);
-    case 3:
-      return launch_clear_deep<3>(board, board_out, k_out, n, height, width, region_size,
-                                  per_warp, warps, st);
-    default:
-      return launch_clear_deep<4>(board, board_out, k_out, n, height, width, region_size,
-                                  per_warp, warps, st);
-  }
+  return tall({board, nullptr, nullptr, board_out, k_out, nullptr, n, height, width,
+               region_size, per_warp, warps, static_cast<cudaStream_t>(stream)}, false,
+              true);
+}
+
+// The apply (K2) on the clear's kernels: bp_apply_rows's arguments and
+// launch shape rules, for the boards bp_clear_wide, bp_clear_tall and
+// bp_clear_deep take.  board, cover (N, HW) u8 of 0/1 cells, each at any
+// address; valid (N,) bool; outputs board_out (N, HW) u8 (16-byte
+// aligned), k (N,) i32, legal (N,) bool.  Each is refused where its block's
+// shared memory (output rows and two staged spans) passes what a block may
+// opt in to.
+extern "C" int bp_apply_wide(const void* board, const void* cover, const void* valid,
+                             void* board_out, void* k_out, void* legal_out, int n,
+                             int height, int width, int region_size, int per_warp,
+                             int warps, void* stream) {
+  return wide({board, cover, valid, board_out, k_out, legal_out, n, height, width,
+               region_size, per_warp, warps, static_cast<cudaStream_t>(stream)}, true);
+}
+
+extern "C" int bp_apply_tall(const void* board, const void* cover, const void* valid,
+                             void* board_out, void* k_out, void* legal_out, int n,
+                             int height, int width, int region_size, int per_warp,
+                             int warps, void* stream) {
+  return tall({board, cover, valid, board_out, k_out, legal_out, n, height, width,
+               region_size, per_warp, warps, static_cast<cudaStream_t>(stream)}, true,
+              false);
+}
+
+extern "C" int bp_apply_deep(const void* board, const void* cover, const void* valid,
+                             void* board_out, void* k_out, void* legal_out, int n,
+                             int height, int width, int region_size, int per_warp,
+                             int warps, void* stream) {
+  return tall({board, cover, valid, board_out, k_out, legal_out, n, height, width,
+               region_size, per_warp, warps, static_cast<cudaStream_t>(stream)}, true,
+              true);
 }
 
 // board (N, HW) u8; line_cells (L, max_len) i32 and line_len (L,) i32;

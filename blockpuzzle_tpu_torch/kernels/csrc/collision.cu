@@ -1,10 +1,13 @@
 // Chosen-action apply: the CUDA port of the TPU kernel `_apply_kernel`
 // (blockpuzzle_tpu/kernels/collision.py:120, launched by
 // `_apply_pallas_call`, collision.py:164, from `ApplyKernel.__call__`).  Two
-// kernels: the bit-row kernel (`apply_rows_kernel`, entry `bp_apply_rows`)
-// for boards with H <= 32 and W <= 32, every shipped preset, and the general
-// kernel (`apply_kernel`, entry `bp_apply`) for any other board.  The
-// wrapper (kernels/collision.py) picks one by shape.
+// kernels here: the bit-row kernel (`apply_rows_kernel`, entry
+// `bp_apply_rows`) for boards with H <= 32 and W <= 32, every shipped
+// preset, and the general kernel (`apply_kernel`, entry `bp_apply`) for rows
+// of more than 128 cells and deep boards one warp cannot stage.  The boards
+// between take the apply instances of the clear's wide, tall and deep
+// kernels (clear.cu: `bp_apply_wide`, `bp_apply_tall`, `bp_apply_deep`).
+// The wrapper (kernels/collision.py) picks one by shape.
 //
 // What both compute, per env: the action is legal iff `valid` and the
 // footprint `cover` overlaps no occupied cell.  A legal action places the

@@ -84,8 +84,14 @@
 // which the entry keeps only for footprints of more than 32 rows
 // (nwords * fpw > 32: no shipped piece set), picked by shape as
 // `bp_packed_apply_general` picks its pass 2; `bp_packed_mask_general_pick`
-// takes either.  The words entry (`packed_words_general_kernel`) is still a
-// thread an anchor row (`legal_row_general`), read from device memory.
+// takes either.  The words entry is a second instance of the windowed
+// kernel (`kWords`): the same legality a window, each lane's legal row
+// stored as one int64 (lane l: row w0 + l), a coalesced 256-byte store a
+// window and no rows staged.  It answers what bounded its thread-an-anchor-
+// row kernel (`packed_words_general_kernel`, `legal_row_general`: every
+// thread re-reading nwords * fpw board rows from device memory, 36.8% of its
+// bound on 130x8), which stays for footprints of more than 32 rows;
+// `bp_packed_words_general_pick` takes either.
 
 #include <climits>
 #include <cstdint>
@@ -415,29 +421,33 @@ __global__ void packed_mask_rows_general_kernel(const long long* __restrict__ wo
   for (int c = 0; c < width; ++c) o[c] = (bits >> c) & 1u;
 }
 
-// The general mask: a warp an env-slot walking its board in windows of 32
-// anchor rows.  Lane t first takes the columns of piece row t (field
-// t % fpw of footprint word t / fpw: the bits of the footprint words,
-// nwords * fpw <= 32 rows), so that every window tests each piece row's
-// cells by one shuffle of that mask, not by rebuilding footprint words.  A
-// window's board rows and the next window's (rows w0 .. w0 + 63, full past
-// the bottom, two a lane in registers, the row after next loaded at the
-// window's start) are put in shared memory, where lane l reads row l + t
-// for piece row t; the window's legal rows are staged beside the previous
-// window's and every second window (or the last) the warp stores the 64
-// rows' bytes as 16-byte vectors from their byte offset `out_at` + es * HW
-// + w * W of `out` (16-byte aligned), the ragged edges byte by byte
-// (`store_tall<1>`).  Two __syncwarp a window order the shared rows.
+// The general mask and its words entry (`kWords`): a warp an env-slot
+// walking its board in windows of 32 anchor rows.  Lane t first takes the
+// columns of piece row t (field t % fpw of footprint word t / fpw: the bits
+// of the footprint words, nwords * fpw <= 32 rows), so that every window
+// tests each piece row's cells by one shuffle of that mask, not by
+// rebuilding footprint words.  A window's board rows and the next window's
+// (rows w0 .. w0 + 63, full past the bottom, two a lane in registers, the
+// row after next loaded at the window's start) are put in shared memory,
+// where lane l reads row l + t for piece row t.  The mask stages the
+// window's legal rows beside the previous window's, and every second window
+// (or the last) the warp stores the 64 rows' bytes as 16-byte vectors from
+// their byte offset `out_at` + es * HW + w * W of `out` (16-byte aligned),
+// the ragged edges byte by byte (`store_tall<1>`).  The words entry stores
+// lane l's legal row w0 + l as the int64 out[es * H + w0 + l]: one
+// coalesced 256-byte store a window, nothing staged.  Two __syncwarp a
+// window order the shared rows.
+template <bool kWords>
 __global__ void __launch_bounds__(kWarps * 32)
     packed_mask_general_kernel(const long long* __restrict__ words,
                                const int32_t* __restrict__ queue,
                                const uint32_t* __restrict__ prow,
                                const int32_t* __restrict__ piece_w,
-                               uint8_t* __restrict__ out, long long out_at, int total,
+                               void* __restrict__ out, long long out_at, int total,
                                int height, int width, int slots, int num_pieces,
                                int nwords, int fpw) {
   __shared__ uint32_t board[kWarps][64];  // the window's rows and the next window's
-  __shared__ uint32_t legal[kWarps][64];  // two windows' legal rows
+  __shared__ uint32_t legal[kWarps][64];  // two windows' legal rows (the mask's)
   const int l = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   const int es = blockIdx.x * kWarps + warp;
@@ -454,6 +464,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   const uint32_t anchors = pw <= width ? shl32(1u, width - pw + 1) - 1u : 0u;
   const long long* x64 = words + static_cast<long long>(es / slots) * height;
   const long long at = out_at + static_cast<long long>(es) * height * width;
+  long long* out64 = static_cast<long long*>(out) + static_cast<long long>(es) * height;
   uint32_t* rows = board[warp];
   uint32_t* staged = legal[warp];
   uint32_t x0 = l < height ? static_cast<uint32_t>(x64[l]) : full;
@@ -471,13 +482,19 @@ __global__ void __launch_bounds__(kWarps * 32)
         blocked |= y >> (__ffs(m) - 1);
       }
     }
-    const int half = (w0 >> 5) & 1;
-    staged[32 * half + l] = ~blocked & anchors;
-    __syncwarp();
-    if (half == 1 || w0 + 32 >= height) {  // the pair's rows from w0 & ~63
-      const int first = w0 & ~63;
-      bit_rows::store_tall<1>(staged, out, at + static_cast<long long>(first) * width,
-                              min(64, height - first) * width, width, l, 32);
+    if constexpr (kWords) {
+      if (w0 + l < height) out64[w0 + l] = ~blocked & anchors;
+      __syncwarp();  // every lane has read the rows before the next window's
+    } else {
+      const int half = (w0 >> 5) & 1;
+      staged[32 * half + l] = ~blocked & anchors;
+      __syncwarp();
+      if (half == 1 || w0 + 32 >= height) {  // the pair's rows from w0 & ~63
+        const int first = w0 & ~63;
+        bit_rows::store_tall<1>(staged, static_cast<uint8_t*>(out),
+                                at + static_cast<long long>(first) * width,
+                                min(64, height - first) * width, width, l, 32);
+      }
     }
     x0 = x1;
     x1 = next;
@@ -536,13 +553,15 @@ int launch_apply_general(bool staged, const void* words, const void* attrs, cons
 }
 
 
-// The general mask's launch: the windowed kernel eight warps a block, an
-// env-slot each, or the thread-an-anchor-row kernel.  `out` may have any
-// address: the windowed kernel's stores take the 16-byte aligned address
-// at or below it and the byte offset from there.
-int launch_mask_general(bool windowed, const void* words, const void* queue, const void* prow,
-                        const void* piece_w, void* out, int n, int height, int width,
-                        int slots, int num_pieces, int nwords, int fpw, cudaStream_t stream) {
+// The general mask's launch (`words_out`: its words entry's): the windowed
+// kernel eight warps a block, an env-slot each, or the thread-an-anchor-row
+// kernel.  The mask's `out` may have any address: the windowed kernel's
+// stores take the 16-byte aligned address at or below it and the byte
+// offset from there.
+int launch_mask_general(bool windowed, bool words_out, const void* words, const void* queue,
+                        const void* prow, const void* piece_w, void* out, int n, int height,
+                        int width, int slots, int num_pieces, int nwords, int fpw,
+                        cudaStream_t stream) {
   if (height < 1 || width < 1 || width > 32 || (windowed && nwords * fpw > 32)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -553,17 +572,22 @@ int launch_mask_general(bool windowed, const void* words, const void* queue, con
   const auto* q = static_cast<const int32_t*>(queue);
   const auto* p = static_cast<const uint32_t*>(prow);
   const auto* pw = static_cast<const int32_t*>(piece_w);
+  const long long rows = total * height;
+  const auto blocks = static_cast<unsigned>((rows + kThreads - 1) / kThreads);
   if (windowed) {
     const uintptr_t addr = reinterpret_cast<uintptr_t>(out);
-    packed_mask_general_kernel<<<static_cast<unsigned>((total + kWarps - 1) / kWarps),
-                                 kWarps * 32, 0, stream>>>(
-        w, q, p, pw, reinterpret_cast<uint8_t*>(addr & ~static_cast<uintptr_t>(15)),
-        static_cast<long long>(addr & 15), static_cast<int>(total), height, width, slots,
-        num_pieces, nwords, fpw);
+    const uintptr_t base = words_out ? addr : addr & ~static_cast<uintptr_t>(15);
+    const auto kernel = words_out ? packed_mask_general_kernel<true>
+                                  : packed_mask_general_kernel<false>;
+    kernel<<<static_cast<unsigned>((total + kWarps - 1) / kWarps), kWarps * 32, 0, stream>>>(
+        w, q, p, pw, reinterpret_cast<void*>(base), static_cast<long long>(addr - base),
+        static_cast<int>(total), height, width, slots, num_pieces, nwords, fpw);
+  } else if (words_out) {
+    packed_words_general_kernel<<<blocks, kThreads, 0, stream>>>(
+        w, q, p, pw, static_cast<long long*>(out), rows, height, width, slots, num_pieces,
+        nwords, fpw);
   } else {
-    const long long rows = total * height;
-    packed_mask_rows_general_kernel<<<static_cast<unsigned>((rows + kThreads - 1) / kThreads),
-                                      kThreads, 0, stream>>>(
+    packed_mask_rows_general_kernel<<<blocks, kThreads, 0, stream>>>(
         w, q, p, pw, static_cast<uint8_t*>(out), rows, height, width, slots, num_pieces,
         nwords, fpw);
   }
@@ -693,8 +717,8 @@ extern "C" int bp_packed_mask_general(const void* words, const void* queue,
                                       const void* prow, const void* piece_w, void* out,
                                       int n, int height, int width, int slots,
                                       int num_pieces, int nwords, int fpw, void* stream) {
-  return launch_mask_general(nwords * fpw <= 32, words, queue, prow, piece_w, out, n, height,
-                             width, slots, num_pieces, nwords, fpw,
+  return launch_mask_general(nwords * fpw <= 32, false, words, queue, prow, piece_w, out, n,
+                             height, width, slots, num_pieces, nwords, fpw,
                              static_cast<cudaStream_t>(stream));
 }
 
@@ -707,25 +731,31 @@ extern "C" int bp_packed_mask_general_pick(const void* words, const void* queue,
                                            int n, int height, int width, int slots,
                                            int num_pieces, int nwords, int fpw,
                                            int windowed, void* stream) {
-  return launch_mask_general(windowed != 0, words, queue, prow, piece_w, out, n, height,
-                             width, slots, num_pieces, nwords, fpw,
+  return launch_mask_general(windowed != 0, false, words, queue, prow, piece_w, out, n,
+                             height, width, slots, num_pieces, nwords, fpw,
                              static_cast<cudaStream_t>(stream));
 }
 
-// The general words entry, any H >= 1: bp_packed_words_tall's arguments.
-
+// The general words entry, any H >= 1: bp_packed_words_tall's arguments;
+// the windowed kernel where a footprint spans at most 32 rows, else the
+// thread-an-anchor-row one, as bp_packed_mask_general picks.
 extern "C" int bp_packed_words_general(const void* words, const void* queue,
                                        const void* prow, const void* piece_w, void* out,
                                        int n, int height, int width, int slots,
                                        int num_pieces, int nwords, int fpw, void* stream) {
-  if (height < 1 || width < 1 || width > 32) return static_cast<int>(cudaErrorInvalidValue);
-  const long long rows = static_cast<long long>(n) * slots * height;
-  if (rows > 0) {
-    packed_words_general_kernel<<<static_cast<unsigned>((rows + kThreads - 1) / kThreads),
-                                  kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const long long*>(words), static_cast<const int32_t*>(queue),
-        static_cast<const uint32_t*>(prow), static_cast<const int32_t*>(piece_w),
-        static_cast<long long*>(out), rows, height, width, slots, num_pieces, nwords, fpw);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_mask_general(nwords * fpw <= 32, true, words, queue, prow, piece_w, out, n,
+                             height, width, slots, num_pieces, nwords, fpw,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// The general words entry with its kernel chosen, as
+// bp_packed_mask_general_pick.
+extern "C" int bp_packed_words_general_pick(const void* words, const void* queue,
+                                            const void* prow, const void* piece_w,
+                                            void* out, int n, int height, int width,
+                                            int slots, int num_pieces, int nwords, int fpw,
+                                            int windowed, void* stream) {
+  return launch_mask_general(windowed != 0, true, words, queue, prow, piece_w, out, n,
+                             height, width, slots, num_pieces, nwords, fpw,
+                             static_cast<cudaStream_t>(stream));
 }

@@ -15,9 +15,8 @@ in jnp (``blockpuzzle_tpu/env/core.py``) and its legal words in jnp
 Each wrapper picks its kernel by height: one row a lane where H <= 32
 (``csrc/packed_apply.cu``, ``csrc/packed_mask.cu``), a warp a board where
 H <= 128 (the tall kernels, ``csrc/packed_tall.cu``), the general kernels
-above (the same file: the apply a warp an env and the mask a warp an
-env-slot, each walking the board in windows of rows; the words a thread
-an anchor row): the JAX
+above (the same file: the apply a warp an env and the mask and words a
+warp an env-slot, each walking the board in windows of rows): the JAX
 engine takes packed state on any board of at most 32 columns, whatever
 its height.
 
@@ -128,16 +127,34 @@ def deep_launch_shape(cfg: EnvConfig):
     return _turns_shape(cfg)
 
 
-def _turns_shape(cfg: EnvConfig):
-    """The tall and deep masks' (turns a warp, warps a block): 16 warps and
-    the most turns, 4, 2 or 1, whose shared memory fits 48 KB, else one
-    turn and ``tall_block_warps``, or the most warps below 4 that fit
+def apply_launch_shape(cfg: EnvConfig):
+    """(envs a warp, warps a block) of the u8 apply on ``cfg``, or None where
+    its general kernel runs: the bit-row kernels' shape where H <= 32 and
+    W <= 32, the wide ones' where H <= 32 and 32 < W <= ``MAX_WIDE`` (a
+    block's two spans, under 2^17 bytes, always fit), and on taller boards
+    of at most ``MAX_WIDE`` cells a row ``_turns_shape`` with the apply's own
+    shared memory (``apply_smem_bytes``: its block stages two spans where the
+    mask stages one), so fewer turns or warps where the mask's would not
+    fit.  Computed once per wrapper, as ``row_launch_shape``."""
+    if cfg.width > MAX_WIDE:
+        return None
+    if cfg.height <= MAX_ROWS:
+        return row_launch_shape(cfg) or wide_launch_shape(cfg)
+    return _turns_shape(cfg, apply_smem_bytes)
+
+
+def _turns_shape(cfg: EnvConfig, smem_bytes=None):
+    """The tall and deep kernels' (turns a warp, warps a block): 16 warps and
+    the most turns, 4, 2 or 1, whose shared memory (``smem_bytes``, the
+    masks' ``tall_smem_bytes`` by default) fits 48 KB, else one turn and
+    ``tall_block_warps``, or the most warps below 4 that fit
     ``SMEM_OPT_IN``; None where one warp does not."""
+    smem_bytes = smem_bytes or tall_smem_bytes
     for per_warp in (4, 2, 1):
-        if tall_smem_bytes(cfg, 16 * per_warp) <= 48 * 1024:
+        if smem_bytes(cfg, 16 * per_warp) <= 48 * 1024:
             return per_warp, 16
-    warps = tall_block_warps(cfg)
-    while warps > 0 and tall_smem_bytes(cfg, warps) > SMEM_OPT_IN:
+    warps = tall_block_warps(cfg, smem_bytes)
+    while warps > 0 and smem_bytes(cfg, warps) > SMEM_OPT_IN:
         warps -= 1
     return (1, warps) if warps else None
 
@@ -153,16 +170,27 @@ def tall_smem_bytes(cfg: EnvConfig, per_block: int) -> int:
     return (4 * nrows + 15) // 16 * 16 + span + 32
 
 
-def tall_block_warps(cfg: EnvConfig) -> int:
+def apply_smem_bytes(cfg: EnvConfig, per_block: int) -> int:
+    """Shared memory of a block of the wide, tall and deep u8 apply
+    (``csrc/clear.cu`` ``launch``): ``per_block`` envs' output rows of
+    ceil(W / 32) words, then the span of their boards and the span of their
+    covers, as ``csrc/bit_rows.cuh`` ``smem_bytes`` lays out two spans."""
+    span = per_block * cfg.num_cells
+    nrows = per_block * cfg.height * -(-cfg.width // 32)
+    return (4 * nrows + 15) // 16 * 16 + (span + 32 + 15) // 16 * 16 + span + 32
+
+
+def tall_block_warps(cfg: EnvConfig, smem_bytes=None) -> int:
     """Warps a block of the tall kernels where a block of 16 does not fit
     48 KB, one board (or env-slot) each: the fewest, at least 4, for which
     the block's output (warps * H * W bytes) is a multiple of 16 bytes, so
     that every block's span starts on a 16-byte boundary, and whose shared
-    memory fits what a block may opt in to; 4 where none does (the store
-    takes a span at any offset)."""
-    hw = cfg.num_cells
+    memory (``smem_bytes``, ``tall_smem_bytes`` by default) fits what a
+    block may opt in to; 4 where none does (the store takes a span at any
+    offset)."""
+    hw, smem_bytes = cfg.num_cells, smem_bytes or tall_smem_bytes
     return next((w for w in range(4, 17)
-                 if w * hw % 16 == 0 and tall_smem_bytes(cfg, w) <= SMEM_OPT_IN), 4)
+                 if w * hw % 16 == 0 and smem_bytes(cfg, w) <= SMEM_OPT_IN), 4)
 
 
 def mask_block_warps(height: int, width: int) -> int:
@@ -344,7 +372,7 @@ SUFFIX = {"rows": "", "wide": "_wide", "tall": "_tall", "deep": "_deep",
 def u8_kind(cfg: EnvConfig, shape) -> str:
     """The kind of the u8 kernel a wrapper with launch shape ``shape`` (None:
     the general kernel) picks on ``cfg``: ``"rows"``, ``"wide"``, ``"tall"``,
-    ``"deep"`` (the mask and the clear above ``MAX_TALL`` rows) or
+    ``"deep"`` (the mask, the clear and the apply above ``MAX_TALL`` rows) or
     ``"general"``."""
     if shape is None:
         return "general"
@@ -529,10 +557,10 @@ class PackedMaskKernel:
     counts the mask kernel's launches, ``words_launches`` the words
     kernel's), the tall ones where H <= 128 (``tall_launches``,
     ``words_tall_launches``), the general ones elsewhere
-    (``general_launches``, ``words_general_launches``; the general mask a
-    warp an env-slot over windows of 32 rows, or a thread an anchor row
-    where the footprint words' fields span more than 32 rows, which the
-    C entry picks).  ``shape`` is the
+    (``general_launches``, ``words_general_launches``; the general mask
+    and words entries each a warp an env-slot over windows of 32 rows, or a
+    thread an anchor row where the footprint words' fields span more than
+    32 rows, which the C entries pick).  ``shape`` is the
     picked kernels' launch shape (None for the general ones); ``name`` and
     ``words_name`` are their names.
     """

@@ -26,7 +26,11 @@ tests and clears about 8 a word); the tall mask and clear (boards of 33 to
 count as the wide ones, a row's words being one where W <= 32, the deep
 clear 3 more a word (staged, then its full columns cleared); the bit-row
 apply (K2) packs two words a row, tests, places and
-clears (about 12) and stores likewise; the bit-row legality (K4) packs
+clears (about 12) and stores likewise, and its wide, tall and deep
+kernels pack two rows of words (board and cover), spend 2 operations a
+word on the overlap and the place and the clear's 8 (the deep one 6 more:
+its first pass stages the placed word, pass 1 reads it back, pass 2
+clears its columns); the bit-row legality (K4) packs
 each row once, builds its smears (3 operations for each of max_h * max_w
 shapes), spends about 15 a piece and one per output byte; the general mask
 and legality test a piece at one anchor with an AND and an OR per cell,
@@ -185,6 +189,23 @@ def _apply_general(cfg, inputs):
     return 5 * inputs[0].shape[0] * cfg.num_cells
 
 
+def _apply_words(cfg, inputs):
+    """K2, wide and tall: inputs (board, footprint cells, valid); two rows
+    of words packed, 2 operations a word to test and place, the clear's
+    8."""
+    n, h = inputs[0].shape[0], cfg.height
+    return n * (h * (2 * _pack_words(cfg) + 10 * _words(cfg)) + _regions(cfg)
+                + cfg.num_cells)
+
+
+def _apply_deep(cfg, inputs):
+    """K2, deep: ``_apply_words`` and 6 operations more a word: stage the
+    placed word, read it back, clear the full columns from it."""
+    n, h = inputs[0].shape[0], cfg.height
+    return n * (h * (2 * _pack_words(cfg) + 16 * _words(cfg)) + _regions(cfg)
+                + cfg.num_cells)
+
+
 def _clear(cfg, inputs):
     """K3, bit-row: inputs (board,)."""
     n, h = inputs[0].shape[0], cfg.height
@@ -300,7 +321,9 @@ COSTS: Dict[str, Cost] = {
     "mask": _cost(_mask), "mask_wide": _cost(_mask_wide),
     "mask_tall": _cost(_mask_wide), "mask_deep": _cost(_mask_wide),
     "mask_general": _cost(_mask_general),
-    "apply": _cost(_apply), "apply_general": _cost(_apply_general),
+    "apply": _cost(_apply), "apply_wide": _cost(_apply_words),
+    "apply_tall": _cost(_apply_words), "apply_deep": _cost(_apply_deep),
+    "apply_general": _cost(_apply_general),
     "clear": _cost(_clear), "clear_wide": _cost(_clear_wide),
     "clear_tall": _cost(_clear_wide), "clear_deep": _cost(_clear_deep),
     "clear_general": _cost(_clear_general),

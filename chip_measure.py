@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Measurements of the PyTorch + CUDA port on one card, beyond the smoke run.
 
-    python3 chip_measure.py [--parts build,train,rollout,kernels,words,general,draws,tall,tail,deep]
-                            [--parent-csrc DIR]
+    python3 chip_measure.py [--parts build,train,rollout,kernels,words,general,draws,tall,
+                                     tail,deep,apply] [--parent-csrc DIR]
 
 Needs one CUDA card and nvcc.  Prints the card's name and power limit,
-then, each line tagged with its part (all ten by default):
+then, each line tagged with its part (all eleven by default):
 
   build     cold builds of ``kernels/csrc/*.cu`` in turns: one nvcc over
             all sources, then one nvcc per source started together and a
@@ -96,23 +96,38 @@ then, each line tagged with its part (all ten by default):
             grids (``TAIL_SHAPES``), in turns, and on the default preset
             built with only some of its parts (``TAIL_PARTS``); then the
             default (packed) step on 33x9 profiled as ``rollout`` does;
-  deep      the u8 clear and the packed mask on boards of more than 128
-            rows, each a warp walking the board in windows of 32 rows, at
-            N = 49152 on 130x8 and 512x8 (``DEEP_BOARDS``): the deep clear
-            against the general clear launched directly on the same inputs
-            (``chip_smoke.general_calls``), and the windowed general packed
-            mask against its thread-an-anchor-row kernel
-            (``chip_smoke.general_mask_pick``); with ``--parent-csrc DIR``
-            first the earlier sources' ``bp_clear`` and
-            ``bp_packed_mask_general``; every output held bit-equal, each
-            kernel timed in turns (earlier, current, current, earlier) for 5
-            rounds, medians and shares of the bound (``deep_turns``); then
+  deep      the u8 clear and the packed mask and words on boards of more
+            than 128 rows, each a warp walking the board in windows of 32
+            rows, at N = 49152 on 130x8 and 512x8 (``DEEP_BOARDS``): the
+            deep clear against the general clear launched directly on the
+            same inputs (``chip_smoke.general_calls``), and the windowed
+            general packed mask and words against their thread-an-anchor-row
+            kernels (``chip_smoke.general_mask_pick``); with
+            ``--parent-csrc DIR`` first the earlier sources' ``bp_clear``,
+            ``bp_packed_mask_general`` and ``bp_packed_words_general``; every
+            output held bit-equal, each kernel timed in turns (earlier,
+            current, current, earlier) for 5 rounds, medians and shares of
+            the bound (``deep_turns``); then
             the default (packed) step and the u8 clear-kernel step on 130x8,
             with the replaced clear and packed mask swapped in (the earlier
             sources', else the current library's) and with the current
             ones, in turns earlier, current, current, earlier: host ms a
             step, device kernels, device ms and busy share a step, the
-            largest items (``deep_step_turns``).
+            largest items (``deep_step_turns``);
+  apply     the u8 apply (K2) beyond 32x32 at N = 49152 on 8x40, 33x9,
+            130x8 and 512x8 (``APPLY_BOARDS``): the wide, tall or deep apply
+            against the general apply launched directly on the same inputs
+            (``chip_smoke.general_apply``), with ``--parent-csrc DIR`` first
+            the earlier sources' ``bp_apply``; held bit-equal and timed in
+            turns, medians and shares of the bound (``apply_turns``); then
+            the u8 apply-kernel step on 8x40, 33x9 and 130x8 with the
+            general apply (the earlier sources', else the current
+            library's) and with the wrapper's in turns, earlier, current,
+            current, earlier: host ms a step, device kernels, device ms and
+            busy share a step, the apply's device ms a step
+            (``pallas_step_turns``); then the general mask, clear and apply
+            on 8x136, the one shape left to them, timed in turns beside
+            their bounds (``xwide_times``).
 
 Cold builds go to a temporary directory under the git-ignored
 ``kernels/_build/``, removed at the end.
@@ -122,6 +137,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import pathlib
 import shutil
 import statistics
@@ -579,14 +595,17 @@ PARENT_ROW_ENTRIES = ("bp_mask_rows", "bp_clear_rows")
 PARENT_DRAW_ENTRIES = ("bp_deal", "bp_uniform_legal", "bp_words_select")
 # the step tail's entry points, where the earlier sources have them
 PARENT_TAIL_ENTRIES = ("bp_packed_tail", "bp_packed_unpack")
-# the general packed kernels' entry points, where the earlier sources have
-# them
-PARENT_DEEP_ENTRIES = ("bp_packed_apply_general", "bp_packed_mask_general")
+# the general packed kernels' entry points and the general u8 apply, where
+# the earlier sources have them
+PARENT_DEEP_ENTRIES = ("bp_packed_apply_general", "bp_packed_mask_general",
+                       "bp_packed_words_general", "bp_apply")
 
 
+@functools.cache
 def parent_library(csrc: pathlib.Path):
     """The earlier kernels, built by one nvcc into their own library under
-    the git-ignored build directory; prints their ptxas lines."""
+    the git-ignored build directory (once a process); prints their ptxas
+    lines."""
     from blockpuzzle_tpu_torch.kernels import _build
 
     out = _build.BUILD_DIR / "parent"
@@ -1122,20 +1141,22 @@ DEEP_BOARDS = {"130x8": chip_smoke.HUGE, "512x8": chip_smoke.DEEP_CASES["512x8"]
 
 def earlier_deep_calls(lib, cfg, ck, pmk):
     """Callables with the current wrappers' arguments that launch the
-    kernels the deep clear and the windowed packed mask replace: from the
-    earlier library ``lib`` its general u8 clear (``bp_clear``, what the
-    clear took on boards of more than 128 rows before its deep kernel) and
-    its general packed mask (``bp_packed_mask_general``, a thread an anchor
-    row); without ``lib`` the same kernels of the current library
-    (``bp_clear``, ``bp_packed_mask_general_pick`` with its thread-an-anchor-
-    row kernel).  Returns (clear, mask)."""
+    kernels the deep clear and the windowed packed mask and words replace:
+    from the earlier library ``lib`` its general u8 clear (``bp_clear``,
+    what the clear took on boards of more than 128 rows before its deep
+    kernel) and its general packed mask and words (``bp_packed_mask_general``,
+    ``bp_packed_words_general``, a thread an anchor row); without ``lib`` the
+    same kernels of the current library (``bp_clear``,
+    ``bp_packed_mask_general_pick`` and ``bp_packed_words_general_pick`` with
+    their thread-an-anchor-row kernels).  Returns (clear, mask, words)."""
     import torch
 
     from blockpuzzle_tpu_torch.kernels import _build
 
     if lib is None:
         return (chip_smoke.general_calls(cfg, None, ck)[1],
-                chip_smoke.general_mask_pick(cfg, pmk, windowed=False))
+                chip_smoke.general_mask_pick(cfg, pmk, windowed=False),
+                chip_smoke.general_mask_pick(cfg, pmk, windowed=False, words=True))
     dev, lines = ck.device, ck.lines
 
     def stream():
@@ -1157,19 +1178,51 @@ def earlier_deep_calls(lib, cfg, ck, pmk):
                      "earlier bp_packed_mask_general")
         return out
 
-    return clear, mask
+    def legal_words(words, queue):
+        n = words.shape[0]
+        out = torch.empty((n, cfg.queue_size * cfg.height), dtype=torch.int64, device=dev)
+        _build.check(lib.bp_packed_words_general(*pmk._args(words, queue, out), stream()),
+                     "earlier bp_packed_words_general")
+        return out
+
+    return clear, mask, legal_words
+
+
+def group_turns(card: str, tag: str, name: str, groups: dict, bound: dict,
+                rounds: int) -> None:
+    """Each group of ``groups`` (kernel -> {label: callable}) held bit-equal,
+    then timed in turns, in order and back, ``rounds`` times (``turns_ms``):
+    medians, the share of the kernel's ``bound`` (``utils/bounds.py``) and
+    each median over the group's first."""
+    import torch
+
+    for key, fns in groups.items():
+        got = [fn() for fn in fns.values()]
+        got = [g if isinstance(g, tuple) else (g,) for g in got]
+        if not all(torch.equal(a, b) for g in got[1:] for a, b in zip(g, got[0])):
+            raise AssertionError(f"{key} {name}: the kernels disagree")
+    n = chip_smoke.N_MAIN
+    print(f"[{tag}] {name} N={n}: " + "; ".join(
+        f"{' == '.join(fns)} (bit-equal)" for fns in groups.values()))
+    for key, fns in groups.items():
+        med = turns_ms(fns, rounds)
+        b = bound[key]["bound_ms"]
+        first = next(iter(med.values()))
+        for k, ms in med.items():
+            print(f"[{tag}] {k} {name} N={n}: median {ms:.6f} ms of {rounds} rounds in "
+                  f"turns, {100 * b / ms:.1f}% of the {b:.6f} ms bound "
+                  f"({bound[key]['bytes']} B), {ms / first:.3f}x the first ({card})")
 
 
 def deep_turns(card: str, lib, rounds: int = 5) -> None:
-    """K3 and B7 on ``DEEP_BOARDS`` at N = 49152 (``chip_smoke.kernel_inputs``,
-    seed 0): the deep clear beside the general clear launched directly
-    (``bp_clear``), the windowed general packed mask's entry beside its
-    thread-an-anchor-row kernel (``bp_packed_mask_general_pick``), and,
-    where ``lib`` is given, first the earlier library's ``bp_clear`` and
-    ``bp_packed_mask_general``; each group held bit-equal, then timed in
-    turns, in order and back (earlier, current, current, earlier),
-    ``rounds`` times (``turns_ms``): medians, the share of the bound
-    (``utils/bounds.py``), and each median over the first one's."""
+    """K3, B7 and B7w on ``DEEP_BOARDS`` at N = 49152
+    (``chip_smoke.kernel_inputs``, seed 0): the deep clear beside the
+    general clear launched directly (``bp_clear``), the windowed general
+    packed mask's and words' entries beside their thread-an-anchor-row
+    kernels (``bp_packed_mask_general_pick``, ``bp_packed_words_general_pick``),
+    and, where ``lib`` is given, first the earlier library's ``bp_clear``,
+    ``bp_packed_mask_general`` and ``bp_packed_words_general``; each group
+    held bit-equal, then timed in turns (``group_turns``)."""
     import torch
 
     from blockpuzzle_tpu_torch.config import EnvConfig
@@ -1181,41 +1234,161 @@ def deep_turns(card: str, lib, rounds: int = 5) -> None:
     for name, shape in DEEP_BOARDS.items():
         cfg = EnvConfig(**shape)
         ck, pmk = ClearScanKernel(cfg, dev), PackedMaskKernel(cfg, dev)
-        if (ck.name, pmk.name) != ("clear_deep", "packed_mask_general"):
+        if (ck.name, pmk.name, pmk.words_name) != ("clear_deep", "packed_mask_general",
+                                                   "packed_legal_words_general"):
             raise AssertionError(f"{name}: the wrappers picked {ck.name}, {pmk.name}")
         board, queue, cover, valid, attrs, r, c = (
             torch.as_tensor(x, device=dev) for x in chip_smoke.kernel_inputs(cfg, n, seed=0))
         words = pack_words(board.view(n, cfg.height, cfg.width))
-        general_clear, mask_rows = earlier_deep_calls(None, cfg, ck, pmk)
-        groups = {"clear_deep": {}, "packed_mask_general": {}}
+        general_clear, mask_rows, words_rows = earlier_deep_calls(None, cfg, ck, pmk)
+        groups = {"clear_deep": {}, "packed_mask_general": {},
+                  "packed_legal_words_general": {}}
         if lib is not None:
-            earlier_clear, earlier_mask = earlier_deep_calls(lib, cfg, ck, pmk)
+            earlier_clear, earlier_mask, earlier_words = earlier_deep_calls(lib, cfg, ck, pmk)
             groups["clear_deep"]["earlier bp_clear"] = lambda: earlier_clear(board)
             groups["packed_mask_general"]["earlier bp_packed_mask_general"] = (
                 lambda: earlier_mask(words, queue))
+            groups["packed_legal_words_general"]["earlier bp_packed_words_general"] = (
+                lambda: earlier_words(words, queue))
         groups["clear_deep"].update({"clear_deep": lambda: ck(board),
                                      "clear_general": lambda: general_clear(board)})
         groups["packed_mask_general"].update({
             "packed_mask_general": lambda: pmk(words, queue),
             "thread-an-anchor-row kernel": lambda: mask_rows(words, queue)})
-        outs = {}
-        for key, fns in groups.items():
-            got = [fn() for fn in fns.values()]
-            got = [g if isinstance(g, tuple) else (g,) for g in got]
-            if not all(torch.equal(a, b) for g in got[1:] for a, b in zip(g, got[0])):
-                raise AssertionError(f"{key} {name}: the kernels disagree")
-            outs[key] = got[0]
+        groups["packed_legal_words_general"].update({
+            "packed_legal_words_general": lambda: pmk.words(words, queue),
+            "thread-an-anchor-row words kernel": lambda: words_rows(words, queue)})
+        outs = {"clear_deep": ck(board), "packed_mask_general": pmk(words, queue),
+                "packed_legal_words_general": pmk.words(words, queue)}
         bound = kernel_bounds(cfg, board, queue, cover, valid, words, attrs, r, c, outs)
-        print(f"[deep] {name} N={n}: " + "; ".join(
-            f"{' == '.join(fns)} (bit-equal)" for fns in groups.values()))
-        for key, fns in groups.items():
-            med = turns_ms(fns, rounds)
-            b = bound[key]["bound_ms"]
-            first = next(iter(med.values()))
-            for k, ms in med.items():
-                print(f"[deep] {k} {name} N={n}: median {ms:.6f} ms of {rounds} rounds in "
-                      f"turns, {100 * b / ms:.1f}% of the {b:.6f} ms bound "
-                      f"({bound[key]['bytes']} B), {ms / first:.3f}x the first ({card})")
+        group_turns(card, "deep", name, groups, bound, rounds)
+
+
+# boards the ``apply`` part times K2 on: its wide, tall and deep kernels
+APPLY_BOARDS = {"8x40": chip_smoke.WIDE, "33x9": chip_smoke.TALL, "130x8": chip_smoke.HUGE,
+                "512x8": chip_smoke.DEEP_CASES["512x8"]}
+
+
+def apply_turns(card: str, lib, rounds: int = 5) -> None:
+    """K2 on ``APPLY_BOARDS`` at N = 49152 (``chip_smoke.kernel_inputs``,
+    seed 0): the wide, tall or deep apply beside the general apply launched
+    directly on the same inputs (``chip_smoke.general_apply``, ``bp_apply``),
+    and, where ``lib`` is given, first the earlier library's ``bp_apply``;
+    held bit-equal, then timed in turns (``group_turns``)."""
+    import torch
+
+    from blockpuzzle_tpu_torch.config import EnvConfig
+    from blockpuzzle_tpu_torch.kernels import ApplyKernel
+    from blockpuzzle_tpu_torch.utils.bounds import kernel_bounds
+
+    n, dev = chip_smoke.N_MAIN, torch.device("cuda")
+    for name, shape in APPLY_BOARDS.items():
+        cfg = EnvConfig(**shape)
+        ak = ApplyKernel(cfg, dev)
+        if ak.kind not in ("wide", "tall", "deep"):
+            raise AssertionError(f"{name}: the wrapper picked {ak.name}")
+        board, queue, cover, valid, attrs, r, c = (
+            torch.as_tensor(x, device=dev) for x in chip_smoke.kernel_inputs(cfg, n, seed=0))
+        fns = {}
+        if lib is not None:
+            earlier = chip_smoke.general_apply(cfg, ak, lib)
+            fns["earlier bp_apply"] = lambda: earlier(board, cover, valid)
+        general = chip_smoke.general_apply(cfg, ak)
+        fns.update({ak.name: lambda: ak(board, cover, valid),
+                    "apply_general": lambda: general(board, cover, valid)})
+        bound = kernel_bounds(cfg, board, queue, cover, valid, None, attrs, r, c,
+                              {ak.name: ak(board, cover, valid)})
+        print(f"[apply] {name}: {ak.name} launch shape {ak.shape} (envs a warp, warps a "
+              "block)")
+        group_turns(card, "apply", name, {ak.name: fns}, bound, rounds)
+
+
+def pallas_step_turns(card: str, lib, steps: int = 20) -> None:
+    """The u8 apply-kernel step (``backend="pallas"``) on 8x40, 33x9 and
+    130x8 at N = 49152, uniform-legal draws, one engine each carrying its
+    state: with the general apply swapped in (the earlier library's
+    ``bp_apply`` where ``lib`` is given, else the current library's,
+    ``chip_smoke.general_apply``) and with the wrapper's wide, tall or deep
+    apply, in turns earlier, current, current, earlier: host ms a step over
+    ``steps`` unprofiled steps, then ``steps`` steps under ``torch.profiler``:
+    device kernels, device ms and busy share a step, and the apply's device
+    ms a step inside it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from blockpuzzle_tpu_torch import make_env
+    from blockpuzzle_tpu_torch.config import EnvConfig
+    from blockpuzzle_tpu_torch.sampler import UniformLegalSampler
+
+    n = chip_smoke.N_MAIN
+    # the device names of the general apply and of the clear kernels' apply
+    # instances (their template's last argument, kApply)
+    keys = ("::apply_kernel(", "true>(")
+    for name in ("8x40", "33x9", "130x8"):
+        cfg = EnvConfig(**APPLY_BOARDS[name])
+        env = make_env(cfg, device="cuda", backend="pallas", state_impl="u8")
+        current = env.apply_kernel
+        kernels = {"current": current,
+                   "earlier": chip_smoke.general_apply(cfg, current, lib)}
+        state, ts = env.init(0, n)
+        draw = UniformLegalSampler(1, n, env.device)
+
+        def run(k):
+            nonlocal state, ts
+            for _ in range(k):
+                state, ts = env.step(state, draw(ts.action_mask))
+            torch.cuda.synchronize()
+
+        for which in ("earlier", "current", "current", "earlier"):
+            env.apply_kernel = kernels[which]
+            run(5)                                         # warm-up
+            t0 = time.perf_counter()
+            run(steps)
+            step_ms = 1e3 * (time.perf_counter() - t0) / steps
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                run(steps)
+            device = device_events(prof)
+            if not device:
+                print("[apply] the profiler saw no device events: not measured")
+                continue
+            busy = busy_us(device) / steps / 1e3
+            part = sum(e.time_range.elapsed_us() for e in device
+                       if any(k in e.name for k in keys)) / steps / 1e3
+            label = "general apply" if which == "earlier" else current.name
+            print(f"[apply] u8 pallas step, {name}, N={n}, {which} apply ({label}): "
+                  f"{step_ms:.4f} ms per step, {len(device) / steps:.2f} device kernels, "
+                  f"{sum(e.time_range.elapsed_us() for e in device) / steps / 1e3:.6f} ms "
+                  f"device time a step, busy {busy:.4f} ms = {100 * busy / step_ms:.1f}%, "
+                  f"the apply {part:.6f} ms a step ({card})")
+        env.apply_kernel = current
+
+
+def xwide_times(card: str, rounds: int = 5) -> None:
+    """The general u8 mask, clear and apply on 8x136 (rows of more than 128
+    cells, ``chip_smoke.XWIDE``: the only shape left to them) at N = 49152,
+    timed in turns for ``rounds`` rounds beside their bounds."""
+    import torch
+
+    from blockpuzzle_tpu_torch.config import EnvConfig
+    from blockpuzzle_tpu_torch.kernels import ApplyKernel, ClearScanKernel, MaskKernel
+    from blockpuzzle_tpu_torch.utils.bounds import kernel_bounds
+
+    n, dev = chip_smoke.N_MAIN, torch.device("cuda")
+    cfg = EnvConfig(**chip_smoke.XWIDE)
+    mk, ck, ak = MaskKernel(cfg, dev), ClearScanKernel(cfg, dev), ApplyKernel(cfg, dev)
+    if {mk.kind, ck.kind, ak.kind} != {"general"}:
+        raise AssertionError(f"8x136: the wrappers picked {mk.name}, {ck.name}, {ak.name}")
+    board, queue, cover, valid, attrs, r, c = (
+        torch.as_tensor(x, device=dev) for x in chip_smoke.kernel_inputs(cfg, n, seed=0))
+    fns = {mk.name: lambda: mk(board, queue), ck.name: lambda: ck(board),
+           ak.name: lambda: ak(board, cover, valid)}
+    bound = kernel_bounds(cfg, board, queue, cover, valid, None, attrs, r, c,
+                          {k: f() for k, f in fns.items()})
+    for k, ms in turns_ms(fns, rounds).items():
+        b = bound[k]
+        print(f"[apply] {k} 8x136 N={n}: median {ms:.6f} ms of {rounds} rounds in turns, "
+              f"{100 * b['bound_ms'] / ms:.1f}% of the {b['bound_ms']:.6f} ms bound by "
+              f"{b['bound_by']} ({b['bytes']} B) ({card})")
 
 
 def deep_step_turns(card: str, lib, steps: int = 20) -> None:
@@ -1244,7 +1417,7 @@ def deep_step_turns(card: str, lib, steps: int = 20) -> None:
         env = make_env(cfg, device="cuda", **kwargs)
         kernels = {"current": (env.clear_kernel, env.packed_mask_kernel),
                    "earlier": earlier_deep_calls(lib, cfg, env.clear_kernel,
-                                                 env.packed_mask_kernel)}
+                                                 env.packed_mask_kernel)[:2]}
         state, ts = env.init(0, n)
         draw = UniformLegalSampler(1, n, env.device)
 
@@ -1279,7 +1452,7 @@ def deep_step_turns(card: str, lib, steps: int = 20) -> None:
 
 
 PARTS = ("build", "train", "rollout", "kernels", "words", "general", "draws", "tall", "tail",
-         "deep")
+         "deep", "apply")
 
 
 def main(argv=None) -> int:
@@ -1338,6 +1511,11 @@ def main(argv=None) -> int:
         lib = parent_library(pathlib.Path(args.parent_csrc)) if args.parent_csrc else None
         deep_turns(card, lib)
         deep_step_turns(card, lib)
+    if "apply" in parts:
+        lib = parent_library(pathlib.Path(args.parent_csrc)) if args.parent_csrc else None
+        apply_turns(card, lib)
+        pallas_step_turns(card, lib)
+        xwide_times(card)
     print(f"[done] {card}")
     return 0
 

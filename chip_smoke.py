@@ -9,7 +9,7 @@ which raises on failure (non-zero exit, no result line):
 
   0. card name and power limit, torch/CUDA versions, compute capability,
      kernel build time;
-  1. each of the twenty-eight kernels against its plain torch version on
+  1. each of the thirty-one kernels against its plain torch version on
      the card, bit-equal, at N = 49152 and a ragged N = 49151: the three draws
      (deal, uniform_legal, words_select: ``kernels/draws.py``) on the four
      presets, at per-env counters that wrap negative and at shared ones
@@ -22,30 +22,34 @@ which raises on failure (non-zero exit, no result line):
      rows, columns and 3x3 regions; the packed kernels also against the u8
      mask and apply kernels on the unpacked boards, the words against the
      packed mask packed to words; on a board of 8 rows of 40 cells, too
-     wide for a row word, the wide mask and clear (mask_wide, clear_wide:
-     rows of two words) and the general apply and legality
-     (apply_general, legality_general); the wide mask and clear also on
-     8x33, 6x64, 4x128, 8x100 and 9x36 with 3x3 regions (``WIDE_CASES``);
+     wide for a row word, the wide mask, clear and apply (mask_wide,
+     clear_wide, apply_wide: rows of two words) and the general legality
+     (legality_general); the wide mask, clear and apply also on 8x33, 6x64,
+     4x128, 8x100 and 9x36 with 3x3 regions (``WIDE_CASES``), the wide
+     apply also against the general apply launched directly (bp_apply);
      on boards of more than 32 rows (``phase1_tall``), the tall packed
      kernels (packed_apply_tall, packed_mask_tall, packed_legal_words_tall:
      a warp a board) on 33x9, 36x9 with 3x3 regions across the lane seam
      and a hand of three, 64x8 and 128x10 (``TALL_PACKED_CASES``), the
-     tall u8 mask and clear (mask_tall, clear_tall) on 33x9, 36x9 with
-     regions, 40x40 and 33x128 (``TALL_U8_CASES``; the plain u8 mask in
-     chunks of envs there), the packed mask also against the u8 one on
-     the unpacked boards, and on boards of more than 128 rows the deep u8
-     mask and clear (mask_deep, clear_deep: a warp an env-slot or env over
-     windows of 32 rows) and the general kernels of both engines
-     (apply_general, legality_general, packed_apply_general: a warp an env
-     over windows of rows, also with each pass 2, packed_mask_general: a
-     warp an env-slot over windows of 32 rows, packed_legal_words_general)
-     on 130x8 (``HUGE``; the general mask and clear, mask_general and
-     clear_general, launched directly there beside the deep ones, and the
-     packed mask's thread-an-anchor-row kernel beside its windowed one),
-     and the deep mask and clear and the general packed kernels on 512x8
-     and 135x9 with 3x3 regions and a hand of three (``DEEP_CASES``), the
-     deep clear and the windowed packed mask also held to the kernels they
-     replace launched directly on every one of these boards; the
+     tall u8 mask, clear and apply (mask_tall, clear_tall, apply_tall) on
+     33x9, 36x9 with regions, 40x40 and 33x128 (``TALL_U8_CASES``; the
+     plain u8 mask and apply in chunks of envs there), the packed mask also
+     against the u8 one on the unpacked boards, and on boards of more than
+     128 rows the deep u8 mask, clear and apply (mask_deep, clear_deep,
+     apply_deep: a warp an env-slot or env over windows of 32 rows) and the
+     general kernels of the legality and the packed engine
+     (legality_general, packed_apply_general: a warp an env over windows of
+     rows, also with each pass 2, packed_mask_general and
+     packed_legal_words_general: a warp an env-slot over windows of 32
+     rows) on 130x8 (``HUGE``; the general mask, clear and apply,
+     mask_general, clear_general and apply_general, launched directly there
+     beside the deep ones, and the packed mask's and words' thread-an-
+     anchor-row kernels beside their windowed ones), and the deep mask,
+     clear and apply and the general packed kernels on 512x8 and 135x9 with
+     3x3 regions and a hand of three (``DEEP_CASES``), the tall and deep
+     apply, the deep clear and the windowed packed mask and words also held
+     to the kernels they replace launched directly on every one of these
+     boards; the
      step's tail (packed_tail: game over,
      truncation, score, auto-reset and both board views in one launch) and
      its unpack entry (packed_unpack) on the default, tenten, 33x9 and 130x8
@@ -54,19 +58,19 @@ which raises on failure (non-zero exit, no result line):
      and ring and at a tile of 7 envs, then at the wrapper's tile in a ring
      of one stage and on a grid of one block an SM, floats bit for bit,
      the share of done envs printed; an illegal action on a board holding a full line
-     through the u8 apply kernel of the presets and of the wide board and
-     through every packed apply; then each kernel's device time (CUDA
+     through the u8 apply kernel of every board above and through every
+     packed apply; then each kernel's device time (CUDA
      events over 50 launches queued behind a spin kernel, so the host's
      launch time does not enter) beside its bound (``utils/bounds.py``)
      and the plain version's time (50 calls made as the host goes), at N
-     = 49152 on the default preset (the wide kernels, apply_general and
-     legality_general on the wide board, the tall ones on 33x9, the deep
-     ones and the other general ones on 130x8), and the launch floor (an empty launch's
+     = 49152 on the default preset (the wide kernels and legality_general
+     on the wide board, the tall ones on 33x9, the deep ones and the other
+     general ones on 130x8), and the launch floor (an empty launch's
      device time) beside the deal's; then the wide board's kernels timed
-     in turns for 5 rounds, with the general mask and clear launched
+     in turns for 5 rounds, with the general mask, clear and apply launched
      directly on the same inputs and held bit-equal to the wide ones
-     (``wide_turns``), and the tall mask and clear likewise on 33x9 and
-     40x40 (``tall_turns``);
+     (``wide_turns``), and the tall mask, clear and apply likewise on 33x9
+     and 40x40 (``tall_turns``);
      then the default packed rollout (N = 49152, 64 steps) through the
      draw kernels and with their plain versions swapped in, with the
      argmax and the words sampler (the paths ``draws_argmax`` and
@@ -80,11 +84,11 @@ which raises on failure (non-zero exit, no result line):
      through the general ones, ``huge_packed``, N = 256, 32 steps) and on
      the u8 apply-kernel (``backend="pallas"``) and clear-kernel
      (``backend="jnp"``) steps (every preset; the wide board, where the
-     wide mask and clear and the general apply run: the paths
-     ``wide_u8_pallas`` and ``wide_u8_jnp``; 33x9, where the tall mask and
-     clear and the general apply run: ``tall_u8_pallas``, ``tall_u8_jnp``;
-     36x9 with regions, ``tall36r3_u8_jnp``; 130x8, the deep mask and
-     clear and the general apply: ``huge_u8_pallas``, ``huge_u8_jnp``;
+     wide mask, clear and apply run: the paths ``wide_u8_pallas`` and
+     ``wide_u8_jnp``; 33x9, where the tall mask, clear and apply run:
+     ``tall_u8_pallas``, ``tall_u8_jnp``; 36x9 with regions,
+     ``tall36r3_u8_jnp``; 130x8, the deep mask, clear and apply:
+     ``huge_u8_pallas``, ``huge_u8_jnp``;
      8x136, rows of more than 128 cells, the general mask, apply and clear:
      ``xwide_u8_pallas``, ``xwide_u8_jnp``, N = 256, 32 steps), counters set to
      0 before each and read after it: final states and summed rewards
@@ -222,11 +226,11 @@ import time
 N_MAIN = 49152
 PARITY_SEEDS = 8
 PACKED_PRESETS = ("default", "tenten", "woodoku", "big")
-# a u8 board too wide for a row word: the wide u8 mask and clear (rows of
-# two words), the general apply and legality
+# a u8 board too wide for a row word: the wide u8 mask, clear and apply
+# (rows of two words), the general legality
 WIDE = dict(height=8, width=40)
 # the other boards of more than 32 cells a row that phase 1 holds the wide
-# mask and clear on (tests/test_torch_kernels.py WIDE_CASES): one cell in
+# mask, clear and apply on (tests/test_torch_kernels.py WIDE_CASES): one cell in
 # the second word, 32 dividing W, four whole words (pieces of at most 2x2,
 # which fit its 4 rows), four words with 4 cells in the top one, and 3x3
 # regions whose fields straddle the first two words
@@ -237,7 +241,7 @@ WIDE_CASES = {"8x33": dict(height=8, width=33), "6x64": dict(height=6, width=64)
                              queue_size=3)}
 # boards of more than 32 rows: the tall kernels (a warp a board, rows
 # l + 32 j in lane l), the packed engine's by default (W <= 32) and the u8
-# mask and clear; the general apply and legality
+# mask, clear and apply; the general legality
 TALL = dict(height=33, width=9)
 TALL36R3 = dict(height=36, width=9, region_clear=True, region_size=3, queue_size=3)
 # the boards phase 1 holds the tall kernels on (tests/test_torch_tall.py):
@@ -248,12 +252,13 @@ TALL_PACKED_CASES = {"33x9": TALL, "36x9r3": TALL36R3, "64x8": dict(height=64, w
                      "128x10": dict(height=128, width=10)}
 TALL_U8_CASES = {"33x9": TALL, "36x9r3": TALL36R3, "40x40": dict(height=40, width=40),
                  "33x128": dict(height=33, width=128)}
-# a board of more than 128 rows: the deep u8 mask and clear (a warp an
-# env-slot or env over windows of 32 rows), the windowed general packed
-# apply and mask, the general kernels of the rest
+# a board of more than 128 rows: the deep u8 mask, clear and apply (a warp
+# an env-slot or env over windows of 32 rows), the windowed general packed
+# apply, mask and words, the general legality
 HUGE = dict(height=130, width=8)
-# the other boards of more than 128 rows phase 1 holds the deep mask and
-# clear and the general packed kernels on (tests/test_torch_deep.py): four times as many
+# the other boards of more than 128 rows phase 1 holds the deep mask, clear
+# and apply and the general packed kernels on (tests/test_torch_deep.py):
+# four times as many
 # rows, and 3x3 regions in windows of 30 rows with a hand of three (135x9:
 # a block's output span off a 16-byte boundary)
 DEEP_CASES = {"512x8": dict(height=512, width=8),
@@ -277,8 +282,14 @@ KERNEL_INFO = {
                      "blockpuzzle_tpu/kernels/mask.py:85", "xwide_u8_pallas"),
     "apply": ("blockpuzzle_tpu_torch/kernels/csrc/collision.cu",
               "blockpuzzle_tpu/kernels/collision.py:164", "rollout_pallas"),
+    "apply_wide": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
+                   "blockpuzzle_tpu/kernels/collision.py:164", "wide_u8_pallas"),
+    "apply_tall": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
+                   "blockpuzzle_tpu/kernels/collision.py:164", "tall_u8_pallas"),
+    "apply_deep": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
+                   "blockpuzzle_tpu/kernels/collision.py:164", "huge_u8_pallas"),
     "apply_general": ("blockpuzzle_tpu_torch/kernels/csrc/collision.cu",
-                      "blockpuzzle_tpu/kernels/collision.py:164", "wide_u8_pallas"),
+                      "blockpuzzle_tpu/kernels/collision.py:164", "xwide_u8_pallas"),
     "clear": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
               "blockpuzzle_tpu/kernels/clear.py:93", "train_u8"),
     "clear_wide": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
@@ -362,6 +373,9 @@ def kernel_counters(env) -> dict:
             "mask_deep": (env.mask_kernel, "deep_launches"),
             "mask_general": (env.mask_kernel, "general_launches"),
             "apply": (env.apply_kernel, "launches"),
+            "apply_wide": (env.apply_kernel, "wide_launches"),
+            "apply_tall": (env.apply_kernel, "tall_launches"),
+            "apply_deep": (env.apply_kernel, "deep_launches"),
             "apply_general": (env.apply_kernel, "general_launches"),
             "clear": (env.clear_kernel, "launches"),
             "clear_wide": (env.clear_kernel, "wide_launches"),
@@ -556,22 +570,19 @@ def check_equal(outs, refs, what: str, errs: dict, name: str) -> None:
 
 def u8_kernel_names(cfg) -> tuple:
     """The u8 mask, clear, apply and legality kernels the wrappers pick on
-    ``cfg``: the bit-row kernels where H <= 32 and W <= 32, the wide mask
-    and clear with the general apply and legality where H <= 32 and
-    32 < W <= 128, the tall mask and clear with the general apply and
-    legality where 32 < H <= 128 and W <= 128, the deep mask and clear
-    with the general apply and legality where H > 128 and W <= 128 (the
-    boards phase 1 and 2 run: each fits a block of the deep mask), the
-    general kernels elsewhere."""
+    ``cfg``: the bit-row kernels where H <= 32 and W <= 32, the wide mask,
+    clear and apply with the general legality where H <= 32 and
+    32 < W <= 128, the tall ones with the general legality where
+    32 < H <= 128 and W <= 128, the deep ones with the general legality
+    where H > 128 and W <= 128 (the boards phase 1 and 2 run: each fits a
+    block of the deep mask and of the deep apply), the general kernels
+    elsewhere."""
     if cfg.height <= 32 and cfg.width <= 32:
         return "mask", "clear", "apply", "legality"
-    if cfg.height <= 32 and cfg.width <= 128:
-        return "mask_wide", "clear_wide", "apply_general", "legality_general"
-    if cfg.height <= 128 and cfg.width <= 128:
-        return "mask_tall", "clear_tall", "apply_general", "legality_general"
-    if cfg.width <= 128:
-        return "mask_deep", "clear_deep", "apply_general", "legality_general"
-    return "mask_general", "clear_general", "apply_general", "legality_general"
+    if cfg.width > 128:
+        return "mask_general", "clear_general", "apply_general", "legality_general"
+    kind = "wide" if cfg.height <= 32 else "tall" if cfg.height <= 128 else "deep"
+    return f"mask_{kind}", f"clear_{kind}", f"apply_{kind}", "legality_general"
 
 
 def packed_kernel_names(cfg) -> tuple:
@@ -622,21 +633,23 @@ def phase1(card: str) -> dict:
     configs = {name: PRESETS[name]() for name in PACKED_PRESETS}
     configs["wide"] = EnvConfig(**WIDE)
     configs.update({name: EnvConfig(**shape) for name, shape in WIDE_CASES.items()})
-    # the boards whose kernels are timed at N_MAIN (the apply and legality
-    # on the wide board only), and the board each kernel's line names; the
-    # boards of more than 32 rows in ``phase1_tall``
+    # the boards whose kernels are timed at N_MAIN (the legality on the wide
+    # board only), and the board each kernel's line names; the boards of
+    # more than 32 rows in ``phase1_tall``
     timed = {"default": ("mask", "clear", "apply", "legality"),
-             "wide": ("mask_wide", "clear_wide", "apply_general", "legality_general")}
+             "wide": ("mask_wide", "clear_wide", "apply_wide", "legality_general")}
     where = {"default": "default", "wide": "wide 8x40"}
     for name, cfg in configs.items():
         packed = name in PACKED_PRESETS
-        full = packed or name in timed   # the apply and legality held too
+        full = packed or name in timed   # the legality held too
         mask_name, clear_name, apply_name, legal_name = u8_kernel_names(cfg)
-        mk, ck = MaskKernel(cfg, dev), ClearScanKernel(cfg, dev)
-        ak, lk = (ApplyKernel(cfg, dev), LegalityKernel(cfg, dev)) if full else (None, None)
+        mk, ck, ak = MaskKernel(cfg, dev), ClearScanKernel(cfg, dev), ApplyKernel(cfg, dev)
+        lk = LegalityKernel(cfg, dev) if full else None
         got = [w.name for w in (mk, ck, ak, lk) if w is not None]
         if got != [mask_name, clear_name, apply_name, legal_name][: len(got)]:
             raise AssertionError(f"{name}: the wrappers picked {got}")
+        # the kernel the wide apply replaces, launched directly
+        replaced = general_apply(cfg, ak) if ak.kind != "rows" else None
         if packed:
             pak, pmk = PackedApplyKernel(cfg, dev), PackedMaskKernel(cfg, dev)
         for n in (N_MAIN, N_MAIN - 1):
@@ -649,16 +662,21 @@ def phase1(card: str) -> dict:
             check_equal([mask], [mk.plain(board, queue)], what, errs, mask_name)
             cleared = ck(board)
             check_equal(cleared, ck.plain(board), what, errs, clear_name)
+            outs = ak(board, cover, valid)
+            check_equal(outs, ak.plain(board, cover, valid), what, errs, apply_name)
             line = (f"[phase1] {what}: {mask_name} legal share "
                     f"{float(mask.float().mean()):.4f}, {clear_name} k "
-                    f"{int(cleared[1].sum())}")
+                    f"{int(cleared[1].sum())}, {apply_name} legal {int(outs[2].sum())}")
+            if replaced is not None:
+                if not all(torch.equal(a, b) for a, b in
+                           zip(replaced(board, cover, valid), outs)):
+                    raise AssertionError(f"{apply_name} != apply_general launched directly "
+                                         f"({what})")
+                line += " == apply_general launched directly"
             if full:
-                outs = ak(board, cover, valid)
-                check_equal(outs, ak.plain(board, cover, valid), what, errs, apply_name)
                 legal_all = lk(board)
                 check_equal([legal_all], [lk.plain(board)], what, errs, legal_name)
-                line += (f", {apply_name} legal {int(outs[2].sum())}, {legal_name} share "
-                         f"{float(legal_all.float().mean()):.4f}")
+                line += f", {legal_name} share {float(legal_all.float().mean()):.4f}"
             line += ": u8 kernels == plain (bit-equal)"
             if packed:
                 words = pack_words(board.view(n, cfg.height, cfg.width))
@@ -688,8 +706,6 @@ def phase1(card: str) -> dict:
                          "kernels on the unpacked boards (bit-equal); packed legal "
                          "words == plain == the packed mask packed to words")
             print(line)
-            if not full:
-                continue
             b2, c2, v2, a2, r2, col2 = (
                 torch.as_tensor(x, device=dev) for x in illegal_on_full_line(cfg, n)
             )
@@ -737,7 +753,8 @@ def phase1(card: str) -> dict:
               f"({b['bytes']} B, {b['ops']:.0f} ops), {100 * b['bound_ms'] / ms:.1f}% "
               f"of it ({card})")
     print("[phase1] illegal action on a full-line board: strict no-op (apply, "
-          "apply_general on the wide board, packed_apply, packed_apply_tall, "
+          "apply_wide on every wide board, apply_tall and apply_deep on every board of "
+          "more than 32 rows of the u8 kernels, packed_apply, packed_apply_tall, "
           "packed_apply_general)")
     wide_turns(card, "phase1")
     tall_turns(card, "phase1")
@@ -748,22 +765,25 @@ def phase1(card: str) -> dict:
 
 def phase1_tall(errs: dict, times: dict, bounds: dict) -> None:
     """Phase 1 on boards of more than 32 rows: the tall packed kernels
-    (``TALL_PACKED_CASES``) and the tall u8 mask and clear
+    (``TALL_PACKED_CASES``) and the tall u8 mask, clear and apply
     (``TALL_U8_CASES``) against their plain versions at N = 49152 and
     49151, the packed mask also against the u8 mask on the unpacked boards
-    and its words against itself packed to words, and an illegal action on
-    a full line through the tall packed apply; then the kernels of boards
-    of more than 128 rows likewise on ``HUGE`` (130 rows, with the general
-    u8 apply and legality) and ``DEEP_CASES`` (512x8, 135x9 with regions):
-    the deep mask and clear and the general packed kernels, the packed
-    apply also with each pass 2 (``general_apply_pass``) against the plain
-    version, the deep clear and the windowed packed mask also against the
-    kernels they replace launched directly on the same inputs (``bp_clear``,
-    ``general_calls``; the thread-an-anchor-row packed mask,
-    ``general_mask_pick``).  Times the tall kernels on 33x9 and the others
-    on 130x8 at N = 49152 into ``times`` and ``bounds``, the general mask
-    and clear launched directly there beside the deep ones, and prints the
-    two packed mask kernels' times side by side."""
+    and its words against itself packed to words, the u8 apply also against
+    the general apply launched directly on the same inputs
+    (``general_apply``), and an illegal action on a full line through the
+    tall packed and u8 applies; then the kernels of boards of more than 128
+    rows likewise on ``HUGE`` (130 rows, with the general u8 legality) and
+    ``DEEP_CASES`` (512x8, 135x9 with regions): the deep mask, clear and
+    apply and the general packed kernels, the packed apply also with each
+    pass 2 (``general_apply_pass``) against the plain version, the deep
+    clear, the deep apply and the windowed packed mask and words also
+    against the kernels they replace launched directly on the same inputs
+    (``bp_clear``, ``general_calls``; ``bp_apply``; the thread-an-anchor-row
+    packed mask and words, ``general_mask_pick``).  Times the tall kernels
+    on 33x9 and the others on 130x8 at N = 49152 into ``times`` and
+    ``bounds``, the general mask, clear and apply launched directly there
+    beside the deep ones, and prints the deep apply's and the two windowed
+    packed kernels' times beside the kernels they replace."""
     import torch
 
     from blockpuzzle_tpu_torch.config import EnvConfig
@@ -786,21 +806,24 @@ def phase1_tall(errs: dict, times: dict, bounds: dict) -> None:
         mask_name, clear_name, apply_name, legal_name = u8_kernel_names(cfg)
         pmask_name, papply_name, pwords_name = packed_kernel_names(cfg)
         if u8:
-            mk, ck = MaskKernel(cfg, dev), ClearScanKernel(cfg, dev)
-            if (mk.name, ck.name) != (mask_name, clear_name):
-                raise AssertionError(f"{name}: the u8 wrappers picked {mk.name}, {ck.name}")
+            mk, ck, ak = MaskKernel(cfg, dev), ClearScanKernel(cfg, dev), ApplyKernel(cfg, dev)
+            if (mk.name, ck.name, ak.name) != (mask_name, clear_name, apply_name):
+                raise AssertionError(f"{name}: the u8 wrappers picked {mk.name}, {ck.name}, "
+                                     f"{ak.name}")
+            replaced_apply = general_apply(cfg, ak)
             rows = plain_rows(cfg)
         if huge:
-            ak, lk = ApplyKernel(cfg, dev), LegalityKernel(cfg, dev)
+            lk = LegalityKernel(cfg, dev)
         if packed:
             pak, pmk = PackedApplyKernel(cfg, dev), PackedMaskKernel(cfg, dev)
             if (pmk.name, pak.name, pmk.words_name) != (pmask_name, papply_name,
                                                         pwords_name):
                 raise AssertionError(f"{name}: the packed wrappers picked {pmk.name}, "
                                      f"{pak.name}, {pmk.words_name}")
-        if deep:  # the kernels the deep clear and the windowed packed mask replace
+        if deep:  # the kernels the deep clear and the windowed packed kernels replace
             general_mask, general_clear = general_calls(cfg, mk, ck)
             mask_rows = general_mask_pick(cfg, pmk, windowed=False)
+            words_rows = general_mask_pick(cfg, pmk, windowed=False, words=True)
         for n in (N_MAIN, N_MAIN - 1):
             board, queue, cover, valid, attrs, r, c = (
                 torch.as_tensor(x, device=dev) for x in kernel_inputs(cfg, n, seed=n))
@@ -817,15 +840,21 @@ def phase1_tall(errs: dict, times: dict, bounds: dict) -> None:
                                     for a, b in zip(general_clear(board), cleared)):
                     raise AssertionError(f"{clear_name} != clear_general launched directly "
                                          f"({what})")
-                line += (f" {mask_name} legal share {float(mask.float().mean()):.4f}, "
-                         f"{clear_name} k {int(cleared[1].sum())}")
-            if huge:
                 outs = ak(board, cover, valid)
-                check_equal(outs, ak.plain(board, cover, valid), what, errs, apply_name)
+                check_equal(outs, chunked(ak.plain, board, cover, valid, rows=rows), what,
+                            errs, apply_name)
+                if not all(torch.equal(a, b)
+                           for a, b in zip(replaced_apply(board, cover, valid), outs)):
+                    raise AssertionError(f"{apply_name} != apply_general launched directly "
+                                         f"({what})")
+                line += (f" {mask_name} legal share {float(mask.float().mean()):.4f}, "
+                         f"{clear_name} k {int(cleared[1].sum())}, {apply_name} legal "
+                         f"{int(outs[2].sum())} == apply_general launched directly")
+            if huge:
                 legal_all = lk(board)
                 check_equal([legal_all], [chunked(lk.plain, board, rows=rows)], what,
                             errs, legal_name)
-                line += f", {apply_name} legal {int(outs[2].sum())}, {legal_name} == plain"
+                line += f", {legal_name} == plain"
             if u8:
                 line += ": u8 kernels == plain (bit-equal)"
             if packed:
@@ -846,6 +875,9 @@ def phase1_tall(errs: dict, times: dict, bounds: dict) -> None:
                 if deep and not torch.equal(mask_rows(words, queue), pmask):
                     raise AssertionError(f"{pmask_name} != its thread-an-anchor-row kernel "
                                          f"({what})")
+                if deep and not torch.equal(words_rows(words, queue), pwords):
+                    raise AssertionError(f"{pwords_name} != its thread-an-anchor-row kernel "
+                                         f"({what})")
                 if int(pouts[1].sum()) == 0 or not bool(pouts[2].any()):
                     raise AssertionError(f"{papply_name} cleared nothing ({what})")
                 if deep:  # each pass 2 of the general apply through its own entry
@@ -853,19 +885,22 @@ def phase1_tall(errs: dict, times: dict, bounds: dict) -> None:
                         check_equal(general_apply_pass(cfg, staged)(words, attrs, r, c, valid),
                                     pouts, f"{what}, staged={staged}", errs, papply_name)
                     line += (f", {papply_name} with each pass 2 == plain, {clear_name} == "
-                             f"clear_general and {pmask_name} == its thread-an-anchor-row "
-                             "kernel, launched directly")
+                             f"clear_general and {pmask_name} and {pwords_name} == their "
+                             "thread-an-anchor-row kernels, launched directly")
                 line += (f"{';' if u8 else ''} {pmask_name} legal share "
                          f"{float(pmask.float().mean()):.4f}, "
                          f"{papply_name} legal {int(pouts[2].sum())}, lines cleared "
                          f"{int(pouts[1].sum())}: packed kernels == plain (bit-equal), "
                          f"{pwords_name} == the packed mask packed to words"
                          + (", the packed mask == the u8 mask" if u8 else ""))
-                b2, _, v2, a2, r2, col2 = (
-                    torch.as_tensor(x, device=dev) for x in illegal_on_full_line(cfg, n))
+            b2, c2, v2, a2, r2, col2 = (
+                torch.as_tensor(x, device=dev) for x in illegal_on_full_line(cfg, n))
+            noops = [ak(b2, c2, v2) + (b2,)] if u8 else []
+            if packed:
                 w2 = pack_words(b2.view(n, cfg.height, cfg.width))
-                nb, k2, l2 = pak(w2, a2, r2, col2, v2)
-                if bool(l2.any()) or int(k2.sum()) or not torch.equal(nb, w2):
+                noops.append(pak(w2, a2, r2, col2, v2) + (w2,))
+            for nb, k2, l2, before in noops:
+                if bool(l2.any()) or int(k2.sum()) or not torch.equal(nb, before):
                     raise AssertionError(f"illegal action changed a board ({what})")
             print(line)
         if name not in ("33x9", "130x8"):
@@ -876,29 +911,39 @@ def phase1_tall(errs: dict, times: dict, bounds: dict) -> None:
         args = (words, attrs, r, c, valid)
         calls = {mask_name: (lambda: mk(board, queue), lambda: mk.plain(board, queue)),
                  clear_name: (lambda: ck(board), lambda: ck.plain(board)),
+                 apply_name: (lambda: ak(board, cover, valid),
+                              lambda: ak.plain(board, cover, valid)),
                  papply_name: (lambda: pak(*args), lambda: pak.plain(*args)),
                  pmask_name: (lambda: pmk(words, queue), lambda: pmk.plain(words, queue)),
                  pwords_name: (lambda: pmk.words(words, queue),
                                lambda: pmk.plain_words(words, queue))}
-        if huge:  # the general mask and clear beside the deep ones, launched directly
-            check_equal([general_mask(board, queue)], [mk(board, queue)],
-                        f"{name}, N={N_MAIN}, launched directly", errs, "mask_general")
-            check_equal(general_clear(board), ck(board), f"{name}, N={N_MAIN}, launched "
-                        "directly", errs, "clear_general")
+        if huge:  # the general mask, clear and apply beside the deep ones, launched directly
+            what = f"{name}, N={N_MAIN}, launched directly"
+            check_equal([general_mask(board, queue)], [mk(board, queue)], what, errs,
+                        "mask_general")
+            check_equal(general_clear(board), ck(board), what, errs, "clear_general")
+            check_equal(replaced_apply(board, cover, valid), ak(board, cover, valid), what,
+                        errs, "apply_general")
             calls["mask_general"] = (lambda: general_mask(board, queue),
                                      lambda: mk.plain(board, queue))
             calls["clear_general"] = (lambda: general_clear(board), lambda: ck.plain(board))
+            calls["apply_general"] = (lambda: replaced_apply(board, cover, valid),
+                                      lambda: ak.plain(board, cover, valid))
         here = kernel_bounds(cfg, board, queue, cover, valid, words, attrs, r, c,
                              {k: f() for k, (f, _) in calls.items()})
         label = f"{'tall' if name == '33x9' else 'huge'} {name}"
         bounds.update({k: dict(b, where=label) for k, b in here.items()})
         times.update({k: (cuda_ms(f), host_paced_ms(g)) for k, (f, g) in calls.items()})
         if huge:
-            rows_ms = cuda_ms(lambda: mask_rows(words, queue))
-            print(f"[phase1] {pmask_name} {name} N={N_MAIN}: windowed kernel "
-                  f"{times[pmask_name][0]:.6f} ms, the thread-an-anchor-row kernel it "
-                  f"replaces {rows_ms:.6f} ms, launched directly on the same inputs "
-                  f"(bit-equal); bound {here[pmask_name]['bound_ms']:.6f} ms")
+            for new, old, fn in ((apply_name, "apply_general", None),
+                                 (pmask_name, "thread-an-anchor-row kernel",
+                                  lambda: mask_rows(words, queue)),
+                                 (pwords_name, "thread-an-anchor-row kernel",
+                                  lambda: words_rows(words, queue))):
+                old_ms = times[old][0] if fn is None else cuda_ms(fn)
+                print(f"[phase1] {new} {name} N={N_MAIN}: {times[new][0]:.6f} ms, the "
+                      f"{old} it replaces {old_ms:.6f} ms, launched directly on the same "
+                      f"inputs (bit-equal); bound {here[new]['bound_ms']:.6f} ms")
 
 
 # the boards phase 1 holds the step's tail (B10) and the unpack on, with a
@@ -1276,39 +1321,69 @@ def general_apply_pass(cfg, staged: bool):
     return apply
 
 
-def general_mask_pick(cfg, pmk, windowed: bool):
+def general_mask_pick(cfg, pmk, windowed: bool, words: bool = False):
     """A callable with ``PackedMaskKernel``'s arguments that launches the
     general packed mask's kernel ``windowed`` picks (the warp over windows
     of 32 rows, or the thread an anchor row) through
-    ``bp_packed_mask_general_pick``."""
+    ``bp_packed_mask_general_pick``, or with ``words`` its words entry's
+    through ``bp_packed_words_general_pick``."""
     import torch
 
     from blockpuzzle_tpu_torch.kernels import _build
 
     lib = _build.library()
+    entry = "bp_packed_words_general_pick" if words else "bp_packed_mask_general_pick"
 
-    def mask(words, queue):
-        n = words.shape[0]
-        out = torch.empty((n, cfg.queue_size * cfg.num_cells), dtype=torch.bool,
-                          device=words.device)
-        _build.check(lib.bp_packed_mask_general_pick(
-            *pmk._args(words, queue, out), int(windowed),
-            torch.cuda.current_stream(words.device).cuda_stream),
-            "bp_packed_mask_general_pick")
+    def mask(board_words, queue):
+        n = board_words.shape[0]
+        shape, dtype = ((n, cfg.queue_size * cfg.height), torch.int64) if words else (
+            (n, cfg.queue_size * cfg.num_cells), torch.bool)
+        out = torch.empty(shape, dtype=dtype, device=board_words.device)
+        _build.check(getattr(lib, entry)(
+            *pmk._args(board_words, queue, out), int(windowed),
+            torch.cuda.current_stream(board_words.device).cuda_stream), entry)
         return out
 
     return mask
+
+
+def general_apply(cfg, ak, lib=None):
+    """A callable with ``ApplyKernel``'s arguments that launches the general
+    u8 apply (``bp_apply``) on ``cfg``'s boards, whatever kernel the wrapper
+    ``ak`` picks there, with its line tables: the current library's, or
+    ``lib``'s (an earlier build's, whose ``bp_apply`` takes the same
+    arguments)."""
+    import torch
+
+    from blockpuzzle_tpu_torch.kernels import _build
+
+    lib, dev, lines = lib or _build.library(), ak.device, ak.lines
+
+    def apply(board, cover, valid):
+        n = board.shape[0]
+        out = torch.empty_like(board)
+        k = torch.empty(n, dtype=torch.int32, device=dev)
+        legal = torch.empty(n, dtype=torch.bool, device=dev)
+        _build.check(lib.bp_apply(
+            board.data_ptr(), cover.data_ptr(), valid.data_ptr(),
+            lines.line_cells.data_ptr(), lines.line_len.data_ptr(), out.data_ptr(),
+            k.data_ptr(), legal.data_ptr(), n, cfg.num_cells, lines.line_cells.shape[0],
+            lines.line_cells.shape[1], torch.cuda.current_stream(dev).cuda_stream),
+            "bp_apply")
+        return out, k, legal
+
+    return apply
 
 
 def wide_turns(card: str, tag: str, rounds: int = 5) -> None:
     """The u8 kernels of the wide board at N = 49152 on the same inputs,
     each timed by ``cuda_ms`` in turns with the others for ``rounds``
     rounds: the wide mask, the general mask launched directly on the same
-    board, the wide clear, the general clear likewise, the general apply
-    and the general legality, then again.  The wide mask and clear are
-    first held bit-equal to the general ones; each kernel's times are
-    printed in order with their median, and each wide kernel's median
-    beside the general one's."""
+    board, the wide clear, the general clear likewise, the wide apply, the
+    general apply likewise and the general legality, then again.  The wide
+    mask, clear and apply are first held bit-equal to the general ones; each
+    kernel's times are printed in order with their median, and each wide
+    kernel's median beside the general one's."""
     import torch
 
     from blockpuzzle_tpu_torch.config import EnvConfig
@@ -1320,79 +1395,92 @@ def wide_turns(card: str, tag: str, rounds: int = 5) -> None:
     cfg = EnvConfig(**WIDE)
     mk, ck = MaskKernel(cfg, dev), ClearScanKernel(cfg, dev)
     ak, lk = ApplyKernel(cfg, dev), LegalityKernel(cfg, dev)
-    if not (mk.wide and ck.wide):
+    if not (mk.wide and ck.wide and ak.kind == "wide"):
         raise AssertionError("the wrappers did not pick the wide kernels on 8x40")
     general_mask, general_clear = general_calls(cfg, mk, ck)
+    replaced_apply = general_apply(cfg, ak)
     board, queue, cover, valid = (torch.as_tensor(x, device=dev)
                                   for x in kernel_inputs(cfg, N_MAIN, seed=0)[:4])
     if not torch.equal(mk(board, queue), general_mask(board, queue)):
         raise AssertionError("mask_wide != mask_general on 8x40")
     if not all(torch.equal(a, b) for a, b in zip(ck(board), general_clear(board))):
         raise AssertionError("clear_wide != clear_general on 8x40")
+    if not all(torch.equal(a, b) for a, b in zip(ak(board, cover, valid),
+                                                replaced_apply(board, cover, valid))):
+        raise AssertionError("apply_wide != apply_general on 8x40")
     calls = {"mask_wide": lambda: mk(board, queue),
              "mask_general": lambda: general_mask(board, queue),
              "clear_wide": lambda: ck(board), "clear_general": lambda: general_clear(board),
-             "apply_general": lambda: ak(board, cover, valid),
+             "apply_wide": lambda: ak(board, cover, valid),
+             "apply_general": lambda: replaced_apply(board, cover, valid),
              "legality_general": lambda: lk(board)}
     times = {k: [] for k in calls}
     for _ in range(rounds):
         for k, f in calls.items():
             times[k].append(cuda_ms(f))
-    print(f"[{tag}] wide 8x40 N={N_MAIN}: mask_wide == mask_general and clear_wide == "
-          "clear_general, launched directly on the same inputs (bit-equal)")
+    print(f"[{tag}] wide 8x40 N={N_MAIN}: mask_wide == mask_general, clear_wide == "
+          "clear_general and apply_wide == apply_general, launched directly on the same "
+          "inputs (bit-equal)")
     for k, ts in times.items():
         print(f"[{tag}] {k} N={N_MAIN} wide 8x40, {rounds} rounds in turns with the "
               f"other kernels of the board, device ms: {', '.join(f'{t:.6f}' for t in ts)}; "
               f"median {statistics.median(ts):.6f} ({card})")
-    for k in ("mask", "clear"):
+    for k in ("mask", "clear", "apply"):
         wide, general = (statistics.median(times[f"{k}_{v}"]) for v in ("wide", "general"))
         print(f"[{tag}] {k} 8x40 medians: general {general:.6f} ms, wide {wide:.6f} ms, "
               f"{general / wide:.2f}x ({card})")
 
 
 def tall_turns(card: str, tag: str, rounds: int = 5) -> dict:
-    """The tall mask and clear at N = 49152 on 33x9 and on 40x40 (the JAX
-    engine's u8 default there), each beside the general kernel it replaces
-    launched directly on the same inputs (``general_calls``), held
-    bit-equal to it, then all four timed by ``cuda_ms`` in turns for
-    ``rounds`` rounds; prints each kernel's times with their median and
-    each tall kernel's median beside the general one's.  Returns board ->
-    kernel -> median device ms."""
+    """The tall mask, clear and apply at N = 49152 on 33x9 and on 40x40 (the
+    JAX engine's u8 default there), each beside the general kernel it
+    replaces launched directly on the same inputs (``general_calls``,
+    ``general_apply``), held bit-equal to it, then all six timed by
+    ``cuda_ms`` in turns for ``rounds`` rounds; prints each kernel's times
+    with their median and each tall kernel's median beside the general
+    one's.  Returns board -> kernel -> median device ms."""
     import torch
 
     from blockpuzzle_tpu_torch.config import EnvConfig
-    from blockpuzzle_tpu_torch.kernels import ClearScanKernel, MaskKernel
+    from blockpuzzle_tpu_torch.kernels import ApplyKernel, ClearScanKernel, MaskKernel
 
     dev = torch.device("cuda")
     medians = {}
     for name in ("33x9", "40x40"):
         cfg = EnvConfig(**TALL_U8_CASES[name])
-        mk, ck = MaskKernel(cfg, dev), ClearScanKernel(cfg, dev)
-        if (mk.name, ck.name) != ("mask_tall", "clear_tall"):
+        mk, ck, ak = MaskKernel(cfg, dev), ClearScanKernel(cfg, dev), ApplyKernel(cfg, dev)
+        if (mk.name, ck.name, ak.name) != ("mask_tall", "clear_tall", "apply_tall"):
             raise AssertionError(f"the wrappers did not pick the tall kernels on {name}")
         general_mask, general_clear = general_calls(cfg, mk, ck)
-        board, queue = (torch.as_tensor(x, device=dev)
-                        for x in kernel_inputs(cfg, N_MAIN, seed=0)[:2])
+        replaced_apply = general_apply(cfg, ak)
+        board, queue, cover, valid = (torch.as_tensor(x, device=dev)
+                                      for x in kernel_inputs(cfg, N_MAIN, seed=0)[:4])
         if not torch.equal(mk(board, queue), general_mask(board, queue)):
             raise AssertionError(f"mask_tall != mask_general on {name}")
         if not all(torch.equal(a, b) for a, b in zip(ck(board), general_clear(board))):
             raise AssertionError(f"clear_tall != clear_general on {name}")
+        if not all(torch.equal(a, b) for a, b in zip(ak(board, cover, valid),
+                                                    replaced_apply(board, cover, valid))):
+            raise AssertionError(f"apply_tall != apply_general on {name}")
         calls = {"mask_tall": lambda: mk(board, queue),
                  "mask_general": lambda: general_mask(board, queue),
-                 "clear_tall": lambda: ck(board), "clear_general": lambda: general_clear(board)}
+                 "clear_tall": lambda: ck(board), "clear_general": lambda: general_clear(board),
+                 "apply_tall": lambda: ak(board, cover, valid),
+                 "apply_general": lambda: replaced_apply(board, cover, valid)}
         times = {k: [] for k in calls}
         for _ in range(rounds):
             for k, f in calls.items():
                 times[k].append(cuda_ms(f))
-        print(f"[{tag}] tall {name} N={N_MAIN}: mask_tall == mask_general and clear_tall "
-              "== clear_general, launched directly on the same inputs (bit-equal)")
+        print(f"[{tag}] tall {name} N={N_MAIN}: mask_tall == mask_general, clear_tall "
+              "== clear_general and apply_tall == apply_general, launched directly on the "
+              "same inputs (bit-equal)")
         for k, ts in times.items():
             print(f"[{tag}] {k} N={N_MAIN} tall {name}, {rounds} rounds in turns with the "
                   f"other kernels of the board, device ms: "
                   f"{', '.join(f'{t:.6f}' for t in ts)}; median "
                   f"{statistics.median(ts):.6f} ({card})")
         medians[name] = {k: statistics.median(ts) for k, ts in times.items()}
-        for k in ("mask", "clear"):
+        for k in ("mask", "clear", "apply"):
             tall, general = (medians[name][f"{k}_{v}"] for v in ("tall", "general"))
             print(f"[{tag}] {k} {name} medians: general {general:.6f} ms, tall "
                   f"{tall:.6f} ms, {general / tall:.2f}x ({card})")

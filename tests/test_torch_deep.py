@@ -34,18 +34,22 @@ import torch
 from blockpuzzle_tpu import config as jcfg
 from blockpuzzle_tpu import kernels as jk
 from blockpuzzle_tpu.env import make_env as jax_make_env
+from blockpuzzle_tpu.env import words as jwords
 from blockpuzzle_tpu_torch import config as tcfg
 from blockpuzzle_tpu_torch import rules
 from blockpuzzle_tpu_torch.kernels import (
-    ClearScanKernel, MaskKernel, PackedApplyKernel, PackedMaskKernel,
+    ApplyKernel, ClearScanKernel, MaskKernel, PackedApplyKernel, PackedMaskKernel,
 )
 from blockpuzzle_tpu_torch.kernels.packed import (
-    MAX_TALL, SMEM_OPT_IN, deep_launch_shape, tall_block_warps, tall_smem_bytes,
+    MAX_TALL, SMEM_OPT_IN, apply_launch_shape, deep_launch_shape, tall_block_warps,
+    tall_smem_bytes,
 )
+from test_torch_kernels import apply_cases, assert_apply_cases
 from test_torch_packed import chosen_actions, jax_apply, np_words
 from test_torch_tall import (
-    emulate_clear_deep_kernel, emulate_legal_general, emulate_mask_deep_kernel,
-    emulate_packed_apply_deep, emulate_packed_mask_deep, tall_cells,
+    emulate_apply_deep_kernel, emulate_clear_deep_kernel, emulate_legal_general,
+    emulate_mask_deep_kernel, emulate_packed_apply_deep, emulate_packed_mask_deep,
+    emulate_packed_words_deep, tall_cells,
 )
 
 DEEP = {"deep129": dict(height=129, width=8), "deep130": dict(height=130, width=8),
@@ -375,3 +379,121 @@ def test_deep_clear_launch_shapes_fit():
             assert per_block * cfg.num_cells < 1 << 21
             seen += 1
     assert seen > 40
+
+
+def _deep_apply_cases(cfg, n, rng):
+    """``apply_cases`` plus 1x1 actions across the windows: one that
+    completes row 128 (env 9) and one the last row (env 10), one over a full
+    row 64 (env 11: illegal, a strict no-op), one that completes column 1,
+    full in every other row, so that only the AND across the windows finds
+    it (env 12), and, with regions, one that completes the band of rows
+    120..122 beside the full band 117..119 (env 13: both sides of the seam
+    of windows of 30 rows at 120), else one that completes row 32."""
+    t = rules.tables_for(cfg)
+    board, cover, valid = apply_cases(cfg, n, rng)
+    grid = board.reshape(n, cfg.height, cfg.width)
+    h = cfg.height
+
+    def one(env, r, c):
+        cover[env], valid[env] = t.cover[r * cfg.width + c], t.valid[r * cfg.width + c]
+
+    for env, row in ((9, 128), (10, h - 1)):
+        grid[env, row, 1:], grid[env, row, 0] = 1, 0
+        one(env, row, 0)
+    grid[11, 64, :] = 1
+    one(11, 64, 0)
+    grid[12, :, 1] = 1
+    grid[12, h - 1, 1] = 0
+    one(12, h - 1, 1)
+    if cfg.region_clear:
+        grid[13, 117:123, 3:6] = 1
+        grid[13, 120, 3] = 0
+        one(13, 120, 3)
+    else:
+        grid[13, 32, 1:], grid[13, 32, 0] = 1, 0
+        one(13, 32, 0)
+    return board, cover, valid
+
+
+@pytest.mark.parametrize("case", ["deep129", "deep130", "deep135r3"])
+def test_deep_apply_matches_pallas_apply_kernel(case):
+    """K2 on boards of more than 128 rows: the Pallas apply kernel in
+    interpret mode, the wrapper (plain version on the CPU) and the deep
+    kernel's apply instance's emulation, bit-equal: legal and illegal
+    actions, an invalid anchor, actions that complete a row in the last
+    window (1 or 2 live lanes of 32 on 129 and 130 rows) and at a seam, a
+    column only the AND across the windows finds, with regions bands on
+    both sides of a window seam, actions over a full row (strict no-ops), a
+    full board and an empty one."""
+    cj, ct = _pair(case)
+    board, cover, valid = _deep_apply_cases(ct, N, np.random.default_rng(10))
+    want = [np.asarray(x) for x in jk.ApplyKernel(cj, tile_n=N)(
+        jnp.asarray(board), jnp.asarray(cover), jnp.asarray(valid), interpret=True)]
+    ak = ApplyKernel(ct, "cpu")
+    assert (ak.kind, ak.name, ak.shape) == ("deep", "apply_deep", apply_launch_shape(ct))
+    got = ak(torch.as_tensor(board), torch.as_tensor(cover), torch.as_tensor(valid))
+    emu = emulate_apply_deep_kernel(ct, board, cover, valid, ak)
+    for i, name in enumerate(("board", "k", "legal")):
+        np.testing.assert_array_equal(got[i].numpy(), want[i], name)
+        np.testing.assert_array_equal(emu[i], want[i], name)
+    assert_apply_cases(ct, board, want)
+    new_board, k, legal = want
+    h, grid = ct.height, new_board.reshape(N, ct.height, ct.width)
+    for env, row in ((9, 128), (10, h - 1)):
+        assert legal[env] and k[env] >= 1 and not grid[env, row].any(), env
+    assert not legal[11] and k[11] == 0 and grid[11, 64].all()
+    assert legal[12] and k[12] >= 1 and not grid[12, :, 1].any()
+    if ct.region_clear:
+        assert legal[13] and k[13] >= 2 and not grid[13, 117:123, 3:6].any()
+    else:
+        assert legal[13] and k[13] >= 1 and not grid[13, 32].any()
+    assert ak.deep_launches == ak.general_launches == 0
+
+
+@pytest.mark.parametrize("case", ["deep130", "deep135r3"])
+@pytest.mark.parametrize("addr", [3, 13])
+def test_deep_apply_emulation_takes_any_address(case, addr):
+    """Boards and covers off a 16-byte boundary, each at its own offset: the
+    deep apply's emulation stages both spans' unaligned heads and tails
+    byte by byte (on 135x9 a block's output span also starts off a
+    boundary) and still equals the plain version."""
+    _, ct = _pair(case)
+    board, cover, valid = _deep_apply_cases(ct, N, np.random.default_rng(addr))
+    ak = ApplyKernel(ct, "cpu")
+    want = ak(torch.as_tensor(board), torch.as_tensor(cover), torch.as_tensor(valid))
+    for cover_addr in (addr, (addr + 7) % 16):
+        emu = emulate_apply_deep_kernel(ct, board, cover, valid, ak, addr, cover_addr)
+        for e, p in zip(emu, want):
+            np.testing.assert_array_equal(e, p.numpy())
+
+
+@pytest.mark.parametrize("case", ["deep130", "deep135r3", "deep257"])
+@pytest.mark.parametrize("addr", [0, 5])
+def test_deep_packed_words_match_jax_legal_words(case, addr):
+    """B7w on boards of more than 128 rows: JAX's ``legal_words`` on the
+    envs whose hand ids lie in [0, P], the wrapper's words entry (plain
+    version) and the windowed kernel's words instance's emulation on every
+    env, its output ``addr`` int64 words into a larger buffer, also
+    against the thread-an-anchor-row kernel (``legal_row_general``) it
+    replaces: a 1x5 bar on an empty board down to its last legal row H - 5,
+    a full board, ids outside [0, P) as empty slots."""
+    _, ct = _pair(case)
+    words, queue = _packed_mask_inputs(ct, np.random.default_rng(11 + addr))
+    num_pieces = rules.tables_for(ct).num_pieces
+    dealt = ((queue >= 0) & (queue <= num_pieces)).all(axis=1)
+    want = np.asarray(jwords.legal_words(
+        jax_packed_engine(case), jnp.asarray(words),
+        jnp.asarray(np.clip(queue, 0, num_pieces)))).astype(np.int64)
+    mk = PackedMaskKernel(ct, "cpu")
+    assert (mk.kind, mk.words_name) == ("general", "packed_legal_words_general")
+    got = mk.words(torch.as_tensor(words.astype(np.int64)), torch.as_tensor(queue)).numpy()
+    np.testing.assert_array_equal(got[dealt], want[dealt])
+    np.testing.assert_array_equal(emulate_packed_words_deep(ct, words, queue, mk, addr), got)
+    np.testing.assert_array_equal(emulate_legal_general(ct, words, queue, mk).reshape(N, -1),
+                                  got)
+    h = ct.height
+    bar = got[N - 2, :h]
+    last = h - rules.tables_for(ct).piece_h[4]
+    assert (bar[: last + 1] & 1).all() and not bar[last + 1 :].any()
+    assert not got[[0, N - 1]].any() and 0 < (got != 0).mean() < 1
+    assert mk.words_general_launches == 0

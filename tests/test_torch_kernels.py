@@ -45,7 +45,8 @@ from blockpuzzle_tpu_torch.kernels.collision import (
 )
 from blockpuzzle_tpu_torch.kernels.mask import piece_rows_table
 from blockpuzzle_tpu_torch.kernels.packed import (
-    deep_launch_shape, mask_block_warps, tall_launch_shape, wide_launch_shape,
+    apply_launch_shape, apply_smem_bytes, deep_launch_shape, mask_block_warps,
+    tall_launch_shape, wide_launch_shape,
 )
 from test_torch_packed import (
     U32, _ballot, _popc, _reduce, _shfl, _shl32, _small_div, _spread4, _warp_layout,
@@ -100,6 +101,56 @@ def apply_inputs(cfg, n, rng, fill=0.4):
     g = rng.integers(0, t.cover.shape[0], n)      # incl. invalid anchors
     g[3::4] = 4 * cfg.width                        # 1x1 at (4, 0): clears row 4
     return board, t.cover[g], t.valid[g]
+
+
+def apply_cases(cfg, n, rng, fill=0.4):
+    """``apply_inputs`` (legal and illegal actions, invalid anchors) plus
+    crafted envs, 1x1 actions all (piece 0): one that completes row
+    min(4, H - 1) (env 5), one over a full row 0 (env 6: illegal, a strict
+    no-op although the row is full), an invalid anchor (env 7), with regions
+    one that completes a region of rows 0 .. rs - 1 whose columns straddle
+    the first two words where a row is wider than 32 (env 8), a full board
+    (the last: its action illegal) and an empty one (legal)."""
+    t = rules.tables_for(cfg)
+    assert t.piece_cells[0] == 1
+    board, cover, valid = apply_inputs(cfg, n, rng, fill)
+    grid = board.reshape(n, cfg.height, cfg.width)
+
+    def one(env, r, c):
+        cover[env], valid[env] = t.cover[r * cfg.width + c], t.valid[r * cfg.width + c]
+
+    r4 = min(4, cfg.height - 1)
+    grid[5, r4, 1:], grid[5, r4, 0] = 1, 0
+    one(5, r4, 0)
+    grid[6, 0, :] = 1
+    one(6, 0, 0)
+    bad = np.flatnonzero(~t.valid)[0]
+    cover[7], valid[7] = t.cover[bad], False
+    if cfg.region_clear:
+        rs = cfg.region_size
+        c0 = 32 // rs * rs if cfg.width > 32 else 0
+        grid[8, :rs, c0 : c0 + rs] = 1
+        grid[8, 0, c0] = 0
+        one(8, 0, c0)
+    board[n - 1], board[n - 2] = 1, 0
+    one(n - 2, min(2, cfg.height - 1), min(2, cfg.width - 1))
+    return board, cover, valid
+
+
+def assert_apply_cases(cfg, board, want):
+    """What ``apply_cases``' crafted envs must give: (board, k, legal)."""
+    new_board, k, legal = want
+    n, grid = len(board), new_board.reshape(len(board), cfg.height, cfg.width)
+    r4 = min(4, cfg.height - 1)
+    assert legal[5] and k[5] >= 1 and not grid[5, r4].any()
+    for env in (6, 7, n - 1):
+        assert not legal[env] and k[env] == 0 and (new_board[env] == board[env]).all()
+    if cfg.region_clear:
+        rs = cfg.region_size
+        c0 = 32 // rs * rs if cfg.width > 32 else 0
+        assert legal[8] and k[8] >= 1 and not grid[8, :rs, c0 : c0 + rs].any()
+    assert legal[n - 2] and new_board[n - 2].sum() == 1 and k[n - 2] == 0
+    assert legal.any() and (~legal).any()
 
 
 def emulate_mask_kernel(cfg, board, queue):
@@ -647,30 +698,58 @@ def emulate_clear_words(x, active, l, sw, lane, base, segmask, h, w, rs):
     return cleared, k
 
 
-def emulate_clear_wide_kernel(cfg, board, ck, addr=0):
+def emulate_clear_wide_kernel(cfg, board, ck, addr=0, apply=None):
     """csrc/clear.cu clear_wide_kernel on ``ck``'s launch shape: a segment
     of H lanes per env, lane = a row of NW words, through
-    ``clear_words``, stored by ``store_words``."""
+    ``clear_words``, stored by ``store_words``.  Its apply instance, given
+    ``apply = (cover, valid, cover_addr)``: the cover span staged beside the
+    board span (each at its own offset from a 16-byte boundary), a cover
+    word packed beside each board word, overlap by one ballot over the
+    segment, ``clear_words`` on the placed words; an illegal env keeps its
+    input words (beside the placed ones in each lane) and k = 0.  Returns
+    (board, k), and legal for the apply."""
     h, w, hw, n = cfg.height, cfg.width, cfg.num_cells, len(board)
     nw = -(-w // 32)
     rs = cfg.region_size if cfg.region_clear else 0
     per_block, l, sw, lane, base, segmask, seg = _block_layout(h, ck.shape)
     out, ks = np.full(n * hw, 2, np.uint8), np.full(n, -1, np.int64)
+    legals = np.full(n, -1, np.int64)
     for first in range(0, n, per_block):
         count = min(per_block, n - first)
-        buf, d = emulate_stage_bytes(board.reshape(-1), first * hw, (first + count) * hw, addr)
+        lo, hi = first * hw, (first + count) * hw
+        buf, d = emulate_stage_bytes(board.reshape(-1), lo, hi, addr)
         active = (sw < ck.shape[0]) & (seg < count)
-        x = [np.where(active, a, U32)
-             for a in emulate_pack_words(buf, d + seg * hw + lane * w, w, active)]
+        at = seg * hw + lane * w
+        x = [np.where(active, a, U32) for a in emulate_pack_words(buf, d + at, w, active)]
+        x_in, legal = x, np.ones_like(active)                        # the input words
+        if apply is not None:
+            cover, valid, cover_addr = apply
+            covers, dc = emulate_stage_bytes(cover.reshape(-1), lo, hi, cover_addr)
+            y = emulate_pack_words(covers, dc + at, w, active)       # 0: no env
+            hit = np.logical_or.reduce([(a & b) != 0 for a, b in zip(x, y)])
+            ok = active & valid[first + np.where(active, seg, 0)]
+            legal = ok & ((_ballot(hit) & segmask) == 0)
+            x = [a | b for a, b in zip(x, y)]
         cleared, k = emulate_clear_words(x, active, l, sw, lane, base, segmask, h, w, rs)
         rows = np.full(per_block * h * nw, -1, np.int64)
         for i in range(nw):
-            rows[((seg * h + lane) * nw + i)[active]] = cleared[i][active]
+            rows[((seg * h + lane) * nw + i)[active]] = np.where(
+                legal, cleared[i], x_in[i])[active]
         head = active & (lane == 0)
-        ks[first + seg[head]] = k[head]
-        emulate_store_words(rows, out, first * hw, count * hw, w, nw)
+        ks[first + seg[head]] = np.where(legal, k, 0)[head]
+        legals[first + seg[head]] = legal[head]
+        emulate_store_words(rows, out, lo, count * hw, w, nw)
     assert (out < 2).all() and (ks >= 0).all()
-    return out.reshape(n, hw), ks.astype(np.int32)
+    if apply is None:
+        return out.reshape(n, hw), ks.astype(np.int32)
+    assert (legals >= 0).all()
+    return out.reshape(n, hw), ks.astype(np.int32), legals.astype(bool)
+
+
+def emulate_apply_wide_kernel(cfg, board, cover, valid, ak, addr=0, cover_addr=0):
+    """csrc/clear.cu clear_wide_kernel's apply instance on ``ak``'s launch
+    shape (``emulate_clear_wide_kernel``): (board, k, legal)."""
+    return emulate_clear_wide_kernel(cfg, board, ak, addr, (cover, valid, cover_addr))
 
 
 @pytest.mark.parametrize("preset", MASK_CASES)
@@ -744,9 +823,9 @@ def test_apply_kernels_match_pallas_apply_kernel(preset, n, rng):
     tile of n).  Legal and illegal actions, invalid anchors, an action that
     completes a row, a full and an empty board, a board holding a full 3x3
     region crossed by a full row under a 1x1 placed beside them, and an
-    action that overlaps a board's full row (a strict no-op).  Both
-    kernels' emulations where the wrapper picks the bit-row kernel, the
-    general one's elsewhere."""
+    action that overlaps a board's full row (a strict no-op).  The general
+    kernel's emulation on every board, and the bit-row or wide kernel's
+    where the wrapper picks it."""
     cj, ct = _pair(preset)
     t = rules.tables_for(ct)
     board, cover, valid = apply_inputs(ct, n, rng)
@@ -765,8 +844,9 @@ def test_apply_kernels_match_pallas_apply_kernel(preset, n, rng):
     ak = ApplyKernel(ct, "cpu")
     got = ak(torch.as_tensor(board), torch.as_tensor(cover), torch.as_tensor(valid))
     emus = [emulate_apply_kernel(ct, board, cover, valid)]
-    if ak.shape is not None:
-        emus.append(emulate_apply_rows_kernel(ct, board, cover, valid, ak))
+    if ak.kind != "general":
+        emulate = emulate_apply_rows_kernel if ak.kind == "rows" else emulate_apply_wide_kernel
+        emus.append(emulate(ct, board, cover, valid, ak))
     for i, name in enumerate(("board", "k", "legal")):
         np.testing.assert_array_equal(got[i].numpy(), want[i], name)
         for emu in emus:
@@ -778,6 +858,49 @@ def test_apply_kernels_match_pallas_apply_kernel(preset, n, rng):
     assert legal[n - 2] and new_board[n - 2].sum() == 1
     assert legal[3] and k[3] >= 1 and not new_board[3].reshape(grid.shape[1:])[4].any()
     assert (ak.launches, ak.general_launches) == (0, 0)
+
+
+@pytest.mark.parametrize("case", WIDE_CASES)
+@pytest.mark.parametrize("n", [16, 11])
+def test_apply_wide_matches_pallas_apply_kernel(case, n, rng):
+    """K2 on rows of 33 to 128 cells: the Pallas apply kernel in interpret
+    mode (the ragged N as one tile of n), the wrapper (plain version on the
+    CPU) and the wide kernel's apply instance's emulation, bit-equal, on
+    ``apply_cases``: legal and illegal actions, an invalid anchor, an action
+    that completes a row, one over a full row (a strict no-op), on 9x36 one
+    that completes a 3x3 region across the row's two words, a full board
+    and an empty one."""
+    cj, ct = _pair(case)
+    board, cover, valid = apply_cases(ct, n, rng)
+    want = [np.asarray(x) for x in jk.ApplyKernel(cj, tile_n=8 if n % 8 == 0 else n)(
+        jnp.asarray(board), jnp.asarray(cover), jnp.asarray(valid), interpret=True)]
+    ak = ApplyKernel(ct, "cpu")
+    assert (ak.kind, ak.name, ak.shape) == ("wide", "apply_wide", wide_launch_shape(ct))
+    got = ak(torch.as_tensor(board), torch.as_tensor(cover), torch.as_tensor(valid))
+    emu = emulate_apply_wide_kernel(ct, board, cover, valid, ak)
+    for i, name in enumerate(("board", "k", "legal")):
+        np.testing.assert_array_equal(got[i].numpy(), want[i], name)
+        np.testing.assert_array_equal(emu[i], want[i], name)
+    assert_apply_cases(ct, board, want)
+    assert ak.wide_launches == ak.general_launches == 0
+
+
+@pytest.mark.parametrize("case", ["wide40", "wide36r3", "wide100"])
+@pytest.mark.parametrize("addr", [3, 13])
+def test_apply_wide_emulation_takes_any_address(case, addr):
+    """Boards and covers that start off a 16-byte boundary, each at its own
+    offset: the wide apply's emulation stages both spans' unaligned heads
+    and tails byte by byte and still equals the plain version (N = 13: the
+    last block short of its envs)."""
+    _, ct = _pair(case)
+    n, r = 13, np.random.default_rng(addr)
+    board, cover, valid = apply_cases(ct, n, r)
+    ak = ApplyKernel(ct, "cpu")
+    want = ak(torch.as_tensor(board), torch.as_tensor(cover), torch.as_tensor(valid))
+    for cover_addr in (addr, (addr + 7) % 16):
+        emu = emulate_apply_wide_kernel(ct, board, cover, valid, ak, addr, cover_addr)
+        for e, p in zip(emu, want):
+            np.testing.assert_array_equal(e, p.numpy())
 
 
 @pytest.mark.parametrize("preset", MASK_CASES)
@@ -967,21 +1090,22 @@ def test_wrappers_never_fall_back_off_cpu():
             k(board)
     with pytest.raises(ValueError, match="kernel tables on cpu"):
         ApplyKernel(cfg, "cpu")(board, board, torch.ones(4, dtype=torch.bool, device=meta))
-    # the same on a board that takes the wide mask and clear and the general
-    # apply and legality, on one that takes the tall mask and clear and the
-    # general apply and legality, on one that takes the deep mask and clear
-    # and the general apply and legality, and on one that takes the general
-    # kernels of all four
-    for shape, kinds in ((WIDE40, ("wide", "wide")), (dict(height=33, width=9), ("tall",) * 2),
-                         (dict(height=130, width=9), ("deep", "deep")),
-                         (dict(height=8, width=136), ("general", "general"))):
+    # the same on a board that takes the wide mask, clear and apply and the
+    # general legality, on one that takes the tall mask, clear and apply and
+    # the general legality, on one that takes the deep mask, clear and apply
+    # and the general legality, and on one that takes the general kernels of
+    # all four
+    for shape, kinds in ((WIDE40, ("wide",) * 3), (dict(height=33, width=9), ("tall",) * 3),
+                         (dict(height=130, width=9), ("deep",) * 3),
+                         (dict(height=8, width=136), ("general",) * 3)):
         cfg = tcfg.EnvConfig(**shape)
         board = torch.zeros(4, cfg.num_cells, dtype=torch.uint8, device=meta)
-        mk, ck = MaskKernel(cfg, meta), ClearScanKernel(cfg, meta)
-        assert (mk.kind, ck.kind) == kinds and mk.wide == ck.wide == (kinds[0] == "wide")
-        assert (mk.shape is not None, ck.shape is not None) == tuple(
+        mk, ck, ak = MaskKernel(cfg, meta), ClearScanKernel(cfg, meta), ApplyKernel(cfg, meta)
+        assert (mk.kind, ck.kind, ak.kind) == kinds
+        assert mk.wide == ck.wide == (kinds[0] == "wide")
+        assert (mk.shape is not None, ck.shape is not None, ak.shape is not None) == tuple(
             k != "general" for k in kinds)
-        assert ApplyKernel(cfg, meta).shape is None and LegalityKernel(cfg, meta).shape is None
+        assert LegalityKernel(cfg, meta).shape is None
         with pytest.raises(ValueError, match="no mask kernel"):
             mk(board, queue)
         with pytest.raises(ValueError, match="no clear kernel"):
@@ -1020,14 +1144,15 @@ def test_u8_wrappers_pick_their_kernel_by_shape(case):
     W <= 32: the first three with B7's launch shape, the mask with the
     rectangle piece table, the legality with four warps a block, its own
     table and a block that fits a plain launch's shared memory; the wide
-    mask and clear where H <= 32 and 32 < W <= 128, with the same launch
-    shape rule and the rectangle piece table, beside the general apply and
-    legality; the tall mask and clear where 32 < H <= 128 (one board a
-    warp, ``tall_launch_shape``, the rectangle piece table) beside the
-    general apply and legality; on a board taller than that the deep mask
-    and clear (``deep_launch_shape``, the mask with the rectangle piece
-    table) and the general apply and legality, with the per-cell piece
-    table."""
+    mask, clear and apply where H <= 32 and 32 < W <= 128, with the same
+    launch shape rule and the rectangle piece table, beside the general
+    legality; the tall mask, clear and apply where 32 < H <= 128 (one board
+    a warp, ``tall_launch_shape``, the rectangle piece table) beside the
+    general legality; on a board taller than that the deep mask, clear and
+    apply (``deep_launch_shape``, the mask with the rectangle piece table)
+    and the general legality, with the per-cell piece table.  The apply's
+    launch shape is ``apply_launch_shape``: the clear's where a block's two
+    staged spans fit, fewer turns or warps where not."""
     cfg = (tcfg.EnvConfig(height=33, width=9) if case == "tall33"
            else tcfg.EnvConfig(height=130, width=9) if case == "tall130"
            else _pair(case)[1])
@@ -1038,20 +1163,24 @@ def test_u8_wrappers_pick_their_kernel_by_shape(case):
     tall = 32 < cfg.height <= 128 and cfg.width <= 128
     deep = cfg.height > 128 and cfg.width <= 128
     assert [k.shape is not None for k in (mk, ck, ak, lk)] == (
-        [rows or wide or tall or deep] * 2 + [rows] * 2)
+        [rows or wide or tall or deep] * 3 + [rows])
     assert mk.wide == ck.wide == wide
     assert lk.shape == legality_launch_shape(cfg)
     kind = "rows" if rows else "wide" if wide else "tall" if tall else "deep"
-    assert (mk.kind, ck.kind) == (kind, kind)
-    assert (mk.name, ck.name) == tuple(k + {"rows": ""}.get(kind, "_" + kind)
-                                       for k in ("mask", "clear"))
+    assert (mk.kind, ck.kind, ak.kind) == (kind, kind, kind)
+    assert (mk.name, ck.name, ak.name) == tuple(k + {"rows": ""}.get(kind, "_" + kind)
+                                                for k in ("mask", "clear", "apply"))
+    assert ak.shape == apply_launch_shape(cfg)
+    if kind != "rows":
+        assert ("bp_" + ak.name) in _build.SIGNATURES
+        assert apply_smem_bytes(cfg, ak.shape[0] * ak.shape[1]) <= 227 * 1024
     if tall:
         assert mk.shape == ck.shape == tall_launch_shape(cfg) == (4, 16)
         np.testing.assert_array_equal(mk.piece_table.numpy(), piece_rows_table(cfg))
         np.testing.assert_array_equal(lk.piece_table.numpy(), piece_table(cfg))
     elif wide:
         shape = (32 // cfg.height, mask_block_warps(cfg.height, cfg.width))
-        assert mk.shape == ck.shape == wide_launch_shape(cfg) == shape
+        assert mk.shape == ck.shape == ak.shape == wide_launch_shape(cfg) == shape
         np.testing.assert_array_equal(mk.piece_table.numpy(), piece_rows_table(cfg))
         np.testing.assert_array_equal(lk.piece_table.numpy(), piece_table(cfg))
     elif rows:

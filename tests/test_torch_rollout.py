@@ -232,11 +232,11 @@ def test_sampler_picks_legal_actions_uniformly():
 # ---------------------------------------------------------------- card ---
 
 
-# boards beyond the presets: 40 cells a row (the wide mask and clear, the
-# general apply and legality), 33 and 36 rows (the tall mask and clear, the
-# general apply and legality; 3x3 regions across the lane seam and a hand of
-# three on 36x9), 130 and 135 rows (the deep mask and clear, the general
-# apply and legality; 3x3 regions in windows of 30 rows and a hand of three
+# boards beyond the presets: 40 cells a row (the wide mask, clear and
+# apply, the general legality), 33 and 36 rows (the tall mask, clear and
+# apply, the general legality; 3x3 regions across the lane seam and a hand
+# of three on 36x9), 130 and 135 rows (the deep mask, clear and apply, the
+# general legality; 3x3 regions in windows of 30 rows and a hand of three
 # on 135x9)
 BOARDS = {"wide40": dict(height=8, width=40), "tall33": dict(height=33, width=9),
           "tall36r3": dict(height=36, width=9, region_clear=True, region_size=3,
@@ -252,12 +252,12 @@ def test_kernels_match_plain_versions_on_the_card(preset, cuda_device):
     """The u8 kernels against their plain versions at the rollout's N and
     at N - 1 (a ragged last block): the bit-row mask, clear, apply and
     legality on the presets; on a board of 8 rows of 40 cells (too wide for
-    a row word) the wide mask and clear and the general apply and
-    legality; on boards of 33 and 36 rows the tall mask and clear and the
-    general apply and legality; on 130 and 135 rows the deep mask and
-    clear (a warp an env-slot or env over windows of 32 rows, 30 with 3x3
-    regions) and the general apply and legality (at N = 4096: the plain
-    versions' products grow with the square of the cells)."""
+    a row word) the wide mask, clear and apply and the general legality; on
+    boards of 33 and 36 rows the tall mask, clear and apply and the general
+    legality; on 130 and 135 rows the deep mask, clear and apply (a warp an
+    env-slot or env over windows of 32 rows, 30 with 3x3 regions) and the
+    general legality (at N = 4096: the plain versions' products grow with
+    the square of the cells)."""
     from blockpuzzle_tpu_torch import rules
     from blockpuzzle_tpu_torch.config import EnvConfig
     from blockpuzzle_tpu_torch.kernels import (
@@ -298,25 +298,24 @@ def test_kernels_match_plain_versions_on_the_card(preset, cuda_device):
     kinds = {"wide40": ("wide", "wide"), "huge130": ("deep", "deep"),
              "deep135r3": ("deep", "deep")}.get(
         preset, ("rows", "rows") if preset in PRESETS else ("tall", "tall"))
-    assert (mk.kind, ck.kind) == kinds
-    for k, kind in zip((mk, ck), kinds):
+    assert (mk.kind, ck.kind, ak.kind) == kinds + kinds[:1]
+    for k, kind in zip((mk, ck, ak), kinds + kinds[:1]):
         assert (k.launches, k.wide_launches, k.tall_launches, k.deep_launches,
                 k.general_launches) == tuple(
             calls * (kind == v) for v in ("rows", "wide", "tall", "deep", "general"))
-    for k in (ak, lk):
-        assert (k.launches, k.general_launches) == (calls * rows, calls * (not rows))
+    assert (lk.launches, lk.general_launches) == (calls * rows, calls * (not rows))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("offset", [0, 3, 8, 13])
 def test_wide_kernels_take_an_unaligned_board_on_the_card(offset, cuda_device):
     """Boards of 40 and of 36 cells a row (3x3 regions, a hand of three)
-    that start ``offset`` bytes past a 16-byte boundary: the wide mask and
-    clear stage an unaligned head and tail byte by byte and still equal
-    their plain versions."""
+    that start ``offset`` bytes past a 16-byte boundary: the wide mask,
+    clear and apply (its cover at another offset) stage an unaligned head
+    and tail byte by byte and still equal their plain versions."""
     from blockpuzzle_tpu_torch import rules
     from blockpuzzle_tpu_torch.config import EnvConfig
-    from blockpuzzle_tpu_torch.kernels import ClearScanKernel, MaskKernel
+    from blockpuzzle_tpu_torch.kernels import ApplyKernel, ClearScanKernel, MaskKernel
 
     for shape in (dict(height=8, width=40), dict(height=9, width=36, region_clear=True,
                                                  region_size=3, queue_size=3)):
@@ -334,13 +333,22 @@ def test_wide_kernels_take_an_unaligned_board_on_the_card(offset, cuda_device):
         queue = torch.as_tensor(
             r.integers(0, t.num_pieces + 1, (n, cfg.queue_size)).astype(np.int32),
             device=cuda_device)
+        g = r.integers(0, t.cover.shape[0], n)
+        cstore = torch.zeros(n * hw + 16, dtype=torch.uint8, device=cuda_device)
+        at = (offset + 7) % 16
+        cover = cstore[at : at + n * hw].view(n, hw)
+        cover.copy_(torch.as_tensor(t.cover[g], device=cuda_device))
+        valid = torch.as_tensor(t.valid[g], device=cuda_device)
         mk, ck = MaskKernel(cfg, cuda_device), ClearScanKernel(cfg, cuda_device)
+        ak = ApplyKernel(cfg, cuda_device)
         assert torch.equal(mk(board, queue), mk.plain(board, queue))
         for o, p in zip(ck(board), ck.plain(board)):
             assert torch.equal(o, p)
+        for o, p in zip(ak(board, cover, valid), ak.plain(board, cover, valid)):
+            assert torch.equal(o, p)
         torch.cuda.synchronize()
-        assert [k.wide_launches for k in (mk, ck)] == [1, 1]
-        assert [k.launches + k.general_launches for k in (mk, ck)] == [0, 0]
+        assert [k.wide_launches for k in (mk, ck, ak)] == [1, 1, 1]
+        assert [k.launches + k.general_launches for k in (mk, ck, ak)] == [0, 0, 0]
 
 
 @pytest.mark.gpu

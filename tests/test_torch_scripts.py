@@ -638,19 +638,23 @@ COUNTED_ENGINES = {
     "packed": (dict(), "default", ("packed_apply", "packed_mask", "packed_tail")),
     "u8_pallas": (dict(backend="pallas", state_impl="u8"), "default", ("mask", "apply")),
     "u8_jnp": (dict(backend="jnp", state_impl="u8"), "tenten", ("mask", "clear")),
-    # a board of 40 cells a row: the wide mask and clear, the general apply
-    "wide_u8_pallas": (dict(backend="pallas"), "wide", ("mask_wide", "apply_general")),
+    # a board of 40 cells a row: the wide mask, clear and apply
+    "wide_u8_pallas": (dict(backend="pallas"), "wide", ("mask_wide", "apply_wide")),
     "wide_u8_jnp": (dict(backend="jnp"), "wide", ("mask_wide", "clear_wide")),
     # a board of 33 rows: the tall mask and clear on u8 boards, the tall
     # packed apply and mask on the default (packed) engine
     "tall_u8_jnp": (dict(backend="jnp", state_impl="u8"), "tall",
                     ("mask_tall", "clear_tall")),
+    "tall_u8_pallas": (dict(backend="pallas", state_impl="u8"), "tall",
+                       ("mask_tall", "apply_tall")),
     "tall_packed": (dict(), "tall", ("packed_apply_tall", "packed_mask_tall",
                                      "packed_tail")),
-    # a board of 130 rows: the deep u8 mask and clear, the general packed
-    # kernels
+    # a board of 130 rows: the deep u8 mask, clear and apply, the general
+    # packed kernels
     "huge_u8_jnp": (dict(backend="jnp", state_impl="u8"), "huge",
                     ("mask_deep", "clear_deep")),
+    "huge_u8_pallas": (dict(backend="pallas", state_impl="u8"), "huge",
+                       ("mask_deep", "apply_deep")),
     "huge_packed": (dict(), "huge", ("packed_apply_general", "packed_mask_general",
                                      "packed_tail")),
 }

@@ -45,10 +45,12 @@ from blockpuzzle_tpu_torch.kernels import (
     _build,
 )
 from blockpuzzle_tpu_torch.kernels.packed import (
-    SMEM_OPT_IN, U32, deep_launch_shape, tall_block_warps, tall_launch_shape, tall_smem_bytes,
+    SMEM_OPT_IN, U32, apply_launch_shape, apply_smem_bytes, deep_launch_shape,
+    tall_block_warps, tall_launch_shape, tall_smem_bytes,
 )
 from test_torch_kernels import (
-    _fshr, _shr_words, emulate_pack_row, emulate_smear_words, emulate_stage_bytes,
+    _fshr, _shr_words, apply_cases, assert_apply_cases, emulate_pack_row, emulate_pack_words,
+    emulate_smear_words, emulate_stage_bytes,
 )
 from test_torch_packed import (
     _popc, _shl32, _small_div, _spread4, chosen_actions, crafted_cells, jax_apply,
@@ -577,12 +579,17 @@ def emulate_mask_deep_kernel(cfg, board, queue, mk, addr=0):
     return out.reshape(n, s * hw).astype(bool)
 
 
-def emulate_clear_tall_kernel(cfg, board, ck, addr=0):
+def emulate_clear_tall_kernel(cfg, board, ck, addr=0, apply=None):
     """csrc/clear.cu clear_tall_kernel on ``ck``'s launch shape: a warp an
     env at a time, ``per_warp`` turns each from one staged span of the
     block's envs (every turn at once here), its rows packed from the span
     (rows past the bottom all ones), through ``clear_tall``, stored by
-    ``store_tall``."""
+    ``store_tall``.  Its apply instance, given ``apply = (cover, valid,
+    cover_addr)``: the cover span staged beside the board span, a cover word
+    packed beside each board word, overlap by one ``__any_sync`` over every
+    slot; a legal env's warp ORs the cover words in and runs the clear, an
+    illegal env's skips it and keeps its input words, k = 0.
+    Returns (board, k), and legal for the apply."""
     h, w, hw, n = cfg.height, cfg.width, cfg.num_cells, len(board)
     nw, nr = -(-w // 32), -(-h // 32)
     rs = cfg.region_size if cfg.region_clear else 0
@@ -591,28 +598,52 @@ def emulate_clear_tall_kernel(cfg, board, ck, addr=0):
     rows = _slot_rows(nr)[None]
     seg = _turns(per_warp, warps)
     out, ks = np.full(n * hw, 2, np.uint8), np.full(n, -1, np.int64)
+    legals = np.full(n, -1, np.int64)
     for first in range(0, n, per_block):
         count = min(per_block, n - first)
-        buf, d = emulate_stage_bytes(board.reshape(-1), first * hw, (first + count) * hw, addr)
+        lo, hi = first * hw, (first + count) * hw
+        buf, d = emulate_stage_bytes(board.reshape(-1), lo, hi, addr)
         active = seg[:, 0, 0] < count
         live = np.broadcast_to(active[:, None, None] & (rows < h), (per_block, nr, 32))
-        at = np.broadcast_to(d + seg * hw + np.minimum(rows, h - 1) * w, live.shape)
-        x = [np.where(live, emulate_pack_row(buf, at + 32 * i, min(32, w - 32 * i), live), U32)
-             for i in range(nw)]
+        at = np.broadcast_to(seg * hw + np.minimum(rows, h - 1) * w, live.shape)
+
+        def pack(span, start):
+            return [emulate_pack_row(span, start + 32 * i, min(32, w - 32 * i), live)
+                    for i in range(nw)]
+
+        x = [np.where(live, a, U32) for a in pack(buf, d + at)]
+        x_in, legal = x, active.copy()                           # the input words
+        if apply is not None:
+            cover, valid, cover_addr = apply
+            covers, dc = emulate_stage_bytes(cover.reshape(-1), lo, hi, cover_addr)
+            y = pack(covers, dc + at)                            # 0: no row
+            hit = np.logical_or.reduce([(a & b) != 0 for a, b in zip(x, y)]).any(axis=(1, 2))
+            legal = active & ~hit & valid[first + np.where(active, seg[:, 0, 0], 0)]
+            x = [a | b for a, b in zip(x, y)]
         cleared, k = emulate_clear_tall(x, active, h, w, rs)
         staged = np.full(per_block * h * nw, -1, np.int64)
         for i in range(nw):
             at_row = np.broadcast_to((seg * h + rows) * nw + i, live.shape)
-            staged[at_row[live]] = cleared[i][live]
-        for e, kk in zip(seg[:, 0, 0][active], k[active]):
+            staged[at_row[live]] = np.where(legal[:, None, None], cleared[i], x_in[i])[live]
+        for e, kk, ok in zip(seg[:, 0, 0][active], k[active], legal[active]):
             assert ks[first + e] == -1                        # one lane 0 writes k
-            ks[first + e] = kk
-        emulate_store_tall(staged, out, first * hw, count * hw, w, nw)
+            ks[first + e] = kk if ok else 0
+            legals[first + e] = ok
+        emulate_store_tall(staged, out, lo, count * hw, w, nw)
     assert (out < 2).all() and (ks >= 0).all()
-    return out.reshape(n, hw), ks.astype(np.int32)
+    if apply is None:
+        return out.reshape(n, hw), ks.astype(np.int32)
+    assert (legals >= 0).all()
+    return out.reshape(n, hw), ks.astype(np.int32), legals.astype(bool)
 
 
-def emulate_clear_deep_kernel(cfg, board, ck, addr=0):
+def emulate_apply_tall_kernel(cfg, board, cover, valid, ak, addr=0, cover_addr=0):
+    """csrc/clear.cu clear_tall_kernel's apply instance on ``ak``'s launch
+    shape (``emulate_clear_tall_kernel``): (board, k, legal)."""
+    return emulate_clear_tall_kernel(cfg, board, ak, addr, (cover, valid, cover_addr))
+
+
+def emulate_clear_deep_kernel(cfg, board, ck, addr=0, apply=None):
     """csrc/clear.cu clear_deep_kernel on ``ck``'s launch shape:
     ``emulate_clear_tall_kernel``'s blocks, turns and staging, each warp
     walking its env's board in windows of 32 rows (32 - 32 mod rs with
@@ -623,7 +654,14 @@ def emulate_clear_deep_kernel(cfg, board, ck, addr=0):
     first row, each row staged with its full row and tiles cleared, the
     column AND a lane; the warp's AND and k at the end.  Pass 2 clears the
     full columns from the staged rows, and the block stores them by
-    ``store_tall``.  A warp whose turn has no env left stops."""
+    ``store_tall``.  A warp whose turn has no env left stops.  Its apply
+    instance, given ``apply = (cover, valid, cover_addr)``: the cover span
+    staged beside the board span; a pass 0 a row a lane (rows l + 32 j)
+    packs each board and cover row, stages the placed row and gathers the
+    overlap by ``__any_sync``; an illegal env stages its input rows packed
+    again, k = 0, and stops there; a legal one's pass 1 reads the placed
+    rows back from where pass 0 staged them.  Returns (board, k), and legal
+    for the apply."""
     h, w, hw, n = cfg.height, cfg.width, cfg.num_cells, len(board)
     nw = -(-w // 32)
     rs = cfg.region_size if cfg.region_clear else 0
@@ -634,21 +672,52 @@ def emulate_clear_deep_kernel(cfg, board, ck, addr=0):
     per_warp, warps = ck.shape
     per_block = per_warp * warps
     out, ks = np.full(n * hw, 2, np.uint8), np.full(n, -1, np.int64)
+    legals = np.full(n, -1, np.int64)
     for first in range(0, n, per_block):
         count = min(per_block, n - first)
-        buf, d = emulate_stage_bytes(board.reshape(-1), first * hw, (first + count) * hw, addr)
+        lo, hi = first * hw, (first + count) * hw
+        buf, d = emulate_stage_bytes(board.reshape(-1), lo, hi, addr)
         seg = _turns(per_warp, warps)[:, 0]                     # (E, 1)
         seg = seg[seg[:, 0] < count]                            # the turns that run
         staged = np.full(per_block * h * nw, -1, np.int64)
+        if apply is not None:
+            cover, valid, cover_addr = apply
+            covers, dc = emulate_stage_bytes(cover.reshape(-1), lo, hi, cover_addr)
+            hit = np.zeros(len(seg), bool)
+            for r0 in range(0, h, 32):                          # pass 0
+                r = r0 + LANE
+                lv = np.broadcast_to(r < h, (len(seg), 32))
+                start = np.broadcast_to(seg * hw + np.minimum(r, h - 1) * w, lv.shape)
+                x = emulate_pack_words(buf, d + start, w, lv)
+                y = emulate_pack_words(covers, dc + start, w, lv)
+                hit |= (np.logical_or.reduce([(a & b) != 0 for a, b in zip(x, y)])
+                        & lv).any(axis=1)                        # __any_sync
+                for i in range(nw):
+                    at_row = np.broadcast_to((seg * h + r) * nw + i, lv.shape)
+                    assert (staged[at_row[lv]] == -1).all()     # each row staged once
+                    staged[at_row[lv]] = (x[i] | y[i])[lv]
+            legal = ~hit & valid[first + seg[:, 0]]
+            legals[first + seg[:, 0]] = legal
+            rows = np.arange(h)
+            for env in seg[~legal, 0]:                          # the input again, k = 0
+                x = emulate_pack_words(buf, d + env * hw + rows * w, w, np.ones(h, bool))
+                for i in range(nw):
+                    staged[(env * h + rows) * nw + i] = x[i]
+                ks[first + env] = 0
+            seg = seg[legal]
         cols = [np.full((len(seg), 32), U32) for _ in range(nw)]
         k, tiles = np.zeros(len(seg), np.int64), np.zeros((len(seg), 32), np.int64)
         for w0 in range(0, h, win):
             r = w0 + LANE
             live = (LANE < win) & (r < h)                       # the lanes holding a row
             lv = np.broadcast_to(live, (len(seg), 32))
-            start = np.broadcast_to(d + seg * hw + np.minimum(r, h - 1) * w, lv.shape)
-            x = [np.where(lv, emulate_pack_row(buf, start + 32 * i, min(32, w - 32 * i), lv),
-                          U32) for i in range(nw)]
+            if apply is None:
+                start = np.broadcast_to(d + seg * hw + np.minimum(r, h - 1) * w, lv.shape)
+                x = [np.where(lv, a, U32) for a in emulate_pack_words(buf, start, w, lv)]
+            else:                                               # pass 0's placed rows
+                at = np.broadcast_to((seg * h + np.minimum(r, h - 1)) * nw, lv.shape)
+                assert (staged[at[lv]] >= 0).all()
+                x = [np.where(lv, staged[at + i], U32) for i in range(nw)]
             full = np.logical_and.reduce([x[i] == colmask[i] for i in range(nw)])
             k += (lv & full).sum(axis=1)                        # popc(ballot)
             cols = [c & a for c, a in zip(cols, x)]
@@ -665,7 +734,8 @@ def emulate_clear_deep_kernel(cfg, board, ck, addr=0):
                 tiles += np.where(whole & (e == 0), got, 0)
             for i in range(nw):
                 at_row = np.broadcast_to((seg * h + r) * nw + i, lv.shape)
-                assert (staged[at_row[lv]] == -1).all()         # each row staged once
+                # each row staged once (the apply's pass 0 staged them first)
+                assert apply is not None or (staged[at_row[lv]] == -1).all()
                 staged[at_row[lv]] = (x[i] & ~(np.where(full, colmask[i], 0) | reg[i])
                                       & U32)[lv]
         cols = [np.bitwise_and.reduce(c, axis=1) for c in cols]   # __reduce_and_sync
@@ -676,12 +746,21 @@ def emulate_clear_deep_kernel(cfg, board, ck, addr=0):
             at_row = (seg * h + np.arange(h)) * nw + i
             assert (staged[at_row] >= 0).all()
             staged[at_row] &= ~cols[i][:, None]
-        emulate_store_tall(staged, out, first * hw, count * hw, w, nw)
+        emulate_store_tall(staged, out, lo, count * hw, w, nw)
     assert (out < 2).all() and (ks >= 0).all()
-    return out.reshape(n, hw), ks.astype(np.int32)
+    if apply is None:
+        return out.reshape(n, hw), ks.astype(np.int32)
+    assert (legals >= 0).all()
+    return out.reshape(n, hw), ks.astype(np.int32), legals.astype(bool)
 
 
-def emulate_packed_mask_deep(cfg, words, queue, mk, addr=0):
+def emulate_apply_deep_kernel(cfg, board, cover, valid, ak, addr=0, cover_addr=0):
+    """csrc/clear.cu clear_deep_kernel's apply instance on ``ak``'s launch
+    shape (``emulate_clear_deep_kernel``): (board, k, legal)."""
+    return emulate_clear_deep_kernel(cfg, board, ak, addr, (cover, valid, cover_addr))
+
+
+def emulate_packed_mask_deep(cfg, words, queue, mk, addr=0, entry="mask"):
     """csrc/packed_tall.cu packed_mask_general_kernel on the 32-bit tables
     ``PackedMaskKernel`` hands it, a warp an env-slot (every one at once
     here): lane t holds the columns of piece row t (field t % fpw of
@@ -689,11 +768,14 @@ def emulate_packed_mask_deep(cfg, words, queue, mk, addr=0):
     of 32 anchor rows the warp's 64 board rows (the window's and the next,
     two a lane, full past the bottom) are in shared memory, and lane l ORs
     row l + t shifted right by each cell column of piece row t (one shuffle
-    of its columns) into its blocked bits; the window's legal rows are
-    staged beside the previous window's, and every second window (or the
-    last) the warp stores the pair's rows (``store_tall``, 32 threads) from
-    addr + es * HW + (w0 & ~63) * W past the 16-byte boundary at or below
-    the output's address."""
+    of its columns) into its blocked bits.  The mask (``entry="mask"``)
+    stages the window's legal rows beside the previous window's, and every
+    second window (or the last) the warp stores the pair's rows
+    (``store_tall``, 32 threads) from addr + es * HW + (w0 & ~63) * W past
+    the 16-byte boundary at or below the output's address.  Its words
+    instance (``entry="words"``, the same legality) stores lane l's legal
+    row w0 + l (below H) as the int64 out[addr + es * H + w0 + l], ``addr``
+    int64 words into the output: (N, S*H) int64."""
     h, w, s = cfg.height, cfg.width, cfg.queue_size
     hw, total = cfg.num_cells, len(words) * cfg.queue_size
     prow = mk.prow32.numpy().view(np.uint32).astype(np.int64)
@@ -716,7 +798,10 @@ def emulate_packed_mask_deep(cfg, words, queue, mk, addr=0):
     def rows(r):
         return np.where(r < h, x64[:, np.minimum(r, h - 1)], full)
 
-    out = np.full(addr + total * hw, 2, np.uint8)              # 2: never written
+    if entry == "words":
+        out = np.full(addr + total * h, -1, np.int64)          # -1: never written
+    else:
+        out = np.full(addr + total * hw, 2, np.uint8)          # 2: never written
     x0, x1 = rows(LANE), rows(32 + LANE)
     staged = np.full((total, 64), -1, np.int64)
     for w0 in range(0, h, 32):
@@ -728,8 +813,16 @@ def emulate_packed_mask_deep(cfg, words, queue, mk, addr=0):
             m = np.where(t < piece_rows, cells[:, t : t + 1], 0)   # __shfl_sync(cells, t)
             for bit in range(w):                                # each cell column
                 blocked |= np.where((m >> bit) & 1, y >> bit, 0)
+        legal = ~blocked & anchors & U32
+        if entry == "words":
+            live = w0 + LANE < h
+            at = addr + np.arange(total)[:, None] * h + w0 + LANE
+            assert (out[at[:, live]] == -1).all()               # written once
+            out[at[:, live]] = legal[:, live]
+            x0, x1 = x1, nxt
+            continue
         half = (w0 >> 5) & 1
-        staged[:, 32 * half + LANE] = ~blocked & anchors & U32
+        staged[:, 32 * half + LANE] = legal
         if half == 1 or w0 + 32 >= h:
             first = w0 & ~63
             for es in range(total):
@@ -737,8 +830,17 @@ def emulate_packed_mask_deep(cfg, words, queue, mk, addr=0):
                                    min(64, h - first) * w, w, 1)
             staged[:] = -1
         x0, x1 = x1, nxt
+    if entry == "words":
+        assert (out[addr:] >= 0).all() and (out[:addr] == -1).all()
+        return out[addr:].reshape(len(words), s * h)
     assert (out[addr:] < 2).all() and (out[:addr] == 2).all()
     return out[addr:].reshape(len(words), s * hw).astype(bool)
+
+
+def emulate_packed_words_deep(cfg, words, queue, mk, addr=0):
+    """The words instance of the windowed general mask
+    (``emulate_packed_mask_deep``): (N, S*H) int64 legal row words."""
+    return emulate_packed_mask_deep(cfg, words, queue, mk, addr, "words")
 
 
 # ------------------------------------------------------------------ tests ----
@@ -938,6 +1040,118 @@ def test_tall_emulations_take_any_board_address(case, addr):
         np.testing.assert_array_equal(e, p.numpy())
 
 
+def _apply_seam_cases(cfg, board, cover, valid):
+    """``apply_cases`` plus 1x1 actions at the lane seam (rows 31 and 32,
+    slot 0's last lane and slot 1's first): one that completes row 32 (env
+    9), one that completes row 31 or, with regions, the band of rows 30..32
+    across the seam (env 10)."""
+    t = rules.tables_for(cfg)
+    grid = board.reshape(len(board), cfg.height, cfg.width)
+
+    def one(env, r, c):
+        cover[env], valid[env] = t.cover[r * cfg.width + c], t.valid[r * cfg.width + c]
+
+    grid[9, 32, 1:], grid[9, 32, 0] = 1, 0
+    one(9, 32, 0)
+    if cfg.region_clear:
+        grid[10, 30:33, 0:3] = 1
+        grid[10, 32, 2] = 0
+        one(10, 32, 2)
+    else:
+        grid[10, 31, :] = 1
+        grid[10, 31, 5] = 0
+        one(10, 31, 5)
+
+
+@pytest.mark.parametrize("case", ["tall33", "tall36r3", "tall40x40"])
+def test_apply_tall_matches_pallas_apply_kernel(case):
+    """K2 on boards of 33 to 128 rows: the Pallas apply kernel in interpret
+    mode, the wrapper (plain version on the CPU) and the tall kernel's apply
+    instance's emulation, bit-equal: legal and illegal actions, an invalid
+    anchor, actions that complete a row (also at the lane seam) or, with
+    regions, a band across the seam, one over a full row (a strict no-op), a
+    full board and an empty one (``apply_cases``).  (33x128's footprint
+    table, P * HW * HW bytes, would take 339 MB; the card holds that board.)"""
+    cj, ct = _pair(U8_TALL[case])
+    board, cover, valid = apply_cases(ct, N, np.random.default_rng(9))
+    _apply_seam_cases(ct, board, cover, valid)
+    want = [np.asarray(x) for x in jk.ApplyKernel(cj, tile_n=N)(
+        jnp.asarray(board), jnp.asarray(cover), jnp.asarray(valid), interpret=True)]
+    ak = ApplyKernel(ct, "cpu")
+    assert (ak.kind, ak.name, ak.shape) == ("tall", "apply_tall", apply_launch_shape(ct))
+    got = ak(torch.as_tensor(board), torch.as_tensor(cover), torch.as_tensor(valid))
+    emu = emulate_apply_tall_kernel(ct, board, cover, valid, ak)
+    for i, name in enumerate(("board", "k", "legal")):
+        np.testing.assert_array_equal(got[i].numpy(), want[i], name)
+        np.testing.assert_array_equal(emu[i], want[i], name)
+    assert_apply_cases(ct, board, want)
+    new_board, k, legal = want
+    grid = new_board.reshape(N, ct.height, ct.width)
+    assert legal[9] and k[9] >= 1 and not grid[9, 32].any()
+    assert legal[10] and k[10] >= 1
+    assert not (grid[10, 30:33, 0:3].any() if ct.region_clear else grid[10, 31].any())
+    assert ak.tall_launches == ak.general_launches == 0
+
+
+@pytest.mark.parametrize("case", ["tall33", "tall36r3", "tall40x40"])
+@pytest.mark.parametrize("addr", [3, 13])
+def test_apply_tall_emulation_takes_any_address(case, addr):
+    """Boards and covers off a 16-byte boundary, each at its own offset: the
+    tall apply's emulation stages both spans' unaligned heads and tails byte
+    by byte and still equals the plain version (N = 13: the last block short
+    of its envs)."""
+    _, ct = _pair(U8_TALL[case])
+    board, cover, valid = apply_cases(ct, N, np.random.default_rng(addr))
+    ak = ApplyKernel(ct, "cpu")
+    want = ak(torch.as_tensor(board), torch.as_tensor(cover), torch.as_tensor(valid))
+    for cover_addr in (addr, (addr + 7) % 16):
+        emu = emulate_apply_tall_kernel(ct, board, cover, valid, ak, addr, cover_addr)
+        for e, p in zip(emu, want):
+            np.testing.assert_array_equal(e, p.numpy())
+
+
+def test_apply_block_shapes_fit():
+    """The u8 apply's launch shape (``apply_launch_shape``) on boards of 33
+    to 4096 rows of 1 to 128 cells: the tall and deep kernels' rule on the
+    apply's own shared memory (its output rows and two staged spans,
+    ``apply_smem_bytes``): 16 warps and the most turns that fit 48 KB, else
+    one turn and ``tall_block_warps`` on that memory, or fewer warps that
+    fit what a block may opt in to; a block's output bytes under the 2^21
+    that ``small_div``'s proof needs; a shape on every board whose line
+    tables the wrappers take (cells and lines <= 12288), so that none goes
+    to the general apply.  40x40, 33x128, 512x8 and 135x9 with regions fit
+    with fewer turns or warps than the mask's where its two spans need it."""
+    for h in (33, 36, 40, 64, 100, 128, 129, 130, 135, 160, 257, 512, 1000, 1500, 3000, 4096):
+        for w in (1, 8, 9, 31, 32, 33, 40, 64, 100, 128):
+            cfg = tcfg.EnvConfig(height=h, width=w)
+            shape = apply_launch_shape(cfg)
+            if shape is None:
+                assert apply_smem_bytes(cfg, 1) > SMEM_OPT_IN
+                assert cfg.num_cells + h + w > 12288
+                continue
+            per_warp, warps = shape
+            per_block = per_warp * warps
+            smem = apply_smem_bytes(cfg, per_block)
+            assert smem <= SMEM_OPT_IN and per_block * cfg.num_cells < 1 << 21
+            if apply_smem_bytes(cfg, 16) <= 48 * 1024:
+                assert warps == 16 and smem <= 48 * 1024
+                assert per_warp == 4 or apply_smem_bytes(cfg, 32 * per_warp) > 48 * 1024
+            elif warps >= 4:
+                assert per_warp == 1 and warps == tall_block_warps(cfg, apply_smem_bytes)
+            else:
+                assert per_warp == 1 and apply_smem_bytes(cfg, warps + 1) > SMEM_OPT_IN
+    for shape, want in ((dict(height=40, width=40), (1, 4)),
+                        (dict(height=33, width=128), (1, 4)),
+                        (dict(height=512, width=8), (1, 4)),
+                        (dict(height=135, width=9, region_clear=True, region_size=3,
+                              queue_size=3), (1, 16)),
+                        (dict(height=33, width=9), (4, 16)),
+                        (dict(height=130, width=8), (1, 16))):
+        cfg = tcfg.EnvConfig(**shape)
+        assert apply_launch_shape(cfg) == want
+        assert apply_smem_bytes(cfg, want[0] * want[1]) <= SMEM_OPT_IN
+
+
 def test_tall_block_shapes_fit_and_divide_exactly():
     """For every board the tall kernels take (32 < H <= 128, W <= 128): 16
     warps taking the most turns (4, 2 or 1) whose block fits 48 KB, or one
@@ -976,14 +1190,15 @@ def test_tall_block_shapes_fit_and_divide_exactly():
 
 
 def test_u8_wrappers_take_the_general_kernels_above_128_rows():
-    """Boards of more than 128 rows take the general u8 apply and
-    legality, and the deep mask and clear (a warp an env-slot or env over
-    windows of 32 rows, on one launch shape) where rows hold at most 128
-    cells; the tall kernels stop at 128 rows.  The mask keeps the general
-    kernel on rows of more than 128 cells, and so does the clear (8x136:
-    rows too wide for any other clear kernel; a deep board one warp cannot
-    stage passes the line tables' 12288 cells and lines, so the clear
-    takes none)."""
+    """Boards of more than 128 rows take the general u8 legality, and the
+    deep mask, clear and apply (a warp an env-slot or env over windows of
+    32 rows; the mask and clear on one launch shape, the apply on its own,
+    ``apply_launch_shape``) where rows hold at most 128 cells; the tall
+    kernels stop at 128 rows.  The mask keeps the general kernel on rows of
+    more than 128 cells, and so do the clear and the apply (8x136: rows too
+    wide for any other kernel; a deep board one warp cannot stage passes
+    the line tables' 12288 cells and lines, so the clear and the apply take
+    none)."""
     for shape, kind in ((dict(height=130, width=9), "deep"),
                         (dict(height=128, width=10), "tall")):
         cfg = tcfg.EnvConfig(**shape)
@@ -992,12 +1207,16 @@ def test_u8_wrappers_take_the_general_kernels_above_128_rows():
         assert (mk.name, ck.name) == (f"mask_{kind}", f"clear_{kind}")
         assert mk.shape is not None and ck.shape == mk.shape
         ak, lk = ApplyKernel(cfg, "cpu"), LegalityKernel(cfg, "cpu")
-        assert (ak.name, lk.name) == ("apply_general", "legality_general")
-    assert all(e in _build.SIGNATURES for e in ("bp_clear_deep", "bp_mask_deep", "bp_clear"))
+        assert (ak.kind, ak.name, lk.name) == (kind, f"apply_{kind}", "legality_general")
+        assert ak.shape == apply_launch_shape(cfg) is not None
+    assert all(e in _build.SIGNATURES for e in ("bp_clear_deep", "bp_mask_deep", "bp_clear",
+                                                "bp_apply_deep", "bp_apply_tall", "bp_apply"))
     # rows of more than 128 cells: the general kernels
     mk = MaskKernel(tcfg.EnvConfig(height=130, width=129), "cpu")
     assert (mk.kind, mk.name, mk.shape) == ("general", "mask_general", None)
-    ck = ClearScanKernel(tcfg.EnvConfig(height=8, width=136), "cpu")
+    xwide = tcfg.EnvConfig(height=8, width=136)
+    ck, ak = ClearScanKernel(xwide, "cpu"), ApplyKernel(xwide, "cpu")
     assert (ck.kind, ck.name, ck.shape) == ("general", "clear_general", None)
+    assert (ak.kind, ak.name, ak.shape) == ("general", "apply_general", None)
     # no deep launch shape where one warp's board does not fit shared memory
     assert deep_launch_shape(tcfg.EnvConfig(height=1000, width=128)) is None

@@ -280,7 +280,8 @@ RECORDED_MB = {"mask": 10.03, "apply": 15.04, "clear": 10.03, "legality": 98.3,
                "packed_apply_tall": 28.80, "packed_mask_tall": 27.77,
                "packed_legal_words_tall": 26.15, "packed_apply_general": 105.1,
                "packed_mask_general": 102.4, "packed_legal_words_general": 102.4,
-               "packed_unpack": 8.85, "mask_deep": 102.4, "clear_deep": 102.4}
+               "packed_unpack": 8.85, "mask_deep": 102.4, "clear_deep": 102.4,
+               "apply_wide": 47.48, "apply_tall": 44.09, "apply_deep": 153.6}
 
 
 def kernel_call(name, n):
@@ -419,6 +420,26 @@ def test_wide_kernels_are_bytes_bound_on_the_wide_board():
         assert nbytes == general == 644 * 49152 and ops == per_env * 49152
         b = bound(list(inputs) + list(outputs), ops)
         assert b["bound_by"] == "bytes" and 0.00944 < b["bound_ms"] < 0.00945
+
+
+def test_apply_kernels_beyond_32x32_are_bytes_bound():
+    """K2's wide, tall and deep kernels at N = 49152 (8x40, 33x9, 130x8):
+    3 HW + 6 bytes an env (board and cover in, a valid byte; board, k and
+    legal out), the general apply's bytes; 1824, 2013 and 8580 operations
+    an env (two rows of words packed a row, 2 operations a word to test and
+    place and the clear's 8, the deep one 6 more, one an output byte), under
+    the 0.014173, 0.013161 and 0.045865 ms their bytes take."""
+    from blockpuzzle_tpu_torch.utils.bounds import COSTS, bound
+
+    for name, per_env, ms in (("apply_wide", 1824, 0.014173), ("apply_tall", 2013, 0.013161),
+                              ("apply_deep", 8580, 0.045865)):
+        cfg, inputs, outputs = kernel_call(name, 49152)
+        nbytes, ops = COSTS[name](cfg, inputs, outputs)
+        general, _ = COSTS["apply_general"](cfg, inputs, outputs)
+        assert nbytes == general == (3 * cfg.num_cells + 6) * 49152
+        assert ops == per_env * 49152
+        b = bound(list(inputs) + list(outputs), ops)
+        assert b["bound_by"] == "bytes" and round(b["bound_ms"], 6) == ms
 
 
 def test_draw_operations_count_the_busier_pipe():
