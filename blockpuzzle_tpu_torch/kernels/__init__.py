@@ -9,7 +9,8 @@ raises, and counts each launch in its ``launches`` attribute, a plain int
 ``general_launches``, the u8 mask and clear their wide kernels in
 ``wide_launches`` and their tall kernels, for boards of 33 to 128 rows, in
 ``tall_launches``, the u8 mask and clear their deep kernels, for taller
-boards, in ``deep_launches``; the packed wrappers their tall and general kernels in
+boards, in ``deep_launches``, and their xwide kernels, for rows of 129 to
+1024 cells, in ``xwide_launches``; the packed wrappers their tall and general kernels in
 ``tall_launches`` and ``general_launches``, the packed mask its words entry
 in ``words_launches``, ``words_tall_launches`` and
 ``words_general_launches``, the packed tail its unpack entry in

@@ -38,6 +38,7 @@ SIGNATURES = {
     "bp_mask_wide": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "bp_mask_tall": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "bp_mask_deep": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "bp_mask_xwide": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "bp_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "bp_apply_rows": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bp_apply_wide": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -48,6 +49,7 @@ SIGNATURES = {
     "bp_clear_wide": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bp_clear_tall": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bp_clear_deep": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "bp_clear_xwide": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bp_legality": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "bp_legality_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _U64, _I, _I, _P],
     "bp_packed_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

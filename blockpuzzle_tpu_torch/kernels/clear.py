@@ -8,14 +8,16 @@ gate: a line that was full on the input is cleared too.  The line tables
 live here, as ``_line_table`` does in the JAX package, and the apply
 kernel (``collision.py``) shares them.
 
-Five kernels compute it: the bit-row kernel, for boards of at most 32
+Six kernels compute it: the bit-row kernel, for boards of at most 32
 rows of at most 32 cells (every shipped preset), tests lines on 32-bit row
 words; the wide kernel does the same on rows of 33 to 128 cells held as
 two to four words; the tall kernel on boards of 33 to 128 rows of at most
 128 cells, a warp an env and up to four rows a lane; the deep kernel on
 taller boards of at most 128 cells a row, a warp an env walking the board
-in windows of 32 rows; the general kernel walks ``line_cell_table`` and
-takes any other board.
+in windows of 32 rows; the xwide kernel on boards of at most 32 rows of
+129 to 1024 cells, a segment of lanes an env and a lane a word of every
+row; the general kernel walks ``line_cell_table`` and takes any other
+board.
 """
 
 from __future__ import annotations
@@ -28,10 +30,7 @@ import torch
 from blockpuzzle_tpu_torch import rules
 from blockpuzzle_tpu_torch.config import EnvConfig
 from blockpuzzle_tpu_torch.kernels import _build
-from blockpuzzle_tpu_torch.kernels.packed import (
-    SUFFIX, count_launch, deep_launch_shape, row_launch_shape, tall_launch_shape, u8_kind,
-    wide_launch_shape,
-)
+from blockpuzzle_tpu_torch.kernels.packed import SUFFIX, count_launch, u8_kind, u8_launch_shape
 
 # (hw + L) bytes of shared memory per warp, four warps a block, must stay
 # under the 48 KB a launch gets without opting in to more
@@ -98,16 +97,19 @@ class ClearScanKernel:
     W <= 128 (``tall_launches``), the deep kernel where H > 128 and
     W <= 128 (``deep_launches``: a warp an env over windows of 32 rows, or
     of 32 - 32 mod rs with regions of size rs, on the deep mask's launch
-    shape, ``deep_launch_shape``); ``shape`` is the launch shape of any of
-    them.  Else the general kernel (``shape`` is None;
-    ``general_launches``): rows of more than 128 cells, or a deep board
-    whose one-warp block does not fit shared memory (``LineTables`` takes
-    no such board: its cells and lines pass 12288).  ``name`` is the
-    picked kernel's.
+    shape, ``deep_launch_shape``), the xwide kernel where H <= 32 and
+    128 < W <= 1024 (``xwide_launches``: a segment of ceil(W / 32) lanes an
+    env, a lane a word of every row, on the xwide mask's launch shape);
+    ``shape`` is the launch shape of any of them (``u8_launch_shape``).
+    Else the general kernel (``shape`` is None; ``general_launches``): rows
+    of more than 1024 cells, rows of more than 128 cells on boards of more
+    than 32 rows, or a deep board whose one-warp block does not fit shared
+    memory (``LineTables`` takes no such board: its cells and lines pass
+    12288).  ``name`` is the picked kernel's.
 
-    The bit-row, wide, tall and deep kernels take the engine's boards, whose cells are
-    0 or 1 (``env/state.py``): they find a line full when every cell is
-    nonzero and write the cleared board as 0/1 cells.  On such boards that
+    The bit-row, wide, tall, deep and xwide kernels take the engine's
+    boards, whose cells are 0 or 1 (``env/state.py``): they find a line full
+    when every cell is nonzero and write the cleared board as 0/1 cells.  On such boards that
     is ``clear_plain``'s test (the line's cells sum to its length) and
     output.
     """
@@ -116,9 +118,8 @@ class ClearScanKernel:
         self.cfg = cfg
         self.device = _build.resolve_device(device)
         self.launches = self.wide_launches = self.tall_launches = 0
-        self.deep_launches = self.general_launches = 0
-        self.shape = (row_launch_shape(cfg) or wide_launch_shape(cfg) or tall_launch_shape(cfg)
-                      or deep_launch_shape(cfg))
+        self.deep_launches = self.xwide_launches = self.general_launches = 0
+        self.shape = u8_launch_shape(cfg)
         self.kind = u8_kind(cfg, self.shape)
         self.wide = self.kind == "wide"
         self.name = "clear" + SUFFIX[self.kind]

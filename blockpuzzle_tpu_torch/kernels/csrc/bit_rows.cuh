@@ -7,7 +7,10 @@
 // packed kernels of packed_tall.cu), which hold a board in one warp, rows
 // l + 32 j in lane l (`rows_below`, `clear_tall`, `store_tall` below), and
 // of more than 128 rows (`mask_deep_kernel`, `clear_deep_kernel`, the
-// general packed mask), which walk a board in windows of 32 rows.
+// general packed mask), which walk a board in windows of 32 rows; and by
+// the kernels of rows of more than 128 cells (`mask_xwide_kernel`,
+// `clear_xwide_kernel`), a lane a word of every row (`stage_words`,
+// `store_words_n`).
 //
 // All but those take boards as (N, H*W) u8 cells, H <= 32, and work on them as row
 // words: lane r of a segment of H lanes holds board row r as a W-bit word
@@ -95,17 +98,18 @@ __device__ __forceinline__ int stage_bytes(const uint8_t* __restrict__ src,
 // nonzero byte in its top bit and gathers a word's four top bits with one
 // multiply: bits 7, 15, 23, 31 times 2^21 + 2^14 + 2^7 + 1 land on bits
 // 28..31, and no other product reaches them or carries into them.
+__device__ __forceinline__ uint32_t nonzero_nibble(uint32_t v) {  // bit j: byte j != 0
+  const uint32_t top = (((v & 0x7f7f7f7fu) + 0x7f7f7f7fu) | v) & 0x80808080u;
+  return (top * 0x00204081u) >> 28;
+}
+
 __device__ __forceinline__ uint32_t pack_row(const uint8_t* span, int start, int width) {
   const uint32_t* words = reinterpret_cast<const uint32_t*>(span) + (start >> 2);
   const int nwords = (width + 6) >> 2;
   uint64_t nibbles = 0;
 #pragma unroll
   for (int i = 0; i < 9; ++i) {
-    if (i < nwords) {
-      const uint32_t v = words[i];
-      const uint32_t top = (((v & 0x7f7f7f7fu) + 0x7f7f7f7fu) | v) & 0x80808080u;
-      nibbles |= static_cast<uint64_t>((top * 0x00204081u) >> 28) << (4 * i);
-    }
+    if (i < nwords) nibbles |= static_cast<uint64_t>(nonzero_nibble(words[i])) << (4 * i);
   }
   const uint32_t x = static_cast<uint32_t>(nibbles >> (start & 3));
   return width < 32 ? x & ((1u << width) - 1u) : x;
@@ -497,38 +501,31 @@ __device__ __forceinline__ void clear_tall(uint32_t (&x)[NR][NW], bool active, i
   }
 }
 
-// The store of the tall kernels: `bytes` 0/1 bytes to out[at ...] (`out`
-// 16-byte aligned, `at` any offset): byte q is column c = q % W of row
-// q / W, bit c % 32 of rows[(q / W) * NW + c / 32], and no word holds a bit
-// >= W.  The bytes up to the first 16-byte boundary and the ragged tail go
-// byte by byte; each vector between gathers its 16 bits as `store_rows`
-// does where a row is one word (W <= 32: up to 16 rows), as `store_words`
-// where it is NW > 1 words (W > 32: at most two rows), spreads them and
-// stores one uint4.  Threads t = 0 .. nt - 1 of the block (or of a warp)
-// share the work: each calls it, after the barrier that follows the last
-// write to `rows`; bytes < 2^21.
-template <int NW>
-__device__ __forceinline__ void store_tall(const uint32_t* rows, uint8_t* out, long long at,
-                                           int bytes, int width, int t, int nt) {
+// `store_rows` for rows of NW > 1 words (W > 32), NW known at run time: byte
+// q of out[at ...] (`out` 16-byte aligned, `at` any offset) is column
+// c = q % W of row q / W, bit c % 32 of rows[(q / W) * nw + c / 32], and no
+// word holds a bit >= W.  The bytes up to the first 16-byte boundary and the
+// ragged tail go byte by byte; 16 consecutive bytes fall in at most two
+// rows, so each vector between funnel-shifts the pair of words holding
+// column c (the top word's pair is zeros) into the 32 columns from c and,
+// where the row has fewer than 16 left, takes the next row's first word
+// shifted up past them, spreads the 16 bits and stores one uint4.  Threads
+// t = 0 .. nt - 1 of the block (or of a warp) share the work: each calls it,
+// after the barrier that follows the last write to `rows`; bytes < 2^21.
+__device__ __forceinline__ void store_words_n(const uint32_t* rows, uint8_t* out, long long at,
+                                              int bytes, int width, int nw, int t, int nt) {
   uint8_t* o = out + at;
   const int head = min(static_cast<int>((16 - (at & 15)) & 15), bytes);
   const int nvec = (bytes - head) / 16;
   const float inv_w = __frcp_rn(static_cast<float>(width));
   for (int v = t; v < nvec; v += nt) {
     const int q = head + 16 * v;
-    int row = small_div(q, inv_w);
-    int c = q - row * width;
-    uint32_t bits = 0;
-    if constexpr (NW == 1) {
-      for (int got = 0; got < 16; got += width - c, ++row, c = 0) {
-        bits |= (rows[row] >> c) << got;
-      }
-    } else {
-      const uint32_t* r = rows + row * NW;
-      const int w = c >> 5;
-      bits = __funnelshift_r(r[w], w + 1 < NW ? r[w + 1] : 0u, c & 31);
-      if (width - c < 16) bits |= r[NW] << (width - c);
-    }
+    const int row = small_div(q, inv_w);
+    const int c = q - row * width;
+    const uint32_t* r = rows + row * nw;
+    const int w = c >> 5;
+    uint32_t bits = __funnelshift_r(r[w], w + 1 < nw ? r[w + 1] : 0u, c & 31);
+    if (width - c < 16) bits |= r[nw] << (width - c);
     *reinterpret_cast<uint4*>(o + q) = make_uint4(spread4(bits), spread4(bits >> 4),
                                                   spread4(bits >> 8), spread4(bits >> 12));
   }
@@ -536,7 +533,46 @@ __device__ __forceinline__ void store_tall(const uint32_t* rows, uint8_t* out, l
     const int q = j < head ? j : j + 16 * nvec;
     const int row = small_div(q, inv_w);
     const int c = q - row * width;
-    o[q] = (rows[row * NW + (c >> 5)] >> (c & 31)) & 1u;
+    o[q] = (rows[row * nw + (c >> 5)] >> (c & 31)) & 1u;
+  }
+}
+
+// The store of the tall kernels: `bytes` 0/1 bytes to out[at ...] (`out`
+// 16-byte aligned, `at` any offset): byte q is column c = q % W of row
+// q / W, bit c % 32 of rows[(q / W) * NW + c / 32], and no word holds a bit
+// >= W.  The bytes up to the first 16-byte boundary and the ragged tail go
+// byte by byte; each vector between gathers its 16 bits as `store_rows`
+// does where a row is one word (W <= 32: up to 16 rows), spreads them and
+// stores one uint4; rows of NW > 1 words are `store_words_n`'s.  Threads
+// t = 0 .. nt - 1 of the block (or of a warp) share the work: each calls
+// it, after the barrier that follows the last write to `rows`; bytes <
+// 2^21.
+template <int NW>
+__device__ __forceinline__ void store_tall(const uint32_t* rows, uint8_t* out, long long at,
+                                           int bytes, int width, int t, int nt) {
+  if constexpr (NW > 1) {
+    store_words_n(rows, out, at, bytes, width, NW, t, nt);
+  } else {
+    uint8_t* o = out + at;
+    const int head = min(static_cast<int>((16 - (at & 15)) & 15), bytes);
+    const int nvec = (bytes - head) / 16;
+    const float inv_w = __frcp_rn(static_cast<float>(width));
+    for (int v = t; v < nvec; v += nt) {
+      const int q = head + 16 * v;
+      int row = small_div(q, inv_w);
+      int c = q - row * width;
+      uint32_t bits = 0;
+      for (int got = 0; got < 16; got += width - c, ++row, c = 0) {
+        bits |= (rows[row] >> c) << got;
+      }
+      *reinterpret_cast<uint4*>(o + q) = make_uint4(spread4(bits), spread4(bits >> 4),
+                                                    spread4(bits >> 8), spread4(bits >> 12));
+    }
+    for (int j = t; j < bytes - 16 * nvec; j += nt) {
+      const int q = j < head ? j : j + 16 * nvec;
+      const int row = small_div(q, inv_w);
+      o[q] = (rows[row] >> (q - row * width)) & 1u;
+    }
   }
 }
 
@@ -545,6 +581,74 @@ template <int NW>
 __device__ __forceinline__ void store_tall(const uint32_t* rows, uint8_t* out, long long at,
                                            int bytes, int width) {
   store_tall<NW>(rows, out, at, bytes, width, threadIdx.x, blockDim.x);
+}
+
+// Rows of more than 128 cells (the xwide kernels, H <= 32, 128 < W <= 1024):
+// a segment of NW = ceil(W / 32) lanes holds one board, lane w word w of
+// every row (cells 32 w .. 32 w + 31), the transpose of the layouts above;
+// `seat(nw, 32 / nw)` gives a thread its segment and word.  The block's
+// boards go straight from device memory to row words in shared memory
+// (`stage_words`), without a staged copy of their bytes: 1088 bytes of an
+// 8x136 board become 160 of words, so more boards fit an SM.
+
+// bits 0..15 of the result: byte j of v (4 words, 16 bytes) nonzero
+__device__ __forceinline__ uint32_t pack16(uint4 v) {
+  return nonzero_nibble(v.x) | nonzero_nibble(v.y) << 4 | nonzero_nibble(v.z) << 8 |
+         nonzero_nibble(v.w) << 12;
+}
+
+// ORs `bits` (< 2^16) into a row of words from column c on: into word c / 32
+// and, where they pass its end, the next one.
+__device__ __forceinline__ void or_bits(uint32_t* row, int c, uint32_t bits) {
+  if (bits == 0) return;
+  const int w = c >> 5, off = c & 31;
+  atomicOr(row + w, bits << off);
+  if (off > 16 && (bits >> (32 - off)) != 0) atomicOr(row + w + 1, bits >> (32 - off));
+}
+
+// The n <= 16 bits of byte q .. q + n - 1 of a run of rows of W > 16
+// cells into their row words (`words`, NW a row): the columns of row q / W
+// from q % W on, and past that row's end the first columns of the next.
+__device__ __forceinline__ void place_bits(uint32_t* words, int q, uint32_t bits, int n,
+                                           int width, int nw, float inv_w) {
+  const int row = small_div(q, inv_w);
+  const int c = q - row * width;
+  const int k = min(n, width - c);  // the bits in this row
+  or_bits(words + row * nw, c, k < 16 ? bits & ((1u << k) - 1u) : bits);
+  if (k < n) or_bits(words + (row + 1) * nw, 0, bits >> k);
+}
+
+// Bytes [lo, hi) of `src`, rows of W cells one after another (a block's
+// boards), as row words in shared memory: bit c % 32 of
+// words[R * NW + c / 32] set iff byte lo + R * W + c is nonzero, no bit >= W
+// set.  The words are zeroed, then the bytes of whole aligned 16-byte chunks
+// go as one uint4 load each, gathered to 16 bits (`pack16`) and ORed into
+// the one or two rows and one to three words they fall in (shared atomics:
+// two chunks may share a word); the unaligned head and the ragged tail go
+// byte by byte, so any start address works.  Every thread of the block
+// calls it; a __syncthreads must follow before `words` is read.
+// hi - lo < 2^21 (`small_div`).
+__device__ __forceinline__ void stage_words(const uint8_t* __restrict__ src, long long lo,
+                                            long long hi, int width, int nw,
+                                            uint32_t* words) {
+  const uint8_t* p = src + lo;
+  const int len = static_cast<int>(hi - lo);
+  const float inv_w = __frcp_rn(static_cast<float>(width));
+  const int nwords = small_div(len, inv_w) * nw;
+  for (int i = threadIdx.x; i < nwords; i += blockDim.x) words[i] = 0u;
+  __syncthreads();
+  const int d = static_cast<int>(reinterpret_cast<uintptr_t>(p) & 15);
+  const int head = min((16 - d) & 15, len);
+  const int nvec = (len - head) / 16;
+  const uint4* from = reinterpret_cast<const uint4*>(p + head);
+#pragma unroll 4
+  for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
+    place_bits(words, head + 16 * i, pack16(from[i]), 16, width, nw, inv_w);
+  }
+  for (int j = threadIdx.x; j < len - 16 * nvec; j += blockDim.x) {
+    const int q = j < head ? j : j + 16 * nvec;
+    if (p[q] != 0) place_bits(words, q, 1u, 1, width, nw, inv_w);
+  }
 }
 
 }  // namespace bit_rows

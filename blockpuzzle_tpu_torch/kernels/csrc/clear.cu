@@ -1,6 +1,6 @@
 // Simultaneous line clear: the CUDA port of the TPU kernel `_clear_kernel`
 // (blockpuzzle_tpu/kernels/clear.py:79, launched by `_clear_pallas_call`,
-// clear.py:93, from `ClearScanKernel.__call__`).  Five kernels: the
+// clear.py:93, from `ClearScanKernel.__call__`).  Six kernels: the
 // bit-row kernel (`clear_rows_kernel`, entry `bp_clear_rows`) for boards
 // with H <= 32 and W <= 32, every shipped preset; the wide kernel
 // (`clear_wide_kernel`, entry `bp_clear_wide`), the bit-row kernel on rows
@@ -9,9 +9,12 @@
 // 32 < H <= 128 and W <= 128; the deep kernel (`clear_deep_kernel`, entry
 // `bp_clear_deep`), a warp an env walking the board in windows of 32 rows,
 // for H > 128 and W <= 128 wherever a block of one warp fits the shared
-// memory a block may opt in to; and the general kernel (`clear_kernel`,
-// entry `bp_clear`) for what is left: rows of more than 128 cells, or a
-// deep board too large for one warp.  The wrapper (kernels/clear.py) picks
+// memory a block may opt in to; the xwide kernel (`clear_xwide_kernel`,
+// entry `bp_clear_xwide`), a segment of lanes an env and a lane a word of
+// every row, for H <= 32 and 128 < W <= 1024; and the general kernel
+// (`clear_kernel`, entry `bp_clear`) for what is left: rows of more than
+// 1024 cells, rows of more than 128 cells on boards of more than 32 rows,
+// or a deep board too large for one warp.  The wrapper (kernels/clear.py) picks
 // one by shape.  The wide, tall and deep kernels are also the apply (K2,
 // the TPU kernel `_apply_kernel`, blockpuzzle_tpu/kernels/collision.py:120)
 // on those boards: a second instance of each (`kApply`, entries
@@ -104,6 +107,29 @@
 // bounded the general kernel on such boards: a lane a line walking the
 // line's cells through the global table (138 lines, the 8 columns of 130
 // cells, on 130x8), two dependent loads a cell, byte loads and stores.
+//
+// The xwide kernel takes the same 0/1 boards of at most 32 rows of 129 to
+// 1024 cells, where a row's words no longer fit a lane: a segment of NW =
+// ceil(W / 32) lanes an env (6 segments a warp on 8x136), lane w holding
+// word w of every row, loaded by the block as 16-byte vectors straight into
+// row words in shared memory (`bit_rows::stage_words`, no staged copy of
+// the bytes).  Pass 1 is lane-local: the AND of the lane's
+// rows is its word of the full columns, and bit r of a word marks row r's
+// word full (the top word's bits past W count as set); one
+// `__reduce_and_sync` over the segment gives the full rows.  Pass 2 walks
+// the rows a band of rs at a time (a row at a time without regions): the
+// band's AND, lane-local; its full rs-bit fields read from the
+// funnel-shifted pair (this word, the next lane's, one `__shfl_down_sync`),
+// since a field may straddle two words (rs = 3: columns 30..32, 63..65),
+// the part of a full field past this word handed up by one
+// `__shfl_up_sync`; then each row cleared in place (all of it if full,
+// else its full columns and fields).  k = the full rows + one
+// `__reduce_add_sync` of each word's full columns and of the fields that
+// start in it; lane 0 writes it.  The block stores as the mask's xwide
+// kernel (`store_words_n`).  It answers what bounded the general kernel
+// there: a warp an env whose lanes walk the 144 lines of 8x136 through the
+// global table, a dependent index load a cell, the 8 row lanes 136 cells
+// each and the column lanes 8, and a byte store a cell.
 //
 // The apply instances take the same 0/1 boards and 0/1 covers.  Bound on
 // the H100: device memory; per env they read HW board bytes, HW cover
@@ -454,6 +480,82 @@ __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
   bit_rows::store_tall<NW>(rows, board_out, lo, count * hw, width);
 }
 
+__global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
+    clear_xwide_kernel(const uint8_t* __restrict__ board, uint8_t* __restrict__ board_out,
+                       int32_t* __restrict__ k_out, int n, int height, int width,
+                       int region_size, int per_warp) {
+  extern __shared__ __align__(16) uint8_t rows_smem[];
+  const int nw = (width + 31) / 32;
+  const int per_block = blockDim.x / 32 * per_warp;
+  const int hw = height * width;
+  uint32_t* words = reinterpret_cast<uint32_t*>(rows_smem);  // E*H rows, cleared in place
+  const int first = blockIdx.x * per_block;          // first env
+  const int count = min(per_block, n - first);       // envs here
+  const long long lo = static_cast<long long>(first) * hw;
+  bit_rows::stage_words(board, lo, lo + static_cast<long long>(count) * hw, width, nw, words);
+
+  const bit_rows::Seat t = bit_rows::seat(nw, per_warp);  // t.lane: the word
+  const bool active = t.s < per_warp && t.seg < count;
+  __syncthreads();
+  // row r's word: x[r * nw]; a lane of no env reads env 0's and writes nothing
+  uint32_t* x = words + (active ? t.seg : 0) * height * nw + t.lane;
+  const int tail = width - 32 * (nw - 1);            // columns of the top word: 1..32
+  const uint32_t pad = t.lane + 1 == nw && tail < 32 ? kAll << tail : 0u;  // past W: full
+  // pass 1, lane-local: the full columns of this word (the AND of its rows)
+  // and bit r set where row r's word is full
+  uint32_t cols = kAll, full = 0;
+  for (int r = 0; r < height; ++r) {
+    const uint32_t v = x[r * nw];
+    cols &= v;
+    full |= ((v | pad) == kAll ? 1u : 0u) << r;
+  }
+  const uint32_t rows_full = __reduce_and_sync(t.mask, full);  // the segment's full rows
+  int got = __popc(cols);                            // this word's full columns, then tiles
+  // pass 2, a band of region_size rows (a row without regions) at a time:
+  // the band's full fields, then its rows cleared in place
+  const int g = region_size > 0 ? region_size : 1;
+  // the first field that starts in this word: columns c0 = 0, rs, 2 rs, ...
+  const int c1 = region_size > 0 ? (32 * t.lane + region_size - 1) / region_size * region_size
+                                 : 0;
+  const uint32_t tile0 = region_size < 32 ? (1u << region_size) - 1u : kAll;
+  for (int r0 = 0; r0 < height; r0 += g) {
+    const int rows_here = min(g, height - r0);
+    uint32_t reg = 0;                                // the band's cleared fields
+    if (region_size > 0) {
+      uint32_t band = kAll;
+      for (int i = 0; i < rows_here; ++i) band &= x[(r0 + i) * nw];
+      // a field may straddle this word and the next (rs = 3: columns
+      // 30..32), read from the funnel-shifted pair, marked in both
+      const uint32_t next = __shfl_down_sync(kAll, band, 1);
+      const uint32_t hi_word = t.lane + 1 < nw ? next : 0u;
+      uint32_t spill = 0;                            // the next word's part of a full field
+      if (rows_here == region_size) {                // a whole band on the board
+        for (int c0 = c1; c0 < 32 * (t.lane + 1) && c0 + region_size <= width;
+             c0 += region_size) {
+          const int b = c0 - 32 * t.lane;
+          if ((__funnelshift_r(band, hi_word, b) & tile0) == tile0) {
+            reg |= tile0 << b;
+            if (b + region_size > 32) spill |= tile0 >> (32 - b);
+            ++got;
+          }
+        }
+      }
+      const uint32_t from_below = __shfl_up_sync(kAll, spill, 1);
+      reg |= t.lane > 0 ? from_below : 0u;
+    }
+    for (int i = 0; i < rows_here; ++i) {
+      const int r = r0 + i;
+      const uint32_t v = x[r * nw];
+      if (active) x[r * nw] = (rows_full >> r & 1u) ? 0u : v & ~(cols | reg);
+    }
+  }
+  const int k = __popc(rows_full) + __reduce_add_sync(t.mask, got);
+  if (active && t.lane == 0) k_out[first + t.seg] = k;
+  __syncthreads();
+  bit_rows::store_words_n(words, board_out, lo, count * hw, width, nw, threadIdx.x,
+                          blockDim.x);
+}
+
 // A launch of the wide, tall and deep kernels: the clear's arguments and
 // the apply's cover, valid and legal_out (null for the clear), a block of
 // `warps` warps taking `per_warp` envs each.
@@ -646,6 +748,38 @@ extern "C" int bp_clear_deep(const void* board, void* board_out, void* k_out,
   return tall({board, nullptr, nullptr, board_out, k_out, nullptr, n, height, width,
                region_size, per_warp, warps, static_cast<cudaStream_t>(stream)}, false,
               true);
+}
+
+// As bp_clear_rows, for H <= 32 and 128 < W <= 1024: a segment of NW =
+// ceil(W / 32) lanes an env, lane w holding word w of every row; per_warp =
+// 32 / NW segments a warp, warps 1 to 16 (the block's output span may
+// start off a 16-byte boundary); refused where the block's shared memory
+// (its rows of NW words and its staged boards) passes what a block may opt
+// in to.
+extern "C" int bp_clear_xwide(const void* board, void* board_out, void* k_out,
+                              int n, int height, int width, int region_size,
+                              int per_warp, int warps, void* stream) {
+  const int nw = (width + 31) / 32;
+  if (height < 1 || height > 32 || width <= 128 || width > 1024 || per_warp != 32 / nw ||
+      region_size < 0 || region_size > 32 || warps < 1 || warps > bit_rows::kMaxWarps ||
+      !aligned(board_out)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const int per_block = warps * per_warp;
+  const long long smem = 4LL * per_block * height * nw;  // the envs' rows of NW words
+  if (smem > kSmemOptIn) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        clear_xwide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  clear_xwide_kernel<<<(n + per_block - 1) / per_block, warps * 32, static_cast<int>(smem),
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(board), static_cast<uint8_t*>(board_out),
+      static_cast<int32_t*>(k_out), n, height, width, region_size, per_warp);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The apply (K2) on the clear's kernels: bp_apply_rows's arguments and

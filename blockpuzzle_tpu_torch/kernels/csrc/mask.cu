@@ -1,6 +1,6 @@
 // Hand action mask: the CUDA port of the TPU kernel `_mask_kernel`
 // (blockpuzzle_tpu/kernels/mask.py:57, launched by `_mask_pallas_call`,
-// mask.py:85, from `MaskKernel.__call__`).  Five kernels: the bit-row
+// mask.py:85, from `MaskKernel.__call__`).  Six kernels: the bit-row
 // kernel (`mask_rows_kernel`, entry `bp_mask_rows`) for boards with H <= 32
 // and W <= 32 and pieces of at most 8 rows and 8 columns, every shipped
 // preset and piece set; the wide kernel (`mask_wide_kernel`, entry
@@ -11,11 +11,14 @@
 // (`mask_deep_kernel`, entry `bp_mask_deep`), a warp an env-slot walking
 // the board in windows of 32 rows, for H > 128, W <= 128 and the same
 // pieces wherever a block of one warp or more fits the shared memory a
-// block may opt in to with its boards staged whole; and the general kernel
-// (`mask_kernel`, entry `bp_mask`) for what is left: rows of more than 128
-// cells, pieces of more than 8 rows or columns, or a deep board too large
-// for one warp's shared memory.  The wrapper (kernels/mask.py) picks one by
-// shape.
+// block may opt in to with its boards staged whole; the xwide kernel
+// (`mask_xwide_kernel`, entry `bp_mask_xwide`), a segment of lanes an
+// env-slot and a lane a word of every row, for H <= 32, 128 < W <= 1024 and
+// the same pieces; and the general kernel (`mask_kernel`, entry `bp_mask`)
+// for what is left: rows of more than 1024 cells, rows of more than 128
+// cells on boards of more than 32 rows, pieces of more than 8 rows or
+// columns, or a deep board too large for one warp's shared memory.  The
+// wrapper (kernels/mask.py) picks one by shape.
 //
 // What all compute (not how the TPU did it): anchor (r, c) of hand slot s
 // is legal iff the slot holds a piece (0 <= pid < P), the piece's bounding
@@ -111,14 +114,43 @@
 // boards: 51 M threads of 64-bit `%` and `/` on 130x8 at N = 49152, each a
 // chain of up to 9 dependent byte loads.
 //
+// The xwide kernel turns the bit-row layout around for rows of 129 to 1024
+// cells, where a lane's registers cannot hold a row: a segment of NW =
+// ceil(W / 32) lanes takes an env-slot, 32 / NW segments a warp (6 at
+// NW = 5 on 8x136, 30 of 32 lanes live), and lane w holds word w of every
+// row, so no register array grows with W or H.  The block loads its envs'
+// boards as 16-byte vectors straight into row words in shared memory
+// (`bit_rows::stage_words`: 16 bits a vector, ORed into the words they fall
+// in), with no staged copy of the bytes, so that a board takes 160 bytes of
+// shared memory on 8x136 instead of 1088 and more boards fit an SM; the S
+// slots of an env read the same words.  A
+// lane walks the anchor rows in a runtime loop holding the 8 rows below the
+// anchor row (one shared load a row); the vertical OR of each rectangle is
+// lane-local, and its smear and dc shift take the next word from lane
+// w + 1 by one `__shfl_down_sync` (a piece of at most 8 columns moves a bit
+// by at most 7 + 7 < 32 columns, so only the next word reaches a word), in
+// the wide kernel's doubling steps on the pair (`smear_words<2>`,
+// `shr_words<2>`).  Legal words are staged as NW words a row and leave as
+// 16-byte vectors from the block's byte offset (`store_words_n`: an output
+// row of 136 bytes starts off a 16-byte boundary).  Every lane runs every
+// shuffle and barrier; lanes of no env-slot read env 0's words and store
+// nothing.  It answers what bounded the general kernel on such boards: a
+// thread an anchor (53.5 M threads on 8x136 at N = 49152), 64-bit `%` and
+// `/`, and a chain of dependent byte loads each, every board byte read
+// again by each anchor whose footprint covers it.  A block is 4 warps
+// (`kernels/packed.py` `xwide_launch_shape`: in turns on the card they beat
+// 16, whose barriers hold more warps waiting); the entry opts in above 48
+// KB, which no board of at most 32 rows needs.
+//
 // The general kernel: one thread per (env, slot, anchor), flat over
 // N*S*HW.  Each thread reads its piece's (h, w, cell offsets) row from a
 // small table (P rows of 3+maxc int32, L1-resident) and tests at most maxc
 // (9 for classic19) board bytes (`piece_fits`, piece_fits.cuh, shared with
 // the legality kernel).  Per-thread work (64-bit index arithmetic, a
 // data-dependent chain of byte loads) bounds it, not bytes.  It is left to
-// the shapes no other kernel takes: W > 128, pieces larger than 8, or a
-// deep board whose one-warp block does not fit shared memory.
+// the shapes no other kernel takes: W > 1024, W > 128 with H > 32, pieces
+// larger than 8, or a deep board whose one-warp block does not fit shared
+// memory.
 
 #include <climits>
 #include <cstdint>
@@ -543,6 +575,83 @@ __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
   bit_rows::store_tall<NW>(rows, out, static_cast<long long>(first) * hw, count * hw, width);
 }
 
+__global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
+    mask_xwide_kernel(const uint8_t* __restrict__ board,
+                      const int32_t* __restrict__ queue,
+                      const int4* __restrict__ pieces,
+                      uint8_t* __restrict__ out, int total, int height,
+                      int width, int slots, int num_pieces, int max_h,
+                      int per_warp) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int nw = (width + 31) / 32;
+  const int per_block = blockDim.x / 32 * per_warp;
+  const int hw = height * width;
+  const int first = blockIdx.x * per_block;            // first env-slot
+  const int count = min(per_block, total - first);     // env-slots here
+  const int env0 = first / slots;                      // first env read
+  const int envs = (first + count - 1) / slots + 1 - env0;  // envs read
+  uint32_t* rows = reinterpret_cast<uint32_t*>(smem);  // E*H legal rows of NW words
+  uint32_t* words = rows + per_block * height * nw;    // the envs' rows of NW words
+  const long long lo = static_cast<long long>(env0) * hw;
+  bit_rows::stage_words(board, lo, lo + static_cast<long long>(envs) * hw, width, nw, words);
+
+  const bit_rows::Seat t = bit_rows::seat(nw, per_warp);  // t.lane: the word
+  const bool active = t.s < per_warp && t.seg < count;
+  const int pid = active ? queue[first + t.seg] : -1;
+  // piece row [h, w, rect 1, rect 2] as in mask_rows_kernel; no piece: no anchor
+  const int4 pc = pid >= 0 && pid < num_pieces ? pieces[pid]
+                                                : make_int4(height + 1, width + 1, 0, 0);
+  __syncthreads();
+  int env = 0;  // its board among the block's; a lane of no env-slot reads board 0, stores nothing
+  if (active) {
+    const int q = first - env0 * slots + t.seg;
+    env = slots <= 32 ? bit_rows::small_div(q, __frcp_rn(static_cast<float>(slots)))
+                      : q / slots;
+  }
+  const uint32_t* x = words + env * height * nw + t.lane;  // row r's word: x[r * nw]
+  const unsigned r1 = static_cast<unsigned>(pc.z), r2 = static_cast<unsigned>(pc.w);
+  const int dr1 = r1 & 0xff, rh1 = (r1 >> 16) & 0xff, dc1 = (r1 >> 8) & 0xff, rw1 = r1 >> 24;
+  const int dr2 = r2 & 0xff, rh2 = (r2 >> 16) & 0xff, dc2 = (r2 >> 8) & 0xff, rw2 = r2 >> 24;
+  const bool last = t.lane + 1 == nw;                 // the row's top word
+  const int a = width - pc.y + 1 - 32 * t.lane;       // anchors c + w <= W in this word
+  const uint32_t span_mask = a >= 32 ? kAll : a > 0 ? (1u << a) - 1u : 0u;
+  // rows r .. r + 7 of this word, 0 past the bottom (such an anchor fails
+  // r + h <= H below)
+  uint32_t below[kMaxPiece];
+#pragma unroll
+  for (int i = 0; i < kMaxPiece; ++i) below[i] = i < height ? x[i * nw] : 0u;
+  for (int r = 0; r < height; ++r) {
+    // vertical OR over each rectangle's rows, lane-local
+    uint32_t v1 = 0, v2 = 0;
+#pragma unroll
+    for (int i = 0; i < kMaxPiece; ++i) {
+      if (i < max_h) {
+        v1 |= static_cast<unsigned>(i - dr1) < static_cast<unsigned>(rh1) ? below[i] : 0u;
+        v2 |= static_cast<unsigned>(i - dr2) < static_cast<unsigned>(rh2) ? below[i] : 0u;
+      }
+    }
+    // smear and shift by dc on the pair (this word, the next lane's): they
+    // move bits down by at most 7 + 7 < 32 columns, so no word past the
+    // next one reaches this one; the top word's next is 0
+    const uint32_t n1 = __shfl_down_sync(kAll, v1, 1), n2 = __shfl_down_sync(kAll, v2, 1);
+    uint32_t b1[2] = {v1, last ? 0u : n1}, b2[2] = {v2, last ? 0u : n2};
+    smear_words<2>(b1, rw1);
+    shr_words<2>(b1, dc1);
+    smear_words<2>(b2, rw2);
+    shr_words<2>(b2, dc2);
+    if (active) {  // bit c of the word: anchor (r, 32 w + c) is legal
+      rows[(t.seg * height + r) * nw + t.lane] =
+          r + pc.x <= height ? ~(b1[0] | b2[0]) & span_mask : 0u;
+    }
+#pragma unroll
+    for (int i = 0; i + 1 < kMaxPiece; ++i) below[i] = below[i + 1];
+    below[kMaxPiece - 1] = r + kMaxPiece < height ? x[(r + kMaxPiece) * nw] : 0u;
+  }
+  __syncthreads();
+  bit_rows::store_words_n(rows, out, static_cast<long long>(first) * hw, count * hw, width, nw,
+                          threadIdx.x, blockDim.x);
+}
+
 __global__ void mask_kernel(const uint8_t* __restrict__ board,
                             const int32_t* __restrict__ queue,
                             const int32_t* __restrict__ piece_table,
@@ -782,6 +891,44 @@ extern "C" int bp_mask_deep(const void* board, const void* queue,
       return launch_mask_deep<4>(board, queue, pieces, out, t, height, width, slots,
                                  num_pieces, max_h, per_warp, warps, st);
   }
+}
+
+// As bp_mask_rows, for H <= 32 and 128 < W <= 1024: a segment of NW =
+// ceil(W / 32) lanes an env-slot, lane w holding word w of every row;
+// per_warp = 32 / NW segments a warp, warps 1 to 16 (the block's output
+// span may start off a 16-byte boundary); refused where the block's shared
+// memory (its legal rows, its envs' packed rows and their staged bytes)
+// passes what a block may opt in to.
+extern "C" int bp_mask_xwide(const void* board, const void* queue,
+                             const void* pieces, void* out, int n, int height,
+                             int width, int slots, int num_pieces, int max_h,
+                             int max_w, int per_warp, int warps, void* stream) {
+  const long long total = static_cast<long long>(n) * slots;
+  const int nw = (width + 31) / 32;
+  if (height < 1 || height > 32 || width <= 128 || width > 1024 || per_warp != 32 / nw ||
+      slots < 1 || max_h > kMaxPiece || max_w > kMaxPiece || warps < 1 ||
+      warps > bit_rows::kMaxWarps || total > INT_MAX ||
+      ((reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(pieces)) & 15) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (total == 0) return static_cast<int>(cudaGetLastError());
+  const int per_block = warps * per_warp;
+  // the legal rows, then the packed rows of the envs the block reads
+  const int most = (per_block + slots - 1) / slots + 1;
+  const long long smem = 4LL * (per_block + most) * height * nw;
+  if (smem > kSmemOptIn) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        mask_xwide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int blocks = static_cast<int>((total + per_block - 1) / per_block);
+  mask_xwide_kernel<<<blocks, warps * 32, static_cast<int>(smem),
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(board), static_cast<const int32_t*>(queue),
+      static_cast<const int4*>(pieces), static_cast<uint8_t*>(out), static_cast<int>(total),
+      height, width, slots, num_pieces, max_h, per_warp);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // board (N, HW) u8, queue (N, S) i32, piece_table (P, 3 + max_cells) i32

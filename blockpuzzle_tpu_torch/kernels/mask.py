@@ -6,7 +6,7 @@ bounds there and covers no occupied (nonzero) cell; the result is the
 engine's ``action_mask``: (N, S*HW) bool, slot-major then row-major anchor.
 It is the legality map of ``collision.py`` read at each slot's piece.
 
-Five kernels compute it: the bit-row kernel, for boards of at most 32
+Six kernels compute it: the bit-row kernel, for boards of at most 32
 rows of at most 32 cells and pieces of at most 8 rows and 8 columns (every
 shipped preset and piece set), tests each anchor row's cells at once on a
 32-bit row word, from the piece table ``piece_rows_table``; the wide
@@ -15,10 +15,13 @@ the tall kernel on boards of 33 to 128 rows of at most 128 cells, a warp
 an env-slot and up to four rows a lane; the deep kernel on boards of more
 than 128 rows of at most 128 cells, a warp an env-slot walking the board
 in windows of 32 rows, wherever a block of one warp with its boards fits
-the shared memory a block may opt in to; the general kernel, a thread per
-anchor over ``collision.piece_table``, takes what is left: rows of more
-than 128 cells, pieces of more than 8 rows or columns (no shipped piece
-set has one), or a deep board too large for one warp's shared memory.
+the shared memory a block may opt in to; the xwide kernel on boards of at
+most 32 rows of 129 to 1024 cells, a segment of lanes an env-slot and a
+lane a word of every row; the general kernel, a thread per anchor over
+``collision.piece_table``, takes what is left: rows of more than 1024
+cells, rows of more than 128 cells on boards of more than 32 rows, pieces
+of more than 8 rows or columns (no shipped piece set has one), or a deep
+board too large for one warp's shared memory.
 """
 
 from __future__ import annotations
@@ -31,8 +34,7 @@ from blockpuzzle_tpu_torch.config import EnvConfig
 from blockpuzzle_tpu_torch.kernels import _build
 from blockpuzzle_tpu_torch.kernels.collision import legality_plain, piece_table
 from blockpuzzle_tpu_torch.kernels.packed import (
-    MAX_PIECE, SUFFIX, count_launch, deep_launch_shape, row_launch_shape, tall_launch_shape,
-    u8_kind, wide_launch_shape,
+    MAX_PIECE, SUFFIX, count_launch, u8_kind, u8_launch_shape,
 )
 
 
@@ -81,10 +83,14 @@ class MaskKernel:
     wide kernel where H <= 32 and 32 < W <= 128 (``wide`` is True;
     ``wide_launches``), the tall kernel where 32 < H <= 128 and W <= 128
     (``tall_launches``), the deep kernel where H > 128 and W <= 128 and a
-    block of one warp fits (``deep_launches``); ``shape`` is the launch
-    shape of any of them.  Else the general kernel (``shape`` is None;
-    ``general_launches``): rows of more than 128 cells, larger pieces, or a
-    deep board whose one-warp block does not fit.  ``name`` is the picked
+    block of one warp fits (``deep_launches``), the xwide kernel where
+    H <= 32 and 128 < W <= 1024 (``xwide_launches``: a segment of
+    ceil(W / 32) lanes an env-slot, a lane a word of every row); ``shape`` is
+    the launch shape of any of them (``u8_launch_shape``).  Else the
+    general kernel (``shape`` is None; ``general_launches``): rows of more
+    than 1024 cells, rows of more than 128 cells on boards of more than 32
+    rows, larger pieces, or a deep board whose one-warp block does not
+    fit.  ``name`` is the picked
     kernel's.  The clear (``ClearScanKernel``) picks its own kernel by
     the same board shapes, so the two kinds differ only where pieces are
     larger than 8.
@@ -97,10 +103,9 @@ class MaskKernel:
         self.num_pieces = t.num_pieces
         self.max_h, self.max_w = t.max_h, t.max_w
         self.launches = self.wide_launches = self.tall_launches = 0
-        self.deep_launches = self.general_launches = 0
+        self.deep_launches = self.xwide_launches = self.general_launches = 0
         fits = max(t.max_h, t.max_w) <= MAX_PIECE
-        self.shape = (row_launch_shape(cfg) or wide_launch_shape(cfg)
-                      or tall_launch_shape(cfg) or deep_launch_shape(cfg)) if fits else None
+        self.shape = u8_launch_shape(cfg) if fits else None
         self.kind = u8_kind(cfg, self.shape)
         self.wide = self.kind == "wide"
         self.name = "mask" + SUFFIX[self.kind]

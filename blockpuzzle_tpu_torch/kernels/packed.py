@@ -58,6 +58,13 @@ MAX_PIECE = 8
 # cells of the widest row the wide u8 mask and clear take: four 32-bit
 # words a lane
 MAX_WIDE = 128
+# cells of the widest row the xwide u8 mask and clear take: a segment of
+# ceil(W / 32) lanes a board, a lane a word of every row, at most a warp
+MAX_XWIDE = 1024
+# warps a block of the xwide mask and clear: 4 beat 1, 2, 8, 12 and 16 in
+# turns on an H100 on most boards of 129 to 1024 cells a row (PERF.md §6),
+# their blocks' barriers holding fewer warps waiting than 16 do
+XWIDE_WARPS = 4
 # rows of the tallest board the tall kernels take (the packed apply, mask
 # and words, the u8 mask and clear): four rows a lane, one warp a board;
 # taller boards take the general kernels
@@ -125,6 +132,42 @@ def deep_launch_shape(cfg: EnvConfig):
     if cfg.height <= MAX_TALL or cfg.width > MAX_WIDE:
         return None
     return _turns_shape(cfg)
+
+
+def xwide_launch_shape(cfg: EnvConfig):
+    """(segments a warp, warps a block) of the xwide u8 mask and clear,
+    which give an env-slot (mask) or env (clear) a segment of NW =
+    ceil(W / 32) lanes, lane w holding word w of every row, for boards of at
+    most ``MAX_ROWS`` rows of ``MAX_WIDE`` < W <= ``MAX_XWIDE`` cells: 32 //
+    NW segments a warp (6 on 8x136) and ``XWIDE_WARPS`` warps, whose shared
+    memory (``xwide_smem_bytes``, at most 36 KB a block) fits 48 KB on every
+    such board.  None for any other board.  Computed once per wrapper, as
+    ``row_launch_shape``."""
+    if cfg.height > MAX_ROWS or not MAX_WIDE < cfg.width <= MAX_XWIDE:
+        return None
+    return 32 // -(-cfg.width // 32), XWIDE_WARPS
+
+
+def xwide_smem_bytes(cfg: EnvConfig, per_block: int) -> int:
+    """Shared memory of a block of the xwide u8 mask or clear, the larger
+    of the two: the mask's ``per_block`` env-slots' legal rows of NW words,
+    then the rows of the envs they read (``bp_mask_xwide``); the clear's
+    envs' rows, cleared in place (``bp_clear_xwide``).  No board's bytes are
+    staged (``csrc/bit_rows.cuh`` ``stage_words``)."""
+    s, rows = cfg.queue_size, cfg.height * -(-cfg.width // 32)
+    most = (per_block + s - 1) // s + 1
+    return 4 * max(per_block + most, per_block) * rows
+
+
+def u8_launch_shape(cfg: EnvConfig):
+    """The launch shape of the u8 mask and clear kernel ``cfg``'s board
+    takes (the mask's where no piece spans more than ``MAX_PIECE`` rows or
+    columns): the bit-row, wide, tall, deep or xwide kernels' shape, or None
+    where the general kernel runs (rows of more than ``MAX_XWIDE`` cells,
+    rows of more than ``MAX_WIDE`` on boards of more than ``MAX_ROWS`` rows,
+    or a deep board whose one-warp block does not fit)."""
+    return (row_launch_shape(cfg) or wide_launch_shape(cfg) or tall_launch_shape(cfg)
+            or deep_launch_shape(cfg) or xwide_launch_shape(cfg))
 
 
 def apply_launch_shape(cfg: EnvConfig):
@@ -366,16 +409,19 @@ def packed_kind(cfg: EnvConfig) -> str:
 
 # kernel kind -> the suffix of its name (``mask_tall``, ``packed_apply``)
 SUFFIX = {"rows": "", "wide": "_wide", "tall": "_tall", "deep": "_deep",
-          "general": "_general"}
+          "xwide": "_xwide", "general": "_general"}
 
 
 def u8_kind(cfg: EnvConfig, shape) -> str:
     """The kind of the u8 kernel a wrapper with launch shape ``shape`` (None:
     the general kernel) picks on ``cfg``: ``"rows"``, ``"wide"``, ``"tall"``,
-    ``"deep"`` (the mask, the clear and the apply above ``MAX_TALL`` rows) or
-    ``"general"``."""
+    ``"deep"`` (the mask, the clear and the apply above ``MAX_TALL`` rows),
+    ``"xwide"`` (the mask and the clear on rows of more than ``MAX_WIDE``
+    cells; the apply has no launch shape there) or ``"general"``."""
     if shape is None:
         return "general"
+    if cfg.width > MAX_WIDE:
+        return "xwide"
     if cfg.height > MAX_TALL:
         return "deep"
     if cfg.height > MAX_ROWS:

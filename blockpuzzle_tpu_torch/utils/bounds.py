@@ -24,7 +24,12 @@ shift, whose steps are funnel shifts, and 4 for its legal mask; the clear
 tests and clears about 8 a word); the tall mask and clear (boards of 33 to
 128 rows, a warp a board) and the deep mask (more rows, windows of 32)
 count as the wide ones, a row's words being one where W <= 32, the deep
-clear 3 more a word (staged, then its full columns cleared); the bit-row
+clear 3 more a word (staged, then its full columns cleared); the xwide
+mask and clear (rows of 129 to 1024 cells, a lane a word of every row)
+load each env's board as row words once (2 operations a byte), the mask
+then spending about 50 operations a word of each anchor row beside 5 a
+row below (the rectangles' smear and shift on a word pair, the ring of
+rows below), the clear about 12 a word in its two passes; the bit-row
 apply (K2) packs two words a row, tests, places and
 clears (about 12) and stores likewise, and its wide, tall and deep
 kernels pack two rows of words (board and cover), spend 2 operations a
@@ -172,6 +177,25 @@ def _mask_wide(cfg, inputs):
                                  + cfg.num_cells)
 
 
+def _stage_words(cfg: EnvConfig) -> int:
+    """Operations to load one board into row words (``stage_words``):
+    about 32 a 16-byte vector (its 16 bits gathered, placed and ORed in),
+    2 a byte, and one to zero each word first."""
+    return 2 * cfg.num_cells + cfg.height * _words(cfg)
+
+
+def _mask_xwide(cfg, inputs):
+    """K1, xwide (a lane a word of every row): inputs (board (N, HW) u8,
+    queue (N, S) i32); each env's board loaded as row words once, then a
+    word of each anchor row: 5 operations a row below, 2 shuffles and the
+    two rectangles' smear and shift on the word pair (about 40), the legal
+    mask, the store to shared memory and the ring of rows below (8)."""
+    t = rules.tables_for(cfg)
+    n, h, nw = inputs[0].shape[0], cfg.height, _words(cfg)
+    return n * (_stage_words(cfg) + cfg.queue_size * (h * nw * (5 * t.max_h + 50)
+                                                      + cfg.num_cells))
+
+
 def _mask_general(cfg, inputs):
     """K1, general: inputs (board, queue)."""
     t = rules.tables_for(cfg)
@@ -223,6 +247,14 @@ def _clear_deep(cfg, inputs):
     to stage it and clear the full columns from it in pass 2."""
     n, h = inputs[0].shape[0], cfg.height
     return n * (h * (_pack_words(cfg) + 11 * _words(cfg)) + _regions(cfg) + cfg.num_cells)
+
+
+def _clear_xwide(cfg, inputs):
+    """K3, xwide: inputs (board,); the board loaded as row words, then a
+    word of each row about 6 operations in each of the two passes (the
+    column AND and the full-row bit, then the clear in place)."""
+    n, h = inputs[0].shape[0], cfg.height
+    return n * (_stage_words(cfg) + h * 12 * _words(cfg) + _regions(cfg) + cfg.num_cells)
 
 
 def _clear_general(cfg, inputs):
@@ -320,13 +352,13 @@ def _packed_unpack(cfg, inputs):
 COSTS: Dict[str, Cost] = {
     "mask": _cost(_mask), "mask_wide": _cost(_mask_wide),
     "mask_tall": _cost(_mask_wide), "mask_deep": _cost(_mask_wide),
-    "mask_general": _cost(_mask_general),
+    "mask_xwide": _cost(_mask_xwide), "mask_general": _cost(_mask_general),
     "apply": _cost(_apply), "apply_wide": _cost(_apply_words),
     "apply_tall": _cost(_apply_words), "apply_deep": _cost(_apply_deep),
     "apply_general": _cost(_apply_general),
     "clear": _cost(_clear), "clear_wide": _cost(_clear_wide),
     "clear_tall": _cost(_clear_wide), "clear_deep": _cost(_clear_deep),
-    "clear_general": _cost(_clear_general),
+    "clear_xwide": _cost(_clear_xwide), "clear_general": _cost(_clear_general),
     "legality": _cost(_legality), "legality_general": _cost(_legality_general),
     **{f"packed_apply{s}": _cost(_packed_apply) for s in ("", "_tall", "_general")},
     **{f"packed_{e}{s}": _cost(_packed_mask) for e in ("mask", "legal_words")
@@ -347,7 +379,7 @@ def kernel_bounds(cfg, board, queue, cover, valid, words, attrs, r, c, outs) -> 
     bounds = {}
     for k, out in outs.items():
         args = inputs[k.removesuffix("_wide").removesuffix("_tall").removesuffix("_deep")
-                      .removesuffix("_general")]
+                      .removesuffix("_xwide").removesuffix("_general")]
         out = list(out if isinstance(out, tuple) else (out,))
         _, ops = COSTS[k](cfg, args, out)
         bounds[k] = bound(args + out, ops)

@@ -2,10 +2,10 @@
 """Measurements of the PyTorch + CUDA port on one card, beyond the smoke run.
 
     python3 chip_measure.py [--parts build,train,rollout,kernels,words,general,draws,tall,
-                                     tail,deep,apply] [--parent-csrc DIR]
+                                     tail,deep,apply,xwide] [--parent-csrc DIR]
 
 Needs one CUDA card and nvcc.  Prints the card's name and power limit,
-then, each line tagged with its part (all eleven by default):
+then, each line tagged with its part (all twelve by default):
 
   build     cold builds of ``kernels/csrc/*.cu`` in turns: one nvcc over
             all sources, then one nvcc per source started together and a
@@ -125,9 +125,19 @@ then, each line tagged with its part (all eleven by default):
             library's) and with the wrapper's in turns, earlier, current,
             current, earlier: host ms a step, device kernels, device ms and
             busy share a step, the apply's device ms a step
-            (``pallas_step_turns``); then the general mask, clear and apply
-            on 8x136, the one shape left to them, timed in turns beside
-            their bounds (``xwide_times``).
+            (``pallas_step_turns``);
+  xwide     the u8 mask and clear on rows of more than 128 cells at N = 49152
+            on 8x136, 8x160, 9x135 with regions, 3x320 and 2x1024: the
+            xwide mask and clear each held bit-equal to the general kernel
+            it replaces launched directly on the same inputs
+            (``chip_smoke.general_calls``) and timed in turns with it, 5
+            rounds, medians and shares of the bound, and the general apply
+            on 8x136 (``xwide_times``); then the u8 clear-kernel and
+            apply-kernel steps on 8x136 with the general mask and clear
+            swapped in and with the xwide ones, in turns general, xwide,
+            xwide, general: host ms a step, device kernels, device ms and
+            busy share a step, the mask's and the clear's device ms a step
+            (``xwide_step_turns``).
 
 Cold builds go to a temporary directory under the git-ignored
 ``kernels/_build/``, removed at the end.
@@ -337,18 +347,22 @@ def rollout_breakdown(card: str, cfg=None, engines=ENGINES, tag: str = "rollout"
 # the device kernel names of the u8 mask and clear, by kernel kind
 STEP_KERNEL_NAMES = {"wide": ("mask_wide_kernel<", "clear_wide_kernel<"),
                      "tall": ("mask_tall_kernel<", "clear_tall_kernel<"),
+                     "xwide": ("mask_xwide_kernel(", "clear_xwide_kernel("),
                      "general": ("::mask_kernel(", "::clear_kernel(")}
 
 
-def u8_step_turns(card: str, shape: dict, tag: str, steps: int = 20) -> None:
-    """The u8 clear-kernel step (``backend="jnp"``) on the board ``shape``
-    at N = 49152, uniform-legal draws, with the mask and clear the wrappers
-    pick (wide or tall) and with the general mask and clear launched in
-    their place on the same inputs (``chip_smoke.general_calls``), in turns
-    general, picked, picked, general, one engine carrying its state through
-    all four: host ms a step over ``steps`` unprofiled steps, then
-    ``steps`` steps under ``torch.profiler``: device kernels and device ms
-    a step, and the mask's and the clear's device ms a step inside it."""
+def u8_step_turns(card: str, shape: dict, tag: str, steps: int = 20,
+                  backend: str = "jnp") -> None:
+    """The u8 clear-kernel step (``backend="jnp"``; ``"pallas"``, the
+    apply-kernel step, runs the mask alone of the two) on the board
+    ``shape`` at N = 49152, uniform-legal draws, with the mask and clear the
+    wrappers pick (wide, tall or xwide) and with the general mask and clear
+    launched in their place on the same inputs (``chip_smoke.general_calls``),
+    in turns general, picked, picked, general, one engine carrying its state
+    through all four: host ms a step over ``steps`` unprofiled steps, then
+    ``steps`` steps under ``torch.profiler``: device kernels, device ms and
+    busy share a step, and the mask's and the clear's device ms a step
+    inside it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -357,7 +371,7 @@ def u8_step_turns(card: str, shape: dict, tag: str, steps: int = 20) -> None:
     from blockpuzzle_tpu_torch.sampler import UniformLegalSampler
 
     n, cfg = chip_smoke.N_MAIN, EnvConfig(**shape)
-    env = make_env(cfg, device="cuda", backend="jnp", state_impl="u8")
+    env = make_env(cfg, device="cuda", backend=backend, state_impl="u8")
     kind = env.mask_kernel.kind
     kernels = {kind: (env.mask_kernel, env.clear_kernel),
                "general": chip_smoke.general_calls(cfg, env.mask_kernel, env.clear_kernel)}
@@ -385,11 +399,12 @@ def u8_step_turns(card: str, shape: dict, tag: str, steps: int = 20) -> None:
             continue
         parts = [sum(e.time_range.elapsed_us() for e in device if key in e.name)
                  / steps / 1e3 for key in STEP_KERNEL_NAMES[which]]
-        print(f"[{tag}] u8 jnp step, {kind} {board}, N={n}, {which} mask and clear: "
+        busy = busy_us(device) / steps / 1e3
+        print(f"[{tag}] u8 {backend} step, {kind} {board}, N={n}, {which} mask and clear: "
               f"{step_ms:.4f} ms per step, {len(device) / steps:.2f} device kernels and "
               f"{sum(e.time_range.elapsed_us() for e in device) / steps / 1e3:.6f} ms "
-              f"device time a step, mask {parts[0]:.6f} ms, clear {parts[1]:.6f} ms "
-              f"({card})")
+              f"device time a step, busy {busy:.4f} ms = {100 * busy / step_ms:.1f}%, "
+              f"mask {parts[0]:.6f} ms, clear {parts[1]:.6f} ms ({card})")
     env.mask_kernel, env.clear_kernel = kernels[kind]
 
 
@@ -1364,9 +1379,14 @@ def pallas_step_turns(card: str, lib, steps: int = 20) -> None:
 
 
 def xwide_times(card: str, rounds: int = 5) -> None:
-    """The general u8 mask, clear and apply on 8x136 (rows of more than 128
-    cells, ``chip_smoke.XWIDE``: the only shape left to them) at N = 49152,
-    timed in turns for ``rounds`` rounds beside their bounds."""
+    """The u8 mask and clear on rows of more than 128 cells at N = 49152 on
+    8x136 (``chip_smoke.XWIDE``) and ``chip_smoke.XWIDE_CASES``
+    (``chip_smoke.kernel_inputs``, seed 0): the xwide mask and clear each
+    beside the general kernel it replaces, launched directly on the same
+    inputs (``chip_smoke.general_calls``: ``bp_mask``, ``bp_clear``, which
+    this tree keeps as they were), held bit-equal, then timed in turns
+    (``group_turns``); on 8x136 also the general apply, the wrapper's kernel
+    there."""
     import torch
 
     from blockpuzzle_tpu_torch.config import EnvConfig
@@ -1374,21 +1394,33 @@ def xwide_times(card: str, rounds: int = 5) -> None:
     from blockpuzzle_tpu_torch.utils.bounds import kernel_bounds
 
     n, dev = chip_smoke.N_MAIN, torch.device("cuda")
-    cfg = EnvConfig(**chip_smoke.XWIDE)
-    mk, ck, ak = MaskKernel(cfg, dev), ClearScanKernel(cfg, dev), ApplyKernel(cfg, dev)
-    if {mk.kind, ck.kind, ak.kind} != {"general"}:
-        raise AssertionError(f"8x136: the wrappers picked {mk.name}, {ck.name}, {ak.name}")
-    board, queue, cover, valid, attrs, r, c = (
-        torch.as_tensor(x, device=dev) for x in chip_smoke.kernel_inputs(cfg, n, seed=0))
-    fns = {mk.name: lambda: mk(board, queue), ck.name: lambda: ck(board),
-           ak.name: lambda: ak(board, cover, valid)}
-    bound = kernel_bounds(cfg, board, queue, cover, valid, None, attrs, r, c,
-                          {k: f() for k, f in fns.items()})
-    for k, ms in turns_ms(fns, rounds).items():
-        b = bound[k]
-        print(f"[apply] {k} 8x136 N={n}: median {ms:.6f} ms of {rounds} rounds in turns, "
-              f"{100 * b['bound_ms'] / ms:.1f}% of the {b['bound_ms']:.6f} ms bound by "
-              f"{b['bound_by']} ({b['bytes']} B) ({card})")
+    for name, shape in {"8x136": chip_smoke.XWIDE, **chip_smoke.XWIDE_CASES}.items():
+        cfg = EnvConfig(**shape)
+        mk, ck, ak = MaskKernel(cfg, dev), ClearScanKernel(cfg, dev), ApplyKernel(cfg, dev)
+        if (mk.name, ck.name, ak.name) != ("mask_xwide", "clear_xwide", "apply_general"):
+            raise AssertionError(f"{name}: the wrappers picked {mk.name}, {ck.name}, {ak.name}")
+        board, queue, cover, valid, attrs, r, c = (
+            torch.as_tensor(x, device=dev) for x in chip_smoke.kernel_inputs(cfg, n, seed=0))
+        general_mask, general_clear = chip_smoke.general_calls(cfg, mk, ck)
+        groups = {"mask_xwide": {"mask_general": lambda: general_mask(board, queue),
+                                 "mask_xwide": lambda: mk(board, queue)},
+                  "clear_xwide": {"clear_general": lambda: general_clear(board),
+                                  "clear_xwide": lambda: ck(board)}}
+        outs = {"mask_xwide": mk(board, queue), "clear_xwide": ck(board)}
+        if name == "8x136":
+            groups["apply_general"] = {"apply_general": lambda: ak(board, cover, valid)}
+            outs["apply_general"] = ak(board, cover, valid)
+        bound = kernel_bounds(cfg, board, queue, cover, valid, None, attrs, r, c, outs)
+        print(f"[xwide] {name}: launch shape {mk.shape} (segments a warp, warps a block)")
+        group_turns(card, "xwide", name, groups, bound, rounds)
+
+
+def xwide_step_turns(card: str, steps: int = 20) -> None:
+    """``u8_step_turns`` on 8x136, the u8 clear-kernel step (the port's
+    default engine there) and the apply-kernel step: the xwide mask and
+    clear against the general ones, the kernels they replace."""
+    for backend in ("jnp", "pallas"):
+        u8_step_turns(card, chip_smoke.XWIDE, "xwide", steps, backend)
 
 
 def deep_step_turns(card: str, lib, steps: int = 20) -> None:
@@ -1452,7 +1484,7 @@ def deep_step_turns(card: str, lib, steps: int = 20) -> None:
 
 
 PARTS = ("build", "train", "rollout", "kernels", "words", "general", "draws", "tall", "tail",
-         "deep", "apply")
+         "deep", "apply", "xwide")
 
 
 def main(argv=None) -> int:
@@ -1515,7 +1547,9 @@ def main(argv=None) -> int:
         lib = parent_library(pathlib.Path(args.parent_csrc)) if args.parent_csrc else None
         apply_turns(card, lib)
         pallas_step_turns(card, lib)
+    if "xwide" in parts:
         xwide_times(card)
+        xwide_step_turns(card)
     print(f"[done] {card}")
     return 0
 

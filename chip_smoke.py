@@ -9,7 +9,7 @@ which raises on failure (non-zero exit, no result line):
 
   0. card name and power limit, torch/CUDA versions, compute capability,
      kernel build time;
-  1. each of the thirty-one kernels against its plain torch version on
+  1. each of the thirty-three kernels against its plain torch version on
      the card, bit-equal, at N = 49152 and a ragged N = 49151: the three draws
      (deal, uniform_legal, words_select: ``kernels/draws.py``) on the four
      presets, at per-env counters that wrap negative and at shared ones
@@ -49,7 +49,13 @@ which raises on failure (non-zero exit, no result line):
      3x3 regions and a hand of three (``DEEP_CASES``), the tall and deep
      apply, the deep clear and the windowed packed mask and words also held
      to the kernels they replace launched directly on every one of these
-     boards; the
+     boards; on rows of more than 128 cells (``phase1_xwide``) the xwide
+     mask and clear (mask_xwide, clear_xwide: a segment of lanes an
+     env-slot or env, a lane a word of every row) on 8x136 (``XWIDE``) and
+     on 8x160, 9x135 with 3x3 regions across words and a hand of three,
+     3x320 and 2x1024 (``XWIDE_CASES``), each also held to the general
+     mask and clear launched directly, with the general apply, and the
+     general mask, clear and apply on 2x1056 (``W1056``); the
      step's tail (packed_tail: game over,
      truncation, score, auto-reset and both board views in one launch) and
      its unpack entry (packed_unpack) on the default, tenten, 33x9 and 130x8
@@ -64,8 +70,9 @@ which raises on failure (non-zero exit, no result line):
      launch time does not enter) beside its bound (``utils/bounds.py``)
      and the plain version's time (50 calls made as the host goes), at N
      = 49152 on the default preset (the wide kernels and legality_general
-     on the wide board, the tall ones on 33x9, the deep ones and the other
-     general ones on 130x8), and the launch floor (an empty launch's
+     on the wide board, the tall ones on 33x9, the deep ones and the
+     general packed ones on 130x8, the xwide ones and the general mask,
+     clear and apply on 8x136), and the launch floor (an empty launch's
      device time) beside the deal's; then the wide board's kernels timed
      in turns for 5 rounds, with the general mask, clear and apply launched
      directly on the same inputs and held bit-equal to the wide ones
@@ -89,8 +96,10 @@ which raises on failure (non-zero exit, no result line):
      ``tall_u8_pallas``, ``tall_u8_jnp``; 36x9 with regions,
      ``tall36r3_u8_jnp``; 130x8, the deep mask, clear and apply:
      ``huge_u8_pallas``, ``huge_u8_jnp``;
-     8x136, rows of more than 128 cells, the general mask, apply and clear:
-     ``xwide_u8_pallas``, ``xwide_u8_jnp``, N = 256, 32 steps), counters set to
+     8x136, rows of more than 128 cells, the xwide mask and clear with the
+     general apply: ``xwide_u8_pallas``, ``xwide_u8_jnp``; 2x1056, rows of
+     more than 1024 cells, the general mask, apply and clear:
+     ``w1056_u8_pallas``, ``w1056_u8_jnp``; N = 256, 32 steps), counters set to
      0 before each and read after it: final states and summed rewards
      bit-equal across devices and across the engines, each kernel of an
      engine launched exactly once per step and every other kernel never;
@@ -264,9 +273,23 @@ HUGE = dict(height=130, width=8)
 DEEP_CASES = {"512x8": dict(height=512, width=8),
               "135x9r3": dict(height=135, width=9, region_clear=True, region_size=3,
                               queue_size=3)}
-# rows of more than 128 cells: the general u8 mask, clear, apply and
-# legality (the paths ``xwide_u8_pallas`` and ``xwide_u8_jnp``)
+# rows of more than 128 cells: the xwide u8 mask and clear (a segment of
+# ceil(W / 32) lanes a board, a lane a word of every row), the general apply
+# and legality (the paths ``xwide_u8_pallas`` and ``xwide_u8_jnp``)
 XWIDE = dict(height=8, width=136)
+# the other boards phase 1 holds the xwide mask and clear on
+# (tests/test_torch_xwide.py): whole words, 3x3 regions whose fields
+# straddle words (columns 30..32, 63..65) with a hand of three, ten words
+# a row and 32 (one segment a warp), the last two with pieces of at most
+# 2x2, which fit their rows
+XWIDE_CASES = {"8x160": dict(height=8, width=160),
+               "9x135r3": dict(height=9, width=135, region_clear=True, region_size=3,
+                               queue_size=3),
+               "3x320": dict(height=3, width=320, piece_set="mini5"),
+               "2x1024": dict(height=2, width=1024, piece_set="mini5")}
+# rows of more than 1024 cells: the general u8 mask, clear, apply and
+# legality (the paths ``w1056_u8_pallas`` and ``w1056_u8_jnp``)
+W1056 = dict(height=2, width=1056, piece_set="mini5")
 # kernel -> (source, the TPU kernel or jnp code it replaces, the path its
 # launches are read from)
 KERNEL_INFO = {
@@ -278,8 +301,10 @@ KERNEL_INFO = {
                   "blockpuzzle_tpu/kernels/mask.py:85", "tall_u8_pallas"),
     "mask_deep": ("blockpuzzle_tpu_torch/kernels/csrc/mask.cu",
                   "blockpuzzle_tpu/kernels/mask.py:85", "huge_u8_pallas"),
+    "mask_xwide": ("blockpuzzle_tpu_torch/kernels/csrc/mask.cu",
+                   "blockpuzzle_tpu/kernels/mask.py:85", "xwide_u8_pallas"),
     "mask_general": ("blockpuzzle_tpu_torch/kernels/csrc/mask.cu",
-                     "blockpuzzle_tpu/kernels/mask.py:85", "xwide_u8_pallas"),
+                     "blockpuzzle_tpu/kernels/mask.py:85", "w1056_u8_pallas"),
     "apply": ("blockpuzzle_tpu_torch/kernels/csrc/collision.cu",
               "blockpuzzle_tpu/kernels/collision.py:164", "rollout_pallas"),
     "apply_wide": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
@@ -298,8 +323,10 @@ KERNEL_INFO = {
                    "blockpuzzle_tpu/kernels/clear.py:93", "tall_u8_jnp"),
     "clear_deep": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
                    "blockpuzzle_tpu/kernels/clear.py:93", "huge_u8_jnp"),
+    "clear_xwide": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
+                    "blockpuzzle_tpu/kernels/clear.py:93", "xwide_u8_jnp"),
     "clear_general": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
-                      "blockpuzzle_tpu/kernels/clear.py:93", "xwide_u8_jnp"),
+                      "blockpuzzle_tpu/kernels/clear.py:93", "w1056_u8_jnp"),
     "legality": ("blockpuzzle_tpu_torch/kernels/csrc/legality.cu",
                  "blockpuzzle_tpu/kernels/collision.py:50", "legal_all_pieces"),
     "legality_general": ("blockpuzzle_tpu_torch/kernels/csrc/legality.cu",
@@ -371,6 +398,7 @@ def kernel_counters(env) -> dict:
             "mask_wide": (env.mask_kernel, "wide_launches"),
             "mask_tall": (env.mask_kernel, "tall_launches"),
             "mask_deep": (env.mask_kernel, "deep_launches"),
+            "mask_xwide": (env.mask_kernel, "xwide_launches"),
             "mask_general": (env.mask_kernel, "general_launches"),
             "apply": (env.apply_kernel, "launches"),
             "apply_wide": (env.apply_kernel, "wide_launches"),
@@ -381,6 +409,7 @@ def kernel_counters(env) -> dict:
             "clear_wide": (env.clear_kernel, "wide_launches"),
             "clear_tall": (env.clear_kernel, "tall_launches"),
             "clear_deep": (env.clear_kernel, "deep_launches"),
+            "clear_xwide": (env.clear_kernel, "xwide_launches"),
             "clear_general": (env.clear_kernel, "general_launches"),
             "legality": (env.legal_kernel, "launches"),
             "legality_general": (env.legal_kernel, "general_launches"),
@@ -517,7 +546,7 @@ def kernel_inputs(cfg, n: int, seed: int):
     board = (rs.random((n, hw)) < 0.35).astype(np.uint8)
     grid = board.reshape(n, cfg.height, cfg.width)
     r4 = min(4, cfg.height - 1)                       # row 4, or the last
-    grid[0::7, 3, :] = 1                              # full rows
+    grid[0::7, min(3, cfg.height - 1), :] = 1         # full rows
     grid[1::7, :, 5] = 1                              # full columns
     grid[2::7, r4, :] = 1                             # row 4 full but
     grid[2::7, r4, 0] = 0                             # its first cell
@@ -575,12 +604,14 @@ def u8_kernel_names(cfg) -> tuple:
     32 < W <= 128, the tall ones with the general legality where
     32 < H <= 128 and W <= 128, the deep ones with the general legality
     where H > 128 and W <= 128 (the boards phase 1 and 2 run: each fits a
-    block of the deep mask and of the deep apply), the general kernels
-    elsewhere."""
+    block of the deep mask and of the deep apply), the xwide mask and clear
+    with the general apply and legality where H <= 32 and 128 < W <= 1024,
+    the general kernels elsewhere."""
     if cfg.height <= 32 and cfg.width <= 32:
         return "mask", "clear", "apply", "legality"
     if cfg.width > 128:
-        return "mask_general", "clear_general", "apply_general", "legality_general"
+        kind = "xwide" if cfg.height <= 32 and cfg.width <= 1024 else "general"
+        return f"mask_{kind}", f"clear_{kind}", "apply_general", "legality_general"
     kind = "wide" if cfg.height <= 32 else "tall" if cfg.height <= 128 else "deep"
     return f"mask_{kind}", f"clear_{kind}", f"apply_{kind}", "legality_general"
 
@@ -744,6 +775,7 @@ def phase1(card: str) -> dict:
         bounds.update({k: dict(b, where=where[name]) for k, b in here.items()})
         times.update({k: (cuda_ms(f), host_paced_ms(g)) for k, (f, g) in calls.items()})
     phase1_tall(errs, times, bounds)
+    phase1_xwide(errs, times, bounds)
     phase1_tail(errs, times, bounds)
     phase1_draws(errs, times, bounds, card)
     for k, (ms, plain_ms) in times.items():
@@ -924,26 +956,104 @@ def phase1_tall(errs: dict, times: dict, bounds: dict) -> None:
             check_equal(general_clear(board), ck(board), what, errs, "clear_general")
             check_equal(replaced_apply(board, cover, valid), ak(board, cover, valid), what,
                         errs, "apply_general")
-            calls["mask_general"] = (lambda: general_mask(board, queue),
-                                     lambda: mk.plain(board, queue))
-            calls["clear_general"] = (lambda: general_clear(board), lambda: ck.plain(board))
-            calls["apply_general"] = (lambda: replaced_apply(board, cover, valid),
-                                      lambda: ak.plain(board, cover, valid))
         here = kernel_bounds(cfg, board, queue, cover, valid, words, attrs, r, c,
                              {k: f() for k, (f, _) in calls.items()})
         label = f"{'tall' if name == '33x9' else 'huge'} {name}"
         bounds.update({k: dict(b, where=label) for k, b in here.items()})
         times.update({k: (cuda_ms(f), host_paced_ms(g)) for k, (f, g) in calls.items()})
         if huge:
-            for new, old, fn in ((apply_name, "apply_general", None),
+            for new, old, fn in ((mask_name, "mask_general", lambda: general_mask(board, queue)),
+                                 (clear_name, "clear_general", lambda: general_clear(board)),
+                                 (apply_name, "apply_general",
+                                  lambda: replaced_apply(board, cover, valid)),
                                  (pmask_name, "thread-an-anchor-row kernel",
                                   lambda: mask_rows(words, queue)),
                                  (pwords_name, "thread-an-anchor-row kernel",
                                   lambda: words_rows(words, queue))):
-                old_ms = times[old][0] if fn is None else cuda_ms(fn)
+                old_ms = cuda_ms(fn)
                 print(f"[phase1] {new} {name} N={N_MAIN}: {times[new][0]:.6f} ms, the "
                       f"{old} it replaces {old_ms:.6f} ms, launched directly on the same "
                       f"inputs (bit-equal); bound {here[new]['bound_ms']:.6f} ms")
+
+
+def phase1_xwide(errs: dict, times: dict, bounds: dict) -> None:
+    """Phase 1 on rows of more than 128 cells: on 8x136 (``XWIDE``) at
+    N = 49152 and 49151 the xwide mask and clear against their plain
+    versions (the mask's in chunks of envs) and against the general mask
+    and clear launched directly on the same inputs (``general_calls``), the
+    general apply (the wrapper's kernel there) against its plain version
+    and an illegal action on a full line through it; the same mask and
+    clear checks on ``XWIDE_CASES`` at N = 4096 and 4095, and on 2x1056
+    (``W1056``), rows too wide for the xwide kernels, the general mask,
+    clear and apply the wrappers pick there.  Times the xwide mask and
+    clear, and the general mask, clear (launched directly) and apply on
+    8x136 at N = 49152 into ``times`` and ``bounds``, and prints each xwide
+    kernel's time beside the general one's."""
+    import torch
+
+    from blockpuzzle_tpu_torch.config import EnvConfig
+    from blockpuzzle_tpu_torch.kernels import ApplyKernel, ClearScanKernel, MaskKernel
+    from blockpuzzle_tpu_torch.utils.bounds import kernel_bounds
+
+    dev = torch.device("cuda")
+    boards = {"8x136": (XWIDE, (N_MAIN, N_MAIN - 1)),
+              **{name: (shape, (4096, 4095)) for name, shape in XWIDE_CASES.items()},
+              "2x1056": (W1056, (4096, 4095))}
+    for name, (shape, sizes) in boards.items():
+        cfg = EnvConfig(**shape)
+        mask_name, clear_name, apply_name, _ = u8_kernel_names(cfg)
+        mk, ck, ak = MaskKernel(cfg, dev), ClearScanKernel(cfg, dev), ApplyKernel(cfg, dev)
+        if (mk.name, ck.name, ak.name) != (mask_name, clear_name, apply_name):
+            raise AssertionError(f"{name}: the u8 wrappers picked {mk.name}, {ck.name}, "
+                                 f"{ak.name}")
+        general_mask, general_clear = general_calls(cfg, mk, ck)
+        rows = plain_rows(cfg)
+        for n in sizes:
+            board, queue, cover, valid, _, _, _ = (
+                torch.as_tensor(x, device=dev) for x in kernel_inputs(cfg, n, seed=n))
+            what = f"{name}, N={n}"
+            mask = mk(board, queue)
+            check_equal([mask], [chunked(mk.plain, board, queue, rows=rows)], what, errs,
+                        mask_name)
+            cleared = ck(board)
+            check_equal(cleared, chunked(ck.plain, board, rows=rows), what, errs, clear_name)
+            if mk.kind == "xwide":
+                check_equal([general_mask(board, queue)], [mask], what, errs, "mask_general")
+                check_equal(general_clear(board), cleared, what, errs, "clear_general")
+            outs = ak(board, cover, valid)
+            check_equal(outs, chunked(ak.plain, board, cover, valid, rows=rows), what, errs,
+                        apply_name)
+            b2, c2, v2, _, _, _ = (
+                torch.as_tensor(x, device=dev) for x in illegal_on_full_line(cfg, n))
+            nb, k2, l2 = ak(b2, c2, v2)
+            if bool(l2.any()) or int(k2.sum()) or not torch.equal(nb, b2):
+                raise AssertionError(f"illegal action changed a board ({what})")
+            if int(cleared[1].sum()) == 0 or not 0 < float(mask.float().mean()) < 1:
+                raise AssertionError(f"{name}: nothing cleared or no mask to test ({what})")
+            print(f"[phase1] {what}: {mask_name} legal share {float(mask.float().mean()):.4f}"
+                  f", {clear_name} k {int(cleared[1].sum())}, {apply_name} legal "
+                  f"{int(outs[2].sum())}: u8 kernels == plain (bit-equal)"
+                  + (", the xwide mask and clear == the general ones launched directly"
+                     if mk.kind == "xwide" else ""))
+        if name != "8x136":
+            continue
+        board, queue, cover, valid, attrs, r, c = (
+            torch.as_tensor(x, device=dev) for x in kernel_inputs(cfg, N_MAIN, seed=0))
+        calls = {mask_name: (lambda: mk(board, queue), lambda: mk.plain(board, queue)),
+                 clear_name: (lambda: ck(board), lambda: ck.plain(board)),
+                 "mask_general": (lambda: general_mask(board, queue),
+                                  lambda: mk.plain(board, queue)),
+                 "clear_general": (lambda: general_clear(board), lambda: ck.plain(board)),
+                 apply_name: (lambda: ak(board, cover, valid),
+                              lambda: ak.plain(board, cover, valid))}
+        here = kernel_bounds(cfg, board, queue, cover, valid, None, attrs, r, c,
+                             {k: f() for k, (f, _) in calls.items()})
+        bounds.update({k: dict(b, where=f"xwide {name}") for k, b in here.items()})
+        times.update({k: (cuda_ms(f), host_paced_ms(g)) for k, (f, g) in calls.items()})
+        for new, old in ((mask_name, "mask_general"), (clear_name, "clear_general")):
+            print(f"[phase1] {new} {name} N={N_MAIN}: {times[new][0]:.6f} ms, the {old} it "
+                  f"replaces {times[old][0]:.6f} ms, launched directly on the same inputs "
+                  f"(bit-equal); bound {here[new]['bound_ms']:.6f} ms")
 
 
 # the boards phase 1 holds the step's tail (B10) and the unpack on, with a
@@ -1505,7 +1615,7 @@ def phase2():
     ``legal_all_pieces`` there (the paths ``wide_u8_pallas``,
     ``wide_u8_jnp``, ``wide_legal_all_pieces``, their ``tall_`` and
     ``huge_`` twins, ``xwide_u8_pallas``, ``xwide_u8_jnp`` and
-    ``xwide_legal_all_pieces``,
+    ``xwide_legal_all_pieces`` and their ``w1056_`` twins,
     ``tall_packed``, ``huge_packed``, ``tall_words`` and ``huge_words``, and
     those of the other tall boards)."""
     import torch
@@ -1532,9 +1642,10 @@ def phase2():
         "tall128": (EnvConfig(**TALL_PACKED_CASES["128x10"]), ("packed",), 1024, 64),
         # the plain u8 mask's product grows with the square of the cells
         "huge": (EnvConfig(**HUGE), ("packed", "pallas", "jnp"), 256, 32),
-        # rows of more than 128 cells: the general u8 mask's and clear's
-        # paths
+        # rows of more than 128 cells: the xwide u8 mask's and clear's
+        # paths, and past 1024 cells the general ones'
         "xwide": (EnvConfig(**XWIDE), ("pallas", "jnp"), 256, 32),
+        "w1056": (EnvConfig(**W1056), ("pallas", "jnp"), 256, 32),
     })
     errs, paths = {"legality": 0, "legality_general": 0}, {}
     for name, (cfg, run, n, steps) in boards.items():

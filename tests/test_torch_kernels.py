@@ -1093,11 +1093,13 @@ def test_wrappers_never_fall_back_off_cpu():
     # the same on a board that takes the wide mask, clear and apply and the
     # general legality, on one that takes the tall mask, clear and apply and
     # the general legality, on one that takes the deep mask, clear and apply
-    # and the general legality, and on one that takes the general kernels of
-    # all four
+    # and the general legality, on one that takes the xwide mask and clear
+    # and the general apply and legality, and on one that takes the general
+    # kernels of all four
     for shape, kinds in ((WIDE40, ("wide",) * 3), (dict(height=33, width=9), ("tall",) * 3),
                          (dict(height=130, width=9), ("deep",) * 3),
-                         (dict(height=8, width=136), ("general",) * 3)):
+                         (dict(height=8, width=136), ("xwide", "xwide", "general")),
+                         (dict(height=1, width=1056), ("general",) * 3)):
         cfg = tcfg.EnvConfig(**shape)
         board = torch.zeros(4, cfg.num_cells, dtype=torch.uint8, device=meta)
         mk, ck, ak = MaskKernel(cfg, meta), ClearScanKernel(cfg, meta), ApplyKernel(cfg, meta)

@@ -46,7 +46,7 @@ from blockpuzzle_tpu_torch.kernels import (
 )
 from blockpuzzle_tpu_torch.kernels.packed import (
     SMEM_OPT_IN, U32, apply_launch_shape, apply_smem_bytes, deep_launch_shape,
-    tall_block_warps, tall_launch_shape, tall_smem_bytes,
+    tall_block_warps, tall_launch_shape, tall_smem_bytes, u8_launch_shape, xwide_launch_shape,
 )
 from test_torch_kernels import (
     _fshr, _shr_words, apply_cases, assert_apply_cases, emulate_pack_row, emulate_pack_words,
@@ -1195,10 +1195,11 @@ def test_u8_wrappers_take_the_general_kernels_above_128_rows():
     32 rows; the mask and clear on one launch shape, the apply on its own,
     ``apply_launch_shape``) where rows hold at most 128 cells; the tall
     kernels stop at 128 rows.  The mask keeps the general kernel on rows of
-    more than 128 cells, and so do the clear and the apply (8x136: rows too
-    wide for any other kernel; a deep board one warp cannot stage passes
-    the line tables' 12288 cells and lines, so the clear and the apply take
-    none)."""
+    more than 128 cells on boards of more than 32 rows (130x129); on 8x136
+    the mask and the clear take their xwide kernels (a lane a word of every
+    row, ``xwide_launch_shape``) and the apply keeps its general kernel (a
+    deep board one warp cannot stage passes the line tables' 12288 cells
+    and lines, so the clear and the apply take none)."""
     for shape, kind in ((dict(height=130, width=9), "deep"),
                         (dict(height=128, width=10), "tall")):
         cfg = tcfg.EnvConfig(**shape)
@@ -1210,13 +1211,16 @@ def test_u8_wrappers_take_the_general_kernels_above_128_rows():
         assert (ak.kind, ak.name, lk.name) == (kind, f"apply_{kind}", "legality_general")
         assert ak.shape == apply_launch_shape(cfg) is not None
     assert all(e in _build.SIGNATURES for e in ("bp_clear_deep", "bp_mask_deep", "bp_clear",
-                                                "bp_apply_deep", "bp_apply_tall", "bp_apply"))
-    # rows of more than 128 cells: the general kernels
+                                                "bp_apply_deep", "bp_apply_tall", "bp_apply",
+                                                "bp_mask_xwide", "bp_clear_xwide", "bp_mask"))
+    # rows of more than 128 cells on boards of more than 32 rows: the general
+    # kernels
     mk = MaskKernel(tcfg.EnvConfig(height=130, width=129), "cpu")
     assert (mk.kind, mk.name, mk.shape) == ("general", "mask_general", None)
+    assert u8_launch_shape(tcfg.EnvConfig(height=33, width=136)) is None
     xwide = tcfg.EnvConfig(height=8, width=136)
     ck, ak = ClearScanKernel(xwide, "cpu"), ApplyKernel(xwide, "cpu")
-    assert (ck.kind, ck.name, ck.shape) == ("general", "clear_general", None)
+    assert (ck.kind, ck.name, ck.shape) == ("xwide", "clear_xwide", xwide_launch_shape(xwide))
     assert (ak.kind, ak.name, ak.shape) == ("general", "apply_general", None)
     # no deep launch shape where one warp's board does not fit shared memory
     assert deep_launch_shape(tcfg.EnvConfig(height=1000, width=128)) is None
