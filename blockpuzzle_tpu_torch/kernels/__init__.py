@@ -6,11 +6,12 @@ card, it raises).  For CPU tensors it runs the plain version; for CUDA
 tensors it launches its kernel (built from ``csrc/`` at first use) or
 raises, and counts each launch in its ``launches`` attribute, a plain int
 (the four u8 wrappers count their general kernels in
-``general_launches``, the u8 mask and clear their wide kernels in
-``wide_launches`` and their tall kernels, for boards of 33 to 128 rows, in
-``tall_launches``, the u8 mask and clear their deep kernels, for taller
-boards, in ``deep_launches``, and their xwide kernels, for rows of 129 to
-1024 cells, in ``xwide_launches``; the packed wrappers their tall and general kernels in
+``general_launches``, their wide kernels in ``wide_launches``, their tall
+kernels, for boards of 33 to 128 rows, in ``tall_launches``, their deep
+kernels, for taller boards, in ``deep_launches``, and their xwide kernels,
+for rows of 129 to 1024 cells, in ``xwide_launches``: the u8 apply's are
+the clear's kernels' apply instances, the legality's the mask's kernels'
+every-piece instances; the packed wrappers their tall and general kernels in
 ``tall_launches`` and ``general_launches``, the packed mask its words entry
 in ``words_launches``, ``words_tall_launches`` and
 ``words_general_launches``, the packed tail its unpack entry in

@@ -44,6 +44,7 @@ SIGNATURES = {
     "bp_apply_wide": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bp_apply_tall": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bp_apply_deep": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "bp_apply_xwide": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bp_clear": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "bp_clear_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bp_clear_wide": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -52,6 +53,10 @@ SIGNATURES = {
     "bp_clear_xwide": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bp_legality": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "bp_legality_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _U64, _I, _I, _P],
+    "bp_legality_wide": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "bp_legality_tall": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "bp_legality_deep": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "bp_legality_xwide": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "bp_packed_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "bp_packed_mask": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "bp_packed_words": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],

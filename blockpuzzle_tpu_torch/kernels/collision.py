@@ -15,18 +15,23 @@ sit here together as they do there:
 
 Each has a bit-row kernel, for boards of at most 32 rows of at most 32
 cells (every shipped preset; the legality also wants pieces of at most 8
-rows and columns), which works on 32-bit row words, and a general kernel.
-The legality's general kernel takes every other board; the apply's takes
-rows of more than 128 cells, and between those the apply runs on the
-clear's wide, tall and deep kernels (``csrc/clear.cu``, their apply
-instances: rows of up to four words, a warp a board of up to 128 rows, a
-warp walking a taller board in windows of 32 rows).  ``piece_table`` is the
-per-piece footprint table of the general legality and mask kernels,
-``legality_rows_table`` the bit-row legality's.
+rows and columns), which works on 32-bit row words, and a general kernel
+for rows of more than 1024 cells, rows of more than 128 cells on boards of
+more than 32 rows (and, for the legality, pieces of more than 8 rows or
+columns, or a deep board one warp cannot stage).  Between those the apply
+runs on the clear's wide, tall, deep and xwide kernels (``csrc/clear.cu``,
+their apply instances: rows of up to four words, a warp a board of up to
+128 rows, a warp walking a taller board in windows of 32 rows, a segment
+of lanes a board of rows of up to 32 words), and the legality on the hand
+mask's (``csrc/mask.cu``, their every-piece instances: the hand mask of a
+hand holding every piece).  ``piece_table`` is the per-piece footprint
+table of the general legality and mask kernels, ``legality_rows_table``
+the bit-row legality's and ``piece_rows_table`` the mask's.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Tuple
 
 import numpy as np
@@ -38,6 +43,7 @@ from blockpuzzle_tpu_torch.kernels import _build
 from blockpuzzle_tpu_torch.kernels.clear import LineTables, clear_plain
 from blockpuzzle_tpu_torch.kernels.packed import (
     MAX_PIECE, MAX_ROWS, SUFFIX, apply_launch_shape, count_launch, segments_per_warp, u8_kind,
+    u8_launch_shape,
 )
 
 # the bit-row legality's block and the words of one row of its shape table,
@@ -60,6 +66,19 @@ def piece_table(cfg: EnvConfig) -> np.ndarray:
         table[p, :3] = (t.piece_h[p], t.piece_w[p], len(offs))
         table[p, 3 : 3 + len(offs)] = offs
     return table
+
+
+def piece_rows_table(cfg: EnvConfig) -> np.ndarray:
+    """(P, 4) int32 rows ``[h, w, rect 1, rect 2]`` of the u8 mask's
+    bit-row, wide, tall, deep and xwide kernels and of their every-piece
+    legality instances: each piece's bounding box and its <= 2 rectangles
+    (``piece_rects``), each packed as ``dr | dc << 8 | rh << 16 | rw << 24``
+    (an absent rectangle is 0)."""
+    t = rules.tables_for(cfg)
+    rects = t.piece_rects.reshape(-1, 2, 4).astype(np.int64)
+    packed = (rects << np.array([0, 8, 16, 24])).sum(axis=2)
+    table = np.stack([t.piece_h, t.piece_w, packed[:, 0], packed[:, 1]], axis=1)
+    return table.astype(np.uint32).view(np.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -142,20 +161,36 @@ def legality_rows_table(cfg: EnvConfig) -> np.ndarray:
     return table.astype(np.uint32).view(np.int32)
 
 
+def every_piece_shape(cfg: EnvConfig):
+    """The launch shape of the hand mask's kernel that takes ``cfg``'s board
+    with every piece in the hand (S = P: ``u8_launch_shape`` of ``cfg`` with
+    ``queue_size`` P), where that is the wide, tall, deep or xwide kernel and
+    no piece spans more than ``MAX_PIECE`` rows or columns; else None."""
+    t = rules.tables_for(cfg)
+    if max(t.max_h, t.max_w) > MAX_PIECE or (cfg.height <= MAX_ROWS and cfg.width <= 32):
+        return None
+    return u8_launch_shape(dataclasses.replace(cfg, queue_size=t.num_pieces))
+
+
 class LegalityKernel:
     """Config-bound all-(piece, anchor) legality on one device, the card
     unless asked for another.
 
     ``__call__(board (N, HW) u8) -> (N, P, HW) bool``.  For CPU tensors it
     runs ``legality_plain``; for CUDA tensors it launches a kernel or
-    raises.  The kernel is picked here, by shape
-    (``legality_launch_shape``): the bit-row kernel where H <= 32, W <= 32
-    and no piece spans more than ``MAX_PIECE`` rows or columns (``shape``
-    is its launch shape; ``launches`` counts its launches), else the
-    general kernel (``shape`` is None; ``general_launches`` counts them).
+    raises.  The kernel is picked here, by shape (``kind``), where no piece
+    spans more than ``MAX_PIECE`` rows or columns: the bit-row kernel where
+    H <= 32 and W <= 32 (``legality_launch_shape``; ``launches`` counts its
+    launches), else the every-piece instance of the hand mask's wide, tall,
+    deep or xwide kernel that takes the board (``every_piece_shape``: the
+    mask's launch shape at S = P; ``wide_launches`` ... ``xwide_launches``).
+    ``shape`` is the picked kernel's launch shape.  Else the general kernel
+    (``shape`` is None; ``general_launches``): rows of more than 1024
+    cells, rows of more than 128 cells on boards of more than 32 rows,
+    larger pieces, or a deep board whose one-warp block does not fit.
     ``name`` is the picked kernel's.
 
-    Both read a cell as occupied when it is nonzero, as ``legality_plain``
+    All read a cell as occupied when it is nonzero, as ``legality_plain``
     does (a sum of non-negative bytes is 0 iff every byte is).
     """
 
@@ -165,12 +200,17 @@ class LegalityKernel:
         self.device = _build.resolve_device(device)
         self.num_pieces = t.num_pieces
         self.max_h, self.max_w = t.max_h, t.max_w
-        self.launches = 0
-        self.general_launches = 0
+        self.launches = self.wide_launches = self.tall_launches = 0
+        self.deep_launches = self.xwide_launches = self.general_launches = 0
         self.shape = legality_launch_shape(cfg)
-        self.name = "legality" if self.shape is not None else "legality_general"
+        if self.shape is not None:
+            self.kind, table = "rows", legality_rows_table(cfg)
+        else:
+            self.shape = every_piece_shape(cfg)
+            self.kind = u8_kind(cfg, self.shape)
+            table = piece_table(cfg) if self.shape is None else piece_rows_table(cfg)
+        self.name = "legality" + SUFFIX[self.kind]
         self.shapes = rect_shapes(cfg)
-        table = piece_table(cfg) if self.shape is None else legality_rows_table(cfg)
         self.piece_table = torch.as_tensor(table, device=self.device)
         self.cover_t = torch.as_tensor(
             t.cover.T.astype(np.float32), device=self.device
@@ -210,19 +250,17 @@ class LegalityKernel:
                     self.piece_table.shape[1] - 3, stream,
                 )
             else:
-                if out.data_ptr() % 16:  # the kernel stores 16-byte vectors
+                if out.data_ptr() % 16:  # the kernels store 16-byte vectors
                     raise RuntimeError("legality output is not 16-byte aligned")
-                name = "bp_legality_rows"
-                err = lib.bp_legality_rows(
+                name = "bp_" + ("legality_rows" if self.kind == "rows" else self.name)
+                shapes = (self.shapes,) if self.kind == "rows" else ()
+                err = getattr(lib, name)(
                     board.data_ptr(), self.piece_table.data_ptr(), out.data_ptr(),
                     n, cfg.height, cfg.width, self.num_pieces, self.max_h,
-                    self.max_w, self.shapes, *self.shape, stream,
+                    self.max_w, *shapes, *self.shape, stream,
                 )
         _build.check(err, name)
-        if self.shape is None:
-            self.general_launches += 1
-        else:
-            self.launches += 1
+        count_launch(self)
         return out
 
 
@@ -271,15 +309,17 @@ class ApplyKernel:
     (``launches`` counts its launches), the wide kernel where H <= 32 and
     32 < W <= 128 (``wide_launches``), the tall kernel where 32 < H <= 128
     and W <= 128 (``tall_launches``), the deep kernel where H > 128 and
-    W <= 128 (``deep_launches``); ``shape`` is the launch shape of any of
-    them (``apply_launch_shape``: the clear's, with fewer turns or warps
-    where a block's two staged spans would not fit).  Else the general
-    kernel (``shape`` is None; ``general_launches``): rows of more than 128
-    cells, or a deep board one warp cannot stage (``LineTables`` takes no
+    W <= 128 (``deep_launches``), the xwide kernel where H <= 32 and
+    128 < W <= 1024 (``xwide_launches``); ``shape`` is the launch shape of
+    any of them (``apply_launch_shape``: the clear's, with fewer turns or
+    warps where a block's two staged spans would not fit).  Else the
+    general kernel (``shape`` is None; ``general_launches``): rows of more
+    than 1024 cells, rows of more than 128 cells on boards of more than 32
+    rows, or a deep board one warp cannot stage (``LineTables`` takes no
     such board).  ``name`` is the picked kernel's.
 
-    The bit-row, wide, tall and deep kernels take boards and covers whose
-    cells are 0 or 1: the engine's boards (``env/state.py``) and its
+    The bit-row, wide, tall, deep and xwide kernels take boards and covers
+    whose cells are 0 or 1: the engine's boards (``env/state.py``) and its
     footprints (``rules.tables_for(cfg).cover``,
     ``VecBlockPuzzle._cover_cells``).  They find an overlap where a board
     cell and a cover cell are both nonzero, a line full when every placed
@@ -293,7 +333,7 @@ class ApplyKernel:
         self.cfg = cfg
         self.device = _build.resolve_device(device)
         self.launches = self.wide_launches = self.tall_launches = 0
-        self.deep_launches = self.general_launches = 0
+        self.deep_launches = self.xwide_launches = self.general_launches = 0
         self.shape = apply_launch_shape(cfg)
         self.kind = u8_kind(cfg, self.shape)
         self.name = "apply" + SUFFIX[self.kind]

@@ -15,11 +15,11 @@
 // (`clear_kernel`, entry `bp_clear`) for what is left: rows of more than
 // 1024 cells, rows of more than 128 cells on boards of more than 32 rows,
 // or a deep board too large for one warp.  The wrapper (kernels/clear.py) picks
-// one by shape.  The wide, tall and deep kernels are also the apply (K2,
-// the TPU kernel `_apply_kernel`, blockpuzzle_tpu/kernels/collision.py:120)
+// one by shape.  The wide, tall, deep and xwide kernels are also the apply
+// (K2, the TPU kernel `_apply_kernel`, blockpuzzle_tpu/kernels/collision.py:120)
 // on those boards: a second instance of each (`kApply`, entries
-// `bp_apply_wide`, `bp_apply_tall`, `bp_apply_deep`; the wrapper
-// kernels/collision.py `ApplyKernel`), described above the kernels.
+// `bp_apply_wide`, `bp_apply_tall`, `bp_apply_deep`, `bp_apply_xwide`; the
+// wrapper kernels/collision.py `ApplyKernel`), described above the kernels.
 //
 // What both compute, per env: every full row, column and region of the
 // board is found, then all of them are cleared at once, and k is their
@@ -134,16 +134,20 @@
 // The apply instances take the same 0/1 boards and 0/1 covers.  Bound on
 // the H100: device memory; per env they read HW board bytes, HW cover
 // bytes and a valid byte and write HW board bytes, a 4-byte k and a legal
-// byte, 3 HW + 6 bytes: 47.5 MB on 8x40, 44.1 MB on 33x9 and 153.6 MB on
-// 130x8 at N = 49152 (14.2, 13.2 and 45.9 us at 3.35 TB/s).  Their block
-// holds its output rows and two staged spans, so its launch shape is its
-// own (kernels/packed.py `apply_launch_shape`: the clear's where both spans
-// fit, fewer turns or warps where not).  Each lane packs a cover word beside
-// each board word; the deep instance's first pass stages the placed rows
-// and its pass 1 reads them back instead of packing.  They answer what
-// bounded the general apply on such boards: the clear's line walk through
-// the global table (a lane a line, two dependent loads a cell) after byte
-// loads of both boards and before a byte store.
+// byte, 3 HW + 6 bytes: 47.5 MB on 8x40, 44.1 MB on 33x9, 153.6 MB on
+// 130x8 and 160.7 MB on 8x136 at N = 49152 (14.2, 13.2, 45.9 and 48.0 us
+// at 3.35 TB/s).  The wide, tall and deep instances' block holds its
+// output rows and two staged spans, so its launch shape is its own
+// (kernels/packed.py `apply_launch_shape`: the clear's where both spans
+// fit, fewer turns or warps where not); the xwide instance's holds two
+// arrays of row words and keeps the clear's shape.  Each lane packs a
+// cover word beside each board word (an xwide lane packs none: its block
+// loads the covers as it loads the boards); the deep instance's first pass
+// stages the placed rows and its pass 1 reads them back instead of
+// packing.  They answer what bounded the general apply on such boards: the
+// clear's line walk through the global table (a lane a line, two dependent
+// loads a cell; 144 lines on 8x136) after byte loads of both boards and
+// before a byte store.
 //
 // The general kernel: one warp per env, four envs per block, any N (a warp
 // past the last env exits as a whole, before any warp collective).  Lanes
@@ -480,25 +484,52 @@ __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
   bit_rows::store_tall<NW>(rows, board_out, lo, count * hw, width);
 }
 
+// The xwide kernel's two instances likewise: the clear (kApply false) and
+// the apply (kApply true), whose block loads its envs' covers as row words
+// beside their boards (two arrays, each zeroed by `stage_words` before its
+// barrier).  The overlap is lane-local (the OR over the lane's rows of
+// board & cover), one `__reduce_or_sync` over the segment gives the env's;
+// a legal env places its cover in its board words in place and runs the
+// clear's two passes on them, an illegal one runs them on its input words
+// but writes none back (the segments of a warp differ in legality, and
+// every lane runs every shuffle and reduction), so it stores its input:
+// a strict no-op with k = 0.
+template <bool kApply>
 __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
-    clear_xwide_kernel(const uint8_t* __restrict__ board, uint8_t* __restrict__ board_out,
-                       int32_t* __restrict__ k_out, int n, int height, int width,
-                       int region_size, int per_warp) {
+    clear_xwide_kernel(const uint8_t* __restrict__ board, const uint8_t* __restrict__ cover,
+                       const uint8_t* __restrict__ valid, uint8_t* __restrict__ board_out,
+                       int32_t* __restrict__ k_out, uint8_t* __restrict__ legal_out, int n,
+                       int height, int width, int region_size, int per_warp) {
   extern __shared__ __align__(16) uint8_t rows_smem[];
   const int nw = (width + 31) / 32;
   const int per_block = blockDim.x / 32 * per_warp;
   const int hw = height * width;
   uint32_t* words = reinterpret_cast<uint32_t*>(rows_smem);  // E*H rows, cleared in place
+  uint32_t* covers = words + per_block * height * nw;        // the apply's E*H cover rows
   const int first = blockIdx.x * per_block;          // first env
   const int count = min(per_block, n - first);       // envs here
   const long long lo = static_cast<long long>(first) * hw;
-  bit_rows::stage_words(board, lo, lo + static_cast<long long>(count) * hw, width, nw, words);
+  const long long hi = lo + static_cast<long long>(count) * hw;
+  bit_rows::stage_words(board, lo, hi, width, nw, words);
+  if constexpr (kApply) bit_rows::stage_words(cover, lo, hi, width, nw, covers);
 
   const bit_rows::Seat t = bit_rows::seat(nw, per_warp);  // t.lane: the word
   const bool active = t.s < per_warp && t.seg < count;
   __syncthreads();
   // row r's word: x[r * nw]; a lane of no env reads env 0's and writes nothing
-  uint32_t* x = words + (active ? t.seg : 0) * height * nw + t.lane;
+  const int at = (active ? t.seg : 0) * height * nw + t.lane;
+  uint32_t* x = words + at;
+  bool write = active;                               // this lane's env keeps what the clear gives
+  if constexpr (kApply) {
+    const uint32_t* y = covers + at;
+    uint32_t hit = 0;
+    for (int r = 0; r < height; ++r) hit |= x[r * nw] & y[r * nw];
+    const unsigned overlap = __reduce_or_sync(t.mask, hit != 0 ? 1u : 0u);  // every lane
+    write = active && valid[first + t.seg] != 0 && overlap == 0;
+    if (write) {
+      for (int r = 0; r < height; ++r) x[r * nw] |= y[r * nw];  // placed in place
+    }
+  }
   const int tail = width - 32 * (nw - 1);            // columns of the top word: 1..32
   const uint32_t pad = t.lane + 1 == nw && tail < 32 ? kAll << tail : 0u;  // past W: full
   // pass 1, lane-local: the full columns of this word (the AND of its rows)
@@ -546,17 +577,20 @@ __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
     for (int i = 0; i < rows_here; ++i) {
       const int r = r0 + i;
       const uint32_t v = x[r * nw];
-      if (active) x[r * nw] = (rows_full >> r & 1u) ? 0u : v & ~(cols | reg);
+      if (write) x[r * nw] = (rows_full >> r & 1u) ? 0u : v & ~(cols | reg);
     }
   }
   const int k = __popc(rows_full) + __reduce_add_sync(t.mask, got);
-  if (active && t.lane == 0) k_out[first + t.seg] = k;
+  if (active && t.lane == 0) {
+    k_out[first + t.seg] = write ? k : 0;
+    if constexpr (kApply) legal_out[first + t.seg] = write;
+  }
   __syncthreads();
   bit_rows::store_words_n(words, board_out, lo, count * hw, width, nw, threadIdx.x,
                           blockDim.x);
 }
 
-// A launch of the wide, tall and deep kernels: the clear's arguments and
+// A launch of the wide, tall, deep and xwide kernels: the clear's arguments and
 // the apply's cover, valid and legal_out (null for the clear), a block of
 // `warps` warps taking `per_warp` envs each.
 struct Io {
@@ -573,22 +607,17 @@ struct Io {
 using Kernel = void (*)(const uint8_t*, const uint8_t*, const uint8_t*, uint8_t*, int32_t*,
                         uint8_t*, int, int, int, int, int);
 
-// `kernel`'s launch on `io`, its rows of NW words: the block's shared
-// memory holds its output rows, then its staged board span and, for the
-// apply, its cover span (`bit_rows::smem_bytes`); refused where that passes
-// what a block may opt in to, opted in to above 48 KB.
-template <int NW, bool kApply>
-int launch(Kernel kernel, const Io& io) {
-  const int per_block = io.warps * io.per_warp;
-  const long long span = static_cast<long long>(per_block) * io.height * io.width;
-  const long long smem = (4LL * per_block * io.height * NW + 15) / 16 * 16 +
-                         (kApply ? (span + 32 + 15) / 16 * 16 : 0) + span + 32;
+// `kernel`'s launch on `io` with `smem` bytes of shared memory a block:
+// refused where that passes what a block may opt in to, opted in to above
+// 48 KB.
+int launch_smem(Kernel kernel, const Io& io, long long smem) {
   if (smem > kSmemOptIn) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
+  const int per_block = io.warps * io.per_warp;
   kernel<<<(io.n + per_block - 1) / per_block, io.warps * 32, static_cast<int>(smem),
            io.stream>>>(
       static_cast<const uint8_t*>(io.board), static_cast<const uint8_t*>(io.cover),
@@ -596,6 +625,18 @@ int launch(Kernel kernel, const Io& io) {
       static_cast<int32_t*>(io.k_out), static_cast<uint8_t*>(io.legal_out), io.n, io.height,
       io.width, io.region_size, io.per_warp);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The wide, tall and deep kernels' launch, their rows of NW words: the
+// block's shared memory holds its output rows, then its staged board span
+// and, for the apply, its cover span (`bit_rows::smem_bytes`).
+template <int NW, bool kApply>
+int launch(Kernel kernel, const Io& io) {
+  const int per_block = io.warps * io.per_warp;
+  const long long span = static_cast<long long>(per_block) * io.height * io.width;
+  return launch_smem(kernel, io,
+                     (4LL * per_block * io.height * NW + 15) / 16 * 16 +
+                         (kApply ? (span + 32 + 15) / 16 * 16 : 0) + span + 32);
 }
 
 template <bool kApply>
@@ -663,6 +704,21 @@ int tall(const Io& io, bool apply, bool deep) {
   if (io.n <= 0) return static_cast<int>(cudaGetLastError());
   if (deep) return apply ? run_deep<true>(io) : run_deep<false>(io);
   return apply ? run_tall<true>(io) : run_tall<false>(io);
+}
+
+// H <= 32 and 128 < W <= 1024: per_warp = 32 / NW, warps 1 to 16; the
+// block's shared memory is its envs' rows of NW words, and the apply's as
+// many cover rows beside them
+int xwide(const Io& io, bool apply) {
+  const int nw = (io.width + 31) / 32;
+  if (io.height < 1 || io.height > 32 || io.width <= 128 || io.width > 1024 ||
+      io.per_warp != 32 / nw || !region_ok(io) || io.warps < 1 ||
+      io.warps > bit_rows::kMaxWarps || !aligned(io.board_out)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (io.n <= 0) return static_cast<int>(cudaGetLastError());
+  return launch_smem(apply ? clear_xwide_kernel<true> : clear_xwide_kernel<false>, io,
+                     (apply ? 8LL : 4LL) * io.warps * io.per_warp * io.height * nw);
 }
 
 __global__ void clear_kernel(const uint8_t* __restrict__ board,
@@ -754,41 +810,21 @@ extern "C" int bp_clear_deep(const void* board, void* board_out, void* k_out,
 // ceil(W / 32) lanes an env, lane w holding word w of every row; per_warp =
 // 32 / NW segments a warp, warps 1 to 16 (the block's output span may
 // start off a 16-byte boundary); refused where the block's shared memory
-// (its rows of NW words and its staged boards) passes what a block may opt
-// in to.
+// (its envs' rows of NW words) passes what a block may opt in to.
 extern "C" int bp_clear_xwide(const void* board, void* board_out, void* k_out,
                               int n, int height, int width, int region_size,
                               int per_warp, int warps, void* stream) {
-  const int nw = (width + 31) / 32;
-  if (height < 1 || height > 32 || width <= 128 || width > 1024 || per_warp != 32 / nw ||
-      region_size < 0 || region_size > 32 || warps < 1 || warps > bit_rows::kMaxWarps ||
-      !aligned(board_out)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  const int per_block = warps * per_warp;
-  const long long smem = 4LL * per_block * height * nw;  // the envs' rows of NW words
-  if (smem > kSmemOptIn) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        clear_xwide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  clear_xwide_kernel<<<(n + per_block - 1) / per_block, warps * 32, static_cast<int>(smem),
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(board), static_cast<uint8_t*>(board_out),
-      static_cast<int32_t*>(k_out), n, height, width, region_size, per_warp);
-  return static_cast<int>(cudaGetLastError());
+  return xwide({board, nullptr, nullptr, board_out, k_out, nullptr, n, height, width,
+                region_size, per_warp, warps, static_cast<cudaStream_t>(stream)}, false);
 }
 
 // The apply (K2) on the clear's kernels: bp_apply_rows's arguments and
-// launch shape rules, for the boards bp_clear_wide, bp_clear_tall and
-// bp_clear_deep take.  board, cover (N, HW) u8 of 0/1 cells, each at any
-// address; valid (N,) bool; outputs board_out (N, HW) u8 (16-byte
-// aligned), k (N,) i32, legal (N,) bool.  Each is refused where its block's
-// shared memory (output rows and two staged spans) passes what a block may
-// opt in to.
+// launch shape rules, for the boards bp_clear_wide, bp_clear_tall,
+// bp_clear_deep and bp_clear_xwide take.  board, cover (N, HW) u8 of 0/1
+// cells, each at any address; valid (N,) bool; outputs board_out (N, HW)
+// u8 (16-byte aligned), k (N,) i32, legal (N,) bool.  Each is refused where its block's
+// shared memory (output rows and two staged spans; the xwide one's two
+// arrays of row words) passes what a block may opt in to.
 extern "C" int bp_apply_wide(const void* board, const void* cover, const void* valid,
                              void* board_out, void* k_out, void* legal_out, int n,
                              int height, int width, int region_size, int per_warp,
@@ -813,6 +849,14 @@ extern "C" int bp_apply_deep(const void* board, const void* cover, const void* v
   return tall({board, cover, valid, board_out, k_out, legal_out, n, height, width,
                region_size, per_warp, warps, static_cast<cudaStream_t>(stream)}, true,
               true);
+}
+
+extern "C" int bp_apply_xwide(const void* board, const void* cover, const void* valid,
+                              void* board_out, void* k_out, void* legal_out, int n,
+                              int height, int width, int region_size, int per_warp,
+                              int warps, void* stream) {
+  return xwide({board, cover, valid, board_out, k_out, legal_out, n, height, width,
+                region_size, per_warp, warps, static_cast<cudaStream_t>(stream)}, true);
 }
 
 // board (N, HW) u8; line_cells (L, max_len) i32 and line_len (L,) i32;

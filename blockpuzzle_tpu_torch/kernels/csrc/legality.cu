@@ -1,11 +1,16 @@
 // All-(piece, anchor) legality map: the CUDA port of the TPU kernel
 // `_legality_kernel` (blockpuzzle_tpu/kernels/collision.py:41, launched by
 // `_legality_pallas_call`, collision.py:50, from `LegalityKernel.__call__`).
-// Two kernels: the bit-row kernel (`legality_rows_kernel`, entry
+// Two kernels here: the bit-row kernel (`legality_rows_kernel`, entry
 // `bp_legality_rows`) for boards with H <= 32 and W <= 32 and pieces of at
 // most 8 rows and 8 columns, every shipped preset and piece set, and the
-// general kernel (`legality_kernel`, entry `bp_legality`) for any other
-// board.  The wrapper (kernels/collision.py) picks one by shape.
+// general kernel (`legality_kernel`, entry `bp_legality`) for rows of more
+// than 1024 cells, rows of more than 128 cells on boards of more than 32
+// rows, larger pieces, or a deep board whose one-warp block does not fit.
+// Between those, the legality runs on the hand mask's wide, tall, deep and
+// xwide kernels (mask.cu, their every-piece instances `bp_legality_wide`,
+// `_tall`, `_deep`, `_xwide`).  The wrapper (kernels/collision.py) picks one
+// by shape.
 //
 // What both compute: out[n, p, a] is true iff piece p fits at flat anchor a
 // of board n -- its bounding box lies on the board and every cell of its

@@ -18,7 +18,13 @@
 // for what is left: rows of more than 1024 cells, rows of more than 128
 // cells on boards of more than 32 rows, pieces of more than 8 rows or
 // columns, or a deep board too large for one warp's shared memory.  The
-// wrapper (kernels/mask.py) picks one by shape.
+// wrapper (kernels/mask.py) picks one by shape.  The wide, tall, deep and
+// xwide kernels are also the all-pieces legality (K4, the TPU kernel
+// `_legality_kernel`, blockpuzzle_tpu/kernels/collision.py:41, launched by
+// `_legality_pallas_call`, collision.py:50) on those boards: a second
+// instance of each (`kEvery`, entries `bp_legality_wide`, `bp_legality_tall`,
+// `bp_legality_deep`, `bp_legality_xwide`; the wrapper kernels/collision.py
+// `LegalityKernel`), described below the xwide kernel.
 //
 // What all compute (not how the TPU did it): anchor (r, c) of hand slot s
 // is legal iff the slot holds a piece (0 <= pid < P), the piece's bounding
@@ -142,6 +148,22 @@
 // 16, whose barriers hold more warps waiting); the entry opts in above 48
 // KB, which no board of at most 32 rows needs.
 //
+// The every-piece instances compute K4's (N, P, HW) legality map as the
+// hand mask of a hand that holds every piece: env-slot q takes piece
+// q mod P (`slot_piece`), slots = P, no hand is read, and everything else
+// is the mask's (the staged boards, the rectangle smear, the legal rows,
+// the stores; the launch shapes are the mask's at S = P).  Bound on the
+// H100: device memory; per env they read HW board bytes and write P*HW
+// bools, 314.6 MB on 8x40 and 1069.5 MB on 8x136 at N = 49152 (93.9 and
+// 319.3 us at 3.35 TB/s; the function's operations, an env's rows packed
+// once, come to 36.8 and 109.5 us at the integer rate, `utils/bounds.py`;
+// these instances repack an env's rows for each piece).  They answer
+// what bounded the general legality kernel (legality.cu) on such boards:
+// a thread an (env, piece, anchor), 298.8 M threads on 8x40 at N = 49152,
+// each with 64-bit `%` and `/`, its piece's row of the table and a chain
+// of up to 5 dependent byte loads, every board byte read again by each
+// anchor whose footprint covers it.
+//
 // The general kernel: one thread per (env, slot, anchor), flat over
 // N*S*HW.  Each thread reads its piece's (h, w, cell offsets) row from a
 // small table (P rows of 3+maxc int32, L1-resident) and tests at most maxc
@@ -175,6 +197,14 @@ __device__ __forceinline__ uint32_t smear(uint32_t v, int rw) {
   const uint32_t s = rw >= 4 ? s4 : rw >= 2 ? s2 : v;
   const int k = rw >= 4 ? 4 : rw >= 2 ? 2 : 1;
   return rw > 0 ? s | s >> (rw - k) : 0u;
+}
+
+// The piece of env-slot q (env q / slots, slot q % slots): the id its hand
+// holds, or in the every-piece instances (kEvery, slots = P, no hand read)
+// piece q % P, so that the output is K4's (N, P, HW) legality map.
+template <bool kEvery>
+__device__ __forceinline__ int slot_piece(const int32_t* __restrict__ queue, int q, int slots) {
+  return kEvery ? q % slots : queue[q];
 }
 
 __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
@@ -272,7 +302,7 @@ __device__ __forceinline__ void smear_words(uint32_t (&v)[NW], int rw) {
   for (int i = 0; i < NW; ++i) v[i] = rw > 0 ? v[i] | s[i] : 0u;
 }
 
-template <int NW>
+template <int NW, bool kEvery>
 __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
     mask_wide_kernel(const uint8_t* __restrict__ board,
                      const int32_t* __restrict__ queue,
@@ -297,7 +327,7 @@ __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
   const int lane = l - s * height;                     // anchor row
   const int seg = threadIdx.x / 32 * per_warp + s;     // env-slot in the block
   const bool active = s < per_warp && seg < count;
-  const int pid = active ? queue[first + seg] : -1;
+  const int pid = active ? slot_piece<kEvery>(queue, first + seg, slots) : -1;
   // piece row [h, w, rect 1, rect 2] as in mask_rows_kernel; no piece: no anchor
   const int4 pc = pid >= 0 && pid < num_pieces ? pieces[pid]
                                                 : make_int4(height + 1, width + 1, 0, 0);
@@ -356,7 +386,7 @@ __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
   bit_rows::store_words<NW>(rows, out + static_cast<long long>(first) * hw, count * hw, width);
 }
 
-template <int NR, int NW>
+template <int NR, int NW, bool kEvery>
 __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
     mask_tall_kernel(const uint8_t* __restrict__ board,
                      const int32_t* __restrict__ queue,
@@ -380,7 +410,9 @@ __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
   const int l = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   // lane it loads the piece of the warp's env-slot of round it, it * warps + warp
-  const int pids = l < per_warp && l * warps + warp < count ? queue[first + l * warps + warp] : -1;
+  const int pids = l < per_warp && l * warps + warp < count
+                       ? slot_piece<kEvery>(queue, first + l * warps + warp, slots)
+                       : -1;
   __syncthreads();
   for (int it = 0; it < per_warp; ++it) {
     const int seg = it * warps + warp;                 // env-slot in the block
@@ -482,7 +514,7 @@ __device__ __forceinline__ void pack_window(const uint8_t* span, int at, int w, 
   }
 }
 
-template <int NW>
+template <int NW, bool kEvery>
 __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
     mask_deep_kernel(const uint8_t* __restrict__ board,
                      const int32_t* __restrict__ queue,
@@ -506,7 +538,9 @@ __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
   const int l = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   // lane it loads the piece of the warp's env-slot of round it, it * warps + warp
-  const int pids = l < per_warp && l * warps + warp < count ? queue[first + l * warps + warp] : -1;
+  const int pids = l < per_warp && l * warps + warp < count
+                       ? slot_piece<kEvery>(queue, first + l * warps + warp, slots)
+                       : -1;
   __syncthreads();
   const int windows = (height + 31) / 32;
   for (int it = 0; it < per_warp; ++it) {
@@ -575,6 +609,7 @@ __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
   bit_rows::store_tall<NW>(rows, out, static_cast<long long>(first) * hw, count * hw, width);
 }
 
+template <bool kEvery>
 __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
     mask_xwide_kernel(const uint8_t* __restrict__ board,
                       const int32_t* __restrict__ queue,
@@ -597,7 +632,7 @@ __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
 
   const bit_rows::Seat t = bit_rows::seat(nw, per_warp);  // t.lane: the word
   const bool active = t.s < per_warp && t.seg < count;
-  const int pid = active ? queue[first + t.seg] : -1;
+  const int pid = active ? slot_piece<kEvery>(queue, first + t.seg, slots) : -1;
   // piece row [h, w, rect 1, rect 2] as in mask_rows_kernel; no piece: no anchor
   const int4 pc = pid >= 0 && pid < num_pieces ? pieces[pid]
                                                 : make_int4(height + 1, width + 1, 0, 0);
@@ -673,92 +708,145 @@ __global__ void mask_kernel(const uint8_t* __restrict__ board,
   out[i] = legal;
 }
 
-template <int NW>
-int launch_mask_wide(const void* board, const void* queue, const void* pieces, void* out,
-                     int total, int height, int width, int slots, int num_pieces,
-                     int max_h, int per_warp, int warps, cudaStream_t stream) {
-  const int per_block = warps * per_warp;
-  const int blocks = (total + per_block - 1) / per_block;
-  const long long span = static_cast<long long>((per_block + slots - 1) / slots + 1) *
-                         height * width;
-  const int smem = bit_rows::smem_bytes(per_block * height * NW, span);
+// A launch of the wide, tall, deep and xwide kernels: `slots` env-slots an
+// env (the hand's S, or P for the every-piece instances, whose `queue` is
+// null), `per_warp` of them a warp and `warps` warps a block.
+struct Launch {
+  const void* board;
+  const void* queue;
+  const void* pieces;
+  void* out;
+  int total, height, width, slots, num_pieces, max_h, per_warp, warps;
+  cudaStream_t stream;
+};
+
+using Kernel = void (*)(const uint8_t*, const int32_t*, const int4*, uint8_t*, int, int, int,
+                        int, int, int, int);
+
+// `kernel`'s launch on `a` with `smem` bytes of shared memory a block:
+// refused above what a block may opt in to, opted in to above 48 KB.
+int launch(Kernel kernel, const Launch& a, long long smem) {
+  if (smem > kSmemOptIn) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        mask_wide_kernel<NW>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  mask_wide_kernel<NW><<<blocks, warps * 32, smem, stream>>>(
-      static_cast<const uint8_t*>(board), static_cast<const int32_t*>(queue),
-      static_cast<const int4*>(pieces), static_cast<uint8_t*>(out), total, height, width,
-      slots, num_pieces, max_h, per_warp);
+  const int per_block = a.warps * a.per_warp;
+  kernel<<<(a.total + per_block - 1) / per_block, a.warps * 32, static_cast<int>(smem),
+           a.stream>>>(
+      static_cast<const uint8_t*>(a.board), static_cast<const int32_t*>(a.queue),
+      static_cast<const int4*>(a.pieces), static_cast<uint8_t*>(a.out), a.total, a.height,
+      a.width, a.slots, a.num_pieces, a.max_h, a.per_warp);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NR, int NW>
-int launch_mask_tall(const void* board, const void* queue, const void* pieces, void* out,
-                     int total, int height, int width, int slots, int num_pieces,
-                     int max_h, int per_warp, int warps, cudaStream_t stream) {
-  const int per_block = warps * per_warp;
-  const int blocks = (total + per_block - 1) / per_block;
-  const long long span = static_cast<long long>((per_block + slots - 1) / slots + 1) *
-                         height * width;
-  const int smem = bit_rows::smem_bytes(per_block * height * NW, span);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        mask_tall_kernel<NR, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  mask_tall_kernel<NR, NW><<<blocks, warps * 32, smem, stream>>>(
-      static_cast<const uint8_t*>(board), static_cast<const int32_t*>(queue),
-      static_cast<const int4*>(pieces), static_cast<uint8_t*>(out), total, height, width,
-      slots, num_pieces, max_h, per_warp);
-  return static_cast<int>(cudaGetLastError());
+// The bytes of the boards a block of the wide, tall and deep kernels
+// stages: at most (E + S - 1) / S + 1 envs.
+long long span_bytes(const Launch& a) {
+  const int per_block = a.warps * a.per_warp;
+  return static_cast<long long>((per_block + a.slots - 1) / a.slots + 1) * a.height * a.width;
 }
 
-template <int NR>
-int launch_mask_tall_rows(const void* board, const void* queue, const void* pieces,
-                          void* out, int total, int height, int width, int slots,
-                          int num_pieces, int max_h, int per_warp, int warps,
-                          cudaStream_t stream) {
-  switch ((width + 31) / 32) {
-    case 1:
-      return launch_mask_tall<NR, 1>(board, queue, pieces, out, total, height, width, slots,
-                                     num_pieces, max_h, per_warp, warps, stream);
-    case 2:
-      return launch_mask_tall<NR, 2>(board, queue, pieces, out, total, height, width, slots,
-                                     num_pieces, max_h, per_warp, warps, stream);
-    case 3:
-      return launch_mask_tall<NR, 3>(board, queue, pieces, out, total, height, width, slots,
-                                     num_pieces, max_h, per_warp, warps, stream);
-    default:
-      return launch_mask_tall<NR, 4>(board, queue, pieces, out, total, height, width, slots,
-                                     num_pieces, max_h, per_warp, warps, stream);
+template <int NW, bool kEvery>
+int launch_mask_wide(const Launch& a) {
+  return launch(mask_wide_kernel<NW, kEvery>, a,
+                bit_rows::smem_bytes(a.warps * a.per_warp * a.height * NW, span_bytes(a)));
+}
+
+template <int NR, int NW, bool kEvery>
+int launch_mask_tall(const Launch& a) {
+  return launch(mask_tall_kernel<NR, NW, kEvery>, a,
+                bit_rows::smem_bytes(a.warps * a.per_warp * a.height * NW, span_bytes(a)));
+}
+
+template <int NR, bool kEvery>
+int launch_mask_tall_rows(const Launch& a) {
+  switch ((a.width + 31) / 32) {
+    case 1: return launch_mask_tall<NR, 1, kEvery>(a);
+    case 2: return launch_mask_tall<NR, 2, kEvery>(a);
+    case 3: return launch_mask_tall<NR, 3, kEvery>(a);
+    default: return launch_mask_tall<NR, 4, kEvery>(a);
   }
 }
 
 // The deep kernel's launch: the same shape as the tall one's; a block whose
 // shared memory passes what a block may opt in to is refused.
-template <int NW>
-int launch_mask_deep(const void* board, const void* queue, const void* pieces, void* out,
-                     int total, int height, int width, int slots, int num_pieces,
-                     int max_h, int per_warp, int warps, cudaStream_t stream) {
-  const int per_block = warps * per_warp;
-  const int blocks = (total + per_block - 1) / per_block;
-  const long long span = static_cast<long long>((per_block + slots - 1) / slots + 1) *
-                         height * width;
-  const long long smem = (4LL * per_block * height * NW + 15) / 16 * 16 + span + 32;
-  if (smem > kSmemOptIn) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        mask_deep_kernel<NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+template <int NW, bool kEvery>
+int launch_mask_deep(const Launch& a) {
+  const long long rows = 4LL * a.warps * a.per_warp * a.height * NW;
+  return launch(mask_deep_kernel<NW, kEvery>, a, (rows + 15) / 16 * 16 + span_bytes(a) + 32);
+}
+
+bool aligned(const void* out, const void* pieces) {
+  return ((reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(pieces)) & 15) == 0;
+}
+
+// The checks every entry of the four kernels makes: a piece table and an
+// output on 16-byte boundaries, pieces of at most 8 rows and columns, 1 to
+// 16 warps, at least one env-slot an env and N * slots < 2^31.
+bool common_ok(const Launch& a, int n, int max_w) {
+  return n >= 0 && a.slots >= 1 && a.max_h <= kMaxPiece && max_w <= kMaxPiece &&
+         a.warps >= 1 && a.warps <= bit_rows::kMaxWarps &&
+         static_cast<long long>(n) * a.slots <= INT_MAX && aligned(a.out, a.pieces);
+}
+
+// H <= 32 and 32 < W <= 128: per_warp = 32 / H, warps such that the
+// block's output, warps * per_warp * H * W bytes, is a multiple of 16
+template <bool kEvery>
+int mask_wide(Launch a, int n, int max_w) {
+  if (!common_ok(a, n, max_w) || a.height < 1 || a.height > 32 ||
+      a.per_warp != 32 / a.height || a.width <= 32 || a.width > 128 ||
+      (a.warps * a.per_warp * a.height * a.width) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  mask_deep_kernel<NW><<<blocks, warps * 32, static_cast<int>(smem), stream>>>(
-      static_cast<const uint8_t*>(board), static_cast<const int32_t*>(queue),
-      static_cast<const int4*>(pieces), static_cast<uint8_t*>(out), total, height, width,
-      slots, num_pieces, max_h, per_warp);
-  return static_cast<int>(cudaGetLastError());
+  a.total = n * a.slots;
+  if (a.total == 0) return static_cast<int>(cudaGetLastError());
+  switch ((a.width + 31) / 32) {
+    case 2: return launch_mask_wide<2, kEvery>(a);
+    case 3: return launch_mask_wide<3, kEvery>(a);
+    default: return launch_mask_wide<4, kEvery>(a);
+  }
+}
+
+// 32 < H <= 128 (tall) or H > 128 (deep), W <= 128: per_warp 1 to 4
+template <bool kEvery>
+int mask_tall(Launch a, int n, int max_w, bool deep) {
+  if (!common_ok(a, n, max_w) || a.height <= 32 || (a.height > 128) != deep ||
+      a.width < 1 || a.width > 128 || a.per_warp < 1 || a.per_warp > 4) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  a.total = n * a.slots;
+  if (a.total == 0) return static_cast<int>(cudaGetLastError());
+  if (deep) {
+    switch ((a.width + 31) / 32) {
+      case 1: return launch_mask_deep<1, kEvery>(a);
+      case 2: return launch_mask_deep<2, kEvery>(a);
+      case 3: return launch_mask_deep<3, kEvery>(a);
+      default: return launch_mask_deep<4, kEvery>(a);
+    }
+  }
+  switch ((a.height + 31) / 32) {
+    case 2: return launch_mask_tall_rows<2, kEvery>(a);
+    case 3: return launch_mask_tall_rows<3, kEvery>(a);
+    default: return launch_mask_tall_rows<4, kEvery>(a);
+  }
+}
+
+// H <= 32 and 128 < W <= 1024: per_warp = 32 / NW; the block's shared
+// memory holds its legal rows, then the packed rows of the envs it reads
+template <bool kEvery>
+int mask_xwide(Launch a, int n, int max_w) {
+  const int nw = (a.width + 31) / 32;
+  if (!common_ok(a, n, max_w) || a.height < 1 || a.height > 32 || a.width <= 128 ||
+      a.width > 1024 || a.per_warp != 32 / nw) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  a.total = n * a.slots;
+  if (a.total == 0) return static_cast<int>(cudaGetLastError());
+  const int per_block = a.warps * a.per_warp;
+  const int most = (per_block + a.slots - 1) / a.slots + 1;
+  return launch(mask_xwide_kernel<kEvery>, a, 4LL * (per_block + most) * a.height * nw);
 }
 
 }  // namespace
@@ -801,28 +889,9 @@ extern "C" int bp_mask_wide(const void* board, const void* queue,
                             const void* pieces, void* out, int n, int height,
                             int width, int slots, int num_pieces, int max_h,
                             int max_w, int per_warp, int warps, void* stream) {
-  const long long total = static_cast<long long>(n) * slots;
-  if (height < 1 || height > 32 || per_warp != 32 / height || width <= 32 ||
-      width > 128 || slots < 1 || max_h > kMaxPiece || max_w > kMaxPiece ||
-      warps < 1 || warps > bit_rows::kMaxWarps ||
-      (warps * per_warp * height * width) % 16 != 0 || total > INT_MAX ||
-      ((reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(pieces)) & 15) != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (total == 0) return static_cast<int>(cudaGetLastError());
-  const auto st = static_cast<cudaStream_t>(stream);
-  const int t = static_cast<int>(total);
-  switch ((width + 31) / 32) {
-    case 2:
-      return launch_mask_wide<2>(board, queue, pieces, out, t, height, width, slots,
-                                 num_pieces, max_h, per_warp, warps, st);
-    case 3:
-      return launch_mask_wide<3>(board, queue, pieces, out, t, height, width, slots,
-                                 num_pieces, max_h, per_warp, warps, st);
-    default:
-      return launch_mask_wide<4>(board, queue, pieces, out, t, height, width, slots,
-                                 num_pieces, max_h, per_warp, warps, st);
-  }
+  return mask_wide<false>({board, queue, pieces, out, 0, height, width, slots, num_pieces,
+                           max_h, per_warp, warps, static_cast<cudaStream_t>(stream)},
+                          n, max_w);
 }
 
 // As bp_mask_rows, for 32 < H <= 128 and W <= 128: one env-slot a warp at a
@@ -835,27 +904,9 @@ extern "C" int bp_mask_tall(const void* board, const void* queue,
                             const void* pieces, void* out, int n, int height,
                             int width, int slots, int num_pieces, int max_h,
                             int max_w, int per_warp, int warps, void* stream) {
-  const long long total = static_cast<long long>(n) * slots;
-  if (height <= 32 || height > 128 || width < 1 || width > 128 || slots < 1 ||
-      max_h > kMaxPiece || max_w > kMaxPiece || warps < 1 || warps > bit_rows::kMaxWarps ||
-      per_warp < 1 || per_warp > 4 || total > INT_MAX ||
-      ((reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(pieces)) & 15) != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (total == 0) return static_cast<int>(cudaGetLastError());
-  const auto st = static_cast<cudaStream_t>(stream);
-  const int t = static_cast<int>(total);
-  switch ((height + 31) / 32) {
-    case 2:
-      return launch_mask_tall_rows<2>(board, queue, pieces, out, t, height, width, slots,
-                                      num_pieces, max_h, per_warp, warps, st);
-    case 3:
-      return launch_mask_tall_rows<3>(board, queue, pieces, out, t, height, width, slots,
-                                      num_pieces, max_h, per_warp, warps, st);
-    default:
-      return launch_mask_tall_rows<4>(board, queue, pieces, out, t, height, width, slots,
-                                      num_pieces, max_h, per_warp, warps, st);
-  }
+  return mask_tall<false>({board, queue, pieces, out, 0, height, width, slots, num_pieces,
+                           max_h, per_warp, warps, static_cast<cudaStream_t>(stream)},
+                          n, max_w, false);
 }
 
 // As bp_mask_tall, for H > 128 and W <= 128: one env-slot a warp at a
@@ -867,68 +918,65 @@ extern "C" int bp_mask_deep(const void* board, const void* queue,
                             const void* pieces, void* out, int n, int height,
                             int width, int slots, int num_pieces, int max_h,
                             int max_w, int per_warp, int warps, void* stream) {
-  const long long total = static_cast<long long>(n) * slots;
-  if (height <= 128 || width < 1 || width > 128 || slots < 1 || max_h > kMaxPiece ||
-      max_w > kMaxPiece || warps < 1 || warps > bit_rows::kMaxWarps || per_warp < 1 ||
-      per_warp > 4 || total > INT_MAX ||
-      ((reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(pieces)) & 15) != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (total == 0) return static_cast<int>(cudaGetLastError());
-  const auto st = static_cast<cudaStream_t>(stream);
-  const int t = static_cast<int>(total);
-  switch ((width + 31) / 32) {
-    case 1:
-      return launch_mask_deep<1>(board, queue, pieces, out, t, height, width, slots,
-                                 num_pieces, max_h, per_warp, warps, st);
-    case 2:
-      return launch_mask_deep<2>(board, queue, pieces, out, t, height, width, slots,
-                                 num_pieces, max_h, per_warp, warps, st);
-    case 3:
-      return launch_mask_deep<3>(board, queue, pieces, out, t, height, width, slots,
-                                 num_pieces, max_h, per_warp, warps, st);
-    default:
-      return launch_mask_deep<4>(board, queue, pieces, out, t, height, width, slots,
-                                 num_pieces, max_h, per_warp, warps, st);
-  }
+  return mask_tall<false>({board, queue, pieces, out, 0, height, width, slots, num_pieces,
+                           max_h, per_warp, warps, static_cast<cudaStream_t>(stream)},
+                          n, max_w, true);
 }
 
 // As bp_mask_rows, for H <= 32 and 128 < W <= 1024: a segment of NW =
 // ceil(W / 32) lanes an env-slot, lane w holding word w of every row;
 // per_warp = 32 / NW segments a warp, warps 1 to 16 (the block's output
 // span may start off a 16-byte boundary); refused where the block's shared
-// memory (its legal rows, its envs' packed rows and their staged bytes)
-// passes what a block may opt in to.
+// memory (its legal rows and its envs' packed rows) passes what a block
+// may opt in to.
 extern "C" int bp_mask_xwide(const void* board, const void* queue,
                              const void* pieces, void* out, int n, int height,
                              int width, int slots, int num_pieces, int max_h,
                              int max_w, int per_warp, int warps, void* stream) {
-  const long long total = static_cast<long long>(n) * slots;
-  const int nw = (width + 31) / 32;
-  if (height < 1 || height > 32 || width <= 128 || width > 1024 || per_warp != 32 / nw ||
-      slots < 1 || max_h > kMaxPiece || max_w > kMaxPiece || warps < 1 ||
-      warps > bit_rows::kMaxWarps || total > INT_MAX ||
-      ((reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(pieces)) & 15) != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (total == 0) return static_cast<int>(cudaGetLastError());
-  const int per_block = warps * per_warp;
-  // the legal rows, then the packed rows of the envs the block reads
-  const int most = (per_block + slots - 1) / slots + 1;
-  const long long smem = 4LL * (per_block + most) * height * nw;
-  if (smem > kSmemOptIn) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        mask_xwide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int blocks = static_cast<int>((total + per_block - 1) / per_block);
-  mask_xwide_kernel<<<blocks, warps * 32, static_cast<int>(smem),
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(board), static_cast<const int32_t*>(queue),
-      static_cast<const int4*>(pieces), static_cast<uint8_t*>(out), static_cast<int>(total),
-      height, width, slots, num_pieces, max_h, per_warp);
-  return static_cast<int>(cudaGetLastError());
+  return mask_xwide<false>({board, queue, pieces, out, 0, height, width, slots, num_pieces,
+                            max_h, per_warp, warps, static_cast<cudaStream_t>(stream)},
+                           n, max_w);
+}
+
+// The all-pieces legality (K4) on the mask's wide, tall, deep and xwide
+// kernels: their every-piece instances, each with its mask entry's launch
+// shape rules at S = P.  board (N, HW) u8, pieces (P, 4) i32 rows as
+// bp_mask_rows's (16-byte aligned); out (N, P*HW) bool (16-byte aligned),
+// piece-major then row-major anchor; N*P < 2^31.
+extern "C" int bp_legality_wide(const void* board, const void* pieces, void* out, int n,
+                                int height, int width, int num_pieces, int max_h, int max_w,
+                                int per_warp, int warps, void* stream) {
+  return mask_wide<true>({board, nullptr, pieces, out, 0, height, width, num_pieces,
+                          num_pieces, max_h, per_warp, warps,
+                          static_cast<cudaStream_t>(stream)},
+                         n, max_w);
+}
+
+extern "C" int bp_legality_tall(const void* board, const void* pieces, void* out, int n,
+                                int height, int width, int num_pieces, int max_h, int max_w,
+                                int per_warp, int warps, void* stream) {
+  return mask_tall<true>({board, nullptr, pieces, out, 0, height, width, num_pieces,
+                          num_pieces, max_h, per_warp, warps,
+                          static_cast<cudaStream_t>(stream)},
+                         n, max_w, false);
+}
+
+extern "C" int bp_legality_deep(const void* board, const void* pieces, void* out, int n,
+                                int height, int width, int num_pieces, int max_h, int max_w,
+                                int per_warp, int warps, void* stream) {
+  return mask_tall<true>({board, nullptr, pieces, out, 0, height, width, num_pieces,
+                          num_pieces, max_h, per_warp, warps,
+                          static_cast<cudaStream_t>(stream)},
+                         n, max_w, true);
+}
+
+extern "C" int bp_legality_xwide(const void* board, const void* pieces, void* out, int n,
+                                 int height, int width, int num_pieces, int max_h, int max_w,
+                                 int per_warp, int warps, void* stream) {
+  return mask_xwide<true>({board, nullptr, pieces, out, 0, height, width, num_pieces,
+                           num_pieces, max_h, per_warp, warps,
+                           static_cast<cudaStream_t>(stream)},
+                          n, max_w);
 }
 
 // board (N, HW) u8, queue (N, S) i32, piece_table (P, 3 + max_cells) i32

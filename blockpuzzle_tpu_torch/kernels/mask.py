@@ -32,7 +32,9 @@ import torch
 from blockpuzzle_tpu_torch import rules
 from blockpuzzle_tpu_torch.config import EnvConfig
 from blockpuzzle_tpu_torch.kernels import _build
-from blockpuzzle_tpu_torch.kernels.collision import legality_plain, piece_table
+from blockpuzzle_tpu_torch.kernels.collision import (
+    legality_plain, piece_rows_table, piece_table,
+)
 from blockpuzzle_tpu_torch.kernels.packed import (
     MAX_PIECE, SUFFIX, count_launch, u8_kind, u8_launch_shape,
 )
@@ -57,18 +59,6 @@ def mask_plain(
     pid = torch.where(in_set, queue, num_pieces).to(torch.int64)
     sel = legal_all.gather(1, pid[:, :, None].expand(n, s, hw))
     return sel.reshape(n, s * hw)
-
-
-def piece_rows_table(cfg: EnvConfig) -> np.ndarray:
-    """(P, 4) int32 rows ``[h, w, rect 1, rect 2]`` of the bit-row kernel:
-    each piece's bounding box and its <= 2 rectangles (``piece_rects``),
-    each packed as ``dr | dc << 8 | rh << 16 | rw << 24`` (an absent
-    rectangle is 0)."""
-    t = rules.tables_for(cfg)
-    rects = t.piece_rects.reshape(-1, 2, 4).astype(np.int64)
-    packed = (rects << np.array([0, 8, 16, 24])).sum(axis=2)
-    table = np.stack([t.piece_h, t.piece_w, packed[:, 0], packed[:, 1]], axis=1)
-    return table.astype(np.uint32).view(np.int32)
 
 
 class MaskKernel:

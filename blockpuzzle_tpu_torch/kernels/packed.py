@@ -174,13 +174,15 @@ def apply_launch_shape(cfg: EnvConfig):
     """(envs a warp, warps a block) of the u8 apply on ``cfg``, or None where
     its general kernel runs: the bit-row kernels' shape where H <= 32 and
     W <= 32, the wide ones' where H <= 32 and 32 < W <= ``MAX_WIDE`` (a
-    block's two spans, under 2^17 bytes, always fit), and on taller boards
+    block's two spans, under 2^17 bytes, always fit), the xwide ones' where
+    H <= 32 and ``MAX_WIDE`` < W <= ``MAX_XWIDE`` (its block's board and
+    cover rows of words, at most 32 KB, always fit), and on taller boards
     of at most ``MAX_WIDE`` cells a row ``_turns_shape`` with the apply's own
     shared memory (``apply_smem_bytes``: its block stages two spans where the
     mask stages one), so fewer turns or warps where the mask's would not
     fit.  Computed once per wrapper, as ``row_launch_shape``."""
     if cfg.width > MAX_WIDE:
-        return None
+        return xwide_launch_shape(cfg)
     if cfg.height <= MAX_ROWS:
         return row_launch_shape(cfg) or wide_launch_shape(cfg)
     return _turns_shape(cfg, apply_smem_bytes)
@@ -415,9 +417,9 @@ SUFFIX = {"rows": "", "wide": "_wide", "tall": "_tall", "deep": "_deep",
 def u8_kind(cfg: EnvConfig, shape) -> str:
     """The kind of the u8 kernel a wrapper with launch shape ``shape`` (None:
     the general kernel) picks on ``cfg``: ``"rows"``, ``"wide"``, ``"tall"``,
-    ``"deep"`` (the mask, the clear and the apply above ``MAX_TALL`` rows),
-    ``"xwide"`` (the mask and the clear on rows of more than ``MAX_WIDE``
-    cells; the apply has no launch shape there) or ``"general"``."""
+    ``"deep"`` (above ``MAX_TALL`` rows), ``"xwide"`` (rows of more than
+    ``MAX_WIDE`` cells) or ``"general"``: the mask, the clear, the apply
+    and the all-pieces legality alike."""
     if shape is None:
         return "general"
     if cfg.width > MAX_WIDE:

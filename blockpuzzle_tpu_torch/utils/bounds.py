@@ -35,11 +35,16 @@ clears (about 12) and stores likewise, and its wide, tall and deep
 kernels pack two rows of words (board and cover), spend 2 operations a
 word on the overlap and the place and the clear's 8 (the deep one 6 more:
 its first pass stages the placed word, pass 1 reads it back, pass 2
-clears its columns); the bit-row legality (K4) packs
-each row once, builds its smears (3 operations for each of max_h * max_w
-shapes), spends about 15 a piece and one per output byte; the general mask
-and legality test a piece at one anchor with an AND and an OR per cell,
-the general clear and apply do about 3 and 5 operations a cell; a packed
+clears its columns), its xwide kernel loads the board and the cover as
+row words and spends 3 a word on the overlap and the place beside the
+xwide clear's 12; the legality (K4) is counted as
+the function's least work, whichever kernel computes it: each row packed
+once as ceil(W / 32) words, the smears built once a word (3 operations for
+each of max_h * max_w shapes), about 15 a piece a word and one per output
+byte (the mask's every-piece instances repack an env's rows for each
+piece, work the function does not need); the general mask tests a piece
+at one anchor with an AND and an OR per cell, the general clear and apply
+do about 3 and 5 operations a cell; a packed
 anchor row tests W - piece_w + 1 anchors with 3 operations per footprint
 word and builds its words with 2 per field (B7, and its words entry B7w,
 which stores the row word as it is); B1 does about 10 a row word.  Their
@@ -230,6 +235,15 @@ def _apply_deep(cfg, inputs):
                 + cfg.num_cells)
 
 
+def _apply_xwide(cfg, inputs):
+    """K2, xwide: inputs (board, footprint cells, valid); the board and the
+    cover loaded as row words, 3 operations a word to test and place, the
+    xwide clear's 12."""
+    n, h = inputs[0].shape[0], cfg.height
+    return n * (2 * _stage_words(cfg) + h * 15 * _words(cfg) + _regions(cfg)
+                + cfg.num_cells)
+
+
 def _clear(cfg, inputs):
     """K3, bit-row: inputs (board,)."""
     n, h = inputs[0].shape[0], cfg.height
@@ -263,17 +277,13 @@ def _clear_general(cfg, inputs):
 
 
 def _legality(cfg, inputs):
-    """K4, bit-row: inputs (board,)."""
+    """K4, every kernel: inputs (board,); a row of ``_words`` words packed
+    once, its smears and a piece's test a word (one word where W <= 32, the
+    bit-row kernel's count)."""
     t = rules.tables_for(cfg)
-    n, h = inputs[0].shape[0], cfg.height
-    return n * (h * (_pack(cfg) + 3 * t.max_h * t.max_w + 15 * t.num_pieces)
+    n, h, nw = inputs[0].shape[0], cfg.height, _words(cfg)
+    return n * (h * (_pack_words(cfg) + nw * (3 * t.max_h * t.max_w + 15 * t.num_pieces))
                 + t.num_pieces * cfg.num_cells)
-
-
-def _legality_general(cfg, inputs):
-    """K4, general: inputs (board,)."""
-    t = rules.tables_for(cfg)
-    return 2 * inputs[0].shape[0] * float(t.piece_cells.sum()) * cfg.num_cells
 
 
 def _packed_apply(cfg, inputs):
@@ -355,11 +365,12 @@ COSTS: Dict[str, Cost] = {
     "mask_xwide": _cost(_mask_xwide), "mask_general": _cost(_mask_general),
     "apply": _cost(_apply), "apply_wide": _cost(_apply_words),
     "apply_tall": _cost(_apply_words), "apply_deep": _cost(_apply_deep),
-    "apply_general": _cost(_apply_general),
+    "apply_xwide": _cost(_apply_xwide), "apply_general": _cost(_apply_general),
     "clear": _cost(_clear), "clear_wide": _cost(_clear_wide),
     "clear_tall": _cost(_clear_wide), "clear_deep": _cost(_clear_deep),
     "clear_xwide": _cost(_clear_xwide), "clear_general": _cost(_clear_general),
-    "legality": _cost(_legality), "legality_general": _cost(_legality_general),
+    **{f"legality{s}": _cost(_legality)
+       for s in ("", "_wide", "_tall", "_deep", "_xwide", "_general")},
     **{f"packed_apply{s}": _cost(_packed_apply) for s in ("", "_tall", "_general")},
     **{f"packed_{e}{s}": _cost(_packed_mask) for e in ("mask", "legal_words")
        for s in ("", "_tall", "_general")},

@@ -2,10 +2,10 @@
 """Measurements of the PyTorch + CUDA port on one card, beyond the smoke run.
 
     python3 chip_measure.py [--parts build,train,rollout,kernels,words,general,draws,tall,
-                                     tail,deep,apply,xwide] [--parent-csrc DIR]
+                                     tail,deep,apply,xwide,legality] [--parent-csrc DIR]
 
 Needs one CUDA card and nvcc.  Prints the card's name and power limit,
-then, each line tagged with its part (all twelve by default):
+then, each line tagged with its part (all thirteen by default):
 
   build     cold builds of ``kernels/csrc/*.cu`` in turns: one nvcc over
             all sources, then one nvcc per source started together and a
@@ -52,10 +52,10 @@ then, each line tagged with its part (all twelve by default):
             its device kernels and device time under the profiler and its
             time on the host's clock;
   general   the u8 kernels of an 8x40 board (rows of 40 cells: the wide
-            mask and clear, the general apply and legality) at N = 49152,
-            with the general mask and clear launched directly on the same
-            inputs and held bit-equal to the wide ones, all six timed in
-            turns for 5 rounds and each wide kernel's median printed beside
+            mask, clear, apply and legality) at N = 49152, with the general
+            ones launched directly on the same inputs and held bit-equal to
+            the wide ones, all eight timed in turns for 5 rounds and each
+            wide kernel's median printed beside
             the general one's (``chip_smoke.wide_turns``, the rounds
             ``chip_smoke.py`` phase 1 also takes), here in a process whose
             library is freshly loaded; then the u8 clear-kernel step on that
@@ -115,29 +115,38 @@ then, each line tagged with its part (all twelve by default):
             step, device kernels, device ms and busy share a step, the
             largest items (``deep_step_turns``);
   apply     the u8 apply (K2) beyond 32x32 at N = 49152 on 8x40, 33x9,
-            130x8 and 512x8 (``APPLY_BOARDS``): the wide, tall or deep apply
+            130x8, 512x8 and 8x136 (``APPLY_BOARDS``): the wide, tall, deep or
+            xwide apply
             against the general apply launched directly on the same inputs
             (``chip_smoke.general_apply``), with ``--parent-csrc DIR`` first
             the earlier sources' ``bp_apply``; held bit-equal and timed in
             turns, medians and shares of the bound (``apply_turns``); then
-            the u8 apply-kernel step on 8x40, 33x9 and 130x8 with the
+            the u8 apply-kernel step on 8x40, 33x9, 130x8 and 8x136 with the
             general apply (the earlier sources', else the current
             library's) and with the wrapper's in turns, earlier, current,
             current, earlier: host ms a step, device kernels, device ms and
             busy share a step, the apply's device ms a step
             (``pallas_step_turns``);
-  xwide     the u8 mask and clear on rows of more than 128 cells at N = 49152
-            on 8x136, 8x160, 9x135 with regions, 3x320 and 2x1024: the
-            xwide mask and clear each held bit-equal to the general kernel
-            it replaces launched directly on the same inputs
-            (``chip_smoke.general_calls``) and timed in turns with it, 5
-            rounds, medians and shares of the bound, and the general apply
-            on 8x136 (``xwide_times``); then the u8 clear-kernel and
+  xwide     the u8 mask, clear and apply on rows of more than 128 cells at
+            N = 49152 on 8x136, 8x160, 9x135 with regions, 3x320 and 2x1024:
+            the xwide mask, clear and apply each held bit-equal to the
+            general kernel it replaces launched directly on the same inputs
+            (``chip_smoke.general_calls``, ``chip_smoke.general_apply``) and
+            timed in turns with it, 5 rounds, medians and shares of the
+            bound (``xwide_times``); then the u8 clear-kernel and
             apply-kernel steps on 8x136 with the general mask and clear
             swapped in and with the xwide ones, in turns general, xwide,
             xwide, general: host ms a step, device kernels, device ms and
             busy share a step, the mask's and the clear's device ms a step
-            (``xwide_step_turns``).
+            (``xwide_step_turns``);
+  legality  the all-pieces legality (K4) beyond 32x32 at N = 49152 on 8x40,
+            33x9, 130x8 and 8x136 (``chip_smoke.LEGALITY_BOARDS``): the
+            every-piece instance of the wide, tall, deep or xwide mask
+            against the general legality launched directly on the same
+            inputs (``chip_smoke.general_legality``, ``bp_legality``), with
+            ``--parent-csrc DIR`` first the earlier sources' ``bp_legality``;
+            held bit-equal and timed in turns, 5 rounds, medians and shares
+            of the bound (``legality_turns``).
 
 Cold builds go to a temporary directory under the git-ignored
 ``kernels/_build/``, removed at the end.
@@ -344,10 +353,11 @@ def rollout_breakdown(card: str, cfg=None, engines=ENGINES, tag: str = "rollout"
         top_items(hand, 20, f"{tag} hand kernel", len(HAND_KERNELS))
 
 
-# the device kernel names of the u8 mask and clear, by kernel kind
+# the device kernel names of the u8 mask and clear, by kernel kind (the
+# xwide ones' first instances: the legality's and the apply's are the second)
 STEP_KERNEL_NAMES = {"wide": ("mask_wide_kernel<", "clear_wide_kernel<"),
                      "tall": ("mask_tall_kernel<", "clear_tall_kernel<"),
-                     "xwide": ("mask_xwide_kernel(", "clear_xwide_kernel("),
+                     "xwide": ("mask_xwide_kernel<false>", "clear_xwide_kernel<false>"),
                      "general": ("::mask_kernel(", "::clear_kernel(")}
 
 
@@ -1281,12 +1291,12 @@ def deep_turns(card: str, lib, rounds: int = 5) -> None:
 
 # boards the ``apply`` part times K2 on: its wide, tall and deep kernels
 APPLY_BOARDS = {"8x40": chip_smoke.WIDE, "33x9": chip_smoke.TALL, "130x8": chip_smoke.HUGE,
-                "512x8": chip_smoke.DEEP_CASES["512x8"]}
+                "512x8": chip_smoke.DEEP_CASES["512x8"], "8x136": chip_smoke.XWIDE}
 
 
 def apply_turns(card: str, lib, rounds: int = 5) -> None:
     """K2 on ``APPLY_BOARDS`` at N = 49152 (``chip_smoke.kernel_inputs``,
-    seed 0): the wide, tall or deep apply beside the general apply launched
+    seed 0): the wide, tall, deep or xwide apply beside the general apply launched
     directly on the same inputs (``chip_smoke.general_apply``, ``bp_apply``),
     and, where ``lib`` is given, first the earlier library's ``bp_apply``;
     held bit-equal, then timed in turns (``group_turns``)."""
@@ -1300,7 +1310,7 @@ def apply_turns(card: str, lib, rounds: int = 5) -> None:
     for name, shape in APPLY_BOARDS.items():
         cfg = EnvConfig(**shape)
         ak = ApplyKernel(cfg, dev)
-        if ak.kind not in ("wide", "tall", "deep"):
+        if ak.kind not in ("wide", "tall", "deep", "xwide"):
             raise AssertionError(f"{name}: the wrapper picked {ak.name}")
         board, queue, cover, valid, attrs, r, c = (
             torch.as_tensor(x, device=dev) for x in chip_smoke.kernel_inputs(cfg, n, seed=0))
@@ -1318,16 +1328,17 @@ def apply_turns(card: str, lib, rounds: int = 5) -> None:
         group_turns(card, "apply", name, {ak.name: fns}, bound, rounds)
 
 
-def pallas_step_turns(card: str, lib, steps: int = 20) -> None:
-    """The u8 apply-kernel step (``backend="pallas"``) on 8x40, 33x9 and
-    130x8 at N = 49152, uniform-legal draws, one engine each carrying its
+def pallas_step_turns(card: str, lib, steps: int = 20,
+                      names=("8x40", "33x9", "130x8", "8x136")) -> None:
+    """The u8 apply-kernel step (``backend="pallas"``) on 8x40, 33x9, 130x8
+    and 8x136 at N = 49152, uniform-legal draws, one engine each carrying its
     state: with the general apply swapped in (the earlier library's
     ``bp_apply`` where ``lib`` is given, else the current library's,
     ``chip_smoke.general_apply``) and with the wrapper's wide, tall or deep
     apply, in turns earlier, current, current, earlier: host ms a step over
     ``steps`` unprofiled steps, then ``steps`` steps under ``torch.profiler``:
     device kernels, device ms and busy share a step, and the apply's device
-    ms a step inside it."""
+    ms a step inside it.  Where ``names`` is given, those boards only."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1339,7 +1350,7 @@ def pallas_step_turns(card: str, lib, steps: int = 20) -> None:
     # the device names of the general apply and of the clear kernels' apply
     # instances (their template's last argument, kApply)
     keys = ("::apply_kernel(", "true>(")
-    for name in ("8x40", "33x9", "130x8"):
+    for name in names:
         cfg = EnvConfig(**APPLY_BOARDS[name])
         env = make_env(cfg, device="cuda", backend="pallas", state_impl="u8")
         current = env.apply_kernel
@@ -1385,8 +1396,8 @@ def xwide_times(card: str, rounds: int = 5) -> None:
     beside the general kernel it replaces, launched directly on the same
     inputs (``chip_smoke.general_calls``: ``bp_mask``, ``bp_clear``, which
     this tree keeps as they were), held bit-equal, then timed in turns
-    (``group_turns``); on 8x136 also the general apply, the wrapper's kernel
-    there."""
+    (``group_turns``), and the xwide apply likewise beside the general apply
+    (``chip_smoke.general_apply``, ``bp_apply``)."""
     import torch
 
     from blockpuzzle_tpu_torch.config import EnvConfig
@@ -1397,19 +1408,20 @@ def xwide_times(card: str, rounds: int = 5) -> None:
     for name, shape in {"8x136": chip_smoke.XWIDE, **chip_smoke.XWIDE_CASES}.items():
         cfg = EnvConfig(**shape)
         mk, ck, ak = MaskKernel(cfg, dev), ClearScanKernel(cfg, dev), ApplyKernel(cfg, dev)
-        if (mk.name, ck.name, ak.name) != ("mask_xwide", "clear_xwide", "apply_general"):
+        if (mk.name, ck.name, ak.name) != ("mask_xwide", "clear_xwide", "apply_xwide"):
             raise AssertionError(f"{name}: the wrappers picked {mk.name}, {ck.name}, {ak.name}")
         board, queue, cover, valid, attrs, r, c = (
             torch.as_tensor(x, device=dev) for x in chip_smoke.kernel_inputs(cfg, n, seed=0))
         general_mask, general_clear = chip_smoke.general_calls(cfg, mk, ck)
+        general = chip_smoke.general_apply(cfg, ak)
         groups = {"mask_xwide": {"mask_general": lambda: general_mask(board, queue),
                                  "mask_xwide": lambda: mk(board, queue)},
                   "clear_xwide": {"clear_general": lambda: general_clear(board),
-                                  "clear_xwide": lambda: ck(board)}}
-        outs = {"mask_xwide": mk(board, queue), "clear_xwide": ck(board)}
-        if name == "8x136":
-            groups["apply_general"] = {"apply_general": lambda: ak(board, cover, valid)}
-            outs["apply_general"] = ak(board, cover, valid)
+                                  "clear_xwide": lambda: ck(board)},
+                  "apply_xwide": {"apply_general": lambda: general(board, cover, valid),
+                                  "apply_xwide": lambda: ak(board, cover, valid)}}
+        outs = {"mask_xwide": mk(board, queue), "clear_xwide": ck(board),
+                "apply_xwide": ak(board, cover, valid)}
         bound = kernel_bounds(cfg, board, queue, cover, valid, None, attrs, r, c, outs)
         print(f"[xwide] {name}: launch shape {mk.shape} (segments a warp, warps a block)")
         group_turns(card, "xwide", name, groups, bound, rounds)
@@ -1483,8 +1495,41 @@ def deep_step_turns(card: str, lib, steps: int = 20) -> None:
         env.clear_kernel, env.packed_mask_kernel = kernels["current"]
 
 
+def legality_turns(card: str, lib, rounds: int = 5) -> None:
+    """K4 beyond 32x32 at N = 49152 on ``chip_smoke.LEGALITY_BOARDS``
+    (``chip_smoke.kernel_inputs``, seed 0): the every-piece instance the
+    wrapper picks beside the general legality launched directly on the
+    same inputs (``chip_smoke.general_legality``, ``bp_legality``), and,
+    where ``lib`` is given, first the earlier library's ``bp_legality``;
+    held bit-equal, then timed in turns (``group_turns``)."""
+    import torch
+
+    from blockpuzzle_tpu_torch.config import EnvConfig
+    from blockpuzzle_tpu_torch.kernels import LegalityKernel
+    from blockpuzzle_tpu_torch.utils.bounds import kernel_bounds
+
+    n, dev = chip_smoke.N_MAIN, torch.device("cuda")
+    for name, (shape, _) in chip_smoke.LEGALITY_BOARDS.items():
+        cfg = EnvConfig(**shape)
+        lk = LegalityKernel(cfg, dev)
+        if lk.kind not in ("wide", "tall", "deep", "xwide"):
+            raise AssertionError(f"{name}: the wrapper picked {lk.name}")
+        board = torch.as_tensor(chip_smoke.kernel_inputs(cfg, n, seed=0)[0], device=dev)
+        fns = {}
+        if lib is not None:
+            earlier = chip_smoke.general_legality(cfg, lk, lib)
+            fns["earlier bp_legality"] = lambda: earlier(board)
+        general = chip_smoke.general_legality(cfg, lk)
+        fns.update({lk.name: lambda: lk(board), "legality_general": lambda: general(board)})
+        bound = kernel_bounds(cfg, board, None, None, None, None, None, None, None,
+                              {lk.name: lk(board)})
+        print(f"[legality] {name}: {lk.name} launch shape {lk.shape} (env-slots a warp, "
+              "warps a block)")
+        group_turns(card, "legality", name, {lk.name: fns}, bound, rounds)
+
+
 PARTS = ("build", "train", "rollout", "kernels", "words", "general", "draws", "tall", "tail",
-         "deep", "apply", "xwide")
+         "deep", "apply", "xwide", "legality")
 
 
 def main(argv=None) -> int:
@@ -1550,6 +1595,9 @@ def main(argv=None) -> int:
     if "xwide" in parts:
         xwide_times(card)
         xwide_step_turns(card)
+    if "legality" in parts:
+        lib = parent_library(pathlib.Path(args.parent_csrc)) if args.parent_csrc else None
+        legality_turns(card, lib)
     print(f"[done] {card}")
     return 0
 

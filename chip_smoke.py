@@ -9,7 +9,7 @@ which raises on failure (non-zero exit, no result line):
 
   0. card name and power limit, torch/CUDA versions, compute capability,
      kernel build time;
-  1. each of the thirty-three kernels against its plain torch version on
+  1. each of the thirty-eight kernels against its plain torch version on
      the card, bit-equal, at N = 49152 and a ragged N = 49151: the three draws
      (deal, uniform_legal, words_select: ``kernels/draws.py``) on the four
      presets, at per-env counters that wrap negative and at shared ones
@@ -23,8 +23,8 @@ which raises on failure (non-zero exit, no result line):
      mask and apply kernels on the unpacked boards, the words against the
      packed mask packed to words; on a board of 8 rows of 40 cells, too
      wide for a row word, the wide mask, clear and apply (mask_wide,
-     clear_wide, apply_wide: rows of two words) and the general legality
-     (legality_general); the wide mask, clear and apply also on 8x33, 6x64,
+     clear_wide, apply_wide: rows of two words); the wide mask, clear and
+     apply also on 8x33, 6x64,
      4x128, 8x100 and 9x36 with 3x3 regions (``WIDE_CASES``), the wide
      apply also against the general apply launched directly (bp_apply);
      on boards of more than 32 rows (``phase1_tall``), the tall packed
@@ -37,9 +37,8 @@ which raises on failure (non-zero exit, no result line):
      against the u8 one on the unpacked boards, and on boards of more than
      128 rows the deep u8 mask, clear and apply (mask_deep, clear_deep,
      apply_deep: a warp an env-slot or env over windows of 32 rows) and the
-     general kernels of the legality and the packed engine
-     (legality_general, packed_apply_general: a warp an env over windows of
-     rows, also with each pass 2, packed_mask_general and
+     general kernels of the packed engine (packed_apply_general: a warp an
+     env over windows of rows, also with each pass 2, packed_mask_general and
      packed_legal_words_general: a warp an env-slot over windows of 32
      rows) on 130x8 (``HUGE``; the general mask, clear and apply,
      mask_general, clear_general and apply_general, launched directly there
@@ -50,12 +49,17 @@ which raises on failure (non-zero exit, no result line):
      apply, the deep clear and the windowed packed mask and words also held
      to the kernels they replace launched directly on every one of these
      boards; on rows of more than 128 cells (``phase1_xwide``) the xwide
-     mask and clear (mask_xwide, clear_xwide: a segment of lanes an
-     env-slot or env, a lane a word of every row) on 8x136 (``XWIDE``) and
-     on 8x160, 9x135 with 3x3 regions across words and a hand of three,
-     3x320 and 2x1024 (``XWIDE_CASES``), each also held to the general
-     mask and clear launched directly, with the general apply, and the
-     general mask, clear and apply on 2x1056 (``W1056``); the
+     mask, clear and apply (mask_xwide, clear_xwide, apply_xwide: a segment
+     of lanes an env-slot or env, a lane a word of every row) on 8x136
+     (``XWIDE``) and on 8x160, 9x135 with 3x3 regions across words and a
+     hand of three, 3x320 and 2x1024 (``XWIDE_CASES``), each also held to
+     the general mask, clear and apply launched directly, and the general
+     mask, clear and apply on 2x1056 (``W1056``); the all-pieces legality
+     beyond 32x32 (``phase1_legality``): the every-piece instances of the
+     wide, tall, deep and xwide masks (legality_wide, legality_tall,
+     legality_deep, legality_xwide) on 8x40, 33x9, 130x8 and 8x136
+     (``LEGALITY_BOARDS``; at N = 4096 and 4095 but on 8x40), each also
+     held to the general legality (legality_general) launched directly; the
      step's tail (packed_tail: game over,
      truncation, score, auto-reset and both board views in one launch) and
      its unpack entry (packed_unpack) on the default, tenten, 33x9 and 130x8
@@ -69,13 +73,14 @@ which raises on failure (non-zero exit, no result line):
      events over 50 launches queued behind a spin kernel, so the host's
      launch time does not enter) beside its bound (``utils/bounds.py``)
      and the plain version's time (50 calls made as the host goes), at N
-     = 49152 on the default preset (the wide kernels and legality_general
-     on the wide board, the tall ones on 33x9, the deep ones and the
+     = 49152 on the default preset (the wide kernels, and legality_general
+     launched directly, on the wide board, the tall ones on 33x9, the deep ones and the
      general packed ones on 130x8, the xwide ones and the general mask,
      clear and apply on 8x136), and the launch floor (an empty launch's
      device time) beside the deal's; then the wide board's kernels timed
-     in turns for 5 rounds, with the general mask, clear and apply launched
-     directly on the same inputs and held bit-equal to the wide ones
+     in turns for 5 rounds, with the general mask, clear, apply and
+     legality launched directly on the same inputs and held bit-equal to
+     the wide ones
      (``wide_turns``), and the tall mask, clear and apply likewise on 33x9
      and 40x40 (``tall_turns``);
      then the default packed rollout (N = 49152, 64 steps) through the
@@ -96,16 +101,17 @@ which raises on failure (non-zero exit, no result line):
      ``tall_u8_pallas``, ``tall_u8_jnp``; 36x9 with regions,
      ``tall36r3_u8_jnp``; 130x8, the deep mask, clear and apply:
      ``huge_u8_pallas``, ``huge_u8_jnp``;
-     8x136, rows of more than 128 cells, the xwide mask and clear with the
-     general apply: ``xwide_u8_pallas``, ``xwide_u8_jnp``; 2x1056, rows of
+     8x136, rows of more than 128 cells, the xwide mask, clear and apply:
+     ``xwide_u8_pallas``, ``xwide_u8_jnp``; 2x1056, rows of
      more than 1024 cells, the general mask, apply and clear:
      ``w1056_u8_pallas``, ``w1056_u8_jnp``; N = 256, 32 steps), counters set to
      0 before each and read after it: final states and summed rewards
      bit-equal across devices and across the engines, each kernel of an
      engine launched exactly once per step and every other kernel never;
      then ``legal_all_pieces`` on the final boards against its plain
-     version and the hand mask (the general legality beyond the presets:
-     the paths ``<board>_legal_all_pieces``); then the words rollout on
+     version and the hand mask (beyond the presets the every-piece
+     instance the board takes, the general legality on 2x1056: the paths
+     ``<board>_legal_all_pieces``); then the words rollout on
      33x9, 36x9 with regions and 130x8 on CUDA against the CPU (the paths
      ``tall_words``, ``tall36r3_words``, ``huge_words``);
   3. the rollout paths: the rollout entry point at N = 49152 on the
@@ -235,8 +241,8 @@ import time
 N_MAIN = 49152
 PARITY_SEEDS = 8
 PACKED_PRESETS = ("default", "tenten", "woodoku", "big")
-# a u8 board too wide for a row word: the wide u8 mask, clear and apply
-# (rows of two words), the general legality
+# a u8 board too wide for a row word: the wide u8 mask, clear, apply and
+# legality (rows of two words)
 WIDE = dict(height=8, width=40)
 # the other boards of more than 32 cells a row that phase 1 holds the wide
 # mask, clear and apply on (tests/test_torch_kernels.py WIDE_CASES): one cell in
@@ -250,7 +256,7 @@ WIDE_CASES = {"8x33": dict(height=8, width=33), "6x64": dict(height=6, width=64)
                              queue_size=3)}
 # boards of more than 32 rows: the tall kernels (a warp a board, rows
 # l + 32 j in lane l), the packed engine's by default (W <= 32) and the u8
-# mask, clear and apply; the general legality
+# mask, clear, apply and legality
 TALL = dict(height=33, width=9)
 TALL36R3 = dict(height=36, width=9, region_clear=True, region_size=3, queue_size=3)
 # the boards phase 1 holds the tall kernels on (tests/test_torch_tall.py):
@@ -261,9 +267,9 @@ TALL_PACKED_CASES = {"33x9": TALL, "36x9r3": TALL36R3, "64x8": dict(height=64, w
                      "128x10": dict(height=128, width=10)}
 TALL_U8_CASES = {"33x9": TALL, "36x9r3": TALL36R3, "40x40": dict(height=40, width=40),
                  "33x128": dict(height=33, width=128)}
-# a board of more than 128 rows: the deep u8 mask, clear and apply (a warp
-# an env-slot or env over windows of 32 rows), the windowed general packed
-# apply, mask and words, the general legality
+# a board of more than 128 rows: the deep u8 mask, clear, apply and legality
+# (a warp an env-slot or env over windows of 32 rows), the windowed general
+# packed apply, mask and words
 HUGE = dict(height=130, width=8)
 # the other boards of more than 128 rows phase 1 holds the deep mask, clear
 # and apply and the general packed kernels on (tests/test_torch_deep.py):
@@ -273,11 +279,11 @@ HUGE = dict(height=130, width=8)
 DEEP_CASES = {"512x8": dict(height=512, width=8),
               "135x9r3": dict(height=135, width=9, region_clear=True, region_size=3,
                               queue_size=3)}
-# rows of more than 128 cells: the xwide u8 mask and clear (a segment of
-# ceil(W / 32) lanes a board, a lane a word of every row), the general apply
-# and legality (the paths ``xwide_u8_pallas`` and ``xwide_u8_jnp``)
+# rows of more than 128 cells: the xwide u8 mask, clear, apply and legality
+# (a segment of ceil(W / 32) lanes a board, a lane a word of every row; the
+# paths ``xwide_u8_pallas`` and ``xwide_u8_jnp``)
 XWIDE = dict(height=8, width=136)
-# the other boards phase 1 holds the xwide mask and clear on
+# the other boards phase 1 holds the xwide mask, clear and apply on
 # (tests/test_torch_xwide.py): whole words, 3x3 regions whose fields
 # straddle words (columns 30..32, 63..65) with a hand of three, ten words
 # a row and 32 (one segment a warp), the last two with pieces of at most
@@ -313,8 +319,10 @@ KERNEL_INFO = {
                    "blockpuzzle_tpu/kernels/collision.py:164", "tall_u8_pallas"),
     "apply_deep": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
                    "blockpuzzle_tpu/kernels/collision.py:164", "huge_u8_pallas"),
+    "apply_xwide": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
+                    "blockpuzzle_tpu/kernels/collision.py:164", "xwide_u8_pallas"),
     "apply_general": ("blockpuzzle_tpu_torch/kernels/csrc/collision.cu",
-                      "blockpuzzle_tpu/kernels/collision.py:164", "xwide_u8_pallas"),
+                      "blockpuzzle_tpu/kernels/collision.py:164", "w1056_u8_pallas"),
     "clear": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
               "blockpuzzle_tpu/kernels/clear.py:93", "train_u8"),
     "clear_wide": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
@@ -329,9 +337,14 @@ KERNEL_INFO = {
                       "blockpuzzle_tpu/kernels/clear.py:93", "w1056_u8_jnp"),
     "legality": ("blockpuzzle_tpu_torch/kernels/csrc/legality.cu",
                  "blockpuzzle_tpu/kernels/collision.py:50", "legal_all_pieces"),
+    **{f"legality_{kind}": ("blockpuzzle_tpu_torch/kernels/csrc/mask.cu",
+                            "blockpuzzle_tpu/kernels/collision.py:50",
+                            f"{board}_legal_all_pieces")
+       for kind, board in (("wide", "wide"), ("tall", "tall"), ("deep", "huge"),
+                           ("xwide", "xwide"))},
     "legality_general": ("blockpuzzle_tpu_torch/kernels/csrc/legality.cu",
                          "blockpuzzle_tpu/kernels/collision.py:50",
-                         "wide_legal_all_pieces"),
+                         "w1056_legal_all_pieces"),
     "packed_apply": ("blockpuzzle_tpu_torch/kernels/csrc/packed_apply.cu",
                      "blockpuzzle_tpu/env/core.py:962", "rollout"),
     "packed_mask": ("blockpuzzle_tpu_torch/kernels/csrc/packed_mask.cu",
@@ -404,6 +417,7 @@ def kernel_counters(env) -> dict:
             "apply_wide": (env.apply_kernel, "wide_launches"),
             "apply_tall": (env.apply_kernel, "tall_launches"),
             "apply_deep": (env.apply_kernel, "deep_launches"),
+            "apply_xwide": (env.apply_kernel, "xwide_launches"),
             "apply_general": (env.apply_kernel, "general_launches"),
             "clear": (env.clear_kernel, "launches"),
             "clear_wide": (env.clear_kernel, "wide_launches"),
@@ -412,7 +426,8 @@ def kernel_counters(env) -> dict:
             "clear_xwide": (env.clear_kernel, "xwide_launches"),
             "clear_general": (env.clear_kernel, "general_launches"),
             "legality": (env.legal_kernel, "launches"),
-            "legality_general": (env.legal_kernel, "general_launches"),
+            **{f"legality_{kind}": (env.legal_kernel, f"{kind}_launches")
+               for kind in ("wide", "tall", "deep", "xwide", "general")},
             **{f"packed_{k}{s}": (getattr(env, f"packed_{k}_kernel"), f"{s[1:]}_launches"
                                    if s else "launches")
                for k in ("apply", "mask") for s in ("", "_tall", "_general")},
@@ -599,21 +614,19 @@ def check_equal(outs, refs, what: str, errs: dict, name: str) -> None:
 
 def u8_kernel_names(cfg) -> tuple:
     """The u8 mask, clear, apply and legality kernels the wrappers pick on
-    ``cfg``: the bit-row kernels where H <= 32 and W <= 32, the wide mask,
-    clear and apply with the general legality where H <= 32 and
-    32 < W <= 128, the tall ones with the general legality where
-    32 < H <= 128 and W <= 128, the deep ones with the general legality
-    where H > 128 and W <= 128 (the boards phase 1 and 2 run: each fits a
-    block of the deep mask and of the deep apply), the xwide mask and clear
-    with the general apply and legality where H <= 32 and 128 < W <= 1024,
+    ``cfg``: the bit-row kernels where H <= 32 and W <= 32, the wide ones
+    where H <= 32 and 32 < W <= 128, the tall ones where 32 < H <= 128 and
+    W <= 128, the deep ones where H > 128 and W <= 128 (the boards phase 1
+    and 2 run: each fits a block of the deep mask, of the deep apply and of
+    the deep legality), the xwide ones where H <= 32 and 128 < W <= 1024,
     the general kernels elsewhere."""
     if cfg.height <= 32 and cfg.width <= 32:
         return "mask", "clear", "apply", "legality"
     if cfg.width > 128:
         kind = "xwide" if cfg.height <= 32 and cfg.width <= 1024 else "general"
-        return f"mask_{kind}", f"clear_{kind}", "apply_general", "legality_general"
-    kind = "wide" if cfg.height <= 32 else "tall" if cfg.height <= 128 else "deep"
-    return f"mask_{kind}", f"clear_{kind}", f"apply_{kind}", "legality_general"
+    else:
+        kind = "wide" if cfg.height <= 32 else "tall" if cfg.height <= 128 else "deep"
+    return tuple(f"{k}_{kind}" for k in ("mask", "clear", "apply", "legality"))
 
 
 def packed_kernel_names(cfg) -> tuple:
@@ -664,15 +677,15 @@ def phase1(card: str) -> dict:
     configs = {name: PRESETS[name]() for name in PACKED_PRESETS}
     configs["wide"] = EnvConfig(**WIDE)
     configs.update({name: EnvConfig(**shape) for name, shape in WIDE_CASES.items()})
-    # the boards whose kernels are timed at N_MAIN (the legality on the wide
-    # board only), and the board each kernel's line names; the boards of
-    # more than 32 rows in ``phase1_tall``
+    # the boards whose kernels are timed at N_MAIN, and the board each
+    # kernel's line names; the boards of more than 32 rows in ``phase1_tall``,
+    # the legality beyond the presets in ``phase1_legality``
     timed = {"default": ("mask", "clear", "apply", "legality"),
-             "wide": ("mask_wide", "clear_wide", "apply_wide", "legality_general")}
+             "wide": ("mask_wide", "clear_wide", "apply_wide")}
     where = {"default": "default", "wide": "wide 8x40"}
     for name, cfg in configs.items():
         packed = name in PACKED_PRESETS
-        full = packed or name in timed   # the legality held too
+        full = packed                    # the bit-row legality held too
         mask_name, clear_name, apply_name, legal_name = u8_kernel_names(cfg)
         mk, ck, ak = MaskKernel(cfg, dev), ClearScanKernel(cfg, dev), ApplyKernel(cfg, dev)
         lk = LegalityKernel(cfg, dev) if full else None
@@ -776,6 +789,7 @@ def phase1(card: str) -> dict:
         times.update({k: (cuda_ms(f), host_paced_ms(g)) for k, (f, g) in calls.items()})
     phase1_tall(errs, times, bounds)
     phase1_xwide(errs, times, bounds)
+    phase1_legality(errs, times, bounds)
     phase1_tail(errs, times, bounds)
     phase1_draws(errs, times, bounds, card)
     for k, (ms, plain_ms) in times.items():
@@ -786,8 +800,8 @@ def phase1(card: str) -> dict:
               f"of it ({card})")
     print("[phase1] illegal action on a full-line board: strict no-op (apply, "
           "apply_wide on every wide board, apply_tall and apply_deep on every board of "
-          "more than 32 rows of the u8 kernels, packed_apply, packed_apply_tall, "
-          "packed_apply_general)")
+          "more than 32 rows of the u8 kernels, apply_xwide on every board of 129 to "
+          "1024 cells a row, packed_apply, packed_apply_tall, packed_apply_general)")
     wide_turns(card, "phase1")
     tall_turns(card, "phase1")
     return {k: {"max_abs_err": errs[k], "ms": times[k][0], "plain_ms": times[k][1],
@@ -804,7 +818,7 @@ def phase1_tall(errs: dict, times: dict, bounds: dict) -> None:
     the general apply launched directly on the same inputs
     (``general_apply``), and an illegal action on a full line through the
     tall packed and u8 applies; then the kernels of boards of more than 128
-    rows likewise on ``HUGE`` (130 rows, with the general u8 legality) and
+    rows likewise on ``HUGE`` (130 rows) and
     ``DEEP_CASES`` (512x8, 135x9 with regions): the deep mask, clear and
     apply and the general packed kernels, the packed apply also with each
     pass 2 (``general_apply_pass``) against the plain version, the deep
@@ -821,8 +835,7 @@ def phase1_tall(errs: dict, times: dict, bounds: dict) -> None:
     from blockpuzzle_tpu_torch.config import EnvConfig
     from blockpuzzle_tpu_torch.env.words import pack_bool_mask
     from blockpuzzle_tpu_torch.kernels import (
-        ApplyKernel, ClearScanKernel, LegalityKernel, MaskKernel,
-        PackedApplyKernel, PackedMaskKernel,
+        ApplyKernel, ClearScanKernel, MaskKernel, PackedApplyKernel, PackedMaskKernel,
     )
     from blockpuzzle_tpu_torch.kernels.packed import pack_words
     from blockpuzzle_tpu_torch.utils.bounds import kernel_bounds
@@ -835,7 +848,7 @@ def phase1_tall(errs: dict, times: dict, bounds: dict) -> None:
         u8 = name in TALL_U8_CASES or deep
         packed = cfg.width <= 32
         huge = name == "130x8"
-        mask_name, clear_name, apply_name, legal_name = u8_kernel_names(cfg)
+        mask_name, clear_name, apply_name, _ = u8_kernel_names(cfg)
         pmask_name, papply_name, pwords_name = packed_kernel_names(cfg)
         if u8:
             mk, ck, ak = MaskKernel(cfg, dev), ClearScanKernel(cfg, dev), ApplyKernel(cfg, dev)
@@ -844,8 +857,6 @@ def phase1_tall(errs: dict, times: dict, bounds: dict) -> None:
                                      f"{ak.name}")
             replaced_apply = general_apply(cfg, ak)
             rows = plain_rows(cfg)
-        if huge:
-            lk = LegalityKernel(cfg, dev)
         if packed:
             pak, pmk = PackedApplyKernel(cfg, dev), PackedMaskKernel(cfg, dev)
             if (pmk.name, pak.name, pmk.words_name) != (pmask_name, papply_name,
@@ -882,11 +893,6 @@ def phase1_tall(errs: dict, times: dict, bounds: dict) -> None:
                 line += (f" {mask_name} legal share {float(mask.float().mean()):.4f}, "
                          f"{clear_name} k {int(cleared[1].sum())}, {apply_name} legal "
                          f"{int(outs[2].sum())} == apply_general launched directly")
-            if huge:
-                legal_all = lk(board)
-                check_equal([legal_all], [chunked(lk.plain, board, rows=rows)], what,
-                            errs, legal_name)
-                line += f", {legal_name} == plain"
             if u8:
                 line += ": u8 kernels == plain (bit-equal)"
             if packed:
@@ -978,17 +984,16 @@ def phase1_tall(errs: dict, times: dict, bounds: dict) -> None:
 
 def phase1_xwide(errs: dict, times: dict, bounds: dict) -> None:
     """Phase 1 on rows of more than 128 cells: on 8x136 (``XWIDE``) at
-    N = 49152 and 49151 the xwide mask and clear against their plain
-    versions (the mask's in chunks of envs) and against the general mask
-    and clear launched directly on the same inputs (``general_calls``), the
-    general apply (the wrapper's kernel there) against its plain version
-    and an illegal action on a full line through it; the same mask and
-    clear checks on ``XWIDE_CASES`` at N = 4096 and 4095, and on 2x1056
-    (``W1056``), rows too wide for the xwide kernels, the general mask,
-    clear and apply the wrappers pick there.  Times the xwide mask and
-    clear, and the general mask, clear (launched directly) and apply on
-    8x136 at N = 49152 into ``times`` and ``bounds``, and prints each xwide
-    kernel's time beside the general one's."""
+    N = 49152 and 49151 the xwide mask, clear and apply against their plain
+    versions (in chunks of envs) and against the general mask, clear and
+    apply launched directly on the same inputs (``general_calls``,
+    ``general_apply``), and an illegal action on a full line through the
+    apply; the same checks on ``XWIDE_CASES`` at N = 4096 and 4095, and on
+    2x1056 (``W1056``), rows too wide for the xwide kernels, the general
+    mask, clear and apply the wrappers pick there.  Times the xwide mask,
+    clear and apply, and the general ones launched directly, on 8x136 at
+    N = 49152 into ``times`` and ``bounds``, and prints each xwide kernel's
+    time beside the general one's."""
     import torch
 
     from blockpuzzle_tpu_torch.config import EnvConfig
@@ -1007,6 +1012,8 @@ def phase1_xwide(errs: dict, times: dict, bounds: dict) -> None:
             raise AssertionError(f"{name}: the u8 wrappers picked {mk.name}, {ck.name}, "
                                  f"{ak.name}")
         general_mask, general_clear = general_calls(cfg, mk, ck)
+        replaced_apply = general_apply(cfg, ak)
+        xwide = mk.kind == "xwide"
         rows = plain_rows(cfg)
         for n in sizes:
             board, queue, cover, valid, _, _, _ = (
@@ -1017,12 +1024,14 @@ def phase1_xwide(errs: dict, times: dict, bounds: dict) -> None:
                         mask_name)
             cleared = ck(board)
             check_equal(cleared, chunked(ck.plain, board, rows=rows), what, errs, clear_name)
-            if mk.kind == "xwide":
-                check_equal([general_mask(board, queue)], [mask], what, errs, "mask_general")
-                check_equal(general_clear(board), cleared, what, errs, "clear_general")
             outs = ak(board, cover, valid)
             check_equal(outs, chunked(ak.plain, board, cover, valid, rows=rows), what, errs,
                         apply_name)
+            if xwide:
+                check_equal([general_mask(board, queue)], [mask], what, errs, "mask_general")
+                check_equal(general_clear(board), cleared, what, errs, "clear_general")
+                check_equal(replaced_apply(board, cover, valid), outs, what, errs,
+                            "apply_general")
             b2, c2, v2, _, _, _ = (
                 torch.as_tensor(x, device=dev) for x in illegal_on_full_line(cfg, n))
             nb, k2, l2 = ak(b2, c2, v2)
@@ -1030,30 +1039,122 @@ def phase1_xwide(errs: dict, times: dict, bounds: dict) -> None:
                 raise AssertionError(f"illegal action changed a board ({what})")
             if int(cleared[1].sum()) == 0 or not 0 < float(mask.float().mean()) < 1:
                 raise AssertionError(f"{name}: nothing cleared or no mask to test ({what})")
+            if int(outs[1].sum()) == 0 or not 0 < int(outs[2].sum()) < n:
+                raise AssertionError(f"{name}: the apply cleared nothing ({what})")
             print(f"[phase1] {what}: {mask_name} legal share {float(mask.float().mean()):.4f}"
                   f", {clear_name} k {int(cleared[1].sum())}, {apply_name} legal "
-                  f"{int(outs[2].sum())}: u8 kernels == plain (bit-equal)"
-                  + (", the xwide mask and clear == the general ones launched directly"
-                     if mk.kind == "xwide" else ""))
+                  f"{int(outs[2].sum())}, k {int(outs[1].sum())}: u8 kernels == plain "
+                  "(bit-equal)"
+                  + (", the xwide mask, clear and apply == the general ones launched "
+                     "directly" if xwide else ""))
         if name != "8x136":
             continue
         board, queue, cover, valid, attrs, r, c = (
             torch.as_tensor(x, device=dev) for x in kernel_inputs(cfg, N_MAIN, seed=0))
         calls = {mask_name: (lambda: mk(board, queue), lambda: mk.plain(board, queue)),
                  clear_name: (lambda: ck(board), lambda: ck.plain(board)),
+                 apply_name: (lambda: ak(board, cover, valid),
+                              lambda: ak.plain(board, cover, valid)),
                  "mask_general": (lambda: general_mask(board, queue),
                                   lambda: mk.plain(board, queue)),
                  "clear_general": (lambda: general_clear(board), lambda: ck.plain(board)),
-                 apply_name: (lambda: ak(board, cover, valid),
-                              lambda: ak.plain(board, cover, valid))}
+                 "apply_general": (lambda: replaced_apply(board, cover, valid),
+                                   lambda: ak.plain(board, cover, valid))}
         here = kernel_bounds(cfg, board, queue, cover, valid, None, attrs, r, c,
                              {k: f() for k, (f, _) in calls.items()})
         bounds.update({k: dict(b, where=f"xwide {name}") for k, b in here.items()})
         times.update({k: (cuda_ms(f), host_paced_ms(g)) for k, (f, g) in calls.items()})
-        for new, old in ((mask_name, "mask_general"), (clear_name, "clear_general")):
+        for new, old in ((mask_name, "mask_general"), (clear_name, "clear_general"),
+                         (apply_name, "apply_general")):
             print(f"[phase1] {new} {name} N={N_MAIN}: {times[new][0]:.6f} ms, the {old} it "
                   f"replaces {times[old][0]:.6f} ms, launched directly on the same inputs "
                   f"(bit-equal); bound {here[new]['bound_ms']:.6f} ms")
+
+
+def general_legality(cfg, lk, lib=None):
+    """A callable with ``LegalityKernel``'s arguments that launches the
+    general legality (``bp_legality``) on ``cfg``'s boards, whatever kernel
+    the wrapper ``lk`` picks there, with the per-cell piece table: the
+    current library's, or ``lib``'s (an earlier build's, whose
+    ``bp_legality`` takes the same arguments)."""
+    import torch
+
+    from blockpuzzle_tpu_torch.kernels import _build
+    from blockpuzzle_tpu_torch.kernels.collision import piece_table
+
+    lib, dev = lib or _build.library(), lk.device
+    table = torch.as_tensor(piece_table(cfg), device=dev)
+
+    def legality(board):
+        n = board.shape[0]
+        out = torch.empty((n, lk.num_pieces, cfg.num_cells), dtype=torch.bool, device=dev)
+        _build.check(lib.bp_legality(
+            board.data_ptr(), table.data_ptr(), out.data_ptr(), n, cfg.height, cfg.width,
+            lk.num_pieces, table.shape[1] - 3, torch.cuda.current_stream(dev).cuda_stream),
+            "bp_legality")
+        return out
+
+    return legality
+
+
+# the boards phase 1 holds the all-pieces legality on beyond 32x32 (each the
+# board of the path its instance's launches are read from), and its sizes
+LEGALITY_BOARDS = {"wide 8x40": (WIDE, (N_MAIN, N_MAIN - 1)),
+                   "tall 33x9": (TALL, (4096, 4095)),
+                   "huge 130x8": (HUGE, (4096, 4095)),
+                   "xwide 8x136": (XWIDE, (4096, 4095))}
+
+
+def phase1_legality(errs: dict, times: dict, bounds: dict) -> None:
+    """Phase 1 of the all-pieces legality beyond 32x32 (``LEGALITY_BOARDS``):
+    the every-piece instance of the hand mask's wide, tall, deep or xwide
+    kernel the wrapper picks against its plain version (in chunks of envs)
+    and against the general legality launched directly on the same inputs
+    (``general_legality``, ``bp_legality``), on 8x40 at N = 49152 and 49151
+    and on the other boards at N = 4096 and 4095; then each instance and
+    the general legality timed at N = 49152 on its board (the general
+    legality's line on 8x40) into ``times`` and ``bounds``, each instance's
+    time printed beside the general one's."""
+    import torch
+
+    from blockpuzzle_tpu_torch.config import EnvConfig
+    from blockpuzzle_tpu_torch.kernels import LegalityKernel
+    from blockpuzzle_tpu_torch.utils.bounds import kernel_bounds
+
+    dev = torch.device("cuda")
+    for where, (shape, sizes) in LEGALITY_BOARDS.items():
+        cfg = EnvConfig(**shape)
+        name = u8_kernel_names(cfg)[3]
+        lk = LegalityKernel(cfg, dev)
+        if lk.name != name:
+            raise AssertionError(f"{where}: the legality wrapper picked {lk.name}")
+        general = general_legality(cfg, lk)
+        rows = plain_rows(cfg)
+        for n in sizes:
+            board = torch.as_tensor(kernel_inputs(cfg, n, seed=n)[0], device=dev)
+            what = f"{where}, N={n}"
+            legal_all = lk(board)
+            check_equal([legal_all], [chunked(lk.plain, board, rows=rows)], what, errs, name)
+            check_equal([general(board)], [legal_all], what, errs, "legality_general")
+            if not 0 < float(legal_all.float().mean()) < 1:
+                raise AssertionError(f"{where}: no legality to test ({what})")
+            print(f"[phase1] {what}: {name} share {float(legal_all.float().mean()):.4f} "
+                  "== plain == legality_general launched directly (bit-equal)")
+        board = torch.as_tensor(kernel_inputs(cfg, N_MAIN, seed=0)[0], device=dev)
+        calls = {name: (lambda: lk(board), lambda: chunked(lk.plain, board, rows=rows)),
+                 "legality_general": (lambda: general(board),
+                                      lambda: chunked(lk.plain, board, rows=rows))}
+        if where != "wide 8x40":
+            del calls["legality_general"]
+        here = kernel_bounds(cfg, board, None, None, None, None, None, None, None,
+                             {k: f() for k, (f, _) in calls.items()})
+        bounds.update({k: dict(b, where=where) for k, b in here.items()})
+        times.update({k: (cuda_ms(f), host_paced_ms(g)) for k, (f, g) in calls.items()})
+        general_ms = cuda_ms(lambda: general(board))
+        print(f"[phase1] {name} {where} N={N_MAIN}: {times[name][0]:.6f} ms, the "
+              f"legality_general it replaces {general_ms:.6f} ms, launched directly on the "
+              f"same inputs (bit-equal); bound {here[name]['bound_ms']:.6f} ms by "
+              f"{here[name]['bound_by']}")
 
 
 # the boards phase 1 holds the step's tail (B10) and the unpack on, with a
@@ -1490,10 +1591,10 @@ def wide_turns(card: str, tag: str, rounds: int = 5) -> None:
     each timed by ``cuda_ms`` in turns with the others for ``rounds``
     rounds: the wide mask, the general mask launched directly on the same
     board, the wide clear, the general clear likewise, the wide apply, the
-    general apply likewise and the general legality, then again.  The wide
-    mask, clear and apply are first held bit-equal to the general ones; each
-    kernel's times are printed in order with their median, and each wide
-    kernel's median beside the general one's."""
+    general apply likewise, the wide legality and the general legality
+    likewise, then again.  The wide kernels are first held bit-equal to the
+    general ones; each kernel's times are printed in order with their
+    median, and each wide kernel's median beside the general one's."""
     import torch
 
     from blockpuzzle_tpu_torch.config import EnvConfig
@@ -1505,10 +1606,11 @@ def wide_turns(card: str, tag: str, rounds: int = 5) -> None:
     cfg = EnvConfig(**WIDE)
     mk, ck = MaskKernel(cfg, dev), ClearScanKernel(cfg, dev)
     ak, lk = ApplyKernel(cfg, dev), LegalityKernel(cfg, dev)
-    if not (mk.wide and ck.wide and ak.kind == "wide"):
+    if not (mk.wide and ck.wide and ak.kind == lk.kind == "wide"):
         raise AssertionError("the wrappers did not pick the wide kernels on 8x40")
     general_mask, general_clear = general_calls(cfg, mk, ck)
     replaced_apply = general_apply(cfg, ak)
+    replaced_legality = general_legality(cfg, lk)
     board, queue, cover, valid = (torch.as_tensor(x, device=dev)
                                   for x in kernel_inputs(cfg, N_MAIN, seed=0)[:4])
     if not torch.equal(mk(board, queue), general_mask(board, queue)):
@@ -1518,24 +1620,27 @@ def wide_turns(card: str, tag: str, rounds: int = 5) -> None:
     if not all(torch.equal(a, b) for a, b in zip(ak(board, cover, valid),
                                                 replaced_apply(board, cover, valid))):
         raise AssertionError("apply_wide != apply_general on 8x40")
+    if not torch.equal(lk(board), replaced_legality(board)):
+        raise AssertionError("legality_wide != legality_general on 8x40")
     calls = {"mask_wide": lambda: mk(board, queue),
              "mask_general": lambda: general_mask(board, queue),
              "clear_wide": lambda: ck(board), "clear_general": lambda: general_clear(board),
              "apply_wide": lambda: ak(board, cover, valid),
              "apply_general": lambda: replaced_apply(board, cover, valid),
-             "legality_general": lambda: lk(board)}
+             "legality_wide": lambda: lk(board),
+             "legality_general": lambda: replaced_legality(board)}
     times = {k: [] for k in calls}
     for _ in range(rounds):
         for k, f in calls.items():
             times[k].append(cuda_ms(f))
     print(f"[{tag}] wide 8x40 N={N_MAIN}: mask_wide == mask_general, clear_wide == "
-          "clear_general and apply_wide == apply_general, launched directly on the same "
-          "inputs (bit-equal)")
+          "clear_general, apply_wide == apply_general and legality_wide == "
+          "legality_general, launched directly on the same inputs (bit-equal)")
     for k, ts in times.items():
         print(f"[{tag}] {k} N={N_MAIN} wide 8x40, {rounds} rounds in turns with the "
               f"other kernels of the board, device ms: {', '.join(f'{t:.6f}' for t in ts)}; "
               f"median {statistics.median(ts):.6f} ({card})")
-    for k in ("mask", "clear", "apply"):
+    for k in ("mask", "clear", "apply", "legality"):
         wide, general = (statistics.median(times[f"{k}_{v}"]) for v in ("wide", "general"))
         print(f"[{tag}] {k} 8x40 medians: general {general:.6f} ms, wide {wide:.6f} ms, "
               f"{general / wide:.2f}x ({card})")
@@ -1647,7 +1752,7 @@ def phase2():
         "xwide": (EnvConfig(**XWIDE), ("pallas", "jnp"), 256, 32),
         "w1056": (EnvConfig(**W1056), ("pallas", "jnp"), 256, 32),
     })
-    errs, paths = {"legality": 0, "legality_general": 0}, {}
+    errs, paths = {k: 0 for k in KERNEL_INFO if k.startswith("legality")}, {}
     for name, (cfg, run, n, steps) in boards.items():
         board_path = name not in PACKED_PRESETS   # their launches are paths
         mask_name, clear_name, apply_name, legal_name = u8_kernel_names(cfg)

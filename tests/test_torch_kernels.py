@@ -16,6 +16,7 @@ takes the general kernels of all four.  All outputs are integers or bools
 and must be bit-equal.
 """
 
+import dataclasses
 import inspect
 
 import numpy as np
@@ -40,13 +41,13 @@ from blockpuzzle_tpu_torch.kernels import (
 )
 from blockpuzzle_tpu_torch.kernels.clear import line_cell_table, line_masks
 from blockpuzzle_tpu_torch.kernels.collision import (
-    LEGALITY_WARPS, SHAPE_STRIDE, legality_launch_shape, legality_rows_table,
-    legality_smem_bytes, piece_table, rect_shapes,
+    LEGALITY_WARPS, SHAPE_STRIDE, every_piece_shape, legality_launch_shape,
+    legality_rows_table, legality_smem_bytes, piece_table, rect_shapes,
 )
 from blockpuzzle_tpu_torch.kernels.mask import piece_rows_table
 from blockpuzzle_tpu_torch.kernels.packed import (
     apply_launch_shape, apply_smem_bytes, deep_launch_shape, mask_block_warps,
-    tall_launch_shape, wide_launch_shape,
+    tall_launch_shape, u8_launch_shape, wide_launch_shape,
 )
 from test_torch_packed import (
     U32, _ballot, _popc, _reduce, _shfl, _shl32, _small_div, _spread4, _warp_layout,
@@ -82,11 +83,12 @@ def _pair(case):
 def random_boards(cfg, n, rng, fill=0.5):
     """Random boards with forced full rows/cols, and a row that is full but
     for its first cell (so a 1x1 at (4, 0) clears it; the last row on a
-    board of fewer than 5 rows)."""
+    board of fewer than 5 rows; the full row 3 is the last on a board of
+    fewer than 4)."""
     b = (rng.random((n, cfg.num_cells)) < fill).astype(np.uint8)
     grid = b.reshape(n, cfg.height, cfg.width)
     r4 = min(4, cfg.height - 1)
-    grid[0, 3, :] = 1
+    grid[0, min(3, cfg.height - 1), :] = 1
     grid[1, :, 7] = 1
     grid[2, 0, :] = 1
     grid[2, :, 0] = 1
@@ -978,7 +980,8 @@ def test_legality_kernels_match_pallas_legality_kernel(preset, n, rng):
     board, whose rows are the pieces' in-bounds anchors; ``mini5`` is
     another piece set (P = 5, pieces of at most 2 rows and columns).  Both
     kernels' emulations where the wrapper picks the bit-row kernel, the
-    general one's elsewhere."""
+    general one's elsewhere (the wide board's pick, the wide mask's
+    every-piece instance, is emulated in ``tests/test_torch_legality.py``)."""
     if preset == "mini5":
         cj, ct = jcfg.EnvConfig(piece_set="mini5"), tcfg.EnvConfig(piece_set="mini5")
     else:
@@ -990,7 +993,7 @@ def test_legality_kernels_match_pallas_legality_kernel(preset, n, rng):
     lk = LegalityKernel(ct, "cpu")
     np.testing.assert_array_equal(lk(torch.as_tensor(board)).numpy(), want)
     np.testing.assert_array_equal(emulate_legality_kernel(ct, board), want)
-    if lk.shape is not None:
+    if lk.kind == "rows":
         np.testing.assert_array_equal(emulate_legality_rows_kernel(ct, board, lk), want)
     t = rules.tables_for(ct)
     assert not want[n - 1].any()
@@ -1090,24 +1093,22 @@ def test_wrappers_never_fall_back_off_cpu():
             k(board)
     with pytest.raises(ValueError, match="kernel tables on cpu"):
         ApplyKernel(cfg, "cpu")(board, board, torch.ones(4, dtype=torch.bool, device=meta))
-    # the same on a board that takes the wide mask, clear and apply and the
-    # general legality, on one that takes the tall mask, clear and apply and
-    # the general legality, on one that takes the deep mask, clear and apply
-    # and the general legality, on one that takes the xwide mask and clear
-    # and the general apply and legality, and on one that takes the general
-    # kernels of all four
-    for shape, kinds in ((WIDE40, ("wide",) * 3), (dict(height=33, width=9), ("tall",) * 3),
-                         (dict(height=130, width=9), ("deep",) * 3),
-                         (dict(height=8, width=136), ("xwide", "xwide", "general")),
-                         (dict(height=1, width=1056), ("general",) * 3)):
+    # the same on a board that takes the wide mask, clear, apply and
+    # legality, on one that takes the tall ones, on one that takes the deep
+    # ones, on one that takes the xwide ones, and on one that takes the
+    # general kernels of all four
+    for shape, kinds in ((WIDE40, ("wide",) * 4), (dict(height=33, width=9), ("tall",) * 4),
+                         (dict(height=130, width=9), ("deep",) * 4),
+                         (dict(height=8, width=136), ("xwide",) * 4),
+                         (dict(height=1, width=1056), ("general",) * 4)):
         cfg = tcfg.EnvConfig(**shape)
         board = torch.zeros(4, cfg.num_cells, dtype=torch.uint8, device=meta)
         mk, ck, ak = MaskKernel(cfg, meta), ClearScanKernel(cfg, meta), ApplyKernel(cfg, meta)
-        assert (mk.kind, ck.kind, ak.kind) == kinds
+        lk = LegalityKernel(cfg, meta)
+        assert (mk.kind, ck.kind, ak.kind, lk.kind) == kinds
         assert mk.wide == ck.wide == (kinds[0] == "wide")
-        assert (mk.shape is not None, ck.shape is not None, ak.shape is not None) == tuple(
+        assert tuple(k.shape is not None for k in (mk, ck, ak, lk)) == tuple(
             k != "general" for k in kinds)
-        assert LegalityKernel(cfg, meta).shape is None
         with pytest.raises(ValueError, match="no mask kernel"):
             mk(board, queue)
         with pytest.raises(ValueError, match="no clear kernel"):
@@ -1147,14 +1148,15 @@ def test_u8_wrappers_pick_their_kernel_by_shape(case):
     rectangle piece table, the legality with four warps a block, its own
     table and a block that fits a plain launch's shared memory; the wide
     mask, clear and apply where H <= 32 and 32 < W <= 128, with the same
-    launch shape rule and the rectangle piece table, beside the general
-    legality; the tall mask, clear and apply where 32 < H <= 128 (one board
-    a warp, ``tall_launch_shape``, the rectangle piece table) beside the
-    general legality; on a board taller than that the deep mask, clear and
-    apply (``deep_launch_shape``, the mask with the rectangle piece table)
-    and the general legality, with the per-cell piece table.  The apply's
-    launch shape is ``apply_launch_shape``: the clear's where a block's two
-    staged spans fit, fewer turns or warps where not."""
+    launch shape rule and the rectangle piece table, beside the wide
+    legality (the wide mask's every-piece instance); the tall mask, clear,
+    apply and legality where 32 < H <= 128 (one board a warp,
+    ``tall_launch_shape``, the rectangle piece table); on a board taller
+    than that the deep ones (``deep_launch_shape``).  The legality's launch
+    shape beyond 32x32 is the mask's at S = P (``every_piece_shape``), its
+    table the mask's.  The apply's launch shape is ``apply_launch_shape``:
+    the clear's where a block's two staged spans fit, fewer turns or warps
+    where not."""
     cfg = (tcfg.EnvConfig(height=33, width=9) if case == "tall33"
            else tcfg.EnvConfig(height=130, width=9) if case == "tall130"
            else _pair(case)[1])
@@ -1164,14 +1166,17 @@ def test_u8_wrappers_pick_their_kernel_by_shape(case):
     wide = cfg.height <= 32 and 32 < cfg.width <= 128
     tall = 32 < cfg.height <= 128 and cfg.width <= 128
     deep = cfg.height > 128 and cfg.width <= 128
-    assert [k.shape is not None for k in (mk, ck, ak, lk)] == (
-        [rows or wide or tall or deep] * 3 + [rows])
+    assert [k.shape is not None for k in (mk, ck, ak, lk)] == [rows or wide or tall or deep] * 4
     assert mk.wide == ck.wide == wide
-    assert lk.shape == legality_launch_shape(cfg)
     kind = "rows" if rows else "wide" if wide else "tall" if tall else "deep"
-    assert (mk.kind, ck.kind, ak.kind) == (kind, kind, kind)
-    assert (mk.name, ck.name, ak.name) == tuple(k + {"rows": ""}.get(kind, "_" + kind)
-                                                for k in ("mask", "clear", "apply"))
+    assert (mk.kind, ck.kind, ak.kind, lk.kind) == (kind,) * 4
+    assert (mk.name, ck.name, ak.name, lk.name) == tuple(
+        k + {"rows": ""}.get(kind, "_" + kind) for k in ("mask", "clear", "apply", "legality"))
+    if kind != "rows":
+        every = dataclasses.replace(cfg, queue_size=lk.num_pieces)
+        assert lk.shape == every_piece_shape(cfg) == u8_launch_shape(every)
+        assert ("bp_" + lk.name) in _build.SIGNATURES
+        np.testing.assert_array_equal(lk.piece_table.numpy(), piece_rows_table(cfg))
     assert ak.shape == apply_launch_shape(cfg)
     if kind != "rows":
         assert ("bp_" + ak.name) in _build.SIGNATURES
@@ -1179,16 +1184,14 @@ def test_u8_wrappers_pick_their_kernel_by_shape(case):
     if tall:
         assert mk.shape == ck.shape == tall_launch_shape(cfg) == (4, 16)
         np.testing.assert_array_equal(mk.piece_table.numpy(), piece_rows_table(cfg))
-        np.testing.assert_array_equal(lk.piece_table.numpy(), piece_table(cfg))
     elif wide:
         shape = (32 // cfg.height, mask_block_warps(cfg.height, cfg.width))
-        assert mk.shape == ck.shape == ak.shape == wide_launch_shape(cfg) == shape
+        assert mk.shape == ck.shape == ak.shape == lk.shape == wide_launch_shape(cfg) == shape
         np.testing.assert_array_equal(mk.piece_table.numpy(), piece_rows_table(cfg))
-        np.testing.assert_array_equal(lk.piece_table.numpy(), piece_table(cfg))
     elif rows:
         assert mk.shape == ck.shape == ak.shape == PackedMaskKernel(cfg, "cpu").shape
         np.testing.assert_array_equal(mk.piece_table.numpy(), piece_rows_table(cfg))
-        assert lk.shape == (32 // cfg.height, LEGALITY_WARPS)
+        assert lk.shape == legality_launch_shape(cfg) == (32 // cfg.height, LEGALITY_WARPS)
         np.testing.assert_array_equal(lk.piece_table.numpy(), legality_rows_table(cfg))
         per_block = lk.shape[0] * lk.shape[1]
         assert legality_smem_bytes(cfg, per_block) <= 48 * 1024
@@ -1197,7 +1200,6 @@ def test_u8_wrappers_pick_their_kernel_by_shape(case):
     else:
         assert deep and mk.shape == ck.shape == deep_launch_shape(cfg) == (1, 16)
         np.testing.assert_array_equal(mk.piece_table.numpy(), piece_rows_table(cfg))
-        np.testing.assert_array_equal(lk.piece_table.numpy(), piece_table(cfg))
 
 
 @pytest.mark.parametrize("preset", ["tenten", "woodoku", "big"])

@@ -1190,16 +1190,17 @@ def test_tall_block_shapes_fit_and_divide_exactly():
 
 
 def test_u8_wrappers_take_the_general_kernels_above_128_rows():
-    """Boards of more than 128 rows take the general u8 legality, and the
-    deep mask, clear and apply (a warp an env-slot or env over windows of
-    32 rows; the mask and clear on one launch shape, the apply on its own,
-    ``apply_launch_shape``) where rows hold at most 128 cells; the tall
-    kernels stop at 128 rows.  The mask keeps the general kernel on rows of
-    more than 128 cells on boards of more than 32 rows (130x129); on 8x136
-    the mask and the clear take their xwide kernels (a lane a word of every
-    row, ``xwide_launch_shape``) and the apply keeps its general kernel (a
-    deep board one warp cannot stage passes the line tables' 12288 cells
-    and lines, so the clear and the apply take none)."""
+    """Boards of more than 128 rows take the deep mask, clear, apply and
+    legality (a warp an env-slot or env over windows of 32 rows; the mask
+    and clear on one launch shape, the apply on its own,
+    ``apply_launch_shape``, the legality on the mask's at S = P) where rows
+    hold at most 128 cells; the tall kernels stop at 128 rows.  The mask
+    keeps the general kernel on rows of more than 128 cells on boards of
+    more than 32 rows (130x129); on 8x136 the mask, the clear and the apply
+    take their xwide kernels (a lane a word of every row,
+    ``xwide_launch_shape``; a deep board one warp cannot stage passes the
+    line tables' 12288 cells and lines, so the clear and the apply take
+    none)."""
     for shape, kind in ((dict(height=130, width=9), "deep"),
                         (dict(height=128, width=10), "tall")):
         cfg = tcfg.EnvConfig(**shape)
@@ -1208,11 +1209,12 @@ def test_u8_wrappers_take_the_general_kernels_above_128_rows():
         assert (mk.name, ck.name) == (f"mask_{kind}", f"clear_{kind}")
         assert mk.shape is not None and ck.shape == mk.shape
         ak, lk = ApplyKernel(cfg, "cpu"), LegalityKernel(cfg, "cpu")
-        assert (ak.kind, ak.name, lk.name) == (kind, f"apply_{kind}", "legality_general")
+        assert (ak.kind, ak.name, lk.name) == (kind, f"apply_{kind}", f"legality_{kind}")
         assert ak.shape == apply_launch_shape(cfg) is not None
     assert all(e in _build.SIGNATURES for e in ("bp_clear_deep", "bp_mask_deep", "bp_clear",
                                                 "bp_apply_deep", "bp_apply_tall", "bp_apply",
-                                                "bp_mask_xwide", "bp_clear_xwide", "bp_mask"))
+                                                "bp_mask_xwide", "bp_clear_xwide", "bp_mask",
+                                                "bp_apply_xwide", "bp_legality_deep"))
     # rows of more than 128 cells on boards of more than 32 rows: the general
     # kernels
     mk = MaskKernel(tcfg.EnvConfig(height=130, width=129), "cpu")
@@ -1221,6 +1223,6 @@ def test_u8_wrappers_take_the_general_kernels_above_128_rows():
     xwide = tcfg.EnvConfig(height=8, width=136)
     ck, ak = ClearScanKernel(xwide, "cpu"), ApplyKernel(xwide, "cpu")
     assert (ck.kind, ck.name, ck.shape) == ("xwide", "clear_xwide", xwide_launch_shape(xwide))
-    assert (ak.kind, ak.name, ak.shape) == ("general", "apply_general", None)
+    assert (ak.kind, ak.name, ak.shape) == ("xwide", "apply_xwide", xwide_launch_shape(xwide))
     # no deep launch shape where one warp's board does not fit shared memory
     assert deep_launch_shape(tcfg.EnvConfig(height=1000, width=128)) is None

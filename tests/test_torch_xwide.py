@@ -1,8 +1,9 @@
-"""The u8 mask and clear on rows of more than 128 cells, on the CPU, against
-the JAX package.
+"""The u8 mask, clear and apply on rows of more than 128 cells, on the CPU,
+against the JAX package.
 
 Boards of at most 32 rows of 129 to 1024 cells take the xwide kernels of
-the u8 mask (K1, ``mask_xwide``) and clear (K3, ``clear_xwide``): a
+the u8 mask (K1, ``mask_xwide``), clear (K3, ``clear_xwide``) and apply
+(K2, ``apply_xwide``, the clear kernel's second instance): a
 segment of NW = ceil(W / 32) lanes an env-slot or env, lane w holding word
 w of every row (the transpose of the bit-row layout), each board loaded
 as 16-byte vectors straight into row words in shared memory
@@ -11,13 +12,16 @@ the 8 rows below in a ring, ORs each rectangle's rows lane-locally and
 smears it on the pair (this word, the next lane's); the clear ANDs a
 lane's rows into its full columns, finds full rows by one reduction over
 the segment and full regions on the funnel-shifted pair of band words, a
-field across two words handed up to the next lane. Numpy emulations of
-both (every lane of a block at once, as (warps, 32) arrays), fed the
+field across two words handed up to the next lane; the apply loads the
+covers as row words beside the boards, finds the overlap by one reduction
+over the segment, places a legal env's cover in place and runs the clear's
+passes, an illegal env writing nothing back. Numpy emulations of all
+three (every lane of a block at once, as (warps, 32) arrays), fed the
 tables and launch shapes the wrappers hand the kernels and boards staged
 at byte offsets 0, 3 and 13, are held bit-equal to the wrappers' plain
 versions and to the JAX package: the u8 engine's shift mask for K1, the
 Pallas clear kernel in interpret mode and the u8 engine's ``clear_scan``
-for K3. The boards: 8x136 (the shape the port's default engine takes
+for K3, the Pallas apply kernel in interpret mode for K2. The boards: 8x136 (the shape the port's default engine takes
 there), 8x160 (whole words, no pad bits), 9x135 with 3x3 regions and a
 hand of three (fields across words at columns 30..32 and 63..65), 3x320
 (NW = 10) and 2x1024 (NW = 32, one segment a warp; horizontal bars
@@ -39,15 +43,15 @@ from blockpuzzle_tpu import kernels as jk
 from blockpuzzle_tpu.env import make_env as jax_make_env
 from blockpuzzle_tpu_torch import config as tcfg
 from blockpuzzle_tpu_torch import rules
-from blockpuzzle_tpu_torch.kernels import ClearScanKernel, MaskKernel
+from blockpuzzle_tpu_torch.kernels import ApplyKernel, ClearScanKernel, MaskKernel
 from blockpuzzle_tpu_torch.kernels.mask import piece_rows_table
 from blockpuzzle_tpu_torch.kernels.packed import (
-    MAX_XWIDE, U32, XWIDE_WARPS, xwide_launch_shape,
-    xwide_smem_bytes,
+    MAX_XWIDE, U32, XWIDE_WARPS, apply_launch_shape,
+    xwide_launch_shape, xwide_smem_bytes,
 )
 from blockpuzzle_tpu_torch.utils.bounds import COSTS
 from test_torch_kernels import (
-    _block_layout, _fshr, _shr_words, emulate_smear_words,
+    _block_layout, _fshr, _shr_words, apply_cases, assert_apply_cases, emulate_smear_words,
 )
 from test_torch_packed import _popc, _reduce, _shfl, _small_div
 from test_torch_tall import emulate_store_tall
@@ -241,7 +245,7 @@ def emulate_mask_xwide_kernel(cfg, board, queue, mk, addr=0):
     return out.reshape(n, s * hw).astype(bool)
 
 
-def emulate_clear_xwide_kernel(cfg, board, ck, addr=0):
+def emulate_clear_xwide_kernel(cfg, board, ck, addr=0, apply=None):
     """csrc/clear.cu clear_xwide_kernel on ``ck``'s launch shape: the block
     loads its envs' boards as row words (``stage_words``); pass 1, a lane at
     a time, ANDs its rows into its word of the full columns and marks bit r
@@ -252,8 +256,15 @@ def emulate_clear_xwide_kernel(cfg, board, ck, addr=0):
     the next lane's by a shuffle), the part of a full field past the word
     handed up to the next lane by a shuffle, then each row cleared in place
     (all of it if full, else its full columns and fields); k = the full
-    rows + the segment's sum of full columns and of fields.  Returns
-    (board, k)."""
+    rows + the segment's sum of full columns and of fields.  Its apply
+    instance, given ``apply = (cover, valid, cover_addr)``: the block loads
+    its envs' covers as row words too (the cover at its own offset from a
+    16-byte boundary); a lane ORs board & cover over its rows, one
+    reduction over the segment gives the env's overlap, and a legal env
+    (valid, no overlap) places its cover in its words before the passes; an
+    illegal env runs them on its input words and writes none back (every
+    lane still shuffles and reduces), so it stores its input with k = 0.
+    Returns (board, k), and legal for the apply."""
     h, w, hw, n = cfg.height, cfg.width, cfg.num_cells, len(board)
     nw = -(-w // 32)
     rs = cfg.region_size if cfg.region_clear else 0
@@ -263,12 +274,24 @@ def emulate_clear_xwide_kernel(cfg, board, ck, addr=0):
     pad = np.where((lane + 1 == nw) & (tail < 32), (U32 << tail) & U32, 0)
     tile0 = (1 << rs) - 1 if rs else 0
     out, ks = np.full(n * hw, 2, np.uint8), np.full(n, -1, np.int64)
+    legals = np.full(n, -1, np.int64)
     for first in range(0, n, per_block):
         count = min(per_block, n - first)
         lo, hi = first * hw, (first + count) * hw
         words = emulate_stage_words(board.reshape(-1), lo, hi, addr, w, nw).reshape(count, h, nw)
         active = (sw < per_warp) & (seg < count)
-        x = words[np.where(active, seg, 0), :, lane]          # (warps, 32, H)
+        at = np.where(active, seg, 0)
+        x = words[at, :, lane]                                # (warps, 32, H)
+        write = active                                        # the env keeps the clear's words
+        if apply is not None:
+            cover, valid, cover_addr = apply
+            covers = emulate_stage_words(cover.reshape(-1), lo, hi, cover_addr, w,
+                                         nw).reshape(count, h, nw)
+            y = covers[at, :, lane]
+            hit = (np.bitwise_or.reduce(x & y, axis=2) != 0).astype(np.int64)
+            overlap = _reduce(hit, sw, np.bitwise_or)
+            write = active & valid[first + at] & (overlap == 0)
+            x = np.where(write[..., None], x | y, x)           # placed in place
         cols = np.bitwise_and.reduce(x, axis=2)
         full = sum(((x[..., r] | pad) == U32).astype(np.int64) << r for r in range(h))
         rows_full = _reduce(full, sw, np.bitwise_and)
@@ -297,14 +320,25 @@ def emulate_clear_xwide_kernel(cfg, board, ck, addr=0):
                                            x[..., r] & ~(cols | reg) & U32)
         k = _popc(rows_full) + _reduce(got, sw, np.add)
         staged = np.full(per_block * h * nw, -1, np.int64)
-        for r in range(h):
-            staged[((seg * h + r) * nw + lane)[active]] = cleared[..., r][active]
+        for r in range(h):                                    # an illegal env: its input
+            staged[((seg * h + r) * nw + lane)[active]] = np.where(
+                write, cleared[..., r], x[..., r])[active]
         head = active & (lane == 0)
         assert (ks[first + seg[head]] == -1).all()            # one lane 0 writes k
-        ks[first + seg[head]] = k[head]
+        ks[first + seg[head]] = np.where(write, k, 0)[head]
+        legals[first + seg[head]] = write[head]
         emulate_store_tall(staged, out, lo, count * hw, w, nw)
     assert (out < 2).all() and (ks >= 0).all()
-    return out.reshape(n, hw), ks.astype(np.int32)
+    if apply is None:
+        return out.reshape(n, hw), ks.astype(np.int32)
+    assert (legals >= 0).all()
+    return out.reshape(n, hw), ks.astype(np.int32), legals.astype(bool)
+
+
+def emulate_apply_xwide_kernel(cfg, board, cover, valid, ak, addr=0, cover_addr=0):
+    """csrc/clear.cu clear_xwide_kernel's apply instance on ``ak``'s launch
+    shape (``emulate_clear_xwide_kernel``): (board, k, legal)."""
+    return emulate_clear_xwide_kernel(cfg, board, ak, addr, (cover, valid, cover_addr))
 
 
 @functools.cache
@@ -459,3 +493,87 @@ def test_xwide_kernels_are_bytes_bound_on_8x136(name):
     assert nbytes == general == 2180 * n
     b = bound(list(inputs) + list(outputs), ops)
     assert b["bound_by"] == "bytes" and round(b["bound_ms"], 6) == 0.031985
+
+
+@pytest.mark.parametrize("case", XWIDE)
+def test_xwide_apply_matches_pallas_apply_kernel(case):
+    """K2 on rows of more than 128 cells: the Pallas apply kernel in
+    interpret mode, the wrapper (plain version on the CPU) and the xwide
+    kernel's apply instance's emulation, bit-equal, on ``apply_cases``:
+    legal and illegal actions, an invalid anchor, an action that completes
+    a row, one over a full row (illegal: a strict no-op although the row is
+    full), on 9x135 one that completes a 3x3 region across the first word
+    border (columns 30..32), a full board and an empty one."""
+    cj, ct = _pair(case)
+    board, cover, valid = apply_cases(ct, N, np.random.default_rng(23))
+    want = [np.asarray(x) for x in jk.ApplyKernel(cj, tile_n=N)(
+        jnp.asarray(board), jnp.asarray(cover), jnp.asarray(valid), interpret=True)]
+    ak = ApplyKernel(ct, "cpu")
+    assert (ak.kind, ak.name, ak.shape) == ("xwide", "apply_xwide", xwide_launch_shape(ct))
+    got = ak(torch.as_tensor(board), torch.as_tensor(cover), torch.as_tensor(valid))
+    emu = emulate_apply_xwide_kernel(ct, board, cover, valid, ak)
+    for i, name in enumerate(("board", "k", "legal")):
+        np.testing.assert_array_equal(got[i].numpy(), want[i], name)
+        np.testing.assert_array_equal(emu[i], want[i], name)
+    assert_apply_cases(ct, board, want)
+    assert ak.xwide_launches == ak.general_launches == 0
+
+
+@pytest.mark.parametrize("case", ["8x136", "9x135r3", "2x1024"])
+@pytest.mark.parametrize("addr", [3, 13])
+def test_xwide_apply_emulation_takes_any_address(case, addr):
+    """Boards and covers that start off a 16-byte boundary, each at its own
+    offset: the xwide apply's emulation loads both as row words, the
+    unaligned heads and tails byte by byte, and still equals the plain
+    version."""
+    _, ct = _pair(case)
+    board, cover, valid = apply_cases(ct, N, np.random.default_rng(addr))
+    ak = ApplyKernel(ct, "cpu")
+    want = ak(torch.as_tensor(board), torch.as_tensor(cover), torch.as_tensor(valid))
+    assert want[2].any() and not want[2].all()
+    for cover_addr in (addr, (addr + 7) % 16):
+        emu = emulate_apply_xwide_kernel(ct, board, cover, valid, ak, addr, cover_addr)
+        for e, p in zip(emu, want):
+            np.testing.assert_array_equal(e, p.numpy())
+
+
+def test_xwide_apply_takes_the_clear_launch_shape():
+    """The xwide apply on boards of 1 to 32 rows of 129 to 1024 cells: the
+    clear's launch shape (``xwide_launch_shape``), its block's two arrays of
+    row words (board and cover) at most 32 KB, under the 48 KB a plain
+    launch gets; the general apply above 1024 cells a row and on boards of
+    more than 32 rows of more than 128 cells."""
+    for h in (1, 2, 3, 8, 9, 16, 31, 32):
+        for w in (129, 135, 136, 160, 255, 256, 320, 500, 513, 1000, 1024):
+            cfg = tcfg.EnvConfig(height=h, width=w)
+            shape = apply_launch_shape(cfg)
+            assert shape == xwide_launch_shape(cfg) is not None
+            # a block's envs' board rows and cover rows of NW words
+            # (``csrc/clear.cu`` ``xwide``)
+            nw = -(-w // 32)
+            assert 2 * 4 * shape[0] * shape[1] * h * nw <= 32 * 1024
+    for shape in (dict(height=2, width=1056, piece_set="mini5"), dict(height=33, width=136)):
+        cfg = tcfg.EnvConfig(**shape)
+        assert apply_launch_shape(cfg) is None
+    ak = ApplyKernel(tcfg.EnvConfig(height=2, width=1056, piece_set="mini5"), "cpu")
+    assert (ak.kind, ak.name, ak.shape) == ("general", "apply_general", None)
+
+
+def test_xwide_apply_is_bytes_bound_on_8x136():
+    """The xwide apply at N = 49152 on 8x136 moves the general apply's
+    bytes (3270 B an env: board and cover in, a valid byte; board, k and
+    legal out), 0.047978 ms at 3.35 TB/s, above its 6120 operations an env
+    (both boards loaded as row words, 15 operations a word, one an output
+    byte) at the integer rate."""
+    from blockpuzzle_tpu_torch.utils.bounds import bound
+
+    cfg, n = tcfg.EnvConfig(height=8, width=136), 49152
+    hw = cfg.num_cells
+    board, valid = torch.zeros(n, hw, dtype=torch.uint8), torch.zeros(n, dtype=torch.bool)
+    inputs = (board, board, valid)
+    outputs = (board, torch.zeros(n, dtype=torch.int32), valid)
+    nbytes, ops = COSTS["apply_xwide"](cfg, inputs, outputs)
+    general, _ = COSTS["apply_general"](cfg, inputs, outputs)
+    assert nbytes == general == 3270 * n and ops == 6120 * n
+    b = bound(list(inputs) + list(outputs), ops)
+    assert b["bound_by"] == "bytes" and round(b["bound_ms"], 6) == 0.047978
