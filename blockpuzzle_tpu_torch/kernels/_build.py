@@ -67,7 +67,7 @@ SIGNATURES = {
     "bp_packed_mask_tall": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "bp_packed_mask_general": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "bp_packed_mask_general_pick": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "bp_packed_words_tall": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "bp_packed_words_tall": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "bp_packed_words_general": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "bp_packed_words_general_pick": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                      _P],

@@ -4,7 +4,7 @@
 // apply of collision.cu (`apply_rows_kernel`) and the all-pieces legality
 // of legality.cu (`legality_rows_kernel`); and by the kernels of boards of
 // more than 32 rows (`mask_tall_kernel`, `clear_tall_kernel` and the tall
-// packed kernels of packed_tall.cu), which hold a board in one warp, rows
+// packed apply of packed_tall.cu), which hold a board in one warp, rows
 // l + 32 j in lane l (`rows_below`, `clear_tall`, `store_tall` below), and
 // of more than 128 rows (`mask_deep_kernel`, `clear_deep_kernel`, the
 // general packed mask), which walk a board in windows of 32 rows; and by
@@ -43,8 +43,12 @@ constexpr unsigned kAll = 0xffffffffu;
 // of x / d = (2q + 1) / (2d), which is at least 1/(2d) from every integer
 // (an odd numerator over an even denominator).  x / d * 2^-22 < 1/(2d)
 // while x < 2^21, so the truncation is the integer quotient.  The kernels
-// divide lanes (q < 32), staged envs (q < 2^10), and a block's output bytes
-// by the row width (q < 16 warps * 32 rows * 128 cells = 2^16, W <= 128).
+// divide lanes (q < 32), staged envs (q < 2^10), a block's output bytes
+// by the row width (q < 16 warps * 32 rows * 128 cells = 2^16, W <= 128),
+// and, in the tall packed mask (packed_tall.cu `packed_anchor_kernel`), a
+// thread index by the segment's C (q < 1024), a staged row by H (q < 114
+// boards * 128 rows < 2^14), a staged full row by the full rows a board
+// (q < 114 * 38 < 2^13) and an env-slot by S (q < 2^11).
 __device__ __forceinline__ int small_div(int q, float inv) {
   return static_cast<int>((static_cast<float>(q) + 0.5f) * inv);
 }

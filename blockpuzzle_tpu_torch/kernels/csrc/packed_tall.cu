@@ -17,22 +17,33 @@
 // 3.35 TB/s.  The mask reads H words and S ids and writes S*H*W bools (565
 // B on 33x9, S = 1); the words entry writes S*H int64 words (532 B).
 //
-// The tall kernels (33 <= H <= 128) carry the H <= 32 kernels' lane-a-row
-// design to one warp an env (apply) or env-slot (mask, words): lane l holds
-// rows l + 32 j in slot j < NR = ceil(H / 32), NR a template parameter.  A
-// row below row r, r + d (d < 32: below a piece's height in the mask, below
-// the region size in the clear), comes by `__shfl_sync` from lane
-// (l + d) mod 32, in slot j or, across the seam (l + d >= 32), slot j + 1
-// (`bit_rows::rows_below`: one shuffle a slot for all of them).  Overlap by
-// one `__any_sync`; the clear is `bit_rows::clear_tall` on one-word rows:
-// full rows by a ballot a slot, columns by ANDing a lane's slots and one
+// The tall apply (33 <= H <= 128) carries the H <= 32 kernel's
+// lane-a-row design to one warp an env: lane l holds rows l + 32 j in slot
+// j < NR = ceil(H / 32), NR a template parameter.  A row below row r,
+// r + d (d < 32, below the region size in the clear), comes by
+// `__shfl_sync` from lane (l + d) mod 32, in slot j or, across the seam
+// (l + d >= 32), slot j + 1 (`bit_rows::rows_below`).  Overlap by one
+// `__any_sync`; the clear is `bit_rows::clear_tall` on one-word rows: full
+// rows by a ballot a slot, columns by ANDing a lane's slots and one
 // `__reduce_and_sync`, regions by band ANDs that may cross the seam.  A
-// warp's loads and stores of a slot are contiguous, 8 bytes a lane.  The
-// mask stages its rows' legal bits in shared memory and stores the block's
-// bytes as 16-byte vectors (`bit_rows::store_tall`); the words entry
-// stores each row's bits as one int64 straight.  The lanes of the last slot
-// past row H - 1 (31 of 64 at H = 33) run the same instructions on no row.
+// warp's loads and stores of a slot are contiguous, 8 bytes a lane.
 //
+// The tall mask and its words entry (`packed_anchor_kernel`, below) take a
+// segment of C = ceil(H / K) threads an env-slot, thread c holding anchor
+// rows c + C j (j < K = 8 in the mask, 4 in the words entry), and a block
+// of E whole env-slots, so that at most K - 1 of an env-slot's K C slots
+// hold no row (a warp an env-slot left 31 of its 64 lane-slots without a
+// row on 33 rows) and a block's output is one contiguous span.  The block
+// stages the boards of the envs its env-slots read in shared
+// memory, one contiguous read, each followed by full rows as far as a
+// footprint reaches past its bottom; a row below an anchor row is a
+// shared-memory read, where a warp an env-slot rebuilt each footprint
+// word's board words by shuffles (`rows_below`, nwords * fpw calls: 12
+// shuffles an env-slot on 33x9) before its first cell test.  Where C
+// divides 32 (57-64 and 121-128 rows in the mask, 61-64 and 125-128 in
+// the words entry), each warp stages and stores its own env-slots
+// (`kWarp`) and no block barrier runs.
+
 // The general apply (H > 128, and any H >= 1 it is given): one warp an env
 // walking the board in windows of `cr` rows, one row a lane, so that
 // registers do not grow with H.  Without regions cr = 32; with regions of
@@ -70,8 +81,8 @@
 // footprint words (field t % fpw of word t / fpw); per window the pair goes
 // to shared memory and each lane ORs, for every piece row t and each of
 // its cells' columns dc (one shuffle of row t's columns), row l + t
-// shifted right by dc into its blocked bits: the same test as
-// `legal_tall_bits`, without rebuilding the footprint words every window.
+// shifted right by dc into its blocked bits: the same test as the tall
+// mask's (`packed_anchor_kernel`), without footprint words a window.
 // Then the second row moves up and the row of the window after next,
 // loaded at the window's start, comes in.  Each window's 32 legal rows are
 // staged in shared memory, and every two windows the warp stores their 64 W
@@ -101,11 +112,16 @@
 
 namespace {
 
-constexpr int kWarps = 8;        // warps a block of the apply and the words kernels
+constexpr int kWarps = 8;        // warps a block of the apply and the general mask
+constexpr int kMaxAnchorThreads = 1024;  // threads a block of the tall mask and words
+constexpr int kLoads = 4;        // board rows a thread of those loads at once
 constexpr int kThreads = 256;    // threads a block of the general kernels
 constexpr int kMaxRows = 128;    // rows of the tallest board the tall kernels take
 constexpr long long kSmemOptIn = 227 * 1024;  // shared memory a block may opt in to
 using bit_rows::kAll;
+
+// anchor rows a thread of the tall mask (8) and of its words entry (4)
+__host__ __device__ constexpr int anchor_rows(bool words) { return words ? 4 : 8; }
 
 __device__ __forceinline__ uint32_t shl32(uint32_t x, int s) {
   return s < 32 ? x << s : 0u;
@@ -174,107 +190,163 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-// Legal bits of anchor rows l + 32 j of env-slot `es` (bit c: anchor
-// (row, c) is legal), 0 where the warp is not `active`: as packed_mask.cu's
-// `legal_row_bits`, each footprint word's board words built a field at a
-// time from the rows below (`rows_below`), rows past the bottom full.  The
-// whole warp holds one env-slot, so the loop over the piece's footprint
-// cells is the same in every lane.  Every lane of the warp calls it.
-template <int NR>
-__device__ __forceinline__ void legal_tall_bits(
-    const long long* __restrict__ words, const int32_t* __restrict__ queue,
-    const uint32_t* __restrict__ prow, const int32_t* __restrict__ piece_w, long long es,
-    bool active, int height, int width, int slots, int num_pieces, int nwords, int fpw,
-    uint32_t (&bits)[NR]) {
-  const int l = threadIdx.x % 32;
-  const uint32_t full = width < 32 ? (1u << width) - 1u : kAll;
-  uint32_t x[NR];
-  int pid = -1;
-  if (active) pid = queue[es];
+// A launch's shape of the tall mask and words, computed once on the host
+// (`launch_anchor`), so that no thread divides a launch constant or takes
+// its reciprocal.
+struct AnchorShape {
+  int envs;         // env-slots a block
+  int seg;          // C threads an env-slot
+  int per;          // env-slots a group: the block, or (kWarp) a warp
+  int stride;       // a staged board: its H rows, then `pad` full rows
+  int pad;
+  int region;       // the most boards a group stages, 32-bit words
+  int group_words;  // the group's shared memory: boards, then the mask's legal rows
+  float inv_seg, inv_height, inv_pad, inv_slots;  // as __frcp_rn gives them
+  uint32_t slot_magic;                            // bit_rows::wide_magic(S), S > 1
+};
+
+// The tall mask and its words entry (`kWords`): a segment of C =
+// ceil(H / K) threads an env-slot, thread c holding its anchor rows c + C j,
+// j < K = `anchor_rows`: 8 for the mask, 4 for the words entry (at most K -
+// 1 of the K C slots pass row H - 1; on the H100 K = 8 took the mask 2.6-
+// 13% below K = 4 on every board and the words up to 8% above, K = 2 was
+// 1.4-1.7x slower, `chip_measure.py --parts packed_tall`), and a block of
+// E whole env-slots, so that its output is one contiguous span: bytes es0
+// * HW .. (es0 + E) * HW - 1 of the mask, int64 words es0 * H .. (es0 + E)
+// * H - 1 of the words entry (es0 = b * E).  The rows below an anchor row
+// come from shared memory, not from shuffles, so segments need not be
+// warps: the group first stages the boards of the envs its env-slots read,
+// the boards' rows as one contiguous read of words (the repeats of S > 1
+// staged once; kLoads loads in flight a thread), then after each board, with
+// no loads, full rows as far as a footprint reaches from its last slot's
+// rows, so that row + t >= H (past the bottom) reads full with no test.
+// Where C divides 32 and E is a multiple of 32 / C (the mask on 57-64 rows,
+// C = 8, and 121-128, C = 16; the words on 61-64, C = 16, and 125-128, C =
+// 32), each warp holds whole segments and stages, syncs and stores its own
+// env-slots (`kWarp`: __syncwarp, no block barrier).  Each thread then takes
+// its env-slot's piece id and, for each piece row t (field t % fpw of
+// footprint word t / fpw), ORs its K rows' row + t shifted right by each
+// of that row's cell columns into their blocked bits: the same test as
+// packed_mask.cu's `legal_row_bits`, each cell's loop step shared by the K
+// rows.  A warp spans a few env-slots, so it runs their pieces' cell loops
+// predicated: the warp takes the longest loop, not the sum.  The mask
+// stages each row's legal bits as one word, passes one more barrier and
+// stores the span as 16-byte vectors (`store_tall<1>`: 4 bits spread into
+// 4 bytes by one multiply; the wrapper picks E so that E * HW is a
+// multiple of 16 and every block's span starts on a 16-byte boundary), the
+// ragged tail byte by byte.  The words entry stores its int64s straight and
+// stages no legal bits.  Near its issue bound on 128 rows (~820 issue
+// slots a warp at the warp-an-env-slot kernel's time there), it keeps a
+// thread's integer work small: every index 32-bit, the launch's constants
+// and reciprocals computed once on the host (`AnchorShape`), es0 / S by
+// one multiply-high and every other quotient by `small_div` (computed in
+// each thread, two 64-bit divisions and four reciprocals had cost the mask
+// 8% and the words 3% on 128x10).
+template <bool kWords, bool kWarp>
+__global__ void __launch_bounds__(kMaxAnchorThreads)
+    packed_anchor_kernel(const long long* __restrict__ words,
+                         const int32_t* __restrict__ queue,
+                         const uint32_t* __restrict__ prow,
+                         const int32_t* __restrict__ piece_w, void* __restrict__ out,
+                         int total, int height, int width, int slots, int num_pieces,
+                         int nwords, int fpw, const AnchorShape sh) {
+  extern __shared__ uint32_t smem[];
+  constexpr int K = anchor_rows(kWords);
+  const int seg = sh.seg;
+  const int group = kWarp ? threadIdx.x / 32 : 0;
+  const int gt = threadIdx.x - 32 * group;
+  const int gn = kWarp ? 32 : blockDim.x;
+  const int es0 = blockIdx.x * sh.envs + group * sh.per;  // < total + envs <= 2^31 - 1
+  if (kWarp && es0 >= total) return;  // the whole warp: no block barrier follows
+  const int count = min(sh.per, total - es0);
+  const int e = bit_rows::small_div(gt, sh.inv_seg);
+  const int c = gt - e * seg;
+  const bool live = e < count;
+  const int es = es0 + e;
+  // the envs the group's env-slots read: env0 = es0 / S by one multiply-high
+  // (`wide_div`: es0 < 2^31, S <= 32), then the rest by `small_div`
+  const int env0 = bit_rows::wide_div(es0, slots, sh.slot_magic);
+  const int s0 = es0 - env0 * slots;
+  const int nenv = bit_rows::small_div(s0 + count - 1, sh.inv_slots) + 1;
+  const int pad = sh.pad;
+  uint32_t* board = smem + group * sh.group_words;
+  uint32_t* legal = board + sh.region;  // the mask's per * H legal rows
+  const uint32_t full = shl32(1u, width) - 1u;
+  // the boards' rows, one contiguous read, kLoads loads in flight a thread
+  // before their stores wait on them: row j of the span is row j - v H of
+  // board v, staged at j + v pad
+  const long long* from = words + static_cast<long long>(env0) * height;
+  const int rows = nenv * height;
+  for (int j0 = gt; j0 < rows; j0 += kLoads * gn) {
+    uint32_t x[kLoads];
 #pragma unroll
-  for (int j = 0; j < NR; ++j) {
-    const int row = l + 32 * j;
-    x[j] = active && row < height
-               ? static_cast<uint32_t>(words[(es / slots) * height + row])
-               : full;
-  }
-  const bool has = pid >= 0 && pid < num_pieces;
-  const int pw = has ? piece_w[pid] : width + 1;  // no piece: no anchor
-  uint32_t blocked[NR];
-#pragma unroll
-  for (int j = 0; j < NR; ++j) blocked[j] = 0;
-  for (int k = 0; k < nwords; ++k) {
-    // board rows r + k*fpw + f in field f, rows past H full
-    uint32_t wk[NR];
-#pragma unroll
-    for (int j = 0; j < NR; ++j) wk[j] = 0;
-    for (int f = 0; f < fpw; ++f) {
-      uint32_t y[NR];
-      bit_rows::rows_below<NR>(x, k * fpw + f, full, y);
-#pragma unroll
-      for (int j = 0; j < NR; ++j) wk[j] |= y[j] << (f * width);
+    for (int u = 0; u < kLoads; ++u) {
+      const int j = j0 + u * gn;
+      x[u] = j < rows ? static_cast<uint32_t>(from[j]) : 0u;
     }
-    if (pw <= width) {
-      for (uint32_t m = prow[pid * nwords + k]; m != 0; m &= m - 1) {
-        const int p = __ffs(m) - 1;
 #pragma unroll
-        for (int j = 0; j < NR; ++j) blocked[j] |= wk[j] >> p;
+    for (int u = 0; u < kLoads; ++u) {
+      const int j = j0 + u * gn;
+      if (j < rows) board[j + bit_rows::small_div(j, sh.inv_height) * pad] = x[u];
+    }
+  }
+  // then the full rows past each bottom, no loads: full row j - v pad of
+  // board v, staged at j + (v + 1) H
+  for (int j = gt; j < nenv * pad; j += gn) {
+    board[j + (bit_rows::small_div(j, sh.inv_pad) + 1) * height] = full;
+  }
+  const int pid = live ? queue[es] : -1;
+  const int pw = pid >= 0 && pid < num_pieces ? piece_w[pid] : width + 1;  // none: no anchor
+  // this env-slot's board: env (es0 + e) / S, the e-th past env0
+  const uint32_t* b = board + bit_rows::small_div(s0 + e, sh.inv_slots) * sh.stride + c;
+  if (kWarp) {
+    __syncwarp();
+  } else {
+    __syncthreads();
+  }
+  uint32_t blocked[K];  // bit c: a cell of anchor (row, c) meets the board
+#pragma unroll
+  for (int j = 0; j < K; ++j) blocked[j] = 0;
+  if (live && pw <= width) {
+    for (int w = 0; w < nwords; ++w) {
+      const uint32_t m = prow[pid * nwords + w];
+      for (int f = 0; f < fpw; ++f) {
+        const int t = w * fpw + f;
+        uint32_t cells = (m >> (f * width)) & full;
+        if (cells == 0) continue;
+        uint32_t y[K];
+#pragma unroll
+        for (int j = 0; j < K; ++j) y[j] = b[seg * j + t];
+        for (; cells != 0; cells &= cells - 1) {
+          const int p = __ffs(cells) - 1;
+#pragma unroll
+          for (int j = 0; j < K; ++j) blocked[j] |= y[j] >> p;
+        }
       }
     }
   }
-  const uint32_t anchors =
-      pw <= width ? (width - pw + 1 < 32 ? 1u << (width - pw + 1) : 0u) - 1u : 0u;
+  const uint32_t anchors = pw <= width ? shl32(1u, width - pw + 1) - 1u : 0u;
 #pragma unroll
-  for (int j = 0; j < NR; ++j) bits[j] = ~blocked[j] & anchors;
-}
-
-template <int NR>
-__global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
-    packed_mask_tall_kernel(const long long* __restrict__ words,
-                            const int32_t* __restrict__ queue,
-                            const uint32_t* __restrict__ prow,
-                            const int32_t* __restrict__ piece_w,
-                            uint8_t* __restrict__ out, int total, int height, int width,
-                            int slots, int num_pieces, int nwords, int fpw) {
-  // legal bits of the block's rows: E*H <= 16 * 128 rows
-  __shared__ uint32_t rows[bit_rows::kMaxWarps * kMaxRows];
-  const int l = threadIdx.x % 32;
-  const int seg = threadIdx.x / 32;          // env-slot in the block
-  const int per_block = blockDim.x / 32;
-  const int first = blockIdx.x * per_block;
-  const int count = min(per_block, total - first);
-  const bool active = seg < count;
-  uint32_t bits[NR];
-  legal_tall_bits<NR>(words, queue, prow, piece_w, first + seg, active, height, width,
-                      slots, num_pieces, nwords, fpw, bits);
-#pragma unroll
-  for (int j = 0; j < NR; ++j) {
-    const int row = l + 32 * j;
-    if (active && row < height) rows[seg * height + row] = bits[j];
+  for (int j = 0; j < K; ++j) {
+    const int row = c + seg * j;
+    if (live && row < height) {
+      if constexpr (kWords) {
+        static_cast<long long*>(out)[static_cast<long long>(es) * height + row] =
+            ~blocked[j] & anchors;
+      } else {
+        legal[e * height + row] = ~blocked[j] & anchors;
+      }
+    }
   }
-  __syncthreads();
-  bit_rows::store_tall<1>(rows, out, static_cast<long long>(first) * height * width,
-                          count * height * width, width);
-}
-
-template <int NR>
-__global__ void __launch_bounds__(kWarps * 32)
-    packed_words_tall_kernel(const long long* __restrict__ words,
-                             const int32_t* __restrict__ queue,
-                             const uint32_t* __restrict__ prow,
-                             const int32_t* __restrict__ piece_w,
-                             long long* __restrict__ out, int total, int height, int width,
-                             int slots, int num_pieces, int nwords, int fpw) {
-  const int l = threadIdx.x % 32;
-  const long long es = static_cast<long long>(blockIdx.x) * kWarps + threadIdx.x / 32;
-  if (es >= total) return;  // the whole warp
-  uint32_t bits[NR];
-  legal_tall_bits<NR>(words, queue, prow, piece_w, es, true, height, width, slots,
-                      num_pieces, nwords, fpw, bits);
-#pragma unroll
-  for (int j = 0; j < NR; ++j) {
-    const int row = l + 32 * j;
-    if (row < height) out[es * height + row] = bits[j];
+  if constexpr (!kWords) {
+    if (kWarp) {
+      __syncwarp();
+    } else {
+      __syncthreads();
+    }
+    bit_rows::store_tall<1>(legal, static_cast<uint8_t*>(out),
+                            static_cast<long long>(es0) * height * width,
+                            count * height * width, width, gt, gn);
   }
 }
 
@@ -594,6 +666,56 @@ int launch_mask_general(bool windowed, bool words_out, const void* words, const 
   return static_cast<int>(cudaGetLastError());
 }
 
+// The tall mask (`words_out` zero) or its words entry: E = `envs`
+// env-slots a block, E * ceil(H / anchor_rows) threads at most
+// kMaxAnchorThreads (the mask's span starts on a 16-byte boundary where E *
+// HW is a multiple of 16, and the store takes any offset); the mask's out
+// 16-byte aligned; 32 < H <= 128, W <= 32, 1 <= S <= 32, N*S + E < 2^31,
+// nwords * fpw <= 32 and the block's shared memory at most 48 KB.
+int launch_anchor(bool words_out, const void* words, const void* queue, const void* prow,
+                  const void* piece_w, void* out, int n, int height, int width, int slots,
+                  int num_pieces, int nwords, int fpw, int envs, cudaStream_t stream) {
+  const long long total = static_cast<long long>(n) * slots;
+  const int rows = anchor_rows(words_out);
+  const int seg = (height + rows - 1) / rows;
+  const long long threads = (static_cast<long long>(envs) * seg + 31) / 32 * 32;
+  if (!tall_args_ok(height, width) || envs < 1 || threads > kMaxAnchorThreads ||
+      total > INT_MAX - envs || slots < 1 || slots > 32 || nwords < 1 || fpw < 1 ||
+      nwords * fpw > 32 ||
+      (!words_out && (reinterpret_cast<uintptr_t>(out) & 15) != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (total == 0) return static_cast<int>(cudaGetLastError());
+  // segments whole in a warp: each warp stages and stores its own
+  const bool warp = 32 % seg == 0 && envs % (32 / seg) == 0;
+  AnchorShape sh;
+  sh.envs = envs;
+  sh.seg = seg;
+  sh.per = warp ? 32 / seg : envs;
+  sh.stride = nwords * fpw - 1 + rows * seg;  // a board and its full rows
+  sh.pad = sh.stride - height;
+  sh.region = ((sh.per + slots - 2) / slots + 1) * sh.stride;
+  sh.group_words = sh.region + (words_out ? 0 : sh.per * height);
+  // IEEE division rounds 1 / d as __frcp_rn does (pad 0: no full rows, unread)
+  sh.inv_seg = 1.0f / static_cast<float>(seg);
+  sh.inv_height = 1.0f / static_cast<float>(height);
+  sh.inv_pad = sh.pad > 0 ? 1.0f / static_cast<float>(sh.pad) : 0.0f;
+  sh.inv_slots = 1.0f / static_cast<float>(slots);
+  sh.slot_magic = 0xffffffffu / static_cast<uint32_t>(slots) + 1u;
+  const long long smem = 4LL * (threads / (warp ? 32 : threads)) * sh.group_words;
+  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = words_out ? (warp ? packed_anchor_kernel<true, true>
+                                        : packed_anchor_kernel<true, false>)
+                                : (warp ? packed_anchor_kernel<false, true>
+                                        : packed_anchor_kernel<false, false>);
+  kernel<<<static_cast<unsigned>((total + envs - 1) / envs), static_cast<unsigned>(threads),
+           static_cast<size_t>(smem), stream>>>(
+      static_cast<const long long*>(words), static_cast<const int32_t*>(queue),
+      static_cast<const uint32_t*>(prow), static_cast<const int32_t*>(piece_w), out,
+      static_cast<int>(total), height, width, slots, num_pieces, nwords, fpw, sh);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // The tall apply: bp_packed_apply's arguments without per_warp; 32 < H <=
@@ -624,65 +746,26 @@ extern "C" int bp_packed_apply_tall(const void* words, const void* attrs, const 
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tall mask: bp_packed_mask's arguments, `warps` env-slots a block (1 to
-// 16, any: the block's span may start off a 16-byte boundary) in place of
-// per_warp and warps; out 16-byte aligned; 32 < H <= 128, W <= 32, N*S <
-// 2^31 and the footprint words' fields nwords * fpw <= 32 (rows below a
-// row stay within one seam).
+// The tall mask: bp_packed_mask's arguments, `envs` env-slots a block
+// (kernels/packed.py `anchor_launch_shape`) in place of per_warp and warps;
+// out 16-byte aligned; 32 < H <= 128, W <= 32, N*S < 2^31 and the
+// footprint words' fields nwords * fpw <= 32.
 extern "C" int bp_packed_mask_tall(const void* words, const void* queue, const void* prow,
                                    const void* piece_w, void* out, int n, int height,
                                    int width, int slots, int num_pieces, int nwords,
-                                   int fpw, int warps, void* stream) {
-  const long long total = static_cast<long long>(n) * slots;
-  if (!tall_args_ok(height, width) || warps < 1 || warps > bit_rows::kMaxWarps ||
-      total > INT_MAX || nwords * fpw > 32 ||
-      (reinterpret_cast<uintptr_t>(out) & 15) != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (total == 0) return static_cast<int>(cudaGetLastError());
-  const int blocks = static_cast<int>((total + warps - 1) / warps);
-  const auto st = static_cast<cudaStream_t>(stream);
-#define BP_MASK_TALL(NR)                                                                  \
-  packed_mask_tall_kernel<NR><<<blocks, warps * 32, 0, st>>>(                             \
-      static_cast<const long long*>(words), static_cast<const int32_t*>(queue),          \
-      static_cast<const uint32_t*>(prow), static_cast<const int32_t*>(piece_w),          \
-      static_cast<uint8_t*>(out), static_cast<int>(total), height, width, slots,         \
-      num_pieces, nwords, fpw)
-  switch ((height + 31) / 32) {
-    case 2: BP_MASK_TALL(2); break;
-    case 3: BP_MASK_TALL(3); break;
-    default: BP_MASK_TALL(4); break;
-  }
-#undef BP_MASK_TALL
-  return static_cast<int>(cudaGetLastError());
+                                   int fpw, int envs, void* stream) {
+  return launch_anchor(false, words, queue, prow, piece_w, out, n, height, width, slots,
+                       num_pieces, nwords, fpw, envs, static_cast<cudaStream_t>(stream));
 }
 
-// The tall words entry: bp_packed_words's arguments without per_warp; eight
-// env-slots a block.
+// The tall words entry: bp_packed_words's arguments with `envs` env-slots a
+// block in place of per_warp, as bp_packed_mask_tall.
 extern "C" int bp_packed_words_tall(const void* words, const void* queue, const void* prow,
                                     const void* piece_w, void* out, int n, int height,
                                     int width, int slots, int num_pieces, int nwords,
-                                    int fpw, void* stream) {
-  const long long total = static_cast<long long>(n) * slots;
-  if (!tall_args_ok(height, width) || total > INT_MAX || nwords * fpw > 32) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (total == 0) return static_cast<int>(cudaGetLastError());
-  const long long blocks = (total + kWarps - 1) / kWarps;
-  const auto st = static_cast<cudaStream_t>(stream);
-#define BP_WORDS_TALL(NR)                                                                 \
-  packed_words_tall_kernel<NR><<<static_cast<unsigned>(blocks), kWarps * 32, 0, st>>>(    \
-      static_cast<const long long*>(words), static_cast<const int32_t*>(queue),          \
-      static_cast<const uint32_t*>(prow), static_cast<const int32_t*>(piece_w),          \
-      static_cast<long long*>(out), static_cast<int>(total), height, width, slots,       \
-      num_pieces, nwords, fpw)
-  switch ((height + 31) / 32) {
-    case 2: BP_WORDS_TALL(2); break;
-    case 3: BP_WORDS_TALL(3); break;
-    default: BP_WORDS_TALL(4); break;
-  }
-#undef BP_WORDS_TALL
-  return static_cast<int>(cudaGetLastError());
+                                    int fpw, int envs, void* stream) {
+  return launch_anchor(true, words, queue, prow, piece_w, out, n, height, width, slots,
+                       num_pieces, nwords, fpw, envs, static_cast<cudaStream_t>(stream));
 }
 
 // The general apply, any H >= 1: bp_packed_apply_tall's arguments; the

@@ -13,10 +13,12 @@ in jnp (``blockpuzzle_tpu/env/core.py``) and its legal words in jnp
 (``blockpuzzle_tpu/env/words.py``).
 
 Each wrapper picks its kernel by height: one row a lane where H <= 32
-(``csrc/packed_apply.cu``, ``csrc/packed_mask.cu``), a warp a board where
-H <= 128 (the tall kernels, ``csrc/packed_tall.cu``), the general kernels
-above (the same file: the apply a warp an env and the mask and words a
-warp an env-slot, each walking the board in windows of rows): the JAX
+(``csrc/packed_apply.cu``, ``csrc/packed_mask.cu``), the tall kernels
+where H <= 128 (``csrc/packed_tall.cu``: the apply a warp a board, the mask
+and words a segment of threads an env-slot, eight or four anchor rows a
+thread), the general kernels above (the same file: the apply a warp an env
+and the mask and words a warp an env-slot, each walking the board in
+windows of rows): the JAX
 engine takes packed state on any board of at most 32 columns, whatever
 its height.
 
@@ -71,6 +73,14 @@ XWIDE_WARPS = 4
 MAX_TALL = 128
 # shared memory a block may opt in to on the H100
 SMEM_OPT_IN = 227 * 1024
+# anchor rows a thread of the tall packed words entry and of the mask
+# (their kernel's ``anchor_rows``); threads a block of the words entry: at
+# least ``ANCHOR_THREADS`` (``anchor_launch_shape``; the mask runs the same
+# env-slots a block on about half as many), at most ``MAX_ANCHOR_THREADS``
+ANCHOR_ROWS = 4
+MASK_ANCHOR_ROWS = 8
+ANCHOR_THREADS = 256
+MAX_ANCHOR_THREADS = 1024
 
 
 def segments_per_warp(height: int) -> int:
@@ -111,12 +121,29 @@ def tall_launch_shape(cfg: EnvConfig):
     the most turns, 4, 2 or 1, whose shared memory fits a block that does
     not opt in to more (48 KB: 33x9 takes 4, so that 64 boards a block and
     256 an SM are in flight, not 64); a board too large for that takes one
-    turn and ``tall_block_warps``.  The packed tall mask reads the warps
-    alone (one env-slot a warp).  Computed once per wrapper, as
+    turn and ``tall_block_warps``.  Computed once per wrapper, as
     ``row_launch_shape``."""
     if not MAX_ROWS < cfg.height <= MAX_TALL or cfg.width > MAX_WIDE:
         return None
     return _turns_shape(cfg)
+
+
+def anchor_launch_shape(cfg: EnvConfig):
+    """(env-slots a block E,) of the tall packed mask and its words entry,
+    for packed boards (W <= 32) of 32 < H <= ``MAX_TALL`` rows; None for
+    any other board.  A segment of C = ceil(H / K) threads takes an
+    env-slot, thread c its rows c + C j (K = ``ANCHOR_ROWS`` for the words
+    entry, ``MASK_ANCHOR_ROWS`` for the mask); E is the fewest env-slots,
+    at least ``ANCHOR_THREADS`` threads of the words entry, for which E * H
+    * W is a multiple of 16, so that every block's span of the mask starts
+    on a 16-byte boundary.  Computed once per wrapper, as
+    ``row_launch_shape``."""
+    if not MAX_ROWS < cfg.height <= MAX_TALL or cfg.width > 32:
+        return None
+    seg = -(-cfg.height // ANCHOR_ROWS)
+    step = 16 // int(np.gcd(cfg.height * cfg.width, 16))
+    envs = -(-ANCHOR_THREADS // seg)
+    return (-(-envs // step) * step,)
 
 
 def deep_launch_shape(cfg: EnvConfig):
@@ -604,7 +631,11 @@ class PackedMaskKernel:
     piece set's do): the bit-row kernels where H <= 32 (``launches``
     counts the mask kernel's launches, ``words_launches`` the words
     kernel's), the tall ones where H <= 128 (``tall_launches``,
-    ``words_tall_launches``), the general ones elsewhere
+    ``words_tall_launches``; both entries one kernel, a segment of threads
+    an env-slot, ``MASK_ANCHOR_ROWS`` or ``ANCHOR_ROWS`` anchor rows a
+    thread, the boards of a block's env-slots staged in shared memory,
+    ``anchor_launch_shape``),
+    the general ones elsewhere
     (``general_launches``, ``words_general_launches``; the general mask
     and words entries each a warp an env-slot over windows of 32 rows, or a
     thread an anchor row where the footprint words' fields span more than
@@ -626,7 +657,7 @@ class PackedMaskKernel:
         self.kind = packed_kind(cfg)
         if self.kind == "tall" and bb.nwords * bb.fpw > 32:
             self.kind = "general"
-        self.shape = {"rows": row_launch_shape(cfg), "tall": tall_launch_shape(cfg),
+        self.shape = {"rows": row_launch_shape(cfg), "tall": anchor_launch_shape(cfg),
                       "general": None}[self.kind]
         self.name = "packed_mask" + SUFFIX[self.kind]
         self.words_name = "packed_legal_words" + SUFFIX[self.kind]
@@ -694,8 +725,8 @@ class PackedMaskKernel:
         if out.data_ptr() % 16:  # the kernels store 16-byte vectors
             raise RuntimeError("mask output is not 16-byte aligned")
         stream = torch.cuda.current_stream(self.device).cuda_stream
-        # the launch shape: (per_warp, warps), (warps,) or nothing
-        shape = self.shape if self.kind == "rows" else (self.shape or ())[1:]
+        # the launch shape: (per_warp, warps), (envs,) or nothing
+        shape = self.shape or ()
         entry = "bp_" + self.name
         with torch.cuda.device(self.device):
             err = getattr(_build.library(), entry)(
@@ -713,7 +744,8 @@ class PackedMaskKernel:
         out = torch.empty((n, cfg.queue_size * cfg.height), dtype=torch.int64,
                           device=self.device)
         stream = torch.cuda.current_stream(self.device).cuda_stream
-        shape = self.shape[:1] if self.kind == "rows" else ()  # per_warp
+        # per_warp, (envs,) or nothing
+        shape = self.shape[:1] if self.kind == "rows" else self.shape or ()
         entry = "bp_packed_words" + SUFFIX[self.kind]
         with torch.cuda.device(self.device):
             err = getattr(_build.library(), entry)(

@@ -2,10 +2,11 @@
 """Measurements of the PyTorch + CUDA port on one card, beyond the smoke run.
 
     python3 chip_measure.py [--parts build,train,rollout,kernels,words,general,draws,tall,
-                                     tail,deep,apply,xwide,legality] [--parent-csrc DIR]
+                                     packed_tall,tail,deep,apply,xwide,legality]
+                            [--parent-csrc DIR] [--alt-csrc DIR ...]
 
 Needs one CUDA card and nvcc.  Prints the card's name and power limit,
-then, each line tagged with its part (all thirteen by default):
+then, each line tagged with its part (all fourteen by default):
 
   build     cold builds of ``kernels/csrc/*.cu`` in turns: one nvcc over
             all sources, then one nvcc per source started together and a
@@ -69,7 +70,23 @@ then, each line tagged with its part (all thirteen by default):
             launch shapes than the wrapper's (one board a warp against its
             turns; ``tall_turn_shapes``), in turns; the tall packed apply, mask and
             words kernels on 33x9 and 36x9 with regions and the general
-            ones on 130x8, device and host-paced times; the default
+            ones on 130x8, device and host-paced times; the tall packed
+            mask and words (B7 tall, B7w tall) on 33x9, 36x9 with regions,
+            64x8 and 128x10 at N = 49152, with ``--parent-csrc DIR`` in
+            turns with the earlier sources' ``bp_packed_mask_tall`` and
+            ``bp_packed_words_tall`` (``EarlierTallMask``), beside the same
+            kernel at other block sizes (``anchor_envs``) and the
+            windowed general kernel on the same inputs, every output
+            bit-equal, 5 rounds, medians and shares of the bound
+            (``packed_tall_turns``); the default (packed) step on 33x9 with
+            the argmax and with the words sampler, the earlier tall mask and
+            words swapped in and the current ones in turns: host ms,
+            kernels, device ms and busy share a step
+            (``packed_tall_step_turns``); each ``--alt-csrc DIR`` (another
+            version of ``csrc/packed_tall.cu`` beside the headers it
+            includes, with the current entries' arguments) is built by its
+            own nvcc and its tall mask and words are timed in the same
+            turns (``alt_libraries``); the default
             (packed) step on 33x9 with each sampler as the ``rollout`` part
             profiles the default preset's; with
             ``--parent-csrc DIR``, the default preset's bit-row mask, clear,
@@ -77,6 +94,9 @@ then, each line tagged with its part (all thirteen by default):
             as the ``kernels`` part times them; then ``cli.rollout --env
             height=33 --env width=9 --num-envs 49152 --steps 2000`` in this
             process (the default engine: the tall packed kernels);
+  packed_tall  of ``tall``, the tall packed mask and words in turns
+            (``packed_tall_turns``) and the 33x9 step
+            (``packed_tall_step_turns``) alone;
   draws     the three draw kernels (deal, as the step's 2S-wide draw and
             the S-wide reset deal, uniform_legal, words_select) at N =
             49152 on every packed preset, device times; with
@@ -294,8 +314,8 @@ def dqn_breakdown(card: str, argv) -> None:
 HAND_KERNELS = ("mask_rows_kernel", "mask_kernel", "apply_rows_kernel", "apply_kernel",
                 "clear_rows_kernel", "clear_kernel", "legality_rows_kernel",
                 "legality_kernel", "packed_apply_kernel", "packed_mask_kernel",
-                "packed_words_kernel", "packed_apply_tall_kernel", "packed_mask_tall_kernel",
-                "packed_words_tall_kernel", "packed_tail_kernel", "packed_unpack_kernel")
+                "packed_words_kernel", "packed_apply_tall_kernel", "packed_anchor_kernel",
+                "packed_tail_kernel", "packed_unpack_kernel")
 # rollout -> (make_env arguments, the rollout's sampler)
 ENGINES = {"packed": ({}, "argmax"), "packed-words": ({}, "words"),
            "u8-pallas": ({"backend": "pallas"}, "argmax"),
@@ -456,6 +476,177 @@ def packed_tall_times(card: str) -> None:
         for k, fn in calls.items():
             print(f"[tall] {k} {name} N={n}: device {chip_smoke.cuda_ms(fn):.6f} ms, "
                   f"host-paced {chip_smoke.host_paced_ms(fn):.6f} ms ({card})")
+
+
+class EarlierTallMask:
+    """Stands in for a ``PackedMaskKernel`` on a board of 33 to 128 rows
+    (``pmk``), inside an engine's step and the words sampler: its mask and
+    words entries launch the earlier library ``lib``'s
+    ``bp_packed_mask_tall`` (at the warps a block ``tall_launch_shape``
+    gives, as the earlier wrapper passed them) and ``bp_packed_words_tall``
+    with the current wrapper's tables."""
+
+    def __init__(self, lib, pmk):
+        from blockpuzzle_tpu_torch.kernels.packed import tall_launch_shape
+
+        self.lib, self.pmk, self.cfg = lib, pmk, pmk.cfg
+        self.warps = tall_launch_shape(pmk.cfg)[1]
+
+    def _launch(self, entry, shape, dtype, words, queue, *launch):
+        import torch
+
+        from blockpuzzle_tpu_torch.kernels import _build
+
+        out = torch.empty(shape, dtype=dtype, device=words.device)
+        _build.check(getattr(self.lib, entry)(
+            *self.pmk._args(words, queue, out), *launch,
+            torch.cuda.current_stream(words.device).cuda_stream), f"earlier {entry}")
+        return out
+
+    def __call__(self, words, queue):
+        import torch
+
+        n, cfg = words.shape[0], self.cfg
+        return self._launch("bp_packed_mask_tall", (n, cfg.queue_size * cfg.num_cells),
+                            torch.bool, words, queue, self.warps)
+
+    def words(self, words, queue):
+        import torch
+
+        n, cfg = words.shape[0], self.cfg
+        return self._launch("bp_packed_words_tall", (n, cfg.queue_size * cfg.height),
+                            torch.int64, words, queue)
+
+
+# boards the ``tall`` part times the tall packed mask and words on
+PACKED_TALL_BOARDS = chip_smoke.TALL_PACKED_CASES
+
+
+def anchor_envs(envs: int) -> list:
+    """Env-slots a block the ``tall`` part times the tall packed mask and
+    words at beside the wrapper's ``envs``: about half, twice, and one
+    fewer (where a warp holds whole segments, a block that then stages and
+    stores as one)."""
+    return [e for e in dict.fromkeys((max(envs // 2, 1), 2 * envs, max(envs - 1, 1)))
+            if e != envs]
+
+
+def packed_tall_turns(card: str, lib, alts=None, rounds: int = 5) -> None:
+    """B7 tall and B7w tall on ``PACKED_TALL_BOARDS`` at N = 49152
+    (``chip_smoke.kernel_inputs``, seed 0): where ``lib`` is given first the
+    earlier library's ``bp_packed_mask_tall`` and ``bp_packed_words_tall``
+    (``EarlierTallMask``), then the wrapper's kernel, the same entries of
+    each library of ``alts`` (label -> library, ``alt_libraries``) at the
+    wrapper's block size, the current kernel at the block sizes
+    ``anchor_envs`` (``chip_smoke.anchor_pick``) and
+    the windowed general kernel launched on the same inputs
+    (``chip_smoke.general_mask_pick``); each group held bit-equal, then
+    timed in turns (``group_turns``)."""
+    import torch
+
+    from blockpuzzle_tpu_torch.config import EnvConfig
+    from blockpuzzle_tpu_torch.kernels import PackedMaskKernel
+    from blockpuzzle_tpu_torch.kernels.packed import pack_words
+    from blockpuzzle_tpu_torch.utils.bounds import kernel_bounds
+
+    n, dev = chip_smoke.N_MAIN, torch.device("cuda")
+    for name, shape in PACKED_TALL_BOARDS.items():
+        cfg = EnvConfig(**shape)
+        pmk = PackedMaskKernel(cfg, dev)
+        if (pmk.name, pmk.words_name) != ("packed_mask_tall", "packed_legal_words_tall"):
+            raise AssertionError(f"{name}: the wrapper picked {pmk.name}")
+        board, queue, cover, valid, attrs, r, c = (
+            torch.as_tensor(x, device=dev) for x in chip_smoke.kernel_inputs(cfg, n, seed=0))
+        words = pack_words(board.view(n, cfg.height, cfg.width))
+        groups = {}
+        for key, entry, words_out in (("packed_mask_tall", pmk, False),
+                                      ("packed_legal_words_tall", pmk.words, True)):
+            fns = {}
+            if lib is not None:
+                earlier = EarlierTallMask(lib, pmk)
+                fns["earlier"] = functools.partial(
+                    earlier.words if words_out else earlier, words, queue)
+            fns[f"{key} ({pmk.shape[0]} env-slots a block)"] = functools.partial(
+                entry, words, queue)
+            for label, alt in (alts or {}).items():
+                fns[label] = functools.partial(
+                    chip_smoke.anchor_pick(cfg, pmk, pmk.shape[0], words_out, alt), words,
+                    queue)
+            for envs in anchor_envs(pmk.shape[0]):
+                fns[f"{envs} env-slots a block"] = functools.partial(
+                    chip_smoke.anchor_pick(cfg, pmk, envs, words_out), words, queue)
+            fns["windowed general kernel"] = functools.partial(
+                chip_smoke.general_mask_pick(cfg, pmk, windowed=True, words=words_out),
+                words, queue)
+            groups[key] = fns
+        outs = {"packed_mask_tall": pmk(words, queue),
+                "packed_legal_words_tall": pmk.words(words, queue)}
+        bound = kernel_bounds(cfg, board, queue, cover, valid, words, attrs, r, c, outs)
+        group_turns(card, "tall", name, groups, bound, rounds)
+
+
+def packed_tall_step_turns(card: str, lib, steps: int = 20) -> None:
+    """The default (packed) step on 33x9 at N = 49152, with the argmax
+    sampler and with the words sampler, one engine each carrying its state:
+    where ``lib`` is given with the earlier library's tall mask and words
+    swapped in (``EarlierTallMask``) and with the current ones, in turns
+    earlier, current, current, earlier (else the current ones twice): host
+    ms a step over ``steps`` unprofiled steps, then ``steps`` steps under
+    ``torch.profiler``: device kernels, device ms and busy share a step,
+    the tall mask's and words' device ms a step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from blockpuzzle_tpu_torch import make_env
+    from blockpuzzle_tpu_torch.config import EnvConfig
+    from blockpuzzle_tpu_torch.sampler import UniformLegalSampler, WordsSampler
+
+    n, cfg = chip_smoke.N_MAIN, EnvConfig(**chip_smoke.TALL)
+    keys = ("packed_mask_tall_kernel", "packed_words_tall_kernel", "packed_anchor_kernel")
+    order = ("earlier", "current", "current", "earlier") if lib is not None else (
+        "current", "current")
+    for sampler_name in ("argmax", "words"):
+        env = make_env(cfg, device="cuda")
+        current = env.packed_mask_kernel
+        kernels = {"current": current}
+        if lib is not None:
+            kernels["earlier"] = EarlierTallMask(lib, current)
+        state, ts = env.init(0, n)
+        if sampler_name == "words":
+            draw = WordsSampler(1, n, env.device)
+            policy = lambda: draw(env, state.board, state.queue)
+        else:
+            draw = UniformLegalSampler(1, n, env.device)
+            policy = lambda: draw(ts.action_mask)
+
+        def run(k):
+            nonlocal state, ts
+            for _ in range(k):
+                state, ts = env.step(state, policy())
+            torch.cuda.synchronize()
+
+        for which in order:
+            env.packed_mask_kernel = kernels[which]
+            run(5)                                         # warm-up
+            t0 = time.perf_counter()
+            run(steps)
+            step_ms = 1e3 * (time.perf_counter() - t0) / steps
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                run(steps)
+            device = device_events(prof)
+            if not device:
+                print("[tall] the profiler saw no device events: not measured")
+                continue
+            busy = busy_us(device) / steps / 1e3
+            part = sum(e.time_range.elapsed_us() for e in device
+                       if any(k in e.name for k in keys)) / steps / 1e3
+            print(f"[tall] packed step, {sampler_name} sampler, 33x9, N={n}, {which} tall "
+                  f"mask and words: {step_ms:.4f} ms per step, {len(device) / steps:.2f} "
+                  f"device kernels, "
+                  f"{sum(e.time_range.elapsed_us() for e in device) / steps / 1e3:.6f} ms "
+                  f"device time a step, busy {busy:.4f} ms = {100 * busy / step_ms:.1f}%, "
+                  f"the tall mask and words {part:.6f} ms a step ({card})")
+        env.packed_mask_kernel = current
 
 
 def tall_turn_shapes(card: str, rounds: int = 3) -> None:
@@ -624,6 +815,13 @@ PARENT_TAIL_ENTRIES = ("bp_packed_tail", "bp_packed_unpack")
 # the earlier sources have them
 PARENT_DEEP_ENTRIES = ("bp_packed_apply_general", "bp_packed_mask_general",
                        "bp_packed_words_general", "bp_apply")
+# the tall packed mask's and words' entry points, where the earlier sources
+# have them, with the arguments those took before the kernel a thread an
+# anchor row: the mask's warps a block (``tall_launch_shape``'s) in place
+# of its anchor rows, the words' nothing
+_P, _I = ctypes.c_void_p, ctypes.c_int
+PARENT_TALL_SIGNATURES = {"bp_packed_mask_tall": [_P] * 5 + [_I] * 8 + [_P],
+                          "bp_packed_words_tall": [_P] * 5 + [_I] * 7 + [_P]}
 
 
 @functools.cache
@@ -648,13 +846,47 @@ def parent_library(csrc: pathlib.Path):
     draws = all(hasattr(lib, name) for name in PARENT_DRAW_ENTRIES)
     tail = all(hasattr(lib, name) for name in PARENT_TAIL_ENTRIES)
     deep = all(hasattr(lib, name) for name in PARENT_DEEP_ENTRIES)
+    tall = all(hasattr(lib, name) for name in PARENT_TALL_SIGNATURES)
+    signatures = {**_build.SIGNATURES, **PARENT_TALL_SIGNATURES}
     for name in (PARENT_ENTRIES + (PARENT_ROW_ENTRIES if rows else ())
                  + (PARENT_DRAW_ENTRIES if draws else ())
                  + (PARENT_TAIL_ENTRIES if tail else ())
-                 + (PARENT_DEEP_ENTRIES if deep else ())):
+                 + (PARENT_DEEP_ENTRIES if deep else ())
+                 + (tuple(PARENT_TALL_SIGNATURES) if tall else ())):
         fn = getattr(lib, name)
-        fn.argtypes, fn.restype = _build.SIGNATURES[name], ctypes.c_int
+        fn.argtypes, fn.restype = signatures[name], ctypes.c_int
     return lib
+
+
+def alt_libraries(dirs) -> dict:
+    """Directory name -> a library of that directory's ``*.cu`` sources
+    (other versions of ``csrc/packed_tall.cu``, beside the headers they
+    include), each built by its own nvcc, all started together, under the
+    git-ignored build directory, the tall packed mask's and words' entries
+    given their current arguments; prints each build's ptxas lines."""
+    from blockpuzzle_tpu_torch.kernels import _build
+
+    builds = {}
+    for d in map(pathlib.Path, dirs):
+        out = _build.BUILD_DIR / "alt" / d.name
+        out.mkdir(parents=True, exist_ok=True)
+        so = out / f"libbp_{d.name}.so"
+        builds[d.name] = so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(so),
+             *map(str, sorted(d.glob("*.cu")))], stderr=subprocess.PIPE, text=True)
+    libs = {}
+    for name, (so, proc) in builds.items():
+        err = proc.communicate()[1]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name}:\n{err}")
+        for line in chip_smoke.ptxas_lines(err):
+            print(f"[tall] {name} ptxas: {line}")
+        lib = ctypes.CDLL(str(so))
+        for entry in ("bp_packed_mask_tall", "bp_packed_words_tall"):
+            fn = getattr(lib, entry)
+            fn.argtypes, fn.restype = _build.SIGNATURES[entry], ctypes.c_int
+        libs[name] = lib
+    return libs
 
 
 def parent_calls(lib, cfg, mk, ck, pak, pmk):
@@ -1528,8 +1760,8 @@ def legality_turns(card: str, lib, rounds: int = 5) -> None:
         group_turns(card, "legality", name, {lk.name: fns}, bound, rounds)
 
 
-PARTS = ("build", "train", "rollout", "kernels", "words", "general", "draws", "tall", "tail",
-         "deep", "apply", "xwide", "legality")
+PARTS = ("build", "train", "rollout", "kernels", "words", "general", "draws", "tall",
+         "packed_tall", "tail", "deep", "apply", "xwide", "legality")
 
 
 def main(argv=None) -> int:
@@ -1540,6 +1772,9 @@ def main(argv=None) -> int:
                    help="comma-separated subset of " + ", ".join(PARTS))
     p.add_argument("--parent-csrc", default=None,
                    help="directory of earlier kernel sources (*.cu, *.cuh)")
+    p.add_argument("--alt-csrc", action="append", default=[],
+                   help="directory of other sources of the tall packed mask's entries "
+                        "with the current arguments (packed_tall, tall); repeatable")
     args = p.parse_args(argv)
     parts = args.parts.split(",")
     if set(parts) - set(PARTS):
@@ -1574,6 +1809,11 @@ def main(argv=None) -> int:
         tall_turn_shapes(card)
         tall_step_turns(card)
         packed_tall_times(card)
+    if "tall" in parts or "packed_tall" in parts:
+        lib = parent_library(pathlib.Path(args.parent_csrc)) if args.parent_csrc else None
+        packed_tall_turns(card, lib, alt_libraries(args.alt_csrc))
+        packed_tall_step_turns(card, lib)
+    if "tall" in parts:
         from blockpuzzle_tpu_torch.config import EnvConfig
 
         rollout_breakdown(card, EnvConfig(**chip_smoke.TALL),

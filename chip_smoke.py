@@ -28,9 +28,14 @@ which raises on failure (non-zero exit, no result line):
      4x128, 8x100 and 9x36 with 3x3 regions (``WIDE_CASES``), the wide
      apply also against the general apply launched directly (bp_apply);
      on boards of more than 32 rows (``phase1_tall``), the tall packed
-     kernels (packed_apply_tall, packed_mask_tall, packed_legal_words_tall:
-     a warp a board) on 33x9, 36x9 with 3x3 regions across the lane seam
-     and a hand of three, 64x8 and 128x10 (``TALL_PACKED_CASES``), the
+     kernels (packed_apply_tall: a warp a board; packed_mask_tall and
+     packed_legal_words_tall: a segment of threads an env-slot, eight or
+     four anchor rows a thread, also on blocks whose spans start off a 16-byte
+     boundary and on warps that stage and store their own env-slots,
+     ``ANCHOR_TURN_ENVS``, the last block ragged at N = 49151) on 33x9,
+     36x9 with 3x3 regions
+     across the lane seam and a hand of three, 64x8 and 128x10
+     (``TALL_PACKED_CASES``), the
      tall u8 mask, clear and apply (mask_tall, clear_tall, apply_tall) on
      33x9, 36x9 with regions, 40x40 and 33x128 (``TALL_U8_CASES``; the
      plain u8 mask and apply in chunks of envs there), the packed mask also
@@ -814,7 +819,9 @@ def phase1_tall(errs: dict, times: dict, bounds: dict) -> None:
     (``TALL_PACKED_CASES``) and the tall u8 mask, clear and apply
     (``TALL_U8_CASES``) against their plain versions at N = 49152 and
     49151, the packed mask also against the u8 mask on the unpacked boards
-    and its words against itself packed to words, the u8 apply also against
+    and its words against itself packed to words, the tall packed mask and
+    words also at the block sizes ``ANCHOR_TURN_ENVS`` (``anchor_pick``)
+    against the wrapper's, the u8 apply also against
     the general apply launched directly on the same inputs
     (``general_apply``), and an illegal action on a full line through the
     tall packed and u8 applies; then the kernels of boards of more than 128
@@ -916,6 +923,17 @@ def phase1_tall(errs: dict, times: dict, bounds: dict) -> None:
                 if deep and not torch.equal(words_rows(words, queue), pwords):
                     raise AssertionError(f"{pwords_name} != its thread-an-anchor-row kernel "
                                          f"({what})")
+                if pmk.kind == "tall":  # the other instances; the last block ragged or not
+                    for envs in ANCHOR_TURN_ENVS:
+                        if not (torch.equal(anchor_pick(cfg, pmk, envs)(words, queue), pmask)
+                                and torch.equal(anchor_pick(cfg, pmk, envs, True)(
+                                    words, queue), pwords)):
+                            raise AssertionError(f"{pmask_name} at {envs} env-slots a block "
+                                                 f"!= at {pmk.shape[0]} ({what})")
+                    total, envs = n * cfg.queue_size, pmk.shape[0]
+                    line += (f", {pmask_name} and {pwords_name} at "
+                             f"{'/'.join(map(str, ANCHOR_TURN_ENVS))} env-slots a block == at "
+                             f"{envs} (its last block {total % envs or envs} env-slots)")
                 if int(pouts[1].sum()) == 0 or not bool(pouts[2].any()):
                     raise AssertionError(f"{papply_name} cleared nothing ({what})")
                 if deep:  # each pass 2 of the general apply through its own entry
@@ -1552,6 +1570,40 @@ def general_mask_pick(cfg, pmk, windowed: bool, words: bool = False):
         out = torch.empty(shape, dtype=dtype, device=board_words.device)
         _build.check(getattr(lib, entry)(
             *pmk._args(board_words, queue, out), int(windowed),
+            torch.cuda.current_stream(board_words.device).cuda_stream), entry)
+        return out
+
+    return mask
+
+
+# env-slots a block phase 1 also launches the tall packed mask and words
+# at, beside the wrapper's (``kernels/packed.py`` ``anchor_launch_shape``):
+# odd counts (spans off a 16-byte boundary on 33x9 and 36x9, a block
+# staging and storing as one on 64x8) and 4 and 6 (a warp staging and
+# storing its own env-slots: the mask's on 64x8 at 4, on 128x10 at both;
+# the words' on 64x8 at 4 and 6, on 128x10 at every count)
+ANCHOR_TURN_ENVS = (1, 4, 5, 6, 7)
+
+
+def anchor_pick(cfg, pmk, envs: int, words: bool = False, lib=None):
+    """A callable with ``PackedMaskKernel``'s arguments that launches the
+    tall packed mask (``bp_packed_mask_tall``), or with ``words`` its words
+    entry (``bp_packed_words_tall``), at ``envs`` env-slots a block: the
+    current library's, or ``lib``'s (another build of the same entries)."""
+    import torch
+
+    from blockpuzzle_tpu_torch.kernels import _build
+
+    lib = lib or _build.library()
+    entry = "bp_packed_words_tall" if words else "bp_packed_mask_tall"
+
+    def mask(board_words, queue):
+        n = board_words.shape[0]
+        size, dtype = ((n, cfg.queue_size * cfg.height), torch.int64) if words else (
+            (n, cfg.queue_size * cfg.num_cells), torch.bool)
+        out = torch.empty(size, dtype=dtype, device=board_words.device)
+        _build.check(getattr(lib, entry)(
+            *pmk._args(board_words, queue, out), envs,
             torch.cuda.current_stream(board_words.device).cuda_stream), entry)
         return out
 

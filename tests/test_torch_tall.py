@@ -3,14 +3,18 @@ package.
 
 The JAX engine's default state is packed on every board of at most 32
 columns, whatever its height; the port's packed kernels take one row a
-lane, so boards of 33 to 128 rows take its tall kernels (one warp a board,
-lane l holding rows l + 32 j in slot j) and taller boards its general
-ones (a thread an env or an anchor row).  The u8 mask (K1) and clear (K3)
-have tall kernels of the same layout, on rows of up to four words.
+lane, so boards of 33 to 128 rows take its tall kernels (the apply one
+warp a board, lane l holding rows l + 32 j in slot j; the mask and its
+words entry a segment of ceil(H / K) threads an env-slot, K anchor rows a
+thread, rows below read from the boards staged in shared memory) and
+taller boards its general ones (a warp an env or env-slot over windows of
+rows).  The u8 mask (K1) and clear (K3) have tall kernels of the apply's
+layout, on rows of up to four words.
 
 Numpy emulations of each new CUDA kernel's lane and slot logic (every
 lane of a warp at once, as (warps, NR, 32) arrays; a row below row r comes
-from lane (l + d) mod 32, from slot j + 1 across the seam), fed the tables
+from lane (l + d) mod 32, from slot j + 1 across the seam; the tall
+packed mask's every thread of a block or warp at once), fed the tables
 and launch shapes the wrappers hand the kernels, are held bit-equal to the
 plain versions and to the JAX package: the packed engine's
 ``_cover_words``/``_clear_scan_packed`` block, ``_bitboard_mask_from_words``
@@ -45,7 +49,9 @@ from blockpuzzle_tpu_torch.kernels import (
     _build,
 )
 from blockpuzzle_tpu_torch.kernels.packed import (
-    SMEM_OPT_IN, U32, apply_launch_shape, apply_smem_bytes, deep_launch_shape,
+    ANCHOR_ROWS, ANCHOR_THREADS, MASK_ANCHOR_ROWS, MAX_ANCHOR_THREADS, SMEM_OPT_IN, U32,
+    anchor_launch_shape,
+    apply_launch_shape, apply_smem_bytes, bitboard_tables, deep_launch_shape,
     tall_block_warps, tall_launch_shape, tall_smem_bytes, u8_launch_shape, xwide_launch_shape,
 )
 from test_torch_kernels import (
@@ -263,72 +269,121 @@ def emulate_packed_apply_tall(cfg, words, attrs, r, c, valid):
     return out, np.where(legal, k, 0).astype(np.int32), legal
 
 
-def emulate_legal_tall(cfg, words, queue, mk, es):
-    """csrc/packed_tall.cu legal_tall_bits for the env-slots ``es`` (one a
-    warp), on the 32-bit tables ``PackedMaskKernel`` hands the kernels:
-    each footprint word's board words a field at a time from the rows below
-    (rows past the bottom full), a bit of blocked anchors for each
-    footprint cell.  Returns (len(es), NR, 32) legal bits."""
+def anchor_smem_bytes(cfg, envs, reach, words=False):
+    """Shared memory of a block of ``envs`` env-slots of the tall packed
+    mask (``words``: its words entry), footprints spanning ``reach`` =
+    nwords * fpw rows, as csrc/packed_tall.cu ``launch_anchor`` counts it:
+    for each group of threads that stage and store together (the block, or
+    each warp where a warp holds whole segments) the boards of the most
+    envs its env-slots can read, each followed by the full rows a footprint
+    reaches past its bottom, then the mask's legal rows, a 32-bit word a
+    row."""
+    s, h = cfg.queue_size, cfg.height
+    k = ANCHOR_ROWS if words else MASK_ANCHOR_ROWS
+    seg = -(-h // k)
+    stride = reach - 1 + k * seg
+    warp = 32 % seg == 0 and envs % (32 // seg) == 0
+    per, groups = (32 // seg, envs * seg // 32) if warp else (envs, 1)
+    return 4 * groups * (((per + s - 2) // s + 1) * stride + (0 if words else per * h))
+
+
+def emulate_packed_anchor(cfg, words, queue, mk, envs=None, entry="mask"):
+    """csrc/packed_tall.cu packed_anchor_kernel on the 32-bit tables
+    ``PackedMaskKernel`` hands it, K = ``MASK_ANCHOR_ROWS`` anchor rows a
+    thread (the words instance: ``ANCHOR_ROWS``)
+    and ``envs`` env-slots a block E (the wrapper's by default), each
+    group of threads that stage and store together in turn, all its threads
+    at once: the block, or each warp where a warp holds whole segments (C
+    divides 32 and E is a multiple of 32 / C).  Thread (e, c) of a segment
+    of C = ceil(H / K) threads, e by the kernel's float reciprocal, holds
+    rows c + C j of the group's env-slot es0 + e.  The group stages the
+    boards of the envs its env-slots read, words[env0 * H ...] read once
+    as one span (an env of S > 1 slots staged once; span row j, row j - v H
+    of board v, at j + v pad), then each board's pad full rows, as far as a
+    footprint reaches from the last slot's rows, at j + (v + 1) H for full
+    row j - v pad of board v, each quotient the kernel's; a thread reads
+    row + t of its env's staged board (full past the bottom, untested) and
+    ORs it shifted right by each cell column of piece row t into the
+    blocked bits of its K rows.
+    The mask (``entry="mask"``) stages the legal rows and stores the
+    group's bytes from es0 * HW (``store_tall``: the head up to a 16-byte
+    boundary and the last group's ragged tail byte by byte); the words
+    instance (``"words"``) stores each live row's bits as the int64
+    out[es * H + row]."""
     h, w, s = cfg.height, cfg.width, cfg.queue_size
-    nr = -(-h // 32)
+    k = ANCHOR_ROWS if entry == "words" else MASK_ANCHOR_ROWS
+    envs = envs or mk.shape[0]
+    seg = -(-h // k)
+    threads = -(-envs * seg // 32) * 32
+    assert threads <= MAX_ANCHOR_THREADS
+    warp = 32 % seg == 0 and envs % (32 // seg) == 0
+    per, gn = (32 // seg, 32) if warp else (envs, threads)
+    stride = mk.tables.nwords * mk.tables.fpw - 1 + k * seg      # a board, its full rows
+    pad = stride - h
+    boards = (per + s - 2) // s + 1                             # the most envs a group reads
+    assert 4 * (threads // gn) * (boards * stride + (per * h if entry == "mask" else 0)) == (
+        anchor_smem_bytes(cfg, envs, mk.tables.nwords * mk.tables.fpw, entry == "words"))
+    total, hw = len(words) * s, cfg.num_cells
     prow = mk.prow32.numpy().view(np.uint32).astype(np.int64)
     piece_w = mk.piece_w32.numpy()
     nwords, fpw = mk.tables.nwords, mk.tables.fpw
-    full = (1 << w) - 1 & U32
-    rows = _slot_rows(nr)[None]
-    x = np.where(rows < h, words.astype(np.int64)[(es // s)[:, None, None],
-                                                   np.minimum(rows, h - 1)], full)
-    pid = queue.reshape(-1)[es]
-    has = (pid >= 0) & (pid < mk.num_pieces)
-    p = np.where(has, pid, 0)
-    pw = np.where(has, piece_w[p], w + 1)[:, None, None]
-    blocked = np.zeros_like(x)
-    assert nwords * fpw <= 32
-    for k in range(nwords):
-        wk = np.zeros_like(x)
-        for f in range(fpw):
-            wk |= _shl32(_rows_below(x, k * fpw + f, full), f * w)
-        m = np.where(pw <= w, prow[p, k][:, None, None], 0)
-        for bit in range(32):                                 # each footprint cell
-            blocked |= np.where((m >> bit) & 1, wk >> bit, 0)
-    anchors = np.where(pw <= w, _shl32(1, np.maximum(w - pw + 1, 0)) - 1 & U32, 0)
-    return ~blocked & anchors
-
-
-def emulate_packed_mask_tall(cfg, words, queue, mk):
-    """csrc/packed_tall.cu packed_mask_tall_kernel on ``mk``'s launch shape:
-    blocks of ``warps`` env-slots, their rows' legal bits staged, then
-    stored by ``store_tall`` from the block's byte offset."""
-    h, w, s = cfg.height, cfg.width, cfg.queue_size
-    n, hw, total = len(words), cfg.num_cells, len(words) * cfg.queue_size
-    nr = -(-h // 32)
-    _, warps = mk.shape
-    out = np.full(total * hw, 2, np.uint8)                    # 2: never written
-    for first in range(0, total, warps):
-        count = min(warps, total - first)
-        bits = emulate_legal_tall(cfg, words, queue, mk, first + np.arange(count))
-        staged = np.full(warps * h, -1, np.int64)
-        for seg in range(count):
-            for j in range(nr):
-                for l in range(32):
-                    if l + 32 * j < h:
-                        staged[seg * h + l + 32 * j] = bits[seg, j, l]
-        emulate_store_tall(staged, out, first * hw, count * hw, w, 1)
+    full = ((1 << w) - 1) & U32
+    x64 = words.astype(np.int64)
+    ids = queue.reshape(-1)
+    if entry == "words":
+        out = np.full(total * h, -1, np.int64)                 # -1: never written
+    else:
+        out = np.full(total * hw, 2, np.uint8)                 # 2: never written
+    e = _small_div(np.arange(gn), seg)
+    c = np.arange(gn) - e * seg
+    rows = c[None] + seg * np.arange(k)[:, None]               # (K, threads)
+    for es0 in range(0, total, per):                           # each group's first
+        count = min(per, total - es0)
+        env0 = es0 // s
+        nenv = (es0 + count - 1) // s - env0 + 1
+        board = np.full(nenv * stride, -1, np.int64)           # -1: never staged
+        j = np.arange(nenv * h)                                 # one contiguous read
+        board[j + _small_div(j, h) * pad] = x64[env0 : env0 + nenv].reshape(-1)
+        if pad:
+            j = np.arange(nenv * pad)                           # no loads
+            board[j + (_small_div(j, pad) + 1) * h] = full
+        assert (board >= 0).all() and nenv <= boards
+        live = e < count
+        es = es0 + e
+        pid = np.where(live, ids[np.minimum(es, total - 1)], -1)
+        has = (pid >= 0) & (pid < mk.num_pieces)
+        p = np.where(has, pid, 0)
+        pw = np.where(has, piece_w[p], w + 1)                  # none: no anchor
+        base = _small_div(es0 - env0 * s + e, s) * stride      # its env's board
+        blocked = np.zeros((k, gn), np.int64)
+        for t in range(nwords * fpw):
+            m = np.where(live & (pw <= w), prow[p, t // fpw], 0)
+            cells = (m >> ((t % fpw) * w)) & full              # piece row t
+            y = board[np.where(live, base + rows + t, 0)]     # read by live threads
+            for col in range(w):                                # each cell column
+                blocked |= np.where((cells >> col) & 1, y >> col, 0)
+        anchors = np.where(pw <= w, _shl32(1, np.maximum(w - pw + 1, 0)) - 1 & U32, 0)
+        bits = ~blocked & anchors
+        held = live & (rows < h)
+        if entry == "words":
+            at = (es * h + rows)[held]
+            assert (out[at] == -1).all()                       # written once
+            out[at] = bits[held]
+        else:
+            legal = np.full(per * h, -1, np.int64)
+            legal[(e * h + rows)[held]] = bits[held]
+            emulate_store_tall(legal, out, es0 * hw, count * hw, w, 1)
+    if entry == "words":
+        assert (out >= 0).all()
+        return out.reshape(len(words), s * h)
     assert (out < 2).all()
-    return out.reshape(n, s * hw).astype(bool)
+    return out.reshape(len(words), s * hw).astype(bool)
 
 
-def emulate_packed_words_tall(cfg, words, queue, mk):
-    """The tall words kernel: each lane's rows' bits as int64 at
-    out[es * H + r]."""
-    h, total = cfg.height, len(words) * cfg.queue_size
-    bits = emulate_legal_tall(cfg, words, queue, mk, np.arange(total))
-    rows = _slot_rows(bits.shape[1])
-    out = np.full(total * h, -1, np.int64)
-    for j, l in zip(*np.nonzero(rows < h)):
-        out[np.arange(total) * h + rows[j, l]] = bits[:, j, l]
-    assert (out >= 0).all()
-    return out.reshape(len(words), -1)
+def emulate_packed_anchor_words(cfg, words, queue, mk, envs=None):
+    """The words instance of the tall mask (``emulate_packed_anchor``): (N,
+    S*H) int64 legal row words."""
+    return emulate_packed_anchor(cfg, words, queue, mk, envs, "words")
 
 
 # -------------------------------------------------- packed, general ----
@@ -870,7 +925,7 @@ def test_packed_wrappers_name_a_kernel_for_every_height_jax_takes(height):
     assert all(e in _build.SIGNATURES for e in entries)
     assert (mk.shape is not None) == (kind == "tall")
     if kind == "tall":
-        assert mk.shape == tall_launch_shape(ct) and 4 <= mk.shape[1] <= 16
+        assert mk.shape == anchor_launch_shape(ct) and mk.shape[0] >= 1
     # a board of at most 32 rows keeps its bit-row kernels
     short = tcfg.EnvConfig(height=32, width=9)
     assert PackedApplyKernel(short, "cpu").name == "packed_apply"
@@ -910,6 +965,30 @@ def test_tall_packed_apply_matches_jax_packed_step(case):
     assert (ak.launches, ak.tall_launches, ak.general_launches) == (0, 0, 0)
 
 
+def _mask_inputs(cfg, n, seed):
+    """Boards at a fill of 0.3 with full lines at the seams (``tall_cells``)
+    as packed words, and hands with ids from -1 to P + 1 (empty slots and
+    ids past the sentinel), an empty hand first and a 1x5 bar second."""
+    rng = np.random.default_rng(seed)
+    words = np_words(tall_cells(cfg, n, rng, fill=0.3))
+    num_pieces = rules.tables_for(cfg).num_pieces
+    queue = rng.integers(-1, num_pieces + 2, (n, cfg.queue_size)).astype(np.int32)
+    queue[0] = num_pieces
+    queue[1] = 4                                           # a 1x5 bar
+    return words, queue
+
+
+def _jax_mask(env_j, words, queue, num_pieces):
+    """JAX's mask and legal words on ``words``/``queue`` (ids clipped to
+    [0, P]), and which envs hold only ids in [0, P] (the rows JAX's answer
+    is compared on; the others hold ids the wrappers read as empty)."""
+    jw, jq = jnp.asarray(words), jnp.asarray(np.clip(queue, 0, num_pieces))
+    dealt = (queue >= 0).all(axis=1) & (queue <= num_pieces).all(axis=1)
+    want = np.asarray(env_j._bitboard_mask_from_words(jw, jq))
+    want_words = np.asarray(jwords.legal_words(env_j, jw, jq)).astype(np.int64)
+    return want, want_words, dealt
+
+
 @pytest.mark.parametrize("case", [*PACKED_TALL, *PACKED_GENERAL])
 def test_tall_packed_mask_and_words_match_jax(case):
     """The bool mask against JAX's ``_bitboard_mask_from_words`` and the
@@ -918,16 +997,9 @@ def test_tall_packed_mask_and_words_match_jax(case):
     the sentinel, the words also equal to the mask packed to words."""
     env_j = jax_packed(case)
     _, ct = _pair({**PACKED_TALL, **PACKED_GENERAL}[case])
-    rng = np.random.default_rng(2)
-    words = np_words(tall_cells(ct, N, rng, fill=0.3))
+    words, queue = _mask_inputs(ct, N, 2)
     num_pieces = rules.tables_for(ct).num_pieces
-    queue = rng.integers(-1, num_pieces + 2, (N, ct.queue_size)).astype(np.int32)
-    queue[0] = num_pieces
-    queue[1] = 4                                           # a 1x5 bar: 5 rows
-    jw, jq = jnp.asarray(words), jnp.asarray(np.clip(queue, 0, num_pieces))
-    dealt = (queue >= 0).all(axis=1) & (queue <= num_pieces).all(axis=1)
-    want = np.asarray(env_j._bitboard_mask_from_words(jw, jq))
-    want_words = np.asarray(jwords.legal_words(env_j, jw, jq)).astype(np.int64)
+    want, want_words, dealt = _jax_mask(env_j, words, queue, num_pieces)
     mk = PackedMaskKernel(ct, "cpu")
     tw, tq = torch.as_tensor(words.astype(np.int64)), torch.as_tensor(queue)
     got, got_words = mk(tw, tq).numpy(), mk.words(tw, tq).numpy()
@@ -937,8 +1009,8 @@ def test_tall_packed_mask_and_words_match_jax(case):
         got[~dealt], mk.plain(tw, torch.as_tensor(np.where(
             (queue >= 0) & (queue < num_pieces), queue, num_pieces))).numpy()[~dealt])
     if mk.kind == "tall":
-        np.testing.assert_array_equal(emulate_packed_mask_tall(ct, words, queue, mk), got)
-        np.testing.assert_array_equal(emulate_packed_words_tall(ct, words, queue, mk),
+        np.testing.assert_array_equal(emulate_packed_anchor(ct, words, queue, mk), got)
+        np.testing.assert_array_equal(emulate_packed_anchor_words(ct, words, queue, mk),
                                       got_words)
     else:
         bits = emulate_legal_general(ct, words, queue, mk)
@@ -951,6 +1023,113 @@ def test_tall_packed_mask_and_words_match_jax(case):
     assert 0 < want.mean() < 1 and not got[0].any()
     assert (mk.launches, mk.tall_launches, mk.general_launches) == (0, 0, 0)
     assert (mk.words_launches, mk.words_tall_launches, mk.words_general_launches) == (0, 0, 0)
+
+
+# env-slots a block of the tall packed mask and words beside the wrapper's:
+# odd counts (spans off a 16-byte boundary on 33x9 and 36x9, envs split
+# across blocks where S > 1, the block staging and storing as one on
+# 64x8), and 4 and 6 (a warp staging and storing its own env-slots: the
+# mask's on 64x8 at 4, on 128x10 at both; the words' on 64x8 at 4 and 6,
+# on 128x10 at every count)
+ANCHOR_ENVS = [1, 4, 5, 6, 7]
+
+
+@pytest.mark.parametrize("case", PACKED_TALL)
+@pytest.mark.parametrize("envs", ANCHOR_ENVS)
+def test_tall_mask_launch_shapes_with_ragged_blocks(case, envs):
+    """The tall mask's and words' emulations at block sizes other than the
+    wrapper's: a last block that is ragged, blocks whose spans start off a
+    16-byte boundary (33x9 and 36x9, whose env-slots' outputs are no
+    multiple of 16 bytes), and, where S > 1, blocks that start inside an
+    env's slots (its board staged by both); blocks that stage and store as
+    one and warps that do so each; on N = 13 and 11, equal to the plain
+    versions on every env and to JAX on the envs dealt only ids in [0,
+    P]."""
+    env_j = jax_packed(case)
+    _, ct = _pair(PACKED_TALL[case])
+    mk = PackedMaskKernel(ct, "cpu")
+    num_pieces = rules.tables_for(ct).num_pieces
+    for n in (N, 11):
+        assert n * ct.queue_size % envs or envs == 1        # ragged, or a block an env-slot
+        words, queue = _mask_inputs(ct, n, n)
+        want, want_words, dealt = _jax_mask(env_j, words, queue, num_pieces)
+        tw, tq = torch.as_tensor(words.astype(np.int64)), torch.as_tensor(queue)
+        got = emulate_packed_anchor(ct, words, queue, mk, envs)
+        got_words = emulate_packed_anchor_words(ct, words, queue, mk, envs)
+        np.testing.assert_array_equal(got, mk(tw, tq).numpy())
+        np.testing.assert_array_equal(got_words, mk.words(tw, tq).numpy())
+        np.testing.assert_array_equal(got[dealt], want[dealt])
+        np.testing.assert_array_equal(got_words[dealt], want_words[dealt])
+
+
+@pytest.mark.parametrize("case", PACKED_TALL)
+def test_tall_mask_reads_past_a_boards_bottom_as_full(case):
+    """A vertical 1x5 bar anchored on a board's last four rows reaches past
+    its bottom, where the next env's board is staged (the same board's top
+    for the next slot where S > 1), here with empty top rows: those anchors
+    are illegal, as JAX says, in the plain versions and in the emulations
+    at the wrapper's block size and at ``ANCHOR_ENVS``."""
+    env_j = jax_packed(case)
+    _, ct = _pair(PACKED_TALL[case])
+    h, n = ct.height, 7
+    t = rules.tables_for(ct)
+    bar = int(np.flatnonzero((t.piece_h == 5) & (t.piece_w == 1))[0])
+    cells = (np.random.default_rng(4).random((n, h, ct.width)) < 0.3).astype(np.uint8)
+    cells[:, :8] = cells[:, h - 8:] = 0                    # empty top and bottom rows
+    words = np_words(cells)
+    queue = np.full((n, ct.queue_size), bar, np.int32)
+    want, want_words, dealt = _jax_mask(env_j, words, queue, t.num_pieces)
+    assert dealt.all()
+    legal = want.reshape(n, ct.queue_size, h, ct.width)
+    assert legal[:, :, h - 8 : h - 4, 0].all() and not legal[:, :, h - 4 :].any()
+    mk = PackedMaskKernel(ct, "cpu")
+    tw, tq = torch.as_tensor(words.astype(np.int64)), torch.as_tensor(queue)
+    np.testing.assert_array_equal(mk(tw, tq).numpy(), want)
+    np.testing.assert_array_equal(mk.words(tw, tq).numpy(), want_words)
+    for envs in (None, *ANCHOR_ENVS):
+        np.testing.assert_array_equal(emulate_packed_anchor(ct, words, queue, mk, envs), want)
+        np.testing.assert_array_equal(
+            emulate_packed_anchor_words(ct, words, queue, mk, envs), want_words)
+
+
+def test_tall_mask_launch_shape_fits_and_aligns():
+    """Every packed board the tall mask and words take (32 < H <= 128, W <=
+    32) gets the fewest env-slots a block, at least ``ANCHOR_THREADS``
+    threads of the words entry's ``ANCHOR_ROWS`` anchor rows each, whose
+    output is a multiple of 16 bytes, so that every block's span of the
+    mask starts on a 16-byte boundary; for each entry (the mask at
+    ``MASK_ANCHOR_ROWS``) at most ``MAX_ANCHOR_THREADS`` threads and 48 KB
+    of shared memory (no opt-in) for hands of 1 to 3 slots and footprints
+    of up to 32 rows, and at most K - 1 of a segment's K * ceil(H / K)
+    slots hold no row; the kernel's float32 quotients (``small_div``) of a
+    thread index by C, of a staged row by H, of a staged full row by the
+    full rows a board and of a block's first slot plus an env-slot by S are
+    exact; other boards get no such shape."""
+    for h in range(33, 129):
+        for w in range(1, 33):
+            (envs,) = anchor_launch_shape(tcfg.EnvConfig(height=h, width=w))
+            seg = -(-h // ANCHOR_ROWS)
+            assert ANCHOR_THREADS <= envs * seg
+            assert envs * h * w % 16 == 0 and not any(
+                fewer * seg >= ANCHOR_THREADS and fewer * h * w % 16 == 0
+                for fewer in range(1, envs))
+            for k, words in ((ANCHOR_ROWS, True), (MASK_ANCHOR_ROWS, False)):
+                seg = -(-h // k)
+                assert k * seg - h <= k - 1
+                threads = -(-envs * seg // 32) * 32
+                assert threads <= MAX_ANCHOR_THREADS
+                for s in (1, 2, 3):
+                    big = tcfg.EnvConfig(height=h, width=w, queue_size=s)
+                    assert anchor_smem_bytes(big, envs, 32, words) <= 48 * 1024  # most reach
+                    if w == 9:
+                        boards = (envs + s - 2) // s + 1
+                        _small_div(np.arange(s + envs), s)     # asserts the quotients
+                        _small_div(np.arange(boards * h), h)
+                        _small_div(np.arange(boards * (31 + k * seg - h)), 31 + k * seg - h)
+                if w == 9:
+                    _small_div(np.arange(threads), seg)
+    for h, w in ((32, 9), (129, 9), (40, 33)):
+        assert anchor_launch_shape(tcfg.EnvConfig(height=h, width=w)) is None
 
 
 def _u8_inputs(cfg, n, rng, fill):

@@ -442,6 +442,44 @@ def test_apply_kernels_beyond_32x32_are_bytes_bound():
         assert b["bound_by"] == "bytes" and round(b["bound_ms"], 6) == ms
 
 
+# the tall packed mask's and words' bounds at N = 49152 on the boards
+# ``chip_measure.py --parts tall`` times them on, a hand of ids drawn
+# uniformly from the piece set and the empty id, as there
+# (``chip_smoke.kernel_inputs``): (H, W, S) -> (mask, words) bound in ms and
+# what sets it
+TALL_PACKED_BOUNDS = {
+    (33, 9, 1): ((0.008290, "bytes"), (0.007806, "bytes")),
+    (36, 9, 3): ((0.018663, "bytes"), (0.017717, "operations")),
+    (64, 8, 1): ((0.015083, "bytes"), (0.015083, "bytes")),
+    (128, 10, 1): ((0.033864, "bytes"), (0.030107, "bytes"))}
+
+
+@pytest.mark.parametrize("board", TALL_PACKED_BOUNDS)
+def test_tall_packed_mask_and_words_bounds(board):
+    """B7 tall and B7w tall read H int64 words and S int32 ids an env and
+    write S*H*W bools (the mask) or S*H int64 words: bytes-bound on every
+    tall board the measurements take but the words on 36x9 with a hand of
+    three, whose 3 * 36 anchor rows' tests outweigh its bytes, at the
+    recorded bounds."""
+    from blockpuzzle_tpu_torch import rules
+    from blockpuzzle_tpu_torch.config import EnvConfig
+    from blockpuzzle_tpu_torch.utils.bounds import kernel_bounds
+
+    h, w, s = board
+    n = 49152
+    cfg = EnvConfig(height=h, width=w, queue_size=s, region_clear=s > 1, region_size=3)
+    p = rules.tables_for(cfg).num_pieces
+    queue = torch.as_tensor(np.random.default_rng(0).integers(0, p + 1, (n, s), dtype=np.int32))
+    words = torch.zeros((n, h), dtype=torch.int64)
+    outs = {"packed_mask_tall": torch.zeros((n, s * h * w), dtype=torch.bool),
+            "packed_legal_words_tall": torch.zeros((n, s * h), dtype=torch.int64)}
+    got = kernel_bounds(cfg, None, queue, None, None, words, None, None, None, outs)
+    for (name, b), (ms, by), out_bytes in zip(got.items(), TALL_PACKED_BOUNDS[board],
+                                             (s * h * w, 8 * s * h)):
+        assert b["bytes"] == n * (8 * h + 4 * s + out_bytes), name
+        assert b["bound_by"] == by and round(b["bound_ms"], 6) == ms, name
+
+
 def test_draw_operations_count_the_busier_pipe():
     """A deal's operations are its ALU pipe's, which outnumber its
     multiplies (the fold's, two a lane and the lane's ``__umulhi``, on the
