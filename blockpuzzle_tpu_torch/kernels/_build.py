@@ -79,6 +79,7 @@ SIGNATURES = {
     "bp_deal": [_P, _P, _U32, _I, _I, _I, _P, _I, _P],
     "bp_uniform_legal": [_P, _U32, _I, _P, _P, _I, _I, _P],
     "bp_words_select": [_P, _U32, _I, _P, _P, _I, _I, _I, _P],
+    "bp_words_select_lanes": [_P, _U32, _I, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

@@ -69,10 +69,32 @@
 // on an H100 at N = 49152, reading straight beat staging on every
 // word-row preset (5.9 us against 6.8 us at A = 100).
 //
-// B2w: one thread per env walks its S*H words twice (the popcount total,
-// then the word search), the second time from L1; the float product is
-// `__fmul_rn`, so it is neither contracted nor rounded otherwise, and the
-// cast truncates toward zero as JAX's int32 cast does.
+// B2w: a segment of L = 2^k <= 32 threads an env, about one for every 8
+// of its S*H words, 12 where they load one at a time (`select_log_lanes`:
+// 2 on the default preset's 10, 4 on tenten's 30, woodoku's 27 and 33x9's
+// 33, 8 on big's 48, 16 on 108, 32 from 129 on).  Lane q holds the
+// contiguous span of words [q * span, (q + 1) * span) of the row, span =
+// ceil(S*H / L) (even where 16-byte loads serve: an even S*H on an aligned
+// base, so every span starts on a 16-byte boundary), read once into
+// registers as 16-byte or 8-byte loads, a warp's loads of its envs' rows
+// adjacent.  The last lane of the segment loads the key and folds the draw
+// while the words are in flight.  Each lane popcounts its span, the
+// segment takes an inclusive scan of the counts by `__shfl_up_sync`, the
+// last lane's is the total; it forms r = min(trunc(u * float(total)),
+// total - 1) (`__fmul_rn`, so neither contracted nor rounded otherwise, the
+// cast truncating toward zero as JAX's int32 cast does) and broadcasts it,
+// -1 where the total is 0 (then lane 0 stores action 0).  The one lane
+// whose span holds rank r finds its word among its registers and runs the
+// 5-step rank-select there, so no word is read twice.  A span of more than
+// 32 words (rows of more than 1024 words) is walked 32 words at a time and
+// the lane holding r reads its span again up to the 32 words that hold it.
+// It answers what bounded the thread-an-env kernel it replaces, which
+// walked its S*H words twice, the second time to search, a warp's loads
+// touching 32 rows at once (4.2 us on the default preset, 33% of its bytes
+// bound).  Timed in turns with it on an H100 (chip_measure.py --parts
+// draws): 1.10x faster on the default preset, where the launch and the
+// words' read from L2 set the time, 1.4-3.6x on the other presets and
+// 1.55-2.9x on rows of 33 to 512 words.
 
 #include <climits>
 #include <cstdint>
@@ -83,11 +105,13 @@
 
 namespace {
 
-constexpr int kThreads = 256;        // B2w's block
+constexpr int kSelectThreads = 128;  // B2w's block: 0-2% faster than 256 or 512
+constexpr int kMaxSpan = 32;         // words a B2w lane holds in registers at most
 constexpr int kDealEnvs = 128;       // B9's block: one thread an env
 constexpr int kStagedLanes = 16;     // B9 widths staged in shared memory
 constexpr int kArgmaxEnvs = 64;      // envs a block of B2 at most
 constexpr int kStaticSmem = 48 * 1024;
+using bit_rows::kAll;
 
 // lane j of a deal: the high word of bits * P, uniform in [0, P)
 __device__ __forceinline__ int32_t deal_lane(uint32_t seed, int j, uint32_t num_pieces) {
@@ -234,43 +258,115 @@ __global__ void __launch_bounds__(kArgmaxEnvs * 4)
   if (q == 0) out[e] = idx;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Words [c0, c0 + K) of `row` that lie before `end` into x, 0 past it: as
+// K / 2 16-byte loads where kVec (row + c0 on a 16-byte boundary, end - c0
+// even), else K 8-byte loads.
+template <int K, bool kVec>
+__device__ __forceinline__ void load_span(const long long* __restrict__ row, int c0, int end,
+                                          uint32_t x[K]) {
+  if constexpr (kVec) {
+#pragma unroll
+    for (int u = 0; u < K; u += 2) {
+      const longlong2 v = c0 + u < end ? *reinterpret_cast<const longlong2*>(row + c0 + u)
+                                       : make_longlong2(0, 0);
+      x[u] = static_cast<uint32_t>(v.x);
+      x[u + 1] = static_cast<uint32_t>(v.y);
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < K; ++u) x[u] = c0 + u < end ? static_cast<uint32_t>(row[c0 + u]) : 0u;
+  }
+}
+
+template <int K>
+__device__ __forceinline__ int span_count(const uint32_t x[K]) {
+  int c = 0;
+#pragma unroll
+  for (int u = 0; u < K; ++u) c += __popc(x[u]);
+  return c;
+}
+
+// B2w: a segment of 2^log_lanes threads an env, lane q the words [q *
+// span, (q + 1) * span) of its row, K (>= span but where span > kMaxSpan)
+// of them in registers at a time; see the head of this file.
+template <int K, bool kVec>
+__global__ void __launch_bounds__(kSelectThreads)
     words_select_kernel(const unsigned long long* __restrict__ key, uint32_t counter,
                         uint32_t tag, const long long* __restrict__ words,
-                        long long* __restrict__ out, int n, int nwords, int width) {
-  const int env = blockIdx.x * kThreads + threadIdx.x;
-  if (env >= n) return;
-  const uint32_t bits = lane_bits(stream_hash(key[env], counter), tag, 0);
-  const float u = __fmul_rn(static_cast<float>(bits >> 9), 1.0f / 8388608.0f);
-  const long long* w = words + static_cast<long long>(env) * nwords;
-  int total = 0;
-  for (int k = 0; k < nwords; ++k) total += __popc(static_cast<uint32_t>(w[k]));
-  if (total == 0) {
-    out[env] = 0;
+                        long long* __restrict__ out, int n, int nwords, int width,
+                        int log_lanes, int span) {
+  const int lanes = 1 << log_lanes;
+  const int q = threadIdx.x & (lanes - 1);
+  const int e = blockIdx.x * (kSelectThreads >> log_lanes) + (threadIdx.x >> log_lanes);
+  const bool live = e < n;
+  const bool last = q == lanes - 1;
+  const unsigned long long k64 = live && last ? key[e] : 0ull;
+  const long long* row = words + static_cast<long long>(e) * nwords;
+  const int begin = min(q * span, nwords);
+  const int end = live ? min(begin + span, nwords) : begin;
+  uint32_t x[K];
+  load_span<K, kVec>(row, begin, end, x);
+  // the draw's uniform, folded in the last lane while the words fly
+  const uint32_t bits = last ? lane_bits(stream_hash(k64, counter), tag, 0) : 0u;
+  int count = span_count<K>(x);
+  for (int c0 = begin + K; c0 < end; c0 += K) {  // spans of more than K words
+    load_span<K, kVec>(row, c0, end, x);
+    count += span_count<K>(x);
+  }
+  // the segment's inclusive scan of the counts: the total in its last lane
+  int incl = count;
+  for (int d = 1; d < lanes; d <<= 1) {
+    const int y = __shfl_up_sync(kAll, incl, d, lanes);
+    if (q >= d) incl += y;
+  }
+  int r = -1;  // the rank of the drawn bit; -1: no legal action
+  if (last && incl > 0) {
+    const float u = __fmul_rn(static_cast<float>(bits >> 9), 1.0f / 8388608.0f);
+    r = min(static_cast<int>(__fmul_rn(u, static_cast<float>(incl))), incl - 1);
+  }
+  r = __shfl_sync(kAll, r, lanes - 1, lanes);
+  if (!live) return;
+  if (r < 0) {
+    if (q == 0) out[e] = 0;
     return;
   }
-  const int r = min(static_cast<int>(__fmul_rn(u, static_cast<float>(total))), total - 1);
-  // the word holding the r-th legal bit: the first whose running count
-  // passes r (one exists, as r < total)
-  int k = 0;
-  int prev = 0;
-  uint32_t word = static_cast<uint32_t>(w[0]);
-  for (int c = __popc(word); prev + c <= r; c = __popc(word)) {
-    prev += c;
-    word = static_cast<uint32_t>(w[++k]);
-  }
-  // the (r - prev)-th set bit of the word: 5-step binary search on prefix
-  // popcounts, as rank_select_bit
-  int rem = r - prev;
-  int pos = 0;
-  for (int span = 16; span > 0; span >>= 1) {
-    const int c = __popc(word & (((1u << span) - 1u) << pos));
-    if (rem >= c) {
+  int rem = r - (incl - count);  // the rank inside this lane's span
+  if (rem < 0 || rem >= count) return;  // another lane's span holds it
+  int c0 = begin;
+  if (span > K) {  // read the span again up to the K words holding the rank
+    for (;; c0 += K) {
+      load_span<K, kVec>(row, c0, end, x);
+      const int c = span_count<K>(x);
+      if (rem < c) break;
       rem -= c;
-      pos += span;
     }
   }
-  out[env] = static_cast<long long>(k) * width + pos;
+  // the word holding it: the first whose running count passes rem
+  int k = 0;
+  int prev = 0;
+  uint32_t word = 0;
+#pragma unroll
+  for (int u = 0, acc = 0; u < K; ++u) {
+    const int c = __popc(x[u]);
+    if (acc <= rem && rem < acc + c) {
+      k = u;
+      prev = acc;
+      word = x[u];
+    }
+    acc += c;
+  }
+  // the (rem - prev)-th set bit of the word: 5-step binary search on prefix
+  // popcounts, as rank_select_bit
+  rem -= prev;
+  int pos = 0;
+  for (int half = 16; half > 0; half >>= 1) {
+    const int c = __popc(word & (((1u << half) - 1u) << pos));
+    if (rem >= c) {
+      rem -= c;
+      pos += half;
+    }
+  }
+  out[e] = static_cast<long long>(c0 + k) * width + pos;
 }
 
 }  // namespace
@@ -282,7 +378,7 @@ extern "C" int bp_deal(const void* key, const void* counter, uint32_t counter0, 
                        int width, int num_pieces, void* out, int n, void* stream) {
   const long long total = static_cast<long long>(n) * width;
   if (tag < 0 || tag >= (1 << 16) || width < 1 || width > (1 << 16) || num_pieces < 1 ||
-      n < 0 || total > INT_MAX - kThreads || reinterpret_cast<uintptr_t>(out) % 16 != 0) {
+      n < 0 || total > INT_MAX - 256 || reinterpret_cast<uintptr_t>(out) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n > 0) {
@@ -348,22 +444,75 @@ extern "C" int bp_uniform_legal(const void* key, uint32_t counter, int tag,
   return static_cast<int>(cudaGetLastError());
 }
 
-// key (N,) i64; words (N, nwords) i64 holding u32 row words, contiguous;
-// out (N,) i64; width the board's W (the action is word * W + bit);
-// tag < 2^16; N < 2^31 - 2^8.
-extern "C" int bp_words_select(const void* key, uint32_t counter, int tag,
-                               const void* words, void* out, int n, int nwords,
-                               int width, void* stream) {
+// Threads an env of B2w, as log2, from the row's S*H words: the least
+// power of two L with L * kSpanWords >= S*H, at most a warp, kSpanWords 8
+// words a lane where they load as 16-byte pairs (`vec`), else 12.  Timed
+// on an H100 at every width in turns (chip_measure.py --parts draws): the
+// fastest width, or within 1% of it, on the presets and on rows of 33,
+// 108, 130 and 512 words; a lane of 2 words was up to 2.5x slower.
+static int select_log_lanes(int nwords, bool vec) {
+  const int span = vec ? 8 : 12;
+  int log = 0;
+  while (log < 5 && (span << log) < nwords) ++log;
+  return log;
+}
+
+using SelectKernel = void (*)(const unsigned long long*, uint32_t, uint32_t, const long long*,
+                              long long*, int, int, int, int, int);
+
+template <bool kVec>
+static SelectKernel select_kernel(int span) {
+  return span <= 2    ? words_select_kernel<2, kVec>
+         : span <= 4  ? words_select_kernel<4, kVec>
+         : span <= 8  ? words_select_kernel<8, kVec>
+         : span <= 16 ? words_select_kernel<16, kVec>
+                      : words_select_kernel<kMaxSpan, kVec>;
+}
+
+static int launch_select(const void* key, uint32_t counter, int tag, const void* words,
+                         void* out, int n, int nwords, int width, int log_lanes,
+                         cudaStream_t stream) {
   if (tag < 0 || tag >= (1 << 16) || nwords < 1 || width < 1 || width > 32 || n < 0 ||
-      n > INT_MAX - kThreads) {
+      n > INT_MAX - kSelectThreads || log_lanes < 0 || log_lanes > 5) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n > 0) {
-    const int blocks = (n + kThreads - 1) / kThreads;
-    words_select_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    // 16-byte loads where every row and every span starts on a 16-byte
+    // boundary: an even S*H on an aligned base, an even span
+    const bool vec = nwords % 2 == 0 && reinterpret_cast<uintptr_t>(words) % 16 == 0;
+    const int lanes = 1 << log_lanes;
+    int span = (nwords + lanes - 1) / lanes;
+    span += vec ? span & 1 : 0;
+    const SelectKernel kernel = vec ? select_kernel<true>(span) : select_kernel<false>(span);
+    const int envs = kSelectThreads >> log_lanes;  // envs a block
+    kernel<<<(n + envs - 1) / envs, kSelectThreads, 0, stream>>>(
         static_cast<const unsigned long long*>(key), counter, static_cast<uint32_t>(tag),
-        static_cast<const long long*>(words), static_cast<long long*>(out), n, nwords,
-        width);
+        static_cast<const long long*>(words), static_cast<long long*>(out), n, nwords, width,
+        log_lanes, span);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// key (N,) i64; words (N, nwords) i64 holding u32 row words, contiguous, at
+// any 8-byte aligned address; out (N,) i64; width the board's W (the
+// action is word * W + bit); tag < 2^16; N < 2^31 - 2^8.
+extern "C" int bp_words_select(const void* key, uint32_t counter, int tag,
+                               const void* words, void* out, int n, int nwords,
+                               int width, void* stream) {
+  const bool vec = nwords % 2 == 0 && reinterpret_cast<uintptr_t>(words) % 16 == 0;
+  return launch_select(key, counter, tag, words, out, n, nwords, width,
+                       select_log_lanes(nwords, vec), static_cast<cudaStream_t>(stream));
+}
+
+// B2w with its segment chosen: `lanes` threads an env, a power of two from
+// 1 to 32; bp_words_select's other arguments.  The measurements and phase
+// 1 hold every width bit-equal and time them in turns.
+extern "C" int bp_words_select_lanes(const void* key, uint32_t counter, int tag,
+                                     const void* words, void* out, int n, int nwords,
+                                     int width, int lanes, void* stream) {
+  if (lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_select(key, counter, tag, words, out, n, nwords, width, __builtin_ctz(lanes),
+                       static_cast<cudaStream_t>(stream));
 }

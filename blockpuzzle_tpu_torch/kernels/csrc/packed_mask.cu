@@ -54,12 +54,26 @@
 // the 16 bytes with one `uint4` store; the ragged tail goes byte by byte.
 // Every lane runs every shuffle and barrier.
 //
-// The words entry (`packed_words_kernel`) shares the per-lane legality
-// (`legal_row_bits`) and stores each lane's row word as it is, one int64 at
-// out[es * H + lane]: a warp's stores are one contiguous span, and there is
-// no shared memory and no barrier.  Its bound is device memory too: per env
-// H int64 words and S int32 ids in, S*H int64 words out, 164 B on the
-// default preset, 8.06 MB at N = 49152, 2.41 us at 3.35 TB/s.
+// The words entry (`packed_words_kernel`, B7w) shares the per-lane
+// legality (`row_bits`) and stores each lane's row word as it is, one int64
+// at out[es * H + lane]: a warp's stores are one contiguous span, and there
+// is no shared memory and no barrier.  Its bound is device memory too: per
+// env H int64 words and S int32 ids in, S*H int64 words out, 164 B on the
+// default preset, 8.06 MB at N = 49152, 2.41 us at 3.35 TB/s.  What holds it
+// is its issue rate: a warp carries only 32 / H env-slots (3 at H = 10)
+// through some 240 instructions, 16384 warps on the default preset.  Its
+// design cuts instructions, not round trips: the band's shuffle loops
+// unroll where the footprint's shape is known at compile time (the
+// presets' 2 words of 3 rows, `packed_words_kernel<2, 3>`; other shapes
+// the general loops), and the division by S drops where S = 1.  Timed in turns
+// on an H100 (chip_measure.py --parts kernels), unrolling took 0.70-0.80x
+// of the time of the kernel it replaces on every board of at most 32 rows;
+// persistent blocks walking groups of env-slots with the rule tables in
+// shared memory took 1.15-1.20x, the tables in shared memory alone
+// 1.05-1.08x.  From 16 rows, and where a warp here leaves 5 or more lanes
+// idle (9 and 11-13 rows), the words entry takes the tall words kernel of
+// packed_tall.cu instead (kernels/packed.py `words_kernel_kind`), which beat
+// this one on 9, 16 and 24 rows.
 //
 // The small quotients (lane / H, byte / W, both below 2^14) are a float
 // multiply by the reciprocal: (q + 1/2) / d lies at least 1/(2d) >= 1/64
@@ -85,44 +99,76 @@ __device__ __forceinline__ uint32_t spread4(uint32_t x) {
   return ((x & 0xfu) * 0x00204081u) & 0x01010101u;
 }
 
-// Legal bits of anchor row `lane` of env-slot `es` (bit c: anchor (lane, c)
-// is legal), 0 where the lane is not `active`.  Lane `l` of the warp holds
-// row `lane` of its segment; every lane of the warp must call it (it
+// Legal bits of anchor row `lane` (bit c: anchor (lane, c) is legal) of an
+// env-slot holding piece `pid` whose board row `lane` is `x` (`full` and -1
+// where the lane holds no env-slot: 0).  Lane `l` of the warp holds row
+// `lane` of its segment; every lane of the warp must call it (it
 // shuffles).  The mask and the words kernels both call it, so the two
-// entries cannot drift apart.
-__device__ __forceinline__ uint32_t legal_row_bits(
-    const long long* __restrict__ words, const int32_t* __restrict__ queue,
-    const uint32_t* __restrict__ prow, const int32_t* __restrict__ piece_w,
-    int es, bool active, int l, int lane, int height, int width, int slots,
-    int num_pieces, int nwords, int fpw) {
+// entries cannot drift apart.  NW > 0: the footprint words (NW of FPW
+// fields) are known at compile time and the band's loops unroll (the words
+// kernel's instances); NW = 0 takes nwords and fpw as they come.
+template <int NW = 0, int FPW = 0>
+__device__ __forceinline__ uint32_t row_bits(uint32_t x, int pid,
+                                             const uint32_t* __restrict__ prow,
+                                             const int32_t* __restrict__ piece_w, int l,
+                                             int lane, int height, int width, int num_pieces,
+                                             int nwords, int fpw) {
   const uint32_t full = width < 32 ? (1u << width) - 1u : kAll;
-  uint32_t x = full;
-  int pid = -1;
-  if (active) {
-    pid = queue[es];
-    x = static_cast<uint32_t>(words[static_cast<long long>(es / slots) * height + lane]);
-  }
   const bool has = pid >= 0 && pid < num_pieces;
   const int pw = has ? piece_w[pid] : width + 1;  // no piece: no anchor
   // blocked bit c: some footprint cell of anchor (lane, c) meets the board
   uint32_t blocked = 0;
-  for (int k = 0; k < nwords; ++k) {
-    // board rows lane + k*fpw + j in field j, rows past H full
-    uint32_t wk = 0;
-    for (int j = 0; j < fpw; ++j) {
-      const int t = lane + k * fpw + j;
-      const uint32_t y = __shfl_sync(kAll, x, t < height ? l + k * fpw + j : l);
-      wk |= (t < height ? y : full) << (j * width);
+  if constexpr (NW > 0) {  // the loops below, unrolled
+#pragma unroll
+    for (int k = 0; k < NW; ++k) {
+      uint32_t wk = 0;
+#pragma unroll
+      for (int j = 0; j < FPW; ++j) {
+        const int t = lane + k * FPW + j;
+        const uint32_t y = __shfl_sync(kAll, x, t < height ? l + k * FPW + j : l);
+        wk |= (t < height ? y : full) << (j * width);
+      }
+      if (pw <= width) {
+        for (uint32_t m = prow[pid * NW + k]; m != 0; m &= m - 1) {
+          blocked |= wk >> (__ffs(m) - 1);
+        }
+      }
     }
-    if (pw <= width) {
-      for (uint32_t m = prow[pid * nwords + k]; m != 0; m &= m - 1) {
-        blocked |= wk >> (__ffs(m) - 1);
+  } else {
+    for (int k = 0; k < nwords; ++k) {
+      // board rows lane + k*fpw + j in field j, rows past H full
+      uint32_t wk = 0;
+      for (int j = 0; j < fpw; ++j) {
+        const int t = lane + k * fpw + j;
+        const uint32_t y = __shfl_sync(kAll, x, t < height ? l + k * fpw + j : l);
+        wk |= (t < height ? y : full) << (j * width);
+      }
+      if (pw <= width) {
+        for (uint32_t m = prow[pid * nwords + k]; m != 0; m &= m - 1) {
+          blocked |= wk >> (__ffs(m) - 1);
+        }
       }
     }
   }
   return pw <= width
              ? ~blocked & ((width - pw + 1 < 32 ? 1u << (width - pw + 1) : 0u) - 1u)
              : 0u;
+}
+
+// `row_bits` of anchor row `lane` of env-slot `es`, its board row and piece
+// id read from device memory, 0 where the lane is not `active`.
+__device__ __forceinline__ uint32_t legal_row_bits(
+    const long long* __restrict__ words, const int32_t* __restrict__ queue,
+    const uint32_t* __restrict__ prow, const int32_t* __restrict__ piece_w,
+    int es, bool active, int l, int lane, int height, int width, int slots,
+    int num_pieces, int nwords, int fpw) {
+  uint32_t x = width < 32 ? (1u << width) - 1u : kAll;
+  int pid = -1;
+  if (active) {
+    pid = queue[es];
+    x = static_cast<uint32_t>(words[static_cast<long long>(es / slots) * height + lane]);
+  }
+  return row_bits(x, pid, prow, piece_w, l, lane, height, width, num_pieces, nwords, fpw);
 }
 
 __global__ void __launch_bounds__(kMaxWarps * 32)
@@ -175,7 +221,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 // The words entry: the same legal bits, stored as they are, one int64 word
 // per (env-slot, row) at out[es * H + lane].  A warp's segments are
 // consecutive env-slots, so its stores are one contiguous span; there is
-// no shared memory and no barrier.
+// no shared memory and no barrier.  NW, FPW: `row_bits`' instance.
+template <int NW, int FPW>
 __global__ void __launch_bounds__(kWordsWarps * 32)
     packed_words_kernel(const long long* __restrict__ words,
                         const int32_t* __restrict__ queue,
@@ -189,11 +236,16 @@ __global__ void __launch_bounds__(kWordsWarps * 32)
   const int lane = l - s * height;  // anchor row
   const int es = (blockIdx.x * kWordsWarps + threadIdx.x / 32) * per_warp + s;
   const bool active = s < per_warp && es < total;
-  const uint32_t bits = legal_row_bits(words, queue, prow, piece_w, es, active, l, lane,
-                                       height, width, slots, num_pieces, nwords, fpw);
+  uint32_t x = width < 32 ? (1u << width) - 1u : kAll;
+  int pid = -1;
   if (active) {
-    out[static_cast<long long>(es) * height + lane] = bits;
+    pid = queue[es];
+    const int env = slots > 1 ? es / slots : es;  // the same in every thread
+    x = static_cast<uint32_t>(words[static_cast<long long>(env) * height + lane]);
   }
+  const uint32_t bits = row_bits<NW, FPW>(x, pid, prow, piece_w, l, lane, height, width,
+                                          num_pieces, nwords, fpw);
+  if (active) out[static_cast<long long>(es) * height + lane] = bits;
 }
 
 }  // namespace
@@ -229,6 +281,8 @@ extern "C" int bp_packed_mask(const void* words, const void* queue,
 // The words entry: out (N, S*H) i64, word es*H + r holding the legal bits
 // of anchor row r of env-slot es; the other arguments as bp_packed_mask's,
 // with N*S < 2^31 - 2^9 (so that no thread's env-slot index overflows).
+// The footprint of the presets this kernel serves (default and tenten: 2
+// words of 3 rows) takes an unrolled instance, any other the general one.
 extern "C" int bp_packed_words(const void* words, const void* queue,
                                const void* prow, const void* piece_w,
                                void* out, int n, int height, int width,
@@ -242,7 +296,9 @@ extern "C" int bp_packed_words(const void* words, const void* queue,
   if (total > 0) {
     const int per_block = kWordsWarps * per_warp;
     const int blocks = static_cast<int>((total + per_block - 1) / per_block);
-    packed_words_kernel<<<blocks, kWordsWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+    const auto kernel =
+        nwords == 2 && fpw == 3 ? packed_words_kernel<2, 3> : packed_words_kernel<0, 0>;
+    kernel<<<blocks, kWordsWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const long long*>(words), static_cast<const int32_t*>(queue),
         static_cast<const uint32_t*>(prow), static_cast<const int32_t*>(piece_w),
         static_cast<long long*>(out), static_cast<int>(total), height, width, slots,

@@ -42,7 +42,11 @@
 // shuffles an env-slot on 33x9) before its first cell test.  Where C
 // divides 32 (57-64 and 121-128 rows in the mask, 61-64 and 125-128 in
 // the words entry), each warp stages and stores its own env-slots
-// (`kWarp`) and no block barrier runs.
+// (`kWarp`) and no block barrier runs.  The words entry also serves boards
+// of 16 to 32 rows and of 9 and 11-13 (kernels/packed.py
+// `words_kernel_kind`), where a warp of the bit-row words kernel carries
+// one or two env-slots or leaves 5 or more lanes idle (16 rows: C = 4, a
+// warp 8 env-slots, `kWarp`).
 
 // The general apply (H > 128, and any H >= 1 it is given): one warp an env
 // walking the board in windows of `cr` rows, one row a lane, so that
@@ -670,7 +674,8 @@ int launch_mask_general(bool windowed, bool words_out, const void* words, const 
 // env-slots a block, E * ceil(H / anchor_rows) threads at most
 // kMaxAnchorThreads (the mask's span starts on a 16-byte boundary where E *
 // HW is a multiple of 16, and the store takes any offset); the mask's out
-// 16-byte aligned; 32 < H <= 128, W <= 32, 1 <= S <= 32, N*S + E < 2^31,
+// 16-byte aligned; 1 <= H <= 128 (the mask: 32 < H), W <= 32, 1 <= S <= 32,
+// N*S + E < 2^31,
 // nwords * fpw <= 32 and the block's shared memory at most 48 KB.
 int launch_anchor(bool words_out, const void* words, const void* queue, const void* prow,
                   const void* piece_w, void* out, int n, int height, int width, int slots,
@@ -679,7 +684,8 @@ int launch_anchor(bool words_out, const void* words, const void* queue, const vo
   const int rows = anchor_rows(words_out);
   const int seg = (height + rows - 1) / rows;
   const long long threads = (static_cast<long long>(envs) * seg + 31) / 32 * 32;
-  if (!tall_args_ok(height, width) || envs < 1 || threads > kMaxAnchorThreads ||
+  if (height < 1 || height > kMaxRows || width < 1 || width > 32 || envs < 1 ||
+      threads > kMaxAnchorThreads ||
       total > INT_MAX - envs || slots < 1 || slots > 32 || nwords < 1 || fpw < 1 ||
       nwords * fpw > 32 ||
       (!words_out && (reinterpret_cast<uintptr_t>(out) & 15) != 0)) {
@@ -754,12 +760,16 @@ extern "C" int bp_packed_mask_tall(const void* words, const void* queue, const v
                                    const void* piece_w, void* out, int n, int height,
                                    int width, int slots, int num_pieces, int nwords,
                                    int fpw, int envs, void* stream) {
+  if (!tall_args_ok(height, width)) return static_cast<int>(cudaErrorInvalidValue);
   return launch_anchor(false, words, queue, prow, piece_w, out, n, height, width, slots,
                        num_pieces, nwords, fpw, envs, static_cast<cudaStream_t>(stream));
 }
 
 // The tall words entry: bp_packed_words's arguments with `envs` env-slots a
-// block in place of per_warp, as bp_packed_mask_tall.
+// block in place of per_warp, as bp_packed_mask_tall, on boards of 1 to 128
+// rows: the words entry takes it above 32 rows and, on fewer, where
+// kernels/packed.py `words_kernel_kind` says (on an H100 it beat the bit-row
+// words kernel on 9, 16 and 24 rows and lost to it on 10).
 extern "C" int bp_packed_words_tall(const void* words, const void* queue, const void* prow,
                                     const void* piece_w, void* out, int n, int height,
                                     int width, int slots, int num_pieces, int nwords,

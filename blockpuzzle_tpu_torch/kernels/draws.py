@@ -13,7 +13,9 @@ bits.  No Pallas source: the JAX package leaves its draws to XLA.
   ``TAG_POLICY`` u32 per action, and the argmax of ``uniform_legal``.
 * ``WordsSelectKernel`` (B2w): ``WordsSampler``'s draw, one ``TAG_POLICY``
   u32 per env made a uniform (``uniform_from_bits``), and the rank-select
-  of ``env/words.py`` ``sample_uniform_legal`` over the legal row words.
+  of ``env/words.py`` ``sample_uniform_legal`` over the legal row words;
+  on the card a segment of ``select_lanes`` threads an env, each holding
+  its span of the row's words (``select_shape``).
 
 Counters are taken mod 2**32: an int32 ``rng_counter`` that has wrapped
 negative draws what its ``uint32`` bits name.
@@ -156,6 +158,38 @@ class UniformLegalKernel:
         _build.check(err, "bp_uniform_legal")
         self.launches += 1
         return out
+
+
+# words a B2w lane holds in registers at most, and the kernel's instances
+# of its register span (csrc/draws.cu ``kMaxSpan``, ``select_kernel``)
+MAX_SPAN = 32
+SPANS = (2, 4, 8, 16, MAX_SPAN)
+
+
+def select_lanes(nwords: int, aligned: bool = True) -> int:
+    """Threads an env of B2w (csrc/draws.cu ``select_log_lanes``): the least
+    power of two L, at most a warp, whose lanes hold the row's S*H words at
+    8 a lane where they load as 16-byte pairs (an even S*H on an
+    ``aligned`` base), else 12: 2 on the default preset's 10 words, 4 on
+    tenten's 30, woodoku's 27 and 33x9's 33, 8 on big's 48."""
+    per_lane = 8 if nwords % 2 == 0 and aligned else 12
+    lanes = 1
+    while lanes < 32 and per_lane * lanes < nwords:
+        lanes *= 2
+    return lanes
+
+
+def select_shape(nwords: int, lanes: int, aligned: bool = True):
+    """B2w's launch (csrc/draws.cu ``launch_select``) at ``lanes`` threads an
+    env: (vec, span, K): 16-byte loads where S*H is even on a 16-byte
+    aligned base (``aligned``), lane q's words [q * span, (q + 1) * span)
+    with span = ceil(S*H / L), made even for 16-byte loads, and K, the
+    least of ``SPANS`` at least the span (``MAX_SPAN`` beyond: such spans
+    are walked K words at a time)."""
+    vec = nwords % 2 == 0 and aligned
+    span = -(-nwords // lanes)
+    span += span & 1 if vec else 0
+    return vec, span, next((k for k in SPANS if k >= span), MAX_SPAN)
 
 
 class WordsSelectKernel:

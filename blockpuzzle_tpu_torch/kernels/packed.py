@@ -81,6 +81,14 @@ ANCHOR_ROWS = 4
 MASK_ANCHOR_ROWS = 8
 ANCHOR_THREADS = 256
 MAX_ANCHOR_THREADS = 1024
+# where the words entry of a board of at most 32 rows takes the tall words
+# kernel (``words_kernel_kind``): from WORDS_TALL_FROM rows, and where a
+# warp of the bit-row kernel leaves WORDS_TALL_IDLE or more of its lanes
+# without a row.  Timed in turns on an H100 (PERF.md §6) the tall kernel
+# beat the bit-row one by 1.03-1.39x on 9 rows (5 lanes idle), 16 and 24,
+# and lost to it by 1.13-1.49x on 10 (2 idle)
+WORDS_TALL_FROM = 16
+WORDS_TALL_IDLE = 5
 
 
 def segments_per_warp(height: int) -> int:
@@ -128,22 +136,44 @@ def tall_launch_shape(cfg: EnvConfig):
     return _turns_shape(cfg)
 
 
-def anchor_launch_shape(cfg: EnvConfig):
+def anchor_launch_shape(cfg: EnvConfig, words: bool = False):
     """(env-slots a block E,) of the tall packed mask and its words entry,
-    for packed boards (W <= 32) of 32 < H <= ``MAX_TALL`` rows; None for
-    any other board.  A segment of C = ceil(H / K) threads takes an
+    for packed boards (W <= 32) of 32 < H <= ``MAX_TALL`` rows (``words``:
+    the words entry's, on boards of 1 to ``MAX_TALL`` rows); None for any
+    other board.  A segment of C = ceil(H / K) threads takes an
     env-slot, thread c its rows c + C j (K = ``ANCHOR_ROWS`` for the words
     entry, ``MASK_ANCHOR_ROWS`` for the mask); E is the fewest env-slots,
     at least ``ANCHOR_THREADS`` threads of the words entry, for which E * H
     * W is a multiple of 16, so that every block's span of the mask starts
     on a 16-byte boundary.  Computed once per wrapper, as
     ``row_launch_shape``."""
-    if not MAX_ROWS < cfg.height <= MAX_TALL or cfg.width > 32:
+    low = 0 if words else MAX_ROWS
+    if not low < cfg.height <= MAX_TALL or cfg.width > 32:
         return None
     seg = -(-cfg.height // ANCHOR_ROWS)
     step = 16 // int(np.gcd(cfg.height * cfg.width, 16))
     envs = -(-ANCHOR_THREADS // seg)
     return (-(-envs // step) * step,)
+
+
+def words_kernel_kind(cfg: EnvConfig) -> str:
+    """The kernel kind of the packed words entry on ``cfg``: the packed
+    mask's (``packed_kind``), but ``"tall"`` on a board of at most 32 rows
+    of ``WORDS_TALL_FROM`` rows or more, or where the bit-row warp leaves
+    ``WORDS_TALL_IDLE`` lanes idle (32 mod H), and ``"general"`` where a
+    footprint spans more than 32 rows above 32 rows (the packed mask's
+    kind on a board too wide for packed words, where no words kernel
+    runs)."""
+    kind = packed_kind(cfg)
+    if cfg.width > 32:
+        return kind
+    reach = bitboard_tables(cfg)
+    if kind == "tall" and reach.nwords * reach.fpw > 32:
+        return "general"
+    if kind == "rows" and reach.nwords * reach.fpw <= 32 and (
+            cfg.height >= WORDS_TALL_FROM or 32 % cfg.height >= WORDS_TALL_IDLE):
+        return "tall"
+    return kind
 
 
 def deep_launch_shape(cfg: EnvConfig):
@@ -458,11 +488,12 @@ def u8_kind(cfg: EnvConfig, shape) -> str:
     return "wide" if cfg.width > 32 else "rows"
 
 
-def count_launch(kernel, prefix: str = "") -> None:
+def count_launch(kernel, prefix: str = "", kind: str = "") -> None:
     """One more launch on the counter of the kernel the wrapper ``kernel``
-    picked (its ``kind``): ``<prefix>launches`` for the bit-row kernel, else
-    ``<prefix><kind>_launches``."""
-    attr = prefix + ("launches" if kernel.kind == "rows" else f"{kernel.kind}_launches")
+    picked (``kind``, its ``kind`` unless given): ``<prefix>launches`` for
+    the bit-row kernel, else ``<prefix><kind>_launches``."""
+    kind = kind or kernel.kind
+    attr = prefix + ("launches" if kind == "rows" else f"{kind}_launches")
     setattr(kernel, attr, getattr(kernel, attr) + 1)
 
 
@@ -630,7 +661,11 @@ class PackedMaskKernel:
     fields, ``nwords * fpw``, to span at most 32 rows, and every shipped
     piece set's do): the bit-row kernels where H <= 32 (``launches``
     counts the mask kernel's launches, ``words_launches`` the words
-    kernel's), the tall ones where H <= 128 (``tall_launches``,
+    kernel's, which unrolls its band loops on the default and tenten
+    footprint;
+    the words entry takes the tall kernel where ``words_kernel_kind`` says
+    so, from 16 rows and on 9: ``words_kind``, ``words_shape``), the tall
+    ones where H <= 128 (``tall_launches``,
     ``words_tall_launches``; both entries one kernel, a segment of threads
     an env-slot, ``MASK_ANCHOR_ROWS`` or ``ANCHOR_ROWS`` anchor rows a
     thread, the boards of a block's env-slots staged in shared memory,
@@ -660,7 +695,10 @@ class PackedMaskKernel:
         self.shape = {"rows": row_launch_shape(cfg), "tall": anchor_launch_shape(cfg),
                       "general": None}[self.kind]
         self.name = "packed_mask" + SUFFIX[self.kind]
-        self.words_name = "packed_legal_words" + SUFFIX[self.kind]
+        self.words_kind = words_kernel_kind(cfg)
+        self.words_shape = (anchor_launch_shape(cfg, words=True)
+                            if self.words_kind == "tall" else self.shape)
+        self.words_name = "packed_legal_words" + SUFFIX[self.words_kind]
         dev = self.device
         zero = np.zeros((1, bb.nwords), np.int64)
         # plain version: int64 tables with a zero row at the sentinel P
@@ -745,11 +783,12 @@ class PackedMaskKernel:
                           device=self.device)
         stream = torch.cuda.current_stream(self.device).cuda_stream
         # per_warp, (envs,) or nothing
-        shape = self.shape[:1] if self.kind == "rows" else self.shape or ()
-        entry = "bp_packed_words" + SUFFIX[self.kind]
+        shape = (self.words_shape[:1] if self.words_kind == "rows"
+                 else self.words_shape or ())
+        entry = "bp_packed_words" + SUFFIX[self.words_kind]
         with torch.cuda.device(self.device):
             err = getattr(_build.library(), entry)(
                 *self._args(words, queue, out), *shape, stream)
         _build.check(err, entry)
-        count_launch(self, "words_")
+        count_launch(self, "words_", self.words_kind)
         return out

@@ -81,7 +81,7 @@ import torch
 
 from blockpuzzle_tpu_torch import rules
 from blockpuzzle_tpu_torch.config import EnvConfig
-from blockpuzzle_tpu_torch.kernels.packed import bitboard_tables
+from blockpuzzle_tpu_torch.kernels.draws import select_lanes, select_shape
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 # H100 SXM 32-bit integer rate of one pipe: 132 SMs x 64 results a clock
@@ -292,13 +292,14 @@ def _packed_apply(cfg, inputs):
 
 
 def _packed_mask(cfg, inputs):
-    """B7 and its words entry B7w: inputs (words (N, H) i64, queue)."""
-    t = rules.tables_for(cfg)
-    bb = bitboard_tables(cfg)
-    w, queue = cfg.width, inputs[1]
-    anchors = _hand_sum(np.maximum(w - t.piece_w + 1, 0), 0, queue)
-    return cfg.height * bb.nwords * (3 * anchors
-                                     + 2 * bb.fpw * queue.shape[0] * cfg.queue_size)
+    """B7 and its words entry B7w: inputs (words (N, H) i64, queue).  The
+    least work of the test of a whole anchor row at once: each anchor row
+    of an env-slot holding a piece ORs each of the piece's cells' board row
+    shifted by the cell's column (2 operations a cell) and masks the result
+    to its legal columns (2); an empty slot tests nothing."""
+    cells = _hand_sum(rules.tables_for(cfg).piece_cells.astype(np.int64), 0, inputs[1])
+    slots = _hand_sum(np.ones(rules.tables_for(cfg).num_pieces, np.int64), 0, inputs[1])
+    return cfg.height * (2 * cells + 2 * slots)
 
 
 # the draws' operations on the ALU pipe and multiplies on the FMA pipe:
@@ -322,14 +323,35 @@ def _uniform_legal(cfg, inputs):
     return n * max(FOLD_OPS + SEED_OPS + (LANE_OPS + 3) * a, FOLD_MULS + LANE_MULS * a)
 
 
+# B2w's operations besides its words: a scan round (shuffle, test, add) and
+# the rank's broadcast and a lane's test of it, each a lane; the holder's
+# pass over its registers a word (popcount, two compares, add, select) and
+# its 5-step rank-select
+SCAN_OPS, RANK_OPS, PICK_OPS, SELECT_OPS = 3, 4, 5, 30
+
+
 def _words_select(cfg: EnvConfig, inputs: Tensors, outputs: Tensors) -> Tuple[int, float]:
     """B2w: inputs (key (N,) i64, counter, words (N, S*H) i64, width), output
-    the (N,) actions; the search's words are counted on the call's data,
-    up to each env's chosen word (``action // width``)."""
+    the (N,) actions.  On the ALU pipe an env takes the draw's fold in one
+    lane, a popcount and an add a word, log2 L scan rounds and the rank's
+    broadcast and test in each of its L lanes (``kernels/draws.py``
+    ``select_lanes``), and the one holder's pass over its K registers and
+    its rank-select; where a lane's span passes its registers (rows of more
+    than 1024 words) the holder's second walk up to its word is counted on
+    the call's data (``action // width``)."""
     key, _, words, width = inputs
-    n = key.shape[0]
-    searched = float((outputs[0] // width + 1).sum())
-    alu = n * (FOLD_OPS + SEED_OPS + LANE_OPS + 2 * words.shape[1] + 30) + 2 * searched
+    n, nwords = key.shape[0], words.shape[1]
+    aligned = words.data_ptr() % 16 == 0
+    lanes = select_lanes(nwords, aligned)
+    _, span, regs = select_shape(nwords, lanes, aligned)
+    per_env = (FOLD_OPS + SEED_OPS + LANE_OPS + 2 * nwords
+               + lanes * (SCAN_OPS * (lanes.bit_length() - 1) + RANK_OPS)
+               + PICK_OPS * regs + SELECT_OPS)
+    walked = 0.0
+    if span > regs:
+        at = outputs[0] // width % span           # the word's place in its lane's span
+        walked = float(2 * ((at // regs + 1) * regs).sum())
+    alu = n * per_env + walked
     return nbytes(list(inputs) + list(outputs)), float(max(alu, n * (FOLD_MULS + LANE_MULS)))
 
 

@@ -44,14 +44,23 @@ then, each line tagged with its part (all fourteen by default):
             and clear go through those), those are built into a library of
             their own by one nvcc, their ptxas lines printed, their outputs
             held bit-equal to the current kernels', and both timed in
-            turns: earlier, current, current, earlier;
+            turns: earlier, current, current, earlier; then B7w and B7 on
+            the presets and 24x9 (``words_turns``): the earlier build's
+            ``bp_packed_words`` and ``bp_packed_mask``, the wrappers'
+            kernels and the words kernel the wrapper does not pick there
+            (bit-row or tall), held bit-equal and timed in turns for 5
+            rounds, medians and shares of the bound;
   words     the words sampler's pieces at N = 49152 on mid-game boards of
             the default and tenten presets (``words_breakdown``): the
             prefix counts of ``sample_uniform_legal`` as the port's static
             loop and as ``torch.cumsum``, ``sample_uniform_legal``, a
             ``WordsSampler`` and an ``UniformLegalSampler`` call, each with
             its device kernels and device time under the profiler and its
-            time on the host's clock;
+            time on the host's clock; then the words rollout's step on 10x10
+            and 33x9 with the earlier build's B7, B7w and B2w swapped in and
+            with the current ones, in turns (``words_step_turns``): host ms,
+            kernels, device ms and busy share a step, the legal words' and
+            the select's device ms a step;
   general   the u8 kernels of an 8x40 board (rows of 40 cells: the wide
             mask, clear, apply and legality) at N = 49152, with the general
             ones launched directly on the same inputs and held bit-equal to
@@ -74,7 +83,7 @@ then, each line tagged with its part (all fourteen by default):
             mask and words (B7 tall, B7w tall) on 33x9, 36x9 with regions,
             64x8 and 128x10 at N = 49152, with ``--parent-csrc DIR`` in
             turns with the earlier sources' ``bp_packed_mask_tall`` and
-            ``bp_packed_words_tall`` (``EarlierTallMask``), beside the same
+            ``bp_packed_words_tall`` (``EarlierMask``), beside the same
             kernel at other block sizes (``anchor_envs``) and the
             windowed general kernel on the same inputs, every output
             bit-equal, 5 rounds, medians and shares of the bound
@@ -82,11 +91,12 @@ then, each line tagged with its part (all fourteen by default):
             the argmax and with the words sampler, the earlier tall mask and
             words swapped in and the current ones in turns: host ms,
             kernels, device ms and busy share a step
-            (``packed_tall_step_turns``); each ``--alt-csrc DIR`` (another
-            version of ``csrc/packed_tall.cu`` beside the headers it
-            includes, with the current entries' arguments) is built by its
-            own nvcc and its tall mask and words are timed in the same
-            turns (``alt_libraries``); the default
+            (``packed_tall_step_turns``); each ``--alt-csrc DIR`` (other
+            versions of some of ``kernels/csrc``'s sources beside the
+            headers they include, with the current entries' arguments) is
+            built by its own nvcc and its tall mask and words are timed in
+            the same turns, its B7w entries in ``words_turns`` and its B2w
+            entry in ``select_turns`` (``alt_libraries``); the default
             (packed) step on 33x9 with each sampler as the ``rollout`` part
             profiles the default preset's; with
             ``--parent-csrc DIR``, the default preset's bit-row mask, clear,
@@ -104,7 +114,11 @@ then, each line tagged with its part (all fourteen by default):
             (``bp_deal``, ``bp_uniform_legal``, ``bp_words_select``, with
             the arguments ``_build.SIGNATURES`` gives them) held bit-equal
             and timed in turns, earlier, current, current, earlier; then
-            the launch floor, ``torch.cuda._sleep(0)`` back to back;
+            the launch floor, ``torch.cuda._sleep(0)`` back to back; then
+            B2w on the presets and on 33x9, 36x9 with regions, 130x8 and
+            512x8 (``select_turns``): the earlier build's, the wrapper's
+            and every other segment width, held bit-equal and timed in
+            turns for 5 rounds, medians and shares of the bound;
   tail      the step's tail (B10) and its unpack at N = 49152 on the
             default, tenten, 33x9 and 130x8 boards (dense boards, the step's
             call with auto-reset): device times beside their bounds; with
@@ -478,28 +492,36 @@ def packed_tall_times(card: str) -> None:
                   f"host-paced {chip_smoke.host_paced_ms(fn):.6f} ms ({card})")
 
 
-class EarlierTallMask:
-    """Stands in for a ``PackedMaskKernel`` on a board of 33 to 128 rows
-    (``pmk``), inside an engine's step and the words sampler: its mask and
-    words entries launch the earlier library ``lib``'s
-    ``bp_packed_mask_tall`` (at the warps a block ``tall_launch_shape``
-    gives, as the earlier wrapper passed them) and ``bp_packed_words_tall``
-    with the current wrapper's tables."""
+class EarlierMask:
+    """Stands in for a ``PackedMaskKernel`` (``pmk``) inside an engine's step
+    and the words sampler: its mask and words entries launch another
+    library ``lib``'s entries with the current wrapper's tables.  On a board
+    of 33 to 128 rows (``tall``) those are ``bp_packed_mask_tall`` (at the
+    warps a block ``tall_launch_shape`` gives, as the wrapper passed them
+    before the segment kernel) and ``bp_packed_words_tall``; on a board of
+    at most 32 rows
+    ``bp_packed_mask`` and ``bp_packed_words`` at the bit-row launch shape."""
 
-    def __init__(self, lib, pmk):
+    def __init__(self, lib, pmk, tall: bool = False):
         from blockpuzzle_tpu_torch.kernels.packed import tall_launch_shape
 
         self.lib, self.pmk, self.cfg = lib, pmk, pmk.cfg
-        self.warps = tall_launch_shape(pmk.cfg)[1]
+        if tall:
+            self.mask_launch = ("bp_packed_mask_tall", tall_launch_shape(pmk.cfg)[1])
+            self.words_launch = ("bp_packed_words_tall",)
+        else:
+            self.mask_launch = ("bp_packed_mask", *pmk.shape)
+            self.words_launch = ("bp_packed_words", pmk.shape[0])
 
-    def _launch(self, entry, shape, dtype, words, queue, *launch):
+    def _launch(self, launch, shape, dtype, words, queue):
         import torch
 
         from blockpuzzle_tpu_torch.kernels import _build
 
+        entry, *args = launch
         out = torch.empty(shape, dtype=dtype, device=words.device)
         _build.check(getattr(self.lib, entry)(
-            *self.pmk._args(words, queue, out), *launch,
+            *self.pmk._args(words, queue, out), *args,
             torch.cuda.current_stream(words.device).cuda_stream), f"earlier {entry}")
         return out
 
@@ -507,14 +529,14 @@ class EarlierTallMask:
         import torch
 
         n, cfg = words.shape[0], self.cfg
-        return self._launch("bp_packed_mask_tall", (n, cfg.queue_size * cfg.num_cells),
-                            torch.bool, words, queue, self.warps)
+        return self._launch(self.mask_launch, (n, cfg.queue_size * cfg.num_cells),
+                            torch.bool, words, queue)
 
     def words(self, words, queue):
         import torch
 
         n, cfg = words.shape[0], self.cfg
-        return self._launch("bp_packed_words_tall", (n, cfg.queue_size * cfg.height),
+        return self._launch(self.words_launch, (n, cfg.queue_size * cfg.height),
                             torch.int64, words, queue)
 
 
@@ -535,7 +557,7 @@ def packed_tall_turns(card: str, lib, alts=None, rounds: int = 5) -> None:
     """B7 tall and B7w tall on ``PACKED_TALL_BOARDS`` at N = 49152
     (``chip_smoke.kernel_inputs``, seed 0): where ``lib`` is given first the
     earlier library's ``bp_packed_mask_tall`` and ``bp_packed_words_tall``
-    (``EarlierTallMask``), then the wrapper's kernel, the same entries of
+    (``EarlierMask``), then the wrapper's kernel, the same entries of
     each library of ``alts`` (label -> library, ``alt_libraries``) at the
     wrapper's block size, the current kernel at the block sizes
     ``anchor_envs`` (``chip_smoke.anchor_pick``) and
@@ -563,15 +585,16 @@ def packed_tall_turns(card: str, lib, alts=None, rounds: int = 5) -> None:
                                       ("packed_legal_words_tall", pmk.words, True)):
             fns = {}
             if lib is not None:
-                earlier = EarlierTallMask(lib, pmk)
+                earlier = EarlierMask(lib, pmk, tall=True)
                 fns["earlier"] = functools.partial(
                     earlier.words if words_out else earlier, words, queue)
             fns[f"{key} ({pmk.shape[0]} env-slots a block)"] = functools.partial(
                 entry, words, queue)
             for label, alt in (alts or {}).items():
-                fns[label] = functools.partial(
-                    chip_smoke.anchor_pick(cfg, pmk, pmk.shape[0], words_out, alt), words,
-                    queue)
+                if hasattr(alt, "bp_packed_words_tall"):
+                    fns[label] = functools.partial(
+                        chip_smoke.anchor_pick(cfg, pmk, pmk.shape[0], words_out, alt), words,
+                        queue)
             for envs in anchor_envs(pmk.shape[0]):
                 fns[f"{envs} env-slots a block"] = functools.partial(
                     chip_smoke.anchor_pick(cfg, pmk, envs, words_out), words, queue)
@@ -589,7 +612,7 @@ def packed_tall_step_turns(card: str, lib, steps: int = 20) -> None:
     """The default (packed) step on 33x9 at N = 49152, with the argmax
     sampler and with the words sampler, one engine each carrying its state:
     where ``lib`` is given with the earlier library's tall mask and words
-    swapped in (``EarlierTallMask``) and with the current ones, in turns
+    swapped in (``EarlierMask``) and with the current ones, in turns
     earlier, current, current, earlier (else the current ones twice): host
     ms a step over ``steps`` unprofiled steps, then ``steps`` steps under
     ``torch.profiler``: device kernels, device ms and busy share a step,
@@ -610,7 +633,7 @@ def packed_tall_step_turns(card: str, lib, steps: int = 20) -> None:
         current = env.packed_mask_kernel
         kernels = {"current": current}
         if lib is not None:
-            kernels["earlier"] = EarlierTallMask(lib, current)
+            kernels["earlier"] = EarlierMask(lib, current, tall=True)
         state, ts = env.init(0, n)
         if sampler_name == "words":
             draw = WordsSampler(1, n, env.device)
@@ -805,7 +828,7 @@ def words_breakdown(card: str) -> None:
 # the earlier kernels' entry points, timed against the current ones; the
 # bit-row mask and clear where the earlier sources have them
 PARENT_ENTRIES = ("bp_mask", "bp_clear", "bp_apply", "bp_legality",
-                  "bp_packed_apply", "bp_packed_mask")
+                  "bp_packed_apply", "bp_packed_mask", "bp_packed_words")
 PARENT_ROW_ENTRIES = ("bp_mask_rows", "bp_clear_rows")
 # the draws' entry points, where the earlier sources have them
 PARENT_DRAW_ENTRIES = ("bp_deal", "bp_uniform_legal", "bp_words_select")
@@ -860,10 +883,10 @@ def parent_library(csrc: pathlib.Path):
 
 def alt_libraries(dirs) -> dict:
     """Directory name -> a library of that directory's ``*.cu`` sources
-    (other versions of ``csrc/packed_tall.cu``, beside the headers they
-    include), each built by its own nvcc, all started together, under the
-    git-ignored build directory, the tall packed mask's and words' entries
-    given their current arguments; prints each build's ptxas lines."""
+    (other versions of some of ``kernels/csrc``'s sources, beside the headers
+    they include), each built by its own nvcc, all started together, under
+    the git-ignored build directory, every entry of ``_build.SIGNATURES``
+    it has given its current arguments; prints each build's ptxas lines."""
     from blockpuzzle_tpu_torch.kernels import _build
 
     builds = {}
@@ -880,11 +903,12 @@ def alt_libraries(dirs) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name}:\n{err}")
         for line in chip_smoke.ptxas_lines(err):
-            print(f"[tall] {name} ptxas: {line}")
+            print(f"[alt] {name} ptxas: {line}")
         lib = ctypes.CDLL(str(so))
-        for entry in ("bp_packed_mask_tall", "bp_packed_words_tall"):
-            fn = getattr(lib, entry)
-            fn.argtypes, fn.restype = _build.SIGNATURES[entry], ctypes.c_int
+        for entry, argtypes in _build.SIGNATURES.items():
+            if hasattr(lib, entry):
+                fn = getattr(lib, entry)
+                fn.argtypes, fn.restype = argtypes, ctypes.c_int
         libs[name] = lib
     return libs
 
@@ -1131,7 +1155,7 @@ def draw_turns(card: str, parent_csrc) -> None:
         raise SystemExit("chip_measure: the earlier sources have no draw kernels")
     n, dev = chip_smoke.N_MAIN, torch.device("cuda")
     ul, ws = UniformLegalKernel(dev), WordsSelectKernel(dev)
-    for name in presets:
+    for name in chip_smoke.PACKED_PRESETS:
         cfg = PRESETS[name]()
         dk = DealKernel(rules.tables_for(cfg).num_pieces, dev)
         key, counter, mask, words = chip_smoke.draw_inputs(cfg, n, 0)
@@ -1160,6 +1184,195 @@ def draw_turns(card: str, parent_csrc) -> None:
     floors = [chip_smoke.cuda_ms(lambda: torch.cuda._sleep(0)) for _ in range(3)]
     print(f"[draws] launch floor, torch.cuda._sleep(0) back to back, device ms: "
           f"{', '.join(f'{f:.6f}' for f in floors)} ({card})")
+
+
+# boards the draws part times B2w on beside the presets: the words path's
+# boards of more than 32 rows (``tall_words``, ``tall36r3_words``,
+# ``huge_words``) and 512x8
+SELECT_BOARDS = {"33x9": chip_smoke.TALL, "36x9r3": chip_smoke.TALL36R3,
+                 "130x8": chip_smoke.HUGE, "512x8": chip_smoke.DEEP_CASES["512x8"]}
+# B2w's segment widths, threads an env
+SELECT_LANES = (1, 2, 4, 8, 16, 32)
+
+
+def select_turns(card: str, lib, alts=None, rounds: int = 5) -> None:
+    """B2w at N = 49152 on the presets and ``SELECT_BOARDS``
+    (``chip_smoke.draw_inputs``, seed 0, counter 7): where ``lib`` is given
+    first the earlier library's ``bp_words_select``, then the wrapper's
+    kernel (the host's segment width), then the kernel at each other width
+    (``chip_smoke.select_pick``), and each library of ``alts`` (label ->
+    library, ``alt_libraries``) that has ``bp_words_select``; held
+    bit-equal, timed in turns for ``rounds`` rounds (``group_turns``):
+    medians and shares of the bound."""
+    import torch
+
+    from blockpuzzle_tpu_torch.config import PRESETS, EnvConfig
+    from blockpuzzle_tpu_torch.kernels import WordsSelectKernel
+    from blockpuzzle_tpu_torch.kernels.draws import select_lanes
+    from blockpuzzle_tpu_torch.utils.bounds import call_bound
+
+    n, dev = chip_smoke.N_MAIN, torch.device("cuda")
+    ws = WordsSelectKernel(dev)
+    boards = {**{k: PRESETS[k]() for k in chip_smoke.PACKED_PRESETS},
+              **{k: EnvConfig(**v) for k, v in SELECT_BOARDS.items()}}
+    for name, cfg in boards.items():
+        key, _, mask, words = chip_smoke.draw_inputs(cfg, n, 0)
+        args = (key, 7, words, cfg.width)
+        lanes = select_lanes(words.shape[1])
+        fns = {}
+        if lib is not None:
+            fns["earlier"] = draw_calls(lib, key, None, mask, words, 2, 1, cfg.width)[
+                "words_select"]
+        fns[f"words_select ({lanes} lanes)"] = functools.partial(ws, *args)
+        for other in SELECT_LANES:
+            if other != lanes:
+                fns[f"{other} lanes"] = functools.partial(chip_smoke.select_pick(other), *args)
+        for label, alt in (alts or {}).items():
+            if hasattr(alt, "bp_words_select"):
+                fns[label] = draw_calls(alt, key, None, mask, words, 2, 1, cfg.width)[
+                    "words_select"]
+        bound = {"words_select": call_bound("words_select", cfg, args, (ws(*args),))}
+        empty = int((words == 0).all(dim=1).sum())
+        print(f"[draws] words_select {name}: S*H = {words.shape[1]}, {empty} envs with no "
+              "legal action")
+        group_turns(card, "draws", name, {"words_select": fns}, bound, rounds)
+
+
+# boards the kernels part times B7w on: the presets and a board of 17-31
+# rows, where a warp holds one env-slot
+WORDS_BOARDS = {**{k: None for k in chip_smoke.PACKED_PRESETS}, "24x9": chip_smoke.ROWS24}
+
+
+def words_turns(card: str, lib, alts=None, rounds: int = 5) -> None:
+    """B7w and B7 at N = 49152 on ``WORDS_BOARDS`` (``chip_smoke.kernel_inputs``,
+    seed 0): where ``lib`` is given first the earlier library's
+    ``bp_packed_words`` and ``bp_packed_mask`` (``EarlierMask``), then the
+    wrappers' kernels, B7w also through the words kernel the wrapper does not
+    pick there (the bit-row kernel or the tall one, ``chip_smoke.words_pick``)
+    and through each library of ``alts`` that has ``bp_packed_words``
+    (``EarlierMask``) or ``bp_packed_words_tall``; each group held
+    bit-equal, then timed in turns (``group_turns``)."""
+    import torch
+
+    from blockpuzzle_tpu_torch.config import PRESETS, EnvConfig
+    from blockpuzzle_tpu_torch.kernels import PackedMaskKernel
+    from blockpuzzle_tpu_torch.kernels.packed import pack_words
+    from blockpuzzle_tpu_torch.utils.bounds import kernel_bounds
+
+    n, dev = chip_smoke.N_MAIN, torch.device("cuda")
+    for name, shape in WORDS_BOARDS.items():
+        cfg = PRESETS[name]() if shape is None else EnvConfig(**shape)
+        pmk = PackedMaskKernel(cfg, dev)
+        board, queue, cover, valid, attrs, r, c = (
+            torch.as_tensor(x, device=dev) for x in chip_smoke.kernel_inputs(cfg, n, seed=0))
+        words = pack_words(board.view(n, cfg.height, cfg.width))
+        words_fns, mask_fns = {}, {}
+        if lib is not None:
+            earlier = EarlierMask(lib, pmk)
+            words_fns["earlier"] = functools.partial(earlier.words, words, queue)
+            mask_fns["earlier"] = functools.partial(earlier, words, queue)
+        words_fns[f"{pmk.words_name} (the wrapper's)"] = functools.partial(
+            pmk.words, words, queue)
+        mask_fns[pmk.name] = functools.partial(pmk, words, queue)
+        other = "tall" if pmk.words_kind == "rows" else "rows"
+        words_fns[f"the {other} words kernel"] = functools.partial(
+            chip_smoke.words_pick(cfg, pmk, other), words, queue)
+        for label, alt in (alts or {}).items():
+            if hasattr(alt, "bp_packed_words"):
+                words_fns[label] = functools.partial(EarlierMask(alt, pmk).words, words, queue)
+            if hasattr(alt, "bp_packed_words_tall"):
+                words_fns[f"{label}, tall"] = functools.partial(
+                    chip_smoke.words_pick(cfg, pmk, "tall", lib=alt), words, queue)
+        outs = {"packed_legal_words": pmk.words(words, queue), "packed_mask": pmk(words, queue)}
+        bound = kernel_bounds(cfg, board, queue, cover, valid, words, attrs, r, c, outs)
+        group_turns(card, "kernels", name, {"packed_legal_words": words_fns,
+                                            "packed_mask": mask_fns}, bound, rounds)
+
+
+class EarlierSelect:
+    """Stands in for the words sampler's ``WordsSelectKernel``: the earlier
+    library ``lib``'s ``bp_words_select``."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __call__(self, key, counter, words, width):
+        import torch
+
+        from blockpuzzle_tpu_torch.env import rng
+        from blockpuzzle_tpu_torch.kernels import _build
+
+        out = torch.empty(key.shape[0], dtype=torch.int64, device=key.device)
+        _build.check(self.lib.bp_words_select(
+            key.data_ptr(), counter & rng.MASK32, rng.TAG_POLICY, words.data_ptr(),
+            out.data_ptr(), key.shape[0], words.shape[1], width,
+            torch.cuda.current_stream(key.device).cuda_stream), "earlier bp_words_select")
+        return out
+
+
+def words_step_turns(card: str, lib, steps: int = 20) -> None:
+    """The words rollout's step (the default engine, ``WordsSampler``) at N =
+    49152 on 10x10 and 33x9, one engine each carrying its state: where
+    ``lib`` is given with the earlier library's B2w and, on 10x10, its B7
+    and B7w swapped in (``EarlierSelect``, ``EarlierMask``; the tall
+    kernels of 33x9 are the same in both), and with the current ones, in
+    turns earlier, current, current, earlier (else the current ones
+    twice): host ms a step over ``steps`` unprofiled steps, then ``steps``
+    steps under ``torch.profiler``: device kernels, device ms and busy
+    share a step, and the words kernel's and the select's device ms a
+    step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from blockpuzzle_tpu_torch import PRESETS, make_env
+    from blockpuzzle_tpu_torch.config import EnvConfig
+    from blockpuzzle_tpu_torch.sampler import WordsSampler
+
+    n = chip_smoke.N_MAIN
+    order = ("earlier", "current", "current", "earlier") if lib is not None else (
+        "current", "current")
+    for name, cfg in (("10x10", PRESETS["default"]()), ("33x9", EnvConfig(**chip_smoke.TALL))):
+        env = make_env(cfg, device="cuda")
+        draw = WordsSampler(1, n, env.device)
+        current = {"mask": env.packed_mask_kernel, "select": draw.kernel}
+        kernels = {"current": current}
+        if lib is not None:
+            kernels["earlier"] = {"mask": EarlierMask(lib, current["mask"])
+                                  if cfg.height <= 32 else current["mask"],
+                                  "select": EarlierSelect(lib)}
+        state, ts = env.init(0, n)
+
+        def run(k):
+            nonlocal state, ts
+            for _ in range(k):
+                state, ts = env.step(state, draw(env, state.board, state.queue))
+            torch.cuda.synchronize()
+
+        for which in order:
+            env.packed_mask_kernel, draw.kernel = (kernels[which]["mask"],
+                                                   kernels[which]["select"])
+            run(5)                                         # warm-up
+            t0 = time.perf_counter()
+            run(steps)
+            step_ms = 1e3 * (time.perf_counter() - t0) / steps
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                run(steps)
+            device = device_events(prof)
+            if not device:
+                print("[words] the profiler saw no device events: not measured")
+                continue
+            busy = busy_us(device) / steps / 1e3
+            part = {k: sum(e.time_range.elapsed_us() for e in device
+                           if any(key in e.name for key in keys)) / steps / 1e3
+                    for k, keys in (("words", ("packed_words_kernel", "anchor_kernel<true")),
+                                    ("select", ("words_select_kernel",)))}
+            print(f"[words] words rollout step, {name}, N={n}, {which} kernels: "
+                  f"{step_ms:.4f} ms per step, {len(device) / steps:.2f} device kernels, "
+                  f"{sum(e.time_range.elapsed_us() for e in device) / steps / 1e3:.6f} ms "
+                  f"device time a step, busy {busy:.4f} ms = {100 * busy / step_ms:.1f}%, "
+                  f"legal words {part['words']:.6f} ms, select {part['select']:.6f} ms a "
+                  f"step ({card})")
+        env.packed_mask_kernel, draw.kernel = current["mask"], current["select"]
 
 
 class EarlierTail:
@@ -1773,8 +1986,9 @@ def main(argv=None) -> int:
     p.add_argument("--parent-csrc", default=None,
                    help="directory of earlier kernel sources (*.cu, *.cuh)")
     p.add_argument("--alt-csrc", action="append", default=[],
-                   help="directory of other sources of the tall packed mask's entries "
-                        "with the current arguments (packed_tall, tall); repeatable")
+                   help="directory of other versions of some kernel sources with the "
+                        "current entries' arguments, timed beside the tall packed mask and "
+                        "words (packed_tall, tall), B7w (kernels) and B2w (draws); repeatable")
     args = p.parse_args(argv)
     parts = args.parts.split(",")
     if set(parts) - set(PARTS):
@@ -1785,10 +1999,13 @@ def main(argv=None) -> int:
     print(card)
     print(f"[setup] python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
+    alts = alt_libraries(args.alt_csrc)
     if "build" in parts:
         build_times()
     if "kernels" in parts:
         kernel_turns(card, args.parent_csrc)
+        words_turns(card, parent_library(pathlib.Path(args.parent_csrc))
+                    if args.parent_csrc else None, alts)
     if "train" in parts:
         for argv_ in (chip_smoke.TRAIN_ARGV, chip_smoke.TRAIN_U8_ARGV):
             train_breakdown(card, argv_)
@@ -1799,11 +2016,15 @@ def main(argv=None) -> int:
         rollout_turns(card)
     if "words" in parts:
         words_breakdown(card)
+        words_step_turns(card, parent_library(pathlib.Path(args.parent_csrc))
+                         if args.parent_csrc else None)
     if "general" in parts:
         chip_smoke.wide_turns(card, "general")
         wide_step_turns(card)
     if "draws" in parts:
         draw_turns(card, args.parent_csrc)
+        select_turns(card, parent_library(pathlib.Path(args.parent_csrc))
+                     if args.parent_csrc else None, alts)
     if "tall" in parts:
         chip_smoke.tall_turns(card, "tall")
         tall_turn_shapes(card)
@@ -1811,7 +2032,7 @@ def main(argv=None) -> int:
         packed_tall_times(card)
     if "tall" in parts or "packed_tall" in parts:
         lib = parent_library(pathlib.Path(args.parent_csrc)) if args.parent_csrc else None
-        packed_tall_turns(card, lib, alt_libraries(args.alt_csrc))
+        packed_tall_turns(card, lib, alts)
         packed_tall_step_turns(card, lib)
     if "tall" in parts:
         from blockpuzzle_tpu_torch.config import EnvConfig

@@ -15,11 +15,18 @@ which raises on failure (non-zero exit, no result line):
      presets, at per-env counters that wrap negative and at shared ones
      up to 2**32 - 1, on the masks and legal words of the boards below
      (empty rows among them; uniform_legal also on mask views that start
-     off a 16-byte boundary), every action drawn legal; the bit-row u8
+     off a 16-byte boundary), every action drawn legal; words_select also
+     on the legal words of 33x9, 36x9 with 3x3 regions and a hand of three,
+     and 130x8 (``SELECT_BOARDS``: rows of 33, 108 and 130 words), on every
+     board also on words 8 bytes past a 16-byte boundary and at every
+     segment width of 1 to 32 lanes an env (``select_pick``), its time
+     beside its bound on each; the bit-row u8
      kernels (mask, clear, apply, legality) and the packed kernels
      (packed_apply, packed_mask and its words entry packed_legal_words) on
-     the default, tenten, woodoku and big presets, on boards holding full
-     rows, columns and 3x3 regions; the packed kernels also against the u8
+     the default, tenten, woodoku and big presets and on 24x9 (``ROWS24``:
+     a warp an env-slot), on boards holding full
+     rows, columns and 3x3 regions, packed_legal_words' time beside its
+     bound on each; the packed kernels also against the u8
      mask and apply kernels on the unpacked boards, the words against the
      packed mask packed to words; on a board of 8 rows of 40 cells, too
      wide for a row word, the wide mask, clear and apply (mask_wide,
@@ -259,6 +266,9 @@ WIDE_CASES = {"8x33": dict(height=8, width=33), "6x64": dict(height=6, width=64)
               "8x100": dict(height=8, width=100),
               "9x36r3": dict(height=9, width=36, region_clear=True, region_size=3,
                              queue_size=3)}
+# a board of 17 to 31 rows, where a warp holds one env-slot or env and
+# leaves 32 - H lanes idle: the bit-row kernels, the packed words among them
+ROWS24 = dict(height=24, width=9)
 # boards of more than 32 rows: the tall kernels (a warp a board, rows
 # l + 32 j in lane l), the packed engine's by default (W <= 32) and the u8
 # mask, clear, apply and legality
@@ -637,9 +647,14 @@ def u8_kernel_names(cfg) -> tuple:
 def packed_kernel_names(cfg) -> tuple:
     """The packed mask, apply and words kernels the wrappers pick on
     ``cfg`` (W <= 32): the bit-row kernels where H <= 32, the tall ones
-    where H <= 128, the general ones above."""
+    where H <= 128, the general ones above; the words entry's as
+    ``kernels/packed.py`` ``words_kernel_kind`` picks it (the tall kernel
+    on woodoku and big)."""
+    from blockpuzzle_tpu_torch.kernels.packed import SUFFIX, words_kernel_kind
+
     s = "" if cfg.height <= 32 else "_tall" if cfg.height <= 128 else "_general"
-    return f"packed_mask{s}", f"packed_apply{s}", f"packed_legal_words{s}"
+    w = SUFFIX[words_kernel_kind(cfg)]
+    return f"packed_mask{s}", f"packed_apply{s}", f"packed_legal_words{w}"
 
 
 def chunked(fn, *args, rows: int):
@@ -680,6 +695,7 @@ def phase1(card: str) -> dict:
     errs = {name: 0 for name in KERNEL_INFO}
     times, bounds = {}, {}
     configs = {name: PRESETS[name]() for name in PACKED_PRESETS}
+    configs["24x9"] = EnvConfig(**ROWS24)
     configs["wide"] = EnvConfig(**WIDE)
     configs.update({name: EnvConfig(**shape) for name, shape in WIDE_CASES.items()})
     # the boards whose kernels are timed at N_MAIN, and the board each
@@ -689,7 +705,7 @@ def phase1(card: str) -> dict:
              "wide": ("mask_wide", "clear_wide", "apply_wide")}
     where = {"default": "default", "wide": "wide 8x40"}
     for name, cfg in configs.items():
-        packed = name in PACKED_PRESETS
+        packed = name in PACKED_PRESETS or name == "24x9"
         full = packed                    # the bit-row legality held too
         mask_name, clear_name, apply_name, legal_name = u8_kernel_names(cfg)
         mk, ck, ak = MaskKernel(cfg, dev), ClearScanKernel(cfg, dev), ApplyKernel(cfg, dev)
@@ -737,11 +753,18 @@ def phase1(card: str) -> dict:
                             "packed_apply")
                 pwords = pmk.words(words, queue)
                 check_equal([pwords], [pmk.plain_words(words, queue)], what, errs,
-                            "packed_legal_words")
+                            pmk.words_name)
                 if not torch.equal(pwords, pack_bool_mask(pmask, cfg.height, cfg.width,
                                                           cfg.queue_size)):
                     raise AssertionError(
-                        f"packed_legal_words != the packed mask's words ({what})")
+                        f"{pmk.words_name} != the packed mask's words ({what})")
+                # both words kernels of a board of at most 32 rows, whichever
+                # the wrapper picks
+                pick = {kind: words_pick(cfg, pmk, kind) for kind in ("rows", "tall")}
+                for kind, name_ in (("rows", "packed_legal_words"),
+                                    ("tall", "packed_legal_words_tall")):
+                    check_equal([pick[kind](words, queue)], [pwords],
+                                f"{what}, launched directly", errs, name_)
                 # the packed kernels against the u8 ones on the unpacked boards
                 if not torch.equal(pmask, mask):
                     raise AssertionError(f"packed_mask != mask kernel ({what})")
@@ -752,8 +775,18 @@ def phase1(card: str) -> dict:
                 line += (f"; packed mask legal share {float(pmask.float().mean()):.4f},"
                          f" packed apply legal {int(pouts[2].sum())}, lines cleared "
                          f"{int(pouts[1].sum())}: packed kernels == plain == u8 "
-                         "kernels on the unpacked boards (bit-equal); packed legal "
-                         "words == plain == the packed mask packed to words")
+                         f"kernels on the unpacked boards (bit-equal); {pmk.words_name} "
+                         "== plain == the packed mask packed to words == both words "
+                         "kernels launched directly")
+                if n == N_MAIN:  # B7w's kernels' times beside their bound
+                    b = kernel_bounds(cfg, board, queue, cover, valid, words, attrs, r, c,
+                                      {"packed_legal_words": pwords})["packed_legal_words"]
+                    for kind, fn in pick.items():
+                        ms = cuda_ms(lambda: fn(words, queue))
+                        line += (f"; words kernel {kind}{' (the wrapper' + chr(39) + 's)' if kind == pmk.words_kind else ''} "
+                                 f"{ms:.6f} ms, {100 * b['bound_ms'] / ms:.1f}% of its "
+                                 f"{b['bound_ms']:.6f} ms bound by {b['bound_by']}")
+                    line += f" ({card})"
             print(line)
             b2, c2, v2, a2, r2, col2 = (
                 torch.as_tensor(x, device=dev) for x in illegal_on_full_line(cfg, n)
@@ -1341,6 +1374,12 @@ def off_alignment(mask):
     return [big[1:], flat[1:].view(n, a)]
 
 
+# the boards beyond the presets whose legal words phase 1 holds B2w on: the
+# words path's boards of more than 32 rows (``tall_words``,
+# ``tall36r3_words``, ``huge_words``), rows of 33, 108 and 130 words
+SELECT_BOARDS = {"33x9": TALL, "36x9r3": TALL36R3, "130x8": HUGE}
+
+
 def phase1_draws(errs: dict, times: dict, bounds: dict, card: str) -> None:
     """The draw kernels (B9, B2, B2w) against their plain versions on the
     four presets at N = 49152 and 49151, bit-equal: the step's 2S-wide
@@ -1348,54 +1387,83 @@ def phase1_draws(errs: dict, times: dict, bounds: dict, card: str) -> None:
     1), each policy draw at counters 0, 2**31 and 2**32 - 1, the argmax
     draw also on mask views off a 16-byte boundary (``off_alignment``);
     every drawn action legal where its row has one, action 0 where not.
-    Then each one's device time, plain time and bound at N = 49152 on the
-    default preset, into ``times`` and ``bounds``; the launch floor (the
-    device time of an empty launch, ``torch.cuda._sleep(0)``, back to back)
-    and the deal's time as multiples of its bound and of that floor."""
+    B2w likewise on the legal words of ``SELECT_BOARDS``, and on every board
+    also on words off a 16-byte boundary (8 bytes in: single-word loads)
+    and at every segment width (``select_pick``).  Then each one's device
+    time, plain time and bound at N = 49152 on the default preset, into
+    ``times`` and ``bounds``, and B2w's beside its bound on every board; the
+    launch floor (the device time of an empty launch,
+    ``torch.cuda._sleep(0)``, back to back) and the deal's time as
+    multiples of its bound and of that floor."""
     import torch
 
     from blockpuzzle_tpu_torch import rules
-    from blockpuzzle_tpu_torch.config import PRESETS
+    from blockpuzzle_tpu_torch.config import PRESETS, EnvConfig
     from blockpuzzle_tpu_torch.env import rng
     from blockpuzzle_tpu_torch.kernels import DealKernel, UniformLegalKernel, WordsSelectKernel
-    from blockpuzzle_tpu_torch.utils.bounds import COSTS, bound
+    from blockpuzzle_tpu_torch.kernels.draws import select_lanes
+    from blockpuzzle_tpu_torch.utils.bounds import COSTS, bound, call_bound
 
     dev = torch.device("cuda")
     ul, ws = UniformLegalKernel(dev), WordsSelectKernel(dev)
-    for name in PACKED_PRESETS:
-        cfg = PRESETS[name]()
+    boards = {**{name: PRESETS[name]() for name in PACKED_PRESETS},
+              **{name: EnvConfig(**shape) for name, shape in SELECT_BOARDS.items()}}
+    for name, cfg in boards.items():
+        preset = name in PACKED_PRESETS
         s, w = cfg.queue_size, cfg.width
         dk = DealKernel(rules.tables_for(cfg).num_pieces, dev)
         for n in (N_MAIN, N_MAIN - 1):
             key, counter, mask, words = draw_inputs(cfg, n, n)
             what = f"{name}, N={n}"
-            for c, tag, width in ((counter, rng.TAG_STEP, 2 * s), (0, rng.TAG_RESET, s),
-                                  (2**32 - 1, rng.TAG_RESET, s)):
-                check_equal([dk(key, c, tag, width)], [dk.plain(key, c, tag, width)],
-                            what, errs, "deal")
+            if preset:
+                for c, tag, width in ((counter, rng.TAG_STEP, 2 * s), (0, rng.TAG_RESET, s),
+                                      (2**32 - 1, rng.TAG_RESET, s)):
+                    check_equal([dk(key, c, tag, width)], [dk.plain(key, c, tag, width)],
+                                what, errs, "deal")
             rows = torch.arange(n, device=dev)
             legal = mask.any(dim=1)
-            views = off_alignment(mask)
+            views = off_alignment(mask) if preset else []
+            flat = torch.zeros(words.numel() + 1, dtype=torch.int64, device=dev)
+            flat[1:] = words.view(-1)
+            off = flat[1:].view(n, -1)                     # 8 bytes past 16
             for c in (0, 2**31, 2**32 - 1):
-                for k, got, want in (
-                        ("uniform_legal", ul(key, c, mask), ul.plain(key, c, mask)),
-                        ("words_select", ws(key, c, words, w),
-                         ws.plain(key, c, words, w))):
-                    check_equal([got], [want], what, errs, k)
+                want = ws.plain(key, c, words, w)
+                draws = [("words_select", ws(key, c, words, w), want),
+                         ("words_select", ws(key, c, off, w), want)]
+                if preset:
+                    draws.append(("uniform_legal", ul(key, c, mask), ul.plain(key, c, mask)))
+                for k, got, ref in draws:
+                    check_equal([got], [ref], what, errs, k)
                     if not (bool(mask[rows, got][legal].all())
                             and not bool(got[~legal].any())):
                         raise AssertionError(f"{k} drew an illegal action ({what})")
-                want = ul.plain(key, c, mask)
-                for view in views:
-                    check_equal([ul(key, c, view)], [want],
-                                f"{what}, mask at {view.data_ptr() % 16} past 16 B",
-                                errs, "uniform_legal")
-            print(f"[phase1] {what}: deal (2S-wide at per-env counters, S-wide at "
-                  f"0 and 2**32 - 1), uniform_legal and words_select (counters 0, "
-                  f"2**31, 2**32 - 1; {int((~legal).sum())} empty rows) == plain "
-                  "(bit-equal), every action legal; uniform_legal also on mask views "
-                  f"{sorted(v.data_ptr() % 16 for v in views)} bytes past a 16-byte "
-                  "boundary == plain")
+                for lanes in (1, 2, 4, 8, 16, 32):
+                    check_equal([select_pick(lanes)(key, c, words, w)], [want],
+                                f"{what}, {lanes} lanes", errs, "words_select")
+                if preset:
+                    want = ul.plain(key, c, mask)
+                    for view in views:
+                        check_equal([ul(key, c, view)], [want],
+                                    f"{what}, mask at {view.data_ptr() % 16} past 16 B",
+                                    errs, "uniform_legal")
+            line = (f"[phase1] {what}: words_select (S*H = {words.shape[1]}, "
+                    f"{select_lanes(words.shape[1])} lanes an env; counters 0, 2**31, "
+                    f"2**32 - 1; {int((~legal).sum())} envs with no legal action) == plain "
+                    "(bit-equal) at every segment width 1..32 and on words 8 bytes past a "
+                    "16-byte boundary, every action legal")
+            if preset:
+                line += ("; deal (2S-wide at per-env counters, S-wide at 0 and 2**32 - 1) "
+                         "and uniform_legal == plain; uniform_legal also on mask views "
+                         f"{sorted(v.data_ptr() % 16 for v in views)} bytes past a 16-byte "
+                         "boundary == plain")
+            print(line)
+        key, _, _, words = draw_inputs(cfg, N_MAIN, 0)
+        args = (key, 7, words, w)
+        b = call_bound("words_select", cfg, args, (ws(*args),))
+        ms = cuda_ms(lambda: ws(*args))
+        print(f"[phase1] words_select {name} N={N_MAIN} (S*H = {words.shape[1]}): {ms:.6f} ms, "
+              f"bound {b['bound_ms']:.6f} ms by {b['bound_by']}, "
+              f"{100 * b['bound_ms'] / ms:.1f}% of it ({card})")
     cfg = PRESETS["default"]()
     dk = DealKernel(rules.tables_for(cfg).num_pieces, dev)
     key, counter, mask, words = draw_inputs(cfg, N_MAIN, 0)
@@ -1411,7 +1479,9 @@ def phase1_draws(errs: dict, times: dict, bounds: dict, card: str) -> None:
     print(f"[phase1] launch floor: torch.cuda._sleep(0) {floor:.6f} ms of device time a "
           f"launch, back to back ({card}); deal N={N_MAIN} default {deal_ms:.6f} ms = "
           f"{deal_ms / bounds['deal']['bound_ms']:.2f} x its bound "
-          f"({bounds['deal']['bound_by']}), {deal_ms / floor:.2f} x the launch floor")
+          f"({bounds['deal']['bound_by']}), {deal_ms / floor:.2f} x the launch floor; "
+          f"words_select {times['words_select'][0]:.6f} ms = "
+          f"{times['words_select'][0] / floor:.2f} x the launch floor")
 
 
 def draws_rollout(sampler: str, plain: bool, n: int, steps: int):
@@ -1608,6 +1678,57 @@ def anchor_pick(cfg, pmk, envs: int, words: bool = False, lib=None):
         return out
 
     return mask
+
+
+def select_pick(lanes: int, lib=None):
+    """A callable with ``WordsSelectKernel``'s arguments that launches B2w
+    at ``lanes`` threads an env (``bp_words_select_lanes``): the current
+    library's, or ``lib``'s."""
+    import torch
+
+    from blockpuzzle_tpu_torch.env import rng
+    from blockpuzzle_tpu_torch.kernels import _build
+
+    lib = lib or _build.library()
+
+    def select(key, counter, words, width):
+        out = torch.empty(key.shape[0], dtype=torch.int64, device=key.device)
+        _build.check(lib.bp_words_select_lanes(
+            key.data_ptr(), counter & rng.MASK32, rng.TAG_POLICY, words.data_ptr(),
+            out.data_ptr(), key.shape[0], words.shape[1], width, lanes,
+            torch.cuda.current_stream(key.device).cuda_stream), "bp_words_select_lanes")
+        return out
+
+    return select
+
+
+def words_pick(cfg, pmk, kind: str, envs: int = 0, lib=None):
+    """A callable with ``PackedMaskKernel.words``' arguments on a board of at
+    most 128 rows that launches the words kernel ``kind`` names, whatever
+    the wrapper picks there: ``"rows"``, the bit-row kernel
+    (``bp_packed_words``, H <= 32), or ``"tall"``, the tall words kernel at
+    ``envs`` env-slots a block (``bp_packed_words_tall``; by default the
+    words entry's ``anchor_launch_shape``): the current library's, or
+    ``lib``'s."""
+    import torch
+
+    from blockpuzzle_tpu_torch.kernels import _build
+    from blockpuzzle_tpu_torch.kernels.packed import anchor_launch_shape, segments_per_warp
+
+    lib = lib or _build.library()
+    entry, shape = (("bp_packed_words", segments_per_warp(cfg.height)) if kind == "rows" else
+                    ("bp_packed_words_tall",
+                     envs or anchor_launch_shape(cfg, words=True)[0]))
+
+    def words(board_words, queue):
+        out = torch.empty((board_words.shape[0], cfg.queue_size * cfg.height),
+                          dtype=torch.int64, device=board_words.device)
+        _build.check(getattr(lib, entry)(
+            *pmk._args(board_words, queue, out), shape,
+            torch.cuda.current_stream(board_words.device).cuda_stream), entry)
+        return out
+
+    return words
 
 
 def general_apply(cfg, ak, lib=None):
@@ -2422,10 +2543,10 @@ def phase7(card: str, argmax_rate: float) -> dict:
     from blockpuzzle_tpu_torch.env.autoreset import MODES
 
     n, steps = 1024, 64
-    per_step = ("packed_apply", "packed_mask", "packed_legal_words")
     fields = ("board", "queue", "rng_counter", "steps", "score", "streak")
     for name in PACKED_PRESETS:
         cfg = PRESETS[name]()
+        per_step = packed_kernel_names(cfg)  # the words: the tall kernel on woodoku, big
         (sg, rg, ag, lg, env), (sc, rc, ac, lc, _) = (
             words_rollout(cfg, dev, n, steps) for dev in ("cuda", "cpu"))
         counts = read_counts(env)
@@ -2446,6 +2567,7 @@ def phase7(card: str, argmax_rate: float) -> dict:
               + " deal=1 words_select=1 (deal once more at init)")
 
     env = make_env(PRESETS["default"](), device="cuda")
+    per_step = packed_kernel_names(env.cfg)
     zero_counts(env)
     chunk, windows = 400, 5
     r = rollout(env, N_MAIN, chunk, windows, seed=0, sampler="words")

@@ -6,13 +6,15 @@ The CUDA kernels cannot run here, so numpy ``uint32`` emulations of their
 arithmetic as the sources write it (wrapping 32-bit multiplies, ``__umulhi``,
 the lanes hashed from the stream's seed, B2's rows read a 32-bit word at a
 time, straight or staged in shared memory with their edge words masked,
-B2w's float32 product and word search) are held bit-equal to the wrappers'
+B2w's segment of lanes an env: its spans, the scan of their popcounts, the
+float32 product and the one lane's rank-select) are held bit-equal to the wrappers'
 plain versions on every preset, at N in {1, 33, 1000}, at counters 0, 1,
 2**31 - 1, 2**31 and 2**32 - 1 (ints and int32 tensors, wrapped negative
 where they pass 2**31 - 1), with keys from seeds at and above 2**32, tags
 0, 1 and 2 and widths 1, 2S and A; B2 also on masks that start off a
 16-byte boundary, on forced ties (across its words, its lanes' spans and
-its rows' shared edge words) and empty rows, B2w on empty masks.  Against
+its rows' shared edge words) and empty rows, B2w on empty masks and on
+crafted rows of up to 1030 words at every segment width.  Against
 JAX: B2's select, given injected bits, equals the root ``bench.py``'s
 ``jnp.argmax(jnp.where(mask, bits | 1, 0))``; B2w, given the uniform
 ``jax.random.uniform`` draws, equals
@@ -38,7 +40,13 @@ from blockpuzzle_tpu_torch.kernels import (
     WordsSelectKernel,
     _build,
 )
-from blockpuzzle_tpu_torch.kernels.draws import uniform_from_bits, uniform_legal
+from blockpuzzle_tpu_torch.kernels.draws import (
+    MAX_SPAN,
+    select_lanes,
+    select_shape,
+    uniform_from_bits,
+    uniform_legal,
+)
 from blockpuzzle_tpu_torch.sampler import UniformLegalSampler, WordsSampler, policy_kernels
 
 ALL_PRESETS = ["default", "tenten", "woodoku", "big"]
@@ -226,37 +234,78 @@ def emulate_uniform_legal(key, counter: int, mask: torch.Tensor, offset: int = 0
     return emulate_row_argmax(mask.numpy(), bits, offset)
 
 
-def emulate_select(words: np.ndarray, u: np.ndarray, width: int) -> np.ndarray:
-    """``words_select_kernel``'s thread per env, given its float32 uniform:
-    the popcount total, r = min(trunc(u * float(total)), total - 1), the
-    first word whose running count passes r and the 5-step rank-select;
-    action 0 where total is 0."""
-    out = np.zeros(words.shape[0], np.int64)
-    for e, row in enumerate(words.astype(np.uint64) & np.uint64(0xFFFFFFFF)):
-        w = [int(x) for x in row]
-        total = sum(bin(x).count("1") for x in w)
-        if total == 0:
-            continue
-        r = min(int(np.float32(u[e]) * np.float32(total)), total - 1)
-        k, prev = 0, 0
-        while prev + bin(w[k]).count("1") <= r:
-            prev += bin(w[k]).count("1")
-            k += 1
-        rem, pos = r - prev, 0
-        for span in (16, 8, 4, 2, 1):
-            c = bin(w[k] & (((1 << span) - 1) << pos)).count("1")
+def emulate_select(words: np.ndarray, u: np.ndarray, width: int, lanes=None,
+                   aligned: bool = True) -> np.ndarray:
+    """``words_select_kernel``'s segment of L threads an env (``lanes``,
+    ``select_lanes`` unless given), every env at once, given its float32
+    uniform: lane q holds the words [q * span, (q + 1) * span) of the row,
+    K at a time, read as pairs where 16-byte loads serve (``aligned``: the
+    row on a 16-byte boundary when S*H is even); each lane's popcount, the
+    inclusive scan of ``__shfl_up_sync`` rounds (a lane below the offset
+    keeps its own), the total in the last lane, r = min(trunc(u *
+    float(total)), total - 1) broadcast from there (-1 where the total is 0:
+    lane 0 stores action 0), and the one lane whose span holds rank r finds
+    its word among its K registers (where the span passes ``MAX_SPAN``,
+    after reading its span again K words at a time up to them) and runs the
+    5-step rank-select."""
+    n, nw = words.shape
+    lanes = select_lanes(nw, aligned) if lanes is None else lanes
+    vec, span, k_regs = select_shape(nw, lanes, aligned)
+    w32 = (words.astype(np.uint64) & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    popc = np.bitwise_count(w32).astype(np.int64)                  # (N, S*H)
+    q = np.arange(lanes)
+    begin = np.minimum(q * span, nw)
+    end = np.minimum(begin + span, nw)
+    if vec:                                   # every pair read whole
+        assert (begin % 2 == 0).all() and (end % 2 == 0).all()
+    count = np.stack([popc[:, b:e].sum(axis=1) for b, e in zip(begin, end)], axis=1)
+    incl = count.copy()                                           # (N, L)
+    d = 1
+    while d < lanes:
+        up = np.concatenate([incl[:, :d], incl[:, :-d]], axis=1)  # lane q - d's; own below d
+        incl = np.where(q >= d, incl + up, incl)
+        d *= 2
+    total = incl[:, -1]
+    prod = (u.astype(np.float32) * total.astype(np.float32)).astype(np.float32)
+    r = np.where(total > 0, np.minimum(prod.astype(np.int64), total - 1), -1)
+    out = np.full(n, -1, np.int64)                                # -1: never written
+    out[r < 0] = 0                                                # lane 0's store
+    for e in np.flatnonzero(r >= 0):
+        rem_all = r[e] - (incl[e] - count[e])
+        holders = np.flatnonzero((rem_all >= 0) & (rem_all < count[e]))
+        assert len(holders) == 1                                  # one store an env
+        h = holders[0]
+        rem, c0 = int(rem_all[h]), int(begin[h])
+        if span > k_regs:                                         # its span read again
+            while True:
+                c = int(popc[e, c0:min(c0 + k_regs, end[h])].sum())
+                if rem < c:
+                    break
+                rem, c0 = rem - c, c0 + k_regs
+        regs = [int(w32[e, c0 + j]) if c0 + j < end[h] else 0 for j in range(k_regs)]
+        acc, pick, prev = 0, None, 0
+        for j, x in enumerate(regs):
+            c = x.bit_count()
+            if acc <= rem < acc + c:
+                pick, prev = j, acc
+            acc += c
+        word, rem, pos = regs[pick], rem - prev, 0
+        for half in (16, 8, 4, 2, 1):
+            c = (word & (((1 << half) - 1) << pos)).bit_count()
             if rem >= c:
-                rem, pos = rem - c, pos + span
-        out[e] = k * width + pos
+                rem, pos = rem - c, pos + half
+        out[e] = (c0 + pick) * width + pos
+    assert (out >= 0).all()
     return out
 
 
-def emulate_words_select(key, counter: int, words: torch.Tensor, width: int) -> np.ndarray:
+def emulate_words_select(key, counter: int, words: torch.Tensor, width: int, lanes=None,
+                         aligned: bool = True) -> np.ndarray:
     n = key.shape[0]
     bits = lane_bits(stream_hash(key.numpy(), counters_u32(counter, n)), rng.TAG_POLICY,
                      np.zeros(n, np.int64))
     u = (bits >> U32(9)).astype(np.float32) * np.float32(2.0 ** -23)
-    return emulate_select(words.numpy(), u, width)
+    return emulate_select(words.numpy(), u, width, lanes, aligned)
 
 
 # ------------------------------------------------------------ inputs ----
@@ -453,6 +502,89 @@ def test_uniform_legal_empty_rows_give_action_zero():
     assert not emulate_uniform_legal(key, 3, mask).any()
 
 
+# rows of S*H words beyond the presets' (33x9; 36x9 with a hand of three;
+# 130x8; 512x8; and 1030 words, whose spans pass the registers at a warp
+# an env) with each board's width
+LONG_ROWS = {33: 9, 108: 9, 130: 8, 512: 8, 1030: 8}
+
+
+def crafted_row_words(n: int, nwords: int, width: int, seed: int) -> torch.Tensor:
+    """(N, S*H) int64 row words of W bits: mixed density, every 5th row
+    empty, every 5th from the second full (every bit of every word), every
+    5th from the third one bit in its last word, every 5th from the fourth
+    one bit in its first."""
+    g = np.random.default_rng(seed)
+    words = g.integers(0, 1 << width, (n, nwords))
+    words &= -(g.random((n, nwords)) < g.random((n, 1))).astype(np.int64)
+    words[::5] = 0
+    words[1::5] = (1 << width) - 1
+    words[2::5] = 0
+    words[2::5, -1] = 1 << (width - 1)
+    words[3::5] = 0
+    words[3::5, 0] = 1
+    return torch.as_tensor(words, dtype=torch.int64)
+
+
+def test_select_lanes_and_spans():
+    """The host's pick of B2w's segment and span: about 8 words a lane where
+    they load as 16-byte pairs, 12 where one at a time (2 lanes on the
+    default preset's 10 words, 4 on tenten's 30, woodoku's 27 and 33x9's 33,
+    8 on big's 48), at most a warp; 16-byte loads only on an even S*H at an
+    aligned base, every span then even; spans past 32 words walked."""
+    assert [select_lanes(k) for k in (1, 2, 8, 10, 16, 27, 30, 33, 48, 108, 130, 512)] == [
+        1, 1, 1, 2, 2, 4, 4, 4, 8, 16, 32, 32]
+    assert [select_lanes(k, aligned=False) for k in (10, 12, 13, 48, 130)] == [
+        1, 1, 2, 4, 16]
+    assert select_shape(10, 2) == (True, 6, 8)
+    assert select_shape(10, 2, aligned=False) == (False, 5, 8)
+    assert select_shape(27, 4) == (False, 7, 8)
+    assert select_shape(33, 4) == (False, 9, 16)
+    assert select_shape(48, 8) == (True, 6, 8)
+    assert select_shape(108, 16) == (True, 8, 8)
+    assert select_shape(130, 32) == (True, 6, 8)
+    assert select_shape(130, 32, aligned=False) == (False, 5, 8)
+    assert select_shape(512, 32) == (True, 16, 16)
+    assert select_shape(1030, 32) == (True, 34, 32)
+    assert select_shape(10, 1) == (True, 10, 16)
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("nwords", list(LONG_ROWS))
+def test_words_select_segments_match_plain(nwords, lanes):
+    """B2w's emulated segment at every width the host can pick, on rows of
+    33 to 1030 words (crafted: empty rows, full rows, one bit at either
+    end), read as 16-byte pairs and as single words (a row off a 16-byte
+    boundary), equals the plain version at counters 0, 2**31 and 2**32 -
+    1."""
+    width, n = LONG_ROWS[nwords], 97
+    kernel = WordsSelectKernel("cpu")
+    words = crafted_row_words(n, nwords, width, nwords + lanes)
+    key = keys(n, 2**32 + nwords)
+    for counter in (0, 2**31, 2**32 - 1):
+        want = kernel(key, counter, words, width).numpy()
+        for aligned in (True, False):
+            np.testing.assert_array_equal(
+                emulate_words_select(key, counter, words, width, lanes, aligned), want)
+    assert (want[::5] == 0).all() and (want[2::5] == nwords * width - 1).all()
+    assert (want[3::5] == 0).all() and kernel.launches == 0
+
+
+@pytest.mark.parametrize("preset", ALL_PRESETS)
+def test_words_select_crafted_rows_at_every_width(preset):
+    """On each preset's S*H: empty rows give action 0, a full row's action
+    is the rank's bit of it, a lone bit is always drawn, at every segment
+    width and both load widths."""
+    cfg = PRESETS[preset]()
+    n, nwords = 64, cfg.queue_size * cfg.height
+    words = crafted_row_words(n, nwords, cfg.width, 5)
+    key = keys(n, 2**32 + 9)
+    want = WordsSelectKernel("cpu")(key, 3, words, cfg.width).numpy()
+    for lanes in (1, 2, 4, 8, 16, 32):
+        for aligned in (True, False):
+            np.testing.assert_array_equal(
+                emulate_words_select(key, 3, words, cfg.width, lanes, aligned), want)
+
+
 def test_words_select_empty_masks_give_action_zero():
     key = keys(40, 2**32)
     words = torch.zeros((40, 30), dtype=torch.int64)
@@ -510,6 +642,27 @@ def test_words_select_matches_jax_sample_uniform_legal(preset):
         np.testing.assert_array_equal(emulate_select(words.numpy(), u, cfg.width), want)
         np.testing.assert_array_equal(
             sample_uniform_legal(words, torch.as_tensor(u.copy()), cfg.width).numpy(), want)
+
+
+@pytest.mark.parametrize("nwords", [33, 108, 130, 512])
+def test_words_select_long_rows_match_jax_sample_uniform_legal(nwords):
+    """On rows of 33, 108 (36x9 with a hand of three), 130 and 512 words,
+    given ``jax.random.uniform`` draws, the emulated B2w segment (the
+    host's width) equals JAX's ``sample_uniform_legal``."""
+    import jax
+    import jax.numpy as jnp
+
+    from blockpuzzle_tpu.env import words as jwords
+
+    width, n = LONG_ROWS[nwords], 131
+    words = crafted_row_words(n, nwords, width, 7)
+    words_j = jnp.asarray(words.numpy().astype(np.uint32))
+    sample_j = jax.jit(jwords.sample_uniform_legal, static_argnums=2)
+    for k in range(3):
+        key = jax.random.key(200 + k)
+        u = np.asarray(jax.random.uniform(key, (n,)))
+        want = np.asarray(sample_j(words_j, key, width))
+        np.testing.assert_array_equal(emulate_select(words.numpy(), u, width), want)
 
 
 def test_uniform_from_bits_matches_the_kernel_uniform():

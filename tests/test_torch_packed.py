@@ -53,9 +53,15 @@ CASES = ["default", "tenten", "woodoku", "big", "wide32"]
 N = 24
 
 
+# boards beside the presets: bit 31 of a row word in use, and 17-31 rows,
+# where a warp holds one env-slot and leaves 32 - H lanes idle
+BOARDS = {"wide32": dict(height=6, width=32, queue_size=2),
+          "24x9": dict(height=24, width=9), "17x12": dict(height=17, width=12, queue_size=2)}
+
+
 def _pair(case):
-    if case == "wide32":
-        kw = dict(height=6, width=32, queue_size=2)
+    if case in BOARDS:
+        kw = BOARDS[case]
         return jcfg.EnvConfig(**kw), tcfg.EnvConfig(**kw)
     return jcfg.PRESETS[case](), tcfg.PRESETS[case]()
 
@@ -239,6 +245,34 @@ def _spread4(x):
     return ((x & 0xF) * 0x00204081) & 0x01010101
 
 
+def _row_bits(cfg, x, pid, prow, piece_w, mk, l, lane):
+    """``row_bits`` of csrc/packed_mask.cu for (rows, 32) lanes: lane l
+    holds board row ``lane`` (``x``; full off the env-slots) of an env-slot
+    holding piece ``pid`` (-1 off them); its footprint-band words are built
+    by shuffles from explicit source lanes, rows past H reading full, and
+    each set bit p of the footprint word ORs ``wk >> p`` into the blocked
+    bits.  ``prow`` (P, nwords) and ``piece_w`` (P,) are the tables the
+    kernel reads."""
+    h, w = cfg.height, cfg.width
+    nwords, fpw = mk.tables.nwords, mk.tables.fpw
+    full = int(_shl32(1, w)) - 1 & U32
+    has = (pid >= 0) & (pid < mk.num_pieces)
+    p = np.where(has, pid, 0)
+    pw = np.where(has, piece_w[p], w + 1)
+    blocked = np.zeros_like(x)
+    for k in range(nwords):
+        wk = np.zeros_like(x)
+        for j in range(fpw):
+            t = lane + k * fpw + j
+            y = _shfl(x, np.where(t < h, l + k * fpw + j, l))
+            wk |= _shl32(np.where(t < h, y, full), j * w)
+        m = np.where(pw <= w, prow[p, k], 0)
+        for bit in range(32):                     # each set bit p of m
+            blocked |= np.where((m >> bit) & 1, wk >> bit, 0)
+    span = np.where(pw <= w, _shl32(1, w - pw + 1) - 1 & U32, 0)
+    return ~blocked & span
+
+
 def emulate_legal_rows(cfg, words, queue, mk, warps):
     """``legal_row_bits`` of csrc/packed_mask.cu on the 32-bit tables
     ``PackedMaskKernel`` hands the kernels, over blocks of ``warps`` warps:
@@ -248,7 +282,6 @@ def emulate_legal_rows(cfg, words, queue, mk, warps):
     h, w, s = cfg.height, cfg.width, cfg.queue_size
     prow = mk.prow32.numpy().view(np.uint32).astype(np.int64)
     piece_w = mk.piece_w32.numpy()
-    nwords, fpw = mk.tables.nwords, mk.tables.fpw
     total = len(words) * s
     per_warp, l, sw, lane, base, _ = _warp_layout(h)
     threads, per_block = 32 * warps, warps * per_warp
@@ -263,27 +296,16 @@ def emulate_legal_rows(cfg, words, queue, mk, warps):
     esc = np.where(active, es, 0)
     pid = np.where(active, queue.reshape(-1)[esc], -1)
     x = np.where(active, words.astype(np.int64)[esc // s, np.minimum(lane, h - 1)], full)
-    has = (pid >= 0) & (pid < mk.num_pieces)
-    p = np.where(has, pid, 0)
-    pw = np.where(has, piece_w[p], w + 1)
-    blocked = np.zeros_like(tid)
-    for k in range(nwords):
-        wk = np.zeros_like(tid)
-        for j in range(fpw):
-            t = lane + k * fpw + j
-            y = _shfl(x, np.where(t < h, l + k * fpw + j, l))
-            wk |= _shl32(np.where(t < h, y, full), j * w)
-        m = np.where(pw <= w, prow[p, k], 0)
-        for bit in range(32):                     # each set bit p of m
-            blocked |= np.where((m >> bit) & 1, wk >> bit, 0)
-    span = np.where(pw <= w, _shl32(1, w - pw + 1) - 1 & U32, 0)
-    return ~blocked & span, es, lane, seg, active, blocks
+    bits = _row_bits(cfg, x, pid, prow, piece_w, mk, l, lane)
+    return bits, es, lane, seg, active, blocks
 
 
 def emulate_packed_words(cfg, words, queue, mk):
-    """The words kernel of csrc/packed_mask.cu: ``legal_row_bits`` over
-    blocks of 4 warps (``kWordsWarps``), each active lane storing its row's
-    bits as one int64 at ``out[es * H + lane]``."""
+    """The bit-row words kernel of csrc/packed_mask.cu (B7w on boards of at
+    most 32 rows; ``packed_words_kernel<NW, FPW>``, whose unrolled band loops
+    and S = 1 fast path compute what ``row_bits`` computes):
+    ``legal_row_bits`` over blocks of 4 warps (``kWordsWarps``), each active
+    lane storing its row's bits as one int64 at ``out[es * H + lane]``."""
     h, s = cfg.height, cfg.queue_size
     bits, es, lane, _, active, _ = emulate_legal_rows(cfg, words, queue, mk, warps=4)
     out = np.full(len(words) * s * h, -1, np.int64)      # -1: never written

@@ -379,6 +379,51 @@ def test_operations_bound_at_the_cards_32_bit_integer_rate():
     assert b["bound_ms"] == 1e3 * 1e9 / bounds.INT_OPS_PER_S
 
 
+@pytest.mark.parametrize("nwords, width, lanes, regs, per_env", [
+    (10, 10, 2, 8, 134),      # the default preset: 2 lanes of 6 and 4 words
+    (30, 10, 4, 8, 200),      # tenten: 4 lanes
+    (33, 9, 4, 16, 246),      # 33x9: 4 lanes of 9 words, one at a time
+    (108, 9, 16, 8, 572),     # 36x9 with a hand of three
+    (130, 8, 32, 8, 968),     # 130x8: a warp, spans of 6 words in 8 registers
+    (512, 8, 32, 16, 1772),   # 512x8
+])
+def test_words_select_operations_pin_the_segment_count(nwords, width, lanes, regs, per_env):
+    """B2w's operations an env on the ALU pipe: the fold, seed and lane of
+    the one draw (30), a popcount and an add a word, in each of L lanes
+    log2 L scan rounds of 3 and the rank's broadcast and test (4), the
+    holder's pass over its K registers (5 a word) and its 5-step select
+    (30); bytes bound it on every row the words path runs."""
+    from blockpuzzle_tpu_torch.kernels.draws import select_lanes, select_shape
+    from blockpuzzle_tpu_torch.utils.bounds import COSTS, bound
+
+    n = 49152
+    i64 = lambda *shape: torch.zeros(shape, dtype=torch.int64)
+    inputs, outputs = (i64(n), 7, i64(n, nwords), width), (i64(n),)
+    assert select_lanes(nwords) == lanes and select_shape(nwords, lanes)[2] == regs
+    assert per_env == (30 + 2 * nwords + lanes * (3 * (lanes.bit_length() - 1) + 4)
+                       + 5 * regs + 30)
+    nbytes, ops = COSTS["words_select"](PRESETS["default"](), inputs, outputs)
+    assert nbytes == n * (16 + 8 * nwords) and ops == n * per_env
+    assert bound(list(inputs) + list(outputs), ops)["bound_by"] == "bytes"
+
+
+def test_words_select_counts_the_second_walk_of_long_spans():
+    """On rows of more than 1024 words a lane's span passes its 32
+    registers; the holder walks it again up to its word, 2 operations a
+    word read, counted from the actions (word 0: one chunk; word 40 of a
+    34-word span, place 6: one chunk; the span's last word: two)."""
+    from blockpuzzle_tpu_torch.utils.bounds import COSTS
+
+    n, nwords, width = 3, 1030, 8
+    i64 = lambda *shape: torch.zeros(shape, dtype=torch.int64)
+    inputs = (i64(n), 7, i64(n, nwords), width)
+    base = COSTS["words_select"](PRESETS["default"](), inputs, (i64(n),))[1]
+    assert base == n * (30 + 2 * nwords + 32 * (15 + 4) + 5 * 32 + 30) + 2 * 32 * n
+    acts = torch.tensor([0, 40 * width + 3, 33 * width], dtype=torch.int64)
+    got = COSTS["words_select"](PRESETS["default"](), inputs, (acts,))[1]
+    assert got == base + 2 * 32
+
+
 def test_uniform_legal_is_operations_bound_on_the_main_path():
     """B2 at N = 49152 on the default preset (A = 100): the fold, the
     stream's seed and 100 lanes of hash, select and running maximum an env
@@ -449,7 +494,7 @@ def test_apply_kernels_beyond_32x32_are_bytes_bound():
 # what sets it
 TALL_PACKED_BOUNDS = {
     (33, 9, 1): ((0.008290, "bytes"), (0.007806, "bytes")),
-    (36, 9, 3): ((0.018663, "bytes"), (0.017717, "operations")),
+    (36, 9, 3): ((0.018663, "bytes"), (0.017078, "bytes")),
     (64, 8, 1): ((0.015083, "bytes"), (0.015083, "bytes")),
     (128, 10, 1): ((0.033864, "bytes"), (0.030107, "bytes"))}
 
@@ -458,9 +503,9 @@ TALL_PACKED_BOUNDS = {
 def test_tall_packed_mask_and_words_bounds(board):
     """B7 tall and B7w tall read H int64 words and S int32 ids an env and
     write S*H*W bools (the mask) or S*H int64 words: bytes-bound on every
-    tall board the measurements take but the words on 36x9 with a hand of
-    three, whose 3 * 36 anchor rows' tests outweigh its bytes, at the
-    recorded bounds."""
+    tall board the measurements take, at the recorded bounds (the words on
+    36x9 with a hand of three were bound by operations while the count
+    charged every anchor column a test a footprint word)."""
     from blockpuzzle_tpu_torch import rules
     from blockpuzzle_tpu_torch.config import EnvConfig
     from blockpuzzle_tpu_torch.utils.bounds import kernel_bounds
@@ -478,6 +523,31 @@ def test_tall_packed_mask_and_words_bounds(board):
                                              (s * h * w, 8 * s * h)):
         assert b["bytes"] == n * (8 * h + 4 * s + out_bytes), name
         assert b["bound_by"] == by and round(b["bound_ms"], 6) == ms, name
+
+
+@pytest.mark.parametrize("preset", ["default", "tenten", "woodoku", "big"])
+def test_packed_mask_operations_count_a_row_at_once(preset):
+    """B7's and B7w's least work: each anchor row of an env-slot holding a
+    piece ORs each cell's shifted board row (2 operations a cell) and masks
+    it (2), an empty slot none; so both are bound by their bytes on every
+    preset (the parallel kernels of 16 rows beat the count that charged
+    every anchor column a test)."""
+    from blockpuzzle_tpu_torch import rules
+    from blockpuzzle_tpu_torch.utils.bounds import COSTS, bound
+
+    cfg = PRESETS[preset]()
+    t = rules.tables_for(cfg)
+    queue = torch.tensor([[0] * cfg.queue_size, [t.num_pieces] * cfg.queue_size],
+                         dtype=torch.int32)
+    queue[1, 0] = t.num_pieces - 1
+    words = torch.zeros((2, cfg.height), dtype=torch.int64)
+    cells = cfg.queue_size * int(t.piece_cells[0]) + int(t.piece_cells[-1])
+    for name in ("packed_mask", "packed_legal_words"):
+        _, ops = COSTS[name](cfg, (words, queue), ())
+        assert ops == cfg.height * (2 * cells + 2 * (cfg.queue_size + 1)), name
+    cfg, inputs, outputs = kernel_call("packed_legal_words", 49152)
+    nbytes, ops = COSTS["packed_legal_words"](cfg, inputs, outputs)
+    assert bound(list(inputs) + list(outputs), ops)["bound_by"] == "bytes"
 
 
 def test_draw_operations_count_the_busier_pipe():

@@ -124,13 +124,40 @@ def test_legal_words_match_jax(preset):
         st, _ = env_t.step(st, a, deal_override=d, auto_reset=False)
 
 
-@pytest.mark.parametrize("preset", ALL_PRESETS + ["wide32"])
-def test_words_kernel_emulation_matches_jax(preset):
-    """A numpy emulation of the words kernel, lane by lane
-    (``test_torch_packed.emulate_packed_words``), on crafted boards with
-    empty slots, at a ragged N, against JAX's ``legal_words``."""
+def tall_words_envs(cfg) -> int:
+    """Env-slots a block of the tall words kernel on a board of at most 32
+    rows: ``kernels/packed.py`` ``anchor_launch_shape``'s count, which the
+    wrapper takes from ``WORDS_TALL_FROM`` rows."""
+    from blockpuzzle_tpu_torch.kernels.packed import ANCHOR_ROWS, ANCHOR_THREADS
+
+    seg = -(-cfg.height // ANCHOR_ROWS)
+    step = 16 // int(np.gcd(cfg.num_cells, 16))
+    return -(-(-(-ANCHOR_THREADS // seg)) // step) * step
+
+
+def emulate_words(kernel, cfg, words, queue, mk):
+    """The numpy emulation of words kernel ``kernel`` on a board of at most
+    32 rows: ``"bit-row"`` (csrc/packed_mask.cu) or ``"tall"`` (the tall
+    words kernel of csrc/packed_tall.cu at ``tall_words_envs``)."""
+    from test_torch_packed import emulate_packed_words
+    from test_torch_tall import emulate_packed_anchor_words
+
+    if kernel == "bit-row":
+        return emulate_packed_words(cfg, words, queue, mk)
+    return emulate_packed_anchor_words(cfg, words, queue, mk, tall_words_envs(cfg))
+
+
+@pytest.mark.parametrize("kernel", ["bit-row", "tall"])
+@pytest.mark.parametrize("preset", ALL_PRESETS + ["wide32", "24x9", "17x12"])
+def test_words_kernel_emulation_matches_jax(preset, kernel):
+    """A numpy emulation of each words kernel of boards of at most 32 rows,
+    lane by lane (the bit-row kernel, ``test_torch_packed.emulate_packed_words``,
+    and the tall one, ``test_torch_tall.emulate_packed_anchor_words``, the
+    wrapper's from ``WORDS_TALL_FROM`` rows), on crafted boards with empty
+    slots, at a ragged N, against JAX's ``legal_words``, on the presets and
+    on boards of 6, 17 and 24 rows."""
     jax, jnp, jwords = jax_modules()
-    from test_torch_packed import _pair, crafted_cells, emulate_packed_words, np_words
+    from test_torch_packed import _pair, crafted_cells, np_words
 
     from blockpuzzle_tpu.env import make_env as jax_make_env
 
@@ -143,10 +170,72 @@ def test_words_kernel_emulation_matches_jax(preset):
     queue = rng.integers(0, mk.num_pieces + 1, (n, ct.queue_size)).astype(np.int32)
     queue[0] = mk.num_pieces
     want = np.asarray(jwords.legal_words(env_j, jnp.asarray(words), jnp.asarray(queue)))
-    np.testing.assert_array_equal(emulate_packed_words(ct, words, queue, mk), want)
+    np.testing.assert_array_equal(emulate_words(kernel, ct, words, queue, mk), want)
     tw, tq = torch.as_tensor(words.astype(np.int64)), torch.as_tensor(queue)
     np.testing.assert_array_equal(mk.words(tw, tq).numpy(), want)
     assert want[0].sum() == 0 and 0 < (want != 0).mean() < 1
+
+
+@pytest.mark.parametrize("height", range(1, 33))
+def test_words_entry_picks_its_kernel_by_rows(height):
+    """The words entry of a board of at most 32 rows takes the tall words
+    kernel from 16 rows and where the bit-row warp leaves 5 or more of its
+    32 lanes without a row (9 and 11-13 rows), else the bit-row kernel
+    (``words_kernel_kind``; its name, launch shape and counter follow); the
+    mask keeps its bit-row kernel."""
+    from blockpuzzle_tpu_torch.config import EnvConfig
+    from blockpuzzle_tpu_torch.kernels.packed import (
+        WORDS_TALL_FROM, WORDS_TALL_IDLE, words_kernel_kind,
+    )
+
+    assert (WORDS_TALL_FROM, WORDS_TALL_IDLE) == (16, 5)
+    tall = height in (9, 11, 12, 13) or height >= 16
+    for width, slots in ((9, 1), (12, 3), (32, 2)):
+        cfg = EnvConfig(height=height, width=width, queue_size=slots,
+                        piece_set="mini5" if height < 5 else "classic19")
+        mk = PackedMaskKernel(cfg, "cpu")
+        kind = "tall" if tall else "rows"
+        assert (mk.kind, mk.words_kind, words_kernel_kind(cfg)) == ("rows", kind, kind)
+        assert mk.words_name == "packed_legal_words" + ("_tall" if tall else "")
+        assert mk.words_shape == ((tall_words_envs(cfg),) if tall else mk.shape)
+    for preset, kind in (("default", "rows"), ("tenten", "rows"), ("woodoku", "tall"),
+                         ("big", "tall")):
+        assert PackedMaskKernel(PRESETS[preset](), "cpu").words_kind == kind
+    # no packed words beyond 32 columns: the packed mask's kind, no tables read
+    assert words_kernel_kind(EnvConfig(height=height, width=40)) == (
+        "rows" if height <= 32 else "tall")
+
+
+@pytest.mark.parametrize("preset", ALL_PRESETS + ["24x9"])
+def test_words_kernel_emulation_on_crafted_boards(preset):
+    """Both words kernels' emulations on boards where the answer is known:
+    every hand empty (every word 0), full boards (no legal action: every
+    word 0), and empty boards holding the 1x1 piece (every anchor legal:
+    every word 2^W - 1), each against JAX's ``legal_words``, the plain
+    version and the packed bool mask packed to words."""
+    jax, jnp, jwords = jax_modules()
+    from test_torch_packed import _pair
+
+    from blockpuzzle_tpu.env import make_env as jax_make_env
+
+    cj, ct = _pair(preset)
+    env_j = jax_make_env(cj, state_impl="packed")
+    mk = PackedMaskKernel(ct, "cpu")
+    n, s, full = 13, ct.queue_size, (1 << ct.width) - 1
+    empty = np.zeros((n, ct.height), np.uint32)
+    cases = {"empty hands": (empty, np.full((n, s), mk.num_pieces, np.int32), 0),
+             "full boards": (np.full((n, ct.height), full, np.uint32),
+                             np.zeros((n, s), np.int32), 0),
+             "every anchor": (empty, np.zeros((n, s), np.int32), full)}
+    for what, (words, queue, value) in cases.items():
+        want = np.asarray(jwords.legal_words(env_j, jnp.asarray(words), jnp.asarray(queue)))
+        assert (want == value).all(), what
+        tw, tq = torch.as_tensor(words.astype(np.int64)), torch.as_tensor(queue)
+        for got in (emulate_words("bit-row", ct, words, queue, mk),
+                    emulate_words("tall", ct, words, queue, mk),
+                    mk.words(tw, tq).numpy(),
+                    pack_bool_mask(mk(tw, tq), ct.height, ct.width, s).numpy()):
+            np.testing.assert_array_equal(got, want, what)
 
 
 def test_legal_words_refuses_a_u8_engine():
@@ -301,8 +390,9 @@ def test_words_rollout_is_legal_and_deterministic():
 @pytest.mark.gpu
 @pytest.mark.parametrize("preset", ALL_PRESETS)
 def test_words_kernel_on_the_card(cuda_device, preset):
-    """The words kernel against its plain version and against the mask
-    kernel's bools packed to words, at a ragged N, on mid-game boards."""
+    """The words kernel the wrapper picks (the tall one on big) against its
+    plain version and against the mask kernel's bools packed to words, at a
+    ragged N, on mid-game boards."""
     cfg = PRESETS[preset]()
     env = make_env(cfg, device=cuda_device)
     n = 4099
@@ -311,10 +401,11 @@ def test_words_kernel_on_the_card(cuda_device, preset):
     for _ in range(15):
         state, ts = env.step(state, sampler(ts.action_mask))
     mk = env.packed_mask_kernel
-    before = mk.words_launches
+    counter = "words_launches" if mk.words_kind == "rows" else f"words_{mk.words_kind}_launches"
+    before = getattr(mk, counter)
     got = legal_words(env, state.board, state.queue)
     torch.cuda.synchronize()
-    assert mk.words_launches == before + 1
+    assert getattr(mk, counter) == before + 1
     assert torch.equal(got, mk.plain_words(state.board, state.queue))
     assert torch.equal(got, pack_bool_mask(mk(state.board, state.queue), cfg.height,
                                            cfg.width, cfg.queue_size))
