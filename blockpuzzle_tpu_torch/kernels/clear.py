@@ -14,10 +14,11 @@ words; the wide kernel does the same on rows of 33 to 128 cells held as
 two to four words; the tall kernel on boards of 33 to 128 rows of at most
 128 cells, a warp an env and up to four rows a lane; the deep kernel on
 taller boards of at most 128 cells a row, a warp an env walking the board
-in windows of 32 rows; the xwide kernel on boards of at most 32 rows of
-129 to 1024 cells, a segment of lanes an env and a lane a word of every
-row; the general kernel walks ``line_cell_table`` and takes any other
-board.
+in windows of 32 rows; the xwide kernel on boards of any height of 129 to
+1024 cells a row, a segment of lanes an env, a lane a word of every row
+and the rows in windows of 32; the general kernel walks
+``line_cell_table`` and takes any other board whose board and line flags
+fit one warp's shared memory (``general_warps``).
 """
 
 from __future__ import annotations
@@ -30,11 +31,32 @@ import torch
 from blockpuzzle_tpu_torch import rules
 from blockpuzzle_tpu_torch.config import EnvConfig
 from blockpuzzle_tpu_torch.kernels import _build
-from blockpuzzle_tpu_torch.kernels.packed import SUFFIX, count_launch, u8_kind, u8_launch_shape
+from blockpuzzle_tpu_torch.kernels.packed import (
+    SMEM_OPT_IN, SUFFIX, count_launch, u8_kind, u8_launch_shape,
+)
 
-# (hw + L) bytes of shared memory per warp, four warps a block, must stay
-# under the 48 KB a launch gets without opting in to more
-_MAX_SMEM_PER_WARP = 48 * 1024 // 4
+# warps a block of the general clear and apply, one env each
+GENERAL_WARPS = 4
+
+
+def general_warps(num_cells: int, num_lines: int) -> int:
+    """Warps a block of the general clear and apply kernels (``bp_clear``,
+    ``bp_apply``), each warp holding an env's board and a flag a line
+    (``num_cells + num_lines`` bytes of shared memory): ``GENERAL_WARPS``, or
+    the most that fit what a block may opt in to; 0 where one warp's do not
+    (the kernels refuse such a board).  ``csrc/clear_lines.cuh``
+    ``general_warps`` makes the same choice."""
+    return min(GENERAL_WARPS, SMEM_OPT_IN // (num_cells + num_lines))
+
+
+def check_general_fits(cfg: EnvConfig, num_lines: int) -> None:
+    """Raise where the general clear and apply cannot stage one env of
+    ``cfg`` (``general_warps`` is 0): a board of more than about 232,000
+    cells, whose rule table alone takes at least 5 HW^2 bytes."""
+    if general_warps(cfg.num_cells, num_lines) == 0:
+        raise ValueError(
+            f"board of {cfg.num_cells} cells is too large: its {num_lines} line flags and "
+            f"cells pass the {SMEM_OPT_IN} bytes of shared memory a block may use")
 
 
 def line_masks(cfg: EnvConfig) -> np.ndarray:
@@ -72,12 +94,12 @@ def clear_plain(
 
 class LineTables:
     """One config's line tables on one device, in the plain version's form
-    (``masks``) and the kernels' (``line_cells``, ``line_len``)."""
+    (``masks``) and the kernels' (``line_cells``, ``line_len``), for a board
+    of any size (the general kernels' limit is checked where they run,
+    ``check_general_fits``)."""
 
     def __init__(self, cfg: EnvConfig, device):
         masks = line_masks(cfg)
-        if cfg.num_cells + masks.shape[0] > _MAX_SMEM_PER_WARP:
-            raise ValueError(f"board of {cfg.num_cells} cells is too large")
         cells, lens = line_cell_table(masks)
         self.masks = torch.as_tensor(masks.astype(np.float32), device=device)
         self.line_cells = torch.as_tensor(cells, device=device)
@@ -97,15 +119,17 @@ class ClearScanKernel:
     W <= 128 (``tall_launches``), the deep kernel where H > 128 and
     W <= 128 (``deep_launches``: a warp an env over windows of 32 rows, or
     of 32 - 32 mod rs with regions of size rs, on the deep mask's launch
-    shape, ``deep_launch_shape``), the xwide kernel where H <= 32 and
-    128 < W <= 1024 (``xwide_launches``: a segment of ceil(W / 32) lanes an
-    env, a lane a word of every row, on the xwide mask's launch shape);
-    ``shape`` is the launch shape of any of them (``u8_launch_shape``).
-    Else the general kernel (``shape`` is None; ``general_launches``): rows
-    of more than 1024 cells, rows of more than 128 cells on boards of more
-    than 32 rows, or a deep board whose one-warp block does not fit shared
-    memory (``LineTables`` takes no such board: its cells and lines pass
-    12288).  ``name`` is the picked kernel's.
+    shape, ``deep_launch_shape``), the xwide kernel where
+    128 < W <= 1024 at any height (``xwide_launches``: a segment of
+    ceil(W / 32) lanes an env, a lane a word of every row, the rows in
+    windows of 32, or of 32 - 32 mod rs with regions, on the xwide mask's
+    launch shape); ``shape`` is the launch shape of any of them
+    (``u8_launch_shape``).  Else the general kernel (``shape`` is None;
+    ``general_launches``): rows of more than 1024 cells, or a deep or xwide
+    board whose one-warp block does not fit shared memory; it takes every
+    such board whose cells and lines fit one warp's shared memory
+    (``general_warps``) and the wrapper refuses the rest at construction.
+    ``name`` is the picked kernel's.
 
     The bit-row, wide, tall, deep and xwide kernels take the engine's
     boards, whose cells are 0 or 1 (``env/state.py``): they find a line full
@@ -124,6 +148,8 @@ class ClearScanKernel:
         self.wide = self.kind == "wide"
         self.name = "clear" + SUFFIX[self.kind]
         self.lines = LineTables(cfg, self.device)
+        if self.shape is None:
+            check_general_fits(cfg, self.lines.line_cells.shape[0])
 
     def plain(self, board: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return clear_plain(board, self.lines.masks)

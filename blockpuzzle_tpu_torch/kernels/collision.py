@@ -40,10 +40,10 @@ import torch
 from blockpuzzle_tpu_torch import rules
 from blockpuzzle_tpu_torch.config import EnvConfig
 from blockpuzzle_tpu_torch.kernels import _build
-from blockpuzzle_tpu_torch.kernels.clear import LineTables, clear_plain
+from blockpuzzle_tpu_torch.kernels.clear import LineTables, check_general_fits, clear_plain
 from blockpuzzle_tpu_torch.kernels.packed import (
-    MAX_PIECE, MAX_ROWS, SUFFIX, apply_launch_shape, count_launch, segments_per_warp, u8_kind,
-    u8_launch_shape,
+    MAX_PIECE, MAX_ROWS, MAX_WIDE, SUFFIX, apply_launch_shape, count_launch, segments_per_warp,
+    u8_kind, u8_launch_shape,
 )
 
 # the bit-row legality's block and the words of one row of its shape table,
@@ -165,9 +165,13 @@ def every_piece_shape(cfg: EnvConfig):
     """The launch shape of the hand mask's kernel that takes ``cfg``'s board
     with every piece in the hand (S = P: ``u8_launch_shape`` of ``cfg`` with
     ``queue_size`` P), where that is the wide, tall, deep or xwide kernel and
-    no piece spans more than ``MAX_PIECE`` rows or columns; else None."""
+    no piece spans more than ``MAX_PIECE`` rows or columns; else None, and
+    so the general legality, also on boards of more than ``MAX_ROWS`` rows of
+    more than ``MAX_WIDE`` cells, where the hand mask takes its xwide kernel
+    but its every-piece instance is not yet held to the general legality."""
     t = rules.tables_for(cfg)
-    if max(t.max_h, t.max_w) > MAX_PIECE or (cfg.height <= MAX_ROWS and cfg.width <= 32):
+    if (max(t.max_h, t.max_w) > MAX_PIECE or (cfg.height <= MAX_ROWS and cfg.width <= 32)
+            or (cfg.height > MAX_ROWS and cfg.width > MAX_WIDE)):
         return None
     return u8_launch_shape(dataclasses.replace(cfg, queue_size=t.num_pieces))
 
@@ -186,8 +190,10 @@ class LegalityKernel:
     mask's launch shape at S = P; ``wide_launches`` ... ``xwide_launches``).
     ``shape`` is the picked kernel's launch shape.  Else the general kernel
     (``shape`` is None; ``general_launches``): rows of more than 1024
-    cells, rows of more than 128 cells on boards of more than 32 rows,
-    larger pieces, or a deep board whose one-warp block does not fit.
+    cells, rows of more than 128 cells on boards of more than 32 rows (the
+    hand mask's xwide kernel takes those; its every-piece instance waits
+    for its own measurement), larger pieces, or a deep board whose one-warp
+    block does not fit.
     ``name`` is the picked kernel's.
 
     All read a cell as occupied when it is nonzero, as ``legality_plain``
@@ -315,8 +321,11 @@ class ApplyKernel:
     warps where a block's two staged spans would not fit).  Else the
     general kernel (``shape`` is None; ``general_launches``): rows of more
     than 1024 cells, rows of more than 128 cells on boards of more than 32
-    rows, or a deep board one warp cannot stage (``LineTables`` takes no
-    such board).  ``name`` is the picked kernel's.
+    rows (there the clear takes its xwide kernel; the apply instance waits
+    for its own measurement), or a deep board one warp cannot stage; it
+    takes every such board whose cells and lines fit one warp's shared
+    memory (``clear.general_warps``), and the wrapper refuses the rest at
+    construction.  ``name`` is the picked kernel's.
 
     The bit-row, wide, tall, deep and xwide kernels take boards and covers
     whose cells are 0 or 1: the engine's boards (``env/state.py``) and its
@@ -338,6 +347,8 @@ class ApplyKernel:
         self.kind = u8_kind(cfg, self.shape)
         self.name = "apply" + SUFFIX[self.kind]
         self.lines = LineTables(cfg, self.device)
+        if self.shape is None:
+            check_general_fits(cfg, self.lines.line_cells.shape[0])
 
     def plain(self, board, cover, valid):
         return apply_plain(board, cover, valid, self.lines.masks)

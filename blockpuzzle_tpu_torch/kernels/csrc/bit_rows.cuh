@@ -587,7 +587,7 @@ __device__ __forceinline__ void store_tall(const uint32_t* rows, uint8_t* out, l
   store_tall<NW>(rows, out, at, bytes, width, threadIdx.x, blockDim.x);
 }
 
-// Rows of more than 128 cells (the xwide kernels, H <= 32, 128 < W <= 1024):
+// Rows of more than 128 cells (the xwide kernels, 128 < W <= 1024, any H):
 // a segment of NW = ceil(W / 32) lanes holds one board, lane w word w of
 // every row (cells 32 w .. 32 w + 31), the transpose of the layouts above;
 // `seat(nw, 32 / nw)` gives a thread its segment and word.  The block's

@@ -11,11 +11,10 @@
 // for H > 128 and W <= 128 wherever a block of one warp fits the shared
 // memory a block may opt in to; the xwide kernel (`clear_xwide_kernel`,
 // entry `bp_clear_xwide`), a segment of lanes an env and a lane a word of
-// every row, for H <= 32 and 128 < W <= 1024; and the general kernel
-// (`clear_kernel`, entry `bp_clear`) for what is left: rows of more than
-// 1024 cells, rows of more than 128 cells on boards of more than 32 rows,
-// or a deep board too large for one warp.  The wrapper (kernels/clear.py) picks
-// one by shape.  The wide, tall, deep and xwide kernels are also the apply
+// every row, for 128 < W <= 1024 and any height wherever a block of one
+// warp fits; and the general kernel (`clear_kernel`, entry `bp_clear`) for
+// what is left: rows of more than 1024 cells, or a deep or xwide board too
+// large for one warp.  The wrapper (kernels/clear.py) picks one by shape.  The wide, tall, deep and xwide kernels are also the apply
 // (K2, the TPU kernel `_apply_kernel`, blockpuzzle_tpu/kernels/collision.py:120)
 // on those boards: a second instance of each (`kApply`, entries
 // `bp_apply_wide`, `bp_apply_tall`, `bp_apply_deep`, `bp_apply_xwide`; the
@@ -108,24 +107,29 @@
 // line's cells through the global table (138 lines, the 8 columns of 130
 // cells, on 130x8), two dependent loads a cell, byte loads and stores.
 //
-// The xwide kernel takes the same 0/1 boards of at most 32 rows of 129 to
-// 1024 cells, where a row's words no longer fit a lane: a segment of NW =
-// ceil(W / 32) lanes an env (6 segments a warp on 8x136), lane w holding
-// word w of every row, loaded by the block as 16-byte vectors straight into
-// row words in shared memory (`bit_rows::stage_words`, no staged copy of
-// the bytes).  Pass 1 is lane-local: the AND of the lane's
-// rows is its word of the full columns, and bit r of a word marks row r's
-// word full (the top word's bits past W count as set); one
-// `__reduce_and_sync` over the segment gives the full rows.  Pass 2 walks
-// the rows a band of rs at a time (a row at a time without regions): the
-// band's AND, lane-local; its full rs-bit fields read from the
+// The xwide kernel takes the same 0/1 boards of 129 to 1024 cells a row
+// and any height, where a row's words no longer fit a lane: a segment of
+// NW = ceil(W / 32) lanes an env (6 segments a warp on 8x136), lane w
+// holding word w of every row, loaded by the block as 16-byte vectors
+// straight into row words in shared memory (`bit_rows::stage_words`, no
+// staged copy of the bytes).  Pass 1 is lane-local: the AND of the lane's
+// rows is its word of the full columns.  Pass 2 walks the board in windows
+// of 32 rows, or of 32 - 32 mod rs with regions of size rs, so that no
+// region band crosses a window (the deep kernel's windows): bit i of a
+// lane's word marks row w0 + i's word full (the top word's bits past W
+// count as set), and one `__reduce_and_sync` over the segment gives the
+// window's full rows (a board of one window, at most 32 rows, marks them
+// in pass 1 and takes one pass 2 over its rows: the kWindows form below).
+// In each window
+// it walks the rows a band of rs at a time (a row at a time without
+// regions): the band's AND, lane-local; its full rs-bit fields read from the
 // funnel-shifted pair (this word, the next lane's, one `__shfl_down_sync`),
 // since a field may straddle two words (rs = 3: columns 30..32, 63..65),
 // the part of a full field past this word handed up by one
 // `__shfl_up_sync`; then each row cleared in place (all of it if full,
-// else its full columns and fields).  k = the full rows + one
-// `__reduce_add_sync` of each word's full columns and of the fields that
-// start in it; lane 0 writes it.  The block stores as the mask's xwide
+// else its full columns and fields).  k = the full rows of every window +
+// one `__reduce_add_sync` of each word's full columns and of the fields
+// that start in it; lane 0 writes it.  The block stores as the mask's xwide
 // kernel (`store_words_n`).  It answers what bounded the general kernel
 // there: a warp an env whose lanes walk the 144 lines of 8x136 through the
 // global table, a dependent index load a cell, the 8 row lanes 136 cells
@@ -150,7 +154,10 @@
 // before a byte store.
 //
 // The general kernel: one warp per env, four envs per block, any N (a warp
-// past the last env exits as a whole, before any warp collective).  Lanes
+// past the last env exits as a whole, before any warp collective), opted
+// in above 48 KB of shared memory; fewer warps where four warps' boards
+// and line flags (hw + L bytes each) pass what a block may opt in to,
+// refused only where one warp's do (`general_warps`, clear_lines.cuh).  Lanes
 // stride the HW cells, so the load and the store are coalesced; the board
 // sits in shared memory while `clear_full_lines` (clear_lines.cuh, shared
 // with the apply kernel) judges the L lines, one lane per line, and clears
@@ -165,7 +172,6 @@
 
 namespace {
 
-constexpr int kWarps = 4;
 constexpr long long kSmemOptIn = 227 * 1024;  // shared memory a block may opt in to
 using bit_rows::kAll;
 
@@ -484,6 +490,37 @@ __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
   bit_rows::store_tall<NW>(rows, board_out, lo, count * hw, width);
 }
 
+// The xwide clear's band of `rows` rows from row r0 (region_size rows,
+// or fewer at the board's bottom): the bits of this lane's word that lie
+// in a full rs-bit field of a whole band (fields that start in this word,
+// and the part of one from the word below that straddles into it), and
+// `got` counts the fields that start in this word.  A field may straddle
+// this word and the next (rs = 3: columns 30..32), read from the
+// funnel-shifted pair (this word, the next lane's: one `__shfl_down_sync`)
+// and handed up by one `__shfl_up_sync`.  Every lane of the warp calls it.
+__device__ __forceinline__ uint32_t band_fields(const uint32_t* x, int nw, int r0, int rows,
+                                                const bit_rows::Seat& t, int width,
+                                                int region_size, int c1, uint32_t tile0,
+                                                int& got) {
+  uint32_t band = kAll;
+  for (int i = 0; i < rows; ++i) band &= x[(r0 + i) * nw];
+  const uint32_t next = __shfl_down_sync(kAll, band, 1);
+  const uint32_t hi_word = t.lane + 1 < nw ? next : 0u;
+  uint32_t reg = 0, spill = 0;                       // spill: the next word's part of a field
+  if (rows == region_size) {                         // a whole band on the board
+    for (int c0 = c1; c0 < 32 * (t.lane + 1) && c0 + region_size <= width; c0 += region_size) {
+      const int b = c0 - 32 * t.lane;
+      if ((__funnelshift_r(band, hi_word, b) & tile0) == tile0) {
+        reg |= tile0 << b;
+        if (b + region_size > 32) spill |= tile0 >> (32 - b);
+        ++got;
+      }
+    }
+  }
+  const uint32_t from_below = __shfl_up_sync(kAll, spill, 1);
+  return reg | (t.lane > 0 ? from_below : 0u);
+}
+
 // The xwide kernel's two instances likewise: the clear (kApply false) and
 // the apply (kApply true), whose block loads its envs' covers as row words
 // beside their boards (two arrays, each zeroed by `stage_words` before its
@@ -493,8 +530,15 @@ __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
 // clear's two passes on them, an illegal one runs them on its input words
 // but writes none back (the segments of a warp differ in legality, and
 // every lane runs every shuffle and reduction), so it stores its input:
-// a strict no-op with k = 0.
-template <bool kApply>
+// a strict no-op with k = 0.  Each has two forms: kWindows false takes a
+// board whose rows (and region bands) fit one 32-bit word of row bits, a
+// board of at most 32 rows (30 with 3x3 regions) in one pass 2 over its
+// rows; kWindows true walks pass 2 in windows of 32 rows (32 - 32 mod rs),
+// a full-row word and one reduction a window, reading each row once more
+// (the entry picks by height: a single pass 2 with a window's loop around
+// it took 4-22% longer on boards of at most 32 rows, in turns on an H100).
+// The apply takes boards of at most 32 rows.
+template <bool kApply, bool kWindows>
 __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
     clear_xwide_kernel(const uint8_t* __restrict__ board, const uint8_t* __restrict__ cover,
                        const uint8_t* __restrict__ valid, uint8_t* __restrict__ board_out,
@@ -532,55 +576,66 @@ __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
   }
   const int tail = width - 32 * (nw - 1);            // columns of the top word: 1..32
   const uint32_t pad = t.lane + 1 == nw && tail < 32 ? kAll << tail : 0u;  // past W: full
-  // pass 1, lane-local: the full columns of this word (the AND of its rows)
-  // and bit r set where row r's word is full
-  uint32_t cols = kAll, full = 0;
-  for (int r = 0; r < height; ++r) {
-    const uint32_t v = x[r * nw];
-    cols &= v;
-    full |= ((v | pad) == kAll ? 1u : 0u) << r;
-  }
-  const uint32_t rows_full = __reduce_and_sync(t.mask, full);  // the segment's full rows
-  int got = __popc(cols);                            // this word's full columns, then tiles
-  // pass 2, a band of region_size rows (a row without regions) at a time:
-  // the band's full fields, then its rows cleared in place
-  const int g = region_size > 0 ? region_size : 1;
+  const int g = region_size > 0 ? region_size : 1;  // rows a band
   // the first field that starts in this word: columns c0 = 0, rs, 2 rs, ...
   const int c1 = region_size > 0 ? (32 * t.lane + region_size - 1) / region_size * region_size
                                  : 0;
   const uint32_t tile0 = region_size < 32 ? (1u << region_size) - 1u : kAll;
-  for (int r0 = 0; r0 < height; r0 += g) {
-    const int rows_here = min(g, height - r0);
-    uint32_t reg = 0;                                // the band's cleared fields
-    if (region_size > 0) {
-      uint32_t band = kAll;
-      for (int i = 0; i < rows_here; ++i) band &= x[(r0 + i) * nw];
-      // a field may straddle this word and the next (rs = 3: columns
-      // 30..32), read from the funnel-shifted pair, marked in both
-      const uint32_t next = __shfl_down_sync(kAll, band, 1);
-      const uint32_t hi_word = t.lane + 1 < nw ? next : 0u;
-      uint32_t spill = 0;                            // the next word's part of a full field
-      if (rows_here == region_size) {                // a whole band on the board
-        for (int c0 = c1; c0 < 32 * (t.lane + 1) && c0 + region_size <= width;
-             c0 += region_size) {
-          const int b = c0 - 32 * t.lane;
-          if ((__funnelshift_r(band, hi_word, b) & tile0) == tile0) {
-            reg |= tile0 << b;
-            if (b + region_size > 32) spill |= tile0 >> (32 - b);
-            ++got;
-          }
+  int k;
+  if constexpr (!kWindows) {
+    // pass 1, lane-local: the full columns of this word (the AND of its
+    // rows) and bit r set where row r's word is full
+    uint32_t cols = kAll, full = 0;
+    for (int r = 0; r < height; ++r) {
+      const uint32_t v = x[r * nw];
+      cols &= v;
+      full |= ((v | pad) == kAll ? 1u : 0u) << r;
+    }
+    const uint32_t rows_full = __reduce_and_sync(t.mask, full);  // the segment's full rows
+    int got = __popc(cols);                          // this word's full columns, then tiles
+    // pass 2, a band of region_size rows (a row without regions) at a time:
+    // the band's full fields, then its rows cleared in place
+    for (int r0 = 0; r0 < height; r0 += g) {
+      const int rows_here = min(g, height - r0);
+      const uint32_t reg = region_size > 0 ? band_fields(x, nw, r0, rows_here, t, width,
+                                                         region_size, c1, tile0, got)
+                                           : 0u;
+      for (int i = 0; i < rows_here; ++i) {
+        const int r = r0 + i;
+        const uint32_t v = x[r * nw];
+        if (write) x[r * nw] = (rows_full >> r & 1u) ? 0u : v & ~(cols | reg);
+      }
+    }
+    k = __popc(rows_full) + __reduce_add_sync(t.mask, got);
+  } else {
+    // pass 1, lane-local: the full columns of this word
+    uint32_t cols = kAll;
+    for (int r = 0; r < height; ++r) cols &= x[r * nw];
+    int got = __popc(cols);                          // this word's full columns, then tiles
+    k = 0;                                           // full rows
+    // pass 2, a window of rows at a time (a whole number of bands): its
+    // full rows, then its bands as above
+    const int win = region_size > 0 ? 32 - 32 % region_size : 32;
+    for (int w0 = 0; w0 < height; w0 += win) {
+      const int w1 = min(w0 + win, height);
+      uint32_t full = 0;                             // bit i: row w0 + i's word full
+      for (int r = w0; r < w1; ++r) full |= ((x[r * nw] | pad) == kAll ? 1u : 0u) << (r - w0);
+      const uint32_t rows_full = __reduce_and_sync(t.mask, full);  // the window's full rows
+      k += __popc(rows_full);
+      for (int r0 = w0; r0 < w1; r0 += g) {
+        const int rows_here = min(g, w1 - r0);
+        const uint32_t reg = region_size > 0 ? band_fields(x, nw, r0, rows_here, t, width,
+                                                           region_size, c1, tile0, got)
+                                             : 0u;
+        for (int i = 0; i < rows_here; ++i) {
+          const int r = r0 + i;
+          const uint32_t v = x[r * nw];
+          if (write) x[r * nw] = (rows_full >> (r - w0) & 1u) ? 0u : v & ~(cols | reg);
         }
       }
-      const uint32_t from_below = __shfl_up_sync(kAll, spill, 1);
-      reg |= t.lane > 0 ? from_below : 0u;
     }
-    for (int i = 0; i < rows_here; ++i) {
-      const int r = r0 + i;
-      const uint32_t v = x[r * nw];
-      if (write) x[r * nw] = (rows_full >> r & 1u) ? 0u : v & ~(cols | reg);
-    }
+    k += __reduce_add_sync(t.mask, got);
   }
-  const int k = __popc(rows_full) + __reduce_add_sync(t.mask, got);
   if (active && t.lane == 0) {
     k_out[first + t.seg] = write ? k : 0;
     if constexpr (kApply) legal_out[first + t.seg] = write;
@@ -706,18 +761,26 @@ int tall(const Io& io, bool apply, bool deep) {
   return apply ? run_tall<true>(io) : run_tall<false>(io);
 }
 
-// H <= 32 and 128 < W <= 1024: per_warp = 32 / NW, warps 1 to 16; the
-// block's shared memory is its envs' rows of NW words, and the apply's as
-// many cover rows beside them
+// 128 < W <= 1024, any height (the apply: H <= 32): per_warp = 32 / NW,
+// warps 1 to 16; the block's shared memory is its envs' rows of NW words,
+// and the apply's as many cover rows beside them; refused where a block
+// stages 2^21 bytes or more (`small_div`)
 int xwide(const Io& io, bool apply) {
   const int nw = (io.width + 31) / 32;
-  if (io.height < 1 || io.height > 32 || io.width <= 128 || io.width > 1024 ||
+  if (io.height < 1 || (apply && io.height > 32) || io.width <= 128 || io.width > 1024 ||
       io.per_warp != 32 / nw || !region_ok(io) || io.warps < 1 ||
-      io.warps > bit_rows::kMaxWarps || !aligned(io.board_out)) {
+      io.warps > bit_rows::kMaxWarps || !aligned(io.board_out) ||
+      static_cast<long long>(io.warps) * io.per_warp * io.height * io.width >= (1LL << 21)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (io.n <= 0) return static_cast<int>(cudaGetLastError());
-  return launch_smem(apply ? clear_xwide_kernel<true> : clear_xwide_kernel<false>, io,
+  // windows where a region band or a row's bit would pass one 32-bit word
+  const bool windows = io.height > (io.region_size > 0 ? 32 - 32 % io.region_size : 32);
+  const Kernel kernel = apply ? (windows ? clear_xwide_kernel<true, true>
+                                         : clear_xwide_kernel<true, false>)
+                              : (windows ? clear_xwide_kernel<false, true>
+                                         : clear_xwide_kernel<false, false>);
+  return launch_smem(kernel, io,
                      (apply ? 8LL : 4LL) * io.warps * io.per_warp * io.height * nw);
 }
 
@@ -730,7 +793,7 @@ __global__ void clear_kernel(const uint8_t* __restrict__ board,
   extern __shared__ uint8_t smem[];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const long long env = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  const long long env = static_cast<long long>(blockIdx.x) * (blockDim.x / 32) + warp;
   if (env >= n) return;
   uint8_t* cells = smem + warp * (hw + num_lines);
   uint8_t* full = cells + hw;
@@ -806,11 +869,13 @@ extern "C" int bp_clear_deep(const void* board, void* board_out, void* k_out,
               true);
 }
 
-// As bp_clear_rows, for H <= 32 and 128 < W <= 1024: a segment of NW =
-// ceil(W / 32) lanes an env, lane w holding word w of every row; per_warp =
+// As bp_clear_rows, for 128 < W <= 1024 and any height: a segment of NW =
+// ceil(W / 32) lanes an env, lane w holding word w of every row, the rows
+// in windows of 32 (32 - 32 mod rs with regions of size rs); per_warp =
 // 32 / NW segments a warp, warps 1 to 16 (the block's output span may
 // start off a 16-byte boundary); refused where the block's shared memory
-// (its envs' rows of NW words) passes what a block may opt in to.
+// (its envs' rows of NW words) passes what a block may opt in to, or where
+// it stages 2^21 bytes or more.
 extern "C" int bp_clear_xwide(const void* board, void* board_out, void* k_out,
                               int n, int height, int width, int region_size,
                               int per_warp, int warps, void* stream) {
@@ -820,7 +885,8 @@ extern "C" int bp_clear_xwide(const void* board, void* board_out, void* k_out,
 
 // The apply (K2) on the clear's kernels: bp_apply_rows's arguments and
 // launch shape rules, for the boards bp_clear_wide, bp_clear_tall,
-// bp_clear_deep and bp_clear_xwide take.  board, cover (N, HW) u8 of 0/1
+// bp_clear_deep and bp_clear_xwide take (bp_apply_xwide those of at most
+// 32 rows).  board, cover (N, HW) u8 of 0/1
 // cells, each at any address; valid (N,) bool; outputs board_out (N, HW)
 // u8 (16-byte aligned), k (N,) i32, legal (N,) bool.  Each is refused where its block's
 // shared memory (output rows and two staged spans; the xwide one's two
@@ -860,21 +926,19 @@ extern "C" int bp_apply_xwide(const void* board, const void* cover, const void* 
 }
 
 // board (N, HW) u8; line_cells (L, max_len) i32 and line_len (L,) i32;
-// outputs board_out (N, HW) u8 and k (N,) i32.
+// outputs board_out (N, HW) u8 and k (N,) i32.  Refused where one warp's
+// hw + L bytes pass what a block may opt in to.
 extern "C" int bp_clear(const void* board, const void* line_cells,
                         const void* line_len, void* board_out, void* k_out,
                         int n, int hw, int num_lines, int max_len,
                         void* stream) {
-  if (n > 0) {
-    const int blocks = (n + kWarps - 1) / kWarps;
-    const size_t smem = static_cast<size_t>(kWarps) * (hw + num_lines);
-    clear_kernel<<<blocks, kWarps * 32, smem,
-                   static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(board),
-        static_cast<const int32_t*>(line_cells),
-        static_cast<const int32_t*>(line_len),
-        static_cast<uint8_t*>(board_out), static_cast<int32_t*>(k_out), n, hw,
-        num_lines, max_len);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const int warps = general_warps(hw, num_lines);
+  if (n <= 0) return static_cast<int>(warps < 1 ? cudaErrorInvalidValue : cudaGetLastError());
+  return launch_general(clear_kernel, n, warps, hw, num_lines,
+                        static_cast<cudaStream_t>(stream),
+                        static_cast<const uint8_t*>(board),
+                        static_cast<const int32_t*>(line_cells),
+                        static_cast<const int32_t*>(line_len),
+                        static_cast<uint8_t*>(board_out), static_cast<int32_t*>(k_out), n, hw,
+                        num_lines, max_len);
 }

@@ -10,6 +10,34 @@
 #pragma once
 
 #include <cstdint>
+#include <cuda_runtime.h>
+
+// Warps a block of the general clear and apply kernels, one env each, with
+// `hw + num_lines` bytes of shared memory a warp (the board, then a flag a
+// line): four, or the most that fit the 227 KB a block may opt in to;
+// 0 where one warp's do not (the entry refuses the launch).  Kept equal to
+// kernels/clear.py `general_warps`.
+inline int general_warps(int hw, int num_lines) {
+  const long long per_warp = static_cast<long long>(hw) + num_lines;
+  const long long fit = 227LL * 1024 / per_warp;
+  return static_cast<int>(fit < 4 ? fit : 4);
+}
+
+// `kernel`'s launch for n envs at `warps` warps a block (`general_warps`),
+// opted in above the 48 KB a launch gets without asking; the error code.
+template <typename Kernel, typename... Args>
+int launch_general(Kernel kernel, int n, int warps, int hw, int num_lines,
+                   cudaStream_t stream, Args... args) {
+  if (warps < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = warps * (hw + num_lines);
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<(n + warps - 1) / warps, warps * 32, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // `cells`: the warp's HW board bytes in shared memory, cleared in place.
 // `full`: num_lines bytes of shared scratch.  All 32 lanes must call it.

@@ -4,9 +4,11 @@
 // kernels here: the bit-row kernel (`apply_rows_kernel`, entry
 // `bp_apply_rows`) for boards with H <= 32 and W <= 32, every shipped
 // preset, and the general kernel (`apply_kernel`, entry `bp_apply`) for rows
-// of more than 128 cells and deep boards one warp cannot stage.  The boards
-// between take the apply instances of the clear's wide, tall and deep
-// kernels (clear.cu: `bp_apply_wide`, `bp_apply_tall`, `bp_apply_deep`).
+// of more than 1024 cells, rows of more than 128 cells on boards of more
+// than 32 rows, and deep boards one warp cannot stage.  The boards between
+// take the apply instances of the clear's wide, tall, deep and xwide
+// kernels (clear.cu: `bp_apply_wide`, `bp_apply_tall`, `bp_apply_deep`,
+// `bp_apply_xwide`).
 // The wrapper (kernels/collision.py) picks one by shape.
 //
 // What both compute, per env: the action is legal iff `valid` and the
@@ -52,8 +54,11 @@
 // ragged tail and in the left-over lanes too.
 //
 // The general kernel: one warp per env, four envs per block, any N (a warp
-// past the last env exits as a whole).  Lanes stride the HW cells, so the
-// board and cover loads and the board store are coalesced; the overlap test
+// past the last env exits as a whole), opted in above 48 KB of shared
+// memory; fewer warps where four warps' hw + L bytes pass what a block may
+// opt in to (`general_warps`, clear_lines.cuh, as the general clear).
+// Lanes stride the HW cells, so the board and cover loads and the board
+// store are coalesced; the overlap test
 // is one warp vote; the placed board sits in shared memory while
 // `clear_full_lines` (clear_lines.cuh) scans the L lines, one lane per
 // line.  The line table (<= 32 lines of <= 16 int32 on the shipped presets)
@@ -67,7 +72,6 @@
 
 namespace {
 
-constexpr int kWarps = 4;
 using bit_rows::kAll;
 
 __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
@@ -130,7 +134,7 @@ __global__ void apply_kernel(const uint8_t* __restrict__ board,
   extern __shared__ uint8_t smem[];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const long long env = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  const long long env = static_cast<long long>(blockIdx.x) * (blockDim.x / 32) + warp;
   if (env >= n) return;
   uint8_t* cells = smem + warp * (hw + num_lines);
   uint8_t* full = cells + hw;
@@ -193,23 +197,21 @@ extern "C" int bp_apply_rows(const void* board, const void* cover,
 
 // board, cover (N, HW) u8; valid (N,) bool; line_cells (L, max_len) i32 and
 // line_len (L,) i32; outputs board_out (N, HW) u8, k (N,) i32, legal (N,)
-// bool.
+// bool.  Refused where one warp's hw + L bytes pass what a block may opt in
+// to.
 extern "C" int bp_apply(const void* board, const void* cover,
                         const void* valid, const void* line_cells,
                         const void* line_len, void* board_out, void* k_out,
                         void* legal_out, int n, int hw, int num_lines,
                         int max_len, void* stream) {
-  if (n > 0) {
-    const int blocks = (n + kWarps - 1) / kWarps;
-    const size_t smem = static_cast<size_t>(kWarps) * (hw + num_lines);
-    apply_kernel<<<blocks, kWarps * 32, smem,
-                   static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(board), static_cast<const uint8_t*>(cover),
-        static_cast<const uint8_t*>(valid),
-        static_cast<const int32_t*>(line_cells),
-        static_cast<const int32_t*>(line_len),
-        static_cast<uint8_t*>(board_out), static_cast<int32_t*>(k_out),
-        static_cast<uint8_t*>(legal_out), n, hw, num_lines, max_len);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const int warps = general_warps(hw, num_lines);
+  if (n <= 0) return static_cast<int>(warps < 1 ? cudaErrorInvalidValue : cudaGetLastError());
+  return launch_general(apply_kernel, n, warps, hw, num_lines,
+                        static_cast<cudaStream_t>(stream),
+                        static_cast<const uint8_t*>(board), static_cast<const uint8_t*>(cover),
+                        static_cast<const uint8_t*>(valid),
+                        static_cast<const int32_t*>(line_cells),
+                        static_cast<const int32_t*>(line_len),
+                        static_cast<uint8_t*>(board_out), static_cast<int32_t*>(k_out),
+                        static_cast<uint8_t*>(legal_out), n, hw, num_lines, max_len);
 }

@@ -13,11 +13,11 @@
 // pieces wherever a block of one warp or more fits the shared memory a
 // block may opt in to with its boards staged whole; the xwide kernel
 // (`mask_xwide_kernel`, entry `bp_mask_xwide`), a segment of lanes an
-// env-slot and a lane a word of every row, for H <= 32, 128 < W <= 1024 and
-// the same pieces; and the general kernel (`mask_kernel`, entry `bp_mask`)
-// for what is left: rows of more than 1024 cells, rows of more than 128
-// cells on boards of more than 32 rows, pieces of more than 8 rows or
-// columns, or a deep board too large for one warp's shared memory.  The
+// env-slot and a lane a word of every row, for 128 < W <= 1024, any height
+// and the same pieces wherever a block of one warp fits; and the general
+// kernel (`mask_kernel`, entry `bp_mask`) for what is left: rows of more
+// than 1024 cells, pieces of more than 8 rows or columns, or a deep or
+// xwide board too large for one warp's shared memory.  The
 // wrapper (kernels/mask.py) picks one by shape.  The wide, tall, deep and
 // xwide kernels are also the all-pieces legality (K4, the TPU kernel
 // `_legality_kernel`, blockpuzzle_tpu/kernels/collision.py:41, launched by
@@ -147,6 +147,19 @@
 // (`kernels/packed.py` `xwide_launch_shape`: in turns on the card they beat
 // 16, whose barriers hold more warps waiting); the entry opts in above 48
 // KB, which no board of at most 32 rows needs.
+//
+// Nothing in the row loop depends on H, so the same kernel takes boards of
+// any height (40x136: the anchor rows of a board of more than 32 rows, 40
+// trips of the loop).  What grows with H is the block's shared memory: the
+// staged row words of its envs and the legal rows of its env-slots, H * NW
+// words each.  Where S = 1 an env-slot's legal rows go over its board's
+// row words in place: lane w alone reads and writes word w of its
+// env-slot's rows, and it writes legal row r after the ring holds rows
+// r .. r + 7, so no row is written before its last read; that halves the
+// block (19,200 bytes at 40x136 for 4 warps, 39,200 with two arrays).
+// Where a block of 4 warps passes what a block may opt in to, the launch
+// shape takes fewer warps; where one warp does not fit, or a block would
+// stage or store 2^21 bytes or more (`small_div`), the general kernel runs.
 //
 // The every-piece instances compute K4's (N, P, HW) legality map as the
 // hand mask of a hand that holds every piece: env-slot q takes piece
@@ -626,7 +639,9 @@ __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
   const int env0 = first / slots;                      // first env read
   const int envs = (first + count - 1) / slots + 1 - env0;  // envs read
   uint32_t* rows = reinterpret_cast<uint32_t*>(smem);  // E*H legal rows of NW words
-  uint32_t* words = rows + per_block * height * nw;    // the envs' rows of NW words
+  // the envs' rows of NW words; where S = 1 the legal rows go over them
+  // (env-slot e reads env e's rows, word w of each only from lane w)
+  uint32_t* words = slots == 1 ? rows : rows + per_block * height * nw;
   const long long lo = static_cast<long long>(env0) * hw;
   bit_rows::stage_words(board, lo, lo + static_cast<long long>(envs) * hw, width, nw, words);
 
@@ -833,20 +848,26 @@ int mask_tall(Launch a, int n, int max_w, bool deep) {
   }
 }
 
-// H <= 32 and 128 < W <= 1024: per_warp = 32 / NW; the block's shared
-// memory holds its legal rows, then the packed rows of the envs it reads
+// 128 < W <= 1024, any height (the every-piece instance: H <= 32):
+// per_warp = 32 / NW; the block's shared memory holds its legal rows, then
+// the row words of the envs it reads (one array where S = 1); refused
+// where a block stages or stores 2^21 bytes or more (`small_div`)
 template <bool kEvery>
 int mask_xwide(Launch a, int n, int max_w) {
   const int nw = (a.width + 31) / 32;
-  if (!common_ok(a, n, max_w) || a.height < 1 || a.height > 32 || a.width <= 128 ||
-      a.width > 1024 || a.per_warp != 32 / nw) {
+  if (!common_ok(a, n, max_w) || a.height < 1 || (kEvery && a.height > 32) ||
+      a.width <= 128 || a.width > 1024 || a.per_warp != 32 / nw) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   a.total = n * a.slots;
   if (a.total == 0) return static_cast<int>(cudaGetLastError());
   const int per_block = a.warps * a.per_warp;
-  const int most = (per_block + a.slots - 1) / a.slots + 1;
-  return launch(mask_xwide_kernel<kEvery>, a, 4LL * (per_block + most) * a.height * nw);
+  const long long most = a.slots == 1 ? per_block : (per_block + a.slots - 1) / a.slots + 1;
+  if ((per_block > most ? per_block : most) * a.height * a.width >= (1LL << 21)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch(mask_xwide_kernel<kEvery>, a,
+                4LL * (most + (a.slots == 1 ? 0 : per_block)) * a.height * nw);
 }
 
 }  // namespace
@@ -923,12 +944,13 @@ extern "C" int bp_mask_deep(const void* board, const void* queue,
                           n, max_w, true);
 }
 
-// As bp_mask_rows, for H <= 32 and 128 < W <= 1024: a segment of NW =
+// As bp_mask_rows, for 128 < W <= 1024 and any height: a segment of NW =
 // ceil(W / 32) lanes an env-slot, lane w holding word w of every row;
 // per_warp = 32 / NW segments a warp, warps 1 to 16 (the block's output
 // span may start off a 16-byte boundary); refused where the block's shared
-// memory (its legal rows and its envs' packed rows) passes what a block
-// may opt in to.
+// memory (its legal rows and its envs' row words, one array where S = 1)
+// passes what a block may opt in to, or where it stages or stores 2^21
+// bytes or more.
 extern "C" int bp_mask_xwide(const void* board, const void* queue,
                              const void* pieces, void* out, int n, int height,
                              int width, int slots, int num_pieces, int max_h,

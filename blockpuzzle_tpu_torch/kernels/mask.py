@@ -15,13 +15,13 @@ the tall kernel on boards of 33 to 128 rows of at most 128 cells, a warp
 an env-slot and up to four rows a lane; the deep kernel on boards of more
 than 128 rows of at most 128 cells, a warp an env-slot walking the board
 in windows of 32 rows, wherever a block of one warp with its boards fits
-the shared memory a block may opt in to; the xwide kernel on boards of at
-most 32 rows of 129 to 1024 cells, a segment of lanes an env-slot and a
-lane a word of every row; the general kernel, a thread per anchor over
-``collision.piece_table``, takes what is left: rows of more than 1024
-cells, rows of more than 128 cells on boards of more than 32 rows, pieces
-of more than 8 rows or columns (no shipped piece set has one), or a deep
-board too large for one warp's shared memory.
+the shared memory a block may opt in to; the xwide kernel on boards of
+any height of 129 to 1024 cells a row, a segment of lanes an env-slot and
+a lane a word of every row, wherever a block of one warp fits; the general
+kernel, a thread per anchor over ``collision.piece_table``, takes what is
+left: rows of more than 1024 cells, pieces of more than 8 rows or columns
+(no shipped piece set has one), or a deep or xwide board too large for one
+warp's shared memory.
 """
 
 from __future__ import annotations
@@ -74,13 +74,13 @@ class MaskKernel:
     ``wide_launches``), the tall kernel where 32 < H <= 128 and W <= 128
     (``tall_launches``), the deep kernel where H > 128 and W <= 128 and a
     block of one warp fits (``deep_launches``), the xwide kernel where
-    H <= 32 and 128 < W <= 1024 (``xwide_launches``: a segment of
-    ceil(W / 32) lanes an env-slot, a lane a word of every row); ``shape`` is
-    the launch shape of any of them (``u8_launch_shape``).  Else the
-    general kernel (``shape`` is None; ``general_launches``): rows of more
-    than 1024 cells, rows of more than 128 cells on boards of more than 32
-    rows, larger pieces, or a deep board whose one-warp block does not
-    fit.  ``name`` is the picked
+    128 < W <= 1024, at any height where a block of one warp fits
+    (``xwide_launches``: a segment of ceil(W / 32) lanes an env-slot, a lane
+    a word of every row); ``shape`` is the launch shape of any of them
+    (``u8_launch_shape``).  Else the general kernel (``shape`` is None;
+    ``general_launches``): rows of more than 1024 cells, larger pieces, or
+    a deep or xwide board whose one-warp block does not fit.  ``name`` is
+    the picked
     kernel's.  The clear (``ClearScanKernel``) picks its own kernel by
     the same board shapes, so the two kinds differ only where pieces are
     larger than 8.

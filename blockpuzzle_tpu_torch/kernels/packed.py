@@ -194,35 +194,53 @@ def deep_launch_shape(cfg: EnvConfig):
 def xwide_launch_shape(cfg: EnvConfig):
     """(segments a warp, warps a block) of the xwide u8 mask and clear,
     which give an env-slot (mask) or env (clear) a segment of NW =
-    ceil(W / 32) lanes, lane w holding word w of every row, for boards of at
-    most ``MAX_ROWS`` rows of ``MAX_WIDE`` < W <= ``MAX_XWIDE`` cells: 32 //
-    NW segments a warp (6 on 8x136) and ``XWIDE_WARPS`` warps, whose shared
-    memory (``xwide_smem_bytes``, at most 36 KB a block) fits 48 KB on every
-    such board.  None for any other board.  Computed once per wrapper, as
+    ceil(W / 32) lanes, lane w holding word w of every row, for boards of
+    ``MAX_WIDE`` < W <= ``MAX_XWIDE`` cells a row and any height: 32 // NW
+    segments a warp (6 on 8x136) and the most warps, at most
+    ``XWIDE_WARPS``, whose block fits what a block may opt in to
+    (``xwide_smem_bytes``; on boards of at most 32 rows 4 warps take at most
+    36 KB, under the 48 KB a launch gets without opting in) and stages and
+    stores fewer than 2^21 bytes (``csrc/bit_rows.cuh`` ``small_div``).
+    None for any other board, and where not even one warp fits (the
+    general kernels take those).  Computed once per wrapper, as
     ``row_launch_shape``."""
-    if cfg.height > MAX_ROWS or not MAX_WIDE < cfg.width <= MAX_XWIDE:
+    if not MAX_WIDE < cfg.width <= MAX_XWIDE:
         return None
-    return 32 // -(-cfg.width // 32), XWIDE_WARPS
+    per_warp = 32 // -(-cfg.width // 32)
+    for warps in range(XWIDE_WARPS, 0, -1):
+        per_block = per_warp * warps
+        if (xwide_smem_bytes(cfg, per_block) <= SMEM_OPT_IN
+                and xwide_staged_envs(cfg, per_block) * cfg.num_cells < 1 << 21):
+            return per_warp, warps
+    return None
+
+
+def xwide_staged_envs(cfg: EnvConfig, per_block: int) -> int:
+    """The most envs a block of ``per_block`` env-slots of the xwide mask
+    reads or stores (a block of the clear stores ``per_block`` envs): at
+    most (E + S - 1) / S + 1 envs read where S > 1, E where S = 1."""
+    s = cfg.queue_size
+    return per_block if s == 1 else max(per_block, (per_block + s - 1) // s + 1)
 
 
 def xwide_smem_bytes(cfg: EnvConfig, per_block: int) -> int:
     """Shared memory of a block of the xwide u8 mask or clear, the larger
     of the two: the mask's ``per_block`` env-slots' legal rows of NW words,
-    then the rows of the envs they read (``bp_mask_xwide``); the clear's
-    envs' rows, cleared in place (``bp_clear_xwide``).  No board's bytes are
-    staged (``csrc/bit_rows.cuh`` ``stage_words``)."""
+    then the rows of the envs they read (``bp_mask_xwide``), one array where
+    S = 1 (the legal rows written over the board rows they were read from);
+    the clear's envs' rows, cleared in place (``bp_clear_xwide``).  No board's bytes are staged (``csrc/bit_rows.cuh``
+    ``stage_words``)."""
     s, rows = cfg.queue_size, cfg.height * -(-cfg.width // 32)
-    most = (per_block + s - 1) // s + 1
-    return 4 * max(per_block + most, per_block) * rows
+    mask = per_block if s == 1 else (per_block + s - 1) // s + 1 + per_block
+    return 4 * max(mask, per_block) * rows
 
 
 def u8_launch_shape(cfg: EnvConfig):
     """The launch shape of the u8 mask and clear kernel ``cfg``'s board
     takes (the mask's where no piece spans more than ``MAX_PIECE`` rows or
     columns): the bit-row, wide, tall, deep or xwide kernels' shape, or None
-    where the general kernel runs (rows of more than ``MAX_XWIDE`` cells,
-    rows of more than ``MAX_WIDE`` on boards of more than ``MAX_ROWS`` rows,
-    or a deep board whose one-warp block does not fit)."""
+    where the general kernel runs (rows of more than ``MAX_XWIDE`` cells, or
+    a deep or xwide board whose one-warp block does not fit)."""
     return (row_launch_shape(cfg) or wide_launch_shape(cfg) or tall_launch_shape(cfg)
             or deep_launch_shape(cfg) or xwide_launch_shape(cfg))
 
@@ -233,13 +251,15 @@ def apply_launch_shape(cfg: EnvConfig):
     W <= 32, the wide ones' where H <= 32 and 32 < W <= ``MAX_WIDE`` (a
     block's two spans, under 2^17 bytes, always fit), the xwide ones' where
     H <= 32 and ``MAX_WIDE`` < W <= ``MAX_XWIDE`` (its block's board and
-    cover rows of words, at most 32 KB, always fit), and on taller boards
-    of at most ``MAX_WIDE`` cells a row ``_turns_shape`` with the apply's own
-    shared memory (``apply_smem_bytes``: its block stages two spans where the
-    mask stages one), so fewer turns or warps where the mask's would not
-    fit.  Computed once per wrapper, as ``row_launch_shape``."""
+    cover rows of words, at most 32 KB, always fit; on taller boards of such
+    rows the general apply runs, whatever the mask and clear take), and on
+    taller boards of at most ``MAX_WIDE`` cells a row ``_turns_shape`` with
+    the apply's own shared memory (``apply_smem_bytes``: its block stages two
+    spans where the mask stages one), so fewer turns or warps where the
+    mask's would not fit.  Computed once per wrapper, as
+    ``row_launch_shape``."""
     if cfg.width > MAX_WIDE:
-        return xwide_launch_shape(cfg)
+        return xwide_launch_shape(cfg) if cfg.height <= MAX_ROWS else None
     if cfg.height <= MAX_ROWS:
         return row_launch_shape(cfg) or wide_launch_shape(cfg)
     return _turns_shape(cfg, apply_smem_bytes)

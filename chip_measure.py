@@ -165,14 +165,20 @@ then, each line tagged with its part (all fourteen by default):
             N = 49152 on 8x136, 8x160, 9x135 with regions, 3x320 and 2x1024:
             the xwide mask, clear and apply each held bit-equal to the
             general kernel it replaces launched directly on the same inputs
-            (``chip_smoke.general_calls``, ``chip_smoke.general_apply``) and
-            timed in turns with it, 5 rounds, medians and shares of the
-            bound (``xwide_times``); then the u8 clear-kernel and
-            apply-kernel steps on 8x136 with the general mask and clear
-            swapped in and with the xwide ones, in turns general, xwide,
-            xwide, general: host ms a step, device kernels, device ms and
-            busy share a step, the mask's and the clear's device ms a step
-            (``xwide_step_turns``);
+            (``chip_smoke.general_calls``, ``chip_smoke.general_apply``) and,
+            with ``--parent-csrc DIR``, the earlier sources' xwide kernel,
+            timed in turns with them, 5 rounds, medians and shares of the
+            bound; on 40x136, 33x129, 36x135 with regions and 66x130 (more
+            than 32 rows) the xwide mask and clear beside the general ones
+            (with ``--parent-csrc DIR`` first the earlier sources', which
+            took those boards), at other warps a block and from each
+            ``--alt-csrc`` build, then the general apply and legality on
+            40x136 (``xwide_times``); then the u8 clear-kernel and
+            apply-kernel steps on 8x136 and 40x136 with the general mask and
+            clear swapped in and with the xwide ones, in turns general,
+            xwide, xwide, general: host ms a step, device kernels, device ms
+            and busy share a step, the mask's and the clear's device ms a
+            step (``xwide_step_turns``);
   legality  the all-pieces legality (K4) beyond 32x32 at N = 49152 on 8x40,
             33x9, 130x8 and 8x136 (``chip_smoke.LEGALITY_BOARDS``): the
             every-piece instance of the wide, tall, deep or xwide mask
@@ -388,10 +394,11 @@ def rollout_breakdown(card: str, cfg=None, engines=ENGINES, tag: str = "rollout"
 
 
 # the device kernel names of the u8 mask and clear, by kernel kind (the
-# xwide ones' first instances: the legality's and the apply's are the second)
+# xwide ones' first instances: the legality's and the apply's are the second;
+# the clear's in both forms, with and without windows)
 STEP_KERNEL_NAMES = {"wide": ("mask_wide_kernel<", "clear_wide_kernel<"),
                      "tall": ("mask_tall_kernel<", "clear_tall_kernel<"),
-                     "xwide": ("mask_xwide_kernel<false>", "clear_xwide_kernel<false>"),
+                     "xwide": ("mask_xwide_kernel<false>", "clear_xwide_kernel<false,"),
                      "general": ("::mask_kernel(", "::clear_kernel(")}
 
 
@@ -838,6 +845,8 @@ PARENT_TAIL_ENTRIES = ("bp_packed_tail", "bp_packed_unpack")
 # the earlier sources have them
 PARENT_DEEP_ENTRIES = ("bp_packed_apply_general", "bp_packed_mask_general",
                        "bp_packed_words_general", "bp_apply")
+# the xwide u8 kernels' entry points, where the earlier sources have them
+PARENT_XWIDE_ENTRIES = ("bp_mask_xwide", "bp_clear_xwide", "bp_apply_xwide")
 # the tall packed mask's and words' entry points, where the earlier sources
 # have them, with the arguments those took before the kernel a thread an
 # anchor row: the mask's warps a block (``tall_launch_shape``'s) in place
@@ -870,11 +879,13 @@ def parent_library(csrc: pathlib.Path):
     tail = all(hasattr(lib, name) for name in PARENT_TAIL_ENTRIES)
     deep = all(hasattr(lib, name) for name in PARENT_DEEP_ENTRIES)
     tall = all(hasattr(lib, name) for name in PARENT_TALL_SIGNATURES)
+    xwide = all(hasattr(lib, name) for name in PARENT_XWIDE_ENTRIES)
     signatures = {**_build.SIGNATURES, **PARENT_TALL_SIGNATURES}
     for name in (PARENT_ENTRIES + (PARENT_ROW_ENTRIES if rows else ())
                  + (PARENT_DRAW_ENTRIES if draws else ())
                  + (PARENT_TAIL_ENTRIES if tail else ())
                  + (PARENT_DEEP_ENTRIES if deep else ())
+                 + (PARENT_XWIDE_ENTRIES if xwide else ())
                  + (tuple(PARENT_TALL_SIGNATURES) if tall else ())):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = signatures[name], ctypes.c_int
@@ -1793,8 +1804,9 @@ def pallas_step_turns(card: str, lib, steps: int = 20,
 
     n = chip_smoke.N_MAIN
     # the device names of the general apply and of the clear kernels' apply
-    # instances (their template's last argument, kApply)
-    keys = ("::apply_kernel(", "true>(")
+    # instances (the wide, tall and deep ones' last template argument, the
+    # xwide one's first: kApply)
+    keys = ("::apply_kernel(", "true>(", "clear_xwide_kernel<true,")
     for name in names:
         cfg = EnvConfig(**APPLY_BOARDS[name])
         env = make_env(cfg, device="cuda", backend="pallas", state_impl="u8")
@@ -1834,50 +1846,161 @@ def pallas_step_turns(card: str, lib, steps: int = 20,
         env.apply_kernel = current
 
 
-def xwide_times(card: str, rounds: int = 5) -> None:
-    """The u8 mask and clear on rows of more than 128 cells at N = 49152 on
-    8x136 (``chip_smoke.XWIDE``) and ``chip_smoke.XWIDE_CASES``
-    (``chip_smoke.kernel_inputs``, seed 0): the xwide mask and clear each
-    beside the general kernel it replaces, launched directly on the same
-    inputs (``chip_smoke.general_calls``: ``bp_mask``, ``bp_clear``, which
-    this tree keeps as they were), held bit-equal, then timed in turns
-    (``group_turns``), and the xwide apply likewise beside the general apply
-    (``chip_smoke.general_apply``, ``bp_apply``)."""
+def xwide_calls(lib, cfg, mk, ck, ak=None, warps=None) -> dict:
+    """Callables with the wrappers' arguments that launch ``lib``'s xwide
+    mask, clear and, given ``ak``, apply (``bp_mask_xwide``,
+    ``bp_clear_xwide``, ``bp_apply_xwide``: an earlier build's, an
+    ``--alt-csrc`` build's or the current one's) at the wrappers' launch
+    shape, or at ``warps`` warps a block."""
+    import torch
+
+    from blockpuzzle_tpu_torch.kernels import _build
+
+    dev = mk.device
+    region = cfg.region_size if cfg.region_clear else 0
+    shape = (mk.shape[0], warps or mk.shape[1])
+
+    def stream():
+        return torch.cuda.current_stream(dev).cuda_stream
+
+    def mask(board, queue):
+        n = board.shape[0]
+        out = torch.empty((n, cfg.queue_size * cfg.num_cells), dtype=torch.bool, device=dev)
+        _build.check(lib.bp_mask_xwide(
+            board.data_ptr(), queue.data_ptr(), mk.piece_table.data_ptr(), out.data_ptr(), n,
+            cfg.height, cfg.width, cfg.queue_size, mk.num_pieces, mk.max_h, mk.max_w, *shape,
+            stream()), "bp_mask_xwide")
+        return out
+
+    def clear(board):
+        n = board.shape[0]
+        out, k = torch.empty_like(board), torch.empty(n, dtype=torch.int32, device=dev)
+        _build.check(lib.bp_clear_xwide(
+            board.data_ptr(), out.data_ptr(), k.data_ptr(), n, cfg.height, cfg.width, region,
+            *shape, stream()), "bp_clear_xwide")
+        return out, k
+
+    def apply(board, cover, valid):
+        n = board.shape[0]
+        out, k = torch.empty_like(board), torch.empty(n, dtype=torch.int32, device=dev)
+        legal = torch.empty(n, dtype=torch.bool, device=dev)
+        _build.check(lib.bp_apply_xwide(
+            board.data_ptr(), cover.data_ptr(), valid.data_ptr(), out.data_ptr(), k.data_ptr(),
+            legal.data_ptr(), n, cfg.height, cfg.width, region, *shape, stream()),
+            "bp_apply_xwide")
+        return out, k, legal
+
+    return {"mask": mask, "clear": clear, **({"apply": apply} if ak is not None else {})}
+
+
+def xwide_times(card: str, lib, alts=None, rounds: int = 5) -> None:
+    """The u8 mask, clear and apply on rows of more than 128 cells at
+    N = 49152 (``chip_smoke.kernel_inputs``, seed 0).  On the boards of at
+    most 32 rows, 8x136 (``chip_smoke.XWIDE``) and ``chip_smoke.XWIDE_CASES``:
+    the xwide mask, clear and apply each beside the general kernel it
+    replaces, launched directly on the same inputs
+    (``chip_smoke.general_calls``: ``bp_mask``, ``bp_clear``;
+    ``chip_smoke.general_apply``: ``bp_apply``), and, where ``lib`` (an
+    earlier build) is given, first that build's xwide kernel; on 40x136
+    (``chip_smoke.XTALL``) and ``chip_smoke.XTALL_CASES``, boards of more
+    than 32 rows, the xwide mask and clear beside the general ones (the
+    earlier build's where ``lib`` is given, which took those boards, and
+    the current ones) and the mask and clear at other warps a block where
+    they fit; then the general apply and legality the wrappers pick there.
+    Each ``alts`` build's (``--alt-csrc``) xwide mask, clear and, on the
+    boards of at most 32 rows, apply join their groups on every board.
+    Every group held bit-equal, then timed in turns (``group_turns``)."""
     import torch
 
     from blockpuzzle_tpu_torch.config import EnvConfig
-    from blockpuzzle_tpu_torch.kernels import ApplyKernel, ClearScanKernel, MaskKernel
+    from blockpuzzle_tpu_torch.kernels import (
+        ApplyKernel, ClearScanKernel, LegalityKernel, MaskKernel, _build,
+    )
+    from blockpuzzle_tpu_torch.kernels.packed import xwide_smem_bytes
     from blockpuzzle_tpu_torch.utils.bounds import kernel_bounds
 
     n, dev = chip_smoke.N_MAIN, torch.device("cuda")
-    for name, shape in {"8x136": chip_smoke.XWIDE, **chip_smoke.XWIDE_CASES}.items():
+    boards = {"8x136": chip_smoke.XWIDE, **chip_smoke.XWIDE_CASES,
+              "40x136": chip_smoke.XTALL, **chip_smoke.XTALL_CASES}
+    for name, shape in boards.items():
         cfg = EnvConfig(**shape)
+        tall = cfg.height > 32
         mk, ck, ak = MaskKernel(cfg, dev), ClearScanKernel(cfg, dev), ApplyKernel(cfg, dev)
-        if (mk.name, ck.name, ak.name) != ("mask_xwide", "clear_xwide", "apply_xwide"):
+        want = ("mask_xwide", "clear_xwide", "apply_general" if tall else "apply_xwide")
+        if (mk.name, ck.name, ak.name) != want:
             raise AssertionError(f"{name}: the wrappers picked {mk.name}, {ck.name}, {ak.name}")
         board, queue, cover, valid, attrs, r, c = (
             torch.as_tensor(x, device=dev) for x in chip_smoke.kernel_inputs(cfg, n, seed=0))
         general_mask, general_clear = chip_smoke.general_calls(cfg, mk, ck)
         general = chip_smoke.general_apply(cfg, ak)
-        groups = {"mask_xwide": {"mask_general": lambda: general_mask(board, queue),
-                                 "mask_xwide": lambda: mk(board, queue)},
-                  "clear_xwide": {"clear_general": lambda: general_clear(board),
-                                  "clear_xwide": lambda: ck(board)},
-                  "apply_xwide": {"apply_general": lambda: general(board, cover, valid),
-                                  "apply_xwide": lambda: ak(board, cover, valid)}}
-        outs = {"mask_xwide": mk(board, queue), "clear_xwide": ck(board),
-                "apply_xwide": ak(board, cover, valid)}
+        groups = {"mask_xwide": {}, "clear_xwide": {}}
+        if lib is not None:
+            if tall:  # the earlier build took these boards with its general kernels
+                earlier_mask, earlier_clear = chip_smoke.general_calls(cfg, mk, ck, lib)
+                groups["mask_xwide"]["earlier bp_mask"] = lambda: earlier_mask(board, queue)
+                groups["clear_xwide"]["earlier bp_clear"] = lambda: earlier_clear(board)
+            else:
+                earlier = xwide_calls(lib, cfg, mk, ck, ak)
+                groups["mask_xwide"]["earlier mask_xwide"] = lambda: earlier["mask"](board, queue)
+                groups["clear_xwide"]["earlier clear_xwide"] = lambda: earlier["clear"](board)
+                groups["apply_xwide"] = {
+                    "earlier apply_xwide": lambda: earlier["apply"](board, cover, valid)}
+        groups["mask_xwide"].update({"mask_xwide": lambda: mk(board, queue),
+                                     "mask_general": lambda: general_mask(board, queue)})
+        groups["clear_xwide"].update({"clear_xwide": lambda: ck(board),
+                                      "clear_general": lambda: general_clear(board)})
+        if not tall:
+            groups.setdefault("apply_xwide", {}).update({
+                "apply_xwide": lambda: ak(board, cover, valid),
+                "apply_general": lambda: general(board, cover, valid)})
+        if tall:  # other warps a block
+            current = _build.library()
+            per_warp = mk.shape[0]
+            for warps in (1, 2, 4, 8):
+                if warps == mk.shape[1] or xwide_smem_bytes(cfg, per_warp * warps) > 227 * 1024:
+                    continue
+                other = xwide_calls(current, cfg, mk, ck, warps=warps)
+                groups["mask_xwide"][f"mask_xwide {warps} warps"] = (
+                    lambda other=other: other["mask"](board, queue))
+                groups["clear_xwide"][f"clear_xwide {warps} warps"] = (
+                    lambda other=other: other["clear"](board))
+        args = {"mask": (board, queue), "clear": (board,), "apply": (board, cover, valid)}
+        for alt, alib in (alts or {}).items():  # the alternative builds
+            other = xwide_calls(alib, cfg, mk, ck, None if tall else ak)
+            for key, fn in other.items():
+                groups[f"{key}_xwide"][f"{alt} {key}_xwide"] = (
+                    lambda fn=fn, key=key: fn(*args[key]))
+        outs = {"mask_xwide": mk(board, queue), "clear_xwide": ck(board)}
+        if not tall:
+            outs["apply_xwide"] = ak(board, cover, valid)
         bound = kernel_bounds(cfg, board, queue, cover, valid, None, attrs, r, c, outs)
-        print(f"[xwide] {name}: launch shape {mk.shape} (segments a warp, warps a block)")
+        del outs
+        print(f"[xwide] {name}: launch shape {mk.shape} (segments a warp, warps a block), "
+              f"{xwide_smem_bytes(cfg, mk.shape[0] * mk.shape[1])} B of shared memory a "
+              "block of the mask and clear")
         group_turns(card, "xwide", name, groups, bound, rounds)
+        if name == "40x136":  # the general apply and legality, the next ones to redesign
+            lk = LegalityKernel(cfg, dev)
+            if lk.name != "legality_general":
+                raise AssertionError(f"{name}: the legality wrapper picked {lk.name}")
+            outs = {"apply_general": ak(board, cover, valid), "legality_general": lk(board)}
+            bound = kernel_bounds(cfg, board, queue, cover, valid, None, attrs, r, c, outs)
+            del outs
+            group_turns(card, "xwide", name,
+                        {"apply_general": {"apply_general": lambda: ak(board, cover, valid)},
+                         "legality_general": {"legality_general": lambda: lk(board)}},
+                        bound, rounds)
 
 
 def xwide_step_turns(card: str, steps: int = 20) -> None:
-    """``u8_step_turns`` on 8x136, the u8 clear-kernel step (the port's
-    default engine there) and the apply-kernel step: the xwide mask and
-    clear against the general ones, the kernels they replace."""
-    for backend in ("jnp", "pallas"):
-        u8_step_turns(card, chip_smoke.XWIDE, "xwide", steps, backend)
+    """``u8_step_turns`` on 8x136 and 40x136, the u8 clear-kernel step (the
+    port's default engine there) and the apply-kernel step: the xwide mask
+    and clear against the general ones, the kernels they replace (on
+    40x136 the earlier tree's step, whose wrappers took the general mask
+    and clear there)."""
+    for shape, tag in ((chip_smoke.XWIDE, "xwide"), (chip_smoke.XTALL, "xwide 40x136")):
+        for backend in ("jnp", "pallas"):
+            u8_step_turns(card, shape, tag, steps, backend)
 
 
 def deep_step_turns(card: str, lib, steps: int = 20) -> None:
@@ -1988,7 +2111,8 @@ def main(argv=None) -> int:
     p.add_argument("--alt-csrc", action="append", default=[],
                    help="directory of other versions of some kernel sources with the "
                         "current entries' arguments, timed beside the tall packed mask and "
-                        "words (packed_tall, tall), B7w (kernels) and B2w (draws); repeatable")
+                        "words (packed_tall, tall), B7w (kernels), B2w (draws) and the xwide "
+                        "mask and clear on boards of more than 32 rows (xwide); repeatable")
     args = p.parse_args(argv)
     parts = args.parts.split(",")
     if set(parts) - set(PARTS):
@@ -2054,7 +2178,8 @@ def main(argv=None) -> int:
         apply_turns(card, lib)
         pallas_step_turns(card, lib)
     if "xwide" in parts:
-        xwide_times(card)
+        lib = parent_library(pathlib.Path(args.parent_csrc)) if args.parent_csrc else None
+        xwide_times(card, lib, alts)
         xwide_step_turns(card)
     if "legality" in parts:
         lib = parent_library(pathlib.Path(args.parent_csrc)) if args.parent_csrc else None

@@ -65,8 +65,13 @@ which raises on failure (non-zero exit, no result line):
      of lanes an env-slot or env, a lane a word of every row) on 8x136
      (``XWIDE``) and on 8x160, 9x135 with 3x3 regions across words and a
      hand of three, 3x320 and 2x1024 (``XWIDE_CASES``), each also held to
-     the general mask, clear and apply launched directly, and the general
-     mask, clear and apply on 2x1056 (``W1056``); the all-pieces legality
+     the general mask, clear and apply launched directly, the xwide mask
+     and clear on boards of more than 32 rows of such rows: 40x136
+     (``XTALL``) at N = 49152 and 49151, and 33x129, 36x135 with 3x3
+     regions and a hand of three and 66x130 (``XTALL_CASES``) at N = 4096
+     and 4095, each also held to the general mask and clear launched
+     directly (the apply there is the general one), and the general mask,
+     clear and apply on 2x1056 (``W1056``); the all-pieces legality
      beyond 32x32 (``phase1_legality``): the every-piece instances of the
      wide, tall, deep and xwide masks (legality_wide, legality_tall,
      legality_deep, legality_xwide) on 8x40, 33x9, 130x8 and 8x136
@@ -87,8 +92,10 @@ which raises on failure (non-zero exit, no result line):
      and the plain version's time (50 calls made as the host goes), at N
      = 49152 on the default preset (the wide kernels, and legality_general
      launched directly, on the wide board, the tall ones on 33x9, the deep ones and the
-     general packed ones on 130x8, the xwide ones and the general mask,
-     clear and apply on 8x136), and the launch floor (an empty launch's
+     general packed ones on 130x8, the xwide apply and the general mask,
+     clear and apply on 8x136, the xwide mask and clear on 40x136 beside
+     the general mask, clear, apply and legality launched directly there),
+     and the launch floor (an empty launch's
      device time) beside the deal's; then the wide board's kernels timed
      in turns for 5 rounds, with the general mask, clear, apply and
      legality launched directly on the same inputs and held bit-equal to
@@ -114,7 +121,12 @@ which raises on failure (non-zero exit, no result line):
      ``tall36r3_u8_jnp``; 130x8, the deep mask, clear and apply:
      ``huge_u8_pallas``, ``huge_u8_jnp``;
      8x136, rows of more than 128 cells, the xwide mask, clear and apply:
-     ``xwide_u8_pallas``, ``xwide_u8_jnp``; 2x1056, rows of
+     ``xwide_u8_pallas``, ``xwide_u8_jnp``; 40x136, more than 32 rows of
+     such rows, the xwide mask and clear with the general apply:
+     ``xtall_u8_pallas``, ``xtall_u8_jnp``, N = 128, 16 steps; 100x124
+     with the five small pieces, whose line tables the wrappers refused
+     before, the default engine (the u8 clear-kernel step on its tall
+     kernels): ``big100_u8_jnp``, N = 64, 8 steps; 2x1056, rows of
      more than 1024 cells, the general mask, apply and clear:
      ``w1056_u8_pallas``, ``w1056_u8_jnp``; N = 256, 32 steps), counters set to
      0 before each and read after it: final states and summed rewards
@@ -308,6 +320,21 @@ XWIDE_CASES = {"8x160": dict(height=8, width=160),
                                queue_size=3),
                "3x320": dict(height=3, width=320, piece_set="mini5"),
                "2x1024": dict(height=2, width=1024, piece_set="mini5")}
+# more than 32 rows of more than 128 cells: the xwide u8 mask and clear
+# over any height (the rows in windows of 32), the general apply and
+# legality (the paths ``xtall_u8_pallas`` and ``xtall_u8_jnp``)
+XTALL = dict(height=40, width=136)
+# the other such boards phase 1 holds the xwide mask and clear on
+# (tests/test_torch_xwide_tall.py): a one-column top word and a bar across
+# row 32; 3x3 regions across words and a window border (30 rows) with a
+# hand of three; two window borders
+XTALL_CASES = {"33x129": dict(height=33, width=129),
+               "36x135r3": dict(height=36, width=135, region_clear=True, region_size=3,
+                                queue_size=3, piece_set="mini5"),
+               "66x130": dict(height=66, width=130, piece_set="mini5")}
+# a board of more than 12288 cells and lines, whose line tables the
+# wrappers refused before: the default engine there (u8, the tall kernels)
+BIG100 = dict(height=100, width=124, piece_set="mini5")
 # rows of more than 1024 cells: the general u8 mask, clear, apply and
 # legality (the paths ``w1056_u8_pallas`` and ``w1056_u8_jnp``)
 W1056 = dict(height=2, width=1056, piece_set="mini5")
@@ -323,7 +350,7 @@ KERNEL_INFO = {
     "mask_deep": ("blockpuzzle_tpu_torch/kernels/csrc/mask.cu",
                   "blockpuzzle_tpu/kernels/mask.py:85", "huge_u8_pallas"),
     "mask_xwide": ("blockpuzzle_tpu_torch/kernels/csrc/mask.cu",
-                   "blockpuzzle_tpu/kernels/mask.py:85", "xwide_u8_pallas"),
+                   "blockpuzzle_tpu/kernels/mask.py:85", "xtall_u8_pallas"),
     "mask_general": ("blockpuzzle_tpu_torch/kernels/csrc/mask.cu",
                      "blockpuzzle_tpu/kernels/mask.py:85", "w1056_u8_pallas"),
     "apply": ("blockpuzzle_tpu_torch/kernels/csrc/collision.cu",
@@ -347,7 +374,7 @@ KERNEL_INFO = {
     "clear_deep": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
                    "blockpuzzle_tpu/kernels/clear.py:93", "huge_u8_jnp"),
     "clear_xwide": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
-                    "blockpuzzle_tpu/kernels/clear.py:93", "xwide_u8_jnp"),
+                    "blockpuzzle_tpu/kernels/clear.py:93", "xtall_u8_jnp"),
     "clear_general": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
                       "blockpuzzle_tpu/kernels/clear.py:93", "w1056_u8_jnp"),
     "legality": ("blockpuzzle_tpu_torch/kernels/csrc/legality.cu",
@@ -634,11 +661,15 @@ def u8_kernel_names(cfg) -> tuple:
     W <= 128, the deep ones where H > 128 and W <= 128 (the boards phase 1
     and 2 run: each fits a block of the deep mask, of the deep apply and of
     the deep legality), the xwide ones where H <= 32 and 128 < W <= 1024,
-    the general kernels elsewhere."""
+    the xwide mask and clear with the general apply and legality where
+    H > 32 and 128 < W <= 1024 (the boards phases 1 and 2 run: each fits a
+    block of one warp), the general kernels elsewhere."""
     if cfg.height <= 32 and cfg.width <= 32:
         return "mask", "clear", "apply", "legality"
     if cfg.width > 128:
-        kind = "xwide" if cfg.height <= 32 and cfg.width <= 1024 else "general"
+        if cfg.height > 32 and cfg.width <= 1024:
+            return "mask_xwide", "clear_xwide", "apply_general", "legality_general"
+        kind = "xwide" if cfg.width <= 1024 else "general"
     else:
         kind = "wide" if cfg.height <= 32 else "tall" if cfg.height <= 128 else "deep"
     return tuple(f"{k}_{kind}" for k in ("mask", "clear", "apply", "legality"))
@@ -1034,30 +1065,41 @@ def phase1_tall(errs: dict, times: dict, bounds: dict) -> None:
 
 
 def phase1_xwide(errs: dict, times: dict, bounds: dict) -> None:
-    """Phase 1 on rows of more than 128 cells: on 8x136 (``XWIDE``) at
-    N = 49152 and 49151 the xwide mask, clear and apply against their plain
-    versions (in chunks of envs) and against the general mask, clear and
-    apply launched directly on the same inputs (``general_calls``,
-    ``general_apply``), and an illegal action on a full line through the
-    apply; the same checks on ``XWIDE_CASES`` at N = 4096 and 4095, and on
-    2x1056 (``W1056``), rows too wide for the xwide kernels, the general
-    mask, clear and apply the wrappers pick there.  Times the xwide mask,
-    clear and apply, and the general ones launched directly, on 8x136 at
-    N = 49152 into ``times`` and ``bounds``, and prints each xwide kernel's
-    time beside the general one's."""
+    """Phase 1 on rows of more than 128 cells: on 8x136 (``XWIDE``) and
+    40x136 (``XTALL``) at N = 49152 and 49151 the xwide mask, clear and
+    apply (on 40x136 the apply the wrapper picks, the general one) against
+    their plain versions (in chunks of envs) and the xwide ones against the
+    general mask, clear and apply launched directly on the same inputs
+    (``general_calls``, ``general_apply``), and an illegal action on a full
+    line through the apply; the same checks on ``XWIDE_CASES`` and
+    ``XTALL_CASES`` at N = 4096 and 4095, and on 2x1056 (``W1056``), rows
+    too wide for the xwide kernels, the general mask, clear and apply the
+    wrappers pick there.  Times the apply on 8x136 and the mask and clear
+    on 40x136, each beside the general kernel it replaces launched
+    directly on the same inputs, at N = 49152 into ``times`` and
+    ``bounds``, and prints each time beside the general one's, the xwide
+    mask and clear on 8x136 too, and on 40x136 the general apply and
+    legality the wrappers pick there."""
     import torch
 
     from blockpuzzle_tpu_torch.config import EnvConfig
-    from blockpuzzle_tpu_torch.kernels import ApplyKernel, ClearScanKernel, MaskKernel
+    from blockpuzzle_tpu_torch.kernels import (
+        ApplyKernel, ClearScanKernel, LegalityKernel, MaskKernel,
+    )
     from blockpuzzle_tpu_torch.utils.bounds import kernel_bounds
 
     dev = torch.device("cuda")
     boards = {"8x136": (XWIDE, (N_MAIN, N_MAIN - 1)),
               **{name: (shape, (4096, 4095)) for name, shape in XWIDE_CASES.items()},
+              "40x136": (XTALL, (N_MAIN, N_MAIN - 1)),
+              **{name: (shape, (4096, 4095)) for name, shape in XTALL_CASES.items()},
               "2x1056": (W1056, (4096, 4095))}
+    # board -> the kernels whose times go into ``times`` (the kernels line)
+    timed = {"8x136": ("apply_xwide", "apply_general"),
+             "40x136": ("mask_xwide", "clear_xwide", "mask_general", "clear_general")}
     for name, (shape, sizes) in boards.items():
         cfg = EnvConfig(**shape)
-        mask_name, clear_name, apply_name, _ = u8_kernel_names(cfg)
+        mask_name, clear_name, apply_name, legal_name = u8_kernel_names(cfg)
         mk, ck, ak = MaskKernel(cfg, dev), ClearScanKernel(cfg, dev), ApplyKernel(cfg, dev)
         if (mk.name, ck.name, ak.name) != (mask_name, clear_name, apply_name):
             raise AssertionError(f"{name}: the u8 wrappers picked {mk.name}, {ck.name}, "
@@ -1096,30 +1138,52 @@ def phase1_xwide(errs: dict, times: dict, bounds: dict) -> None:
                   f", {clear_name} k {int(cleared[1].sum())}, {apply_name} legal "
                   f"{int(outs[2].sum())}, k {int(outs[1].sum())}: u8 kernels == plain "
                   "(bit-equal)"
-                  + (", the xwide mask, clear and apply == the general ones launched "
-                     "directly" if xwide else ""))
-        if name != "8x136":
+                  + (f", the xwide mask, clear{' and apply' if ak.kind == 'xwide' else ''} "
+                     "== the general ones launched directly" if xwide else ""))
+        if name not in timed:
             continue
         board, queue, cover, valid, attrs, r, c = (
             torch.as_tensor(x, device=dev) for x in kernel_inputs(cfg, N_MAIN, seed=0))
-        calls = {mask_name: (lambda: mk(board, queue), lambda: mk.plain(board, queue)),
-                 clear_name: (lambda: ck(board), lambda: ck.plain(board)),
-                 apply_name: (lambda: ak(board, cover, valid),
-                              lambda: ak.plain(board, cover, valid)),
-                 "mask_general": (lambda: general_mask(board, queue),
-                                  lambda: mk.plain(board, queue)),
-                 "clear_general": (lambda: general_clear(board), lambda: ck.plain(board)),
-                 "apply_general": (lambda: replaced_apply(board, cover, valid),
-                                   lambda: ak.plain(board, cover, valid))}
-        here = kernel_bounds(cfg, board, queue, cover, valid, None, attrs, r, c,
-                             {k: f() for k, (f, _) in calls.items()})
-        bounds.update({k: dict(b, where=f"xwide {name}") for k, b in here.items()})
-        times.update({k: (cuda_ms(f), host_paced_ms(g)) for k, (f, g) in calls.items()})
+        calls = {mask_name: lambda: mk(board, queue), clear_name: lambda: ck(board),
+                 apply_name: lambda: ak(board, cover, valid),
+                 "mask_general": lambda: general_mask(board, queue),
+                 "clear_general": lambda: general_clear(board),
+                 "apply_general": lambda: replaced_apply(board, cover, valid)}
+        plains = {mask_name: lambda: chunked(mk.plain, board, queue, rows=rows),
+                  clear_name: lambda: ck.plain(board),
+                  apply_name: lambda: ak.plain(board, cover, valid)}
+        plains.update({"mask_general": plains[mask_name], "clear_general": plains[clear_name],
+                       "apply_general": plains[apply_name]})
+        outs = {k: f() for k, f in calls.items()}
+        if name == "40x136":  # the general legality the wrapper picks there
+            lk = LegalityKernel(cfg, dev)
+            if lk.name != legal_name:
+                raise AssertionError(f"{name}: the legality wrapper picked {lk.name}")
+            calls[legal_name] = lambda: lk(board)
+            outs[legal_name] = lk(board)
+        here = kernel_bounds(cfg, board, queue, cover, valid, None, attrs, r, c, outs)
+        del outs
+        ms = {k: cuda_ms(f) for k, f in calls.items()}
+        # the plain versions of the kernels the kernels line reports; the plain
+        # mask's product on 40x136 takes about a second a call
+        iters = 50 if name == "8x136" else 3
+        for k in timed[name]:
+            times[k] = (ms[k], host_paced_ms(plains[k], iters=iters, warmup=1))
+            bounds[k] = dict(here[k], where=f"xwide {name}")
         for new, old in ((mask_name, "mask_general"), (clear_name, "clear_general"),
                          (apply_name, "apply_general")):
-            print(f"[phase1] {new} {name} N={N_MAIN}: {times[new][0]:.6f} ms, the {old} it "
-                  f"replaces {times[old][0]:.6f} ms, launched directly on the same inputs "
-                  f"(bit-equal); bound {here[new]['bound_ms']:.6f} ms")
+            if new == old:
+                continue
+            print(f"[phase1] {new} {name} N={N_MAIN}: {ms[new]:.6f} ms, "
+                  f"{100 * here[new]['bound_ms'] / ms[new]:.1f}% of its "
+                  f"{here[new]['bound_ms']:.6f} ms bound by {here[new]['bound_by']}; the "
+                  f"{old} it replaces {ms[old]:.6f} ms, launched directly on the same inputs "
+                  f"(bit-equal), {ms[old] / ms[new]:.2f}x")
+        for k in ("apply_general", "legality_general"):
+            if k in (apply_name, legal_name):
+                print(f"[phase1] {k} {name} N={N_MAIN} (the wrapper's kernel there): "
+                      f"{ms[k]:.6f} ms, {100 * here[k]['bound_ms'] / ms[k]:.1f}% of its "
+                      f"{here[k]['bound_ms']:.6f} ms bound by {here[k]['bound_by']}")
 
 
 def general_legality(cfg, lk, lib=None):
@@ -1554,17 +1618,19 @@ def draws_check() -> dict:
     return paths
 
 
-def general_calls(cfg, mk, ck):
+def general_calls(cfg, mk, ck, lib=None):
     """Callables that launch the general mask and clear kernels (``bp_mask``,
     ``bp_clear``) on ``cfg``'s boards, whatever kernel the wrappers ``mk``
     and ``ck`` pick there: the per-cell piece table and the line tables, as
-    the wrappers call them on a board they take no other kernel for."""
+    the wrappers call them on a board they take no other kernel for; the
+    current library's, or ``lib``'s (an earlier build's, whose entries take
+    the same arguments)."""
     import torch
 
     from blockpuzzle_tpu_torch.kernels import _build
     from blockpuzzle_tpu_torch.kernels.collision import piece_table
 
-    lib, dev = _build.library(), ck.device
+    lib, dev = lib or _build.library(), ck.device
     table = torch.as_tensor(piece_table(cfg), device=dev)
     lines = ck.lines
 
@@ -1893,9 +1959,11 @@ def phase2():
     ``legal_all_pieces`` there (the paths ``wide_u8_pallas``,
     ``wide_u8_jnp``, ``wide_legal_all_pieces``, their ``tall_`` and
     ``huge_`` twins, ``xwide_u8_pallas``, ``xwide_u8_jnp`` and
-    ``xwide_legal_all_pieces`` and their ``w1056_`` twins,
-    ``tall_packed``, ``huge_packed``, ``tall_words`` and ``huge_words``, and
-    those of the other tall boards)."""
+    ``xwide_legal_all_pieces`` and their ``xtall_`` and ``w1056_`` twins,
+    ``big100_u8_jnp`` (the default engine on 100x124) and
+    ``big100_legal_all_pieces``, ``tall_packed``, ``huge_packed``,
+    ``tall_words`` and ``huge_words``, and those of the other tall
+    boards)."""
     import torch
 
     from blockpuzzle_tpu_torch import PRESETS, make_env
@@ -1907,8 +1975,10 @@ def phase2():
     # are the mask with the apply (pallas) or the clear (jnp) that the
     # board takes (``u8_kernel_names``), the packed engine's on boards of at
     # most 32 columns (``packed_kernel_names``): the default engine there
+    # (``default``: the same engine, run on wider boards, where it is the
+    # u8 clear-kernel step)
     engines = {"packed": dict(), "pallas": dict(backend="pallas", state_impl="u8"),
-               "jnp": dict(backend="jnp", state_impl="u8")}
+               "jnp": dict(backend="jnp", state_impl="u8"), "default": dict()}
     # board -> (config, engines run, N, steps); the presets run all three
     boards = {name: (PRESETS[name](), ("packed", "pallas", "jnp"), 1024, 64)
               for name in PACKED_PRESETS}
@@ -1923,21 +1993,26 @@ def phase2():
         # rows of more than 128 cells: the xwide u8 mask's and clear's
         # paths, and past 1024 cells the general ones'
         "xwide": (EnvConfig(**XWIDE), ("pallas", "jnp"), 256, 32),
+        "xtall": (EnvConfig(**XTALL), ("pallas", "jnp"), 128, 16),
         "w1056": (EnvConfig(**W1056), ("pallas", "jnp"), 256, 32),
+        # more than 12288 cells and lines: the default engine, u8
+        "big100": (EnvConfig(**BIG100), ("default",), 64, 8),
     })
     errs, paths = {k: 0 for k in KERNEL_INFO if k.startswith("legality")}, {}
     for name, (cfg, run, n, steps) in boards.items():
         board_path = name not in PACKED_PRESETS   # their launches are paths
         mask_name, clear_name, apply_name, legal_name = u8_kernel_names(cfg)
         steps_of = {"pallas": (mask_name, apply_name), "jnp": (mask_name, clear_name)}
+        steps_of["default"] = steps_of["jnp"]
         if cfg.width <= 32:
-            steps_of["packed"] = packed_kernel_names(cfg)[:2]
+            steps_of["packed"] = steps_of["default"] = packed_kernel_names(cfg)[:2]
         finals, boards_out, rewards, envs = {}, {}, {}, {}
         for engine in run:
             kwargs, per_step = engines[engine], steps_of[engine]
             for dev in ("cuda", "cpu"):
                 env = make_env(cfg, device=dev, **kwargs)
-                if env.state_impl != ("packed" if engine == "packed" else "u8"):
+                packed = engine == "packed" or (engine == "default" and cfg.width <= 32)
+                if env.state_impl != ("packed" if packed else "u8"):
                     raise AssertionError(f"{name}: the default engine is {env.state_impl}")
                 zero_counts(env)
                 state, ts = env.init(7, n)
@@ -1950,12 +2025,13 @@ def phase2():
                     counts = read_counts(env)
                     expect = expected(**dict.fromkeys(per_step, steps), deal=steps + 1,
                                       uniform_legal=steps,
-                                      **(tail_counts(steps, 1) if engine == "packed" else {}))
+                                      **(tail_counts(steps, 1) if packed else {}))
                     if counts != expect:
                         raise AssertionError(
                             f"{name} {engine} launch counts {counts} != {expect}")
                     if board_path:
-                        label = "packed" if engine == "packed" else f"u8_{engine}"
+                        label = ("packed" if packed else "u8_jnp" if engine == "default"
+                                 else f"u8_{engine}")
                         paths[f"{name}_{label}"] = counts
                     envs[engine] = (env, state)
                 finals[engine, dev] = state.to("cpu")

@@ -361,9 +361,9 @@ def test_deep_clear_launch_shapes_fit():
     cleared rows of ceil(W / 32) words, then their staged boards, as
     ``csrc/clear.cu`` ``launch_clear_deep`` lays them out) is at most the
     mask's, so it fits what a block may opt in to, and its output bytes stay
-    under the 2^21 that ``small_div``'s proof needs; where the shape is
-    None the clear takes no board (its line tables pass 12288 cells and
-    lines)."""
+    under the 2^21 that ``small_div``'s proof needs; the shape is None
+    only on boards of more than 12288 cells and lines (there the general
+    clear runs, up to what one warp can stage)."""
     seen = 0
     for h in (129, 130, 135, 160, 257, 512, 1000, 1500, 3000, 4096):
         for w in (1, 8, 9, 31, 32, 33, 64, 100, 128):

@@ -171,19 +171,22 @@ def test_legality_launch_shapes_are_the_masks_at_every_piece(case):
 
 def test_legality_keeps_the_general_kernel_beyond_the_instances():
     """Rows of more than 1024 cells (2x1056) keep the general legality, with
-    the per-cell piece table; so would rows of more than 128 cells on boards
-    of more than 32 rows (33x136) and a deep board whose one-warp block
-    passes what a block may opt in to (1000x128), which no mask kernel
-    takes at S = P (their tables, built by the wrapper, are not built
-    here: 1000x128's would take hundreds of GB); the presets keep the
-    bit-row kernel."""
-    cfg = tcfg.EnvConfig(height=2, width=1056, piece_set="mini5")
-    lk = LegalityKernel(cfg, "cpu")
-    assert (lk.kind, lk.name, lk.shape) == ("general", "legality_general", None)
-    assert every_piece_shape(cfg) is None
-    np.testing.assert_array_equal(lk.piece_table.numpy(), piece_table(cfg))
-    for shape in (dict(height=33, width=136), dict(height=1000, width=128)):
-        assert u8_launch_shape(tcfg.EnvConfig(**shape, queue_size=19)) is None
+    the per-cell piece table; so do rows of more than 128 cells on boards of
+    more than 32 rows (33x129), where the hand mask takes its xwide kernel
+    at S = P but its every-piece instance is not picked (``every_piece_shape``
+    is None), and so would a deep board whose one-warp block passes what a
+    block may opt in to (1000x128), which no mask kernel takes at S = P
+    (its tables, built by the wrapper, are not built here: they would take
+    hundreds of GB); the presets keep the bit-row kernel."""
+    for cfg in (tcfg.EnvConfig(height=2, width=1056, piece_set="mini5"),
+                tcfg.EnvConfig(height=33, width=129, piece_set="mini5")):
+        lk = LegalityKernel(cfg, "cpu")
+        assert (lk.kind, lk.name, lk.shape) == ("general", "legality_general", None)
+        assert every_piece_shape(cfg) is None
+        np.testing.assert_array_equal(lk.piece_table.numpy(), piece_table(cfg))
+    every = tcfg.EnvConfig(height=33, width=129, piece_set="mini5", queue_size=5)
+    assert u8_launch_shape(every) is not None
+    assert u8_launch_shape(tcfg.EnvConfig(height=1000, width=128, queue_size=19)) is None
     for preset in tcfg.PRESETS.values():
         assert LegalityKernel(preset(), "cpu").name == "legality"
 

@@ -52,7 +52,8 @@ from blockpuzzle_tpu_torch.kernels.packed import (
     ANCHOR_ROWS, ANCHOR_THREADS, MASK_ANCHOR_ROWS, MAX_ANCHOR_THREADS, SMEM_OPT_IN, U32,
     anchor_launch_shape,
     apply_launch_shape, apply_smem_bytes, bitboard_tables, deep_launch_shape,
-    tall_block_warps, tall_launch_shape, tall_smem_bytes, u8_launch_shape, xwide_launch_shape,
+    tall_block_warps, tall_launch_shape, tall_smem_bytes, u8_kind, u8_launch_shape,
+    xwide_launch_shape,
 )
 from test_torch_kernels import (
     _fshr, _shr_words, apply_cases, assert_apply_cases, emulate_pack_row, emulate_pack_words,
@@ -1296,9 +1297,9 @@ def test_apply_block_shapes_fit():
     ``apply_smem_bytes``): 16 warps and the most turns that fit 48 KB, else
     one turn and ``tall_block_warps`` on that memory, or fewer warps that
     fit what a block may opt in to; a block's output bytes under the 2^21
-    that ``small_div``'s proof needs; a shape on every board whose line
-    tables the wrappers take (cells and lines <= 12288), so that none goes
-    to the general apply.  40x40, 33x128, 512x8 and 135x9 with regions fit
+    that ``small_div``'s proof needs; a shape on every board of at most
+    12288 cells and lines, so that none of those goes to the general apply
+    (which takes the larger ones up to what one warp can stage).  40x40, 33x128, 512x8 and 135x9 with regions fit
     with fewer turns or warps than the mask's where its two spans need it."""
     for h in (33, 36, 40, 64, 100, 128, 129, 130, 135, 160, 257, 512, 1000, 1500, 3000, 4096):
         for w in (1, 8, 9, 31, 32, 33, 40, 64, 100, 128):
@@ -1373,13 +1374,14 @@ def test_u8_wrappers_take_the_general_kernels_above_128_rows():
     legality (a warp an env-slot or env over windows of 32 rows; the mask
     and clear on one launch shape, the apply on its own,
     ``apply_launch_shape``, the legality on the mask's at S = P) where rows
-    hold at most 128 cells; the tall kernels stop at 128 rows.  The mask
-    keeps the general kernel on rows of more than 128 cells on boards of
-    more than 32 rows (130x129); on 8x136 the mask, the clear and the apply
-    take their xwide kernels (a lane a word of every row,
-    ``xwide_launch_shape``; a deep board one warp cannot stage passes the
-    line tables' 12288 cells and lines, so the clear and the apply take
-    none)."""
+    hold at most 128 cells; the tall kernels stop at 128 rows.  Rows of
+    more than 128 cells take the xwide launch shape at any height (130x129,
+    33x136: the mask's and the clear's xwide kernels, read off the launch
+    shape without building 130x129's rule table, 5.3 GB with classic19;
+    the apply keeps its general kernel there), and on 8x136 the mask, the
+    clear and the apply take their xwide kernels (a lane a word of every
+    row, ``xwide_launch_shape``).  A deep board one warp cannot stage has
+    no deep launch shape."""
     for shape, kind in ((dict(height=130, width=9), "deep"),
                         (dict(height=128, width=10), "tall")):
         cfg = tcfg.EnvConfig(**shape)
@@ -1394,11 +1396,13 @@ def test_u8_wrappers_take_the_general_kernels_above_128_rows():
                                                 "bp_apply_deep", "bp_apply_tall", "bp_apply",
                                                 "bp_mask_xwide", "bp_clear_xwide", "bp_mask",
                                                 "bp_apply_xwide", "bp_legality_deep"))
-    # rows of more than 128 cells on boards of more than 32 rows: the general
-    # kernels
-    mk = MaskKernel(tcfg.EnvConfig(height=130, width=129), "cpu")
-    assert (mk.kind, mk.name, mk.shape) == ("general", "mask_general", None)
-    assert u8_launch_shape(tcfg.EnvConfig(height=33, width=136)) is None
+    # rows of more than 128 cells on boards of more than 32 rows: the xwide
+    # mask and clear, the general apply
+    for shape in (dict(height=130, width=129), dict(height=33, width=136)):
+        cfg = tcfg.EnvConfig(**shape)
+        got = u8_launch_shape(cfg)
+        assert got == xwide_launch_shape(cfg) is not None
+        assert u8_kind(cfg, got) == "xwide" and apply_launch_shape(cfg) is None
     xwide = tcfg.EnvConfig(height=8, width=136)
     ck, ak = ClearScanKernel(xwide, "cpu"), ApplyKernel(xwide, "cpu")
     assert (ck.kind, ck.name, ck.shape) == ("xwide", "clear_xwide", xwide_launch_shape(xwide))

@@ -31,6 +31,7 @@ The kernels themselves run only on the card (``chip_smoke.py``).
 Everything is integer or bool and must be bit-equal.
 """
 
+import dataclasses
 import functools
 
 import jax.numpy as jnp
@@ -46,7 +47,7 @@ from blockpuzzle_tpu_torch import rules
 from blockpuzzle_tpu_torch.kernels import ApplyKernel, ClearScanKernel, MaskKernel
 from blockpuzzle_tpu_torch.kernels.mask import piece_rows_table
 from blockpuzzle_tpu_torch.kernels.packed import (
-    MAX_XWIDE, U32, XWIDE_WARPS, apply_launch_shape,
+    MAX_XWIDE, SMEM_OPT_IN, U32, XWIDE_WARPS, apply_launch_shape,
     xwide_launch_shape, xwide_smem_bytes,
 )
 from blockpuzzle_tpu_torch.utils.bounds import COSTS
@@ -190,13 +191,15 @@ def _shfl_up(v, l):
 def emulate_mask_xwide_kernel(cfg, board, queue, mk, addr=0):
     """csrc/mask.cu mask_xwide_kernel on ``mk``'s piece table and launch
     shape: the block loads the boards its env-slots read as row words
-    (``stage_words``); each lane walks the anchor rows holding the 8 rows
-    below in a ring, ORs each rectangle's rows, takes the next lane's word
-    by a shuffle (0 for the top word) and smears and shifts the pair
-    (``smear_words<2>``, ``shr_words<2>``); the legal words are staged and
-    stored from the block's byte offset (``store_words_n``, as
-    ``store_tall``).  Lanes of no env-slot read env 0's words and store
-    nothing."""
+    (``stage_words``); each lane walks the anchor rows (any number of them)
+    holding the 8 rows below in a ring, read from shared memory as it goes,
+    ORs each rectangle's rows, takes the next lane's word by a shuffle (0
+    for the top word) and smears and shifts the pair (``smear_words<2>``,
+    ``shr_words<2>``); the legal words are staged, over the board words in
+    place where S = 1 (an active lane never reads a word once it is
+    written), and stored from the block's byte offset (``store_words_n``,
+    as ``store_tall``).  Lanes of no env-slot read env 0's words, as they
+    stand, and store nothing."""
     h, w, s = cfg.height, cfg.width, cfg.queue_size
     hw, n, nw = cfg.num_cells, len(board), -(-w // 32)
     assert mk.max_h <= 8 and mk.max_w <= 8
@@ -210,20 +213,28 @@ def emulate_mask_xwide_kernel(cfg, board, queue, mk, addr=0):
         env0 = first // s
         envs = (first + count - 1) // s + 1 - env0
         words = emulate_stage_words(board.reshape(-1), env0 * hw, (env0 + envs) * hw, addr,
-                                    w, nw).reshape(envs, h, nw)
+                                    w, nw).reshape(-1)
         active = (sw < per_warp) & (seg < count)
         pid = np.where(active, queue.reshape(-1)[first + np.where(active, seg, 0)], -1)
         has = (pid >= 0) & (pid < mk.num_pieces)
         pc = np.where(has[..., None], pieces[np.where(has, pid, 0)],
                       np.array([h + 1, w + 1, 0, 0]))        # (warps, 32, 4)
         env = np.where(active, _small_div(first - env0 * s + np.where(active, seg, 0), s), 0)
-        x = words[env, :, lane]                                # (warps, 32, H)
+        written = np.zeros(words.shape, bool)                 # legal words over board words
+
+        def row(i):
+            """Row i of each lane's word, from the shared words as they stand."""
+            at = (env * h + i) * nw + lane
+            assert not written[at[active]].any()              # read before it is written
+            return words[at]
+
         r1, r2 = pc[..., 2], pc[..., 3]
         last = lane + 1 == nw
         a = w - pc[..., 1] + 1 - 32 * lane
         span = np.where(a >= 32, U32, np.where(a > 0, (1 << np.clip(a, 0, 31)) - 1, 0))
-        below = [x[..., i] if i < h else np.zeros_like(env) for i in range(8)]
-        staged = np.full(per_block * h * nw, -1, np.int64)
+        below = [row(i) if i < h else np.zeros_like(env) for i in range(8)]
+        in_place = s == 1
+        staged = words if in_place else np.full(per_block * h * nw, -1, np.int64)
         for r in range(h):
             v1, v2 = np.zeros_like(env), np.zeros_like(env)
             for i in range(mk.max_h):
@@ -237,9 +248,16 @@ def emulate_mask_xwide_kernel(cfg, board, queue, mk, addr=0):
                 [v2, np.where(last, 0, _shfl_down(v2, l))], r2 >> 24), (r2 >> 8) & 0xFF)
             legal = np.where(r + pc[..., 0] <= h, ~(b1[0] | b2[0]) & span, 0)
             at = (seg * h + r) * nw + lane
-            assert (staged[at[active]] == -1).all()         # each word staged once
+            if in_place:                                    # env-slot e's own rows
+                assert (at[active] == ((env * h + r) * nw + lane)[active]).all()
+                assert not written[at[active]].any()        # each word staged once
+                written[at[active]] = True
+            else:
+                assert (staged[at[active]] == -1).all()     # each word staged once
             staged[at[active]] = legal[active]
-            below = below[1:] + [x[..., r + 8] if r + 8 < h else np.zeros_like(env)]
+            below = below[1:] + [row(r + 8) if r + 8 < h else np.zeros_like(env)]
+        if in_place:
+            assert written[: count * h * nw].all()
         emulate_store_tall(staged, out, first * hw, count * hw, w, nw)
     assert (out < 2).all()
     return out.reshape(n, s * hw).astype(bool)
@@ -248,15 +266,17 @@ def emulate_mask_xwide_kernel(cfg, board, queue, mk, addr=0):
 def emulate_clear_xwide_kernel(cfg, board, ck, addr=0, apply=None):
     """csrc/clear.cu clear_xwide_kernel on ``ck``'s launch shape: the block
     loads its envs' boards as row words (``stage_words``); pass 1, a lane at
-    a time, ANDs its rows into its word of the full columns and marks bit r
-    where row r's word (the top word's bits past W set) is full, one
-    reduction over the segment giving the full rows; pass 2 walks a band of
+    a time, ANDs its rows into its word of the full columns; pass 2 walks
+    windows of 32 rows (32 - 32 mod rs with regions): bit i of a lane's word
+    marks row w0 + i's word (the top word's bits past W set) full, one
+    reduction over the segment giving the window's full rows; then a band of
     rs rows at a time (a row without regions): the band's AND, each field
     that starts in the word read from the funnel-shifted pair (this word,
     the next lane's by a shuffle), the part of a full field past the word
     handed up to the next lane by a shuffle, then each row cleared in place
     (all of it if full, else its full columns and fields); k = the full
-    rows + the segment's sum of full columns and of fields.  Its apply
+    rows of every window + the segment's sum of full columns and of
+    fields.  Its apply
     instance, given ``apply = (cover, valid, cover_addr)``: the block loads
     its envs' covers as row words too (the cover at its own offset from a
     16-byte boundary); a lane ORs board & cover over its rows, one
@@ -293,32 +313,39 @@ def emulate_clear_xwide_kernel(cfg, board, ck, addr=0, apply=None):
             write = active & valid[first + at] & (overlap == 0)
             x = np.where(write[..., None], x | y, x)           # placed in place
         cols = np.bitwise_and.reduce(x, axis=2)
-        full = sum(((x[..., r] | pad) == U32).astype(np.int64) << r for r in range(h))
-        rows_full = _reduce(full, sw, np.bitwise_and)
         got = _popc(cols)
         cleared = np.full_like(x, -1)
         g = rs or 1
+        win = 32 - 32 % rs if rs else 32
         c1 = -(-32 * lane // rs) * rs if rs else 0
-        for r0 in range(0, h, g):
-            rows_here = min(g, h - r0)
-            reg = np.zeros_like(cols)
-            if rs:
-                band = np.bitwise_and.reduce(x[..., r0 : r0 + rows_here], axis=2)
-                hi_word = np.where(lane + 1 < nw, _shfl_down(band, l), 0)
-                spill = np.zeros_like(cols)
-                if rows_here == rs:
-                    for c0 in c1 + rs * np.arange(-(-32 // rs) + 1)[:, None]:
-                        ok = (c0 < 32 * (lane + 1)) & (c0 + rs <= w)
-                        b = np.where(ok, c0 - 32 * lane, 0)
-                        hit = ok & ((_fshr(band, hi_word, b) & tile0) == tile0)
-                        reg |= np.where(hit, (tile0 << b) & U32, 0)
-                        spill |= np.where(hit & (b + rs > 32), tile0 >> (32 - b), 0)
-                        got += hit
-                reg |= np.where(lane > 0, _shfl_up(spill, l), 0)
-            for r in range(r0, r0 + rows_here):
-                cleared[..., r] = np.where((rows_full >> r) & 1, 0,
-                                           x[..., r] & ~(cols | reg) & U32)
-        k = _popc(rows_full) + _reduce(got, sw, np.add)
+        k = np.zeros_like(cols)
+        for w0 in range(0, h, win):
+            w1 = min(w0 + win, h)
+            full = sum(((x[..., r] | pad) == U32).astype(np.int64) << (r - w0)
+                       for r in range(w0, w1))
+            assert (full >> 32 == 0).all()                    # one 32-bit word a window
+            rows_full = _reduce(full, sw, np.bitwise_and)
+            k += _popc(rows_full)
+            for r0 in range(w0, w1, g):
+                rows_here = min(g, w1 - r0)
+                reg = np.zeros_like(cols)
+                if rs:
+                    band = np.bitwise_and.reduce(x[..., r0 : r0 + rows_here], axis=2)
+                    hi_word = np.where(lane + 1 < nw, _shfl_down(band, l), 0)
+                    spill = np.zeros_like(cols)
+                    if rows_here == rs:
+                        for c0 in c1 + rs * np.arange(-(-32 // rs) + 1)[:, None]:
+                            ok = (c0 < 32 * (lane + 1)) & (c0 + rs <= w)
+                            b = np.where(ok, c0 - 32 * lane, 0)
+                            hit = ok & ((_fshr(band, hi_word, b) & tile0) == tile0)
+                            reg |= np.where(hit, (tile0 << b) & U32, 0)
+                            spill |= np.where(hit & (b + rs > 32), tile0 >> (32 - b), 0)
+                            got += hit
+                    reg |= np.where(lane > 0, _shfl_up(spill, l), 0)
+                for r in range(r0, r0 + rows_here):
+                    cleared[..., r] = np.where((rows_full >> (r - w0)) & 1, 0,
+                                               x[..., r] & ~(cols | reg) & U32)
+        k = k + _reduce(got, sw, np.add)
         staged = np.full(per_block * h * nw, -1, np.int64)
         for r in range(h):                                    # an illegal env: its input
             staged[((seg * h + r) * nw + lane)[active]] = np.where(
@@ -452,24 +479,50 @@ def test_xwide_clear_emulation_takes_any_board_address(case, addr):
 
 
 def test_xwide_launch_shapes_fit():
-    """The xwide launch shape on boards of 1 to 32 rows of 129 to 1024
+    """The xwide launch shape on boards of 1 to 1500 rows of 129 to 1024
     cells, with hands of one and three: 32 // NW segments a warp and
-    ``XWIDE_WARPS`` warps, whose shared memory (the mask's or the clear's,
-    the larger: row words only, no staged bytes) fits 48 KB on every one;
-    a block's staged and stored bytes under the 2^21 that ``small_div``'s
-    proof needs.  No shape outside H <= 32 and 128 < W <= 1024."""
-    for h in (1, 2, 3, 8, 9, 16, 31, 32):
+    ``XWIDE_WARPS`` warps wherever they fit, whose shared memory (the
+    mask's or the clear's, the larger: row words only, no staged bytes; the
+    mask's legal rows over its board rows where S = 1) fits 48 KB on every
+    board of at most 32 rows; on taller boards the most warps, at most
+    ``XWIDE_WARPS``, whose block fits what a block may opt in to, and None
+    only where one warp does not; a block's staged and stored bytes under
+    the 2^21 that ``small_div``'s proof needs.  No shape outside
+    128 < W <= 1024."""
+    tall = 0
+    for h in (1, 2, 3, 8, 9, 16, 31, 32, 33, 36, 40, 64, 66, 100, 128, 129, 130, 257, 512,
+              1000, 1500):
         for w in (129, 135, 136, 160, 255, 256, 320, 500, 513, 1000, 1024):
             for s in (1, 3):
                 cfg = tcfg.EnvConfig(height=h, width=w, queue_size=s)
-                per_warp, warps = xwide_launch_shape(cfg)
-                per_block = per_warp * warps
-                assert (per_warp, warps) == (32 // -(-w // 32), XWIDE_WARPS)
-                assert xwide_smem_bytes(cfg, per_block) <= 36 * 1024
-                most = (per_block + s - 1) // s + 1
-                assert max(per_block, most) * cfg.num_cells < 1 << 21
-    for shape in (dict(height=33, width=136), dict(height=8, width=128),
-                  dict(height=1, width=MAX_XWIDE + 32), dict(height=130, width=129)):
+                per_warp = 32 // -(-w // 32)
+                shape = xwide_launch_shape(cfg)
+                most = per_warp if s == 1 else max(per_warp, (per_warp + s - 1) // s + 1)
+                if shape is None:
+                    assert (xwide_smem_bytes(cfg, per_warp) > SMEM_OPT_IN
+                            or most * cfg.num_cells >= 1 << 21)
+                    continue
+                assert shape[0] == per_warp and 1 <= shape[1] <= XWIDE_WARPS
+                per_block = per_warp * shape[1]
+                smem = xwide_smem_bytes(cfg, per_block)
+                most = per_block if s == 1 else max(per_block, (per_block + s - 1) // s + 1)
+                assert smem <= SMEM_OPT_IN and most * cfg.num_cells < 1 << 21
+                if h <= 32:
+                    assert shape[1] == XWIDE_WARPS and smem <= 36 * 1024
+                elif shape[1] < XWIDE_WARPS:  # the next warp would not fit
+                    bigger = per_block + per_warp
+                    most = bigger if s == 1 else max(bigger, (bigger + s - 1) // s + 1)
+                    assert (xwide_smem_bytes(cfg, bigger) > SMEM_OPT_IN
+                            or most * cfg.num_cells >= 1 << 21)
+                tall += h > 32
+    assert tall > 100
+    # the mask's legal rows over its board rows at S = 1: half the block
+    cfg = tcfg.EnvConfig(height=40, width=136)
+    assert xwide_launch_shape(cfg) == (6, XWIDE_WARPS)
+    assert xwide_smem_bytes(cfg, 24) == 19200
+    assert xwide_smem_bytes(dataclasses.replace(cfg, queue_size=3), 24) == 4 * (24 + 9) * 200
+    for shape in (dict(height=8, width=128), dict(height=1, width=MAX_XWIDE + 32),
+                  dict(height=40, width=MAX_XWIDE + 1)):
         assert xwide_launch_shape(tcfg.EnvConfig(**shape)) is None
 
 
