@@ -16,15 +16,15 @@ sit here together as they do there:
 Each has a bit-row kernel, for boards of at most 32 rows of at most 32
 cells (every shipped preset; the legality also wants pieces of at most 8
 rows and columns), which works on 32-bit row words, and a general kernel
-for rows of more than 1024 cells, rows of more than 128 cells on boards of
-more than 32 rows (and, for the legality, pieces of more than 8 rows or
-columns, or a deep board one warp cannot stage).  Between those the apply
-runs on the clear's wide, tall, deep and xwide kernels (``csrc/clear.cu``,
-their apply instances: rows of up to four words, a warp a board of up to
-128 rows, a warp walking a taller board in windows of 32 rows, a segment
-of lanes a board of rows of up to 32 words), and the legality on the hand
-mask's (``csrc/mask.cu``, their every-piece instances: the hand mask of a
-hand holding every piece).  ``piece_table`` is the per-piece footprint
+for rows of more than 1024 cells (and, for the legality, pieces of more
+than 8 rows or columns), or a deep or xwide board one warp cannot stage.
+Between those the apply runs on the clear's wide, tall, deep and xwide
+kernels (``csrc/clear.cu``, their apply instances: rows of up to four
+words, a warp a board of up to 128 rows, a warp walking a taller board in
+windows of 32 rows, a segment of lanes a board of rows of up to 32 words
+at any height), and the legality on the hand mask's (``csrc/mask.cu``,
+their every-piece instances: the hand mask of a hand holding every
+piece).  ``piece_table`` is the per-piece footprint
 table of the general legality and mask kernels, ``legality_rows_table``
 the bit-row legality's and ``piece_rows_table`` the mask's.
 """
@@ -42,7 +42,7 @@ from blockpuzzle_tpu_torch.config import EnvConfig
 from blockpuzzle_tpu_torch.kernels import _build
 from blockpuzzle_tpu_torch.kernels.clear import LineTables, check_general_fits, clear_plain
 from blockpuzzle_tpu_torch.kernels.packed import (
-    MAX_PIECE, MAX_ROWS, MAX_WIDE, SUFFIX, apply_launch_shape, count_launch, segments_per_warp,
+    MAX_PIECE, MAX_ROWS, SUFFIX, apply_launch_shape, count_launch, segments_per_warp,
     u8_kind, u8_launch_shape,
 )
 
@@ -164,14 +164,11 @@ def legality_rows_table(cfg: EnvConfig) -> np.ndarray:
 def every_piece_shape(cfg: EnvConfig):
     """The launch shape of the hand mask's kernel that takes ``cfg``'s board
     with every piece in the hand (S = P: ``u8_launch_shape`` of ``cfg`` with
-    ``queue_size`` P), where that is the wide, tall, deep or xwide kernel and
-    no piece spans more than ``MAX_PIECE`` rows or columns; else None, and
-    so the general legality, also on boards of more than ``MAX_ROWS`` rows of
-    more than ``MAX_WIDE`` cells, where the hand mask takes its xwide kernel
-    but its every-piece instance is not yet held to the general legality."""
+    ``queue_size`` P), where that is the wide, tall, deep or xwide kernel (the
+    xwide one at any height) and no piece spans more than ``MAX_PIECE`` rows
+    or columns; else None, and so the general legality."""
     t = rules.tables_for(cfg)
-    if (max(t.max_h, t.max_w) > MAX_PIECE or (cfg.height <= MAX_ROWS and cfg.width <= 32)
-            or (cfg.height > MAX_ROWS and cfg.width > MAX_WIDE)):
+    if max(t.max_h, t.max_w) > MAX_PIECE or (cfg.height <= MAX_ROWS and cfg.width <= 32):
         return None
     return u8_launch_shape(dataclasses.replace(cfg, queue_size=t.num_pieces))
 
@@ -190,10 +187,8 @@ class LegalityKernel:
     mask's launch shape at S = P; ``wide_launches`` ... ``xwide_launches``).
     ``shape`` is the picked kernel's launch shape.  Else the general kernel
     (``shape`` is None; ``general_launches``): rows of more than 1024
-    cells, rows of more than 128 cells on boards of more than 32 rows (the
-    hand mask's xwide kernel takes those; its every-piece instance waits
-    for its own measurement), larger pieces, or a deep board whose one-warp
-    block does not fit.
+    cells, larger pieces, or a deep or xwide board whose one-warp block does
+    not fit.
     ``name`` is the picked kernel's.
 
     All read a cell as occupied when it is nonzero, as ``legality_plain``
@@ -315,14 +310,12 @@ class ApplyKernel:
     (``launches`` counts its launches), the wide kernel where H <= 32 and
     32 < W <= 128 (``wide_launches``), the tall kernel where 32 < H <= 128
     and W <= 128 (``tall_launches``), the deep kernel where H > 128 and
-    W <= 128 (``deep_launches``), the xwide kernel where H <= 32 and
-    128 < W <= 1024 (``xwide_launches``); ``shape`` is the launch shape of
-    any of them (``apply_launch_shape``: the clear's, with fewer turns or
-    warps where a block's two staged spans would not fit).  Else the
+    W <= 128 (``deep_launches``), the xwide kernel where 128 < W <= 1024 at
+    any height (``xwide_launches``); ``shape`` is the launch shape of any of
+    them (``apply_launch_shape``: the clear's, with fewer turns or warps
+    where a block's staged spans or placed rows would not fit).  Else the
     general kernel (``shape`` is None; ``general_launches``): rows of more
-    than 1024 cells, rows of more than 128 cells on boards of more than 32
-    rows (there the clear takes its xwide kernel; the apply instance waits
-    for its own measurement), or a deep board one warp cannot stage; it
+    than 1024 cells, or a deep or xwide board one warp cannot stage; it
     takes every such board whose cells and lines fit one warp's shared
     memory (``clear.general_warps``), and the wrapper refuses the rest at
     construction.  ``name`` is the picked kernel's.

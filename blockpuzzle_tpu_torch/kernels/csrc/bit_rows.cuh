@@ -602,24 +602,42 @@ __device__ __forceinline__ uint32_t pack16(uint4 v) {
 }
 
 // ORs `bits` (< 2^16) into a row of words from column c on: into word c / 32
-// and, where they pass its end, the next one.
-__device__ __forceinline__ void or_bits(uint32_t* row, int c, uint32_t bits) {
-  if (bits == 0) return;
+// and, where they pass its end, the next one.  kMeet: returns whether any
+// of them was set already (the atomics' old words; the cover's staging).
+template <bool kMeet = false>
+__device__ __forceinline__ bool or_bits(uint32_t* row, int c, uint32_t bits) {
+  if (bits == 0) return false;
   const int w = c >> 5, off = c & 31;
-  atomicOr(row + w, bits << off);
-  if (off > 16 && (bits >> (32 - off)) != 0) atomicOr(row + w + 1, bits >> (32 - off));
+  const uint32_t lo = bits << off, hi = off > 16 ? bits >> (32 - off) : 0u;
+  if constexpr (kMeet) {
+    bool met = (atomicOr(row + w, lo) & lo) != 0;
+    if (hi != 0) met |= (atomicOr(row + w + 1, hi) & hi) != 0;
+    return met;
+  } else {
+    atomicOr(row + w, lo);
+    if (hi != 0) atomicOr(row + w + 1, hi);
+    return false;
+  }
 }
 
 // The n <= 16 bits of byte q .. q + n - 1 of a run of rows of W > 16
 // cells into their row words (`words`, NW a row): the columns of row q / W
 // from q % W on, and past that row's end the first columns of the next.
+// kMeet (the apply's cover, ORed over its boards): a bit that was set
+// already marks its board's word met[R / H] (R its row).
+template <bool kMeet = false>
 __device__ __forceinline__ void place_bits(uint32_t* words, int q, uint32_t bits, int n,
-                                           int width, int nw, float inv_w) {
+                                           int width, int nw, float inv_w,
+                                           uint32_t* met = nullptr, float inv_h = 0.f) {
   const int row = small_div(q, inv_w);
   const int c = q - row * width;
   const int k = min(n, width - c);  // the bits in this row
-  or_bits(words + row * nw, c, k < 16 ? bits & ((1u << k) - 1u) : bits);
-  if (k < n) or_bits(words + (row + 1) * nw, 0, bits >> k);
+  if (or_bits<kMeet>(words + row * nw, c, k < 16 ? bits & ((1u << k) - 1u) : bits)) {
+    met[small_div(row, inv_h)] = 1u;
+  }
+  if (k < n && or_bits<kMeet>(words + (row + 1) * nw, 0, bits >> k)) {
+    met[small_div(row + 1, inv_h)] = 1u;
+  }
 }
 
 // Bytes [lo, hi) of `src`, rows of W cells one after another (a block's
@@ -631,27 +649,36 @@ __device__ __forceinline__ void place_bits(uint32_t* words, int q, uint32_t bits
 // two chunks may share a word); the unaligned head and the ragged tail go
 // byte by byte, so any start address works.  Every thread of the block
 // calls it; a __syncthreads must follow before `words` is read.
-// hi - lo < 2^21 (`small_div`).
+// hi - lo < 2^21 (`small_div`).  kCover (the apply's covers): the words are
+// not zeroed but ORed over (they hold the boards, staged and followed by a
+// __syncthreads), and a bit that meets a set one marks its board's word of
+// `met` (boards of `height` rows; zeroed before the boards' barrier): the
+// cover overlaps that board.
+template <bool kCover = false>
 __device__ __forceinline__ void stage_words(const uint8_t* __restrict__ src, long long lo,
                                             long long hi, int width, int nw,
-                                            uint32_t* words) {
+                                            uint32_t* words, uint32_t* met = nullptr,
+                                            int height = 1) {
   const uint8_t* p = src + lo;
   const int len = static_cast<int>(hi - lo);
   const float inv_w = __frcp_rn(static_cast<float>(width));
-  const int nwords = small_div(len, inv_w) * nw;
-  for (int i = threadIdx.x; i < nwords; i += blockDim.x) words[i] = 0u;
-  __syncthreads();
+  const float inv_h = __frcp_rn(static_cast<float>(height));
+  if constexpr (!kCover) {
+    const int nwords = small_div(len, inv_w) * nw;
+    for (int i = threadIdx.x; i < nwords; i += blockDim.x) words[i] = 0u;
+    __syncthreads();
+  }
   const int d = static_cast<int>(reinterpret_cast<uintptr_t>(p) & 15);
   const int head = min((16 - d) & 15, len);
   const int nvec = (len - head) / 16;
   const uint4* from = reinterpret_cast<const uint4*>(p + head);
 #pragma unroll 4
   for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
-    place_bits(words, head + 16 * i, pack16(from[i]), 16, width, nw, inv_w);
+    place_bits<kCover>(words, head + 16 * i, pack16(from[i]), 16, width, nw, inv_w, met, inv_h);
   }
   for (int j = threadIdx.x; j < len - 16 * nvec; j += blockDim.x) {
     const int q = j < head ? j : j + 16 * nvec;
-    if (p[q] != 0) place_bits(words, q, 1u, 1, width, nw, inv_w);
+    if (p[q] != 0) place_bits<kCover>(words, q, 1u, 1, width, nw, inv_w, met, inv_h);
   }
 }
 

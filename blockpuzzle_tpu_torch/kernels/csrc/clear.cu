@@ -139,14 +139,17 @@
 // the H100: device memory; per env they read HW board bytes, HW cover
 // bytes and a valid byte and write HW board bytes, a 4-byte k and a legal
 // byte, 3 HW + 6 bytes: 47.5 MB on 8x40, 44.1 MB on 33x9, 153.6 MB on
-// 130x8 and 160.7 MB on 8x136 at N = 49152 (14.2, 13.2, 45.9 and 48.0 us
-// at 3.35 TB/s).  The wide, tall and deep instances' block holds its
-// output rows and two staged spans, so its launch shape is its own
-// (kernels/packed.py `apply_launch_shape`: the clear's where both spans
-// fit, fewer turns or warps where not); the xwide instance's holds two
-// arrays of row words and keeps the clear's shape.  Each lane packs a
-// cover word beside each board word (an xwide lane packs none: its block
-// loads the covers as it loads the boards); the deep instance's first pass
+// 130x8, 160.7 MB on 8x136 and 802.5 MB on 40x136 at N = 49152 (14.2,
+// 13.2, 45.9, 48.0 and 239.5 us at 3.35 TB/s).  The wide, tall and deep
+// instances' block holds its output rows and two staged spans, so its
+// launch shape is its own (kernels/packed.py `apply_launch_shape`: the
+// clear's where both spans fit, fewer turns or warps where not); the xwide
+// instance's holds two arrays of row words (board and cover) on a board of
+// one window and the placed rows and a word an env above, and takes one
+// warp a block there (`xwide_apply_smem_bytes`, `apply_launch_shape`).
+// Each lane packs a cover word beside each board word (an xwide lane packs
+// none: its block loads the covers as it loads the boards, or ORs them
+// over the boards); the deep instance's first pass
 // stages the placed rows and its pass 1 reads them back instead of
 // packing.  They answer what bounded the general apply on such boards: the
 // clear's line walk through the global table (a lane a line, two dependent
@@ -521,23 +524,95 @@ __device__ __forceinline__ uint32_t band_fields(const uint32_t* x, int nw, int r
   return reg | (t.lane > 0 ? from_below : 0u);
 }
 
+// The xwide apply's store: `store_words_n` of the block's placed and
+// cleared rows, but an env marked in `keep` (illegal: invalid or
+// overlapping) gets its input bytes back, read from `src` at the same
+// offsets (its row words hold board | cover, not its board).  A vector of
+// 16 output bytes wholly in kept envs is one uint4 copy where `src` and
+// `out` share their offset from a 16-byte boundary, a vector wholly in
+// others is `store_words_n`'s, and a vector across a kept env's border, or
+// a copy at another offset, goes byte by byte, as do the head and the
+// ragged tail.  Threads t = 0 .. nt - 1 of the block share the work, after
+// the barrier that follows the last write to `rows` and `keep`; bytes <
+// 2^21.
+__device__ __forceinline__ void store_apply_words(const uint32_t* rows, const uint32_t* keep,
+                                                  const uint8_t* __restrict__ src, uint8_t* out,
+                                                  long long at, int bytes, int width, int nw,
+                                                  int height, int t, int nt) {
+  uint8_t* o = out + at;
+  const uint8_t* in = src + at;
+  const bool same = ((reinterpret_cast<uintptr_t>(in) ^ reinterpret_cast<uintptr_t>(o)) & 15) == 0;
+  const int head = min(static_cast<int>((16 - (at & 15)) & 15), bytes);
+  const int nvec = (bytes - head) / 16;
+  const float inv_w = __frcp_rn(static_cast<float>(width));
+  const float inv_h = __frcp_rn(static_cast<float>(height));
+  for (int v = t; v < nvec; v += nt) {
+    const int q = head + 16 * v;
+    const int row = bit_rows::small_div(q, inv_w);
+    const int c = q - row * width;
+    const bool k0 = keep[bit_rows::small_div(row, inv_h)] != 0;
+    const bool k1 = keep[bit_rows::small_div(bit_rows::small_div(q + 15, inv_w), inv_h)] != 0;
+    if (k0 && k1 && same) {
+      *reinterpret_cast<uint4*>(o + q) = *reinterpret_cast<const uint4*>(in + q);
+      continue;
+    }
+    const uint32_t* r = rows + row * nw;
+    const int w = c >> 5;
+    uint32_t bits = __funnelshift_r(r[w], w + 1 < nw ? r[w + 1] : 0u, c & 31);
+    if (width - c < 16) bits |= r[nw] << (width - c);
+    if (!k0 && !k1) {
+      *reinterpret_cast<uint4*>(o + q) =
+          make_uint4(bit_rows::spread4(bits), bit_rows::spread4(bits >> 4),
+                     bit_rows::spread4(bits >> 8), bit_rows::spread4(bits >> 12));
+      continue;
+    }
+    for (int j = 0; j < 16; ++j) {
+      const int e = bit_rows::small_div(bit_rows::small_div(q + j, inv_w), inv_h);
+      o[q + j] = keep[e] ? in[q + j] : static_cast<uint8_t>((bits >> j) & 1u);
+    }
+  }
+  for (int j = t; j < bytes - 16 * nvec; j += nt) {
+    const int q = j < head ? j : j + 16 * nvec;
+    const int row = bit_rows::small_div(q, inv_w);
+    const int c = q - row * width;
+    o[q] = keep[bit_rows::small_div(row, inv_h)]
+               ? in[q]
+               : static_cast<uint8_t>((rows[row * nw + (c >> 5)] >> (c & 31)) & 1u);
+  }
+}
+
 // The xwide kernel's two instances likewise: the clear (kApply false) and
-// the apply (kApply true), whose block loads its envs' covers as row words
-// beside their boards (two arrays, each zeroed by `stage_words` before its
-// barrier).  The overlap is lane-local (the OR over the lane's rows of
-// board & cover), one `__reduce_or_sync` over the segment gives the env's;
-// a legal env places its cover in its board words in place and runs the
-// clear's two passes on them, an illegal one runs them on its input words
-// but writes none back (the segments of a warp differ in legality, and
-// every lane runs every shuffle and reduction), so it stores its input:
-// a strict no-op with k = 0.  Each has two forms: kWindows false takes a
+// the apply (kApply true).  Each has two forms: kWindows false takes a
 // board whose rows (and region bands) fit one 32-bit word of row bits, a
 // board of at most 32 rows (30 with 3x3 regions) in one pass 2 over its
 // rows; kWindows true walks pass 2 in windows of 32 rows (32 - 32 mod rs),
 // a full-row word and one reduction a window, reading each row once more
 // (the entry picks by height: a single pass 2 with a window's loop around
 // it took 4-22% longer on boards of at most 32 rows, in turns on an H100).
-// The apply takes boards of at most 32 rows.
+// The apply's two forms also hold the covers differently:
+//   - one window (kCovers): the block loads its envs' covers as row words
+//     beside their boards (two arrays, each zeroed by `stage_words` before
+//     its barrier); the overlap is lane-local (the OR over the lane's rows
+//     of board & cover), one `__reduce_or_sync` over the segment gives the
+//     env's; a legal env places its cover in its board words in place and
+//     runs the clear's passes on them, an illegal one runs them on its
+//     input words but writes none back (the segments of a warp differ in
+//     legality, and every lane runs every shuffle and reduction), so it
+//     stores its input: a strict no-op with k = 0;
+//   - windows (kPlaced): one array of row words, as the clear's: the block
+//     loads its envs' boards, then ORs their covers over them
+//     (`stage_words<true>`), so that each env's rows are placed before the
+//     passes, and a cover bit whose atomic OR finds its board's bit set
+//     marks the env in `keep` (a word an env after the rows), the overlap.
+//     A valid, unmarked env is legal and clears its placed rows in place;
+//     an illegal one runs the passes on its placed words but writes none
+//     back, is marked by its lane 0, and the store (`store_apply_words`)
+//     writes its input bytes, read again from `board`.
+// On 40x136 the second array took twice the shared memory a block (38,400
+// bytes for 4 warps against 19,296) and 1.14x the time, 1.31x on 66x130;
+// on boards of at most 32 rows the placed form took 1.07-1.50x the two
+// arrays' time (copying back the input of an illegal env, 80% of the
+// timing inputs, and a barrier more), in turns on an H100.
 template <bool kApply, bool kWindows>
 __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
     clear_xwide_kernel(const uint8_t* __restrict__ board, const uint8_t* __restrict__ cover,
@@ -548,14 +623,24 @@ __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
   const int nw = (width + 31) / 32;
   const int per_block = blockDim.x / 32 * per_warp;
   const int hw = height * width;
+  constexpr bool kCovers = kApply && !kWindows;      // the covers beside the boards
+  constexpr bool kPlaced = kApply && kWindows;       // the covers ORed over them
   uint32_t* words = reinterpret_cast<uint32_t*>(rows_smem);  // E*H rows, cleared in place
-  uint32_t* covers = words + per_block * height * nw;        // the apply's E*H cover rows
+  uint32_t* covers = words + per_block * height * nw;        // kCovers: E*H cover rows
+  uint32_t* keep = covers;                                   // kPlaced: E illegal marks
   const int first = blockIdx.x * per_block;          // first env
   const int count = min(per_block, n - first);       // envs here
   const long long lo = static_cast<long long>(first) * hw;
   const long long hi = lo + static_cast<long long>(count) * hw;
+  if constexpr (kPlaced) {
+    for (int i = threadIdx.x; i < per_block; i += blockDim.x) keep[i] = 0u;
+  }
   bit_rows::stage_words(board, lo, hi, width, nw, words);
-  if constexpr (kApply) bit_rows::stage_words(cover, lo, hi, width, nw, covers);
+  if constexpr (kCovers) bit_rows::stage_words(cover, lo, hi, width, nw, covers);
+  if constexpr (kPlaced) {
+    __syncthreads();
+    bit_rows::stage_words<true>(cover, lo, hi, width, nw, words, keep, height);
+  }
 
   const bit_rows::Seat t = bit_rows::seat(nw, per_warp);  // t.lane: the word
   const bool active = t.s < per_warp && t.seg < count;
@@ -564,7 +649,7 @@ __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
   const int at = (active ? t.seg : 0) * height * nw + t.lane;
   uint32_t* x = words + at;
   bool write = active;                               // this lane's env keeps what the clear gives
-  if constexpr (kApply) {
+  if constexpr (kCovers) {
     const uint32_t* y = covers + at;
     uint32_t hit = 0;
     for (int r = 0; r < height; ++r) hit |= x[r * nw] & y[r * nw];
@@ -574,6 +659,7 @@ __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
       for (int r = 0; r < height; ++r) x[r * nw] |= y[r * nw];  // placed in place
     }
   }
+  if constexpr (kPlaced) write = active && valid[first + t.seg] != 0 && keep[t.seg] == 0;
   const int tail = width - 32 * (nw - 1);            // columns of the top word: 1..32
   const uint32_t pad = t.lane + 1 == nw && tail < 32 ? kAll << tail : 0u;  // past W: full
   const int g = region_size > 0 ? region_size : 1;  // rows a band
@@ -639,10 +725,18 @@ __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
   if (active && t.lane == 0) {
     k_out[first + t.seg] = write ? k : 0;
     if constexpr (kApply) legal_out[first + t.seg] = write;
+    if constexpr (kPlaced) {
+      if (!write) keep[t.seg] = 1u;                  // its lanes read it before the reduction
+    }
   }
   __syncthreads();
-  bit_rows::store_words_n(words, board_out, lo, count * hw, width, nw, threadIdx.x,
-                          blockDim.x);
+  if constexpr (kPlaced) {
+    store_apply_words(words, keep, board, board_out, lo, count * hw, width, nw, height,
+                      threadIdx.x, blockDim.x);
+  } else {
+    bit_rows::store_words_n(words, board_out, lo, count * hw, width, nw, threadIdx.x,
+                            blockDim.x);
+  }
 }
 
 // A launch of the wide, tall, deep and xwide kernels: the clear's arguments and
@@ -761,13 +855,14 @@ int tall(const Io& io, bool apply, bool deep) {
   return apply ? run_tall<true>(io) : run_tall<false>(io);
 }
 
-// 128 < W <= 1024, any height (the apply: H <= 32): per_warp = 32 / NW,
-// warps 1 to 16; the block's shared memory is its envs' rows of NW words,
-// and the apply's as many cover rows beside them; refused where a block
-// stages 2^21 bytes or more (`small_div`)
+// 128 < W <= 1024, any height: per_warp = 32 / NW, warps 1 to 16; the
+// block's shared memory is its envs' rows of NW words, and the apply's as
+// many cover rows beside them on a board of one window, or a word an env
+// (`keep`) on a taller one; refused where a block stages 2^21 bytes or more
+// (`small_div`)
 int xwide(const Io& io, bool apply) {
   const int nw = (io.width + 31) / 32;
-  if (io.height < 1 || (apply && io.height > 32) || io.width <= 128 || io.width > 1024 ||
+  if (io.height < 1 || io.width <= 128 || io.width > 1024 ||
       io.per_warp != 32 / nw || !region_ok(io) || io.warps < 1 ||
       io.warps > bit_rows::kMaxWarps || !aligned(io.board_out) ||
       static_cast<long long>(io.warps) * io.per_warp * io.height * io.width >= (1LL << 21)) {
@@ -780,8 +875,9 @@ int xwide(const Io& io, bool apply) {
                                          : clear_xwide_kernel<true, false>)
                               : (windows ? clear_xwide_kernel<false, true>
                                          : clear_xwide_kernel<false, false>);
+  const long long rows = static_cast<long long>(io.warps) * io.per_warp * io.height * nw;
   return launch_smem(kernel, io,
-                     (apply ? 8LL : 4LL) * io.warps * io.per_warp * io.height * nw);
+                     4 * (!apply ? rows : windows ? rows + io.warps * io.per_warp : 2 * rows));
 }
 
 __global__ void clear_kernel(const uint8_t* __restrict__ board,
@@ -885,12 +981,12 @@ extern "C" int bp_clear_xwide(const void* board, void* board_out, void* k_out,
 
 // The apply (K2) on the clear's kernels: bp_apply_rows's arguments and
 // launch shape rules, for the boards bp_clear_wide, bp_clear_tall,
-// bp_clear_deep and bp_clear_xwide take (bp_apply_xwide those of at most
-// 32 rows).  board, cover (N, HW) u8 of 0/1
+// bp_clear_deep and bp_clear_xwide take.  board, cover (N, HW) u8 of 0/1
 // cells, each at any address; valid (N,) bool; outputs board_out (N, HW)
 // u8 (16-byte aligned), k (N,) i32, legal (N,) bool.  Each is refused where its block's
-// shared memory (output rows and two staged spans; the xwide one's two
-// arrays of row words) passes what a block may opt in to.
+// shared memory (output rows and two staged spans; the xwide one's board
+// and cover rows of words, or above one window its placed rows and a word
+// an env) passes what a block may opt in to.
 extern "C" int bp_apply_wide(const void* board, const void* cover, const void* valid,
                              void* board_out, void* k_out, void* legal_out, int n,
                              int height, int width, int region_size, int per_warp,

@@ -165,12 +165,17 @@
 // hand mask of a hand that holds every piece: env-slot q takes piece
 // q mod P (`slot_piece`), slots = P, no hand is read, and everything else
 // is the mask's (the staged boards, the rectangle smear, the legal rows,
-// the stores; the launch shapes are the mask's at S = P).  Bound on the
+// the stores; the launch shapes are the mask's at S = P).  The xwide
+// instance takes boards of any height, as the mask does: a block of 24
+// env-slots (classic19 on 40x136) reads at most 3 envs, whose rows are
+// staged once and read by all their slots (21,600 bytes a block of 4
+// warps), so no env's rows are packed again for each piece.  Bound on the
 // H100: device memory; per env they read HW board bytes and write P*HW
-// bools, 314.6 MB on 8x40 and 1069.5 MB on 8x136 at N = 49152 (93.9 and
-// 319.3 us at 3.35 TB/s; the function's operations, an env's rows packed
-// once, come to 36.8 and 109.5 us at the integer rate, `utils/bounds.py`;
-// these instances repack an env's rows for each piece).  They answer
+// bools, 314.6 MB on 8x40, 1069.5 MB on 8x136 and 5347.7 MB on 40x136 at
+// N = 49152 (93.9, 319.3 and 1596.3 us at 3.35 TB/s; the function's
+// operations, an env's rows packed once, come to 36.8 and 109.5 us on the
+// first two at the integer rate, `utils/bounds.py`; the wide, tall and deep
+// instances repack an env's rows for each piece).  They answer
 // what bounded the general legality kernel (legality.cu) on such boards:
 // a thread an (env, piece, anchor), 298.8 M threads on 8x40 at N = 49152,
 // each with 64-bit `%` and `/`, its piece's row of the table and a chain
@@ -183,9 +188,8 @@
 // (9 for classic19) board bytes (`piece_fits`, piece_fits.cuh, shared with
 // the legality kernel).  Per-thread work (64-bit index arithmetic, a
 // data-dependent chain of byte loads) bounds it, not bytes.  It is left to
-// the shapes no other kernel takes: W > 1024, W > 128 with H > 32, pieces
-// larger than 8, or a deep board whose one-warp block does not fit shared
-// memory.
+// the shapes no other kernel takes: W > 1024, pieces larger than 8, or a
+// deep or xwide board whose one-warp block does not fit shared memory.
 
 #include <climits>
 #include <cstdint>
@@ -848,15 +852,15 @@ int mask_tall(Launch a, int n, int max_w, bool deep) {
   }
 }
 
-// 128 < W <= 1024, any height (the every-piece instance: H <= 32):
-// per_warp = 32 / NW; the block's shared memory holds its legal rows, then
-// the row words of the envs it reads (one array where S = 1); refused
-// where a block stages or stores 2^21 bytes or more (`small_div`)
+// 128 < W <= 1024, any height: per_warp = 32 / NW; the block's shared
+// memory holds its legal rows, then the row words of the envs it reads (one
+// array where S = 1); refused where a block stages or stores 2^21 bytes or
+// more (`small_div`)
 template <bool kEvery>
 int mask_xwide(Launch a, int n, int max_w) {
   const int nw = (a.width + 31) / 32;
-  if (!common_ok(a, n, max_w) || a.height < 1 || (kEvery && a.height > 32) ||
-      a.width <= 128 || a.width > 1024 || a.per_warp != 32 / nw) {
+  if (!common_ok(a, n, max_w) || a.height < 1 || a.width <= 128 || a.width > 1024 ||
+      a.per_warp != 32 / nw) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   a.total = n * a.slots;

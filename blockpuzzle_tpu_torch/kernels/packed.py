@@ -67,6 +67,12 @@ MAX_XWIDE = 1024
 # turns on an H100 on most boards of 129 to 1024 cells a row (PERF.md §6),
 # their blocks' barriers holding fewer warps waiting than 16 do
 XWIDE_WARPS = 4
+# warps a block of the xwide apply on boards of more than one window of
+# rows (``xwide_windows``): one, whose three barriers (the boards staged,
+# the covers ORed over them, the rows cleared) hold no other warp waiting;
+# in turns on an H100 it was within 0.6% of 2, 4 and 8 on 40x136 and
+# 2.2-8.4% faster than 4 on 33x129, 36x135 r3 and 66x130 (PERF.md §6)
+XWIDE_APPLY_WARPS = 1
 # rows of the tallest board the tall kernels take (the packed apply, mask
 # and words, the u8 mask and clear): four rows a lane, one warp a board;
 # taller boards take the general kernels
@@ -191,25 +197,27 @@ def deep_launch_shape(cfg: EnvConfig):
     return _turns_shape(cfg)
 
 
-def xwide_launch_shape(cfg: EnvConfig):
+def xwide_launch_shape(cfg: EnvConfig, smem_bytes=None, most: int = XWIDE_WARPS):
     """(segments a warp, warps a block) of the xwide u8 mask and clear,
     which give an env-slot (mask) or env (clear) a segment of NW =
     ceil(W / 32) lanes, lane w holding word w of every row, for boards of
     ``MAX_WIDE`` < W <= ``MAX_XWIDE`` cells a row and any height: 32 // NW
-    segments a warp (6 on 8x136) and the most warps, at most
-    ``XWIDE_WARPS``, whose block fits what a block may opt in to
-    (``xwide_smem_bytes``; on boards of at most 32 rows 4 warps take at most
-    36 KB, under the 48 KB a launch gets without opting in) and stages and
-    stores fewer than 2^21 bytes (``csrc/bit_rows.cuh`` ``small_div``).
+    segments a warp (6 on 8x136) and the most warps, at most ``most``
+    (``XWIDE_WARPS``), whose block fits what a block may opt in to
+    (``smem_bytes``, ``xwide_smem_bytes`` by default; the apply's is
+    ``xwide_apply_smem_bytes``; on boards of at most 32 rows 4 warps take at
+    most 36 KB, under the 48 KB a launch gets without opting in) and stages
+    and stores fewer than 2^21 bytes (``csrc/bit_rows.cuh`` ``small_div``).
     None for any other board, and where not even one warp fits (the
     general kernels take those).  Computed once per wrapper, as
     ``row_launch_shape``."""
     if not MAX_WIDE < cfg.width <= MAX_XWIDE:
         return None
+    smem_bytes = smem_bytes or xwide_smem_bytes
     per_warp = 32 // -(-cfg.width // 32)
-    for warps in range(XWIDE_WARPS, 0, -1):
+    for warps in range(most, 0, -1):
         per_block = per_warp * warps
-        if (xwide_smem_bytes(cfg, per_block) <= SMEM_OPT_IN
+        if (smem_bytes(cfg, per_block) <= SMEM_OPT_IN
                 and xwide_staged_envs(cfg, per_block) * cfg.num_cells < 1 << 21):
             return per_warp, warps
     return None
@@ -235,6 +243,25 @@ def xwide_smem_bytes(cfg: EnvConfig, per_block: int) -> int:
     return 4 * max(mask, per_block) * rows
 
 
+def xwide_windows(cfg: EnvConfig) -> bool:
+    """Whether the xwide clear and apply walk ``cfg``'s rows in windows of
+    32 (32 - 32 mod rs with regions of size rs): boards taller than one
+    window (``csrc/clear.cu`` ``xwide``)."""
+    return cfg.height > (32 - 32 % cfg.region_size if cfg.region_clear else 32)
+
+
+def xwide_apply_smem_bytes(cfg: EnvConfig, per_block: int) -> int:
+    """Shared memory of a block of the xwide u8 apply (``bp_apply_xwide``):
+    on a board of one window its envs' board rows of NW words and as many
+    cover rows beside them; on a taller board (``xwide_windows``) their
+    placed rows, each board's row words with its cover ORed over them as
+    they are staged and then cleared in place, and a word an env marking
+    the illegal ones (an overlap found by the cover's atomics, or an
+    invalid action), whose input the store copies back."""
+    rows = per_block * cfg.height * -(-cfg.width // 32)
+    return 4 * (rows + per_block) if xwide_windows(cfg) else 8 * rows
+
+
 def u8_launch_shape(cfg: EnvConfig):
     """The launch shape of the u8 mask and clear kernel ``cfg``'s board
     takes (the mask's where no piece spans more than ``MAX_PIECE`` rows or
@@ -250,16 +277,18 @@ def apply_launch_shape(cfg: EnvConfig):
     its general kernel runs: the bit-row kernels' shape where H <= 32 and
     W <= 32, the wide ones' where H <= 32 and 32 < W <= ``MAX_WIDE`` (a
     block's two spans, under 2^17 bytes, always fit), the xwide ones' where
-    H <= 32 and ``MAX_WIDE`` < W <= ``MAX_XWIDE`` (its block's board and
-    cover rows of words, at most 32 KB, always fit; on taller boards of such
-    rows the general apply runs, whatever the mask and clear take), and on
-    taller boards of at most ``MAX_WIDE`` cells a row ``_turns_shape`` with
-    the apply's own shared memory (``apply_smem_bytes``: its block stages two
-    spans where the mask stages one), so fewer turns or warps where the
-    mask's would not fit.  Computed once per wrapper, as
-    ``row_launch_shape``."""
+    ``MAX_WIDE`` < W <= ``MAX_XWIDE``, at any height, with the apply's own
+    shared memory (``xwide_apply_smem_bytes``): the clear's shape on a
+    board of one window (its block's two arrays of row words, at most 32
+    KB, always fit), ``XWIDE_APPLY_WARPS`` warps a block on a taller board
+    where one warp fits; and on taller boards of at most ``MAX_WIDE`` cells
+    a row ``_turns_shape`` with the apply's own shared memory
+    (``apply_smem_bytes``: its block stages two spans where the mask stages
+    one), so fewer turns or warps where the mask's would not fit.  Computed
+    once per wrapper, as ``row_launch_shape``."""
     if cfg.width > MAX_WIDE:
-        return xwide_launch_shape(cfg) if cfg.height <= MAX_ROWS else None
+        most = XWIDE_APPLY_WARPS if xwide_windows(cfg) else XWIDE_WARPS
+        return xwide_launch_shape(cfg, xwide_apply_smem_bytes, most)
     if cfg.height <= MAX_ROWS:
         return row_launch_shape(cfg) or wide_launch_shape(cfg)
     return _turns_shape(cfg, apply_smem_bytes)

@@ -35,9 +35,9 @@ clears (about 12) and stores likewise, and its wide, tall and deep
 kernels pack two rows of words (board and cover), spend 2 operations a
 word on the overlap and the place and the clear's 8 (the deep one 6 more:
 its first pass stages the placed word, pass 1 reads it back, pass 2
-clears its columns), its xwide kernel loads the board and the cover as
-row words and spends 3 a word on the overlap and the place beside the
-xwide clear's 12; the legality (K4) is counted as
+clears its columns), its xwide kernel loads the board as row words, ORs
+the cover over them and spends 3 a word on the overlap and the place
+beside the xwide clear's 12; the legality (K4) is counted as
 the function's least work, whichever kernel computes it: each row packed
 once as ceil(W / 32) words, the smears built once a word (3 operations for
 each of max_h * max_w shapes), about 15 a piece a word and one per output
@@ -236,9 +236,9 @@ def _apply_deep(cfg, inputs):
 
 
 def _apply_xwide(cfg, inputs):
-    """K2, xwide: inputs (board, footprint cells, valid); the board and the
-    cover loaded as row words, 3 operations a word to test and place, the
-    xwide clear's 12."""
+    """K2, xwide: inputs (board, footprint cells, valid); the board loaded
+    as row words and the cover ORed over them, 3 operations a word to test
+    the atomics' old words and place, the xwide clear's 12."""
     n, h = inputs[0].shape[0], cfg.height
     return n * (2 * _stage_words(cfg) + h * 15 * _words(cfg) + _regions(cfg)
                 + cfg.num_cells)

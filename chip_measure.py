@@ -149,7 +149,7 @@ then, each line tagged with its part (all fourteen by default):
             step, device kernels, device ms and busy share a step, the
             largest items (``deep_step_turns``);
   apply     the u8 apply (K2) beyond 32x32 at N = 49152 on 8x40, 33x9,
-            130x8, 512x8 and 8x136 (``APPLY_BOARDS``): the wide, tall, deep or
+            130x8, 512x8, 8x136 and 40x136 (``APPLY_BOARDS``): the wide, tall, deep or
             xwide apply
             against the general apply launched directly on the same inputs
             (``chip_smoke.general_apply``), with ``--parent-csrc DIR`` first
@@ -161,24 +161,24 @@ then, each line tagged with its part (all fourteen by default):
             current, earlier: host ms a step, device kernels, device ms and
             busy share a step, the apply's device ms a step
             (``pallas_step_turns``);
-  xwide     the u8 mask, clear and apply on rows of more than 128 cells at
-            N = 49152 on 8x136, 8x160, 9x135 with regions, 3x320 and 2x1024:
-            the xwide mask, clear and apply each held bit-equal to the
-            general kernel it replaces launched directly on the same inputs
-            (``chip_smoke.general_calls``, ``chip_smoke.general_apply``) and,
-            with ``--parent-csrc DIR``, the earlier sources' xwide kernel,
-            timed in turns with them, 5 rounds, medians and shares of the
-            bound; on 40x136, 33x129, 36x135 with regions and 66x130 (more
-            than 32 rows) the xwide mask and clear beside the general ones
-            (with ``--parent-csrc DIR`` first the earlier sources', which
-            took those boards), at other warps a block and from each
-            ``--alt-csrc`` build, then the general apply and legality on
-            40x136 (``xwide_times``); then the u8 clear-kernel and
-            apply-kernel steps on 8x136 and 40x136 with the general mask and
-            clear swapped in and with the xwide ones, in turns general,
-            xwide, xwide, general: host ms a step, device kernels, device ms
-            and busy share a step, the mask's and the clear's device ms a
-            step (``xwide_step_turns``);
+  xwide     the u8 mask, clear, apply and legality on rows of more than 128
+            cells at N = 49152 on 8x136, 8x160, 9x135 with regions, 3x320
+            and 2x1024 (at most 32 rows) and on 40x136, 33x129, 36x135 with
+            regions and 66x130 (more than 32 rows): each xwide kernel held
+            bit-equal to the general kernel it replaces launched directly
+            on the same inputs (``chip_smoke.general_calls``,
+            ``chip_smoke.general_apply``, ``chip_smoke.general_legality``)
+            and, with ``--parent-csrc DIR``, the earlier sources' kernel
+            (their xwide kernels, or above 32 rows their general apply and
+            legality, which took those boards), with each ``--alt-csrc``
+            build's xwide kernels and, above 32 rows, at other warps a
+            block, timed in turns with them, 5 rounds, medians and shares
+            of the bound (``xwide_times``); then the u8 apply-kernel step on
+            8x136 and 40x136 with the general apply (the earlier sources',
+            else the current library's) and with the xwide one, in turns
+            general, xwide, xwide, general: host ms a step, device kernels,
+            device ms and busy share a step, the apply's device ms a step
+            (``xwide_step_turns``);
   legality  the all-pieces legality (K4) beyond 32x32 at N = 49152 on 8x40,
             33x9, 130x8 and 8x136 (``chip_smoke.LEGALITY_BOARDS``): the
             every-piece instance of the wide, tall, deep or xwide mask
@@ -398,14 +398,11 @@ def rollout_breakdown(card: str, cfg=None, engines=ENGINES, tag: str = "rollout"
 # the clear's in both forms, with and without windows)
 STEP_KERNEL_NAMES = {"wide": ("mask_wide_kernel<", "clear_wide_kernel<"),
                      "tall": ("mask_tall_kernel<", "clear_tall_kernel<"),
-                     "xwide": ("mask_xwide_kernel<false>", "clear_xwide_kernel<false,"),
                      "general": ("::mask_kernel(", "::clear_kernel(")}
 
 
-def u8_step_turns(card: str, shape: dict, tag: str, steps: int = 20,
-                  backend: str = "jnp") -> None:
-    """The u8 clear-kernel step (``backend="jnp"``; ``"pallas"``, the
-    apply-kernel step, runs the mask alone of the two) on the board
+def u8_step_turns(card: str, shape: dict, tag: str, steps: int = 20) -> None:
+    """The u8 clear-kernel step (``backend="jnp"``) on the board
     ``shape`` at N = 49152, uniform-legal draws, with the mask and clear the
     wrappers pick (wide, tall or xwide) and with the general mask and clear
     launched in their place on the same inputs (``chip_smoke.general_calls``),
@@ -422,7 +419,7 @@ def u8_step_turns(card: str, shape: dict, tag: str, steps: int = 20,
     from blockpuzzle_tpu_torch.sampler import UniformLegalSampler
 
     n, cfg = chip_smoke.N_MAIN, EnvConfig(**shape)
-    env = make_env(cfg, device="cuda", backend=backend, state_impl="u8")
+    env = make_env(cfg, device="cuda", backend="jnp", state_impl="u8")
     kind = env.mask_kernel.kind
     kernels = {kind: (env.mask_kernel, env.clear_kernel),
                "general": chip_smoke.general_calls(cfg, env.mask_kernel, env.clear_kernel)}
@@ -451,7 +448,7 @@ def u8_step_turns(card: str, shape: dict, tag: str, steps: int = 20,
         parts = [sum(e.time_range.elapsed_us() for e in device if key in e.name)
                  / steps / 1e3 for key in STEP_KERNEL_NAMES[which]]
         busy = busy_us(device) / steps / 1e3
-        print(f"[{tag}] u8 {backend} step, {kind} {board}, N={n}, {which} mask and clear: "
+        print(f"[{tag}] u8 jnp step, {kind} {board}, N={n}, {which} mask and clear: "
               f"{step_ms:.4f} ms per step, {len(device) / steps:.2f} device kernels and "
               f"{sum(e.time_range.elapsed_us() for e in device) / steps / 1e3:.6f} ms "
               f"device time a step, busy {busy:.4f} ms = {100 * busy / step_ms:.1f}%, "
@@ -846,7 +843,8 @@ PARENT_TAIL_ENTRIES = ("bp_packed_tail", "bp_packed_unpack")
 PARENT_DEEP_ENTRIES = ("bp_packed_apply_general", "bp_packed_mask_general",
                        "bp_packed_words_general", "bp_apply")
 # the xwide u8 kernels' entry points, where the earlier sources have them
-PARENT_XWIDE_ENTRIES = ("bp_mask_xwide", "bp_clear_xwide", "bp_apply_xwide")
+PARENT_XWIDE_ENTRIES = ("bp_mask_xwide", "bp_clear_xwide", "bp_apply_xwide",
+                        "bp_legality_xwide")
 # the tall packed mask's and words' entry points, where the earlier sources
 # have them, with the arguments those took before the kernel a thread an
 # anchor row: the mask's warps a block (``tall_launch_shape``'s) in place
@@ -1747,7 +1745,8 @@ def deep_turns(card: str, lib, rounds: int = 5) -> None:
 
 # boards the ``apply`` part times K2 on: its wide, tall and deep kernels
 APPLY_BOARDS = {"8x40": chip_smoke.WIDE, "33x9": chip_smoke.TALL, "130x8": chip_smoke.HUGE,
-                "512x8": chip_smoke.DEEP_CASES["512x8"], "8x136": chip_smoke.XWIDE}
+                "512x8": chip_smoke.DEEP_CASES["512x8"], "8x136": chip_smoke.XWIDE,
+                "40x136": chip_smoke.XTALL}
 
 
 def apply_turns(card: str, lib, rounds: int = 5) -> None:
@@ -1785,16 +1784,18 @@ def apply_turns(card: str, lib, rounds: int = 5) -> None:
 
 
 def pallas_step_turns(card: str, lib, steps: int = 20,
-                      names=("8x40", "33x9", "130x8", "8x136")) -> None:
+                      names=("8x40", "33x9", "130x8", "8x136"), others=None) -> None:
     """The u8 apply-kernel step (``backend="pallas"``) on 8x40, 33x9, 130x8
     and 8x136 at N = 49152, uniform-legal draws, one engine each carrying its
     state: with the general apply swapped in (the earlier library's
     ``bp_apply`` where ``lib`` is given, else the current library's,
-    ``chip_smoke.general_apply``) and with the wrapper's wide, tall or deep
-    apply, in turns earlier, current, current, earlier: host ms a step over
-    ``steps`` unprofiled steps, then ``steps`` steps under ``torch.profiler``:
-    device kernels, device ms and busy share a step, and the apply's device
-    ms a step inside it.  Where ``names`` is given, those boards only."""
+    ``chip_smoke.general_apply``), with the wrapper's wide, tall, deep or
+    xwide apply and with each apply ``others(cfg, wrapper)`` names (label ->
+    a callable with the wrapper's arguments), in turns earlier, current,
+    the others, then back: host ms a step over ``steps`` unprofiled steps,
+    then ``steps`` steps under ``torch.profiler``: device kernels, device ms
+    and busy share a step, and the apply's device ms a step inside it.
+    Where ``names`` is given, those boards only."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1811,8 +1812,8 @@ def pallas_step_turns(card: str, lib, steps: int = 20,
         cfg = EnvConfig(**APPLY_BOARDS[name])
         env = make_env(cfg, device="cuda", backend="pallas", state_impl="u8")
         current = env.apply_kernel
-        kernels = {"current": current,
-                   "earlier": chip_smoke.general_apply(cfg, current, lib)}
+        kernels = {"earlier": chip_smoke.general_apply(cfg, current, lib), "current": current,
+                   **(others(cfg, current) if others else {})}
         state, ts = env.init(0, n)
         draw = UniformLegalSampler(1, n, env.device)
 
@@ -1822,7 +1823,7 @@ def pallas_step_turns(card: str, lib, steps: int = 20,
                 state, ts = env.step(state, draw(ts.action_mask))
             torch.cuda.synchronize()
 
-        for which in ("earlier", "current", "current", "earlier"):
+        for which in [*kernels, *reversed(kernels)]:
             env.apply_kernel = kernels[which]
             run(5)                                         # warm-up
             t0 = time.perf_counter()
@@ -1837,7 +1838,7 @@ def pallas_step_turns(card: str, lib, steps: int = 20,
             busy = busy_us(device) / steps / 1e3
             part = sum(e.time_range.elapsed_us() for e in device
                        if any(k in e.name for k in keys)) / steps / 1e3
-            label = "general apply" if which == "earlier" else current.name
+            label = {"earlier": "general apply", "current": current.name}.get(which, which)
             print(f"[apply] u8 pallas step, {name}, N={n}, {which} apply ({label}): "
                   f"{step_ms:.4f} ms per step, {len(device) / steps:.2f} device kernels, "
                   f"{sum(e.time_range.elapsed_us() for e in device) / steps / 1e3:.6f} ms "
@@ -1846,19 +1847,23 @@ def pallas_step_turns(card: str, lib, steps: int = 20,
         env.apply_kernel = current
 
 
-def xwide_calls(lib, cfg, mk, ck, ak=None, warps=None) -> dict:
+def xwide_calls(lib, cfg, mk=None, ck=None, ak=None, lk=None, warps=None) -> dict:
     """Callables with the wrappers' arguments that launch ``lib``'s xwide
-    mask, clear and, given ``ak``, apply (``bp_mask_xwide``,
-    ``bp_clear_xwide``, ``bp_apply_xwide``: an earlier build's, an
-    ``--alt-csrc`` build's or the current one's) at the wrappers' launch
-    shape, or at ``warps`` warps a block."""
+    mask, clear, apply and legality (``bp_mask_xwide``, ``bp_clear_xwide``,
+    ``bp_apply_xwide``, ``bp_legality_xwide``: an earlier build's, an
+    ``--alt-csrc`` build's or the current one's; those of the wrappers
+    given, ``mk``, ``ck``, ``ak``, ``lk``, that ``lib`` has) at the
+    wrappers' launch shapes, or at ``warps`` warps a block."""
     import torch
 
     from blockpuzzle_tpu_torch.kernels import _build
 
-    dev = mk.device
+    wrappers = {"mask": mk, "clear": ck, "apply": ak, "legality": lk}
+    dev = next(w for w in wrappers.values() if w is not None).device
     region = cfg.region_size if cfg.region_clear else 0
-    shape = (mk.shape[0], warps or mk.shape[1])
+
+    def shape(kernel):
+        return kernel.shape[0], warps or kernel.shape[1]
 
     def stream():
         return torch.cuda.current_stream(dev).cuda_stream
@@ -1868,8 +1873,8 @@ def xwide_calls(lib, cfg, mk, ck, ak=None, warps=None) -> dict:
         out = torch.empty((n, cfg.queue_size * cfg.num_cells), dtype=torch.bool, device=dev)
         _build.check(lib.bp_mask_xwide(
             board.data_ptr(), queue.data_ptr(), mk.piece_table.data_ptr(), out.data_ptr(), n,
-            cfg.height, cfg.width, cfg.queue_size, mk.num_pieces, mk.max_h, mk.max_w, *shape,
-            stream()), "bp_mask_xwide")
+            cfg.height, cfg.width, cfg.queue_size, mk.num_pieces, mk.max_h, mk.max_w,
+            *shape(mk), stream()), "bp_mask_xwide")
         return out
 
     def clear(board):
@@ -1877,7 +1882,7 @@ def xwide_calls(lib, cfg, mk, ck, ak=None, warps=None) -> dict:
         out, k = torch.empty_like(board), torch.empty(n, dtype=torch.int32, device=dev)
         _build.check(lib.bp_clear_xwide(
             board.data_ptr(), out.data_ptr(), k.data_ptr(), n, cfg.height, cfg.width, region,
-            *shape, stream()), "bp_clear_xwide")
+            *shape(ck), stream()), "bp_clear_xwide")
         return out, k
 
     def apply(board, cover, valid):
@@ -1886,37 +1891,53 @@ def xwide_calls(lib, cfg, mk, ck, ak=None, warps=None) -> dict:
         legal = torch.empty(n, dtype=torch.bool, device=dev)
         _build.check(lib.bp_apply_xwide(
             board.data_ptr(), cover.data_ptr(), valid.data_ptr(), out.data_ptr(), k.data_ptr(),
-            legal.data_ptr(), n, cfg.height, cfg.width, region, *shape, stream()),
+            legal.data_ptr(), n, cfg.height, cfg.width, region, *shape(ak), stream()),
             "bp_apply_xwide")
         return out, k, legal
 
-    return {"mask": mask, "clear": clear, **({"apply": apply} if ak is not None else {})}
+    def legality(board):
+        n = board.shape[0]
+        out = torch.empty((n, lk.num_pieces, cfg.num_cells), dtype=torch.bool, device=dev)
+        _build.check(lib.bp_legality_xwide(
+            board.data_ptr(), lk.piece_table.data_ptr(), out.data_ptr(), n, cfg.height,
+            cfg.width, lk.num_pieces, lk.max_h, lk.max_w, *shape(lk), stream()),
+            "bp_legality_xwide")
+        return out
+
+    calls = {"mask": (mask, "bp_mask_xwide"), "clear": (clear, "bp_clear_xwide"),
+             "apply": (apply, "bp_apply_xwide"), "legality": (legality, "bp_legality_xwide")}
+    return {k: fn for k, (fn, entry) in calls.items()
+            if hasattr(lib, entry) and wrappers[k] is not None}
 
 
 def xwide_times(card: str, lib, alts=None, rounds: int = 5) -> None:
-    """The u8 mask, clear and apply on rows of more than 128 cells at
-    N = 49152 (``chip_smoke.kernel_inputs``, seed 0).  On the boards of at
-    most 32 rows, 8x136 (``chip_smoke.XWIDE``) and ``chip_smoke.XWIDE_CASES``:
-    the xwide mask, clear and apply each beside the general kernel it
-    replaces, launched directly on the same inputs
+    """The u8 mask, clear, apply and legality on rows of more than 128
+    cells at N = 49152 (``chip_smoke.kernel_inputs``, seed 0), on 8x136
+    (``chip_smoke.XWIDE``) and ``chip_smoke.XWIDE_CASES`` (boards of at most
+    32 rows) and on 40x136 (``chip_smoke.XTALL``) and
+    ``chip_smoke.XTALL_CASES`` (more than 32 rows): each xwide kernel beside
+    the general kernel it replaces, launched directly on the same inputs
     (``chip_smoke.general_calls``: ``bp_mask``, ``bp_clear``;
-    ``chip_smoke.general_apply``: ``bp_apply``), and, where ``lib`` (an
-    earlier build) is given, first that build's xwide kernel; on 40x136
-    (``chip_smoke.XTALL``) and ``chip_smoke.XTALL_CASES``, boards of more
-    than 32 rows, the xwide mask and clear beside the general ones (the
-    earlier build's where ``lib`` is given, which took those boards, and
-    the current ones) and the mask and clear at other warps a block where
-    they fit; then the general apply and legality the wrappers pick there.
-    Each ``alts`` build's (``--alt-csrc``) xwide mask, clear and, on the
-    boards of at most 32 rows, apply join their groups on every board.
-    Every group held bit-equal, then timed in turns (``group_turns``)."""
+    ``chip_smoke.general_apply``: ``bp_apply``;
+    ``chip_smoke.general_legality``: ``bp_legality``), and, where ``lib``
+    (an earlier build) is given, first that build's kernel: its xwide mask
+    and clear everywhere, its xwide apply and legality on the boards of at
+    most 32 rows and its general apply and legality above, which took those
+    boards.  Each ``alts`` build's (``--alt-csrc``) xwide kernels (those it
+    has) join their groups on every board; on the boards of more than 32
+    rows each kernel also at the other warps a block that fit.  Every group
+    held bit-equal, then timed in turns (``group_turns``)."""
+    import dataclasses
+
     import torch
 
     from blockpuzzle_tpu_torch.config import EnvConfig
     from blockpuzzle_tpu_torch.kernels import (
         ApplyKernel, ClearScanKernel, LegalityKernel, MaskKernel, _build,
     )
-    from blockpuzzle_tpu_torch.kernels.packed import xwide_smem_bytes
+    from blockpuzzle_tpu_torch.kernels.packed import (
+        XWIDE_WARPS, xwide_apply_smem_bytes, xwide_smem_bytes,
+    )
     from blockpuzzle_tpu_torch.utils.bounds import kernel_bounds
 
     n, dev = chip_smoke.N_MAIN, torch.device("cuda")
@@ -1926,81 +1947,90 @@ def xwide_times(card: str, lib, alts=None, rounds: int = 5) -> None:
         cfg = EnvConfig(**shape)
         tall = cfg.height > 32
         mk, ck, ak = MaskKernel(cfg, dev), ClearScanKernel(cfg, dev), ApplyKernel(cfg, dev)
-        want = ("mask_xwide", "clear_xwide", "apply_general" if tall else "apply_xwide")
-        if (mk.name, ck.name, ak.name) != want:
-            raise AssertionError(f"{name}: the wrappers picked {mk.name}, {ck.name}, {ak.name}")
+        lk = LegalityKernel(cfg, dev)
+        got = (mk.name, ck.name, ak.name, lk.name)
+        if got != ("mask_xwide", "clear_xwide", "apply_xwide", "legality_xwide"):
+            raise AssertionError(f"{name}: the wrappers picked {got}")
         board, queue, cover, valid, attrs, r, c = (
             torch.as_tensor(x, device=dev) for x in chip_smoke.kernel_inputs(cfg, n, seed=0))
+        args = {"mask": (board, queue), "clear": (board,), "apply": (board, cover, valid),
+                "legality": (board,)}
         general_mask, general_clear = chip_smoke.general_calls(cfg, mk, ck)
-        general = chip_smoke.general_apply(cfg, ak)
-        groups = {"mask_xwide": {}, "clear_xwide": {}}
+        general_apply = chip_smoke.general_apply(cfg, ak)
+        general_legality = chip_smoke.general_legality(cfg, lk)
+        groups = {f"{key}_xwide": {} for key in args}
         if lib is not None:
-            if tall:  # the earlier build took these boards with its general kernels
-                earlier_mask, earlier_clear = chip_smoke.general_calls(cfg, mk, ck, lib)
-                groups["mask_xwide"]["earlier bp_mask"] = lambda: earlier_mask(board, queue)
-                groups["clear_xwide"]["earlier bp_clear"] = lambda: earlier_clear(board)
-            else:
-                earlier = xwide_calls(lib, cfg, mk, ck, ak)
-                groups["mask_xwide"]["earlier mask_xwide"] = lambda: earlier["mask"](board, queue)
-                groups["clear_xwide"]["earlier clear_xwide"] = lambda: earlier["clear"](board)
-                groups["apply_xwide"] = {
-                    "earlier apply_xwide": lambda: earlier["apply"](board, cover, valid)}
-        groups["mask_xwide"].update({"mask_xwide": lambda: mk(board, queue),
-                                     "mask_general": lambda: general_mask(board, queue)})
-        groups["clear_xwide"].update({"clear_xwide": lambda: ck(board),
-                                      "clear_general": lambda: general_clear(board)})
-        if not tall:
-            groups.setdefault("apply_xwide", {}).update({
-                "apply_xwide": lambda: ak(board, cover, valid),
-                "apply_general": lambda: general(board, cover, valid)})
-        if tall:  # other warps a block
-            current = _build.library()
-            per_warp = mk.shape[0]
-            for warps in (1, 2, 4, 8):
-                if warps == mk.shape[1] or xwide_smem_bytes(cfg, per_warp * warps) > 227 * 1024:
-                    continue
-                other = xwide_calls(current, cfg, mk, ck, warps=warps)
-                groups["mask_xwide"][f"mask_xwide {warps} warps"] = (
-                    lambda other=other: other["mask"](board, queue))
-                groups["clear_xwide"][f"clear_xwide {warps} warps"] = (
-                    lambda other=other: other["clear"](board))
-        args = {"mask": (board, queue), "clear": (board,), "apply": (board, cover, valid)}
+            earlier = xwide_calls(lib, cfg, mk, ck, None if tall else ak, None if tall else lk)
+            if tall:  # the earlier build took these with its general apply and legality
+                earlier["apply"] = chip_smoke.general_apply(cfg, ak, lib)
+                earlier["legality"] = chip_smoke.general_legality(cfg, lk, lib)
+            for key, fn in earlier.items():
+                label = f"earlier {'bp_' + key if tall and key in ('apply', 'legality') else key + '_xwide'}"
+                groups[f"{key}_xwide"][label] = lambda fn=fn, key=key: fn(*args[key])
+        current = {"mask": mk, "clear": ck, "apply": ak, "legality": lk}
+        general = {"mask": general_mask, "clear": general_clear, "apply": general_apply,
+                   "legality": general_legality}
+        for key in args:
+            groups[f"{key}_xwide"].update({
+                f"{key}_xwide": lambda key=key: current[key](*args[key]),
+                f"{key}_general": lambda key=key: general[key](*args[key])})
         for alt, alib in (alts or {}).items():  # the alternative builds
-            other = xwide_calls(alib, cfg, mk, ck, None if tall else ak)
-            for key, fn in other.items():
+            for key, fn in xwide_calls(alib, cfg, mk, ck, ak, lk).items():
                 groups[f"{key}_xwide"][f"{alt} {key}_xwide"] = (
                     lambda fn=fn, key=key: fn(*args[key]))
-        outs = {"mask_xwide": mk(board, queue), "clear_xwide": ck(board)}
-        if not tall:
-            outs["apply_xwide"] = ak(board, cover, valid)
+            if tall and ak.shape[1] != XWIDE_WARPS:  # and at the mask's warps
+                fn = xwide_calls(alib, cfg, ak=ak, warps=XWIDE_WARPS)["apply"]
+                groups["apply_xwide"][f"{alt} apply_xwide {XWIDE_WARPS} warps"] = (
+                    lambda fn=fn: fn(*args["apply"]))
+        every = dataclasses.replace(cfg, queue_size=lk.num_pieces)
+        smem = {"mask": lambda e: xwide_smem_bytes(cfg, e),
+                "clear": lambda e: xwide_smem_bytes(cfg, e),
+                "apply": lambda e: xwide_apply_smem_bytes(cfg, e),
+                "legality": lambda e: xwide_smem_bytes(every, e)}
+        if tall:  # other warps a block
+            per_warp = mk.shape[0]
+            for warps in (1, 2, 4, 8):
+                other = xwide_calls(_build.library(), cfg, mk, ck, ak, lk, warps=warps)
+                for key, fn in other.items():
+                    if (warps == current[key].shape[1]
+                            or smem[key](per_warp * warps) > 227 * 1024):
+                        continue
+                    groups[f"{key}_xwide"][f"{key}_xwide {warps} warps"] = (
+                        lambda fn=fn, key=key: fn(*args[key]))
+        outs = {f"{key}_xwide": current[key](*args[key]) for key in args}
         bound = kernel_bounds(cfg, board, queue, cover, valid, None, attrs, r, c, outs)
         del outs
-        print(f"[xwide] {name}: launch shape {mk.shape} (segments a warp, warps a block), "
-              f"{xwide_smem_bytes(cfg, mk.shape[0] * mk.shape[1])} B of shared memory a "
-              "block of the mask and clear")
+        print(f"[xwide] {name}: launch shapes (segments a warp, warps a block) mask and clear "
+              f"{mk.shape}, apply {ak.shape}, legality {lk.shape}; shared memory a block: "
+              f"mask and clear {xwide_smem_bytes(cfg, mk.shape[0] * mk.shape[1])} B, apply "
+              f"{xwide_apply_smem_bytes(cfg, ak.shape[0] * ak.shape[1])} B, legality "
+              f"{xwide_smem_bytes(every, lk.shape[0] * lk.shape[1])} B")
         group_turns(card, "xwide", name, groups, bound, rounds)
-        if name == "40x136":  # the general apply and legality, the next ones to redesign
-            lk = LegalityKernel(cfg, dev)
-            if lk.name != "legality_general":
-                raise AssertionError(f"{name}: the legality wrapper picked {lk.name}")
-            outs = {"apply_general": ak(board, cover, valid), "legality_general": lk(board)}
-            bound = kernel_bounds(cfg, board, queue, cover, valid, None, attrs, r, c, outs)
-            del outs
-            group_turns(card, "xwide", name,
-                        {"apply_general": {"apply_general": lambda: ak(board, cover, valid)},
-                         "legality_general": {"legality_general": lambda: lk(board)}},
-                        bound, rounds)
 
 
-def xwide_step_turns(card: str, steps: int = 20) -> None:
-    """``u8_step_turns`` on 8x136 and 40x136, the u8 clear-kernel step (the
-    port's default engine there) and the apply-kernel step: the xwide mask
-    and clear against the general ones, the kernels they replace (on
-    40x136 the earlier tree's step, whose wrappers took the general mask
-    and clear there)."""
-    for shape, tag in ((chip_smoke.XWIDE, "xwide"), (chip_smoke.XTALL, "xwide 40x136")):
-        for backend in ("jnp", "pallas"):
-            u8_step_turns(card, shape, tag, steps, backend)
+def xwide_step_turns(card: str, lib, alts=None, steps: int = 20) -> None:
+    """The u8 apply-kernel step on 8x136 and 40x136 with the general apply
+    swapped in (the earlier build's ``bp_apply`` where ``lib`` is given: on
+    40x136 the earlier tree's step, whose wrapper took the general apply
+    there) and with the xwide apply, in turns (``pallas_step_turns``); on
+    40x136 also the xwide apply at ``XWIDE_WARPS`` warps a block and each
+    ``alts`` build's (``--alt-csrc``) at the wrapper's and at
+    ``XWIDE_WARPS`` warps."""
+    from blockpuzzle_tpu_torch.kernels import _build
+    from blockpuzzle_tpu_torch.kernels.packed import XWIDE_WARPS
+
+    def others(cfg, ak):
+        if cfg.height <= 32:
+            return {}
+        got = {f"apply_xwide {XWIDE_WARPS} warps":
+               xwide_calls(_build.library(), cfg, ak=ak, warps=XWIDE_WARPS)["apply"]}
+        for alt, alib in (alts or {}).items():
+            for warps in (None, XWIDE_WARPS):
+                label = f"{alt} apply_xwide {warps or ak.shape[1]} warps"
+                got[label] = xwide_calls(alib, cfg, ak=ak, warps=warps)["apply"]
+        return got
+
+    pallas_step_turns(card, lib, steps, names=("8x136", "40x136"), others=others)
 
 
 def deep_step_turns(card: str, lib, steps: int = 20) -> None:
@@ -2112,7 +2142,7 @@ def main(argv=None) -> int:
                    help="directory of other versions of some kernel sources with the "
                         "current entries' arguments, timed beside the tall packed mask and "
                         "words (packed_tall, tall), B7w (kernels), B2w (draws) and the xwide "
-                        "mask and clear on boards of more than 32 rows (xwide); repeatable")
+                        "kernels it has (xwide); repeatable")
     args = p.parse_args(argv)
     parts = args.parts.split(",")
     if set(parts) - set(PARTS):
@@ -2180,7 +2210,7 @@ def main(argv=None) -> int:
     if "xwide" in parts:
         lib = parent_library(pathlib.Path(args.parent_csrc)) if args.parent_csrc else None
         xwide_times(card, lib, alts)
-        xwide_step_turns(card)
+        xwide_step_turns(card, lib, alts)
     if "legality" in parts:
         lib = parent_library(pathlib.Path(args.parent_csrc)) if args.parent_csrc else None
         legality_turns(card, lib)

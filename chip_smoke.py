@@ -61,22 +61,21 @@ which raises on failure (non-zero exit, no result line):
      apply, the deep clear and the windowed packed mask and words also held
      to the kernels they replace launched directly on every one of these
      boards; on rows of more than 128 cells (``phase1_xwide``) the xwide
-     mask, clear and apply (mask_xwide, clear_xwide, apply_xwide: a segment
-     of lanes an env-slot or env, a lane a word of every row) on 8x136
-     (``XWIDE``) and on 8x160, 9x135 with 3x3 regions across words and a
-     hand of three, 3x320 and 2x1024 (``XWIDE_CASES``), each also held to
-     the general mask, clear and apply launched directly, the xwide mask
-     and clear on boards of more than 32 rows of such rows: 40x136
-     (``XTALL``) at N = 49152 and 49151, and 33x129, 36x135 with 3x3
-     regions and a hand of three and 66x130 (``XTALL_CASES``) at N = 4096
-     and 4095, each also held to the general mask and clear launched
-     directly (the apply there is the general one), and the general mask,
-     clear and apply on 2x1056 (``W1056``); the all-pieces legality
-     beyond 32x32 (``phase1_legality``): the every-piece instances of the
-     wide, tall, deep and xwide masks (legality_wide, legality_tall,
-     legality_deep, legality_xwide) on 8x40, 33x9, 130x8 and 8x136
-     (``LEGALITY_BOARDS``; at N = 4096 and 4095 but on 8x40), each also
-     held to the general legality (legality_general) launched directly; the
+     mask, clear, apply and legality (mask_xwide, clear_xwide, apply_xwide,
+     legality_xwide: a segment of lanes an env-slot or env, a lane a word
+     of every row) on 8x136 (``XWIDE``) and 40x136 (``XTALL``) at N = 49152
+     and 49151 and on 8x160, 9x135 with 3x3 regions across words and a
+     hand of three, 3x320 and 2x1024 (``XWIDE_CASES``) and on 33x129,
+     36x135 with 3x3 regions and a hand of three and 66x130
+     (``XTALL_CASES``, more than 32 rows) at N = 4096 and 4095, each also
+     held to the general mask, clear, apply and legality launched
+     directly, and the general mask, clear, apply and legality on 2x1056
+     (``W1056``); the all-pieces legality beyond 32x32
+     (``phase1_legality``): the every-piece instances of the wide, tall and
+     deep masks (legality_wide, legality_tall, legality_deep) on 8x40, 33x9
+     and 130x8 (``LEGALITY_BOARDS``; at N = 4096 and 4095 but on 8x40),
+     each also held to the general legality (legality_general) launched
+     directly; the
      step's tail (packed_tail: game over,
      truncation, score, auto-reset and both board views in one launch) and
      its unpack entry (packed_unpack) on the default, tenten, 33x9 and 130x8
@@ -90,11 +89,11 @@ which raises on failure (non-zero exit, no result line):
      events over 50 launches queued behind a spin kernel, so the host's
      launch time does not enter) beside its bound (``utils/bounds.py``)
      and the plain version's time (50 calls made as the host goes), at N
-     = 49152 on the default preset (the wide kernels, and legality_general
-     launched directly, on the wide board, the tall ones on 33x9, the deep ones and the
-     general packed ones on 130x8, the xwide apply and the general mask,
-     clear and apply on 8x136, the xwide mask and clear on 40x136 beside
-     the general mask, clear, apply and legality launched directly there),
+     = 49152 on the default preset (the wide kernels on the wide board, the
+     tall ones on 33x9, the deep ones and the general packed ones on 130x8,
+     the xwide mask, clear, apply and legality on 40x136 beside the general
+     ones launched directly there, the general mask, clear, apply and
+     legality on 2x1056, where the wrappers pick them),
      and the launch floor (an empty launch's
      device time) beside the deal's; then the wide board's kernels timed
      in turns for 5 rounds, with the general mask, clear, apply and
@@ -122,7 +121,7 @@ which raises on failure (non-zero exit, no result line):
      ``huge_u8_pallas``, ``huge_u8_jnp``;
      8x136, rows of more than 128 cells, the xwide mask, clear and apply:
      ``xwide_u8_pallas``, ``xwide_u8_jnp``; 40x136, more than 32 rows of
-     such rows, the xwide mask and clear with the general apply:
+     such rows, the xwide mask, clear and apply there:
      ``xtall_u8_pallas``, ``xtall_u8_jnp``, N = 128, 16 steps; 100x124
      with the five small pieces, whose line tables the wrappers refused
      before, the default engine (the u8 clear-kernel step on its tall
@@ -320,11 +319,13 @@ XWIDE_CASES = {"8x160": dict(height=8, width=160),
                                queue_size=3),
                "3x320": dict(height=3, width=320, piece_set="mini5"),
                "2x1024": dict(height=2, width=1024, piece_set="mini5")}
-# more than 32 rows of more than 128 cells: the xwide u8 mask and clear
-# over any height (the rows in windows of 32), the general apply and
-# legality (the paths ``xtall_u8_pallas`` and ``xtall_u8_jnp``)
+# more than 32 rows of more than 128 cells: the xwide u8 mask, clear, apply
+# and legality over any height (the clear and apply in windows of 32 rows;
+# the paths ``xtall_u8_pallas``, ``xtall_u8_jnp`` and
+# ``xtall_legal_all_pieces``, whose launches the kernels line reads)
 XTALL = dict(height=40, width=136)
-# the other such boards phase 1 holds the xwide mask and clear on
+# the other such boards phase 1 holds the xwide mask, clear, apply and
+# legality on
 # (tests/test_torch_xwide_tall.py): a one-column top word and a bar across
 # row 32; 3x3 regions across words and a window border (30 rows) with a
 # hand of three; two window borders
@@ -362,7 +363,7 @@ KERNEL_INFO = {
     "apply_deep": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
                    "blockpuzzle_tpu/kernels/collision.py:164", "huge_u8_pallas"),
     "apply_xwide": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
-                    "blockpuzzle_tpu/kernels/collision.py:164", "xwide_u8_pallas"),
+                    "blockpuzzle_tpu/kernels/collision.py:164", "xtall_u8_pallas"),
     "apply_general": ("blockpuzzle_tpu_torch/kernels/csrc/collision.cu",
                       "blockpuzzle_tpu/kernels/collision.py:164", "w1056_u8_pallas"),
     "clear": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
@@ -383,7 +384,7 @@ KERNEL_INFO = {
                             "blockpuzzle_tpu/kernels/collision.py:50",
                             f"{board}_legal_all_pieces")
        for kind, board in (("wide", "wide"), ("tall", "tall"), ("deep", "huge"),
-                           ("xwide", "xwide"))},
+                           ("xwide", "xtall"))},
     "legality_general": ("blockpuzzle_tpu_torch/kernels/csrc/legality.cu",
                          "blockpuzzle_tpu/kernels/collision.py:50",
                          "w1056_legal_all_pieces"),
@@ -640,9 +641,14 @@ def illegal_on_full_line(cfg, n: int):
 
 
 def max_abs_err(got, want) -> int:
+    """The largest |got - want| over all elements, taken as int64 2^26
+    elements at a time (the legality map of 40x136 at N = 49152 holds 5.1 G
+    bools, 41 GB as int64)."""
     import torch
 
-    return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    a, b, chunk = got.reshape(-1), want.reshape(-1), 1 << 26
+    return max((int((a[i : i + chunk].to(torch.int64) - b[i : i + chunk].to(torch.int64))
+                    .abs().max()) for i in range(0, a.numel(), chunk)), default=0)
 
 
 def check_equal(outs, refs, what: str, errs: dict, name: str) -> None:
@@ -660,15 +666,12 @@ def u8_kernel_names(cfg) -> tuple:
     where H <= 32 and 32 < W <= 128, the tall ones where 32 < H <= 128 and
     W <= 128, the deep ones where H > 128 and W <= 128 (the boards phase 1
     and 2 run: each fits a block of the deep mask, of the deep apply and of
-    the deep legality), the xwide ones where H <= 32 and 128 < W <= 1024,
-    the xwide mask and clear with the general apply and legality where
-    H > 32 and 128 < W <= 1024 (the boards phases 1 and 2 run: each fits a
-    block of one warp), the general kernels elsewhere."""
+    the deep legality), the xwide ones where 128 < W <= 1024 at any height
+    (the boards phases 1 and 2 run: each fits a block of one warp), the
+    general kernels elsewhere."""
     if cfg.height <= 32 and cfg.width <= 32:
         return "mask", "clear", "apply", "legality"
     if cfg.width > 128:
-        if cfg.height > 32 and cfg.width <= 1024:
-            return "mask_xwide", "clear_xwide", "apply_general", "legality_general"
         kind = "xwide" if cfg.width <= 1024 else "general"
     else:
         kind = "wide" if cfg.height <= 32 else "tall" if cfg.height <= 128 else "deep"
@@ -1066,20 +1069,19 @@ def phase1_tall(errs: dict, times: dict, bounds: dict) -> None:
 
 def phase1_xwide(errs: dict, times: dict, bounds: dict) -> None:
     """Phase 1 on rows of more than 128 cells: on 8x136 (``XWIDE``) and
-    40x136 (``XTALL``) at N = 49152 and 49151 the xwide mask, clear and
-    apply (on 40x136 the apply the wrapper picks, the general one) against
-    their plain versions (in chunks of envs) and the xwide ones against the
-    general mask, clear and apply launched directly on the same inputs
-    (``general_calls``, ``general_apply``), and an illegal action on a full
-    line through the apply; the same checks on ``XWIDE_CASES`` and
-    ``XTALL_CASES`` at N = 4096 and 4095, and on 2x1056 (``W1056``), rows
-    too wide for the xwide kernels, the general mask, clear and apply the
-    wrappers pick there.  Times the apply on 8x136 and the mask and clear
-    on 40x136, each beside the general kernel it replaces launched
-    directly on the same inputs, at N = 49152 into ``times`` and
-    ``bounds``, and prints each time beside the general one's, the xwide
-    mask and clear on 8x136 too, and on 40x136 the general apply and
-    legality the wrappers pick there."""
+    40x136 (``XTALL``) at N = 49152 and 49151 the xwide mask, clear, apply
+    and legality against their plain versions (in chunks of envs) and
+    against the general mask, clear, apply and legality launched directly on
+    the same inputs (``general_calls``, ``general_apply``,
+    ``general_legality``), and an illegal action on a full line through the
+    apply; the same checks on ``XWIDE_CASES`` and ``XTALL_CASES`` at
+    N = 4096 and 4095, and on 2x1056 (``W1056``), rows too wide for the
+    xwide kernels, the general kernels the wrappers pick there.  Times the
+    four xwide kernels on 40x136, each beside the general kernel it
+    replaces launched directly on the same inputs, and the four general
+    kernels on 2x1056, where they run, at N = 49152 into ``times`` and
+    ``bounds``, and prints each time beside its bound (and the general
+    one's)."""
     import torch
 
     from blockpuzzle_tpu_torch.config import EnvConfig
@@ -1094,18 +1096,21 @@ def phase1_xwide(errs: dict, times: dict, bounds: dict) -> None:
               "40x136": (XTALL, (N_MAIN, N_MAIN - 1)),
               **{name: (shape, (4096, 4095)) for name, shape in XTALL_CASES.items()},
               "2x1056": (W1056, (4096, 4095))}
-    # board -> the kernels whose times go into ``times`` (the kernels line)
-    timed = {"8x136": ("apply_xwide", "apply_general"),
-             "40x136": ("mask_xwide", "clear_xwide", "mask_general", "clear_general")}
+    # the boards whose kernels' times go into ``times`` (the kernels line):
+    # each kernel on the board of the path its launches are read from
+    timed = ("40x136", "2x1056")
     for name, (shape, sizes) in boards.items():
         cfg = EnvConfig(**shape)
-        mask_name, clear_name, apply_name, legal_name = u8_kernel_names(cfg)
+        names = u8_kernel_names(cfg)
+        mask_name, clear_name, apply_name, legal_name = names
         mk, ck, ak = MaskKernel(cfg, dev), ClearScanKernel(cfg, dev), ApplyKernel(cfg, dev)
-        if (mk.name, ck.name, ak.name) != (mask_name, clear_name, apply_name):
+        lk = LegalityKernel(cfg, dev)
+        if (mk.name, ck.name, ak.name, lk.name) != names:
             raise AssertionError(f"{name}: the u8 wrappers picked {mk.name}, {ck.name}, "
-                                 f"{ak.name}")
+                                 f"{ak.name}, {lk.name}")
         general_mask, general_clear = general_calls(cfg, mk, ck)
         replaced_apply = general_apply(cfg, ak)
+        replaced_legality = general_legality(cfg, lk)
         xwide = mk.kind == "xwide"
         rows = plain_rows(cfg)
         for n in sizes:
@@ -1120,11 +1125,16 @@ def phase1_xwide(errs: dict, times: dict, bounds: dict) -> None:
             outs = ak(board, cover, valid)
             check_equal(outs, chunked(ak.plain, board, cover, valid, rows=rows), what, errs,
                         apply_name)
+            legal_all = lk(board)
+            check_equal([legal_all], [chunked(lk.plain, board, rows=rows)], what, errs,
+                        legal_name)
             if xwide:
                 check_equal([general_mask(board, queue)], [mask], what, errs, "mask_general")
                 check_equal(general_clear(board), cleared, what, errs, "clear_general")
                 check_equal(replaced_apply(board, cover, valid), outs, what, errs,
                             "apply_general")
+                check_equal([replaced_legality(board)], [legal_all], what, errs,
+                            "legality_general")
             b2, c2, v2, _, _, _ = (
                 torch.as_tensor(x, device=dev) for x in illegal_on_full_line(cfg, n))
             nb, k2, l2 = ak(b2, c2, v2)
@@ -1134,56 +1144,48 @@ def phase1_xwide(errs: dict, times: dict, bounds: dict) -> None:
                 raise AssertionError(f"{name}: nothing cleared or no mask to test ({what})")
             if int(outs[1].sum()) == 0 or not 0 < int(outs[2].sum()) < n:
                 raise AssertionError(f"{name}: the apply cleared nothing ({what})")
+            if not 0 < float(legal_all.float().mean()) < 1:
+                raise AssertionError(f"{name}: no legality to test ({what})")
             print(f"[phase1] {what}: {mask_name} legal share {float(mask.float().mean()):.4f}"
                   f", {clear_name} k {int(cleared[1].sum())}, {apply_name} legal "
-                  f"{int(outs[2].sum())}, k {int(outs[1].sum())}: u8 kernels == plain "
-                  "(bit-equal)"
-                  + (f", the xwide mask, clear{' and apply' if ak.kind == 'xwide' else ''} "
-                     "== the general ones launched directly" if xwide else ""))
+                  f"{int(outs[2].sum())}, k {int(outs[1].sum())}, {legal_name} share "
+                  f"{float(legal_all.float().mean()):.4f}: u8 kernels == plain (bit-equal)"
+                  + (", the xwide mask, clear, apply and legality == the general ones "
+                     "launched directly" if xwide else ""))
+            del mask, cleared, outs, legal_all
         if name not in timed:
             continue
         board, queue, cover, valid, attrs, r, c = (
             torch.as_tensor(x, device=dev) for x in kernel_inputs(cfg, N_MAIN, seed=0))
-        calls = {mask_name: lambda: mk(board, queue), clear_name: lambda: ck(board),
-                 apply_name: lambda: ak(board, cover, valid),
-                 "mask_general": lambda: general_mask(board, queue),
-                 "clear_general": lambda: general_clear(board),
-                 "apply_general": lambda: replaced_apply(board, cover, valid)}
-        plains = {mask_name: lambda: chunked(mk.plain, board, queue, rows=rows),
-                  clear_name: lambda: ck.plain(board),
-                  apply_name: lambda: ak.plain(board, cover, valid)}
-        plains.update({"mask_general": plains[mask_name], "clear_general": plains[clear_name],
-                       "apply_general": plains[apply_name]})
-        outs = {k: f() for k, f in calls.items()}
-        if name == "40x136":  # the general legality the wrapper picks there
-            lk = LegalityKernel(cfg, dev)
-            if lk.name != legal_name:
-                raise AssertionError(f"{name}: the legality wrapper picked {lk.name}")
-            calls[legal_name] = lambda: lk(board)
-            outs[legal_name] = lk(board)
-        here = kernel_bounds(cfg, board, queue, cover, valid, None, attrs, r, c, outs)
-        del outs
-        ms = {k: cuda_ms(f) for k, f in calls.items()}
-        # the plain versions of the kernels the kernels line reports; the plain
-        # mask's product on 40x136 takes about a second a call
-        iters = 50 if name == "8x136" else 3
-        for k in timed[name]:
-            times[k] = (ms[k], host_paced_ms(plains[k], iters=iters, warmup=1))
+        kernels = {mask_name: (lambda: mk(board, queue),
+                               lambda: chunked(mk.plain, board, queue, rows=rows)),
+                   clear_name: (lambda: ck(board), lambda: ck.plain(board)),
+                   apply_name: (lambda: ak(board, cover, valid),
+                                lambda: ak.plain(board, cover, valid)),
+                   legal_name: (lambda: lk(board), lambda: chunked(lk.plain, board, rows=rows))}
+        general = {"mask_general": lambda: general_mask(board, queue),
+                   "clear_general": lambda: general_clear(board),
+                   "apply_general": lambda: replaced_apply(board, cover, valid),
+                   "legality_general": lambda: replaced_legality(board)}
+        here = kernel_bounds(cfg, board, queue, cover, valid, None, attrs, r, c,
+                             {k: f() for k, (f, _) in kernels.items()})
+        # the plain versions' products take about a second a call on 40x136
+        iters = 3 if xwide else 10
+        for k, (f, plain) in kernels.items():
+            times[k] = (cuda_ms(f), host_paced_ms(plain, iters=iters, warmup=1))
             bounds[k] = dict(here[k], where=f"xwide {name}")
-        for new, old in ((mask_name, "mask_general"), (clear_name, "clear_general"),
-                         (apply_name, "apply_general")):
-            if new == old:
-                continue
-            print(f"[phase1] {new} {name} N={N_MAIN}: {ms[new]:.6f} ms, "
-                  f"{100 * here[new]['bound_ms'] / ms[new]:.1f}% of its "
-                  f"{here[new]['bound_ms']:.6f} ms bound by {here[new]['bound_by']}; the "
-                  f"{old} it replaces {ms[old]:.6f} ms, launched directly on the same inputs "
-                  f"(bit-equal), {ms[old] / ms[new]:.2f}x")
-        for k in ("apply_general", "legality_general"):
-            if k in (apply_name, legal_name):
-                print(f"[phase1] {k} {name} N={N_MAIN} (the wrapper's kernel there): "
-                      f"{ms[k]:.6f} ms, {100 * here[k]['bound_ms'] / ms[k]:.1f}% of its "
-                      f"{here[k]['bound_ms']:.6f} ms bound by {here[k]['bound_by']}")
+            b = here[k]
+            line = (f"[phase1] {k} {name} N={N_MAIN}: {times[k][0]:.6f} ms, "
+                    f"{100 * b['bound_ms'] / times[k][0]:.1f}% of its {b['bound_ms']:.6f} ms "
+                    f"bound by {b['bound_by']}")
+            if xwide:
+                old = k.replace("_xwide", "_general")
+                old_ms = cuda_ms(general[old])
+                line += (f"; the {old} it replaces {old_ms:.6f} ms, launched directly on the "
+                         f"same inputs (bit-equal), {old_ms / times[k][0]:.2f}x")
+            else:
+                line += " (the wrapper's kernel there)"
+            print(line)
 
 
 def general_legality(cfg, lk, lib=None):
@@ -1212,24 +1214,23 @@ def general_legality(cfg, lk, lib=None):
     return legality
 
 
-# the boards phase 1 holds the all-pieces legality on beyond 32x32 (each the
-# board of the path its instance's launches are read from), and its sizes
+# the boards phase 1 holds the wide, tall and deep all-pieces legality on
+# (each the board of the path its instance's launches are read from), and
+# its sizes; the xwide legality is ``phase1_xwide``'s
 LEGALITY_BOARDS = {"wide 8x40": (WIDE, (N_MAIN, N_MAIN - 1)),
                    "tall 33x9": (TALL, (4096, 4095)),
-                   "huge 130x8": (HUGE, (4096, 4095)),
-                   "xwide 8x136": (XWIDE, (4096, 4095))}
+                   "huge 130x8": (HUGE, (4096, 4095))}
 
 
 def phase1_legality(errs: dict, times: dict, bounds: dict) -> None:
     """Phase 1 of the all-pieces legality beyond 32x32 (``LEGALITY_BOARDS``):
-    the every-piece instance of the hand mask's wide, tall, deep or xwide
-    kernel the wrapper picks against its plain version (in chunks of envs)
-    and against the general legality launched directly on the same inputs
+    the every-piece instance of the hand mask's wide, tall or deep kernel
+    the wrapper picks against its plain version (in chunks of envs) and
+    against the general legality launched directly on the same inputs
     (``general_legality``, ``bp_legality``), on 8x40 at N = 49152 and 49151
-    and on the other boards at N = 4096 and 4095; then each instance and
-    the general legality timed at N = 49152 on its board (the general
-    legality's line on 8x40) into ``times`` and ``bounds``, each instance's
-    time printed beside the general one's."""
+    and on the other boards at N = 4096 and 4095; then each instance timed
+    at N = 49152 on its board into ``times`` and ``bounds``, its time
+    printed beside the general one's."""
     import torch
 
     from blockpuzzle_tpu_torch.config import EnvConfig
@@ -1256,11 +1257,7 @@ def phase1_legality(errs: dict, times: dict, bounds: dict) -> None:
             print(f"[phase1] {what}: {name} share {float(legal_all.float().mean()):.4f} "
                   "== plain == legality_general launched directly (bit-equal)")
         board = torch.as_tensor(kernel_inputs(cfg, N_MAIN, seed=0)[0], device=dev)
-        calls = {name: (lambda: lk(board), lambda: chunked(lk.plain, board, rows=rows)),
-                 "legality_general": (lambda: general(board),
-                                      lambda: chunked(lk.plain, board, rows=rows))}
-        if where != "wide 8x40":
-            del calls["legality_general"]
+        calls = {name: (lambda: lk(board), lambda: chunked(lk.plain, board, rows=rows))}
         here = kernel_bounds(cfg, board, None, None, None, None, None, None, None,
                              {k: f() for k, (f, _) in calls.items()})
         bounds.update({k: dict(b, where=where) for k, b in here.items()})

@@ -1376,9 +1376,10 @@ def test_u8_wrappers_take_the_general_kernels_above_128_rows():
     ``apply_launch_shape``, the legality on the mask's at S = P) where rows
     hold at most 128 cells; the tall kernels stop at 128 rows.  Rows of
     more than 128 cells take the xwide launch shape at any height (130x129,
-    33x136: the mask's and the clear's xwide kernels, read off the launch
-    shape without building 130x129's rule table, 5.3 GB with classic19;
-    the apply keeps its general kernel there), and on 8x136 the mask, the
+    33x136: the mask's, the clear's and the apply's xwide kernels, the
+    apply's at one warp a block, read off the launch shapes without
+    building 130x129's rule table, 5.3 GB with classic19), and on 8x136 the
+    mask, the
     clear and the apply take their xwide kernels (a lane a word of every
     row, ``xwide_launch_shape``).  A deep board one warp cannot stage has
     no deep launch shape."""
@@ -1397,12 +1398,12 @@ def test_u8_wrappers_take_the_general_kernels_above_128_rows():
                                                 "bp_mask_xwide", "bp_clear_xwide", "bp_mask",
                                                 "bp_apply_xwide", "bp_legality_deep"))
     # rows of more than 128 cells on boards of more than 32 rows: the xwide
-    # mask and clear, the general apply
+    # mask, clear and apply
     for shape in (dict(height=130, width=129), dict(height=33, width=136)):
         cfg = tcfg.EnvConfig(**shape)
         got = u8_launch_shape(cfg)
         assert got == xwide_launch_shape(cfg) is not None
-        assert u8_kind(cfg, got) == "xwide" and apply_launch_shape(cfg) is None
+        assert u8_kind(cfg, got) == "xwide" and apply_launch_shape(cfg) == (got[0], 1)
     xwide = tcfg.EnvConfig(height=8, width=136)
     ck, ak = ClearScanKernel(xwide, "cpu"), ApplyKernel(xwide, "cpu")
     assert (ck.kind, ck.name, ck.shape) == ("xwide", "clear_xwide", xwide_launch_shape(xwide))

@@ -8,7 +8,9 @@ wide, tall, deep and xwide u8 kernels are held one by one
 with ``backend="jnp"`` (the mask with the clear kernel, the default where
 W > 32) and ``"pallas"`` (the mask with the apply kernel), runs in
 lockstep with JAX's ``make_env(cfg, state_impl="u8")`` on 8x40, 33x9,
-36x9 with 3x3 regions and a hand of three, 130x8 and 8x136: half the
+36x9 with 3x3 regions and a hand of three, 130x8, 8x136, 40x136 (the
+xwide mask, clear and apply above 32 rows) and 2x1056 with the five small
+pieces (rows of more than 1024 cells: the general kernels): half the
 boards dense (a hole a row, up to three empty rows on top) so that games
 end, half 55% full; injected deals; auto-reset; uniform-legal, raw-argmax
 (sometimes illegal) and arbitrary (illegal, out-of-range) actions.  On
@@ -40,16 +42,36 @@ from test_torch_tail import dense_cells
 BOARDS = {"8x40": dict(height=8, width=40), "33x9": dict(height=33, width=9),
           "36x9r3": dict(height=36, width=9, region_clear=True, region_size=3,
                          queue_size=3),
-          "130x8": dict(height=130, width=8), "8x136": dict(height=8, width=136)}
+          "130x8": dict(height=130, width=8), "8x136": dict(height=8, width=136),
+          "40x136": dict(height=40, width=136),
+          "2x1056": dict(height=2, width=1056, piece_set="mini5")}
 N, STEPS = 8, 16
 
 
-@functools.cache
+@functools.lru_cache(maxsize=1)
 def jax_u8_engine(board):
     """JAX's u8 engine on ``board`` and its jitted step with auto-reset,
-    built once for both backends."""
+    built once for both backends (one board at a time: the cases run board
+    by board, and each engine holds its rule tables)."""
     env_j = jax_make_env(jcfg.EnvConfig(**BOARDS[board]), state_impl="u8")
     return env_j, jax.jit(lambda s, a, d: env_j.step(s, a, deal_override=d))
+
+
+@pytest.fixture(autouse=True)
+def _drop_new_tables():
+    """Drop the rule tables a case built from both packages' caches when it
+    ends: classic19's on 40x136 take about 0.56 GB in each, and the cases
+    of this file would pile them up."""
+    import blockpuzzle_tpu.rules as jrules
+
+    from blockpuzzle_tpu_torch import rules
+
+    caches = (rules._TABLE_CACHE, jrules._TABLE_CACHE)
+    before = [set(c) for c in caches]
+    yield
+    for cache, old in zip(caches, before):
+        for cfg in set(cache) - old:
+            del cache[cfg]
 
 
 @pytest.mark.parametrize("backend", ["jnp", "pallas"])

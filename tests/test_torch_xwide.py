@@ -15,7 +15,8 @@ the segment and full regions on the funnel-shifted pair of band words, a
 field across two words handed up to the next lane; the apply loads the
 covers as row words beside the boards, finds the overlap by one reduction
 over the segment, places a legal env's cover in place and runs the clear's
-passes, an illegal env writing nothing back. Numpy emulations of all
+passes, an illegal env writing nothing back (above one window of rows it
+ORs the covers over the boards instead, ``test_torch_xwide_tall.py``). Numpy emulations of all
 three (every lane of a block at once, as (warps, 32) arrays), fed the
 tables and launch shapes the wrappers hand the kernels and boards staged
 at byte offsets 0, 3 and 13, are held bit-equal to the wrappers' plain
@@ -47,8 +48,8 @@ from blockpuzzle_tpu_torch import rules
 from blockpuzzle_tpu_torch.kernels import ApplyKernel, ClearScanKernel, MaskKernel
 from blockpuzzle_tpu_torch.kernels.mask import piece_rows_table
 from blockpuzzle_tpu_torch.kernels.packed import (
-    MAX_XWIDE, SMEM_OPT_IN, U32, XWIDE_WARPS, apply_launch_shape,
-    xwide_launch_shape, xwide_smem_bytes,
+    MAX_XWIDE, SMEM_OPT_IN, U32, XWIDE_APPLY_WARPS, XWIDE_WARPS, apply_launch_shape,
+    xwide_apply_smem_bytes, xwide_launch_shape, xwide_smem_bytes, xwide_windows,
 )
 from blockpuzzle_tpu_torch.utils.bounds import COSTS
 from test_torch_kernels import (
@@ -120,38 +121,60 @@ def bar_piece(t):
 # --------------------------------------------------------------------------
 
 
-def _or_bits(words, at, c, bits, nw):
+def _or_bits(words, at, c, bits, nw, board=None):
     """bit_rows.cuh or_bits, for many at once: ``bits`` (< 2^16) ORed into
     the row whose first word is words[at], from column c on, the part past
     word c / 32, where it has set bits, into the next word (never past a
-    row's last word: no column >= W is set)."""
+    row's last word: no column >= W is set).  Given ``board`` (the words
+    before a cover is ORed over them), returns where a bit met a set one:
+    the old words the atomics return hold the board's bits and the cover's
+    placed so far, and no two of a cover's placements share a bit, so the
+    board's words alone decide it."""
     wd, off = c >> 5, c & 31
-    np.bitwise_or.at(words, at + wd, (bits << off) & U32)
+    lo = (bits << off) & U32
+    np.bitwise_or.at(words, at + wd, lo)
     over = (off > 16) & ((bits >> np.clip(32 - off, 0, 32)) != 0)
     assert (wd[over] + 1 < nw).all()
-    np.bitwise_or.at(words, (at + wd + 1)[over], bits[over] >> (32 - off[over]))
+    hi = bits[over] >> (32 - off[over])
+    np.bitwise_or.at(words, (at + wd + 1)[over], hi)
+    if board is None:
+        return None
+    met = (board[at + wd] & lo) != 0
+    met[over] |= (board[(at + wd + 1)[over]] & hi) != 0
+    return met
 
 
-def _place_bits(words, q, bits, n, w, nw):
+def _place_bits(words, q, bits, n, w, nw, board=None, height=None, met=None):
     """bit_rows.cuh place_bits: the n bits of bytes q .. q + n - 1 into the
     columns of row q / W (``small_div``) from q % W on, the bits past the
-    row's end into the next row's first columns."""
+    row's end into the next row's first columns.  Given ``board``
+    (``place_bits<true>``, the apply's cover), a bit that meets a set one
+    marks its board, met[R / H] for its row R."""
     row = _small_div(q, w)
     c = q - row * w
     k = np.minimum(n, w - c)
-    _or_bits(words, row * nw, c, np.where(k < 16, bits & ((1 << k) - 1), bits), nw)
+    hit = _or_bits(words, row * nw, c, np.where(k < 16, bits & ((1 << k) - 1), bits), nw,
+                   board)
     spill = k < n
-    _or_bits(words, (row[spill] + 1) * nw, np.zeros(spill.sum(), np.int64),
-             bits[spill] >> k[spill], nw)
+    hit2 = _or_bits(words, (row[spill] + 1) * nw, np.zeros(spill.sum(), np.int64),
+                    bits[spill] >> k[spill], nw, board)
+    if board is not None:
+        met[_small_div(row[hit], height)] = True
+        met[_small_div(row[spill][hit2] + 1, height)] = True
 
 
-def emulate_stage_words(flat, lo, hi, addr, w, nw):
+def emulate_stage_words(flat, lo, hi, addr, w, nw, board=None, height=None):
     """bit_rows.cuh stage_words: bytes [lo, hi) of ``flat`` (rows of W cells,
     the input starting ``addr`` bytes past a 16-byte boundary) as row words,
     NW a row: the unaligned head and the ragged tail byte by byte, each
     aligned 16-byte vector gathered to 16 bits (``pack16``: a word's four
     top bits by one multiply) and ORed into the rows and words it falls
-    in; checked against the rows packed directly.  Returns (rows, NW)."""
+    in; checked against the rows packed directly.  Returns (rows, NW).
+    Given ``board`` (``stage_words<true>``: the apply's covers, ``flat``,
+    ORed over the staged boards' words, boards of ``height`` rows), the
+    words start from ``board`` instead of zeros, and it returns (the placed
+    rows, met): met[e] where a cover bit of board e met a set bit, the
+    cover's overlap, checked against board & cover packed directly."""
     length = hi - lo
     rows = int(_small_div(length, w))
     assert rows * w == length
@@ -159,7 +182,8 @@ def emulate_stage_words(flat, lo, hi, addr, w, nw):
     d = (addr + lo) % 16
     head = min((16 - d) % 16, length)
     nvec = (length - head) // 16
-    words = np.zeros(rows * nw, np.int64)
+    words = np.zeros(rows * nw, np.int64) if board is None else board.copy()
+    met = None if board is None else np.zeros(rows // height, bool)
     q0 = head + 16 * np.arange(nvec)
     assert ((addr + lo + q0) % 16 == 0).all()             # the uint4 loads' alignment
     vec = span[q0[:, None] + np.arange(16)].reshape(nvec, 4, 4)
@@ -167,15 +191,20 @@ def emulate_stage_words(flat, lo, hi, addr, w, nw):
     top = (((v & 0x7F7F7F7F) + 0x7F7F7F7F) | v) & 0x80808080
     bits = ((((top * 0x00204081) & U32) >> 28) << (4 * np.arange(4))).sum(axis=1)
     assert (bits == ((vec.reshape(nvec, 16) != 0) << np.arange(16)).sum(axis=1)).all()
-    _place_bits(words, q0, bits, 16, w, nw)
+    _place_bits(words, q0, bits, 16, w, nw, board, height, met)
     qb = np.concatenate([np.arange(head), np.arange(head + 16 * nvec, length)])
     qb = qb[span[qb] != 0]
-    _place_bits(words, qb, np.ones_like(qb), 1, w, nw)
+    _place_bits(words, qb, np.ones_like(qb), 1, w, nw, board, height, met)
     cells = np.zeros((rows, 32 * nw), np.int64)
     cells[:, :w] = span.reshape(rows, w) != 0
-    direct = (cells.reshape(rows, nw, 32) << np.arange(32)).sum(axis=2)
-    np.testing.assert_array_equal(words.reshape(rows, nw), direct)
-    return words.reshape(rows, nw)
+    direct = (cells.reshape(rows, nw, 32) << np.arange(32)).sum(axis=2).reshape(-1)
+    if board is None:
+        np.testing.assert_array_equal(words, direct)
+        return words.reshape(rows, nw)
+    np.testing.assert_array_equal(words, board | direct)
+    np.testing.assert_array_equal(
+        met, (board & direct).reshape(rows // height, -1).any(axis=1))
+    return words.reshape(rows, nw), met
 
 
 def _shfl_down(v, l):
@@ -277,14 +306,21 @@ def emulate_clear_xwide_kernel(cfg, board, ck, addr=0, apply=None):
     (all of it if full, else its full columns and fields); k = the full
     rows of every window + the segment's sum of full columns and of
     fields.  Its apply
-    instance, given ``apply = (cover, valid, cover_addr)``: the block loads
-    its envs' covers as row words too (the cover at its own offset from a
-    16-byte boundary); a lane ORs board & cover over its rows, one
-    reduction over the segment gives the env's overlap, and a legal env
-    (valid, no overlap) places its cover in its words before the passes; an
-    illegal env runs them on its input words and writes none back (every
-    lane still shuffles and reduces), so it stores its input with k = 0.
-    Returns (board, k), and legal for the apply."""
+    instance, given ``apply = (cover, valid, cover_addr)`` (the cover at
+    its own offset from a 16-byte boundary): on a board of one window
+    (``kCovers``) the block loads its envs' covers as row words beside the
+    boards; a lane ORs board & cover over its rows, one reduction over the
+    segment gives the env's overlap, and a legal env (valid, no overlap)
+    places its cover in its words before the passes; an illegal env runs
+    them on its input words and writes none back (every lane still
+    shuffles and reduces), so it stores its input with k = 0.  On a taller
+    board (``kPlaced``) the block ORs the covers over the staged board
+    words (``stage_words<true>``), a cover bit that meets a board bit
+    marking the env (its word of ``keep``); a legal env runs the passes on
+    its placed words, an illegal one runs them too but writes none back,
+    its lane 0 marks it, and the store writes its input bytes, read from
+    the board again (``store_apply_words``), with k = 0.  Returns (board,
+    k), and legal for the apply."""
     h, w, hw, n = cfg.height, cfg.width, cfg.num_cells, len(board)
     nw = -(-w // 32)
     rs = cfg.region_size if cfg.region_clear else 0
@@ -293,17 +329,26 @@ def emulate_clear_xwide_kernel(cfg, board, ck, addr=0, apply=None):
     tail = w - 32 * (nw - 1)
     pad = np.where((lane + 1 == nw) & (tail < 32), (U32 << tail) & U32, 0)
     tile0 = (1 << rs) - 1 if rs else 0
+    win = 32 - 32 % rs if rs else 32                          # rows a window
     out, ks = np.full(n * hw, 2, np.uint8), np.full(n, -1, np.int64)
     legals = np.full(n, -1, np.int64)
     for first in range(0, n, per_block):
         count = min(per_block, n - first)
         lo, hi = first * hw, (first + count) * hw
-        words = emulate_stage_words(board.reshape(-1), lo, hi, addr, w, nw).reshape(count, h, nw)
+        words = emulate_stage_words(board.reshape(-1), lo, hi, addr, w, nw)
+        placed = apply is not None and h > win                # kPlaced, else kCovers
+        if placed:                                            # the covers ORed over them
+            cover, valid, cover_addr = apply
+            words, keep = emulate_stage_words(cover.reshape(-1), lo, hi, cover_addr, w, nw,
+                                              words.reshape(-1), h)
+        words = words.reshape(count, h, nw)
         active = (sw < per_warp) & (seg < count)
         at = np.where(active, seg, 0)
         x = words[at, :, lane]                                # (warps, 32, H)
         write = active                                        # the env keeps the clear's words
-        if apply is not None:
+        if placed:
+            write = active & valid[first + at] & ~keep[at]
+        elif apply is not None:                               # the covers beside them
             cover, valid, cover_addr = apply
             covers = emulate_stage_words(cover.reshape(-1), lo, hi, cover_addr, w,
                                          nw).reshape(count, h, nw)
@@ -316,7 +361,6 @@ def emulate_clear_xwide_kernel(cfg, board, ck, addr=0, apply=None):
         got = _popc(cols)
         cleared = np.full_like(x, -1)
         g = rs or 1
-        win = 32 - 32 % rs if rs else 32
         c1 = -(-32 * lane // rs) * rs if rs else 0
         k = np.zeros_like(cols)
         for w0 in range(0, h, win):
@@ -347,19 +391,72 @@ def emulate_clear_xwide_kernel(cfg, board, ck, addr=0, apply=None):
                                                x[..., r] & ~(cols | reg) & U32)
         k = k + _reduce(got, sw, np.add)
         staged = np.full(per_block * h * nw, -1, np.int64)
-        for r in range(h):                                    # an illegal env: its input
+        for r in range(h):                                    # an illegal env: as staged
             staged[((seg * h + r) * nw + lane)[active]] = np.where(
                 write, cleared[..., r], x[..., r])[active]
         head = active & (lane == 0)
         assert (ks[first + seg[head]] == -1).all()            # one lane 0 writes k
         ks[first + seg[head]] = np.where(write, k, 0)[head]
         legals[first + seg[head]] = write[head]
-        emulate_store_tall(staged, out, lo, count * hw, w, nw)
+        if placed:                                            # lane 0 marks an illegal env
+            keep[seg[head & ~write]] = True
+            emulate_store_apply_words(staged, keep, board.reshape(-1), addr, out, lo,
+                                      count * hw, w, nw, h)
+        else:
+            emulate_store_tall(staged, out, lo, count * hw, w, nw)
     assert (out < 2).all() and (ks >= 0).all()
     if apply is None:
         return out.reshape(n, hw), ks.astype(np.int32)
     assert (legals >= 0).all()
     return out.reshape(n, hw), ks.astype(np.int32), legals.astype(bool)
+
+
+def emulate_store_apply_words(rows, keep, src, addr, out, at, nbytes, width, nw, height):
+    """csrc/clear.cu store_apply_words: ``emulate_store_tall``'s store of
+    the staged rows (``store_words_n``), but the bytes of an env marked in
+    ``keep`` come from its input ``src`` (which starts ``addr`` bytes past a
+    16-byte boundary; ``out`` starts on one): a vector wholly in marked
+    envs is one uint4 copy where both share their offset, a vector wholly
+    in others the words' spread, any other vector, the head and the tail
+    byte by byte."""
+    head = min((16 - at % 16) % 16, nbytes)
+    nvec = (nbytes - head) // 16
+    same = addr % 16 == 0
+
+    def env(q):
+        return int(_small_div(_small_div(q, width), height))
+
+    def bit(q):
+        row = int(_small_div(q, width))
+        c = q - row * width
+        assert rows[row * nw + (c >> 5)] >= 0
+        return (int(rows[row * nw + (c >> 5)]) >> (c & 31)) & 1
+
+    for v in range(nvec):
+        q = head + 16 * v
+        assert (at + q) % 16 == 0 and (out[at + q : at + q + 16] == 2).all()
+        k0, k1 = keep[env(q)], keep[env(q + 15)]
+        if k0 and k1 and same:
+            assert (addr + at + q) % 16 == 0                 # the uint4 load's alignment
+            out[at + q : at + q + 16] = src[at + q : at + q + 16]
+            continue
+        # store_words_n's 16 bits: the funnel-shifted word pair holding
+        # column c, and the next row's first word where fewer than 16 are left
+        row = int(_small_div(q, width))
+        c = q - row * width
+        wd = c >> 5
+        lo, hi = rows[row * nw + wd], rows[row * nw + wd + 1] if wd + 1 < nw else 0
+        assert lo >= 0 and hi >= 0
+        bits = int(_fshr(lo, hi, c & 31))
+        if width - c < 16:
+            assert rows[(row + 1) * nw] >= 0
+            bits |= (int(rows[(row + 1) * nw]) << (width - c)) & U32
+        for j in range(16):
+            out[at + q + j] = src[at + q + j] if keep[env(q + j)] else (bits >> j) & 1
+    for j in range(nbytes - 16 * nvec):
+        q = j if j < head else j + 16 * nvec
+        assert out[at + q] == 2
+        out[at + q] = src[at + q] if keep[env(q)] else bit(q)
 
 
 def emulate_apply_xwide_kernel(cfg, board, cover, valid, ak, addr=0, cover_addr=0):
@@ -591,24 +688,41 @@ def test_xwide_apply_emulation_takes_any_address(case, addr):
 
 
 def test_xwide_apply_takes_the_clear_launch_shape():
-    """The xwide apply on boards of 1 to 32 rows of 129 to 1024 cells: the
-    clear's launch shape (``xwide_launch_shape``), its block's two arrays of
-    row words (board and cover) at most 32 KB, under the 48 KB a plain
-    launch gets; the general apply above 1024 cells a row and on boards of
-    more than 32 rows of more than 128 cells."""
-    for h in (1, 2, 3, 8, 9, 16, 31, 32):
+    """The xwide apply on boards of 1 to 1000 rows of 129 to 1024 cells: on
+    a board of one window of rows its block holds two arrays of row words
+    (board and cover) of NW words a row, at most 32 KB, and it keeps the
+    clear's launch shape; on a taller one (``xwide_windows``) its block
+    holds the placed rows and a word an env (``xwide_apply_smem_bytes``),
+    ``XWIDE_APPLY_WARPS`` warp a block wherever one warp fits; the general
+    apply above 1024 cells a row and where one warp does not fit."""
+    for h in (1, 2, 3, 8, 9, 16, 31, 32, 33, 40, 66, 130, 600, 1000):
         for w in (129, 135, 136, 160, 255, 256, 320, 500, 513, 1000, 1024):
             cfg = tcfg.EnvConfig(height=h, width=w)
             shape = apply_launch_shape(cfg)
-            assert shape == xwide_launch_shape(cfg) is not None
-            # a block's envs' board rows and cover rows of NW words
-            # (``csrc/clear.cu`` ``xwide``)
-            nw = -(-w // 32)
-            assert 2 * 4 * shape[0] * shape[1] * h * nw <= 32 * 1024
-    for shape in (dict(height=2, width=1056, piece_set="mini5"), dict(height=33, width=136)):
-        cfg = tcfg.EnvConfig(**shape)
-        assert apply_launch_shape(cfg) is None
-    ak = ApplyKernel(tcfg.EnvConfig(height=2, width=1056, piece_set="mini5"), "cpu")
+            nw, per_warp = -(-w // 32), 32 // -(-w // 32)
+            tall = xwide_windows(cfg)
+            assert tall == (h > 32)
+            if shape is None:  # one warp's block does not fit
+                assert tall and (xwide_apply_smem_bytes(cfg, per_warp) > SMEM_OPT_IN
+                                 or per_warp * cfg.num_cells >= 1 << 21)
+                continue
+            # a block's envs' board and cover rows of NW words, or above one
+            # window their placed rows and a word an env (``csrc/clear.cu``
+            # ``xwide``)
+            per_block = shape[0] * shape[1]
+            rows = 4 * per_block * h * nw
+            smem = rows + 4 * per_block if tall else 2 * rows
+            assert smem == xwide_apply_smem_bytes(cfg, per_block) <= SMEM_OPT_IN
+            if tall:
+                assert shape == (per_warp, XWIDE_APPLY_WARPS)
+            else:
+                assert shape == xwide_launch_shape(cfg) and smem <= 32 * 1024
+    cfg = tcfg.EnvConfig(height=36, width=135, region_clear=True, region_size=3)
+    assert xwide_windows(cfg) and not xwide_windows(dataclasses.replace(cfg, height=30))
+    assert apply_launch_shape(tcfg.EnvConfig(height=33, width=136)) == (6, XWIDE_APPLY_WARPS)
+    cfg = tcfg.EnvConfig(height=2, width=1056, piece_set="mini5")
+    assert apply_launch_shape(cfg) is None
+    ak = ApplyKernel(cfg, "cpu")
     assert (ak.kind, ak.name, ak.shape) == ("general", "apply_general", None)
 
 

@@ -1,28 +1,36 @@
-"""The u8 mask and clear on boards of more than 32 rows of 129 to 1024
-cells, on the CPU, against the JAX package; and the general clear and
-apply on boards of more than 12288 cells.
+"""The u8 mask, clear, apply and all-pieces legality on boards of more
+than 32 rows of 129 to 1024 cells, on the CPU, against the JAX package;
+and the general clear and apply on boards of more than 12288 cells.
 
 Rows of more than 128 cells take the xwide kernels of the u8 mask (K1,
-``mask_xwide``) and clear (K3, ``clear_xwide``) at any height: a segment of
-NW = ceil(W / 32) lanes an env-slot or env, lane w holding word w of every
+``mask_xwide``), clear (K3, ``clear_xwide``), apply (K2, ``apply_xwide``,
+the clear kernel's apply instance) and legality (K4, ``legality_xwide``,
+the mask kernel's every-piece instance) at any height: a segment of NW =
+ceil(W / 32) lanes an env-slot or env, lane w holding word w of every
 row. The mask's row loop holds the 8 rows below the anchor row in a ring
 whatever H is; where S = 1 its legal rows go over the board rows they were
 read from (the emulation checks that no word is read after it is
 written). The clear walks its rows in windows of 32 (32 - 32 mod rs with
 regions of size rs, so no band crosses a window): a full-row word and one
-reduction a window. Numpy emulations of both (``test_torch_xwide.py``, every
-lane of a block at once), fed the tables and launch shapes the wrappers
-hand the kernels, boards staged at byte offsets 0, 3 and 13, and blocks of
-1 to 3 warps (what the launch shape gives where 4 do not fit), are held
-bit-equal to the wrappers' plain versions and to the JAX package: the u8
-engine's shift mask for K1, the Pallas clear kernel in interpret mode and
-the engine's ``clear_scan`` for K3. The boards: 33x129 (one row past a
-window, a one-column top word, a 5-cell vertical bar across row 32),
-40x136, 36x135 with 3x3 regions and a hand of three (fields across word
-borders and a band at the window border of 30 rows) and 66x130 (two
+reduction a window. The apply is the clear with each board's cover ORed
+over its row words as the block loads them, an overlap found by the
+cover's atomics, and an illegal env's input bytes stored back; the
+legality is the mask of a hand holding every piece, each env's rows
+staged once for all its slots. Numpy emulations of all four
+(``test_torch_xwide.py``, ``test_torch_legality.py``, every lane of a
+block at once), fed the tables and launch shapes the wrappers hand the
+kernels, boards (and covers) staged at byte offsets 0, 3 and 13, and
+blocks of 1 to 3 warps (what the launch shape gives where 4 do not fit),
+are held bit-equal to the wrappers' plain versions and to the JAX package:
+the u8 engine's shift mask for K1, the Pallas clear kernel in interpret
+mode and the engine's ``clear_scan`` for K3, the Pallas apply kernel in
+interpret mode and ``place_and_clear`` over the engine's ``clear_scan`` for
+K2, the engine's ``legal_all_pieces`` for K4. The boards: 33x129 (one row
+past a window, a one-column top word, a 5-cell vertical bar across row
+32), 40x136, 36x135 with 3x3 regions and a hand of three (fields across
+word borders and a band at the window border of 30 rows) and 66x130 (two
 window borders), all but the first with the five pieces of at most 2x2
-cells (their rule tables stay small). The apply and the all-pieces
-legality keep their general kernels on these boards.
+cells (their rule tables stay small).
 
 The line tables no longer refuse a board of more than 12288 cells and
 lines (100x124): the general clear and apply stage an env in one warp's
@@ -31,6 +39,7 @@ The kernels themselves run only on the card (``chip_smoke.py``).
 Everything is integer or bool and must be bit-equal.
 """
 
+import dataclasses
 import functools
 import types
 
@@ -48,10 +57,16 @@ from blockpuzzle_tpu_torch.kernels import (
     ApplyKernel, ClearScanKernel, LegalityKernel, MaskKernel,
 )
 from blockpuzzle_tpu_torch.kernels.clear import GENERAL_WARPS, check_general_fits, general_warps
-from blockpuzzle_tpu_torch.kernels.packed import SMEM_OPT_IN, XWIDE_WARPS, xwide_launch_shape
+from blockpuzzle_tpu_torch.kernels.collision import every_piece_shape, place_and_clear
+from blockpuzzle_tpu_torch.kernels.packed import (
+    SMEM_OPT_IN, XWIDE_APPLY_WARPS, XWIDE_WARPS, apply_launch_shape, xwide_launch_shape,
+)
 from blockpuzzle_tpu_torch.utils.bounds import COSTS, bound
+from test_torch_kernels import apply_cases, assert_apply_cases
+from test_torch_legality import emulate_legality_instance, legality_boards
 from test_torch_xwide import (
-    bar_piece, emulate_clear_xwide_kernel, emulate_mask_xwide_kernel, xwide_cells, xwide_hands,
+    bar_piece, emulate_apply_xwide_kernel, emulate_clear_xwide_kernel,
+    emulate_mask_xwide_kernel, xwide_cells, xwide_hands,
 )
 
 XTALL = {"33x129": dict(height=33, width=129),
@@ -122,19 +137,23 @@ def with_warps(kernel, warps):
 
 @pytest.mark.parametrize("case", XTALL)
 def test_xtall_wrappers_pick_the_xwide_mask_and_clear(case):
-    """On boards of more than 32 rows of 129 to 1024 cells the mask and the
-    clear take the xwide kernel on its launch shape (4 warps a block, all
-    fitting 48 KB here), the apply and the legality their general ones."""
+    """On boards of more than 32 rows of 129 to 1024 cells the mask, the
+    clear, the apply and the legality take their xwide kernels on their
+    launch shapes (4 warps a block, all fitting 48 KB here; the legality's
+    the mask's at S = P; the apply's one warp a block)."""
     _, ct = _pair(case)
     shape = xwide_launch_shape(ct)
     assert shape == (32 // -(-ct.width // 32), XWIDE_WARPS)
+    assert apply_launch_shape(ct) == (shape[0], XWIDE_APPLY_WARPS)
     mk, ck = MaskKernel(ct, "cpu"), ClearScanKernel(ct, "cpu")
     assert (mk.kind, mk.name, mk.shape) == ("xwide", "mask_xwide", shape)
     assert (ck.kind, ck.name, ck.shape) == ("xwide", "clear_xwide", shape)
     del mk
     ak, lk = ApplyKernel(ct, "cpu"), LegalityKernel(ct, "cpu")
-    assert (ak.kind, ak.name, ak.shape) == ("general", "apply_general", None)
-    assert (lk.kind, lk.name, lk.shape) == ("general", "legality_general", None)
+    assert (ak.kind, ak.name, ak.shape) == ("xwide", "apply_xwide", (shape[0], 1))
+    every = xwide_launch_shape(dataclasses.replace(ct, queue_size=lk.num_pieces))
+    assert (lk.kind, lk.name, lk.shape) == ("xwide", "legality_xwide", every)
+    assert every == every_piece_shape(ct) == (shape[0], XWIDE_WARPS)
 
 
 @pytest.mark.parametrize("case", XTALL)
@@ -262,6 +281,165 @@ def test_xtall_emulations_at_fewer_warps(warps):
             np.testing.assert_array_equal(e, p.numpy())
 
 
+def tall_apply_cases(cfg, n, rng):
+    """``apply_cases`` (legal and illegal actions, an invalid anchor, an
+    action that completes a row, one over a full row, with regions one that
+    completes a 3x3 region across the first word border), plus: on env 9 a
+    full row past every window border (rows 32 and 64; 30 and 60 with
+    regions), the first but for its first cell, which a 1x1 action there
+    completes; on env 10 the tallest one-column piece anchored so that its
+    last cell lands on row 32 in column 40, which the board holds (an
+    overlap at row 32: illegal); on env 11 the same action over a row 32
+    full but for column 40 on an otherwise empty board (legal: it completes
+    the row).  (board, cover, valid)."""
+    t = rules.tables_for(cfg)
+    board, cover, valid = apply_cases(cfg, n, rng)
+    grid = board.reshape(n, cfg.height, cfg.width)
+    hw, w = cfg.num_cells, cfg.width
+    win = 32 - 32 % cfg.region_size if cfg.region_clear else 32
+    grid[9, win::win, :] = 1
+    grid[9, win, 0] = 0
+    cover[9], valid[9] = t.cover[win * w], t.valid[win * w]
+    pid = int(np.argmax(np.where(t.piece_w == 1, t.piece_h, 0)))
+    g = pid * hw + (33 - t.piece_h[pid]) * w + 40
+    grid[10, 32, 40] = 1
+    grid[11] = 0
+    grid[11, 32, :] = 1
+    grid[11, 32, 40] = 0
+    for env in (10, 11):
+        cover[env], valid[env] = t.cover[g], t.valid[g]
+    return board, cover, valid
+
+
+def assert_tall_apply_cases(cfg, board, want):
+    """What ``tall_apply_cases``' envs must give: ``assert_apply_cases``, and
+    the full rows past the window borders cleared (env 9), the overlap at
+    row 32 a strict no-op (env 10), row 32 completed and cleared with the
+    rest of the bar left above it (env 11)."""
+    assert_apply_cases(cfg, board, want)
+    new_board, k, legal = want
+    h, w = cfg.height, cfg.width
+    grid = new_board.reshape(len(board), h, w)
+    win = 32 - 32 % cfg.region_size if cfg.region_clear else 32
+    assert legal[9] and k[9] >= len(range(win, h, win)) and not grid[9, win::win].any()
+    assert not legal[10] and k[10] == 0 and (new_board[10] == board[10]).all()
+    t = rules.tables_for(cfg)
+    ph = int(t.piece_h[t.piece_w == 1].max())                # the bar's cells
+    assert legal[11] and k[11] == 1 and grid[11].sum() == ph - 1
+    assert grid[11, 33 - ph : 32, 40].all()
+
+
+@pytest.mark.parametrize("case", XTALL)
+def test_xtall_apply_matches_pallas_apply_kernel(case):
+    """K2 on boards of more than 32 rows of rows of more than 128 cells: the
+    Pallas apply kernel in interpret mode, ``place_and_clear`` over the JAX
+    u8 engine's ``clear_scan`` (the JAX u8 step's overlap, place and clear),
+    the wrapper (plain version on the CPU) and the xwide apply's emulation,
+    bit-equal, on ``tall_apply_cases``: full rows past each window border,
+    an overlap at row 32, a piece that completes row 32, an invalid anchor,
+    a full row under an illegal action, a region across a word border on
+    36x135, a full board and an empty one."""
+    cj, ct = _pair(case)
+    board, cover, valid = tall_apply_cases(ct, N, np.random.default_rng(28))
+    want = [np.asarray(x) for x in jk.ApplyKernel(cj, tile_n=N)(
+        jnp.asarray(board), jnp.asarray(cover), jnp.asarray(valid), interpret=True)]
+    engine = jax_engine(case)
+
+    def jax_clear(placed):
+        return tuple(torch.as_tensor(np.array(x))
+                     for x in engine.clear_scan(jnp.asarray(placed.numpy())))
+
+    glue = place_and_clear(torch.as_tensor(board), torch.as_tensor(cover),
+                           torch.as_tensor(valid), jax_clear)
+    ak = ApplyKernel(ct, "cpu")
+    assert (ak.kind, ak.name) == ("xwide", "apply_xwide")
+    got = ak(torch.as_tensor(board), torch.as_tensor(cover), torch.as_tensor(valid))
+    emu = emulate_apply_xwide_kernel(ct, board, cover, valid, ak)
+    for i, name in enumerate(("board", "k", "legal")):
+        np.testing.assert_array_equal(glue[i].numpy(), want[i], name)
+        np.testing.assert_array_equal(got[i].numpy(), want[i], name)
+        np.testing.assert_array_equal(emu[i], want[i], name)
+    assert_tall_apply_cases(ct, board, want)
+    assert ak.xwide_launches == ak.general_launches == 0
+
+
+@pytest.mark.parametrize("case", ["33x129", "36x135r3", "66x130"])
+@pytest.mark.parametrize("addr", [3, 13])
+def test_xtall_apply_emulation_takes_any_address(case, addr):
+    """Boards and covers that start off a 16-byte boundary, each at its own
+    offset: the xwide apply's emulation loads the boards and ORs the covers
+    over them, the unaligned heads and tails byte by byte, stores an
+    illegal env's input bytes byte by byte where the board and the output
+    do not share their offset, and still equals the plain version."""
+    _, ct = _pair(case)
+    board, cover, valid = tall_apply_cases(ct, N, np.random.default_rng(addr))
+    ak = ApplyKernel(ct, "cpu")
+    want = ak(torch.as_tensor(board), torch.as_tensor(cover), torch.as_tensor(valid))
+    for cover_addr in (addr, (addr + 7) % 16):
+        emu = emulate_apply_xwide_kernel(ct, board, cover, valid, ak, addr, cover_addr)
+        for e, p in zip(emu, want):
+            np.testing.assert_array_equal(e, p.numpy())
+
+
+@pytest.mark.parametrize("warps", [2, 3, 4])
+def test_xtall_apply_emulation_at_more_warps(warps):
+    """The xwide apply's emulation at 2 to 4 warps a block on 40x136 (its
+    launch shape takes one), boards and covers off a 16-byte boundary,
+    equals the plain version."""
+    _, ct = _pair("40x136")
+    board, cover, valid = tall_apply_cases(ct, N, np.random.default_rng(40 + warps))
+    ak = ApplyKernel(ct, "cpu")
+    want = ak(torch.as_tensor(board), torch.as_tensor(cover), torch.as_tensor(valid))
+    emu = emulate_apply_xwide_kernel(ct, board, cover, valid, with_warps(ak, warps), 5, 11)
+    for e, p in zip(emu, want):
+        np.testing.assert_array_equal(e, p.numpy())
+
+
+@pytest.mark.parametrize("case", XTALL)
+def test_xtall_legality_matches_jax_legal_all_pieces(case):
+    """K4 on boards of more than 32 rows of rows of more than 128 cells: the
+    JAX u8 engine's ``legal_all_pieces``, the wrapper (plain version on the
+    CPU) and the emulation of the xwide mask's every-piece instance (a hand
+    of every piece, env-slot q reading piece q mod P), bit-equal: full rows
+    and columns, a full board (no legal anchor) and an empty one (every
+    piece's in-bounds anchors)."""
+    _, ct = _pair(case)
+    board = legality_boards(ct, N, np.random.default_rng(29))
+    want = np.asarray(jax_engine(case).legal_all_pieces(jnp.asarray(board)))
+    lk = LegalityKernel(ct, "cpu")
+    assert (lk.kind, lk.name) == ("xwide", "legality_xwide")
+    np.testing.assert_array_equal(lk(torch.as_tensor(board)).numpy(), want)
+    np.testing.assert_array_equal(emulate_legality_instance(ct, board, lk), want)
+    assert not want[N - 1].any() and 0 < want.mean() < 1
+    np.testing.assert_array_equal(want[N - 2].reshape(-1), rules.tables_for(ct).valid)
+    assert lk.xwide_launches == lk.general_launches == 0
+
+
+@pytest.mark.parametrize("case", ["33x129", "36x135r3", "66x130"])
+@pytest.mark.parametrize("addr", [3, 13])
+def test_xtall_legality_emulation_takes_any_board_address(case, addr):
+    """Boards that start off a 16-byte boundary (the block's span of envs
+    starts at env first / P, its output span at env-slot first): the xwide
+    legality instance's emulation still equals the plain version."""
+    _, ct = _pair(case)
+    board = legality_boards(ct, N, np.random.default_rng(addr))
+    lk = LegalityKernel(ct, "cpu")
+    np.testing.assert_array_equal(emulate_legality_instance(ct, board, lk, addr),
+                                  lk(torch.as_tensor(board)).numpy())
+
+
+@pytest.mark.parametrize("warps", [1, 2, 3])
+def test_xtall_legality_emulation_at_fewer_warps(warps):
+    """The xwide legality instance's emulation at 1 to 3 warps a block on
+    40x136, a board off a 16-byte boundary, equals the plain version."""
+    _, ct = _pair("40x136")
+    board = legality_boards(ct, N, np.random.default_rng(50 + warps))
+    lk = LegalityKernel(ct, "cpu")
+    np.testing.assert_array_equal(
+        emulate_legality_instance(ct, board, with_warps(lk, warps), addr=5),
+        lk(torch.as_tensor(board)).numpy())
+
+
 def test_xtall_launch_shape_takes_fewer_warps_where_four_do_not_fit():
     """600x136 (S = 1): four warps' rows pass 227 KB, three fit; 1000x1024:
     one segment a warp, and one warp's rows fit; 2000x1024: they do not, so
@@ -274,24 +452,39 @@ def test_xtall_launch_shape_takes_fewer_warps_where_four_do_not_fit():
     assert 4 * 2000 * 32 > SMEM_OPT_IN
 
 
-@pytest.mark.parametrize("name", ["mask_xwide", "clear_xwide"])
+@pytest.mark.parametrize("name", ["mask_xwide", "clear_xwide", "apply_xwide",
+                                  "legality_xwide"])
 def test_xwide_kernels_are_bytes_bound_on_40x136(name):
     """The xwide mask and clear at N = 49152 on 40x136 (classic19, S = 1)
     move the general kernels' bytes (10,884 B an env: the board and the
     hand id in, the mask or the cleared board and k out), 0.1597 ms at
-    3.35 TB/s, above their operations at the integer rate."""
+    3.35 TB/s, above their operations at the integer rate; the apply the
+    general apply's (16,326 B an env: board and cover in, a valid byte;
+    board, k and legal out), 0.239539 ms; the legality the general
+    legality's (108,800 B an env: the board in, P * HW bools out),
+    1.596340 ms."""
     cfg, n = tcfg.EnvConfig(height=40, width=136), 49152
     hw = cfg.num_cells
     board, queue = torch.zeros(n, hw, dtype=torch.uint8), torch.zeros(n, 1, dtype=torch.int32)
+    flags, k = torch.zeros(n, dtype=torch.bool), torch.zeros(n, dtype=torch.int32)
+    per_env, ms, digits = 10884, 0.1597, 4
     if name == "mask_xwide":
         inputs, outputs = (board, queue), (torch.zeros(n, hw, dtype=torch.bool),)
-    else:
-        inputs, outputs = (board,), (board, torch.zeros(n, dtype=torch.int32))
+    elif name == "clear_xwide":
+        inputs, outputs = (board,), (board, k)
+    elif name == "apply_xwide":
+        inputs, outputs = (board, board, flags), (board, k, flags)
+        per_env, ms, digits = 16326, 0.239539, 6
+    else:  # the (N, P, HW) map, 5.3 GB, counted from an expanded view
+        p = rules.tables_for(cfg).num_pieces
+        inputs = (board,)
+        outputs = (torch.zeros(1, p, hw, dtype=torch.bool).expand(n, p, hw),)
+        per_env, ms, digits = hw * (1 + p), 1.596340, 6
     nbytes, ops = COSTS[name](cfg, inputs, outputs)
     general, _ = COSTS[name.replace("_xwide", "_general")](cfg, inputs, outputs)
-    assert nbytes == general == 10884 * n
+    assert nbytes == general == per_env * n
     b = bound(list(inputs) + list(outputs), ops)
-    assert b["bound_by"] == "bytes" and round(b["bound_ms"], 4) == 0.1597
+    assert b["bound_by"] == "bytes" and round(b["bound_ms"], digits) == ms
 
 
 def test_line_tables_take_a_board_of_more_than_12288_cells():
