@@ -15,10 +15,11 @@ two to four words; the tall kernel on boards of 33 to 128 rows of at most
 128 cells, a warp an env and up to four rows a lane; the deep kernel on
 taller boards of at most 128 cells a row, a warp an env walking the board
 in windows of 32 rows; the xwide kernel on boards of any height of 129 to
-1024 cells a row, a segment of lanes an env, a lane a word of every row
-and the rows in windows of 32; the general kernel walks
-``line_cell_table`` and takes any other board whose board and line flags
-fit one warp's shared memory (``general_warps``).
+4096 cells a row, a segment of lanes an env, a lane a word of every row
+(above 1024 cells one env a warp, a lane up to four words) and the rows in
+windows of 32; the general kernel walks ``line_cell_table`` and takes any
+other board whose board and line flags fit one warp's shared memory
+(``general_warps``).
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from blockpuzzle_tpu_torch import rules
 from blockpuzzle_tpu_torch.config import EnvConfig
 from blockpuzzle_tpu_torch.kernels import _build
 from blockpuzzle_tpu_torch.kernels.packed import (
-    SMEM_OPT_IN, SUFFIX, count_launch, u8_kind, u8_launch_shape,
+    SMEM_OPT_IN, SUFFIX, clear_launch_shape, count_launch, u8_instance, u8_kind,
 )
 
 # warps a block of the general clear and apply, one env each
@@ -123,13 +124,16 @@ class ClearScanKernel:
     128 < W <= 1024 at any height (``xwide_launches``: a segment of
     ceil(W / 32) lanes an env, a lane a word of every row, the rows in
     windows of 32, or of 32 - 32 mod rs with regions, on the xwide mask's
-    launch shape); ``shape`` is the launch shape of any of them
-    (``u8_launch_shape``).  Else the general kernel (``shape`` is None;
-    ``general_launches``): rows of more than 1024 cells, or a deep or xwide
+    launch shape), and its long-row instance where 1024 < W <= 4096 at any
+    height (``kind`` "xwide", ``instance`` "xwide_long",
+    ``xwide_long_launches``: one env a warp, lane l holding words l + 32 j
+    of every row); ``shape`` is the launch shape of any of them
+    (``clear_launch_shape``).  Else the general kernel (``shape`` is None;
+    ``general_launches``): rows of more than 4096 cells, or a deep or xwide
     board whose one-warp block does not fit shared memory; it takes every
     such board whose cells and lines fit one warp's shared memory
     (``general_warps``) and the wrapper refuses the rest at construction.
-    ``name`` is the picked kernel's.
+    ``name`` is the picked instance's.
 
     The bit-row, wide, tall, deep and xwide kernels take the engine's
     boards, whose cells are 0 or 1 (``env/state.py``): they find a line full
@@ -143,10 +147,12 @@ class ClearScanKernel:
         self.device = _build.resolve_device(device)
         self.launches = self.wide_launches = self.tall_launches = 0
         self.deep_launches = self.xwide_launches = self.general_launches = 0
-        self.shape = u8_launch_shape(cfg)
+        self.xwide_long_launches = 0
+        self.shape = clear_launch_shape(cfg)
         self.kind = u8_kind(cfg, self.shape)
+        self.instance = u8_instance(cfg, self.kind)
         self.wide = self.kind == "wide"
-        self.name = "clear" + SUFFIX[self.kind]
+        self.name = "clear" + SUFFIX[self.instance]
         self.lines = LineTables(cfg, self.device)
         if self.shape is None:
             check_general_fits(cfg, self.lines.line_cells.shape[0])
@@ -187,7 +193,7 @@ class ClearScanKernel:
             else:
                 if cleared.data_ptr() % 16:  # the kernel stores 16-byte vectors
                     raise RuntimeError("clear output is not 16-byte aligned")
-                name = "bp_clear_rows" if self.kind == "rows" else "bp_" + self.name
+                name = "bp_clear_rows" if self.kind == "rows" else "bp_clear" + SUFFIX[self.kind]
                 err = getattr(lib, name)(
                     board.data_ptr(), cleared.data_ptr(), k.data_ptr(), n,
                     cfg.height, cfg.width,
@@ -195,5 +201,5 @@ class ClearScanKernel:
                     stream,
                 )
         _build.check(err, name)
-        count_launch(self)
+        count_launch(self, kind=self.instance)
         return cleared, k

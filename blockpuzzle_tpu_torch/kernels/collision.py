@@ -16,13 +16,14 @@ sit here together as they do there:
 Each has a bit-row kernel, for boards of at most 32 rows of at most 32
 cells (every shipped preset; the legality also wants pieces of at most 8
 rows and columns), which works on 32-bit row words, and a general kernel
-for rows of more than 1024 cells (and, for the legality, pieces of more
-than 8 rows or columns), or a deep or xwide board one warp cannot stage.
-Between those the apply runs on the clear's wide, tall, deep and xwide
-kernels (``csrc/clear.cu``, their apply instances: rows of up to four
-words, a warp a board of up to 128 rows, a warp walking a taller board in
-windows of 32 rows, a segment of lanes a board of rows of up to 32 words
-at any height), and the legality on the hand mask's (``csrc/mask.cu``,
+for rows of more than 1024 cells (the apply: 4096; and, for the legality,
+pieces of more than 8 rows or columns), or a deep or xwide board one warp
+cannot stage.  Between those the apply runs on the clear's wide, tall, deep
+and xwide kernels (``csrc/clear.cu``, their apply instances: rows of up to
+four words, a warp a board of up to 128 rows, a warp walking a taller board
+in windows of 32 rows, a segment of lanes a board of rows of up to 32 words
+at any height, a warp a board of rows of 33 to 128 words, up to four a
+lane), and the legality on the hand mask's (``csrc/mask.cu``,
 their every-piece instances: the hand mask of a hand holding every
 piece).  ``piece_table`` is the per-piece footprint
 table of the general legality and mask kernels, ``legality_rows_table``
@@ -43,7 +44,7 @@ from blockpuzzle_tpu_torch.kernels import _build
 from blockpuzzle_tpu_torch.kernels.clear import LineTables, check_general_fits, clear_plain
 from blockpuzzle_tpu_torch.kernels.packed import (
     MAX_PIECE, MAX_ROWS, SUFFIX, apply_launch_shape, count_launch, segments_per_warp,
-    u8_kind, u8_launch_shape,
+    u8_instance, u8_kind, u8_launch_shape,
 )
 
 # the bit-row legality's block and the words of one row of its shape table,
@@ -311,14 +312,17 @@ class ApplyKernel:
     32 < W <= 128 (``wide_launches``), the tall kernel where 32 < H <= 128
     and W <= 128 (``tall_launches``), the deep kernel where H > 128 and
     W <= 128 (``deep_launches``), the xwide kernel where 128 < W <= 1024 at
-    any height (``xwide_launches``); ``shape`` is the launch shape of any of
-    them (``apply_launch_shape``: the clear's, with fewer turns or warps
-    where a block's staged spans or placed rows would not fit).  Else the
-    general kernel (``shape`` is None; ``general_launches``): rows of more
-    than 1024 cells, or a deep or xwide board one warp cannot stage; it
-    takes every such board whose cells and lines fit one warp's shared
-    memory (``clear.general_warps``), and the wrapper refuses the rest at
-    construction.  ``name`` is the picked kernel's.
+    any height (``xwide_launches``) and its long-row instance where
+    1024 < W <= 4096 (``kind`` "xwide", ``instance`` "xwide_long",
+    ``xwide_long_launches``: one env a warp, lane l holding words l + 32 j);
+    ``shape`` is the launch shape of any of them (``apply_launch_shape``:
+    the clear's, with fewer turns or warps where a block's staged spans or
+    placed rows would not fit).  Else the general kernel (``shape`` is
+    None; ``general_launches``): rows of more than 4096 cells, or a deep or
+    xwide board one warp cannot stage; it takes every such board whose
+    cells and lines fit one warp's shared memory (``clear.general_warps``),
+    and the wrapper refuses the rest at construction.  ``name`` is the
+    picked instance's.
 
     The bit-row, wide, tall, deep and xwide kernels take boards and covers
     whose cells are 0 or 1: the engine's boards (``env/state.py``) and its
@@ -336,9 +340,11 @@ class ApplyKernel:
         self.device = _build.resolve_device(device)
         self.launches = self.wide_launches = self.tall_launches = 0
         self.deep_launches = self.xwide_launches = self.general_launches = 0
+        self.xwide_long_launches = 0
         self.shape = apply_launch_shape(cfg)
         self.kind = u8_kind(cfg, self.shape)
-        self.name = "apply" + SUFFIX[self.kind]
+        self.instance = u8_instance(cfg, self.kind)
+        self.name = "apply" + SUFFIX[self.instance]
         self.lines = LineTables(cfg, self.device)
         if self.shape is None:
             check_general_fits(cfg, self.lines.line_cells.shape[0])
@@ -388,7 +394,7 @@ class ApplyKernel:
             else:
                 if new_board.data_ptr() % 16:  # the kernels store 16-byte vectors
                     raise RuntimeError("apply output is not 16-byte aligned")
-                name = "bp_apply_rows" if self.kind == "rows" else "bp_" + self.name
+                name = "bp_apply_rows" if self.kind == "rows" else "bp_apply" + SUFFIX[self.kind]
                 err = getattr(lib, name)(
                     board.data_ptr(), cover.data_ptr(), valid.data_ptr(),
                     new_board.data_ptr(), k.data_ptr(), legal.data_ptr(), n,
@@ -397,5 +403,5 @@ class ApplyKernel:
                     stream,
                 )
         _build.check(err, name)
-        count_launch(self)
+        count_launch(self, kind=self.instance)
         return new_board, k, legal

@@ -590,7 +590,9 @@ __device__ __forceinline__ void store_tall(const uint32_t* rows, uint8_t* out, l
 // Rows of more than 128 cells (the xwide kernels, 128 < W <= 1024, any H):
 // a segment of NW = ceil(W / 32) lanes holds one board, lane w word w of
 // every row (cells 32 w .. 32 w + 31), the transpose of the layouts above;
-// `seat(nw, 32 / nw)` gives a thread its segment and word.  The block's
+// `seat(nw, 32 / nw)` gives a thread its segment and word (the xwide clear
+// and apply on rows of up to 4096 cells: `seat(32, 1)`, one board a warp,
+// lane l words l + 32 j).  The block's
 // boards go straight from device memory to row words in shared memory
 // (`stage_words`), without a staged copy of their bytes: 1088 bytes of an
 // 8x136 board become 160 of words, so more boards fit an SM.

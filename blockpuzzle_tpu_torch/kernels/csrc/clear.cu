@@ -12,11 +12,13 @@
 // memory a block may opt in to; the xwide kernel (`clear_xwide_kernel`,
 // entry `bp_clear_xwide`), a segment of lanes an env and a lane a word of
 // every row, for 128 < W <= 1024 and any height wherever a block of one
-// warp fits; and the general kernel (`clear_kernel`, entry `bp_clear`) for
-// what is left: rows of more than 1024 cells, or a deep or xwide board too
-// large for one warp.  The wrapper (kernels/clear.py) picks one by shape.  The wide, tall, deep and xwide kernels are also the apply
-// (K2, the TPU kernel `_apply_kernel`, blockpuzzle_tpu/kernels/collision.py:120)
-// on those boards: a second instance of each (`kApply`, entries
+// warp fits, and on rows of 1025 to 4096 cells one env a warp, lane l
+// holding words l + 32 j; and the general kernel (`clear_kernel`, entry
+// `bp_clear`) for what is left: rows of more than 4096 cells, or a deep or
+// xwide board too large for one warp.  The wrapper (kernels/clear.py)
+// picks one by shape.  The wide, tall, deep and xwide kernels are also the
+// apply (K2, the TPU kernel `_apply_kernel`,
+// blockpuzzle_tpu/kernels/collision.py:120) on those boards: a second instance of each (`kApply`, entries
 // `bp_apply_wide`, `bp_apply_tall`, `bp_apply_deep`, `bp_apply_xwide`; the
 // wrapper kernels/collision.py `ApplyKernel`), described above the kernels.
 //
@@ -134,6 +136,23 @@
 // there: a warp an env whose lanes walk the 144 lines of 8x136 through the
 // global table, a dependent index load a cell, the 8 row lanes 136 cells
 // each and the column lanes 8, and a byte store a cell.
+//
+// Rows of 1025 to 4096 cells (NW = 33 to 128 words) pass a warp's 32
+// lanes: the same kernel with NJ = ceil(NW / 32) slots a lane (a template
+// parameter; NJ = 1 is the segment form above), one env a warp, lane l
+// holding words l + 32 j of every row in slot j.  The words are strided,
+// not NJ consecutive words a lane, so that every lane works: 33 words take
+// all 32 lanes and only the last slot is ragged (a slot past NW holds no
+// word: the identity of the full-row AND, no full column, no field),
+// where consecutive pairs would take 17 lanes and leave 15 idle.  A lane's
+// full-row bit is the AND over its slots (the top word's pad bits belong to
+// word NW - 1, whichever lane holds it), one `__reduce_and_sync` over the
+// warp still gives the rows, and k adds the popcounts of the slots' full
+// columns in the one `__reduce_add_sync`.  The next word of slot j's word
+// is the next lane's slot j, but lane 0's slot j + 1 for lane 31
+// (`band_fields`).  It answers what bounded the general kernel there, as
+// on 8x136: a lane a line walking the line's cells through the global
+// table (1058 lines on 2x1056), byte loads and stores.
 //
 // The apply instances take the same 0/1 boards and 0/1 covers.  Bound on
 // the H100: device memory; per env they read HW board bytes, HW cover
@@ -494,34 +513,71 @@ __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
 }
 
 // The xwide clear's band of `rows` rows from row r0 (region_size rows,
-// or fewer at the board's bottom): the bits of this lane's word that lie
-// in a full rs-bit field of a whole band (fields that start in this word,
-// and the part of one from the word below that straddles into it), and
-// `got` counts the fields that start in this word.  A field may straddle
-// this word and the next (rs = 3: columns 30..32), read from the
-// funnel-shifted pair (this word, the next lane's: one `__shfl_down_sync`)
-// and handed up by one `__shfl_up_sync`.  Every lane of the warp calls it.
-__device__ __forceinline__ uint32_t band_fields(const uint32_t* x, int nw, int r0, int rows,
-                                                const bit_rows::Seat& t, int width,
-                                                int region_size, int c1, uint32_t tile0,
-                                                int& got) {
-  uint32_t band = kAll;
-  for (int i = 0; i < rows; ++i) band &= x[(r0 + i) * nw];
-  const uint32_t next = __shfl_down_sync(kAll, band, 1);
-  const uint32_t hi_word = t.lane + 1 < nw ? next : 0u;
-  uint32_t reg = 0, spill = 0;                       // spill: the next word's part of a field
-  if (rows == region_size) {                         // a whole band on the board
-    for (int c0 = c1; c0 < 32 * (t.lane + 1) && c0 + region_size <= width; c0 += region_size) {
-      const int b = c0 - 32 * t.lane;
-      if ((__funnelshift_r(band, hi_word, b) & tile0) == tile0) {
-        reg |= tile0 << b;
-        if (b + region_size > 32) spill |= tile0 >> (32 - b);
-        ++got;
+// or fewer at the board's bottom): in reg[j], the bits of this lane's slot
+// j, word w = lane + 32 j, that lie in a full rs-bit field of a whole band
+// (fields that start in word w, and the part of one from word w - 1 that
+// straddles into it), and `got` counts the fields that start in this
+// lane's words.  A field may straddle word w and w + 1 (rs = 3: columns
+// 30..32), read from the funnel-shifted pair (word w, word w + 1) and its
+// part in w + 1 handed up.  Both go by shuffles, not by shared memory:
+// with NJ = 1 word w + 1 is the next lane's (one `__shfl_down_sync`, one
+// `__shfl_up_sync`, as before the slots); with NJ > 1 (one env a warp) it
+// is the next lane's slot j, but lane 0's slot j + 1 for lane 31, so each
+// slot's band goes round the warp by one `__shfl_sync` from lane l + 1
+// mod 32 and lane 31 takes its slot j + 1's, and the spill likewise from
+// lane l - 1 mod 32, lane 0 taking slot j - 1's (a shuffle a slot each way,
+// against a band's rows of shared-memory reads for a neighbour word).
+// `has[j]`: slot j holds a word (w < NW); an empty slot's band and fields
+// are none.  Every lane of the warp calls it.
+template <int NJ>
+__device__ __forceinline__ void band_fields(const uint32_t* x, int nw, int r0, int rows,
+                                            const bit_rows::Seat& t, int width,
+                                            int region_size, const int (&c1)[NJ],
+                                            uint32_t tile0, const bool (&has)[NJ], int& got,
+                                            uint32_t (&reg)[NJ]) {
+  uint32_t band[NJ], next[NJ], spill[NJ];            // spill: word w + 1's part of a field
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    band[j] = kAll;
+    if (has[j]) {
+      for (int i = 0; i < rows; ++i) band[j] &= x[(r0 + i) * nw + 32 * j];
+    }
+  }
+  if constexpr (NJ == 1) {
+    next[0] = __shfl_down_sync(kAll, band[0], 1);
+  } else {
+    uint32_t rot[NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) rot[j] = __shfl_sync(kAll, band[j], (t.l + 1) & 31);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) next[j] = t.l < 31 ? rot[j] : j + 1 < NJ ? rot[j + 1] : 0u;
+  }
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int w = t.lane + 32 * j;
+    const uint32_t hi_word = w + 1 < nw ? next[j] : 0u;
+    reg[j] = spill[j] = 0u;
+    if (rows == region_size) {                       // a whole band on the board
+      for (int c0 = c1[j]; c0 < 32 * (w + 1) && c0 + region_size <= width; c0 += region_size) {
+        const int b = c0 - 32 * w;
+        if ((__funnelshift_r(band[j], hi_word, b) & tile0) == tile0) {
+          reg[j] |= tile0 << b;
+          if (b + region_size > 32) spill[j] |= tile0 >> (32 - b);
+          ++got;
+        }
       }
     }
   }
-  const uint32_t from_below = __shfl_up_sync(kAll, spill, 1);
-  return reg | (t.lane > 0 ? from_below : 0u);
+  if constexpr (NJ == 1) {
+    const uint32_t from_below = __shfl_up_sync(kAll, spill[0], 1);
+    reg[0] |= t.lane > 0 ? from_below : 0u;
+  } else {
+    uint32_t rot[NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) rot[j] = __shfl_sync(kAll, spill[j], (t.l + 31) & 31);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) reg[j] |= t.l > 0 ? rot[j] : j > 0 ? rot[j - 1] : 0u;
+  }
 }
 
 // The xwide apply's store: `store_words_n` of the block's placed and
@@ -613,7 +669,7 @@ __device__ __forceinline__ void store_apply_words(const uint32_t* rows, const ui
 // on boards of at most 32 rows the placed form took 1.07-1.50x the two
 // arrays' time (copying back the input of an illegal env, 80% of the
 // timing inputs, and a barrier more), in turns on an H100.
-template <bool kApply, bool kWindows>
+template <bool kApply, bool kWindows, int NJ>
 __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
     clear_xwide_kernel(const uint8_t* __restrict__ board, const uint8_t* __restrict__ cover,
                        const uint8_t* __restrict__ valid, uint8_t* __restrict__ board_out,
@@ -642,81 +698,136 @@ __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
     bit_rows::stage_words<true>(cover, lo, hi, width, nw, words, keep, height);
   }
 
-  const bit_rows::Seat t = bit_rows::seat(nw, per_warp);  // t.lane: the word
+  // t.lane: the word of slot 0; NJ > 1 takes one env a warp (per_warp 1)
+  const bit_rows::Seat t = bit_rows::seat(NJ == 1 ? nw : 32, NJ == 1 ? per_warp : 1);
   const bool active = t.s < per_warp && t.seg < count;
+  bool has[NJ];                                      // slot j holds word lane + 32 j < NW
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) has[j] = NJ == 1 || j + 1 < NJ || t.lane + 32 * j < nw;
   __syncthreads();
-  // row r's word: x[r * nw]; a lane of no env reads env 0's and writes nothing
+  // row r's word of slot j: x[r * nw + 32 j]; a lane of no env reads env 0's
+  // and writes nothing
   const int at = (active ? t.seg : 0) * height * nw + t.lane;
   uint32_t* x = words + at;
   bool write = active;                               // this lane's env keeps what the clear gives
   if constexpr (kCovers) {
     const uint32_t* y = covers + at;
     uint32_t hit = 0;
-    for (int r = 0; r < height; ++r) hit |= x[r * nw] & y[r * nw];
+    for (int r = 0; r < height; ++r) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        if (has[j]) hit |= x[r * nw + 32 * j] & y[r * nw + 32 * j];
+      }
+    }
     const unsigned overlap = __reduce_or_sync(t.mask, hit != 0 ? 1u : 0u);  // every lane
     write = active && valid[first + t.seg] != 0 && overlap == 0;
     if (write) {
-      for (int r = 0; r < height; ++r) x[r * nw] |= y[r * nw];  // placed in place
+      for (int r = 0; r < height; ++r) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          if (has[j]) x[r * nw + 32 * j] |= y[r * nw + 32 * j];  // placed in place
+        }
+      }
     }
   }
   if constexpr (kPlaced) write = active && valid[first + t.seg] != 0 && keep[t.seg] == 0;
   const int tail = width - 32 * (nw - 1);            // columns of the top word: 1..32
-  const uint32_t pad = t.lane + 1 == nw && tail < 32 ? kAll << tail : 0u;  // past W: full
   const int g = region_size > 0 ? region_size : 1;  // rows a band
-  // the first field that starts in this word: columns c0 = 0, rs, 2 rs, ...
-  const int c1 = region_size > 0 ? (32 * t.lane + region_size - 1) / region_size * region_size
-                                 : 0;
   const uint32_t tile0 = region_size < 32 ? (1u << region_size) - 1u : kAll;
+  uint32_t pad[NJ];                                  // past W: full (word NW - 1's)
+  int c1[NJ];                                        // the first field that starts in a word
+  uint32_t cols[NJ];                                 // pass 1: the full columns of a word
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int w = t.lane + 32 * j;
+    pad[j] = w + 1 == nw && tail < 32 ? kAll << tail : 0u;
+    // columns c0 = 0, rs, 2 rs, ...
+    c1[j] = region_size > 0 ? (32 * w + region_size - 1) / region_size * region_size : 0;
+    cols[j] = has[j] ? kAll : 0u;                    // a slot of no word: no full column
+  }
   int k;
   if constexpr (!kWindows) {
-    // pass 1, lane-local: the full columns of this word (the AND of its
-    // rows) and bit r set where row r's word is full
-    uint32_t cols = kAll, full = 0;
+    // pass 1, lane-local: the full columns of each word (the AND of its
+    // rows) and bit r set where row r's words are all full
+    uint32_t full = 0;
     for (int r = 0; r < height; ++r) {
-      const uint32_t v = x[r * nw];
-      cols &= v;
-      full |= ((v | pad) == kAll ? 1u : 0u) << r;
+      bool f = true;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        if (has[j]) {
+          const uint32_t v = x[r * nw + 32 * j];
+          cols[j] &= v;
+          f &= (v | pad[j]) == kAll;
+        }
+      }
+      full |= (f ? 1u : 0u) << r;
     }
-    const uint32_t rows_full = __reduce_and_sync(t.mask, full);  // the segment's full rows
-    int got = __popc(cols);                          // this word's full columns, then tiles
+    const uint32_t rows_full = __reduce_and_sync(t.mask, full);  // the env's full rows
+    int got = 0;                                     // this lane's full columns, then tiles
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) got += __popc(cols[j]);
     // pass 2, a band of region_size rows (a row without regions) at a time:
     // the band's full fields, then its rows cleared in place
     for (int r0 = 0; r0 < height; r0 += g) {
       const int rows_here = min(g, height - r0);
-      const uint32_t reg = region_size > 0 ? band_fields(x, nw, r0, rows_here, t, width,
-                                                         region_size, c1, tile0, got)
-                                           : 0u;
+      uint32_t reg[NJ] = {};
+      if (region_size > 0) {
+        band_fields<NJ>(x, nw, r0, rows_here, t, width, region_size, c1, tile0, has, got, reg);
+      }
       for (int i = 0; i < rows_here; ++i) {
         const int r = r0 + i;
-        const uint32_t v = x[r * nw];
-        if (write) x[r * nw] = (rows_full >> r & 1u) ? 0u : v & ~(cols | reg);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          uint32_t* v = x + r * nw + 32 * j;
+          if (write && has[j]) *v = (rows_full >> r & 1u) ? 0u : *v & ~(cols[j] | reg[j]);
+        }
       }
     }
     k = __popc(rows_full) + __reduce_add_sync(t.mask, got);
   } else {
-    // pass 1, lane-local: the full columns of this word
-    uint32_t cols = kAll;
-    for (int r = 0; r < height; ++r) cols &= x[r * nw];
-    int got = __popc(cols);                          // this word's full columns, then tiles
+    // pass 1, lane-local: the full columns of each word
+    for (int r = 0; r < height; ++r) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        if (has[j]) cols[j] &= x[r * nw + 32 * j];
+      }
+    }
+    int got = 0;                                     // this lane's full columns, then tiles
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) got += __popc(cols[j]);
     k = 0;                                           // full rows
     // pass 2, a window of rows at a time (a whole number of bands): its
     // full rows, then its bands as above
     const int win = region_size > 0 ? 32 - 32 % region_size : 32;
     for (int w0 = 0; w0 < height; w0 += win) {
       const int w1 = min(w0 + win, height);
-      uint32_t full = 0;                             // bit i: row w0 + i's word full
-      for (int r = w0; r < w1; ++r) full |= ((x[r * nw] | pad) == kAll ? 1u : 0u) << (r - w0);
+      uint32_t full = 0;                             // bit i: row w0 + i's words all full
+      for (int r = w0; r < w1; ++r) {
+        bool f = true;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          if (has[j]) f &= (x[r * nw + 32 * j] | pad[j]) == kAll;
+        }
+        full |= (f ? 1u : 0u) << (r - w0);
+      }
       const uint32_t rows_full = __reduce_and_sync(t.mask, full);  // the window's full rows
       k += __popc(rows_full);
       for (int r0 = w0; r0 < w1; r0 += g) {
         const int rows_here = min(g, w1 - r0);
-        const uint32_t reg = region_size > 0 ? band_fields(x, nw, r0, rows_here, t, width,
-                                                           region_size, c1, tile0, got)
-                                             : 0u;
+        uint32_t reg[NJ] = {};
+        if (region_size > 0) {
+          band_fields<NJ>(x, nw, r0, rows_here, t, width, region_size, c1, tile0, has, got,
+                          reg);
+        }
         for (int i = 0; i < rows_here; ++i) {
           const int r = r0 + i;
-          const uint32_t v = x[r * nw];
-          if (write) x[r * nw] = (rows_full >> (r - w0) & 1u) ? 0u : v & ~(cols | reg);
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            uint32_t* v = x + r * nw + 32 * j;
+            if (write && has[j]) {
+              *v = (rows_full >> (r - w0) & 1u) ? 0u : *v & ~(cols[j] | reg[j]);
+            }
+          }
         }
       }
     }
@@ -855,15 +966,26 @@ int tall(const Io& io, bool apply, bool deep) {
   return apply ? run_tall<true>(io) : run_tall<false>(io);
 }
 
-// 128 < W <= 1024, any height: per_warp = 32 / NW, warps 1 to 16; the
-// block's shared memory is its envs' rows of NW words, and the apply's as
-// many cover rows beside them on a board of one window, or a word an env
-// (`keep`) on a taller one; refused where a block stages 2^21 bytes or more
-// (`small_div`)
+// The xwide kernel of NJ slots a lane, its four forms.
+template <int NJ>
+Kernel xwide_kernel(bool apply, bool windows) {
+  return apply ? (windows ? clear_xwide_kernel<true, true, NJ>
+                          : clear_xwide_kernel<true, false, NJ>)
+               : (windows ? clear_xwide_kernel<false, true, NJ>
+                          : clear_xwide_kernel<false, false, NJ>);
+}
+
+// 128 < W <= 4096, any height: per_warp = 32 / NW where W <= 1024 (NW
+// lanes an env), 1 above (NJ = ceil(NW / 32) words a lane, one env a
+// warp); warps 1 to 16; the block's shared memory is its envs' rows of NW
+// words, and the apply's as many cover rows beside them on a board of one
+// window, or a word an env (`keep`) on a taller one; refused where a block
+// stages 2^21 bytes or more (`small_div`)
 int xwide(const Io& io, bool apply) {
   const int nw = (io.width + 31) / 32;
-  if (io.height < 1 || io.width <= 128 || io.width > 1024 ||
-      io.per_warp != 32 / nw || !region_ok(io) || io.warps < 1 ||
+  const int nj = (nw + 31) / 32;
+  if (io.height < 1 || io.width <= 128 || io.width > 4096 ||
+      io.per_warp != (nj == 1 ? 32 / nw : 1) || !region_ok(io) || io.warps < 1 ||
       io.warps > bit_rows::kMaxWarps || !aligned(io.board_out) ||
       static_cast<long long>(io.warps) * io.per_warp * io.height * io.width >= (1LL << 21)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -871,10 +993,10 @@ int xwide(const Io& io, bool apply) {
   if (io.n <= 0) return static_cast<int>(cudaGetLastError());
   // windows where a region band or a row's bit would pass one 32-bit word
   const bool windows = io.height > (io.region_size > 0 ? 32 - 32 % io.region_size : 32);
-  const Kernel kernel = apply ? (windows ? clear_xwide_kernel<true, true>
-                                         : clear_xwide_kernel<true, false>)
-                              : (windows ? clear_xwide_kernel<false, true>
-                                         : clear_xwide_kernel<false, false>);
+  const Kernel kernel = nj == 1 ? xwide_kernel<1>(apply, windows)
+                        : nj == 2 ? xwide_kernel<2>(apply, windows)
+                        : nj == 3 ? xwide_kernel<3>(apply, windows)
+                                  : xwide_kernel<4>(apply, windows);
   const long long rows = static_cast<long long>(io.warps) * io.per_warp * io.height * nw;
   return launch_smem(kernel, io,
                      4 * (!apply ? rows : windows ? rows + io.warps * io.per_warp : 2 * rows));
@@ -965,13 +1087,14 @@ extern "C" int bp_clear_deep(const void* board, void* board_out, void* k_out,
               true);
 }
 
-// As bp_clear_rows, for 128 < W <= 1024 and any height: a segment of NW =
+// As bp_clear_rows, for 128 < W <= 4096 and any height: a segment of NW =
 // ceil(W / 32) lanes an env, lane w holding word w of every row, the rows
 // in windows of 32 (32 - 32 mod rs with regions of size rs); per_warp =
-// 32 / NW segments a warp, warps 1 to 16 (the block's output span may
-// start off a 16-byte boundary); refused where the block's shared memory
-// (its envs' rows of NW words) passes what a block may opt in to, or where
-// it stages 2^21 bytes or more.
+// 32 / NW segments a warp where W <= 1024, and above one env a warp, lane l
+// holding words l + 32 j (per_warp = 1); warps 1 to 16 (the block's output
+// span may start off a 16-byte boundary); refused where the block's shared
+// memory (its envs' rows of NW words) passes what a block may opt in to, or
+// where it stages 2^21 bytes or more.
 extern "C" int bp_clear_xwide(const void* board, void* board_out, void* k_out,
                               int n, int height, int width, int region_size,
                               int per_warp, int warps, void* stream) {

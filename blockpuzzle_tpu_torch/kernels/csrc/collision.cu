@@ -4,8 +4,8 @@
 // kernels here: the bit-row kernel (`apply_rows_kernel`, entry
 // `bp_apply_rows`) for boards with H <= 32 and W <= 32, every shipped
 // preset, and the general kernel (`apply_kernel`, entry `bp_apply`) for rows
-// of more than 1024 cells, rows of more than 128 cells on boards of more
-// than 32 rows, and deep boards one warp cannot stage.  The boards between
+// of more than 4096 cells and deep or xwide boards one warp cannot
+// stage.  The boards between
 // take the apply instances of the clear's wide, tall, deep and xwide
 // kernels (clear.cu: `bp_apply_wide`, `bp_apply_tall`, `bp_apply_deep`,
 // `bp_apply_xwide`).

@@ -60,9 +60,13 @@ MAX_PIECE = 8
 # cells of the widest row the wide u8 mask and clear take: four 32-bit
 # words a lane
 MAX_WIDE = 128
-# cells of the widest row the xwide u8 mask and clear take: a segment of
-# ceil(W / 32) lanes a board, a lane a word of every row, at most a warp
+# cells of the widest row the xwide u8 mask and legality take: a segment
+# of ceil(W / 32) lanes a board, a lane a word of every row, at most a warp
 MAX_XWIDE = 1024
+# cells of the widest row the xwide u8 clear and apply take: above
+# ``MAX_XWIDE`` one board a warp, lane l holding words l + 32 j of every
+# row, up to four (``csrc/clear.cu`` ``clear_xwide_kernel``'s NJ)
+MAX_XWIDE_CLEAR = 4096
 # warps a block of the xwide mask and clear: 4 beat 1, 2, 8, 12 and 16 in
 # turns on an H100 on most boards of 129 to 1024 cells a row (PERF.md §6),
 # their blocks' barriers holding fewer warps waiting than 16 do
@@ -263,13 +267,57 @@ def xwide_apply_smem_bytes(cfg: EnvConfig, per_block: int) -> int:
 
 
 def u8_launch_shape(cfg: EnvConfig):
-    """The launch shape of the u8 mask and clear kernel ``cfg``'s board
-    takes (the mask's where no piece spans more than ``MAX_PIECE`` rows or
-    columns): the bit-row, wide, tall, deep or xwide kernels' shape, or None
-    where the general kernel runs (rows of more than ``MAX_XWIDE`` cells, or
-    a deep or xwide board whose one-warp block does not fit)."""
+    """The launch shape of the u8 mask kernel ``cfg``'s board takes (where
+    no piece spans more than ``MAX_PIECE`` rows or columns; the clear's up
+    to ``MAX_XWIDE`` cells a row, ``clear_launch_shape``): the bit-row,
+    wide, tall, deep or xwide kernels' shape, or None where the general
+    kernel runs (rows of more than ``MAX_XWIDE`` cells, or a deep or xwide
+    board whose one-warp block does not fit)."""
     return (row_launch_shape(cfg) or wide_launch_shape(cfg) or tall_launch_shape(cfg)
             or deep_launch_shape(cfg) or xwide_launch_shape(cfg))
+
+
+def long_rows(cfg: EnvConfig) -> bool:
+    """Whether ``cfg``'s rows pass ``MAX_XWIDE`` cells: where the xwide
+    clear and apply hold a board in one warp, lane l holding words
+    l + 32 j (their long-row instances, ``xwide_long_launch_shape``)."""
+    return cfg.width > MAX_XWIDE
+
+
+def xwide_long_launch_shape(cfg: EnvConfig, smem_bytes, most: int):
+    """(1, warps a block) of the xwide clear and apply on rows of
+    ``MAX_XWIDE`` < W <= ``MAX_XWIDE_CLEAR`` cells, any height: one env a
+    warp, lane l holding words l + 32 j of every row (NJ = ceil(W / 1024)
+    slots a lane), and the most warps, at most ``most``, whose block fits
+    what a block may opt in to (``smem_bytes``: the clear's
+    ``xwide_clear_smem_bytes``, the apply's ``xwide_apply_smem_bytes``) and
+    stages and stores fewer than 2^21 bytes.  None for any other board, and
+    where not even one warp fits (the general kernels take those).
+    Computed once per wrapper, as ``row_launch_shape``."""
+    if not MAX_XWIDE < cfg.width <= MAX_XWIDE_CLEAR:
+        return None
+    for warps in range(most, 0, -1):
+        if smem_bytes(cfg, warps) <= SMEM_OPT_IN and warps * cfg.num_cells < 1 << 21:
+            return 1, warps
+    return None
+
+
+def xwide_clear_smem_bytes(cfg: EnvConfig, per_block: int) -> int:
+    """Shared memory of a block of the xwide u8 clear alone: its envs' rows
+    of NW words, cleared in place (``bp_clear_xwide``)."""
+    return 4 * per_block * cfg.height * -(-cfg.width // 32)
+
+
+def clear_launch_shape(cfg: EnvConfig):
+    """(envs a warp, warps a block) of the u8 clear on ``cfg``, or None
+    where its general kernel runs: the mask's shape (``u8_launch_shape``)
+    up to ``MAX_XWIDE`` cells a row, and above, up to ``MAX_XWIDE_CLEAR``,
+    the long-row xwide shape with the clear's own shared memory (one env a
+    warp, ``XWIDE_WARPS`` warps a block where they fit).  Computed once per
+    wrapper, as ``row_launch_shape``."""
+    if long_rows(cfg):
+        return xwide_long_launch_shape(cfg, xwide_clear_smem_bytes, XWIDE_WARPS)
+    return u8_launch_shape(cfg)
 
 
 def apply_launch_shape(cfg: EnvConfig):
@@ -277,17 +325,21 @@ def apply_launch_shape(cfg: EnvConfig):
     its general kernel runs: the bit-row kernels' shape where H <= 32 and
     W <= 32, the wide ones' where H <= 32 and 32 < W <= ``MAX_WIDE`` (a
     block's two spans, under 2^17 bytes, always fit), the xwide ones' where
-    ``MAX_WIDE`` < W <= ``MAX_XWIDE``, at any height, with the apply's own
-    shared memory (``xwide_apply_smem_bytes``): the clear's shape on a
-    board of one window (its block's two arrays of row words, at most 32
-    KB, always fit), ``XWIDE_APPLY_WARPS`` warps a block on a taller board
-    where one warp fits; and on taller boards of at most ``MAX_WIDE`` cells
+    ``MAX_WIDE`` < W <= ``MAX_XWIDE_CLEAR``, at any height, with the
+    apply's own shared memory (``xwide_apply_smem_bytes``): the clear's
+    shape on a board of one window (its block's two arrays of row words, at
+    most 32 KB up to ``MAX_XWIDE`` cells a row, always fit),
+    ``XWIDE_APPLY_WARPS`` warps a block on a taller board where one warp
+    fits (above ``MAX_XWIDE`` cells one env a warp,
+    ``xwide_long_launch_shape``); and on taller boards of at most ``MAX_WIDE`` cells
     a row ``_turns_shape`` with the apply's own shared memory
     (``apply_smem_bytes``: its block stages two spans where the mask stages
     one), so fewer turns or warps where the mask's would not fit.  Computed
     once per wrapper, as ``row_launch_shape``."""
     if cfg.width > MAX_WIDE:
         most = XWIDE_APPLY_WARPS if xwide_windows(cfg) else XWIDE_WARPS
+        if long_rows(cfg):
+            return xwide_long_launch_shape(cfg, xwide_apply_smem_bytes, most)
         return xwide_launch_shape(cfg, xwide_apply_smem_bytes, most)
     if cfg.height <= MAX_ROWS:
         return row_launch_shape(cfg) or wide_launch_shape(cfg)
@@ -515,9 +567,11 @@ def packed_kind(cfg: EnvConfig) -> str:
             "tall" if cfg.height <= MAX_TALL else "general")
 
 
-# kernel kind -> the suffix of its name (``mask_tall``, ``packed_apply``)
+# kernel kind -> the suffix of its name (``mask_tall``, ``packed_apply``);
+# ``xwide_long``: the xwide clear's and apply's instances on rows of more
+# than ``MAX_XWIDE`` cells (``u8_instance``)
 SUFFIX = {"rows": "", "wide": "_wide", "tall": "_tall", "deep": "_deep",
-          "xwide": "_xwide", "general": "_general"}
+          "xwide": "_xwide", "xwide_long": "_xwide_long", "general": "_general"}
 
 
 def u8_kind(cfg: EnvConfig, shape) -> str:
@@ -535,6 +589,14 @@ def u8_kind(cfg: EnvConfig, shape) -> str:
     if cfg.height > MAX_ROWS:
         return "tall"
     return "wide" if cfg.width > 32 else "rows"
+
+
+def u8_instance(cfg: EnvConfig, kind: str) -> str:
+    """The instance of the u8 clear or apply of ``kind`` on ``cfg``, which
+    names the wrapper's kernel and counts its launches: ``"xwide_long"``
+    for the xwide kernel on rows of more than ``MAX_XWIDE`` cells (one env
+    a warp, NJ > 1 words a lane; ``xwide_long_launches``), else ``kind``."""
+    return "xwide_long" if kind == "xwide" and long_rows(cfg) else kind
 
 
 def count_launch(kernel, prefix: str = "", kind: str = "") -> None:

@@ -238,7 +238,9 @@ def _apply_deep(cfg, inputs):
 def _apply_xwide(cfg, inputs):
     """K2, xwide: inputs (board, footprint cells, valid); the board loaded
     as row words and the cover ORed over them, 3 operations a word to test
-    the atomics' old words and place, the xwide clear's 12."""
+    the atomics' old words and place, the xwide clear's 12 (also on rows of
+    more than 1024 cells, ``apply_xwide_long``: a lane's slots each take a
+    word's operations, a slot past the row's last word none)."""
     n, h = inputs[0].shape[0], cfg.height
     return n * (2 * _stage_words(cfg) + h * 15 * _words(cfg) + _regions(cfg)
                 + cfg.num_cells)
@@ -266,7 +268,9 @@ def _clear_deep(cfg, inputs):
 def _clear_xwide(cfg, inputs):
     """K3, xwide: inputs (board,); the board loaded as row words, then a
     word of each row about 6 operations in each of the two passes (the
-    column AND and the full-row bit, then the clear in place)."""
+    column AND and the full-row bit, then the clear in place); the same on
+    rows of more than 1024 cells (``clear_xwide_long``: a lane's slots each
+    a word's operations, a slot past the row's last word none)."""
     n, h = inputs[0].shape[0], cfg.height
     return n * (_stage_words(cfg) + h * 12 * _words(cfg) + _regions(cfg) + cfg.num_cells)
 
@@ -387,10 +391,12 @@ COSTS: Dict[str, Cost] = {
     "mask_xwide": _cost(_mask_xwide), "mask_general": _cost(_mask_general),
     "apply": _cost(_apply), "apply_wide": _cost(_apply_words),
     "apply_tall": _cost(_apply_words), "apply_deep": _cost(_apply_deep),
-    "apply_xwide": _cost(_apply_xwide), "apply_general": _cost(_apply_general),
+    "apply_xwide": _cost(_apply_xwide), "apply_xwide_long": _cost(_apply_xwide),
+    "apply_general": _cost(_apply_general),
     "clear": _cost(_clear), "clear_wide": _cost(_clear_wide),
     "clear_tall": _cost(_clear_wide), "clear_deep": _cost(_clear_deep),
-    "clear_xwide": _cost(_clear_xwide), "clear_general": _cost(_clear_general),
+    "clear_xwide": _cost(_clear_xwide), "clear_xwide_long": _cost(_clear_xwide),
+    "clear_general": _cost(_clear_general),
     **{f"legality{s}": _cost(_legality)
        for s in ("", "_wide", "_tall", "_deep", "_xwide", "_general")},
     **{f"packed_apply{s}": _cost(_packed_apply) for s in ("", "_tall", "_general")},
@@ -411,8 +417,8 @@ def kernel_bounds(cfg, board, queue, cover, valid, words, attrs, r, c, outs) -> 
               "packed_mask": [words, queue], "packed_legal_words": [words, queue]}
     bounds = {}
     for k, out in outs.items():
-        args = inputs[k.removesuffix("_wide").removesuffix("_tall").removesuffix("_deep")
-                      .removesuffix("_xwide").removesuffix("_general")]
+        args = inputs[k.removesuffix("_long").removesuffix("_wide").removesuffix("_tall")
+                      .removesuffix("_deep").removesuffix("_xwide").removesuffix("_general")]
         out = list(out if isinstance(out, tuple) else (out,))
         _, ops = COSTS[k](cfg, args, out)
         bounds[k] = bound(args + out, ops)

@@ -168,9 +168,9 @@ then, each line tagged with its part (all fourteen by default):
             bit-equal to the general kernel it replaces launched directly
             on the same inputs (``chip_smoke.general_calls``,
             ``chip_smoke.general_apply``, ``chip_smoke.general_legality``)
-            and, with ``--parent-csrc DIR``, the earlier sources' kernel
-            (their xwide kernels, or above 32 rows their general apply and
-            legality, which took those boards), with each ``--alt-csrc``
+            and, with ``--parent-csrc DIR``, the earlier sources' xwide
+            kernels (sources whose xwide apply and legality take any
+            height), with each ``--alt-csrc``
             build's xwide kernels and, above 32 rows, at other warps a
             block, timed in turns with them, 5 rounds, medians and shares
             of the bound (``xwide_times``); then the u8 apply-kernel step on
@@ -178,7 +178,20 @@ then, each line tagged with its part (all fourteen by default):
             else the current library's) and with the xwide one, in turns
             general, xwide, xwide, general: host ms a step, device kernels,
             device ms and busy share a step, the apply's device ms a step
-            (``xwide_step_turns``);
+            (``xwide_step_turns``); then the clear's and the apply's
+            long-row instances on rows of more than 1024 cells, on 2x1056,
+            3x1030, 2x2048, 9x1035 with regions and a hand of three (N =
+            49152) and 33x1025 (N = 8192): each held bit-equal to the
+            general kernel launched directly and, with ``--parent-csrc
+            DIR``, the earlier sources' general kernel (which took those
+            boards), and at 1, 2 and 8 warps a block, timed in turns with
+            them, medians and shares of the bound (``long_times``); then
+            the u8 clear-kernel and apply-kernel steps on 2x1056 with the
+            earlier (or the current) general clear or apply and with the
+            long-row one in turns, earlier, current, current, earlier: host
+            ms a step, device kernels, device ms and busy share a step, the
+            clear's or the apply's device ms a step (``long_step_turns``,
+            ``pallas_step_turns``);
   legality  the all-pieces legality (K4) beyond 32x32 at N = 49152 on 8x40,
             33x9, 130x8 and 8x136 (``chip_smoke.LEGALITY_BOARDS``): the
             every-piece instance of the wide, tall, deep or xwide mask
@@ -1668,11 +1681,11 @@ def earlier_deep_calls(lib, cfg, ck, pmk):
 
 
 def group_turns(card: str, tag: str, name: str, groups: dict, bound: dict,
-                rounds: int) -> None:
+                rounds: int, n: int = chip_smoke.N_MAIN) -> None:
     """Each group of ``groups`` (kernel -> {label: callable}) held bit-equal,
     then timed in turns, in order and back, ``rounds`` times (``turns_ms``):
     medians, the share of the kernel's ``bound`` (``utils/bounds.py``) and
-    each median over the group's first."""
+    each median over the group's first; ``n``: the envs of the inputs."""
     import torch
 
     for key, fns in groups.items():
@@ -1680,7 +1693,6 @@ def group_turns(card: str, tag: str, name: str, groups: dict, bound: dict,
         got = [g if isinstance(g, tuple) else (g,) for g in got]
         if not all(torch.equal(a, b) for g in got[1:] for a, b in zip(g, got[0])):
             raise AssertionError(f"{key} {name}: the kernels disagree")
-    n = chip_smoke.N_MAIN
     print(f"[{tag}] {name} N={n}: " + "; ".join(
         f"{' == '.join(fns)} (bit-equal)" for fns in groups.values()))
     for key, fns in groups.items():
@@ -1746,7 +1758,7 @@ def deep_turns(card: str, lib, rounds: int = 5) -> None:
 # boards the ``apply`` part times K2 on: its wide, tall and deep kernels
 APPLY_BOARDS = {"8x40": chip_smoke.WIDE, "33x9": chip_smoke.TALL, "130x8": chip_smoke.HUGE,
                 "512x8": chip_smoke.DEEP_CASES["512x8"], "8x136": chip_smoke.XWIDE,
-                "40x136": chip_smoke.XTALL}
+                "40x136": chip_smoke.XTALL, "2x1056": chip_smoke.W1056}
 
 
 def apply_turns(card: str, lib, rounds: int = 5) -> None:
@@ -1783,27 +1795,70 @@ def apply_turns(card: str, lib, rounds: int = 5) -> None:
         group_turns(card, "apply", name, {ak.name: fns}, bound, rounds)
 
 
-def pallas_step_turns(card: str, lib, steps: int = 20,
-                      names=("8x40", "33x9", "130x8", "8x136"), others=None) -> None:
-    """The u8 apply-kernel step (``backend="pallas"``) on 8x40, 33x9, 130x8
-    and 8x136 at N = 49152, uniform-legal draws, one engine each carrying its
-    state: with the general apply swapped in (the earlier library's
-    ``bp_apply`` where ``lib`` is given, else the current library's,
-    ``chip_smoke.general_apply``), with the wrapper's wide, tall, deep or
-    xwide apply and with each apply ``others(cfg, wrapper)`` names (label ->
-    a callable with the wrapper's arguments), in turns earlier, current,
-    the others, then back: host ms a step over ``steps`` unprofiled steps,
-    then ``steps`` steps under ``torch.profiler``: device kernels, device ms
-    and busy share a step, and the apply's device ms a step inside it.
-    Where ``names`` is given, those boards only."""
+def swap_turns(card: str, tag: str, what: tuple, env, attr: str, kernels: dict, labels: dict,
+               keys, steps: int = 20) -> None:
+    """``env``'s step at N = 49152 from a fresh ``init``, uniform-legal
+    draws, one state carried through, with each of ``kernels`` (label -> a
+    callable with the wrapper's arguments) in turn as its ``attr`` kernel
+    (``"apply_kernel"``, ``"clear_kernel"``), in order and back: host ms a
+    step over ``steps`` unprofiled steps, then ``steps`` steps under
+    ``torch.profiler``: device kernels, device ms and busy share a step,
+    and the device ms a step of the kernels whose device names hold one of
+    ``keys``.  ``what`` names the step and the swapped kernel (``"u8 pallas
+    step, 8x40"``, ``"apply"``), ``labels`` a label's printed name.  The
+    wrapper is put back at the end."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from blockpuzzle_tpu_torch import make_env
-    from blockpuzzle_tpu_torch.config import EnvConfig
     from blockpuzzle_tpu_torch.sampler import UniformLegalSampler
 
-    n = chip_smoke.N_MAIN
+    n, (step, kind) = chip_smoke.N_MAIN, what
+    current = getattr(env, attr)
+    state, ts = env.init(0, n)
+    draw = UniformLegalSampler(1, n, env.device)
+
+    def run(k):
+        nonlocal state, ts
+        for _ in range(k):
+            state, ts = env.step(state, draw(ts.action_mask))
+        torch.cuda.synchronize()
+
+    for which in [*kernels, *reversed(kernels)]:
+        setattr(env, attr, kernels[which])
+        run(5)                                             # warm-up
+        t0 = time.perf_counter()
+        run(steps)
+        step_ms = 1e3 * (time.perf_counter() - t0) / steps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run(steps)
+        device = device_events(prof)
+        if not device:
+            print(f"[{tag}] the profiler saw no device events: not measured")
+            continue
+        busy = busy_us(device) / steps / 1e3
+        part = sum(e.time_range.elapsed_us() for e in device
+                   if any(k in e.name for k in keys)) / steps / 1e3
+        print(f"[{tag}] {step}, N={n}, {which} {kind} ({labels.get(which, which)}): "
+              f"{step_ms:.4f} ms per step, {len(device) / steps:.2f} device kernels, "
+              f"{sum(e.time_range.elapsed_us() for e in device) / steps / 1e3:.6f} ms "
+              f"device time a step, busy {busy:.4f} ms = {100 * busy / step_ms:.1f}%, "
+              f"the {kind} {part:.6f} ms a step ({card})")
+    setattr(env, attr, current)
+
+
+def pallas_step_turns(card: str, lib, steps: int = 20,
+                      names=("8x40", "33x9", "130x8", "8x136"), others=None) -> None:
+    """The u8 apply-kernel step (``backend="pallas"``) on 8x40, 33x9, 130x8
+    and 8x136 at N = 49152 (``swap_turns``), one engine each: with the
+    general apply swapped in (the earlier library's ``bp_apply`` where
+    ``lib`` is given, else the current library's,
+    ``chip_smoke.general_apply``), with the wrapper's wide, tall, deep or
+    xwide apply and with each apply ``others(cfg, wrapper)`` names (label ->
+    a callable with the wrapper's arguments), in turns earlier, current,
+    the others, then back.  Where ``names`` is given, those boards only."""
+    from blockpuzzle_tpu_torch import make_env
+    from blockpuzzle_tpu_torch.config import EnvConfig
+
     # the device names of the general apply and of the clear kernels' apply
     # instances (the wide, tall and deep ones' last template argument, the
     # xwide one's first: kApply)
@@ -1814,38 +1869,9 @@ def pallas_step_turns(card: str, lib, steps: int = 20,
         current = env.apply_kernel
         kernels = {"earlier": chip_smoke.general_apply(cfg, current, lib), "current": current,
                    **(others(cfg, current) if others else {})}
-        state, ts = env.init(0, n)
-        draw = UniformLegalSampler(1, n, env.device)
-
-        def run(k):
-            nonlocal state, ts
-            for _ in range(k):
-                state, ts = env.step(state, draw(ts.action_mask))
-            torch.cuda.synchronize()
-
-        for which in [*kernels, *reversed(kernels)]:
-            env.apply_kernel = kernels[which]
-            run(5)                                         # warm-up
-            t0 = time.perf_counter()
-            run(steps)
-            step_ms = 1e3 * (time.perf_counter() - t0) / steps
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                run(steps)
-            device = device_events(prof)
-            if not device:
-                print("[apply] the profiler saw no device events: not measured")
-                continue
-            busy = busy_us(device) / steps / 1e3
-            part = sum(e.time_range.elapsed_us() for e in device
-                       if any(k in e.name for k in keys)) / steps / 1e3
-            label = {"earlier": "general apply", "current": current.name}.get(which, which)
-            print(f"[apply] u8 pallas step, {name}, N={n}, {which} apply ({label}): "
-                  f"{step_ms:.4f} ms per step, {len(device) / steps:.2f} device kernels, "
-                  f"{sum(e.time_range.elapsed_us() for e in device) / steps / 1e3:.6f} ms "
-                  f"device time a step, busy {busy:.4f} ms = {100 * busy / step_ms:.1f}%, "
-                  f"the apply {part:.6f} ms a step ({card})")
-        env.apply_kernel = current
-
+        swap_turns(card, "apply", (f"u8 pallas step, {name}", "apply"), env, "apply_kernel",
+                   kernels, {"earlier": "general apply", "current": current.name}, keys,
+                   steps)
 
 def xwide_calls(lib, cfg, mk=None, ck=None, ak=None, lk=None, warps=None) -> dict:
     """Callables with the wrappers' arguments that launch ``lib``'s xwide
@@ -1920,10 +1946,8 @@ def xwide_times(card: str, lib, alts=None, rounds: int = 5) -> None:
     (``chip_smoke.general_calls``: ``bp_mask``, ``bp_clear``;
     ``chip_smoke.general_apply``: ``bp_apply``;
     ``chip_smoke.general_legality``: ``bp_legality``), and, where ``lib``
-    (an earlier build) is given, first that build's kernel: its xwide mask
-    and clear everywhere, its xwide apply and legality on the boards of at
-    most 32 rows and its general apply and legality above, which took those
-    boards.  Each ``alts`` build's (``--alt-csrc``) xwide kernels (those it
+    (an earlier build, one whose xwide apply and legality take any height)
+    is given, first that build's xwide kernel.  Each ``alts`` build's (``--alt-csrc``) xwide kernels (those it
     has) join their groups on every board; on the boards of more than 32
     rows each kernel also at the other warps a block that fit.  Every group
     held bit-equal, then timed in turns (``group_turns``)."""
@@ -1960,13 +1984,9 @@ def xwide_times(card: str, lib, alts=None, rounds: int = 5) -> None:
         general_legality = chip_smoke.general_legality(cfg, lk)
         groups = {f"{key}_xwide": {} for key in args}
         if lib is not None:
-            earlier = xwide_calls(lib, cfg, mk, ck, None if tall else ak, None if tall else lk)
-            if tall:  # the earlier build took these with its general apply and legality
-                earlier["apply"] = chip_smoke.general_apply(cfg, ak, lib)
-                earlier["legality"] = chip_smoke.general_legality(cfg, lk, lib)
-            for key, fn in earlier.items():
-                label = f"earlier {'bp_' + key if tall and key in ('apply', 'legality') else key + '_xwide'}"
-                groups[f"{key}_xwide"][label] = lambda fn=fn, key=key: fn(*args[key])
+            for key, fn in xwide_calls(lib, cfg, mk, ck, ak, lk).items():
+                groups[f"{key}_xwide"][f"earlier {key}_xwide"] = (
+                    lambda fn=fn, key=key: fn(*args[key]))
         current = {"mask": mk, "clear": ck, "apply": ak, "legality": lk}
         general = {"mask": general_mask, "clear": general_clear, "apply": general_apply,
                    "legality": general_legality}
@@ -2032,6 +2052,89 @@ def xwide_step_turns(card: str, lib, alts=None, steps: int = 20) -> None:
 
     pallas_step_turns(card, lib, steps, names=("8x136", "40x136"), others=others)
 
+
+def long_times(card: str, lib, rounds: int = 5) -> None:
+    """K3 and K2 on rows of more than 1024 cells (``chip_smoke.W1056`` and
+    ``chip_smoke.XLONG_CASES``; ``chip_smoke.kernel_inputs``, seed 0, N =
+    49152, 8192 on the board of more than 32 rows): the clear's and the
+    apply's long-row xwide instances beside the general clear and apply
+    launched directly on the same inputs (``chip_smoke.general_calls``,
+    ``chip_smoke.general_apply``), first the earlier build's general ones
+    where ``lib`` is given (its wrappers took these boards with them), and
+    the long-row instances at 1, 2 and 8 warps a block (the wrappers take
+    ``XWIDE_WARPS``, or ``XWIDE_APPLY_WARPS`` for the apply above 32 rows);
+    every group held bit-equal, then timed in turns (``group_turns``)."""
+    import torch
+
+    from blockpuzzle_tpu_torch import rules
+    from blockpuzzle_tpu_torch.config import EnvConfig
+    from blockpuzzle_tpu_torch.kernels import ApplyKernel, ClearScanKernel, _build
+    from blockpuzzle_tpu_torch.kernels.packed import (
+        xwide_apply_smem_bytes, xwide_clear_smem_bytes,
+    )
+    from blockpuzzle_tpu_torch.utils.bounds import kernel_bounds
+
+    dev = torch.device("cuda")
+    for name, shape in {"2x1056": chip_smoke.W1056, **chip_smoke.XLONG_CASES}.items():
+        cfg = EnvConfig(**shape)
+        n = chip_smoke.N_MAIN if cfg.height <= 32 else 8192
+        ck, ak = ClearScanKernel(cfg, dev), ApplyKernel(cfg, dev)
+        if (ck.name, ak.name) != ("clear_xwide_long", "apply_xwide_long"):
+            raise AssertionError(f"{name}: the wrappers picked {ck.name}, {ak.name}")
+        board, queue, cover, valid, attrs, r, c = (
+            torch.as_tensor(x, device=dev) for x in chip_smoke.kernel_inputs(cfg, n, seed=0))
+        args = {"clear": (board,), "apply": (board, cover, valid)}
+        current = {"clear": ck, "apply": ak}
+        general = {"clear": chip_smoke.general_calls(cfg, None, ck)[1],
+                   "apply": chip_smoke.general_apply(cfg, ak)}
+        groups = {f"{key}_xwide_long": {} for key in args}
+        if lib is not None:
+            earlier = {"clear": chip_smoke.general_calls(cfg, None, ck, lib)[1],
+                       "apply": chip_smoke.general_apply(cfg, ak, lib)}
+            for key, fn in earlier.items():
+                groups[f"{key}_xwide_long"][f"earlier bp_{key}"] = (
+                    lambda fn=fn, key=key: fn(*args[key]))
+        smem = {"clear": xwide_clear_smem_bytes, "apply": xwide_apply_smem_bytes}
+        for key in args:
+            group = groups[f"{key}_xwide_long"]
+            group[f"{key}_xwide_long"] = lambda key=key: current[key](*args[key])
+            group[f"{key}_general"] = lambda key=key: general[key](*args[key])
+            for warps in (1, 2, 8):
+                if (warps == current[key].shape[1] or smem[key](cfg, warps) > 227 * 1024
+                        or warps * cfg.num_cells >= 1 << 21):
+                    continue
+                fn = xwide_calls(_build.library(), cfg, ck=ck, ak=ak, warps=warps)[key]
+                group[f"{key}_xwide_long {warps} warps"] = lambda fn=fn, key=key: fn(*args[key])
+        outs = {f"{key}_xwide_long": current[key](*args[key]) for key in args}
+        bound = kernel_bounds(cfg, board, queue, cover, valid, None, attrs, r, c, outs)
+        del outs
+        print(f"[xwide] {name}: long-row launch shapes (envs a warp, warps a block) clear "
+              f"{ck.shape}, apply {ak.shape}; shared memory a block: clear "
+              f"{xwide_clear_smem_bytes(cfg, ck.shape[1])} B, apply "
+              f"{xwide_apply_smem_bytes(cfg, ak.shape[1])} B")
+        group_turns(card, "xwide", name, groups, bound, rounds, n)
+        del board, queue, cover, valid, groups, general, current, ck, ak
+        rules._TABLE_CACHE.pop(cfg, None)
+
+
+def long_step_turns(card: str, lib, steps: int = 20) -> None:
+    """The u8 clear-kernel step (``backend="jnp"``) on 2x1056 at N = 49152
+    (``swap_turns``): with the general clear swapped in (the earlier
+    library's ``bp_clear`` where ``lib`` is given, whose wrapper took this
+    board with it; else the current library's) and with the wrapper's
+    long-row xwide clear, in turns earlier, current, current, earlier.  The
+    mask is the wrapper's (the general mask) in both."""
+    from blockpuzzle_tpu_torch import make_env
+    from blockpuzzle_tpu_torch.config import EnvConfig
+
+    cfg = EnvConfig(**chip_smoke.W1056)
+    env = make_env(cfg, device="cuda", backend="jnp", state_impl="u8")
+    current = env.clear_kernel
+    kernels = {"earlier": chip_smoke.general_calls(cfg, None, current, lib)[1],
+               "current": current}
+    swap_turns(card, "xwide", ("u8 jnp step, 2x1056", "clear"), env, "clear_kernel", kernels,
+               {"earlier": "general clear", "current": current.name},
+               ("::clear_kernel(", "clear_xwide_kernel<false,"), steps)
 
 def deep_step_turns(card: str, lib, steps: int = 20) -> None:
     """The default (packed) step and the u8 clear-kernel step on 130x8 at
@@ -2211,6 +2314,9 @@ def main(argv=None) -> int:
         lib = parent_library(pathlib.Path(args.parent_csrc)) if args.parent_csrc else None
         xwide_times(card, lib, alts)
         xwide_step_turns(card, lib, alts)
+        long_times(card, lib)
+        long_step_turns(card, lib)
+        pallas_step_turns(card, lib, names=("2x1056",))
     if "legality" in parts:
         lib = parent_library(pathlib.Path(args.parent_csrc)) if args.parent_csrc else None
         legality_turns(card, lib)

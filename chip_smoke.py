@@ -9,7 +9,7 @@ which raises on failure (non-zero exit, no result line):
 
   0. card name and power limit, torch/CUDA versions, compute capability,
      kernel build time;
-  1. each of the thirty-eight kernels against its plain torch version on
+  1. each of the forty kernels against its plain torch version on
      the card, bit-equal, at N = 49152 and a ragged N = 49151: the three draws
      (deal, uniform_legal, words_select: ``kernels/draws.py``) on the four
      presets, at per-env counters that wrap negative and at shared ones
@@ -69,8 +69,15 @@ which raises on failure (non-zero exit, no result line):
      36x135 with 3x3 regions and a hand of three and 66x130
      (``XTALL_CASES``, more than 32 rows) at N = 4096 and 4095, each also
      held to the general mask, clear, apply and legality launched
-     directly, and the general mask, clear, apply and legality on 2x1056
-     (``W1056``); the all-pieces legality beyond 32x32
+     directly; on rows of more than 1024 cells (``phase1_long``) the
+     clear's and the apply's long-row xwide instances (clear_xwide_long,
+     apply_xwide_long: one env a warp, lane l holding words l + 32 j) on
+     2x1056 (``W1056``), 3x1030, 2x2048, 9x1035 with 3x3 regions across
+     the lane-31 border and a hand of three and 33x1025 (``XLONG_CASES``)
+     at N = 4096 and 4095, each also held to the general clear and apply
+     launched directly, with the general mask and legality the wrappers
+     pick there, and the four general kernels on 2x4128 (``W4128``); the
+     all-pieces legality beyond 32x32
      (``phase1_legality``): the every-piece instances of the wide, tall and
      deep masks (legality_wide, legality_tall, legality_deep) on 8x40, 33x9
      and 130x8 (``LEGALITY_BOARDS``; at N = 4096 and 4095 but on 8x40),
@@ -92,8 +99,9 @@ which raises on failure (non-zero exit, no result line):
      = 49152 on the default preset (the wide kernels on the wide board, the
      tall ones on 33x9, the deep ones and the general packed ones on 130x8,
      the xwide mask, clear, apply and legality on 40x136 beside the general
-     ones launched directly there, the general mask, clear, apply and
-     legality on 2x1056, where the wrappers pick them),
+     ones launched directly there, the general mask and legality and the
+     long-row clear and apply on 2x1056, where the wrappers pick them,
+     beside the general clear and apply launched directly there),
      and the launch floor (an empty launch's
      device time) beside the deal's; then the wide board's kernels timed
      in turns for 5 rounds, with the general mask, clear, apply and
@@ -126,14 +134,16 @@ which raises on failure (non-zero exit, no result line):
      with the five small pieces, whose line tables the wrappers refused
      before, the default engine (the u8 clear-kernel step on its tall
      kernels): ``big100_u8_jnp``, N = 64, 8 steps; 2x1056, rows of
-     more than 1024 cells, the general mask, apply and clear:
-     ``w1056_u8_pallas``, ``w1056_u8_jnp``; N = 256, 32 steps), counters set to
+     more than 1024 cells, the general mask and the long-row apply and
+     clear: ``w1056_u8_pallas``, ``w1056_u8_jnp``, N = 256, 32 steps;
+     2x4128, rows of more than 4096 cells, the general mask, apply and
+     clear: ``w4128_u8_pallas``, ``w4128_u8_jnp``, N = 64, 8 steps), counters set to
      0 before each and read after it: final states and summed rewards
      bit-equal across devices and across the engines, each kernel of an
      engine launched exactly once per step and every other kernel never;
      then ``legal_all_pieces`` on the final boards against its plain
      version and the hand mask (beyond the presets the every-piece
-     instance the board takes, the general legality on 2x1056: the paths
+     instance the board takes, the general legality on 2x1056 and 2x4128: the paths
      ``<board>_legal_all_pieces``); then the words rollout on
      33x9, 36x9 with regions and 130x8 on CUDA against the CPU (the paths
      ``tall_words``, ``tall36r3_words``, ``huge_words``);
@@ -336,9 +346,24 @@ XTALL_CASES = {"33x129": dict(height=33, width=129),
 # a board of more than 12288 cells and lines, whose line tables the
 # wrappers refused before: the default engine there (u8, the tall kernels)
 BIG100 = dict(height=100, width=124, piece_set="mini5")
-# rows of more than 1024 cells: the general u8 mask, clear, apply and
-# legality (the paths ``w1056_u8_pallas`` and ``w1056_u8_jnp``)
+# rows of more than 1024 cells: the general u8 mask and legality and the
+# xwide clear's and apply's long-row instances, one env a warp, a lane up to
+# four words (the paths ``w1056_u8_pallas`` and ``w1056_u8_jnp``)
 W1056 = dict(height=2, width=1056, piece_set="mini5")
+# the other such boards phase 1 holds the long-row clear and apply on
+# (tests/test_torch_xwide_rows.py): 33 words with a 6-bit top word, two
+# whole slots a lane, 3x3 regions across the lane-31 border (columns
+# 1023..1025) with a hand of three, and more than 32 rows (the windowed
+# form; its mask and legality, whose plain tables take 20 HW^2 bytes each,
+# are not built)
+XLONG_CASES = {"3x1030": dict(height=3, width=1030, piece_set="mini5"),
+               "2x2048": dict(height=2, width=2048, piece_set="mini5"),
+               "9x1035r3": dict(height=9, width=1035, region_clear=True, region_size=3,
+                                queue_size=3, piece_set="mini5"),
+               "33x1025": dict(height=33, width=1025, piece_set="mini5")}
+# rows of more than 4096 cells: the general mask, clear, apply and legality
+# (the paths ``w4128_u8_pallas`` and ``w4128_u8_jnp``)
+W4128 = dict(height=2, width=4128, piece_set="mini5")
 # kernel -> (source, the TPU kernel or jnp code it replaces, the path its
 # launches are read from)
 KERNEL_INFO = {
@@ -364,8 +389,10 @@ KERNEL_INFO = {
                    "blockpuzzle_tpu/kernels/collision.py:164", "huge_u8_pallas"),
     "apply_xwide": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
                     "blockpuzzle_tpu/kernels/collision.py:164", "xtall_u8_pallas"),
+    "apply_xwide_long": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
+                         "blockpuzzle_tpu/kernels/collision.py:164", "w1056_u8_pallas"),
     "apply_general": ("blockpuzzle_tpu_torch/kernels/csrc/collision.cu",
-                      "blockpuzzle_tpu/kernels/collision.py:164", "w1056_u8_pallas"),
+                      "blockpuzzle_tpu/kernels/collision.py:164", "w4128_u8_pallas"),
     "clear": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
               "blockpuzzle_tpu/kernels/clear.py:93", "train_u8"),
     "clear_wide": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
@@ -376,8 +403,10 @@ KERNEL_INFO = {
                    "blockpuzzle_tpu/kernels/clear.py:93", "huge_u8_jnp"),
     "clear_xwide": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
                     "blockpuzzle_tpu/kernels/clear.py:93", "xtall_u8_jnp"),
+    "clear_xwide_long": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
+                         "blockpuzzle_tpu/kernels/clear.py:93", "w1056_u8_jnp"),
     "clear_general": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
-                      "blockpuzzle_tpu/kernels/clear.py:93", "w1056_u8_jnp"),
+                      "blockpuzzle_tpu/kernels/clear.py:93", "w4128_u8_jnp"),
     "legality": ("blockpuzzle_tpu_torch/kernels/csrc/legality.cu",
                  "blockpuzzle_tpu/kernels/collision.py:50", "legal_all_pieces"),
     **{f"legality_{kind}": ("blockpuzzle_tpu_torch/kernels/csrc/mask.cu",
@@ -461,12 +490,14 @@ def kernel_counters(env) -> dict:
             "apply_tall": (env.apply_kernel, "tall_launches"),
             "apply_deep": (env.apply_kernel, "deep_launches"),
             "apply_xwide": (env.apply_kernel, "xwide_launches"),
+            "apply_xwide_long": (env.apply_kernel, "xwide_long_launches"),
             "apply_general": (env.apply_kernel, "general_launches"),
             "clear": (env.clear_kernel, "launches"),
             "clear_wide": (env.clear_kernel, "wide_launches"),
             "clear_tall": (env.clear_kernel, "tall_launches"),
             "clear_deep": (env.clear_kernel, "deep_launches"),
             "clear_xwide": (env.clear_kernel, "xwide_launches"),
+            "clear_xwide_long": (env.clear_kernel, "xwide_long_launches"),
             "clear_general": (env.clear_kernel, "general_launches"),
             "legality": (env.legal_kernel, "launches"),
             **{f"legality_{kind}": (env.legal_kernel, f"{kind}_launches")
@@ -615,6 +646,9 @@ def kernel_inputs(cfg, n: int, seed: int):
     if cfg.region_clear and cfg.width > 32 and 32 % size:
         c0 = 32 // size * size                        # a full region across
         grid[5::7, :size, c0 : c0 + size] = 1         # two row words
+    if cfg.region_clear and cfg.width > 1024 and 1024 % size:
+        c0 = 1024 // size * size                      # and across lane 31's
+        grid[6::7, :size, c0 : c0 + size] = 1         # last word and lane 0's next
     if cfg.height > 32:                               # at the lane seam: full
         grid[5::7, 31, :] = 1                         # rows 31 and 32, a full
         grid[6::7, 32, :] = 1                         # region on rows 30..32
@@ -668,9 +702,12 @@ def u8_kernel_names(cfg) -> tuple:
     and 2 run: each fits a block of the deep mask, of the deep apply and of
     the deep legality), the xwide ones where 128 < W <= 1024 at any height
     (the boards phases 1 and 2 run: each fits a block of one warp), the
-    general kernels elsewhere."""
+    general kernels elsewhere, but for the clear's and the apply's long-row
+    xwide instances where 1024 < W <= 4096."""
     if cfg.height <= 32 and cfg.width <= 32:
         return "mask", "clear", "apply", "legality"
+    if 1024 < cfg.width <= 4096:
+        return "mask_general", "clear_xwide_long", "apply_xwide_long", "legality_general"
     if cfg.width > 128:
         kind = "xwide" if cfg.width <= 1024 else "general"
     else:
@@ -861,6 +898,7 @@ def phase1(card: str) -> dict:
         times.update({k: (cuda_ms(f), host_paced_ms(g)) for k, (f, g) in calls.items()})
     phase1_tall(errs, times, bounds)
     phase1_xwide(errs, times, bounds)
+    phase1_long(errs, times, bounds)
     phase1_legality(errs, times, bounds)
     phase1_tail(errs, times, bounds)
     phase1_draws(errs, times, bounds, card)
@@ -873,7 +911,8 @@ def phase1(card: str) -> dict:
     print("[phase1] illegal action on a full-line board: strict no-op (apply, "
           "apply_wide on every wide board, apply_tall and apply_deep on every board of "
           "more than 32 rows of the u8 kernels, apply_xwide on every board of 129 to "
-          "1024 cells a row, packed_apply, packed_apply_tall, packed_apply_general)")
+          "1024 cells a row, apply_xwide_long on every board of 1025 to 4096, "
+          "packed_apply, packed_apply_tall, packed_apply_general)")
     wide_turns(card, "phase1")
     tall_turns(card, "phase1")
     return {k: {"max_abs_err": errs[k], "ms": times[k][0], "plain_ms": times[k][1],
@@ -1075,13 +1114,11 @@ def phase1_xwide(errs: dict, times: dict, bounds: dict) -> None:
     the same inputs (``general_calls``, ``general_apply``,
     ``general_legality``), and an illegal action on a full line through the
     apply; the same checks on ``XWIDE_CASES`` and ``XTALL_CASES`` at
-    N = 4096 and 4095, and on 2x1056 (``W1056``), rows too wide for the
-    xwide kernels, the general kernels the wrappers pick there.  Times the
-    four xwide kernels on 40x136, each beside the general kernel it
-    replaces launched directly on the same inputs, and the four general
-    kernels on 2x1056, where they run, at N = 49152 into ``times`` and
-    ``bounds``, and prints each time beside its bound (and the general
-    one's)."""
+    N = 4096 and 4095.  Times the four xwide kernels on 40x136, each beside
+    the general kernel it replaces launched directly on the same inputs, at
+    N = 49152 into ``times`` and ``bounds``, and prints each time beside its
+    bound and the general one's.  Rows of more than 1024 cells are
+    ``phase1_long``'s."""
     import torch
 
     from blockpuzzle_tpu_torch.config import EnvConfig
@@ -1094,11 +1131,10 @@ def phase1_xwide(errs: dict, times: dict, bounds: dict) -> None:
     boards = {"8x136": (XWIDE, (N_MAIN, N_MAIN - 1)),
               **{name: (shape, (4096, 4095)) for name, shape in XWIDE_CASES.items()},
               "40x136": (XTALL, (N_MAIN, N_MAIN - 1)),
-              **{name: (shape, (4096, 4095)) for name, shape in XTALL_CASES.items()},
-              "2x1056": (W1056, (4096, 4095))}
-    # the boards whose kernels' times go into ``times`` (the kernels line):
+              **{name: (shape, (4096, 4095)) for name, shape in XTALL_CASES.items()}}
+    # the board whose kernels' times go into ``times`` (the kernels line):
     # each kernel on the board of the path its launches are read from
-    timed = ("40x136", "2x1056")
+    timed = ("40x136",)
     for name, (shape, sizes) in boards.items():
         cfg = EnvConfig(**shape)
         names = u8_kernel_names(cfg)
@@ -1111,7 +1147,6 @@ def phase1_xwide(errs: dict, times: dict, bounds: dict) -> None:
         general_mask, general_clear = general_calls(cfg, mk, ck)
         replaced_apply = general_apply(cfg, ak)
         replaced_legality = general_legality(cfg, lk)
-        xwide = mk.kind == "xwide"
         rows = plain_rows(cfg)
         for n in sizes:
             board, queue, cover, valid, _, _, _ = (
@@ -1128,13 +1163,10 @@ def phase1_xwide(errs: dict, times: dict, bounds: dict) -> None:
             legal_all = lk(board)
             check_equal([legal_all], [chunked(lk.plain, board, rows=rows)], what, errs,
                         legal_name)
-            if xwide:
-                check_equal([general_mask(board, queue)], [mask], what, errs, "mask_general")
-                check_equal(general_clear(board), cleared, what, errs, "clear_general")
-                check_equal(replaced_apply(board, cover, valid), outs, what, errs,
-                            "apply_general")
-                check_equal([replaced_legality(board)], [legal_all], what, errs,
-                            "legality_general")
+            check_equal([general_mask(board, queue)], [mask], what, errs, "mask_general")
+            check_equal(general_clear(board), cleared, what, errs, "clear_general")
+            check_equal(replaced_apply(board, cover, valid), outs, what, errs, "apply_general")
+            check_equal([replaced_legality(board)], [legal_all], what, errs, "legality_general")
             b2, c2, v2, _, _, _ = (
                 torch.as_tensor(x, device=dev) for x in illegal_on_full_line(cfg, n))
             nb, k2, l2 = ak(b2, c2, v2)
@@ -1149,9 +1181,9 @@ def phase1_xwide(errs: dict, times: dict, bounds: dict) -> None:
             print(f"[phase1] {what}: {mask_name} legal share {float(mask.float().mean()):.4f}"
                   f", {clear_name} k {int(cleared[1].sum())}, {apply_name} legal "
                   f"{int(outs[2].sum())}, k {int(outs[1].sum())}, {legal_name} share "
-                  f"{float(legal_all.float().mean()):.4f}: u8 kernels == plain (bit-equal)"
-                  + (", the xwide mask, clear, apply and legality == the general ones "
-                     "launched directly" if xwide else ""))
+                  f"{float(legal_all.float().mean()):.4f}: u8 kernels == plain (bit-equal), "
+                  "the xwide mask, clear, apply and legality == the general ones launched "
+                  "directly")
             del mask, cleared, outs, legal_all
         if name not in timed:
             continue
@@ -1170,21 +1202,130 @@ def phase1_xwide(errs: dict, times: dict, bounds: dict) -> None:
         here = kernel_bounds(cfg, board, queue, cover, valid, None, attrs, r, c,
                              {k: f() for k, (f, _) in kernels.items()})
         # the plain versions' products take about a second a call on 40x136
-        iters = 3 if xwide else 10
         for k, (f, plain) in kernels.items():
-            times[k] = (cuda_ms(f), host_paced_ms(plain, iters=iters, warmup=1))
+            times[k] = (cuda_ms(f), host_paced_ms(plain, iters=3, warmup=1))
             bounds[k] = dict(here[k], where=f"xwide {name}")
             b = here[k]
-            line = (f"[phase1] {k} {name} N={N_MAIN}: {times[k][0]:.6f} ms, "
-                    f"{100 * b['bound_ms'] / times[k][0]:.1f}% of its {b['bound_ms']:.6f} ms "
-                    f"bound by {b['bound_by']}")
-            if xwide:
-                old = k.replace("_xwide", "_general")
-                old_ms = cuda_ms(general[old])
-                line += (f"; the {old} it replaces {old_ms:.6f} ms, launched directly on the "
-                         f"same inputs (bit-equal), {old_ms / times[k][0]:.2f}x")
-            else:
-                line += " (the wrapper's kernel there)"
+            old = k.replace("_xwide", "_general")
+            old_ms = cuda_ms(general[old])
+            print(f"[phase1] {k} {name} N={N_MAIN}: {times[k][0]:.6f} ms, "
+                  f"{100 * b['bound_ms'] / times[k][0]:.1f}% of its {b['bound_ms']:.6f} ms "
+                  f"bound by {b['bound_by']}; the {old} it replaces {old_ms:.6f} ms, launched "
+                  f"directly on the same inputs (bit-equal), {old_ms / times[k][0]:.2f}x")
+
+
+def phase1_long(errs: dict, times: dict, bounds: dict) -> None:
+    """Phase 1 on rows of more than 1024 cells: on 2x1056 (``W1056``) and
+    ``XLONG_CASES`` at N = 4096 and 4095 the clear's and the apply's
+    long-row xwide instances (clear_xwide_long, apply_xwide_long: one env a
+    warp, lane l holding words l + 32 j of every row) against their plain
+    versions and against the general clear and apply launched directly on
+    the same inputs (``general_calls``, ``general_apply``), an illegal
+    action on a full line through the apply, and the general mask and
+    legality the wrappers pick there against their plain versions (but on
+    the board of more than 32 rows, whose plain tables those two would take
+    20 HW^2 bytes each for); on 2x4128 (``W4128``), rows too wide for the
+    long-row instances, the four general kernels the wrappers pick, against
+    their plain versions.  Times, at N = 49152 on 2x1056, the kernels of the
+    paths ``w1056_u8_pallas`` and ``w1056_u8_jnp`` (mask_general,
+    clear_xwide_long, apply_xwide_long, legality_general) and the general
+    clear and apply launched directly on the same inputs (clear_general,
+    apply_general, whose launches the ``w4128`` paths read) into ``times``
+    and ``bounds``, and prints each long-row instance's time beside its
+    bound and the general kernel's."""
+    import torch
+
+    from blockpuzzle_tpu_torch import rules
+    from blockpuzzle_tpu_torch.config import EnvConfig
+    from blockpuzzle_tpu_torch.kernels import (
+        ApplyKernel, ClearScanKernel, LegalityKernel, MaskKernel,
+    )
+    from blockpuzzle_tpu_torch.utils.bounds import kernel_bounds
+
+    dev = torch.device("cuda")
+    for name, shape in {"2x1056": W1056, **XLONG_CASES, "2x4128": W4128}.items():
+        cfg = EnvConfig(**shape)
+        names = u8_kernel_names(cfg)
+        mask_name, clear_name, apply_name, legal_name = names
+        small = cfg.height <= 32             # the mask's and legality's tables fit
+        ck, ak = ClearScanKernel(cfg, dev), ApplyKernel(cfg, dev)
+        mk, lk = (MaskKernel(cfg, dev), LegalityKernel(cfg, dev)) if small else (None, None)
+        got = tuple(w.name if w is not None else k for w, k in zip((mk, ck, ak, lk), names))
+        if got != names:
+            raise AssertionError(f"{name}: the u8 wrappers picked {got}")
+        _, general_clear = general_calls(cfg, mk, ck)
+        replaced_apply = general_apply(cfg, ak)
+        long = ck.kind == "xwide"
+        rows = plain_rows(cfg)
+        for n in (4096, 4095):
+            board, queue, cover, valid, _, _, _ = (
+                torch.as_tensor(x, device=dev) for x in kernel_inputs(cfg, n, seed=n))
+            what = f"{name}, N={n}"
+            cleared = ck(board)
+            check_equal(cleared, ck.plain(board), what, errs, clear_name)
+            outs = ak(board, cover, valid)
+            check_equal(outs, ak.plain(board, cover, valid), what, errs, apply_name)
+            if long:
+                check_equal(general_clear(board), cleared, what, errs, "clear_general")
+                check_equal(replaced_apply(board, cover, valid), outs, what, errs,
+                            "apply_general")
+            line = (f"[phase1] {what}: {clear_name} k {int(cleared[1].sum())}, {apply_name} "
+                    f"legal {int(outs[2].sum())}, k {int(outs[1].sum())}")
+            if small:
+                mask = mk(board, queue)
+                check_equal([mask], [chunked(mk.plain, board, queue, rows=rows)], what, errs,
+                            mask_name)
+                legal_all = lk(board)
+                check_equal([legal_all], [chunked(lk.plain, board, rows=rows)], what, errs,
+                            legal_name)
+                if not (0 < float(mask.float().mean()) < 1
+                        and 0 < float(legal_all.float().mean()) < 1):
+                    raise AssertionError(f"{name}: no mask or legality to test ({what})")
+                line += (f", {mask_name} legal share {float(mask.float().mean()):.4f}, "
+                         f"{legal_name} share {float(legal_all.float().mean()):.4f}")
+                del mask, legal_all
+            b2, c2, v2, _, _, _ = (
+                torch.as_tensor(x, device=dev) for x in illegal_on_full_line(cfg, n))
+            nb, k2, l2 = ak(b2, c2, v2)
+            if bool(l2.any()) or int(k2.sum()) or not torch.equal(nb, b2):
+                raise AssertionError(f"illegal action changed a board ({what})")
+            if int(cleared[1].sum()) == 0 or int(outs[1].sum()) == 0 or not (
+                    0 < int(outs[2].sum()) < n):
+                raise AssertionError(f"{name}: nothing cleared or no legality ({what})")
+            print(line + ": u8 kernels == plain (bit-equal)"
+                  + (f", {clear_name} and {apply_name} == the general clear and apply "
+                     "launched directly" if long else ""))
+            del cleared, outs
+        if not small:                        # 5 HW^2 bytes of rule tables
+            del rules._TABLE_CACHE[cfg], mk, ck, ak, lk
+            continue
+        if name != "2x1056":
+            continue
+        board, queue, cover, valid, attrs, r, c = (
+            torch.as_tensor(x, device=dev) for x in kernel_inputs(cfg, N_MAIN, seed=0))
+        kernels = {mask_name: (lambda: mk(board, queue),
+                               lambda: chunked(mk.plain, board, queue, rows=rows)),
+                   clear_name: (lambda: ck(board), lambda: ck.plain(board)),
+                   apply_name: (lambda: ak(board, cover, valid),
+                                lambda: ak.plain(board, cover, valid)),
+                   legal_name: (lambda: lk(board), lambda: chunked(lk.plain, board, rows=rows)),
+                   "clear_general": (lambda: general_clear(board), lambda: ck.plain(board)),
+                   "apply_general": (lambda: replaced_apply(board, cover, valid),
+                                     lambda: ak.plain(board, cover, valid))}
+        here = kernel_bounds(cfg, board, queue, cover, valid, None, attrs, r, c,
+                             {k: f() for k, (f, _) in kernels.items()})
+        for k, (f, plain) in kernels.items():
+            times[k] = (cuda_ms(f), host_paced_ms(plain, iters=10, warmup=1))
+            bounds[k] = dict(here[k], where=f"long {name}")
+        for k in kernels:
+            b, ms = here[k], times[k][0]
+            line = (f"[phase1] {k} {name} N={N_MAIN}: {ms:.6f} ms, "
+                    f"{100 * b['bound_ms'] / ms:.1f}% of its {b['bound_ms']:.6f} ms bound by "
+                    f"{b['bound_by']}")
+            if k.endswith("_long"):
+                old = k.replace("_xwide_long", "_general")
+                line += (f"; the {old} it replaces {times[old][0]:.6f} ms, launched directly "
+                         f"on the same inputs (bit-equal), {times[old][0] / ms:.2f}x")
             print(line)
 
 
@@ -1956,7 +2097,7 @@ def phase2():
     ``legal_all_pieces`` there (the paths ``wide_u8_pallas``,
     ``wide_u8_jnp``, ``wide_legal_all_pieces``, their ``tall_`` and
     ``huge_`` twins, ``xwide_u8_pallas``, ``xwide_u8_jnp`` and
-    ``xwide_legal_all_pieces`` and their ``xtall_`` and ``w1056_`` twins,
+    ``xwide_legal_all_pieces`` and their ``xtall_``, ``w1056_`` and ``w4128_`` twins,
     ``big100_u8_jnp`` (the default engine on 100x124) and
     ``big100_legal_all_pieces``, ``tall_packed``, ``huge_packed``,
     ``tall_words`` and ``huge_words``, and those of the other tall
@@ -1992,6 +2133,8 @@ def phase2():
         "xwide": (EnvConfig(**XWIDE), ("pallas", "jnp"), 256, 32),
         "xtall": (EnvConfig(**XTALL), ("pallas", "jnp"), 128, 16),
         "w1056": (EnvConfig(**W1056), ("pallas", "jnp"), 256, 32),
+        # past 4096 cells a row: the general clear's and apply's paths
+        "w4128": (EnvConfig(**W4128), ("pallas", "jnp"), 64, 8),
         # more than 12288 cells and lines: the default engine, u8
         "big100": (EnvConfig(**BIG100), ("default",), 64, 8),
     })

@@ -693,8 +693,10 @@ def test_xwide_apply_takes_the_clear_launch_shape():
     (board and cover) of NW words a row, at most 32 KB, and it keeps the
     clear's launch shape; on a taller one (``xwide_windows``) its block
     holds the placed rows and a word an env (``xwide_apply_smem_bytes``),
-    ``XWIDE_APPLY_WARPS`` warp a block wherever one warp fits; the general
-    apply above 1024 cells a row and where one warp does not fit."""
+    ``XWIDE_APPLY_WARPS`` warp a block wherever one warp fits; above 1024
+    cells a row the xwide apply's long-row instance (one env a warp,
+    ``test_torch_xwide_rows.py``), and the general apply where one warp does
+    not fit."""
     for h in (1, 2, 3, 8, 9, 16, 31, 32, 33, 40, 66, 130, 600, 1000):
         for w in (129, 135, 136, 160, 255, 256, 320, 500, 513, 1000, 1024):
             cfg = tcfg.EnvConfig(height=h, width=w)
@@ -721,9 +723,9 @@ def test_xwide_apply_takes_the_clear_launch_shape():
     assert xwide_windows(cfg) and not xwide_windows(dataclasses.replace(cfg, height=30))
     assert apply_launch_shape(tcfg.EnvConfig(height=33, width=136)) == (6, XWIDE_APPLY_WARPS)
     cfg = tcfg.EnvConfig(height=2, width=1056, piece_set="mini5")
-    assert apply_launch_shape(cfg) is None
+    assert apply_launch_shape(cfg) == (1, XWIDE_WARPS)
     ak = ApplyKernel(cfg, "cpu")
-    assert (ak.kind, ak.name, ak.shape) == ("general", "apply_general", None)
+    assert (ak.kind, ak.name, ak.shape) == ("xwide", "apply_xwide_long", (1, XWIDE_WARPS))
 
 
 def test_xwide_apply_is_bytes_bound_on_8x136():
