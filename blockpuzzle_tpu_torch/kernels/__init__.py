@@ -9,9 +9,9 @@ raises, and counts each launch in its ``launches`` attribute, a plain int
 ``general_launches``, their wide kernels in ``wide_launches``, their tall
 kernels, for boards of 33 to 128 rows, in ``tall_launches``, their deep
 kernels, for taller boards, in ``deep_launches``, and their xwide kernels,
-for rows of 129 to 1024 cells, in ``xwide_launches``, the clear's and the
-apply's xwide kernels on rows of 1025 to 4096 cells in
-``xwide_long_launches``: the u8 apply's are the clear's kernels' apply
+for rows of 129 to 1024 cells, in ``xwide_launches``, and those on rows
+of 1025 to 4096 cells in ``xwide_long_launches``: the u8 apply's are the
+clear's kernels' apply
 instances, the legality's the mask's kernels'
 every-piece instances; the packed wrappers their tall and general kernels in
 ``tall_launches`` and ``general_launches``, the packed mask its words entry

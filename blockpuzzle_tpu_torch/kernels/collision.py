@@ -16,16 +16,17 @@ sit here together as they do there:
 Each has a bit-row kernel, for boards of at most 32 rows of at most 32
 cells (every shipped preset; the legality also wants pieces of at most 8
 rows and columns), which works on 32-bit row words, and a general kernel
-for rows of more than 1024 cells (the apply: 4096; and, for the legality,
-pieces of more than 8 rows or columns), or a deep or xwide board one warp
-cannot stage.  Between those the apply runs on the clear's wide, tall, deep
+for rows of more than 4096 cells (and, for the legality, pieces of more
+than 8 rows or columns), or a deep or xwide board one warp cannot stage.  Between those the apply runs on the clear's wide, tall, deep
 and xwide kernels (``csrc/clear.cu``, their apply instances: rows of up to
 four words, a warp a board of up to 128 rows, a warp walking a taller board
 in windows of 32 rows, a segment of lanes a board of rows of up to 32 words
 at any height, a warp a board of rows of 33 to 128 words, up to four a
 lane), and the legality on the hand mask's (``csrc/mask.cu``,
 their every-piece instances: the hand mask of a hand holding every
-piece).  ``piece_table`` is the per-piece footprint
+piece, on rows of 1025 to 4096 cells a warp an (env, piece)).  Each
+wrapper builds its plain version's (HW, P*HW) footprint table, ``cover_t``,
+at its first use.  ``piece_table`` is the per-piece footprint
 table of the general legality and mask kernels, ``legality_rows_table``
 the bit-row legality's and ``piece_rows_table`` the mask's.
 """
@@ -33,6 +34,7 @@ the bit-row legality's and ``piece_rows_table`` the mask's.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Tuple
 
 import numpy as np
@@ -166,8 +168,9 @@ def every_piece_shape(cfg: EnvConfig):
     """The launch shape of the hand mask's kernel that takes ``cfg``'s board
     with every piece in the hand (S = P: ``u8_launch_shape`` of ``cfg`` with
     ``queue_size`` P), where that is the wide, tall, deep or xwide kernel (the
-    xwide one at any height) and no piece spans more than ``MAX_PIECE`` rows
-    or columns; else None, and so the general legality."""
+    xwide one at any height, and its long-row instance on rows of 1025 to
+    4096 cells) and no piece spans more than ``MAX_PIECE`` rows or columns;
+    else None, and so the general legality."""
     t = rules.tables_for(cfg)
     if max(t.max_h, t.max_w) > MAX_PIECE or (cfg.height <= MAX_ROWS and cfg.width <= 32):
         return None
@@ -185,12 +188,13 @@ class LegalityKernel:
     H <= 32 and W <= 32 (``legality_launch_shape``; ``launches`` counts its
     launches), else the every-piece instance of the hand mask's wide, tall,
     deep or xwide kernel that takes the board (``every_piece_shape``: the
-    mask's launch shape at S = P; ``wide_launches`` ... ``xwide_launches``).
-    ``shape`` is the picked kernel's launch shape.  Else the general kernel
-    (``shape`` is None; ``general_launches``): rows of more than 1024
-    cells, larger pieces, or a deep or xwide board whose one-warp block does
-    not fit.
-    ``name`` is the picked kernel's.
+    mask's launch shape at S = P; ``wide_launches`` ... ``xwide_launches``,
+    and on rows of 1025 to 4096 cells the xwide kernel's long-row instance,
+    ``kind`` "xwide", ``instance`` "xwide_long", ``xwide_long_launches``:
+    a warp an (env, piece)).  ``shape`` is the picked kernel's launch shape.
+    Else the general kernel (``shape`` is None; ``general_launches``): rows
+    of more than 4096 cells, larger pieces, or a deep or xwide board whose
+    one-warp block does not fit.  ``name`` is the picked instance's.
 
     All read a cell as occupied when it is nonzero, as ``legality_plain``
     does (a sum of non-negative bytes is 0 iff every byte is).
@@ -204,6 +208,7 @@ class LegalityKernel:
         self.max_h, self.max_w = t.max_h, t.max_w
         self.launches = self.wide_launches = self.tall_launches = 0
         self.deep_launches = self.xwide_launches = self.general_launches = 0
+        self.xwide_long_launches = 0
         self.shape = legality_launch_shape(cfg)
         if self.shape is not None:
             self.kind, table = "rows", legality_rows_table(cfg)
@@ -211,13 +216,17 @@ class LegalityKernel:
             self.shape = every_piece_shape(cfg)
             self.kind = u8_kind(cfg, self.shape)
             table = piece_table(cfg) if self.shape is None else piece_rows_table(cfg)
-        self.name = "legality" + SUFFIX[self.kind]
+        self.instance = u8_instance(cfg, self.kind)
+        self.name = "legality" + SUFFIX[self.instance]
         self.shapes = rect_shapes(cfg)
         self.piece_table = torch.as_tensor(table, device=self.device)
-        self.cover_t = torch.as_tensor(
-            t.cover.T.astype(np.float32), device=self.device
-        )
         self.valid = torch.as_tensor(t.valid, device=self.device)
+
+    @functools.cached_property
+    def cover_t(self) -> torch.Tensor:
+        return torch.as_tensor(
+            rules.tables_for(self.cfg).cover.T.astype(np.float32), device=self.device
+        )
 
     def plain(self, board: torch.Tensor) -> torch.Tensor:
         return legality_plain(board, self.cover_t, self.valid)
@@ -254,7 +263,7 @@ class LegalityKernel:
             else:
                 if out.data_ptr() % 16:  # the kernels store 16-byte vectors
                     raise RuntimeError("legality output is not 16-byte aligned")
-                name = "bp_" + ("legality_rows" if self.kind == "rows" else self.name)
+                name = "bp_legality" + ("_rows" if self.kind == "rows" else SUFFIX[self.kind])
                 shapes = (self.shapes,) if self.kind == "rows" else ()
                 err = getattr(lib, name)(
                     board.data_ptr(), self.piece_table.data_ptr(), out.data_ptr(),
@@ -262,7 +271,7 @@ class LegalityKernel:
                     self.max_w, *shapes, *self.shape, stream,
                 )
         _build.check(err, name)
-        count_launch(self)
+        count_launch(self, kind=self.instance)
         return out
 
 

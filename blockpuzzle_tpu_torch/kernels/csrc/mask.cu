@@ -14,10 +14,11 @@
 // block may opt in to with its boards staged whole; the xwide kernel
 // (`mask_xwide_kernel`, entry `bp_mask_xwide`), a segment of lanes an
 // env-slot and a lane a word of every row, for 128 < W <= 1024, any height
-// and the same pieces wherever a block of one warp fits; and the general
-// kernel (`mask_kernel`, entry `bp_mask`) for what is left: rows of more
-// than 1024 cells, pieces of more than 8 rows or columns, or a deep or
-// xwide board too large for one warp's shared memory.  The
+// and the same pieces wherever a block of one warp fits, and on rows of
+// 1025 to 4096 cells one env-slot a warp, lane l holding words l + 32 j;
+// and the general kernel (`mask_kernel`, entry `bp_mask`) for what is left:
+// rows of more than 4096 cells, pieces of more than 8 rows or columns, or a
+// deep or xwide board too large for one warp's shared memory.  The
 // wrapper (kernels/mask.py) picks one by shape.  The wide, tall, deep and
 // xwide kernels are also the all-pieces legality (K4, the TPU kernel
 // `_legality_kernel`, blockpuzzle_tpu/kernels/collision.py:41, launched by
@@ -148,14 +149,32 @@
 // 16, whose barriers hold more warps waiting); the entry opts in above 48
 // KB, which no board of at most 32 rows needs.
 //
+// Rows of 1025 to 4096 cells (NW = 33 to 128 words) pass a warp's 32
+// lanes: the same kernel with NJ = ceil(NW / 32) slots a lane (a template
+// parameter; NJ = 1 is the segment form above), one env-slot a warp, lane
+// l holding words l + 32 j of every row in slot j.  The words are strided,
+// as in the xwide clear (clear.cu), so that every lane works and only the
+// last slot is ragged: a slot past word NW - 1 reads 0 and stores nothing.
+// The vertical OR is lane-local a slot at a time, each row's words read
+// from shared memory on every trip (a ring of the 8 rows below of each slot,
+// 8 NJ registers, was 4-29% slower in turns on an H100, PERF.md §6), and
+// the word w + 1 that the smear and dc shift of word w need is the next
+// lane's slot j, but lane 0's slot j + 1 for lane 31: one `__shfl_sync` a
+// slot and rectangle from lane l + 1 mod 32, in place of the segment's
+// `__shfl_down_sync`.  It answers
+// what bounded the general kernel there, as on 8x136: a thread an anchor
+// (103.8 M threads on 2x1056 at N = 49152), 64-bit `%` and `/`, a chain of
+// dependent byte loads each.
+//
 // Nothing in the row loop depends on H, so the same kernel takes boards of
 // any height (40x136: the anchor rows of a board of more than 32 rows, 40
 // trips of the loop).  What grows with H is the block's shared memory: the
 // staged row words of its envs and the legal rows of its env-slots, H * NW
 // words each.  Where S = 1 an env-slot's legal rows go over its board's
-// row words in place: lane w alone reads and writes word w of its
-// env-slot's rows, and it writes legal row r after the ring holds rows
-// r .. r + 7, so no row is written before its last read; that halves the
+// row words in place: a lane alone reads and writes its words of its
+// env-slot's rows, and it writes legal row r after it has read rows
+// r .. r + 7 (into the ring, or on that trip), so no row is written before
+// its last read; that halves the
 // block (19,200 bytes at 40x136 for 4 warps, 39,200 with two arrays).
 // Where a block of 4 warps passes what a block may opt in to, the launch
 // shape takes fewer warps; where one warp does not fit, or a block would
@@ -169,7 +188,9 @@
 // instance takes boards of any height, as the mask does: a block of 24
 // env-slots (classic19 on 40x136) reads at most 3 envs, whose rows are
 // staged once and read by all their slots (21,600 bytes a block of 4
-// warps), so no env's rows are packed again for each piece.  Bound on the
+// warps), so no env's rows are packed again for each piece; on rows of
+// 1025 to 4096 cells a warp takes one (env, piece), and a block of 4 warps
+// reads at most 2 envs at P = 5 (mini5 on 2x1056).  Bound on the
 // H100: device memory; per env they read HW board bytes and write P*HW
 // bools, 314.6 MB on 8x40, 1069.5 MB on 8x136 and 5347.7 MB on 40x136 at
 // N = 49152 (93.9, 319.3 and 1596.3 us at 3.35 TB/s; the function's
@@ -188,7 +209,7 @@
 // (9 for classic19) board bytes (`piece_fits`, piece_fits.cuh, shared with
 // the legality kernel).  Per-thread work (64-bit index arithmetic, a
 // data-dependent chain of byte loads) bounds it, not bytes.  It is left to
-// the shapes no other kernel takes: W > 1024, pieces larger than 8, or a
+// the shapes no other kernel takes: W > 4096, pieces larger than 8, or a
 // deep or xwide board whose one-warp block does not fit shared memory.
 
 #include <climits>
@@ -626,7 +647,7 @@ __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
   bit_rows::store_tall<NW>(rows, out, static_cast<long long>(first) * hw, count * hw, width);
 }
 
-template <bool kEvery>
+template <bool kEvery, int NJ>
 __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
     mask_xwide_kernel(const uint8_t* __restrict__ board,
                       const int32_t* __restrict__ queue,
@@ -644,12 +665,13 @@ __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
   const int envs = (first + count - 1) / slots + 1 - env0;  // envs read
   uint32_t* rows = reinterpret_cast<uint32_t*>(smem);  // E*H legal rows of NW words
   // the envs' rows of NW words; where S = 1 the legal rows go over them
-  // (env-slot e reads env e's rows, word w of each only from lane w)
+  // (env-slot e reads env e's rows, each word only from the lane that holds it)
   uint32_t* words = slots == 1 ? rows : rows + per_block * height * nw;
   const long long lo = static_cast<long long>(env0) * hw;
   bit_rows::stage_words(board, lo, lo + static_cast<long long>(envs) * hw, width, nw, words);
 
-  const bit_rows::Seat t = bit_rows::seat(nw, per_warp);  // t.lane: the word
+  // t.lane: the word of slot 0; NJ > 1 takes one env-slot a warp (per_warp 1)
+  const bit_rows::Seat t = bit_rows::seat(NJ == 1 ? nw : 32, NJ == 1 ? per_warp : 1);
   const bool active = t.s < per_warp && t.seg < count;
   const int pid = active ? slot_piece<kEvery>(queue, first + t.seg, slots) : -1;
   // piece row [h, w, rect 1, rect 2] as in mask_rows_kernel; no piece: no anchor
@@ -662,44 +684,90 @@ __global__ void __launch_bounds__(bit_rows::kMaxWarps * 32)
     env = slots <= 32 ? bit_rows::small_div(q, __frcp_rn(static_cast<float>(slots)))
                       : q / slots;
   }
-  const uint32_t* x = words + env * height * nw + t.lane;  // row r's word: x[r * nw]
+  // row r's word of slot j: x[r * nw + 32 j]
+  const uint32_t* x = words + env * height * nw + t.lane;
   const unsigned r1 = static_cast<unsigned>(pc.z), r2 = static_cast<unsigned>(pc.w);
   const int dr1 = r1 & 0xff, rh1 = (r1 >> 16) & 0xff, dc1 = (r1 >> 8) & 0xff, rw1 = r1 >> 24;
   const int dr2 = r2 & 0xff, rh2 = (r2 >> 16) & 0xff, dc2 = (r2 >> 8) & 0xff, rw2 = r2 >> 24;
-  const bool last = t.lane + 1 == nw;                 // the row's top word
-  const int a = width - pc.y + 1 - 32 * t.lane;       // anchors c + w <= W in this word
-  const uint32_t span_mask = a >= 32 ? kAll : a > 0 ? (1u << a) - 1u : 0u;
-  // rows r .. r + 7 of this word, 0 past the bottom (such an anchor fails
-  // r + h <= H below)
+  bool has[NJ], last[NJ];                              // slot j holds word w < NW; w = NW - 1
+  uint32_t span_mask[NJ];                              // anchors c + w <= W in word w
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int w = t.lane + 32 * j;
+    has[j] = NJ == 1 || j + 1 < NJ || w < nw;
+    last[j] = w + 1 == nw;
+    const int a = width - pc.y + 1 - 32 * w;
+    span_mask[j] = a >= 32 ? kAll : a > 0 ? (1u << a) - 1u : 0u;
+  }
+  // NJ = 1: rows r .. r + 7 of the lane's word in a ring of registers, 0
+  // past the bottom (such an anchor fails r + h <= H below); NJ > 1 reads
+  // each row's words from shared memory on every trip, 0 past the bottom
+  // and in a slot of no word (faster on the card than a ring of 8 NJ)
   uint32_t below[kMaxPiece];
+  if constexpr (NJ == 1) {
 #pragma unroll
-  for (int i = 0; i < kMaxPiece; ++i) below[i] = i < height ? x[i * nw] : 0u;
+    for (int i = 0; i < kMaxPiece; ++i) below[i] = i < height ? x[i * nw] : 0u;
+  }
   for (int r = 0; r < height; ++r) {
-    // vertical OR over each rectangle's rows, lane-local
-    uint32_t v1 = 0, v2 = 0;
+    // vertical OR over each rectangle's rows, lane-local, a slot at a time
+    uint32_t v1[NJ], v2[NJ], n1[NJ], n2[NJ];
 #pragma unroll
-    for (int i = 0; i < kMaxPiece; ++i) {
-      if (i < max_h) {
-        v1 |= static_cast<unsigned>(i - dr1) < static_cast<unsigned>(rh1) ? below[i] : 0u;
-        v2 |= static_cast<unsigned>(i - dr2) < static_cast<unsigned>(rh2) ? below[i] : 0u;
+    for (int j = 0; j < NJ; ++j) {
+      v1[j] = v2[j] = 0u;
+#pragma unroll
+      for (int i = 0; i < kMaxPiece; ++i) {
+        if (i < max_h) {
+          uint32_t y;
+          if constexpr (NJ == 1) {
+            y = below[i];
+          } else {
+            y = has[j] && r + i < height ? x[(r + i) * nw + 32 * j] : 0u;
+          }
+          v1[j] |= static_cast<unsigned>(i - dr1) < static_cast<unsigned>(rh1) ? y : 0u;
+          v2[j] |= static_cast<unsigned>(i - dr2) < static_cast<unsigned>(rh2) ? y : 0u;
+        }
       }
     }
-    // smear and shift by dc on the pair (this word, the next lane's): they
-    // move bits down by at most 7 + 7 < 32 columns, so no word past the
-    // next one reaches this one; the top word's next is 0
-    const uint32_t n1 = __shfl_down_sync(kAll, v1, 1), n2 = __shfl_down_sync(kAll, v2, 1);
-    uint32_t b1[2] = {v1, last ? 0u : n1}, b2[2] = {v2, last ? 0u : n2};
-    smear_words<2>(b1, rw1);
-    shr_words<2>(b1, dc1);
-    smear_words<2>(b2, rw2);
-    shr_words<2>(b2, dc2);
-    if (active) {  // bit c of the word: anchor (r, 32 w + c) is legal
-      rows[(t.seg * height + r) * nw + t.lane] =
-          r + pc.x <= height ? ~(b1[0] | b2[0]) & span_mask : 0u;
+    // the next word w + 1 of each slot's word w: the next lane's (one
+    // `__shfl_down_sync`) where a segment holds the row; with NJ > 1 the
+    // next lane's slot j, but lane 0's slot j + 1 for lane 31 (one
+    // `__shfl_sync` a slot from lane l + 1 mod 32)
+    if constexpr (NJ == 1) {
+      n1[0] = __shfl_down_sync(kAll, v1[0], 1);
+      n2[0] = __shfl_down_sync(kAll, v2[0], 1);
+    } else {
+      uint32_t rot1[NJ], rot2[NJ];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        rot1[j] = __shfl_sync(kAll, v1[j], (t.l + 1) & 31);
+        rot2[j] = __shfl_sync(kAll, v2[j], (t.l + 1) & 31);
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        n1[j] = t.l < 31 ? rot1[j] : j + 1 < NJ ? rot1[j + 1] : 0u;
+        n2[j] = t.l < 31 ? rot2[j] : j + 1 < NJ ? rot2[j + 1] : 0u;
+      }
     }
 #pragma unroll
-    for (int i = 0; i + 1 < kMaxPiece; ++i) below[i] = below[i + 1];
-    below[kMaxPiece - 1] = r + kMaxPiece < height ? x[(r + kMaxPiece) * nw] : 0u;
+    for (int j = 0; j < NJ; ++j) {
+      // smear and shift by dc on the pair (word w, word w + 1): they move
+      // bits down by at most 7 + 7 < 32 columns, so no word past the next
+      // one reaches word w; the top word's next is 0
+      uint32_t b1[2] = {v1[j], last[j] ? 0u : n1[j]}, b2[2] = {v2[j], last[j] ? 0u : n2[j]};
+      smear_words<2>(b1, rw1);
+      shr_words<2>(b1, dc1);
+      smear_words<2>(b2, rw2);
+      shr_words<2>(b2, dc2);
+      if (active && has[j]) {  // bit c of word w: anchor (r, 32 w + c) is legal
+        rows[(t.seg * height + r) * nw + t.lane + 32 * j] =
+            r + pc.x <= height ? ~(b1[0] | b2[0]) & span_mask[j] : 0u;
+      }
+    }
+    if constexpr (NJ == 1) {
+#pragma unroll
+      for (int i = 0; i + 1 < kMaxPiece; ++i) below[i] = below[i + 1];
+      below[kMaxPiece - 1] = r + kMaxPiece < height ? x[(r + kMaxPiece) * nw] : 0u;
+    }
   }
   __syncthreads();
   bit_rows::store_words_n(rows, out, static_cast<long long>(first) * hw, count * hw, width, nw,
@@ -852,15 +920,26 @@ int mask_tall(Launch a, int n, int max_w, bool deep) {
   }
 }
 
-// 128 < W <= 1024, any height: per_warp = 32 / NW; the block's shared
-// memory holds its legal rows, then the row words of the envs it reads (one
-// array where S = 1); refused where a block stages or stores 2^21 bytes or
-// more (`small_div`)
+// The xwide kernel of NJ slots a lane.
+template <bool kEvery>
+Kernel xwide_kernel(int nj) {
+  return nj == 1   ? mask_xwide_kernel<kEvery, 1>
+         : nj == 2 ? mask_xwide_kernel<kEvery, 2>
+         : nj == 3 ? mask_xwide_kernel<kEvery, 3>
+                   : mask_xwide_kernel<kEvery, 4>;
+}
+
+// 128 < W <= 4096, any height: per_warp = 32 / NW where W <= 1024 (NW
+// lanes an env-slot), 1 above (NJ = ceil(NW / 32) words a lane, one
+// env-slot a warp); the block's shared memory holds its legal rows, then
+// the row words of the envs it reads (one array where S = 1); refused where
+// a block stages or stores 2^21 bytes or more (`small_div`)
 template <bool kEvery>
 int mask_xwide(Launch a, int n, int max_w) {
   const int nw = (a.width + 31) / 32;
-  if (!common_ok(a, n, max_w) || a.height < 1 || a.width <= 128 || a.width > 1024 ||
-      a.per_warp != 32 / nw) {
+  const int nj = (nw + 31) / 32;
+  if (!common_ok(a, n, max_w) || a.height < 1 || a.width <= 128 || a.width > 4096 ||
+      a.per_warp != (nj == 1 ? 32 / nw : 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   a.total = n * a.slots;
@@ -870,7 +949,7 @@ int mask_xwide(Launch a, int n, int max_w) {
   if ((per_block > most ? per_block : most) * a.height * a.width >= (1LL << 21)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch(mask_xwide_kernel<kEvery>, a,
+  return launch(xwide_kernel<kEvery>(nj), a,
                 4LL * (most + (a.slots == 1 ? 0 : per_block)) * a.height * nw);
 }
 
@@ -948,10 +1027,12 @@ extern "C" int bp_mask_deep(const void* board, const void* queue,
                           n, max_w, true);
 }
 
-// As bp_mask_rows, for 128 < W <= 1024 and any height: a segment of NW =
+// As bp_mask_rows, for 128 < W <= 4096 and any height: a segment of NW =
 // ceil(W / 32) lanes an env-slot, lane w holding word w of every row;
-// per_warp = 32 / NW segments a warp, warps 1 to 16 (the block's output
-// span may start off a 16-byte boundary); refused where the block's shared
+// per_warp = 32 / NW segments a warp where W <= 1024, and above one
+// env-slot a warp, lane l holding words l + 32 j (per_warp = 1); warps 1 to
+// 16 (the block's output span may start off a 16-byte boundary); refused
+// where the block's shared
 // memory (its legal rows and its envs' row words, one array where S = 1)
 // passes what a block may opt in to, or where it stages or stores 2^21
 // bytes or more.

@@ -16,15 +16,18 @@ an env-slot and up to four rows a lane; the deep kernel on boards of more
 than 128 rows of at most 128 cells, a warp an env-slot walking the board
 in windows of 32 rows, wherever a block of one warp with its boards fits
 the shared memory a block may opt in to; the xwide kernel on boards of
-any height of 129 to 1024 cells a row, a segment of lanes an env-slot and
-a lane a word of every row, wherever a block of one warp fits; the general
-kernel, a thread per anchor over ``collision.piece_table``, takes what is
-left: rows of more than 1024 cells, pieces of more than 8 rows or columns
-(no shipped piece set has one), or a deep or xwide board too large for one
+any height of 129 to 4096 cells a row, a segment of lanes an env-slot and
+a lane a word of every row (above 1024 cells one env-slot a warp, a lane
+up to four words), wherever a block of one warp fits; the general kernel,
+a thread per anchor over ``collision.piece_table``, takes what is left:
+rows of more than 4096 cells, pieces of more than 8 rows or columns (no
+shipped piece set has one), or a deep or xwide board too large for one
 warp's shared memory.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -36,7 +39,7 @@ from blockpuzzle_tpu_torch.kernels.collision import (
     legality_plain, piece_rows_table, piece_table,
 )
 from blockpuzzle_tpu_torch.kernels.packed import (
-    MAX_PIECE, SUFFIX, count_launch, u8_kind, u8_launch_shape,
+    MAX_PIECE, SUFFIX, count_launch, u8_instance, u8_kind, u8_launch_shape,
 )
 
 
@@ -76,14 +79,17 @@ class MaskKernel:
     block of one warp fits (``deep_launches``), the xwide kernel where
     128 < W <= 1024, at any height where a block of one warp fits
     (``xwide_launches``: a segment of ceil(W / 32) lanes an env-slot, a lane
-    a word of every row); ``shape`` is the launch shape of any of them
-    (``u8_launch_shape``).  Else the general kernel (``shape`` is None;
-    ``general_launches``): rows of more than 1024 cells, larger pieces, or
-    a deep or xwide board whose one-warp block does not fit.  ``name`` is
-    the picked
-    kernel's.  The clear (``ClearScanKernel``) picks its own kernel by
-    the same board shapes, so the two kinds differ only where pieces are
-    larger than 8.
+    a word of every row), and its long-row instance where 1024 < W <= 4096
+    (``kind`` "xwide", ``instance`` "xwide_long", ``xwide_long_launches``:
+    one env-slot a warp, lane l holding words l + 32 j of every row);
+    ``shape`` is the launch shape of any of them (``u8_launch_shape``).
+    Else the general kernel (``shape`` is None; ``general_launches``): rows
+    of more than 4096 cells, larger pieces, or a deep or xwide board whose
+    one-warp block does not fit.  ``name`` is the picked instance's.  The
+    clear (``ClearScanKernel``) picks its own kernel by the same board
+    shapes, so the two kinds differ only where pieces are larger than 8.
+    The plain version's (HW, P*HW) footprint table, ``cover_t``, is built
+    at its first use (4 P HW^2 bytes: 1.4 GB on 2x4128).
     """
 
     def __init__(self, cfg: EnvConfig, device="cuda"):
@@ -94,17 +100,22 @@ class MaskKernel:
         self.max_h, self.max_w = t.max_h, t.max_w
         self.launches = self.wide_launches = self.tall_launches = 0
         self.deep_launches = self.xwide_launches = self.general_launches = 0
+        self.xwide_long_launches = 0
         fits = max(t.max_h, t.max_w) <= MAX_PIECE
         self.shape = u8_launch_shape(cfg) if fits else None
         self.kind = u8_kind(cfg, self.shape)
+        self.instance = u8_instance(cfg, self.kind)
         self.wide = self.kind == "wide"
-        self.name = "mask" + SUFFIX[self.kind]
+        self.name = "mask" + SUFFIX[self.instance]
         table = piece_table(cfg) if self.shape is None else piece_rows_table(cfg)
         self.piece_table = torch.as_tensor(table, device=self.device)
-        self.cover_t = torch.as_tensor(
-            t.cover.T.astype(np.float32), device=self.device
-        )
         self.valid = torch.as_tensor(t.valid, device=self.device)
+
+    @functools.cached_property
+    def cover_t(self) -> torch.Tensor:
+        return torch.as_tensor(
+            rules.tables_for(self.cfg).cover.T.astype(np.float32), device=self.device
+        )
 
     def plain(self, board: torch.Tensor, queue: torch.Tensor) -> torch.Tensor:
         return mask_plain(board, queue, self.cover_t, self.valid)
@@ -145,7 +156,7 @@ class MaskKernel:
             else:
                 if out.data_ptr() % 16:  # the kernel stores 16-byte vectors
                     raise RuntimeError("mask output is not 16-byte aligned")
-                name = "bp_mask_rows" if self.kind == "rows" else "bp_" + self.name
+                name = "bp_mask_rows" if self.kind == "rows" else "bp_mask" + SUFFIX[self.kind]
                 err = getattr(lib, name)(
                     board.data_ptr(), queue.data_ptr(),
                     self.piece_table.data_ptr(), out.data_ptr(),
@@ -153,5 +164,5 @@ class MaskKernel:
                     self.max_h, self.max_w, *self.shape, stream,
                 )
         _build.check(err, name)
-        count_launch(self)
+        count_launch(self, kind=self.instance)
         return out

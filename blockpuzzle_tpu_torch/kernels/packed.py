@@ -60,13 +60,14 @@ MAX_PIECE = 8
 # cells of the widest row the wide u8 mask and clear take: four 32-bit
 # words a lane
 MAX_WIDE = 128
-# cells of the widest row the xwide u8 mask and legality take: a segment
-# of ceil(W / 32) lanes a board, a lane a word of every row, at most a warp
-MAX_XWIDE = 1024
-# cells of the widest row the xwide u8 clear and apply take: above
-# ``MAX_XWIDE`` one board a warp, lane l holding words l + 32 j of every
-# row, up to four (``csrc/clear.cu`` ``clear_xwide_kernel``'s NJ)
-MAX_XWIDE_CLEAR = 4096
+# cells of the widest row a segment of the xwide u8 kernels holds: ceil(W /
+# 32) lanes a board, a lane a word of every row, at most a warp
+XWIDE_SEGMENT = 1024
+# cells of the widest row the xwide u8 mask, clear, apply and legality
+# take: above ``XWIDE_SEGMENT`` one board (or env-slot) a warp, lane l
+# holding words l + 32 j of every row, up to four (``csrc/mask.cu``
+# ``mask_xwide_kernel``'s and ``csrc/clear.cu`` ``clear_xwide_kernel``'s NJ)
+MAX_XWIDE = 4096
 # warps a block of the xwide mask and clear: 4 beat 1, 2, 8, 12 and 16 in
 # turns on an H100 on most boards of 129 to 1024 cells a row (PERF.md §6),
 # their blocks' barriers holding fewer warps waiting than 16 do
@@ -205,7 +206,7 @@ def xwide_launch_shape(cfg: EnvConfig, smem_bytes=None, most: int = XWIDE_WARPS)
     """(segments a warp, warps a block) of the xwide u8 mask and clear,
     which give an env-slot (mask) or env (clear) a segment of NW =
     ceil(W / 32) lanes, lane w holding word w of every row, for boards of
-    ``MAX_WIDE`` < W <= ``MAX_XWIDE`` cells a row and any height: 32 // NW
+    ``MAX_WIDE`` < W <= ``XWIDE_SEGMENT`` cells a row and any height: 32 // NW
     segments a warp (6 on 8x136) and the most warps, at most ``most``
     (``XWIDE_WARPS``), whose block fits what a block may opt in to
     (``smem_bytes``, ``xwide_smem_bytes`` by default; the apply's is
@@ -215,7 +216,7 @@ def xwide_launch_shape(cfg: EnvConfig, smem_bytes=None, most: int = XWIDE_WARPS)
     None for any other board, and where not even one warp fits (the
     general kernels take those).  Computed once per wrapper, as
     ``row_launch_shape``."""
-    if not MAX_WIDE < cfg.width <= MAX_XWIDE:
+    if not MAX_WIDE < cfg.width <= XWIDE_SEGMENT:
         return None
     smem_bytes = smem_bytes or xwide_smem_bytes
     per_warp = 32 // -(-cfg.width // 32)
@@ -268,38 +269,50 @@ def xwide_apply_smem_bytes(cfg: EnvConfig, per_block: int) -> int:
 
 def u8_launch_shape(cfg: EnvConfig):
     """The launch shape of the u8 mask kernel ``cfg``'s board takes (where
-    no piece spans more than ``MAX_PIECE`` rows or columns; the clear's up
-    to ``MAX_XWIDE`` cells a row, ``clear_launch_shape``): the bit-row,
-    wide, tall, deep or xwide kernels' shape, or None where the general
-    kernel runs (rows of more than ``MAX_XWIDE`` cells, or a deep or xwide
-    board whose one-warp block does not fit)."""
+    no piece spans more than ``MAX_PIECE`` rows or columns; the clear's is
+    ``clear_launch_shape``): the bit-row, wide, tall, deep or xwide kernels'
+    shape (above ``XWIDE_SEGMENT`` cells a row the xwide kernel's long-row
+    shape, one env-slot a warp, ``xwide_long_launch_shape``), or None where
+    the general kernel runs (rows of more than ``MAX_XWIDE`` cells, or a
+    deep or xwide board whose one-warp block does not fit)."""
+    if long_rows(cfg):
+        return xwide_long_launch_shape(cfg, xwide_smem_bytes, XWIDE_WARPS, xwide_staged_envs)
     return (row_launch_shape(cfg) or wide_launch_shape(cfg) or tall_launch_shape(cfg)
             or deep_launch_shape(cfg) or xwide_launch_shape(cfg))
 
 
 def long_rows(cfg: EnvConfig) -> bool:
-    """Whether ``cfg``'s rows pass ``MAX_XWIDE`` cells: where the xwide
-    clear and apply hold a board in one warp, lane l holding words
-    l + 32 j (their long-row instances, ``xwide_long_launch_shape``)."""
-    return cfg.width > MAX_XWIDE
+    """Whether ``cfg``'s rows pass ``XWIDE_SEGMENT`` cells: where the
+    xwide kernels hold a board (or env-slot) in one warp, lane l holding
+    words l + 32 j (their long-row instances, ``xwide_long_launch_shape``)."""
+    return cfg.width > XWIDE_SEGMENT
 
 
-def xwide_long_launch_shape(cfg: EnvConfig, smem_bytes, most: int):
-    """(1, warps a block) of the xwide clear and apply on rows of
-    ``MAX_XWIDE`` < W <= ``MAX_XWIDE_CLEAR`` cells, any height: one env a
-    warp, lane l holding words l + 32 j of every row (NJ = ceil(W / 1024)
-    slots a lane), and the most warps, at most ``most``, whose block fits
-    what a block may opt in to (``smem_bytes``: the clear's
+def xwide_long_launch_shape(cfg: EnvConfig, smem_bytes, most: int, staged):
+    """(1, warps a block) of the xwide kernels on rows of
+    ``XWIDE_SEGMENT`` < W <= ``MAX_XWIDE`` cells, any height: one env (the
+    clear and apply) or env-slot (the mask and legality) a warp, lane l
+    holding words l + 32 j of every row (NJ = ceil(W / 1024) slots a lane),
+    and the most warps, at most ``most``, whose block fits what a block may
+    opt in to (``smem_bytes``: the mask's ``xwide_smem_bytes``, the clear's
     ``xwide_clear_smem_bytes``, the apply's ``xwide_apply_smem_bytes``) and
-    stages and stores fewer than 2^21 bytes.  None for any other board, and
-    where not even one warp fits (the general kernels take those).
+    stages and stores fewer than 2^21 bytes (``staged``: the envs a block of
+    that many warps stages or stores, the mask's ``xwide_staged_envs``, the
+    clear's and apply's ``xwide_warp_envs``).  None for any other board,
+    and where not even one warp fits (the general kernels take those).
     Computed once per wrapper, as ``row_launch_shape``."""
-    if not MAX_XWIDE < cfg.width <= MAX_XWIDE_CLEAR:
+    if not XWIDE_SEGMENT < cfg.width <= MAX_XWIDE:
         return None
     for warps in range(most, 0, -1):
-        if smem_bytes(cfg, warps) <= SMEM_OPT_IN and warps * cfg.num_cells < 1 << 21:
+        if smem_bytes(cfg, warps) <= SMEM_OPT_IN and staged(cfg, warps) * cfg.num_cells < 1 << 21:
             return 1, warps
     return None
+
+
+def xwide_warp_envs(cfg: EnvConfig, warps: int) -> int:
+    """The envs a block of ``warps`` warps of the long-row xwide clear or
+    apply stages and stores: one a warp."""
+    return warps
 
 
 def xwide_clear_smem_bytes(cfg: EnvConfig, per_block: int) -> int:
@@ -311,12 +324,13 @@ def xwide_clear_smem_bytes(cfg: EnvConfig, per_block: int) -> int:
 def clear_launch_shape(cfg: EnvConfig):
     """(envs a warp, warps a block) of the u8 clear on ``cfg``, or None
     where its general kernel runs: the mask's shape (``u8_launch_shape``)
-    up to ``MAX_XWIDE`` cells a row, and above, up to ``MAX_XWIDE_CLEAR``,
-    the long-row xwide shape with the clear's own shared memory (one env a
-    warp, ``XWIDE_WARPS`` warps a block where they fit).  Computed once per
-    wrapper, as ``row_launch_shape``."""
+    up to ``XWIDE_SEGMENT`` cells a row, and above, up to ``MAX_XWIDE``,
+    the long-row xwide shape with the clear's own shared memory and a
+    block's envs, one a warp (``XWIDE_WARPS`` warps a block where they
+    fit).  Computed once per wrapper, as ``row_launch_shape``."""
     if long_rows(cfg):
-        return xwide_long_launch_shape(cfg, xwide_clear_smem_bytes, XWIDE_WARPS)
+        return xwide_long_launch_shape(cfg, xwide_clear_smem_bytes, XWIDE_WARPS,
+                                       xwide_warp_envs)
     return u8_launch_shape(cfg)
 
 
@@ -325,12 +339,12 @@ def apply_launch_shape(cfg: EnvConfig):
     its general kernel runs: the bit-row kernels' shape where H <= 32 and
     W <= 32, the wide ones' where H <= 32 and 32 < W <= ``MAX_WIDE`` (a
     block's two spans, under 2^17 bytes, always fit), the xwide ones' where
-    ``MAX_WIDE`` < W <= ``MAX_XWIDE_CLEAR``, at any height, with the
+    ``MAX_WIDE`` < W <= ``MAX_XWIDE``, at any height, with the
     apply's own shared memory (``xwide_apply_smem_bytes``): the clear's
     shape on a board of one window (its block's two arrays of row words, at
-    most 32 KB up to ``MAX_XWIDE`` cells a row, always fit),
+    most 32 KB up to ``XWIDE_SEGMENT`` cells a row, always fit),
     ``XWIDE_APPLY_WARPS`` warps a block on a taller board where one warp
-    fits (above ``MAX_XWIDE`` cells one env a warp,
+    fits (above ``XWIDE_SEGMENT`` cells one env a warp,
     ``xwide_long_launch_shape``); and on taller boards of at most ``MAX_WIDE`` cells
     a row ``_turns_shape`` with the apply's own shared memory
     (``apply_smem_bytes``: its block stages two spans where the mask stages
@@ -339,7 +353,7 @@ def apply_launch_shape(cfg: EnvConfig):
     if cfg.width > MAX_WIDE:
         most = XWIDE_APPLY_WARPS if xwide_windows(cfg) else XWIDE_WARPS
         if long_rows(cfg):
-            return xwide_long_launch_shape(cfg, xwide_apply_smem_bytes, most)
+            return xwide_long_launch_shape(cfg, xwide_apply_smem_bytes, most, xwide_warp_envs)
         return xwide_launch_shape(cfg, xwide_apply_smem_bytes, most)
     if cfg.height <= MAX_ROWS:
         return row_launch_shape(cfg) or wide_launch_shape(cfg)
@@ -568,8 +582,8 @@ def packed_kind(cfg: EnvConfig) -> str:
 
 
 # kernel kind -> the suffix of its name (``mask_tall``, ``packed_apply``);
-# ``xwide_long``: the xwide clear's and apply's instances on rows of more
-# than ``MAX_XWIDE`` cells (``u8_instance``)
+# ``xwide_long``: the xwide kernels' instances on rows of more than
+# ``XWIDE_SEGMENT`` cells (``u8_instance``)
 SUFFIX = {"rows": "", "wide": "_wide", "tall": "_tall", "deep": "_deep",
           "xwide": "_xwide", "xwide_long": "_xwide_long", "general": "_general"}
 
@@ -592,10 +606,11 @@ def u8_kind(cfg: EnvConfig, shape) -> str:
 
 
 def u8_instance(cfg: EnvConfig, kind: str) -> str:
-    """The instance of the u8 clear or apply of ``kind`` on ``cfg``, which
-    names the wrapper's kernel and counts its launches: ``"xwide_long"``
-    for the xwide kernel on rows of more than ``MAX_XWIDE`` cells (one env
-    a warp, NJ > 1 words a lane; ``xwide_long_launches``), else ``kind``."""
+    """The instance of the u8 mask, clear, apply or legality of ``kind``
+    on ``cfg``, which names the wrapper's kernel and counts its launches:
+    ``"xwide_long"`` for the xwide kernel on rows of more than
+    ``XWIDE_SEGMENT`` cells (one env or env-slot a warp, NJ > 1 words a
+    lane; ``xwide_long_launches``), else ``kind``."""
     return "xwide_long" if kind == "xwide" and long_rows(cfg) else kind
 
 

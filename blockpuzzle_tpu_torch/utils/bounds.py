@@ -194,7 +194,10 @@ def _mask_xwide(cfg, inputs):
     queue (N, S) i32); each env's board loaded as row words once, then a
     word of each anchor row: 5 operations a row below, 2 shuffles and the
     two rectangles' smear and shift on the word pair (about 40), the legal
-    mask, the store to shared memory and the ring of rows below (8)."""
+    mask, the store to shared memory and the ring of rows below (8); the
+    same on rows of more than 1024 cells (``mask_xwide_long``: a lane's
+    slots each a word's operations, a slot past the row's last word
+    none)."""
     t = rules.tables_for(cfg)
     n, h, nw = inputs[0].shape[0], cfg.height, _words(cfg)
     return n * (_stage_words(cfg) + cfg.queue_size * (h * nw * (5 * t.max_h + 50)
@@ -388,7 +391,8 @@ def _packed_unpack(cfg, inputs):
 COSTS: Dict[str, Cost] = {
     "mask": _cost(_mask), "mask_wide": _cost(_mask_wide),
     "mask_tall": _cost(_mask_wide), "mask_deep": _cost(_mask_wide),
-    "mask_xwide": _cost(_mask_xwide), "mask_general": _cost(_mask_general),
+    "mask_xwide": _cost(_mask_xwide), "mask_xwide_long": _cost(_mask_xwide),
+    "mask_general": _cost(_mask_general),
     "apply": _cost(_apply), "apply_wide": _cost(_apply_words),
     "apply_tall": _cost(_apply_words), "apply_deep": _cost(_apply_deep),
     "apply_xwide": _cost(_apply_xwide), "apply_xwide_long": _cost(_apply_xwide),
@@ -398,7 +402,7 @@ COSTS: Dict[str, Cost] = {
     "clear_xwide": _cost(_clear_xwide), "clear_xwide_long": _cost(_clear_xwide),
     "clear_general": _cost(_clear_general),
     **{f"legality{s}": _cost(_legality)
-       for s in ("", "_wide", "_tall", "_deep", "_xwide", "_general")},
+       for s in ("", "_wide", "_tall", "_deep", "_xwide", "_xwide_long", "_general")},
     **{f"packed_apply{s}": _cost(_packed_apply) for s in ("", "_tall", "_general")},
     **{f"packed_{e}{s}": _cost(_packed_mask) for e in ("mask", "legal_words")
        for s in ("", "_tall", "_general")},

@@ -2,11 +2,11 @@
 """Measurements of the PyTorch + CUDA port on one card, beyond the smoke run.
 
     python3 chip_measure.py [--parts build,train,rollout,kernels,words,general,draws,tall,
-                                     packed_tall,tail,deep,apply,xwide,legality]
+                                     packed_tall,tail,deep,apply,xwide,long,legality]
                             [--parent-csrc DIR] [--alt-csrc DIR ...]
 
 Needs one CUDA card and nvcc.  Prints the card's name and power limit,
-then, each line tagged with its part (all fourteen by default):
+then, each line tagged with its part (all fifteen by default):
 
   build     cold builds of ``kernels/csrc/*.cu`` in turns: one nvcc over
             all sources, then one nvcc per source started together and a
@@ -178,20 +178,24 @@ then, each line tagged with its part (all fourteen by default):
             else the current library's) and with the xwide one, in turns
             general, xwide, xwide, general: host ms a step, device kernels,
             device ms and busy share a step, the apply's device ms a step
-            (``xwide_step_turns``); then the clear's and the apply's
-            long-row instances on rows of more than 1024 cells, on 2x1056,
-            3x1030, 2x2048, 9x1035 with regions and a hand of three (N =
+            (``xwide_step_turns``); then the parts of ``long``;
+  long      the long-row instances of the mask, clear, apply and legality
+            on rows of more than 1024 cells, on 2x1056, 3x1030, 2x2048,
+            9x1035 with regions and a hand of three (N =
             49152) and 33x1025 (N = 8192): each held bit-equal to the
             general kernel launched directly and, with ``--parent-csrc
-            DIR``, the earlier sources' general kernel (which took those
-            boards), and at 1, 2 and 8 warps a block, timed in turns with
-            them, medians and shares of the bound (``long_times``); then
-            the u8 clear-kernel and apply-kernel steps on 2x1056 with the
-            earlier (or the current) general clear or apply and with the
-            long-row one in turns, earlier, current, current, earlier: host
-            ms a step, device kernels, device ms and busy share a step, the
-            clear's or the apply's device ms a step (``long_step_turns``,
-            ``pallas_step_turns``);
+            DIR``, the earlier sources' general mask and legality (which
+            took those boards) and long-row clear and apply, with each
+            ``--alt-csrc`` build's long-row instances, and at 1, 2 and 8
+            warps a block, timed in turns with them, medians and shares of
+            the bound (``long_times``); then the u8 clear-kernel and
+            apply-kernel steps on 2x1056 with the earlier (or the current)
+            general mask and with the long-row one in turns, earlier,
+            current, current, earlier: host ms a step, device kernels,
+            device ms and busy share a step, the mask's device ms a step
+            (``long_step_turns``); then the four general kernels on 2x4128,
+            where they now run, each beside its bound
+            (``general_long_times``);
   legality  the all-pieces legality (K4) beyond 32x32 at N = 49152 on 8x40,
             33x9, 130x8 and 8x136 (``chip_smoke.LEGALITY_BOARDS``): the
             every-piece instance of the wide, tall, deep or xwide mask
@@ -1998,8 +2002,8 @@ def xwide_times(card: str, lib, alts=None, rounds: int = 5) -> None:
             for key, fn in xwide_calls(alib, cfg, mk, ck, ak, lk).items():
                 groups[f"{key}_xwide"][f"{alt} {key}_xwide"] = (
                     lambda fn=fn, key=key: fn(*args[key]))
-            if tall and ak.shape[1] != XWIDE_WARPS:  # and at the mask's warps
-                fn = xwide_calls(alib, cfg, ak=ak, warps=XWIDE_WARPS)["apply"]
+            fn = xwide_calls(alib, cfg, ak=ak, warps=XWIDE_WARPS).get("apply")
+            if tall and fn is not None and ak.shape[1] != XWIDE_WARPS:  # at the mask's warps
                 groups["apply_xwide"][f"{alt} apply_xwide {XWIDE_WARPS} warps"] = (
                     lambda fn=fn: fn(*args["apply"]))
         every = dataclasses.replace(cfg, queue_size=lk.num_pieces)
@@ -2046,31 +2050,40 @@ def xwide_step_turns(card: str, lib, alts=None, steps: int = 20) -> None:
                xwide_calls(_build.library(), cfg, ak=ak, warps=XWIDE_WARPS)["apply"]}
         for alt, alib in (alts or {}).items():
             for warps in (None, XWIDE_WARPS):
-                label = f"{alt} apply_xwide {warps or ak.shape[1]} warps"
-                got[label] = xwide_calls(alib, cfg, ak=ak, warps=warps)["apply"]
+                fn = xwide_calls(alib, cfg, ak=ak, warps=warps).get("apply")
+                if fn is not None:                  # a build with an xwide apply
+                    got[f"{alt} apply_xwide {warps or ak.shape[1]} warps"] = fn
         return got
 
     pallas_step_turns(card, lib, steps, names=("8x136", "40x136"), others=others)
 
 
-def long_times(card: str, lib, rounds: int = 5) -> None:
-    """K3 and K2 on rows of more than 1024 cells (``chip_smoke.W1056`` and
-    ``chip_smoke.XLONG_CASES``; ``chip_smoke.kernel_inputs``, seed 0, N =
-    49152, 8192 on the board of more than 32 rows): the clear's and the
-    apply's long-row xwide instances beside the general clear and apply
-    launched directly on the same inputs (``chip_smoke.general_calls``,
-    ``chip_smoke.general_apply``), first the earlier build's general ones
-    where ``lib`` is given (its wrappers took these boards with them), and
-    the long-row instances at 1, 2 and 8 warps a block (the wrappers take
-    ``XWIDE_WARPS``, or ``XWIDE_APPLY_WARPS`` for the apply above 32 rows);
-    every group held bit-equal, then timed in turns (``group_turns``)."""
+def long_times(card: str, lib, alts=None, rounds: int = 5) -> None:
+    """K1, K2, K3 and K4 on rows of more than 1024 cells (``chip_smoke.W1056``
+    and ``chip_smoke.XLONG_CASES``; ``chip_smoke.kernel_inputs``, seed 0,
+    N = 49152, 8192 on the board of more than 32 rows): the long-row xwide
+    instances of the mask, clear, apply and legality beside the general
+    kernels launched directly on the same inputs
+    (``chip_smoke.general_calls``, ``chip_smoke.general_apply``,
+    ``chip_smoke.general_legality``), first the earlier build's general
+    mask and legality where ``lib`` is given (its wrappers took these boards
+    with them; its clear and apply are the long-row ones, joined as
+    ``earlier``), each ``alts`` build's (``--alt-csrc``) long-row instances
+    it has, and the long-row instances at 1, 2 and 8 warps a block (the
+    wrappers take ``XWIDE_WARPS``, or ``XWIDE_APPLY_WARPS`` for the apply
+    above 32 rows); every group held bit-equal, then timed in turns
+    (``group_turns``)."""
+    import dataclasses
+
     import torch
 
     from blockpuzzle_tpu_torch import rules
     from blockpuzzle_tpu_torch.config import EnvConfig
-    from blockpuzzle_tpu_torch.kernels import ApplyKernel, ClearScanKernel, _build
+    from blockpuzzle_tpu_torch.kernels import (
+        ApplyKernel, ClearScanKernel, LegalityKernel, MaskKernel, _build,
+    )
     from blockpuzzle_tpu_torch.kernels.packed import (
-        xwide_apply_smem_bytes, xwide_clear_smem_bytes,
+        xwide_apply_smem_bytes, xwide_clear_smem_bytes, xwide_smem_bytes, xwide_staged_envs,
     )
     from blockpuzzle_tpu_torch.utils.bounds import kernel_bounds
 
@@ -2078,63 +2091,125 @@ def long_times(card: str, lib, rounds: int = 5) -> None:
     for name, shape in {"2x1056": chip_smoke.W1056, **chip_smoke.XLONG_CASES}.items():
         cfg = EnvConfig(**shape)
         n = chip_smoke.N_MAIN if cfg.height <= 32 else 8192
-        ck, ak = ClearScanKernel(cfg, dev), ApplyKernel(cfg, dev)
-        if (ck.name, ak.name) != ("clear_xwide_long", "apply_xwide_long"):
-            raise AssertionError(f"{name}: the wrappers picked {ck.name}, {ak.name}")
+        mk, ck, ak = MaskKernel(cfg, dev), ClearScanKernel(cfg, dev), ApplyKernel(cfg, dev)
+        lk = LegalityKernel(cfg, dev)
+        got = (mk.name, ck.name, ak.name, lk.name)
+        if got != chip_smoke.u8_kernel_names(cfg) or mk.instance != "xwide_long":
+            raise AssertionError(f"{name}: the wrappers picked {got}")
+        every = dataclasses.replace(cfg, queue_size=lk.num_pieces)
         board, queue, cover, valid, attrs, r, c = (
             torch.as_tensor(x, device=dev) for x in chip_smoke.kernel_inputs(cfg, n, seed=0))
-        args = {"clear": (board,), "apply": (board, cover, valid)}
-        current = {"clear": ck, "apply": ak}
-        general = {"clear": chip_smoke.general_calls(cfg, None, ck)[1],
-                   "apply": chip_smoke.general_apply(cfg, ak)}
+        args = {"mask": (board, queue), "clear": (board,), "apply": (board, cover, valid),
+                "legality": (board,)}
+        current = {"mask": mk, "clear": ck, "apply": ak, "legality": lk}
+        general_mask, general_clear = chip_smoke.general_calls(cfg, mk, ck)
+        general = {"mask": general_mask, "clear": general_clear,
+                   "apply": chip_smoke.general_apply(cfg, ak),
+                   "legality": chip_smoke.general_legality(cfg, lk)}
         groups = {f"{key}_xwide_long": {} for key in args}
         if lib is not None:
-            earlier = {"clear": chip_smoke.general_calls(cfg, None, ck, lib)[1],
-                       "apply": chip_smoke.general_apply(cfg, ak, lib)}
+            earlier = {"mask": chip_smoke.general_calls(cfg, mk, ck, lib)[0],
+                       "legality": chip_smoke.general_legality(cfg, lk, lib),
+                       **{f"{key}_xwide_long": fn for key, fn in
+                          xwide_calls(lib, cfg, ck=ck, ak=ak).items()}}
             for key, fn in earlier.items():
-                groups[f"{key}_xwide_long"][f"earlier bp_{key}"] = (
-                    lambda fn=fn, key=key: fn(*args[key]))
-        smem = {"clear": xwide_clear_smem_bytes, "apply": xwide_apply_smem_bytes}
+                label = f"earlier {key}" if key.endswith("_long") else f"earlier bp_{key}"
+                key = key.removesuffix("_xwide_long")
+                groups[f"{key}_xwide_long"][label] = lambda fn=fn, key=key: fn(*args[key])
+        smem = {"mask": lambda w: xwide_smem_bytes(cfg, w),
+                "clear": lambda w: xwide_clear_smem_bytes(cfg, w),
+                "apply": lambda w: xwide_apply_smem_bytes(cfg, w),
+                "legality": lambda w: xwide_smem_bytes(every, w)}
+        staged = {"mask": lambda w: xwide_staged_envs(cfg, w),
+                  "legality": lambda w: xwide_staged_envs(every, w)}
         for key in args:
             group = groups[f"{key}_xwide_long"]
             group[f"{key}_xwide_long"] = lambda key=key: current[key](*args[key])
             group[f"{key}_general"] = lambda key=key: general[key](*args[key])
-            for warps in (1, 2, 8):
-                if (warps == current[key].shape[1] or smem[key](cfg, warps) > 227 * 1024
-                        or warps * cfg.num_cells >= 1 << 21):
+        for alt, alib in (alts or {}).items():  # the alternative builds
+            for key, fn in xwide_calls(alib, cfg, mk, ck, ak, lk).items():
+                groups[f"{key}_xwide_long"][f"{alt} {key}_xwide_long"] = (
+                    lambda fn=fn, key=key: fn(*args[key]))
+        for warps in (1, 2, 8):
+            other = xwide_calls(_build.library(), cfg, mk, ck, ak, lk, warps=warps)
+            for key, fn in other.items():
+                envs = staged.get(key, lambda w: w)(warps)
+                if (warps == current[key].shape[1] or smem[key](warps) > 227 * 1024
+                        or envs * cfg.num_cells >= 1 << 21):
                     continue
-                fn = xwide_calls(_build.library(), cfg, ck=ck, ak=ak, warps=warps)[key]
-                group[f"{key}_xwide_long {warps} warps"] = lambda fn=fn, key=key: fn(*args[key])
+                groups[f"{key}_xwide_long"][f"{key}_xwide_long {warps} warps"] = (
+                    lambda fn=fn, key=key: fn(*args[key]))
         outs = {f"{key}_xwide_long": current[key](*args[key]) for key in args}
         bound = kernel_bounds(cfg, board, queue, cover, valid, None, attrs, r, c, outs)
         del outs
-        print(f"[xwide] {name}: long-row launch shapes (envs a warp, warps a block) clear "
-              f"{ck.shape}, apply {ak.shape}; shared memory a block: clear "
-              f"{xwide_clear_smem_bytes(cfg, ck.shape[1])} B, apply "
-              f"{xwide_apply_smem_bytes(cfg, ak.shape[1])} B")
+        print(f"[xwide] {name}: long-row launch shapes (env-slots or envs a warp, warps a "
+              f"block) mask {mk.shape}, clear {ck.shape}, apply {ak.shape}, legality "
+              f"{lk.shape}; shared memory a block: mask {xwide_smem_bytes(cfg, mk.shape[1])} "
+              f"B, clear {xwide_clear_smem_bytes(cfg, ck.shape[1])} B, apply "
+              f"{xwide_apply_smem_bytes(cfg, ak.shape[1])} B, legality "
+              f"{xwide_smem_bytes(every, lk.shape[1])} B")
         group_turns(card, "xwide", name, groups, bound, rounds, n)
-        del board, queue, cover, valid, groups, general, current, ck, ak
+        del board, queue, cover, valid, groups, general, current, mk, ck, ak, lk
         rules._TABLE_CACHE.pop(cfg, None)
 
 
 def long_step_turns(card: str, lib, steps: int = 20) -> None:
-    """The u8 clear-kernel step (``backend="jnp"``) on 2x1056 at N = 49152
-    (``swap_turns``): with the general clear swapped in (the earlier
-    library's ``bp_clear`` where ``lib`` is given, whose wrapper took this
-    board with it; else the current library's) and with the wrapper's
-    long-row xwide clear, in turns earlier, current, current, earlier.  The
-    mask is the wrapper's (the general mask) in both."""
+    """The u8 clear-kernel (``backend="jnp"``) and apply-kernel
+    (``backend="pallas"``) steps on 2x1056 at N = 49152 (``swap_turns``):
+    with the general mask swapped in (the earlier library's ``bp_mask``
+    where ``lib`` is given, whose wrapper took this board with it: the
+    earlier tree's step; else the current library's) and with the wrapper's
+    long-row xwide mask, in turns earlier, current, current, earlier.  The
+    clear and the apply are the wrappers' long-row ones in both."""
     from blockpuzzle_tpu_torch import make_env
     from blockpuzzle_tpu_torch.config import EnvConfig
 
     cfg = EnvConfig(**chip_smoke.W1056)
-    env = make_env(cfg, device="cuda", backend="jnp", state_impl="u8")
-    current = env.clear_kernel
-    kernels = {"earlier": chip_smoke.general_calls(cfg, None, current, lib)[1],
-               "current": current}
-    swap_turns(card, "xwide", ("u8 jnp step, 2x1056", "clear"), env, "clear_kernel", kernels,
-               {"earlier": "general clear", "current": current.name},
-               ("::clear_kernel(", "clear_xwide_kernel<false,"), steps)
+    for backend in ("jnp", "pallas"):
+        env = make_env(cfg, device="cuda", backend=backend, state_impl="u8")
+        current = env.mask_kernel
+        kernels = {"earlier": chip_smoke.general_calls(cfg, current, env.clear_kernel, lib)[0],
+                   "current": current}
+        swap_turns(card, "xwide", (f"u8 {backend} step, 2x1056", "mask"), env, "mask_kernel",
+                   kernels, {"earlier": "general mask", "current": current.name},
+                   ("::mask_kernel(", "mask_xwide_kernel<"), steps)
+
+
+def general_long_times(card: str) -> None:
+    """The four general u8 kernels (``bp_mask``, ``bp_clear``, ``bp_apply``,
+    ``bp_legality``) on 2x4128 (``chip_smoke.W4128``), rows of more than
+    4096 cells, where the wrappers pick them, at N = 49152
+    (``chip_smoke.kernel_inputs``, seed 0): each through its wrapper, its
+    device time (``chip_smoke.cuda_ms``) beside its bound
+    (``utils/bounds.py``)."""
+    import torch
+
+    from blockpuzzle_tpu_torch import rules
+    from blockpuzzle_tpu_torch.config import EnvConfig
+    from blockpuzzle_tpu_torch.kernels import (
+        ApplyKernel, ClearScanKernel, LegalityKernel, MaskKernel,
+    )
+    from blockpuzzle_tpu_torch.utils.bounds import kernel_bounds
+
+    n, dev = chip_smoke.N_MAIN, torch.device("cuda")
+    cfg = EnvConfig(**chip_smoke.W4128)
+    mk, ck, ak = MaskKernel(cfg, dev), ClearScanKernel(cfg, dev), ApplyKernel(cfg, dev)
+    lk = LegalityKernel(cfg, dev)
+    if {w.kind for w in (mk, ck, ak, lk)} != {"general"}:
+        raise AssertionError(f"2x4128: the wrappers picked {mk.name}, {ck.name}, {ak.name}, "
+                             f"{lk.name}")
+    board, queue, cover, valid, attrs, r, c = (
+        torch.as_tensor(x, device=dev) for x in chip_smoke.kernel_inputs(cfg, n, seed=0))
+    calls = {"mask_general": lambda: mk(board, queue), "clear_general": lambda: ck(board),
+             "apply_general": lambda: ak(board, cover, valid),
+             "legality_general": lambda: lk(board)}
+    for k, f in calls.items():
+        b = kernel_bounds(cfg, board, queue, cover, valid, None, attrs, r, c, {k: f()})[k]
+        ms = chip_smoke.cuda_ms(f)
+        print(f"[xwide] {k} 2x4128 N={n}: {ms:.6f} ms, {100 * b['bound_ms'] / ms:.1f}% of its "
+              f"{b['bound_ms']:.6f} ms bound by {b['bound_by']} ({b['bytes']} B) ({card})")
+    rules._TABLE_CACHE.pop(cfg, None)
+
 
 def deep_step_turns(card: str, lib, steps: int = 20) -> None:
     """The default (packed) step and the u8 clear-kernel step on 130x8 at
@@ -2230,7 +2305,7 @@ def legality_turns(card: str, lib, rounds: int = 5) -> None:
 
 
 PARTS = ("build", "train", "rollout", "kernels", "words", "general", "draws", "tall",
-         "packed_tall", "tail", "deep", "apply", "xwide", "legality")
+         "packed_tall", "tail", "deep", "apply", "xwide", "long", "legality")
 
 
 def main(argv=None) -> int:
@@ -2310,13 +2385,14 @@ def main(argv=None) -> int:
         lib = parent_library(pathlib.Path(args.parent_csrc)) if args.parent_csrc else None
         apply_turns(card, lib)
         pallas_step_turns(card, lib)
-    if "xwide" in parts:
+    if "xwide" in parts or "long" in parts:
         lib = parent_library(pathlib.Path(args.parent_csrc)) if args.parent_csrc else None
-        xwide_times(card, lib, alts)
-        xwide_step_turns(card, lib, alts)
-        long_times(card, lib)
+        if "xwide" in parts:
+            xwide_times(card, lib, alts)
+            xwide_step_turns(card, lib, alts)
+        long_times(card, lib, alts)
         long_step_turns(card, lib)
-        pallas_step_turns(card, lib, names=("2x1056",))
+        general_long_times(card)
     if "legality" in parts:
         lib = parent_library(pathlib.Path(args.parent_csrc)) if args.parent_csrc else None
         legality_turns(card, lib)

@@ -9,7 +9,7 @@ which raises on failure (non-zero exit, no result line):
 
   0. card name and power limit, torch/CUDA versions, compute capability,
      kernel build time;
-  1. each of the forty kernels against its plain torch version on
+  1. each of the forty-two kernels against its plain torch version on
      the card, bit-equal, at N = 49152 and a ragged N = 49151: the three draws
      (deal, uniform_legal, words_select: ``kernels/draws.py``) on the four
      presets, at per-env counters that wrap negative and at shared ones
@@ -70,13 +70,15 @@ which raises on failure (non-zero exit, no result line):
      (``XTALL_CASES``, more than 32 rows) at N = 4096 and 4095, each also
      held to the general mask, clear, apply and legality launched
      directly; on rows of more than 1024 cells (``phase1_long``) the
-     clear's and the apply's long-row xwide instances (clear_xwide_long,
-     apply_xwide_long: one env a warp, lane l holding words l + 32 j) on
-     2x1056 (``W1056``), 3x1030, 2x2048, 9x1035 with 3x3 regions across
-     the lane-31 border and a hand of three and 33x1025 (``XLONG_CASES``)
-     at N = 4096 and 4095, each also held to the general clear and apply
-     launched directly, with the general mask and legality the wrappers
-     pick there, and the four general kernels on 2x4128 (``W4128``); the
+     long-row xwide instances of the mask, clear, apply and legality
+     (mask_xwide_long, clear_xwide_long, apply_xwide_long,
+     legality_xwide_long: one env or env-slot a warp, lane l holding words
+     l + 32 j) on 2x1056 (``W1056``), 3x1030, 2x2048, 9x1035 with 3x3
+     regions across the lane-31 border and a hand of three and 33x1025
+     (``XLONG_CASES``; the mask and legality there held to the general ones
+     alone, their plain tables taking 20 HW^2 bytes each) at N = 4096 and
+     4095, each also held to the general kernel launched directly, and the
+     four general kernels on 2x4128 (``W4128``); the
      all-pieces legality beyond 32x32
      (``phase1_legality``): the every-piece instances of the wide, tall and
      deep masks (legality_wide, legality_tall, legality_deep) on 8x40, 33x9
@@ -99,9 +101,10 @@ which raises on failure (non-zero exit, no result line):
      = 49152 on the default preset (the wide kernels on the wide board, the
      tall ones on 33x9, the deep ones and the general packed ones on 130x8,
      the xwide mask, clear, apply and legality on 40x136 beside the general
-     ones launched directly there, the general mask and legality and the
-     long-row clear and apply on 2x1056, where the wrappers pick them,
-     beside the general clear and apply launched directly there),
+     ones launched directly there, the long-row mask, clear, apply and
+     legality on 2x1056, where the wrappers pick them, beside the general
+     ones launched directly there, and the general ones on 2x4128, where
+     the wrappers pick them),
      and the launch floor (an empty launch's
      device time) beside the deal's; then the wide board's kernels timed
      in turns for 5 rounds, with the general mask, clear, apply and
@@ -134,8 +137,8 @@ which raises on failure (non-zero exit, no result line):
      with the five small pieces, whose line tables the wrappers refused
      before, the default engine (the u8 clear-kernel step on its tall
      kernels): ``big100_u8_jnp``, N = 64, 8 steps; 2x1056, rows of
-     more than 1024 cells, the general mask and the long-row apply and
-     clear: ``w1056_u8_pallas``, ``w1056_u8_jnp``, N = 256, 32 steps;
+     more than 1024 cells, the long-row mask, apply and clear:
+     ``w1056_u8_pallas``, ``w1056_u8_jnp``, N = 256, 32 steps;
      2x4128, rows of more than 4096 cells, the general mask, apply and
      clear: ``w4128_u8_pallas``, ``w4128_u8_jnp``, N = 64, 8 steps), counters set to
      0 before each and read after it: final states and summed rewards
@@ -143,7 +146,8 @@ which raises on failure (non-zero exit, no result line):
      engine launched exactly once per step and every other kernel never;
      then ``legal_all_pieces`` on the final boards against its plain
      version and the hand mask (beyond the presets the every-piece
-     instance the board takes, the general legality on 2x1056 and 2x4128: the paths
+     instance the board takes, the long-row one on 2x1056, the general
+     legality on 2x4128: the paths
      ``<board>_legal_all_pieces``); then the words rollout on
      33x9, 36x9 with regions and 130x8 on CUDA against the CPU (the paths
      ``tall_words``, ``tall36r3_words``, ``huge_words``);
@@ -346,23 +350,24 @@ XTALL_CASES = {"33x129": dict(height=33, width=129),
 # a board of more than 12288 cells and lines, whose line tables the
 # wrappers refused before: the default engine there (u8, the tall kernels)
 BIG100 = dict(height=100, width=124, piece_set="mini5")
-# rows of more than 1024 cells: the general u8 mask and legality and the
-# xwide clear's and apply's long-row instances, one env a warp, a lane up to
-# four words (the paths ``w1056_u8_pallas`` and ``w1056_u8_jnp``)
+# rows of more than 1024 cells: the u8 xwide kernels' long-row instances,
+# one env or env-slot a warp, a lane up to four words (the paths
+# ``w1056_u8_pallas``, ``w1056_u8_jnp`` and ``w1056_legal_all_pieces``)
 W1056 = dict(height=2, width=1056, piece_set="mini5")
-# the other such boards phase 1 holds the long-row clear and apply on
-# (tests/test_torch_xwide_rows.py): 33 words with a 6-bit top word, two
-# whole slots a lane, 3x3 regions across the lane-31 border (columns
-# 1023..1025) with a hand of three, and more than 32 rows (the windowed
-# form; its mask and legality, whose plain tables take 20 HW^2 bytes each,
-# are not built)
+# the other such boards phase 1 holds the long-row instances on
+# (tests/test_torch_xwide_rows.py, tests/test_torch_mask_rows.py): 33
+# words with a 6-bit top word, two whole slots a lane, 3x3 regions across
+# the lane-31 border (columns 1023..1025) with a hand of three, and more
+# than 32 rows (the clear's windowed form; its mask and legality are held
+# to the general ones alone: their plain tables take 20 HW^2 bytes each)
 XLONG_CASES = {"3x1030": dict(height=3, width=1030, piece_set="mini5"),
                "2x2048": dict(height=2, width=2048, piece_set="mini5"),
                "9x1035r3": dict(height=9, width=1035, region_clear=True, region_size=3,
                                 queue_size=3, piece_set="mini5"),
                "33x1025": dict(height=33, width=1025, piece_set="mini5")}
 # rows of more than 4096 cells: the general mask, clear, apply and legality
-# (the paths ``w4128_u8_pallas`` and ``w4128_u8_jnp``)
+# (the paths ``w4128_u8_pallas``, ``w4128_u8_jnp`` and
+# ``w4128_legal_all_pieces``)
 W4128 = dict(height=2, width=4128, piece_set="mini5")
 # kernel -> (source, the TPU kernel or jnp code it replaces, the path its
 # launches are read from)
@@ -377,8 +382,10 @@ KERNEL_INFO = {
                   "blockpuzzle_tpu/kernels/mask.py:85", "huge_u8_pallas"),
     "mask_xwide": ("blockpuzzle_tpu_torch/kernels/csrc/mask.cu",
                    "blockpuzzle_tpu/kernels/mask.py:85", "xtall_u8_pallas"),
+    "mask_xwide_long": ("blockpuzzle_tpu_torch/kernels/csrc/mask.cu",
+                        "blockpuzzle_tpu/kernels/mask.py:85", "w1056_u8_pallas"),
     "mask_general": ("blockpuzzle_tpu_torch/kernels/csrc/mask.cu",
-                     "blockpuzzle_tpu/kernels/mask.py:85", "w1056_u8_pallas"),
+                     "blockpuzzle_tpu/kernels/mask.py:85", "w4128_u8_pallas"),
     "apply": ("blockpuzzle_tpu_torch/kernels/csrc/collision.cu",
               "blockpuzzle_tpu/kernels/collision.py:164", "rollout_pallas"),
     "apply_wide": ("blockpuzzle_tpu_torch/kernels/csrc/clear.cu",
@@ -414,9 +421,12 @@ KERNEL_INFO = {
                             f"{board}_legal_all_pieces")
        for kind, board in (("wide", "wide"), ("tall", "tall"), ("deep", "huge"),
                            ("xwide", "xtall"))},
+    "legality_xwide_long": ("blockpuzzle_tpu_torch/kernels/csrc/mask.cu",
+                            "blockpuzzle_tpu/kernels/collision.py:50",
+                            "w1056_legal_all_pieces"),
     "legality_general": ("blockpuzzle_tpu_torch/kernels/csrc/legality.cu",
                          "blockpuzzle_tpu/kernels/collision.py:50",
-                         "w1056_legal_all_pieces"),
+                         "w4128_legal_all_pieces"),
     "packed_apply": ("blockpuzzle_tpu_torch/kernels/csrc/packed_apply.cu",
                      "blockpuzzle_tpu/env/core.py:962", "rollout"),
     "packed_mask": ("blockpuzzle_tpu_torch/kernels/csrc/packed_mask.cu",
@@ -484,6 +494,7 @@ def kernel_counters(env) -> dict:
             "mask_tall": (env.mask_kernel, "tall_launches"),
             "mask_deep": (env.mask_kernel, "deep_launches"),
             "mask_xwide": (env.mask_kernel, "xwide_launches"),
+            "mask_xwide_long": (env.mask_kernel, "xwide_long_launches"),
             "mask_general": (env.mask_kernel, "general_launches"),
             "apply": (env.apply_kernel, "launches"),
             "apply_wide": (env.apply_kernel, "wide_launches"),
@@ -501,7 +512,7 @@ def kernel_counters(env) -> dict:
             "clear_general": (env.clear_kernel, "general_launches"),
             "legality": (env.legal_kernel, "launches"),
             **{f"legality_{kind}": (env.legal_kernel, f"{kind}_launches")
-               for kind in ("wide", "tall", "deep", "xwide", "general")},
+               for kind in ("wide", "tall", "deep", "xwide", "xwide_long", "general")},
             **{f"packed_{k}{s}": (getattr(env, f"packed_{k}_kernel"), f"{s[1:]}_launches"
                                    if s else "launches")
                for k in ("apply", "mask") for s in ("", "_tall", "_general")},
@@ -701,15 +712,14 @@ def u8_kernel_names(cfg) -> tuple:
     W <= 128, the deep ones where H > 128 and W <= 128 (the boards phase 1
     and 2 run: each fits a block of the deep mask, of the deep apply and of
     the deep legality), the xwide ones where 128 < W <= 1024 at any height
-    (the boards phases 1 and 2 run: each fits a block of one warp), the
-    general kernels elsewhere, but for the clear's and the apply's long-row
-    xwide instances where 1024 < W <= 4096."""
+    and their long-row instances where 1024 < W <= 4096 (the boards phases
+    1 and 2 run: each fits a block of one warp), the general kernels
+    elsewhere."""
     if cfg.height <= 32 and cfg.width <= 32:
         return "mask", "clear", "apply", "legality"
-    if 1024 < cfg.width <= 4096:
-        return "mask_general", "clear_xwide_long", "apply_xwide_long", "legality_general"
     if cfg.width > 128:
-        kind = "xwide" if cfg.width <= 1024 else "general"
+        kind = ("xwide" if cfg.width <= 1024 else "xwide_long" if cfg.width <= 4096
+                else "general")
     else:
         kind = "wide" if cfg.height <= 32 else "tall" if cfg.height <= 128 else "deep"
     return tuple(f"{k}_{kind}" for k in ("mask", "clear", "apply", "legality"))
@@ -1216,23 +1226,23 @@ def phase1_xwide(errs: dict, times: dict, bounds: dict) -> None:
 
 def phase1_long(errs: dict, times: dict, bounds: dict) -> None:
     """Phase 1 on rows of more than 1024 cells: on 2x1056 (``W1056``) and
-    ``XLONG_CASES`` at N = 4096 and 4095 the clear's and the apply's
-    long-row xwide instances (clear_xwide_long, apply_xwide_long: one env a
-    warp, lane l holding words l + 32 j of every row) against their plain
-    versions and against the general clear and apply launched directly on
-    the same inputs (``general_calls``, ``general_apply``), an illegal
-    action on a full line through the apply, and the general mask and
-    legality the wrappers pick there against their plain versions (but on
-    the board of more than 32 rows, whose plain tables those two would take
-    20 HW^2 bytes each for); on 2x4128 (``W4128``), rows too wide for the
-    long-row instances, the four general kernels the wrappers pick, against
-    their plain versions.  Times, at N = 49152 on 2x1056, the kernels of the
-    paths ``w1056_u8_pallas`` and ``w1056_u8_jnp`` (mask_general,
-    clear_xwide_long, apply_xwide_long, legality_general) and the general
-    clear and apply launched directly on the same inputs (clear_general,
-    apply_general, whose launches the ``w4128`` paths read) into ``times``
-    and ``bounds``, and prints each long-row instance's time beside its
-    bound and the general kernel's."""
+    ``XLONG_CASES`` at N = 4096 and 4095 the long-row xwide instances of the
+    mask, clear, apply and legality (mask_xwide_long, clear_xwide_long,
+    apply_xwide_long, legality_xwide_long: one env or env-slot a warp, lane
+    l holding words l + 32 j of every row) against their plain versions
+    (but the mask's and the legality's on the board of more than 32 rows,
+    whose plain tables would take 20 HW^2 bytes each) and against the
+    general kernels launched directly on the same inputs
+    (``general_calls``, ``general_apply``, ``general_legality``), and an
+    illegal action on a full line through the apply; on 2x4128
+    (``W4128``), rows too wide for the long-row instances, the four general
+    kernels the wrappers pick, against their plain versions.  Times, at
+    N = 49152, the kernels the wrappers pick into ``times`` and ``bounds``:
+    on 2x1056 the four long-row instances (the kernels of the paths
+    ``w1056_u8_pallas``, ``w1056_u8_jnp`` and ``w1056_legal_all_pieces``),
+    each printed beside its bound and the general kernel launched directly
+    on the same inputs; on 2x4128 the four general kernels (whose launches
+    the ``w4128`` paths read), each beside its bound."""
     import torch
 
     from blockpuzzle_tpu_torch import rules
@@ -1247,14 +1257,15 @@ def phase1_long(errs: dict, times: dict, bounds: dict) -> None:
         cfg = EnvConfig(**shape)
         names = u8_kernel_names(cfg)
         mask_name, clear_name, apply_name, legal_name = names
-        small = cfg.height <= 32             # the mask's and legality's tables fit
-        ck, ak = ClearScanKernel(cfg, dev), ApplyKernel(cfg, dev)
-        mk, lk = (MaskKernel(cfg, dev), LegalityKernel(cfg, dev)) if small else (None, None)
-        got = tuple(w.name if w is not None else k for w, k in zip((mk, ck, ak, lk), names))
+        small = cfg.height <= 32             # the mask's and legality's plain tables fit
+        mk, ck, ak = MaskKernel(cfg, dev), ClearScanKernel(cfg, dev), ApplyKernel(cfg, dev)
+        lk = LegalityKernel(cfg, dev)
+        got = (mk.name, ck.name, ak.name, lk.name)
         if got != names:
             raise AssertionError(f"{name}: the u8 wrappers picked {got}")
-        _, general_clear = general_calls(cfg, mk, ck)
+        general_mask, general_clear = general_calls(cfg, mk, ck)
         replaced_apply = general_apply(cfg, ak)
+        replaced_legality = general_legality(cfg, lk)
         long = ck.kind == "xwide"
         rows = plain_rows(cfg)
         for n in (4096, 4095):
@@ -1265,25 +1276,19 @@ def phase1_long(errs: dict, times: dict, bounds: dict) -> None:
             check_equal(cleared, ck.plain(board), what, errs, clear_name)
             outs = ak(board, cover, valid)
             check_equal(outs, ak.plain(board, cover, valid), what, errs, apply_name)
+            mask, legal_all = mk(board, queue), lk(board)
+            if small:
+                check_equal([mask], [chunked(mk.plain, board, queue, rows=rows)], what, errs,
+                            mask_name)
+                check_equal([legal_all], [chunked(lk.plain, board, rows=rows)], what, errs,
+                            legal_name)
             if long:
+                check_equal([general_mask(board, queue)], [mask], what, errs, "mask_general")
                 check_equal(general_clear(board), cleared, what, errs, "clear_general")
                 check_equal(replaced_apply(board, cover, valid), outs, what, errs,
                             "apply_general")
-            line = (f"[phase1] {what}: {clear_name} k {int(cleared[1].sum())}, {apply_name} "
-                    f"legal {int(outs[2].sum())}, k {int(outs[1].sum())}")
-            if small:
-                mask = mk(board, queue)
-                check_equal([mask], [chunked(mk.plain, board, queue, rows=rows)], what, errs,
-                            mask_name)
-                legal_all = lk(board)
-                check_equal([legal_all], [chunked(lk.plain, board, rows=rows)], what, errs,
-                            legal_name)
-                if not (0 < float(mask.float().mean()) < 1
-                        and 0 < float(legal_all.float().mean()) < 1):
-                    raise AssertionError(f"{name}: no mask or legality to test ({what})")
-                line += (f", {mask_name} legal share {float(mask.float().mean()):.4f}, "
-                         f"{legal_name} share {float(legal_all.float().mean()):.4f}")
-                del mask, legal_all
+                check_equal([replaced_legality(board)], [legal_all], what, errs,
+                            "legality_general")
             b2, c2, v2, _, _, _ = (
                 torch.as_tensor(x, device=dev) for x in illegal_on_full_line(cfg, n))
             nb, k2, l2 = ak(b2, c2, v2)
@@ -1292,41 +1297,54 @@ def phase1_long(errs: dict, times: dict, bounds: dict) -> None:
             if int(cleared[1].sum()) == 0 or int(outs[1].sum()) == 0 or not (
                     0 < int(outs[2].sum()) < n):
                 raise AssertionError(f"{name}: nothing cleared or no legality ({what})")
-            print(line + ": u8 kernels == plain (bit-equal)"
-                  + (f", {clear_name} and {apply_name} == the general clear and apply "
-                     "launched directly" if long else ""))
-            del cleared, outs
+            if not (0 < float(mask.float().mean()) < 1
+                    and 0 < float(legal_all.float().mean()) < 1):
+                raise AssertionError(f"{name}: no mask or legality to test ({what})")
+            held = ("plain" if small else "the general kernels launched directly alone")
+            print(f"[phase1] {what}: {clear_name} k {int(cleared[1].sum())}, {apply_name} "
+                  f"legal {int(outs[2].sum())}, k {int(outs[1].sum())}, {mask_name} legal "
+                  f"share {float(mask.float().mean()):.4f}, {legal_name} share "
+                  f"{float(legal_all.float().mean()):.4f}: {clear_name} and {apply_name} == "
+                  f"plain, {mask_name} and {legal_name} == {held} (bit-equal)"
+                  + (", all four == the general kernels launched directly" if long else ""))
+            del cleared, outs, mask, legal_all
         if not small:                        # 5 HW^2 bytes of rule tables
             del rules._TABLE_CACHE[cfg], mk, ck, ak, lk
             continue
-        if name != "2x1056":
+        if name not in ("2x1056", "2x4128"):
             continue
         board, queue, cover, valid, attrs, r, c = (
             torch.as_tensor(x, device=dev) for x in kernel_inputs(cfg, N_MAIN, seed=0))
+        # the kernels the wrappers pick: the long-row instances on 2x1056,
+        # the general kernels on 2x4128, where the w4128 paths launch them
         kernels = {mask_name: (lambda: mk(board, queue),
                                lambda: chunked(mk.plain, board, queue, rows=rows)),
                    clear_name: (lambda: ck(board), lambda: ck.plain(board)),
                    apply_name: (lambda: ak(board, cover, valid),
                                 lambda: ak.plain(board, cover, valid)),
-                   legal_name: (lambda: lk(board), lambda: chunked(lk.plain, board, rows=rows)),
-                   "clear_general": (lambda: general_clear(board), lambda: ck.plain(board)),
-                   "apply_general": (lambda: replaced_apply(board, cover, valid),
-                                     lambda: ak.plain(board, cover, valid))}
+                   legal_name: (lambda: lk(board), lambda: chunked(lk.plain, board, rows=rows))}
+        general = {"mask_general": lambda: general_mask(board, queue),
+                   "clear_general": lambda: general_clear(board),
+                   "apply_general": lambda: replaced_apply(board, cover, valid),
+                   "legality_general": lambda: replaced_legality(board)} if long else {}
         here = kernel_bounds(cfg, board, queue, cover, valid, None, attrs, r, c,
-                             {k: f() for k, (f, _) in kernels.items()})
+                             {k: f() for k, f in {**{k: f for k, (f, _) in kernels.items()},
+                                                  **general}.items()})
         for k, (f, plain) in kernels.items():
             times[k] = (cuda_ms(f), host_paced_ms(plain, iters=10, warmup=1))
             bounds[k] = dict(here[k], where=f"long {name}")
-        for k in kernels:
             b, ms = here[k], times[k][0]
             line = (f"[phase1] {k} {name} N={N_MAIN}: {ms:.6f} ms, "
                     f"{100 * b['bound_ms'] / ms:.1f}% of its {b['bound_ms']:.6f} ms bound by "
                     f"{b['bound_by']}")
-            if k.endswith("_long"):
+            if long:
                 old = k.replace("_xwide_long", "_general")
-                line += (f"; the {old} it replaces {times[old][0]:.6f} ms, launched directly "
-                         f"on the same inputs (bit-equal), {times[old][0] / ms:.2f}x")
+                old_ms = cuda_ms(general[old])
+                line += (f"; the {old} it replaces {old_ms:.6f} ms, launched directly on the "
+                         f"same inputs (bit-equal), {old_ms / ms:.2f}x")
             print(line)
+        rules._TABLE_CACHE.pop(cfg, None)
+        del mk, ck, ak, lk, kernels, general, board, queue, cover, valid
 
 
 def general_legality(cfg, lk, lib=None):
@@ -2129,11 +2147,12 @@ def phase2():
         # the plain u8 mask's product grows with the square of the cells
         "huge": (EnvConfig(**HUGE), ("packed", "pallas", "jnp"), 256, 32),
         # rows of more than 128 cells: the xwide u8 mask's and clear's
-        # paths, and past 1024 cells the general ones'
+        # paths, and past 1024 cells their long-row instances'
         "xwide": (EnvConfig(**XWIDE), ("pallas", "jnp"), 256, 32),
         "xtall": (EnvConfig(**XTALL), ("pallas", "jnp"), 128, 16),
         "w1056": (EnvConfig(**W1056), ("pallas", "jnp"), 256, 32),
-        # past 4096 cells a row: the general clear's and apply's paths
+        # past 4096 cells a row: the general mask's, clear's, apply's and
+        # legality's paths
         "w4128": (EnvConfig(**W4128), ("pallas", "jnp"), 64, 8),
         # more than 12288 cells and lines: the default engine, u8
         "big100": (EnvConfig(**BIG100), ("default",), 64, 8),
@@ -3471,6 +3490,8 @@ def main() -> int:
 
     kernels = []
     for name, (source, replaces, path) in KERNEL_INFO.items():
+        if paths[path][name] == 0:
+            raise AssertionError(f"{name} was launched no time on its path {path}")
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
                         "pallas_source": name not in NO_PALLAS_SOURCE,

@@ -1096,12 +1096,12 @@ def test_wrappers_never_fall_back_off_cpu():
     # the same on a board that takes the wide mask, clear, apply and
     # legality, on one that takes the tall ones, on one that takes the deep
     # ones, on one that takes the xwide ones, on one whose rows take the
-    # general mask and legality and the xwide clear and apply (one env a
-    # warp), and on one that takes the general kernels of all four
+    # xwide kernels' long-row instances (one env or env-slot a warp), and on
+    # one that takes the general kernels of all four
     for shape, kinds in ((WIDE40, ("wide",) * 4), (dict(height=33, width=9), ("tall",) * 4),
                          (dict(height=130, width=9), ("deep",) * 4),
                          (dict(height=8, width=136), ("xwide",) * 4),
-                         (dict(height=1, width=1056), ("general", "xwide", "xwide", "general")),
+                         (dict(height=1, width=1056), ("xwide",) * 4),
                          (dict(height=1, width=4128), ("general",) * 4)):
         cfg = tcfg.EnvConfig(**shape)
         board = torch.zeros(4, cfg.num_cells, dtype=torch.uint8, device=meta)

@@ -12,9 +12,10 @@ the tables and launch shapes the wrapper hands the kernels and boards
 staged at byte offsets 0, 3 and 13; they are held bit-equal to the
 wrapper's plain version, to the JAX Pallas legality kernel in interpret
 mode and to the JAX u8 engine's ``legal_all_pieces``. The general kernel
-stays for rows of more than 1024 cells (2x1056); boards of more than 32
+stays for rows of more than 4096 cells (2x4128); boards of more than 32
 rows of 129 to 1024 cells take the xwide instance
-(``test_torch_xwide_tall.py``). The kernels themselves
+(``test_torch_xwide_tall.py``), rows of 1025 to 4096 cells its long-row
+instance (``test_torch_mask_rows.py``). The kernels themselves
 run only on the card (``chip_smoke.py``). Everything is bool and must be
 bit-equal.
 """
@@ -172,20 +173,28 @@ def test_legality_launch_shapes_are_the_masks_at_every_piece(case):
 
 
 def test_legality_keeps_the_general_kernel_beyond_the_instances():
-    """Rows of more than 1024 cells (2x1056, 3x1030) keep the general
+    """Rows of more than 4096 cells (2x4128, 1x4128) keep the general
     legality, with the per-cell piece table; so would a deep board whose
     one-warp block passes what a block may opt in to (1000x128) and an
     xwide one whose one-warp block does (2000x1024), which no mask kernel
     takes at S = P (their tables, built by the wrapper, are not built here:
-    they would take hundreds of GB); boards of more than 32 rows of 129 to
-    1024 cells (33x129) take the xwide instance, the hand mask's xwide
-    kernel at S = P; the presets keep the bit-row kernel."""
-    for cfg in (tcfg.EnvConfig(height=2, width=1056, piece_set="mini5"),
-                tcfg.EnvConfig(height=3, width=1030, piece_set="mini5")):
+    they would take hundreds of GB); rows of 1025 to 4096 cells (2x1056,
+    3x1030) take the xwide kernel's long-row instance, and boards of more
+    than 32 rows of 129 to 1024 cells (33x129) the xwide instance, each the
+    hand mask's kernel at S = P; the presets keep the bit-row kernel."""
+    for cfg in (tcfg.EnvConfig(height=2, width=4128, piece_set="mini5"),
+                tcfg.EnvConfig(height=1, width=4128, piece_set="mini5")):
         lk = LegalityKernel(cfg, "cpu")
         assert (lk.kind, lk.name, lk.shape) == ("general", "legality_general", None)
         assert every_piece_shape(cfg) is None
         np.testing.assert_array_equal(lk.piece_table.numpy(), piece_table(cfg))
+    for cfg in (tcfg.EnvConfig(height=2, width=1056, piece_set="mini5"),
+                tcfg.EnvConfig(height=3, width=1030, piece_set="mini5")):
+        lk = LegalityKernel(cfg, "cpu")
+        every = dataclasses.replace(cfg, queue_size=5)
+        assert (lk.kind, lk.name) == ("xwide", "legality_xwide_long")
+        assert lk.shape == every_piece_shape(cfg) == u8_launch_shape(every) == (1, 4)
+        np.testing.assert_array_equal(lk.piece_table.numpy(), piece_rows_table(cfg))
     cfg = tcfg.EnvConfig(height=33, width=129, piece_set="mini5")
     every = dataclasses.replace(cfg, queue_size=5)
     lk = LegalityKernel(cfg, "cpu")

@@ -10,8 +10,8 @@ W > 32) and ``"pallas"`` (the mask with the apply kernel), runs in
 lockstep with JAX's ``make_env(cfg, state_impl="u8")`` on 8x40, 33x9,
 36x9 with 3x3 regions and a hand of three, 130x8, 8x136, 40x136 (the
 xwide mask, clear and apply above 32 rows) and 2x1056 with the five small
-pieces (rows of more than 1024 cells: the general mask and the xwide
-clear's and apply's long-row instances): half the
+pieces (rows of more than 1024 cells: the xwide mask's, clear's and
+apply's long-row instances): half the
 boards dense (a hole a row, up to three empty rows on top) so that games
 end, half 55% full; injected deals; auto-reset; uniform-legal, raw-argmax
 (sometimes illegal) and arbitrary (illegal, out-of-range) actions.  On

@@ -48,7 +48,7 @@ from blockpuzzle_tpu_torch import rules
 from blockpuzzle_tpu_torch.kernels import ApplyKernel, ClearScanKernel, MaskKernel
 from blockpuzzle_tpu_torch.kernels.mask import piece_rows_table
 from blockpuzzle_tpu_torch.kernels.packed import (
-    MAX_XWIDE, SMEM_OPT_IN, U32, XWIDE_APPLY_WARPS, XWIDE_WARPS, apply_launch_shape,
+    SMEM_OPT_IN, U32, XWIDE_APPLY_WARPS, XWIDE_SEGMENT, XWIDE_WARPS, apply_launch_shape,
     xwide_apply_smem_bytes, xwide_launch_shape, xwide_smem_bytes, xwide_windows,
 )
 from blockpuzzle_tpu_torch.utils.bounds import COSTS
@@ -618,8 +618,8 @@ def test_xwide_launch_shapes_fit():
     assert xwide_launch_shape(cfg) == (6, XWIDE_WARPS)
     assert xwide_smem_bytes(cfg, 24) == 19200
     assert xwide_smem_bytes(dataclasses.replace(cfg, queue_size=3), 24) == 4 * (24 + 9) * 200
-    for shape in (dict(height=8, width=128), dict(height=1, width=MAX_XWIDE + 32),
-                  dict(height=40, width=MAX_XWIDE + 1)):
+    for shape in (dict(height=8, width=128), dict(height=1, width=XWIDE_SEGMENT + 32),
+                  dict(height=40, width=XWIDE_SEGMENT + 1)):
         assert xwide_launch_shape(tcfg.EnvConfig(**shape)) is None
 
 

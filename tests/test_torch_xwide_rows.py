@@ -10,8 +10,8 @@ no word). A row is full when each of a lane's slots is (the AND over them,
 then one reduction over the warp); the top word's pad bits belong to word
 NW - 1 wherever it lies; a 3x3 region's field may cross from word 32 j + 31
 (lane 31, slot j) to word 32 (j + 1) (lane 0, slot j + 1), which the band
-shuffles round the warp carry. The mask and the all-pieces legality keep
-their general kernels there. Numpy emulations of the NJ form (every lane of
+shuffles round the warp carry. The mask and the all-pieces legality take
+their own long-row instances there (``test_torch_mask_rows.py``). Numpy emulations of the NJ form (every lane of
 a block at once, as (warps, 32, NJ) arrays), fed the tables and launch
 shapes the wrappers hand the kernels and boards staged at byte offsets 0,
 3 and 13, are held bit-equal to the wrappers' plain versions and to the
@@ -47,7 +47,7 @@ from blockpuzzle_tpu_torch.kernels import (
 from blockpuzzle_tpu_torch.kernels.clear import check_general_fits
 from blockpuzzle_tpu_torch.kernels.collision import every_piece_shape
 from blockpuzzle_tpu_torch.kernels.packed import (
-    MAX_XWIDE, MAX_XWIDE_CLEAR, SMEM_OPT_IN, U32, XWIDE_APPLY_WARPS, XWIDE_WARPS,
+    MAX_XWIDE, SMEM_OPT_IN, U32, XWIDE_APPLY_WARPS, XWIDE_SEGMENT, XWIDE_WARPS,
     apply_launch_shape, clear_launch_shape, u8_launch_shape, xwide_apply_smem_bytes,
     xwide_clear_smem_bytes, xwide_windows,
 )
@@ -302,7 +302,8 @@ def assert_long_apply_cases(cfg, board, want):
 def test_long_rows_wrappers_pick_the_xwide_clear_and_apply(case):
     """Rows of 1025 to 4096 cells: the clear and the apply take the xwide
     kernel's long-row instances (one env a warp, ``XWIDE_WARPS`` warps a
-    block), the mask and the legality their general kernels."""
+    block), and so do the mask and the legality (one env-slot a warp; the
+    mask's launch shape, at S and at S = P)."""
     _, ct = _pair(case)
     ck, ak = ClearScanKernel(ct, "cpu"), ApplyKernel(ct, "cpu")
     assert (ck.kind, ck.instance, ck.name, ck.shape) == (
@@ -310,11 +311,12 @@ def test_long_rows_wrappers_pick_the_xwide_clear_and_apply(case):
     assert (ak.kind, ak.instance, ak.name, ak.shape) == (
         "xwide", "xwide_long", "apply_xwide_long", (1, XWIDE_WARPS))
     assert ck.xwide_long_launches == ak.xwide_long_launches == 0
-    assert u8_launch_shape(ct) is None and every_piece_shape(ct) is None
-    if ct.num_cells <= 4096:  # (their plain tables take 20 HW^2 bytes each)
+    assert u8_launch_shape(ct) == every_piece_shape(ct) == (1, XWIDE_WARPS)
+    if ct.num_cells <= 4096:  # (their rule tables take 5 HW^2 bytes)
         mk, lk = MaskKernel(ct, "cpu"), LegalityKernel(ct, "cpu")
-        assert (mk.kind, mk.name, mk.shape) == ("general", "mask_general", None)
-        assert (lk.kind, lk.name, lk.shape) == ("general", "legality_general", None)
+        assert (mk.kind, mk.name, mk.shape) == ("xwide", "mask_xwide_long", (1, XWIDE_WARPS))
+        assert (lk.kind, lk.name, lk.shape) == ("xwide", "legality_xwide_long",
+                                                (1, XWIDE_WARPS))
 
 
 @pytest.mark.parametrize("case", LONG)
@@ -564,19 +566,19 @@ def test_long_rows_launch_shapes_fit():
     # one warp's 1000 rows of 128 words pass 227 KB; 400 rows fit
     assert clear_launch_shape(tcfg.EnvConfig(height=1000, width=4096)) is None
     assert clear_launch_shape(tcfg.EnvConfig(height=400, width=4096)) == (1, 1)
-    for w in (MAX_XWIDE_CLEAR + 1, 4128, 5000):
+    for w in (MAX_XWIDE + 1, 4128, 5000):
         cfg = tcfg.EnvConfig(height=2, width=w)
         assert clear_launch_shape(cfg) is None and apply_launch_shape(cfg) is None
-    assert MAX_XWIDE_CLEAR == 4 * 32 * 32                    # NJ = 4 at most
-    # up to MAX_XWIDE cells a row the clear keeps the mask's launch shape
+    assert MAX_XWIDE == 4 * 32 * 32                          # NJ = 4 at most
+    # up to XWIDE_SEGMENT cells a row the clear keeps the mask's launch shape
     for h, w in ((10, 10), (8, 40), (33, 9), (130, 8), (8, 136), (40, 136), (600, 136),
-                 (2, MAX_XWIDE), (2000, MAX_XWIDE)):
+                 (2, XWIDE_SEGMENT), (2000, XWIDE_SEGMENT)):
         cfg = tcfg.EnvConfig(height=h, width=w)
         assert clear_launch_shape(cfg) == u8_launch_shape(cfg)
 
 
 def test_rows_past_4096_cells_keep_the_general_clear_and_apply():
-    """1x4128 (129 words a row, past the NJ = 4 instance): the clear, the
+    """1x4128 (129 words a row, past the NJ = 4 instances): the clear, the
     apply, the mask and the legality keep their general kernels (whose
     one-warp block stages the board and its line flags), and the clear's
     plain version equals the Pallas clear kernel in interpret mode on
